@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the four CUDA kernels of the decode path from vpcc_tpu_torch/csrc
-   (one nvcc per source, in parallel) and prints the build seconds;
+2. builds the eight CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
+   source, all started together) and prints the build seconds;
+
+the decode path (kernels A-D):
 3. decodes the committed 8-frame vox10 fixture once (warm-up), keeping each
    kernel's largest call as its main-path input (for the wavefront decode,
    the largest with the most inter-coded samples: a P-frame plane);
@@ -15,7 +17,22 @@
    `vpcc_tpu_torch.Decoder(device="cuda")`, checks every frame's point count
    and md5 against the digests the JAX decoder recorded, prints warm seconds
    per frame, and requires every kernel to have launched on that path;
-6. prints one JSON line describing the kernels, then the result line.
+
+the encoder front end (kernels E-H):
+6. makes the 8 bench frames from their seeds and runs
+   `vpcc_tpu_torch.encoder.Encoder(cfg, device="cuda").encode_gof_front`
+   once (warm-up), keeping each kernel's largest call;
+7. holds each kernel against its plain version there (k-NN, CC labels and
+   coverage exactly; the segment kernel's partitions exactly given the same
+   normals, its normals to NORMAL_ATOL) and times both in turns;
+8. with all launch counters at 0, runs the front end over the GOF again,
+   prints warm seconds per frame and the stage split, requires the k-NN
+   digests to equal the JAX package's and the partition agreement to reach
+   PARTITION_FLOOR, and requires every kernel E-H to have launched;
+9. runs the patch-generation half driven by the committed JAX partitions
+   and requires all 8 frames' patches, atlas, occupancy video and
+   block-to-patch to equal the JAX digests;
+10. prints one JSON line describing the kernels, then the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -34,8 +51,16 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-FIXTURE = ROOT / "vpcc_tpu_torch" / "data" / "person_vox10_r3_gof8.vpcc"
-DIGESTS = ROOT / "vpcc_tpu_torch" / "data" / "person_vox10_r3_gof8_digests.json"
+DATA = ROOT / "vpcc_tpu_torch" / "data"
+FIXTURE = DATA / "person_vox10_r3_gof8.vpcc"
+DIGESTS = DATA / "person_vox10_r3_gof8_digests.json"
+FRONT_DIGESTS = DATA / "person_vox10_front_digests.json"
+FRONT_PARTITIONS = DATA / "person_vox10_front_partitions.npz"
+# the floor tests/test_torch_segmentation.py pins for the partition
+# agreement with the JAX package, and the normals' tolerance (the kernel's
+# acosf/cosf against PyTorch's on the card)
+PARTITION_FLOOR = 0.998
+NORMAL_ATOL = 1e-5
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core float32 peak, used for int32 too
@@ -49,7 +74,17 @@ KERNEL_INFO = {
                         "vpcc_tpu/ops/reconstruct.py:61"),
     "grid_smooth": ("vpcc_tpu_torch/csrc/grid_smooth.cu",
                     "vpcc_tpu/ops/smoothing.py:51"),
+    "grid_knn": ("vpcc_tpu_torch/csrc/grid_knn.cu",
+                 "vpcc_tpu/ops/neighbors.py:162"),
+    "segment": ("vpcc_tpu_torch/csrc/segment.cu",
+                "vpcc_tpu/ops/normals.py:72"),
+    "cc_labels": ("vpcc_tpu_torch/csrc/cc_labels.cu",
+                  "vpcc_tpu/ops/cc.py:31"),
+    "coverage": ("vpcc_tpu_torch/csrc/coverage.cu",
+                 "vpcc_tpu/ops/coverage.py:100"),
 }
+DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
+FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
 
 
 def frame_digest(positions, colors) -> str:
@@ -172,43 +207,80 @@ def bounds(name, args, out):
         occ, g0, g1, btp, ptab = args[:5]
         byt = nbytes(occ, g0, g1, btp, ptab, *out)
         ops = 0.0
-    else:
+    elif name == "grid_smooth":
         pos, pid, bnd = args[:3]
         byt = nbytes(pos, pid, bnd, out)
+        ops = 0.0
+    elif name == "grid_knn":
+        grid, q = args[:2]
+        probes, cands = knn_work(grid, q, 3 * 6)
+        # the starts entries the queries probe, the table and order, the
+        # queries; out idx and d2.  Per candidate: unpack, 3 differences,
+        # squared distance, compare (12 integer operations)
+        byt = probes * 4 + nbytes(grid.table, grid.order, q, *out)
+        ops = 12.0 * cands
+    elif name == "segment":
+        pos, idx, valid = args[:3]
+        V, K = idx.shape
+        J, n_orient, n_refine = 6, 8, 10
+        byt = nbytes(pos, idx, valid, *out)
+        # per voxel: mean + deviations + 6 covariance FMAs over K, the
+        # eigen solver (~120), the radial sign, 8 sweeps of K signed dot
+        # products, the initial argmax, 10 sweeps of K votes over J plus J
+        # scores
+        per = (25 * K + 120 + 8 + n_orient * (9 * K + 3) + 6 * J
+               + n_refine * (2 * J * K + 7 * J + 1))
+        ops = float(per) * V
+    elif name == "cc_labels":
+        byt = nbytes(*args[:4], out)
+        ops = 0.0
+    else:  # coverage
+        res_packed, queries = args[:2]
+        byt = nbytes(res_packed, queries, *out)
         ops = 0.0
     t_bytes = byt / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
+def knn_work(grid, q, win):
+    """(distinct starts entries probed, candidates scanned) of a k-NN call:
+    the data-dependent part of kernel E's bound."""
+    g = grid.cells_per_axis
+    qc = (q >> grid.cell_bits).long()
+    off = torch.tensor([[dx, dy] for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+                       device=q.device)
+    ncx = qc[:, 0:1] + off[None, :, 0]
+    ncy = qc[:, 1:2] + off[None, :, 1]
+    ok = ((ncx >= 0) & (ncx < g) & (ncy >= 0) & (ncy < g)
+          & (qc[:, 2:3] >= 0) & (qc[:, 2:3] < g))
+    base = (ncx * g + ncy) * g
+    clo = base + (qc[:, 2:3] - 1).clamp(min=0)
+    chi1 = base + (qc[:, 2:3] + 1).clamp(max=g - 1) + 1
+    starts = grid.starts.long()
+    cnt = (starts[chi1.clamp(0, g ** 3)] - starts[clo.clamp(0, g ** 3)]).clamp(0, win)
+    cands = int((cnt * ok).sum())
+    probes = int(torch.unique(torch.cat([clo[ok], chi1[ok]])).numel())
+    return probes, cands
+
+
+def time_turns(kern, plain, reps_k=20, reps_p=3):
+    """(kernel ms, plain ms) means of two runs each, in turns (plain,
+    kernel, kernel, plain)."""
+    p1 = time_ms(plain, reps_p)
+    k1 = time_ms(kern, reps_k)
+    k2 = time_ms(kern, reps_k)
+    p2 = time_ms(plain, reps_p)
+    return (k1, k2), (p1, p2)
+
+
+def decode_phase(dev):
+    """Steps 3-5: kernels A-D on the decode path.  Returns (rows, launches)."""
     import numpy as np
 
-    from vpcc_tpu_torch import device as dev
     from vpcc_tpu_torch.decoder import Decoder
     from vpcc_tpu_torch.ops import reconstruct, smoothing
     from vpcc_tpu_torch.video import hevc
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"card: {smi}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
-
-    t0 = time.perf_counter()
-    secs = dev.build_kernels()
-    print(f"build: {time.perf_counter() - t0:.1f}s wall "
-          + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()))
-    for name, log in dev.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
 
     stream = FIXTURE.read_bytes()
     digests = json.loads(DIGESTS.read_text())
@@ -255,11 +327,8 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version "
                                  f"(max abs err {err})")
-        reps_k, reps_p = 20, 3
-        p1 = time_ms(lambda: plain(*args, **kw), reps_p)
-        k1 = time_ms(lambda: kern(*args, **kw), reps_k)
-        k2 = time_ms(lambda: kern(*args, **kw), reps_k)
-        p2 = time_ms(lambda: plain(*args, **kw), reps_p)
+        (k1, k2), (p1, p2) = time_turns(lambda: kern(*args, **kw),
+                                        lambda: plain(*args, **kw))
         b_ms, b_by = bounds(name, args, out_k)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         print(f"{name}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
@@ -291,9 +360,243 @@ def main() -> int:
           f"s/frame; all {n_frames} frames match the JAX digests "
           f"(points {[pc.point_count for pc in frames]})")
     print(f"launches on the decode path: {launches}")
-    idle = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
+    idle = [k for k in DECODE_KERNELS if launches.get(k, 0) == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the decode path: {idle}")
+    return rows, launches
+
+
+def front_digests(fr):
+    """The digests the JAX front-end reference data holds, for one frame."""
+    import numpy as np
+
+    from vpcc_tpu_torch.utils.checksum import array_md5, patches_md5
+
+    return dict(
+        patches=len(fr.patches), patches_md5=patches_md5(fr.patches),
+        width=fr.width, height=fr.height,
+        occupancy_md5=array_md5(fr.frame.occupancy, np.uint8),
+        geometry0_md5=array_md5(fr.frame.geometry0, "<u2"),
+        geometry1_md5=array_md5(fr.frame.geometry1, "<u2"),
+        occ_video_md5=array_md5(fr.occ_video, np.uint8),
+        block_to_patch_md5=array_md5(fr.block_to_patch, "<i4"),
+    )
+
+
+def segment_chain(normals, segmentation, pos, idx, valid, plain: bool):
+    """Kernel F's four stages on one voxel graph, as the encoder runs them;
+    with `plain`, their plain versions.  Returns (pca, oriented, initial,
+    refined)."""
+    rows = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    o = torch.as_tensor(segmentation.ORIENTATIONS6, device=pos.device)
+    w = torch.ones(6, dtype=torch.float32, device=pos.device)
+    if plain:
+        pca = normals.pca_normals_plain(pos, idx, valid)
+        nrm = normals.orient_normals_plain(pos, pca, idx, valid, rows)
+        p0 = segmentation.initial_segmentation_plain(nrm, o, w)
+        return pca, nrm, p0, segmentation.refine_segmentation_plain(nrm, p0, idx, valid, o, 3.0, 10)
+    pca = normals.pca_normals(pos, idx, valid)
+    nrm = normals.orient_normals(pos, pca, idx, valid, rows)
+    p0 = segmentation.initial_segmentation(nrm, o, w)
+    return pca, nrm, p0, segmentation.refine_segmentation(nrm, p0, idx, valid, o, 3.0, 10)
+
+
+def front_phase(dev):
+    """Steps 6-9: kernels E-H on the encoder front end.  Returns (rows,
+    launches)."""
+    import numpy as np
+
+    from vpcc_tpu_torch import encoder as enc_mod
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, segmentation
+    from vpcc_tpu_torch.utils.checksum import array_md5
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+    from vpcc_tpu_torch.utils.synthetic import make_person_cloud
+
+    ref = json.loads(FRONT_DIGESTS.read_text())
+    ref_parts = np.load(FRONT_PARTITIONS)
+    cfg = VPCCConfig()
+    for k, v in ref["overrides"].items():
+        setattr(cfg, k, v)
+    t0 = time.perf_counter()
+    frames = [make_person_cloud(bits=10, n_samples=3_000_000, seed=s) for s in ref["seeds"]]
+    if [f.point_count for f in frames] != ref["source_points"]:
+        raise AssertionError("synthetic frames differ from the JAX package's")
+    n = len(frames)
+    print(f"front end: {n} bench frames made in {time.perf_counter() - t0:.1f}s, "
+          f"points {[f.point_count for f in frames]}")
+
+    # 6. warm-up, capturing each kernel's largest call
+    wrappers = {
+        "grid_knn": (neighbors, "knn"),
+        "segment": (normals, "pca_normals"),
+        "cc_labels": (cc, "cc_labels_device"),
+        "coverage": (coverage, "covered_radius_slab"),
+    }
+    t0 = time.perf_counter()
+    with Capture(wrappers) as cap:
+        Encoder(cfg, device="cuda").encode_gof_front(frames)
+        torch.cuda.synchronize()
+    print(f"cold front end: {time.perf_counter() - t0:.2f}s for {n} frames")
+    missing = sorted(set(wrappers) - set(cap.calls))
+    if missing:
+        raise AssertionError(f"kernels never called on the front end: {missing}")
+
+    # 7. kernel == plain version on the card, and times in turns
+    rows = {}
+    _, (grid, q), kw = cap.calls["grid_knn"]
+    k, bucket = kw["k"], kw["bucket"]
+    checks = {
+        "grid_knn": (lambda: neighbors.knn(grid, q, k=k, bucket=bucket),
+                     lambda: neighbors.knn_plain(grid, q, k=k, bucket=bucket),
+                     (grid, q)),
+    }
+    _, seg_args, _ = cap.calls["segment"]
+    checks["segment"] = (lambda: segment_chain(normals, segmentation, *seg_args, plain=False),
+                         lambda: segment_chain(normals, segmentation, *seg_args, plain=True),
+                         seg_args)
+    _, cc_args, _ = cap.calls["cc_labels"]
+    checks["cc_labels"] = (lambda: cc.cc_labels_device(*cc_args),
+                           lambda: cc.cc_labels_plain(*cc_args), cc_args)
+    _, cov_args, _ = cap.calls["coverage"]
+    checks["coverage"] = (lambda: coverage.covered_radius_slab(*cov_args),
+                          lambda: coverage.covered_radius_slab_plain(*cov_args), cov_args)
+    for name in FRONT_KERNELS:
+        kern, plain, args = checks[name]
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        if name == "segment":
+            # normals to a tolerance; the later stages fed the plain
+            # version's normals, so their results must be identical
+            err = float((out_k[0] - out_p[0]).abs().max())
+            pos, idx, valid = args
+            rws = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+            same = torch.equal(normals.orient_normals(pos, out_p[0], idx, valid, rws), out_p[1])
+            o = torch.as_tensor(segmentation.ORIENTATIONS6, device=pos.device)
+            w = torch.ones(6, dtype=torch.float32, device=pos.device)
+            p0 = segmentation.initial_segmentation(out_p[1], o, w)
+            same = same and torch.equal(p0, out_p[2]) and torch.equal(
+                segmentation.refine_segmentation(out_p[1], p0, idx, valid, o, 3.0, 10), out_p[3])
+            agree = float((out_k[3] == out_p[3]).float().mean())
+            if err > NORMAL_ATOL or not same:
+                raise AssertionError(f"segment: kernel differs from its plain version "
+                                     f"(normals max abs err {err}, stages identical {same})")
+            detail = (f"normals max abs err {err:.3g} (tolerance {NORMAL_ATOL}); orientation, "
+                      f"initial and refined partitions identical given the same normals; "
+                      f"chain-to-chain refined agreement {agree:.6f}")
+            b_out = (out_k[0], out_k[3])
+        else:
+            err = max_abs_err(out_k, out_p)
+            if err != 0:
+                raise AssertionError(f"{name}: kernel differs from its plain version "
+                                     f"(max abs err {err})")
+            detail = f"exact (max abs err {err})"
+            b_out = out_k
+        (k1, k2), (p1, p2) = time_turns(kern, plain)
+        b_ms, b_by = bounds(name, args, b_out)
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        print(f"{name}: {detail}; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); inputs {shapes}")
+        rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+    # 8. the main path, counted and timed; the spies keep references to
+    # each frame's k-NN result and partitions for the checks afterwards
+    seen = {"knn": [], "initial": [], "refined": []}
+    spied = [(neighbors, "knn", "knn"), (enc_mod, "initial_segmentation", "initial"),
+             (enc_mod, "refine_segmentation", "refined")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in spied]
+    for (mod, attr, key), (_, _, fn) in zip(spied, saved):
+        def spy(*a, _fn=fn, _key=key, **kw):
+            out = _fn(*a, **kw)
+            seen[_key].append(out)
+            return out
+        setattr(mod, attr, spy)
+    try:
+        dev.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = Encoder(cfg, device="cuda").encode_gof_front(frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(dev.LAUNCHES)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    split = {f: sum(getattr(o.stats, f) for o in out) / n
+             for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s")}
+    print(f"warm front end: {dt:.3f}s for {n} frames = {dt / n:.4f} s/frame; per frame "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"launches on the front-end path: {launches}")
+    idle = [k for k in FRONT_KERNELS if launches.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the front-end path: {idle}")
+    agree = {"initial": [], "refined": []}
+    for i, r in enumerate(ref["frames"]):
+        idx, d2 = seen["knn"][i]
+        if (array_md5(idx.cpu().numpy(), "<i4"), array_md5(d2.cpu().numpy(), "<i4")) != \
+                (r["knn_idx_md5"], r["knn_d2_md5"]):
+            raise AssertionError(f"frame {i}: k-NN digests differ from the JAX package's")
+        for key in agree:
+            agree[key].append(float(np.mean(
+                seen[key][i].cpu().numpy() == ref_parts[f"{key}_{i}"])))
+    own = [front_digests(fr) == {k: r[k] for k in front_digests(fr)}
+           for fr, r in zip(out, ref["frames"])]
+    print(f"k-NN digests: all {n} frames equal the JAX package's")
+    print("partition agreement with the JAX package per frame: "
+          + "; ".join(f"{key} " + ", ".join(f"{a:.6f}" for a in v) for key, v in agree.items()))
+    if min(agree["initial"] + agree["refined"]) < PARTITION_FLOOR:
+        raise AssertionError(f"partition agreement below {PARTITION_FLOOR}")
+    print(f"own-path atlas digests equal the JAX package's: {own} "
+          f"(patches {[len(fr.patches) for fr in out]})")
+
+    # 9. patch generation driven by the committed JAX partitions
+    enc = Encoder(cfg, device="cuda")
+    segs = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
+        ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
+    driven = Encoder(cfg, device="cuda").encode_gof_front(frames, segs=segs)
+    for i, (fr, r) in enumerate(zip(driven, ref["frames"])):
+        got = front_digests(fr)
+        bad = [k for k in got if got[k] != r[k]]
+        if bad:
+            raise AssertionError(f"frame {i} (JAX partitions): {bad} differ from the JAX digests")
+        if not np.all(np.isfinite(fr.cover_dist2[fr.cover_dist2 != np.inf])):
+            raise AssertionError(f"frame {i}: non-finite coverage distances")
+    print(f"JAX-partition-driven front end: all {n} frames match the JAX digests "
+          f"(patches {[len(fr.patches) for fr in driven]}, sizes "
+          f"{sorted({(fr.width, fr.height) for fr in driven})})")
+    return rows, launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from vpcc_tpu_torch import device as dev
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    secs = dev.build_kernels()
+    print(f"build: {time.perf_counter() - t0:.1f}s wall "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()))
+    for name, log in dev.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    rows, launches = decode_phase(dev)
+    front_rows, front_launches = front_phase(dev)
+    rows.update(front_rows)
+    launches = {**{k: launches[k] for k in DECODE_KERNELS},
+                **{k: front_launches[k] for k in FRONT_KERNELS}}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

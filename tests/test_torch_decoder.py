@@ -80,10 +80,13 @@ def test_fixture_stream_parses():
 
 
 def test_port_imports_no_jax():
-    """The package, its decoder and its CLI import neither JAX nor vpcc_tpu."""
+    """The package, its decoder, its encoder front end, the synthetic clouds
+    and its CLI import neither JAX nor vpcc_tpu."""
     code = (
         "import sys, vpcc_tpu_torch, vpcc_tpu_torch.decoder, "
-        "vpcc_tpu_torch.apps.decode, vpcc_tpu_torch.carry\n"
+        "vpcc_tpu_torch.apps.decode, vpcc_tpu_torch.carry, "
+        "vpcc_tpu_torch.encoder, vpcc_tpu_torch.core.packing, "
+        "vpcc_tpu_torch.utils.synthetic\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'vpcc_tpu' or m.startswith('vpcc_tpu.')]\n"
         "assert not bad, bad\n"

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from vpcc_tpu_torch import device as dev
-from vpcc_tpu_torch.ops import reconstruct, smoothing
+from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, reconstruct, segmentation, smoothing
 from vpcc_tpu_torch.video import hevc
 from vpcc_tpu_torch.video import hevc_tables as tab
 
@@ -120,5 +120,105 @@ def test_grid_smooth_kernel(cuda, thr):
 
 def test_decoder_defaults_to_cuda(cuda):
     from vpcc_tpu_torch.decoder import Decoder
+    from vpcc_tpu_torch.encoder import Encoder
 
     assert Decoder().device.type == "cuda"
+    assert Encoder().device.type == "cuda"
+
+
+def _knn_clouds():
+    """A noisy sphere, a solid block (every cell overflows the bucket) and a
+    lattice of spacing 2 (many equal distances), 10-bit coordinates."""
+    rng = np.random.default_rng(3)
+    v = rng.normal(size=(60000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    sphere = np.unique(np.round(512 + 300 * v).astype(np.int32), axis=0)
+    g = np.arange(24)
+    block = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3) + 100
+    h = np.arange(0, 60, 2)
+    lattice = np.stack(np.meshgrid(h, h, h, indexing="ij"), -1).reshape(-1, 3) + 700
+    return [c.astype(np.int32) for c in (sphere, block, lattice[rng.permutation(len(lattice))])]
+
+
+@pytest.mark.parametrize("k,bucket", [(1, 8), (8, 16), (16, 6), (64, 6)])
+def test_grid_knn_kernel(cuda, k, bucket):
+    rng = np.random.default_rng(k)
+    for pts in _knn_clouds():
+        q = np.concatenate([pts, rng.integers(-8, 1032, (2000, 3)).astype(np.int32),
+                            np.full((5, 3), 0x3FFFFFFF, np.int32)])
+        p, qq = torch.as_tensor(pts, device=cuda), torch.as_tensor(q, device=cuda)
+        g = neighbors.build_grid(p, 10)
+        got = neighbors.knn(g, qq, k=k, bucket=bucket)
+        want = neighbors.knn_plain(g, qq, k=k, bucket=bucket)
+        for a, b in zip(got, want):
+            _same(a, b)
+
+
+def _voxel_graph(cuda):
+    pts = _knn_clouds()[0]
+    p = torch.as_tensor(pts, device=cuda)
+    idx, d2 = neighbors.knn(neighbors.build_grid(p, 10), p, k=16, bucket=6)
+    return p, idx, d2 < neighbors.MAX_DIST2
+
+
+def test_segment_kernel(cuda):
+    """Normals to 1e-5 (the kernel's acosf/cosf against PyTorch's), the
+    later stages exactly given the same normals."""
+    p, idx, valid = _voxel_graph(cuda)
+    got = normals.pca_normals(p, idx, valid)
+    want = normals.pca_normals_plain(p, idx, valid)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    rows = torch.ones(p.shape[0], dtype=torch.bool, device=cuda)
+    _same(normals.orient_normals(p, want, idx, valid, rows),
+          normals.orient_normals_plain(p, want, idx, valid, rows))
+    o = torch.as_tensor(segmentation.ORIENTATIONS6, device=cuda)
+    w = torch.tensor([1.0, 0.5, 2.0, 1.0, 0.5, 2.0], device=cuda)
+    p0 = segmentation.initial_segmentation(want, o, w)
+    _same(p0, segmentation.initial_segmentation_plain(want, o, w))
+    _same(segmentation.refine_segmentation(want, p0, idx, valid, o, 3.0, 10),
+          segmentation.refine_segmentation_plain(want, p0, idx, valid, o, 3.0, 10))
+
+
+@pytest.mark.parametrize("chains", [False, True])
+def test_cc_labels_kernel(cuda, chains):
+    rng = np.random.default_rng(int(chains))
+    V, K = 200_000, 16
+    if chains:
+        perm = rng.permutation(V)
+        idx = np.zeros((V, K), np.int32)
+        idx[perm[:-1], 0] = perm[1:]
+        valid = np.zeros((V, K), bool)
+        valid[perm[:-1], 0] = True
+        valid[perm[::50_000], 0] = False
+        part = np.zeros(V, np.int32)
+        active = np.ones(V, bool)
+    else:
+        idx = rng.integers(0, V, (V, K)).astype(np.int32)
+        valid = rng.random((V, K)) < 0.08
+        part = rng.integers(0, 3, V).astype(np.int32)
+        active = rng.random(V) < 0.9
+    t = [torch.as_tensor(a, device=cuda) for a in (idx, valid, part, active)]
+    got = cc.cc_labels_device(*t)
+    _same(got, cc.cc_labels_plain(*t))
+    sub, lab = cc.cc_round_voxel_compact(*t)
+    torch.cuda.synchronize()
+    assert torch.equal(lab.cpu(), got.cpu()[sub.cpu().long()])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_coverage_kernel(cuda, seed):
+    rng = np.random.default_rng(seed)
+    res = rng.integers(0, 1024, (30_000, 3))
+    res[:, 0] = rng.integers(300, 500, len(res))
+    x0, sx = coverage.slab_params(res, 10)
+    q = np.clip(np.concatenate([res + rng.integers(-4, 5, res.shape),
+                                rng.integers(0, 1024, (50_000, 3))]), 0, 1023).astype(np.int32)
+    q[::101] = 0x3FFFFFFF
+    rp = torch.as_tensor(coverage.pack_coords10(res, len(res) + 7), device=cuda)
+    qq = torch.as_tensor(q, device=cuda)
+    got = coverage.covered_radius_slab(rp, qq, x0, 10, 1, 9, sx)
+    want = coverage.covered_radius_slab_plain(rp, qq, x0, 10, 1, 9, sx)
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert got[1].sum() > got[0].sum() > 0

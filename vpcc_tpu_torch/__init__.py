@@ -1,4 +1,5 @@
-"""vpcc_tpu_torch — the V-PCC decoder on PyTorch with hand-written CUDA kernels.
+"""vpcc_tpu_torch — V-PCC on PyTorch with hand-written CUDA kernels: the
+decoder and the encoder front end.
 
 A port of the `vpcc_tpu` package (JAX) to PyTorch on an NVIDIA H100.  It
 imports neither JAX nor `vpcc_tpu`: host code it needs is copied here.  The
@@ -10,11 +11,16 @@ Layout (mirrors vpcc_tpu/):
     bitstream/  V3C high-level syntax reader + bit I/O
     video/      host entropy decode (ctypes), wavefront video decoder,
                 color conversion, substream decoders
-    core/       patch data model, block-to-patch
-    ops/        point reconstruction, grid geometry smoothing
+    core/       patch data model and patch building, packing, atlas frames,
+                block-to-patch
+    ops/        voxelize, grid k-NN, normals, segmentation, connected
+                components, coverage, point reconstruction, grid smoothing
     pipeline.py the reconstruction seam (points, smoothing, color gather)
     decoder.py  `Decoder.decode` — V3C stream -> point clouds
-    carry.py    state carried across frames (config, reference planes)
+    encoder.py  `Encoder.encode_gof_front` — point clouds -> patches and
+                atlas frames (the encoder up to its video stages)
+    carry.py    state carried across frames (config, reference planes,
+                a tree parent's patch list, the GOF height ratchet)
     apps/       CLI drivers
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on the CPU

@@ -1,4 +1,4 @@
-"""State a decoder carries from frame to frame, and how to seed it.
+"""State the codec carries from frame to frame, and how to seed it.
 
 V-PCC has no learned weights.  What a decoder carries is its configuration
 and its reference planes:
@@ -8,8 +8,13 @@ and its reference planes:
   int32 planes of the last decoded attribute frame;
 * the decoder's hierarchical banks of those, per reference frame.
 
+What the encoder front end carries is each tree parent's patch list (a
+P-frame matches its patches against it and reuses their placements) and
+the GOF's height ratchet.
+
 These helpers build them from plain Python / numpy values, e.g. state saved
-by the JAX package (`dataclasses.asdict(VPCCConfig)`, `np.asarray(plane)`).
+by the JAX package (`dataclasses.asdict(VPCCConfig)`, `np.asarray(plane)`,
+`dataclasses.asdict(patch)`).
 """
 
 from __future__ import annotations
@@ -47,3 +52,25 @@ def refs_from_numpy(planes, device=None):
     if isinstance(planes, (tuple, list)):
         return tuple(refs_from_numpy(p, d) for p in planes)
     return torch.as_tensor(np.asarray(planes).astype(np.int32), device=d)
+
+
+def patches_from_dicts(dicts) -> list:
+    """`dataclasses.asdict` of either package's patches (numpy maps) -> the
+    port's `Patch`es, e.g. a tree parent's patch list saved by the JAX
+    encoder, to seed the port's P-frame packing.  Unknown keys raise."""
+    from vpcc_tpu_torch.core.patch import Patch
+
+    names = {f.name for f in dataclasses.fields(Patch)}
+    out = []
+    for d in dicts:
+        unknown = sorted(set(d) - names)
+        if unknown:
+            raise KeyError(f"unknown Patch fields: {unknown}")
+        out.append(Patch(**copy.deepcopy(d)))
+    return out
+
+
+def seed_height_hint(encoder, height: int) -> None:
+    """Set the encoder's GOF height ratchet (the largest atlas height of the
+    GOF so far), e.g. to the JAX encoder's `_height_hint`."""
+    encoder._height_hint = int(height)

@@ -1,18 +1,72 @@
-"""Atlas helpers the decoder runs on the host: the patch table, the
-block-to-patch map and the occupancy upsampling.
+"""Atlas frame synthesis and the atlas helpers both sides run (host).
 
-A copy of the decoder-side parts of `vpcc_tpu/core/atlas.py`.  Behavioral
-reference: block-to-patch derivation
+A copy of `vpcc_tpu/core/atlas.py`: rasterize packed patches into the
+occupancy and geometry frames, the occupancy-video down/upsampling, the
+patch table and the block-to-patch map.  Behavioral reference: occupancy
+map generation (source/lib/PccLibEncoder/source/PCCEncoder.cpp:3740-3874),
+intra geometry image generation (:3929-4063), block-to-patch derivation
 (source/lib/PccLibCommon/source/PCCCodec.cpp:1619-1776).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import numpy as np
 
 from vpcc_tpu_torch.core.patch import Patch
+from vpcc_tpu_torch.utils.config import VPCCConfig
+
+
+@dataclasses.dataclass
+class AtlasFrame:
+    """One atlas frame's images + metadata (encoder side)."""
+
+    width: int
+    height: int
+    occupancy: np.ndarray      # (H, W) uint8 {0,1} full-res
+    geometry0: np.ndarray      # (H, W) uint16, relative depth D0
+    geometry1: np.ndarray      # (H, W) uint16, relative depth D1 (absoluteD1)
+    block_to_patch: np.ndarray  # (H/res, W/res) int32, 0 = none else idx+1
+    patches: List[Patch]
+
+
+def rasterize_frame(patches: List[Patch], width: int, height: int, cfg: VPCCConfig) -> AtlasFrame:
+    """Write every patch's occupancy and D0/D1 depths (relative to d1,
+    clipped to the 2D bit depth) at its canvas position, in patch order."""
+    if cfg.enhancedOccupancyMapCode:
+        raise NotImplementedError(
+            "enhancedOccupancyMapCode is not ported yet (ROADMAP queue 1, item 10)")
+    occ = np.zeros((height, width), np.uint8)
+    geo0 = np.zeros((height, width), np.uint16)
+    geo1 = np.zeros((height, width), np.uint16)
+    max2d = (1 << cfg.geometryBitDepth2D) - 1
+    for p in patches:
+        pdt = 1 - 2 * p.projection_mode
+        vv, uu = np.nonzero(p.occupancy)
+        x, y = p.patch_to_canvas(uu, vv)
+        rel0 = (pdt * (p.depth0[vv, uu] - p.d1)).astype(np.int64)
+        rel1 = (pdt * (p.depth1[vv, uu] - p.d1)).astype(np.int64)
+        occ[y, x] = 1
+        geo0[y, x] = np.clip(rel0, 0, max2d).astype(np.uint16)
+        geo1[y, x] = np.clip(rel1, 0, max2d).astype(np.uint16)
+    btp = derive_block_to_patch(occ, patches, width, height, cfg.occupancyResolution)
+    return AtlasFrame(width, height, occ, geo0, geo1, btp, patches)
+
+
+def downsample_occupancy(occ: np.ndarray, precision: int, threshold: int = 0) -> np.ndarray:
+    """Full-res binary map -> occupancy video at 1/precision resolution: a
+    block is occupied when it holds more than `threshold` occupied pixels
+    (threshold > 0 is the reference's lossy occupancy,
+    PCCEncoder.cpp:863-962)."""
+    h, w = occ.shape
+    cnt = (
+        (occ != 0)
+        .reshape(h // precision, precision, w // precision, precision)
+        .sum(axis=(1, 3))
+    )
+    return (cnt > threshold).astype(np.uint8)
 
 # column order of the patch table read by ops/reconstruct.py
 PATCH_FIELDS = (

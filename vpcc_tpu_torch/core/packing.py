@@ -1,0 +1,202 @@
+"""Patch packing onto the atlas canvas (host numpy/scipy).
+
+A copy of `match_patches` and `pack_flexible` from
+`vpcc_tpu/core/packing.py`.  Behavioral reference:
+`PCCEncoder::packFlexible` (source/lib/PccLibEncoder/source/PCCEncoder.cpp:
+2306-2450) and the match step of spatialConsistencyPackFlexible (:1183):
+sort patches by size, first-fit raster scan over the block grid trying a
+preference-ordered list of orientations, growing the canvas when nothing
+fits.  Each patch's valid placements come from one 2D correlation of the
+canvas block occupancy with the patch rectangle (the same scipy
+`fftconvolve` call as the reference, so the same float rounding).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+from scipy.signal import fftconvolve
+
+from vpcc_tpu_torch.core.patch import (
+    ORIENT_DEFAULT,
+    ORIENT_HORIZONTAL,
+    ORIENT_SWAP,
+    ORIENT_VERTICAL,
+    Patch,
+)
+from vpcc_tpu_torch.utils.config import VPCCConfig
+
+
+def _orient_footprint(block_occ: np.ndarray, orientation: int) -> np.ndarray:
+    """Patch block-occupancy footprint as placed on the canvas."""
+    if orientation == ORIENT_DEFAULT:
+        return block_occ
+    if orientation == ORIENT_SWAP:
+        return block_occ.T
+    if orientation == 2:  # ROT90
+        return np.rot90(block_occ, k=-1)
+    if orientation == 3:  # ROT180
+        return block_occ[::-1, ::-1]
+    if orientation == 4:  # ROT270
+        return np.rot90(block_occ, k=1)
+    if orientation == 5:  # MIRROR
+        return block_occ[:, ::-1]
+    if orientation == 6:  # MROT90
+        return np.rot90(block_occ[:, ::-1], k=-1)
+    if orientation == 7:  # MROT180
+        return block_occ[::-1, :]
+    raise ValueError(orientation)
+
+
+def _valid_positions(canvas: np.ndarray, fp: np.ndarray) -> np.ndarray:
+    """(H-h+1, W-w+1) bool map of placements with zero block overlap."""
+    h, w = fp.shape
+    H, W = canvas.shape
+    if h > H or w > W:
+        return np.zeros((0, 0), bool)
+    overlap = fftconvolve(canvas.astype(np.float32), fp[::-1, ::-1].astype(np.float32), mode="valid")
+    return overlap < 0.5
+
+
+def match_patches(patches: List[Patch], prev_patches: List[Patch], iou_threshold: float = 0.1) -> int:
+    """Temporal patch matching (reference findMatches,
+    PCCEncoder.cpp:1183-1290): match by projection plane + tangent-plane
+    bounding-box IoU and record the matched patch's placement as the
+    preferred one.  Returns the number of matched patches."""
+    matched = 0
+    used = set()
+    for p in patches:
+        best, best_iou = None, iou_threshold
+        for j, q in enumerate(prev_patches):
+            if j in used or q.view_id != p.view_id:
+                continue
+            x0 = max(p.u1, q.u1)
+            x1 = min(p.u1 + p.size_u, q.u1 + q.size_u)
+            y0 = max(p.v1, q.v1)
+            y1 = min(p.v1 + p.size_v, q.v1 + q.size_v)
+            inter = max(0, x1 - x0) * max(0, y1 - y0)
+            union = p.size_u * p.size_v + q.size_u * q.size_v - inter
+            iou = inter / union if union else 0.0
+            if iou > best_iou:
+                best, best_iou = j, iou
+        if best is not None:
+            used.add(best)
+            q = prev_patches[best]
+            p.pref_u0, p.pref_v0, p.pref_orientation = q.u0, q.v0, q.orientation
+            # temporal prediction link for the atlas P-tile syntax
+            p.ref_patch_idx = best
+            matched += 1
+    return matched
+
+
+def _try_preferred(canvas: np.ndarray, p: Patch, bo: np.ndarray) -> bool:
+    """Place the patch at its reference-frame position if its full
+    rectangle is free; claim only its occupied blocks."""
+    if p.pref_u0 < 0:
+        return False
+    fp = _orient_footprint(bo, p.pref_orientation)
+    h, w = fp.shape
+    if p.pref_v0 + h > canvas.shape[0] or p.pref_u0 + w > canvas.shape[1]:
+        return False
+    region = canvas[p.pref_v0 : p.pref_v0 + h, p.pref_u0 : p.pref_u0 + w]
+    if region.any():
+        return False
+    p.u0, p.v0, p.orientation = p.pref_u0, p.pref_v0, p.pref_orientation
+    region |= fp
+    return True
+
+
+def pack_flexible(
+    patches: List[Patch],
+    cfg: VPCCConfig,
+    preset_height: int = 0,
+) -> Tuple[int, int]:
+    """Assign (u0, v0, orientation) to every patch; `preset_height` is the
+    GOF's height ratchet (0: cfg.minimumImageHeight).
+
+    Returns the (width, height) in pixels (height a multiple of 256).
+    Mutates the patches in place, in sorted packing order."""
+    if cfg.packingStrategy == 2:
+        raise NotImplementedError(
+            "packingStrategy=2 (tetris packing) is not ported yet (ROADMAP "
+            "queue 1, item 10)")
+    res = cfg.occupancyResolution
+    strategy = cfg.packingStrategy
+    if strategy == 0:
+        patches.sort(key=lambda p: (-p.size_v, -p.size_u, p.index))
+    else:
+        patches.sort(
+            key=lambda p: (
+                -max(p.size_u0, p.size_v0),
+                -min(p.size_u0, p.size_v0),
+                p.index,
+            )
+        )
+
+    width_blk = max(cfg.minimumImageWidth, 64) // res
+    for p in patches:
+        width_blk = max(width_blk, p.size_u0 + 1)
+    height_blk = max((p.size_v0 for p in patches), default=1)
+    height_blk = max(height_blk, (cfg.minimumImageHeight if preset_height == 0 else preset_height) // res)
+
+    canvas = np.zeros((height_blk, width_blk), bool)
+
+    # matched patches first, at their reference-frame positions when free
+    patches.sort(key=lambda p: (p.pref_u0 < 0,))
+    for p in patches:
+        bo = p.block_occupancy()
+        if cfg.lowDelayEncoding:
+            # precedence mode (reference lowDelayEncoding): claim the FULL
+            # bounding rectangle so patch bounding boxes never overlap
+            bo = np.ones_like(bo)
+        # placement validity tests the full rectangle against the canvas of
+        # OCCUPIED blocks, but only occupied blocks are claimed: a later
+        # patch's rectangle never covers an earlier patch's occupied block,
+        # which keeps the decoder's overwrite-order block-to-patch exact
+        if _try_preferred(canvas, p, bo):
+            continue
+        if strategy == 0:
+            orients = [ORIENT_DEFAULT]
+        else:
+            pref = ORIENT_HORIZONTAL if p.size_u0 > p.size_v0 else ORIENT_VERTICAL
+            orients = pref[: (8 if cfg.useEightOrientations else 2)]
+
+        placed = False
+        while not placed:
+            # valid maps per orientation; combined first-fit in raster order
+            valids = []
+            rect = np.ones_like(bo)
+            for o in orients:
+                fp = _orient_footprint(rect, o)
+                valids.append((o, _valid_positions(canvas, fp), fp.shape))
+            best = None  # (v, u, orient_rank)
+            for rank, (o, vmap, shp) in enumerate(valids):
+                if vmap.size == 0 or not vmap.any():
+                    continue
+                flat = np.argmax(vmap)  # first True in raster order
+                vv, uu = divmod(int(flat), vmap.shape[1])
+                if not vmap[vv, uu]:
+                    continue
+                if best is None or (vv, uu, rank) < best:
+                    best = (vv, uu, rank)
+            if best is None:
+                canvas = np.concatenate([canvas, np.zeros_like(canvas)], axis=0)
+                height_blk = canvas.shape[0]
+                continue
+            vv, uu, rank = best
+            o, vmap, shp = valids[rank]
+            p.u0, p.v0, p.orientation = uu, vv, o
+            fp = _orient_footprint(bo, o)
+            canvas[vv : vv + fp.shape[0], uu : uu + fp.shape[1]] |= fp
+            placed = True
+
+    # actual used height, padded to the preset and to a multiple of 256 rows
+    used_rows = 0
+    for p in patches:
+        fw, fh = p.canvas_footprint()
+        used_rows = max(used_rows, p.v0 + fh)
+    height_blk = max(used_rows, (cfg.minimumImageHeight if preset_height == 0 else preset_height) // res)
+    width = width_blk * res
+    height = ((height_blk * res + 255) // 256) * 256
+    return width, height

@@ -1,0 +1,113 @@
+// Kernel E: grid k-nearest-neighbour query (K4).
+//
+// Replaces the query half of the XLA program vpcc_tpu/ops/neighbors.py:
+// `_window_candidates` (neighbors.py:117-158) and `_knn_chunk` (:161-175).
+// The grid build (stable cell sort, per-cell start offsets, packed sorted
+// coordinates: `_build`, :86-106) stays plain PyTorch in ops/neighbors.py.
+//
+// One thread per query.  It walks the candidates in exactly the reference's
+// order: the 9 xy windows of _OFFSETS9 (dx-major), each a run of up to 3
+// contiguous z-cells, and inside a window the first min(e - s, win) slots
+// from starts[clo] (the bucket truncation at neighbors.py:136).  Candidate
+// position c = window * win + lane.  The thread keeps the k best in a list
+// sorted by (d2, c) and inserts only on a strict `<`, so among equal d2 the
+// earlier candidate wins, as `lax.top_k(-d2, k)` (and `argmin` for k = 1)
+// do.  Slots the reference pads with MAX_DIST2 (missing neighbours, queries
+// outside the grid) come out as idx 0, d2 MAX_DIST2.
+//
+// Bound: bytes on paper (the starts table, the packed table and the query
+// rows are read, idx/d2 written), but the accesses are data-dependent
+// gathers of 4 bytes each: 2 x 9 probes of the 67 MB starts table and up
+// to 9 x win table words per query, so the kernel is latency-bound on those
+// gathers.  The design keeps the k-list in registers/local memory (no
+// (M, 9*win) candidate buffer in device memory, which the reference
+// materialises) and reads each candidate word once.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int32_t kMaxDist2 = 0x7FFFFFF0;
+
+template <int KMAX>
+__global__ void grid_knn_kernel(const int32_t* __restrict__ starts,
+                                const int32_t* __restrict__ table,
+                                const int32_t* __restrict__ order,
+                                const int32_t* __restrict__ queries, int M,
+                                int grid_bits, int cell_bits, int win, int k,
+                                int32_t* __restrict__ out_idx,
+                                int32_t* __restrict__ out_d2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  const int g = 1 << (grid_bits - cell_bits);
+  const int b = grid_bits;
+  const int mask = (1 << b) - 1;
+  const int qx = queries[3 * i], qy = queries[3 * i + 1], qz = queries[3 * i + 2];
+  const int cx = qx >> cell_bits, cy = qy >> cell_bits, cz = qz >> cell_bits;
+  const int zlo = max(cz - 1, 0);
+  const int zhi = min(cz + 1, g - 1);
+  const bool zok = cz >= 0 && cz < g;
+
+  int bd[KMAX];   // d2 of the kept candidates, ascending
+  int bs[KMAX];   // their slots in the sorted table
+  for (int j = 0; j < k; ++j) {
+    bd[j] = kMaxDist2;
+    bs[j] = -1;
+  }
+  for (int w = 0; w < 9; ++w) {
+    const int ncx = cx + (w / 3) - 1;
+    const int ncy = cy + (w % 3) - 1;
+    const bool ok = zok && ncx >= 0 && ncx < g && ncy >= 0 && ncy < g;
+    if (!ok) continue;
+    const int base = (ncx * g + ncy) * g;
+    const int s = starts[base + zlo];
+    const int e = starts[base + zhi + 1];
+    const int cnt = min(max(e - s, 0), win);
+    for (int l = 0; l < cnt; ++l) {
+      const int pk = table[s + l];
+      const int dx = (pk >> (2 * b)) - qx;
+      const int dy = ((pk >> b) & mask) - qy;
+      const int dz = (pk & mask) - qz;
+      const int d2 = dx * dx + dy * dy + dz * dz;
+      if (d2 >= bd[k - 1]) continue;
+      int j = k - 1;
+      while (j > 0 && bd[j - 1] > d2) {
+        bd[j] = bd[j - 1];
+        bs[j] = bs[j - 1];
+        --j;
+      }
+      bd[j] = d2;
+      bs[j] = s + l;
+    }
+  }
+  for (int j = 0; j < k; ++j) {
+    const bool found = bd[j] < kMaxDist2;
+    out_idx[static_cast<long long>(i) * k + j] = found ? order[bs[j]] : 0;
+    out_d2[static_cast<long long>(i) * k + j] = bd[j];
+  }
+}
+
+}  // namespace
+
+// starts (g^3 + 1,) int32, table (N,) int32 packed sorted coordinates,
+// order (N,) int32, queries (M, 3) int32; out idx, d2 (M, k) int32.
+// k <= 64, grid_bits <= 10.  One launch.
+extern "C" int grid_knn(const int32_t* starts, const int32_t* table,
+                        const int32_t* order, const int32_t* queries, int M,
+                        int grid_bits, int cell_bits, int win, int k,
+                        int32_t* out_idx, int32_t* out_d2, void* stream) {
+  if (M == 0) return 0;
+  if (k < 1 || k > 64 || grid_bits > 10) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 128;
+  const int blocks = (M + threads - 1) / threads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 16) {
+    grid_knn_kernel<16><<<blocks, threads, 0, st>>>(
+        starts, table, order, queries, M, grid_bits, cell_bits, win, k, out_idx, out_d2);
+  } else {
+    grid_knn_kernel<64><<<blocks, threads, 0, st>>>(
+        starts, table, order, queries, M, grid_bits, cell_bits, win, k, out_idx, out_d2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -48,13 +48,18 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-# kernel name -> extra nvcc flags.  grid_smooth reproduces float32 rounding
-# operation by operation, so it forbids multiply-add contraction.
+# kernel name -> extra nvcc flags.  grid_smooth and segment reproduce
+# float32 rounding operation by operation, so they forbid multiply-add
+# contraction (their fused multiply-adds are explicit __fmaf_rn calls).
 KERNELS: Dict[str, list] = {
     "wavefront_decode32": [],
     "half_pel_mc": [],
     "generate_points": [],
     "grid_smooth": ["--fmad=false"],
+    "grid_knn": [],
+    "segment": ["--fmad=false"],
+    "cc_labels": [],
+    "coverage": [],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -121,8 +126,9 @@ def check_launch(name: str, rc: int) -> None:
 # multiply-add, and turns a division by a constant into a multiplication by
 # the constant's float32 reciprocal (which it then fuses too).  The port
 # reproduces those roundings where the reference relies on them (color
-# conversion, grid smoothing) with `fma_f32`; everywhere else each torch op
-# rounds once, as an unfused float32 operation.
+# conversion, grid smoothing, normals and segmentation) with `fma_f32`;
+# everywhere else each torch op rounds once, as an unfused float32
+# operation.
 
 def _f32_operand(x, like: torch.Tensor) -> torch.Tensor:
     if not torch.is_tensor(x):

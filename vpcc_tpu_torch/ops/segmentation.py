@@ -1,0 +1,201 @@
+"""Projection-plane segmentation: initial partition + smoothness refinement
+(K10, kernel F).
+
+Behavioral reference: `vpcc_tpu/ops/segmentation.py` (the reference's
+`initialSegmentation`, PCCPatchSegmenter.cpp:217-265, and
+`refineSegmentation`, :1322): per voxel, argmax over the projection
+orientations of normal . orientation (x axis weight), then `iterations`
+synchronous sweeps maximizing normal . orientation + (lambda / k) * (number
+of valid neighbours in that orientation), first maximum on ties.
+
+The tables (orientation sets, `VIEW_AXES`, `partition_to_view`) are copies
+of the reference's.  The score arithmetic follows XLA's CPU backend: the
+dot products as fma chains (exact for the 6 axis orientations) and the
+refine score as fma(lambda / k, votes, base).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from vpcc_tpu_torch import device as dev
+from vpcc_tpu_torch.device import fma_f32
+
+_S2 = math.sqrt(2.0) / 2.0
+
+ORIENTATIONS6 = np.array(
+    [
+        [1, 0, 0], [0, 1, 0], [0, 0, 1],
+        [-1, 0, 0], [0, -1, 0], [0, 0, -1],
+    ],
+    np.float32,
+)
+
+# additionalProjectionPlaneMode 1 (Y-axis rotated planes), 2 (X), 3 (Z)
+# (reference: PCCPatchSegmenter.h:323-364)
+ORIENTATIONS10_Y = np.concatenate(
+    [ORIENTATIONS6, np.array([[_S2, 0, _S2], [-_S2, 0, _S2], [-_S2, 0, -_S2], [_S2, 0, -_S2]], np.float32)]
+)
+ORIENTATIONS10_X = np.concatenate(
+    [ORIENTATIONS6, np.array([[0, _S2, _S2], [0, _S2, -_S2], [0, -_S2, -_S2], [0, -_S2, _S2]], np.float32)]
+)
+ORIENTATIONS10_Z = np.concatenate(
+    [ORIENTATIONS6, np.array([[_S2, _S2, 0], [_S2, -_S2, 0], [-_S2, -_S2, 0], [-_S2, _S2, 0]], np.float32)]
+)
+
+# additionalProjectionPlaneMode 4: all 18 orientations (reference:
+# orientations18, PCCPatchSegmenter.h:371-395)
+ORIENTATIONS18 = np.concatenate(
+    [ORIENTATIONS6, ORIENTATIONS10_Y[6:], ORIENTATIONS10_X[6:],
+     ORIENTATIONS10_Z[6:]]
+)
+
+
+def partition_to_view(partition: int, additional_plane_mode: int) -> int:
+    """Map a segmentation partition id to the VIEW_AXES row (reference:
+    PCCPatch.cpp:111 view table)."""
+    if partition < 6 or additional_plane_mode <= 0:
+        return int(partition)
+    if additional_plane_mode == 4:
+        return int(partition)
+    return int(partition) + 4 * (additional_plane_mode - 1)
+
+
+def get_orientations(additional_plane_mode: int) -> np.ndarray:
+    if additional_plane_mode == 0:
+        return ORIENTATIONS6
+    if additional_plane_mode == 1:
+        return ORIENTATIONS10_Y
+    if additional_plane_mode == 2:
+        return ORIENTATIONS10_X
+    if additional_plane_mode == 3:
+        return ORIENTATIONS10_Z
+    if additional_plane_mode == 4:
+        return ORIENTATIONS18
+    raise ValueError(f"additionalProjectionPlaneMode={additional_plane_mode}")
+
+
+# viewId -> (axisOfAdditionalPlane, normalAxis, tangentAxis, bitangentAxis,
+# projectionMode)   (reference: source/lib/PccLibCommon/source/PCCPatch.cpp:111)
+VIEW_AXES = np.array(
+    [
+        [0, 0, 2, 1, 0],
+        [0, 1, 2, 0, 0],
+        [0, 2, 0, 1, 0],
+        [0, 0, 2, 1, 1],
+        [0, 1, 2, 0, 1],
+        [0, 2, 0, 1, 1],
+        [1, 0, 2, 1, 0],
+        [1, 2, 0, 1, 0],
+        [1, 0, 2, 1, 1],
+        [1, 2, 0, 1, 1],
+        [2, 2, 0, 1, 0],
+        [2, 1, 2, 0, 0],
+        [2, 2, 0, 1, 1],
+        [2, 1, 2, 0, 1],
+        [3, 1, 2, 0, 0],
+        [3, 0, 2, 1, 0],
+        [3, 1, 2, 0, 1],
+        [3, 0, 2, 1, 1],
+    ],
+    np.int32,
+)
+
+_MAX_J = 18
+
+
+def _scores(normals, orientations):
+    """(V, J) normal . orientation as XLA's fma chain."""
+    n, o = normals[:, None, :], orientations[None, :, :]
+    return fma_f32(n[..., 2], o[..., 2], fma_f32(n[..., 1], o[..., 1], n[..., 0] * o[..., 0]))
+
+
+def initial_segmentation_plain(normals, orientations, weights):
+    score = _scores(normals, orientations) * weights[None, :]
+    # orientation 0 is unweighted: the reference takes its raw score as the
+    # initial best (segmentation.py:120-123)
+    score[:, 0] = _scores(normals, orientations[:1])[:, 0]
+    return torch.argmax(score, dim=1).to(torch.int32)
+
+
+def refine_segmentation_plain(normals, partition, nn_idx, nn_valid, orientations,
+                              lambda_: float, iterations: int):
+    J = orientations.shape[0]
+    base = _scores(normals, orientations)
+    k_norm = torch.clamp(nn_valid.sum(1, keepdim=True), min=1).float()
+    lk = torch.full((), lambda_, dtype=torch.float32, device=normals.device) / k_norm
+    idx = nn_idx.long()
+    part = partition
+    for _ in range(iterations):
+        onehot = torch.nn.functional.one_hot(part.long()[idx], J) * nn_valid[..., None]
+        votes = onehot.sum(1).float()
+        score = fma_f32(lk, votes, base)
+        # torch.argmax returns the first maximum, as jnp.argmax does
+        part = torch.argmax(score, dim=1).to(torch.int32)
+    return part
+
+
+def _check_orients(orientations, d):
+    J = orientations.shape[0]
+    if not 1 <= J <= _MAX_J:
+        raise ValueError(f"{J} orientations (at most {_MAX_J})")
+    dev.check_tensor(orientations, "orientations", torch.float32, d, 2)
+
+
+_INIT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+_REFINE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                                                              ctypes.c_float] \
+    + [ctypes.c_void_p] * 3
+
+
+def initial_segmentation(normals, orientations, weights):
+    """(V,) int32 partition: argmax over orientations of the weighted score.
+    Kernel F on CUDA; the plain version for a CPU tensor."""
+    if normals.device.type == "cpu":
+        return initial_segmentation_plain(normals, orientations, weights)
+    d = normals.device
+    V, J = normals.shape[0], orientations.shape[0]
+    dev.check_tensor(normals, "normals", torch.float32, d, 2)
+    _check_orients(orientations, d)
+    dev.check_tensor(weights, "weights", torch.float32, d, 1)
+    part = torch.empty(V, dtype=torch.int32, device=d)
+    fn = dev.load_kernel("segment").initial_segmentation
+    fn.argtypes, fn.restype = _INIT_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(normals), dev.ptr(orientations), dev.ptr(weights), V, J,
+            dev.ptr(part), dev.stream_handle())
+    dev.count_launch("segment", 1 if V else 0)
+    dev.check_launch("segment", rc)
+    return part
+
+
+def refine_segmentation(normals, partition, nn_idx, nn_valid, orientations,
+                        lambda_: float, iterations: int):
+    """Smoothness-regularized re-assignment, `iterations` synchronous
+    sweeps.  Kernel F on CUDA (one launch per sweep); the plain version for
+    a CPU tensor."""
+    if normals.device.type == "cpu":
+        return refine_segmentation_plain(normals, partition, nn_idx, nn_valid,
+                                         orientations, lambda_, iterations)
+    d = normals.device
+    V, K = nn_idx.shape
+    dev.check_tensor(normals, "normals", torch.float32, d, 2)
+    dev.check_tensor(partition, "partition", torch.int32, d, 1)
+    dev.check_tensor(nn_idx, "nn_idx", torch.int32, d, 2)
+    dev.check_tensor(nn_valid, "nn_valid", torch.bool, d, 2)
+    _check_orients(orientations, d)
+    fn = dev.load_kernel("segment").refine_step
+    fn.argtypes, fn.restype = _REFINE_ARGS, ctypes.c_int
+    part = partition.clone()
+    other = torch.empty_like(part)
+    for _ in range(iterations):
+        rc = fn(dev.ptr(normals), dev.ptr(nn_idx), dev.ptr(nn_valid), V, K,
+                dev.ptr(orientations), orientations.shape[0], float(lambda_),
+                dev.ptr(part), dev.ptr(other), dev.stream_handle())
+        dev.count_launch("segment", 1 if V else 0)
+        dev.check_launch("segment", rc)
+        part, other = other, part
+    return part
