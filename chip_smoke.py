@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the eight CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
+2. builds the twelve CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
    source, all started together) and prints the build seconds;
 
 the decode path (kernels A-D):
@@ -32,7 +32,27 @@ the encoder front end (kernels E-H):
 9. runs the patch-generation half driven by the committed JAX partitions
    and requires all 8 frames' patches, atlas, occupancy video and
    block-to-patch to equal the JAX digests;
-10. prints one JSON line describing the kernels, then the result line.
+
+the geometry video encoder (kernels I-L; the decode path above also runs
+kernel K's apply):
+10. runs `Encoder(cfg, device="cuda").encode_gof_geometry` over the 8 bench
+    frames driven by the committed JAX partitions (their atlas frames are
+    the JAX package's) once (warm-up), keeping each kernel's largest call
+    (for the wavefront encode, a motion-searched P-frame plane);
+11. holds each kernel against its plain version there (syntax, MVs, SAO
+    parameters and planes identical) and times both in turns;
+12. with all launch counters at 0, runs the GOF again, prints warm seconds
+    per frame, the stage split and the device idle share of one warm
+    P-frame (`torch.profiler`), and requires: all 16 geometry payloads to
+    decode exactly to the encoder's planes with the port's decoder; the
+    encoder's reconstruction to equal `pipeline.reconstruct_frame` on
+    those planes; GOF geometry bytes within RD_BYTES_TOL and every
+    plane's occupied-pixel PSNR within RD_PSNR_TOL_DB of the JAX encoder's
+    geometry substreams in the committed fixture (JAX's planes are the
+    port decoder's output on them, which step 5 holds exact); and kernels
+    I-L to have launched.  It prints the share of 32x32 CUs whose syntax equals
+    JAX's, per plane;
+13. prints one JSON line describing the kernels, then the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -61,6 +81,9 @@ FRONT_PARTITIONS = DATA / "person_vox10_front_partitions.npz"
 # acosf/cosf against PyTorch's on the card)
 PARTITION_FLOOR = 0.998
 NORMAL_ATOL = 1e-5
+# the RD gate of the geometry encoder against the JAX encoder's fixture
+RD_BYTES_TOL = 0.01
+RD_PSNR_TOL_DB = 0.1
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core float32 peak, used for int32 too
@@ -82,9 +105,17 @@ KERNEL_INFO = {
                   "vpcc_tpu/ops/cc.py:31"),
     "coverage": ("vpcc_tpu_torch/csrc/coverage.cu",
                  "vpcc_tpu/ops/coverage.py:100"),
+    "wavefront_encode32": ("vpcc_tpu_torch/csrc/wavefront_encode32.cu",
+                           "vpcc_tpu/video/hevc.py:933"),
+    "motion_search": ("vpcc_tpu_torch/csrc/motion_search.cu",
+                      "vpcc_tpu/video/hevc.py:471"),
+    "sao": ("vpcc_tpu_torch/csrc/sao.cu", "vpcc_tpu/video/hevc.py:216"),
+    "push_pull": ("vpcc_tpu_torch/csrc/push_pull.cu",
+                  "vpcc_tpu/ops/padding.py:23"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
+GEOMETRY_KERNELS = ("wavefront_encode32", "motion_search", "sao", "push_pull")
 
 
 def frame_digest(positions, colors) -> str:
@@ -144,6 +175,9 @@ def capture_key(name, args):
     if name == "wavefront_decode32":
         n_inter = inter_pixels(*args[1:3], *args[4:6])
         return (size, min(n_inter, args[1].numel() * 1024 - n_inter), n_inter)
+    if name == "wavefront_encode32":
+        # among the largest, a motion-searched plane (CUs with an MV rate)
+        return (size, int((args[5] > 0).sum()))
     return (size,)
 
 
@@ -234,9 +268,34 @@ def bounds(name, args, out):
     elif name == "cc_labels":
         byt = nbytes(*args[:4], out)
         ops = 0.0
-    else:  # coverage
+    elif name == "coverage":
         res_packed, queries = args[:2]
         byt = nbytes(res_packed, queries, *out)
+        ops = 0.0
+    elif name == "wavefront_encode32":
+        src, ref, w32, w16, w8, mvc = args[:6]
+        nby, nbx = args[-2:]
+        byt = nbytes(src, ref, w32, w16, w8, mvc, *out)
+        # the two forward-DCT stages, n multiply-adds per coefficient each,
+        # for the 36 modes of the 32x32 block, its four 16x16 quadrants and
+        # their sixteen 8x8 blocks
+        per_cu = 36 * 2 * (1024 * 32 + 4 * 256 * 16 + 16 * 64 * 8)
+        ops = 2.0 * per_cu * src.shape[0] * nby * nbx
+    elif name == "motion_search":
+        src, ref, lam, maxv, bs = args
+        byt = nbytes(src, ref, lam, maxv, *out)
+        # subtract, absolute value, add per sample for each of the 289
+        # integer candidates (the half-pel refinement is ~2 % on top)
+        ops = 3.0 * 17 * 17 * src.numel()
+    elif name == "sao":
+        src, rec, lam, wts, maxv = args
+        byt = nbytes(src, rec, lam, wts, maxv, *out)
+        # per sample: 4 classes x (2 differences, 2 signs, sum, compare,
+        # 2 accumulations), then the apply's category and offset add
+        ops = 40.0 * rec.numel()
+    else:  # push_pull
+        img, occ = args
+        byt = nbytes(img, occ, out)
         ops = 0.0
     t_bytes = byt / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -360,7 +419,7 @@ def decode_phase(dev):
           f"s/frame; all {n_frames} frames match the JAX digests "
           f"(points {[pc.point_count for pc in frames]})")
     print(f"launches on the decode path: {launches}")
-    idle = [k for k in DECODE_KERNELS if launches.get(k, 0) == 0]
+    idle = [k for k in DECODE_KERNELS + ("sao",) if launches.get(k, 0) == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the decode path: {idle}")
     return rows, launches
@@ -565,6 +624,189 @@ def front_phase(dev):
     print(f"JAX-partition-driven front end: all {n} frames match the JAX digests "
           f"(patches {[len(fr.patches) for fr in driven]}, sizes "
           f"{sorted({(fr.width, fr.height) for fr in driven})})")
+    return rows, launches, (cfg, frames, segs)
+
+
+def occupied_psnr(src, rec, occ, peak: float = 255.0) -> float:
+    import numpy as np
+
+    m = occ != 0
+    mse = float(np.mean((src[m].astype(np.float64) - rec[m].astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(peak * peak / mse)
+
+
+def cu_agreement(a: dict, b: dict) -> float:
+    """Share of 32x32 CUs whose parsed syntax (split flags, modes, levels)
+    is the same in two payloads of one plane."""
+    import numpy as np
+
+    same = np.ones(a["s32"].shape, bool)
+    for k in ("s32", "m32", "c32", "s16", "modes", "c16"):
+        x, y = a[k], b[k]
+        same &= (x == y).reshape(x.shape[0], x.shape[1], -1).all(-1)
+    return float(same.mean())
+
+
+def geometry_phase(dev, cfg, frames, segs):
+    """Steps 10-12: kernels I-L on the geometry video encoder.  Returns
+    (rows, launches)."""
+    import numpy as np
+
+    from vpcc_tpu_torch import pipeline
+    from vpcc_tpu_torch.apps import profile_encode_geometry as prof, profiling
+    from vpcc_tpu_torch.decoder import Decoder
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import padding
+    from vpcc_tpu_torch.video import codecs, hevc
+
+    n = len(frames)
+    # 10. warm-up, capturing each kernel's largest call
+    wrappers = {
+        "wavefront_encode32": (hevc, "wavefront_encode32"),
+        "motion_search": (hevc, "motion_search"),
+        "sao_search": (hevc, "sao_search"),
+        "sao_apply": (hevc, "sao_apply"),
+        "push_pull": (padding, "push_pull_round"),
+    }
+    t0 = time.perf_counter()
+    with Capture(wrappers) as cap:
+        Encoder(cfg, device="cuda").encode_gof_geometry(frames, segs=segs)
+        torch.cuda.synchronize()
+    print(f"cold geometry encode: {time.perf_counter() - t0:.2f}s for {n} frames")
+    missing = sorted(set(wrappers) - set(cap.calls))
+    if missing:
+        raise AssertionError(f"kernels never called on the geometry path: {missing}")
+
+    # 11. kernel == plain version on the card, and times in turns
+    _, enc_args, _ = cap.calls["wavefront_encode32"]
+    _, ms_args, _ = cap.calls["motion_search"]
+    _, (s_src, s_rec, s_lam, s_w), _ = cap.calls["sao_search"]
+    s_maxv = cap.calls["sao_apply"][1][3]
+    sao_args = (s_src, s_rec, s_lam, s_w, s_maxv)
+    _, pp_args, _ = cap.calls["push_pull"]
+
+    def sao_both(search, apply):
+        cls, off = search(s_src, s_rec, s_lam, s_w)
+        return cls, off, apply(s_rec, cls, off, s_maxv)
+
+    checks = {
+        "wavefront_encode32": (lambda: hevc.wavefront_encode32(*enc_args),
+                               lambda: hevc.wavefront_encode32_plain(*enc_args), enc_args, 5, 1),
+        "motion_search": (lambda: hevc.motion_search(*ms_args),
+                          lambda: hevc.motion_search_plain(*ms_args), ms_args, 20, 3),
+        "sao": (lambda: sao_both(hevc.sao_search, hevc.sao_apply),
+                lambda: sao_both(hevc.sao_search_plain, hevc.sao_apply_plain), sao_args, 20, 3),
+        "push_pull": (lambda: padding.push_pull_round(*pp_args),
+                      lambda: padding.push_pull_round_plain(*pp_args), pp_args, 20, 3),
+    }
+    print(f"wavefront_encode32 check input: {int((enc_args[5] > 0).sum())} of "
+          f"{enc_args[5].numel()} CUs with an MV rate (a motion-searched plane)")
+    rows = {}
+    for name in GEOMETRY_KERNELS:
+        kern, plain, args, reps_k, reps_p = checks[name]
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(tuple(out_k), tuple(out_p)) if isinstance(out_k, tuple) \
+            else max_abs_err(out_k, out_p)
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain version "
+                                 f"(max abs err {err})")
+        (k1, k2), (p1, p2) = time_turns(kern, plain, reps_k=reps_k, reps_p=reps_p)
+        b_ms, b_by = bounds(name, args, out_k)
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        print(f"{name}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}); inputs {shapes}")
+        rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+    # 12. the main path, counted and timed
+    enc = Encoder(cfg, device="cuda")
+    dev.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = enc.encode_gof_geometry(frames, segs=segs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(dev.LAUNCHES)
+    split = {f: sum(getattr(o.stats, f) for o in out) / n
+             for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s",
+                       "video_s", "reconstruct_s")}
+    print(f"warm geometry encode: {dt:.3f}s for {n} frames = {dt / n:.4f} s/frame; per "
+          "frame " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"launches on the geometry path: {launches}")
+    idle = [k for k in GEOMETRY_KERNELS if launches.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the geometry path: {idle}")
+    profiling.print_trace(*prof.trace_p_frame(enc, frames, out, segs),
+                          "one warm P-frame (frame 1, JAX partitions)", top=12)
+
+    # every payload decodes to the encoder's planes; the reconstruction is
+    # the seam's on those planes
+    d = torch.device("cuda")
+    parent, _ = enc.gof_structure(n)
+    decs = [codecs.GeometrySubstreamDecoder(cfg, d) for _ in range(2)]
+    bank = {}
+    for i, fr in enumerate(out):
+        g0 = decs[0].decode(fr.geo_payloads[0],
+                            temporal_ref=bank.get(parent[i]) if i else None)
+        g1 = decs[1].decode(fr.geo_payloads[1], layer_ref=g0)
+        for k, (a, b) in enumerate(((g0, fr.geo_dec[0]), (g1, fr.geo_dec[1]))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"frame {i} D{k}: the decoder's plane differs from "
+                                     "the encoder's reconstruction")
+        if i in set(parent[i + 1:]):
+            bank[i] = g0
+        rc = pipeline.reconstruct_frame(fr.front.occ_rec, [g0, g1], fr.front.block_to_patch,
+                                        fr.front.patches, cfg, d)
+        for field, a, b in zip(rc._fields, rc, fr.recon):
+            if torch.is_tensor(a) and not torch.equal(a, b):
+                raise AssertionError(f"frame {i}: reconstruction field {field} differs")
+        if not torch.isfinite(fr.recon.pos.float()).all():
+            raise AssertionError(f"frame {i}: non-finite reconstructed positions")
+    print(f"cross-decode: all {2 * n} geometry payloads decode exactly to the encoder's "
+          f"planes; reconstructions equal the seam's ({[int(fr.recon.pos.shape[0]) for fr in out]} points)")
+
+    # the RD gate against the JAX encoder's geometry substreams
+    jax_geo = []
+    real = codecs.GeometrySubstreamDecoder.decode
+
+    def spy(self, payload, *a, **kw):
+        plane = real(self, payload, *a, **kw)
+        jax_geo.append((payload, plane.cpu().numpy()))
+        return plane
+
+    codecs.GeometrySubstreamDecoder.decode = spy
+    try:
+        Decoder(device="cuda").decode(FIXTURE.read_bytes())
+    finally:
+        codecs.GeometrySubstreamDecoder.decode = real
+    if len(jax_geo) != 2 * n:
+        raise AssertionError(f"fixture holds {len(jax_geo)} geometry frames, expected {2 * n}")
+    port_bytes = sum(len(p) for fr in out for p in fr.geo_payloads)
+    jax_bytes = sum(len(p) for p, _ in jax_geo)
+    d_bytes = port_bytes / jax_bytes - 1.0
+    rows_rd, worst = [], 0.0
+    identical = 0
+    for i, fr in enumerate(out):
+        for k, src in enumerate((fr.front.frame.geometry0, fr.front.frame.geometry1)):
+            jp, jrec = jax_geo[2 * i + k]
+            pp = fr.geo_payloads[k]
+            identical += pp == jp
+            ps_port = occupied_psnr(src, fr.geo_dec[k].cpu().numpy(), fr.front.frame.occupancy)
+            ps_jax = occupied_psnr(src, jrec, fr.front.frame.occupancy)
+            agree = cu_agreement(hevc.parse_planes32(pp[1:]), hevc.parse_planes32(jp[1:]))
+            worst = max(worst, abs(ps_port - ps_jax))
+            rows_rd.append(f"f{i}D{k} {len(pp)}/{len(jp)} B {ps_port:.4f}/{ps_jax:.4f} dB "
+                           f"CU {agree:.4f}")
+    print("per plane (port/JAX bytes, occupied PSNR, CU syntax agreement): "
+          + "; ".join(rows_rd))
+    print(f"RD against the JAX fixture: geometry bytes {port_bytes} vs {jax_bytes} "
+          f"({100 * d_bytes:+.4f} %), worst plane PSNR delta {worst:.4f} dB; "
+          f"{identical} of {2 * n} payloads byte-identical to JAX's")
+    if abs(d_bytes) > RD_BYTES_TOL or worst > RD_PSNR_TOL_DB:
+        raise AssertionError(f"RD gate: bytes {100 * d_bytes:+.3f} % (limit "
+                             f"{100 * RD_BYTES_TOL} %), PSNR delta {worst:.3f} dB "
+                             f"(limit {RD_PSNR_TOL_DB})")
     return rows, launches
 
 
@@ -593,10 +835,13 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     rows, launches = decode_phase(dev)
-    front_rows, front_launches = front_phase(dev)
+    front_rows, front_launches, (cfg, frames, segs) = front_phase(dev)
+    geo_rows, geo_launches = geometry_phase(dev, cfg, frames, segs)
     rows.update(front_rows)
+    rows.update(geo_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
-                **{k: front_launches[k] for k in FRONT_KERNELS}}
+                **{k: front_launches[k] for k in FRONT_KERNELS},
+                **{k: geo_launches[k] for k in GEOMETRY_KERNELS}}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

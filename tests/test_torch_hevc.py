@@ -133,8 +133,8 @@ def test_deblock_and_sao_apply(qp, maxval):
     off = rng.integers(-7, 8, (P, H // 32, W // 32, 4)).astype(np.int32)
     want = np.asarray(jh._sao_apply(jnp.asarray(rec), jnp.asarray(cls.astype(np.int8)),
                                     jnp.asarray(off.astype(np.int8)), jnp.asarray(maxv)))
-    got = th._sao_apply(torch.as_tensor(rec), torch.as_tensor(cls),
-                        torch.as_tensor(off), torch.as_tensor(maxv))
+    got = th.sao_apply(torch.as_tensor(rec), torch.as_tensor(cls.astype(np.int8)),
+                       torch.as_tensor(off.astype(np.int8)), torch.as_tensor(maxv))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -222,3 +222,114 @@ def test_coverage_kernel(cuda, seed):
     for a, b in zip(got, want):
         _same(a, b)
     assert got[1].sum() > got[0].sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# geometry video encoder: kernels I-L
+
+
+def _smooth_planes(rng, P, H, W, maxval, k=9):
+    """Smooth integer planes with a little noise (box-filtered noise)."""
+    x = rng.random((P, H + k, W + k))
+    c = np.cumsum(np.cumsum(x, 1), 2)
+    box = (c[:, k:, k:] - c[:, :-k, k:] - c[:, k:, :-k] + c[:, :-k, :-k]) / (k * k)
+    box = (box - box.min()) / (np.ptp(box) + 1e-9) * maxval
+    out = box[:, :H, :W] + rng.integers(-2, 3, (P, H, W))
+    for p in range(P):   # a few flat rectangles: sharp edges beside smooth areas
+        for _ in range(6):
+            y, x = rng.integers(0, H), rng.integers(0, W)
+            out[p, y: y + rng.integers(4, 40), x: x + rng.integers(4, 40)] = rng.integers(0, maxval)
+    return np.clip(out, 0, maxval).astype(np.int32)
+
+
+def test_push_pull_kernel(cuda):
+    from vpcc_tpu_torch.ops import padding
+
+    rng = np.random.default_rng(3)
+    for H, W, share in ((1280, 1280, 0.6), (256, 96, 0.02), (6, 10, 0.0)):
+        img = torch.as_tensor(rng.integers(0, 1024, (H, W)).astype(np.int32), device=cuda)
+        occ = torch.as_tensor((rng.random((H, W)) < share).astype(np.uint8), device=cuda)
+        _same(padding.push_pull_round(img, occ), padding.push_pull_round_plain(img, occ))
+
+
+@pytest.mark.parametrize("bs", [32, 16])
+def test_motion_search_kernel(cuda, bs):
+    rng = np.random.default_rng(bs)
+    P, H, W = 3, 128, 96
+    base = _smooth_planes(rng, P, H + 16, W + 16, 255)
+    src = torch.as_tensor(np.ascontiguousarray(base[:, 5:5 + H, 3:3 + W]), device=cuda)
+    # the reference half a sample off the source grid: half-pel vectors win
+    half = (base[:, 8:8 + H, 8:8 + W] + base[:, 8:8 + H, 9:9 + W] + 1) // 2
+    ref = torch.as_tensor(half.astype(np.int32), device=cuda)
+    lam = torch.as_tensor(tab.LAMBDA[[24, 30, 40]], device=cuda)
+    maxv = torch.full((P,), 255, dtype=torch.int32, device=cuda)
+    mv, cost = hevc.motion_search(src, ref, lam, maxv, bs)
+    mv_p, cost_p = hevc.motion_search_plain(src, ref, lam, maxv, bs)
+    _same(mv, mv_p)
+    _same(cost, cost_p)
+    assert bool(((mv & 1) != 0).any())   # some half-pel vectors win
+
+
+def test_sao_kernel(cuda):
+    rng = np.random.default_rng(5)
+    P, H, W = 2, 96, 160
+    src = _smooth_planes(rng, P, H, W, 1023)
+    rec = np.clip(src + rng.integers(-6, 7, src.shape), 0, 1023).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    w = t((rng.random((P, H, W)) < 0.8).astype(np.int32))
+    lam = t(tab.LAMBDA[[20, 34]])
+    maxv = torch.full((P,), 1023, dtype=torch.int32, device=cuda)
+    cls, off = hevc.sao_search(t(src), t(rec), lam, w)
+    cls_p, off_p = hevc.sao_search_plain(t(src), t(rec), lam, w)
+    _same(cls, cls_p)
+    _same(off, off_p)
+    assert int((cls > 0).sum()) > 0
+    _same(hevc.sao_apply(t(rec), cls, off, maxv), hevc.sao_apply_plain(t(rec), cls, off, maxv))
+
+
+@pytest.mark.parametrize("has_ref", [False, True])
+def test_wavefront_encode32_kernel(cuda, has_ref):
+    rng = np.random.default_rng(11 + has_ref)
+    PT, nby, nbx = 2, 2, 3
+    nb = nby * nbx
+    H, W = nby * 32, nbx * 32
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    src = _smooth_planes(rng, PT, H, W, 255)
+    ref = np.zeros_like(src)
+    if has_ref:   # a good reference on the left, an unrelated one on the right
+        ref = np.clip(src + rng.integers(-3, 4, src.shape), 0, 255).astype(np.int32)
+        ref[:, :, W // 2:] = _smooth_planes(rng, PT, H, W - W // 2, 255)
+    wgt = (rng.random((PT, nby * 4, nbx * 4)) < 0.6).repeat(8, 1).repeat(8, 2)
+    w32, w16, w8 = hevc.block_weights32(t(wgt.astype(np.int32)), nby, nbx)
+    qp = np.array([34, 44])
+    dq = tab.DQ64[qp].astype(np.int32)
+    qstep = dq.astype(np.float32) / np.float32(64)
+    args = [t(src), t(ref), w32, w16, w8,
+            t((rng.random((PT, nb)) * 20).astype(np.float32)), t(qstep),
+            t(np.float32(1) / qstep), t(tab.LAMBDA[qp]),
+            torch.full((PT,), 0.0 if has_ref else 1e30, device=cuda), t(dq),
+            torch.full((PT,), 255, dtype=torch.int32, device=cuda)]
+    got = hevc.wavefront_encode32(*args, nby, nbx)
+    want = hevc.wavefront_encode32_plain(*args, nby, nbx)
+    for a, b in zip(got, want):
+        _same(a, b)
+    flags = torch.cat([got[0].flatten(), got[3].flatten()]).long()
+    assert 0 < int(flags.sum()) < flags.numel()   # split and unsplit blocks
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_encode_planes_on_the_card(cuda, motion):
+    """The whole plane encoder on the card equals it on the CPU (payload and
+    reconstruction), and the card's decoder reads it back exactly."""
+    rng = np.random.default_rng(21 + motion)
+    H, W = 192, 288
+    planes = _smooth_planes(rng, 2, H, W, 255)
+    src, ref = planes[:1], planes[1:]
+    occ = (rng.random((H // 8, W // 8)) < 0.7).repeat(8, 0).repeat(8, 1).astype(np.uint8)
+    kw = dict(qps=[24], maxvals=[255], occ=occ, weight=occ, deblock=False, motion=motion)
+    pay_c, rec_c = hevc.encode_planes(torch.as_tensor(src), refs=torch.as_tensor(ref), **kw)
+    pay_g, rec_g = hevc.encode_planes(torch.as_tensor(src, device=cuda),
+                                      refs=torch.as_tensor(ref, device=cuda), **kw)
+    assert pay_g == pay_c
+    _same(rec_g, rec_c)
+    _same(hevc.decode_planes(pay_g, refs=torch.as_tensor(ref, device=cuda)), rec_g)

@@ -1,0 +1,48 @@
+"""Make the committed RD rate table of the PyTorch port's video encoder.
+
+Not a test: a helper that evaluates, with the JAX package's XLA CPU
+backend, the rate term of a quantised level that `vpcc_tpu.video.hevc.
+_rd_choose` computes,
+
+    where(lv > 0, 3 + 2 * log2(1 + lv), 0)   for lv = 0 .. 32767,
+
+and writes the float32 values to
+
+    vpcc_tpu_torch/data/rd_bits_xla.npy
+
+XLA's log2 is not correctly rounded (about a third of these values differ
+from round(log2) in the last bit), so the port's RDO reads this table in
+place of computing log2 itself.  Run from the repository root:
+
+    JAX_PLATFORMS=cpu python tests/torch_make_encode_tables.py
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+LEVEL_MAX = 32767
+
+
+def main() -> None:
+    lv = np.arange(LEVEL_MAX + 1, dtype=np.float32)
+    f = jax.jit(lambda v: jnp.where(v > 0, 3.0 + 2.0 * jnp.log2(1.0 + v), 0.0))
+    table = np.asarray(f(lv), np.float32)
+    out = ROOT / "vpcc_tpu_torch" / "data" / "rd_bits_xla.npy"
+    np.save(out, table)
+    print(f"wrote {out} ({table.nbytes} bytes)")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,12 +13,13 @@ unsynchronised warm decode.
 from __future__ import annotations
 
 import collections
-import contextlib
 import sys
 import time
 from pathlib import Path
 
 import torch
+
+from vpcc_tpu_torch.apps import profiling
 
 FIXTURE = Path(__file__).resolve().parents[1] / "data" / "person_vox10_r3_gof8.vpcc"
 NESTED = "  (within the stage above) "
@@ -40,7 +41,7 @@ def _stage_patches():
         (hevc, "half_pel_mc", "device: kernel B half_pel_mc"),
         (hevc, "wavefront_decode32", "device: kernel A wavefront_decode32"),
         (hevc, "_deblock", "device: deblock (torch)"),
-        (hevc, "_sao_apply", "device: SAO apply (torch)"),
+        (hevc, "sao_apply", "device: kernel K sao_apply"),
         (hevc, "_int_planes_to_rgb", "device: YCbCr->RGB (torch)"),
         (hevc, "rgb_refs", "device: RGB->YCbCr refs (torch)"),
         (reconstruct, "generate_points", "device: kernel C generate_points"),
@@ -50,29 +51,6 @@ def _stage_patches():
          "device->host: download, incl. duplicate removal"),
         (pipeline, "first_unique_rows", NESTED + "duplicate removal (torch)"),
     ]
-
-
-@contextlib.contextmanager
-def _timed_stages(acc):
-    saved = []
-    for mod, attr, name in _stage_patches():
-        fn = getattr(mod, attr)
-        saved.append((mod, attr, fn))
-
-        def wrap(*a, _fn=fn, _name=name, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*a, **kw)
-            torch.cuda.synchronize()
-            acc[_name] += time.perf_counter() - t0
-            return out
-
-        setattr(mod, attr, wrap)
-    try:
-        yield
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
 
 
 def main(argv=None) -> int:
@@ -92,7 +70,7 @@ def main(argv=None) -> int:
 
     acc = collections.defaultdict(float)
     t0 = time.perf_counter()
-    with _timed_stages(acc):
+    with profiling.timed_stages(acc, _stage_patches()):
         for _ in range(reps):
             frames = Decoder(device="cuda").decode(stream)
     wall = (time.perf_counter() - t0) / reps
@@ -104,33 +82,9 @@ def main(argv=None) -> int:
     print(f"  {staged * 1e3:9.2f} ms  sum of stages; wall {wall / n * 1e3:.2f} ms/frame "
           f"(rest: parsing, Python, allocation)")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        Decoder(device="cuda").decode(stream)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us = collections.defaultdict(float)
-    count = collections.Counter()
-    for e in prof.key_averages():
-        # device-side events only (kernels, memcpys, memsets): the CPU op
-        # entries carry their kernels' device time a second time
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            dev_us[e.key] += t
-            count[e.key] += e.count
-    busy = sum(dev_us.values()) / 1e6
-    print(f"device trace of one warm decode ({n} frames): wall {wall:.3f}s, "
-          f"device busy {busy:.4f}s = {100 * busy / wall:.2f}% "
-          f"(idle {100 * (1 - busy / wall):.2f}%)")
-    for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {us / 1e3:9.3f} ms  x{count[k]:5d}  {k[:90]}")
+    profiling.print_trace(
+        *profiling.device_trace(lambda: Decoder(device="cuda").decode(stream)),
+        f"one warm decode ({n} frames)")
     return 0
 
 

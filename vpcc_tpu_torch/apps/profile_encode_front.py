@@ -14,13 +14,14 @@ share of the wall time of one warm, unsynchronised frame.
 from __future__ import annotations
 
 import collections
-import contextlib
 import json
 import sys
 import time
 from pathlib import Path
 
 import torch
+
+from vpcc_tpu_torch.apps import profiling
 
 DATA = Path(__file__).resolve().parents[1] / "data"
 
@@ -51,29 +52,6 @@ def _stage_patches():
     ]
 
 
-@contextlib.contextmanager
-def _timed_stages(acc):
-    saved = []
-    for obj, attr, name in _stage_patches():
-        fn = getattr(obj, attr)
-        saved.append((obj, attr, fn))
-
-        def wrap(*a, _fn=fn, _name=name, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*a, **kw)
-            torch.cuda.synchronize()
-            acc[_name] += time.perf_counter() - t0
-            return out
-
-        setattr(obj, attr, wrap)
-    try:
-        yield
-    finally:
-        for obj, attr, fn in saved:
-            setattr(obj, attr, fn)
-
-
 def main(argv=None) -> int:
     argv = list(argv if argv is not None else sys.argv[1:])
     n_frames = 8
@@ -98,7 +76,7 @@ def main(argv=None) -> int:
 
     acc = collections.defaultdict(float)
     t0 = time.perf_counter()
-    with _timed_stages(acc):
+    with profiling.timed_stages(acc, _stage_patches()):
         out = Encoder(cfg, device="cuda").encode_gof_front(frames)
     wall = time.perf_counter() - t0
     n = len(frames)
@@ -111,33 +89,9 @@ def main(argv=None) -> int:
     print(f"  {staged * 1e3:9.2f} ms  sum of stages; wall {wall / n * 1e3:.2f} ms/frame "
           f"(rest: Python, host<->device copies, CC and component bookkeeping)")
 
-    from torch.profiler import ProfilerActivity, profile
-
     enc = Encoder(cfg, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        enc.encode_frame_front(frames[0])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us = collections.defaultdict(float)
-    count = collections.Counter()
-    for e in prof.key_averages():
-        # device-side events only (kernels, memcpys, memsets)
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            dev_us[e.key] += t
-            count[e.key] += e.count
-    busy = sum(dev_us.values()) / 1e6
-    print(f"device trace of one warm frame (frame 0): wall {wall:.3f}s, "
-          f"device busy {busy:.4f}s = {100 * busy / wall:.2f}% "
-          f"(idle {100 * (1 - busy / wall):.2f}%)")
-    for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {us / 1e3:9.3f} ms  x{count[k]:5d}  {k[:90]}")
+    profiling.print_trace(*profiling.device_trace(lambda: enc.encode_frame_front(frames[0])),
+                          "one warm frame (frame 0)")
     return 0
 
 

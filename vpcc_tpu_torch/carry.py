@@ -8,9 +8,11 @@ and its reference planes:
   int32 planes of the last decoded attribute frame;
 * the decoder's hierarchical banks of those, per reference frame.
 
-What the encoder front end carries is each tree parent's patch list (a
-P-frame matches its patches against it and reuses their placements) and
-the GOF's height ratchet.
+What the encoder carries is each tree parent's patch list (a P-frame
+matches its patches against it and reuses their placements), the GOF's
+height ratchet, and on the geometry side each substream encoder's last
+decoded plane (`GeometrySubstreamEncoder.ref`) and the bank of tree
+parents' decoded D0 planes (`geo_bank`, frame index -> (H, W) int32).
 
 These helpers build them from plain Python / numpy values, e.g. state saved
 by the JAX package (`dataclasses.asdict(VPCCConfig)`, `np.asarray(plane)`,
@@ -74,3 +76,20 @@ def seed_height_hint(encoder, height: int) -> None:
     """Set the encoder's GOF height ratchet (the largest atlas height of the
     GOF so far), e.g. to the JAX encoder's `_height_hint`."""
     encoder._height_hint = int(height)
+
+
+def seed_geometry_streams(streams: dict, planes: dict, device=None) -> dict:
+    """Set each geometry substream encoder's last decoded plane
+    (`streams[name].ref`) from numpy, e.g. the JAX encoder's
+    `streams["geo0"].ref`; `planes` maps stream names to (H, W) arrays.
+    Returns `streams`."""
+    for name, plane in planes.items():
+        streams[name].ref = refs_from_numpy(plane, device)
+    return streams
+
+
+def geo_bank_from_numpy(bank: dict, device=None) -> dict:
+    """The reference's decoded-D0 bank (frame index -> (H, W) plane) as
+    int32 tensors on the port's device: a P-frame's temporal reference for
+    `Encoder.encode_frame_geometry` (`temporal_refs={"geo": bank[parent]}`)."""
+    return {int(k): refs_from_numpy(v, device) for k, v in bank.items()}

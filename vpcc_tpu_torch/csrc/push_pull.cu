@@ -1,0 +1,147 @@
+// Kernel L: push-pull background fill of one video plane, rounded to int32.
+//
+// Replaces the XLA program vpcc_tpu/ops/padding.py `push_pull_fill`
+// (padding.py:23) as vpcc_tpu/video/hevc.py `_round_int_plane` (hevc.py:1380)
+// runs it on every geometry plane: unoccupied pixels take a mip-pyramid
+// interpolation of the occupied ones, then the plane is rounded half to even.
+//
+// Design.  One launch per pyramid level.  Push (levels 1..L): each thread
+// makes one coarse pixel's value and weight sums from its 2x2 children in
+// the reference's reduce order ((a + b) + c) + d over (0,0), (0,1), (1,0),
+// (1,1); level 0 reads the image and occupancy directly (value = image *
+// occupancy).  Pull (levels L..0): a pixel with weight takes value / weight,
+// one without its parent's fill; the coarsest level has no parent.  The
+// level-0 pull writes the result: the image where occupied, else the fill,
+// rounded half to even (rintf) to int32.  Float operations are single IEEE
+// roundings (built with --fmad=false), as the plain version computes them.
+//
+// Bound: bytes.  The level-0 passes read the image and occupancy and write
+// the output; the coarser levels add a third as much again.  At 1280 x 1280
+// the 17 short launches (8 push, 9 pull) are latency, not bytes.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxLevels = 32;
+
+__global__ void push_level0(const int32_t* img, const uint8_t* occ, float* v1,
+                            float* w1, int H, int W) {
+  const int h = H / 2, w = W / 2;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= h * w) return;
+  const int y = 2 * (i / w), x = 2 * (i % w);
+  float a[4], b[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int p = (y + (k >> 1)) * W + x + (k & 1);
+    const float o = static_cast<float>(occ[p]);
+    a[k] = __fmul_rn(static_cast<float>(img[p]), o);
+    b[k] = o;
+  }
+  v1[i] = __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), a[2]), a[3]);
+  w1[i] = __fadd_rn(__fadd_rn(__fadd_rn(b[0], b[1]), b[2]), b[3]);
+}
+
+__global__ void push_level(const float* v0, const float* w0, float* v1, float* w1,
+                           int H, int W) {
+  const int h = H / 2, w = W / 2;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= h * w) return;
+  const int y = 2 * (i / w), x = 2 * (i % w);
+  const int p = y * W + x;
+  v1[i] = __fadd_rn(__fadd_rn(__fadd_rn(v0[p], v0[p + 1]), v0[p + W]), v0[p + W + 1]);
+  w1[i] = __fadd_rn(__fadd_rn(__fadd_rn(w0[p], w0[p + 1]), w0[p + W]), w0[p + W + 1]);
+}
+
+// fill of one level >= 1 from its sums and its parent's fill (none at the top)
+__global__ void pull_level(const float* v, const float* wt, const float* parent,
+                           float* fill, int H, int W, int top) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= H * W) return;
+  const float avg = __fdiv_rn(v[i], fmaxf(wt[i], 1.0f));
+  if (top || wt[i] > 0.0f) {
+    fill[i] = avg;
+  } else {
+    const int y = i / W, x = i % W;
+    fill[i] = parent[(y / 2) * (W / 2) + x / 2];
+  }
+}
+
+__global__ void pull_level0(const int32_t* img, const uint8_t* occ,
+                            const float* parent, int32_t* out, int H, int W,
+                            int top) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= H * W) return;
+  const float o = static_cast<float>(occ[i]);
+  float r;
+  if (o > 0.0f) {
+    r = static_cast<float>(img[i]);
+  } else if (top) {
+    r = 0.0f;  // a single-level plane with no occupied pixel: 0 / max(0, 1)
+  } else {
+    const int y = i / W, x = i % W;
+    r = parent[(y / 2) * (W / 2) + x / 2];
+  }
+  out[i] = static_cast<int32_t>(rintf(r));
+}
+
+inline unsigned blocks_for(long long n, int threads) {
+  return static_cast<unsigned>((n + threads - 1) / threads);
+}
+
+}  // namespace
+
+// img/out: (H, W) int32; occ: (H, W) uint8; scratch: float32, at least
+// 3 * sum of the level sizes (vpcc_tpu_torch/ops/padding.py scratch_floats).
+// *launched (host memory) receives the number of grids launched.
+extern "C" int push_pull(const int32_t* img, const uint8_t* occ, float* scratch,
+                         int32_t* out, int H, int W, void* stream, int* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int hs[kMaxLevels], ws[kMaxLevels];
+  int L = 0;
+  hs[0] = H;
+  ws[0] = W;
+  while (hs[L] > 1 && ws[L] > 1 && hs[L] % 2 == 0 && ws[L] % 2 == 0 &&
+         L + 1 < kMaxLevels) {
+    hs[L + 1] = hs[L] / 2;
+    ws[L + 1] = ws[L] / 2;
+    ++L;
+  }
+  // per level l >= 1: value, weight and fill planes
+  float* val[kMaxLevels];
+  float* wgt[kMaxLevels];
+  float* fil[kMaxLevels];
+  float* p = scratch;
+  for (int l = 1; l <= L; ++l) {
+    const size_t n = static_cast<size_t>(hs[l]) * ws[l];
+    val[l] = p;
+    wgt[l] = p + n;
+    fil[l] = p + 2 * n;
+    p += 3 * n;
+  }
+  const int T = 256;
+  *launched = 0;
+  for (int l = 1; l <= L; ++l) {
+    const long long n = static_cast<long long>(hs[l]) * ws[l];
+    if (l == 1) {
+      push_level0<<<blocks_for(n, T), T, 0, st>>>(img, occ, val[1], wgt[1], H, W);
+    } else {
+      push_level<<<blocks_for(n, T), T, 0, st>>>(val[l - 1], wgt[l - 1], val[l],
+                                                 wgt[l], hs[l - 1], ws[l - 1]);
+    }
+    ++*launched;
+  }
+  for (int l = L; l >= 1; --l) {
+    const long long n = static_cast<long long>(hs[l]) * ws[l];
+    pull_level<<<blocks_for(n, T), T, 0, st>>>(val[l], wgt[l],
+                                               l < L ? fil[l + 1] : nullptr,
+                                               fil[l], hs[l], ws[l], l == L);
+    ++*launched;
+  }
+  pull_level0<<<blocks_for(static_cast<long long>(H) * W, T), T, 0, st>>>(
+      img, occ, L >= 1 ? fil[1] : nullptr, out, H, W, L == 0);
+  ++*launched;
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,431 @@
+// Kernel I: wavefront rate-distortion encode of the three-level (32/16/8)
+// CU quadtree.
+//
+// Replaces the XLA program vpcc_tpu/video/hevc.py `_build_encode32.run`
+// (hevc.py:933-1114, with `_code_cu16` 745, `_rd_choose` 125,
+// `_predict_all` 94, `_int_recon` 113): for every 32x32 CU choose, by
+// transform-domain RD cost over the 36 prediction modes (35 intra + inter),
+// between the whole 32x32 block and four 16x16 quadrants, each whole or as
+// four 8x8 blocks; emit the syntax and the int32 reconstruction.
+//
+// Design.  As kernel A (wavefront_decode32.cu): CUs on a wavefront diagonal
+// d = 2*by + bx are independent, so the host launches one grid per
+// diagonal, one block per (tile plane, CU), 1024 threads; the CU's samples
+// live in shared memory and the quadtree is walked in z-order.  Reference
+// samples are the natural neighbours (inside the CU: the samples coded so
+// far, else the init value; outside: the plane where that CU lies on an
+// earlier diagonal, else the init value); bottom-left samples are the init
+// value except for the first two 8x8 blocks of a quadrant.  The 8x8 blocks
+// of a quadrant are coded in place in the CU buffer; if the whole 16x16
+// block wins, its reconstruction overwrites them.
+//
+// Mode evaluation.  A block of n x n takes 1024 / (n*n) modes at a time,
+// one thread per (mode, sample): prediction (planar/DC by formula, angular
+// from the 2-tap tables, inter from the motion-compensated plane; equal to
+// the reference's prediction matrix), residual, the orthonormal DCT as two
+// sequential fma chains (t[j,l] = sum_k r[j,k] Cf[l,k], then c[i,l] =
+// sum_j Cf[i,j] t[j,l]), lv = min(floor(fma(|c|, 1/qstep, 0.33)), 32767),
+// the distortion term d*d with d = fma(-lv, qstep, |c|), the rate term of
+// lv from the table of the reference's values, then pairwise-tree sums
+// (x[p] + x[p + h]) per mode and the max scan position of a nonzero level.
+// cost = fma(w, dist, lam * (fma(0.12, last + 1, bits) + mode_bits)) (+ the
+// inter penalty).  The first minimum over ascending modes wins (strict <).
+// The winner's levels are recomputed for the syntax and the integer
+// reconstruction, which runs in wrapping 32-bit arithmetic as kernel A's.
+// The plain version (hevc.py `wavefront_encode32_plain`) evaluates the
+// same float operations in the same order; built with --fmad=false so that
+// no other contraction happens.
+//
+// Bound: operations.  Per CU and mode level the two DCT stages cost 2n
+// multiply-adds per sample for each of the 36 modes, at 32, 16 and 8: about
+// 36 * 2 * 1024 * (32 + 16 + 8) multiply-adds per CU.  The wavefront's
+// sequential diagonals (22 at 8 x 8 CUs per tile) leave most SMs idle.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+// int blob (hevc.py `_tables`): T32 T16 T8 | izz32 izz16 izz8 | taps | zz
+constexpr int OFF_T32 = 0;
+constexpr int OFF_T16 = OFF_T32 + 32 * 32;
+constexpr int OFF_T8 = OFF_T16 + 16 * 16;
+constexpr int OFF_ZZ32 = OFF_T8 + 8 * 8;          // inverse zigzags
+constexpr int OFF_ZZ16 = OFF_ZZ32 + 32 * 32;
+constexpr int OFF_ZZ8 = OFF_ZZ16 + 16 * 16;
+constexpr int OFF_A32 = OFF_ZZ8 + 8 * 8;
+constexpr int OFF_A16 = OFF_A32 + 33 * 32 * 32 * 4;
+constexpr int OFF_A8 = OFF_A16 + 33 * 16 * 16 * 4;
+constexpr int OFF_FZ32 = OFF_A8 + 33 * 8 * 8 * 4;  // forward zigzags
+constexpr int OFF_FZ16 = OFF_FZ32 + 32 * 32;
+constexpr int OFF_FZ8 = OFF_FZ16 + 16 * 16;
+// float blob: Cf32 Cf16 Cf8 | mode bits (36) | rate term per level
+constexpr int FOFF_CF32 = 0;
+constexpr int FOFF_CF16 = 1024;
+constexpr int FOFF_CF8 = 1280;
+constexpr int FOFF_MB = 1344;
+constexpr int FOFF_BITS = FOFF_MB + 36;
+constexpr int N_MODES = 36;
+constexpr int MODE_INTER = 35;
+constexpr float LEVEL_MAX = 32767.0f;
+
+struct Ctx {
+  const int32_t* rec;  // this tile plane's reconstruction (earlier diagonals)
+  const int32_t* ref;  // this tile plane's inter prediction samples
+  const int32_t* itab;
+  const float* ftab;
+  int Wt, nbx, nby, d, by, bx, y0, x0, init, maxv, dq;
+  float qstep, inv_q, lam;
+};
+
+struct Smem {
+  int cur[1024];     // the CU's samples coded so far (init elsewhere)
+  int src[1024];     // the CU's source samples
+  int refv[4 * 32 + 1];
+  float R[1024];     // residuals; integer scratch of the reconstruction
+  float T1[1024];    // first DCT stage; integer scratch of the reconstruction
+  float D[1024];     // distortion terms
+  float Bt[1024];    // rate terms
+  int Lz[1024];      // scan position of nonzero levels
+  int lev[1024];     // the chosen mode's raster levels
+  int pred[1024];    // the chosen mode's prediction
+  int c8[256];       // a quadrant's four 8x8 zigzag level blocks
+  float cf[1344];    // Cf32 Cf16 Cf8
+  float cost[16];
+  int m8[4];
+  int best_mode;
+  float best_cost;
+};
+
+__device__ __forceinline__ int fetch(const Ctx& c, const int* cur, int yy, int xx) {
+  if (yy >= 0 && yy < 32 && xx >= 0 && xx < 32) return cur[yy * 32 + xx];
+  const int cy = c.by + (yy >> 5);
+  const int cx = c.bx + (xx >> 5);
+  if (cy < 0 || cx < 0 || cx >= c.nbx || cy >= c.nby || 2 * cy + cx >= c.d)
+    return c.init;
+  return c.rec[(c.y0 + yy) * c.Wt + (c.x0 + xx)];
+}
+
+__device__ __forceinline__ int predict(const Ctx& c, const int* refv,
+                                       const int32_t* taps, int n, int log2n,
+                                       int mode, int y, int x, int oy, int ox) {
+  if (mode == 0) {  // planar
+    return ((n - 1 - x) * refv[2 * n + 1 + y] + (x + 1) * refv[n + 1] +
+            (n - 1 - y) * refv[1 + x] + (y + 1) * refv[3 * n + 1] + n) >>
+           (log2n + 1);
+  }
+  if (mode == 1) {  // DC over the n top and n left samples
+    int s = 0;
+    for (int q = 0; q < n; ++q) s += refv[1 + q] + refv[2 * n + 1 + q];
+    return (s + n) >> (log2n + 1);
+  }
+  if (mode == MODE_INTER) return c.ref[(c.y0 + oy + y) * c.Wt + (c.x0 + ox + x)];
+  const int32_t* a = taps + ((mode - 2) * n * n + y * n + x) * 4;
+  return (a[2] * refv[a[0]] + a[3] * refv[a[1]] + 16) >> 5;
+}
+
+__device__ __forceinline__ const int32_t* taps_of(const Ctx& c, int n) {
+  return c.itab + (n == 32 ? OFF_A32 : n == 16 ? OFF_A16 : OFF_A8);
+}
+
+__device__ __forceinline__ const float* cf_of(const Smem& s, int n) {
+  return s.cf + (n == 32 ? FOFF_CF32 : n == 16 ? FOFF_CF16 : FOFF_CF8);
+}
+
+// reference vector of the n x n block at (oy, ox) (all threads call)
+__device__ void load_refs(const Ctx& c, Smem& s, int n, int oy, int ox, bool bl_init) {
+  const int t = threadIdx.x;
+  if (t < 4 * n + 1) {
+    int v;
+    if (t == 0) v = fetch(c, s.cur, oy - 1, ox - 1);
+    else if (t <= 2 * n) v = fetch(c, s.cur, oy - 1, ox + t - 1);
+    else if (t <= 3 * n || !bl_init) v = fetch(c, s.cur, oy + t - 2 * n - 1, ox - 1);
+    else v = c.init;
+    s.refv[t] = v;
+  }
+  __syncthreads();
+}
+
+// forward DCT of the residual in s.R (segment g of nn samples) -> |c| and
+// the quantised level; returns c for thread (g, p).  All threads call.
+__device__ float dct_coef(Smem& s, int n, int g, int p, bool active) {
+  const int nn = n * n;
+  const float* Cf = cf_of(s, n);
+  const int t = threadIdx.x;
+  if (active) {
+    const int j = p / n, l = p % n;
+    const float* r = s.R + g * nn + j * n;
+    float acc = 0.0f;
+    for (int k = 0; k < n; ++k) acc = __fmaf_rn(r[k], Cf[l * n + k], acc);
+    s.T1[t] = acc;
+  }
+  __syncthreads();
+  float acc = 0.0f;
+  if (active) {
+    const int i = p / n, l = p % n;
+    const float* tt = s.T1 + g * nn + l;
+    for (int j = 0; j < n; ++j) acc = __fmaf_rn(Cf[i * n + j], tt[j * n], acc);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float quant(const Ctx& c, float ca) {
+  return fminf(floorf(__fmaf_rn(ca, c.inv_q, 0.33f)), LEVEL_MAX);
+}
+
+// RD search over the 36 modes of the n x n block at (oy, ox); refs loaded.
+// Leaves the first minimum in s.best_mode / s.best_cost.  All threads call.
+__device__ void eval_modes(const Ctx& c, Smem& s, int n, int log2n, int oy, int ox,
+                           float w, float pen) {
+  const int nn = n * n;
+  const int G = 1024 / nn;
+  const int t = threadIdx.x;
+  const int g = t / nn, p = t % nn;
+  const int32_t* taps = taps_of(c, n);
+  const int32_t* izz = c.itab + (n == 32 ? OFF_ZZ32 : n == 16 ? OFF_ZZ16 : OFF_ZZ8);
+  const float* bits_tab = c.ftab + FOFF_BITS;
+  if (t == 0) {
+    s.best_mode = 0;
+    s.best_cost = __int_as_float(0x7f800000);  // +inf
+  }
+  for (int m0 = 0; m0 < N_MODES; m0 += G) {
+    const int m = m0 + g;
+    const bool active = m < N_MODES;
+    if (active) {
+      const int y = p / n, x = p % n;
+      const int pr = predict(c, s.refv, taps, n, log2n, m, y, x, oy, ox);
+      s.R[t] = static_cast<float>(s.src[(oy + y) * 32 + ox + x] - pr);
+    }
+    __syncthreads();
+    const float cv = dct_coef(s, n, g, p, active);
+    if (active) {
+      const float ca = fabsf(cv);
+      const float lv = quant(c, ca);
+      const float dd = __fmaf_rn(-lv, c.qstep, ca);
+      s.D[t] = __fmul_rn(dd, dd);
+      s.Bt[t] = bits_tab[static_cast<int>(lv)];
+      s.Lz[t] = lv > 0.0f ? izz[p] : -1;
+    }
+    __syncthreads();
+    for (int h = nn / 2; h >= 1; h >>= 1) {
+      if (active && p < h) {
+        s.D[t] = __fadd_rn(s.D[t], s.D[t + h]);
+        s.Bt[t] = __fadd_rn(s.Bt[t], s.Bt[t + h]);
+        s.Lz[t] = max(s.Lz[t], s.Lz[t + h]);
+      }
+      __syncthreads();
+    }
+    if (active && p == 0) {
+      const float bits = __fmaf_rn(0.12f, static_cast<float>(s.Lz[t] + 1), s.Bt[t]);
+      const float rate = __fmul_rn(c.lam, __fadd_rn(bits, c.ftab[FOFF_MB + m]));
+      float cost = __fmaf_rn(w, s.D[t], rate);
+      if (m == MODE_INTER) cost = __fadd_rn(cost, pen);
+      s.cost[g] = cost;
+    }
+    __syncthreads();
+    if (t == 0) {
+      for (int q = 0; q < G && m0 + q < N_MODES; ++q) {
+        if (s.cost[q] < s.best_cost) {
+          s.best_cost = s.cost[q];
+          s.best_mode = m0 + q;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// raster levels and prediction of `mode` for the n x n block at (oy, ox)
+// into s.lev / s.pred; refs loaded.  All threads call.
+__device__ void mode_levels(const Ctx& c, Smem& s, int n, int log2n, int oy, int ox,
+                            int mode) {
+  const int nn = n * n;
+  const int t = threadIdx.x;
+  const bool active = t < nn;
+  if (active) {
+    const int y = t / n, x = t % n;
+    const int pr = predict(c, s.refv, taps_of(c, n), n, log2n, mode, y, x, oy, ox);
+    s.pred[t] = pr;
+    s.R[t] = static_cast<float>(s.src[(oy + y) * 32 + ox + x] - pr);
+  }
+  __syncthreads();
+  const float cv = dct_coef(s, n, 0, t, active);
+  if (active) {
+    const float lv = quant(c, fabsf(cv));
+    const float sg = cv > 0.0f ? 1.0f : (cv < 0.0f ? -1.0f : 0.0f);
+    s.lev[t] = static_cast<int>(sg * lv);
+  }
+  __syncthreads();
+}
+
+// integer reconstruction of s.lev / s.pred into the CU buffer at (oy, ox):
+// dequantise, inverse transform in wrapping 32-bit arithmetic, add the
+// prediction, clip.  All threads call.
+__device__ void reconstruct(const Ctx& c, Smem& s, int n, int log2n, int oy, int ox) {
+  const int nn = n * n;
+  const int t = threadIdx.x;
+  const int* T = c.itab + (n == 32 ? OFF_T32 : n == 16 ? OFF_T16 : OFF_T8);
+  int* coef = reinterpret_cast<int*>(s.R);
+  int* tmp = reinterpret_cast<int*>(s.T1);
+  if (t < nn) {
+    const int dv = s.lev[t] * c.dq;
+    coef[t] = min(max(dv, -(1 << 19)), (1 << 19) - 1);
+  }
+  __syncthreads();
+  const int i = t / n, k = t % n;
+  if (t < nn) {
+    uint32_t acc = 0;
+    for (int j = 0; j < n; ++j)
+      acc += static_cast<uint32_t>(T[j * n + i]) * static_cast<uint32_t>(coef[j * n + k]);
+    acc += 1u << 10;
+    tmp[t] = static_cast<int32_t>(acc) >> 11;
+  }
+  __syncthreads();
+  if (t < nn) {
+    const int s2 = 7 + log2n;
+    uint32_t acc = 0;
+    for (int j = 0; j < n; ++j)
+      acc += static_cast<uint32_t>(tmp[i * n + j]) * static_cast<uint32_t>(T[j * n + k]);
+    acc += 1u << (s2 - 1);
+    const int r = static_cast<int32_t>(acc) >> s2;
+    s.cur[(oy + i) * 32 + ox + k] = min(max(s.pred[t] + r, 0), c.maxv);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(1024)
+wavefront_encode32_kernel(const int32_t* src, const int32_t* ref, const float* w32,
+                          const float* w16, const float* w8, const float* mvc,
+                          const float* qstep, const float* inv_q, const float* lam,
+                          const float* pen, const int32_t* dq, const int32_t* maxv,
+                          const int32_t* itab, const float* ftab, int8_t* s32_o,
+                          int8_t* m32_o, int16_t* c32_o, int8_t* s16_o,
+                          int8_t* modes_o, int16_t* c16_o, int32_t* rec, int nby,
+                          int nbx, int d, int by_min) {
+  __shared__ Smem s;
+  const int p = blockIdx.y;
+  const int by = by_min + blockIdx.x;
+  const int bx = d - 2 * by;
+  if (by >= nby || bx < 0 || bx >= nbx) return;  // uniform per block
+  const int Ht = nby * 32, Wt = nbx * 32;
+  const size_t plane = static_cast<size_t>(p) * Ht * Wt;
+  Ctx c;
+  c.rec = rec + plane;
+  c.ref = ref + plane;
+  c.itab = itab;
+  c.ftab = ftab;
+  c.Wt = Wt;
+  c.nbx = nbx;
+  c.nby = nby;
+  c.d = d;
+  c.by = by;
+  c.bx = bx;
+  c.y0 = by * 32;
+  c.x0 = bx * 32;
+  c.maxv = maxv[p];
+  c.init = (c.maxv + 1) / 2;
+  c.dq = dq[p];
+  c.qstep = qstep[p];
+  c.inv_q = inv_q[p];
+  c.lam = lam[p];
+  const int t = threadIdx.x;
+  const size_t cu = static_cast<size_t>(p) * nby * nbx + by * nbx + bx;
+  s.cur[t] = c.init;
+  s.src[t] = src[plane + (c.y0 + t / 32) * Wt + c.x0 + t % 32];
+  for (int i = t; i < 1344; i += 1024) s.cf[i] = ftab[FOFF_CF32 + i];
+  __syncthreads();
+  const float pen32 = __fadd_rn(pen[p], mvc[cu]);
+  const float mvc16 = __fmul_rn(0.25f, mvc[cu]);
+  const float pen16 = __fadd_rn(pen[p], mvc16);
+  const float pen8 = __fadd_rn(pen[p], __fmul_rn(0.25f, mvc16));
+  const int32_t* fz16 = itab + OFF_FZ16;
+  const int32_t* fz8 = itab + OFF_FZ8;
+
+  // ---- whole-32 candidate
+  load_refs(c, s, 32, 0, 0, true);
+  eval_modes(c, s, 32, 5, 0, 0, w32[cu], pen32);
+  const int m32 = s.best_mode;
+  const float cost32 = s.best_cost;
+  float cs32 = c.lam;
+
+  // ---- four 16-quadrants
+  for (int q = 0; q < 4; ++q) {
+    const int qy = (q >> 1) * 16, qx = (q & 1) * 16;
+    const size_t cq = cu * 4 + q;
+    load_refs(c, s, 16, qy, qx, true);
+    eval_modes(c, s, 16, 4, qy, qx, w16[cq], pen16);
+    const int m16 = s.best_mode;
+    const float cost16 = s.best_cost;
+    float cs16 = c.lam;
+    for (int sb = 0; sb < 4; ++sb) {
+      const int oy = qy + (sb >> 1) * 8, ox = qx + (sb & 1) * 8;
+      load_refs(c, s, 8, oy, ox, sb >= 2);
+      eval_modes(c, s, 8, 3, oy, ox, w8[cq * 4 + sb], pen8);
+      const int m8 = s.best_mode;
+      cs16 = __fadd_rn(cs16, s.best_cost);
+      mode_levels(c, s, 8, 3, oy, ox, m8);
+      if (t < 64) s.c8[sb * 64 + t] = s.lev[fz8[t]];
+      if (t == 0) s.m8[sb] = m8;
+      reconstruct(c, s, 8, 3, oy, ox);
+    }
+    const bool split16 = cs16 < cost16;
+    cs32 = __fadd_rn(__fadd_rn(cs32, fminf(cost16, cs16)), c.lam);
+    if (split16) {
+      if (t < 256) c16_o[cq * 256 + t] = static_cast<int16_t>(s.c8[t]);
+      if (t < 4) modes_o[cq * 4 + t] = static_cast<int8_t>(s.m8[t]);
+    } else {
+      load_refs(c, s, 16, qy, qx, true);
+      mode_levels(c, s, 16, 4, qy, qx, m16);
+      if (t < 256) c16_o[cq * 256 + t] = static_cast<int16_t>(s.lev[fz16[t]]);
+      if (t < 4) modes_o[cq * 4 + t] = static_cast<int8_t>(t == 0 ? m16 : 0);
+      reconstruct(c, s, 16, 4, qy, qx);
+    }
+    if (t == 0) s16_o[cq] = split16 ? 1 : 0;
+  }
+
+  // ---- the whole-32 syntax, and its reconstruction when it wins
+  const bool split32 = cs32 < cost32;
+  load_refs(c, s, 32, 0, 0, true);
+  mode_levels(c, s, 32, 5, 0, 0, m32);
+  c32_o[cu * 1024 + t] = static_cast<int16_t>(s.lev[itab[OFF_FZ32 + t]]);
+  if (t == 0) {
+    s32_o[cu] = split32 ? 1 : 0;
+    m32_o[cu] = static_cast<int8_t>(m32);
+  }
+  if (!split32) reconstruct(c, s, 32, 5, 0, 0);
+  rec[plane + (c.y0 + t / 32) * Wt + c.x0 + t % 32] = s.cur[t];
+}
+
+}  // namespace
+
+// One launch per wavefront diagonal, all on `stream`.  src/ref/rec: (PT,
+// nby*32, nbx*32) int32; w32 (PT, nb), w16 (PT, nb, 4), w8 (PT, nb, 4, 4),
+// mvc (PT, nb) float32; qstep, inv_q, lam, pen (PT,) float32; dq, maxv
+// (PT,) int32; itab/ftab: hevc.py `_tables` blobs.  Outputs: s32/m32 (PT,
+// nb) int8, c32 (PT, nb, 1024) int16 zigzag, s16 (PT, nb, 4) int8, modes
+// (PT, nb, 4, 4) int8, c16 (PT, nb, 4, 256) int16 zigzag.  *launched (host
+// memory) receives the number of grids launched.
+extern "C" int wavefront_encode32(
+    const int32_t* src, const int32_t* ref, const float* w32, const float* w16,
+    const float* w8, const float* mvc, const float* qstep, const float* inv_q,
+    const float* lam, const float* pen, const int32_t* dq, const int32_t* maxv,
+    const int32_t* itab, const float* ftab, int8_t* s32, int8_t* m32,
+    int16_t* c32, int8_t* s16, int8_t* modes, int16_t* c16, int32_t* rec,
+    int PT, int nby, int nbx, void* stream, int* launched) {
+  const int nd = 2 * (nby - 1) + nbx;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  for (int d = 0; d < nd; ++d) {
+    const int by_min = d - (nbx - 1) > 0 ? (d - (nbx - 1) + 1) / 2 : 0;
+    const int by_max = min(nby - 1, d / 2);
+    if (by_max < by_min) continue;
+    dim3 grid(by_max - by_min + 1, PT);
+    wavefront_encode32_kernel<<<grid, 1024, 0, st>>>(
+        src, ref, w32, w16, w8, mvc, qstep, inv_q, lam, pen, dq, maxv, itab, ftab,
+        s32, m32, c32, s16, modes, c16, rec, nby, nbx, d, by_min);
+    ++*launched;
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

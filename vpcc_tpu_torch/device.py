@@ -48,9 +48,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-# kernel name -> extra nvcc flags.  grid_smooth and segment reproduce
-# float32 rounding operation by operation, so they forbid multiply-add
-# contraction (their fused multiply-adds are explicit __fmaf_rn calls).
+# kernel name -> extra nvcc flags.  The kernels that reproduce float32
+# rounding operation by operation forbid multiply-add contraction (their
+# fused multiply-adds are explicit __fmaf_rn calls).
 KERNELS: Dict[str, list] = {
     "wavefront_decode32": [],
     "half_pel_mc": [],
@@ -60,6 +60,10 @@ KERNELS: Dict[str, list] = {
     "segment": ["--fmad=false"],
     "cc_labels": [],
     "coverage": [],
+    "wavefront_encode32": ["--fmad=false"],
+    "motion_search": ["--fmad=false"],
+    "sao": ["--fmad=false"],
+    "push_pull": ["--fmad=false"],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -1,14 +1,20 @@
-"""V-PCC encoder front end (the PCCEncoder equivalent), PyTorch port.
+"""V-PCC encoder (the PCCEncoder equivalent), PyTorch port: the front end
+and the geometry video.
 
 Behavioral reference: `PCCEncoder::encode`
 (source/lib/PccLibEncoder/source/PCCEncoder.cpp:71-730) as the JAX package
-implements it (vpcc_tpu/encoder.py).  The port has the front end, from a
-source frame to the atlas frame: voxelize -> grid k-NN (kernel E) ->
-normals and segmentation (kernel F) -> patch rounds of connected
-components (kernel G) and coverage (kernel H) -> packing -> rasterization,
-occupancy video and block-to-patch, over the GOF's hierarchical coding
-structure.  The video encoder, recolor and the mux are not ported yet
-(ROADMAP queue 1, items 7-9).
+implements it (vpcc_tpu/encoder.py).  The port has
+* the front end, from a source frame to the atlas frame: voxelize -> grid
+  k-NN (kernel E) -> normals and segmentation (kernel F) -> patch rounds of
+  connected components (kernel G) and coverage (kernel H) -> packing ->
+  rasterization, occupancy video and block-to-patch;
+* the geometry half of the video stage: the occupancy payload (host), the
+  D0/D1 geometry substreams (push-pull fill, kernel L; motion search,
+  kernel J; wavefront RDO encode, kernel I; SAO, kernel K; host entropy
+  coding) and the encoder-side reconstruction with grid smoothing
+  (kernels C and D),
+over the GOF's hierarchical coding structure.  Recolor, the attribute
+video and the mux are not ported yet (ROADMAP queue 1, slice 4).
 
 Tools that are off by default and not ported raise NotImplementedError;
 the port never computes something else in their place.
@@ -23,13 +29,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from vpcc_tpu_torch import device as dev
+from vpcc_tpu_torch import device as dev, pipeline
 from vpcc_tpu_torch.core import atlas as atlas_mod
 from vpcc_tpu_torch.core import packing
 from vpcc_tpu_torch.core.patch import Patch, build_patch_from_component
 from vpcc_tpu_torch.ops import cc as cc_mod
 from vpcc_tpu_torch.ops import coverage, neighbors, voxelize
 from vpcc_tpu_torch.ops import normals as normals_mod
+from vpcc_tpu_torch.ops.reconstruct import Points
 from vpcc_tpu_torch.ops.segmentation import (
     get_orientations,
     initial_segmentation,
@@ -38,17 +45,20 @@ from vpcc_tpu_torch.ops.segmentation import (
 )
 from vpcc_tpu_torch.utils.config import VPCCConfig
 from vpcc_tpu_torch.utils.ply import PointCloudData
+from vpcc_tpu_torch.video import codecs
 
 
 @dataclasses.dataclass
 class EncoderStats:
-    """Host-clock seconds of one frame's front-end stages (the reference's
-    `EncoderStats` fields that the front end fills)."""
+    """Host-clock seconds of one frame's stages (the reference's
+    `EncoderStats` fields that the ported stages fill)."""
 
     segmentation_s: float = 0.0
     patchgen_s: float = 0.0
     packing_s: float = 0.0     # packing + rasterization
     occupancy_s: float = 0.0   # occupancy video + block-to-patch
+    video_s: float = 0.0       # occupancy payload + geometry substreams
+    reconstruct_s: float = 0.0  # point reconstruction + grid smoothing
     total_s: float = 0.0
     point_count: int = 0
     patch_count: int = 0
@@ -79,6 +89,22 @@ class FrontEndFrame:
     block_to_patch: np.ndarray   # (H/res, W/res) int32
     cover_dist2: np.ndarray      # (N,) 0 where covered, inf elsewhere
     stats: EncoderStats
+
+
+@dataclasses.dataclass
+class GeometryFrame:
+    """One frame through the geometry video: the front end's result, the
+    payloads, the decoded planes and the encoder-side reconstruction."""
+
+    front: FrontEndFrame
+    occ_payload: bytes
+    geo_payloads: List[bytes]    # D0, D1 geometry substream frames
+    geo_dec: List[torch.Tensor]  # decoded (H, W) int32 planes on the device
+    recon: Points                # reconstructed, smoothed points (device)
+
+    @property
+    def stats(self) -> EncoderStats:
+        return self.front.stats
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -342,4 +368,79 @@ class Encoder:
             prev = out[parent[i]].patches if i > 0 else None
             out.append(self.encode_frame_front(
                 f, prev_patches=prev, seg=None if segs is None else segs[i]))
+        return out
+
+    # ------------------------------------------------------------------
+    def _new_streams(self) -> dict:
+        """The geometry substream encoders (attribute streams come with the
+        attribute video, ROADMAP slice 4)."""
+        return {name: codecs.GeometrySubstreamEncoder(self.cfg, self.device)
+                for name in ("geo0", "geo1")}
+
+    def encode_frame_geometry(self, pc_host: PointCloudData, streams: dict,
+                              prev_patches: Optional[List[Patch]] = None,
+                              seg: Optional[Segmentation] = None,
+                              temporal_refs: Optional[dict] = None,
+                              qp_offset_geo: int = 0) -> GeometryFrame:
+        """The geometry stages of the reference's `encode_frame`
+        (encoder.py:567-648, two maps, no PLR/EOM/PBF): the front end, the
+        occupancy payload, D0 and D1 through their substream encoders (D1
+        predicts from the decoded D0; D0 from `temporal_refs["geo"]` when
+        given, None forcing intra), then the reconstruction seam with grid
+        smoothing on the decoded planes."""
+        cfg = self.cfg
+        if cfg.pbfEnableFlag:
+            raise _unsupported("PBF patch-border filtering")
+        fr = self.encode_frame_front(pc_host, prev_patches=prev_patches, seg=seg)
+        st = fr.stats
+        t = time.perf_counter()
+        occ_payload = codecs.encode_occupancy(fr.occ_video, cfg)
+        geo_payloads, geo_dec = [], []
+        for name, g in (("geo0", fr.frame.geometry0), ("geo1", fr.frame.geometry1)):
+            kw = {}
+            if temporal_refs is not None and not geo_dec:
+                kw["temporal_ref"] = temporal_refs.get("geo")
+            payload, dec = streams[name].encode(
+                g, occ=fr.frame.occupancy, layer_ref=geo_dec[0] if geo_dec else None,
+                weight=fr.occ_rec, qp_offset=qp_offset_geo, **kw)
+            geo_payloads.append(payload)
+            geo_dec.append(dec)
+        st.video_s = time.perf_counter() - t
+        t = time.perf_counter()
+        recon = pipeline.reconstruct_frame(fr.occ_rec, geo_dec, fr.block_to_patch,
+                                           fr.patches, cfg, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        st.reconstruct_s = time.perf_counter() - t
+        st.total_s += st.video_s + st.reconstruct_s
+        return GeometryFrame(fr, occ_payload, geo_payloads, geo_dec, recon)
+
+    def encode_gof_geometry(self, frames: List[PointCloudData],
+                            segs: Optional[List[Segmentation]] = None) -> List[GeometryFrame]:
+        """The reference's `encode_gof` loop (encoder.py:959-1001) through
+        the geometry video: each P-frame packs against its tree parent's
+        patches and predicts D0 from the parent's decoded D0 (the `geo_bank`,
+        pruned as the tree consumes it) under the geometry QP cascade
+        min(qp_offset, geometryQpCascadeCap).  `segs` optionally gives
+        each frame's segmentation."""
+        cfg = self.cfg
+        streams = self._new_streams()
+        geo_bank: dict = {}
+        parent, qp_off = self.gof_structure(len(frames))
+        cap = int(getattr(cfg, "geometryQpCascadeCap", 1))
+        needed = [set(parent[i + 1:]) for i in range(len(frames))]
+        out: List[GeometryFrame] = []
+        for i, f in enumerate(frames):
+            if i == 0:
+                trefs, prev = {"geo": None}, None
+            else:
+                trefs = {"geo": geo_bank.get(parent[i])}
+                prev = out[parent[i]].front.patches
+            out.append(self.encode_frame_geometry(
+                f, streams, prev_patches=prev, seg=None if segs is None else segs[i],
+                temporal_refs=trefs, qp_offset_geo=min(qp_off[i], cap)))
+            if i in needed[i]:
+                geo_bank[i] = streams["geo0"].ref
+            for k in [k for k in geo_bank if k not in needed[i]]:
+                del geo_bank[k]
         return out

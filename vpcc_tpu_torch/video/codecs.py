@@ -1,9 +1,10 @@
-"""Video substream decoders (the decode half of vpcc_tpu/video/codecs.py).
+"""Video substream coders (vpcc_tpu/video/codecs.py): the occupancy coder,
+the geometry substream encoder, and the substream decoders.
 
-Substream decoders are stateful: in random-access GOFs a P-frame predicts
-from its reference frame, so each decoder keeps its last decoded reference
-planes on the device (`GeometrySubstreamDecoder.ref`,
-`AttributeSubstreamDecoder.refs`).
+Substream coders are stateful: in random-access GOFs a P-frame predicts
+from its reference frame, so each coder keeps its last decoded reference
+planes on the device (`GeometrySubstreamEncoder.ref`,
+`GeometrySubstreamDecoder.ref`, `AttributeSubstreamDecoder.refs`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ _LEGACY = (
 )
 
 
+def encode_occupancy(occ_video: np.ndarray, cfg: VPCCConfig) -> bytes:
+    """Occupancy video frame (lossless, intra, context arithmetic coder)."""
+    h, w = occ_video.shape
+    return struct.pack("<HH", h, w) + entropy.encode_binary_plane(occ_video)
+
+
 def decode_occupancy(payload: bytes, cfg: VPCCConfig) -> np.ndarray:
     h, w = struct.unpack("<HH", payload[:4])
     return entropy.decode_binary_plane(payload[4:], h, w)
@@ -33,6 +40,51 @@ def decode_occupancy(payload: bytes, cfg: VPCCConfig) -> np.ndarray:
 
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+class GeometrySubstreamEncoder:
+    def __init__(self, cfg: VPCCConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.ref: Optional[torch.Tensor] = None  # (H, W) int32 last decoded plane
+
+    def encode(self, geo, occ=None, layer_ref=None, weight=None,
+               temporal_ref=_UNSET, qp_offset: int = 0):
+        """(H, W) geometry map -> (payload, decoded (H, W) int32 plane on the
+        device), as the reference's `GeometrySubstreamEncoder.encode`.
+        `layer_ref` (the decoded D0) makes D1 an inter-layer plane;
+        otherwise `temporal_ref` (default: the last decoded plane; None
+        forces intra) makes a motion-searched P-plane.  `occ` drives the
+        background fill, `weight` (the decoded occupancy) the RD weights,
+        `qp_offset` the hierarchical QP cascade."""
+        cfg = self.cfg
+        if cfg.geometryQP <= 4:
+            raise NotImplementedError(
+                "lossless geometry video (geometryQP <= 4) is not ported yet "
+                "(ROADMAP queue 1, item 10: lossless branches)")
+        maxval = (1 << cfg.geometryBitDepth2D) - 1
+        d = self.device
+        as_t = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(
+            np.asarray(a).astype(np.int32))).to(device=d, dtype=torch.int32)
+        geo_t = as_t(geo)
+        t_ref = self.ref if temporal_ref is _UNSET else temporal_ref
+        ref = None
+        motion = False
+        if layer_ref is not None and tuple(layer_ref.shape) == tuple(geo_t.shape):
+            ref = as_t(layer_ref)
+        elif t_ref is not None and tuple(t_ref.shape) == tuple(geo_t.shape):
+            ref = as_t(t_ref)
+            motion = True
+        payload, rec = hevc.encode_planes(
+            geo_t[None], [min(cfg.geometryQP + qp_offset, 51)], [maxval],
+            refs=None if ref is None else ref[None],
+            occ=None if occ is None else as_t(occ).to(torch.uint8),
+            deblock=False,
+            weight=None if weight is None else as_t(weight),
+            motion=motion,
+        )
+        self.ref = rec[0]
+        return bytes([v3c.CODEC_TPU_HEVC]) + payload, rec[0]
 
 
 class GeometrySubstreamDecoder:

@@ -1,8 +1,10 @@
-"""ctypes binding to the host arithmetic decoder (native/entropy.cpp).
+"""ctypes binding to the host arithmetic coder (native/entropy.cpp).
 
-The decode half of `vpcc_tpu/video/entropy.py`.  The C++ coder is host code
-shared by both packages; the port compiles its own copy with g++ into
-`vpcc_tpu_torch/_build/` at first use and never writes into `native/`.
+A copy of `vpcc_tpu/video/entropy.py`'s three-level (32/16/8) CU syntax,
+coefficient, motion-vector and binary-plane coders, writer and reader
+halves.  The C++ coder is host code shared by both packages; the port
+compiles its own copy with g++ into `vpcc_tpu_torch/_build/` at first use
+and never writes into `native/`.
 """
 
 from __future__ import annotations
@@ -31,6 +33,14 @@ def _load():
         u8p = ctypes.POINTER(ctypes.c_uint8)
         p32 = ctypes.POINTER(ctypes.c_int32)
         i64 = ctypes.c_int64
+        lib.vpcc_encode_coeffs.restype = i64
+        lib.vpcc_encode_coeffs.argtypes = [p32, i64, u8p, i64]
+        lib.vpcc_hevc32_encode.restype = i64
+        lib.vpcc_hevc32_encode.argtypes = [p32] * 8 + [i64, i64, u8p, i64]
+        lib.vpcc_mv_encode.restype = i64
+        lib.vpcc_mv_encode.argtypes = [p32, p32, i64, u8p, i64]
+        lib.vpcc_encode_binary_plane.restype = i64
+        lib.vpcc_encode_binary_plane.argtypes = [u8p, i64, i64, u8p, i64]
         lib.vpcc_decode_coeffs.restype = i64
         lib.vpcc_decode_coeffs.argtypes = [u8p, i64, p32, i64]
         lib.vpcc_hevc32_decode.restype = i64
@@ -49,6 +59,69 @@ def _i32p(a: np.ndarray):
 
 def _u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def encode_coeffs(coeffs: np.ndarray) -> bytes:
+    """(nblocks, 64) int32 zigzag coefficient blocks -> compressed bytes."""
+    lib = _load()
+    c = np.ascontiguousarray(coeffs, np.int32)
+    nb = c.shape[0]
+    cap = max(nb * 256, 1 << 16)
+    out = np.empty(cap, np.uint8)
+    n = lib.vpcc_encode_coeffs(_i32p(c), nb, _u8p(out), cap)
+    if n < 0:
+        raise RuntimeError("entropy buffer overflow")
+    return out[:n].tobytes()
+
+
+def encode_mvs(inter: np.ndarray, mv: np.ndarray) -> bytes:
+    """inter: (nb,) int32 0/1 per CU; mv: (nb, 2) int32.  The MVs of the
+    CUs whose chosen modes use the inter lane, delta-coded in raster
+    order."""
+    lib = _load()
+    i = np.ascontiguousarray(inter, np.int32)
+    m = np.ascontiguousarray(mv, np.int32)
+    nb = i.shape[0]
+    cap = max(nb * 8, 1 << 12)
+    out = np.empty(cap, np.uint8)
+    n = lib.vpcc_mv_encode(_i32p(i), _i32p(m), nb, _u8p(out), cap)
+    if n < 0:
+        raise RuntimeError("entropy buffer overflow")
+    return out[:n].tobytes()
+
+
+def encode_binary_plane(plane: np.ndarray) -> bytes:
+    """(h, w) plane, nonzero = 1 -> context-coded bytes."""
+    lib = _load()
+    p = np.ascontiguousarray(plane != 0, np.uint8)
+    h, w = p.shape
+    cap = max(h * w // 2, 1 << 12)
+    out = np.empty(cap, np.uint8)
+    n = lib.vpcc_encode_binary_plane(_u8p(p), h, w, _u8p(out), cap)
+    if n < 0:
+        raise RuntimeError("entropy buffer overflow")
+    return out[:n].tobytes()
+
+
+def encode_hevc32_plane(nby, nbx, split32, m32, c32, split16, m16, c16,
+                        m8, c8) -> bytes:
+    """Three-level (32/16/8) CU syntax over an (nby, nbx) 32-CU grid:
+    split32 (nb,), m32 (nb,), c32 (nb, 1024) zigzag, split16 (nb, 4),
+    m16 (nb, 4), c16 (nb, 4, 256), m8 (nb, 4, 4), c8 (nb, 4, 4, 64)."""
+    lib = _load()
+    arrs = [np.ascontiguousarray(a, np.int32)
+            for a in (split32, m32, c32, split16, m16, c16, m8, c8)]
+    cap = max(nby * nbx * 2560, 1 << 16)
+    # a high-entropy plane can outgrow the first guess: the C side returns
+    # -1 cleanly, so grow and retry
+    for _ in range(6):
+        out = np.empty(cap, np.uint8)
+        n = lib.vpcc_hevc32_encode(*[_i32p(a) for a in arrs], nby, nbx,
+                                   _u8p(out), cap)
+        if n >= 0:
+            return out[:n].tobytes()
+        cap *= 2
+    raise RuntimeError("entropy buffer overflow")
 
 
 def decode_coeffs(data: bytes, nblocks: int) -> np.ndarray:

@@ -1,9 +1,11 @@
-"""HEVC-class wavefront video decoder (the decode half of vpcc_tpu/video/hevc.py).
+"""HEVC-class wavefront video codec (vpcc_tpu/video/hevc.py), three-level
+(32/16/8) CU syntax: decoder and encoder.
 
-Payloads come from `vpcc_tpu.video.hevc.encode_planes`; this module turns
-them back into the exact int32 planes the JAX decoder produces.
+Payloads of the port's `encode_planes` and of `vpcc_tpu.video.hevc.
+encode_planes` are the same bytes given the same decisions; both decoders
+turn either into the same int32 planes.
 
-Stages of `decode_planes` for the three-level (32/16/8, FLAG_CU32) syntax:
+Stages of `decode_planes`:
 1. host: entropy-decode the per-plane syntax (split flags, modes, zigzag
    coefficients, MVs, SAO parameters) — `_decode_planes32`;
 2. device: edge-pad the reference planes and cut them into codec tiles;
@@ -11,7 +13,19 @@ Stages of `decode_planes` for the three-level (32/16/8, FLAG_CU32) syntax:
    interpolation fused with the per-CU motion-compensated gather;
 4. device, kernel A `wavefront_decode32`: the intra/inter reconstruction,
    one launch per wavefront diagonal of 32x32 CUs;
-5. device, plain torch: deblocking and SAO, per tile; untile and crop.
+5. device: deblocking (plain torch) and SAO (kernel K `sao_apply`), per
+   tile; untile and crop.
+
+Stages of `encode_planes`:
+1. device, kernel L `push_pull` (ops/padding.py): background fill of the
+   unoccupied pixels, rounded to int32; edge-pad and tile;
+2. device, kernel J `motion_search` (motion planes): per-CU half-pel MVs,
+   then kernel B builds the motion-compensated reference;
+3. device, kernel I `wavefront_encode32`: the RD quadtree decisions, the
+   syntax and the reconstruction, one launch per wavefront diagonal;
+4. device, kernel K `sao_search` + `sao_apply`: per-region SAO parameters
+   and the final reconstruction;
+5. host: `assemble_payload32`, the entropy coder.
 
 Each kernel wrapper runs its plain PyTorch version (`*_plain`, same
 arguments, same result) when its input lies on the CPU; on a CUDA tensor it
@@ -29,6 +43,7 @@ import numpy as np
 import torch
 
 from vpcc_tpu_torch import device as dev
+from vpcc_tpu_torch.ops import padding
 from vpcc_tpu_torch.video import color, entropy
 from vpcc_tpu_torch.video import hevc_tables as tab
 
@@ -91,7 +106,8 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# in-loop filters (plain torch; vpcc_tpu hevc.py _deblock / _sao_apply)
+# in-loop filters: deblocking (plain torch), SAO apply's plain version
+# (vpcc_tpu hevc.py _deblock / _sao_apply)
 
 def _deblock(rec, qps, maxvals):
     """HEVC-style normal deblocking filter on all 8-aligned block edges of
@@ -134,11 +150,14 @@ def _sao_categories(rec, dy, dx):
     return torch.sign(rec - a) + torch.sign(rec - b) + 2
 
 
-def _sao_apply(rec, sao_cls, sao_off, maxvals, region=SAO_REGION):
-    """Decoder-side SAO: category derivation + per-region offset add.
-    sao_cls (P, Ry, Rx), sao_off (P, Ry, Rx, 4) int32."""
+def sao_apply_plain(rec, sao_cls, sao_off, maxvals):
+    """Plain version of kernel K's apply (vpcc_tpu hevc.py `_sao_apply`):
+    category derivation + per-region offset add.  rec (P, H, W) int32,
+    sao_cls (P, Ry, Rx), sao_off (P, Ry, Rx, 4) (any integer type),
+    maxvals (P,) int32."""
     cats = torch.stack([_sao_categories(rec, dy, dx) for dy, dx in _SAO_DIRS])
-    rep = lambda a: a.repeat_interleave(region, 1).repeat_interleave(region, 2)
+    rep = lambda a: (a.to(torch.int32).repeat_interleave(SAO_REGION, 1)
+                     .repeat_interleave(SAO_REGION, 2))
     cls_px = rep(sao_cls)
     cat_sel = torch.gather(cats, 0, (cls_px - 1).clamp(min=0).long()[None])[0]
     off_px = rep(sao_off)
@@ -254,9 +273,10 @@ _TABLES: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
 def _tables(device: torch.device) -> Dict[str, torch.Tensor]:
     """Per-device constant tables: transforms, inverse zigzags, angular taps
-    (int64 for the plain version) and the packed int32 blob the kernel reads
+    (int64 for the plain versions), the packed int32 blob the kernels read
     (layout: T32 T16 T8 | izz32 izz16 izz8 | taps32 taps16 taps8, taps as
-    (33, n*n, [idx0, idx1, w0, w1]))."""
+    (33, n*n, [idx0, idx1, w0, w1]) | zz32 zz16 zz8) and the encoder's
+    float32 blob (`fblob`)."""
     t = _TABLES.get(device)
     if t is not None:
         return t
@@ -274,9 +294,26 @@ def _tables(device: torch.device) -> Dict[str, torch.Tensor]:
         a = np.stack(tab.angular_taps(n), -1).reshape(33, n * n, 4)
         t[f"ang{n}"] = torch.as_tensor(a.astype(np.int64), device=device)
         blob.append(a.reshape(-1))
+    # forward zigzags (scan position -> raster index), read by kernel I
+    for n in (32, 16, 8):
+        zz = tab.zigzag(n).astype(np.int64)
+        t[f"zz{n}"] = torch.as_tensor(zz, device=device)
+        blob.append(zz)
     t["blob"] = torch.as_tensor(
         np.concatenate(blob).astype(np.int32), device=device
     )
+    # float tables of the encoder's RDO (layout: Cf32 Cf16 Cf8 | mode bits
+    # (36) | rate term per level (LEVEL_MAX + 1))
+    fblob = []
+    for n in (32, 16, 8):
+        cf = tab.dct_orthonormal(n).astype(np.float32)
+        t[f"Cf{n}"] = torch.as_tensor(cf, device=device)
+        fblob.append(cf.reshape(-1))
+    t["mode_bits"] = torch.as_tensor(tab.MODE_BITS, device=device)
+    t["rd_bits"] = torch.as_tensor(tab.rd_bits_table(), device=device)
+    fblob += [tab.MODE_BITS, tab.rd_bits_table()]
+    t["fblob"] = torch.as_tensor(np.concatenate(fblob).astype(np.float32),
+                                 device=device)
     _TABLES[device] = t
     return t
 
@@ -334,6 +371,43 @@ def _refs_vec(corner, top, lcol):
     return torch.cat([corner, top, lcol], -1)
 
 
+def _refs16(up, upleft, upright, left, ib):
+    """(P, B, 65) reference vector of a 16x16 block from its neighbour
+    16-tiles; the bottom-left half reads the init value."""
+    return _refs_vec(upleft[:, :, 15, 15:16],
+                     torch.cat([up[:, :, 15, :], upright[:, :, 15, :]], -1),
+                     torch.cat([left[:, :, :, 15], ib(16)], -1))
+
+
+def _refs8(s, cur, up, upleft, upright, left, ib):
+    """(P, B, 33) reference vector of 8x8 sub-block s of a 16x16 block, from
+    the in-flight block `cur` and the neighbour 16-tiles (z-order
+    causality; `ib(k)` gives k init samples)."""
+    if s == 0:
+        corner, top, lcol = (upleft[:, :, 15, 15:16], up[:, :, 15, 0:16],
+                             left[:, :, 0:16, 15])
+    elif s == 1:
+        corner = up[:, :, 15, 7:8]
+        top = torch.cat([up[:, :, 15, 8:16], upright[:, :, 15, 0:8]], -1)
+        lcol = cur[:, :, 0:16, 7]
+    elif s == 2:
+        corner, top = left[:, :, 7, 15:16], cur[:, :, 7, 0:16]
+        lcol = torch.cat([left[:, :, 8:16, 15], ib(8)], -1)
+    else:
+        corner = cur[:, :, 7, 7:8]
+        top = torch.cat([cur[:, :, 7, 8:16], ib(8)], -1)
+        lcol = torch.cat([cur[:, :, 8:16, 7], ib(8)], -1)
+    return _refs_vec(corner, top, lcol)
+
+
+def _refs32(up, upleft, upright, left, ib):
+    """(P, B, 129) reference vector of a 32x32 CU from its neighbour
+    32-tiles; the bottom-left half reads the init value."""
+    return _refs_vec(upleft[:, :, 31, 31:32],
+                     torch.cat([up[:, :, 31, :], upright[:, :, 31, :]], -1),
+                     torch.cat([left[:, :, :, 31], ib(32)], -1))
+
+
 def _quad_tiles16(q, cur32, up32, upleft32, upright32, left32, ib):
     """Pseudo neighbor 16-tiles (up, upleft, upright, left) for quadrant q
     of a 32-CU (HEVC z-order availability: quadrant 3's up-right 16-block
@@ -357,29 +431,13 @@ def _decode_cu16(ref16, up, upleft, upright, left, initc, spl, mode16, lev16,
     branch the split flag selects is used.  Returns (P, B, 256) int64."""
     P, B = mode16.shape
     ib = lambda k: initc.expand(P, B, k)
-    refs16 = _refs_vec(upleft[:, :, 15, 15:16],
-                       torch.cat([up[:, :, 15, :], upright[:, :, 15, :]], -1),
-                       torch.cat([left[:, :, :, 15], ib(16)], -1))
+    refs16 = _refs16(up, upleft, upright, left, ib)
     rec16 = _int_recon(lev16, _predict(refs16, ref16, mode16, CU, tabs),
                        dq, maxvals, CU, tabs)
     cur = initc[..., None].expand(P, B, CU, CU).clone()
     for s, (dy, dx) in enumerate(SUB_OFF):
-        if s == 0:
-            corner, top, lcol = (upleft[:, :, 15, 15:16], up[:, :, 15, 0:16],
-                                 left[:, :, 0:16, 15])
-        elif s == 1:
-            corner = up[:, :, 15, 7:8]
-            top = torch.cat([up[:, :, 15, 8:16], upright[:, :, 15, 0:8]], -1)
-            lcol = cur[:, :, 0:16, 7]
-        elif s == 2:
-            corner, top = left[:, :, 7, 15:16], cur[:, :, 7, 0:16]
-            lcol = torch.cat([left[:, :, 8:16, 15], ib(8)], -1)
-        else:
-            corner = cur[:, :, 7, 7:8]
-            top = torch.cat([cur[:, :, 7, 8:16], ib(8)], -1)
-            lcol = torch.cat([cur[:, :, 8:16, 7], ib(8)], -1)
         ref8 = ref16.reshape(P, B, CU, CU)[:, :, dy: dy + SUB, dx: dx + SUB]
-        pred8 = _predict(_refs_vec(corner, top, lcol),
+        pred8 = _predict(_refs8(s, cur, up, upleft, upright, left, ib),
                          ref8.reshape(P, B, SUB * SUB), m8b[:, :, s], SUB, tabs)
         rec8 = _int_recon(c8b[:, :, s], pred8, dq, maxvals, SUB, tabs)
         cur[:, :, dy: dy + SUB, dx: dx + SUB] = rec8.reshape(P, B, SUB, SUB)
@@ -432,9 +490,7 @@ def wavefront_decode32_plain(ref, s32, m32, c32, s16, modes, c16, dq,
         up, upleft, upright, left = (tile4(nbr[:, k]) for k in range(4))
         ref32 = ref_blk[:, bidx]
         ib = lambda k: initc.expand(PT, B, k)
-        refs32 = _refs_vec(upleft[:, :, 31, 31:32],
-                           torch.cat([up[:, :, 31, :], upright[:, :, 31, :]], -1),
-                           torch.cat([left[:, :, :, 31], ib(32)], -1))
+        refs32 = _refs32(up, upleft, upright, left, ib)
         rec32 = _int_recon(c32_p[:, bidx],
                            _predict(refs32, ref32, m32_p[:, bidx], CU32, tabs),
                            dqv, maxv, CU32, tabs)
@@ -523,21 +579,30 @@ def _inter_flags32(s32, m32, s16, modes):
 
 
 def decode_planes(payload: bytes, refs=None, device=None) -> torch.Tensor:
-    """Inverse of `vpcc_tpu.video.hevc.encode_planes`: payload ->
-    (P, H, W) int32 on `device` (the refs' device when refs are given)."""
-    H, W, P, flags, ty, tx = struct.unpack("<HHBBBB", payload[:8])
+    """Inverse of `encode_planes` (either package's): payload -> (P, H, W)
+    int32 on `device` (the refs' device when refs are given)."""
+    flags = payload[5]
     if (flags & FLAG_INTER) and refs is None:
         raise ValueError("inter-coded payload requires refs")
+    syn = parse_planes32(payload)
+    d = refs.device if refs is not None else dev.resolve_device(device)
+    return _decode_planes32(syn, refs, d)
+
+
+def parse_planes32(payload: bytes) -> dict:
+    """Entropy-decode a three-level payload into its host syntax arrays:
+    header fields (H, W, P, flags, ty, tx, nby, nbx), per-plane qps and
+    maxvals, and per tile plane s32, m32 (PT, nb), c32 (PT, nb, 1024)
+    zigzag, s16 (PT, nb, 4), modes (PT, nb, 4, 4) ([m16, 0, 0, 0] for an
+    unsplit quadrant), c16 (PT, nb, 4, 256), mv (PT, nb, 2), sao_cls
+    (PT, Ry, Rx), sao_off (PT, Ry, Rx, 4); int8/int16 as the encoder
+    emits them."""
+    H, W, P, flags, ty, tx = struct.unpack("<HHBBBB", payload[:8])
     if not flags & FLAG_CU32:
         raise NotImplementedError(
             "two-level (16/8) CU payloads (samples above 10 bits): ROADMAP "
             "queue 2, two-level _build_decode"
         )
-    d = refs.device if refs is not None else dev.resolve_device(device)
-    return _decode_planes32(payload, refs, H, W, P, flags, ty, tx, d)
-
-
-def _decode_planes32(payload, refs, H, W, P, flags, ty, tx, d):
     motion = bool(flags & FLAG_MC)
     pos = 8
     Hp, Wp = _padded_dims(H, W, ty, tx, CU32)
@@ -596,7 +661,21 @@ def _decode_planes32(payload, refs, H, W, P, flags, ty, tx, d):
         pos += sln
         sao_cls[sl] = sao_flat[..., 0].astype(np.int8)
         sao_off[sl] = sao_flat[..., 1:].astype(np.int8)
+    return dict(H=H, W=W, P=P, flags=flags, ty=ty, tx=tx, nby=nby, nbx=nbx,
+                qps=qps, maxvals=maxvals, s32=s32, m32=m32, c32=c32, s16=s16,
+                modes=modes, c16=c16, mv=mv, sao_cls=sao_cls, sao_off=sao_off)
 
+
+def _decode_planes32(syn: dict, refs, d):
+    """Reconstruct the planes of parsed syntax (`parse_planes32`) on d."""
+    H, W, P, flags, ty, tx, nby, nbx = (
+        syn[k] for k in ("H", "W", "P", "flags", "ty", "tx", "nby", "nbx"))
+    qps, maxvals = syn["qps"], syn["maxvals"]
+    s32, m32, c32, s16, modes, c16, mv, sao_cls, sao_off = (
+        syn[k] for k in ("s32", "m32", "c32", "s16", "modes", "c16", "mv",
+                         "sao_cls", "sao_off"))
+    Hp, Wp = _padded_dims(H, W, ty, tx, CU32)
+    T = ty * tx
     tt = lambda a: torch.as_tensor(a, device=d)
     if flags & FLAG_INTER:
         ref = refs.to(device=d, dtype=torch.int32)
@@ -607,15 +686,14 @@ def _decode_planes32(payload, refs, H, W, P, flags, ty, tx, d):
     ref = _tiles_of(ref, ty, tx).contiguous()
     qps_t = tt(np.repeat(qps, T))
     maxv_t = tt(np.repeat(maxvals, T))
-    if motion:
+    if flags & FLAG_MC:
         ref = half_pel_mc(ref, tt(mv.astype(np.int32)), maxv_t, CU32)
     dq_t = tt(tab.DQ64[np.clip(np.repeat(qps, T), 0, 51)].astype(np.int32))
     rec = wavefront_decode32(ref, tt(s32), tt(m32), tt(c32), tt(s16),
                              tt(modes), tt(c16), dq_t, maxv_t, nby, nbx)
     if flags & FLAG_DEBLOCK:
         rec = _deblock(rec, qps_t, maxv_t)
-    rec = _sao_apply(rec, tt(sao_cls.astype(np.int32)),
-                     tt(sao_off.astype(np.int32)), maxv_t)
+    rec = sao_apply(rec.contiguous(), tt(sao_cls), tt(sao_off), maxv_t)
     return _untile(rec, P, ty, tx)[:, :H, :W].contiguous()
 
 
@@ -665,3 +743,683 @@ def decode_rgb(payload: bytes, refs=None, device=None):
     recy = decode_planes(py, refs=ry, device=device)
     recc = decode_planes(pc, refs=rc, device=recy.device)
     return _int_planes_to_rgb(recy[0], recc[0], recc[1]), (recy, recc)
+
+
+# ===========================================================================
+# Encoder (the encode half of vpcc_tpu/video/hevc.py, three-level syntax)
+#
+# Float32 order.  The RD decisions are float32, and the kernels and their
+# plain versions evaluate every float operation in one order, so that they
+# agree bit for bit on the card; the order follows what the reference's XLA
+# CPU program computes where that is known (it contracts a multiply feeding
+# an add into one fused multiply-add, `dev.fma_f32` / `__fmaf_rn`):
+# * forward DCT: t[j, l] = sum_k r[j, k] Cf[l, k], then
+#   c[i, l] = sum_j Cf[i, j] t[j, l], each a sequential fma chain from 0;
+# * lv = min(floor(fma(|c|, 1/qstep, 0.33)), 32767);
+# * distortion term d*d with d = fma(-lv, qstep, |c|); the rate term of a
+#   level from `hevc_tables.rd_bits_table` (XLA's own log2 values);
+# * the n*n-term sums of distortion and rate as a pairwise tree of
+#   half-adds (x[:h] + x[h:], repeated);
+# * bits = fma(0.12, last + 1, bits); cost = fma(w, dist, lam * (bits +
+#   mode_bits)); the inter lane adds its penalty afterwards;
+# * the mode is the first minimum (strict <, ascending mode).
+# Against the reference the decisions agree at a measured rate
+# (tests/test_torch_video_encode.py); the syntax any of them produces is
+# decoded exactly by both packages' decoders.
+
+RD_LAST_WEIGHT = np.float32(0.12)
+RD_ROUND = np.float32(0.33)
+
+
+def _tile_grid(H: int, W: int, cu: int = CU):
+    """(ty, tx) codec-tile split of an (H, W) plane: tiles of ~256 pixels
+    per axis (at most 16 per axis)."""
+    target_cus = max(256 // cu, 2)
+
+    def split(n):
+        cus = -(-n // cu)
+        return max(1, min((cus + target_cus - 1) // target_cus, 16))
+
+    return split(H), split(W)
+
+
+def _mv_bits(R: int) -> np.ndarray:
+    """Approximate signed Exp-Golomb bin count per MV component value."""
+    v = np.arange(-R, R + 1)
+    a = np.abs(v)
+    return np.where(v == 0, 1.0, 3.0 + 2.0 * np.floor(np.log2(np.maximum(a, 1)))
+                    ).astype(np.float32)
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a power of two) as a pairwise tree of
+    half-adds: x[:h] + x[h:], repeated."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# kernel J: motion search (integer full search + half-pel refinement)
+
+def _sample_half_sub(planes_pad, mv, R, nbx, bs):
+    """Candidate prediction at even pixels only: planes_pad (P, 4, H+2R,
+    W+2R) half-pel planes, mv (P, nb, 2) half-pel units."""
+    P = planes_pad.shape[0]
+    H = planes_pad.shape[2] - 2 * R
+    W = planes_pad.shape[3] - 2 * R
+    yy = torch.arange(0, H, 2, device=mv.device)[:, None]
+    xx = torch.arange(0, W, 2, device=mv.device)[None, :]
+    bi = (yy // bs) * nbx + (xx // bs)
+    mvy = mv[:, :, 0][:, bi]
+    mvx = mv[:, :, 1][:, bi]
+    fi = (mvy & 1) * 2 + (mvx & 1)
+    iy = (yy[None] + R + (mvy >> 1)).clamp(0, H + 2 * R - 1)
+    ix = (xx[None] + R + (mvx >> 1)).clamp(0, W + 2 * R - 1)
+    Hp, Wp = H + 2 * R, W + 2 * R
+    flat = ((fi * Hp + iy) * Wp + ix).reshape(P, -1).long()
+    return torch.gather(planes_pad.reshape(P, -1), 1, flat).reshape(P, H // 2, W // 2)
+
+
+def _sad_sub(a, b, nby, nbx, bs):
+    P = a.shape[0]
+    h = bs // 2
+    return ((a.long() - b.long()).abs().reshape(P, nby, h, nbx, h)
+            .sum((2, 4)).reshape(P, nby * nbx).to(torch.float32))
+
+
+def motion_search_plain(src, ref, lam, maxvals, bs: int):
+    """Plain version of kernel J (vpcc_tpu hevc.py `_motion_search_half`
+    with `_motion_search`, `_sad_sub`, `_apply_motion_half_sub`).
+
+    src/ref (P, H, W) int32 tile planes, lam (P,) float32, maxvals (P,)
+    int32, bs the CU size.  Full search over +-MV_RANGE of per-CU SAD +
+    lam * MV bins (cost = fma(lam, bins, sad); ties to the smallest linear
+    index, row-major), then the plus-shaped half-pel refinement scored on
+    the 2x-subsampled lattice.  Returns (mv (P, nb, 2) int32 in half-sample
+    units, mvcost (P, nb) float32)."""
+    R = MV_RANGE
+    P, H, W = src.shape
+    nby, nbx = H // bs, W // bs
+    nb = nby * nbx
+    w = 2 * R + 1
+    d = src.device
+    padr = _edge_pad(ref, R, R, R, R)
+    bits1 = torch.as_tensor(_mv_bits(R), device=d)
+    src64 = src.long()
+    lam_c = lam[None, :, None]
+    best_cost = torch.full((P, nb), float("inf"), dtype=torch.float32, device=d)
+    best_i = torch.zeros((P, nb), dtype=torch.int64, device=d)
+    for iy in range(w):
+        slab = padr[:, iy: iy + H, :]
+        sh = torch.stack([slab[:, :, dx: dx + W] for dx in range(w)])  # (w, P, H, W)
+        sad = ((src64[None] - sh.long()).abs().reshape(w, P, nby, bs, nbx, bs)
+               .sum((3, 5)).reshape(w, P, nb).to(torch.float32))
+        bins = (bits1[iy] + bits1)[:, None, None].expand(w, P, nb)
+        cost = dev.fma_f32(lam_c.expand(w, P, nb), bins, sad)
+        k = torch.argmin(cost, 0)
+        row_cost = torch.gather(cost, 0, k[None])[0]
+        better = row_cost < best_cost
+        best_cost = torch.where(better, row_cost, best_cost)
+        best_i = torch.where(better, iy * w + k, best_i)
+    mv_i = torch.stack([best_i // w - R, best_i % w - R], -1)
+    cost_i = lam[:, None] * (bits1[best_i // w] + bits1[best_i % w])
+    src_sub = src[:, ::2, ::2]
+    planes = _half_planes(ref, maxvals)                         # (4, P, H, W)
+    planes_pad = _edge_pad(planes, R, R, R, R).transpose(0, 1).contiguous()
+    best_mv = mv_i * 2
+    best = _sad_sub(src_sub, _sample_half_sub(planes_pad, best_mv, R, nbx, bs),
+                    nby, nbx, bs)
+    half_bit = lam[:, None] * 0.5
+    for dy2, dx2 in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        cand = mv_i * 2 + torch.tensor([dy2, dx2], device=d)
+        sad = _sad_sub(src_sub, _sample_half_sub(planes_pad, cand, R, nbx, bs),
+                       nby, nbx, bs) + half_bit
+        better = sad < best
+        best = torch.where(better, sad, best)
+        best_mv = torch.where(better[:, :, None], cand, best_mv)
+    frac = ((best_mv & 1) != 0).any(-1)
+    mvcost = cost_i + torch.where(frac, lam[:, None] * 2.0, torch.zeros_like(cost_i))
+    return best_mv.to(torch.int32), mvcost
+
+
+_MS_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def motion_search(src, ref, lam, maxvals, bs: int):
+    """Kernel J (csrc/motion_search.cu): one block per (tile plane, CU);
+    `motion_search_plain` on the CPU.  Arguments and result as the plain
+    version."""
+    if src.device.type == "cpu":
+        return motion_search_plain(src, ref, lam, maxvals, bs)
+    d = src.device
+    P, H, W = src.shape
+    dev.check_tensor(src, "src", torch.int32, d, 3)
+    dev.check_tensor(ref, "ref", torch.int32, d, 3)
+    dev.check_tensor(lam, "lam", torch.float32, d, 1)
+    dev.check_tensor(maxvals, "maxvals", torch.int32, d, 1)
+    if ref.shape != src.shape or H % bs or W % bs or bs not in (16, 32) \
+            or lam.shape[0] != P or maxvals.shape[0] != P:
+        raise ValueError(f"motion_search: shapes {tuple(src.shape)} / {tuple(ref.shape)}, bs {bs}")
+    nb = (H // bs) * (W // bs)
+    mv = torch.empty((P, nb, 2), dtype=torch.int32, device=d)
+    cost = torch.empty((P, nb), dtype=torch.float32, device=d)
+    bits = torch.as_tensor(_mv_bits(MV_RANGE), device=d)
+    fn = dev.load_kernel("motion_search").motion_search
+    fn.argtypes, fn.restype = _MS_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(src), dev.ptr(ref), dev.ptr(lam), dev.ptr(maxvals),
+            dev.ptr(bits), dev.ptr(mv), dev.ptr(cost), P, H, W, bs,
+            dev.stream_handle())
+    dev.count_launch("motion_search")
+    dev.check_launch("motion_search", rc)
+    return mv, cost
+
+
+# ---------------------------------------------------------------------------
+# kernel K: SAO (edge offset per 32x32 region): search and apply
+
+SAO_OFF_MAX = 7
+SAO_RATE_BITS = np.float32(19.0)   # ~3 type bits + 4x4-bit offsets
+
+
+def sao_search_plain(src, rec, lam, weights):
+    """Plain version of kernel K's search (vpcc_tpu hevc.py
+    `_sao_search_apply`, the choice of parameters).  src/rec/weights
+    (P, H, W) int32 (weights 0/1), lam (P,) float32.  Per region and EO
+    class: count n and weighted error sum s of each non-flat category
+    (integers), offset o = clip(round(s / max(n, 1)), -7, 7), gain =
+    sum n*o*o - 2*o*s, cost = fma(lam, 19, gain); the first class whose
+    cost is below the best so far (starting at 0 = off) wins.  Returns
+    (sao_cls (P, Ry, Rx) int8, sao_off (P, Ry, Rx, 4) int8; offsets 0 where
+    the class is off)."""
+    P, H, W = rec.shape
+    region = SAO_REGION
+    ry, rx = H // region, W // region
+    wl = (weights != 0).long()
+    diff = (src.long() - rec.long()) * wl
+
+    def region_sum(x):
+        return x.reshape(P, ry, region, rx, region).sum((2, 4))
+
+    lam_r = lam[:, None, None].expand(P, ry, rx)
+    best_gain = torch.zeros((P, ry, rx), dtype=torch.float32, device=rec.device)
+    best_cls = torch.zeros((P, ry, rx), dtype=torch.int64, device=rec.device)
+    best_off = torch.zeros((P, ry, rx, 4), dtype=torch.int64, device=rec.device)
+    for ci, (dy, dx) in enumerate(_SAO_DIRS):
+        cat = _sao_categories(rec, dy, dx)
+        gain = torch.zeros((P, ry, rx), dtype=torch.float32, device=rec.device)
+        offs = []
+        for c in (0, 1, 3, 4):
+            m = (cat == c).long() * wl
+            n = region_sum(m).to(torch.float32)
+            sm = region_sum(diff * m).to(torch.float32)
+            o = torch.round(sm / n.clamp(min=1.0)).clamp(-SAO_OFF_MAX, SAO_OFF_MAX)
+            gain = gain + n * o * o - 2.0 * o * sm
+            offs.append(o.long())
+        cost = dev.fma_f32(lam_r, float(SAO_RATE_BITS), gain)
+        better = cost < best_gain
+        best_gain = torch.where(better, cost, best_gain)
+        best_cls = torch.where(better, torch.full_like(best_cls, ci + 1), best_cls)
+        best_off = torch.where(better[..., None], torch.stack(offs, -1), best_off)
+    best_off = torch.where(best_cls[..., None] > 0, best_off, torch.zeros_like(best_off))
+    return best_cls.to(torch.int8), best_off.to(torch.int8)
+
+
+_SAO_SEARCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SAO_APPLY_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _check_sao(rec):
+    P, H, W = rec.shape
+    if H % SAO_REGION or W % SAO_REGION:
+        raise ValueError(f"sao: plane {tuple(rec.shape)} is not a multiple of {SAO_REGION}")
+    return P, H, W
+
+
+def sao_search(src, rec, lam, weights):
+    """Kernel K, search entry (csrc/sao.cu `sao_search`): one block per
+    region; `sao_search_plain` on the CPU."""
+    if rec.device.type == "cpu":
+        return sao_search_plain(src, rec, lam, weights)
+    d = rec.device
+    region = SAO_REGION
+    P, H, W = _check_sao(rec)
+    for name, t in (("src", src), ("rec", rec), ("weights", weights)):
+        dev.check_tensor(t, name, torch.int32, d, 3)
+        if t.shape != rec.shape:
+            raise ValueError(f"sao_search: {name} shape {tuple(t.shape)}")
+    dev.check_tensor(lam, "lam", torch.float32, d, 1)
+    ry, rx = H // region, W // region
+    cls = torch.empty((P, ry, rx), dtype=torch.int8, device=d)
+    off = torch.empty((P, ry, rx, 4), dtype=torch.int8, device=d)
+    fn = dev.load_kernel("sao").sao_search
+    fn.argtypes, fn.restype = _SAO_SEARCH_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(src), dev.ptr(rec), dev.ptr(weights), dev.ptr(lam),
+            dev.ptr(cls), dev.ptr(off), P, H, W, region, dev.stream_handle())
+    dev.count_launch("sao")
+    dev.check_launch("sao", rc)
+    return cls, off
+
+
+def sao_apply(rec, sao_cls, sao_off, maxvals):
+    """Kernel K, apply entry (csrc/sao.cu `sao_apply`): one thread per
+    pixel; `sao_apply_plain` on the CPU.  sao_cls/sao_off int8."""
+    if rec.device.type == "cpu":
+        return sao_apply_plain(rec, sao_cls, sao_off, maxvals)
+    d = rec.device
+    region = SAO_REGION
+    P, H, W = _check_sao(rec)
+    dev.check_tensor(rec, "rec", torch.int32, d, 3)
+    dev.check_tensor(sao_cls, "sao_cls", torch.int8, d, 3)
+    dev.check_tensor(sao_off, "sao_off", torch.int8, d, 4)
+    dev.check_tensor(maxvals, "maxvals", torch.int32, d, 1)
+    if sao_cls.shape != (P, H // region, W // region) or \
+            sao_off.shape != (P, H // region, W // region, 4):
+        raise ValueError(f"sao_apply: params {tuple(sao_cls.shape)} / {tuple(sao_off.shape)}")
+    out = torch.empty_like(rec)
+    fn = dev.load_kernel("sao").sao_apply
+    fn.argtypes, fn.restype = _SAO_APPLY_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(rec), dev.ptr(sao_cls), dev.ptr(sao_off), dev.ptr(maxvals),
+            dev.ptr(out), P, H, W, region, dev.stream_handle())
+    dev.count_launch("sao")
+    dev.check_launch("sao", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel I: wavefront RDO encode of the 32/16/8 CU quadtree
+
+def _predict_all(refs, ref_block, n: int, tabs):
+    """All 36 mode predictions of each block: refs (P, B, 4n+1), ref_block
+    (P, B, n*n) int64 -> (P, B, 36, n*n) int64."""
+    P, B, R = refs.shape
+    M = tab.N_MODES
+    mode = torch.arange(M, device=refs.device).repeat(B)[None].expand(P, B * M)
+    pred = _predict(refs[:, :, None].expand(P, B, M, R).reshape(P, B * M, R),
+                    ref_block[:, :, None].expand(P, B, M, n * n).reshape(P, B * M, n * n),
+                    mode, n, tabs)
+    return pred.reshape(P, B, M, n * n)
+
+
+def _rd_choose(src_v, allp, wblk, pen, qstep, inv_q, lam, n: int, tabs):
+    """Transform-domain RDO over the 36 modes in the float32 order of the
+    section comment.  src_v (P, B, n*n), allp (P, B, 36, n*n) int64, wblk
+    and pen (P, B) float32 (pen is added to the inter lane), qstep, inv_q,
+    lam (P,) float32.  Returns (mode (P, B), raster levels of the chosen
+    mode (P, B, n*n) int64, its prediction, cost (P, B) float32)."""
+    P, B, M, nn = allp.shape
+    Cf = tabs[f"Cf{n}"]
+    r = (src_v[:, :, None, :] - allp).to(torch.float32).reshape(P, B, M, n, n)
+    zero = torch.zeros((P, B, M, n, n), dtype=torch.float32, device=r.device)
+    t = zero
+    for k in range(n):                         # t[j, l] = sum_k r[j, k] Cf[l, k]
+        t = dev.fma_f32(r[..., :, k: k + 1].expand_as(zero),
+                        Cf[None, :, k].expand_as(zero), t)
+    c = zero
+    for j in range(n):                         # c[i, l] = sum_j Cf[i, j] t[j, l]
+        c = dev.fma_f32(Cf[:, j: j + 1].expand_as(zero),
+                        t[..., j: j + 1, :].expand_as(zero), c)
+    c = c.reshape(P, B, M, nn)
+    ca = c.abs()
+    bc = lambda v: v[:, None, None, None].expand_as(ca)
+    lv = torch.floor(dev.fma_f32(ca, bc(inv_q), float(RD_ROUND))).clamp(max=tab.LEVEL_MAX)
+    dd = dev.fma_f32(-lv, bc(qstep), ca)
+    dist = _tree_sum(dd * dd)
+    bits = _tree_sum(tabs["rd_bits"][lv.long()])
+    izz = tabs[f"izz{n}"]
+    last = torch.where(lv > 0, izz.expand_as(lv), torch.full_like(izz, -1).expand_as(lv)
+                       ).amax(-1).to(torch.float32)
+    bits = dev.fma_f32(torch.full_like(bits, float(RD_LAST_WEIGHT)), last + 1.0, bits)
+    rate = lam[:, None, None] * (bits + tabs["mode_bits"])
+    cost = dev.fma_f32(wblk[:, :, None].expand_as(rate), dist, rate)
+    cost[:, :, tab.MODE_INTER] = cost[:, :, tab.MODE_INTER] + pen
+    mode = torch.argmin(cost, 2)
+    sel = mode[:, :, None, None].expand(P, B, 1, nn)
+    lev = (torch.sign(c) * lv).long()
+    return (mode, torch.gather(lev, 2, sel)[:, :, 0], torch.gather(allp, 2, sel)[:, :, 0],
+            torch.gather(cost, 2, mode[:, :, None])[:, :, 0])
+
+
+def _code_cu16(src16, ref16, up, upleft, upright, left, initc, w16, w8, pen,
+               qstep, inv_q, lam, dq, maxv, tabs):
+    """The 16x16 candidate against the four-8x8 z-order split of a batch of
+    16x16 blocks (vpcc_tpu hevc.py `_code_cu16`).  pen (P, B) is the inter
+    lane's penalty at 16x16 (the 8x8 blocks pay a quarter of its MV part,
+    passed as `pen8`).  Returns (tile (P, B, 256), split (P, B), m16,
+    m8 (P, B, 4), lev16 zigzag (P, B, 256), c8 zigzag (P, B, 256),
+    min cost (P, B))."""
+    pen16, pen8 = pen
+    P, B = src16.shape[:2]
+    ib = lambda k: initc.expand(P, B, k)
+    allp16 = _predict_all(_refs16(up, upleft, upright, left, ib), ref16, CU, tabs)
+    m16, lev16, pred16, cost16 = _rd_choose(src16, allp16, w16, pen16, qstep,
+                                            inv_q, lam, CU, tabs)
+    cur = initc[..., None].expand(P, B, CU, CU).clone()
+    cost_split = lam[:, None].expand(P, B)
+    m8s, c8s = [], []
+    src_t = src16.reshape(P, B, CU, CU)
+    ref_t = ref16.reshape(P, B, CU, CU)
+    for s, (dy, dx) in enumerate(SUB_OFF):
+        q8 = lambda t: t[:, :, dy: dy + SUB, dx: dx + SUB].reshape(P, B, SUB * SUB)
+        allp8 = _predict_all(_refs8(s, cur, up, upleft, upright, left, ib),
+                             q8(ref_t), SUB, tabs)
+        m8, lev8, pred8, cost8 = _rd_choose(q8(src_t), allp8, w8[:, :, s], pen8,
+                                            qstep, inv_q, lam, SUB, tabs)
+        rec8 = _int_recon(lev8, pred8, dq, maxv, SUB, tabs)
+        cur[:, :, dy: dy + SUB, dx: dx + SUB] = rec8.reshape(P, B, SUB, SUB)
+        cost_split = cost_split + cost8
+        m8s.append(m8)
+        c8s.append(lev8[:, :, tabs["zz8"]])
+    split = cost_split < cost16
+    rec16 = _int_recon(lev16, pred16, dq, maxv, CU, tabs)
+    tile = torch.where(split[:, :, None], cur.reshape(P, B, CC), rec16)
+    return (tile, split, m16, torch.stack(m8s, -1), lev16[:, :, tabs["zz16"]],
+            torch.cat(c8s, -1), torch.minimum(cost16, cost_split))
+
+
+def _blocks32(x, nby, nbx):
+    P = x.shape[0]
+    return (x.reshape(P, nby, CU32, nbx, CU32).permute(0, 1, 3, 2, 4)
+            .reshape(P, nby * nbx, CC32))
+
+
+def block_weights32(weights, nby: int, nbx: int):
+    """Per-32-CU, per-16-quadrant and per-8-sub RD distortion weights: the
+    share of point-generating pixels, floored at 0.04 (exact: sums of 0/1
+    over powers of two).  weights (P, H, W) int32 0/1 -> (w32 (P, nb),
+    w16 (P, nb, 4), w8 (P, nb, 4, 4)) float32, quadrants and subs in
+    z-order."""
+    wb = _blocks32((weights != 0).to(torch.float32), nby, nbx)
+    P, nb, _ = wb.shape
+    w32 = (wb.sum(-1) / 1024.0).clamp(min=0.04)
+    t = wb.reshape(P, nb, 2, CU, 2, CU)
+    w16 = (t.sum((3, 5)) / 256.0).reshape(P, nb, 4).clamp(min=0.04)
+    t8 = wb.reshape(P, nb, 2, 2, SUB, 2, 2, SUB)
+    w8 = (t8.sum((4, 7)) / 64.0).permute(0, 1, 2, 4, 3, 5).reshape(P, nb, 4, 4)
+    return w32, w16, w8.clamp(min=0.04)
+
+
+def wavefront_encode32_plain(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam,
+                             pen, dq, maxvals, nby: int, nbx: int):
+    """Plain version of kernel I (vpcc_tpu hevc.py `_build_encode32.run`,
+    the scan): one batched step per wavefront diagonal over (PT, nb+2,
+    1024) CU rows (row nb = init block, row nb+1 = write dump), all 36
+    modes at once at every level.
+
+    src/ref (PT, Ht, Wt) int32 source and inter prediction tile planes;
+    w32 (PT, nb), w16 (PT, nb, 4), w8 (PT, nb, 4, 4), mvc (PT, nb) float32
+    (MV rate per CU); qstep, inv_q, lam, pen (PT,) float32 (pen 0, or 1e30
+    without a reference); dq, maxvals (PT,) int32.  Returns the syntax
+    (s32, m32 (PT, nb) int8, c32 (PT, nb, 1024) int16 zigzag, s16
+    (PT, nb, 4) int8, modes (PT, nb, 4, 4) int8, c16 (PT, nb, 4, 256)
+    int16) and the reconstruction (PT, Ht, Wt) int32."""
+    PT = src.shape[0]
+    d = src.device
+    nb = nby * nbx
+    tabs = _tables(d)
+    maxv = maxvals.long()
+    dqv = dq.long()
+    initc = ((maxv + 1) // 2)[:, None, None]
+
+    def pad_rows(x, fill):
+        extra = (fill.expand((PT, 2) + x.shape[2:]) if torch.is_tensor(fill)
+                 else torch.full((PT, 2) + x.shape[2:], fill, dtype=x.dtype, device=d))
+        return torch.cat([x, extra], 1)
+
+    src_blk = pad_rows(_blocks32(src.long(), nby, nbx), initc)
+    ref_blk = pad_rows(_blocks32(ref.long(), nby, nbx), initc)
+    w32_p, w16_p, w8_p = (pad_rows(a, 1.0) for a in (w32, w16, w8))
+    mvc_p = pad_rows(mvc, 0.0)
+    blk = initc.expand(PT, nb + 2, CC32).clone()
+    s32_o = torch.zeros((PT, nb + 2), dtype=torch.int64, device=d)
+    m32_o = torch.zeros_like(s32_o)
+    c32_o = torch.zeros((PT, nb + 2, CC32), dtype=torch.int64, device=d)
+    s16_o = torch.zeros((PT, nb + 2, 4), dtype=torch.int64, device=d)
+    m_o = torch.zeros((PT, nb + 2, 4, 4), dtype=torch.int64, device=d)
+    c16_o = torch.zeros((PT, nb + 2, 4, CC), dtype=torch.int64, device=d)
+    bidx_tab, nbr_tab = _neighbor_schedule(nby, nbx)
+    for bidx_np, nbr_np in zip(bidx_tab, nbr_tab):
+        bidx = torch.as_tensor(bidx_np, device=d)
+        nbr = torch.as_tensor(nbr_np, device=d)
+        B = bidx.shape[0]
+        tile4 = lambda ids: blk[:, ids].reshape(PT, B, CU32, CU32)
+        up, upleft, upright, left = (tile4(nbr[:, k]) for k in range(4))
+        src32, ref32 = src_blk[:, bidx], ref_blk[:, bidx]
+        mvc32 = mvc_p[:, bidx]
+        ib = lambda k: initc.expand(PT, B, k)
+        allp32 = _predict_all(_refs32(up, upleft, upright, left, ib), ref32, CU32, tabs)
+        m32, lev32, pred32, cost32 = _rd_choose(
+            src32, allp32, w32_p[:, bidx], pen[:, None] + mvc32, qstep, inv_q, lam,
+            CU32, tabs)
+        cur32 = initc[..., None].expand(PT, B, CU32, CU32).clone()
+        init16 = initc[..., None].expand(PT, B, CU, CU)
+        cost_split = lam[:, None].expand(PT, B)
+        mvc16 = 0.25 * mvc32
+        pens = (pen[:, None] + mvc16, pen[:, None] + 0.25 * mvc16)
+        src_t = src32.reshape(PT, B, CU32, CU32)
+        ref_t = ref32.reshape(PT, B, CU32, CU32)
+        s16s, m16s, m8s, cqs = [], [], [], []
+        for q, (dy, dx) in enumerate(QOFF32):
+            qt = lambda t: t[:, :, dy: dy + CU, dx: dx + CU].reshape(PT, B, CC)
+            u16, ul16, ur16, l16 = _quad_tiles16(q, cur32, up, upleft, upright, left, init16)
+            tile_q, split_q, m16_q, m8_q, lev16zz, c8cat, cost_q = _code_cu16(
+                qt(src_t), qt(ref_t), u16, ul16, ur16, l16, initc,
+                w16_p[:, bidx, q], w8_p[:, bidx, q], pens, qstep, inv_q, lam,
+                dqv, maxv, tabs)
+            cur32[:, :, dy: dy + CU, dx: dx + CU] = tile_q.reshape(PT, B, CU, CU)
+            cost_split = (cost_split + cost_q) + lam[:, None]
+            s16s.append(split_q)
+            m16s.append(m16_q)
+            m8s.append(m8_q)
+            cqs.append(torch.where(split_q[:, :, None], c8cat, lev16zz))
+        split32 = cost_split < cost32
+        rec32 = _int_recon(lev32, pred32, dqv, maxv, CU32, tabs)
+        blk[:, bidx] = torch.where(split32[:, :, None], cur32.reshape(PT, B, CC32), rec32)
+        s16v = torch.stack(s16s, -1)
+        m16v = torch.stack(m16s, -1)[:, :, :, None]
+        m16v = torch.cat([m16v, torch.zeros_like(m16v).expand(PT, B, 4, 3)], -1)
+        s32_o[:, bidx] = split32.long()
+        m32_o[:, bidx] = m32
+        c32_o[:, bidx] = lev32[:, :, tabs["zz32"]]
+        s16_o[:, bidx] = s16v.long()
+        m_o[:, bidx] = torch.where(s16v[:, :, :, None], torch.stack(m8s, -2), m16v)
+        c16_o[:, bidx] = torch.stack(cqs, -2)
+    rec = (blk[:, :nb].reshape(PT, nby, nbx, CU32, CU32).permute(0, 1, 3, 2, 4)
+           .reshape(PT, nby * CU32, nbx * CU32))
+    return (s32_o[:, :nb].to(torch.int8), m32_o[:, :nb].to(torch.int8),
+            c32_o[:, :nb].to(torch.int16), s16_o[:, :nb].to(torch.int8),
+            m_o[:, :nb].to(torch.int8), c16_o[:, :nb].to(torch.int16),
+            rec.to(torch.int32))
+
+
+_WE_ARGS = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+
+
+def wavefront_encode32(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam, pen,
+                       dq, maxvals, nby: int, nbx: int):
+    """Kernel I (csrc/wavefront_encode32.cu): one launch per wavefront
+    diagonal, one block per (tile plane, 32x32 CU) on it.  Arguments and
+    result as `wavefront_encode32_plain`, which runs on the CPU."""
+    if src.device.type == "cpu":
+        return wavefront_encode32_plain(src, ref, w32, w16, w8, mvc, qstep, inv_q,
+                                        lam, pen, dq, maxvals, nby, nbx)
+    d = src.device
+    PT = src.shape[0]
+    nb = nby * nbx
+    for name, t, dtype, shape in (
+        ("src", src, torch.int32, (PT, nby * CU32, nbx * CU32)),
+        ("ref", ref, torch.int32, (PT, nby * CU32, nbx * CU32)),
+        ("w32", w32, torch.float32, (PT, nb)),
+        ("w16", w16, torch.float32, (PT, nb, 4)),
+        ("w8", w8, torch.float32, (PT, nb, 4, 4)),
+        ("mvc", mvc, torch.float32, (PT, nb)),
+        ("qstep", qstep, torch.float32, (PT,)),
+        ("inv_q", inv_q, torch.float32, (PT,)),
+        ("lam", lam, torch.float32, (PT,)),
+        ("pen", pen, torch.float32, (PT,)),
+        ("dq", dq, torch.int32, (PT,)),
+        ("maxvals", maxvals, torch.int32, (PT,)),
+    ):
+        dev.check_tensor(t, name, dtype, d)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    s32 = torch.empty((PT, nb), dtype=torch.int8, device=d)
+    m32 = torch.empty_like(s32)
+    c32 = torch.empty((PT, nb, CC32), dtype=torch.int16, device=d)
+    s16 = torch.empty((PT, nb, 4), dtype=torch.int8, device=d)
+    modes = torch.empty((PT, nb, 4, 4), dtype=torch.int8, device=d)
+    c16 = torch.empty((PT, nb, 4, CC), dtype=torch.int16, device=d)
+    rec = torch.empty_like(src)
+    tabs = _tables(d)
+    fn = dev.load_kernel("wavefront_encode32").wavefront_encode32
+    fn.argtypes, fn.restype = _WE_ARGS, ctypes.c_int
+    launched = ctypes.c_int(0)
+    rc = fn(dev.ptr(src), dev.ptr(ref), dev.ptr(w32), dev.ptr(w16), dev.ptr(w8),
+            dev.ptr(mvc), dev.ptr(qstep), dev.ptr(inv_q), dev.ptr(lam), dev.ptr(pen),
+            dev.ptr(dq), dev.ptr(maxvals), dev.ptr(tabs["blob"]), dev.ptr(tabs["fblob"]),
+            dev.ptr(s32), dev.ptr(m32), dev.ptr(c32), dev.ptr(s16), dev.ptr(modes),
+            dev.ptr(c16), dev.ptr(rec), PT, nby, nbx, dev.stream_handle(),
+            ctypes.byref(launched))
+    dev.count_launch("wavefront_encode32", launched.value)
+    dev.check_launch("wavefront_encode32", rc)
+    return s32, m32, c32, s16, modes, c16, rec
+
+
+# ---------------------------------------------------------------------------
+# plane API, encode side
+
+def _round_int_plane(plane, occ):
+    """Occupancy-aware background fill (kernel L) + rounding to int32; plain
+    int32 conversion without an occupancy.  plane/occ (H, W) tensors."""
+    if occ is None:
+        return plane.to(torch.int32)
+    return padding.push_pull_round(plane.to(torch.int32).contiguous(),
+                                   occ.to(torch.uint8).contiguous())
+
+
+def assemble_payload32(H, W, P, qps, maxvals, has_ref, deblock, motion, ty, tx,
+                       s32_h, m32_h, c32_h, s16_h, modes_h, c16_h, mv_h,
+                       sao_cls_h, sao_off_h) -> bytes:
+    """Three-level payload from host (numpy) syntax arrays, byte for byte as
+    `vpcc_tpu.video.hevc.assemble_payload32`: header, then per plane its
+    qp/maxval, the CU syntax blob of its tiles stacked into one (T*nby,
+    nbx) grid, the MV blob (motion payloads) and the SAO blob."""
+    Hp, Wp = _padded_dims(H, W, ty, tx, CU32)
+    s32_h, m32_h, c32_h, s16_h, modes_h, c16_h, mv_h = (
+        np.asarray(a).astype(np.int32)
+        for a in (s32_h, m32_h, c32_h, s16_h, modes_h, c16_h, mv_h))
+    sao_h = np.concatenate([np.asarray(sao_cls_h).astype(np.int32)[..., None],
+                            np.asarray(sao_off_h).astype(np.int32)], axis=-1)
+    nby, nbx = Hp // ty // CU32, Wp // tx // CU32
+    flags = ((FLAG_INTER if has_ref else 0) | (FLAG_DEBLOCK if deblock else 0)
+             | (FLAG_MC if motion else 0) | FLAG_CU32)
+    T = ty * tx
+    out = bytearray(struct.pack("<HHBBBB", H, W, P, flags, ty, tx))
+    for p in range(P):
+        out += struct.pack("<BH", int(qps[p]), int(maxvals[p]))
+        sl = slice(p * T, (p + 1) * T)
+        blob = entropy.encode_hevc32_plane(
+            T * nby, nbx, s32_h[sl].reshape(-1), m32_h[sl].reshape(-1),
+            c32_h[sl].reshape(-1, CC32), s16_h[sl].reshape(-1, 4),
+            modes_h[sl].reshape(-1, 4, 4)[:, :, 0], c16_h[sl].reshape(-1, 4, CC),
+            modes_h[sl].reshape(-1, 4, 4), c16_h[sl].reshape(-1, 4, 4, SUB * SUB),
+        )
+        out += struct.pack("<I", len(blob)) + blob
+        if motion:
+            mvblob = entropy.encode_mvs(
+                _inter_flags32(s32_h[sl].reshape(-1), m32_h[sl].reshape(-1),
+                               s16_h[sl].reshape(-1, 4), modes_h[sl].reshape(-1, 4, 4)),
+                mv_h[sl].reshape(-1, 2))
+            out += struct.pack("<I", len(mvblob)) + mvblob
+        flat = sao_h[sl].reshape(-1)
+        sao_pad = np.zeros(((flat.size + 63) // 64, 64), np.int32)
+        sao_pad.reshape(-1)[: flat.size] = flat
+        sb = entropy.encode_coeffs(sao_pad)
+        out += struct.pack("<I", len(sb)) + sb
+    return bytes(out)
+
+
+def encode_planes(planes, qps, maxvals, refs=None, occ=None, deblock: bool = True,
+                  weight=None, motion: bool = False) -> Tuple[bytes, torch.Tensor]:
+    """Encode a (P, H, W) stack of integer planes sharing one shape with the
+    three-level (32/16/8) wavefront codec, as `vpcc_tpu.video.hevc.
+    encode_planes` does.  Returns (payload bytes, (P, H, W) int32
+    reconstruction on the device), the reconstruction being exactly what
+    `decode_planes` makes of the payload.
+
+    qps/maxvals: per-plane ints.  refs: optional (P, H, W) reference planes
+    (enables the inter lane); motion=True searches half-pel MVs against
+    them (kernel J).  occ: optional (H, W) occupancy for the push-pull
+    background fill (kernel L).  weight: optional (H, W) 0/1 RD relevance
+    mask.  The reference's `defer` has no counterpart: the payload is
+    assembled before returning.  The encode runs on the planes' device when
+    they are a tensor, else on CUDA."""
+    d = planes.device if torch.is_tensor(planes) else dev.resolve_device()
+    as_t = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))).to(d)
+    planes = as_t(planes)
+    if planes.ndim == 2:
+        planes = planes[None]
+    P, H, W = planes.shape
+    if H % SUB or W % SUB:
+        raise ValueError(f"encode_planes: plane {H}x{W} is not a multiple of {SUB}")
+    if max(int(m) for m in maxvals) > 1023:
+        raise NotImplementedError(
+            "two-level (16/8) CU encode (samples above 10 bits): ROADMAP queue 2, "
+            "two-level _build_encode")
+    has_ref = refs is not None
+    motion = bool(motion and has_ref)
+    if occ is not None:
+        occ_t = as_t(occ)
+        planes = torch.stack([_round_int_plane(p, occ_t) for p in planes])
+    else:
+        planes = planes.to(torch.int32)
+    ref = (as_t(refs).to(torch.int32) if has_ref
+           else torch.zeros((P, H, W), dtype=torch.int32, device=d))
+    if weight is not None:
+        wgt = (as_t(weight) != 0).to(torch.int32).expand(P, H, W)
+    else:
+        wgt = torch.ones((P, H, W), dtype=torch.int32, device=d)
+    ty, tx = _tile_grid(H, W, cu=CU32)
+    Hp, Wp = _padded_dims(H, W, ty, tx, CU32)
+    if (Hp, Wp) != (H, W):
+        planes = _edge_pad(planes, 0, Hp - H, 0, Wp - W)
+        ref = _edge_pad(ref, 0, Hp - H, 0, Wp - W)
+        wgt = torch.nn.functional.pad(wgt, (0, Wp - W, 0, Hp - H))
+    src = _tiles_of(planes, ty, tx).contiguous()
+    ref = _tiles_of(ref, ty, tx).contiguous()
+    wgt = _tiles_of(wgt, ty, tx).contiguous()
+    T = ty * tx
+    PT = P * T
+    nby, nbx = Hp // ty // CU32, Wp // tx // CU32
+    qp_c = np.clip(np.repeat(np.asarray(qps, np.int64), T), 0, 51)
+    dq_h = tab.DQ64[qp_c].astype(np.int32)
+    qstep_h = dq_h.astype(np.float32) / np.float32(64.0)
+    tt = lambda a: torch.as_tensor(a, device=d)
+    maxv = tt(np.repeat(np.asarray(maxvals, np.int32), T))
+    lam = tt(tab.LAMBDA[qp_c])
+    qstep = tt(qstep_h)
+    inv_q = tt(np.float32(1.0) / qstep_h)
+    pen = torch.full((PT,), 0.0 if has_ref else 1e30, dtype=torch.float32, device=d)
+    if motion:
+        mv, mvcost = motion_search(src, ref, lam, maxv, CU32)
+        ref = half_pel_mc(ref, mv, maxv, CU32)
+    else:
+        mv = torch.zeros((PT, nby * nbx, 2), dtype=torch.int32, device=d)
+        mvcost = torch.zeros((PT, nby * nbx), dtype=torch.float32, device=d)
+    w32, w16, w8 = block_weights32(wgt, nby, nbx)
+    s32, m32, c32, s16, modes, c16, rec = wavefront_encode32(
+        src, ref, w32, w16, w8, mvcost, qstep, inv_q,
+        lam, pen, tt(dq_h), maxv, nby, nbx)
+    if deblock:
+        rec = _deblock(rec, tt(qp_c.astype(np.int32)), maxv)
+    sao_cls, sao_off = sao_search(src, rec, lam, wgt)
+    rec = sao_apply(rec, sao_cls, sao_off, maxv)
+    rec = _untile(rec, P, ty, tx)[:, :H, :W].contiguous()
+    host = lambda a: a.cpu().numpy()
+    payload = assemble_payload32(
+        H, W, P, qps, maxvals, has_ref, deblock, motion, ty, tx,
+        host(s32), host(m32), host(c32), host(s16), host(modes), host(c16),
+        host(mv.to(torch.int8)), host(sao_cls), host(sao_off))
+    return payload, rec

@@ -7,8 +7,10 @@ codec's stream format is defined by these numbers, so the port keeps them
 identical to the JAX package's.
 
 * Every HEVC angular prediction is a 2-tap linear gather over the (4N+1)
-  reference-sample vector (`angular_taps`); the wavefront decode kernel
-  and its plain PyTorch version both read these tables.
+  reference-sample vector (`angular_taps`); the wavefront kernels and
+  their plain PyTorch versions all read these tables.
+* The encoder's rate-distortion constants (`LAMBDA`, `MODE_BITS`) and the
+  rate term of a quantised level (`rd_bits_table`).
 """
 
 from __future__ import annotations
@@ -111,6 +113,32 @@ def zigzag(n: int) -> np.ndarray:
 # dequantized coefficient level*DQ is an exact int32 (= 64x the real value)
 QP_MAX = 51
 DQ64 = np.round(64.0 * 2.0 ** ((np.arange(QP_MAX + 1) - 4) / 6.0)).astype(np.int32)
+
+# RD lambda ~ HEVC intra: lambda = 0.57 * 2^((qp-12)/3) = 0.0897 * qstep^2
+LAMBDA = (0.09 * (DQ64.astype(np.float64) / 64.0) ** 2).astype(np.float32)
+
+# approximate mode-signalling bins per mode (the encoder's RD rate term)
+MODE_BITS = np.full(N_MODES, 5.0, np.float32)
+MODE_BITS[0] = MODE_BITS[1] = 3.0   # planar/DC: usually MPM-coded
+MODE_BITS[MODE_INTER] = 2.0         # inter flag
+
+LEVEL_MAX = 32767  # quantised level cap of the RDO
+
+
+@functools.lru_cache(maxsize=None)
+def rd_bits_table() -> np.ndarray:
+    """(LEVEL_MAX + 1,) float32: the RD rate term of a quantised level lv,
+    `3 + 2*log2(1 + lv)` for lv > 0 and 0 for lv == 0, as the JAX package's
+    XLA CPU program evaluates it (its log2 is not correctly rounded; the
+    values were recorded by tests/torch_make_encode_tables.py)."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "data" / "rd_bits_xla.npy"
+    t = np.load(path)
+    if t.shape != (LEVEL_MAX + 1,) or t.dtype != np.float32:
+        raise ValueError(f"{path}: expected ({LEVEL_MAX + 1},) float32")
+    return t
+
 
 TC_TAB = np.array(
     [0] * 18
