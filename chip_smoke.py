@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the twelve CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
+2. builds the sixteen CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
    source, all started together) and prints the build seconds;
 
 the decode path (kernels A-D):
@@ -52,7 +52,30 @@ kernel K's apply):
     port decoder's output on them, which step 5 holds exact); and kernels
     I-L to have launched.  It prints the share of 32x32 CUs whose syntax equals
     JAX's, per plane;
-13. prints one JSON line describing the kernels, then the result line.
+
+the attribute path and the whole encoder (kernels M-P; the decode path
+above also runs kernels O and P):
+13. runs `Encoder(cfg, device="cuda").encode_gof` over the 8 bench frames
+    driven by the committed JAX partitions once (warm-up, cold seconds),
+    keeping each kernel's largest call, and holds kernels M (exact match,
+    forward blend, splat and merge on one frame's recolor), N, O and P
+    (paint, group dilation, gather) against their plain versions, exactly,
+    timing both in turns;
+14. decodes the fixture's geometry with the port (JAX's reconstruction
+    rows) and runs the port's recolor -> pre-smoothing -> paint -> fill ->
+    group dilation on it with the regenerated source frames; the md5 of the
+    transferred and pre-smoothed colors and of the final T0/T1 images must
+    equal the JAX encoder's (person_vox10_attr_digests.json) on all frames;
+15. with all launch counters at 0, segments the frames, drives their
+    partitions and runs `encode_gof` again: warm seconds per frame, the
+    stage split, launches (every kernel the encoder runs, B-P, nonzero),
+    the device idle share of one warm P-frame; then requires the port's
+    decoder to decode the stream exactly to the encoder's reconstruction
+    (point counts and md5, all frames), the stream bytes within
+    RD_BYTES_TOL of the fixture's and every attribute plane's occupied-pixel
+    luma PSNR within RD_PSNR_TOL_DB of the JAX encoder's, and prints the
+    bytes per substream beside JAX's;
+16. prints one JSON line describing the kernels, then the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -76,6 +99,7 @@ FIXTURE = DATA / "person_vox10_r3_gof8.vpcc"
 DIGESTS = DATA / "person_vox10_r3_gof8_digests.json"
 FRONT_DIGESTS = DATA / "person_vox10_front_digests.json"
 FRONT_PARTITIONS = DATA / "person_vox10_front_partitions.npz"
+ATTR_DIGESTS = DATA / "person_vox10_attr_digests.json"
 # the floor tests/test_torch_segmentation.py pins for the partition
 # agreement with the JAX package, and the normals' tolerance (the kernel's
 # acosf/cosf against PyTorch's on the card)
@@ -112,10 +136,19 @@ KERNEL_INFO = {
     "sao": ("vpcc_tpu_torch/csrc/sao.cu", "vpcc_tpu/video/hevc.py:216"),
     "push_pull": ("vpcc_tpu_torch/csrc/push_pull.cu",
                   "vpcc_tpu/ops/padding.py:23"),
+    "recolor": ("vpcc_tpu_torch/csrc/recolor.cu", "vpcc_tpu/ops/recolor.py:43"),
+    "presmooth": ("vpcc_tpu_torch/csrc/presmooth.cu",
+                  "vpcc_tpu/ops/smoothing.py:193"),
+    "deblock": ("vpcc_tpu_torch/csrc/deblock.cu", "vpcc_tpu/video/hevc.py:161"),
+    "attr_image": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:209"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
 GEOMETRY_KERNELS = ("wavefront_encode32", "motion_search", "sao", "push_pull")
+ENCODE_KERNELS = ("recolor", "presmooth", "deblock", "attr_image")
+# every kernel the whole encoder runs (kernel A decodes only)
+ENCODER_PATH = ("half_pel_mc", "generate_points", "grid_smooth") + FRONT_KERNELS \
+    + GEOMETRY_KERNELS + ENCODE_KERNELS
 
 
 def frame_digest(positions, colors) -> str:
@@ -293,10 +326,27 @@ def bounds(name, args, out):
         # per sample: 4 classes x (2 differences, 2 signs, sum, compare,
         # 2 accumulations), then the apply's category and offset add
         ops = 40.0 * rec.numel()
-    else:  # push_pull
+    elif name == "push_pull":
         img, occ = args
         byt = nbytes(img, occ, out)
         ops = 0.0
+    elif name in ("recolor", "attr_image"):
+        # each entry's inputs read once and outputs written once (`args` holds
+        # them all; the few flops per row are far below the byte time)
+        byt = nbytes(*args) + nbytes(*out)
+        ops = 0.0
+    elif name == "presmooth":
+        colors, nidx, nd2, q_col = args[:4]
+        byt = nbytes(colors, nidx, nd2, q_col, out) + 65 * 65 * 4
+        # per slot: gate, luma (2 FMAs + 1 mul), histogram add and read,
+        # entropy term, centroid adds (~12 operations)
+        ops = 12.0 * nidx.numel()
+    else:  # deblock
+        rec, qps, maxv = args
+        byt = nbytes(rec, qps, maxv, out)
+        # per sample next to an edge (a quarter of them, two passes): the
+        # delta, its gate and the clamped update (~12 operations)
+        ops = 12.0 * rec.numel() / 2
     t_bytes = byt / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -419,7 +469,8 @@ def decode_phase(dev):
           f"s/frame; all {n_frames} frames match the JAX digests "
           f"(points {[pc.point_count for pc in frames]})")
     print(f"launches on the decode path: {launches}")
-    idle = [k for k in DECODE_KERNELS + ("sao",) if launches.get(k, 0) == 0]
+    idle = [k for k in DECODE_KERNELS + ("sao", "deblock", "attr_image")
+            if launches.get(k, 0) == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the decode path: {idle}")
     return rows, launches
@@ -810,6 +861,281 @@ def geometry_phase(dev, cfg, frames, segs):
     return rows, launches
 
 
+def luma_psnr(coded, decoded, occ) -> float:
+    """Occupied-pixel PSNR of two (H, W) luma planes (peak 255), as the
+    attribute reference data computes it."""
+    import numpy as np
+
+    m = np.asarray(occ) != 0
+    err = np.asarray(coded, np.float64)[m] - np.asarray(decoded, np.float64)[m]
+    mse = float(np.mean(err * err))
+    return float("inf") if mse == 0 else float(10.0 * np.log10(255.0 * 255.0 / mse))
+
+
+def recolor_inputs(recolor, neighbors, args, cfg):
+    """The inputs of kernel M's three entries on one recolor call
+    (`transfer_colors_compact`'s source positions and colors, targets),
+    with its k-NN sweeps (kernel E) run once: (src_col, tgt, order, sorted
+    keys, inexact targets, their k-NN, unmatched sources, their nearest
+    targets)."""
+    src_pos, src_col, tgt = args[:3]
+    bits = cfg.geometryBitDepth3D
+    order, sk = recolor.sorted_source_keys(src_pos, bits)
+    _, has, matched, _ = recolor.exact_match(order, sk, tgt, bits)
+    iidx = torch.nonzero(~has).flatten().to(torch.int32)
+    idx, d2 = neighbors.knn(neighbors.build_grid(src_pos, bits), tgt[iidx.long()].contiguous(),
+                            k=cfg.numNeighborsColorTransferFwd, bucket=6)
+    uidx = torch.nonzero(~matched).flatten().to(torch.int32)
+    tidx, td2 = neighbors.nearest(neighbors.build_grid(tgt, bits),
+                                  src_pos[uidx.long()].contiguous(), bucket=6)
+    return src_col, tgt, order, sk, iidx, idx, d2, uidx, tidx, td2
+
+
+def recolor_entries(recolor, inputs, cfg, plain: bool):
+    """Kernel M's three entries (or their plain versions) on `inputs`
+    (`recolor_inputs`).  Returns their outputs."""
+    src_col, tgt, order, sk, iidx, idx, d2, uidx, tidx, td2 = inputs
+    sfx = "_plain" if plain else ""
+    ex = getattr(recolor, "exact_match" + sfx)(order, sk, tgt, cfg.geometryBitDepth3D)
+    fwd = getattr(recolor, "fwd_blend" + sfx)(src_col, idx, d2, float(cfg.maxGeometryDist2Fwd),
+                                              float(cfg.maxColorDist2Fwd), float(cfg.distOffsetFwd))
+    out = getattr(recolor, "splat_merge" + sfx)(src_col, uidx, tidx, td2, ex[0], ex[1], iidx, fwd,
+                                                float(cfg.maxGeometryDist2Bwd))
+    return (*ex, fwd, out)
+
+
+def attr_entries(pipeline, paint_args, dilate_args, gather_args, plain: bool):
+    """Kernel P's three entries (or their plain versions) on their captured
+    main-path inputs.  Returns their outputs."""
+    sfx = "_plain" if plain else ""
+    planes = getattr(pipeline, "paint_attribute" + sfx)(*paint_args)
+    img0, img1 = getattr(pipeline, "group_dilate" + sfx)(*dilate_args)
+    col = getattr(pipeline, "gather_decoded_colors" + sfx)(*gather_args)
+    return planes, img0, img1, col
+
+
+def encode_phase(dev, cfg, frames, segs):
+    """Steps 13-15: kernels M-P and the whole encoder.  Returns (rows,
+    launches)."""
+    import numpy as np
+
+    from vpcc_tpu_torch import pipeline
+    from vpcc_tpu_torch.apps import profile_encode as prof, profiling
+    from vpcc_tpu_torch.decoder import Decoder
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import neighbors, recolor, smoothing
+    from vpcc_tpu_torch.utils.checksum import array_md5
+    from vpcc_tpu_torch.video import codecs, hevc
+
+    ref = json.loads(ATTR_DIGESTS.read_text())
+    n = len(frames)
+    d = torch.device("cuda")
+
+    # 13. warm-up, capturing each kernel's largest call and, per attribute
+    # plane, the coded and the decoded luma
+    wrappers = {
+        "recolor": (recolor, "transfer_colors_compact"),
+        "presmooth": (smoothing, "presmooth_vote"),
+        "deblock": (hevc, "deblock_planes"),
+        "paint": (pipeline, "paint_attribute"),
+        "dilate": (pipeline, "group_dilate"),
+        "gather": (pipeline, "gather_decoded_colors"),
+    }
+    planes = []
+    real_attr = codecs.AttributeSubstreamEncoder.encode
+
+    def attr_spy(self, attr, *a, weight=None, **kw):
+        out = real_attr(self, attr, *a, weight=weight, **kw)
+        y = hevc._rgb_to_int_planes(torch.as_tensor(attr, device=d))[0]
+        planes.append((len(out[0]), luma_psnr(y.cpu().numpy(), self.refs[0][0].cpu().numpy(),
+                                              weight)))
+        return out
+
+    codecs.AttributeSubstreamEncoder.encode = attr_spy
+    t0 = time.perf_counter()
+    try:
+        with Capture(wrappers) as cap:
+            enc0 = Encoder(cfg, device="cuda")
+            stream0, recon0 = enc0.encode_gof(frames, segs=segs)
+            torch.cuda.synchronize()
+    finally:
+        codecs.AttributeSubstreamEncoder.encode = real_attr
+    cold = time.perf_counter() - t0
+    print(f"cold encode: {cold:.2f}s for {n} frames = {cold / n:.4f} s/frame; stream "
+          f"{len(stream0)} bytes")
+    missing = sorted(set(wrappers) - set(cap.calls))
+    if missing:
+        raise AssertionError(f"kernels never called on the encode path: {missing}")
+
+    # kernels M-P == their plain versions, timed in turns
+    _, rc_args, _ = cap.calls["recolor"]
+    _, ps_args, _ = cap.calls["presmooth"]
+    _, db_args, _ = cap.calls["deblock"]
+    p_args, g_args, c_args = (cap.calls[k][1] for k in ("paint", "dilate", "gather"))
+    m_in = recolor_inputs(recolor, neighbors, rc_args, cfg)
+    checks = {
+        "recolor": (lambda: recolor_entries(recolor, m_in, cfg, plain=False),
+                    lambda: recolor_entries(recolor, m_in, cfg, plain=True), m_in),
+        "presmooth": (lambda: smoothing.presmooth_vote(*ps_args),
+                      lambda: smoothing.presmooth_vote_plain(*ps_args), ps_args),
+        "deblock": (lambda: hevc.deblock_planes(*db_args),
+                    lambda: hevc.deblock_planes_plain(*db_args), db_args),
+        "attr_image": (lambda: attr_entries(pipeline, p_args, g_args, c_args, False),
+                       lambda: attr_entries(pipeline, p_args, g_args, c_args, True),
+                       None),
+    }
+    rows = {}
+    for name in ENCODE_KERNELS:
+        kern, plain, args = checks[name]
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(tuple(out_k), tuple(out_p)) if isinstance(out_k, tuple) \
+            else max_abs_err(out_k, out_p)
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain version "
+                                 f"(max abs err {err})")
+        (k1, k2), (p1, p2) = time_turns(kern, plain)
+        lib = None
+        if name == "recolor":
+            shapes = [tuple(a.shape) for a in rc_args[:3]]
+        elif name == "attr_image":
+            args = tuple(a for a in (*p_args, *g_args, *c_args) if torch.is_tensor(a))
+            shapes = [tuple(a.shape) for a in args]
+            lib = attr_library_ms(p_args, c_args)
+        else:
+            shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        b_ms, b_by = bounds(name, args, out_k)
+        lib_txt = "" if lib is None else f", library {lib:.4f} ms"
+        print(f"{name}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}){lib_txt}; "
+              f"inputs {shapes}")
+        rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                          bound_by=b_by, max_abs_err=err, library_ms=lib)
+
+    # 14. the attribute path on JAX's reconstruction rows
+    recons = []
+    real_rf = pipeline.reconstruct_frame
+
+    def rf_spy(*a, **kw):
+        out = real_rf(*a, **kw)
+        recons.append(out)
+        return out
+
+    pipeline.reconstruct_frame = rf_spy
+    try:
+        Decoder(device="cuda").decode(FIXTURE.read_bytes())
+    finally:
+        pipeline.reconstruct_frame = real_rf
+    bits = cfg.geometryBitDepth3D
+    bad = []
+    for i, (f, r, rec, e) in enumerate(zip(frames, ref["frames"], recons, enc0.last_encoded)):
+        sp = torch.as_tensor(np.asarray(f.positions, np.int32), device=d)
+        sc = torch.as_tensor(np.asarray(f.colors, np.uint8), device=d)
+        col, _ = recolor.transfer_colors_compact(
+            sp, sc, rec.pos, grid_bits=bits, k=cfg.numNeighborsColorTransferFwd,
+            k_bwd=cfg.numNeighborsColorTransferBwd, max_geom_d2_fwd=cfg.maxGeometryDist2Fwd,
+            max_geom_d2_bwd=cfg.maxGeometryDist2Bwd, max_color_d2_fwd=cfg.maxColorDist2Fwd,
+            dist_offset_fwd=cfg.distOffsetFwd)
+        got = {"points": int(rec.pos.shape[0]),
+               "transfer_md5": array_md5(col.cpu().numpy(), "<i4")}
+        col = smoothing.presmooth_colors(
+            rec.pos, col, rec.bnd, bits, k=int(cfg.neighborCountColorPreSmoothing),
+            radius2=float(cfg.radius2ColorPreSmoothing),
+            thr_dist=float(cfg.thresholdColorPreSmoothing),
+            thr_entropy=float(cfg.thresholdColorPreSmoothingLocalEntropy))
+        got["presmooth_md5"] = array_md5(col.cpu().numpy(), "<i4")
+        fr = e.geometry.front
+        img0, img1 = enc0.attribute_images(rec, col, fr.frame.occupancy, fr.height, fr.width)
+        got["t0_md5"] = array_md5(img0.cpu().numpy(), np.uint8)
+        got["t1_md5"] = array_md5(img1.cpu().numpy(), np.uint8)
+        bad += [f"frame {i} {k}" for k in got if got[k] != r[k]]
+    if bad:
+        raise AssertionError(f"attribute path on JAX's reconstruction differs: {bad}")
+    print(f"attribute path on JAX's reconstruction: transferred and pre-smoothed colors, T0 and "
+          f"T1 equal the JAX digests on all {n} frames (points "
+          f"{[r['points'] for r in ref['frames']]}, pre-smoothing replaced "
+          f"{[r['replaced'] for r in ref['frames']]})")
+
+    # 15. the main path, counted and timed
+    ref_parts = np.load(FRONT_PARTITIONS)
+    enc = Encoder(cfg, device="cuda")
+    dev.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segs1 = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
+        ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
+    stream, recon = enc.encode_gof(frames, segs=segs1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(dev.LAUNCHES)
+    split = {f: sum(getattr(s, f) for s in enc.stats) / n
+             for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s", "video_s",
+                       "reconstruct_s", "recolor_s")}
+    print(f"warm encode: {dt:.3f}s for {n} frames = {dt / n:.4f} s/frame; per frame "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"launches on the encode path: {launches}")
+    idle = [k for k in ENCODER_PATH if launches.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the encode path: {idle}")
+    if stream != stream0:
+        raise AssertionError("the warm encode's stream differs from the cold one's")
+    profiling.print_trace(*prof.trace_p_frame(enc, frames, enc.last_encoded, segs1),
+                          "one warm P-frame of the whole encoder (frame 1, JAX partitions)",
+                          top=16)
+
+    # the stream decodes to the encoder's reconstruction; RD against JAX
+    dec = Decoder(device="cuda").decode(stream)
+    if len(dec) != n:
+        raise AssertionError(f"decoded {len(dec)} frames, expected {n}")
+    for i, (a, b) in enumerate(zip(dec, recon)):
+        if a.point_count != b.point_count or frame_digest(a.positions, a.colors) != \
+                frame_digest(b.positions, b.colors):
+            raise AssertionError(f"frame {i}: the decoded stream differs from the encoder's "
+                                 "reconstruction")
+        if not np.all(np.isfinite(b.positions)) or b.colors.shape != b.positions.shape:
+            raise AssertionError(f"frame {i}: malformed reconstruction")
+    print(f"the port's stream decodes exactly to the encoder's reconstruction on all {n} "
+          f"frames (points {[b.point_count for b in recon]})")
+    d_bytes = len(stream) / ref["stream_bytes"] - 1.0
+    worst, rows_rd = 0.0, []
+    for i, r in enumerate(ref["frames"]):
+        for k, jp in enumerate(r["planes"]):
+            pb, ps = planes[2 * i + k]
+            worst = max(worst, abs(ps - jp["y_psnr"]))
+            rows_rd.append(f"f{i}T{k} {pb}/{jp['bytes']} B {ps:.4f}/{jp['y_psnr']:.4f} dB")
+    print("per attribute plane (port/JAX bytes, occupied luma PSNR): " + "; ".join(rows_rd))
+    print("bytes per substream (port/JAX): " + ", ".join(
+        f"{k} {enc.last_stream_stats.get(k)}/{v}" for k, v in ref["stream_stats"].items()))
+    print(f"RD against the JAX encoder: stream {len(stream)} vs {ref['stream_bytes']} bytes "
+          f"({100 * d_bytes:+.4f} %), worst attribute plane luma PSNR delta {worst:.4f} dB; "
+          f"stream byte-identical to the fixture: {stream == FIXTURE.read_bytes()}")
+    if abs(d_bytes) > RD_BYTES_TOL or worst > RD_PSNR_TOL_DB:
+        raise AssertionError(f"RD gate: bytes {100 * d_bytes:+.3f} % (limit "
+                             f"{100 * RD_BYTES_TOL} %), PSNR delta {worst:.3f} dB "
+                             f"(limit {RD_PSNR_TOL_DB})")
+    return rows, launches
+
+
+def attr_library_ms(paint_args, gather_args) -> float:
+    """One PyTorch call each for what kernel P's paint and gather compute:
+    `index_put_` of the colors into the stacked layer images, and advanced
+    indexing of the images at the points' pixels (timed here, used nowhere
+    in the port)."""
+    pix, layer, col, h, w = paint_args
+    keep = (layer == 0) | (layer == 1)
+    flat = (layer[keep].long() * h + pix[keep, 1].long()) * w + pix[keep, 0].long()
+    vals = col[keep].clamp(0, 255).to(torch.int32)
+    img = torch.zeros((2 * h * w, 3), dtype=torch.int32, device=col.device)
+    gpix, glayer, a0, a1 = gather_args
+    stacked = torch.stack([a0, a1])
+    gl = (glayer == 1).long()
+    gy, gx = gpix[:, 1].long(), gpix[:, 0].long()
+    t_put = time_ms(lambda: img.index_put_((flat,), vals), 20)
+    t_get = time_ms(lambda: stacked[gl, gy, gx], 20)
+    print(f"attr_image library: index_put_ {t_put:.4f} ms, advanced indexing {t_get:.4f} ms")
+    return t_put + t_get
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -837,11 +1163,14 @@ def main() -> int:
     rows, launches = decode_phase(dev)
     front_rows, front_launches, (cfg, frames, segs) = front_phase(dev)
     geo_rows, geo_launches = geometry_phase(dev, cfg, frames, segs)
+    enc_rows, enc_launches = encode_phase(dev, cfg, frames, segs)
     rows.update(front_rows)
     rows.update(geo_rows)
+    rows.update(enc_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
-                **{k: geo_launches[k] for k in GEOMETRY_KERNELS}}
+                **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
+                **{k: enc_launches[k] for k in ENCODE_KERNELS}}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
@@ -850,7 +1179,7 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None,
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
         ))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -29,6 +29,17 @@ ROOT = Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "vpcc_tpu_torch" / "data" / "person_vox10_r3_gof8.vpcc"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain kernel versions run many small tensor ops; with several
+    test workers on the machine, intra-op threads only contend, so this
+    module runs them on one thread (restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def small_cfg(**kw):
     cfg = JCfg()
     cfg.geometry3dCoordinatesBitdepth = 7

@@ -8,6 +8,8 @@ decoder's positions and colors exactly, in order, frame by frame.
 """
 
 import numpy as np
+import pytest
+import torch
 
 from vpcc_tpu.decoder import Decoder as JaxDecoder
 from vpcc_tpu.encoder import Encoder
@@ -18,6 +20,17 @@ from vpcc_tpu_torch.bitstream import v3c
 from vpcc_tpu_torch.bitstream.bitio import BitReader
 from vpcc_tpu_torch.decoder import Decoder
 from vpcc_tpu_torch.video import hevc
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain kernel versions run many small tensor ops; with several
+    test workers on the machine, intra-op threads only contend, so this
+    module runs them on one thread (restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_random_access_gof_matches_reference():

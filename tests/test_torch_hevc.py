@@ -127,7 +127,7 @@ def test_deblock_and_sao_apply(qp, maxval):
     qps = np.full(P, qp, np.int32)
     maxv = np.full(P, maxval, np.int32)
     want = np.asarray(jh._deblock(jnp.asarray(rec), jnp.asarray(qps), jnp.asarray(maxv)))
-    got = th._deblock(torch.as_tensor(rec), torch.as_tensor(qps), torch.as_tensor(maxv))
+    got = th.deblock_planes(torch.as_tensor(rec), torch.as_tensor(qps), torch.as_tensor(maxv))
     np.testing.assert_array_equal(got.numpy(), want)
     cls = rng.integers(0, 5, (P, H // 32, W // 32)).astype(np.int32)
     off = rng.integers(-7, 8, (P, H // 32, W // 32, 4)).astype(np.int32)

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from vpcc_tpu_torch import device as dev
-from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, reconstruct, segmentation, smoothing
+from vpcc_tpu_torch import device as dev, pipeline
+from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, padding, recolor, reconstruct
+from vpcc_tpu_torch.ops import segmentation, smoothing
 from vpcc_tpu_torch.video import hevc
 from vpcc_tpu_torch.video import hevc_tables as tab
 
@@ -333,3 +334,93 @@ def test_encode_planes_on_the_card(cuda, motion):
     assert pay_g == pay_c
     _same(rec_g, rec_c)
     _same(hevc.decode_planes(pay_g, refs=torch.as_tensor(ref, device=cuda)), rec_g)
+
+
+def _recolor_inputs(rng, cuda):
+    """A 7-bit cloud of unique positions; the targets are 70 % of them and
+    jittered copies, so that exact and inexact targets and unmatched
+    sources all occur."""
+    keys = rng.choice(1 << 21, 30000, replace=False)
+    sp = np.stack([keys >> 14, (keys >> 7) & 127, keys & 127], 1).astype(np.int32)
+    sc = rng.integers(0, 256, sp.shape).astype(np.uint8)
+    pick = rng.permutation(len(sp))[:21000]
+    tp = sp[pick].copy()
+    tp[::3] = np.clip(tp[::3] + rng.integers(-2, 3, tp[::3].shape), 0, 127)
+    return (torch.as_tensor(sp, device=cuda), torch.as_tensor(sc, device=cuda),
+            torch.as_tensor(tp, device=cuda))
+
+
+@pytest.mark.parametrize("k_bwd", [1, 0])
+def test_recolor_kernel(cuda, k_bwd):
+    """Kernel M's three entries against their plain versions on the same
+    k-NN results, and the whole transfer on the card against the CPU's."""
+    rng = np.random.default_rng(40 + k_bwd)
+    sp, sc, tp = _recolor_inputs(rng, cuda)
+    order, sk = recolor.sorted_source_keys(sp, 7)
+    got = recolor.exact_match(order, sk, tp, 7)
+    want = recolor.exact_match_plain(order, sk, tp, 7)
+    for a, b in zip(got, want):
+        _same(a, b)
+    _, has, matched, counts = got
+    iidx = torch.nonzero(~has).flatten().to(torch.int32)
+    idx, d2 = neighbors.knn(neighbors.build_grid(sp, 7), tp[iidx.long()].contiguous(), k=8, bucket=6)
+    fwd = recolor.fwd_blend(sc, idx, d2, 30.0, 2000.0, 4.0)
+    _same(fwd, recolor.fwd_blend_plain(sc, idx, d2, 30.0, 2000.0, 4.0))
+    uidx = torch.nonzero(~matched).flatten().to(torch.int32)
+    tidx, td2 = neighbors.nearest(neighbors.build_grid(tp, 7), sp[uidx.long()].contiguous(), bucket=6)
+    args = (sc, uidx, tidx, td2, got[0], has, iidx, fwd, 3.0)
+    _same(recolor.splat_merge(*args), recolor.splat_merge_plain(*args))
+    kw = dict(grid_bits=7, k=8, k_bwd=k_bwd)
+    card, _ = recolor.transfer_colors_compact(sp, sc, tp, **kw)
+    host, _ = recolor.transfer_colors_compact(sp.cpu(), sc.cpu(), tp.cpu(), **kw)
+    _same(card, host)
+
+
+def test_presmooth_kernel(cuda):
+    rng = np.random.default_rng(50)
+    keys = rng.choice(1 << 18, 20000, replace=False)
+    pos = np.stack([keys >> 12, (keys >> 6) & 63, keys & 63], 1).astype(np.int32)
+    col = ((pos // 8) * np.array([37, 91, 53]) % 256).astype(np.int32)
+    noisy = rng.random(len(pos)) < 0.2
+    col[noisy] = rng.integers(0, 256, (int(noisy.sum()), 3))
+    bnd = torch.as_tensor(rng.random(len(pos)) < 0.5, device=cuda)
+    p, c = torch.as_tensor(pos, device=cuda), torch.as_tensor(col, device=cuda)
+    bidx = torch.nonzero(bnd).flatten()
+    nidx, nd2 = neighbors.knn(neighbors.build_grid(p, 6), p[bidx].contiguous(), k=64, bucket=6)
+    args = (c, nidx, nd2, c[bidx].contiguous(), 64.0, 10.0, 3.0)
+    got = smoothing.presmooth_vote(*args)
+    _same(got, smoothing.presmooth_vote_plain(*args))
+    assert (got != c[bidx]).any(1).any() and (got == c[bidx]).all(1).any()
+
+
+@pytest.mark.parametrize("P", [1, 3])
+def test_deblock_kernel(cuda, P):
+    rng = np.random.default_rng(60 + P)
+    rec = rng.integers(0, 256, (P, 64, 96)).astype(np.int32)
+    rec[:, :, 40:] //= 5
+    qps = torch.as_tensor(np.array([22, 37, 51][:P], np.int32), device=cuda)
+    maxv = torch.full((P,), 255, dtype=torch.int32, device=cuda)
+    r = torch.as_tensor(rec, device=cuda)
+    _same(hevc.deblock_planes(r, qps, maxv), hevc.deblock_planes_plain(r, qps, maxv))
+
+
+def test_attr_image_kernel(cuda):
+    """Paint (with duplicate (pixel, layer) rows: the highest row wins on
+    both), fill, group dilation and gather."""
+    rng = np.random.default_rng(70)
+    H, W, n = 96, 128, 9000
+    flat = rng.integers(0, H * W, n)
+    pix = torch.as_tensor(np.stack([flat % W, flat // W], 1).astype(np.int32), device=cuda)
+    layer = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32), device=cuda)
+    col = torch.as_tensor(rng.integers(-10, 266, (n, 3)).astype(np.int32), device=cuda)
+    got = pipeline.paint_attribute(pix, layer, col, H, W)
+    _same(got, pipeline.paint_attribute_plain(pix, layer, col, H, W))
+    occ = torch.as_tensor((rng.random((H, W)) < 0.5).astype(np.uint8), device=cuda)
+    filled = padding.fill_rgb(got, occ)
+    d_k = pipeline.group_dilate(filled, occ)
+    d_p = pipeline.group_dilate_plain(filled, occ)
+    _same(d_k[0], d_p[0])
+    _same(d_k[1], d_p[1])
+    a0, a1 = d_k[0].to(torch.uint8), d_k[1].to(torch.uint8)
+    _same(pipeline.gather_decoded_colors(pix, layer, a0, a1),
+          pipeline.gather_decoded_colors_plain(pix, layer, a0, a1))

@@ -1,5 +1,5 @@
 """vpcc_tpu_torch — V-PCC on PyTorch with hand-written CUDA kernels: the
-decoder and the encoder front end.
+decoder and the encoder.
 
 A port of the `vpcc_tpu` package (JAX) to PyTorch on an NVIDIA H100.  It
 imports neither JAX nor `vpcc_tpu`: host code it needs is copied here.  The
@@ -8,17 +8,19 @@ JAX package stays the reference the port is tested against.
 Layout (mirrors vpcc_tpu/):
     device.py   device policy, CUDA kernel build/load, launch counters
     csrc/       CUDA C++ kernels (built with nvcc for sm_90a at first use)
-    bitstream/  V3C high-level syntax reader + bit I/O
-    video/      host entropy decode (ctypes), wavefront video decoder,
-                color conversion, substream decoders
+    bitstream/  V3C high-level syntax reader and writer + bit I/O
+    video/      host entropy coding (ctypes), wavefront video encoder and
+                decoder, color conversion, substream encoders and decoders
     core/       patch data model and patch building, packing, atlas frames,
                 block-to-patch
     ops/        voxelize, grid k-NN, normals, segmentation, connected
-                components, coverage, point reconstruction, grid smoothing
+                components, coverage, point reconstruction, grid and color
+                pre-smoothing, push-pull fill, recolor
     pipeline.py the reconstruction seam (points, smoothing, color gather)
+                and the attribute images (paint, group dilation)
     decoder.py  `Decoder.decode` — V3C stream -> point clouds
-    encoder.py  `Encoder.encode_gof_front` — point clouds -> patches and
-                atlas frames (the encoder up to its video stages)
+    encoder.py  `Encoder.encode_gof` — point clouds -> V3C stream and the
+                encoder-side reconstructions (its stages are public too)
     carry.py    state carried across frames (config, reference planes,
                 a tree parent's patch list, the GOF height ratchet)
     apps/       CLI drivers

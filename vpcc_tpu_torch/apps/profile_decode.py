@@ -40,13 +40,13 @@ def _stage_patches():
         (atlas, "derive_block_to_patch", "host: block-to-patch"),
         (hevc, "half_pel_mc", "device: kernel B half_pel_mc"),
         (hevc, "wavefront_decode32", "device: kernel A wavefront_decode32"),
-        (hevc, "_deblock", "device: deblock (torch)"),
+        (hevc, "deblock_planes", "device: kernel O deblock"),
         (hevc, "sao_apply", "device: kernel K sao_apply"),
         (hevc, "_int_planes_to_rgb", "device: YCbCr->RGB (torch)"),
         (hevc, "rgb_refs", "device: RGB->YCbCr refs (torch)"),
         (reconstruct, "generate_points", "device: kernel C generate_points"),
         (smoothing, "grid_smooth", "device: kernel D grid_smooth"),
-        (pipeline, "gather_decoded_colors", "device: color gather (torch)"),
+        (pipeline, "gather_decoded_colors", "device: kernel P gather"),
         (pipeline, "download_recon",
          "device->host: download, incl. duplicate removal"),
         (pipeline, "first_unique_rows", NESTED + "duplicate removal (torch)"),

@@ -12,7 +12,11 @@ What the encoder carries is each tree parent's patch list (a P-frame
 matches its patches against it and reuses their placements), the GOF's
 height ratchet, and on the geometry side each substream encoder's last
 decoded plane (`GeometrySubstreamEncoder.ref`) and the bank of tree
-parents' decoded D0 planes (`geo_bank`, frame index -> (H, W) int32).
+parents' decoded D0 planes (`geo_bank`, frame index -> (H, W) int32); on
+the attribute side each substream encoder's last decoded planes
+(`AttributeSubstreamEncoder.refs`, (y (1, H, W), cbcr (2, H/2, W/2))
+int32) and the bank of tree parents' decoded T0 planes (`attr_bank`, frame
+index -> such a pair).
 
 These helpers build them from plain Python / numpy values, e.g. state saved
 by the JAX package (`dataclasses.asdict(VPCCConfig)`, `np.asarray(plane)`,
@@ -93,3 +97,20 @@ def geo_bank_from_numpy(bank: dict, device=None) -> dict:
     int32 tensors on the port's device: a P-frame's temporal reference for
     `Encoder.encode_frame_geometry` (`temporal_refs={"geo": bank[parent]}`)."""
     return {int(k): refs_from_numpy(v, device) for k, v in bank.items()}
+
+
+def seed_attribute_streams(streams: dict, refs: dict, device=None) -> dict:
+    """Set each attribute substream encoder's last decoded planes
+    (`streams[name].refs`) from numpy, e.g. the JAX encoder's
+    `streams["attr0"].refs`; `refs` maps stream names to (y, cbcr) pairs.
+    Returns `streams`."""
+    for name, planes in refs.items():
+        streams[name].refs = refs_from_numpy(tuple(planes), device)
+    return streams
+
+
+def attr_bank_from_numpy(bank: dict, device=None) -> dict:
+    """The reference's decoded-T0 bank (frame index -> (y, cbcr)) as int32
+    tensors on the port's device: a P-frame's temporal reference for
+    `Encoder.encode_frame` (`temporal_refs={"attr": bank[parent], ...}`)."""
+    return {int(k): refs_from_numpy(tuple(v), device) for k, v in bank.items()}

@@ -64,6 +64,10 @@ KERNELS: Dict[str, list] = {
     "motion_search": ["--fmad=false"],
     "sao": ["--fmad=false"],
     "push_pull": ["--fmad=false"],
+    "recolor": ["--fmad=false"],
+    "presmooth": ["--fmad=false"],
+    "deblock": [],
+    "attr_image": [],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -1,20 +1,25 @@
-"""V-PCC encoder (the PCCEncoder equivalent), PyTorch port: the front end
-and the geometry video.
+"""V-PCC encoder (the PCCEncoder equivalent), PyTorch port.
 
 Behavioral reference: `PCCEncoder::encode`
 (source/lib/PccLibEncoder/source/PCCEncoder.cpp:71-730) as the JAX package
-implements it (vpcc_tpu/encoder.py).  The port has
+implements it (vpcc_tpu/encoder.py, `encode_gof` with mesh=None).  Per
+frame:
 * the front end, from a source frame to the atlas frame: voxelize -> grid
   k-NN (kernel E) -> normals and segmentation (kernel F) -> patch rounds of
   connected components (kernel G) and coverage (kernel H) -> packing ->
   rasterization, occupancy video and block-to-patch;
-* the geometry half of the video stage: the occupancy payload (host), the
-  D0/D1 geometry substreams (push-pull fill, kernel L; motion search,
-  kernel J; wavefront RDO encode, kernel I; SAO, kernel K; host entropy
-  coding) and the encoder-side reconstruction with grid smoothing
-  (kernels C and D),
-over the GOF's hierarchical coding structure.  Recolor, the attribute
-video and the mux are not ported yet (ROADMAP queue 1, slice 4).
+* the geometry video: the occupancy payload (host), the D0/D1 geometry
+  substreams (push-pull fill, kernel L; motion search, kernel J; wavefront
+  RDO encode, kernel I; SAO, kernel K; host entropy coding) and the
+  encoder-side reconstruction with grid smoothing (kernels C and D);
+* recolor (exact match, forward blend, backward splat: kernel M over
+  kernel E's sweeps) and color pre-smoothing (kernel N);
+* the attribute video: paint the two layers (kernel P), push-pull fill
+  (kernel L), group dilation (kernel P), T0/T1 through the attribute
+  substream encoders (kernels J, B, I, O, K), then the encoder-side colors
+  gathered from the decoded layers (kernel P);
+then `_mux_gof` writes the V3C sample stream on the host, over the GOF's
+hierarchical coding structure.
 
 Tools that are off by default and not ported raise NotImplementedError;
 the port never computes something else in their place.
@@ -24,17 +29,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vpcc_tpu_torch import device as dev, pipeline
+from vpcc_tpu_torch import conformance, device as dev, pipeline
+from vpcc_tpu_torch.bitstream import v3c
+from vpcc_tpu_torch.bitstream.bitio import BitWriter
 from vpcc_tpu_torch.core import atlas as atlas_mod
 from vpcc_tpu_torch.core import packing
 from vpcc_tpu_torch.core.patch import Patch, build_patch_from_component
 from vpcc_tpu_torch.ops import cc as cc_mod
-from vpcc_tpu_torch.ops import coverage, neighbors, voxelize
+from vpcc_tpu_torch.ops import coverage, neighbors, padding, recolor, voxelize
+from vpcc_tpu_torch.ops import smoothing as smoothing_mod
 from vpcc_tpu_torch.ops import normals as normals_mod
 from vpcc_tpu_torch.ops.reconstruct import Points
 from vpcc_tpu_torch.ops.segmentation import (
@@ -58,10 +66,13 @@ class EncoderStats:
     packing_s: float = 0.0     # packing + rasterization
     occupancy_s: float = 0.0   # occupancy video + block-to-patch
     video_s: float = 0.0       # occupancy payload + geometry substreams
+                               # (+ the attribute video and download)
     reconstruct_s: float = 0.0  # point reconstruction + grid smoothing
+    recolor_s: float = 0.0     # color transfer + pre-smoothing
     total_s: float = 0.0
     point_count: int = 0
     patch_count: int = 0
+    compressed_bytes: int = 0  # the GOF stream's bytes / frames
 
 
 @dataclasses.dataclass
@@ -107,13 +118,36 @@ class GeometryFrame:
         return self.front.stats
 
 
+@dataclasses.dataclass
+class EncodedFrame:
+    """One frame through the whole encoder (the reference's `EncodedFrame`
+    on the default path), plus its device-side geometry stage and T0's
+    decoded reference planes (a later P-frame's temporal reference)."""
+
+    patches: List[Patch]
+    width: int
+    height: int
+    occupancy_payload: bytes
+    geometry_payloads: List[bytes]   # D0, D1
+    attribute_payloads: List[bytes]  # T0, T1
+    recon: PointCloudData            # encoder-side reconstruction
+    geometry: GeometryFrame
+    attr_refs: tuple                 # T0's decoded (y, cbcr) int32 planes
+
+    @property
+    def stats(self) -> EncoderStats:
+        return self.geometry.stats
+
+
 def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1, item 10: off-main-path tools)")
 
 
 class Encoder:
-    """`Encoder(cfg, device=None)`: the encoder front end.
+    """`Encoder(cfg, device=None)`: `encode_gof(frames)` -> (V3C sample
+    stream, reconstructed frames); its stages are public too
+    (`encode_gof_front`, `encode_gof_geometry`, `encode_frame`).
 
     device None means CUDA, and raises when no card is present; pass
     device="cpu" to run the plain PyTorch versions of the kernels."""
@@ -372,10 +406,12 @@ class Encoder:
 
     # ------------------------------------------------------------------
     def _new_streams(self) -> dict:
-        """The geometry substream encoders (attribute streams come with the
-        attribute video, ROADMAP slice 4)."""
-        return {name: codecs.GeometrySubstreamEncoder(self.cfg, self.device)
-                for name in ("geo0", "geo1")}
+        """The substream encoders of a GOF: geometry D0/D1, attribute T0/T1."""
+        d = self.device
+        streams = {name: codecs.GeometrySubstreamEncoder(self.cfg, d) for name in ("geo0", "geo1")}
+        streams.update({name: codecs.AttributeSubstreamEncoder(self.cfg, d)
+                        for name in ("attr0", "attr1")})
+        return streams
 
     def encode_frame_geometry(self, pc_host: PointCloudData, streams: dict,
                               prev_patches: Optional[List[Patch]] = None,
@@ -415,32 +451,293 @@ class Encoder:
         st.total_s += st.video_s + st.reconstruct_s
         return GeometryFrame(fr, occ_payload, geo_payloads, geo_dec, recon)
 
-    def encode_gof_geometry(self, frames: List[PointCloudData],
-                            segs: Optional[List[Segmentation]] = None) -> List[GeometryFrame]:
-        """The reference's `encode_gof` loop (encoder.py:959-1001) through
-        the geometry video: each P-frame packs against its tree parent's
-        patches and predicts D0 from the parent's decoded D0 (the `geo_bank`,
-        pruned as the tree consumes it) under the geometry QP cascade
-        min(qp_offset, geometryQpCascadeCap).  `segs` optionally gives
-        each frame's segmentation."""
+    def _check_attribute_path(self, pc_host: PointCloudData) -> None:
+        cfg = self.cfg
+        if getattr(pc_host, "reflectances", None) is not None:
+            raise _unsupported("the reflectance attribute")
+        if cfg.flagColorSmoothing:
+            raise _unsupported("color smoothing (flagColorSmoothing)")
+        if int(cfg.attributeBGFill) != 1:
+            raise _unsupported(f"attributeBGFill={cfg.attributeBGFill} (dilate / harmonic fill)")
+        if cfg.geometryBitDepth3D > 10:
+            raise _unsupported("recolor above 10-bit geometry (transfer_colors / _blend)")
+        if cfg.attributeQP <= 4:
+            raise _unsupported("lossless attributes (attributeQP <= 4)")
+
+    def recolor(self, src_pos: torch.Tensor, src_colors, recon: Points) -> torch.Tensor:
+        """(N, 3) int32 colors of the reconstructed points (reference
+        encoder.py:650-711): color transfer from the source points (kernel
+        M over kernel E), then, under flagColorPreSmoothing on a lossy
+        attribute path, pre-smoothing of the boundary points (kernel N)."""
+        cfg = self.cfg
+        bits = cfg.geometryBitDepth3D
+        sc = (torch.zeros_like(src_pos, dtype=torch.uint8) if src_colors is None else
+              torch.as_tensor(np.asarray(src_colors, np.uint8), device=src_pos.device))
+        col, _ = recolor.transfer_colors_compact(
+            src_pos, sc, recon.pos, grid_bits=bits,
+            k=cfg.numNeighborsColorTransferFwd, k_bwd=cfg.numNeighborsColorTransferBwd,
+            max_geom_d2_fwd=cfg.maxGeometryDist2Fwd, max_geom_d2_bwd=cfg.maxGeometryDist2Bwd,
+            max_color_d2_fwd=cfg.maxColorDist2Fwd, dist_offset_fwd=cfg.distOffsetFwd)
+        if cfg.flagColorPreSmoothing and cfg.attributeQP > 4 and not cfg.rawPointsPatch:
+            col = smoothing_mod.presmooth_colors(
+                recon.pos, col, recon.bnd, bits, k=int(cfg.neighborCountColorPreSmoothing),
+                radius2=float(cfg.radius2ColorPreSmoothing),
+                thr_dist=float(cfg.thresholdColorPreSmoothing),
+                thr_entropy=float(cfg.thresholdColorPreSmoothingLocalEntropy))
+        return col
+
+    def attribute_images(self, recon: Points, colors: torch.Tensor, occupancy,
+                         height: int, width: int):
+        """The two (H, W, 3) int32 attribute images the video codes
+        (reference encoder.py:736-754): paint the colors into both layers
+        (kernel P), push-pull fill every channel under the atlas occupancy
+        (kernel L), then group dilation (kernel P)."""
+        occ = torch.as_tensor(np.ascontiguousarray(occupancy, np.uint8), device=self.device)
+        planes = pipeline.paint_attribute(recon.pix, recon.layer, colors, height, width)
+        planes = padding.fill_rgb(planes, occ)
+        if self.cfg.groupDilation:
+            return pipeline.group_dilate(planes, occ)
+        return tuple(p.permute(1, 2, 0).contiguous() for p in planes)
+
+    def encode_frame(self, pc_host: PointCloudData, streams: dict,
+                     prev_patches: Optional[List[Patch]] = None,
+                     seg: Optional[Segmentation] = None,
+                     temporal_refs: Optional[dict] = None,
+                     qp_offset: int = 0,
+                     qp_offset_geo: Optional[int] = None) -> EncodedFrame:
+        """The reference's `encode_frame` (encoder.py:442-846) on its default
+        branch: the geometry stages (`encode_frame_geometry`), recolor and
+        pre-smoothing, the attribute images, T0 and T1 (T1 predicted from
+        the decoded T0; T0 from `temporal_refs["attr"]` when given, None
+        forcing intra; QP cascade `qp_offset`, uncapped), the decoded colors
+        of the points and the duplicate-free encoder-side reconstruction."""
+        cfg = self.cfg
+        self._check_attribute_path(pc_host)
+        if qp_offset_geo is None:
+            qp_offset_geo = qp_offset
+        t0 = time.perf_counter()
+        if seg is None:
+            seg = self.segment_dispatch(pc_host)
+        t_seg = time.perf_counter() - t0
+        g = self.encode_frame_geometry(pc_host, streams, prev_patches=prev_patches, seg=seg,
+                                       temporal_refs=temporal_refs, qp_offset_geo=qp_offset_geo)
+        st = g.stats
+        st.segmentation_s += t_seg
+        fr = g.front
+
+        t = time.perf_counter()
+        col = self.recolor(seg.positions, pc_host.colors, g.recon)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        st.recolor_s = time.perf_counter() - t
+
+        t = time.perf_counter()
+        imgs = self.attribute_images(g.recon, col, fr.frame.occupancy, fr.height, fr.width)
+        payloads, dec = [], []
+        for ly, img in enumerate(imgs):
+            kw = {}
+            if temporal_refs is not None and not dec:
+                kw["temporal_ref"] = temporal_refs.get("attr")
+            payload, rgb = streams[f"attr{ly}"].encode(
+                img, layer_ref=dec[0] if dec else None, weight=fr.occ_rec,
+                qp_offset=qp_offset, **kw)
+            payloads.append(payload)
+            dec.append(rgb)
+        col_dec = pipeline.gather_decoded_colors(g.recon.pix, g.recon.layer, dec[0], dec[-1])
+        pos, col8 = pipeline.download_recon(g.recon, col_dec, cfg.geometryBitDepth3D,
+                                            remove_duplicates=bool(cfg.removeDuplicatePoints))
+        st.video_s += time.perf_counter() - t
+        st.total_s += t_seg + st.recolor_s + time.perf_counter() - t
+        return EncodedFrame(fr.patches, fr.width, fr.height, g.occ_payload, g.geo_payloads,
+                            payloads, PointCloudData(pos, col8), g, streams["attr0"].refs)
+
+    def _gof_loop(self, frames, segs, attributes: bool):
+        """The reference's `encode_gof` frame loop (encoder.py:959-1001):
+        each P-frame packs against its tree parent's patches and predicts
+        D0 (and T0) from the parent's decoded planes, kept in banks that are
+        pruned as the tree consumes them; the geometry QP cascade is capped
+        at geometryQpCascadeCap, the attribute cascade is not."""
         cfg = self.cfg
         streams = self._new_streams()
         geo_bank: dict = {}
+        attr_bank: dict = {}
         parent, qp_off = self.gof_structure(len(frames))
         cap = int(getattr(cfg, "geometryQpCascadeCap", 1))
         needed = [set(parent[i + 1:]) for i in range(len(frames))]
-        out: List[GeometryFrame] = []
+        out = []
         for i, f in enumerate(frames):
             if i == 0:
-                trefs, prev = {"geo": None}, None
+                trefs, prev = {"geo": None, "attr": None}, None
             else:
-                trefs = {"geo": geo_bank.get(parent[i])}
-                prev = out[parent[i]].front.patches
-            out.append(self.encode_frame_geometry(
-                f, streams, prev_patches=prev, seg=None if segs is None else segs[i],
-                temporal_refs=trefs, qp_offset_geo=min(qp_off[i], cap)))
+                trefs = {"geo": geo_bank.get(parent[i]), "attr": attr_bank.get(parent[i])}
+                prev = out[parent[i]].patches if attributes else out[parent[i]].front.patches
+            seg = None if segs is None else segs[i]
+            if attributes:
+                e = self.encode_frame(f, streams, prev_patches=prev, seg=seg, temporal_refs=trefs,
+                                      qp_offset=qp_off[i], qp_offset_geo=min(qp_off[i], cap))
+            else:
+                e = self.encode_frame_geometry(f, streams, prev_patches=prev, seg=seg,
+                                               temporal_refs=trefs,
+                                               qp_offset_geo=min(qp_off[i], cap))
+            out.append(e)
             if i in needed[i]:
                 geo_bank[i] = streams["geo0"].ref
-            for k in [k for k in geo_bank if k not in needed[i]]:
-                del geo_bank[k]
-        return out
+                attr_bank[i] = streams["attr0"].refs
+            for bank in (geo_bank, attr_bank):
+                for k in [k for k in bank if k not in needed[i]]:
+                    del bank[k]
+        return out, parent
+
+    def encode_gof_geometry(self, frames: List[PointCloudData],
+                            segs: Optional[List[Segmentation]] = None) -> List[GeometryFrame]:
+        """The GOF through the geometry video (`_gof_loop` without the
+        attribute stages).  `segs` optionally gives each frame's
+        segmentation."""
+        return self._gof_loop(frames, segs, attributes=False)[0]
+
+    def encode_gof(self, frames: List[PointCloudData], mesh=None, parallel: bool = False,
+                   segs: Optional[List[Segmentation]] = None
+                   ) -> Tuple[bytes, List[PointCloudData]]:
+        """Encode a group of frames into one V3C sample stream (reference
+        `encode_gof`, encoder.py:890-1002): (stream bytes, the encoder-side
+        reconstruction of every frame).  `segs` optionally gives each
+        frame's segmentation (e.g. with the reference's partitions,
+        `with_partition`)."""
+        if mesh is not None or parallel:
+            raise _unsupported("mesh / parallel (the level-batched GOF path, ROADMAP queue 1 "
+                               "item 11)")
+        encoded, parent = self._gof_loop(frames, segs, attributes=True)
+        self.stats = [e.stats for e in encoded]
+        return self._mux_gof(encoded, frames, parent)
+
+    def _mux_gof(self, encoded: List[EncodedFrame], frames, parent):
+        """Assemble the V3C sample stream (reference `_mux_gof`,
+        encoder.py:1004-1261, one tile, two maps, no PLR/EOM/raw points/
+        reflectance): VPS, the atlas substream (ASPS, AFPS, the prefix SEIs,
+        one atlas tile layer per frame with P-tiles predicting from the tree
+        parent's patches), then the occupancy, geometry and attribute video
+        substreams.  Fills `last_stream_stats` and each frame's
+        `compressed_bytes`."""
+        cfg = self.cfg
+        width = max(e.width for e in encoded)
+        height = max(e.height for e in encoded)
+        n_geo_maps = len(encoded[0].geometry_payloads)
+        n_attr_maps = len(encoded[0].attribute_payloads)
+        max_pts = max(e.recon.point_count for e in encoded)
+        max_patches = max(len(e.patches) for e in encoded)
+        level = next(
+            (lv for lv, (mp, mpa, mat) in sorted(conformance.LEVEL_LIMITS.items())
+             if max_pts <= mp and max_patches <= mpa and width * height <= mat),
+            max(conformance.LEVEL_LIMITS),
+        )
+        vps = v3c.V3CParameterSet(
+            ptl=v3c.ProfileTierLevel(level_idc=level),
+            frame_width=width, frame_height=height, eom_bits=0, frame_count=len(frames),
+            occupancy_resolution=cfg.occupancyResolution,
+            occupancy_precision=cfg.occupancyPrecision,
+            geometry_2d_bitdepth=cfg.geometryBitDepth2D,
+            geometry_3d_bitdepth=cfg.geometryBitDepth3D,
+            map_count_minus1=cfg.mapCountMinus1, min_level=cfg.minLevel,
+        )
+        bw = BitWriter()
+        vps.write(bw)
+        units = [(v3c.V3C_VPS, bw.getvalue())]
+
+        tiles, pdus_list = [], []
+        for fi, e in enumerate(encoded):
+            pdus = [_patch_to_pdu(p, cfg) for p in e.patches]
+            if fi > 0:
+                # ref indices address the tree parent's patch list
+                parent_full = encoded[parent[fi]].patches
+                idx_of = {id(q): k for k, q in enumerate(parent_full)}
+                for p, pdu in zip(e.patches, pdus):
+                    pdu.ref_index = -1
+                    if 0 <= p.ref_patch_idx < len(parent_full):
+                        pdu.ref_index = idx_of.get(id(parent_full[p.ref_patch_idx]), -1)
+            tiles.append(v3c.AtlasTileLayer(
+                frame_index=fi, tile_id=0, tile_row_start=0, patches=pdus,
+                geometry_bits=cfg.geometryBitDepth3D,
+                tile_type=v3c.TILE_I if fi == 0 else v3c.TILE_P,
+                ref_patches=None if fi == 0 else pdus_list[parent[fi]],
+                ref_frame_delta=max(fi - parent[fi], 1),
+            ))
+            pdus_list.append(pdus)
+        asps = v3c.AtlasSequenceParameterSet(
+            frame_width=width, frame_height=height,
+            log2_patch_packing_block_size=cfg.occupancyResolution.bit_length() - 1,
+            geometry_3d_bitdepth_minus1=cfg.geometryBitDepth3D - 1,
+            geometry_2d_bitdepth_minus1=cfg.geometryBitDepth2D - 1,
+            map_count_minus1=cfg.mapCountMinus1, plr_enabled_flag=0,
+            plr_block_threshold=int(cfg.patchSize),
+        )
+        afps = v3c.AtlasFrameParameterSet(num_tiles_minus1=0)
+        prefix_seis = []
+        if cfg.flagGeometrySmoothing and cfg.gridSmoothing:
+            prefix_seis.append(v3c.SEIGeometrySmoothing(
+                grid_size=cfg.gridSize, threshold=int(cfg.thresholdSmoothing)))
+        prefix_seis.append(v3c.SEIComponentCodecMapping())
+        prefix_seis.append(v3c.SEIBufferingPeriod(initial_delay=90000 // 30))
+        prefix_seis.append(v3c.SEIAtlasFrameTiming())
+        prefix_seis.append(v3c.SEIRecoveryPoint(recovery_afoc=0))
+        prefix_seis.append(v3c.SEIActiveSubBitstreams(
+            active_attributes=list(range(n_attr_maps)),
+            active_maps=list(range(n_geo_maps)), raw_points_active_flag=0))
+        rp = encoded[0].recon.positions
+        if len(rp):
+            lo3 = np.asarray(rp).min(0).astype(np.int64)
+            hi3 = np.asarray(rp).max(0).astype(np.int64)
+            prefix_seis.append(v3c.SEISceneObjectInformation(objects=[
+                (0, tuple(int(v) for v in np.concatenate([lo3, hi3 - lo3 + 1])))]))
+            prefix_seis.append(v3c.SEIObjectLabelInformation(labels=[(0, "pointcloud")]))
+        res = cfg.occupancyResolution
+        with_p = [e for e in encoded if e.patches]
+        x0 = min(min(p.u0 for p in e.patches) for e in with_p)
+        y0 = min(min(p.v0 for p in e.patches) for e in with_p)
+        x1 = max(max(p.u0 + p.size_u0 for p in e.patches) for e in with_p)
+        y1 = max(max(p.v0 + p.size_v0 for p in e.patches) for e in with_p)
+        prefix_seis.append(v3c.SEIVolumetricRectangleInformation(
+            rectangles=[(0, x0 * res, y0 * res, (x1 - x0) * res, (y1 - y0) * res)]))
+        scale, offset = float(getattr(cfg, "attributeScale", 1.0)), float(
+            getattr(cfg, "attributeOffset", 0.0))
+        if scale != 1.0 or offset != 0.0:
+            q16, off = int(round(scale * 65536)), int(round(offset))
+            prefix_seis.append(v3c.SEIAttributeTransformationParams(
+                params=[(0, dim, q16, off) for dim in range(3)]))
+        units.append((v3c.V3C_AD, v3c.write_atlas_substream(
+            tiles, asps, afps, prefix_seis=prefix_seis, aaps=v3c.AtlasAdaptationParameterSet())))
+        for unit_type, payload_lists in (
+            (v3c.V3C_OVD, [[e.occupancy_payload for e in encoded]]),
+            (v3c.V3C_GVD, [[e.geometry_payloads[m] for e in encoded] for m in range(n_geo_maps)]),
+            (v3c.V3C_AVD, [[e.attribute_payloads[m] for e in encoded]
+                           for m in range(n_attr_maps)]),
+        ):
+            for mi, plist in enumerate(payload_lists):
+                bw = BitWriter()
+                v3c.VideoSubstream(unit_type, mi, plist).write(bw)
+                units.append((unit_type, bw.getvalue()))
+        stream = v3c.write_sample_stream(units)
+        names = {v3c.V3C_VPS: "VPS", v3c.V3C_AD: "AD", v3c.V3C_OVD: "OVD",
+                 v3c.V3C_GVD: "GVD", v3c.V3C_AVD: "AVD"}
+        comp: Dict[str, int] = {}
+        for utype, payload in units:
+            key = names.get(utype, str(utype))
+            comp[key] = comp.get(key, 0) + len(payload)
+        comp["total"] = len(stream)
+        self.last_stream_stats = comp
+        for e in encoded:
+            e.stats.compressed_bytes = len(stream) // len(frames)
+        self.last_encoded = encoded
+        return stream, [e.recon for e in encoded]
+
+
+def _patch_to_pdu(p: Patch, cfg: VPCCConfig) -> v3c.PatchDataUnit:
+    """A patch's atlas syntax (reference `_patch_to_pdu`, encoder.py:1262)."""
+    quant_dd = 0 if p.size_d == 0 else (p.size_d + 1) // cfg.minLevel
+    return v3c.PatchDataUnit(
+        pos_x=p.u0, pos_y=p.v0, size_x_m1=p.size_u0 - 1, size_y_m1=p.size_v0 - 1,
+        offset_u=p.u1, offset_v=p.v1, offset_d=p.d1 // cfg.minLevel, range_d=quant_dd,
+        projection_id=p.view_id, orientation=p.orientation, size_u=p.size_u,
+        size_v=p.size_v, ref_index=p.ref_patch_idx, plr_level=p.plr_level,
+        plr_mode=p.plr_mode, plr_block_modes=p.plr_block_modes, lod_x=p.lod_x,
+        lod_y=p.lod_y,
+    )

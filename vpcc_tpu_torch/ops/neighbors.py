@@ -174,3 +174,12 @@ def knn(grid: NeighborGrid, queries: torch.Tensor, k: int,
     dev.count_launch("grid_knn", 1 if M else 0)
     dev.check_launch("grid_knn", rc)
     return idx, d2
+
+
+def nearest(grid: NeighborGrid, queries: torch.Tensor,
+            bucket: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The single nearest neighbour (reference `nearest`,
+    neighbors.py:215): `knn` with k=1.  Returns (idx (M,), dist2 (M,))
+    int32."""
+    idx, d2 = knn(grid, queries, k=1, bucket=bucket)
+    return idx[:, 0].contiguous(), d2[:, 0].contiguous()

@@ -94,3 +94,15 @@ def push_pull_round(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tenso
     dev.count_launch("push_pull", launched.value)
     dev.check_launch("push_pull", rc)
     return out
+
+
+def fill_rgb(planes: torch.Tensor, occupancy: torch.Tensor) -> torch.Tensor:
+    """Background fill mode 1 of attribute images (reference `fill_rgb`,
+    padding.py:176, through `fill_plane` to `push_pull_fill`): every (H, W)
+    int32 channel plane of `planes` (..., H, W) is push-pull filled under
+    the (H, W) uint8 occupancy and rounded half to even (kernel L, one
+    launch sequence per plane).  The reference then clamps to 0..255, which
+    changes nothing here: the fill averages integer channels of 0..255."""
+    h, w = planes.shape[-2:]
+    flat = planes.reshape(-1, h, w)
+    return torch.stack([push_pull_round(p, occupancy) for p in flat]).reshape(planes.shape)

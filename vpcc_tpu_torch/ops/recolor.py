@@ -1,0 +1,259 @@
+"""Color transfer from the source cloud to the reconstructed geometry (K7;
+kernel M).
+
+Behavioral reference: `PCCPointSet3::transferColors` (source/lib/
+PccLibCommon/include/PCCPointSet.h:295-320) as the JAX package computes it
+for grids of at most 10 bits: vpcc_tpu/ops/recolor.py
+`transfer_colors_compact` and its helpers `exact_matches_device`,
+`_exact_and_counts`, `_compact_gather`, `_fwd_blend` and
+`_bwd_and_merge_compact` (recolor.py:43-264).  In order:
+
+1. exact match: each target looks its packed position key up in the
+   stably sorted source keys (left insertion point, as `jnp.searchsorted`);
+   a hit keeps that source's color verbatim, and marks the source matched;
+2. compaction: the inexact targets and the unmatched sources (torch
+   `nonzero`, index order);
+3. forward blend: each inexact target averages its k=8 nearest sources
+   (kernel E), weighted 1 / (d2 + offset), gated by distance and by color
+   distance to the nearest one (which always votes);
+4. backward splat: each unmatched source adds its color to its nearest
+   target (kernel E, k=1), gated by distance;
+5. merge: exact, else forward, else 0.5 * (forward + backward) where a
+   splat landed; rounded half to even and clamped to 0..255.
+
+Float order.  `_fwd_blend`'s weights are correctly rounded divisions; XLA's
+CPU program sums them in slot order from 0, and sums color * weight as a
+chain of fused multiply-adds in slot order from 0 (`device.fma_f32`,
+`__fmaf_rn`); the color numerator is then divided by max(weight sum,
+1e-8).  The backward sums add integers of at most 255, exact in float32 in
+any order, so the kernel adds them as integers with atomics.
+
+The port holds only valid rows (no padding), so the reference's validity
+masks of padded rows have no counterpart.  Kernel M (csrc/recolor.cu) has
+three entry points (exact match, forward blend, splat and merge); the
+`*_plain` functions are their plain versions, used for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from vpcc_tpu_torch import device as dev
+from vpcc_tpu_torch.ops import neighbors
+
+MAX_DIST2 = neighbors.MAX_DIST2
+
+
+def _packed_keys(pos: torch.Tensor, bits: int) -> torch.Tensor:
+    return (pos[:, 0] << (2 * bits)) | (pos[:, 1] << bits) | pos[:, 2]
+
+
+def sorted_source_keys(src_pos: torch.Tensor, bits: int):
+    """(order, sorted keys) of the source positions' packed keys, int32;
+    the sort is stable, as `jnp.argsort`."""
+    ks = _packed_keys(src_pos, bits)
+    srt = torch.sort(ks, stable=True)
+    return srt.indices.to(torch.int32), srt.values.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+def exact_match_plain(order, sk, tgt_pos, bits: int):
+    """(exact_idx (Nt,) int32, has_exact (Nt,) bool, matched_src (Ns,) bool,
+    counts (2,) int32 = (inexact targets, unmatched sources))."""
+    ns = sk.shape[0]
+    in_grid = ((tgt_pos >= 0) & (tgt_pos < (1 << bits))).all(1)
+    kt = torch.where(in_grid, _packed_keys(tgt_pos, bits), torch.full_like(tgt_pos[:, 0], -1))
+    loc = torch.searchsorted(sk, kt).clamp(0, max(ns - 1, 0))
+    has = (sk[loc] == kt) & (kt >= 0)
+    eidx = order[loc]
+    matched = torch.zeros(ns, dtype=torch.bool, device=sk.device)
+    matched[eidx[has].long()] = True
+    counts = torch.stack([(~has).sum(), (~matched).sum()]).to(torch.int32)
+    return eidx, has, matched, counts
+
+
+def fwd_blend_plain(src_col, idx, d2, gd2: float, cd2: float, doff: float):
+    """(M, 3) float32 forward colors of M inexact targets from their k
+    nearest sources (src_col (Ns, 3) uint8; idx, d2 (M, k) int32)."""
+    cols = src_col[idx.long()].to(torch.float32)                    # (M, k, 3)
+    d2f = d2.to(torch.float32)
+    valid = (d2 < MAX_DIST2) & (d2f <= gd2)
+    cdist = ((cols - cols[:, 0:1]) ** 2).sum(-1)                    # exact
+    valid = valid & (cdist <= cd2)
+    valid[:, 0] = d2[:, 0] < MAX_DIST2
+    w = valid.to(torch.float32) / (d2f + doff).clamp(min=1e-8)
+    wsum = torch.zeros_like(w[:, 0])
+    num = torch.zeros_like(cols[:, 0])
+    for j in range(w.shape[1]):
+        wsum = wsum + w[:, j]
+        num = dev.fma_f32(cols[:, j], w[:, j:j + 1].expand_as(num), num)
+    return num / wsum.clamp(min=1e-8)[:, None]
+
+
+def splat_merge_plain(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
+                      gd2_bwd: float):
+    """(Nt, 3) int32 merged colors.  uidx (Mu,): unmatched source rows;
+    tidx, td2 (Mu,): their nearest targets; iidx (Mi,): the inexact targets
+    whose forward colors `fwd` (Mi, 3) float32 holds."""
+    nt = exact_idx.shape[0]
+    d = src_col.device
+    ok = (td2 < MAX_DIST2) & (td2.to(torch.float32) <= gd2_bwd)
+    acc = torch.zeros((nt, 3), dtype=torch.int64, device=d)
+    cnt = torch.zeros(nt, dtype=torch.int64, device=d)
+    t = tidx[ok].long()
+    acc.index_add_(0, t, src_col[uidx[ok].long()].long())
+    cnt.index_add_(0, t, torch.ones_like(t))
+    fwd_full = torch.zeros((nt, 3), dtype=torch.float32, device=d)
+    fwd_full[iidx.long()] = fwd
+    out = torch.where(has_exact[:, None], src_col[exact_idx.long()].to(torch.float32), fwd_full)
+    bwd = acc.to(torch.float32) / cnt.to(torch.float32).clamp(min=1.0)[:, None]
+    blend = ((cnt > 0) & ~has_exact)[:, None]
+    out = torch.where(blend, 0.5 * (out + bwd), out)
+    return torch.round(out).clamp(0, 255).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel M
+
+_EXACT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [
+    ctypes.c_void_p] * 2
+_MERGE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float]
+               + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)])
+
+
+def _fn(name: str, args):
+    fn = getattr(dev.load_kernel("recolor"), name)
+    fn.argtypes, fn.restype = args, ctypes.c_int
+    return fn
+
+
+def exact_match(order, sk, tgt_pos, bits: int):
+    """Kernel M, entry 1: `exact_match_plain` on the card."""
+    if tgt_pos.device.type == "cpu":
+        return exact_match_plain(order, sk, tgt_pos, bits)
+    d = tgt_pos.device
+    dev.check_tensor(order, "order", torch.int32, d, 1)
+    dev.check_tensor(sk, "sorted keys", torch.int32, d, 1)
+    dev.check_tensor(tgt_pos, "tgt_pos", torch.int32, d, 2)
+    if bits > 10:
+        raise ValueError("recolor exact match: packed keys need bits <= 10")
+    ns, nt = sk.shape[0], tgt_pos.shape[0]
+    if order.shape != sk.shape or tgt_pos.shape[1] != 3:
+        raise ValueError(f"recolor exact match: order {tuple(order.shape)}, keys "
+                         f"{tuple(sk.shape)}, targets {tuple(tgt_pos.shape)}")
+    eidx = torch.empty(nt, dtype=torch.int32, device=d)
+    has = torch.empty(nt, dtype=torch.bool, device=d)
+    matched = torch.zeros(ns, dtype=torch.int32, device=d)
+    counts = torch.tensor([0, ns], dtype=torch.int32, device=d)
+    rc = _fn("recolor_exact", _EXACT_ARGS)(
+        dev.ptr(order), dev.ptr(sk), dev.ptr(tgt_pos), ns, nt, bits,
+        dev.ptr(eidx), dev.ptr(has), dev.ptr(matched), dev.ptr(counts), dev.stream_handle())
+    dev.count_launch("recolor", 1 if nt else 0)
+    dev.check_launch("recolor", rc)
+    return eidx, has, matched != 0, counts
+
+
+def fwd_blend(src_col, idx, d2, gd2: float, cd2: float, doff: float):
+    """Kernel M, entry 2: `fwd_blend_plain` on the card (one thread per
+    inexact target)."""
+    if idx.device.type == "cpu":
+        return fwd_blend_plain(src_col, idx, d2, gd2, cd2, doff)
+    d = idx.device
+    dev.check_tensor(src_col, "src_col", torch.uint8, d, 2)
+    dev.check_tensor(idx, "idx", torch.int32, d, 2)
+    dev.check_tensor(d2, "d2", torch.int32, d, 2)
+    m, k = idx.shape
+    if k > 64 or d2.shape != idx.shape or src_col.shape[1] != 3:
+        raise ValueError(f"recolor forward blend: idx {tuple(idx.shape)}, d2 "
+                         f"{tuple(d2.shape)}, colors {tuple(src_col.shape)} (k <= 64)")
+    out = torch.empty((m, 3), dtype=torch.float32, device=d)
+    rc = _fn("recolor_fwd_blend", _FWD_ARGS)(
+        dev.ptr(src_col), dev.ptr(idx), dev.ptr(d2), m, k, gd2, cd2, doff,
+        dev.ptr(out), dev.stream_handle())
+    dev.count_launch("recolor", 1 if m else 0)
+    dev.check_launch("recolor", rc)
+    return out
+
+
+def splat_merge(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
+                gd2_bwd: float):
+    """Kernel M, entry 3: `splat_merge_plain` on the card: the integer
+    atomic splat of the unmatched sources, the forward colors scattered to
+    their targets, then the merge per target."""
+    if exact_idx.device.type == "cpu":
+        return splat_merge_plain(src_col, uidx, tidx, td2, exact_idx, has_exact,
+                                 iidx, fwd, gd2_bwd)
+    d = exact_idx.device
+    dev.check_tensor(src_col, "src_col", torch.uint8, d, 2)
+    for name, t in (("uidx", uidx), ("tidx", tidx), ("td2", td2),
+                    ("exact_idx", exact_idx), ("iidx", iidx)):
+        dev.check_tensor(t, name, torch.int32, d, 1)
+    dev.check_tensor(has_exact, "has_exact", torch.bool, d, 1)
+    dev.check_tensor(fwd, "fwd", torch.float32, d, 2)
+    nt, mu, mi = exact_idx.shape[0], uidx.shape[0], iidx.shape[0]
+    if (tidx.shape != uidx.shape or td2.shape != uidx.shape or has_exact.shape != exact_idx.shape
+            or fwd.shape != (mi, 3) or src_col.shape[1] != 3):
+        raise ValueError("recolor splat/merge: inconsistent shapes")
+    acc = torch.zeros((nt, 4), dtype=torch.int32, device=d)   # r, g, b, count
+    fwd_full = torch.zeros((nt, 3), dtype=torch.float32, device=d)
+    out = torch.empty((nt, 3), dtype=torch.int32, device=d)
+    launched = ctypes.c_int(0)
+    rc = _fn("recolor_splat_merge", _MERGE_ARGS)(
+        dev.ptr(src_col), dev.ptr(uidx), dev.ptr(tidx), dev.ptr(td2), dev.ptr(exact_idx),
+        dev.ptr(has_exact), dev.ptr(iidx), dev.ptr(fwd), nt, mu, mi, gd2_bwd,
+        dev.ptr(acc), dev.ptr(fwd_full), dev.ptr(out), dev.stream_handle(),
+        ctypes.byref(launched))
+    dev.count_launch("recolor", launched.value)
+    dev.check_launch("recolor", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def transfer_colors_compact(
+    src_pos: torch.Tensor,     # (Ns, 3) int32
+    src_col: torch.Tensor,     # (Ns, 3) uint8
+    tgt_pos: torch.Tensor,     # (Nt, 3) int32
+    grid_bits: int = 10,
+    k: int = 8,
+    k_bwd: int = 1,
+    max_geom_d2_fwd: float = 1000.0,
+    max_geom_d2_bwd: float = 1000.0,
+    max_color_d2_fwd: float = 1000.0,
+    dist_offset_fwd: float = 4.0,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """(Nt, 3) int32 colors of the targets, and (exact_idx, has_exact), as
+    the reference's `transfer_colors_compact`: the k-NN sweeps run only on
+    the inexact targets and (k_bwd > 0) the unmatched sources."""
+    if grid_bits > 10:
+        raise NotImplementedError(
+            "recolor above 10-bit geometry (transfer_colors / _blend) is not "
+            "ported yet (ROADMAP queue 1, item 10: vox11+)")
+    src_col = src_col.to(torch.uint8).contiguous()
+    order, sk = sorted_source_keys(src_pos, grid_bits)
+    exact_idx, has_exact, matched, counts = exact_match(order, sk, tgt_pos, grid_bits)
+    n_in, n_un = (int(v) for v in counts.tolist())   # one sync sizes both sweeps
+    iidx = torch.nonzero(~has_exact).flatten().to(torch.int32)
+    fwd = torch.zeros((n_in, 3), dtype=torch.float32, device=tgt_pos.device)
+    if n_in:
+        grid_s = neighbors.build_grid(src_pos, grid_bits)
+        idx, d2 = neighbors.knn(grid_s, tgt_pos[iidx.long()].contiguous(), k=k, bucket=6)
+        fwd = fwd_blend(src_col, idx, d2, float(max_geom_d2_fwd),
+                        float(max_color_d2_fwd), float(dist_offset_fwd))
+    empty = torch.zeros(0, dtype=torch.int32, device=tgt_pos.device)
+    uidx, tidx, td2 = empty, empty, empty
+    if k_bwd > 0 and n_un:
+        # a matched source's nearest target is its exact twin, which keeps
+        # the exact color and never reads the splat: sweep only the rest
+        uidx = torch.nonzero(~matched).flatten().to(torch.int32)
+        grid_t = neighbors.build_grid(tgt_pos, grid_bits)
+        tidx, td2 = neighbors.nearest(grid_t, src_pos[uidx.long()].contiguous(), bucket=6)
+    out = splat_merge(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
+                      float(max_geom_d2_bwd))
+    return out, (exact_idx, has_exact)

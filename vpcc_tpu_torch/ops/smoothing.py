@@ -141,3 +141,127 @@ def grid_smooth(points, patch_idx, boundary, threshold: float,
     dev.count_launch("grid_smooth", 2)
     dev.check_launch("grid_smooth", rc)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Color pre-smoothing (K9; kernel N)
+#
+# Behavioral reference: presmoothPointCloudColor (PCCEncoder.cpp:6593-6656)
+# as vpcc_tpu/ops/smoothing.py `_presmooth_vote` and `presmooth_colors`
+# (smoothing.py:193-261) compute it, encoder side, before the attribute
+# video: each boundary point looks at its k nearest reconstructed points
+# within radius2; when its color is far (L1) from their integer centroid and
+# their 8-bit luma has low entropy, it takes the centroid.
+#
+# Float order (XLA's CPU program): the luma is
+# trunc(fma(0.0722, b, fma(0.2126, r, 0.7152 g))); a valid slot's entropy
+# term is XLA's -log2(max(cnt / n, 1e-12)), read from a committed table of
+# XLA's own values (`ENTROPY_TERMS`, tests/torch_make_encode_tables.py:
+# XLA's log2 is not correctly rounded); the k = 64 terms, zero at invalid
+# slots, are summed as two sequential runs of 32 from 0, then added, then
+# divided by n.
+
+ENTROPY_TERMS = dev.PKG_DIR / "data" / "presmooth_log2_xla.npy"
+PRESMOOTH_K = 64
+_entropy_tabs: dict = {}
+
+
+def entropy_table(device) -> torch.Tensor:
+    """(65 * 65,) float32: entry n * 65 + cnt holds XLA's
+    -log2(max(cnt / n, 1e-12)) for 1 <= cnt <= n <= 64."""
+    key = str(device)
+    if key not in _entropy_tabs:
+        import numpy as np
+
+        _entropy_tabs[key] = torch.as_tensor(
+            np.load(ENTROPY_TERMS).astype(np.float32).reshape(-1), device=device)
+    return _entropy_tabs[key]
+
+
+def presmooth_vote_plain(colors, nidx, nd2, q_col, radius2: float, thr_dist: float,
+                         thr_entropy: float):
+    """(M, 3) int32 new colors of M boundary queries.  colors (N, 3) int32
+    of the reconstructed points; nidx, nd2 (M, 64) int32 from kernel E;
+    q_col (M, 3) int32 the queries' own colors."""
+    m, k = nidx.shape
+    if k != PRESMOOTH_K:
+        raise NotImplementedError(
+            f"color pre-smoothing with k={k}: only k={PRESMOOTH_K} (the reference "
+            "configuration) has its entropy reduction order ported")
+    valid = (nd2 < 0x7FFFFFF0) & (nd2.to(torch.float32) <= radius2)
+    nv = valid.sum(1)
+    n = nv.clamp(min=1)
+    cols = colors[nidx.long()]                                   # (M, k, 3)
+    csum = torch.where(valid[:, :, None], cols, torch.zeros_like(cols)).sum(1)
+    centroid = torch.div(csum + (n // 2)[:, None], n[:, None], rounding_mode="floor")
+    cf = cols.to(torch.float32)
+    y = fma_f32(0.0722, cf[..., 2], fma_f32(0.2126, cf[..., 0], 0.7152 * cf[..., 1]))
+    y = y.to(torch.int32)                                        # trunc, y >= 0
+    same = (y[:, :, None] == y[:, None, :]) & valid[:, None, :]
+    cnt = same.sum(2)
+    tab = entropy_table(colors.device)
+    terms = torch.where(valid, tab[(n[:, None] * 65 + cnt).long()], torch.zeros_like(nd2, dtype=torch.float32))
+    s0 = torch.zeros(m, dtype=torch.float32, device=colors.device)
+    s1 = torch.zeros_like(s0)
+    for j in range(32):
+        s0 = s0 + terms[:, j]
+        s1 = s1 + terms[:, 32 + j]
+    H = (s0 + s1) / n.to(torch.float32)
+    l1 = (centroid - q_col).abs().sum(1)
+    replace = (nv > 0) & (l1.to(torch.float32) >= thr_dist) & (H < thr_entropy)
+    return torch.where(replace[:, None], centroid, q_col).to(torch.int32)
+
+
+_VOTE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [
+    ctypes.c_void_p] * 2
+
+
+def presmooth_vote(colors, nidx, nd2, q_col, radius2: float, thr_dist: float,
+                   thr_entropy: float):
+    """Kernel N (csrc/presmooth.cu): `presmooth_vote_plain` on the card, one
+    warp per boundary query, the luma counts from a per-warp histogram in
+    shared memory."""
+    if nidx.device.type == "cpu":
+        return presmooth_vote_plain(colors, nidx, nd2, q_col, radius2, thr_dist,
+                                    thr_entropy)
+    d = nidx.device
+    dev.check_tensor(colors, "colors", torch.int32, d, 2)
+    dev.check_tensor(nidx, "nidx", torch.int32, d, 2)
+    dev.check_tensor(nd2, "nd2", torch.int32, d, 2)
+    dev.check_tensor(q_col, "q_col", torch.int32, d, 2)
+    m, k = nidx.shape
+    if k != PRESMOOTH_K:
+        raise NotImplementedError(
+            f"color pre-smoothing with k={k}: only k={PRESMOOTH_K} has its "
+            "entropy reduction order ported")
+    if nd2.shape != nidx.shape or q_col.shape != (m, 3) or colors.shape[1] != 3:
+        raise ValueError(f"presmooth_vote: nidx {tuple(nidx.shape)}, nd2 {tuple(nd2.shape)}, "
+                         f"q_col {tuple(q_col.shape)}, colors {tuple(colors.shape)}")
+    out = torch.empty((m, 3), dtype=torch.int32, device=d)
+    fn = dev.load_kernel("presmooth").presmooth_vote
+    fn.argtypes, fn.restype = _VOTE_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(colors), dev.ptr(nidx), dev.ptr(nd2), dev.ptr(q_col),
+            dev.ptr(entropy_table(d)), m, k, float(radius2), float(thr_dist),
+            float(thr_entropy), dev.ptr(out), dev.stream_handle())
+    dev.count_launch("presmooth", 1 if m else 0)
+    dev.check_launch("presmooth", rc)
+    return out
+
+
+def presmooth_colors(pos, colors, bnd, grid_bits: int, k: int, radius2: float,
+                     thr_dist: float, thr_entropy: float):
+    """Color pre-smoothing of the reconstructed cloud, boundary points only
+    (reference `presmooth_colors`).  pos (N, 3) int32, colors (N, 3) int32,
+    bnd (N,) bool.  Returns the smoothed (N, 3) int32 colors."""
+    from vpcc_tpu_torch.ops import neighbors
+
+    bidx = torch.nonzero(bnd).flatten()
+    if bidx.numel() == 0:
+        return colors
+    grid = neighbors.build_grid(pos, grid_bits)
+    nidx, nd2 = neighbors.knn(grid, pos[bidx].contiguous(), k=k, bucket=6)
+    sm = presmooth_vote(colors.contiguous(), nidx, nd2, colors[bidx].contiguous(),
+                        radius2, thr_dist, thr_entropy)
+    out = colors.clone()
+    out[bidx] = sm
+    return out

@@ -1,20 +1,26 @@
-"""Reconstruction seam: decoded atlas -> points -> smoothing -> colors.
+"""Reconstruction seam: decoded atlas -> points -> smoothing -> colors,
+and the attribute images the encoder paints from the points.
 
 The port of vpcc_tpu/pipeline.py `reconstruct_frame_device`,
-`gather_decoded_colors` and `download_recon` for the decoder's default
-path (two depth layers; no EOM, PLR or PBF).  Kernel C builds the compacted
-rows, kernel D smooths them; the JAX package's static-shape padding
-(`shape_bucket`) has no counterpart: the tensors hold exactly the valid
-rows, in the same order.
+`paint_attribute`, `gather_decoded_colors` and `download_recon` for the
+default path (two depth layers; no EOM, PLR or PBF), with the group
+dilation of vpcc_tpu/ops/padding.py.  Kernel C builds the compacted rows,
+kernel D smooths them; kernel P (csrc/attr_image.cu) paints the colors
+into the two attribute layers, group-dilates their filled backgrounds and
+gathers each point's decoded color.  The JAX package's static-shape
+padding (`shape_bucket`) has no counterpart: the tensors hold exactly the
+valid rows, in the same order.
 """
 
 from __future__ import annotations
 
-from typing import List
+import ctypes
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from vpcc_tpu_torch import device as dev
 from vpcc_tpu_torch.core import atlas as atlas_mod
 from vpcc_tpu_torch.core.patch import Patch
 from vpcc_tpu_torch.ops import reconstruct, smoothing
@@ -53,14 +59,144 @@ def reconstruct_frame(
     return rec
 
 
-def gather_decoded_colors(pix, layer, attr0, attr1):
+# ---------------------------------------------------------------------------
+# attribute images (K13 rest; kernel P)
+#
+# Layout: the painted layers are planar int32, (2 layers, 3 channels, H, W),
+# so that kernel L fills each channel plane in place of a transposed copy;
+# group dilation writes the two (H, W, 3) int32 images the attribute video
+# codes.
+
+def paint_attribute_plain(pix, layer, col, h: int, w: int) -> torch.Tensor:
+    """(2, 3, H, W) int32 layer images of per-point colors (reference
+    `paint_attribute`, pipeline.py:209): layer-0 points paint layer 0,
+    layer-1 points layer 1, tag 2 never paints; a layer-1 pixel without a
+    point takes layer 0's color.  Of several points on one (pixel, layer)
+    the last row wins, as XLA's CPU scatter; points outside the image are
+    dropped, as its scatter mode="drop"."""
+    d = col.device
+    c = col.clamp(0, 255).to(torch.int32)
+    x, y = pix[:, 0].long(), pix[:, 1].long()
+    inside = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    flat = y * w + x
+    rows = torch.arange(col.shape[0], device=d)
+    img = torch.zeros((2, 3, h * w), dtype=torch.int32, device=d)
+    painted = []
+    for ly in (0, 1):
+        m = (layer == ly) & inside
+        win = torch.full((h * w,), -1, dtype=torch.int64, device=d)
+        win.scatter_reduce_(0, flat[m], rows[m], reduce="amax")
+        hit = win >= 0
+        img[ly][:, hit] = c[win[hit]].T
+        painted.append(hit)
+    img[1][:, ~painted[1]] = img[0][:, ~painted[1]]
+    return img.reshape(2, 3, h, w)
+
+
+def group_dilate_plain(planes: torch.Tensor, occ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group dilation (reference padding.py:149 `group_dilate`) of the
+    filled (2, 3, H, W) int32 layers: where the occupancy is 0 both take
+    (a + b + 1) >> 1.  Returns the two (H, W, 3) int32 images."""
+    a, b = planes[0], planes[1]
+    avg = (a + b + 1) >> 1
+    bg = (occ == 0)[None]
+    return (torch.where(bg, avg, a).permute(1, 2, 0).contiguous(),
+            torch.where(bg, avg, b).permute(1, 2, 0).contiguous())
+
+
+def gather_decoded_colors_plain(pix, layer, attr0, attr1):
     """Per-point decoded colors: the attribute image of the point's layer
-    at its pixel.  attr0/attr1 (H, W, 3) uint8.  Returns (N, 3) int32."""
-    x = pix[:, 0].long()
-    y = pix[:, 1].long()
+    at its pixel (layer 1 reads attr1, every other tag attr0), pixels
+    clamped into the image as XLA's gather clamps them.  attr0/attr1
+    (H, W, 3) uint8.  Returns (N, 3) int32."""
+    h, w, _ = attr0.shape
+    x = pix[:, 0].long().clamp(0, w - 1)
+    y = pix[:, 1].long().clamp(0, h - 1)
     c0 = attr0[y, x].to(torch.int32)
     c1 = attr1[y, x].to(torch.int32)
     return torch.where((layer == 1)[:, None], c1, c0)
+
+
+def _attr_fn(name: str, args):
+    fn = getattr(dev.load_kernel("attr_image"), name)
+    fn.argtypes, fn.restype = args, ctypes.c_int
+    return fn
+
+
+_PAINT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
+    ctypes.POINTER(ctypes.c_int)]
+_DILATE_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_GATHER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+
+
+def paint_attribute(pix, layer, col, h: int, w: int) -> torch.Tensor:
+    """Kernel P, paint: `paint_attribute_plain` on the card.  The winning
+    row of each (pixel, layer) is the highest, by an atomicMax of the row
+    index; a second pass gathers the colors and the layer-1 fallback."""
+    if col.device.type == "cpu":
+        return paint_attribute_plain(pix, layer, col, h, w)
+    d = col.device
+    dev.check_tensor(pix, "pix", torch.int32, d, 2)
+    dev.check_tensor(layer, "layer", torch.int32, d, 1)
+    dev.check_tensor(col, "col", torch.int32, d, 2)
+    n = col.shape[0]
+    if pix.shape != (n, 2) or layer.shape != (n,) or col.shape != (n, 3):
+        raise ValueError(f"paint_attribute: pix {tuple(pix.shape)}, layer "
+                         f"{tuple(layer.shape)}, col {tuple(col.shape)}")
+    win = torch.full((2, h, w), -1, dtype=torch.int32, device=d)
+    out = torch.empty((2, 3, h, w), dtype=torch.int32, device=d)
+    launched = ctypes.c_int(0)
+    rc = _attr_fn("attr_paint", _PAINT_ARGS)(
+        dev.ptr(pix), dev.ptr(layer), dev.ptr(col), n, h, w, dev.ptr(win), dev.ptr(out),
+        dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("attr_image", launched.value)
+    dev.check_launch("attr_image", rc)
+    return out
+
+
+def group_dilate(planes: torch.Tensor, occ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel P, group dilation: `group_dilate_plain` on the card, one
+    thread per pixel writing both interleaved images."""
+    if planes.device.type == "cpu":
+        return group_dilate_plain(planes, occ)
+    d = planes.device
+    dev.check_tensor(planes, "planes", torch.int32, d, 4)
+    dev.check_tensor(occ, "occ", torch.uint8, d, 2)
+    _, _, h, w = planes.shape
+    if planes.shape[:2] != (2, 3) or occ.shape != (h, w):
+        raise ValueError(f"group_dilate: planes {tuple(planes.shape)}, occ {tuple(occ.shape)}")
+    img0 = torch.empty((h, w, 3), dtype=torch.int32, device=d)
+    img1 = torch.empty_like(img0)
+    rc = _attr_fn("attr_group_dilate", _DILATE_ARGS)(
+        dev.ptr(planes), dev.ptr(occ), h, w, dev.ptr(img0), dev.ptr(img1), dev.stream_handle())
+    dev.count_launch("attr_image", 1 if h * w else 0)
+    dev.check_launch("attr_image", rc)
+    return img0, img1
+
+
+def gather_decoded_colors(pix, layer, attr0, attr1):
+    """Kernel P, gather: `gather_decoded_colors_plain` on the card, one
+    thread per point."""
+    if pix.device.type == "cpu":
+        return gather_decoded_colors_plain(pix, layer, attr0, attr1)
+    d = pix.device
+    dev.check_tensor(pix, "pix", torch.int32, d, 2)
+    dev.check_tensor(layer, "layer", torch.int32, d, 1)
+    dev.check_tensor(attr0, "attr0", torch.uint8, d, 3)
+    dev.check_tensor(attr1, "attr1", torch.uint8, d, 3)
+    n = pix.shape[0]
+    h, w, _ = attr0.shape
+    if pix.shape != (n, 2) or layer.shape != (n,) or attr0.shape != attr1.shape \
+            or attr0.shape[2] != 3:
+        raise ValueError(f"gather_decoded_colors: pix {tuple(pix.shape)}, layer "
+                         f"{tuple(layer.shape)}, images {tuple(attr0.shape)} / {tuple(attr1.shape)}")
+    out = torch.empty((n, 3), dtype=torch.int32, device=d)
+    rc = _attr_fn("attr_gather", _GATHER_ARGS)(
+        dev.ptr(pix), dev.ptr(layer), dev.ptr(attr0), dev.ptr(attr1), n, h, w,
+        dev.ptr(out), dev.stream_handle())
+    dev.count_launch("attr_image", 1 if n else 0)
+    dev.check_launch("attr_image", rc)
+    return out
 
 
 def first_unique_rows(pos: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Video substream coders (vpcc_tpu/video/codecs.py): the occupancy coder,
-the geometry substream encoder, and the substream decoders.
+the geometry and attribute substream encoders, and the substream decoders.
 
 Substream coders are stateful: in random-access GOFs a P-frame predicts
 from its reference frame, so each coder keeps its last decoded reference
 planes on the device (`GeometrySubstreamEncoder.ref`,
-`GeometrySubstreamDecoder.ref`, `AttributeSubstreamDecoder.refs`).
+`GeometrySubstreamDecoder.ref`, `AttributeSubstreamEncoder.refs`,
+`AttributeSubstreamDecoder.refs`).
 """
 
 from __future__ import annotations
@@ -85,6 +86,44 @@ class GeometrySubstreamEncoder:
         )
         self.ref = rec[0]
         return bytes([v3c.CODEC_TPU_HEVC]) + payload, rec[0]
+
+
+class AttributeSubstreamEncoder:
+    def __init__(self, cfg: VPCCConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        # (y (1, H, W), cbcr (2, H/2, W/2)) int32 planes of the last
+        # decoded attribute frame
+        self.refs = None
+
+    def encode(self, attr, layer_ref=None, weight=None, temporal_ref=_UNSET,
+               qp_offset: int = 0):
+        """(H, W, 3) background-filled RGB (integer 0..255) -> (payload,
+        decoded (H, W, 3) uint8 RGB on the device), as the reference's lossy
+        `AttributeSubstreamEncoder.encode` (codecs.py:222-270) with
+        occ=None.  `layer_ref` (the decoded T0) makes T1 an inter-layer
+        frame; otherwise `temporal_ref` (default: the last decoded planes;
+        None forces intra) makes a motion-searched P-frame.  `weight` (the
+        decoded occupancy) drives the RD weights, `qp_offset` the
+        hierarchical QP cascade (no cap on attributes)."""
+        cfg = self.cfg
+        if cfg.attributeQP <= 4:
+            raise NotImplementedError(
+                "lossless attribute video (attributeQP <= 4) is not ported yet "
+                "(ROADMAP queue 1, item 10: lossless branches)")
+        attr = torch.as_tensor(attr, device=self.device)
+        t_refs = self.refs if temporal_ref is _UNSET else temporal_ref
+        refs = None
+        motion = False
+        if layer_ref is not None and tuple(layer_ref.shape[:2]) == tuple(attr.shape[:2]):
+            refs = hevc.rgb_refs(torch.as_tensor(layer_ref, device=self.device))
+        elif t_refs is not None and tuple(t_refs[0].shape[1:]) == tuple(attr.shape[:2]):
+            refs = t_refs
+            motion = True
+        payload, rgb, self.refs = hevc.encode_rgb(
+            attr, qp=min(cfg.attributeQP + qp_offset, 51), refs=refs,
+            weight=weight, motion=motion)
+        return bytes([v3c.CODEC_TPU_HEVC]) + payload, rgb
 
 
 class GeometrySubstreamDecoder:

@@ -13,8 +13,8 @@ Stages of `decode_planes`:
    interpolation fused with the per-CU motion-compensated gather;
 4. device, kernel A `wavefront_decode32`: the intra/inter reconstruction,
    one launch per wavefront diagonal of 32x32 CUs;
-5. device: deblocking (plain torch) and SAO (kernel K `sao_apply`), per
-   tile; untile and crop.
+5. device: deblocking (kernel O `deblock`, when the payload says so) and
+   SAO (kernel K `sao_apply`), per tile; untile and crop.
 
 Stages of `encode_planes`:
 1. device, kernel L `push_pull` (ops/padding.py): background fill of the
@@ -23,9 +23,13 @@ Stages of `encode_planes`:
    then kernel B builds the motion-compensated reference;
 3. device, kernel I `wavefront_encode32`: the RD quadtree decisions, the
    syntax and the reconstruction, one launch per wavefront diagonal;
-4. device, kernel K `sao_search` + `sao_apply`: per-region SAO parameters
-   and the final reconstruction;
+4. device, kernel O `deblock` (attribute planes), then kernel K
+   `sao_search` + `sao_apply`: per-region SAO parameters and the final
+   reconstruction;
 5. host: `assemble_payload32`, the entropy coder.
+
+`encode_rgb` / `decode_rgb` code an RGB attribute image as a luma plane and
+a 4:2:0 chroma pair (chroma QP + 3) on top of these.
 
 Each kernel wrapper runs its plain PyTorch version (`*_plain`, same
 arguments, same result) when its input lies on the CPU; on a CUDA tensor it
@@ -106,12 +110,14 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# in-loop filters: deblocking (plain torch), SAO apply's plain version
+# in-loop filters: deblocking (kernel O) and SAO apply's plain version
 # (vpcc_tpu hevc.py _deblock / _sao_apply)
 
-def _deblock(rec, qps, maxvals):
+def deblock_planes_plain(rec, qps, maxvals):
     """HEVC-style normal deblocking filter on all 8-aligned block edges of
-    (P, H, W) int32 planes; qps/maxvals: (P,) int32."""
+    (P, H, W) int32 planes (reference `_deblock`, hevc.py:161): first every
+    vertical edge, then every horizontal edge of that result; qps/maxvals:
+    (P,) int32."""
     P = rec.shape[0]
     tc_tab = torch.as_tensor(tab.TC_TAB, device=rec.device)
     tc8 = tc_tab[(qps + 2).clamp(0, 53).long()]
@@ -138,6 +144,33 @@ def _deblock(rec, qps, maxvals):
     rec = filter_axis(rec)
     rec = filter_axis(rec.transpose(1, 2).contiguous()).transpose(1, 2)
     return rec.contiguous()
+
+
+_DEBLOCK_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def deblock_planes(rec, qps, maxvals):
+    """Kernel O (csrc/deblock.cu): `deblock_planes_plain` on the card, two
+    launches (vertical edges into a new tensor, then the horizontal edges
+    in place)."""
+    if rec.device.type == "cpu":
+        return deblock_planes_plain(rec, qps, maxvals)
+    d = rec.device
+    dev.check_tensor(rec, "rec", torch.int32, d, 3)
+    dev.check_tensor(qps, "qps", torch.int32, d, 1)
+    dev.check_tensor(maxvals, "maxvals", torch.int32, d, 1)
+    P, H, W = rec.shape
+    if H % SUB or W % SUB or qps.shape[0] != P or maxvals.shape[0] != P:
+        raise ValueError(f"deblock: planes {tuple(rec.shape)}, qps {tuple(qps.shape)}")
+    out = torch.empty_like(rec)
+    fn = dev.load_kernel("deblock").deblock
+    fn.argtypes, fn.restype = _DEBLOCK_ARGS, ctypes.c_int
+    tc_tab = torch.as_tensor(np.asarray(tab.TC_TAB, np.int32), device=d)
+    rc = fn(dev.ptr(rec), dev.ptr(qps), dev.ptr(maxvals), dev.ptr(tc_tab),
+            dev.ptr(out), P, H, W, dev.stream_handle())
+    dev.count_launch("deblock", 2 if rec.numel() else 0)
+    dev.check_launch("deblock", rc)
+    return out
 
 
 def _sao_categories(rec, dy, dx):
@@ -692,7 +725,7 @@ def _decode_planes32(syn: dict, refs, d):
     rec = wavefront_decode32(ref, tt(s32), tt(m32), tt(c32), tt(s16),
                              tt(modes), tt(c16), dq_t, maxv_t, nby, nbx)
     if flags & FLAG_DEBLOCK:
-        rec = _deblock(rec, qps_t, maxv_t)
+        rec = deblock_planes(rec, qps_t.to(torch.int32), maxv_t.to(torch.int32))
     rec = sao_apply(rec.contiguous(), tt(sao_cls), tt(sao_off), maxv_t)
     return _untile(rec, P, ty, tx)[:, :H, :W].contiguous()
 
@@ -1413,7 +1446,7 @@ def encode_planes(planes, qps, maxvals, refs=None, occ=None, deblock: bool = Tru
         src, ref, w32, w16, w8, mvcost, qstep, inv_q,
         lam, pen, tt(dq_h), maxv, nby, nbx)
     if deblock:
-        rec = _deblock(rec, tt(qp_c.astype(np.int32)), maxv)
+        rec = deblock_planes(rec, tt(qp_c.astype(np.int32)), maxv)
     sao_cls, sao_off = sao_search(src, rec, lam, wgt)
     rec = sao_apply(rec, sao_cls, sao_off, maxv)
     rec = _untile(rec, P, ty, tx)[:, :H, :W].contiguous()
@@ -1423,3 +1456,31 @@ def encode_planes(planes, qps, maxvals, refs=None, occ=None, deblock: bool = Tru
         host(s32), host(m32), host(c32), host(s16), host(modes), host(c16),
         host(mv.to(torch.int8)), host(sao_cls), host(sao_off))
     return payload, rec
+
+
+def encode_rgb(attr, qp: int, refs=None, deblock: bool = True, weight=None,
+               motion: bool = False):
+    """(H, W, 3) integer RGB (0..255, already background-filled) -> (payload,
+    decoded (H, W, 3) uint8 RGB, (recy (1, H, W), recc (2, H/2, W/2)) int32
+    reference planes), as `vpcc_tpu.video.hevc.encode_rgb` with occ=None:
+    the luma plane at `qp`, the 4:2:0 chroma pair at min(qp + 3, 51).
+    `refs` (the decoded planes of a reference frame, or `rgb_refs` of the
+    decoded layer 0) enable the inter lane, `motion` its MV search;
+    `weight` (H, W) the RD relevance mask (chroma: its 2x2 maximum)."""
+    y, cb, cr = _rgb_to_int_planes(attr)
+    cqp = min(qp + 3, 51)
+    ry = rc = None
+    if refs is not None and tuple(refs[0].shape[1:]) == tuple(y.shape):
+        ry, rc = refs
+    wy = wc = None
+    if weight is not None:
+        wy = (weight if torch.is_tensor(weight) else torch.as_tensor(np.asarray(weight))).to(
+            device=y.device, dtype=torch.int32)
+        h, w = wy.shape
+        wc = wy.reshape(h // 2, 2, w // 2, 2).amax((1, 3))
+    py, recy = encode_planes(y[None], [qp], [255], refs=ry, deblock=deblock,
+                             weight=wy, motion=motion)
+    pc, recc = encode_planes(torch.stack([cb, cr]), [cqp, cqp], [255, 255], refs=rc,
+                             deblock=deblock, weight=wc, motion=motion)
+    rgb = _int_planes_to_rgb(recy[0], recc[0], recc[1])
+    return struct.pack("<II", len(py), len(pc)) + py + pc, rgb, (recy, recc)
