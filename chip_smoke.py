@@ -3,20 +3,22 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the sixteen CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
+2. builds the eighteen CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
    source, all started together) and prints the build seconds;
 
-the decode path (kernels A-D):
+the decode path (kernels A-D, and Q's color conversion):
 3. decodes the committed 8-frame vox10 fixture once (warm-up), keeping each
    kernel's largest call as its main-path input (for the wavefront decode,
-   the largest with the most inter-coded samples: a P-frame plane);
+   the largest with the most inter-coded samples: a P-frame plane; for
+   kernel Q, a 1280x1280 T0 image each way);
 4. runs each kernel and its plain PyTorch version on those inputs on the
    card, requires identical results, and times both in turns
    (plain, kernel, kernel, plain; CUDA events);
 5. with all launch counters at 0, decodes the fixture again with
    `vpcc_tpu_torch.Decoder(device="cuda")`, checks every frame's point count
    and md5 against the digests the JAX decoder recorded, prints warm seconds
-   per frame, and requires every kernel to have launched on that path;
+   per frame, and requires every kernel to have launched on that path
+   (Q included);
 
 the encoder front end (kernels E-H):
 6. makes the 8 bench frames from their seeds and runs
@@ -53,14 +55,14 @@ kernel K's apply):
     I-L to have launched.  It prints the share of 32x32 CUs whose syntax equals
     JAX's, per plane;
 
-the attribute path and the whole encoder (kernels M-P; the decode path
-above also runs kernels O and P):
+the attribute path and the whole encoder (kernels M-P and Q; the decode
+path above also runs kernels O, P and Q):
 13. runs `Encoder(cfg, device="cuda").encode_gof` over the 8 bench frames
     driven by the committed JAX partitions once (warm-up, cold seconds),
     keeping each kernel's largest call, and holds kernels M (exact match,
-    forward blend, splat and merge on one frame's recolor), N, O and P
-    (paint, group dilation, gather) against their plain versions, exactly,
-    timing both in turns;
+    forward blend, splat and merge on one frame's recolor), N, O, P
+    (paint, group dilation, gather) and Q (both directions, a 1280x1280
+    T0 image) against their plain versions, exactly, timing both in turns;
 14. decodes the fixture's geometry with the port (JAX's reconstruction
     rows) and runs the port's recolor -> pre-smoothing -> paint -> fill ->
     group dilation on it with the regenerated source frames; the md5 of the
@@ -68,14 +70,31 @@ above also runs kernels O and P):
     equal the JAX encoder's (person_vox10_attr_digests.json) on all frames;
 15. with all launch counters at 0, segments the frames, drives their
     partitions and runs `encode_gof` again: warm seconds per frame, the
-    stage split, launches (every kernel the encoder runs, B-P, nonzero),
+    stage split, launches (every kernel the encoder runs, B-Q, nonzero),
     the device idle share of one warm P-frame; then requires the port's
     decoder to decode the stream exactly to the encoder's reconstruction
     (point counts and md5, all frames), the stream bytes within
     RD_BYTES_TOL of the fixture's and every attribute plane's occupied-pixel
     luma PSNR within RD_PSNR_TOL_DB of the JAX encoder's, and prints the
     bytes per substream beside JAX's;
-16. prints one JSON line describing the kernels, then the result line.
+
+the quality metrics and the RD curve (kernel R, over kernels E and F):
+16. with all launch counters at 0, measures the port's decode of the
+    fixture (step 5, equal to JAX's) against the regenerated source frames
+    with `ops.metrics.compute_metrics` and the sources' `estimate_normals`,
+    as bench.py does; requires kernel R to have launched, every frame's D1
+    MSE and Hausdorff term to equal the JAX package's
+    (person_vox10_rd_reference.json, made by
+    tests/torch_make_rd_reference.py) and its D1/D2/Y/U/V PSNRs to lie
+    within METRICS_PSNR_TOL_DB of them;
+17. holds kernel R against its plain version on frame 0's two directions
+    (integer sums exact, float64 sums to R_FLOAT_RTOL) and times both;
+18. encodes the 8 frames at r1 and r5 (CTC QPs, JAX partitions) and, with
+    step 15's r3 stream, requires each rate's stream bytes within
+    RD_BYTES_TOL and mean D1/D2/Y within RD_PSNR_TOL_DB of the JAX
+    encoder's;
+19. prints the port's r1/r3/r5 curve beside JAX's;
+20. prints one JSON line describing the kernels, then the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -100,6 +119,7 @@ DIGESTS = DATA / "person_vox10_r3_gof8_digests.json"
 FRONT_DIGESTS = DATA / "person_vox10_front_digests.json"
 FRONT_PARTITIONS = DATA / "person_vox10_front_partitions.npz"
 ATTR_DIGESTS = DATA / "person_vox10_attr_digests.json"
+RD_REFERENCE = DATA / "person_vox10_rd_reference.json"
 # the floor tests/test_torch_segmentation.py pins for the partition
 # agreement with the JAX package, and the normals' tolerance (the kernel's
 # acosf/cosf against PyTorch's on the card)
@@ -108,6 +128,11 @@ NORMAL_ATOL = 1e-5
 # the RD gate of the geometry encoder against the JAX encoder's fixture
 RD_BYTES_TOL = 0.01
 RD_PSNR_TOL_DB = 0.1
+# the metrics of the fixture's decode against the JAX package's (float64
+# sums here, float32 sums in XLA's order there), and kernel R's float64
+# sums against its plain version's (another summation order)
+METRICS_PSNR_TOL_DB = 1e-3
+R_FLOAT_RTOL = 1e-9
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core float32 peak, used for int32 too
@@ -141,11 +166,14 @@ KERNEL_INFO = {
                   "vpcc_tpu/ops/smoothing.py:193"),
     "deblock": ("vpcc_tpu_torch/csrc/deblock.cu", "vpcc_tpu/video/hevc.py:161"),
     "attr_image": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:209"),
+    "color_convert": ("vpcc_tpu_torch/csrc/color_convert.cu", "vpcc_tpu/video/hevc.py:1766"),
+    "metrics": ("vpcc_tpu_torch/csrc/metrics.cu", "vpcc_tpu/ops/metrics.py:57"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
 GEOMETRY_KERNELS = ("wavefront_encode32", "motion_search", "sao", "push_pull")
-ENCODE_KERNELS = ("recolor", "presmooth", "deblock", "attr_image")
+ENCODE_KERNELS = ("recolor", "presmooth", "deblock", "attr_image", "color_convert")
+METRICS_KERNELS = ("metrics",)
 # every kernel the whole encoder runs (kernel A decodes only)
 ENCODER_PATH = ("half_pel_mc", "generate_points", "grid_smooth") + FRONT_KERNELS \
     + GEOMETRY_KERNELS + ENCODE_KERNELS
@@ -341,6 +369,20 @@ def bounds(name, args, out):
         # per slot: gate, luma (2 FMAs + 1 mul), histogram add and read,
         # entropy term, centroid adds (~12 operations)
         ops = 12.0 * nidx.numel()
+    elif name == "color_convert":
+        # both entries: attr -> (y, cb, cr) and (y, cb, cr) -> rgb; per
+        # pixel ~15 float operations each way (products, FMAs, rounding)
+        planes_args, rgb_args = args
+        byt = nbytes(*planes_args, *out[:3]) + nbytes(*rgb_args, out[3])
+        ops = 30.0 * out[0].numel()
+    elif name == "metrics":
+        # both directions: every input read once (positions, colors,
+        # normals, nearest index and d2), the sums written; per A row ~50
+        # float operations (error, projection, two BT.709 conversions,
+        # squares, float64 sums)
+        byt = sum(nbytes(*(t for t in a[:7] if t is not None)) for a in args) \
+            + sum(nbytes(*o) for o in out)
+        ops = 50.0 * sum(a[7] for a in args)
     else:  # deblock
         rec, qps, maxv = args
         byt = nbytes(rec, qps, maxv, out)
@@ -383,8 +425,47 @@ def time_turns(kern, plain, reps_k=20, reps_p=3):
     return (k1, k2), (p1, p2)
 
 
+def color_wrappers(hevc) -> dict:
+    """Capture names of kernel Q's two entries."""
+    return {"color_to_planes": (hevc, "_rgb_to_int_planes"),
+            "color_to_rgb": (hevc, "_int_planes_to_rgb")}
+
+
+def color_entries(hevc, planes_args, rgb_args, plain: bool):
+    """Kernel Q's two entries (or their plain versions) on their captured
+    inputs: (y, cb, cr, rgb)."""
+    if plain:
+        return (*hevc.rgb_to_int_planes_plain(*planes_args),
+                hevc.int_planes_to_rgb_plain(*rgb_args))
+    return (*hevc._rgb_to_int_planes(*planes_args), hevc._int_planes_to_rgb(*rgb_args))
+
+
+def color_check(hevc, cap, where: str) -> dict:
+    """Kernel Q == its plain version, exactly, on the largest call of each
+    entry that `cap` kept; times both in turns.  Returns the kernel row."""
+    p_args = cap.calls["color_to_planes"][1]
+    r_args = cap.calls["color_to_rgb"][1]
+    kern = lambda: color_entries(hevc, p_args, r_args, plain=False)
+    plain = lambda: color_entries(hevc, p_args, r_args, plain=True)
+    out_k, out_p = kern(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(tuple(out_k), tuple(out_p))
+    if err != 0:
+        raise AssertionError(f"color_convert ({where}): kernel differs from its plain version "
+                             f"(max abs err {err})")
+    (k1, k2), (p1, p2) = time_turns(kern, plain)
+    b_ms, b_by = bounds("color_convert", (p_args, r_args), out_k)
+    shapes = [(tuple(p_args[0].shape), str(p_args[0].dtype)), tuple(r_args[0].shape)]
+    print(f"color_convert ({where}): exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
+          f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}); both entries, inputs "
+          f"{shapes}")
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
 def decode_phase(dev):
-    """Steps 3-5: kernels A-D on the decode path.  Returns (rows, launches)."""
+    """Steps 3-5: kernels A-D and Q on the decode path.  Returns (rows,
+    launches, the decoded frames)."""
     import numpy as np
 
     from vpcc_tpu_torch.decoder import Decoder
@@ -409,11 +490,11 @@ def decode_phase(dev):
         "grid_smooth": smoothing.smooth_point_cloud_grid_plain,
     }
     t0 = time.perf_counter()
-    with Capture(wrappers) as cap:
+    with Capture({**wrappers, **color_wrappers(hevc)}) as cap:
         Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     print(f"cold decode: {time.perf_counter() - t0:.2f}s for {n_frames} frames")
-    missing = sorted(set(wrappers) - set(cap.calls))
+    missing = sorted((set(wrappers) | set(color_wrappers(hevc))) - set(cap.calls))
     if missing:
         raise AssertionError(f"kernels never called on the decode path: {missing}")
     _, n_mixed, n_inter = cap.calls["wavefront_decode32"][0]
@@ -445,6 +526,7 @@ def decode_phase(dev):
               f"inputs {shapes}")
         rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    color_check(hevc, cap, "decode")
 
     # 5. the main path, counted and timed
     dev.reset_launch_counts()
@@ -469,11 +551,11 @@ def decode_phase(dev):
           f"s/frame; all {n_frames} frames match the JAX digests "
           f"(points {[pc.point_count for pc in frames]})")
     print(f"launches on the decode path: {launches}")
-    idle = [k for k in DECODE_KERNELS + ("sao", "deblock", "attr_image")
+    idle = [k for k in DECODE_KERNELS + ("sao", "deblock", "attr_image", "color_convert")
             if launches.get(k, 0) == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the decode path: {idle}")
-    return rows, launches
+    return rows, launches, frames
 
 
 def front_digests(fr):
@@ -915,8 +997,8 @@ def attr_entries(pipeline, paint_args, dilate_args, gather_args, plain: bool):
 
 
 def encode_phase(dev, cfg, frames, segs):
-    """Steps 13-15: kernels M-P and the whole encoder.  Returns (rows,
-    launches)."""
+    """Steps 13-15: kernels M-Q and the whole encoder.  Returns (rows,
+    launches, (the warm encode's stream, its reconstruction))."""
     import numpy as np
 
     from vpcc_tpu_torch import pipeline
@@ -940,6 +1022,7 @@ def encode_phase(dev, cfg, frames, segs):
         "paint": (pipeline, "paint_attribute"),
         "dilate": (pipeline, "group_dilate"),
         "gather": (pipeline, "gather_decoded_colors"),
+        **color_wrappers(hevc),
     }
     planes = []
     real_attr = codecs.AttributeSubstreamEncoder.encode
@@ -985,8 +1068,7 @@ def encode_phase(dev, cfg, frames, segs):
                        None),
     }
     rows = {}
-    for name in ENCODE_KERNELS:
-        kern, plain, args = checks[name]
+    for name, (kern, plain, args) in checks.items():
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(tuple(out_k), tuple(out_p)) if isinstance(out_k, tuple) \
@@ -1011,6 +1093,7 @@ def encode_phase(dev, cfg, frames, segs):
               f"inputs {shapes}")
         rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=err, library_ms=lib)
+    rows["color_convert"] = color_check(hevc, cap, "encode")
 
     # 14. the attribute path on JAX's reconstruction rows
     recons = []
@@ -1113,6 +1196,135 @@ def encode_phase(dev, cfg, frames, segs):
         raise AssertionError(f"RD gate: bytes {100 * d_bytes:+.3f} % (limit "
                              f"{100 * RD_BYTES_TOL} %), PSNR delta {worst:.3f} dB "
                              f"(limit {RD_PSNR_TOL_DB})")
+    return rows, launches, (stream, recon)
+
+
+def psnr_means(ms) -> dict:
+    """Mean D1/D2/Y PSNRs of a list of FrameMetrics."""
+    return {"d1_db": sum(m.c2c_psnr for m in ms) / len(ms),
+            "d2_db": sum(m.c2p_psnr for m in ms) / len(ms),
+            "y_db": sum(m.color_psnr[0] for m in ms) / len(ms)}
+
+
+def metrics_phase(dev, cfg, frames, segs, decoded, r3):
+    """Steps 16-19: kernel R, the fixture's metrics against JAX's and the
+    r1/r3/r5 curve.  `decoded`: the port's decode of the fixture (step 5);
+    `r3`: step 15's (stream, reconstruction).  Returns (rows, launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import metrics
+
+    ref = json.loads(RD_REFERENCE.read_text())
+    d = torch.device("cuda")
+    n = len(frames)
+    src = [(torch.as_tensor(np.asarray(f.positions, np.int32), device=d),
+            torch.as_tensor(f.colors, device=d)) for f in frames]
+
+    def measure(recons, normals):
+        return [metrics.compute_metrics(p, c, r.positions, r.colors, resolution=1023,
+                                        src_normals=nrm, grid_bits=10, device=d)
+                for (p, c), nrm, r in zip(src, normals, recons)]
+
+    # 16. the metrics path on the fixture's decode, counted and timed
+    dev.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    normals = [metrics.estimate_normals(p, 10, device=d) for p, _ in src]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = measure(decoded, normals)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(dev.LAUNCHES)
+    print(f"metrics: source normals {(t1 - t0) / n:.4f} s/frame, compute_metrics "
+          f"{(t2 - t1) / n:.4f} s/frame; launches {launches}")
+    if launches["metrics"] == 0:
+        raise AssertionError("kernel R (metrics) not launched on the metrics path")
+    worst = 0.0
+    for i, (m, r) in enumerate(zip(got, ref["fixture"]["frames"])):
+        if (m.c2c_mse, m.c2c_hausdorff, m.c2c_psnr) != \
+                (r["c2c_mse"], r["c2c_hausdorff"], r["c2c_psnr"]):
+            raise AssertionError(f"frame {i}: D1 MSE / Hausdorff {m.c2c_mse}/{m.c2c_hausdorff}, "
+                                 f"JAX {r['c2c_mse']}/{r['c2c_hausdorff']}")
+        pairs = [(m.c2p_psnr, r["c2p_psnr"])] + list(zip(m.color_psnr, r["color_psnr"]))
+        if not all(np.isfinite(a) for a, _ in pairs):
+            raise AssertionError(f"frame {i}: non-finite PSNR {m}")
+        worst = max([worst] + [abs(a - b) for a, b in pairs])
+    print(f"fixture metrics against the JAX package's on all {n} frames: D1 MSE and Hausdorff "
+          f"equal, worst D2/Y/U/V PSNR delta {worst:.3g} dB (limit {METRICS_PSNR_TOL_DB}); "
+          "D1 " + ", ".join(f"{m.c2c_psnr:.4f}" for m in got))
+    if worst > METRICS_PSNR_TOL_DB:
+        raise AssertionError(f"fixture metrics differ from JAX's by {worst} dB")
+
+    # 17. kernel R == its plain version on frame 0's two directions
+    p0, c0 = src[0]
+    pb = torch.as_tensor(np.asarray(decoded[0].positions, np.int32), device=d)
+    cb = torch.as_tensor(decoded[0].colors, device=d)
+    nb = metrics.transfer_normals(p0, normals[0], pb, 10, device=d)
+    dirs = []
+    for pa_, ca_, pb_, cb_, nb_ in ((p0, c0, pb, cb, nb), (pb, cb, p0, c0, normals[0])):
+        idx, d2 = metrics._nearest_exact(pa_, pb_, 10)
+        dirs.append((pa_, ca_, pb_, cb_, nb_, idx, d2, pa_.shape[0]))
+    kern = lambda: [metrics.metrics_reduce(*a) for a in dirs]
+    plain = lambda: [metrics.metrics_reduce_plain(*a) for a in dirs]
+    out_k, out_p = kern(), plain()
+    torch.cuda.synchronize()
+    err, rel = 0.0, 0.0
+    for (ik, fk), (ip, fp) in zip(out_k, out_p):
+        if not torch.equal(ik, ip):
+            raise AssertionError(f"metrics: integer sums {ik.tolist()} vs plain {ip.tolist()}")
+        err = max(err, float((fk - fp).abs().max()))
+        rel = max(rel, float(((fk - fp).abs() / fp.abs().clamp(min=1e-300)).max()))
+    if rel > R_FLOAT_RTOL:
+        raise AssertionError(f"metrics: float sums differ from the plain version by {rel:.3g} "
+                             f"(relative; limit {R_FLOAT_RTOL})")
+    (k1, k2), (q1, q2) = time_turns(kern, plain)
+    b_ms, b_by = bounds("metrics", dirs, out_k)
+    print(f"metrics: integer sums exact, float64 sums max abs err {err:.3g} (relative "
+          f"{rel:.3g}); kernel {k1:.4f}/{k2:.4f} ms, plain {q1:.3f}/{q2:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); both directions of frame 0, rows "
+          f"{[a[7] for a in dirs]}")
+    rows = {"metrics": dict(ms=(k1 + k2) / 2, plain_ms=(q1 + q2) / 2, bound_ms=b_ms,
+                            bound_by=b_by, max_abs_err=err)}
+
+    # 18. the RD curve at r1 / r3 / r5 against the JAX encoder's
+    npts = sum(f.point_count for f in frames)
+    curve = []
+    for rate in ("r1", "r3", "r5"):
+        jr = ref["rates"][rate]
+        if rate == "r3":
+            stream, recon = r3
+        else:
+            gqp, aqp = ref["rate_qps"][rate]
+            t0 = time.perf_counter()
+            enc = Encoder(dataclasses.replace(cfg, geometryQP=gqp, attributeQP=aqp),
+                          device="cuda")
+            stream, recon = enc.encode_gof(frames, segs=segs)
+            torch.cuda.synchronize()
+            print(f"{rate} encode (QP {gqp}/{aqp}, JAX partitions): "
+                  f"{(time.perf_counter() - t0) / n:.4f} s/frame; bytes per substream "
+                  "(port/JAX): " + ", ".join(f"{k} {enc.last_stream_stats.get(k)}/{v}"
+                                             for k, v in jr["stream_stats"].items()))
+        mean = psnr_means(measure(recon, normals))
+        d_bytes = len(stream) / jr["stream_bytes"] - 1.0
+        deltas = {k: mean[k] - jr["mean"][k] for k in mean}
+        curve.append((rate, len(stream) * 8 / npts, jr["bpp"], mean, jr["mean"]))
+        print(f"{rate}: stream {len(stream)} vs {jr['stream_bytes']} bytes "
+              f"({100 * d_bytes:+.4f} %), mean PSNR deltas "
+              + ", ".join(f"{k} {v:+.4f}" for k, v in deltas.items()))
+        if abs(d_bytes) > RD_BYTES_TOL or max(abs(v) for v in deltas.values()) > RD_PSNR_TOL_DB:
+            raise AssertionError(f"{rate} RD gate: bytes {100 * d_bytes:+.3f} % (limit "
+                                 f"{100 * RD_BYTES_TOL} %), PSNR deltas {deltas} (limit "
+                                 f"{RD_PSNR_TOL_DB} dB)")
+
+    # 19. the curve
+    print("RD curve, port / JAX (8 bench frames, JAX partitions; bpp, mean D1, D2, Y dB):")
+    for rate, bpp, jbpp, m, jm in curve:
+        print(f"  {rate}: bpp {bpp:.4f}/{jbpp:.4f}  D1 {m['d1_db']:.4f}/{jm['d1_db']:.4f}  "
+              f"D2 {m['d2_db']:.4f}/{jm['d2_db']:.4f}  Y {m['y_db']:.4f}/{jm['y_db']:.4f}")
     return rows, launches
 
 
@@ -1160,17 +1372,20 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
-    rows, launches = decode_phase(dev)
+    rows, launches, decoded = decode_phase(dev)
     front_rows, front_launches, (cfg, frames, segs) = front_phase(dev)
     geo_rows, geo_launches = geometry_phase(dev, cfg, frames, segs)
-    enc_rows, enc_launches = encode_phase(dev, cfg, frames, segs)
+    enc_rows, enc_launches, r3 = encode_phase(dev, cfg, frames, segs)
+    met_rows, met_launches = metrics_phase(dev, cfg, frames, segs, decoded, r3)
     rows.update(front_rows)
     rows.update(geo_rows)
     rows.update(enc_rows)
+    rows.update(met_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
-                **{k: enc_launches[k] for k in ENCODE_KERNELS}}
+                **{k: enc_launches[k] for k in ENCODE_KERNELS},
+                **{k: met_launches[k] for k in METRICS_KERNELS}}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

@@ -91,13 +91,15 @@ def test_fixture_stream_parses():
 
 
 def test_port_imports_no_jax():
-    """The package, its decoder, its encoder front end, the synthetic clouds
-    and its CLI import neither JAX nor vpcc_tpu."""
+    """The package, its decoder, its encoder, the metrics, the synthetic
+    clouds and its CLIs import neither JAX nor vpcc_tpu."""
     code = (
         "import sys, vpcc_tpu_torch, vpcc_tpu_torch.decoder, "
         "vpcc_tpu_torch.apps.decode, vpcc_tpu_torch.carry, "
         "vpcc_tpu_torch.encoder, vpcc_tpu_torch.core.packing, "
-        "vpcc_tpu_torch.utils.synthetic\n"
+        "vpcc_tpu_torch.utils.synthetic, vpcc_tpu_torch.ops.metrics, "
+        "vpcc_tpu_torch.apps.encode, vpcc_tpu_torch.apps.metrics, "
+        "vpcc_tpu_torch.apps.normal_generator, vpcc_tpu_torch.apps.bench\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'vpcc_tpu' or m.startswith('vpcc_tpu.')]\n"
         "assert not bad, bad\n"

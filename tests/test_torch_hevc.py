@@ -102,6 +102,21 @@ def test_color_conversion_float32_exact():
     )
 
 
+def test_rgb_planes_both_ways_exact():
+    """The RGB 4:2:0 layer's two conversions (kernel Q's plain versions) on
+    random images: `_int_planes_to_rgb` of random int planes and
+    `rgb_refs` of a random RGB image equal the reference's."""
+    rng = np.random.default_rng(21)
+    y = rng.integers(0, 256, (64, 96)).astype(np.int32)
+    cb, cr = (rng.integers(0, 256, (32, 48)).astype(np.int32) for _ in range(2))
+    want = np.asarray(jh._int_planes_to_rgb(jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr)))
+    got = th._int_planes_to_rgb(*(torch.as_tensor(a) for a in (y, cb, cr)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    rgb = rng.integers(0, 256, (64, 96, 3)).astype(np.uint8)
+    for a, b in zip(th.rgb_refs(torch.as_tensor(rgb)), jh.rgb_refs(jnp.asarray(rgb))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 @pytest.mark.parametrize("bs,maxval", [(32, 1023), (32, 255), (16, 255)])
 def test_half_pel_mc_matches_reference(bs, maxval):
     """Kernel B's plain version vs `_half_planes` + `_apply_motion_half`,

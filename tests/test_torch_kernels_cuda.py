@@ -424,3 +424,46 @@ def test_attr_image_kernel(cuda):
     a0, a1 = d_k[0].to(torch.uint8), d_k[1].to(torch.uint8)
     _same(pipeline.gather_decoded_colors(pix, layer, a0, a1),
           pipeline.gather_decoded_colors_plain(pix, layer, a0, a1))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_color_convert_kernel(cuda, dtype):
+    """Both entries of kernel Q, on uint8 (decoded) and int32 (encoder)
+    RGB, including the saturated corners of the RGB cube."""
+    rng = np.random.default_rng(80)
+    rgb = rng.integers(0, 256, (96, 130, 3))
+    rgb[:4, :4] = [[0, 0, 255], [255, 0, 0], [0, 255, 0], [255, 255, 255]]
+    attr = torch.as_tensor(rgb, device=cuda).to(dtype)
+    got = hevc._rgb_to_int_planes(attr)
+    want = hevc.rgb_to_int_planes_plain(attr)
+    for a, b in zip(got, want):
+        _same(a, b)
+    y = torch.as_tensor(rng.integers(0, 256, (96, 130)).astype(np.int32), device=cuda)
+    cb, cr = (torch.as_tensor(rng.integers(0, 256, (48, 65)).astype(np.int32), device=cuda)
+              for _ in range(2))
+    _same(hevc._int_planes_to_rgb(y, cb, cr), hevc.int_planes_to_rgb_plain(y, cb, cr))
+
+
+@pytest.mark.parametrize("with_normals,with_colors", [(True, True), (False, False)])
+def test_metrics_kernel(cuda, with_normals, with_colors):
+    """Kernel R on one direction of a jittered cloud: the integer sums
+    exact, the float64 sums to 1e-9 (another summation order)."""
+    from vpcc_tpu_torch.ops import metrics
+
+    rng = np.random.default_rng(90)
+    n = 50_000
+    pa = rng.integers(0, 256, (n, 3)).astype(np.int32)
+    pb = np.clip(pa + rng.integers(-2, 3, pa.shape), 0, 255).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    ca = t(rng.integers(0, 256, (n, 3)).astype(np.uint8)) if with_colors else None
+    cb = t(rng.integers(0, 256, (n, 3)).astype(np.uint8)) if with_colors else None
+    nrm = rng.standard_normal((n, 3)).astype(np.float32)
+    nb = t(nrm / np.linalg.norm(nrm, axis=1, keepdims=True)) if with_normals else None
+    pa_t, pb_t = t(pa), t(pb)
+    idx, d2 = neighbors.nearest(neighbors.build_grid(pb_t, 8), pa_t)
+    args = (pa_t, ca, pb_t, cb, nb, idx, d2, n - 7)
+    ik, fk = metrics.metrics_reduce(*args)
+    ip, fp = metrics.metrics_reduce_plain(*args)
+    _same(ik, ip)
+    torch.testing.assert_close(fk, fp, rtol=1e-9, atol=0.0)
+    assert (fk[0] > 0) == with_normals and (fk[1] > 0) == with_colors

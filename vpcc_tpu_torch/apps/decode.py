@@ -19,20 +19,14 @@ import time
 from pathlib import Path
 
 from vpcc_tpu_torch import conformance
+from vpcc_tpu_torch.apps.encode import split_device
 from vpcc_tpu_torch.decoder import Decoder
 from vpcc_tpu_torch.utils.config import VPCCConfig
 from vpcc_tpu_torch.utils.ply import write_ply
 
 
 def main(argv=None) -> int:
-    argv = list(argv if argv is not None else sys.argv[1:])
-    device = None
-    rest = []
-    for a in argv:
-        if a.startswith("--device="):
-            device = a.split("=", 1)[1]
-        else:
-            rest.append(a)
+    device, rest = split_device(list(argv if argv is not None else sys.argv[1:]))
     cfg = VPCCConfig.from_args(rest)
     cfg.report_ignored()
     if not cfg.compressedStreamPath:

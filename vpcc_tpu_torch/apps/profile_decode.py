@@ -42,8 +42,8 @@ def _stage_patches():
         (hevc, "wavefront_decode32", "device: kernel A wavefront_decode32"),
         (hevc, "deblock_planes", "device: kernel O deblock"),
         (hevc, "sao_apply", "device: kernel K sao_apply"),
-        (hevc, "_int_planes_to_rgb", "device: YCbCr->RGB (torch)"),
-        (hevc, "rgb_refs", "device: RGB->YCbCr refs (torch)"),
+        (hevc, "_int_planes_to_rgb", "device: kernel Q YCbCr->RGB"),
+        (hevc, "rgb_refs", "device: kernel Q RGB->YCbCr refs"),
         (reconstruct, "generate_points", "device: kernel C generate_points"),
         (smoothing, "grid_smooth", "device: kernel D grid_smooth"),
         (pipeline, "gather_decoded_colors", "device: kernel P gather"),

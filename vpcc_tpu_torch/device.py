@@ -68,6 +68,8 @@ KERNELS: Dict[str, list] = {
     "presmooth": ["--fmad=false"],
     "deblock": [],
     "attr_image": [],
+    "color_convert": ["--fmad=false"],
+    "metrics": ["--fmad=false"],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -7,7 +7,9 @@ these values on both the encoder and the decoder side.  The reference runs
 on XLA's CPU backend, which fuses multiply-adds and multiplies by the
 float32 reciprocal of a constant divisor; the formulas below are written in
 that fused form (`device.fma_f32`, `device.recip_f32`), each remaining op
-being one float32 rounding.
+being one float32 rounding.  They are the plain versions of kernel Q
+(csrc/color_convert.cu, `hevc._rgb_to_int_planes` / `_int_planes_to_rgb`),
+which the video path runs on the card.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ import torch
 
 from vpcc_tpu_torch.device import fma_f32, recip_f32
 
-_INV_CB = recip_f32(1.8556)
-_INV_CR = recip_f32(1.5748)
-_INV_G = recip_f32(0.7152)
+# the float32 reciprocals XLA multiplies by (kernel Q receives the same)
+INV_CB = recip_f32(1.8556)
+INV_CR = recip_f32(1.5748)
+INV_G = recip_f32(0.7152)
 
 
 def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
@@ -29,8 +32,8 @@ def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
     g = rgb[..., 1].float()
     b = rgb[..., 2].float()
     y = fma_f32(0.0722, b, fma_f32(0.2126, r, 0.7152 * g))
-    cb = fma_f32(b - y, _INV_CB, 128.0)
-    cr = fma_f32(r - y, _INV_CR, 128.0)
+    cb = fma_f32(b - y, INV_CB, 128.0)
+    cr = fma_f32(r - y, INV_CR, 128.0)
     return torch.stack([y, cb, cr], -1)
 
 
@@ -43,6 +46,6 @@ def ycbcr_to_rgb(ycc: torch.Tensor) -> torch.Tensor:
     cr = ycc[..., 2] - 128.0
     r = fma_f32(1.5748, cr, y)
     b = fma_f32(1.8556, cb, y)
-    g = fma_f32(-0.0722, b, fma_f32(-0.2126, r, y)) * _INV_G
+    g = fma_f32(-0.0722, b, fma_f32(-0.2126, r, y)) * INV_G
     rgb = torch.stack([r, g, b], -1)
     return torch.round(rgb).clamp(0, 255).to(torch.uint8)

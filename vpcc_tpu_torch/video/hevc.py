@@ -29,7 +29,8 @@ Stages of `encode_planes`:
 5. host: `assemble_payload32`, the entropy coder.
 
 `encode_rgb` / `decode_rgb` code an RGB attribute image as a luma plane and
-a 4:2:0 chroma pair (chroma QP + 3) on top of these.
+a 4:2:0 chroma pair (chroma QP + 3) on top of these; the color conversion
+both ways (and `rgb_refs`) is kernel Q `color_convert` on the device.
 
 Each kernel wrapper runs its plain PyTorch version (`*_plain`, same
 arguments, same result) when its input lies on the CPU; on a CUDA tensor it
@@ -739,18 +740,80 @@ def _downsample_420_int(plane):
     return (plane.reshape(h // 2, 2, w // 2, 2).sum((1, 3)) + 2) >> 2
 
 
-def _rgb_to_int_planes(attr):
-    """(H, W, 3) uint8 RGB -> (y (H, W), cb, cr (H/2, W/2)) int32."""
+def rgb_to_int_planes_plain(attr):
+    """(H, W, 3) uint8 or int32 RGB -> (y (H, W), cb, cr (H/2, W/2)) int32: full-range
+    BT.709 in XLA's fused float32 order (`color.rgb_to_ycbcr`), rounded half
+    to even, clipped to 0..255, chroma as the integer 2x2 mean.  Plain
+    version of kernel Q's `rgb_to_int_planes`."""
     ycc = color.rgb_to_ycbcr(attr)
     to8 = lambda p: torch.round(p).clamp(0, 255).to(torch.int32)
     return (to8(ycc[..., 0]), _downsample_420_int(to8(ycc[..., 1])),
             _downsample_420_int(to8(ycc[..., 2])))
 
 
-def _int_planes_to_rgb(y, cb, cr):
+def int_planes_to_rgb_plain(y, cb, cr):
+    """(y (H, W), cb, cr (H/2, W/2)) int32 -> (H, W, 3) uint8 RGB: nearest
+    2x chroma upsample, then `color.ycbcr_to_rgb`.  Plain version of kernel
+    Q's `int_planes_to_rgb`."""
     up = lambda p: p.repeat_interleave(2, 0).repeat_interleave(2, 1)
     ycc = torch.stack([y.float(), up(cb).float(), up(cr).float()], -1)
     return color.ycbcr_to_rgb(ycc)
+
+
+def _rgb_to_int_planes(attr):
+    """Kernel Q (csrc/color_convert.cu) `rgb_to_int_planes`: the reference's
+    `_rgb_to_int_planes(attr, None)` (hevc.py:1766), one thread per 2x2
+    quad, on uint8 (decoded) or int32 (the encoder's 0..255 images) RGB;
+    `rgb_to_int_planes_plain` for a CPU tensor."""
+    if attr.device.type == "cpu":
+        return rgb_to_int_planes_plain(attr)
+    d = attr.device
+    attr = attr.contiguous()
+    if attr.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"rgb_to_int_planes: expected uint8 or int32 RGB, got {attr.dtype}")
+    dev.check_tensor(attr, "attr", attr.dtype, d, 3)
+    H, W, C = attr.shape
+    if C != 3 or H % 2 or W % 2:
+        raise ValueError(f"rgb_to_int_planes: expected (even H, even W, 3), got {tuple(attr.shape)}")
+    y = torch.empty((H, W), dtype=torch.int32, device=d)
+    cb = torch.empty((H // 2, W // 2), dtype=torch.int32, device=d)
+    cr = torch.empty_like(cb)
+    fn = dev.load_kernel("color_convert").rgb_to_int_planes
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    rc = fn(dev.ptr(attr), attr.element_size(), H, W, color.INV_CB, color.INV_CR, dev.ptr(y),
+            dev.ptr(cb), dev.ptr(cr), dev.stream_handle())
+    dev.count_launch("color_convert", 1 if H * W else 0)
+    dev.check_launch("color_convert", rc)
+    return y, cb, cr
+
+
+def _int_planes_to_rgb(y, cb, cr):
+    """Kernel Q (csrc/color_convert.cu) `int_planes_to_rgb`: the reference's
+    `_int_planes_to_rgb` (hevc.py:1783), one thread per chroma sample;
+    `int_planes_to_rgb_plain` for CPU tensors."""
+    if y.device.type == "cpu":
+        return int_planes_to_rgb_plain(y, cb, cr)
+    d = y.device
+    y, cb, cr = y.contiguous(), cb.contiguous(), cr.contiguous()
+    H, W = y.shape
+    for name, t, shape in (("y", y, (H, W)), ("cb", cb, (H // 2, W // 2)),
+                           ("cr", cr, (H // 2, W // 2))):
+        dev.check_tensor(t, name, torch.int32, d, 2)
+        if tuple(t.shape) != shape or H % 2 or W % 2:
+            raise ValueError(f"int_planes_to_rgb: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape} (even luma dims)")
+    rgb = torch.empty((H, W, 3), dtype=torch.uint8, device=d)
+    fn = dev.load_kernel("color_convert").int_planes_to_rgb
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(dev.ptr(y), dev.ptr(cb), dev.ptr(cr), H, W, color.INV_G, dev.ptr(rgb),
+            dev.stream_handle())
+    dev.count_launch("color_convert", 1 if H * W else 0)
+    dev.check_launch("color_convert", rc)
+    return rgb
 
 
 def rgb_refs(rgb) -> Tuple[torch.Tensor, torch.Tensor]:
