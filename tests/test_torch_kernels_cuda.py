@@ -155,6 +155,60 @@ def test_grid_knn_kernel(cuda, k, bucket):
             _same(a, b)
 
 
+@pytest.mark.parametrize("k,bucket", [(1, 8), (8, 6), (16, 6), (64, 6)])
+def test_grid_knn_xyz_kernel(cuda, k, bucket):
+    """The unpacked-table entry (grids above 10 bits): the clouds moved
+    into the 11-bit range (8^3-voxel cells; the block overfills them),
+    queries around them and outside the grid."""
+    rng = np.random.default_rng(20 + k)
+    for pts in _knn_clouds():
+        pts = pts + 1000
+        q = np.concatenate([pts, rng.integers(990, 2060, (2000, 3)).astype(np.int32),
+                            np.full((5, 3), 0x3FFFFFFF, np.int32)])
+        p, qq = torch.as_tensor(pts, device=cuda), torch.as_tensor(q, device=cuda)
+        g = neighbors.build_grid(p, 11)
+        assert not g.packed
+        n0 = dev.LAUNCHES["grid_knn_xyz"]
+        got = neighbors.knn(g, qq, k=k, bucket=bucket)
+        assert dev.LAUNCHES["grid_knn_xyz"] == n0 + 1
+        want = neighbors.knn_plain(g, qq, k=k, bucket=bucket)
+        for a, b in zip(got, want):
+            _same(a, b)
+
+
+def test_cc_round_voxel_kernel(cuda):
+    """A full-graph patch round: the point mask lifted to the voxels, kernel
+    G over the whole voxel graph, the labels gathered back."""
+    p, idx, valid = _voxel_graph(cuda)
+    rng = np.random.default_rng(60)
+    n = 3 * p.shape[0]
+    point_vox = torch.as_tensor(rng.integers(0, p.shape[0], n).astype(np.int32), device=cuda)
+    act = torch.as_tensor(rng.random(n) < 0.6, device=cuda)
+    part = (p[:, 0] // 200).to(torch.int32)
+    got = cc.cc_round_voxel(idx, valid, part, point_vox, act)
+    want = cc.cc_round_voxel(idx.cpu(), valid.cpu(), part.cpu(), point_vox.cpu(), act.cpu())
+    _same(got, want)
+
+
+@pytest.mark.parametrize("k_bwd", [1, 0])
+def test_recolor_blend_kernel(cuda, k_bwd):
+    """The uncompacted transfer of grids above 10 bits (host exact matching,
+    kernel M's forward blend over every target and splat over every source)
+    on the card against the CPU's plain versions."""
+    rng = np.random.default_rng(70 + k_bwd)
+    sp, sc, tp = _recolor_inputs(rng, cuda)
+    sp, tp = sp + 1500, tp + 1500
+    ei, he = recolor.exact_matches(sp.cpu().numpy(), tp.cpu().numpy(), sp.shape[0], 11)
+    kw = dict(grid_bits=11, k=8, k_bwd=k_bwd)
+    n0 = dev.LAUNCHES["recolor"]
+    card = recolor.transfer_colors(sp, sc, tp, torch.as_tensor(ei, device=cuda),
+                                   torch.as_tensor(he, device=cuda), **kw)
+    assert dev.LAUNCHES["recolor"] == n0 + (4 if k_bwd else 3)
+    host = recolor.transfer_colors(sp.cpu(), sc.cpu(), tp.cpu(), torch.as_tensor(ei),
+                                   torch.as_tensor(he), **kw)
+    _same(card, host)
+
+
 def _voxel_graph(cuda):
     pts = _knn_clouds()[0]
     p = torch.as_tensor(pts, device=cuda)

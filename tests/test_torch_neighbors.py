@@ -84,5 +84,6 @@ def test_knn_rejects_unsupported():
     g = tn.build_grid(torch.zeros((4, 3), dtype=torch.int32), 8)
     with pytest.raises(ValueError):
         tn.knn(g, torch.zeros((4, 3), dtype=torch.int32), k=65)
-    with pytest.raises(NotImplementedError):
-        tn.build_grid(torch.zeros((4, 3), dtype=torch.int32), 11)
+    # above 10 bits the table is unpacked (N, 3) rows, as the reference's
+    g11 = tn.build_grid(torch.zeros((4, 3), dtype=torch.int32), 11)
+    assert g11.packed is False and tuple(g11.table.shape) == (4, 3) and g.packed

@@ -314,10 +314,6 @@ def test_encoder_device_policy_and_unsupported_options():
         setattr(cfg, k, v)
         with pytest.raises(NotImplementedError):
             Encoder(cfg, device="cpu")
-    cfg = VPCCConfig()
-    cfg.geometry3dCoordinatesBitdepth = 11
-    with pytest.raises(NotImplementedError):
-        Encoder(cfg, device="cpu").generate_patches(None, None, None)
     from vpcc_tpu_torch.core import packing
 
     cfg = VPCCConfig()

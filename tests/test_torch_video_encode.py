@@ -227,3 +227,20 @@ def test_encode_planes_unsupported():
     enc = tcodecs.GeometrySubstreamEncoder(cfg, torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="lossless geometry"):
         enc.encode(np.zeros((64, 64), np.uint16))
+
+
+def test_rdo_tie_crop_matches_reference():
+    """A 64x256 crop of the bench GOF's first D0 plane (CTC r3, JAX
+    partitions; its push-pull-filled samples and RD weights,
+    vpcc_tpu_torch/data/rdo_tie_crop.npy) where two angular modes of CU
+    (1, 6) cost the same unless the distortion sum follows XLA's reduce
+    order and the cost contracts the rate product: the port must choose
+    JAX's mode 33, and the payload must be JAX's byte for byte."""
+    from pathlib import Path
+
+    crop = np.load(Path(th.__file__).resolve().parents[1] / "data" / "rdo_tie_crop.npy")
+    plane, weight = crop[:1].astype(np.int32), crop[1].astype(np.int32)
+    want, _ = jh.encode_planes(plane, [24], [255], deblock=False, weight=weight)
+    got, _ = th.encode_planes(_t(plane), [24], [255], deblock=False, weight=_t(weight))
+    assert th.parse_planes32(want)["m32"][0, 1 * 8 + 6] == 33
+    assert got == want

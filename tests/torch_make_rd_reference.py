@@ -16,7 +16,7 @@ normals, as bench.py measures its RD curve:
   with the fixture's overrides (`torch_make_smoke_stream.OVERRIDES`) and the
   CTC QPs of BASELINE.md (geometry/attribute: r1 32/42, r3 24/32, r5
   16/22; occupancy precision 2 at every rate, as bench.py sets it): stream
-  bytes, bytes per substream, per-frame metrics of the encoder's
+  bytes and md5, bytes per substream, per-frame metrics of the encoder's
   reconstruction and their means; r3 is the fixture (the script first
   checks that the JAX encoder still writes it byte for byte);
 * the seeds, the command and the JAX-CPU wall seconds.
@@ -132,6 +132,7 @@ def main() -> int:
     print(f"fixture: {fix_mean}", flush=True)
 
     rates = {"r3": dict(qps=list(RATE_QPS["r3"]), stream_bytes=len(fixture),
+                        stream_md5=hashlib.md5(fixture).hexdigest(),
                         stream_stats=r3_stats, frames=fix_frames, mean=fix_mean,
                         note="the committed fixture; frames as in `fixture`")}
     for rate in ("r1", "r5"):
@@ -143,6 +144,7 @@ def main() -> int:
         per_frame, mean = measure(frames, normals, recons)
         wall[f"metrics_{rate}"] = time.perf_counter() - t0
         rates[rate] = dict(qps=list(RATE_QPS[rate]), stream_bytes=len(stream),
+                           stream_md5=hashlib.md5(stream).hexdigest(),
                            stream_stats=dict(enc.last_stream_stats), frames=per_frame,
                            mean=mean)
         print(f"{rate}: {len(stream)} bytes, {mean}", flush=True)

@@ -1,12 +1,15 @@
 """Where the whole encoder's time goes: stage split of `Encoder.encode_gof`
 over the 8-frame bench GOF and a device trace of one warm P-frame, on CUDA.
 
-    python -m vpcc_tpu_torch.apps.profile_encode [--frames=8]
+    python -m vpcc_tpu_torch.apps.profile_encode [--frames=8] [--vox11]
 
 The frames are the bench content (`make_person_cloud(bits=10,
 n_samples=3_000_000)`, seeds 7..), with the configuration of the committed
 front-end reference data (CTC r3, geometry QP 24, attribute QP 32, 8-frame
-hierarchical RA GOF, 1280x1280 atlas), segmented by the encoder itself.
+hierarchical RA GOF, 1280x1280 atlas), segmented by the encoder itself;
+with --vox11, the two 11-bit frames of the committed vox11 reference data
+(`make_person_cloud(bits=11, n_samples=12_000_000)`, seeds 7 and 8, the
+same configuration at geometry3dCoordinatesBitdepth=11).
 `Encoder.encode_gof` runs once to warm up, then again with each stage
 bracketed by `torch.cuda.synchronize()` (stages do not overlap), and prints
 (1) the per-frame stage split from host clocks and (2) from
@@ -43,6 +46,9 @@ def stage_patches():
     return geometry_stages() + [
         (recolor, "transfer_colors_compact",
          "device: recolor (kernel M, two kernel E sweeps, compaction)"),
+        (recolor, "exact_matches", "host: exact matching (above 10 bits)"),
+        (recolor, "transfer_colors",
+         "device: recolor above 10 bits (kernel M over two kernel E sweeps)"),
         (smoothing, "presmooth_colors", "device: pre-smoothing (kernel E k=64, kernel N)"),
         (pipeline, "paint_attribute", "device: kernel P paint"),
         (pipeline, "group_dilate", "device: kernel P group dilation"),
@@ -71,6 +77,7 @@ def trace_p_frame(enc, frames, out, segs=None):
 def main(argv=None) -> int:
     argv = list(argv if argv is not None else sys.argv[1:])
     n_frames = 8
+    vox11 = "--vox11" in argv
     for a in argv:
         if a.startswith("--frames="):
             n_frames = int(a.split("=", 1)[1])
@@ -81,11 +88,16 @@ def main(argv=None) -> int:
     from vpcc_tpu_torch.utils.config import VPCCConfig
     from vpcc_tpu_torch.utils.synthetic import make_person_cloud
 
-    ref = json.loads((DATA / "person_vox10_front_digests.json").read_text())
+    if vox11:
+        ref = json.loads((DATA / "person_vox11_reference.json").read_text())
+        bits, n_samples = 11, ref["n_samples"]
+    else:
+        ref = json.loads((DATA / "person_vox10_front_digests.json").read_text())
+        bits, n_samples = 10, 3_000_000
     cfg = VPCCConfig()
     for k, v in ref["overrides"].items():
         setattr(cfg, k, v)
-    frames = [make_person_cloud(bits=10, n_samples=3_000_000, seed=s)
+    frames = [make_person_cloud(bits=bits, n_samples=n_samples, seed=s)
               for s in ref["seeds"][:n_frames]]
     Encoder(cfg, device="cuda").encode_gof(frames)     # warm-up
     torch.cuda.synchronize()

@@ -552,7 +552,7 @@ class AtlasSequenceParameterSet:
             if tbl is None:
                 raise NotImplementedError(
                     "the default PLR mode table: PLR is not ported yet "
-                    "(ROADMAP queue 1, item 10)")
+                    "(ROADMAP queue 1)")
             for row in np.asarray(tbl, np.int32):
                 bw.u(1, int(row[0]))
                 bw.u(1, int(row[1]))

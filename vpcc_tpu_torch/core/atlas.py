@@ -37,7 +37,7 @@ def rasterize_frame(patches: List[Patch], width: int, height: int, cfg: VPCCConf
     clipped to the 2D bit depth) at its canvas position, in patch order."""
     if cfg.enhancedOccupancyMapCode:
         raise NotImplementedError(
-            "enhancedOccupancyMapCode is not ported yet (ROADMAP queue 1, item 10)")
+            "enhancedOccupancyMapCode is not ported yet (ROADMAP queue 1)")
     occ = np.zeros((height, width), np.uint8)
     geo0 = np.zeros((height, width), np.uint16)
     geo1 = np.zeros((height, width), np.uint16)

@@ -120,7 +120,7 @@ def pack_flexible(
     if cfg.packingStrategy == 2:
         raise NotImplementedError(
             "packingStrategy=2 (tetris packing) is not ported yet (ROADMAP "
-            "queue 1, item 10)")
+            "queue 1)")
     res = cfg.occupancyResolution
     strategy = cfg.packingStrategy
     if strategy == 0:

@@ -180,7 +180,7 @@ class Patch:
         points_d1 (M2,3), pixel_uv (M,2)) (reference: PCCPatch.h:201
         generatePoint)."""
         if self.eom is not None and self.eom.any():
-            raise NotImplementedError("EOM points are not ported yet (ROADMAP queue 1, item 10)")
+            raise NotImplementedError("EOM points are not ported yet (ROADMAP queue 1)")
         vv, uu = np.nonzero(self.occupancy)
         d0 = self.depth0[vv, uu]
         pts0 = self._uvd_to_xyz(uu, vv, d0)
@@ -212,7 +212,7 @@ def build_patch_from_component(
 ) -> Optional[Patch]:
     if cfg.enhancedOccupancyMapCode:
         raise NotImplementedError(
-            "enhancedOccupancyMapCode is not ported yet (ROADMAP queue 1, item 10)")
+            "enhancedOccupancyMapCode is not ported yet (ROADMAP queue 1)")
     axes = VIEW_AXES[view_id]
     add_axis, normal_axis, tangent_axis, bitangent_axis, mode = (int(a) for a in axes)
     pdt = 1 - 2 * mode  # projectionDirectionType: +1 for mode 0, -1 for mode 1

@@ -10,7 +10,10 @@
 // Pass 2 (one thread per point): the trilinear centroid over the 2x2x2
 // cells around the point, in float32 and in the reference's order: for
 // dz, dy, dx the weight (wx*wy)*wz, the centroid and weight-count
-// accumulated as fused multiply-adds (XLA's CPU backend fuses them), the
+// accumulated as fused multiply-adds (XLA's CPU backend fuses them; the
+// centroid's first add, of the first two corners' products, fuses the
+// first product and rounds the second: found on 11-bit grids, where
+// coordinates near 2047 expose the difference), the
 // division by 8*gridSize^3, the floor of the count, then the squared
 // distance as a fused multiply-add chain and the move test against
 // max(threshold, count) * 2.  This file is compiled with --fmad=false, so
@@ -66,6 +69,8 @@ __global__ void grid_move_kernel(const int32_t* pos, const uint8_t* bnd, int M,
   const long long sentinel = static_cast<long long>(gw) * gw * gw;
   bool any_smooth = false;
   float c4[3] = {0.f, 0.f, 0.f};
+  float cent0[3] = {0.f, 0.f, 0.f};
+  float wgt0 = 0.f;
   float wcount = 0.f;
   for (int dz = 0; dz < 2; ++dz) {
     for (int dy = 0; dy < 2; ++dy) {
@@ -81,11 +86,19 @@ __global__ void grid_move_kernel(const int32_t* pos, const uint8_t* bnd, int M,
         const float wy = static_cast<float>(dy == 0 ? q[1] : w[1]);
         const float wz = static_cast<float>(dz == 0 ? q[2] : w[2]);
         const float wgt = __fmul_rn(__fmul_rn(wx, wy), wz);
+        const int corner = (dz * 2 + dy) * 2 + dx;
         for (int k = 0; k < 3; ++k) {
           const float cent =
               cc > 0 ? __fdiv_rn(static_cast<float>(csum[ncid * 3 + k]), ccf) : cur[k];
-          c4[k] = __fmaf_rn(cent, wgt, c4[k]);
+          if (corner == 0) {
+            cent0[k] = cent;  // XLA fuses the first product into the first add
+          } else if (corner == 1) {
+            c4[k] = __fmaf_rn(cent0[k], wgt0, __fmul_rn(cent, wgt));
+          } else {
+            c4[k] = __fmaf_rn(cent, wgt, c4[k]);
+          }
         }
+        if (corner == 0) wgt0 = wgt;
         wcount = __fmaf_rn(wgt, static_cast<float>(cc), wcount);
       }
     }

@@ -28,6 +28,29 @@
 //   color, else the forward color, averaged 0.5 * (fwd + bwd) with the
 //   splat where one landed, rounded half to even (rintf), clamped to 0..255.
 //
+// Above 10 bits (vox11) the reference runs `transfer_colors` (recolor.py:70)
+// instead: host exact matching, k-NN sweeps over ALL targets and ALL
+// sources, then the one XLA program `_blend` (:291).  No new entry serves
+// it, because `_blend`'s optimized HLO on the CPU has the float order that
+// recolor_fwd_blend and recolor_splat_merge already reproduce:
+// * the weights are one loop fusion `maximum_divide_fusion` with the same
+//   operands as `_fwd_blend`'s (valid / max(d2f + offset, 1e-8), a true
+//   division), and the weight sum is the same separate `wrapped_reduce`
+//   (slot order from 0);
+// * the numerator is `reduce(multiply(cols, w), dims={1})` inside the
+//   final loop fusion, the same reduce as `_fwd_blend`'s
+//   `broadcast_divide_fusion` (the CPU backend contracts it to a slot-order
+//   FMA chain), followed by the same `divide(num, max(wsum, 1e-8))`;
+// * the merge is `_bwd_and_merge_compact`'s: select(exact, src color,
+//   fwd), divide(acc, max(cnt, 1)), multiply(add(out, bwd), 0.5),
+//   round-nearest-even, clamp(0, 255); acc and cnt are float32
+//   scatter-adds of integers (exact in any order).
+// So ops/recolor.py `transfer_colors` drives recolor_fwd_blend over every
+// target (the exact ones are replaced in the merge) and recolor_splat_merge
+// over every source, a matched source's distance set to MAX_DIST2 so that
+// the gate drops it as `_blend`'s `~matched_src` does.  The tests hold the
+// result against `transfer_colors` of the JAX package bit for bit.
+//
 // Bound: bytes.  The exact match reads each target once and ~log2(Ns)
 // sorted keys per target (cached); the blend reads k index/distance pairs
 // and k colors per inexact target; the merge reads and writes (Nt, 3).

@@ -22,14 +22,25 @@
 // Mode evaluation.  A block of n x n takes 1024 / (n*n) modes at a time,
 // one thread per (mode, sample): prediction (planar/DC by formula, angular
 // from the 2-tap tables, inter from the motion-compensated plane; equal to
-// the reference's prediction matrix), residual, the orthonormal DCT as two
-// sequential fma chains (t[j,l] = sum_k r[j,k] Cf[l,k], then c[i,l] =
-// sum_j Cf[i,j] t[j,l]), lv = min(floor(fma(|c|, 1/qstep, 0.33)), 32767),
+// the reference's prediction matrix), residual, the orthonormal DCT in the
+// order of XLA's CPU dots (u[i,k] = sum_j Cf[i,j] r[j,k], then c[i,l] =
+// sum_k u[i,k] Cf[l,k]; each sum as two (n = 32) or four (n <= 16)
+// interleaved fma chains, `dct_dot`), lv = min(floor(fma(|c|, 1/qstep,
+// 0.33)), 32767),
 // the distortion term d*d with d = fma(-lv, qstep, |c|), the rate term of
-// lv from the table of the reference's values, then pairwise-tree sums
-// (x[p] + x[p + h]) per mode and the max scan position of a nonzero level.
-// cost = fma(w, dist, lam * (fma(0.12, last + 1, bits) + mode_bits)) (+ the
-// inter penalty).  The first minimum over ascending modes wins (strict <).
+// lv from the table of the reference's values, their sums in the order of
+// XLA's vectorized CPU reduce loops (32x32: row by row, an 8-lane vector
+// [running sum, 0 x 7] takes the row's four vectors, then lanes 0-3 + 4-7,
+// 0-1 + 2-3, 0 + 1; 16x16 and 8x8: eight lanes over the rows, lane k takes
+// rows k, k + 8, ... column by column, then the same tree; d*d as fused
+// multiply-adds) and the max scan position of a nonzero level (a tree).
+// These orders were read off the reference's CPU program by probing it
+// with crafted inputs (tests/test_torch_video_encode.py holds a 32x32 tie
+// that only this order resolves as the reference does).
+// cost = fma(lam, fma(0.12, last + 1, bits) + mode_bits, w * dist) (+ the
+// inter penalty): XLA's CPU program contracts the rate product, not the
+// distortion product, into the fused multiply-add (found on a 32x32 CU of
+// the bench GOF whose two angular modes tie under the other contraction).  The first minimum over ascending modes wins (strict <).
 // The winner's levels are recomputed for the syntax and the integer
 // reconstruction, which runs in wrapping 32-bit arithmetic as kernel A's.
 // The plain version (hevc.py `wavefront_encode32_plain`) evaluates the
@@ -146,25 +157,44 @@ __device__ void load_refs(const Ctx& c, Smem& s, int n, int oy, int ox, bool bl_
   __syncthreads();
 }
 
-// forward DCT of the residual in s.R (segment g of nn samples) -> |c| and
-// the quantised level; returns c for thread (g, p).  All threads call.
+// sum_j a[j * sa] * b[j * sb] over n terms in the order of XLA's CPU dot:
+// for n = 32 two interleaved fused multiply-add chains (even and odd j),
+// then even + odd; for n <= 16 four (j mod 4), then (0 + 1) + (2 + 3).  The
+// first term of each chain is a plain product (an fma with 0).
+__device__ __forceinline__ float dct_dot(const float* a, int sa, const float* b, int sb,
+                                         int n) {
+  if (n == 32) {
+    float e = __fmul_rn(a[0], b[0]);
+    float o = __fmul_rn(a[sa], b[sb]);
+    for (int j = 2; j < 32; j += 2) {
+      e = __fmaf_rn(a[j * sa], b[j * sb], e);
+      o = __fmaf_rn(a[(j + 1) * sa], b[(j + 1) * sb], o);
+    }
+    return __fadd_rn(e, o);
+  }
+  float q[4];
+  for (int j = 0; j < 4; ++j) q[j] = __fmul_rn(a[j * sa], b[j * sb]);
+  for (int j = 4; j < n; ++j) q[j & 3] = __fmaf_rn(a[j * sa], b[j * sb], q[j & 3]);
+  return __fadd_rn(__fadd_rn(q[0], q[1]), __fadd_rn(q[2], q[3]));
+}
+
+// forward DCT of the residual in s.R (segment g of nn samples): returns c
+// for thread (g, p).  XLA contracts the row index first: u[i, k] = sum_j
+// Cf[i, j] r[j, k], then c[i, l] = sum_k u[i, k] Cf[l, k].  All threads
+// call.
 __device__ float dct_coef(Smem& s, int n, int g, int p, bool active) {
   const int nn = n * n;
   const float* Cf = cf_of(s, n);
   const int t = threadIdx.x;
   if (active) {
-    const int j = p / n, l = p % n;
-    const float* r = s.R + g * nn + j * n;
-    float acc = 0.0f;
-    for (int k = 0; k < n; ++k) acc = __fmaf_rn(r[k], Cf[l * n + k], acc);
-    s.T1[t] = acc;
+    const int i = p / n, k = p % n;
+    s.T1[t] = dct_dot(Cf + i * n, 1, s.R + g * nn + k, n, n);
   }
   __syncthreads();
   float acc = 0.0f;
   if (active) {
     const int i = p / n, l = p % n;
-    const float* tt = s.T1 + g * nn + l;
-    for (int j = 0; j < n; ++j) acc = __fmaf_rn(Cf[i * n + j], tt[j * n], acc);
+    acc = dct_dot(s.T1 + g * nn + i * n, 1, Cf + l * n, 1, n);
   }
   return acc;
 }
@@ -201,26 +231,92 @@ __device__ void eval_modes(const Ctx& c, Smem& s, int n, int log2n, int oy, int 
     if (active) {
       const float ca = fabsf(cv);
       const float lv = quant(c, ca);
-      const float dd = __fmaf_rn(-lv, c.qstep, ca);
-      s.D[t] = __fmul_rn(dd, dd);
+      s.D[t] = __fmaf_rn(-lv, c.qstep, ca);  // d; the sum takes d*d
       s.Bt[t] = bits_tab[static_cast<int>(lv)];
       s.Lz[t] = lv > 0.0f ? izz[p] : -1;
     }
     __syncthreads();
     for (int h = nn / 2; h >= 1; h >>= 1) {
-      if (active && p < h) {
-        s.D[t] = __fadd_rn(s.D[t], s.D[t + h]);
-        s.Bt[t] = __fadd_rn(s.Bt[t], s.Bt[t + h]);
-        s.Lz[t] = max(s.Lz[t], s.Lz[t + h]);
-      }
+      if (active && p < h) s.Lz[t] = max(s.Lz[t], s.Lz[t + h]);
       __syncthreads();
     }
-    if (active && p == 0) {
-      const float bits = __fmaf_rn(0.12f, static_cast<float>(s.Lz[t] + 1), s.Bt[t]);
-      const float rate = __fmul_rn(c.lam, __fadd_rn(bits, c.ftab[FOFF_MB + m]));
-      float cost = __fmaf_rn(w, s.D[t], rate);
-      if (m == MODE_INTER) cost = __fadd_rn(cost, pen);
-      s.cost[g] = cost;
+    // the distortion and rate sums in the order of XLA's reduce loops (see
+    // the header), into R / T1 (free after the transform) and then one
+    // thread per mode
+    const int nv = n / 8;
+    float dist = 0.0f, bsum = 0.0f;
+    if (n == 32) {
+      // per row an 8-lane vector [running sum, 0 x 7] takes the row's four
+      // vectors, then lanes 0-3 + 4-7, 0-1 + 2-3, 0 + 1: lanes 1-7 of every
+      // row first, one thread per (row, lane); lane 0 and the trees down the
+      // rows on one thread
+      if (t < n * 8) {
+        const int r = t >> 3, k = t & 7;
+        float ld = 0.0f, lb = 0.0f;
+        if (k != 0 && active) {
+          const int base = r * n + k;
+          for (int u = 0; u < nv; ++u) {
+            const float e = s.D[base + 8 * u];
+            ld = __fmaf_rn(e, e, ld);
+            lb = __fadd_rn(lb, s.Bt[base + 8 * u]);
+          }
+        }
+        s.R[t] = ld;
+        s.T1[t] = lb;
+      }
+      __syncthreads();
+      if (t == 0 && active) {
+        for (int r = 0; r < n; ++r) {
+          for (int u = 0; u < nv; ++u) {
+            const float e = s.D[r * n + 8 * u];
+            dist = __fmaf_rn(e, e, dist);
+            bsum = __fadd_rn(bsum, s.Bt[r * n + 8 * u]);
+          }
+          const float* l = s.R + r * 8;
+          const float* lb = s.T1 + r * 8;
+          dist = __fadd_rn(__fadd_rn(__fadd_rn(dist, l[4]), __fadd_rn(l[2], l[6])),
+                           __fadd_rn(__fadd_rn(l[1], l[5]), __fadd_rn(l[3], l[7])));
+          bsum = __fadd_rn(__fadd_rn(__fadd_rn(bsum, lb[4]), __fadd_rn(lb[2], lb[6])),
+                           __fadd_rn(__fadd_rn(lb[1], lb[5]), __fadd_rn(lb[3], lb[7])));
+        }
+      }
+    } else {
+      // eight lanes over the rows (lane k takes rows k, k + 8, ..., each
+      // column by column), one thread per (mode, lane); then the tree
+      if (t < G * 8) {
+        const int gg = t >> 3, k = t & 7;
+        float ld = 0.0f, lb = 0.0f;
+        if (m0 + gg < N_MODES) {
+          for (int i0 = 0; i0 < nv; ++i0) {
+            const int base = gg * nn + (i0 * 8 + k) * n;
+            for (int col = 0; col < n; ++col) {
+              const float e = s.D[base + col];
+              ld = __fmaf_rn(e, e, ld);
+              lb = __fadd_rn(lb, s.Bt[base + col]);
+            }
+          }
+        }
+        s.R[t] = ld;
+        s.T1[t] = lb;
+      }
+      __syncthreads();
+      if (t < G && m0 + t < N_MODES) {
+        const float* l = s.R + t * 8;
+        const float* lb = s.T1 + t * 8;
+        dist = __fadd_rn(__fadd_rn(__fadd_rn(l[0], l[4]), __fadd_rn(l[2], l[6])),
+                         __fadd_rn(__fadd_rn(l[1], l[5]), __fadd_rn(l[3], l[7])));
+        bsum = __fadd_rn(__fadd_rn(__fadd_rn(lb[0], lb[4]), __fadd_rn(lb[2], lb[6])),
+                         __fadd_rn(__fadd_rn(lb[1], lb[5]), __fadd_rn(lb[3], lb[7])));
+      }
+    }
+    // thread gm holds mode m0 + gm's sums (n = 32: thread 0, G = 1)
+    if (t < G && m0 + t < N_MODES) {
+      const int mm = m0 + t;
+      const float bits = __fmaf_rn(0.12f, static_cast<float>(s.Lz[t * nn] + 1), bsum);
+      const float wd = __fmul_rn(w, dist);
+      float cost = __fmaf_rn(c.lam, __fadd_rn(bits, c.ftab[FOFF_MB + mm]), wd);
+      if (mm == MODE_INTER) cost = __fadd_rn(cost, pen);
+      s.cost[t] = cost;
     }
     __syncthreads();
     if (t == 0) {

@@ -34,7 +34,7 @@ REFL_MAP_INDEX = 8   # reflectance attribute map index (vpcc_tpu codecs)
 
 def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item 10: off-main-path "
+        f"{what} is not ported yet (ROADMAP queue 1: off-main-path "
         "tools)"
     )
 

@@ -6,14 +6,16 @@ implements it (vpcc_tpu/encoder.py, `encode_gof` with mesh=None).  Per
 frame:
 * the front end, from a source frame to the atlas frame: voxelize -> grid
   k-NN (kernel E) -> normals and segmentation (kernel F) -> patch rounds of
-  connected components (kernel G) and coverage (kernel H) -> packing ->
-  rasterization, occupancy video and block-to-patch;
+  connected components (kernel G) and coverage (kernel H; above 10-bit
+  geometry, exact k-NN distances on kernel E) -> packing -> rasterization,
+  occupancy video and block-to-patch;
 * the geometry video: the occupancy payload (host), the D0/D1 geometry
   substreams (push-pull fill, kernel L; motion search, kernel J; wavefront
   RDO encode, kernel I; SAO, kernel K; host entropy coding) and the
   encoder-side reconstruction with grid smoothing (kernels C and D);
 * recolor (exact match, forward blend, backward splat: kernel M over
-  kernel E's sweeps) and color pre-smoothing (kernel N);
+  kernel E's sweeps; above 10 bits the exact match runs on the host and
+  the sweeps cover every point) and color pre-smoothing (kernel N);
 * the attribute video: paint the two layers (kernel P), push-pull fill
   (kernel L), group dilation (kernel P), T0/T1 through the attribute
   substream encoders (kernels J, B, I, O, K), then the encoder-side colors
@@ -98,7 +100,8 @@ class FrontEndFrame:
     occ_video: np.ndarray        # (H/precision, W/precision) uint8
     occ_rec: np.ndarray          # (H, W) uint8, the decoded occupancy
     block_to_patch: np.ndarray   # (H/res, W/res) int32
-    cover_dist2: np.ndarray      # (N,) 0 where covered, inf elsewhere
+    cover_dist2: np.ndarray      # (N,) float64: 0 where covered, inf elsewhere
+                                 # (above 10 bits: the squared distance)
     stats: EncoderStats
 
 
@@ -141,7 +144,7 @@ class EncodedFrame:
 
 def _unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item 10: off-main-path tools)")
+        f"{what} is not ported yet (ROADMAP queue 1: off-main-path tools)")
 
 
 class Encoder:
@@ -234,10 +237,12 @@ class Encoder:
     def generate_patches(self, pc_host: PointCloudData, partition: np.ndarray,
                          dev_graph: Segmentation):
         """Patch rounds (reference 'while rawPoints' loop,
-        PCCPatchSegmenter.cpp:804-1320) -> (patches, cover_dist2)."""
-        if self.cfg.geometryBitDepth3D > 10:
-            raise _unsupported("patch generation above 10-bit geometry (k-NN coverage)")
-        return self._generate_patches_volume(pc_host, partition, dev_graph)
+        PCCPatchSegmenter.cpp:804-1320) -> (patches, cover_dist2): bit-volume
+        coverage up to 10-bit geometry, exact-distance k-NN coverage beyond
+        (reference encoder.py:182-187)."""
+        if self.cfg.geometryBitDepth3D <= 10:
+            return self._generate_patches_volume(pc_host, partition, dev_graph)
+        return self._generate_patches_knn(pc_host, partition, dev_graph)
 
     def _build_components(self, positions, colors, partition, comps, patches):
         cfg = self.cfg
@@ -316,6 +321,63 @@ class Encoder:
         covered_sel = cov_sel.cpu().numpy()
         return patches, np.where(covered_sel, 0.0, np.inf)
 
+    def _generate_patches_knn(self, pc_host, partition, dev_graph: Segmentation):
+        """Up to four rounds with exact-distance coverage, for geometry above
+        10 bits (reference encoder.py:297-368): components of the points
+        still over maxAllowedDist2RawPointsSelection on the full voxel graph
+        (`cc_round_voxel`, kernel G), patches from the large components on
+        the host, then each source point's squared distance to the new
+        patches' resampled points (kernel E's k=1 sweep on an 11-bit grid of
+        them: every point in round 0, the still-uncovered ones after).
+        Returns (patches, dist2 (N,) float64, inf where no resampled point
+        lies in the query's cell window).  The reference pads the resampled
+        points and the queries with PAD_COORD rows; such rows lie outside the
+        grid and are never candidates, so the port keeps exact sizes."""
+        cfg = self.cfg
+        d = self.device
+        g = dev_graph
+        vcap = int(g.nn_idx.shape[0])
+        positions = np.asarray(pc_host.positions, np.int32)
+        colors = (pc_host.colors if pc_host.colors is not None
+                  else np.zeros_like(positions, np.uint8))
+        n = positions.shape[0]
+        bits3d = cfg.geometryBitDepth3D
+        dist2 = np.full(n, np.inf)
+        patches: List[Patch] = []
+        for _round in range(4):
+            seeds = dist2 > cfg.maxAllowedDist2RawPointsDetection
+            if not seeds.any():
+                break
+            act = torch.as_tensor(dist2 > cfg.maxAllowedDist2RawPointsSelection, device=d)
+            if g.point_vox is not None:
+                labels = cc_mod.cc_round_voxel(g.nn_idx, g.nn_valid, g.part, g.point_vox, act)
+            else:
+                labels = cc_mod.cc_labels_device(g.nn_idx, g.nn_valid, g.part, act)
+            comps = cc_mod.components_from_labels(
+                labels.cpu().numpy(), seeds, cfg.minPointCountPerCCPatchSegmentation,
+                sentinel=vcap)
+            if not comps:
+                break
+            new_patches = self._build_components(positions, colors, partition, comps, patches)
+            if not new_patches:
+                break
+            patches.extend(new_patches)
+            res_pts = [pp for p in new_patches for pp in p.generate_points()[:2]]
+            res_pts = np.concatenate([r for r in res_pts if len(r)], axis=0)
+            rp = torch.as_tensor(np.ascontiguousarray(res_pts, np.int32), device=d)
+            grid_r = neighbors.build_grid(rp, bits3d)
+            if _round == 0:
+                qsel = np.arange(n)
+                q = g.positions
+            else:
+                qsel = np.nonzero(dist2 > cfg.maxAllowedDist2RawPointsSelection)[0]
+                q = torch.as_tensor(positions[qsel], device=d)
+            _, d2 = neighbors.nearest(grid_r, q, bucket=8)
+            d2h = d2.cpu().numpy().astype(np.float64)
+            d2h[d2h >= float(neighbors.MAX_DIST2)] = np.inf
+            dist2[qsel] = np.minimum(dist2[qsel], d2h)
+        return patches, dist2
+
     # ------------------------------------------------------------------
     def encode_frame_front(self, pc_host: PointCloudData,
                            prev_patches: Optional[List[Patch]] = None,
@@ -327,8 +389,7 @@ class Encoder:
         under the GOF's height ratchet, rasterization, the occupancy video
         and the block-to-patch map from the decoded occupancy.  The
         occupancy codec is lossless, so the decoded occupancy is the
-        upsampled occupancy video.  The port's `encode_frame` will call this
-        once the video encoder is ported (ROADMAP queue 1, item 7)."""
+        upsampled occupancy video; `encode_frame_geometry` calls it."""
         cfg = self.cfg
         st = EncoderStats(point_count=pc_host.point_count)
         t0 = time.perf_counter()
@@ -459,25 +520,34 @@ class Encoder:
             raise _unsupported("color smoothing (flagColorSmoothing)")
         if int(cfg.attributeBGFill) != 1:
             raise _unsupported(f"attributeBGFill={cfg.attributeBGFill} (dilate / harmonic fill)")
-        if cfg.geometryBitDepth3D > 10:
-            raise _unsupported("recolor above 10-bit geometry (transfer_colors / _blend)")
         if cfg.attributeQP <= 4:
             raise _unsupported("lossless attributes (attributeQP <= 4)")
 
     def recolor(self, src_pos: torch.Tensor, src_colors, recon: Points) -> torch.Tensor:
         """(N, 3) int32 colors of the reconstructed points (reference
         encoder.py:650-711): color transfer from the source points (kernel
-        M over kernel E), then, under flagColorPreSmoothing on a lossy
-        attribute path, pre-smoothing of the boundary points (kernel N)."""
+        M over kernel E; up to 10 bits the compacted path, beyond it the
+        host exact matching and the uncompacted blend), then, under
+        flagColorPreSmoothing on a lossy attribute path, pre-smoothing of
+        the boundary points (kernel N)."""
         cfg = self.cfg
         bits = cfg.geometryBitDepth3D
         sc = (torch.zeros_like(src_pos, dtype=torch.uint8) if src_colors is None else
               torch.as_tensor(np.asarray(src_colors, np.uint8), device=src_pos.device))
-        col, _ = recolor.transfer_colors_compact(
-            src_pos, sc, recon.pos, grid_bits=bits,
-            k=cfg.numNeighborsColorTransferFwd, k_bwd=cfg.numNeighborsColorTransferBwd,
-            max_geom_d2_fwd=cfg.maxGeometryDist2Fwd, max_geom_d2_bwd=cfg.maxGeometryDist2Bwd,
-            max_color_d2_fwd=cfg.maxColorDist2Fwd, dist_offset_fwd=cfg.distOffsetFwd)
+        kw = dict(grid_bits=bits, k=cfg.numNeighborsColorTransferFwd,
+                  k_bwd=cfg.numNeighborsColorTransferBwd,
+                  max_geom_d2_fwd=cfg.maxGeometryDist2Fwd,
+                  max_geom_d2_bwd=cfg.maxGeometryDist2Bwd,
+                  max_color_d2_fwd=cfg.maxColorDist2Fwd, dist_offset_fwd=cfg.distOffsetFwd)
+        if bits <= 10:
+            col, _ = recolor.transfer_colors_compact(src_pos, sc, recon.pos, **kw)
+        else:
+            # 33-bit keys: the reference matches exactly on the host
+            ei, he = recolor.exact_matches(src_pos.cpu().numpy(), recon.pos.cpu().numpy(),
+                                           src_pos.shape[0], bits)
+            col = recolor.transfer_colors(
+                src_pos, sc, recon.pos, torch.as_tensor(ei, device=src_pos.device),
+                torch.as_tensor(he, device=src_pos.device), **kw)
         if cfg.flagColorPreSmoothing and cfg.attributeQP > 4 and not cfg.rawPointsPatch:
             col = smoothing_mod.presmooth_colors(
                 recon.pos, col, recon.bnd, bits, k=int(cfg.neighborCountColorPreSmoothing),
@@ -604,8 +674,7 @@ class Encoder:
         frame's segmentation (e.g. with the reference's partitions,
         `with_partition`)."""
         if mesh is not None or parallel:
-            raise _unsupported("mesh / parallel (the level-batched GOF path, ROADMAP queue 1 "
-                               "item 11)")
+            raise _unsupported("mesh / parallel (the level-batched GOF path)")
         encoded, parent = self._gof_loop(frames, segs, attributes=True)
         self.stats = [e.stats for e in encoded]
         return self._mux_gof(encoded, frames, parent)

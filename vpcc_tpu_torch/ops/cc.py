@@ -99,6 +99,27 @@ def cc_round_voxel_compact(nn_idx, nn_valid, partition, act_vox):
     return sub_vox, lab[sub_vox.long()]
 
 
+def _round_voxel(labels_fn, nn_idx, nn_valid, partition, point_vox, act_point):
+    vcap = nn_idx.shape[0]
+    pv = point_vox.long().clamp(0, vcap - 1)
+    act_vox = torch.zeros(vcap, dtype=torch.uint8, device=nn_idx.device)
+    act_vox = act_vox.scatter_reduce(0, pv, act_point.to(torch.uint8), "amax")
+    return labels_fn(nn_idx, nn_valid, partition, act_vox.bool())[pv]
+
+
+def cc_round_voxel(nn_idx, nn_valid, partition, point_vox, act_point):
+    """One patch-generation round on the full voxel graph (reference
+    cc.py:224-235, the vox11 path): the per-point active mask scatter-ORed
+    to the voxels, components of the active voxels (kernel G on CUDA), and
+    each point's voxel label.  Returns (N,) int32; inactive -> V."""
+    return _round_voxel(cc_labels_device, nn_idx, nn_valid, partition, point_vox, act_point)
+
+
+def cc_round_voxel_plain(nn_idx, nn_valid, partition, point_vox, act_point):
+    """`cc_round_voxel` with the plain version of kernel G on any device."""
+    return _round_voxel(cc_labels_plain, nn_idx, nn_valid, partition, point_vox, act_point)
+
+
 def components_from_labels(
     labels: np.ndarray,   # (N,) int32 from cc_labels_device
     seeds: np.ndarray,    # (N,) bool

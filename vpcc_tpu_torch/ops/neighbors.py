@@ -2,14 +2,18 @@
 
 Behavioral reference: `vpcc_tpu/ops/neighbors.py` (the KD-tree replacement
 of the reference's nanoflann queries, PCCKdTree.h:85).  Points are binned
-into a dense table of 4^3-voxel cells (one stable sort + one count); each
-query scans the 3x3x3 neighbouring cells as 9 runs of 3 z-contiguous cells,
-at most `3 * bucket` candidates per run, and keeps the k nearest, ties to
-the earlier candidate.
+into a dense table of cells (4^3 voxels up to 10-bit grids, 2^(bits-8)
+voxels an axis beyond: one stable sort + one count); each query scans the
+3x3x3 neighbouring cells as 9 runs of 3 z-contiguous cells, at most
+`3 * bucket` candidates per run, and keeps the k nearest, ties to the
+earlier candidate.
 
-The grid build is plain PyTorch on every device, as the reference leaves it
-to a library sort: `torch.sort(stable=True)` gives `jnp.argsort`'s order.
-The query is kernel E (csrc/grid_knn.cu) on CUDA and `knn_plain` on the CPU.
+The sorted coordinates are packed into one int32 word (10 bits an axis) up
+to 10-bit grids and kept as (N, 3) int32 rows beyond (vox11), as the
+reference's `_build` does.  The grid build is plain PyTorch on every device,
+as the reference leaves it to a library sort: `torch.sort(stable=True)`
+gives `jnp.argsort`'s order.  The query is kernel E (csrc/grid_knn.cu, one
+entry per table layout) on CUDA and `knn_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ class NeighborGrid:
     order:  (N,) int32 — point indices sorted by cell id (stable).
     starts: (G^3 + 1,) int32 — exclusive prefix offsets into `order` per
             cell; starts[G^3] == number of in-grid points.
-    table:  (N,) int32 packed sorted coordinates (10 bits an axis).
+    table:  (N,) int32 packed sorted coordinates (grid_bits <= 10), else
+            (N, 3) int32 sorted coordinates.
     """
 
     order: torch.Tensor
@@ -49,6 +54,10 @@ class NeighborGrid:
     @property
     def cells_per_axis(self) -> int:
         return 1 << (self.grid_bits - self.cell_bits)
+
+    @property
+    def packed(self) -> bool:
+        return self.table.ndim == 1
 
 
 def default_cell_bits(grid_bits: int) -> int:
@@ -68,11 +77,7 @@ def _cell_ids(positions: torch.Tensor, grid_bits: int, cell_bits: int) -> torch.
 
 def build_grid(positions: torch.Tensor, grid_bits: int, cell_bits: int | None = None) -> NeighborGrid:
     """positions (N, 3) int32 -> the grid (reference `_build`,
-    neighbors.py:86-106)."""
-    if grid_bits > 10:
-        raise NotImplementedError(
-            "grid k-NN beyond 10-bit coordinates (the unpacked table) is not "
-            "ported yet (ROADMAP queue 1, item 10: vox11+)")
+    neighbors.py:86-106): packed table up to 10 bits, unpacked beyond."""
     if cell_bits is None:
         cell_bits = default_cell_bits(grid_bits)
     g = 1 << (grid_bits - cell_bits)
@@ -84,9 +89,12 @@ def build_grid(positions: torch.Tensor, grid_bits: int, cell_bits: int | None = 
     starts[1:] = torch.cumsum(counts, 0)[:-1]
     b = grid_bits
     p = positions.to(torch.int32)
-    packed = (p[:, 0] << (2 * b)) | (p[:, 1] << b) | p[:, 2]
+    if b <= 10:
+        table = ((p[:, 0] << (2 * b)) | (p[:, 1] << b) | p[:, 2])[order]
+    else:
+        table = p[order]
     return NeighborGrid(order=order.to(torch.int32), starts=starts.to(torch.int32),
-                        table=packed[order].contiguous(), grid_bits=grid_bits,
+                        table=table.contiguous(), grid_bits=grid_bits,
                         cell_bits=cell_bits)
 
 
@@ -113,12 +121,16 @@ def _knn_chunk_plain(grid: NeighborGrid, q: torch.Tensor, k: int, win: int):
     valid = (lane[None, None, :] < cnt[:, :, None]).reshape(m, 9 * win)
     slot = (s[:, :, None] + lane[None, None, :]).reshape(m, 9 * win)
     slot = torch.where(valid, slot, torch.zeros_like(slot))
-    pk = grid.table[slot]
-    b = grid.grid_bits
-    mask = (1 << b) - 1
-    dx = (pk >> (2 * b)) - q[:, 0:1]
-    dy = ((pk >> b) & mask) - q[:, 1:2]
-    dz = (pk & mask) - q[:, 2:3]
+    if grid.packed:
+        pk = grid.table[slot]
+        b = grid.grid_bits
+        mask = (1 << b) - 1
+        px, py, pz = pk >> (2 * b), (pk >> b) & mask, pk & mask
+    else:
+        px, py, pz = (grid.table[:, j][slot] for j in range(3))
+    dx = px - q[:, 0:1]
+    dy = py - q[:, 1:2]
+    dz = pz - q[:, 2:3]
     d2 = torch.where(valid, dx * dx + dy * dy + dz * dz,
                      torch.full_like(dx, MAX_DIST2))
     # top-k by (d2, candidate position): the keys are unique, so the
@@ -153,26 +165,29 @@ def knn(grid: NeighborGrid, queries: torch.Tensor, k: int,
     """k nearest neighbours (an identical point / self included).
 
     Returns (idx (M, k) int32, dist2 (M, k) int32); missing neighbours have
-    dist2 == MAX_DIST2 and idx == 0.  Kernel E on CUDA; the plain version
-    for a CPU tensor."""
+    dist2 == MAX_DIST2 and idx == 0.  Kernel E on CUDA (entry `grid_knn`
+    for a packed table, `grid_knn_xyz` for an unpacked one); the plain
+    version for a CPU tensor."""
     if not 1 <= k <= 64:
         raise ValueError(f"knn: k={k} outside 1..64")
     if queries.device.type == "cpu":
         return knn_plain(grid, queries, k, bucket)
     d = queries.device
     dev.check_tensor(queries, "queries", torch.int32, d, 2)
-    for name in ("order", "starts", "table"):
-        dev.check_tensor(getattr(grid, name), name, torch.int32, d, 1)
+    dev.check_tensor(grid.order, "order", torch.int32, d, 1)
+    dev.check_tensor(grid.starts, "starts", torch.int32, d, 1)
+    dev.check_tensor(grid.table, "table", torch.int32, d, 1 if grid.packed else 2)
+    entry = "grid_knn" if grid.packed else "grid_knn_xyz"
     M = queries.shape[0]
     idx = torch.empty((M, k), dtype=torch.int32, device=d)
     d2 = torch.empty((M, k), dtype=torch.int32, device=d)
-    fn = dev.load_kernel("grid_knn").grid_knn
+    fn = getattr(dev.load_kernel("grid_knn"), entry)
     fn.argtypes, fn.restype = _ARGS, ctypes.c_int
     rc = fn(dev.ptr(grid.starts), dev.ptr(grid.table), dev.ptr(grid.order),
             dev.ptr(queries), M, grid.grid_bits, grid.cell_bits, 3 * bucket, k,
             dev.ptr(idx), dev.ptr(d2), dev.stream_handle())
-    dev.count_launch("grid_knn", 1 if M else 0)
-    dev.check_launch("grid_knn", rc)
+    dev.count_launch(entry, 1 if M else 0)
+    dev.check_launch(entry, rc)
     return idx, d2
 
 

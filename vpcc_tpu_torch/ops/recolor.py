@@ -2,11 +2,14 @@
 kernel M).
 
 Behavioral reference: `PCCPointSet3::transferColors` (source/lib/
-PccLibCommon/include/PCCPointSet.h:295-320) as the JAX package computes it
-for grids of at most 10 bits: vpcc_tpu/ops/recolor.py
+PccLibCommon/include/PCCPointSet.h:295-320) as the JAX package computes it:
+for grids of at most 10 bits vpcc_tpu/ops/recolor.py
 `transfer_colors_compact` and its helpers `exact_matches_device`,
 `_exact_and_counts`, `_compact_gather`, `_fwd_blend` and
-`_bwd_and_merge_compact` (recolor.py:43-264).  In order:
+`_bwd_and_merge_compact` (recolor.py:43-264); above 10 bits (vox11) the
+host `exact_matches` (:22) and `transfer_colors` (:70) with its one device
+program `_blend` (:291), which sweeps every target and every source
+(`transfer_colors` below).  In order:
 
 1. exact match: each target looks its packed position key up in the
    stably sorted source keys (left insertion point, as `jnp.searchsorted`);
@@ -28,8 +31,10 @@ chain of fused multiply-adds in slot order from 0 (`device.fma_f32`,
 1e-8).  The backward sums add integers of at most 255, exact in float32 in
 any order, so the kernel adds them as integers with atomics.
 
-The port holds only valid rows (no padding), so the reference's validity
-masks of padded rows have no counterpart.  Kernel M (csrc/recolor.cu) has
+`_blend` computes the forward half and the merge in the same float order
+(its optimized HLO, recolor.cu's header), so `transfer_colors` drives the
+same two entries uncompacted.  The port holds only valid rows (no padding),
+so the reference's validity masks of padded rows have no counterpart.  Kernel M (csrc/recolor.cu) has
 three entry points (exact match, forward blend, splat and merge); the
 `*_plain` functions are their plain versions, used for CPU tensors.
 """
@@ -39,6 +44,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from vpcc_tpu_torch import device as dev
@@ -57,6 +63,27 @@ def sorted_source_keys(src_pos: torch.Tensor, bits: int):
     ks = _packed_keys(src_pos, bits)
     srt = torch.sort(ks, stable=True)
     return srt.indices.to(torch.int32), srt.values.contiguous()
+
+
+def exact_matches(src_pos, tgt_pos, n_src: int, bits: int):
+    """Host exact position matching for any grid size (a copy of the
+    reference's `exact_matches`, recolor.py:22-40: int64 keys, numpy's
+    default argsort and a left searchsorted, so that a duplicated source
+    position resolves to the reference's row).  Returns (exact_idx (Nt,)
+    int32, has_exact (Nt,) bool) numpy arrays."""
+    sp = np.asarray(src_pos[:n_src], np.int64)
+    tp = np.asarray(tgt_pos, np.int64)
+    key_s = (sp[:, 0] << (2 * bits)) | (sp[:, 1] << bits) | sp[:, 2]
+    in_grid = np.all((tp >= 0) & (tp < (1 << bits)), axis=1)
+    key_t = np.where(
+        in_grid, (tp[:, 0] << (2 * bits)) | (tp[:, 1] << bits) | tp[:, 2], -1
+    )
+    order = np.argsort(key_s)
+    sk = key_s[order]
+    loc = np.clip(np.searchsorted(sk, key_t), 0, max(len(sk) - 1, 0))
+    has = np.zeros(len(tp), bool) if len(sk) == 0 else (sk[loc] == key_t)
+    idx = order[loc].astype(np.int32) if len(sk) else np.zeros(len(tp), np.int32)
+    return idx, has
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +259,8 @@ def transfer_colors_compact(
     the reference's `transfer_colors_compact`: the k-NN sweeps run only on
     the inexact targets and (k_bwd > 0) the unmatched sources."""
     if grid_bits > 10:
-        raise NotImplementedError(
-            "recolor above 10-bit geometry (transfer_colors / _blend) is not "
-            "ported yet (ROADMAP queue 1, item 10: vox11+)")
+        raise ValueError("transfer_colors_compact: packed int32 keys need grid_bits <= 10 "
+                         "(above, use exact_matches + transfer_colors)")
     src_col = src_col.to(torch.uint8).contiguous()
     order, sk = sorted_source_keys(src_pos, grid_bits)
     exact_idx, has_exact, matched, counts = exact_match(order, sk, tgt_pos, grid_bits)
@@ -257,3 +283,45 @@ def transfer_colors_compact(
     out = splat_merge(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
                       float(max_geom_d2_bwd))
     return out, (exact_idx, has_exact)
+
+
+def transfer_colors(
+    src_pos: torch.Tensor,     # (Ns, 3) int32
+    src_col: torch.Tensor,     # (Ns, 3) uint8
+    tgt_pos: torch.Tensor,     # (Nt, 3) int32
+    exact_idx: torch.Tensor,   # (Nt,) int32
+    has_exact: torch.Tensor,   # (Nt,) bool
+    grid_bits: int = 10,
+    k: int = 8,
+    k_bwd: int = 1,
+    max_geom_d2_fwd: float = 1000.0,
+    max_geom_d2_bwd: float = 1000.0,
+    max_color_d2_fwd: float = 1000.0,
+    dist_offset_fwd: float = 4.0,
+) -> torch.Tensor:
+    """(Nt, 3) int32 colors of the targets, as the reference's
+    `transfer_colors` + `_blend` (recolor.py:70-110, 291-339), the path it
+    takes above 10 bits: the k-NN forward sweep over every target and, with
+    k_bwd > 0, the nearest-target sweep over every source (kernel E,
+    bucket 6), then kernel M's forward blend over every target and its
+    splat and merge over every source, a matched source gated out.
+    `exact_idx`/`has_exact` come from the host `exact_matches`."""
+    d = tgt_pos.device
+    src_col = src_col.to(torch.uint8).contiguous()
+    ns, nt = src_pos.shape[0], tgt_pos.shape[0]
+    grid_s = neighbors.build_grid(src_pos, grid_bits)
+    idx, d2 = neighbors.knn(grid_s, tgt_pos, k=k, bucket=6)
+    fwd = fwd_blend(src_col, idx, d2, float(max_geom_d2_fwd), float(max_color_d2_fwd),
+                    float(dist_offset_fwd))
+    if k_bwd > 0:
+        grid_t = neighbors.build_grid(tgt_pos, grid_bits)
+        tidx, td2 = neighbors.nearest(grid_t, src_pos, bucket=6)
+        matched = torch.zeros(ns, dtype=torch.bool, device=d)
+        matched[exact_idx.long()[has_exact]] = True
+        td2 = torch.where(matched, torch.full_like(td2, MAX_DIST2), td2)
+        uidx = torch.arange(ns, dtype=torch.int32, device=d)
+    else:
+        uidx = tidx = td2 = torch.zeros(0, dtype=torch.int32, device=d)
+    iidx = torch.arange(nt, dtype=torch.int32, device=d)
+    return splat_merge(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
+                       float(max_geom_d2_bwd))

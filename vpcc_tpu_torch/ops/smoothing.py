@@ -9,8 +9,9 @@ cell is pulled to the trilinear-weighted centroid when its weighted
 distance exceeds max(threshold, count) * 2.
 
 The per-point arithmetic is float32 in the reference's operation order,
-including the two multiply-adds XLA's CPU backend fuses (the centroid
-accumulation and the squared-distance sum, see `device.fma_f32`); the cell
+including the multiply-adds XLA's CPU backend fuses (the centroid
+accumulation, whose first add of two products fuses the first of them, and
+the squared-distance sum, see `device.fma_f32`); the cell
 sums are exact integers (the JAX float32 scatter-add holds integers below
 2^24 exactly, so it equals them).
 """
@@ -66,7 +67,7 @@ def smooth_point_cloud_grid_plain(points, patch_idx, boundary, threshold: float,
     cur = p.float()
     M = p.shape[0]
     any_smooth = torch.zeros(M, dtype=torch.bool, device=d)
-    centroid4 = torch.zeros((M, 3), dtype=torch.float32, device=d)
+    centroid4 = None
     wcount = torch.zeros(M, dtype=torch.float32, device=d)
     for dz in (0, 1):
         for dy in (0, 1):
@@ -86,7 +87,14 @@ def smooth_point_cloud_grid_plain(points, patch_idx, boundary, threshold: float,
                 wy = (q_vec if dy == 0 else w_vec)[:, 1].float()
                 wz = (q_vec if dz == 0 else w_vec)[:, 2].float()
                 wgt = wx * wy * wz
-                centroid4 = fma_f32(ccent, wgt[:, None], centroid4)
+                wgt3 = wgt[:, None].expand_as(ccent)
+                if dz == dy == dx == 0:
+                    first = (ccent, wgt3)
+                elif centroid4 is None:
+                    # XLA's first add of two products fuses the first one
+                    centroid4 = fma_f32(first[0], first[1], ccent * wgt3)
+                else:
+                    centroid4 = fma_f32(ccent, wgt3, centroid4)
                 wcount = fma_f32(wgt, ccount.float(), wcount)
 
     centroid4 = centroid4 / denom

@@ -62,7 +62,7 @@ class GeometrySubstreamEncoder:
         if cfg.geometryQP <= 4:
             raise NotImplementedError(
                 "lossless geometry video (geometryQP <= 4) is not ported yet "
-                "(ROADMAP queue 1, item 10: lossless branches)")
+                "(ROADMAP queue 1: lossless branches)")
         maxval = (1 << cfg.geometryBitDepth2D) - 1
         d = self.device
         as_t = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(
@@ -110,7 +110,7 @@ class AttributeSubstreamEncoder:
         if cfg.attributeQP <= 4:
             raise NotImplementedError(
                 "lossless attribute video (attributeQP <= 4) is not ported yet "
-                "(ROADMAP queue 1, item 10: lossless branches)")
+                "(ROADMAP queue 1: lossless branches)")
         attr = torch.as_tensor(attr, device=self.device)
         t_refs = self.refs if temporal_ref is _UNSET else temporal_ref
         refs = None

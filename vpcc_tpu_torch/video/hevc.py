@@ -846,22 +846,26 @@ def decode_rgb(payload: bytes, refs=None, device=None):
 #
 # Float32 order.  The RD decisions are float32, and the kernels and their
 # plain versions evaluate every float operation in one order, so that they
-# agree bit for bit on the card; the order follows what the reference's XLA
-# CPU program computes where that is known (it contracts a multiply feeding
-# an add into one fused multiply-add, `dev.fma_f32` / `__fmaf_rn`):
-# * forward DCT: t[j, l] = sum_k r[j, k] Cf[l, k], then
-#   c[i, l] = sum_j Cf[i, j] t[j, l], each a sequential fma chain from 0;
+# agree bit for bit on the card.  The order is that of the reference's XLA
+# CPU program, read off it by probing with crafted inputs (it contracts a
+# multiply feeding an add into one fused multiply-add, `dev.fma_f32` /
+# `__fmaf_rn`, and vectorizes its dots and reduce loops):
+# * forward DCT: u[i, k] = sum_j Cf[i, j] r[j, k], then c[i, l] =
+#   sum_k u[i, k] Cf[l, k], each sum as interleaved fma chains (`_dct_dot`);
 # * lv = min(floor(fma(|c|, 1/qstep, 0.33)), 32767);
 # * distortion term d*d with d = fma(-lv, qstep, |c|); the rate term of a
 #   level from `hevc_tables.rd_bits_table` (XLA's own log2 values);
-# * the n*n-term sums of distortion and rate as a pairwise tree of
-#   half-adds (x[:h] + x[h:], repeated);
-# * bits = fma(0.12, last + 1, bits); cost = fma(w, dist, lam * (bits +
-#   mode_bits)); the inter lane adds its penalty afterwards;
+# * the n*n-term sums of distortion and rate in the order of XLA's reduce
+#   loops (`_rd_sum`: for 32x32 row by row, for 16x16 and 8x8 eight lanes
+#   over the rows; d*d as fused multiply-adds);
+# * bits = fma(0.12, last + 1, bits); cost = fma(lam, bits + mode_bits,
+#   w * dist) (XLA contracts the rate product, not the distortion one);
+#   the inter lane adds its penalty afterwards;
 # * the mode is the first minimum (strict <, ascending mode).
-# Against the reference the decisions agree at a measured rate
-# (tests/test_torch_video_encode.py); the syntax any of them produces is
-# decoded exactly by both packages' decoders.
+# Each block size's costs equal those of the reference's `_rd_choose` bit
+# for bit on random inputs; on the bench GOF every CU's decision, hence
+# every payload, equals the reference's (tests/test_torch_video_encode.py
+# holds a crop with a tie that any other order resolves differently).
 
 RD_LAST_WEIGHT = np.float32(0.12)
 RD_ROUND = np.float32(0.33)
@@ -887,13 +891,28 @@ def _mv_bits(R: int) -> np.ndarray:
                     ).astype(np.float32)
 
 
-def _tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (a power of two) as a pairwise tree of
-    half-adds: x[:h] + x[h:], repeated."""
-    while x.shape[-1] > 1:
-        h = x.shape[-1] // 2
-        x = x[..., :h] + x[..., h:]
-    return x[..., 0]
+def _row_sum(x: torch.Tensor, n: int, square: bool) -> torch.Tensor:
+    """Sum over the last axis of x (..., n*n) float32 (of x*x with
+    `square`) in the order of XLA's CPU reduce loop: per row of n, an 8-lane
+    accumulator [running sum, 0 x 7] takes the row's n/8 vectors in order
+    (fused x*x + lane, or a plain add), then lanes 0-3 + 4-7, 0-1 + 2-3,
+    0 + 1 give the new running sum.  Lanes 1-7 do not depend on the running
+    sum, so they are computed for every row at once."""
+    sh = x.shape[:-1]
+    xr = x.reshape(*sh, n, n // 8, 8)
+    lanes = torch.zeros((*sh, n, 8), dtype=torch.float32, device=x.device)
+    for u in range(n // 8):
+        e = xr[..., u, :]
+        lanes = dev.fma_f32(e, e, lanes) if square else lanes + e
+    t2 = lanes[..., 2] + lanes[..., 6]
+    q = (lanes[..., 1] + lanes[..., 5]) + (lanes[..., 3] + lanes[..., 7])
+    acc = torch.zeros(sh, dtype=torch.float32, device=x.device)
+    for i in range(n):
+        for u in range(n // 8):
+            e = xr[..., i, u, 0]
+            acc = dev.fma_f32(e, e, acc) if square else acc + e
+        acc = ((acc + lanes[..., i, 4]) + t2[..., i]) + q[..., i]
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -1138,6 +1157,44 @@ def _predict_all(refs, ref_block, n: int, tabs):
     return pred.reshape(P, B, M, n * n)
 
 
+def _dct_dot(a, b, n: int):
+    """sum_j a[..., j] * b[..., j] over the last axis (n terms) in the order
+    of XLA's CPU dot for the transform: n/2-way (n = 32: even and odd terms)
+    or 4-way (n <= 16: j mod 4) interleaved fused multiply-add chains, then
+    acc0 + acc1, or (acc0 + acc1) + (acc2 + acc3)."""
+    ways = 2 if n == 32 else 4
+    acc = [None] * ways
+    for j in range(n):
+        x, y = a[..., j], b[..., j]
+        q = j % ways
+        acc[q] = x * y if acc[q] is None else dev.fma_f32(x, y, acc[q])
+    if ways == 2:
+        return acc[0] + acc[1]
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def _rd_sum(x: torch.Tensor, n: int, square: bool) -> torch.Tensor:
+    """The n*n-term distortion (x*x, fused multiply-adds) or rate (adds)
+    sum of each mode in the order of XLA's CPU reduce loop: `_row_sum` for
+    32x32 blocks; for 16x16 and 8x8, eight lanes over the rows (lane k takes
+    rows k, k + 8, ..., each column by column), then lanes 0-3 + 4-7, 0-1 +
+    2-3, 0 + 1."""
+    if n == 32:
+        return _row_sum(x, n, square)
+    xr = x.reshape(*x.shape[:-1], n // 8, 8, n)
+    lanes = None
+    for i0 in range(n // 8):
+        for col in range(n):
+            e = xr[..., i0, :, col]
+            if lanes is None:
+                lanes = e * e if square else e + 0.0
+            else:
+                lanes = dev.fma_f32(e, e, lanes) if square else lanes + e
+    lanes = lanes[..., :4] + lanes[..., 4:]
+    lanes = lanes[..., :2] + lanes[..., 2:]
+    return lanes[..., 0] + lanes[..., 1]
+
+
 def _rd_choose(src_v, allp, wblk, pen, qstep, inv_q, lam, n: int, tabs):
     """Transform-domain RDO over the 36 modes in the float32 order of the
     section comment.  src_v (P, B, n*n), allp (P, B, 36, n*n) int64, wblk
@@ -1147,28 +1204,22 @@ def _rd_choose(src_v, allp, wblk, pen, qstep, inv_q, lam, n: int, tabs):
     P, B, M, nn = allp.shape
     Cf = tabs[f"Cf{n}"]
     r = (src_v[:, :, None, :] - allp).to(torch.float32).reshape(P, B, M, n, n)
-    zero = torch.zeros((P, B, M, n, n), dtype=torch.float32, device=r.device)
-    t = zero
-    for k in range(n):                         # t[j, l] = sum_k r[j, k] Cf[l, k]
-        t = dev.fma_f32(r[..., :, k: k + 1].expand_as(zero),
-                        Cf[None, :, k].expand_as(zero), t)
-    c = zero
-    for j in range(n):                         # c[i, l] = sum_j Cf[i, j] t[j, l]
-        c = dev.fma_f32(Cf[:, j: j + 1].expand_as(zero),
-                        t[..., j: j + 1, :].expand_as(zero), c)
+    # u[i, k] = sum_j Cf[i, j] r[j, k]; c[i, l] = sum_k u[i, k] Cf[l, k]
+    u = _dct_dot(Cf[:, None, :], r.transpose(-1, -2)[..., None, :, :], n)
+    c = _dct_dot(u[..., :, None, :], Cf[None, :, :], n)
     c = c.reshape(P, B, M, nn)
     ca = c.abs()
     bc = lambda v: v[:, None, None, None].expand_as(ca)
     lv = torch.floor(dev.fma_f32(ca, bc(inv_q), float(RD_ROUND))).clamp(max=tab.LEVEL_MAX)
     dd = dev.fma_f32(-lv, bc(qstep), ca)
-    dist = _tree_sum(dd * dd)
-    bits = _tree_sum(tabs["rd_bits"][lv.long()])
+    dist = _rd_sum(dd, n, square=True)
+    bits = _rd_sum(tabs["rd_bits"][lv.long()], n, square=False)
     izz = tabs[f"izz{n}"]
     last = torch.where(lv > 0, izz.expand_as(lv), torch.full_like(izz, -1).expand_as(lv)
                        ).amax(-1).to(torch.float32)
     bits = dev.fma_f32(torch.full_like(bits, float(RD_LAST_WEIGHT)), last + 1.0, bits)
-    rate = lam[:, None, None] * (bits + tabs["mode_bits"])
-    cost = dev.fma_f32(wblk[:, :, None].expand_as(rate), dist, rate)
+    wd = wblk[:, :, None] * dist
+    cost = dev.fma_f32(lam[:, None, None].expand_as(wd), bits + tabs["mode_bits"], wd)
     cost[:, :, tab.MODE_INTER] = cost[:, :, tab.MODE_INTER] + pen
     mode = torch.argmin(cost, 2)
     sel = mode[:, :, None, None].expand(P, B, 1, nn)
