@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the eighteen CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
+2. builds the nineteen CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
    source, all started together) and prints the build seconds;
 
 the decode path (kernels A-D, and Q's color conversion):
@@ -86,9 +86,11 @@ the quality metrics and the RD curve (kernel R, over kernels E and F):
     MSE and Hausdorff term to equal the JAX package's
     (person_vox10_rd_reference.json, made by
     tests/torch_make_rd_reference.py) and its D1/D2/Y/U/V PSNRs to lie
-    within METRICS_PSNR_TOL_DB of them;
+    within METRICS_PSNR_TOL_DB of them; keeps the largest call of kernel
+    R's float32 D1 sum (`metrics_d2_f32`);
 17. holds kernel R against its plain version on frame 0's two directions
-    (integer sums exact, float64 sums to R_FLOAT_RTOL) and times both;
+    (the maximum d2 exact, float64 sums to R_FLOAT_RTOL) and its D1 sum on
+    the kept call (bit for bit), and times both in turns;
 18. encodes the 8 frames at r1 and r5 (CTC QPs, JAX partitions) and, with
     step 15's r3 stream, requires each rate's stream bytes within
     RD_BYTES_TOL and mean D1/D2/Y within RD_PSNR_TOL_DB of the JAX
@@ -118,10 +120,35 @@ full-graph CC round on kernel G, kernel M's uncompacted blend):
     it exactly to the encoder's reconstruction (decode seconds per frame);
 26. measures the reconstruction with `compute_metrics(grid_bits=11)` and
     the sources' `estimate_normals`: Hausdorff equal to JAX's, D1 MSE within
-    VOX11_D1_MSE_ULPS float32 ulps of it, D1/D2/Y/U/V within
+    VOX11_D1_MSE_ULPS (0) float32 ulps of it, D1/D2/Y/U/V within
     METRICS_PSNR_TOL_DB (seconds per frame);
-27. prints one JSON line describing the kernels (the three vox11 entries
-    as rows of their own, launches from step 24), then the result line.
+
+the CTC's lossless conditions (kernel C's EOM entry, kernel S; reference
+data person_vox10_lossless_reference.json, made by
+tests/torch_make_lossless_reference.py):
+28. runs `Encoder(cfg, device="cuda").encode_gof` on the first four bench
+    frames under the lossless overrides (lossless video, raw points, EOM,
+    the separate RAW/EOM video), driven by the JAX partitions, once
+    (warm-up), keeping the largest call of kernel C's EOM entry and of
+    kernel S's extract and inject;
+29. holds both against their plain versions, exactly, timing both in turns
+    (three rounds, to show the spread within one run);
+30. with all launch counters at 0, encodes again: warm seconds per frame,
+    the stage split, launches (C's EOM entry and S nonzero);
+31. requires the patch, raw-point, EOM-code and EOM-row counts, the EOM
+    planes, the raw points and the reconstructions to equal JAX's, the
+    stream to be byte-identical to the JAX encoder's (or, where this
+    interpreter's zlib is another build than the reference run's, says the
+    bytes are not comparable), the port's decoder to decode it to the
+    encoder's reconstruction and every decoded frame to equal its source
+    bit for bit; prints decode seconds per frame, the decoder's launches
+    (counters at 0 before the decode) and the bytes per substream beside
+    JAX's;
+32. encodes the first two frames under r3 with EOM: the stream must be
+    byte-identical to JAX's and decode to the encoder's reconstruction;
+33. prints one JSON line describing the kernels (the vox11, D1-sum and EOM
+    entries as rows of their own, launches from steps 16, 24 and 30), then
+    the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -149,6 +176,7 @@ ATTR_DIGESTS = DATA / "person_vox10_attr_digests.json"
 RD_REFERENCE = DATA / "person_vox10_rd_reference.json"
 VOX11_REFERENCE = DATA / "person_vox11_reference.json"
 VOX11_PARTITIONS = DATA / "person_vox11_partitions.npz"
+LOSSLESS_REFERENCE = DATA / "person_vox10_lossless_reference.json"
 # the floor tests/test_torch_segmentation.py pins for the partition
 # agreement with the JAX package, and the normals' tolerance (the kernel's
 # acosf/cosf against PyTorch's on the card)
@@ -162,9 +190,10 @@ RD_PSNR_TOL_DB = 0.1
 # sums against its plain version's (another summation order)
 METRICS_PSNR_TOL_DB = 1e-3
 R_FLOAT_RTOL = 1e-9
-# vox11: the D1 MSE against the JAX package's, whose float32 sum of the
-# per-point squared distances rounds beyond 2^24 (ROADMAP F7)
-VOX11_D1_MSE_ULPS = 1.0
+# vox11: the D1 MSE against the JAX package's, in float32 ulps (the port
+# sums the per-point squared distances in the reference's XLA order, which
+# rounds beyond 2^24: ROADMAP F7)
+VOX11_D1_MSE_ULPS = 0.0
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM CUDA-core float32 peak, used for int32 too
@@ -200,19 +229,25 @@ KERNEL_INFO = {
     "attr_image": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:209"),
     "color_convert": ("vpcc_tpu_torch/csrc/color_convert.cu", "vpcc_tpu/video/hevc.py:1766"),
     "metrics": ("vpcc_tpu_torch/csrc/metrics.cu", "vpcc_tpu/ops/metrics.py:57"),
+    "metrics_d2_f32": ("vpcc_tpu_torch/csrc/metrics.cu", "vpcc_tpu/ops/metrics.py:87"),
     # the vox11 path's entries (11-bit geometry)
     "grid_knn_xyz": ("vpcc_tpu_torch/csrc/grid_knn.cu", "vpcc_tpu/ops/neighbors.py:104"),
     "cc_round_voxel": ("vpcc_tpu_torch/csrc/cc_labels.cu", "vpcc_tpu/ops/cc.py:225"),
     "recolor_blend": ("vpcc_tpu_torch/csrc/recolor.cu", "vpcc_tpu/ops/recolor.py:291"),
+    # the lossless conditions' entries (EOM)
+    "generate_points_eom": ("vpcc_tpu_torch/csrc/generate_points.cu",
+                            "vpcc_tpu/ops/reconstruct.py:136"),
+    "eom_colors": ("vpcc_tpu_torch/csrc/eom_colors.cu", "vpcc_tpu/pipeline.py:279"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
 GEOMETRY_KERNELS = ("wavefront_encode32", "motion_search", "sao", "push_pull")
 ENCODE_KERNELS = ("recolor", "presmooth", "deblock", "attr_image", "color_convert")
-METRICS_KERNELS = ("metrics",)
+METRICS_KERNELS = ("metrics", "metrics_d2_f32")
 # rows of the vox11 phase -> the launch counter each reads on that path
 VOX11_ROWS = {"grid_knn_xyz": "grid_knn_xyz", "cc_round_voxel": "cc_labels",
               "recolor_blend": "recolor"}
+LOSSLESS_KERNELS = ("generate_points_eom", "eom_colors")
 # every kernel the whole encoder runs (kernel A decodes only)
 ENCODER_PATH = ("half_pel_mc", "generate_points", "grid_smooth") + FRONT_KERNELS \
     + GEOMETRY_KERNELS + ENCODE_KERNELS
@@ -341,6 +376,17 @@ def bounds(name, args, out):
         occ, g0, g1, btp, ptab = args[:5]
         byt = nbytes(occ, g0, g1, btp, ptab, *out)
         ops = 0.0
+    elif name == "generate_points_eom":
+        (occ, g0, g1, btp, ptab), kw = args[0][:5], args[1]
+        byt = nbytes(occ, g0, g1, btp, ptab, kw["eom"], *out)
+        ops = 0.0
+    elif name == "eom_colors":
+        # extract: the tags, the EOM rows' colors read and written; inject:
+        # the tags, every color and the aux samples read, every color written
+        (layer, _), (layer2, col2, aux) = args
+        m = int((layer == 2).sum())
+        byt = nbytes(layer) + 2 * 12 * m + nbytes(layer2, col2, aux, out[1])
+        ops = 0.0
     elif name == "grid_smooth":
         pos, pid, bnd = args[:3]
         byt = nbytes(pos, pid, bnd, out)
@@ -428,6 +474,11 @@ def bounds(name, args, out):
         byt = sum(nbytes(*(t for t in a[:7] if t is not None)) for a in args) \
             + sum(nbytes(*o) for o in out)
         ops = 50.0 * sum(a[7] for a in args)
+    elif name == "metrics_d2_f32":
+        # the n d2 rows read once, the float32 sum written; one add a row
+        d2, n = args[:2]
+        byt = 4 * n + nbytes(out)
+        ops = float(n)
     else:  # deblock
         rec, qps, maxv = args
         byt = nbytes(rec, qps, maxv, out)
@@ -1273,21 +1324,24 @@ def metrics_phase(dev, cfg, frames, segs, decoded, r3):
                                         src_normals=nrm, grid_bits=10, device=d)
                 for (p, c), nrm, r in zip(src, normals, recons)]
 
-    # 16. the metrics path on the fixture's decode, counted and timed
+    # 16. the metrics path on the fixture's decode, counted and timed,
+    # keeping the largest call of kernel R's D1 sum
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     normals = [metrics.estimate_normals(p, 10, device=d) for p, _ in src]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    got = measure(decoded, normals)
-    torch.cuda.synchronize()
+    with Capture({"metrics_d2_f32": (metrics, "d2_sum_f32")}) as cap:
+        got = measure(decoded, normals)
+        torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(dev.LAUNCHES)
     print(f"metrics: source normals {(t1 - t0) / n:.4f} s/frame, compute_metrics "
           f"{(t2 - t1) / n:.4f} s/frame; launches {launches}")
-    if launches["metrics"] == 0:
-        raise AssertionError("kernel R (metrics) not launched on the metrics path")
+    idle = [k for k in METRICS_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernel R entries not launched on the metrics path: {idle}")
     worst = 0.0
     for i, (m, r) in enumerate(zip(got, ref["fixture"]["frames"])):
         if (m.c2c_mse, m.c2c_hausdorff, m.c2c_psnr) != \
@@ -1320,7 +1374,7 @@ def metrics_phase(dev, cfg, frames, segs, decoded, r3):
     err, rel = 0.0, 0.0
     for (ik, fk), (ip, fp) in zip(out_k, out_p):
         if not torch.equal(ik, ip):
-            raise AssertionError(f"metrics: integer sums {ik.tolist()} vs plain {ip.tolist()}")
+            raise AssertionError(f"metrics: maximum d2 {int(ik)} vs plain {int(ip)}")
         err = max(err, float((fk - fp).abs().max()))
         rel = max(rel, float(((fk - fp).abs() / fp.abs().clamp(min=1e-300)).max()))
     if rel > R_FLOAT_RTOL:
@@ -1328,12 +1382,27 @@ def metrics_phase(dev, cfg, frames, segs, decoded, r3):
                              f"(relative; limit {R_FLOAT_RTOL})")
     (k1, k2), (q1, q2) = time_turns(kern, plain)
     b_ms, b_by = bounds("metrics", dirs, out_k)
-    print(f"metrics: integer sums exact, float64 sums max abs err {err:.3g} (relative "
+    print(f"metrics: maximum d2 exact, float64 sums max abs err {err:.3g} (relative "
           f"{rel:.3g}); kernel {k1:.4f}/{k2:.4f} ms, plain {q1:.3f}/{q2:.3f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}); both directions of frame 0, rows "
           f"{[a[7] for a in dirs]}")
     rows = {"metrics": dict(ms=(k1 + k2) / 2, plain_ms=(q1 + q2) / 2, bound_ms=b_ms,
                             bound_by=b_by, max_abs_err=err)}
+    # kernel R's D1 sum == its plain version, bit for bit, on step 16's largest call
+    _, s_args, _ = cap.calls["metrics_d2_f32"]
+    kern = lambda: metrics.d2_sum_f32(*s_args)
+    plain = lambda: metrics.d2_sum_f32_plain(*s_args)
+    got_s, want_s = kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)):
+        raise AssertionError(f"metrics_d2_f32: {float(got_s)!r} vs plain {float(want_s)!r}")
+    (k1, k2), (q1, q2) = time_turns(kern, plain)
+    b_ms, b_by = bounds("metrics_d2_f32", s_args, got_s)
+    print(f"metrics_d2_f32: bit for bit ({float(got_s)!r}); kernel {k1:.4f}/{k2:.4f} ms, "
+          f"plain {q1:.3f}/{q2:.3f} ms, bound {b_ms:.4f} ms ({b_by}); rows {s_args[1]}, "
+          f"bucket {s_args[2]}, levels {metrics.xla_windows(s_args[2])}")
+    rows["metrics_d2_f32"] = dict(ms=(k1 + k2) / 2, plain_ms=(q1 + q2) / 2, bound_ms=b_ms,
+                                  bound_by=b_by, max_abs_err=0.0, library_ms=None)
 
     # 18. the RD curve at r1 / r3 / r5 against the JAX encoder's
     npts = sum(f.point_count for f in frames)
@@ -1639,9 +1708,8 @@ def vox11_phase(dev):
         if not all(np.isfinite(a) for a, _ in pairs):
             raise AssertionError(f"vox11 frame {i}: non-finite PSNR {m}")
         worst = max([worst] + [abs(a - b) for a, b in pairs])
-        # the reference sums the per-point float32 d2 in XLA's reduce order,
-        # which rounds once the sum passes 2^24 (~20 per point here); the
-        # port divides the exact integer sum (ROADMAP F7)
+        # both sum the per-point float32 d2 in XLA's CPU reduce order, which
+        # rounds once the sum passes 2^24 (~20 per point here; ROADMAP F7)
         ulps.append(abs(m.c2c_mse - jm["c2c_mse"]) / float(np.spacing(np.float32(jm["c2c_mse"]))))
         if m.c2c_hausdorff != jm["c2c_hausdorff"] or ulps[-1] > VOX11_D1_MSE_ULPS:
             raise AssertionError(f"vox11 frame {i}: D1 MSE / Hausdorff {m.c2c_mse}/"
@@ -1653,6 +1721,221 @@ def vox11_phase(dev):
     if worst > METRICS_PSNR_TOL_DB:
         raise AssertionError(f"vox11 metrics differ from JAX's by {worst} dB "
                              f"(limit {METRICS_PSNR_TOL_DB})")
+    return rows, launches
+
+
+def unit_bytes(stream: bytes) -> dict:
+    """Bytes of each V3C unit's payload by type and, for the video
+    substreams, map index (as tests/torch_make_lossless_reference.py counts
+    them)."""
+    from vpcc_tpu_torch.bitstream import v3c
+    from vpcc_tpu_torch.bitstream.bitio import BitReader
+
+    names = {v3c.V3C_VPS: "VPS", v3c.V3C_AD: "AD", v3c.V3C_OVD: "OVD", v3c.V3C_GVD: "GVD",
+             v3c.V3C_AVD: "AVD"}
+    out = {}
+    for utype, payload in v3c.read_sample_stream(stream):
+        key = names[utype]
+        if utype in (v3c.V3C_OVD, v3c.V3C_GVD, v3c.V3C_AVD):
+            key += f" {v3c.VideoSubstream.read(BitReader(payload)).map_index}"
+        out[key] = out.get(key, 0) + len(payload)
+    return out
+
+
+def lossless_phase(dev, frames):
+    """Steps 28-32: the CTC's lossless conditions (raw points, EOM, the
+    lossless video, the RAW/EOM aux substreams) on the first four bench
+    frames, and EOM under r3 on the first two.  Returns (rows, launches)."""
+    import zlib
+
+    import numpy as np
+
+    from vpcc_tpu_torch import pipeline
+    from vpcc_tpu_torch.decoder import Decoder
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import reconstruct
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+    from vpcc_tpu_torch.video import codecs
+
+    ref = json.loads(LOSSLESS_REFERENCE.read_text())
+    ref_parts = np.load(FRONT_PARTITIONS)
+
+    def config(name):
+        cfg = VPCCConfig()
+        for k, v in ref["configs"][name]["overrides"].items():
+            setattr(cfg, k, v)
+        return cfg
+
+    def encode(cfg, fr):
+        enc = Encoder(cfg, device="cuda")
+        segs = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
+            ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(fr)]
+        return enc, *enc.encode_gof(fr, segs=segs)
+
+    def decode_checked(stream, recon, what):
+        dev.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec = Decoder(device="cuda").decode(stream)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / len(recon)
+        print(f"{what} launches on the decode path: {dict(dev.LAUNCHES)}")
+        for i, (a, b) in enumerate(zip(dec, recon)):
+            if a.point_count != b.point_count or frame_digest(a.positions, a.colors) != \
+                    frame_digest(b.positions, b.colors):
+                raise AssertionError(f"{what} frame {i}: the decoded stream differs from the "
+                                     "encoder's reconstruction")
+        return dec, t_dec
+
+    rl = ref["configs"]["lossless"]
+    cfg = config("lossless")
+    fr = frames[:len(rl["seeds"])]
+    n = len(fr)
+    if [f.point_count for f in fr] != [r["source_points"] for r in rl["frames"]]:
+        raise AssertionError("lossless: the frames differ from the JAX package's")
+
+    # 28. warm-up, capturing the largest call of kernel C's EOM entry and of
+    # kernel S's two operations
+    wrappers = {"generate_points_eom": (reconstruct, "generate_points"),
+                "eom_extract": (pipeline, "extract_eom_colors"),
+                "eom_inject": (pipeline, "inject_eom_colors")}
+    t0 = time.perf_counter()
+    with Capture(wrappers) as cap:
+        encode(cfg, fr)
+        torch.cuda.synchronize()
+    print(f"lossless cold encode: {(time.perf_counter() - t0) / n:.4f} s/frame")
+    missing = sorted(set(wrappers) - set(cap.calls))
+    if missing:
+        raise AssertionError(f"lossless: never called: {missing}")
+    _, gp_args, gp_kw = cap.calls["generate_points_eom"]
+    if gp_kw.get("eom") is None:
+        raise AssertionError("lossless: kernel C ran without an EOM plane")
+    _, ex_args, _ = cap.calls["eom_extract"]
+    _, in_args, _ = cap.calls["eom_inject"]
+
+    # 29. kernel C's EOM entry and kernel S == their plain versions, timed in
+    # three rounds of turns
+    gp_k = lambda: tuple(reconstruct.generate_points(*gp_args, **gp_kw))
+    gp_p = lambda: tuple(reconstruct.generate_points_plain(*gp_args, **gp_kw))
+    s_k = lambda: (pipeline.extract_eom_colors(*ex_args), pipeline.inject_eom_colors(*in_args))
+    s_p = lambda: (pipeline.extract_eom_colors_plain(*ex_args),
+                   pipeline.inject_eom_colors_plain(*in_args))
+    rows = {}
+    for name, k_fn, p_fn, args in (("generate_points_eom", gp_k, gp_p, (gp_args, gp_kw)),
+                                   ("eom_colors", s_k, s_p, (ex_args, in_args))):
+        got, want = k_fn(), p_fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain version "
+                                 f"(max abs err {err})")
+        turns = [time_turns(k_fn, p_fn) for _ in range(3)]
+        ks = [k for kk, _ in turns for k in kk]
+        ps = [p for _, pp in turns for p in pp]
+        b_ms, b_by = bounds(name, args, got)
+        print(f"{name}: exact (max abs err {err}); kernel "
+              + "/".join(f"{k:.4f}" for k in ks) + " ms, plain "
+              + "/".join(f"{p:.3f}" for p in ps) + f" ms, bound {b_ms:.4f} ms ({b_by}); rows "
+              f"out {got[0].shape[0]}, EOM rows {ex_args[0].eq(2).sum().item()}, aux "
+              f"{tuple(in_args[2].shape)}")
+        rows[name] = dict(ms=sum(ks) / len(ks), plain_ms=sum(ps) / len(ps), bound_ms=b_ms,
+                          bound_by=b_by, max_abs_err=err, library_ms=None)
+
+    # 30. the main path, counted and timed; the spies keep each frame's EOM
+    # rows, plane and raw points for the checks afterwards
+    seen = []
+    real_recon = pipeline.reconstruct_frame
+
+    def recon_spy(*a, **kw):
+        out = real_recon(*a, **kw)
+        seen.append(int((out.layer == 2).sum()))
+        return out
+
+    pipeline.reconstruct_frame = recon_spy
+    try:
+        dev.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, stream, recon = encode(cfg, fr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(dev.LAUNCHES)
+    finally:
+        pipeline.reconstruct_frame = real_recon
+    split = {f: sum(getattr(st, f) for st in enc.stats) / n
+             for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s", "video_s",
+                       "reconstruct_s", "recolor_s")}
+    print(f"lossless warm encode: {dt / n:.4f} s/frame (JAX partitions; JAX on a CPU "
+          f"{rl['jax_cpu_encode_s'] / n:.4f}); per frame "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"lossless launches on the encode path: {launches}")
+    idle = [k for k in ("generate_points_eom", "eom_colors") if launches.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"lossless: kernels not launched on the encode path: {idle}")
+
+    # 31. counts, stream and decode against the JAX package's
+    bad = []
+    for i, (e, r, rows_eom) in enumerate(zip(enc.last_encoded, rl["frames"], seen)):
+        eom = codecs.decode_eom_plane(e.geometry.eom_payload)
+        raw = e.raw_positions
+        got = dict(patches=len(e.patches), raw_points=0 if raw is None else len(raw),
+                   raw_md5=None if raw is None else frame_digest(raw, e.raw_colors),
+                   eom_md5=hashlib.md5(np.ascontiguousarray(eom, "<i4").tobytes()).hexdigest(),
+                   eom_codes=int((eom != 0).sum()), eom_rows=rows_eom,
+                   recon_points=recon[i].point_count,
+                   recon_md5=frame_digest(recon[i].positions, recon[i].colors))
+        bad += [f"frame {i} {k} {v} (JAX {r[k]})" for k, v in got.items() if v != r[k]]
+    if bad:
+        raise AssertionError(f"lossless: differs from the JAX package: {bad}")
+    print("lossless against the JAX package: patches "
+          f"{[r['patches'] for r in rl['frames']]}, raw points "
+          f"{[r['raw_points'] for r in rl['frames']]}, EOM codes "
+          f"{[r['eom_codes'] for r in rl['frames']]}, EOM rows "
+          f"{[r['eom_rows'] for r in rl['frames']]}, reconstructions: all equal")
+    same_zlib = zlib.ZLIB_RUNTIME_VERSION == ref["zlib_runtime_version"]
+    same_stream = hashlib.md5(stream).hexdigest() == rl["stream_md5"]
+    print(f"lossless stream {len(stream)} vs {rl['stream_bytes']} bytes, byte-identical to the "
+          f"JAX encoder's: {same_stream} (zlib {zlib.ZLIB_RUNTIME_VERSION} here, "
+          f"{ref['zlib_runtime_version']} in the reference run)")
+    if same_zlib and not same_stream:
+        raise AssertionError("lossless: the stream differs from the JAX encoder's")
+    if not same_stream:
+        print("lossless: zlib builds differ, so the stream bytes are not comparable; held "
+              "instead: every substream decodes to the encoder's planes (the decode below)")
+    dec, t_dec = decode_checked(stream, recon, "lossless")
+    for i, (a, f) in enumerate(zip(dec, fr)):
+        ka = np.lexsort(np.asarray(a.positions, np.int64).T)
+        kf = np.lexsort(np.asarray(f.positions, np.int64).T)
+        if a.point_count != f.point_count or not np.array_equal(
+                np.asarray(a.positions, np.int32)[ka], np.asarray(f.positions, np.int32)[kf]) \
+                or not np.array_equal(a.colors[ka], f.colors[kf]):
+            raise AssertionError(f"lossless frame {i}: the decode differs from the source")
+    print(f"lossless decode: {t_dec:.4f} s/frame (JAX on a CPU "
+          f"{rl['jax_cpu_decode_s'] / n:.4f}); every frame equals its source bit for bit "
+          f"(points {[f.point_count for f in fr]})")
+    ub = unit_bytes(stream)
+    print("lossless bytes per substream (port/JAX): " + ", ".join(
+        f"{k} {ub.get(k)}/{v}" for k, v in rl["unit_bytes"].items()))
+
+    # 32. EOM under r3: the stream byte-identical to JAX's
+    re_ = ref["configs"]["r3_eom"]
+    fr3 = frames[:len(re_["seeds"])]
+    t0 = time.perf_counter()
+    enc3, stream3, recon3 = encode(config("r3_eom"), fr3)
+    torch.cuda.synchronize()
+    t3 = (time.perf_counter() - t0) / len(fr3)
+    same3 = hashlib.md5(stream3).hexdigest() == re_["stream_md5"]
+    print(f"r3+EOM encode: {t3:.4f} s/frame, stream {len(stream3)} vs {re_['stream_bytes']} "
+          f"bytes, byte-identical to the JAX encoder's: {same3}")
+    if not same3:
+        raise AssertionError("r3+EOM: the stream differs from the JAX encoder's")
+    for i, (e, r) in enumerate(zip(recon3, re_["frames"])):
+        if (e.point_count, frame_digest(e.positions, e.colors)) != \
+                (r["recon_points"], r["recon_md5"]):
+            raise AssertionError(f"r3+EOM frame {i}: the reconstruction differs from JAX's")
+    _, t_dec3 = decode_checked(stream3, recon3, "r3+EOM")
+    print(f"r3+EOM decode: {t_dec3:.4f} s/frame; the stream decodes exactly to the encoder's "
+          "reconstruction, which equals JAX's")
     return rows, launches
 
 
@@ -1706,17 +1989,20 @@ def main() -> int:
     enc_rows, enc_launches, r3 = encode_phase(dev, cfg, frames, segs)
     met_rows, met_launches = metrics_phase(dev, cfg, frames, segs, decoded, r3)
     vox_rows, vox_launches = vox11_phase(dev)
+    ll_rows, ll_launches = lossless_phase(dev, frames)
     rows.update(front_rows)
     rows.update(geo_rows)
     rows.update(enc_rows)
     rows.update(met_rows)
     rows.update(vox_rows)
+    rows.update(ll_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
                 **{k: enc_launches[k] for k in ENCODE_KERNELS},
                 **{k: met_launches[k] for k in METRICS_KERNELS},
-                **{k: vox_launches[c] for k, c in VOX11_ROWS.items()}}
+                **{k: vox_launches[c] for k, c in VOX11_ROWS.items()},
+                **{k: ll_launches[k] for k in LOSSLESS_KERNELS}}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

@@ -12,7 +12,11 @@ after GOF 1) in pytest's tmp_path; every option is an argument.  Checked:
 * the port's `apps.metrics` (with and without --normalDataPath, with
   reflectances) and `apps.normal_generator` print the JAX apps' lines
   within PSNR_ATOL_DB, and the normals agree to NORMAL_ATOL;
-* `read_ply` reads both packages' PLYs (binary and ascii) identically.
+* `read_ply` reads both packages' PLYs (binary and ascii) identically;
+* under the CTC's lossless flags (raw points, EOM, the separate RAW/EOM
+  video, lossless QPs) on a 7-bit cloud, the port's `apps.encode` writes
+  the JAX app's stream and `apps.decode --device=cpu` gives the source
+  back bit for bit.
 """
 
 import contextlib
@@ -28,7 +32,7 @@ from vpcc_tpu.apps import encode as j_encode, metrics as j_metrics
 from vpcc_tpu.apps import normal_generator as j_normals
 from vpcc_tpu.utils import ply as jply
 from vpcc_tpu.utils.synthetic import make_person_cloud
-from vpcc_tpu_torch.apps import encode as t_encode, metrics as t_metrics
+from vpcc_tpu_torch.apps import decode as t_decode, encode as t_encode, metrics as t_metrics
 from vpcc_tpu_torch.apps import normal_generator as t_normals
 from vpcc_tpu_torch.utils import ply as tply
 
@@ -186,3 +190,32 @@ def test_read_ply_both_packages(tmp_path):
             assert getattr(a, field).dtype == getattr(b, field).dtype, (name, field)
             if name != "ascii.ply":  # ascii keeps 6 significant digits of a normal
                 np.testing.assert_array_equal(getattr(a, field), getattr(pc, field), err_msg=name)
+
+
+LOSSLESS_FLAGS = ["--geometryQP=-12", "--attributeQP=0", "--occupancyPrecision=1",
+                  "--rawPointsPatch=1", "--maxAllowedDist2RawPointsSelection=0",
+                  "--enhancedOccupancyMapCode=1", "--useRawPointsSeparateVideo=1",
+                  "--flagGeometrySmoothing=0", "--gridSmoothing=0", "--flagColorPreSmoothing=0"]
+
+
+def test_lossless_encode_decode_apps(tmp_path, capsys):
+    src = make_person_cloud(bits=7, n_samples=12000, seed=3)
+    jply.write_ply(tmp_path / "src_0000.ply", src)
+    common = [f"--uncompressedDataPath={tmp_path}/src_%04d.ply", "--frameCount=1",
+              "--geometry3dCoordinatesBitdepth=7", "--resolution=127",
+              "--minimumImageWidth=128", "--minimumImageHeight=128",
+              "--iterationCountRefineSegmentation=10", *LOSSLESS_FLAGS]
+    for name, main, extra in (("jax", j_encode.main, []), ("port", t_encode.main, ["--device=cpu"])):
+        (tmp_path / name).mkdir()
+        _run(main, common + [f"--compressedStreamPath={tmp_path}/{name}/out.vpcc"] + extra, capsys)
+    assert (tmp_path / "port" / "out.vpcc").read_bytes() == (tmp_path / "jax" / "out.vpcc").read_bytes()
+    out = _run(t_decode.main, [f"--compressedStreamPath={tmp_path}/port/out.vpcc",
+                               f"--reconstructedDataPath={tmp_path}/dec_%04d.ply", "--device=cpu"],
+               capsys)
+    assert out[-1].startswith("decoded 1 frames")
+    dec = tply.read_ply(tmp_path / "dec_0000.ply")
+    ks = np.lexsort(src.positions.astype(np.int64).T)
+    kd = np.lexsort(dec.positions.astype(np.int64).T)
+    assert dec.point_count == src.point_count
+    np.testing.assert_array_equal(dec.positions[kd], src.positions.astype(dec.positions.dtype)[ks])
+    np.testing.assert_array_equal(dec.colors[kd], src.colors[ks])

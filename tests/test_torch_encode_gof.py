@@ -144,7 +144,7 @@ def test_encode_gof_out_of_slice_options_raise():
     frames = [make_person_cloud(bits=BITS, n_samples=4000, seed=7)]
     for field, value, what in (("flagColorSmoothing", 1, "color smoothing"),
                                ("attributeBGFill", 0, "attributeBGFill"),
-                               ("attributeQP", 4, "lossless attributes")):
+                               ("pbfEnableFlag", 1, "PBF")):
         cfg = _cfg(VPCCConfig)
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError, match=what):

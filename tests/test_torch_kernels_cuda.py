@@ -102,6 +102,19 @@ def test_generate_points_kernel(cuda, seed):
     assert got.pos.shape[0] > 0
     for a, b in zip(got, want):
         _same(a, b)
+    # the EOM entry: eom_bits = 3 layers (bits above them ignored); the
+    # two-layer call above stays what it was
+    eom = torch.as_tensor(np.where(rng.random((H, W)) < 0.4, rng.integers(0, 16, (H, W)), 0)
+                          .astype(np.int32), device=cuda)
+    before = dev.LAUNCHES["generate_points_eom"]
+    got_e = reconstruct.generate_points(*t, res, eom=eom, eom_bits=3)
+    want_e = reconstruct.generate_points_plain(*t, res, eom=eom, eom_bits=3)
+    assert dev.LAUNCHES["generate_points_eom"] == before + 2
+    assert (got_e.layer == 2).sum() > 100
+    for a, b in zip(got_e, want_e):
+        _same(a, b)
+    for a, b in zip(reconstruct.generate_points(*t, res), want):
+        _same(a, b)
 
 
 @pytest.mark.parametrize("thr", [1.0, 2.0, 64.0])
@@ -500,7 +513,7 @@ def test_color_convert_kernel(cuda, dtype):
 
 @pytest.mark.parametrize("with_normals,with_colors", [(True, True), (False, False)])
 def test_metrics_kernel(cuda, with_normals, with_colors):
-    """Kernel R on one direction of a jittered cloud: the integer sums
+    """Kernel R on one direction of a jittered cloud: the maximum d2
     exact, the float64 sums to 1e-9 (another summation order)."""
     from vpcc_tpu_torch.ops import metrics
 
@@ -521,3 +534,34 @@ def test_metrics_kernel(cuda, with_normals, with_colors):
     _same(ik, ip)
     torch.testing.assert_close(fk, fp, rtol=1e-9, atol=0.0)
     assert (fk[0] > 0) == with_normals and (fk[1] > 0) == with_colors
+
+
+@pytest.mark.parametrize("n,frac,n_aux", [(0, 0.0, 1), (3000, 0.0, 1), (700_000, 0.007, 5000),
+                                          (700_000, 0.007, 100)])
+def test_eom_colors_kernel(cuda, n, frac, n_aux):
+    """Kernel S: no rows, no tag-2 rows, ~4.9k tag-2 rows over several tiles
+    with an aux that covers them or is shorter (the last sample repeats)."""
+    rng = np.random.default_rng(n + n_aux)
+    layer = np.where(rng.random(n) < frac, 2, rng.integers(0, 2, n)).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    lay, col = t(layer), t(rng.integers(0, 256, (n, 3)).astype(np.int32))
+    aux = t(rng.integers(0, 256, (n_aux, 3)).astype(np.uint8))
+    got = pipeline.extract_eom_colors(lay, col)
+    _same(got, pipeline.extract_eom_colors_plain(lay, col))
+    assert got.shape[0] == int((layer == 2).sum())
+    _same(pipeline.inject_eom_colors(lay, col, aux), pipeline.inject_eom_colors_plain(lay, col, aux))
+
+
+@pytest.mark.parametrize("n", [5000, 1_435_657, 2_432_872])
+def test_metrics_d2_f32_kernel(cuda, n):
+    """Kernel R's D1 sum in XLA's CPU order == its plain version, bit for
+    bit, at bucket lengths with a 32-wide and a 24-wide level."""
+    from vpcc_tpu_torch.ops import metrics
+
+    rng = np.random.default_rng(n)
+    d2 = torch.as_tensor(rng.integers(0, 41, n).astype(np.int32), device=cuda)
+    cap = metrics.shape_bucket(n)
+    n0 = dev.LAUNCHES["metrics_d2_f32"]
+    got = metrics.d2_sum_f32(d2, n, cap)
+    assert dev.LAUNCHES["metrics_d2_f32"] == n0 + len(metrics.xla_windows(cap))
+    _same(got, metrics.d2_sum_f32_plain(d2, n, cap))

@@ -9,9 +9,12 @@ change nothing.  Tolerances:
   float32 operation on its own, true divisions by 255);
 * `estimate_normals`: NORMAL_ATOL (arccos/cos, as in
   tests/test_torch_segmentation.py);
-* `compute_metrics`: the D1 MSE and Hausdorff term equal (exact integer
-  sums, one float32 division), the other MSEs to MSE_RTOL (float64 sums
-  here, float32 sums in XLA's order there), every PSNR to PSNR_ATOL_DB.
+* `compute_metrics`: the D1 MSE and Hausdorff term equal (the float32 d2
+  sum in XLA's CPU order, one float32 division), the other MSEs to
+  MSE_RTOL (float64 sums here, float32 sums in XLA's order there), every
+  PSNR to PSNR_ATOL_DB;
+* `d2_sum_f32`: bit for bit equal to XLA's float32 `jnp.sum` at bucket
+  lengths where the sum passes 2^24.
 """
 
 import dataclasses
@@ -159,6 +162,30 @@ def test_reflectance_mse(cloud):
     g, w = _both(src, cloud["col"], rec, cloud["rcol"], 127, 7, src_refl=ra, rec_refl=rb)
     assert_metrics_close(g, w)
     assert math.isfinite(g.reflectance_psnr)
+
+
+@pytest.mark.parametrize("n", [
+    2_432_872,   # a vox11 frame's source points (bucket 3 * 2^20)
+    3_048_337,   # its reconstruction (the same bucket)
+    1_435_657,   # bucket 3 * 2^19: a 48-element level split into two windows
+    1_000_003,   # bucket 2^20
+])
+def test_d2_sum_f32_matches_xla(n):
+    """The D1 sum (ROADMAP F7): random integer d2 rows whose float32 sum
+    passes 2^24, padded with zeros to the reference's shape bucket, summed
+    by the port and by XLA's CPU reduce."""
+    rng = np.random.default_rng(n)
+    cap = tm.shape_bucket(n)
+    d2 = rng.integers(0, 41, n).astype(np.int32)
+    d2[rng.random(n) < 1e-3] = rng.integers(1000, 300_000)
+    x = np.zeros(cap, np.float32)
+    x[:n] = d2
+    want = np.asarray(jnp.sum(jnp.asarray(x)))
+    got = tm.d2_sum_f32(torch.as_tensor(d2), n, cap).numpy()
+    exact = float(d2.astype(np.int64).sum())
+    print(f"n={n} cap={cap}: XLA {want!r}, port {got!r}, exact {exact}")
+    assert exact > 2 ** 24 and got.dtype == np.float32
+    assert got.tobytes() == want.tobytes()
 
 
 def test_metrics_need_a_device_or_cuda():

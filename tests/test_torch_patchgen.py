@@ -308,12 +308,16 @@ def test_encoder_device_policy_and_unsupported_options():
     assert Encoder(device="cpu").device == torch.device("cpu")
     for k, v in (("highGradientSeparation", 1), ("enablePointCloudPartitioning", 1),
                  ("globalPatchAllocation", 1), ("normalOrientation", 2),
-                 ("enhancedOccupancyMapCode", 1), ("rawPointsPatch", 1),
                  ("pointLocalReconstruction", 1), ("numMaxTilePerFrame", 2)):
         cfg = VPCCConfig()
         setattr(cfg, k, v)
         with pytest.raises(NotImplementedError):
             Encoder(cfg, device="cpu")
+    # the lossless conditions' tools are ported
+    for k in ("enhancedOccupancyMapCode", "rawPointsPatch", "useRawPointsSeparateVideo"):
+        cfg = VPCCConfig()
+        setattr(cfg, k, 1)
+        assert getattr(Encoder(cfg, device="cpu").cfg, k) == 1
     from vpcc_tpu_torch.core import packing
 
     cfg = VPCCConfig()

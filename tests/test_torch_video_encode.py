@@ -21,6 +21,7 @@ import torch
 from vpcc_tpu.ops import padding as jpad
 from vpcc_tpu.utils.config import VPCCConfig as JCfg
 from vpcc_tpu.video import codecs as jcodecs, entropy as jent, hevc as jh
+from vpcc_tpu_torch.bitstream import v3c
 from vpcc_tpu_torch.ops import padding as tpad
 from vpcc_tpu_torch.utils.config import VPCCConfig
 from vpcc_tpu_torch.video import codecs as tcodecs, entropy as tent, hevc as th
@@ -222,11 +223,16 @@ def test_encode_planes_cross_decodes_and_matches_reference_rd(planes, kind):
 def test_encode_planes_unsupported():
     with pytest.raises(NotImplementedError, match="two-level"):
         th.encode_planes(torch.zeros((1, 64, 64), dtype=torch.int32), [24], [2047])
+    # geometryQP <= 4 is no longer refused: the plane is coded losslessly
     cfg = VPCCConfig()
     cfg.geometryQP = 4
     enc = tcodecs.GeometrySubstreamEncoder(cfg, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="lossless geometry"):
-        enc.encode(np.zeros((64, 64), np.uint16))
+    plane = np.random.default_rng(1).integers(0, 256, (64, 64)).astype(np.uint16)
+    payload, dec = enc.encode(plane)
+    assert payload[0] == v3c.CODEC_LOSSLESS_ZLIB
+    np.testing.assert_array_equal(dec.numpy(), plane)
+    np.testing.assert_array_equal(
+        tcodecs.GeometrySubstreamDecoder(cfg, torch.device("cpu")).decode(payload), plane)
 
 
 def test_rdo_tie_crop_matches_reference():

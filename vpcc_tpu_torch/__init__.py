@@ -10,14 +10,16 @@ Layout (mirrors vpcc_tpu/):
     csrc/       CUDA C++ kernels (built with nvcc for sm_90a at first use)
     bitstream/  V3C high-level syntax reader and writer + bit I/O
     video/      host entropy coding (ctypes), wavefront video encoder and
-                decoder, color conversion, substream encoders and decoders
+                decoder, color conversion, substream encoders and decoders,
+                the lossless plane codec and the RAW/EOM aux packing
     core/       patch data model and patch building, packing, atlas frames,
                 block-to-patch
     ops/        voxelize, grid k-NN, normals, segmentation, connected
                 components, coverage, point reconstruction, grid and color
                 pre-smoothing, push-pull fill, recolor
-    pipeline.py the reconstruction seam (points, smoothing, color gather)
-                and the attribute images (paint, group dilation)
+    pipeline.py the reconstruction seam (points, smoothing, color gather,
+                the EOM rows' colors) and the attribute images (paint,
+                group dilation)
     decoder.py  `Decoder.decode` — V3C stream -> point clouds
     encoder.py  `Encoder.encode_gof` — point clouds -> V3C stream and the
                 encoder-side reconstructions (its stages are public too)

@@ -30,17 +30,17 @@ class AtlasFrame:
     geometry1: np.ndarray      # (H, W) uint16, relative depth D1 (absoluteD1)
     block_to_patch: np.ndarray  # (H/res, W/res) int32, 0 = none else idx+1
     patches: List[Patch]
+    eom: "np.ndarray | None" = None  # (H, W) int32 EOM bit codes
 
 
 def rasterize_frame(patches: List[Patch], width: int, height: int, cfg: VPCCConfig) -> AtlasFrame:
-    """Write every patch's occupancy and D0/D1 depths (relative to d1,
-    clipped to the 2D bit depth) at its canvas position, in patch order."""
-    if cfg.enhancedOccupancyMapCode:
-        raise NotImplementedError(
-            "enhancedOccupancyMapCode is not ported yet (ROADMAP queue 1)")
+    """Write every patch's occupancy, D0/D1 depths (relative to d1, clipped
+    to the 2D bit depth) and, with enhancedOccupancyMapCode, EOM codes at
+    its canvas position, in patch order."""
     occ = np.zeros((height, width), np.uint8)
     geo0 = np.zeros((height, width), np.uint16)
     geo1 = np.zeros((height, width), np.uint16)
+    eom = np.zeros((height, width), np.int32) if cfg.enhancedOccupancyMapCode else None
     max2d = (1 << cfg.geometryBitDepth2D) - 1
     for p in patches:
         pdt = 1 - 2 * p.projection_mode
@@ -51,8 +51,10 @@ def rasterize_frame(patches: List[Patch], width: int, height: int, cfg: VPCCConf
         occ[y, x] = 1
         geo0[y, x] = np.clip(rel0, 0, max2d).astype(np.uint16)
         geo1[y, x] = np.clip(rel1, 0, max2d).astype(np.uint16)
+        if eom is not None and p.eom is not None:
+            eom[y, x] = p.eom[vv, uu]
     btp = derive_block_to_patch(occ, patches, width, height, cfg.occupancyResolution)
-    return AtlasFrame(width, height, occ, geo0, geo1, btp, patches)
+    return AtlasFrame(width, height, occ, geo0, geo1, btp, patches, eom=eom)
 
 
 def downsample_occupancy(occ: np.ndarray, precision: int, threshold: int = 0) -> np.ndarray:

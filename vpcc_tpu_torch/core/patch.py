@@ -107,8 +107,9 @@ class Patch:
     pref_orientation: int = -1
     # matched patch's index in the reference frame's patch list
     ref_patch_idx: int = -1
-    # EOM in-between-point bits (not produced by the port's encoder yet)
-    eom: Optional[np.ndarray] = None
+    # EOM in-between-point bits: bit k set means a point at directed depth
+    # D0 + k + 1, strictly between D0 and D1 (PCCCodec.cpp:671-804)
+    eom: Optional[np.ndarray] = None  # (size_v, size_u) int32 or None
     # 45-degree additional projection plane: 0 = axis-aligned, 1..3 = the
     # rotation axis (Y/X/Z); patch-local coords live in the rotated frame
     axis_of_additional_plane: int = 0
@@ -179,13 +180,21 @@ class Patch:
         """All 3D points from the D0/D1 maps: (points_d0 (M,3) int32,
         points_d1 (M2,3), pixel_uv (M,2)) (reference: PCCPatch.h:201
         generatePoint)."""
-        if self.eom is not None and self.eom.any():
-            raise NotImplementedError("EOM points are not ported yet (ROADMAP queue 1)")
         vv, uu = np.nonzero(self.occupancy)
         d0 = self.depth0[vv, uu]
         pts0 = self._uvd_to_xyz(uu, vv, d0)
         m1 = self.depth1[vv, uu] != d0
         pts1 = self._uvd_to_xyz(uu[m1], vv[m1], self.depth1[vv, uu][m1])
+        if self.eom is not None and self.eom.any():
+            # EOM points after D1's; the host depth is not clamped at 0 in
+            # projection mode 1 (the device reconstruction clamps it)
+            pdt = 1 - 2 * self.projection_mode
+            ebits = self.eom[vv, uu]
+            extra = []
+            for k in range(int(ebits.max()).bit_length()):
+                mk = (ebits >> k) & 1 != 0
+                extra.append(self._uvd_to_xyz(uu[mk], vv[mk], d0[mk] + pdt * (k + 1)))
+            pts1 = np.concatenate([pts1] + extra, axis=0)
         return pts0, pts1, np.stack([uu, vv], 1)
 
     def _uvd_to_xyz(self, u, v, d_abs):
@@ -210,9 +219,6 @@ def build_patch_from_component(
     view_id: int,
     cfg: VPCCConfig,
 ) -> Optional[Patch]:
-    if cfg.enhancedOccupancyMapCode:
-        raise NotImplementedError(
-            "enhancedOccupancyMapCode is not ported yet (ROADMAP queue 1)")
     axes = VIEW_AXES[view_id]
     add_axis, normal_axis, tangent_axis, bitangent_axis, mode = (int(a) for a in axes)
     pdt = 1 - 2 * mode  # projectionDirectionType: +1 for mode 0, -1 for mode 1
@@ -323,6 +329,19 @@ def build_patch_from_component(
     if not occ_map.any():
         return None
 
+    # --- EOM bits: the points strictly between D0 and D1, which the two maps
+    # drop (PCCCodec.cpp:671-804)
+    eom_map = None
+    if cfg.enhancedOccupancyMapCode:
+        pix_d0 = d0_map.reshape(-1)[pix]
+        pix_d1 = d1_map.reshape(-1)[pix]
+        delta = pdt * (d - pix_d0)
+        between = (pix_d0 != INFINITE_DEPTH) & (delta > 0) & (pdt * d < pdt * pix_d1)
+        ebits = np.zeros(size_u * size_v, np.int32)
+        np.bitwise_or.at(ebits, pix[between],
+                         np.int32(1) << (delta[between] - 1).astype(np.int32))
+        eom_map = ebits.reshape(size_v, size_u)
+
     # --- sizeD (reference: :1203-1218)
     rel1 = pdt * (d1_map[occ_map] - d1)
     size_d_pixel = int(rel1.max(initial=0))
@@ -349,6 +368,7 @@ def build_patch_from_component(
         occupancy_resolution=cfg.occupancyResolution,
         depth0=d0_map.astype(np.int32),
         depth1=d1_map.astype(np.int32),
+        eom=eom_map,
         lod_x=lod_x,
         lod_y=lod_y,
         axis_of_additional_plane=add_axis,

@@ -2,24 +2,32 @@
 // valid-first compaction.
 //
 // Replaces the XLA programs vpcc_tpu/ops/reconstruct.py
-// `generate_point_cloud` (reconstruct.py:61), vpcc_tpu/ops/smoothing.py
+// `generate_point_cloud` (reconstruct.py:61, with its EOM branch :136-143),
+// vpcc_tpu/ops/smoothing.py
 // `boundary_pixels` (smoothing.py:24) and the cumsum-scatter compaction of
 // vpcc_tpu/pipeline.py `_recon_phase2` (pipeline.py:84-97).
 //
 // Per pixel: the owning patch from block-to-patch, the inverse packing
 // orientation to patch (u, v), the D0 point and — where the D1 map differs
 // from D0 — the D1 point, with LOD scaling and the 45-degree inverse
-// rotations (arithmetic >> 1).  The boundary flag looks at the 8 neighbours
-// with wrap-around at the image edge (the reference uses jnp.roll).
+// rotations (arithmetic >> 1).  With an EOM plane (enhancedOccupancyMapCode)
+// each set bit k < eom_bits of the pixel's code adds an EOM point at
+// directed depth D0 + k + 1 (max(., 0) in projection mode 1), layer tag 2
+// (vpcc_tpu/pipeline.py:79-82).  The boundary flag looks at the 8
+// neighbours with wrap-around at the image edge (the reference uses
+// jnp.roll).
 //
 // Design: two launches of one kernel.  Pass 0 writes each pixel's point
-// count (0, 1 or 2); the wrapper takes an inclusive cumsum; pass 1 writes
-// each pixel's points at rows incl - count (and +1), which keeps raster
+// count (v0 + v1 + popcount of its EOM bits); the wrapper takes an
+// inclusive cumsum; pass 1 writes each pixel's points from row incl -
+// count on, in layer order (D0, D1, EOM bit 0, 1, ...), which keeps raster
 // order y*W + x, layer-minor, exactly as the reference's stable
-// compaction.  No (H*W, L) intermediate is stored.
+// compaction of its (H*W, 2 + eom_bits) candidates.  No (H*W, L)
+// intermediate is stored.  eom == nullptr is the two-layer kernel.
 //
-// Bound: bytes — one read of the occupancy, both geometry maps and the
-// block map per pass, one write of the compacted rows (29 bytes a point).
+// Bound: bytes — one read of the occupancy, both geometry maps, the EOM
+// plane and the block map per pass, one write of the compacted rows (29
+// bytes a point).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,7 +40,7 @@ __global__ void generate_points_kernel(
     const uint8_t* occ, const int32_t* g0, const int32_t* g1,
     const int32_t* btp, const int32_t* ptab, int32_t* counts_or_incl, int H,
     int W, int res, int P, int32_t* pos, int32_t* pix, int32_t* layer,
-    int32_t* pid_out, uint8_t* bnd, int n_out) {
+    int32_t* pid_out, uint8_t* bnd, int n_out, const int32_t* eom, int eom_bits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= H * W) return;
   const int y = i / W, x = i - (i / W) * W;
@@ -42,7 +50,9 @@ __global__ void generate_points_kernel(
   const bool v0 = occ[i] != 0 && pid >= 0;
   const int a = g0[i], b = g1[i];
   const bool v1 = v0 && a != b;
-  const int cnt = static_cast<int>(v0) + static_cast<int>(v1);
+  const unsigned ebits =
+      (v0 && eom != nullptr) ? static_cast<unsigned>(eom[i]) & ((1u << eom_bits) - 1u) : 0u;
+  const int cnt = static_cast<int>(v0) + static_cast<int>(v1) + __popc(ebits);
   if (pos == nullptr) {  // pass 0: counts
     counts_or_incl[i] = cnt;
     return;
@@ -83,8 +93,22 @@ __global__ void generate_points_kernel(
   const int s45 = (1 << prm[GBITS]) - 1;
   const int na = prm[NA], ta = prm[TA], ba = prm[BA];
 
+  // layers in order: D0, D1 (where it differs), then EOM bits low to high
+  unsigned rest = ebits;
   for (int l = 0; l < cnt; ++l) {
-    const int geo = l == 0 ? a : b;
+    int geo, tag;
+    if (l == 0) {
+      geo = a;
+      tag = 0;
+    } else if (l == 1 && v1) {
+      geo = b;
+      tag = 1;
+    } else {
+      const int k = __ffs(rest) - 1;  // lowest set bit left
+      rest &= rest - 1u;
+      geo = a + k + 1;
+      tag = 2;
+    }
     const int dabs = mode == 0 ? d1 + geo : max(d1 - geo, 0);
     int pt[3];
     for (int ch = 0; ch < 3; ++ch)
@@ -106,7 +130,7 @@ __global__ void generate_points_kernel(
     pos[r * 3 + 2] = pz;
     pix[r * 2 + 0] = x;
     pix[r * 2 + 1] = y;
-    layer[r] = l;
+    layer[r] = tag;
     pid_out[r] = pid;
     bnd[r] = edge ? 1 : 0;
   }
@@ -117,18 +141,21 @@ __global__ void generate_points_kernel(
 // pass 0 (pos == nullptr): counts_or_incl receives (H*W,) per-pixel counts.
 // pass 1: counts_or_incl holds their inclusive cumsum; writes n_out rows of
 // pos (N, 3), pix (N, 2), layer (N,), pid (N,) int32 and bnd (N,) bool.
+// eom: (H, W) int32 EOM codes, of which the low eom_bits (0..30) count, or
+// nullptr for the two layers alone.
 extern "C" int generate_points(const uint8_t* occ, const int32_t* g0,
                                const int32_t* g1, const int32_t* btp,
                                const int32_t* ptab, int32_t* counts_or_incl,
                                int H, int W, int res, int P, int32_t* pos,
                                int32_t* pix, int32_t* layer, int32_t* pid,
-                               uint8_t* bnd, int n_out, void* stream) {
+                               uint8_t* bnd, int n_out, const int32_t* eom,
+                               int eom_bits, void* stream) {
   const int n = H * W;
   if (n == 0) return 0;
   const int threads = 256;
   generate_points_kernel<<<(n + threads - 1) / threads, threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       occ, g0, g1, btp, ptab, counts_or_incl, H, W, res, P, pos, pix, layer,
-      pid, bnd, n_out);
+      pid, bnd, n_out, eom, eom_bits);
   return static_cast<int>(cudaGetLastError());
 }

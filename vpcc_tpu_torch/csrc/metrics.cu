@@ -5,7 +5,7 @@
 // (:57) inside `compute_metrics` (:147): for every A row below cnt_a, with
 // B gathered at its nearest index (kernel E, plus the host KD search for
 // the rows it missed):
-//   d2                                 -> int64 sum and maximum (Hausdorff)
+//   d2                                 -> int64 maximum (Hausdorff)
 //   proj = (e0 n0 + e1 n1) + e2 n2, e = float(a - b), n = n_b   -> sum proj^2
 //   (yuv(a) - yuv(b))^2 per channel, BT.709 in [0, 1]            -> 3 sums
 // with yuv: y = ((0.2126 r + 0.7152 g) + 0.0722 b) / 255,
@@ -14,8 +14,9 @@
 // The reference runs `_directional` op by op, so each float32 operation
 // rounds on its own (no fused multiply-adds, true divisions): this file is
 // compiled with --fmad=false and spells every operation with its _rn
-// intrinsic.  The sums are float64 here (the reference's float32 sums
-// follow XLA's reduction order, which a metric need not reproduce).
+// intrinsic.  The point-to-plane and color sums are float64 here.  The D1
+// sum is the reference's float32 sum in XLA's CPU order (`metrics_d2_f32`,
+// below), which rounds once the sum passes 2^24.
 //
 // Design.  Pass 1: a fixed grid of at most 1024 blocks of 256 threads; each
 // thread walks its rows in grid-stride order and keeps its sums in
@@ -38,7 +39,6 @@ constexpr int kReduceThreads = 512;
 constexpr int kMaxBlocks = 2 * kReduceThreads;
 
 struct Sums {
-  long long d2;
   long long dmax;
   double f[4];  // c2p, y, u, v
 };
@@ -65,7 +65,6 @@ __device__ void block_reduce(Sums& s, Sums* sh) {
     if (t < h) {
       Sums& a = sh[t];
       const Sums& b = sh[t + h];
-      a.d2 += b.d2;
       a.dmax = a.dmax > b.dmax ? a.dmax : b.dmax;
 #pragma unroll
       for (int k = 0; k < 4; ++k) a.f[k] += b.f[k];
@@ -80,12 +79,11 @@ __global__ void rows_kernel(const int32_t* __restrict__ pos_a, const uint8_t* __
                             const int32_t* __restrict__ d2, int n,
                             long long* __restrict__ part_i, double* __restrict__ part_f) {
   __shared__ Sums sh[kThreads];
-  Sums s = {0, 0, {0.0, 0.0, 0.0, 0.0}};
+  Sums s = {0, {0.0, 0.0, 0.0, 0.0}};
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const int j = idx[i];
     const long long dd = d2[i];
-    s.d2 += dd;
     s.dmax = s.dmax > dd ? s.dmax : dd;
     if (nrm_b != nullptr) {
       float p = 0.0f;
@@ -110,8 +108,7 @@ __global__ void rows_kernel(const int32_t* __restrict__ pos_a, const uint8_t* __
   }
   block_reduce(s, sh);
   if (threadIdx.x == 0) {
-    part_i[2 * blockIdx.x + 0] = sh[0].d2;
-    part_i[2 * blockIdx.x + 1] = sh[0].dmax;
+    part_i[blockIdx.x] = sh[0].dmax;
 #pragma unroll
     for (int k = 0; k < 4; ++k) part_f[4 * blockIdx.x + k] = sh[0].f[k];
   }
@@ -121,34 +118,85 @@ __global__ void partials_kernel(const long long* __restrict__ part_i,
                                 const double* __restrict__ part_f, int blocks,
                                 long long* __restrict__ out_i, double* __restrict__ out_f) {
   __shared__ Sums sh[kReduceThreads];
-  Sums s = {0, 0, {0.0, 0.0, 0.0, 0.0}};
+  Sums s = {0, {0.0, 0.0, 0.0, 0.0}};
   // thread t takes partials t and t + 512, in that order
   for (int b = threadIdx.x; b < blocks; b += kReduceThreads) {
-    const long long dm = part_i[2 * b + 1];
-    s.d2 += part_i[2 * b];
+    const long long dm = part_i[b];
     s.dmax = s.dmax > dm ? s.dmax : dm;
 #pragma unroll
     for (int k = 0; k < 4; ++k) s.f[k] += part_f[4 * b + k];
   }
   block_reduce(s, sh);
   if (threadIdx.x == 0) {
-    out_i[0] = sh[0].d2;
-    out_i[1] = sh[0].dmax;
+    out_i[0] = sh[0].dmax;
 #pragma unroll
     for (int k = 0; k < 4; ++k) out_f[k] = sh[0].f[k];
   }
 }
 
+// One level of XLA's CPU tree reduction of a float32 vector of `m`
+// elements: out[i] = the sequential sum, from 0, of elements i*w .. i*w+w-1.
+// Level 0 reads the int32 d2 rows (those at or past n are the reference's
+// zero-weight pad rows), the others the previous level's partial sums.
+__global__ void tree_level_kernel(const int32_t* __restrict__ d2, int n,
+                                  const float* __restrict__ in, int m, int w,
+                                  float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m / w) return;
+  float s = 0.0f;
+  for (int j = i * w; j < i * w + w; ++j)
+    s = __fadd_rn(s, in != nullptr ? in[j] : (j < n ? static_cast<float>(d2[j]) : 0.0f));
+  out[i] = s;
+}
+
 }  // namespace
 
+// The float32 sum of the d2 rows as the reference's eager `jnp.sum` computes
+// it on XLA's CPU backend over its shape-bucket length `cap` (rows at or past
+// n are its zero-weight pad rows).  XLA rewrites the reduce into windows:
+// while more than 32 elements remain, each window of w consecutive elements
+// (w = 32 when 32 divides the length, else its largest divisor <= 32) is
+// summed sequentially from 0; the last <= 32 are summed sequentially.  This
+// order was found by probing the compiled reduce with crafted inputs and
+// agrees bit for bit on random vectors at every bucket length from 8192 to
+// 2^24 (tests/test_torch_metrics.py).  Scratch holds the partial sums of
+// every level but the last (fewer than cap floats); one launch per level,
+// counted in *launched.
+extern "C" int metrics_d2_f32(const void* d2, int n, int cap, void* scratch, void* out,
+                              int* launched, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* d = static_cast<const int32_t*>(d2);
+  float* buf = static_cast<float*>(scratch);
+  const float* in = nullptr;
+  int m = cap;
+  *launched = 0;
+  while (true) {
+    int w = m;
+    if (m > 32) {
+      w = 32;
+      while (m % w) --w;
+      if (w < 2) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    float* dst = m > 32 ? buf : static_cast<float*>(out);
+    const int mo = m / w;
+    tree_level_kernel<<<(mo + kThreads - 1) / kThreads, kThreads, 0, s>>>(d, n, in, m, w, dst);
+    ++*launched;
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || m <= 32) return static_cast<int>(err);
+    in = dst;
+    buf += mo;
+    m = mo;
+  }
+}
+
 // col_a / col_b null: no color sums; nrm_b null: no point-to-plane sum.
-// `blocks` (1..1024) partials of scratch: part_i (blocks, 2) int64,
-// part_f (blocks, 4) float64.  Out: isums [sum d2, max d2], fsums [c2p, y,
+// `blocks` (1..1024) partials of scratch: part_i (blocks,) int64,
+// part_f (blocks, 4) float64.  Out: dmax (the maximum d2), fsums [c2p, y,
 // u, v].  Two launches.
 extern "C" int metrics_reduce(const void* pos_a, const void* col_a, const void* pos_b,
                               const void* col_b, const void* nrm_b, const void* idx,
                               const void* d2, int n, int blocks, void* part_i, void* part_f,
-                              void* isums, void* fsums, void* stream) {
+                              void* dmax, void* fsums, void* stream) {
   if (blocks < 1 || blocks > kMaxBlocks || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rows_kernel<<<blocks, kThreads, 0, s>>>(
@@ -161,6 +209,6 @@ extern "C" int metrics_reduce(const void* pos_a, const void* col_a, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   partials_kernel<<<1, kReduceThreads, 0, s>>>(
       static_cast<const long long*>(part_i), static_cast<const double*>(part_f), blocks,
-      static_cast<long long*>(isums), static_cast<double*>(fsums));
+      static_cast<long long*>(dmax), static_cast<double*>(fsums));
   return static_cast<int>(cudaGetLastError());
 }

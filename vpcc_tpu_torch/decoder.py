@@ -8,8 +8,11 @@ implements it (vpcc_tpu/decoder.py): parse HLS -> decode video substreams
 
 Supported: the default configuration's path — occupancy, two geometry maps
 and two attribute maps from the wavefront codec (or the lossless codecs),
-hierarchical random-access GOFs, grid geometry smoothing.  Tools that are
-off by default raise NotImplementedError naming their ROADMAP item.
+hierarchical random-access GOFs, grid geometry smoothing — and the CTC's
+lossless conditions: the EOM plane (occupancy map 1) with its EOM points
+(kernel C) and their aux colors (kernel S), and the raw-points patch, from
+the atlas tile or the RAW/EOM aux substreams.  Tools that are off by
+default raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,9 +29,8 @@ from vpcc_tpu_torch.core import atlas as atlas_mod
 from vpcc_tpu_torch.core.patch import INFINITE_DEPTH, VIEW_AXES, Patch
 from vpcc_tpu_torch.utils.config import VPCCConfig
 from vpcc_tpu_torch.utils.ply import PointCloudData
-from vpcc_tpu_torch.video import codecs
+from vpcc_tpu_torch.video import aux_video, codecs
 
-AUX_MAP_INDEX = 15   # RAW/EOM auxiliary video map index (vpcc_tpu aux_video)
 REFL_MAP_INDEX = 8   # reflectance attribute map index (vpcc_tpu codecs)
 
 
@@ -89,7 +91,8 @@ class Decoder:
         asps = None
         seis: dict = {}
         tiles: List[v3c.AtlasTileLayer] = []
-        occ_sub = None
+        occ_sub = eom_sub = None
+        raw_geo_sub = raw_attr_sub = None   # RAW/EOM aux substreams
         geo_subs = {}
         attr_subs = {}
         for utype, payload in units:
@@ -107,21 +110,24 @@ class Decoder:
                     )
             elif utype == v3c.V3C_OVD:
                 s = v3c.VideoSubstream.read(br)
-                if s.map_index != 0:
-                    raise _unsupported("EOM (enhanced occupancy map) video")
-                occ_sub = s
+                if s.map_index == 0:
+                    occ_sub = s
+                else:
+                    eom_sub = s
             elif utype == v3c.V3C_GVD:
                 s = v3c.VideoSubstream.read(br)
-                if s.map_index == AUX_MAP_INDEX:
-                    raise _unsupported("raw-points auxiliary geometry video")
-                geo_subs[s.map_index] = s
+                if s.map_index == aux_video.AUX_MAP_INDEX:
+                    raw_geo_sub = s
+                else:
+                    geo_subs[s.map_index] = s
             elif utype == v3c.V3C_AVD:
                 s = v3c.VideoSubstream.read(br)
-                if s.map_index == AUX_MAP_INDEX:
-                    raise _unsupported("raw/EOM auxiliary attribute video")
-                if s.map_index == REFL_MAP_INDEX:
+                if s.map_index == aux_video.AUX_MAP_INDEX:
+                    raw_attr_sub = s
+                elif s.map_index == REFL_MAP_INDEX:
                     raise _unsupported("the reflectance attribute")
-                attr_subs[s.map_index] = s
+                else:
+                    attr_subs[s.map_index] = s
         assert vps is not None and occ_sub is not None
 
         cfg = self.cfg
@@ -141,8 +147,9 @@ class Decoder:
         sei_os = seis.get(v3c.SEI_OCCUPANCY_SYNTHESIS)
         if sei_os is not None and sei_os.method_type == 1:
             raise _unsupported("PBF patch-border filtering")
+        cfg.enhancedOccupancyMapCode = 1 if vps.eom_bits else 0
         if vps.eom_bits:
-            raise _unsupported("EOM (enhanced occupancy map)")
+            cfg.surfaceThickness = vps.eom_bits + 1
         if asps is not None and asps.plr_enabled_flag:
             raise _unsupported("PLR (point local reconstruction)")
 
@@ -161,12 +168,13 @@ class Decoder:
         attr_bank: dict = {}
         for fi in range(vps.frame_count):
             tile = tiles[fi]
-            if tile.raw_positions is not None:
-                raise _unsupported("raw-points patches")
             patches = [_pdu_to_patch(pdu, i, vps) for i, pdu in enumerate(tile.patches)]
             occ_video = codecs.decode_occupancy(occ_sub.frames[fi], cfg)
             occ = atlas_mod.upsample_occupancy(occ_video, vps.occupancy_precision)
             height, width = occ.shape
+            eom = None
+            if eom_sub is not None and eom_sub.frames[fi]:
+                eom = codecs.decode_eom_plane(eom_sub.frames[fi])
             geo = []
             for m in sorted(geo_subs):
                 layer_ref = None
@@ -200,17 +208,35 @@ class Decoder:
             )
             cfg.occupancyResolution = vps.occupancy_resolution
             cfg.geometry3dCoordinatesBitdepth = vps.geometry_3d_bitdepth
-            recon = pipeline.reconstruct_frame(occ, geo, btp, patches, cfg, d)
+            recon = pipeline.reconstruct_frame(occ, geo, btp, patches, cfg, d, eom=eom)
             as_img = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(
                 np.asarray(a, np.uint8))).to(d)
             a0 = as_img(attr[0])
             a1 = as_img(attr[1]) if len(attr) > 1 else a0
             col_d = pipeline.gather_decoded_colors(recon.pix, recon.layer, a0, a1)
+            aux_raw_pos = aux_raw_cols = aux_eom_cols = None
+            if raw_geo_sub is not None:
+                aux_raw_pos = aux_video.unpack_raw_geometry(raw_geo_sub.frames[fi])
+            if raw_attr_sub is not None:
+                aux_raw_cols, aux_eom_cols = aux_video.unpack_aux_attribute(
+                    raw_attr_sub.frames[fi])
+            if aux_eom_cols is not None:
+                col_d = pipeline.inject_eom_colors(
+                    recon.layer, col_d, torch.as_tensor(aux_eom_cols, device=d))
+            # the raw points follow the reconstruction (reference
+            # decoder.py:257-272): from the aux substreams, else the tile
+            raw = None
+            raw_pos = aux_raw_pos if aux_raw_pos is not None else tile.raw_positions
+            if raw_pos is not None:
+                raw_cols = aux_raw_cols if aux_raw_cols is not None else tile.raw_colors
+                if raw_cols is None:
+                    raw_cols = np.zeros_like(raw_pos, np.uint8)
+                raw = (raw_pos, raw_cols)
             # duplicate removal (reference PCCPointSet.h:484, first instance
             # kept) runs on the device before the download
             pos, col = pipeline.download_recon(
                 recon, col_d, vps.geometry_3d_bitdepth,
-                remove_duplicates=bool(cfg.removeDuplicatePoints),
+                remove_duplicates=bool(cfg.removeDuplicatePoints), raw=raw,
             )
             pc = PointCloudData(pos, col)
             self.frame_info.append(

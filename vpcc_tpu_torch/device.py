@@ -70,11 +70,13 @@ KERNELS: Dict[str, list] = {
     "attr_image": [],
     "color_convert": ["--fmad=false"],
     "metrics": ["--fmad=false"],
+    "eom_colors": [],
 }
 
 # entries of a kernel's library counted apart from it: the unpacked-table
-# k-NN of kernel E (grids above 10 bits)
-ENTRIES = ("grid_knn_xyz",)
+# k-NN of kernel E (grids above 10 bits), kernel C with EOM layers and
+# kernel R's float32 D1 sum
+ENTRIES = ("grid_knn_xyz", "generate_points_eom", "metrics_d2_f32")
 LAUNCHES: Dict[str, int] = {k: 0 for k in (*KERNELS, *ENTRIES)}
 # ptxas resource lines of each build (registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}

@@ -23,6 +23,16 @@ frame:
 then `_mux_gof` writes the V3C sample stream on the host, over the GOF's
 hierarchical coding structure.
 
+The CTC's lossless conditions ride the same stages: at geometryQP /
+attributeQP <= 4 the substreams are coded losslessly (`video/codecs.py`);
+with rawPointsPatch the source points left uncovered by the patches are
+coded verbatim, in the atlas tile or, with useRawPointsSeparateVideo, in
+the RAW aux geometry and attribute substreams; with
+enhancedOccupancyMapCode the points between D0 and D1 are coded as EOM
+codes in a second occupancy map, reconstructed by kernel C's EOM layers,
+and (with the separate video) carry their transferred colors in the aux
+attribute substream (kernel S).
+
 Tools that are off by default and not ported raise NotImplementedError;
 the port never computes something else in their place.
 """
@@ -55,7 +65,7 @@ from vpcc_tpu_torch.ops.segmentation import (
 )
 from vpcc_tpu_torch.utils.config import VPCCConfig
 from vpcc_tpu_torch.utils.ply import PointCloudData
-from vpcc_tpu_torch.video import codecs
+from vpcc_tpu_torch.video import aux_video, codecs
 
 
 @dataclasses.dataclass
@@ -115,6 +125,7 @@ class GeometryFrame:
     geo_payloads: List[bytes]    # D0, D1 geometry substream frames
     geo_dec: List[torch.Tensor]  # decoded (H, W) int32 planes on the device
     recon: Points                # reconstructed, smoothed points (device)
+    eom_payload: Optional[bytes] = None  # the EOM plane's occupancy map-1 frame
 
     @property
     def stats(self) -> EncoderStats:
@@ -136,6 +147,9 @@ class EncodedFrame:
     recon: PointCloudData            # encoder-side reconstruction
     geometry: GeometryFrame
     attr_refs: tuple                 # T0's decoded (y, cbcr) int32 planes
+    raw_positions: Optional[np.ndarray] = None  # (R, 3) int32 raw-points patch
+    raw_colors: Optional[np.ndarray] = None     # (R, 3) uint8
+    eom_colors: Optional[np.ndarray] = None     # (M, 3) uint8 aux EOM samples
 
     @property
     def stats(self) -> EncoderStats:
@@ -164,8 +178,6 @@ class Encoder:
             ("highGradientSeparation", "highGradientSeparation"),
             ("enablePointCloudPartitioning", "enablePointCloudPartitioning"),
             ("globalPatchAllocation", "globalPatchAllocation"),
-            ("enhancedOccupancyMapCode", "enhancedOccupancyMapCode (EOM)"),
-            ("rawPointsPatch", "rawPointsPatch"),
             ("pointLocalReconstruction", "pointLocalReconstruction (PLR)"),
         ):
             if getattr(cfg, flag):
@@ -480,11 +492,12 @@ class Encoder:
                               temporal_refs: Optional[dict] = None,
                               qp_offset_geo: int = 0) -> GeometryFrame:
         """The geometry stages of the reference's `encode_frame`
-        (encoder.py:567-648, two maps, no PLR/EOM/PBF): the front end, the
-        occupancy payload, D0 and D1 through their substream encoders (D1
-        predicts from the decoded D0; D0 from `temporal_refs["geo"]` when
-        given, None forcing intra), then the reconstruction seam with grid
-        smoothing on the decoded planes."""
+        (encoder.py:567-648, two maps, no PLR/PBF): the front end, the
+        occupancy payload and, with enhancedOccupancyMapCode, the EOM plane's
+        payload, D0 and D1 through their substream encoders (D1 predicts from
+        the decoded D0; D0 from `temporal_refs["geo"]` when given, None
+        forcing intra), then the reconstruction seam with grid smoothing on
+        the decoded planes and the decoded EOM plane."""
         cfg = self.cfg
         if cfg.pbfEnableFlag:
             raise _unsupported("PBF patch-border filtering")
@@ -492,6 +505,10 @@ class Encoder:
         st = fr.stats
         t = time.perf_counter()
         occ_payload = codecs.encode_occupancy(fr.occ_video, cfg)
+        eom_payload = eom_dec = None
+        if cfg.enhancedOccupancyMapCode and fr.frame.eom is not None:
+            eom_payload = codecs.encode_eom_plane(fr.frame.eom)
+            eom_dec = codecs.decode_eom_plane(eom_payload)
         geo_payloads, geo_dec = [], []
         for name, g in (("geo0", fr.frame.geometry0), ("geo1", fr.frame.geometry1)):
             kw = {}
@@ -505,12 +522,12 @@ class Encoder:
         st.video_s = time.perf_counter() - t
         t = time.perf_counter()
         recon = pipeline.reconstruct_frame(fr.occ_rec, geo_dec, fr.block_to_patch,
-                                           fr.patches, cfg, self.device)
+                                           fr.patches, cfg, self.device, eom=eom_dec)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         st.reconstruct_s = time.perf_counter() - t
         st.total_s += st.video_s + st.reconstruct_s
-        return GeometryFrame(fr, occ_payload, geo_payloads, geo_dec, recon)
+        return GeometryFrame(fr, occ_payload, geo_payloads, geo_dec, recon, eom_payload)
 
     def _check_attribute_path(self, pc_host: PointCloudData) -> None:
         cfg = self.cfg
@@ -520,8 +537,6 @@ class Encoder:
             raise _unsupported("color smoothing (flagColorSmoothing)")
         if int(cfg.attributeBGFill) != 1:
             raise _unsupported(f"attributeBGFill={cfg.attributeBGFill} (dilate / harmonic fill)")
-        if cfg.attributeQP <= 4:
-            raise _unsupported("lossless attributes (attributeQP <= 4)")
 
     def recolor(self, src_pos: torch.Tensor, src_colors, recon: Points) -> torch.Tensor:
         """(N, 3) int32 colors of the reconstructed points (reference
@@ -575,12 +590,17 @@ class Encoder:
                      temporal_refs: Optional[dict] = None,
                      qp_offset: int = 0,
                      qp_offset_geo: Optional[int] = None) -> EncodedFrame:
-        """The reference's `encode_frame` (encoder.py:442-846) on its default
-        branch: the geometry stages (`encode_frame_geometry`), recolor and
-        pre-smoothing, the attribute images, T0 and T1 (T1 predicted from
-        the decoded T0; T0 from `temporal_refs["attr"]` when given, None
-        forcing intra; QP cascade `qp_offset`, uncapped), the decoded colors
-        of the points and the duplicate-free encoder-side reconstruction."""
+        """The reference's `encode_frame` (encoder.py:442-846) without
+        PLR/PBF/reflectance: the geometry stages (`encode_frame_geometry`),
+        the raw-points patch (the source points whose coverage distance
+        exceeds maxAllowedDist2RawPointsSelection), recolor and
+        pre-smoothing, the EOM rows' colors for the aux substream, the
+        attribute images, T0 and T1 (T1 predicted from the decoded T0; T0
+        from `temporal_refs["attr"]` when given, None forcing intra; QP
+        cascade `qp_offset`, uncapped), the decoded colors of the points
+        (the EOM rows' from the aux samples) and the duplicate-free
+        encoder-side reconstruction, raw points appended before the
+        duplicate removal."""
         cfg = self.cfg
         self._check_attribute_path(pc_host)
         if qp_offset_geo is None:
@@ -594,12 +614,27 @@ class Encoder:
         st = g.stats
         st.segmentation_s += t_seg
         fr = g.front
+        raw_positions = raw_colors = None
+        if cfg.rawPointsPatch:
+            raw_sel = np.nonzero(fr.cover_dist2 > cfg.maxAllowedDist2RawPointsSelection)[0]
+            if len(raw_sel):
+                raw_positions = pc_host.positions[raw_sel].astype(np.int32)
+                if pc_host.colors is not None:
+                    raw_colors = pc_host.colors[raw_sel]
 
         t = time.perf_counter()
         col = self.recolor(seg.positions, pc_host.colors, g.recon)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         st.recolor_s = time.perf_counter() - t
+        # the EOM rows carry their transferred colors in the aux attribute
+        # substream (reference eomTexturePatch, PCCEncoder.cpp:4380-4665)
+        eom_colors = None
+        if cfg.enhancedOccupancyMapCode and cfg.useRawPointsSeparateVideo \
+                and g.eom_payload is not None:
+            ec = pipeline.extract_eom_colors(g.recon.layer, col)
+            if ec.shape[0]:
+                eom_colors = ec.cpu().numpy().astype(np.uint8)
 
         t = time.perf_counter()
         imgs = self.attribute_images(g.recon, col, fr.frame.occupancy, fr.height, fr.width)
@@ -614,12 +649,21 @@ class Encoder:
             payloads.append(payload)
             dec.append(rgb)
         col_dec = pipeline.gather_decoded_colors(g.recon.pix, g.recon.layer, dec[0], dec[-1])
+        if eom_colors is not None:
+            col_dec = pipeline.inject_eom_colors(
+                g.recon.layer, col_dec, torch.as_tensor(eom_colors, device=self.device))
+        raw = None
+        if raw_positions is not None:
+            raw = (raw_positions, raw_colors if raw_colors is not None
+                   else np.zeros_like(raw_positions, np.uint8))
         pos, col8 = pipeline.download_recon(g.recon, col_dec, cfg.geometryBitDepth3D,
-                                            remove_duplicates=bool(cfg.removeDuplicatePoints))
+                                            remove_duplicates=bool(cfg.removeDuplicatePoints),
+                                            raw=raw)
         st.video_s += time.perf_counter() - t
         st.total_s += t_seg + st.recolor_s + time.perf_counter() - t
         return EncodedFrame(fr.patches, fr.width, fr.height, g.occ_payload, g.geo_payloads,
-                            payloads, PointCloudData(pos, col8), g, streams["attr0"].refs)
+                            payloads, PointCloudData(pos, col8), g, streams["attr0"].refs,
+                            raw_positions, raw_colors, eom_colors)
 
     def _gof_loop(self, frames, segs, attributes: bool):
         """The reference's `encode_gof` frame loop (encoder.py:959-1001):
@@ -681,12 +725,14 @@ class Encoder:
 
     def _mux_gof(self, encoded: List[EncodedFrame], frames, parent):
         """Assemble the V3C sample stream (reference `_mux_gof`,
-        encoder.py:1004-1261, one tile, two maps, no PLR/EOM/raw points/
-        reflectance): VPS, the atlas substream (ASPS, AFPS, the prefix SEIs,
-        one atlas tile layer per frame with P-tiles predicting from the tree
-        parent's patches), then the occupancy, geometry and attribute video
-        substreams.  Fills `last_stream_stats` and each frame's
-        `compressed_bytes`."""
+        encoder.py:1004-1261, one tile, two maps, no PLR/reflectance): VPS,
+        the atlas substream (ASPS, AFPS, the prefix SEIs, one atlas tile
+        layer per frame with P-tiles predicting from the tree parent's
+        patches, the raw points in the tile unless useRawPointsSeparateVideo),
+        then the occupancy (map 1: the EOM planes), geometry and attribute
+        video substreams and, with useRawPointsSeparateVideo, the RAW/EOM
+        aux geometry and attribute substreams.  Fills `last_stream_stats`
+        and each frame's `compressed_bytes`."""
         cfg = self.cfg
         width = max(e.width for e in encoded)
         height = max(e.height for e in encoded)
@@ -701,7 +747,9 @@ class Encoder:
         )
         vps = v3c.V3CParameterSet(
             ptl=v3c.ProfileTierLevel(level_idc=level),
-            frame_width=width, frame_height=height, eom_bits=0, frame_count=len(frames),
+            frame_width=width, frame_height=height,
+            eom_bits=max(cfg.surfaceThickness - 1, 0) if cfg.enhancedOccupancyMapCode else 0,
+            frame_count=len(frames),
             occupancy_resolution=cfg.occupancyResolution,
             occupancy_precision=cfg.occupancyPrecision,
             geometry_2d_bitdepth=cfg.geometryBitDepth2D,
@@ -723,8 +771,11 @@ class Encoder:
                     pdu.ref_index = -1
                     if 0 <= p.ref_patch_idx < len(parent_full):
                         pdu.ref_index = idx_of.get(id(parent_full[p.ref_patch_idx]), -1)
+            in_tile = not cfg.useRawPointsSeparateVideo
             tiles.append(v3c.AtlasTileLayer(
                 frame_index=fi, tile_id=0, tile_row_start=0, patches=pdus,
+                raw_positions=e.raw_positions if in_tile else None,
+                raw_colors=e.raw_colors if in_tile else None,
                 geometry_bits=cfg.geometryBitDepth3D,
                 tile_type=v3c.TILE_I if fi == 0 else v3c.TILE_P,
                 ref_patches=None if fi == 0 else pdus_list[parent[fi]],
@@ -750,7 +801,8 @@ class Encoder:
         prefix_seis.append(v3c.SEIRecoveryPoint(recovery_afoc=0))
         prefix_seis.append(v3c.SEIActiveSubBitstreams(
             active_attributes=list(range(n_attr_maps)),
-            active_maps=list(range(n_geo_maps)), raw_points_active_flag=0))
+            active_maps=list(range(n_geo_maps)),
+            raw_points_active_flag=1 if cfg.rawPointsPatch else 0))
         rp = encoded[0].recon.positions
         if len(rp):
             lo3 = np.asarray(rp).min(0).astype(np.int64)
@@ -774,8 +826,11 @@ class Encoder:
                 params=[(0, dim, q16, off) for dim in range(3)]))
         units.append((v3c.V3C_AD, v3c.write_atlas_substream(
             tiles, asps, afps, prefix_seis=prefix_seis, aaps=v3c.AtlasAdaptationParameterSet())))
+        ovd_lists = [[e.occupancy_payload for e in encoded]]
+        if cfg.enhancedOccupancyMapCode and encoded[0].geometry.eom_payload is not None:
+            ovd_lists.append([e.geometry.eom_payload or b"" for e in encoded])
         for unit_type, payload_lists in (
-            (v3c.V3C_OVD, [[e.occupancy_payload for e in encoded]]),
+            (v3c.V3C_OVD, ovd_lists),
             (v3c.V3C_GVD, [[e.geometry_payloads[m] for e in encoded] for m in range(n_geo_maps)]),
             (v3c.V3C_AVD, [[e.attribute_payloads[m] for e in encoded]
                            for m in range(n_attr_maps)]),
@@ -783,6 +838,15 @@ class Encoder:
             for mi, plist in enumerate(payload_lists):
                 bw = BitWriter()
                 v3c.VideoSubstream(unit_type, mi, plist).write(bw)
+                units.append((unit_type, bw.getvalue()))
+        if cfg.useRawPointsSeparateVideo:
+            for unit_type, plist in (
+                (v3c.V3C_GVD, [aux_video.pack_raw_geometry(e.raw_positions) for e in encoded]),
+                (v3c.V3C_AVD, [aux_video.pack_aux_attribute(e.raw_colors, e.eom_colors)
+                               for e in encoded]),
+            ):
+                bw = BitWriter()
+                v3c.VideoSubstream(unit_type, aux_video.AUX_MAP_INDEX, plist).write(bw)
                 units.append((unit_type, bw.getvalue()))
         stream = v3c.write_sample_stream(units)
         names = {v3c.V3C_VPS: "VPS", v3c.V3C_AD: "AD", v3c.V3C_OVD: "OVD",

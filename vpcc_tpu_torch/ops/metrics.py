@@ -13,14 +13,15 @@ reduces the per-point errors to sums.
 The JAX reference evaluates `_directional` op by op (it is not jitted), so
 every float32 operation rounds on its own: no fused multiply-adds and true
 divisions by 255.  The per-point terms here round the same way, in the
-same order; the sums run in float64 (the reference sums in float32 in
-XLA's order, which only a tolerance can match), the d2 sum and maximum in
-int64.  The D1 MSE is the float32 quotient of the exact d2 sum and the
-point count, as the reference's float32 sum is exact below 2^24.
+same order; the point-to-plane and color sums run in float64 (the
+reference sums them in float32, which a tolerance covers), the d2 maximum
+in int64.  The D1 MSE divides the reference's float32 sum of the
+d2 rows, taken in XLA's CPU order over its shape-bucket length
+(`d2_sum_f32`), by the point count: past 2^24 that sum rounds.
 
 Unlike the reference, nothing is padded to a shape bucket: the reference's
 pad rows carry weight 0 and lie outside every grid cell, so they change no
-result.  Everything stays on the device but the miss check, the rows that
+result; only the D1 sum's order depends on the bucket length.  Everything stays on the device but the miss check, the rows that
 missed and the final sums.
 """
 
@@ -78,14 +79,15 @@ class FrameMetrics:
 
 def metrics_reduce_plain(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a: int):
     """Plain version of kernel R.  For A rows below `cnt_a`, with B gathered
-    at `idx`: returns (isums int64 [sum d2, max d2], fsums float64 [sum of
-    ((a - b) . n_b)^2, sums of the squared Y, U, V errors]).  Normals or
+    at `idx`: returns (dmax 0-d int64, the maximum d2; fsums float64 [sum of
+    ((a - b) . n_b)^2, sums of the squared Y, U, V errors]).  The D1 sum is
+    `d2_sum_f32`'s.  Normals or
     colors that are None give zero sums."""
     d = pos_a.device
     i = idx[:cnt_a].long()
     dd = d2[:cnt_a].long()
     zero = torch.zeros((), dtype=torch.int64, device=d)
-    isums = torch.stack([dd.sum(), dd.max() if cnt_a else zero])
+    dmax = dd.max() if cnt_a else zero
     fsums = torch.zeros(4, dtype=torch.float64, device=d)
     if normals_b is not None:
         prod = (pos_a[:cnt_a] - pos_b[i]).float() * normals_b[i]
@@ -94,10 +96,82 @@ def metrics_reduce_plain(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a: 
     if col_a is not None and col_b is not None:
         ce = rgb_to_yuv_bt709(col_a[:cnt_a]) - rgb_to_yuv_bt709(col_b[i])
         fsums[1:] = (ce * ce).double().sum(0)
-    return isums, fsums
+    return dmax, fsums
 
 
 _BLOCKS_MAX = 1024
+
+
+def shape_bucket(n: int, minimum: int = 8192) -> int:
+    """The reference's padded length of an n-row cloud (a copy of
+    `shape_bucket` in vpcc_tpu/core/pointcloud.py): the next capacity >= n
+    on the {2^k, 3 * 2^(k-1)} ladder, at least `minimum`."""
+    n = max(n, minimum)
+    p = 1 << (n - 1).bit_length()
+    if n <= (p // 4) * 3:
+        return (p // 4) * 3
+    return p
+
+
+def xla_windows(m: int) -> list:
+    """The window widths of XLA's CPU tree reduction of an m-element
+    float32 vector, level by level: 32 where 32 divides the length, else
+    its largest divisor <= 32, while more than 32 elements remain; then one
+    window over the rest."""
+    widths = []
+    while m > 32:
+        w = next(w for w in range(32, 0, -1) if m % w == 0)
+        if w < 2:
+            raise ValueError(f"no reduction window for length {m}")
+        widths.append(w)
+        m //= w
+    return widths + [m]
+
+
+def d2_sum_f32_plain(d2: torch.Tensor, n: int, cap: int) -> torch.Tensor:
+    """Plain version of kernel R's D1 sum: the float32 sum of d2[:n]
+    padded with zeros to `cap` rows, as the reference's eager `jnp.sum`
+    takes it on XLA's CPU backend (vpcc_tpu/ops/metrics.py:87): windows of
+    `xla_windows(cap)` consecutive elements, each summed sequentially from
+    0, level by level.  Returns a 0-d float32 tensor."""
+    x = torch.zeros(cap, dtype=torch.float32, device=d2.device)
+    x[:n] = d2[:n].float()
+    for w in xla_windows(cap):
+        x = x.reshape(-1, w)
+        acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+        for j in range(w):
+            acc = acc + x[:, j]
+        x = acc
+    return x[0]
+
+
+def d2_sum_f32(d2: torch.Tensor, n: int, cap: int) -> torch.Tensor:
+    """Kernel R, `metrics_d2_f32`: `d2_sum_f32_plain` on the card, one
+    launch per level, one thread per window; the plain version for CPU
+    tensors."""
+    if d2.device.type == "cpu":
+        return d2_sum_f32_plain(d2, n, cap)
+    d = d2.device
+    dev.check_tensor(d2, "d2", torch.int32, d, 1)
+    widths = xla_windows(cap)
+    if not 0 <= n <= d2.shape[0]:
+        raise ValueError(f"d2_sum_f32: n={n} outside the {d2.shape[0]} rows")
+    scratch, m = 0, cap
+    for w in widths[:-1]:
+        m //= w
+        scratch += m
+    buf = torch.empty(max(scratch, 1), dtype=torch.float32, device=d)
+    out = torch.empty((), dtype=torch.float32, device=d)
+    fn = dev.load_kernel("metrics").metrics_d2_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    launched = ctypes.c_int(0)
+    rc = fn(dev.ptr(d2), n, cap, dev.ptr(buf), dev.ptr(out), ctypes.byref(launched),
+            dev.stream_handle())
+    dev.count_launch("metrics_d2_f32", launched.value)
+    dev.check_launch("metrics_d2_f32", rc)
+    return out
 
 
 def metrics_reduce(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a: int):
@@ -121,9 +195,9 @@ def metrics_reduce(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a: int):
     if not 0 <= cnt_a <= min(pos_a.shape[0], idx.shape[0], d2.shape[0]):
         raise ValueError(f"metrics_reduce: cnt_a={cnt_a} outside the A rows")
     blocks = max(1, min(_BLOCKS_MAX, -(-cnt_a // 256)))
-    part_i = torch.empty((blocks, 2), dtype=torch.int64, device=d)
+    part_i = torch.empty(blocks, dtype=torch.int64, device=d)
     part_f = torch.empty((blocks, 4), dtype=torch.float64, device=d)
-    isums = torch.empty(2, dtype=torch.int64, device=d)
+    dmax = torch.empty((), dtype=torch.int64, device=d)
     fsums = torch.empty(4, dtype=torch.float64, device=d)
     null = ctypes.c_void_p(0)
     fn = dev.load_kernel("metrics").metrics_reduce
@@ -132,11 +206,11 @@ def metrics_reduce(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a: int):
     rc = fn(dev.ptr(pos_a), dev.ptr(col_a) if with_col else null, dev.ptr(pos_b),
             dev.ptr(col_b) if with_col else null,
             null if normals_b is None else dev.ptr(normals_b), dev.ptr(idx), dev.ptr(d2),
-            cnt_a, blocks, dev.ptr(part_i), dev.ptr(part_f), dev.ptr(isums), dev.ptr(fsums),
+            cnt_a, blocks, dev.ptr(part_i), dev.ptr(part_f), dev.ptr(dmax), dev.ptr(fsums),
             dev.stream_handle())
     dev.count_launch("metrics", 2)
     dev.check_launch("metrics", rc)
-    return isums, fsums
+    return dmax, fsums
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +254,9 @@ def _directional(pos_a, col_a, cnt_a, pos_b, col_b, normals_b, grid_bits):
     """A -> B: for each A point, the nearest B point.  Returns (mse_c2c,
     mse_c2p, mse_color (3,) float64 numpy, hausdorff) on the host."""
     idx, d2 = _nearest_exact(pos_a[:cnt_a], pos_b, grid_bits)
-    isums, fsums = metrics_reduce(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a)
-    s_d2, max_d2 = (int(v) for v in isums.cpu())
+    dmax, fsums = metrics_reduce(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a)
+    max_d2 = int(dmax)
+    s_d2 = d2_sum_f32(d2, cnt_a, shape_bucket(cnt_a)).cpu().numpy()
     fs = fsums.cpu().numpy()
     num = max(cnt_a, 1)
     mse_c2c = float(np.float32(s_d2) / np.float32(num))

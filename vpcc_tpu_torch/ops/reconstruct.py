@@ -7,11 +7,14 @@ vpcc_tpu/ops/smoothing.py `boundary_pixels` and the valid-first compaction
 of vpcc_tpu/pipeline.py `_recon_phase2`.
 
 Per occupied pixel: look up the owning patch (block-to-patch), invert the
-packing orientation to patch (u, v), rebuild the D0 point and — where the
-D1 map differs — the D1 point, with the 45-degree inverse rotations.  Rows
-come out in raster order y*W + x, layer-minor (D0 then D1), valid rows
-only: duplicate removal keeps the first instance of a position, so the
-order decides which color a duplicate keeps.
+packing orientation to patch (u, v), rebuild the D0 point, where the D1 map
+differs the D1 point, and with enhancedOccupancyMapCode one EOM point at
+directed depth D0 + k + 1 for each set bit k < eom_bits of the pixel's EOM
+code (PCCCodec.cpp:671-804), with the 45-degree inverse rotations.  Rows
+come out in raster order y*W + x, layer-minor (D0, D1, EOM bit 0, 1, ...),
+valid rows only: duplicate removal keeps the first instance of a position
+and the EOM colors travel in row order, so the order decides which color a
+point gets.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ class Points(NamedTuple):
 
     pos: torch.Tensor    # (N, 3) int32 positions
     pix: torch.Tensor    # (N, 2) int32 atlas (x, y)
-    layer: torch.Tensor  # (N,) int32 0 = D0 point, 1 = D1 point
+    layer: torch.Tensor  # (N,) int32 0 = D0 point, 1 = D1 point, 2 = EOM point
     pid: torch.Tensor    # (N,) int32 patch index
     bnd: torch.Tensor    # (N,) bool patch-boundary pixel
 
@@ -74,10 +77,13 @@ def _canvas_to_patch_uv(lx, ly, su, sv, orient):
 
 
 def generate_point_cloud(occupancy, geometry0, geometry1, block_to_patch,
-                         patch_tbl, res: int):
-    """Plain PyTorch counterpart of the JAX `generate_point_cloud` (two
-    layers, no EOM/PLR): returns (points (H*W, 2, 3) int32, valid
-    (H*W, 2) bool, pixel_xy (H*W, 2) int32, patch_of (H*W,) int32)."""
+                         patch_tbl, res: int, eom=None, eom_bits: int = 0):
+    """Plain PyTorch counterpart of the JAX `generate_point_cloud` (no
+    PLR): returns (points (H*W, L, 3) int32, valid (H*W, L) bool, pixel_xy
+    (H*W, 2) int32, patch_of (H*W,) int32), L = 2 + eom_bits (eom_bits 0
+    without an EOM plane).  Layer 2 + k is the EOM point at directed depth
+    D0 + k + 1 (clamped at 0 in projection mode 1), valid where bit k of
+    the (H, W) int32 `eom` code is set."""
     h, w = occupancy.shape
     d = occupancy.device
     ys = torch.arange(h, dtype=torch.int32, device=d)[:, None].expand(h, w)
@@ -118,47 +124,60 @@ def generate_point_cloud(occupancy, geometry0, geometry1, block_to_patch,
             out.append(p)
         return torch.stack(out, -1)
 
-    points = torch.stack([to_xyz(geometry0), to_xyz(geometry1)], 2)
-    valid = torch.stack([occ, occ & (geometry1 != geometry0)], 2)
+    if eom is None:
+        eom_bits = 0
+    layers_p = [to_xyz(geometry0), to_xyz(geometry1)]
+    layers_v = [occ, occ & (geometry1 != geometry0)]
+    for k in range(eom_bits):
+        # directed depth D0 + k + 1: d1 + g0 + k + 1, or max(d1 - g0 - k - 1, 0)
+        layers_p.append(to_xyz(geometry0 + (k + 1)))
+        layers_v.append(occ & (((eom >> k) & 1) != 0))
+    L = len(layers_p)
+    points = torch.stack(layers_p, 2)
+    valid = torch.stack(layers_v, 2)
     pixel_xy = torch.stack([xs, ys], 2).reshape(h * w, 2)
-    return (points.reshape(h * w, 2, 3), valid.reshape(h * w, 2), pixel_xy,
+    return (points.reshape(h * w, L, 3), valid.reshape(h * w, L), pixel_xy,
             pid.reshape(h * w))
 
 
 def generate_points_plain(occupancy, geometry0, geometry1, block_to_patch,
-                          patch_tbl, res: int) -> Points:
+                          patch_tbl, res: int, eom=None, eom_bits: int = 0) -> Points:
     """Plain PyTorch version of kernel C: generate_point_cloud +
-    boundary_pixels + the stable valid-first compaction."""
+    boundary_pixels + the stable valid-first compaction, with the layer
+    tags of the reference's `_recon_phase2` (D0 0, D1 1, EOM 2)."""
     pts, valid, pix, pid = generate_point_cloud(
-        occupancy, geometry0, geometry1, block_to_patch, patch_tbl, res
+        occupancy, geometry0, geometry1, block_to_patch, patch_tbl, res, eom, eom_bits
     )
+    L = valid.shape[1]
     bnd = boundary_pixels(occupancy, block_to_patch).reshape(-1)
     rows = valid.reshape(-1).nonzero()[:, 0]      # raster, layer-minor
-    px = rows // 2
+    px = rows // L
     return Points(
         pos=pts.reshape(-1, 3)[rows].contiguous(),
         pix=pix[px].contiguous(),
-        layer=(rows % 2).to(torch.int32),
+        layer=(rows % L).clamp(max=2).to(torch.int32),
         pid=pid[px].contiguous(),
         bnd=bnd[px].contiguous(),
     )
 
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 \
-    + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def generate_points(occupancy, geometry0, geometry1, block_to_patch,
-                    patch_tbl, res: int) -> Points:
+                    patch_tbl, res: int, eom=None, eom_bits: int = 0) -> Points:
     """Kernel C (csrc/generate_points.cu).  occupancy (H, W) uint8;
     geometry0/1 (H, W) int32 relative depths; block_to_patch (H/res, W/res)
-    int32 (0 = none, else patch index + 1); patch_tbl (P, 16) int32.  Two
-    launches: per-pixel point counts, then (after a cumsum of the counts)
-    the points written at their compacted rows.  The plain version runs on
+    int32 (0 = none, else patch index + 1); patch_tbl (P, 16) int32; eom
+    (H, W) int32 EOM codes with eom_bits layers, or None.  Two launches:
+    per-pixel point counts, then (after a cumsum of the counts) the points
+    written at their compacted rows.  With an EOM plane the launches count
+    as the EOM entry's (`generate_points_eom`).  The plain version runs on
     the CPU."""
     if occupancy.device.type == "cpu":
         return generate_points_plain(occupancy, geometry0, geometry1,
-                                     block_to_patch, patch_tbl, res)
+                                     block_to_patch, patch_tbl, res, eom, eom_bits)
     d = occupancy.device
     H, W = occupancy.shape
     dev.check_tensor(occupancy, "occupancy", torch.uint8, d, 2)
@@ -166,14 +185,18 @@ def generate_points(occupancy, geometry0, geometry1, block_to_patch,
     dev.check_tensor(geometry1, "geometry1", torch.int32, d, 2)
     dev.check_tensor(block_to_patch, "block_to_patch", torch.int32, d, 2)
     dev.check_tensor(patch_tbl, "patch_tbl", torch.int32, d, 2)
+    if eom is not None:
+        dev.check_tensor(eom, "eom", torch.int32, d, 2)
     if (geometry0.shape != (H, W) or geometry1.shape != (H, W)
             or block_to_patch.shape != (H // res, W // res)
-            or H % res or W % res or patch_tbl.shape[1] != 16):
+            or H % res or W % res or patch_tbl.shape[1] != 16
+            or (eom is not None and (eom.shape != (H, W) or not 0 <= eom_bits <= 30))):
         raise ValueError("generate_points: inconsistent shapes")
     fn = dev.load_kernel("generate_points").generate_points
     fn.argtypes, fn.restype = _ARGS, ctypes.c_int
     counts = torch.empty(H * W, dtype=torch.int32, device=d)
     null = ctypes.c_void_p(0)
+    counter = "generate_points" if eom is None else "generate_points_eom"
 
     def launch(incl, outs, n_out):
         rc = fn(dev.ptr(occupancy), dev.ptr(geometry0), dev.ptr(geometry1),
@@ -181,8 +204,9 @@ def generate_points(occupancy, geometry0, geometry1, block_to_patch,
                 dev.ptr(counts) if incl is None else dev.ptr(incl),
                 H, W, res, patch_tbl.shape[0],
                 *[dev.ptr(o) if o is not None else null for o in outs],
-                n_out, dev.stream_handle())
-        dev.count_launch("generate_points")
+                n_out, null if eom is None else dev.ptr(eom), eom_bits,
+                dev.stream_handle())
+        dev.count_launch(counter)
         dev.check_launch("generate_points", rc)
 
     launch(None, [None] * 5, 0)

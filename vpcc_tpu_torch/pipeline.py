@@ -2,12 +2,14 @@
 and the attribute images the encoder paints from the points.
 
 The port of vpcc_tpu/pipeline.py `reconstruct_frame_device`,
-`paint_attribute`, `gather_decoded_colors` and `download_recon` for the
-default path (two depth layers; no EOM, PLR or PBF), with the group
-dilation of vpcc_tpu/ops/padding.py.  Kernel C builds the compacted rows,
-kernel D smooths them; kernel P (csrc/attr_image.cu) paints the colors
-into the two attribute layers, group-dilates their filled backgrounds and
-gathers each point's decoded color.  The JAX package's static-shape
+`paint_attribute`, `gather_decoded_colors`, `extract_eom_colors`,
+`inject_eom_colors` and `download_recon` (two depth layers and the EOM
+layers; no PLR or PBF), with the group dilation of
+vpcc_tpu/ops/padding.py.  Kernel C builds the compacted rows, kernel D
+smooths them; kernel P (csrc/attr_image.cu) paints the colors into the two
+attribute layers, group-dilates their filled backgrounds and gathers each
+point's decoded color; kernel S (csrc/eom_colors.cu) moves the EOM rows'
+colors out of and back into the rows.  The JAX package's static-shape
 padding (`shape_bucket`) has no counterpart: the tensors hold exactly the
 valid rows, in the same order.
 """
@@ -41,15 +43,22 @@ def reconstruct_frame(
     patches: List[Patch],
     cfg: VPCCConfig,
     device: torch.device,
+    eom=None,                # (H, W) int32 decoded EOM codes, or None
 ) -> Points:
-    """generatePointCloud + grid smoothing on `device`."""
+    """generatePointCloud + grid smoothing on `device`.  With
+    enhancedOccupancyMapCode and an EOM plane, each pixel adds its EOM
+    points (eom_bits = surfaceThickness - 1 layers, tag 2)."""
     occ_d = torch.as_tensor(np.ascontiguousarray(occ_rec, np.uint8), device=device)
     g0 = _as_int32(geo_dec[0], device)
     g1 = _as_int32(geo_dec[1], device) if len(geo_dec) > 1 else g0
+    eom_d, eom_bits = None, 0
+    if eom is not None and cfg.enhancedOccupancyMapCode:
+        eom_d = _as_int32(eom, device)
+        eom_bits = max(int(cfg.surfaceThickness) - 1, 0)
     rec = reconstruct.generate_points(
         occ_d, g0, g1, _as_int32(btp, device),
         _as_int32(atlas_mod.patch_table(patches), device),
-        cfg.occupancyResolution,
+        cfg.occupancyResolution, eom=eom_d, eom_bits=eom_bits,
     )
     if cfg.flagGeometrySmoothing and cfg.gridSmoothing and rec.pos.shape[0]:
         rec = rec._replace(pos=smoothing.grid_smooth(
@@ -199,6 +208,93 @@ def gather_decoded_colors(pix, layer, attr0, attr1):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the EOM rows' colors (kernel S)
+
+def extract_eom_colors_plain(layer: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """(M, 3) colors of the tag-2 (EOM) rows in row order (reference
+    `extract_eom_colors`, pipeline.py:279)."""
+    return col[layer == 2]
+
+
+def inject_eom_colors_plain(layer: torch.Tensor, col: torch.Tensor,
+                            aux: torch.Tensor) -> torch.Tensor:
+    """`col` with every tag-2 row's color replaced by aux[rank] (uint8,
+    rank = its index among the tag-2 rows, clipped to the last aux row, as
+    the reference's `inject_eom_colors`, pipeline.py:296)."""
+    m = layer == 2
+    idx = (torch.cumsum(m.to(torch.int64), 0) - 1).clamp(0, aux.shape[0] - 1)
+    return torch.where(m[:, None], aux[idx].to(col.dtype), col)
+
+
+_EOM_COUNT_ARGS = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+_EOM_WRITE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] \
+    + [ctypes.c_void_p] * 2
+
+
+def _eom_offsets(layer: torch.Tensor):
+    """Kernel S's count and scan: (the tiles' offsets, number of tag-2 rows
+    as a 0-d device tensor)."""
+    d = layer.device
+    lib = dev.load_kernel("eom_colors")
+    lib.eom_tile_rows.restype = ctypes.c_int
+    tiles = -(-layer.shape[0] // lib.eom_tile_rows())
+    offsets = torch.empty(max(tiles, 1), dtype=torch.int32, device=d)
+    total = torch.empty((), dtype=torch.int32, device=d)
+    fn = lib.eom_count
+    fn.argtypes, fn.restype = _EOM_COUNT_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(layer), layer.shape[0], dev.ptr(offsets), dev.ptr(total),
+            dev.stream_handle())
+    dev.count_launch("eom_colors", 2 if tiles else 1)
+    dev.check_launch("eom_colors", rc)
+    return offsets, total
+
+
+def _eom_write(layer, col, aux, offsets, out):
+    fn = dev.load_kernel("eom_colors").eom_write
+    fn.argtypes, fn.restype = _EOM_WRITE_ARGS, ctypes.c_int
+    null = ctypes.c_void_p(0)
+    rc = fn(dev.ptr(layer), dev.ptr(col), null if aux is None else dev.ptr(aux),
+            0 if aux is None else aux.shape[0], dev.ptr(offsets), layer.shape[0],
+            dev.ptr(out), dev.stream_handle())
+    dev.count_launch("eom_colors", 1 if layer.shape[0] else 0)
+    dev.check_launch("eom_colors", rc)
+    return out
+
+
+def _check_eom_args(layer, col):
+    d = layer.device
+    dev.check_tensor(layer, "layer", torch.int32, d, 1)
+    dev.check_tensor(col, "col", torch.int32, d, 2)
+    if col.shape != (layer.shape[0], 3):
+        raise ValueError(f"eom colors: layer {tuple(layer.shape)}, col {tuple(col.shape)}")
+
+
+def extract_eom_colors(layer: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """Kernel S, extract: `extract_eom_colors_plain` on the card (count,
+    scan, then the compaction; the count decides the output's size, so the
+    host reads it)."""
+    if layer.device.type == "cpu":
+        return extract_eom_colors_plain(layer, col)
+    _check_eom_args(layer, col)
+    offsets, total = _eom_offsets(layer)
+    out = torch.empty((int(total), 3), dtype=torch.int32, device=layer.device)
+    return _eom_write(layer, col, None, offsets, out)
+
+
+def inject_eom_colors(layer: torch.Tensor, col: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+    """Kernel S, inject: `inject_eom_colors_plain` on the card (count, scan,
+    then every row written; nothing is read back)."""
+    if layer.device.type == "cpu":
+        return inject_eom_colors_plain(layer, col, aux)
+    _check_eom_args(layer, col)
+    dev.check_tensor(aux, "aux", torch.uint8, layer.device, 2)
+    if aux.shape[0] < 1 or aux.shape[1] != 3:
+        raise ValueError(f"inject_eom_colors: aux {tuple(aux.shape)}")
+    offsets, _ = _eom_offsets(layer)
+    return _eom_write(layer, col, aux, offsets, torch.empty_like(col))
+
+
 def first_unique_rows(pos: torch.Tensor) -> torch.Tensor:
     """Ascending indices of the first row of each distinct (x, y, z): the
     rows the JAX package's `PointCloudData.remove_duplicates` keeps (numpy
@@ -214,12 +310,15 @@ def first_unique_rows(pos: torch.Tensor) -> torch.Tensor:
 
 
 def download_recon(recon: Points, col, bits: int,
-                   remove_duplicates: bool = False):
+                   remove_duplicates: bool = False, raw=None):
     """Final positions (N, 3) int32 and colors (N, 3) uint8 as numpy,
     optionally without duplicate positions (first instance kept).  For
     grids of at most 10 bits the JAX package moves positions packed into
     one int32 per point and unpacks them on the host; the same packing is
-    applied here so that out-of-range coordinates come out identically."""
+    applied here so that out-of-range coordinates come out identically.
+    `raw` = (positions (R, 3) int32, colors (R, 3) uint8) numpy rows of the
+    raw-points patch, appended after the reconstruction and before the
+    duplicate removal, as the reference appends them."""
     col8 = col.clamp(0, 255).to(torch.uint8)
     pos = recon.pos
     if bits <= 10:
@@ -228,6 +327,10 @@ def download_recon(recon: Points, col, bits: int,
         mask = (1 << bits) - 1
         pos = torch.stack([(w >> (2 * bits)) & mask, (w >> bits) & mask,
                            w & mask], 1).to(torch.int32)
+    if raw is not None:
+        d = pos.device
+        pos = torch.cat([pos, torch.as_tensor(np.asarray(raw[0], np.int32), device=d)])
+        col8 = torch.cat([col8, torch.as_tensor(np.asarray(raw[1], np.uint8), device=d)])
     if remove_duplicates and pos.shape[0]:
         keep = first_unique_rows(pos)
         pos, col8 = pos[keep], col8[keep]

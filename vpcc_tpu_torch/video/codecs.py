@@ -1,5 +1,13 @@
-"""Video substream coders (vpcc_tpu/video/codecs.py): the occupancy coder,
-the geometry and attribute substream encoders, and the substream decoders.
+"""Video substream coders (vpcc_tpu/video/codecs.py): the occupancy and
+EOM plane coders, the geometry and attribute substream encoders, and the
+substream decoders.
+
+At geometryQP <= 4 (attributeQP <= 4) a substream is coded losslessly, as
+the reference's `_lossless_geo` / `_lossless_attr` branches code it: zlib
+over a row-delta predictor (`video/lossless.py`), D1 (T1) as the delta
+from the decoded D0 (T0).  The lossless geometry plane is background-filled
+first (the reference's `intra.fill_plane_host`: push-pull on kernel L,
+rounded half to even).
 
 Substream coders are stateful: in random-access GOFs a P-frame predicts
 from its reference frame, so each coder keeps its last decoded reference
@@ -18,6 +26,7 @@ import torch
 
 from vpcc_tpu_torch.bitstream import v3c
 from vpcc_tpu_torch.utils.config import VPCCConfig
+from vpcc_tpu_torch.ops import padding
 from vpcc_tpu_torch.video import entropy, hevc, lossless
 
 _UNSET = object()  # sentinel: caller did not override the temporal ref
@@ -37,6 +46,24 @@ def encode_occupancy(occ_video: np.ndarray, cfg: VPCCConfig) -> bytes:
 def decode_occupancy(payload: bytes, cfg: VPCCConfig) -> np.ndarray:
     h, w = struct.unpack("<HH", payload[:4])
     return entropy.decode_binary_plane(payload[4:], h, w)
+
+
+def encode_eom_plane(eom: np.ndarray) -> bytes:
+    """EOM bit-code plane (mostly zero): adaptive arithmetic coefficient
+    blocks over 64-pixel runs (cbf skips empty blocks)."""
+    h, w = eom.shape
+    flat = eom.astype(np.int32).reshape(-1)
+    nb = (flat.size + 63) // 64
+    blocks = np.zeros((nb, 64), np.int32)
+    blocks.reshape(-1)[:flat.size] = flat
+    return struct.pack("<HH", h, w) + entropy.encode_coeffs(blocks)
+
+
+def decode_eom_plane(payload: bytes) -> np.ndarray:
+    h, w = struct.unpack("<HH", payload[:4])
+    nb = (h * w + 63) // 64
+    blocks = entropy.decode_coeffs(payload[4:], nb)
+    return blocks.reshape(-1)[:h * w].reshape(h, w).astype(np.int32)
 
 
 def _host(a) -> np.ndarray:
@@ -59,15 +86,13 @@ class GeometrySubstreamEncoder:
         background fill, `weight` (the decoded occupancy) the RD weights,
         `qp_offset` the hierarchical QP cascade."""
         cfg = self.cfg
-        if cfg.geometryQP <= 4:
-            raise NotImplementedError(
-                "lossless geometry video (geometryQP <= 4) is not ported yet "
-                "(ROADMAP queue 1: lossless branches)")
-        maxval = (1 << cfg.geometryBitDepth2D) - 1
         d = self.device
         as_t = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(
             np.asarray(a).astype(np.int32))).to(device=d, dtype=torch.int32)
         geo_t = as_t(geo)
+        if cfg.geometryQP <= 4:
+            return self._encode_lossless(geo_t, occ, layer_ref, as_t)
+        maxval = (1 << cfg.geometryBitDepth2D) - 1
         t_ref = self.ref if temporal_ref is _UNSET else temporal_ref
         ref = None
         motion = False
@@ -87,6 +112,22 @@ class GeometrySubstreamEncoder:
         self.ref = rec[0]
         return bytes([v3c.CODEC_TPU_HEVC]) + payload, rec[0]
 
+    @staticmethod
+    def _encode_lossless(geo_t, occ, layer_ref, as_t):
+        """The reference's lossless branch (codecs.py:145-156): push-pull
+        fill under `occ` (kernel L), then zlib of the plane, or of its
+        difference from the decoded D0 modulo 2^16.  No temporal state."""
+        if occ is not None:
+            geo_t = padding.push_pull_round(geo_t, as_t(occ).to(torch.uint8))
+        geo = geo_t.cpu().numpy().astype(np.uint16)
+        if layer_ref is not None and tuple(layer_ref.shape) == geo.shape:
+            delta = (geo.astype(np.int32) - _host(layer_ref).astype(np.int32)) % 65536
+            payload = bytes([v3c.CODEC_LOSSLESS_DELTA]) + lossless.encode_plane(
+                delta.astype(np.uint16))
+        else:
+            payload = bytes([v3c.CODEC_LOSSLESS_ZLIB]) + lossless.encode_plane(geo)
+        return payload, as_t(geo)
+
 
 class AttributeSubstreamEncoder:
     def __init__(self, cfg: VPCCConfig, device: torch.device):
@@ -99,19 +140,25 @@ class AttributeSubstreamEncoder:
     def encode(self, attr, layer_ref=None, weight=None, temporal_ref=_UNSET,
                qp_offset: int = 0):
         """(H, W, 3) background-filled RGB (integer 0..255) -> (payload,
-        decoded (H, W, 3) uint8 RGB on the device), as the reference's lossy
+        decoded (H, W, 3) uint8 RGB on the device), as the reference's
         `AttributeSubstreamEncoder.encode` (codecs.py:222-270) with
-        occ=None.  `layer_ref` (the decoded T0) makes T1 an inter-layer
+        occ=None: at attributeQP <= 4 the lossless branch (zlib of the
+        image, or of its difference from the decoded T0 modulo 256).  `layer_ref` (the decoded T0) makes T1 an inter-layer
         frame; otherwise `temporal_ref` (default: the last decoded planes;
         None forces intra) makes a motion-searched P-frame.  `weight` (the
         decoded occupancy) drives the RD weights, `qp_offset` the
         hierarchical QP cascade (no cap on attributes)."""
         cfg = self.cfg
-        if cfg.attributeQP <= 4:
-            raise NotImplementedError(
-                "lossless attribute video (attributeQP <= 4) is not ported yet "
-                "(ROADMAP queue 1: lossless branches)")
         attr = torch.as_tensor(attr, device=self.device)
+        if cfg.attributeQP <= 4:
+            rgb = attr.cpu().numpy().astype(np.uint8)
+            if layer_ref is not None and tuple(layer_ref.shape) == rgb.shape:
+                delta = (rgb.astype(np.int16) - _host(layer_ref).astype(np.int16)) % 256
+                payload = bytes([v3c.CODEC_LOSSLESS_DELTA]) + lossless.encode_plane(
+                    delta.astype(np.uint8))
+            else:
+                payload = bytes([v3c.CODEC_LOSSLESS_ZLIB]) + lossless.encode_plane(rgb)
+            return payload, torch.as_tensor(rgb, device=self.device)
         t_refs = self.refs if temporal_ref is _UNSET else temporal_ref
         refs = None
         motion = False

@@ -1,5 +1,7 @@
-"""Lossless plane codec, decode half (vpcc_tpu/video/lossless.py): the
+"""Lossless plane codec (a copy of vpcc_tpu/video/lossless.py): the
 bit-exact path for lossless conditions, zlib over a row-delta predictor.
+The bytes depend on the zlib library the interpreter links
+(`zlib.ZLIB_RUNTIME_VERSION`); every build decodes every other's.
 """
 
 from __future__ import annotations
@@ -10,6 +12,19 @@ import zlib
 import numpy as np
 
 _DTYPES = {0: np.uint8, 1: np.uint16}
+_CODES = {np.dtype(np.uint8): 0, np.dtype(np.uint16): 1}
+
+
+def encode_plane(plane: np.ndarray, level: int = 6) -> bytes:
+    """plane: (H, W) or (H, W, C) uint8/uint16 -> bytes."""
+    arr = np.ascontiguousarray(plane)
+    code = _CODES[arr.dtype]
+    shape = arr.shape + (1,) * (3 - arr.ndim)
+    # vertical delta prediction improves zlib on smooth depth/attribute maps
+    delta = arr.copy()
+    delta[1:] = arr[1:] - arr[:-1]
+    comp = zlib.compress(delta.tobytes(), level)
+    return struct.pack("<BHHH", code, shape[0], shape[1], shape[2]) + comp
 
 
 def decode_plane(data: bytes) -> np.ndarray:
