@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the nineteen CUDA kernels from vpcc_tpu_torch/csrc (one nvcc per
-   source, all started together) and prints the build seconds;
+2. builds the twenty-two CUDA kernels from vpcc_tpu_torch/csrc (one nvcc
+   per source, all started together) and prints the build seconds;
 
 the decode path (kernels A-D, and Q's color conversion):
 3. decodes the committed 8-frame vox10 fixture once (warm-up), keeping each
@@ -146,9 +146,28 @@ tests/torch_make_lossless_reference.py):
     JAX's;
 32. encodes the first two frames under r3 with EOM: the stream must be
     byte-identical to JAX's and decode to the encoder's reconstruction;
-33. prints one JSON line describing the kernels (the vox11, D1-sum and EOM
-    entries as rows of their own, launches from steps 16, 24 and 30), then
-    the result line.
+
+the reconstruction tools a stream signals to the decoder (kernels T, U, V
+and kernel C's PLR use; reference data person_vox10_tools_reference.json,
+made by tests/torch_make_tools_reference.py), on the first two bench
+frames, driven by the JAX partitions, under three configurations: "cs"
+(r3 + color smoothing), "pbf" (r1 QPs, occupancyPrecision 4, PBF) and
+"plr" (r3 + PLR); per configuration:
+33. a warm-up encode keeping the largest call of the tool's kernels;
+34. holds them against their plain versions, exactly (kernel U's border
+    count too), timing both in turns;
+35. with all launch counters at 0, encodes again: warm seconds per frame,
+    the stage split, launches (the tool's kernels nonzero);
+36. requires the stream to be byte-identical to the JAX encoder's, every
+    frame's reconstruction digest and, per tool, its PBF-filtered occupancy
+    (md5 and kept pixels), PLR block-mode map or smoothed colors (md5) to
+    equal JAX's, no PLR RDO block or small patch whose sums reach 2^24
+    (where XLA's reduce order would decide the rounding), and the port's
+    decoder to decode the stream to the encoder's reconstruction (decode
+    seconds per frame, the decoder's launches);
+37. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
+    PLR and RDO entries as rows of their own, launches from steps 16, 24,
+    30 and 35), then the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -177,6 +196,7 @@ RD_REFERENCE = DATA / "person_vox10_rd_reference.json"
 VOX11_REFERENCE = DATA / "person_vox11_reference.json"
 VOX11_PARTITIONS = DATA / "person_vox11_partitions.npz"
 LOSSLESS_REFERENCE = DATA / "person_vox10_lossless_reference.json"
+TOOLS_REFERENCE = DATA / "person_vox10_tools_reference.json"
 # the floor tests/test_torch_segmentation.py pins for the partition
 # agreement with the JAX package, and the normals' tolerance (the kernel's
 # acosf/cosf against PyTorch's on the card)
@@ -238,6 +258,13 @@ KERNEL_INFO = {
     "generate_points_eom": ("vpcc_tpu_torch/csrc/generate_points.cu",
                             "vpcc_tpu/ops/reconstruct.py:136"),
     "eom_colors": ("vpcc_tpu_torch/csrc/eom_colors.cu", "vpcc_tpu/pipeline.py:279"),
+    # the reconstruction tools a stream signals (color smoothing, PBF, PLR)
+    "color_smooth": ("vpcc_tpu_torch/csrc/color_smooth.cu", "vpcc_tpu/ops/smoothing.py:135"),
+    "pbf": ("vpcc_tpu_torch/csrc/pbf.cu", "vpcc_tpu/ops/pbf.py:136"),
+    "plr": ("vpcc_tpu_torch/csrc/plr.cu", "vpcc_tpu/ops/plr.py:102"),
+    "plr_rdo": ("vpcc_tpu_torch/csrc/plr.cu", "vpcc_tpu/ops/plr.py:119"),
+    "generate_points_plr": ("vpcc_tpu_torch/csrc/generate_points.cu",
+                            "vpcc_tpu/ops/reconstruct.py:144"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
@@ -248,6 +275,9 @@ METRICS_KERNELS = ("metrics", "metrics_d2_f32")
 VOX11_ROWS = {"grid_knn_xyz": "grid_knn_xyz", "cc_round_voxel": "cc_labels",
               "recolor_blend": "recolor"}
 LOSSLESS_KERNELS = ("generate_points_eom", "eom_colors")
+# the tools phase's configurations -> the kernels (launch counters) of each
+TOOLS_KERNELS = {"cs": ("color_smooth",), "pbf": ("pbf",),
+                 "plr": ("plr", "plr_rdo", "generate_points_plr")}
 # every kernel the whole encoder runs (kernel A decodes only)
 ENCODER_PATH = ("half_pel_mc", "generate_points", "grid_smooth") + FRONT_KERNELS \
     + GEOMETRY_KERNELS + ENCODE_KERNELS
@@ -386,6 +416,47 @@ def bounds(name, args, out):
         (layer, _), (layer2, col2, aux) = args
         m = int((layer == 2).sum())
         byt = nbytes(layer) + 2 * 12 * m + nbytes(layer2, col2, aux, out[1])
+        ops = 0.0
+    elif name == "color_smooth":
+        # points, colors, patch ids, flags read once, colors written once;
+        # per row the luma (3 operations), 4 float and 5 integer sums, the
+        # deviation and the tests (~15)
+        byt = nbytes(*args[:4], out)
+        ops = 15.0 * args[0].shape[0]
+    elif name == "pbf":
+        # the occupancy, D0, block map and patch table read once, the
+        # filtered occupancy written once; per (border point, patch) pair
+        # ~60 integer operations, per boundary pixel and pass the 45-sample
+        # window at ~25 operations a sample (counted on this call's pass-0
+        # boundary)
+        (occ, geo0, btp, tbl, res), kw = args[0][:5], args[1]
+        passes, fs = kw["passes"], kw["filter_size"]
+        from vpcc_tpu_torch.ops import pbf as pbf_mod
+
+        byt = nbytes(occ, geo0, btp, tbl, out)
+        pid, occp = pbf_mod._pixel_patch(occ, btp, res)
+        n4 = sum(pbf_mod._neighbour(occp, pid, dy, dx).to(torch.int64)
+                 for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)))
+        n_win = int((occp & (n4 > 0) & (n4 < 4)).sum())
+        n_pts = pbf_mod.count_border_plain(occ, btp, res)
+        win = (2 * fs + 1) * (2 * (fs >> 1) + 1)
+        ops = 60.0 * n_pts * tbl.shape[0] + 25.0 * win * n_win * passes
+    elif name == "plr":
+        # the code plane: D0 and the block map read, the codes written; 24
+        # neighbour deltas at ~4 operations each a pixel
+        geo, bm, tbl = args[:3]
+        byt = nbytes(geo, bm, tbl, out)
+        ops = 100.0 * geo.numel()
+    elif name == "plr_rdo":
+        # the three planes, occupancy and block map read, the block and patch
+        # modes written; per occupied pixel the deltas (~100) and per mode
+        # ~40 operations
+        g0d, g0t, g1t, occ, btp, tbl = args[:6]
+        byt = nbytes(g0d, g0t, g1t, occ, btp, tbl, *out[:3])
+        ops = float(int((occ != 0).sum())) * (100.0 + 40.0 * tbl.shape[0])
+    elif name == "generate_points_plr":
+        (occ, g0, g1, btp, ptab), kw = args[0][:5], args[1]
+        byt = nbytes(occ, g0, g1, btp, ptab, kw["eom"], *out)
         ops = 0.0
     elif name == "grid_smooth":
         pos, pid, bnd = args[:3]
@@ -1742,6 +1813,42 @@ def unit_bytes(stream: bytes) -> dict:
     return out
 
 
+def decode_checked(dev, stream, recon, what):
+    """Decodes `stream` with the port's decoder, counters at 0 before, and
+    requires every frame to equal `recon`.  Returns (frames, seconds per
+    frame, the decode path's launches)."""
+    from vpcc_tpu_torch.decoder import Decoder
+
+    dev.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = Decoder(device="cuda").decode(stream)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / len(recon)
+    launches = {k: v for k, v in dev.LAUNCHES.items() if v}
+    print(f"{what} launches on the decode path: {launches}")
+    for i, (a, b) in enumerate(zip(dec, recon)):
+        if a.point_count != b.point_count or frame_digest(a.positions, a.colors) != \
+                frame_digest(b.positions, b.colors):
+            raise AssertionError(f"{what} frame {i}: the decoded stream differs from the "
+                                 "encoder's reconstruction")
+    return dec, t_dec, launches
+
+
+def encode_driven(cfg, frames):
+    """`Encoder(cfg, device="cuda").encode_gof` driven by the committed JAX
+    partitions: (encoder, stream, reconstructions)."""
+    import numpy as np
+
+    from vpcc_tpu_torch.encoder import Encoder
+
+    ref_parts = np.load(FRONT_PARTITIONS)
+    enc = Encoder(cfg, device="cuda")
+    segs = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
+        ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
+    return enc, *enc.encode_gof(frames, segs=segs)
+
+
 def lossless_phase(dev, frames):
     """Steps 28-32: the CTC's lossless conditions (raw points, EOM, the
     lossless video, the RAW/EOM aux substreams) on the first four bench
@@ -1751,14 +1858,11 @@ def lossless_phase(dev, frames):
     import numpy as np
 
     from vpcc_tpu_torch import pipeline
-    from vpcc_tpu_torch.decoder import Decoder
-    from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.ops import reconstruct
     from vpcc_tpu_torch.utils.config import VPCCConfig
     from vpcc_tpu_torch.video import codecs
 
     ref = json.loads(LOSSLESS_REFERENCE.read_text())
-    ref_parts = np.load(FRONT_PARTITIONS)
 
     def config(name):
         cfg = VPCCConfig()
@@ -1766,26 +1870,7 @@ def lossless_phase(dev, frames):
             setattr(cfg, k, v)
         return cfg
 
-    def encode(cfg, fr):
-        enc = Encoder(cfg, device="cuda")
-        segs = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
-            ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(fr)]
-        return enc, *enc.encode_gof(fr, segs=segs)
-
-    def decode_checked(stream, recon, what):
-        dev.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dec = Decoder(device="cuda").decode(stream)
-        torch.cuda.synchronize()
-        t_dec = (time.perf_counter() - t0) / len(recon)
-        print(f"{what} launches on the decode path: {dict(dev.LAUNCHES)}")
-        for i, (a, b) in enumerate(zip(dec, recon)):
-            if a.point_count != b.point_count or frame_digest(a.positions, a.colors) != \
-                    frame_digest(b.positions, b.colors):
-                raise AssertionError(f"{what} frame {i}: the decoded stream differs from the "
-                                     "encoder's reconstruction")
-        return dec, t_dec
+    encode = encode_driven
 
     rl = ref["configs"]["lossless"]
     cfg = config("lossless")
@@ -1902,7 +1987,7 @@ def lossless_phase(dev, frames):
     if not same_stream:
         print("lossless: zlib builds differ, so the stream bytes are not comparable; held "
               "instead: every substream decodes to the encoder's planes (the decode below)")
-    dec, t_dec = decode_checked(stream, recon, "lossless")
+    dec, t_dec, _ = decode_checked(dev, stream, recon, "lossless")
     for i, (a, f) in enumerate(zip(dec, fr)):
         ka = np.lexsort(np.asarray(a.positions, np.int64).T)
         kf = np.lexsort(np.asarray(f.positions, np.int64).T)
@@ -1933,9 +2018,174 @@ def lossless_phase(dev, frames):
         if (e.point_count, frame_digest(e.positions, e.colors)) != \
                 (r["recon_points"], r["recon_md5"]):
             raise AssertionError(f"r3+EOM frame {i}: the reconstruction differs from JAX's")
-    _, t_dec3 = decode_checked(stream3, recon3, "r3+EOM")
+    _, t_dec3, _ = decode_checked(dev, stream3, recon3, "r3+EOM")
     print(f"r3+EOM decode: {t_dec3:.4f} s/frame; the stream decodes exactly to the encoder's "
           "reconstruction, which equals JAX's")
+    return rows, launches
+
+
+def tools_phase(dev, frames):
+    """Steps 33-36: the reconstruction tools a stream signals to the decoder
+    (color smoothing, PBF, PLR), one configuration each, on the first two
+    bench frames.  Returns (rows, launches)."""
+    import numpy as np
+
+    from vpcc_tpu_torch import pipeline
+    from vpcc_tpu_torch.ops import pbf, plr, reconstruct, smoothing
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+
+    ref = json.loads(TOOLS_REFERENCE.read_text())
+    md5 = lambda a, dt: hashlib.md5(np.ascontiguousarray(a, dt).tobytes()).hexdigest()
+    wrappers = {
+        "cs": {"color_smooth": (smoothing, "color_smoothing_grid")},
+        "pbf": {"pbf": (pbf, "pbf_filter_occupancy")},
+        "plr": {"plr": (plr, "code_plane"), "plr_rdo": (plr, "rdo"),
+                "generate_points_plr": (reconstruct, "generate_points")},
+    }
+
+    def entries(kname, args, kw):
+        """(kernel call, plain call, bounds arguments) of one kept call."""
+        if kname == "color_smooth":
+            return (lambda: smoothing.color_smoothing_grid(*args, **kw),
+                    lambda: smoothing.color_smoothing_grid_plain(*args, **kw), args)
+        if kname == "pbf":
+            return (lambda: pbf.pbf_filter_occupancy(*args, **kw),
+                    lambda: pbf.pbf_filter_occupancy_plain(*args, **kw), (args, kw))
+        if kname == "plr":
+            return (lambda: plr.code_plane(*args), lambda: plr.code_plane_plain(*args), args)
+        if kname == "plr_rdo":
+            return (lambda: tuple(plr.rdo(*args)[:3]), lambda: tuple(plr.rdo_plain(*args)[:3]),
+                    args)
+        plain_kw = {k: v for k, v in kw.items() if k != "entry"}
+        return (lambda: tuple(reconstruct.generate_points(*args, **kw)),
+                lambda: tuple(reconstruct.generate_points_plain(*args, **plain_kw)), (args, kw))
+
+    rows, launches = {}, {}
+    for name, rc in ref["configs"].items():
+        cfg = VPCCConfig()
+        for k, v in rc["overrides"].items():
+            setattr(cfg, k, v)
+        fr = frames[:len(rc["seeds"])]
+        n = len(fr)
+        if [f.point_count for f in fr] != [r["source_points"] for r in rc["frames"]]:
+            raise AssertionError(f"tools {name}: the frames differ from the JAX package's")
+
+        # 33. warm-up, keeping the tool's largest calls; the spies keep each
+        # frame's PBF-filtered occupancy and smoothed colors
+        seen = {"pbf": [], "cs": []}
+        real_pbf, real_cs = pipeline.apply_pbf_occupancy, pipeline.apply_color_smoothing_device
+
+        def pbf_spy(*a, **kw):
+            out = real_pbf(*a, **kw)
+            occ = out.cpu().numpy().astype(np.uint8)
+            seen["pbf"].append(dict(pbf_occ_md5=md5(occ, np.uint8), pbf_kept=int(occ.sum())))
+            return out
+
+        def cs_spy(recon, col, cfg_):
+            out = real_cs(recon, col, cfg_)
+            seen["cs"].append(md5(out.cpu().numpy(), "<i4"))
+            return out
+
+        pipeline.apply_pbf_occupancy, pipeline.apply_color_smoothing_device = pbf_spy, cs_spy
+        t0 = time.perf_counter()
+        try:
+            with Capture(wrappers[name]) as cap:
+                encode_driven(cfg, fr)
+                torch.cuda.synchronize()
+        finally:
+            pipeline.apply_pbf_occupancy, pipeline.apply_color_smoothing_device = \
+                real_pbf, real_cs
+        print(f"tools {name} cold encode: {(time.perf_counter() - t0) / n:.4f} s/frame")
+        missing = sorted(set(wrappers[name]) - set(cap.calls))
+        if missing:
+            raise AssertionError(f"tools {name}: never called: {missing}")
+
+        # 34. each kernel == its plain version, timed in turns
+        for kname in TOOLS_KERNELS[name]:
+            _, args, kw = cap.calls[kname]
+            k_fn, p_fn, b_args = entries(kname, args, kw)
+            got, want = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err != 0:
+                raise AssertionError(f"{kname}: kernel differs from its plain version "
+                                     f"(max abs err {err})")
+            extra = ""
+            if kname == "pbf":
+                nb = pbf.count_border(args[0], args[2], args[4])
+                if nb != pbf.count_border_plain(args[0], args[2], args[4]):
+                    raise AssertionError("pbf: the border count differs from the plain version's")
+                extra = f", {nb} border pixels, kept {int(got.sum())} of " \
+                        f"{int((args[0] != 0).sum())}"
+            elif kname == "plr_rdo":
+                extra = f", {args[4].numel()} blocks, {args[5].shape[0]} modes"
+            elif kname == "generate_points_plr":
+                extra = f", rows {got[0].shape[0]}, PLR rows {int((got[2] == 2).sum())}"
+            elif kname == "color_smooth":
+                extra = f", rows {args[0].shape[0]}, smoothed {int((got != args[1]).any(1).sum())}"
+            (k1, k2), (p1, p2) = time_turns(k_fn, p_fn)
+            b_ms, b_by = bounds(kname, b_args, got)
+            print(f"{kname}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, plain "
+                  f"{p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}){extra}")
+            rows[kname] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                               bound_by=b_by, max_abs_err=err, library_ms=None)
+
+        # 35. the main path, counted and timed
+        dev.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, stream, recon = encode_driven(cfg, fr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counted = {k: v for k, v in dev.LAUNCHES.items() if v}
+        split = {f: sum(getattr(st, f) for st in enc.stats) / n
+                 for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s",
+                           "video_s", "reconstruct_s", "recolor_s")}
+        print(f"tools {name} warm encode: {dt / n:.4f} s/frame (JAX partitions; JAX on a CPU "
+              f"{rc['jax_cpu_encode_s'] / n:.4f}); per frame "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        print(f"tools {name} launches on the encode path: {counted}")
+        idle = [k for k in TOOLS_KERNELS[name] if counted.get(k, 0) == 0]
+        if idle:
+            raise AssertionError(f"tools {name}: kernels not launched on the encode path: {idle}")
+        launches.update({k: counted[k] for k in TOOLS_KERNELS[name]})
+
+        # 36. stream, reconstructions and the tools' planes against JAX's, decode
+        same = hashlib.md5(stream).hexdigest() == rc["stream_md5"]
+        print(f"tools {name} stream {len(stream)} vs {rc['stream_bytes']} bytes, byte-identical "
+              f"to the JAX encoder's: {same}")
+        if not same:
+            raise AssertionError(f"tools {name}: the stream differs from the JAX encoder's")
+        bad = []
+        for i, (e, r) in enumerate(zip(enc.last_encoded, rc["frames"])):
+            got = dict(patches=len(e.patches), recon_points=recon[i].point_count,
+                       recon_md5=frame_digest(recon[i].positions, recon[i].colors))
+            if "pbf_occ_md5" in r:
+                got.update(seen["pbf"][i])
+            if "plr_modes_md5" in r:
+                got["plr_modes_md5"] = md5(e.geometry.plr_modes, "<i4")
+                if e.geometry.plr_inexact:
+                    bad.append(f"frame {i}: {e.geometry.plr_inexact} RDO blocks or patches "
+                               "whose sums reach 2^24")
+            if "smoothed_colors_md5" in r:
+                got["smoothed_colors_md5"] = seen["cs"][i]
+            bad += [f"frame {i} {k} {v} (JAX {r[k]})" for k, v in got.items() if v != r[k]]
+        if bad:
+            raise AssertionError(f"tools {name}: differs from the JAX package: {bad}")
+        what = {"cs": "smoothed colors", "pbf": "PBF-filtered occupancy (kept pixels "
+                f"{[r.get('pbf_kept') for r in rc['frames']]})",
+                "plr": "PLR block modes (RDO sums below 2^24)"}[name]
+        print(f"tools {name} against the JAX package: patches, reconstructions, {what}: "
+              "all equal")
+        _, t_dec, dec_launches = decode_checked(dev, stream, recon, f"tools {name}")
+        want_dec = [k for k in TOOLS_KERNELS[name] if k != "plr_rdo"]
+        if any(dec_launches.get(k, 0) == 0 for k in want_dec):
+            raise AssertionError(f"tools {name}: the decoder did not launch {want_dec}")
+        ub = unit_bytes(stream)
+        print(f"tools {name} decode: {t_dec:.4f} s/frame (JAX on a CPU "
+              f"{rc['jax_cpu_decode_s'] / n:.4f}); equal to the encoder's reconstruction; "
+              "bytes per substream (port/JAX): "
+              + ", ".join(f"{k} {ub.get(k)}/{v}" for k, v in rc["unit_bytes"].items()))
     return rows, launches
 
 
@@ -1990,19 +2240,22 @@ def main() -> int:
     met_rows, met_launches = metrics_phase(dev, cfg, frames, segs, decoded, r3)
     vox_rows, vox_launches = vox11_phase(dev)
     ll_rows, ll_launches = lossless_phase(dev, frames)
+    tools_rows, tools_launches = tools_phase(dev, frames)
     rows.update(front_rows)
     rows.update(geo_rows)
     rows.update(enc_rows)
     rows.update(met_rows)
     rows.update(vox_rows)
     rows.update(ll_rows)
+    rows.update(tools_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
                 **{k: enc_launches[k] for k in ENCODE_KERNELS},
                 **{k: met_launches[k] for k in METRICS_KERNELS},
                 **{k: vox_launches[c] for k, c in VOX11_ROWS.items()},
-                **{k: ll_launches[k] for k in LOSSLESS_KERNELS}}
+                **{k: ll_launches[k] for k in LOSSLESS_KERNELS},
+                **tools_launches}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

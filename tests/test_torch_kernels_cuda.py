@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from vpcc_tpu_torch import device as dev, pipeline
-from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, padding, recolor, reconstruct
+from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, padding, pbf, plr, recolor
+from vpcc_tpu_torch.ops import reconstruct
 from vpcc_tpu_torch.ops import segmentation, smoothing
 from vpcc_tpu_torch.video import hevc
 from vpcc_tpu_torch.video import hevc_tables as tab
@@ -565,3 +566,106 @@ def test_metrics_d2_f32_kernel(cuda, n):
     got = metrics.d2_sum_f32(d2, n, cap)
     assert dev.LAUNCHES["metrics_d2_f32"] == n0 + len(metrics.xla_windows(cap))
     _same(got, metrics.d2_sum_f32_plain(d2, n, cap))
+
+
+@pytest.mark.parametrize("case", ["empty", "one_cell", "cloud"])
+def test_color_smooth_kernel(cuda, case):
+    """Kernel T: no rows; one cell holding every row (two patches, close
+    colors: smoothed); a vox10 cloud of few-point cells."""
+    rng = np.random.default_rng(len(case))
+    if case == "empty":
+        pts = np.zeros((0, 3), np.int32)
+    elif case == "one_cell":
+        pts = rng.integers(8, 12, (5000, 3)).astype(np.int32)
+    else:
+        pts = np.clip(rng.normal(512, 40, (200_000, 3)), 0, 1023).astype(np.int32)
+    n = len(pts)
+    col = np.clip(rng.integers(95, 101, (n, 3)) + (rng.random((n, 3)) < 0.01) * 40, 0,
+                  255).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    args = (t(pts), t(col), t(rng.integers(0, 2, n).astype(np.int32)), t(rng.random(n) < 0.8))
+    before = dev.LAUNCHES["color_smooth"]
+    got = smoothing.color_smoothing_grid(*args, 10.0, 6.0, 4, 10)
+    assert dev.LAUNCHES["color_smooth"] == before + (2 if n else 0)
+    _same(got, smoothing.color_smoothing_grid_plain(*args, 10.0, 6.0, 4, 10))
+    if n:
+        assert (got.cpu().numpy() != col).any()
+
+
+def _pbf_scene(rng, n_patch):
+    """A 128 x 128 canvas of 8-pixel blocks: `n_patch` patches of 2 x 2
+    blocks over one small world box, every orientation and axis order."""
+    h = w = 128
+    res = 8
+    occ = np.zeros((h, w), np.uint8)
+    btp = np.zeros((h // res, w // res), np.int32)
+    tbl = np.zeros((64, 16), np.int32)
+    perms = [(2, 0, 1), (0, 2, 1), (1, 2, 0), (2, 1, 0), (0, 1, 2), (1, 0, 2)]
+    for p in range(n_patch):
+        bx, by = (p % 6) * 2 + (p // 6), (p // 6) * 3
+        na, ta, ba = perms[p % 6]
+        tbl[p] = [bx, by, 2, 2, rng.integers(0, 6), rng.integers(0, 6), rng.integers(0, 6),
+                  na, ta, ba, p % 2, p % 8, 1 if p == 11 else 0, 5, 1, 1]
+        btp[by:by + 2, bx:bx + 2] = p + 1
+        blk = rng.random((2 * res, 2 * res)) < 0.97
+        blk[3:13, 3:13] = True
+        occ[by * res:(by + 2) * res, bx * res:(bx + 2) * res] = blk
+    yy, xx = np.mgrid[0:h, 0:w]
+    geo = ((xx // 5 + yy // 7) % 5 + rng.integers(0, 2, (h, w))).astype(np.int32)
+    return occ, geo, btp, tbl, res
+
+
+@pytest.mark.parametrize("case", ["no_border", "one_patch", "scene"])
+def test_pbf_kernel(cuda, case):
+    """Kernel U: an empty occupancy (no border pixel, nothing projected);
+    one patch (border pixels, no other patch to project into); twelve
+    overlapping patches (a 45-degree one among them), 1 to 4 passes."""
+    rng = np.random.default_rng(len(case))
+    occ, geo, btp, tbl, res = _pbf_scene(rng, 0 if case == "no_border" else
+                                         1 if case == "one_patch" else 12)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    args = (t(occ), t(geo), t(btp), t(tbl), res)
+    assert pbf.count_border(t(occ), t(btp), res) == pbf.count_border_plain(
+        occ=torch.as_tensor(occ), btp=torch.as_tensor(btp), res=res)
+    for passes, fs in ((2, 4), (1, 2), (4, 4)):
+        got = pbf.pbf_filter_occupancy(*args, passes, fs, 4)
+        _same(got, pbf.pbf_filter_occupancy_plain(*args, passes, fs, 4))
+    if case == "scene":
+        assert (got.cpu().numpy() != occ.astype(bool)).any()
+
+
+@pytest.mark.parametrize("case", ["one_mode", "one_patch", "planes"])
+def test_plr_kernel(cuda, case):
+    """Kernel V: the code plane and the RDO with one mode; with every block
+    in one patch (one pool, no patch-level mode); random planes and patches
+    with all ten modes.  Then the code plane through kernel C's EOM entry,
+    counted as its PLR use."""
+    rng = np.random.default_rng(len(case))
+    h, w, res = 160, 224, 16
+    yy, xx = np.mgrid[0:h, 0:w]
+    g0t = (30 + (xx // 7) % 4 + (yy // 9) % 3).astype(np.int32)
+    g1t = (g0t + rng.integers(0, 5, (h, w))).astype(np.int32)
+    g0d = (g0t + rng.integers(-1, 2, (h, w))).astype(np.int32)
+    occ = (rng.random((h, w)) < 0.85).astype(np.uint8)
+    btp = (np.ones((h // res, w // res)) if case == "one_patch"
+           else rng.integers(0, 9, (h // res, w // res))).astype(np.int32)
+    tbl = plr.MODE_TABLE[:1 if case == "one_mode" else 10]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+    args = [t(a) for a in (g0d, g0t, g1t, occ, btp, tbl)]
+    got = plr.rdo(*args, res, 9, 64)
+    want = plr.rdo_plain(*args, res, 9, 64)
+    for a, b in zip(got[:3], want[:3]):
+        _same(a, b)
+    assert got.inexact == want.inexact == 0
+    code = plr.code_plane(args[0], got.block_modes, args[5], res)
+    _same(code, plr.code_plane_plain(args[0], got.block_modes, args[5], res))
+    ptable = np.zeros((9, 16), np.int32)
+    ptable[:, 2:4] = [w // res, h // res]
+    ptable[:, 7:10] = [2, 0, 1]
+    before = dev.LAUNCHES["generate_points_plr"]
+    rows = reconstruct.generate_points(args[3], args[0], args[0], args[4], t(ptable), res,
+                                       eom=code, eom_bits=3, entry="generate_points_plr")
+    assert dev.LAUNCHES["generate_points_plr"] == before + 2
+    for a, b in zip(rows, reconstruct.generate_points_plain(
+            args[3], args[0], args[0], args[4], t(ptable), res, eom=code, eom_bits=3)):
+        _same(a, b)

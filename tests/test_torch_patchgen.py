@@ -308,13 +308,15 @@ def test_encoder_device_policy_and_unsupported_options():
     assert Encoder(device="cpu").device == torch.device("cpu")
     for k, v in (("highGradientSeparation", 1), ("enablePointCloudPartitioning", 1),
                  ("globalPatchAllocation", 1), ("normalOrientation", 2),
-                 ("pointLocalReconstruction", 1), ("numMaxTilePerFrame", 2)):
+                 ("numMaxTilePerFrame", 2)):
         cfg = VPCCConfig()
         setattr(cfg, k, v)
         with pytest.raises(NotImplementedError):
             Encoder(cfg, device="cpu")
-    # the lossless conditions' tools are ported
-    for k in ("enhancedOccupancyMapCode", "rawPointsPatch", "useRawPointsSeparateVideo"):
+    # the lossless conditions' tools and the decoder-signalled
+    # reconstruction tools are ported
+    for k in ("enhancedOccupancyMapCode", "rawPointsPatch", "useRawPointsSeparateVideo",
+              "pointLocalReconstruction", "pbfEnableFlag", "flagColorSmoothing"):
         cfg = VPCCConfig()
         setattr(cfg, k, 1)
         assert getattr(Encoder(cfg, device="cpu").cfg, k) == 1

@@ -15,11 +15,12 @@ Layout (mirrors vpcc_tpu/):
     core/       patch data model and patch building, packing, atlas frames,
                 block-to-patch
     ops/        voxelize, grid k-NN, normals, segmentation, connected
-                components, coverage, point reconstruction, grid and color
-                pre-smoothing, push-pull fill, recolor
-    pipeline.py the reconstruction seam (points, smoothing, color gather,
-                the EOM rows' colors) and the attribute images (paint,
-                group dilation)
+                components, coverage, point reconstruction, grid smoothing,
+                color smoothing and pre-smoothing, PBF (pbf.py), PLR
+                (plr.py), push-pull fill, recolor, metrics
+    pipeline.py the reconstruction seam (PBF, points, smoothing, color
+                gather, the EOM rows' colors, color smoothing) and the
+                attribute images (paint, group dilation)
     decoder.py  `Decoder.decode` — V3C stream -> point clouds
     encoder.py  `Encoder.encode_gof` — point clouds -> V3C stream and the
                 encoder-side reconstructions (its stages are public too)

@@ -550,9 +550,9 @@ class AtlasSequenceParameterSet:
             bw.ue(self.plr_block_threshold)
             tbl = self.plr_mode_table
             if tbl is None:
-                raise NotImplementedError(
-                    "the default PLR mode table: PLR is not ported yet "
-                    "(ROADMAP queue 1)")
+                from vpcc_tpu_torch.ops.plr import MODE_TABLE
+
+                tbl = MODE_TABLE[: self.plr_num_modes]
             for row in np.asarray(tbl, np.int32):
                 bw.u(1, int(row[0]))
                 bw.u(1, int(row[1]))

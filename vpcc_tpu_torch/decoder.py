@@ -8,11 +8,15 @@ implements it (vpcc_tpu/decoder.py): parse HLS -> decode video substreams
 
 Supported: the default configuration's path — occupancy, two geometry maps
 and two attribute maps from the wavefront codec (or the lossless codecs),
-hierarchical random-access GOFs, grid geometry smoothing — and the CTC's
+hierarchical random-access GOFs, grid geometry smoothing — the CTC's
 lossless conditions: the EOM plane (occupancy map 1) with its EOM points
 (kernel C) and their aux colors (kernel S), and the raw-points patch, from
-the atlas tile or the RAW/EOM aux substreams.  Tools that are off by
-default raise NotImplementedError naming their ROADMAP item.
+the atlas tile or the RAW/EOM aux substreams — and the reconstruction tools
+a stream signals: PBF patch-border filtering (occupancy-synthesis SEI,
+kernel U), PLR (the ASPS's PLR fields: one geometry and one attribute map,
+kernel V's code plane through kernel C) and color smoothing
+(attribute-smoothing SEI, kernel T).  Other tools that are off by default
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from vpcc_tpu_torch.bitstream import v3c
 from vpcc_tpu_torch.bitstream.bitio import BitReader
 from vpcc_tpu_torch.core import atlas as atlas_mod
 from vpcc_tpu_torch.core.patch import INFINITE_DEPTH, VIEW_AXES, Patch
+from vpcc_tpu_torch.ops import plr
 from vpcc_tpu_torch.utils.config import VPCCConfig
 from vpcc_tpu_torch.utils.ply import PointCloudData
 from vpcc_tpu_torch.video import aux_video, codecs
@@ -70,6 +75,9 @@ def _pdu_to_patch(pdu: v3c.PatchDataUnit, index: int, vps: v3c.V3CParameterSet) 
         geo_bits=vps.geometry_3d_bitdepth,
         lod_x=pdu.lod_x,
         lod_y=pdu.lod_y,
+        plr_level=pdu.plr_level,
+        plr_mode=pdu.plr_mode,
+        plr_block_modes=pdu.plr_block_modes,
     )
 
 
@@ -142,16 +150,25 @@ class Decoder:
         if sei_gs is not None:
             cfg.gridSize = sei_gs.grid_size
             cfg.thresholdSmoothing = float(sei_gs.threshold)
-        if seis.get(v3c.SEI_ATTRIBUTE_SMOOTHING) is not None:
-            raise _unsupported("color smoothing")
+        sei_as = seis.get(v3c.SEI_ATTRIBUTE_SMOOTHING)
+        cfg.flagColorSmoothing = int(sei_as is not None)
+        if sei_as is not None:
+            cfg.cgridSize = sei_as.grid_size
+            cfg.thresholdColorSmoothing = float(sei_as.threshold)
+            cfg.thresholdColorVariation = float(sei_as.threshold_variation)
+            cfg.thresholdColorDifference = float(sei_as.threshold_difference)
         sei_os = seis.get(v3c.SEI_OCCUPANCY_SYNTHESIS)
-        if sei_os is not None and sei_os.method_type == 1:
-            raise _unsupported("PBF patch-border filtering")
+        cfg.pbfEnableFlag = int(sei_os is not None and sei_os.method_type == 1)
+        if cfg.pbfEnableFlag:
+            cfg.pbfPassesCount = sei_os.passes_count
+            cfg.pbfFilterSize = sei_os.filter_size
+            cfg.pbfLog2Threshold = sei_os.log2_threshold
         cfg.enhancedOccupancyMapCode = 1 if vps.eom_bits else 0
         if vps.eom_bits:
             cfg.surfaceThickness = vps.eom_bits + 1
-        if asps is not None and asps.plr_enabled_flag:
-            raise _unsupported("PLR (point local reconstruction)")
+        plr_on = asps is not None and bool(asps.plr_enabled_flag)
+        if plr_on and vps.eom_bits:
+            raise _unsupported("a stream with both EOM and PLR")
 
         out: List[PointCloudData] = []
         d = self.device
@@ -208,7 +225,16 @@ class Decoder:
             )
             cfg.occupancyResolution = vps.occupancy_resolution
             cfg.geometry3dCoordinatesBitdepth = vps.geometry_3d_bitdepth
-            recon = pipeline.reconstruct_frame(occ, geo, btp, patches, cfg, d, eom=eom)
+            plr_modes = None
+            if plr_on:
+                plr_modes = plr.block_modes_from_patches(patches, btp, *btp.shape)
+            occ_in = occ
+            if cfg.pbfEnableFlag:
+                occ_in = pipeline.apply_pbf_occupancy(occ, geo[0], btp, patches, cfg, d)
+            recon = pipeline.reconstruct_frame(occ_in, geo, btp, patches, cfg, d, eom=eom,
+                                               plr_modes=plr_modes,
+                                               plr_mode_table=asps.plr_mode_table if plr_on
+                                               else None)
             as_img = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(
                 np.asarray(a, np.uint8))).to(d)
             a0 = as_img(attr[0])
@@ -223,6 +249,7 @@ class Decoder:
             if aux_eom_cols is not None:
                 col_d = pipeline.inject_eom_colors(
                     recon.layer, col_d, torch.as_tensor(aux_eom_cols, device=d))
+            col_d = pipeline.apply_color_smoothing_device(recon, col_d, cfg)
             # the raw points follow the reconstruction (reference
             # decoder.py:257-272): from the aux substreams, else the tile
             raw = None

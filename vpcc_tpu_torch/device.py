@@ -71,12 +71,16 @@ KERNELS: Dict[str, list] = {
     "color_convert": ["--fmad=false"],
     "metrics": ["--fmad=false"],
     "eom_colors": [],
+    "color_smooth": ["--fmad=false"],
+    "pbf": ["--fmad=false"],
+    "plr": [],
 }
 
 # entries of a kernel's library counted apart from it: the unpacked-table
-# k-NN of kernel E (grids above 10 bits), kernel C with EOM layers and
-# kernel R's float32 D1 sum
-ENTRIES = ("grid_knn_xyz", "generate_points_eom", "metrics_d2_f32")
+# k-NN of kernel E (grids above 10 bits), kernel C with EOM layers and with
+# PLR layers, kernel R's float32 D1 sum and kernel V's RDO
+ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "metrics_d2_f32",
+           "plr_rdo")
 LAUNCHES: Dict[str, int] = {k: 0 for k in (*KERNELS, *ENTRIES)}
 # ptxas resource lines of each build (registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}

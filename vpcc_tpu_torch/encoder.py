@@ -33,6 +33,14 @@ codes in a second occupancy map, reconstructed by kernel C's EOM layers,
 and (with the separate video) carry their transferred colors in the aux
 attribute substream (kernel S).
 
+The reconstruction tools a stream signals to the decoder ride them too:
+with pbfEnableFlag the decoded occupancy's patch borders are filtered
+(kernel U) before the reconstruction; with pointLocalReconstruction (and no
+EOM) only D0 and T0 are coded, kernel V's RDO picks each block's PLR mode,
+and the PLR layers come from kernel V's code plane through kernel C's EOM
+entry; with flagColorSmoothing the decoded colors are grid-smoothed
+(kernel T).  The mux writes their SEIs and ASPS fields.
+
 Tools that are off by default and not ported raise NotImplementedError;
 the port never computes something else in their place.
 """
@@ -53,7 +61,7 @@ from vpcc_tpu_torch.core import atlas as atlas_mod
 from vpcc_tpu_torch.core import packing
 from vpcc_tpu_torch.core.patch import Patch, build_patch_from_component
 from vpcc_tpu_torch.ops import cc as cc_mod
-from vpcc_tpu_torch.ops import coverage, neighbors, padding, recolor, voxelize
+from vpcc_tpu_torch.ops import coverage, neighbors, padding, pbf, plr, recolor, voxelize
 from vpcc_tpu_torch.ops import smoothing as smoothing_mod
 from vpcc_tpu_torch.ops import normals as normals_mod
 from vpcc_tpu_torch.ops.reconstruct import Points
@@ -122,10 +130,12 @@ class GeometryFrame:
 
     front: FrontEndFrame
     occ_payload: bytes
-    geo_payloads: List[bytes]    # D0, D1 geometry substream frames
+    geo_payloads: List[bytes]    # D0, D1 geometry substream frames (D0 alone with PLR)
     geo_dec: List[torch.Tensor]  # decoded (H, W) int32 planes on the device
     recon: Points                # reconstructed, smoothed points (device)
     eom_payload: Optional[bytes] = None  # the EOM plane's occupancy map-1 frame
+    plr_modes: Optional[np.ndarray] = None  # (H/res, W/res) int32 PLR block modes
+    plr_inexact: int = 0         # RDO blocks whose float32 sums would round (ops/plr.py)
 
     @property
     def stats(self) -> EncoderStats:
@@ -178,7 +188,6 @@ class Encoder:
             ("highGradientSeparation", "highGradientSeparation"),
             ("enablePointCloudPartitioning", "enablePointCloudPartitioning"),
             ("globalPatchAllocation", "globalPatchAllocation"),
-            ("pointLocalReconstruction", "pointLocalReconstruction (PLR)"),
         ):
             if getattr(cfg, flag):
                 raise _unsupported(what)
@@ -492,15 +501,15 @@ class Encoder:
                               temporal_refs: Optional[dict] = None,
                               qp_offset_geo: int = 0) -> GeometryFrame:
         """The geometry stages of the reference's `encode_frame`
-        (encoder.py:567-648, two maps, no PLR/PBF): the front end, the
-        occupancy payload and, with enhancedOccupancyMapCode, the EOM plane's
-        payload, D0 and D1 through their substream encoders (D1 predicts from
-        the decoded D0; D0 from `temporal_refs["geo"]` when given, None
-        forcing intra), then the reconstruction seam with grid smoothing on
-        the decoded planes and the decoded EOM plane."""
+        (encoder.py:567-648): the front end, the occupancy payload and, with
+        enhancedOccupancyMapCode, the EOM plane's payload, D0 and D1 through
+        their substream encoders (D1 predicts from the decoded D0; D0 from
+        `temporal_refs["geo"]` when given, None forcing intra; D0 alone with
+        PLR), the PLR RDO (kernel V) on the decoded D0 and the true D0/D1,
+        PBF on the decoded occupancy (kernel U), then the reconstruction
+        seam with grid smoothing on the decoded planes, the decoded EOM
+        plane or the PLR modes."""
         cfg = self.cfg
-        if cfg.pbfEnableFlag:
-            raise _unsupported("PBF patch-border filtering")
         fr = self.encode_frame_front(pc_host, prev_patches=prev_patches, seg=seg)
         st = fr.stats
         t = time.perf_counter()
@@ -509,8 +518,11 @@ class Encoder:
         if cfg.enhancedOccupancyMapCode and fr.frame.eom is not None:
             eom_payload = codecs.encode_eom_plane(fr.frame.eom)
             eom_dec = codecs.decode_eom_plane(eom_payload)
+        plr_on = self.plr_on
+        geo_layers = (("geo0", fr.frame.geometry0),) if plr_on else (
+            ("geo0", fr.frame.geometry0), ("geo1", fr.frame.geometry1))
         geo_payloads, geo_dec = [], []
-        for name, g in (("geo0", fr.frame.geometry0), ("geo1", fr.frame.geometry1)):
+        for name, g in geo_layers:
             kw = {}
             if temporal_refs is not None and not geo_dec:
                 kw["temporal_ref"] = temporal_refs.get("geo")
@@ -521,20 +533,44 @@ class Encoder:
             geo_dec.append(dec)
         st.video_s = time.perf_counter() - t
         t = time.perf_counter()
-        recon = pipeline.reconstruct_frame(fr.occ_rec, geo_dec, fr.block_to_patch,
-                                           fr.patches, cfg, self.device, eom=eom_dec)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        d = self.device
+        btp = fr.block_to_patch
+        plr_modes, plr_inexact = None, 0
+        if plr_on:
+            # reference encoder.py:617-636; the patch outputs hold the
+            # patch count rounded up to 64, as the reference's
+            as_t = lambda a: pipeline._as_int32(a, d).contiguous()
+            r = plr.rdo(as_t(geo_dec[0]), as_t(fr.frame.geometry0), as_t(fr.frame.geometry1),
+                        pipeline._as_uint8(fr.occ_rec, d), as_t(btp),
+                        as_t(pipeline.plr_table(cfg)), cfg.occupancyResolution,
+                        int(cfg.patchSize), ((len(fr.patches) + 63) // 64) * 64 or 64)
+            plr_modes, plr_inexact = r.block_modes.cpu().numpy(), r.inexact
+            plr.assign_patch_plr(fr.patches, plr_modes, btp, r.patch_level.cpu().numpy(),
+                                 r.patch_modes.cpu().numpy())
+        occ_for_recon = fr.occ_rec
+        if cfg.pbfEnableFlag:
+            # PBF replaces the upsampled occupancy on both sides (reference
+            # PCCCodec.cpp:543-556), from the decoded maps
+            occ_for_recon = pipeline.apply_pbf_occupancy(fr.occ_rec, geo_dec[0], btp,
+                                                         fr.patches, cfg, d)
+        recon = pipeline.reconstruct_frame(occ_for_recon, geo_dec, btp, fr.patches, cfg, d,
+                                           eom=eom_dec, plr_modes=plr_modes)
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
         st.reconstruct_s = time.perf_counter() - t
         st.total_s += st.video_s + st.reconstruct_s
-        return GeometryFrame(fr, occ_payload, geo_payloads, geo_dec, recon, eom_payload)
+        return GeometryFrame(fr, occ_payload, geo_payloads, geo_dec, recon, eom_payload,
+                             plr_modes, plr_inexact)
+
+    @property
+    def plr_on(self) -> bool:
+        """Single-map coding with PLR (reference encoder.py:595: not with EOM)."""
+        return bool(self.cfg.pointLocalReconstruction) and not self.cfg.enhancedOccupancyMapCode
 
     def _check_attribute_path(self, pc_host: PointCloudData) -> None:
         cfg = self.cfg
         if getattr(pc_host, "reflectances", None) is not None:
             raise _unsupported("the reflectance attribute")
-        if cfg.flagColorSmoothing:
-            raise _unsupported("color smoothing (flagColorSmoothing)")
         if int(cfg.attributeBGFill) != 1:
             raise _unsupported(f"attributeBGFill={cfg.attributeBGFill} (dilate / harmonic fill)")
 
@@ -573,12 +609,15 @@ class Encoder:
 
     def attribute_images(self, recon: Points, colors: torch.Tensor, occupancy,
                          height: int, width: int):
-        """The two (H, W, 3) int32 attribute images the video codes
-        (reference encoder.py:736-754): paint the colors into both layers
-        (kernel P), push-pull fill every channel under the atlas occupancy
-        (kernel L), then group dilation (kernel P)."""
+        """The (H, W, 3) int32 attribute images the video codes (reference
+        encoder.py:736-755): paint the colors into both layers (kernel P),
+        push-pull fill every channel under the atlas occupancy (kernel L),
+        then group dilation (kernel P).  With PLR only T0 is coded: layer 0
+        alone is filled, and not dilated."""
         occ = torch.as_tensor(np.ascontiguousarray(occupancy, np.uint8), device=self.device)
         planes = pipeline.paint_attribute(recon.pix, recon.layer, colors, height, width)
+        if self.plr_on:
+            return (padding.fill_rgb(planes[:1], occ)[0].permute(1, 2, 0).contiguous(),)
         planes = padding.fill_rgb(planes, occ)
         if self.cfg.groupDilation:
             return pipeline.group_dilate(planes, occ)
@@ -591,16 +630,16 @@ class Encoder:
                      qp_offset: int = 0,
                      qp_offset_geo: Optional[int] = None) -> EncodedFrame:
         """The reference's `encode_frame` (encoder.py:442-846) without
-        PLR/PBF/reflectance: the geometry stages (`encode_frame_geometry`),
-        the raw-points patch (the source points whose coverage distance
-        exceeds maxAllowedDist2RawPointsSelection), recolor and
-        pre-smoothing, the EOM rows' colors for the aux substream, the
-        attribute images, T0 and T1 (T1 predicted from the decoded T0; T0
-        from `temporal_refs["attr"]` when given, None forcing intra; QP
-        cascade `qp_offset`, uncapped), the decoded colors of the points
-        (the EOM rows' from the aux samples) and the duplicate-free
-        encoder-side reconstruction, raw points appended before the
-        duplicate removal."""
+        reflectance: the geometry stages (`encode_frame_geometry`), the
+        raw-points patch (the source points whose coverage distance exceeds
+        maxAllowedDist2RawPointsSelection), recolor and pre-smoothing, the
+        EOM rows' colors for the aux substream, the attribute images, T0 and
+        T1 (T1 predicted from the decoded T0; T0 from
+        `temporal_refs["attr"]` when given, None forcing intra; QP cascade
+        `qp_offset`, uncapped; T0 alone with PLR), the decoded colors of the
+        points (the EOM rows' from the aux samples), color smoothing (kernel
+        T) and the duplicate-free encoder-side reconstruction, raw points
+        appended before the duplicate removal."""
         cfg = self.cfg
         self._check_attribute_path(pc_host)
         if qp_offset_geo is None:
@@ -652,6 +691,7 @@ class Encoder:
         if eom_colors is not None:
             col_dec = pipeline.inject_eom_colors(
                 g.recon.layer, col_dec, torch.as_tensor(eom_colors, device=self.device))
+        col_dec = pipeline.apply_color_smoothing_device(g.recon, col_dec, cfg)
         raw = None
         if raw_positions is not None:
             raw = (raw_positions, raw_colors if raw_colors is not None
@@ -725,8 +765,9 @@ class Encoder:
 
     def _mux_gof(self, encoded: List[EncodedFrame], frames, parent):
         """Assemble the V3C sample stream (reference `_mux_gof`,
-        encoder.py:1004-1261, one tile, two maps, no PLR/reflectance): VPS,
-        the atlas substream (ASPS, AFPS, the prefix SEIs, one atlas tile
+        encoder.py:1004-1261, one tile, no reflectance; one map with PLR):
+        VPS, the atlas substream (ASPS with its PLR fields, AFPS, the prefix
+        SEIs (geometry and attribute smoothing, occupancy synthesis), one atlas tile
         layer per frame with P-tiles predicting from the tree parent's
         patches, the raw points in the tile unless useRawPointsSeparateVideo),
         then the occupancy (map 1: the EOM planes), geometry and attribute
@@ -738,6 +779,8 @@ class Encoder:
         height = max(e.height for e in encoded)
         n_geo_maps = len(encoded[0].geometry_payloads)
         n_attr_maps = len(encoded[0].attribute_payloads)
+        plr_on = n_geo_maps == 1
+        map_count_minus1 = 0 if plr_on else cfg.mapCountMinus1
         max_pts = max(e.recon.point_count for e in encoded)
         max_patches = max(len(e.patches) for e in encoded)
         level = next(
@@ -754,7 +797,7 @@ class Encoder:
             occupancy_precision=cfg.occupancyPrecision,
             geometry_2d_bitdepth=cfg.geometryBitDepth2D,
             geometry_3d_bitdepth=cfg.geometryBitDepth3D,
-            map_count_minus1=cfg.mapCountMinus1, min_level=cfg.minLevel,
+            map_count_minus1=map_count_minus1, min_level=cfg.minLevel,
         )
         bw = BitWriter()
         vps.write(bw)
@@ -787,14 +830,24 @@ class Encoder:
             log2_patch_packing_block_size=cfg.occupancyResolution.bit_length() - 1,
             geometry_3d_bitdepth_minus1=cfg.geometryBitDepth3D - 1,
             geometry_2d_bitdepth_minus1=cfg.geometryBitDepth2D - 1,
-            map_count_minus1=cfg.mapCountMinus1, plr_enabled_flag=0,
-            plr_block_threshold=int(cfg.patchSize),
+            map_count_minus1=map_count_minus1, plr_enabled_flag=1 if plr_on else 0,
+            plr_num_modes=len(pipeline.plr_table(cfg)), plr_block_threshold=int(cfg.patchSize),
+            plr_mode_table=pipeline.plr_table(cfg),
         )
         afps = v3c.AtlasFrameParameterSet(num_tiles_minus1=0)
         prefix_seis = []
         if cfg.flagGeometrySmoothing and cfg.gridSmoothing:
             prefix_seis.append(v3c.SEIGeometrySmoothing(
                 grid_size=cfg.gridSize, threshold=int(cfg.thresholdSmoothing)))
+        if cfg.flagColorSmoothing:
+            prefix_seis.append(v3c.SEIAttributeSmoothing(
+                grid_size=cfg.cgridSize, threshold=int(cfg.thresholdColorSmoothing),
+                threshold_variation=int(cfg.thresholdColorVariation),
+                threshold_difference=int(cfg.thresholdColorDifference)))
+        if cfg.pbfEnableFlag:
+            prefix_seis.append(v3c.SEIOccupancySynthesis(
+                passes_count=pbf.pbf_passes(cfg), filter_size=pbf.pbf_filter_size(cfg),
+                log2_threshold=cfg.pbfLog2Threshold))
         prefix_seis.append(v3c.SEIComponentCodecMapping())
         prefix_seis.append(v3c.SEIBufferingPeriod(initial_delay=90000 // 30))
         prefix_seis.append(v3c.SEIAtlasFrameTiming())

@@ -166,15 +166,17 @@ _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 \
 
 
 def generate_points(occupancy, geometry0, geometry1, block_to_patch,
-                    patch_tbl, res: int, eom=None, eom_bits: int = 0) -> Points:
+                    patch_tbl, res: int, eom=None, eom_bits: int = 0,
+                    entry: str = "generate_points_eom") -> Points:
     """Kernel C (csrc/generate_points.cu).  occupancy (H, W) uint8;
     geometry0/1 (H, W) int32 relative depths; block_to_patch (H/res, W/res)
     int32 (0 = none, else patch index + 1); patch_tbl (P, 16) int32; eom
     (H, W) int32 EOM codes with eom_bits layers, or None.  Two launches:
     per-pixel point counts, then (after a cumsum of the counts) the points
     written at their compacted rows.  With an EOM plane the launches count
-    as the EOM entry's (`generate_points_eom`).  The plain version runs on
-    the CPU."""
+    as `entry`'s: the EOM entry's (`generate_points_eom`), or PLR's
+    (`generate_points_plr`), whose three layers at D0 + j are the same
+    code plane (ops/plr.py).  The plain version runs on the CPU."""
     if occupancy.device.type == "cpu":
         return generate_points_plain(occupancy, geometry0, geometry1,
                                      block_to_patch, patch_tbl, res, eom, eom_bits)
@@ -196,7 +198,7 @@ def generate_points(occupancy, geometry0, geometry1, block_to_patch,
     fn.argtypes, fn.restype = _ARGS, ctypes.c_int
     counts = torch.empty(H * W, dtype=torch.int32, device=d)
     null = ctypes.c_void_p(0)
-    counter = "generate_points" if eom is None else "generate_points_eom"
+    counter = "generate_points" if eom is None else entry
 
     def launch(incl, outs, n_out):
         rc = fn(dev.ptr(occupancy), dev.ptr(geometry0), dev.ptr(geometry1),

@@ -152,6 +152,137 @@ def grid_smooth(points, patch_idx, boundary, threshold: float,
 
 
 # ---------------------------------------------------------------------------
+# Grid color smoothing (kernel T)
+#
+# Behavioral reference: PCCCodec::colorSmoothing (PCCCodec.cpp:151) as
+# vpcc_tpu/ops/smoothing.py `color_smoothing_grid` (smoothing.py:135-189)
+# computes it, on both sides of the codec after the colors are gathered:
+# every point of a cgridSize^3 cell that holds more than one patch, with a
+# low luma variance, takes the cell's rounded mean color when it is a
+# boundary point, the cell holds more than one point and its own luma lies
+# within `threshold` of the cell's mean luma.  (The reference's docstring
+# says the deviation "exceeds" the threshold; its code, which the port
+# follows, tests `dev < threshold`.)
+#
+# Float order (XLA's CPU program, probed with crafted inputs: a threshold
+# placed one float32 ulp either side of a candidate deviation or variance
+# separates the candidate orders): the luma is
+# fma(0.0722, b, fma(0.2126, r, 0.7152 g)); the cell's luma and luma^2 sums
+# are float32 sums in row order from 0 (XLA's scatter-add visits the rows in
+# order); the variance is fma(-mean, mean, l2sum / count), clamped at 0;
+# every division divides by the computed count (a true division).  The
+# count, the color sums and the patch bounds are integers, order-free.
+
+def _cell_ids(points, grid_size: int, grid_bits: int) -> torch.Tensor:
+    gw = (1 << grid_bits) // grid_size
+    cell = torch.div(points, grid_size, rounding_mode="floor").clamp(0, gw - 1).long()
+    return (cell[:, 2] * gw + cell[:, 1]) * gw + cell[:, 0]
+
+
+def color_smoothing_grid_plain(points, colors, patch_idx, boundary, threshold: float,
+                               variation_limit: float, grid_size: int = 4,
+                               grid_bits: int = 10):
+    """Plain PyTorch version of kernel T.  points (M, 3) int32 (every row a
+    reconstructed point), colors (M, 3) int32 RGB, patch_idx (M,) int32,
+    boundary (M,) bool.  Returns the (M, 3) int32 smoothed colors."""
+    d = points.device
+    m = points.shape[0]
+    if m == 0:
+        return colors.clone()
+    cid = _cell_ids(points, grid_size, grid_bits)
+    cf = colors.to(torch.float32)
+    luma = fma_f32(0.0722, cf[:, 2], fma_f32(0.2126, cf[:, 0], 0.7152 * cf[:, 1]))
+    perm = torch.sort(cid, stable=True).indices
+    _, inv, counts = torch.unique_consecutive(cid[perm], return_inverse=True,
+                                              return_counts=True)
+    n_cells = counts.shape[0]
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(m, device=d) - starts[inv]
+    # float32 sums in row order: add the cells' r-th rows for r = 0, 1, ...
+    by_rank = torch.sort(rank, stable=True).indices
+    bounds = torch.cumsum(torch.bincount(rank), 0).tolist()
+    lp = luma[perm]
+    lsum = torch.zeros(n_cells, dtype=torch.float32, device=d)
+    l2sum = torch.zeros_like(lsum)
+    lo = 0
+    for hi in bounds:
+        sel = by_rank[lo:hi]
+        c = inv[sel]
+        lsum[c] = lsum[c] + lp[sel]
+        l2sum[c] = l2sum[c] + lp[sel] * lp[sel]
+        lo = hi
+    csum = torch.zeros((n_cells, 3), dtype=torch.int64, device=d).index_add_(
+        0, inv, colors[perm].long())
+    pp = patch_idx[perm]
+    pmin = torch.full((n_cells,), 1 << 30, dtype=torch.int32, device=d).scatter_reduce(
+        0, inv, pp, "amin")
+    pmax = torch.full((n_cells,), -1, dtype=torch.int32, device=d).scatter_reduce(
+        0, inv, pp, "amax")
+    cnt = counts.to(torch.float32)
+    mean_c = csum.to(torch.float32) / cnt[:, None]
+    mean_l = lsum / cnt
+    var_l = fma_f32(-mean_l, mean_l, l2sum / cnt).clamp(min=0.0)
+    lim = _f32(variation_limit, cf)
+    cell_ok = (pmin != pmax) & (counts > 1) & (var_l < lim * lim)
+    row_cell = torch.empty_like(inv)
+    row_cell[perm] = inv
+    dev_l = (luma - mean_l[row_cell]).abs()
+    smooth = boundary & cell_ok[row_cell] & (dev_l < _f32(threshold, cf))
+    out = torch.where(smooth[:, None], torch.round(mean_c[row_cell]), cf)
+    return out.clamp(0, 255).to(torch.int32)
+
+
+_CS_KEY_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
+_CS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                                   ctypes.c_void_p]
+
+
+def color_smoothing_grid(points, colors, patch_idx, boundary, threshold: float,
+                         variation_limit: float, grid_size: int = 4, grid_bits: int = 10):
+    """Kernel T (csrc/color_smooth.cu): `color_smoothing_grid_plain` on the
+    card with O(M) memory.  One launch writes each row's cell key; a stable
+    sort of the keys (PyTorch) groups the rows of a cell in row order; a
+    second launch gives each cell one thread, which sums its rows in that
+    order and writes every row's color.  The plain version runs on the CPU."""
+    if points.device.type == "cpu":
+        return color_smoothing_grid_plain(points, colors, patch_idx, boundary, threshold,
+                                          variation_limit, grid_size, grid_bits)
+    d = points.device
+    m = points.shape[0]
+    dev.check_tensor(points, "points", torch.int32, d, 2)
+    dev.check_tensor(colors, "colors", torch.int32, d, 2)
+    dev.check_tensor(patch_idx, "patch_idx", torch.int32, d, 1)
+    dev.check_tensor(boundary, "boundary", torch.bool, d, 1)
+    gw = (1 << grid_bits) // grid_size
+    if points.shape != (m, 3) or colors.shape != (m, 3) or patch_idx.shape != (m,) \
+            or boundary.shape != (m,) or gw ** 3 >= 1 << 31:
+        raise ValueError(f"color_smoothing_grid: points {tuple(points.shape)}, colors "
+                         f"{tuple(colors.shape)}, patch_idx {tuple(patch_idx.shape)}, boundary "
+                         f"{tuple(boundary.shape)}, {gw}^3 cells")
+    out = torch.empty_like(colors)
+    if m == 0:
+        return out
+    lib = dev.load_kernel("color_smooth")
+    keys = torch.empty(m, dtype=torch.int32, device=d)
+    fn = lib.color_smooth_keys
+    fn.argtypes, fn.restype = _CS_KEY_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(points), m, grid_size, gw, dev.ptr(keys), dev.stream_handle())
+    dev.count_launch("color_smooth")
+    dev.check_launch("color_smooth", rc)
+    skeys, perm = torch.sort(keys, stable=True)
+    perm = perm.to(torch.int32)
+    fn = lib.color_smooth_cells
+    fn.argtypes, fn.restype = _CS_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(skeys), dev.ptr(perm), dev.ptr(colors), dev.ptr(patch_idx),
+            dev.ptr(boundary), dev.ptr(out), m, float(threshold), float(variation_limit),
+            dev.stream_handle())
+    dev.count_launch("color_smooth")
+    dev.check_launch("color_smooth", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Color pre-smoothing (K9; kernel N)
 #
 # Behavioral reference: presmoothPointCloudColor (PCCEncoder.cpp:6593-6656)

@@ -2,16 +2,18 @@
 and the attribute images the encoder paints from the points.
 
 The port of vpcc_tpu/pipeline.py `reconstruct_frame_device`,
-`paint_attribute`, `gather_decoded_colors`, `extract_eom_colors`,
-`inject_eom_colors` and `download_recon` (two depth layers and the EOM
-layers; no PLR or PBF), with the group dilation of
-vpcc_tpu/ops/padding.py.  Kernel C builds the compacted rows, kernel D
-smooths them; kernel P (csrc/attr_image.cu) paints the colors into the two
+`apply_pbf_occupancy`, `paint_attribute`, `gather_decoded_colors`,
+`extract_eom_colors`, `inject_eom_colors`, `apply_color_smoothing_device`,
+`apply_color_smoothing` and `download_recon`, with the group dilation of
+vpcc_tpu/ops/padding.py.  Kernel C builds the compacted rows (two depth
+layers, the EOM layers, or the PLR layers from kernel V's code plane),
+kernel D smooths them; kernel U filters the occupancy's patch borders
+(PBF) before; kernel P (csrc/attr_image.cu) paints the colors into the two
 attribute layers, group-dilates their filled backgrounds and gathers each
 point's decoded color; kernel S (csrc/eom_colors.cu) moves the EOM rows'
-colors out of and back into the rows.  The JAX package's static-shape
-padding (`shape_bucket`) has no counterpart: the tensors hold exactly the
-valid rows, in the same order.
+colors out of and back into the rows; kernel T smooths the decoded colors.
+The JAX package's static-shape padding (`shape_bucket`) has no
+counterpart: the tensors hold exactly the valid rows, in the same order.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from vpcc_tpu_torch import device as dev
 from vpcc_tpu_torch.core import atlas as atlas_mod
 from vpcc_tpu_torch.core.patch import Patch
-from vpcc_tpu_torch.ops import reconstruct, smoothing
+from vpcc_tpu_torch.ops import pbf, plr, reconstruct, smoothing
 from vpcc_tpu_torch.ops.reconstruct import Points
 from vpcc_tpu_torch.utils.config import VPCCConfig
 
@@ -36,29 +38,57 @@ def _as_int32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a).astype(np.int32), device=device)
 
 
+def _as_uint8(a, device) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.to(device=device, dtype=torch.uint8).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(a, np.uint8), device=device)
+
+
+def plr_table(cfg: VPCCConfig) -> np.ndarray:
+    """The mode table an encoder signals: the first plrlNumberOfModes rows
+    of the default table (reference encoder.py:621)."""
+    n = max(min(int(cfg.plrlNumberOfModes), len(plr.MODE_TABLE)), 1)
+    return plr.MODE_TABLE[:n]
+
+
 def reconstruct_frame(
-    occ_rec: np.ndarray,     # (H, W) uint8 decoded + expanded occupancy
+    occ_rec,                 # (H, W) uint8 decoded + expanded occupancy (numpy or tensor)
     geo_dec: List,           # decoded geometry maps (tensors or numpy)
     btp: np.ndarray,         # (H/res, W/res) int32 block-to-patch
     patches: List[Patch],
     cfg: VPCCConfig,
     device: torch.device,
     eom=None,                # (H, W) int32 decoded EOM codes, or None
+    plr_modes=None,          # (H/res, W/res) int32 PLR block modes, or None
+    plr_mode_table=None,     # (M, 4) int32 PLR mode table (default: the cfg prefix)
 ) -> Points:
     """generatePointCloud + grid smoothing on `device`.  With
     enhancedOccupancyMapCode and an EOM plane, each pixel adds its EOM
-    points (eom_bits = surfaceThickness - 1 layers, tag 2)."""
-    occ_d = torch.as_tensor(np.ascontiguousarray(occ_rec, np.uint8), device=device)
+    points (eom_bits = surfaceThickness - 1 layers, tag 2).  With PLR block
+    modes (single-map geometry), kernel V's code plane adds the layers at
+    D0 + 1..3 through kernel C's EOM entry, tag 2, as the reference's PLR
+    layers (pipeline.py:76-82)."""
+    occ_d = _as_uint8(occ_rec, device)
     g0 = _as_int32(geo_dec[0], device)
     g1 = _as_int32(geo_dec[1], device) if len(geo_dec) > 1 else g0
     eom_d, eom_bits = None, 0
     if eom is not None and cfg.enhancedOccupancyMapCode:
         eom_d = _as_int32(eom, device)
         eom_bits = max(int(cfg.surfaceThickness) - 1, 0)
+    plr_entry = {}
+    if plr_modes is not None:
+        if eom_d is not None:
+            raise NotImplementedError(
+                "a stream with both EOM and PLR is not ported (ROADMAP queue 1 item 2); "
+                "no encoder of the repository writes one")
+        tbl = plr_table(cfg) if plr_mode_table is None else plr_mode_table
+        eom_d = plr.code_plane(g0, _as_int32(plr_modes, device),
+                               _as_int32(np.asarray(tbl), device), cfg.occupancyResolution)
+        eom_bits, plr_entry = plr.N_LAYERS, {"entry": "generate_points_plr"}
     rec = reconstruct.generate_points(
         occ_d, g0, g1, _as_int32(btp, device),
         _as_int32(atlas_mod.patch_table(patches), device),
-        cfg.occupancyResolution, eom=eom_d, eom_bits=eom_bits,
+        cfg.occupancyResolution, eom=eom_d, eom_bits=eom_bits, **plr_entry,
     )
     if cfg.flagGeometrySmoothing and cfg.gridSmoothing and rec.pos.shape[0]:
         rec = rec._replace(pos=smoothing.grid_smooth(
@@ -66,6 +96,51 @@ def reconstruct_frame(
             grid_size=cfg.gridSize, grid_bits=cfg.geometryBitDepth3D,
         ))
     return rec
+
+
+def apply_pbf_occupancy(occ_rec, geo_dec0, btp, patches: List[Patch], cfg: VPCCConfig,
+                        device: torch.device) -> torch.Tensor:
+    """PBF patch-border filtering of the upsampled occupancy (reference
+    `apply_pbf_occupancy`, pipeline.py:107-133): kernel U on the decoded
+    occupancy, the decoded D0 and the patch table of at least 64 rows (in
+    steps of 64, as the reference's).  Returns the (H, W) uint8 occupancy
+    the reconstruction reads; encoder and decoder call it with the same
+    decoded inputs."""
+    p_cap = max(((len(patches) + 63) // 64) * 64, 64)
+    out = pbf.pbf_filter_occupancy(
+        _as_uint8(occ_rec, device), _as_int32(geo_dec0, device), _as_int32(btp, device),
+        _as_int32(atlas_mod.patch_table(patches, capacity=p_cap), device),
+        cfg.occupancyResolution, passes=pbf.pbf_passes(cfg),
+        filter_size=pbf.pbf_filter_size(cfg), threshold=int(cfg.pbfLog2Threshold) ** 2)
+    return out.to(torch.uint8)
+
+
+def apply_color_smoothing_device(recon: Points, col: torch.Tensor, cfg: VPCCConfig):
+    """Grid color smoothing of the reconstruction's (N, 3) int32 colors
+    (reference `apply_color_smoothing_device`, pipeline.py:237-248): kernel
+    T when flagColorSmoothing is set, else the colors as they are."""
+    if not (cfg.flagColorSmoothing and recon.pos.shape[0]):
+        return col
+    return smoothing.color_smoothing_grid(
+        recon.pos, col.contiguous(), recon.pid, recon.bnd,
+        float(cfg.thresholdColorSmoothing), float(cfg.thresholdColorVariation),
+        grid_size=cfg.cgridSize, grid_bits=cfg.geometryBitDepth3D)
+
+
+def apply_color_smoothing(pos, col, pid, bnd, cfg: VPCCConfig, device=None) -> np.ndarray:
+    """Host-facing color smoothing (reference `apply_color_smoothing`,
+    pipeline.py:332-350): numpy positions (N, 3), colors (N, 3), patch ids
+    and boundary flags in, (N, 3) uint8 colors out."""
+    col = np.asarray(col)
+    if not (cfg.flagColorSmoothing and len(pos)):
+        return col
+    d = dev.resolve_device(device)
+    out = smoothing.color_smoothing_grid(
+        _as_int32(pos, d), _as_int32(col, d), _as_int32(pid, d),
+        torch.as_tensor(np.asarray(bnd, bool), device=d),
+        float(cfg.thresholdColorSmoothing), float(cfg.thresholdColorVariation),
+        grid_size=cfg.cgridSize, grid_bits=cfg.geometryBitDepth3D)
+    return out.cpu().numpy().astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------
