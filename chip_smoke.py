@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the twenty-two CUDA kernels from vpcc_tpu_torch/csrc (one nvcc
+2. builds the twenty-three CUDA kernels from vpcc_tpu_torch/csrc (one nvcc
    per source, all started together) and prints the build seconds;
 
 the decode path (kernels A-D, and Q's color conversion):
@@ -165,9 +165,33 @@ frames, driven by the JAX partitions, under three configurations: "cs"
     (where XLA's reduce order would decide the rounding), and the port's
     decoder to decode the stream to the encoder's reconstruction (decode
     seconds per frame, the decoder's launches);
-37. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
-    PLR and RDO entries as rows of their own, launches from steps 16, 24,
-    30 and 35), then the result line.
+
+the attribute options (the reflectance attribute and attributeBGFill 0 /
+2: kernel W, kernel L's push over a stack, kernel P's scalar entries;
+reference data person_vox10_attr_options_reference.json, made by
+tests/torch_make_attr_options_reference.py), on the first two bench frames,
+driven by the JAX partitions, under four configurations: "refl" (r3 with a
+seeded reflectance attribute, lossy), "refl_lossless" (the lossless
+conditions with reflectance), "bgfill0" and "bgfill2" (r3 with the sparse
+dilation and the harmonic fill); per configuration:
+37. a warm-up encode keeping the largest call of the configuration's new
+    entries (for reflectance also kernels I and A on the reflectance
+    planes);
+38. holds them against their plain versions, exactly, timing both in turns
+    (for "bgfill2" also the smoothed push-pull `smooth_fill`, which nothing
+    calls, and for "refl" `transfer_reflectance` over kernels M and E);
+39. with all launch counters at 0, encodes again: warm seconds per frame,
+    the stage split, launches (the new entries nonzero), the dilation passes
+    per image;
+40. requires the stream's md5, length and `last_stream_stats`, per frame the
+    transferred reflectances, the T0/T1 images the attribute video codes and
+    the reconstruction (positions, colors, reflectances) to equal JAX's, the
+    port's decoder to decode the stream to the encoder's reconstruction,
+    reflectances included (decode seconds per frame), and for "refl" each
+    frame's reflectance PSNR within METRICS_PSNR_TOL_DB of JAX's;
+41. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
+    PLR, RDO, fill and scalar entries as rows of their own, launches from
+    steps 16, 24, 30, 35 and 39), then the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -197,6 +221,7 @@ VOX11_REFERENCE = DATA / "person_vox11_reference.json"
 VOX11_PARTITIONS = DATA / "person_vox11_partitions.npz"
 LOSSLESS_REFERENCE = DATA / "person_vox10_lossless_reference.json"
 TOOLS_REFERENCE = DATA / "person_vox10_tools_reference.json"
+ATTR_OPTIONS_REFERENCE = DATA / "person_vox10_attr_options_reference.json"
 # the floor tests/test_torch_segmentation.py pins for the partition
 # agreement with the JAX package, and the normals' tolerance (the kernel's
 # acosf/cosf against PyTorch's on the card)
@@ -265,6 +290,12 @@ KERNEL_INFO = {
     "plr_rdo": ("vpcc_tpu_torch/csrc/plr.cu", "vpcc_tpu/ops/plr.py:119"),
     "generate_points_plr": ("vpcc_tpu_torch/csrc/generate_points.cu",
                             "vpcc_tpu/ops/reconstruct.py:144"),
+    # the attribute options (attributeBGFill 0 / 2, the reflectance attribute)
+    "bg_dilate": ("vpcc_tpu_torch/csrc/bg_fill.cu", "vpcc_tpu/ops/padding.py:78"),
+    "bg_relax": ("vpcc_tpu_torch/csrc/bg_fill.cu", "vpcc_tpu/ops/padding.py:109"),
+    "push_levels": ("vpcc_tpu_torch/csrc/push_pull.cu", "vpcc_tpu/ops/padding.py:123"),
+    "attr_paint_scalar": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:252"),
+    "attr_gather_scalar": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:270"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
@@ -278,6 +309,11 @@ LOSSLESS_KERNELS = ("generate_points_eom", "eom_colors")
 # the tools phase's configurations -> the kernels (launch counters) of each
 TOOLS_KERNELS = {"cs": ("color_smooth",), "pbf": ("pbf",),
                  "plr": ("plr", "plr_rdo", "generate_points_plr")}
+# the attribute-options phase's configurations -> its new entries (launch
+# counters)
+ATTR_OPTIONS_KERNELS = {"refl": ("attr_paint_scalar", "attr_gather_scalar"),
+                        "refl_lossless": ("attr_paint_scalar", "attr_gather_scalar"),
+                        "bgfill0": ("bg_dilate",), "bgfill2": ("bg_relax", "push_levels")}
 # every kernel the whole encoder runs (kernel A decodes only)
 ENCODER_PATH = ("half_pel_mc", "generate_points", "grid_smooth") + FRONT_KERNELS \
     + GEOMETRY_KERNELS + ENCODE_KERNELS
@@ -309,12 +345,14 @@ def time_ms(fn, reps: int) -> float:
 
 
 def max_abs_err(a, b) -> float:
-    if isinstance(a, tuple):
+    if isinstance(a, (tuple, list)):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
     if a.shape != b.shape:
         raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
     if a.numel() == 0:
         return 0.0
+    if a.is_floating_point():
+        return float((a.double() - b.double()).abs().max())
     return float((a.long() - b.long()).abs().max())
 
 
@@ -457,6 +495,52 @@ def bounds(name, args, out):
     elif name == "generate_points_plr":
         (occ, g0, g1, btp, ptab), kw = args[0][:5], args[1]
         byt = nbytes(occ, g0, g1, btp, ptab, kw["eom"], *out)
+        ops = 0.0
+    elif name == "bg_dilate":
+        # the planes and occupancy read once, the filled planes written once;
+        # per pixel the pass fills: 4 neighbour tests, and per plane 3 adds,
+        # a division and a rounding (~10 operations)
+        planes, occ = args[:2]
+        byt = nbytes(planes, occ, out)
+        ops = 10.0 * planes.shape[0] * int((occ == 0).sum())
+    elif name == "bg_relax":
+        # harmonic fill: the planes and occupancy read once, the filled
+        # planes written once; per level pixel and plane the pull (a division)
+        # and 8 Jacobi steps of 4 adds and a multiply (~45 operations), over
+        # the pyramid (4/3 of the finest level)
+        planes, occ = args[:2]
+        byt = nbytes(planes, occ, out)
+        ops = 45.0 * planes.numel() * 4.0 / 3.0
+    elif name == "push_levels":
+        # the planes and occupancy read once, every level's value and weight
+        # sums written once; 3 adds per coarse value and weight (level 1's
+        # values also a multiply per child)
+        planes, occ = args[:2]
+        vals, wts = out
+        byt = nbytes(planes, occ, *vals, *wts)
+        ops = 3.0 * sum(v.numel() for v in vals) + 3.0 * sum(w.numel() for w in wts) \
+            + float(planes.numel())
+    elif name == "smooth_fill":
+        # the planes and occupancy read once, the filled planes written once;
+        # the push-pull's pull (a division per level pixel) and 4 Jacobi
+        # steps of 4 adds and a multiply per pixel and plane
+        planes, occ = args[:2]
+        byt = nbytes(planes, occ, out)
+        ops = planes.numel() * (4.0 / 3.0 + 20.0)
+    elif name == "transfer_reflectance":
+        # the sources (positions, reflectance) and targets read once, the
+        # target reflectance written once; the exact match's binary search
+        # (~2 log2(Ns) operations) and the k=1 sweep's candidates (12
+        # operations each, kernel E's count) per target
+        from vpcc_tpu_torch.ops import neighbors
+
+        src_pos, src_refl, tgt_pos = args[:3]
+        grid = neighbors.build_grid(src_pos, 10)
+        probes, cands = knn_work(grid, tgt_pos, 18)
+        byt = nbytes(src_pos, src_refl, tgt_pos, out) + probes * 4
+        ops = 12.0 * cands + 2.0 * tgt_pos.shape[0] * max(src_pos.shape[0], 2).bit_length()
+    elif name in ("attr_paint_scalar", "attr_gather_scalar"):
+        byt = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(out)
         ops = 0.0
     elif name == "grid_smooth":
         pos, pid, bnd = args[:3]
@@ -2189,6 +2273,300 @@ def tools_phase(dev, frames):
     return rows, launches
 
 
+def reflectance_field(positions, seed: int):
+    """The seeded (N,) uint16 reflectance of a frame's points (as
+    tests/torch_make_attr_options_reference.py makes it)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p = np.asarray(positions, np.int64)
+    r = 21 * (p[:, 0] + p[:, 1] + p[:, 2]) + rng.integers(0, 1024, p.shape[0])
+    return np.clip(r, 0, 65535).astype(np.uint16)
+
+
+def attr_options_phase(dev, frames):
+    """Steps 37-40: the attribute options (the reflectance attribute,
+    attributeBGFill 0 and 2) on the first two bench frames.  Returns (rows,
+    launches)."""
+    import numpy as np
+
+    from vpcc_tpu_torch import pipeline
+    from vpcc_tpu_torch.ops import neighbors, padding, recolor
+    from vpcc_tpu_torch.ops.metrics import compute_metrics
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+    from vpcc_tpu_torch.utils.ply import PointCloudData
+    from vpcc_tpu_torch.video import codecs, hevc
+
+    ref = json.loads(ATTR_OPTIONS_REFERENCE.read_text())
+    md5 = lambda a, dt: hashlib.md5(np.ascontiguousarray(a, dt).tobytes()).hexdigest()
+    host = lambda t: t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+    def plain_transfer(src_pos, src_refl, tgt_pos, grid_bits):
+        """transfer_reflectance from the plain versions of kernels M and E."""
+        order, sk = recolor.sorted_source_keys(src_pos, grid_bits)
+        eidx, has, _, _ = recolor.exact_match_plain(order, sk, tgt_pos, grid_bits)
+        nidx, _ = neighbors.knn_plain(neighbors.build_grid(src_pos, grid_bits), tgt_pos, 1, 6)
+        return src_refl[torch.where(has, eidx, nidx[:, 0]).long()].to(torch.int32)
+
+    def entries(kname, args):
+        """(kernel call, plain call) of one kept call."""
+        if kname == "bg_dilate":
+            return (lambda: padding.dilate_fill(*args),
+                    lambda: padding.dilate_fill_plain(*args))
+        if kname == "bg_relax":
+            return (lambda: padding.harmonic_fill(*args),
+                    lambda: padding.harmonic_fill_plain(*args))
+        if kname == "push_levels":
+            return (lambda: padding.push_levels(*args), lambda: padding.push_levels_plain(*args))
+        if kname == "attr_paint_scalar":
+            return (lambda: pipeline.paint_scalar(*args),
+                    lambda: pipeline.paint_scalar_plain(*args))
+        return (lambda: pipeline.gather_decoded_scalar(*args),
+                lambda: pipeline.gather_decoded_scalar_plain(*args))
+
+    def check(kname, k_fn, p_fn, b_args, extra="", reps_k=20, reps_p=3):
+        got, want = k_fn(), p_fn()
+        torch.cuda.synchronize()
+        if kname == "bg_dilate":
+            if got[1] != want[1]:
+                raise AssertionError(f"bg_dilate: {got[1]} passes, plain {want[1]}")
+            extra += f", {got[1]} passes"
+            got, want = got[0], want[0]
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{kname}: kernel differs from its plain version "
+                                 f"(max abs err {err})")
+        (k1, k2), (p1, p2) = time_turns(k_fn, p_fn, reps_k=reps_k, reps_p=reps_p)
+        b_ms, b_by = bounds(kname, b_args, got)
+        print(f"{kname}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}){extra}")
+        return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err, library_ms=None)
+
+    rows, launches = {}, {}
+    for name, rc in ref["configs"].items():
+        cfg = VPCCConfig()
+        for k, v in rc["overrides"].items():
+            setattr(cfg, k, v)
+        fr = frames[:len(rc["seeds"])]
+        n = len(fr)
+        with_refl = "source_refl_md5" in rc["frames"][0]
+        if with_refl:
+            fr = [PointCloudData(f.positions, f.colors,
+                                 reflectances=reflectance_field(f.positions, s))
+                  for f, s in zip(fr, rc["seeds"])]
+        bad = [f"frame {i}" for i, (f, r) in enumerate(zip(fr, rc["frames"]))
+               if f.point_count != r["source_points"] or
+               (with_refl and md5(f.reflectances, "<u2") != r["source_refl_md5"])]
+        if bad:
+            raise AssertionError(f"attribute options {name}: the frames (or their seeded "
+                                 f"reflectance) differ from the JAX package's: {bad}")
+
+        # 37. warm-up, keeping the new entries' largest calls, and with
+        # reflectance kernels I and A's calls on the reflectance planes
+        wrappers = {"bg_dilate": (padding, "dilate_fill"),
+                    "bg_relax": (padding, "harmonic_fill"),
+                    "push_levels": (padding, "push_levels"),
+                    "attr_paint_scalar": (pipeline, "paint_scalar"),
+                    "attr_gather_scalar": (pipeline, "gather_decoded_scalar")}
+        wanted = ATTR_OPTIONS_KERNELS[name]
+        wrappers = {k: v for k, v in wrappers.items() if k in wanted}
+        refl_calls = {}
+        real_enc, real_dec = codecs.encode_reflectance, codecs.decode_reflectance
+
+        def enc_spy(*a, **kw):
+            with Capture({"wavefront_encode32": (hevc, "wavefront_encode32")}) as c:
+                out = real_enc(*a, **kw)
+            refl_calls.update(c.calls)
+            return out
+
+        def dec_spy(*a, **kw):
+            with Capture({"wavefront_decode32": (hevc, "wavefront_decode32")}) as c:
+                out = real_dec(*a, **kw)
+            refl_calls.update(c.calls)
+            return out
+
+        codecs.encode_reflectance, codecs.decode_reflectance = enc_spy, dec_spy
+        t0 = time.perf_counter()
+        try:
+            with Capture(wrappers) as cap:
+                _, stream0, recon0 = encode_driven(cfg, fr)
+                torch.cuda.synchronize()
+            t_cold = (time.perf_counter() - t0) / n
+            if with_refl:
+                decode_checked(dev, stream0, recon0, f"attribute options {name} (warm-up)")
+        finally:
+            codecs.encode_reflectance, codecs.decode_reflectance = real_enc, real_dec
+        print(f"attribute options {name} cold encode: {t_cold:.4f} s/frame")
+        missing = sorted(set(wrappers) - set(cap.calls))
+        if missing:
+            raise AssertionError(f"attribute options {name}: never called: {missing}")
+
+        # 38. each new entry == its plain version, timed in turns
+        for kname in wanted if name != "refl_lossless" else ():   # held under "refl"
+            _, args, _ = cap.calls[kname]
+            k_fn, p_fn = entries(kname, args)
+            extra = ""
+            if kname in ("bg_dilate", "bg_relax", "push_levels"):
+                extra = f", planes {tuple(args[0].shape)}"
+            elif kname == "attr_paint_scalar":
+                extra = f", rows {args[2].shape[0]}, max sample {int(args[2].max())}"
+            rows[kname] = check(kname, k_fn, p_fn, args, extra)
+        if name == "refl":
+            t_put, t_get = scalar_library_ms(cap.calls["attr_paint_scalar"][1],
+                                             cap.calls["attr_gather_scalar"][1])
+            rows["attr_paint_scalar"]["library_ms"] = t_put
+            rows["attr_gather_scalar"]["library_ms"] = t_get
+        if name == "bgfill2":
+            # smooth_fill (no caller): L's push and W's pull and relaxation
+            planes, occ = cap.calls["bg_relax"][1][:2]
+            check("smooth_fill", lambda: padding.smooth_fill(planes, occ),
+                  lambda: padding.smooth_fill_plain(planes, occ),
+                  (planes, occ), f", planes {tuple(planes.shape)} (no caller; kernels L, W)")
+        if name == "refl":
+            for kname, plain in (("wavefront_encode32", hevc.wavefront_encode32_plain),
+                                 ("wavefront_decode32", hevc.wavefront_decode32_plain)):
+                _, args, _ = refl_calls[kname]
+                kern = getattr(hevc, kname)
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                err = max_abs_err(tuple(got), tuple(want)) if isinstance(got, tuple) \
+                    else max_abs_err(got, want)
+                if err != 0:
+                    raise AssertionError(f"{kname} on the reflectance planes: kernel differs "
+                                         f"from its plain version (max abs err {err})")
+                maxv = args[-3] if kname == "wavefront_encode32" else args[8]
+                if set(maxv.tolist()) != {1023}:
+                    raise AssertionError(f"{kname}: the kept call is not a reflectance plane")
+                print(f"{kname} on the reflectance planes: exact (max abs err {err}); maxval "
+                      f"{sorted(set(maxv.tolist()))}, tiles {tuple(args[0].shape)}")
+        # 39. the main path, counted and timed; the spies keep each frame's
+        # transferred reflectance, coded images and dilation passes
+        seen = {"refl": [], "images": [], "passes": [], "tgt": []}
+        real_tr, real_attr = recolor.transfer_reflectance, codecs.AttributeSubstreamEncoder.encode
+        real_dil = padding.dilate_fill
+
+        def tr_spy(src_pos, src_refl, tgt_pos, *a, **kw):
+            out = real_tr(src_pos, src_refl, tgt_pos, *a, **kw)
+            seen["refl"].append(md5(host(out), "<i4"))
+            seen["tgt"].append((src_pos, src_refl, tgt_pos))
+            return out
+
+        def attr_spy(self, img, *a, **kw):
+            seen["images"].append(md5(host(img), "<i4"))
+            return real_attr(self, img, *a, **kw)
+
+        def dil_spy(*a, **kw):
+            out = real_dil(*a, **kw)
+            seen["passes"].append(out[1])
+            return out
+
+        recolor.transfer_reflectance, codecs.AttributeSubstreamEncoder.encode = tr_spy, attr_spy
+        padding.dilate_fill = dil_spy
+        try:
+            dev.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc, stream, recon = encode_driven(cfg, fr)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counted = {k: v for k, v in dev.LAUNCHES.items() if v}
+        finally:
+            recolor.transfer_reflectance, codecs.AttributeSubstreamEncoder.encode = \
+                real_tr, real_attr
+            padding.dilate_fill = real_dil
+        split = {f: sum(getattr(st, f) for st in enc.stats) / n
+                 for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s",
+                           "video_s", "reconstruct_s", "recolor_s")}
+        print(f"attribute options {name} warm encode: {dt / n:.4f} s/frame (JAX partitions; "
+              f"JAX on a CPU {rc['jax_cpu_encode_s'] / n:.4f}); per frame "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        print(f"attribute options {name} launches on the encode path: {counted}")
+        if seen["passes"]:
+            print(f"attribute options {name}: dilation passes per image stack (T0 and T1, "
+                  f"3 channels each) {seen['passes']}")
+        idle = [k for k in wanted if counted.get(k, 0) == 0]
+        if idle:
+            raise AssertionError(f"attribute options {name}: not launched on the encode path: "
+                                 f"{idle}")
+        if name != "refl_lossless":
+            launches.update({k: counted[k] for k in wanted})
+        if name == "refl":
+            src_pos, src_refl, tgt_pos = seen["tgt"][-1]
+            check("transfer_reflectance",
+                  lambda: recolor.transfer_reflectance(src_pos, src_refl, tgt_pos, 10),
+                  lambda: plain_transfer(src_pos, src_refl, tgt_pos, 10),
+                  (src_pos, src_refl, tgt_pos),
+                  f", {tgt_pos.shape[0]} targets, {src_pos.shape[0]} sources (kernels M, E)")
+
+        # 40. the stream, the stages and the decode against JAX's
+        same = hashlib.md5(stream).hexdigest() == rc["stream_md5"]
+        print(f"attribute options {name} stream {len(stream)} vs {rc['stream_bytes']} bytes, "
+              f"byte-identical to the JAX encoder's: {same}")
+        if not same or enc.last_stream_stats != rc["stream_stats"]:
+            raise AssertionError(f"attribute options {name}: the stream differs from the JAX "
+                                 f"encoder's ({enc.last_stream_stats} vs {rc['stream_stats']})")
+        bad = []
+        for i, r in enumerate(rc["frames"]):
+            got = dict(patches=len(enc.last_encoded[i].patches),
+                       t0_md5=seen["images"][2 * i], t1_md5=seen["images"][2 * i + 1],
+                       recon_points=recon[i].point_count,
+                       recon_md5=frame_digest(recon[i].positions, recon[i].colors))
+            if with_refl:
+                got.update(refl_md5=seen["refl"][i],
+                           recon_refl_md5=md5(recon[i].reflectances, "<u2"))
+            bad += [f"frame {i} {k} {v} (JAX {r[k]})" for k, v in got.items() if v != r[k]]
+        if bad:
+            raise AssertionError(f"attribute options {name}: differs from the JAX package: {bad}")
+        print(f"attribute options {name} against the JAX package: patches, T0/T1 images, "
+              + ("transferred reflectances, " if with_refl else "")
+              + "reconstructions: all equal")
+        dec, t_dec, _ = decode_checked(dev, stream, recon, f"attribute options {name}")
+        if with_refl:
+            for i, (a, b) in enumerate(zip(dec, recon)):
+                if a.reflectances is None or not np.array_equal(a.reflectances, b.reflectances):
+                    raise AssertionError(f"attribute options {name} frame {i}: the decoded "
+                                         "reflectances differ from the encoder's")
+        print(f"attribute options {name} decode: {t_dec:.4f} s/frame (JAX on a CPU "
+              f"{rc['jax_cpu_decode_s'] / n:.4f}); equal to the encoder's reconstruction"
+              + (", reflectances included" if with_refl else ""))
+        if name == "refl":
+            for i, (f, r, rr) in enumerate(zip(fr, recon, rc["frames"])):
+                m = compute_metrics(np.asarray(f.positions, np.int32), f.colors,
+                                    np.asarray(r.positions, np.int32), r.colors,
+                                    resolution=cfg.resolution, grid_bits=cfg.geometryBitDepth3D,
+                                    src_refl=f.reflectances, rec_refl=r.reflectances,
+                                    device="cuda")
+                delta = abs(m.reflectance_psnr - rr["reflectance_psnr"])
+                print(f"attribute options refl frame {i}: reflectance PSNR "
+                      f"{m.reflectance_psnr:.6f} dB (JAX {rr['reflectance_psnr']:.6f})")
+                if not delta <= METRICS_PSNR_TOL_DB:
+                    raise AssertionError(f"refl frame {i}: reflectance PSNR off JAX's by {delta}")
+        ub = unit_bytes(stream)
+        print(f"attribute options {name} bytes per substream (port/JAX): "
+              + ", ".join(f"{k} {ub.get(k)}/{v}" for k, v in rc["unit_bytes"].items()))
+    return rows, launches
+
+
+def scalar_library_ms(paint_args, gather_args):
+    """(index_put_ ms, advanced indexing ms): one PyTorch call each for what
+    kernel P's scalar paint and gather compute (timed here, used nowhere in
+    the port)."""
+    pix, layer, val, h, w = paint_args
+    keep = (layer == 0) | (layer == 1)
+    flat = (layer[keep].long() * h + pix[keep, 1].long()) * w + pix[keep, 0].long()
+    vals = val[keep]
+    img = torch.zeros(2 * h * w, dtype=torch.int32, device=val.device)
+    gpix, glayer, a0, a1 = gather_args
+    stacked = torch.stack([a0, a1])
+    gl = (glayer == 1).long()
+    gy, gx = gpix[:, 1].long(), gpix[:, 0].long()
+    t_put = time_ms(lambda: img.index_put_((flat,), vals), 20)
+    t_get = time_ms(lambda: stacked[gl, gy, gx], 20)
+    print(f"scalar library: index_put_ {t_put:.4f} ms, advanced indexing {t_get:.4f} ms")
+    return t_put, t_get
+
+
 def attr_library_ms(paint_args, gather_args) -> float:
     """One PyTorch call each for what kernel P's paint and gather compute:
     `index_put_` of the colors into the stacked layer images, and advanced
@@ -2241,6 +2619,7 @@ def main() -> int:
     vox_rows, vox_launches = vox11_phase(dev)
     ll_rows, ll_launches = lossless_phase(dev, frames)
     tools_rows, tools_launches = tools_phase(dev, frames)
+    ao_rows, ao_launches = attr_options_phase(dev, frames)
     rows.update(front_rows)
     rows.update(geo_rows)
     rows.update(enc_rows)
@@ -2248,6 +2627,7 @@ def main() -> int:
     rows.update(vox_rows)
     rows.update(ll_rows)
     rows.update(tools_rows)
+    rows.update(ao_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
@@ -2255,7 +2635,7 @@ def main() -> int:
                 **{k: met_launches[k] for k in METRICS_KERNELS},
                 **{k: vox_launches[c] for k, c in VOX11_ROWS.items()},
                 **{k: ll_launches[k] for k in LOSSLESS_KERNELS},
-                **tools_launches}
+                **tools_launches, **ao_launches}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

@@ -669,3 +669,83 @@ def test_plr_kernel(cuda, case):
     for a, b in zip(rows, reconstruct.generate_points_plain(
             args[3], args[0], args[0], args[4], t(ptable), res, eom=code, eom_bits=3)):
         _same(a, b)
+
+
+def _fill_case(case: str, cuda):
+    """(C, H, W) int32 planes of 0..255 and an (H, W) uint8 occupancy."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    shapes = {"random": (3, 96, 128), "odd": (2, 48, 80), "edge_top": (1, 64, 64),
+              "edge_corner": (2, 40, 80), "empty": (2, 32, 64), "full": (1, 32, 32),
+              "atlas": (6, 1280, 1280)}
+    C, H, W = shapes[case]
+    occ = np.zeros((H, W), np.uint8)
+    if case in ("random", "atlas"):
+        occ = (rng.random((H, W)) < 0.3).astype(np.uint8)
+        if case == "atlas":
+            occ[900:] = 0            # a wide empty band: a few hundred dilation passes
+    elif case == "odd":
+        occ[5:20, 10:30] = 1
+        occ[30:44, 60:78] = rng.random((14, 18)) < 0.7
+    elif case == "edge_top":
+        occ[0, 5] = 1                # the stencils wrap around the top row
+    elif case == "edge_corner":
+        occ[H - 1, W - 1] = occ[0, 0] = 1
+    elif case == "full":
+        occ[:] = 1
+    planes = rng.integers(0, 256, (C, H, W)).astype(np.int32)
+    return (torch.as_tensor(planes, device=cuda), torch.as_tensor(occ, device=cuda))
+
+
+@pytest.mark.parametrize("case", ["random", "odd", "edge_top", "edge_corner", "empty", "full",
+                                  "atlas"])
+def test_bg_fill_kernel(cuda, case):
+    """Kernel W (dilation, harmonic and smoothed fills, the fill_rgb modes)
+    and kernel L's push over a stack against their plain versions."""
+    planes, occ = _fill_case(case, cuda)
+    before = dev.LAUNCHES["bg_dilate"]
+    x_k, n_k = padding.dilate_fill(planes, occ)
+    x_p, n_p = padding.dilate_fill_plain(planes, occ)
+    assert dev.LAUNCHES["bg_dilate"] > before
+    _same(x_k, x_p)
+    assert n_k == n_p
+    for min_side in (1, 2):
+        vk, wk = padding.push_levels(planes, occ, min_side)
+        vp, wp = padding.push_levels_plain(planes, occ, min_side)
+        assert len(vk) == len(vp)
+        for a, b in zip(vk + wk, vp + wp):
+            _same(a, b)
+    h_p = padding.harmonic_fill_plain(planes, occ)
+    _same(padding.harmonic_fill(planes, occ), h_p)
+    _same(padding.smooth_fill(planes, occ), padding.smooth_fill_plain(planes, occ))
+    want = {0: padding.round_clip_plain(x_p), 2: padding.round_clip_plain(h_p),
+            1: torch.stack([padding.push_pull_round_plain(p, occ) for p in planes])}
+    for mode, w in want.items():
+        _same(padding.fill_rgb(planes, occ, mode), w)
+
+
+@pytest.mark.parametrize("limit", [7, 40])
+def test_bg_dilate_pass_limit_kernel(cuda, limit):
+    """A limit below the passes the plane needs, inside and across the
+    kernel's batches of passes: the same pixels stay empty."""
+    planes, occ = _fill_case("edge_top", cuda)
+    x_k, n_k = padding.dilate_fill(planes, occ, limit)
+    x_p, n_p = padding.dilate_fill_plain(planes, occ, limit)
+    _same(x_k, x_p)
+    assert n_k == n_p == limit
+
+
+def test_attr_scalar_kernel(cuda):
+    """Kernel P's scalar paint (duplicates: the highest row wins; tag 2
+    never paints; samples above 255 kept) and gather."""
+    rng = np.random.default_rng(71)
+    H, W, n = 96, 128, 9000
+    flat = rng.integers(0, H * W, n)
+    pix = torch.as_tensor(np.stack([flat % W, flat // W], 1).astype(np.int32), device=cuda)
+    layer = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32), device=cuda)
+    val = torch.as_tensor(rng.integers(0, 65536, n).astype(np.int32), device=cuda)
+    got = pipeline.paint_scalar(pix, layer, val, H, W)
+    _same(got, pipeline.paint_scalar_plain(pix, layer, val, H, W))
+    assert int(got.max()) > 255
+    img0, img1 = got[0].contiguous(), got[1].contiguous()
+    _same(pipeline.gather_decoded_scalar(pix, layer, img0, img1),
+          pipeline.gather_decoded_scalar_plain(pix, layer, img0, img1))

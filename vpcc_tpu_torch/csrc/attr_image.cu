@@ -1,9 +1,9 @@
 // Kernel P: the attribute images of the reconstructed points.
 //
 // Replaces the XLA programs vpcc_tpu/pipeline.py `paint_attribute`
-// (pipeline.py:209) and `gather_decoded_colors` (:227), and
-// vpcc_tpu/ops/padding.py `group_dilate` (padding.py:149).  Three entry
-// points:
+// (pipeline.py:209), `gather_decoded_colors` (:227), `paint_scalar` (:252)
+// and `gather_decoded_scalar` (:270), and vpcc_tpu/ops/padding.py
+// `group_dilate` (padding.py:149).  Five entry points:
 // * attr_paint: the colors of the layer-0 / layer-1 points into two layer
 //   images, planar int32 (2, 3, H, W) so that kernel L fills each channel
 //   plane directly.  Pass 1, one thread per point: atomicMax of the row
@@ -17,6 +17,10 @@
 // * attr_gather: one thread per point, its decoded color from the (H, W, 3)
 //   uint8 image of its layer (layer 1 reads image 1, any other tag image 0),
 //   the pixel clamped into the image as XLA's gather clamps it.
+// * attr_paint_scalar / attr_gather_scalar: the same for one int32 sample
+//   per point (the 16-bit reflectance): paint's winner pass, then a pixel
+//   pass copying the winners' samples into (2, H, W) int32 unclamped; the
+//   gather from two (H, W) int32 images.
 //
 // Bound: bytes.  Paint reads the points and writes 2 x 3 planes (plus the
 // winner planes); dilation reads 2 x 3 planes and the occupancy and writes
@@ -80,6 +84,26 @@ __global__ void gather_kernel(const int32_t* pix, const int32_t* layer,
   out[3 * i + 2] = a[o + 2];
 }
 
+__global__ void paint_pixels_scalar(const int32_t* val, const int32_t* win, int64_t hw,
+                                    int32_t* out) {
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= hw) return;
+  const int w0 = win[p], w1 = win[hw + p];
+  const int v0 = w0 >= 0 ? val[w0] : 0;
+  out[p] = v0;
+  out[hw + p] = w1 >= 0 ? val[w1] : v0;
+}
+
+__global__ void gather_scalar_kernel(const int32_t* pix, const int32_t* layer,
+                                     const int32_t* a0, const int32_t* a1, int n, int H,
+                                     int W, int32_t* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int x = min(max(pix[2 * i], 0), W - 1), y = min(max(pix[2 * i + 1], 0), H - 1);
+  const int64_t o = static_cast<int64_t>(y) * W + x;
+  out[i] = layer[i] == 1 ? a1[o] : a0[o];
+}
+
 inline unsigned blocks_for(int64_t n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
@@ -120,5 +144,34 @@ extern "C" int attr_gather(const int32_t* pix, const int32_t* layer, const uint8
   if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   gather_kernel<<<blocks_for(n, 256), 256, 0, st>>>(pix, layer, a0, a1, n, H, W, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// val (n,) int32; win (2, H, W) int32 filled with -1 by the caller; out
+// (2, H, W) int32.
+extern "C" int attr_paint_scalar(const int32_t* pix, const int32_t* layer, const int32_t* val,
+                                 int n, int H, int W, int32_t* win, int32_t* out,
+                                 void* stream, int* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  *launched = 0;
+  if (n > 0) {
+    paint_winners<<<blocks_for(n, threads), threads, 0, st>>>(pix, layer, n, H, W, win);
+    ++*launched;
+  }
+  const int64_t hw = static_cast<int64_t>(H) * W;
+  if (hw > 0) {
+    paint_pixels_scalar<<<blocks_for(hw, threads), threads, 0, st>>>(val, win, hw, out);
+    ++*launched;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int attr_gather_scalar(const int32_t* pix, const int32_t* layer, const int32_t* a0,
+                                  const int32_t* a1, int n, int H, int W, int32_t* out,
+                                  void* stream) {
+  if (n == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gather_scalar_kernel<<<blocks_for(n, 256), 256, 0, st>>>(pix, layer, a0, a1, n, H, W, out);
   return static_cast<int>(cudaGetLastError());
 }

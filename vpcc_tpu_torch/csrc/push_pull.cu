@@ -1,9 +1,14 @@
-// Kernel L: push-pull background fill of one video plane, rounded to int32.
+// Kernel L: push-pull background fill of one video plane, rounded to int32,
+// and the push alone over a stack of planes.
 //
 // Replaces the XLA program vpcc_tpu/ops/padding.py `push_pull_fill`
 // (padding.py:23) as vpcc_tpu/video/hevc.py `_round_int_plane` (hevc.py:1380)
 // runs it on every geometry plane: unoccupied pixels take a mip-pyramid
 // interpolation of the occupied ones, then the plane is rounded half to even.
+// The second entry, `push_levels`, builds the value and weight pyramids of
+// `harmonic_fill` (padding.py:109, levels while both sides exceed 2) and of
+// `smooth_fill`'s push-pull (:58, sides above 1) for a (C, H, W) stack under
+// one occupancy; kernel W (bg_fill.cu) pulls them.
 //
 // Design.  One launch per pyramid level.  Push (levels 1..L): each thread
 // makes one coarse pixel's value and weight sums from its 2x2 children in
@@ -14,6 +19,10 @@
 // level-0 pull writes the result: the image where occupied, else the fill,
 // rounded half to even (rintf) to int32.  Float operations are single IEEE
 // roundings (built with --fmad=false), as the plain version computes them.
+//
+// push_levels: one launch per level, a thread per (coarse pixel, plane) in
+// the same reduce order; the plane-0 threads also write the weight sums, which
+// the stack shares.
 //
 // Bound: bytes.  The level-0 passes read the image and occupancy and write
 // the output; the coarser levels add a third as much again.  At 1280 x 1280
@@ -87,6 +96,42 @@ __global__ void pull_level0(const int32_t* img, const uint8_t* occ,
   out[i] = static_cast<int32_t>(rintf(r));
 }
 
+__global__ void push_stack0(const int32_t* img, const uint8_t* occ, float* v1, float* w1,
+                            int H, int W) {
+  const int h = H / 2, w = W / 2;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= h * w) return;
+  const int c = blockIdx.y;
+  const int32_t* im = img + static_cast<size_t>(c) * H * W;
+  const int y = 2 * (i / w), x = 2 * (i % w);
+  float a[4], b[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int p = (y + (k >> 1)) * W + x + (k & 1);
+    const float o = static_cast<float>(occ[p]);
+    a[k] = __fmul_rn(static_cast<float>(im[p]), o);
+    b[k] = o;
+  }
+  v1[static_cast<size_t>(c) * h * w + i] =
+      __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), a[2]), a[3]);
+  if (c == 0) w1[i] = __fadd_rn(__fadd_rn(__fadd_rn(b[0], b[1]), b[2]), b[3]);
+}
+
+__global__ void push_stack(const float* v0, const float* w0, float* v1, float* w1, int H,
+                           int W) {
+  const int h = H / 2, w = W / 2;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= h * w) return;
+  const int c = blockIdx.y;
+  const int y = 2 * (i / w), x = 2 * (i % w);
+  const int p = y * W + x;
+  const float* v = v0 + static_cast<size_t>(c) * H * W;
+  v1[static_cast<size_t>(c) * h * w + i] =
+      __fadd_rn(__fadd_rn(__fadd_rn(v[p], v[p + 1]), v[p + W]), v[p + W + 1]);
+  if (c == 0)
+    w1[i] = __fadd_rn(__fadd_rn(__fadd_rn(w0[p], w0[p + 1]), w0[p + W]), w0[p + W + 1]);
+}
+
 inline unsigned blocks_for(long long n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
@@ -143,5 +188,39 @@ extern "C" int push_pull(const int32_t* img, const uint8_t* occ, float* scratch,
   pull_level0<<<blocks_for(static_cast<long long>(H) * W, T), T, 0, st>>>(
       img, occ, L >= 1 ? fil[1] : nullptr, out, H, W, L == 0);
   ++*launched;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// img: (C, H, W) int32; occ: (H, W) uint8.  Levels l = 1..L while both sides
+// of level l-1 are even and above min_side; vals receives (C, h_l, w_l) per
+// level and wts (h_l, w_l) per level, each level after the previous one
+// (vpcc_tpu_torch/ops/padding.py push_levels).
+extern "C" int push_levels(const int32_t* img, const uint8_t* occ, float* vals, float* wts,
+                           int C, int H, int W, int min_side, void* stream, int* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int T = 256;
+  *launched = 0;
+  int h = H, w = W;
+  const float* pv = nullptr;
+  const float* pw = nullptr;
+  int ph = H, pw_ = W;
+  while (h > min_side && w > min_side && h % 2 == 0 && w % 2 == 0) {
+    h /= 2;
+    w /= 2;
+    const long long n = static_cast<long long>(h) * w;
+    const dim3 grid(blocks_for(n, T), C);
+    if (pv == nullptr) {
+      push_stack0<<<grid, T, 0, st>>>(img, occ, vals, wts, ph, pw_);
+    } else {
+      push_stack<<<grid, T, 0, st>>>(pv, pw, vals, wts, ph, pw_);
+    }
+    ++*launched;
+    pv = vals;
+    pw = wts;
+    vals += static_cast<size_t>(C) * n;
+    wts += n;
+    ph = h;
+    pw_ = w;
+  }
   return static_cast<int>(cudaGetLastError());
 }

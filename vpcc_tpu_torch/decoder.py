@@ -15,8 +15,10 @@ the atlas tile or the RAW/EOM aux substreams — and the reconstruction tools
 a stream signals: PBF patch-border filtering (occupancy-synthesis SEI,
 kernel U), PLR (the ASPS's PLR fields: one geometry and one attribute map,
 kernel V's code plane through kernel C) and color smoothing
-(attribute-smoothing SEI, kernel T).  Other tools that are off by default
-raise NotImplementedError naming their ROADMAP item.
+(attribute-smoothing SEI, kernel T) — and the reflectance attribute (the
+AVD unit at map index REFL_MAP_INDEX: zlib or wavefront-coded 16-bit layers,
+gathered per point by kernel P's scalar entry).  Other tools that are off by
+default raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ from vpcc_tpu_torch.ops import plr
 from vpcc_tpu_torch.utils.config import VPCCConfig
 from vpcc_tpu_torch.utils.ply import PointCloudData
 from vpcc_tpu_torch.video import aux_video, codecs
-
-REFL_MAP_INDEX = 8   # reflectance attribute map index (vpcc_tpu codecs)
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -101,6 +101,7 @@ class Decoder:
         tiles: List[v3c.AtlasTileLayer] = []
         occ_sub = eom_sub = None
         raw_geo_sub = raw_attr_sub = None   # RAW/EOM aux substreams
+        refl_sub = None                     # the reflectance attribute
         geo_subs = {}
         attr_subs = {}
         for utype, payload in units:
@@ -132,8 +133,8 @@ class Decoder:
                 s = v3c.VideoSubstream.read(br)
                 if s.map_index == aux_video.AUX_MAP_INDEX:
                     raw_attr_sub = s
-                elif s.map_index == REFL_MAP_INDEX:
-                    raise _unsupported("the reflectance attribute")
+                elif s.map_index == codecs.REFL_MAP_INDEX:
+                    refl_sub = s
                 else:
                     attr_subs[s.map_index] = s
         assert vps is not None and occ_sub is not None
@@ -250,6 +251,10 @@ class Decoder:
                 col_d = pipeline.inject_eom_colors(
                     recon.layer, col_d, torch.as_tensor(aux_eom_cols, device=d))
             col_d = pipeline.apply_color_smoothing_device(recon, col_d, cfg)
+            refl_d = None
+            if refl_sub is not None and refl_sub.frames[fi]:
+                r0d, r1d = codecs.decode_reflectance(refl_sub.frames[fi], d)
+                refl_d = pipeline.gather_decoded_scalar(recon.pix, recon.layer, r0d, r1d)
             # the raw points follow the reconstruction (reference
             # decoder.py:257-272): from the aux substreams, else the tile
             raw = None
@@ -261,11 +266,11 @@ class Decoder:
                 raw = (raw_pos, raw_cols)
             # duplicate removal (reference PCCPointSet.h:484, first instance
             # kept) runs on the device before the download
-            pos, col = pipeline.download_recon(
+            pos, col, refl = pipeline.download_recon(
                 recon, col_d, vps.geometry_3d_bitdepth,
-                remove_duplicates=bool(cfg.removeDuplicatePoints), raw=raw,
+                remove_duplicates=bool(cfg.removeDuplicatePoints), raw=raw, refl=refl_d,
             )
-            pc = PointCloudData(pos, col)
+            pc = PointCloudData(pos, col, reflectances=refl)
             self.frame_info.append(
                 dict(patch_count=len(patches), width=width, height=height)
             )

@@ -74,13 +74,17 @@ KERNELS: Dict[str, list] = {
     "color_smooth": ["--fmad=false"],
     "pbf": ["--fmad=false"],
     "plr": [],
+    "bg_fill": ["--fmad=false"],
 }
 
 # entries of a kernel's library counted apart from it: the unpacked-table
 # k-NN of kernel E (grids above 10 bits), kernel C with EOM layers and with
-# PLR layers, kernel R's float32 D1 sum and kernel V's RDO
+# PLR layers, kernel R's float32 D1 sum, kernel V's RDO, kernel L's push over
+# a stack, kernel W's dilation and its pull/relaxation, and kernel P's scalar
+# paint and gather
 ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "metrics_d2_f32",
-           "plr_rdo")
+           "plr_rdo", "push_levels", "bg_dilate", "bg_relax", "attr_paint_scalar",
+           "attr_gather_scalar")
 LAUNCHES: Dict[str, int] = {k: 0 for k in (*KERNELS, *ENTRIES)}
 # ptxas resource lines of each build (registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}

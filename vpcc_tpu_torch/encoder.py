@@ -16,10 +16,16 @@ frame:
 * recolor (exact match, forward blend, backward splat: kernel M over
   kernel E's sweeps; above 10 bits the exact match runs on the host and
   the sweeps cover every point) and color pre-smoothing (kernel N);
-* the attribute video: paint the two layers (kernel P), push-pull fill
-  (kernel L), group dilation (kernel P), T0/T1 through the attribute
-  substream encoders (kernels J, B, I, O, K), then the encoder-side colors
-  gathered from the decoded layers (kernel P);
+* the attribute video: paint the two layers (kernel P), the background
+  fill of attributeBGFill (push-pull, kernel L; sparse dilation, kernel W;
+  harmonic fill, kernels L and W), group dilation (kernel P), T0/T1 through
+  the attribute substream encoders (kernels J, B, I, O, K), then the
+  encoder-side colors gathered from the decoded layers (kernel P);
+* with a reflectance attribute in the frame: the source reflectance
+  transferred to the reconstructed points (kernel M's exact match, kernel
+  E's nearest source), painted into two 16-bit layers (kernel P's scalar
+  entries), coded intra (zlib when lossless, else 10-bit planes through
+  kernels L, I, O, K) and gathered back per point;
 then `_mux_gof` writes the V3C sample stream on the host, over the GOF's
 hierarchical coding structure.
 
@@ -160,6 +166,7 @@ class EncodedFrame:
     raw_positions: Optional[np.ndarray] = None  # (R, 3) int32 raw-points patch
     raw_colors: Optional[np.ndarray] = None     # (R, 3) uint8
     eom_colors: Optional[np.ndarray] = None     # (M, 3) uint8 aux EOM samples
+    reflectance_payload: Optional[bytes] = None  # the reflectance layers' frame
 
     @property
     def stats(self) -> EncoderStats:
@@ -568,11 +575,10 @@ class Encoder:
         return bool(self.cfg.pointLocalReconstruction) and not self.cfg.enhancedOccupancyMapCode
 
     def _check_attribute_path(self, pc_host: PointCloudData) -> None:
-        cfg = self.cfg
-        if getattr(pc_host, "reflectances", None) is not None:
-            raise _unsupported("the reflectance attribute")
-        if int(cfg.attributeBGFill) != 1:
-            raise _unsupported(f"attributeBGFill={cfg.attributeBGFill} (dilate / harmonic fill)")
+        if pc_host.reflectances is not None and self.cfg.geometryBitDepth3D > 10:
+            raise NotImplementedError(
+                "the reflectance attribute above 10-bit geometry: the reference's "
+                "`exact_matches_device` asserts bits <= 10 (vpcc_tpu/ops/recolor.py:48)")
 
     def recolor(self, src_pos: torch.Tensor, src_colors, recon: Points) -> torch.Tensor:
         """(N, 3) int32 colors of the reconstructed points (reference
@@ -611,14 +617,16 @@ class Encoder:
                          height: int, width: int):
         """The (H, W, 3) int32 attribute images the video codes (reference
         encoder.py:736-755): paint the colors into both layers (kernel P),
-        push-pull fill every channel under the atlas occupancy (kernel L),
-        then group dilation (kernel P).  With PLR only T0 is coded: layer 0
-        alone is filled, and not dilated."""
+        fill every channel's background under the atlas occupancy by
+        attributeBGFill (`padding.fill_rgb`), then group dilation (kernel
+        P).  With PLR only T0 is coded: layer 0 alone is filled, and not
+        dilated."""
         occ = torch.as_tensor(np.ascontiguousarray(occupancy, np.uint8), device=self.device)
         planes = pipeline.paint_attribute(recon.pix, recon.layer, colors, height, width)
+        mode = int(self.cfg.attributeBGFill)
         if self.plr_on:
-            return (padding.fill_rgb(planes[:1], occ)[0].permute(1, 2, 0).contiguous(),)
-        planes = padding.fill_rgb(planes, occ)
+            return (padding.fill_rgb(planes[:1], occ, mode)[0].permute(1, 2, 0).contiguous(),)
+        planes = padding.fill_rgb(planes, occ, mode)
         if self.cfg.groupDilation:
             return pipeline.group_dilate(planes, occ)
         return tuple(p.permute(1, 2, 0).contiguous() for p in planes)
@@ -629,17 +637,19 @@ class Encoder:
                      temporal_refs: Optional[dict] = None,
                      qp_offset: int = 0,
                      qp_offset_geo: Optional[int] = None) -> EncodedFrame:
-        """The reference's `encode_frame` (encoder.py:442-846) without
-        reflectance: the geometry stages (`encode_frame_geometry`), the
-        raw-points patch (the source points whose coverage distance exceeds
+        """The reference's `encode_frame` (encoder.py:442-846): the geometry
+        stages (`encode_frame_geometry`), the raw-points patch (the source
+        points whose coverage distance exceeds
         maxAllowedDist2RawPointsSelection), recolor and pre-smoothing, the
         EOM rows' colors for the aux substream, the attribute images, T0 and
         T1 (T1 predicted from the decoded T0; T0 from
         `temporal_refs["attr"]` when given, None forcing intra; QP cascade
         `qp_offset`, uncapped; T0 alone with PLR), the decoded colors of the
         points (the EOM rows' from the aux samples), color smoothing (kernel
-        T) and the duplicate-free encoder-side reconstruction, raw points
-        appended before the duplicate removal."""
+        T), with a reflectance attribute its transfer, layers, payload and
+        decoded values (reference :779-803), and the duplicate-free
+        encoder-side reconstruction, raw points appended before the
+        duplicate removal (their reflectance 0)."""
         cfg = self.cfg
         self._check_attribute_path(pc_host)
         if qp_offset_geo is None:
@@ -692,18 +702,30 @@ class Encoder:
             col_dec = pipeline.inject_eom_colors(
                 g.recon.layer, col_dec, torch.as_tensor(eom_colors, device=self.device))
         col_dec = pipeline.apply_color_smoothing_device(g.recon, col_dec, cfg)
+        refl_payload = refl_dec = None
+        if pc_host.reflectances is not None:
+            src_refl = torch.as_tensor(np.asarray(pc_host.reflectances).astype(np.int32),
+                                       device=self.device)
+            refl = recolor.transfer_reflectance(seg.positions, src_refl, g.recon.pos,
+                                                grid_bits=cfg.geometryBitDepth3D)
+            layers = pipeline.paint_scalar(g.recon.pix, g.recon.layer, refl, fr.height,
+                                           fr.width)
+            refl_payload, r0d, r1d = codecs.encode_reflectance(
+                layers[0], layers[1], fr.frame.occupancy, cfg, qp_offset=qp_offset)
+            refl_dec = pipeline.gather_decoded_scalar(g.recon.pix, g.recon.layer, r0d, r1d)
         raw = None
         if raw_positions is not None:
             raw = (raw_positions, raw_colors if raw_colors is not None
                    else np.zeros_like(raw_positions, np.uint8))
-        pos, col8 = pipeline.download_recon(g.recon, col_dec, cfg.geometryBitDepth3D,
-                                            remove_duplicates=bool(cfg.removeDuplicatePoints),
-                                            raw=raw)
+        pos, col8, rec_refl = pipeline.download_recon(
+            g.recon, col_dec, cfg.geometryBitDepth3D,
+            remove_duplicates=bool(cfg.removeDuplicatePoints), raw=raw, refl=refl_dec)
         st.video_s += time.perf_counter() - t
         st.total_s += t_seg + st.recolor_s + time.perf_counter() - t
         return EncodedFrame(fr.patches, fr.width, fr.height, g.occ_payload, g.geo_payloads,
-                            payloads, PointCloudData(pos, col8), g, streams["attr0"].refs,
-                            raw_positions, raw_colors, eom_colors)
+                            payloads, PointCloudData(pos, col8, reflectances=rec_refl), g,
+                            streams["attr0"].refs, raw_positions, raw_colors, eom_colors,
+                            refl_payload)
 
     def _gof_loop(self, frames, segs, attributes: bool):
         """The reference's `encode_gof` frame loop (encoder.py:959-1001):
@@ -765,15 +787,17 @@ class Encoder:
 
     def _mux_gof(self, encoded: List[EncodedFrame], frames, parent):
         """Assemble the V3C sample stream (reference `_mux_gof`,
-        encoder.py:1004-1261, one tile, no reflectance; one map with PLR):
+        encoder.py:1004-1261, one tile; one map with PLR):
         VPS, the atlas substream (ASPS with its PLR fields, AFPS, the prefix
         SEIs (geometry and attribute smoothing, occupancy synthesis), one atlas tile
         layer per frame with P-tiles predicting from the tree parent's
         patches, the raw points in the tile unless useRawPointsSeparateVideo),
         then the occupancy (map 1: the EOM planes), geometry and attribute
-        video substreams and, with useRawPointsSeparateVideo, the RAW/EOM
-        aux geometry and attribute substreams.  Fills `last_stream_stats`
-        and each frame's `compressed_bytes`."""
+        video substreams, the reflectance attribute's substream (map index
+        REFL_MAP_INDEX) when the frames carry one and, with
+        useRawPointsSeparateVideo, the RAW/EOM aux geometry and attribute
+        substreams.  Fills `last_stream_stats` and each frame's
+        `compressed_bytes`."""
         cfg = self.cfg
         width = max(e.width for e in encoded)
         height = max(e.height for e in encoded)
@@ -853,7 +877,8 @@ class Encoder:
         prefix_seis.append(v3c.SEIAtlasFrameTiming())
         prefix_seis.append(v3c.SEIRecoveryPoint(recovery_afoc=0))
         prefix_seis.append(v3c.SEIActiveSubBitstreams(
-            active_attributes=list(range(n_attr_maps)),
+            active_attributes=list(range(n_attr_maps))
+            + ([1] if encoded[0].reflectance_payload is not None else []),
             active_maps=list(range(n_geo_maps)),
             raw_points_active_flag=1 if cfg.rawPointsPatch else 0))
         rp = encoded[0].recon.positions
@@ -892,6 +917,11 @@ class Encoder:
                 bw = BitWriter()
                 v3c.VideoSubstream(unit_type, mi, plist).write(bw)
                 units.append((unit_type, bw.getvalue()))
+        if encoded[0].reflectance_payload is not None:
+            bw = BitWriter()
+            v3c.VideoSubstream(v3c.V3C_AVD, codecs.REFL_MAP_INDEX,
+                               [e.reflectance_payload or b"" for e in encoded]).write(bw)
+            units.append((v3c.V3C_AVD, bw.getvalue()))
         if cfg.useRawPointsSeparateVideo:
             for unit_type, plist in (
                 (v3c.V3C_GVD, [aux_video.pack_raw_geometry(e.raw_positions) for e in encoded]),

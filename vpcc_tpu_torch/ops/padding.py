@@ -1,35 +1,69 @@
-"""Occupancy-aware background fill of a video plane (push-pull).
+"""Occupancy-aware background fill of video planes (K13).
 
-The port of vpcc_tpu/ops/padding.py `push_pull_fill` as the geometry
-encoder uses it (`video/hevc.py _round_int_plane`): unoccupied pixels take
-a mip-pyramid interpolation of the occupied ones, so the block transform
-spends no bits on artificial edges; then the plane is rounded to int32.
+The port of vpcc_tpu/ops/padding.py: unoccupied pixels are filled with a
+smooth continuation of the occupied signal, so that the block transform
+spends no bits on artificial edges.  Four fills, each with a `*_plain`
+twin (the plain PyTorch version, used for tensors on the CPU):
 
-Push: level l+1 holds the 2x2 sums of level l's value (image * occupancy)
-and weight (occupancy) planes, while both sides stay even.  Pull: from the
-coarsest level down, a pixel with weight takes value / weight, one without
-takes its parent's fill.  The 2x2 sums run in the order the reference's
-XLA reduce uses, ((a + b) + c) + d over (0,0), (0,1), (1,0), (1,1); sums
-above 2^24 (coarse levels of large planes) round in that order.
+* push-pull (`push_pull_fill`, padding.py:23; kernel L): the geometry
+  planes (`video/hevc.py _round_int_plane`, rounded to int32) and the
+  attribute images under attributeBGFill=1.  Push: level l+1 holds the 2x2
+  sums of level l's value (image * occupancy) and weight (occupancy) planes,
+  while both sides stay even and above 1.  Pull: from the coarsest level
+  down, a pixel with weight takes value / weight, one without its parent's
+  fill;
+* sparse dilation (`dilate_fill`, :78; kernel W, attributeBGFill=0):
+  synchronous passes in which every empty pixel with a filled 4-neighbour
+  takes the rounded (half to even) average of its filled neighbours, until
+  the plane is full, a pass fills nothing (a fixed point) or 1024 passes
+  have run;
+* harmonic fill (`harmonic_fill`, :109; kernels L and W,
+  attributeBGFill=2): push-pull's pyramid stopping at sides of 2 (not 1),
+  pulled coarse to fine with 8 Jacobi steps per level, the pixels with
+  weight held at value / weight;
+* smoothed push-pull (`smooth_fill`, :58; kernels L and W; no caller in
+  either package): push-pull, then 4 Jacobi steps with the occupied pixels
+  held.
 
-Kernel L (`csrc/push_pull.cu`) runs one launch per push level and one per
-pull level; `push_pull_round_plain` is its plain version, used for tensors
-on the CPU.
+Every stencil wraps around the plane, as the reference's `jnp.roll`: the
+"up" neighbour of the top row is the bottom row.  The float order is the
+reference's XLA CPU program's (probed with crafted inputs,
+tests/test_torch_bg_fill.py): the 2x2 sums run ((a + b) + c) + d over
+(0,0), (0,1), (1,0), (1,1); the four stencil terms add as
+((up + down) + left) + right, each step of the relaxation scaled by 0.25;
+the averages are true divisions.  The 2x2 order holds at the 1280-wide
+atlases (and widths of 80 or 320); at power-of-two widths XLA's
+`push_pull_fill` program adds some levels pairwise, (a + b) + (c + d),
+which differs only where a level sum leaves float32's exact integers
+(ROADMAP §3).
+
+Kernel L (csrc/push_pull.cu) has two entries: the whole push-pull of one
+plane rounded to int32 (`push_pull_round`) and the push alone over a stack
+of planes sharing one occupancy (`push_levels`).  Kernel W
+(csrc/bg_fill.cu) runs the dilation passes, the pull and relaxation
+levels, and the final selection and rounding.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
 from vpcc_tpu_torch import device as dev
 
+DILATE_MAX_PASSES = 1024   # the reference's `max_iters`
+DILATE_BATCH = 16          # passes launched between two reads of the pass flags
+HARMONIC_SMOOTH = 8        # Jacobi steps per level (the reference's `n_smooth`)
+SMOOTH_ITERATIONS = 4      # Jacobi steps after the push-pull (`iterations`)
 
-def _levels(h: int, w: int):
-    """Pyramid level shapes, finest first (the reference's halving rule)."""
+
+def _levels(h: int, w: int, min_side: int = 1) -> List[Tuple[int, int]]:
+    """Pyramid level shapes, finest first: halve while both sides are even
+    and above `min_side` (1 for push-pull, 2 for the harmonic fill)."""
     out = [(h, w)]
-    while h > 1 and w > 1 and h % 2 == 0 and w % 2 == 0:
+    while h > min_side and w > min_side and h % 2 == 0 and w % 2 == 0:
         h //= 2
         w //= 2
         out.append((h, w))
@@ -37,24 +71,37 @@ def _levels(h: int, w: int):
 
 
 def _sum2x2(x: torch.Tensor) -> torch.Tensor:
-    h, w = x.shape
-    v = x.reshape(h // 2, 2, w // 2, 2)
-    return ((v[:, 0, :, 0] + v[:, 0, :, 1]) + v[:, 1, :, 0]) + v[:, 1, :, 1]
+    *lead, h, w = x.shape
+    v = x.reshape(*lead, h // 2, 2, w // 2, 2)
+    return (((v[..., :, 0, :, 0] + v[..., :, 0, :, 1]) + v[..., :, 1, :, 0])
+            + v[..., :, 1, :, 1])
 
+
+def _stencil_sum(x: torch.Tensor) -> torch.Tensor:
+    """((up + down) + left) + right with wraparound over the last two axes."""
+    return (((torch.roll(x, 1, -2) + torch.roll(x, -1, -2)) + torch.roll(x, 1, -1))
+            + torch.roll(x, -1, -1))
+
+
+def _up2(x: torch.Tensor) -> torch.Tensor:
+    return x.repeat_interleave(2, -2).repeat_interleave(2, -1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (any leading axes share the (H, W) occupancy)
 
 def push_pull_fill_plain(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tensor:
-    """(H, W) image (integer or float) and occupancy -> (H, W) float32:
+    """(..., H, W) image (integer or float) and (H, W) occupancy -> float32:
     occupied pixels keep their value, the others get the pull fill."""
     img = image.to(torch.float32)
     occ = occupancy.to(torch.float32)
     vals, wts = [img * occ], [occ]
-    for _ in _levels(*img.shape)[1:]:
+    for _ in _levels(*img.shape[-2:])[1:]:
         vals.append(_sum2x2(vals[-1]))
         wts.append(_sum2x2(wts[-1]))
     fill = vals[-1] / wts[-1].clamp(min=1.0)
     for lvl in range(len(vals) - 2, -1, -1):
-        up = fill.repeat_interleave(2, 0).repeat_interleave(2, 1)
-        fill = torch.where(wts[lvl] > 0, vals[lvl] / wts[lvl].clamp(min=1.0), up)
+        fill = torch.where(wts[lvl] > 0, vals[lvl] / wts[lvl].clamp(min=1.0), _up2(fill))
     return torch.where(occ > 0, img, fill)
 
 
@@ -63,14 +110,103 @@ def push_pull_round_plain(image: torch.Tensor, occupancy: torch.Tensor) -> torch
     return torch.round(push_pull_fill_plain(image, occupancy)).to(torch.int32)
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+def push_levels_plain(image: torch.Tensor, occupancy: torch.Tensor, min_side: int):
+    """The push alone: ([value sums of levels 1..L] (..., h, w) float32,
+    [weight sums of levels 1..L] (h, w) float32)."""
+    v = image.to(torch.float32) * occupancy.to(torch.float32)
+    w = occupancy.to(torch.float32)
+    vals, wts = [], []
+    for _ in _levels(*image.shape[-2:], min_side)[1:]:
+        v, w = _sum2x2(v), _sum2x2(w)
+        vals.append(v)
+        wts.append(w)
+    return vals, wts
+
+
+def dilate_fill_plain(image: torch.Tensor, occupancy: torch.Tensor,
+                      max_iters: int = DILATE_MAX_PASSES) -> Tuple[torch.Tensor, int]:
+    """Sparse dilation of (..., H, W) planes under one (H, W) occupancy:
+    (float32 planes, passes that filled a pixel).  The reference loops
+    while a pixel is empty; a pass that fills nothing leaves the state as
+    it is, so stopping there changes nothing."""
+    img = image.to(torch.float32)
+    occ = occupancy.to(torch.bool)
+    filled = occ.clone()
+    x = img * occ.to(torch.float32)
+    passes = 0
+    for _ in range(max_iters):
+        if bool(filled.all()):
+            break
+        f = filled.to(torch.float32)
+        wsum = _stencil_sum(f)
+        newly = ~filled & (wsum > 0)
+        if not bool(newly.any()):
+            break
+        avg = torch.round(_stencil_sum(x * f) / wsum.clamp(min=1.0))
+        x = torch.where(newly, avg, x)
+        filled = filled | newly
+        passes += 1
+    return torch.where(occ, img, x), passes
+
+
+def _relax_plain(x: torch.Tensor, hold: torch.Tensor, fixed: torch.Tensor, n: int):
+    for _ in range(n):
+        x = torch.where(hold, fixed, _stencil_sum(x) * 0.25)
+    return x
+
+
+def harmonic_fill_plain(image: torch.Tensor, occupancy: torch.Tensor,
+                        n_smooth: int = HARMONIC_SMOOTH) -> torch.Tensor:
+    """Cascadic harmonic fill of (..., H, W) planes under one (H, W)
+    occupancy -> float32."""
+    img = image.to(torch.float32)
+    occ = occupancy.to(torch.float32)
+    pv, pw = push_levels_plain(image, occupancy, 2)
+    vals, wts = [img * occ] + pv, [occ] + pw
+    fill = vals[-1] / wts[-1].clamp(min=1.0)
+    fill = _relax_plain(fill, wts[-1] > 0, fill, n_smooth)
+    for lvl in range(len(vals) - 2, -1, -1):
+        hold = wts[lvl] > 0
+        avg = vals[lvl] / wts[lvl].clamp(min=1.0)
+        fill = _relax_plain(torch.where(hold, avg, _up2(fill)), hold, avg, n_smooth)
+    return torch.where(occ > 0, img, fill)
+
+
+def smooth_fill_plain(image: torch.Tensor, occupancy: torch.Tensor,
+                      iterations: int = SMOOTH_ITERATIONS) -> torch.Tensor:
+    """Push-pull, then Jacobi steps with the occupied pixels held ->
+    float32 (..., H, W)."""
+    x = push_pull_fill_plain(image, occupancy)
+    return _relax_plain(x, occupancy.to(torch.bool), x, iterations)
+
+
+def round_clip_plain(filled: torch.Tensor, lo: int = 0, hi: int = 255) -> torch.Tensor:
+    """Round half to even, clip, int32 (the reference's `fill_rgb` tail)."""
+    return torch.round(filled).clamp(lo, hi).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel L
+
+_PP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+_PUSH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 
 
 def scratch_floats(h: int, w: int) -> int:
-    """float32 scratch kernel L needs: value, weight and fill planes of
-    every level."""
+    """float32 scratch kernel L's `push_pull` needs: value, weight and fill
+    planes of every level."""
     return sum(3 * a * b for a, b in _levels(h, w))
+
+
+def _check_planes(planes: torch.Tensor, occupancy: torch.Tensor, what: str):
+    d = planes.device
+    dev.check_tensor(planes, "planes", torch.int32, d)
+    dev.check_tensor(occupancy, "occupancy", torch.uint8, d, 2)
+    if planes.ndim < 2 or tuple(planes.shape[-2:]) != tuple(occupancy.shape):
+        raise ValueError(f"{what}: planes {tuple(planes.shape)}, occupancy "
+                         f"{tuple(occupancy.shape)}")
 
 
 def push_pull_round(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tensor:
@@ -87,7 +223,7 @@ def push_pull_round(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tenso
     scratch = torch.empty(scratch_floats(H, W), dtype=torch.float32, device=d)
     out = torch.empty_like(image)
     fn = dev.load_kernel("push_pull").push_pull
-    fn.argtypes, fn.restype = _ARGS, ctypes.c_int
+    fn.argtypes, fn.restype = _PP_ARGS, ctypes.c_int
     launched = ctypes.c_int(0)
     rc = fn(dev.ptr(image), dev.ptr(occupancy), dev.ptr(scratch), dev.ptr(out),
             H, W, dev.stream_handle(), ctypes.byref(launched))
@@ -96,13 +232,194 @@ def push_pull_round(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tenso
     return out
 
 
-def fill_rgb(planes: torch.Tensor, occupancy: torch.Tensor) -> torch.Tensor:
-    """Background fill mode 1 of attribute images (reference `fill_rgb`,
-    padding.py:176, through `fill_plane` to `push_pull_fill`): every (H, W)
-    int32 channel plane of `planes` (..., H, W) is push-pull filled under
-    the (H, W) uint8 occupancy and rounded half to even (kernel L, one
-    launch sequence per plane).  The reference then clamps to 0..255, which
-    changes nothing here: the fill averages integer channels of 0..255."""
+def push_levels(planes: torch.Tensor, occupancy: torch.Tensor, min_side: int):
+    """Kernel L's push entry: `push_levels_plain` of a (C, H, W) int32 stack
+    under one (H, W) uint8 occupancy (one launch per level; the weights
+    once for the stack)."""
+    if planes.device.type == "cpu":
+        return push_levels_plain(planes, occupancy, min_side)
+    _check_planes(planes, occupancy, "push_levels")
+    C, H, W = planes.shape
+    shapes = _levels(H, W, min_side)[1:]
+    n = [a * b for a, b in shapes]
+    vals = torch.empty(C * sum(n), dtype=torch.float32, device=planes.device)
+    wts = torch.empty(sum(n), dtype=torch.float32, device=planes.device)
+    fn = dev.load_kernel("push_pull").push_levels
+    fn.argtypes, fn.restype = _PUSH_ARGS, ctypes.c_int
+    launched = ctypes.c_int(0)
+    rc = fn(dev.ptr(planes), dev.ptr(occupancy), dev.ptr(vals), dev.ptr(wts), C, H, W,
+            min_side, dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("push_levels", launched.value)
+    dev.check_launch("push_levels", rc)
+    out_v, out_w, off = [], [], 0
+    for (a, b), k in zip(shapes, n):
+        out_v.append(vals[C * off:C * (off + k)].view(C, a, b))
+        out_w.append(wts[off:off + k].view(a, b))
+        off += k
+    return out_v, out_w
+
+
+# ---------------------------------------------------------------------------
+# kernel W
+
+_DILATE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+_PULL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_RELAX_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+_FINISH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+_NULL = ctypes.c_void_p(0)
+
+
+def _w(name: str, args):
+    fn = getattr(dev.load_kernel("bg_fill"), name)
+    fn.argtypes, fn.restype = args, ctypes.c_int
+    return fn
+
+
+def _finish(fill, planes, occupancy, out, counter: str, lo: int = 0, hi: int = 255):
+    """Kernel W: the occupied pixels take the image (float, in place), and
+    with `out` the planes are rounded half to even and clipped into it."""
+    C, H, W = fill.shape
+    rc = _w("bg_finish", _FINISH_ARGS)(
+        dev.ptr(fill), dev.ptr(planes), dev.ptr(occupancy),
+        _NULL if out is None else dev.ptr(out), C, H * W, lo, hi, dev.stream_handle())
+    dev.count_launch(counter, 1 if C * H * W else 0)
+    dev.check_launch(counter, rc)
+
+
+def dilate_fill(planes: torch.Tensor, occupancy: torch.Tensor,
+                max_iters: int = DILATE_MAX_PASSES) -> Tuple[torch.Tensor, int]:
+    """Kernel W, dilation: `dilate_fill_plain` of a (C, H, W) int32 stack
+    on the card.  The pass at which each pixel was filled is kept per pixel
+    (shared by the stack), so a pass reads only the pixels filled before it
+    and runs in place; every pass sets its flag when it fills a pixel, and
+    the host reads the flags after each batch of DILATE_BATCH passes,
+    stopping after a pass that filled nothing."""
+    if planes.device.type == "cpu":
+        return dilate_fill_plain(planes, occupancy, max_iters)
+    _check_planes(planes, occupancy, "dilate_fill")
+    C, H, W = planes.shape
+    d = planes.device
+    x = torch.empty((C, H, W), dtype=torch.float32, device=d)
+    pass_of = torch.empty((H, W), dtype=torch.int32, device=d)
+    flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=d)
+    fn = _w("bg_dilate", _DILATE_ARGS)
+    first = 0
+    while True:
+        count = min(DILATE_BATCH, max_iters - first)
+        launched = ctypes.c_int(0)
+        rc = fn(dev.ptr(planes), dev.ptr(occupancy), dev.ptr(x), dev.ptr(pass_of),
+                dev.ptr(flags), C, H, W, first, count, dev.stream_handle(),
+                ctypes.byref(launched))
+        dev.count_launch("bg_dilate", launched.value)
+        dev.check_launch("bg_dilate", rc)
+        first += count
+        if first >= max_iters or not int(flags[first]):
+            break
+    return x, int(flags.sum())
+
+
+def _relax(x: torch.Tensor, tmp: torch.Tensor, mask: torch.Tensor, n: int) -> None:
+    """Kernel W: n Jacobi steps of the (C, h, w) float32 planes `x` in
+    place, the pixels whose (h, w) mask (uint8 occupancy or float32
+    weights) is above 0 held."""
+    C, h, w = x.shape
+    launched = ctypes.c_int(0)
+    rc = _w("bg_relax", _RELAX_ARGS)(dev.ptr(x), dev.ptr(tmp), dev.ptr(mask),
+                                     int(mask.dtype == torch.uint8), C, h, w, n,
+                                     dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("bg_relax", launched.value)
+    dev.check_launch("bg_relax", rc)
+
+
+def _pull_relax(planes, occupancy, vals, wts, n_smooth: int):
+    """Kernel W: the pull from the coarsest level down with `n_smooth`
+    Jacobi steps per level (the pixels with weight held), level 0 reading
+    the image and occupancy.  Returns (C, H, W) float32 (not yet selected
+    at the occupied pixels)."""
+    C, H, W = planes.shape
+    d = planes.device
+    shapes = [(H, W)] + [tuple(v.shape[-2:]) for v in vals]
+    tmp = torch.empty(C * H * W, dtype=torch.float32, device=d)
+    pull = _w("bg_pull", _PULL_ARGS)
+    fill = parent = None
+    for lvl in range(len(shapes) - 1, -1, -1):
+        h, w = shapes[lvl]
+        fill = torch.empty((C, h, w), dtype=torch.float32, device=d)
+        top = int(parent is None)
+        if lvl == 0:
+            rc = pull(dev.ptr(planes), dev.ptr(occupancy), _NULL, _NULL,
+                      _NULL if top else dev.ptr(parent), dev.ptr(fill), C, h, w, top,
+                      dev.stream_handle())
+        else:
+            rc = pull(_NULL, _NULL, dev.ptr(vals[lvl - 1]), dev.ptr(wts[lvl - 1]),
+                      _NULL if top else dev.ptr(parent), dev.ptr(fill), C, h, w, top,
+                      dev.stream_handle())
+        dev.count_launch("bg_relax", 1)
+        dev.check_launch("bg_relax", rc)
+        _relax(fill, tmp, occupancy if lvl == 0 else wts[lvl - 1], n_smooth)
+        parent = fill
+    return fill
+
+
+def harmonic_fill(planes: torch.Tensor, occupancy: torch.Tensor,
+                  n_smooth: int = HARMONIC_SMOOTH) -> torch.Tensor:
+    """Kernels L (push) and W (pull, relaxation, selection):
+    `harmonic_fill_plain` of a (C, H, W) int32 stack on the card."""
+    if planes.device.type == "cpu":
+        return harmonic_fill_plain(planes, occupancy, n_smooth)
+    _check_planes(planes, occupancy, "harmonic_fill")
+    vals, wts = push_levels(planes, occupancy, 2)
+    fill = _pull_relax(planes, occupancy, vals, wts, n_smooth)
+    _finish(fill, planes, occupancy, None, "bg_relax")
+    return fill
+
+
+def smooth_fill(planes: torch.Tensor, occupancy: torch.Tensor,
+                iterations: int = SMOOTH_ITERATIONS) -> torch.Tensor:
+    """Kernels L and W: `smooth_fill_plain` of a (C, H, W) int32 stack on
+    the card: the push-pull unrounded (L's push, W's pull without steps),
+    then W's relaxation with the occupied pixels held."""
+    if planes.device.type == "cpu":
+        return smooth_fill_plain(planes, occupancy, iterations)
+    _check_planes(planes, occupancy, "smooth_fill")
+    vals, wts = push_levels(planes, occupancy, 1)
+    fill = _pull_relax(planes, occupancy, vals, wts, 0)
+    _finish(fill, planes, occupancy, None, "bg_relax")
+    _relax(fill, torch.empty_like(fill), occupancy, iterations)
+    return fill
+
+
+def round_clip(filled: torch.Tensor, planes: torch.Tensor, occupancy: torch.Tensor,
+               counter: str) -> torch.Tensor:
+    """Kernel W's finish with an int32 output: `round_clip_plain` of the
+    selected planes (the occupied pixels from `planes`)."""
+    if filled.device.type == "cpu":
+        return round_clip_plain(torch.where(occupancy.to(torch.bool), planes.to(torch.float32),
+                                            filled))
+    out = torch.empty(filled.shape, dtype=torch.int32, device=filled.device)
+    _finish(filled, planes, occupancy, out, counter)
+    return out
+
+
+def fill_rgb(planes: torch.Tensor, occupancy: torch.Tensor, mode: int = 1) -> torch.Tensor:
+    """Background fill of attribute images (reference `fill_rgb`,
+    padding.py:176, through `fill_plane`'s dispatch, :165): every (H, W)
+    int32 channel plane of `planes` (..., H, W) is filled under the (H, W)
+    uint8 occupancy by attributeBGFill `mode` (0 dilation, 1 push-pull,
+    2 harmonic), rounded half to even and clipped to 0..255.  Mode 1 runs
+    kernel L plane by plane (its clip changes nothing: the fill averages
+    integer channels of 0..255); modes 0 and 2 fill the whole stack at once
+    (kernel W, with L's push for mode 2)."""
     h, w = planes.shape[-2:]
     flat = planes.reshape(-1, h, w)
-    return torch.stack([push_pull_round(p, occupancy) for p in flat]).reshape(planes.shape)
+    if mode == 0:
+        filled, _ = dilate_fill(flat, occupancy)
+        out = round_clip(filled, flat, occupancy, "bg_dilate")
+    elif mode == 2:
+        out = round_clip(harmonic_fill(flat, occupancy), flat, occupancy, "bg_relax")
+    else:
+        out = torch.stack([push_pull_round(p, occupancy) for p in flat])
+    return out.reshape(planes.shape)

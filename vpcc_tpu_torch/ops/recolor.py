@@ -34,9 +34,15 @@ any order, so the kernel adds them as integers with atomics.
 `_blend` computes the forward half and the merge in the same float order
 (its optimized HLO, recolor.cu's header), so `transfer_colors` drives the
 same two entries uncompacted.  The port holds only valid rows (no padding),
-so the reference's validity masks of padded rows have no counterpart.  Kernel M (csrc/recolor.cu) has
-three entry points (exact match, forward blend, splat and merge); the
-`*_plain` functions are their plain versions, used for CPU tensors.
+so the reference's validity masks of padded rows have no counterpart.
+
+`transfer_reflectance` (recolor.py:267) gives each target its exact twin's
+16-bit reflectance, else its nearest source's: kernel M's exact match and
+kernel E's k=1 sweep (bucket 6), no kernel of its own.
+
+Kernel M (csrc/recolor.cu) has three entry points (exact match, forward
+blend, splat and merge); the `*_plain` functions are their plain versions,
+used for CPU tensors.
 """
 
 from __future__ import annotations
@@ -325,3 +331,24 @@ def transfer_colors(
     iidx = torch.arange(nt, dtype=torch.int32, device=d)
     return splat_merge(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
                        float(max_geom_d2_bwd))
+
+
+def transfer_reflectance(src_pos: torch.Tensor, src_refl: torch.Tensor,
+                         tgt_pos: torch.Tensor, grid_bits: int = 10) -> torch.Tensor:
+    """(Nt,) int32 reflectance of the targets (reference
+    `transfer_reflectance`, recolor.py:267-288): the exact-position twin's
+    value where one exists (kernel M's exact match, the first of equal
+    source keys), else the nearest source's (kernel E, k=1, bucket 6) at
+    whatever distance; a target with no source in its cell window reads
+    source row 0, as the reference's `nearest` returns index 0 there.
+    src_refl (Ns,) int32."""
+    if grid_bits > 10:
+        raise NotImplementedError(
+            "the reflectance attribute above 10-bit geometry: the reference's "
+            "`exact_matches_device` asserts bits <= 10 (vpcc_tpu/ops/recolor.py:48)")
+    order, sk = sorted_source_keys(src_pos, grid_bits)
+    exact_idx, has_exact, _, _ = exact_match(order, sk, tgt_pos, grid_bits)
+    grid_s = neighbors.build_grid(src_pos, grid_bits)
+    nidx, _ = neighbors.nearest(grid_s, tgt_pos.contiguous(), bucket=6)
+    idx = torch.where(has_exact, exact_idx, nidx)
+    return src_refl[idx.long()].to(torch.int32)

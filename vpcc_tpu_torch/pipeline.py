@@ -4,14 +4,16 @@ and the attribute images the encoder paints from the points.
 The port of vpcc_tpu/pipeline.py `reconstruct_frame_device`,
 `apply_pbf_occupancy`, `paint_attribute`, `gather_decoded_colors`,
 `extract_eom_colors`, `inject_eom_colors`, `apply_color_smoothing_device`,
-`apply_color_smoothing` and `download_recon`, with the group dilation of
-vpcc_tpu/ops/padding.py.  Kernel C builds the compacted rows (two depth
-layers, the EOM layers, or the PLR layers from kernel V's code plane),
-kernel D smooths them; kernel U filters the occupancy's patch borders
-(PBF) before; kernel P (csrc/attr_image.cu) paints the colors into the two
-attribute layers, group-dilates their filled backgrounds and gathers each
-point's decoded color; kernel S (csrc/eom_colors.cu) moves the EOM rows'
-colors out of and back into the rows; kernel T smooths the decoded colors.
+`apply_color_smoothing`, `paint_scalar`, `gather_decoded_scalar` and
+`download_recon`, with the group dilation of vpcc_tpu/ops/padding.py.
+Kernel C builds the compacted rows (two depth layers, the EOM layers, or
+the PLR layers from kernel V's code plane), kernel D smooths them; kernel
+U filters the occupancy's patch borders (PBF) before; kernel P
+(csrc/attr_image.cu) paints the colors into the two attribute layers,
+group-dilates their filled backgrounds and gathers each point's decoded
+color, and paints and gathers the 16-bit reflectance the same way (its
+scalar entries); kernel S (csrc/eom_colors.cu) moves the EOM rows' colors
+out of and back into the rows; kernel T smooths the decoded colors.
 The JAX package's static-shape padding (`shape_bucket`) has no
 counterpart: the tensors hold exactly the valid rows, in the same order.
 """
@@ -284,6 +286,96 @@ def gather_decoded_colors(pix, layer, attr0, attr1):
 
 
 # ---------------------------------------------------------------------------
+# the reflectance attribute's layer images (kernel P's scalar entries)
+
+def paint_scalar_plain(pix, layer, val, h: int, w: int) -> torch.Tensor:
+    """(2, H, W) int32 layer images of per-point scalar samples (reference
+    `paint_scalar`, pipeline.py:252: 16-bit reflectance, not clamped), with
+    `paint_attribute_plain`'s conventions: layer-0 and layer-1 points paint
+    their layer, the last row wins, a layer-1 pixel without a point takes
+    layer 0's value."""
+    d = val.device
+    x, y = pix[:, 0].long(), pix[:, 1].long()
+    inside = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    flat = y * w + x
+    rows = torch.arange(val.shape[0], device=d)
+    img = torch.zeros((2, h * w), dtype=torch.int32, device=d)
+    hit1 = None
+    for ly in (0, 1):
+        m = (layer == ly) & inside
+        win = torch.full((h * w,), -1, dtype=torch.int64, device=d)
+        win.scatter_reduce_(0, flat[m], rows[m], reduce="amax")
+        hit = win >= 0
+        img[ly][hit] = val[win[hit]].to(torch.int32)
+        hit1 = hit
+    img[1][~hit1] = img[0][~hit1]
+    return img.reshape(2, h, w)
+
+
+def gather_decoded_scalar_plain(pix, layer, img0, img1) -> torch.Tensor:
+    """(N,) int32 decoded samples (reference `gather_decoded_scalar`,
+    pipeline.py:270): layer 1 reads img1, every other tag img0, pixels
+    clamped into the (H, W) int32 images."""
+    h, w = img0.shape
+    x = pix[:, 0].long().clamp(0, w - 1)
+    y = pix[:, 1].long().clamp(0, h - 1)
+    return torch.where(layer == 1, img1[y, x], img0[y, x]).to(torch.int32)
+
+
+_PAINT_SCALAR_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
+    ctypes.POINTER(ctypes.c_int)]
+
+
+def paint_scalar(pix, layer, val, h: int, w: int) -> torch.Tensor:
+    """Kernel P, scalar paint: `paint_scalar_plain` on the card (paint's
+    winner pass, then a pixel pass that copies the winners' samples
+    unclamped)."""
+    if val.device.type == "cpu":
+        return paint_scalar_plain(pix, layer, val, h, w)
+    d = val.device
+    dev.check_tensor(pix, "pix", torch.int32, d, 2)
+    dev.check_tensor(layer, "layer", torch.int32, d, 1)
+    dev.check_tensor(val, "val", torch.int32, d, 1)
+    n = val.shape[0]
+    if pix.shape != (n, 2) or layer.shape != (n,):
+        raise ValueError(f"paint_scalar: pix {tuple(pix.shape)}, layer {tuple(layer.shape)}, "
+                         f"val {tuple(val.shape)}")
+    win = torch.full((2, h, w), -1, dtype=torch.int32, device=d)
+    out = torch.empty((2, h, w), dtype=torch.int32, device=d)
+    launched = ctypes.c_int(0)
+    rc = _attr_fn("attr_paint_scalar", _PAINT_SCALAR_ARGS)(
+        dev.ptr(pix), dev.ptr(layer), dev.ptr(val), n, h, w, dev.ptr(win), dev.ptr(out),
+        dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("attr_paint_scalar", launched.value)
+    dev.check_launch("attr_paint_scalar", rc)
+    return out
+
+
+def gather_decoded_scalar(pix, layer, img0, img1) -> torch.Tensor:
+    """Kernel P, scalar gather: `gather_decoded_scalar_plain` on the card,
+    one thread per point."""
+    if pix.device.type == "cpu":
+        return gather_decoded_scalar_plain(pix, layer, img0, img1)
+    d = pix.device
+    dev.check_tensor(pix, "pix", torch.int32, d, 2)
+    dev.check_tensor(layer, "layer", torch.int32, d, 1)
+    dev.check_tensor(img0, "img0", torch.int32, d, 2)
+    dev.check_tensor(img1, "img1", torch.int32, d, 2)
+    n = pix.shape[0]
+    h, w = img0.shape
+    if pix.shape != (n, 2) or layer.shape != (n,) or img1.shape != img0.shape:
+        raise ValueError(f"gather_decoded_scalar: pix {tuple(pix.shape)}, layer "
+                         f"{tuple(layer.shape)}, images {tuple(img0.shape)} / {tuple(img1.shape)}")
+    out = torch.empty(n, dtype=torch.int32, device=d)
+    rc = _attr_fn("attr_gather_scalar", _GATHER_ARGS)(
+        dev.ptr(pix), dev.ptr(layer), dev.ptr(img0), dev.ptr(img1), n, h, w, dev.ptr(out),
+        dev.stream_handle())
+    dev.count_launch("attr_gather_scalar", 1 if n else 0)
+    dev.check_launch("attr_gather_scalar", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the EOM rows' colors (kernel S)
 
 def extract_eom_colors_plain(layer: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
@@ -385,15 +477,19 @@ def first_unique_rows(pos: torch.Tensor) -> torch.Tensor:
 
 
 def download_recon(recon: Points, col, bits: int,
-                   remove_duplicates: bool = False, raw=None):
-    """Final positions (N, 3) int32 and colors (N, 3) uint8 as numpy,
-    optionally without duplicate positions (first instance kept).  For
-    grids of at most 10 bits the JAX package moves positions packed into
-    one int32 per point and unpacks them on the host; the same packing is
-    applied here so that out-of-range coordinates come out identically.
-    `raw` = (positions (R, 3) int32, colors (R, 3) uint8) numpy rows of the
-    raw-points patch, appended after the reconstruction and before the
-    duplicate removal, as the reference appends them."""
+                   remove_duplicates: bool = False, raw=None, refl=None):
+    """Final positions (N, 3) int32, colors (N, 3) uint8 and reflectances
+    (N,) uint16 (None without `refl`) as numpy, optionally without duplicate
+    positions (first instance kept).  For grids of at most 10 bits the JAX
+    package moves positions packed into one int32 per point and unpacks them
+    on the host; the same packing is applied here so that out-of-range
+    coordinates come out identically.  `raw` = (positions (R, 3) int32,
+    colors (R, 3) uint8) numpy rows of the raw-points patch, appended after
+    the reconstruction and before the duplicate removal, as the reference
+    appends them; their reflectance is 0 (the reference zero-fills it,
+    ROADMAP F3).  `refl`: the (N,) int32 decoded reflectance of the
+    reconstruction's rows, taken modulo 2^16 as the reference's uint16
+    cast."""
     col8 = col.clamp(0, 255).to(torch.uint8)
     pos = recon.pos
     if bits <= 10:
@@ -402,11 +498,17 @@ def download_recon(recon: Points, col, bits: int,
         mask = (1 << bits) - 1
         pos = torch.stack([(w >> (2 * bits)) & mask, (w >> bits) & mask,
                            w & mask], 1).to(torch.int32)
+    r16 = None if refl is None else (refl.to(torch.int64) & 0xFFFF).to(torch.int32)
     if raw is not None:
         d = pos.device
         pos = torch.cat([pos, torch.as_tensor(np.asarray(raw[0], np.int32), device=d)])
         col8 = torch.cat([col8, torch.as_tensor(np.asarray(raw[1], np.uint8), device=d)])
+        if r16 is not None:
+            r16 = torch.cat([r16, torch.zeros(len(raw[0]), dtype=torch.int32, device=d)])
     if remove_duplicates and pos.shape[0]:
         keep = first_unique_rows(pos)
         pos, col8 = pos[keep], col8[keep]
-    return pos.cpu().numpy(), col8.cpu().numpy()
+        if r16 is not None:
+            r16 = r16[keep]
+    return (pos.cpu().numpy(), col8.cpu().numpy(),
+            None if r16 is None else r16.cpu().numpy().astype(np.uint16))

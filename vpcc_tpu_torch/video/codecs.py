@@ -9,6 +9,11 @@ from the decoded D0 (T0).  The lossless geometry plane is background-filled
 first (the reference's `intra.fill_plane_host`: push-pull on kernel L,
 rounded half to even).
 
+The reflectance attribute (attribute index 1, the AVD unit at map index
+REFL_MAP_INDEX) is coded intra, frame by frame: its two 16-bit layer planes
+verbatim through zlib at attributeQP <= 4, else at 10-bit precision (the
+samples shifted right by 6) through the wavefront codec.
+
 Substream coders are stateful: in random-access GOFs a P-frame predicts
 from its reference frame, so each coder keeps its last decoded reference
 planes on the device (`GeometrySubstreamEncoder.ref`,
@@ -64,6 +69,46 @@ def decode_eom_plane(payload: bytes) -> np.ndarray:
     nb = (h * w + 63) // 64
     blocks = entropy.decode_coeffs(payload[4:], nb)
     return blocks.reshape(-1)[:h * w].reshape(h, w).astype(np.int32)
+
+
+REFL_MAP_INDEX = 8  # AVD map_index of the reflectance attribute
+
+
+def encode_reflectance(r0: torch.Tensor, r1: torch.Tensor, occ: np.ndarray, cfg: VPCCConfig,
+                       qp_offset: int = 0):
+    """(H, W) int32 layer planes on the device -> (payload, decoded planes
+    dec0, dec1 (H, W) int32 on the same device), as the reference's
+    `encode_reflectance` (codecs.py:81-100).  Lossless (attributeQP <= 4):
+    byte 0, then zlib of the (H, W, 2) uint16 planes.  Lossy: byte 1, then
+    the wavefront codec over (r0 >> 6, r1 >> 6) with maxval 1023, QP
+    min(attributeQP + qp_offset, 51) for both planes, the background filled
+    and the RD weighted by `occ` (the atlas occupancy), deblocked, intra;
+    the decoded planes shifted back by 6.  (The reference's
+    `not intra.AVAILABLE` branch never runs: its legacy codec is always
+    available.)"""
+    d = r0.device
+    if cfg.attributeQP <= 4:
+        h0 = r0.cpu().numpy().astype(np.uint16)
+        h1 = r1.cpu().numpy().astype(np.uint16)
+        payload = b"\x00" + lossless.encode_plane(np.stack([h0, h1], -1))
+        return (payload, torch.as_tensor(h0.astype(np.int32), device=d),
+                torch.as_tensor(h1.astype(np.int32), device=d))
+    occ_t = torch.as_tensor(np.ascontiguousarray(occ, np.uint8), device=d)
+    qp = min(cfg.attributeQP + qp_offset, 51)
+    pay, rec = hevc.encode_planes(torch.stack([r0 >> 6, r1 >> 6]), [qp, qp], [1023, 1023],
+                                  occ=occ_t, weight=occ_t, deblock=True)
+    return b"\x01" + pay, rec[0] << 6, rec[1] << 6
+
+
+def decode_reflectance(payload: bytes, device: torch.device):
+    """payload -> (dec0, dec1) (H, W) int32 planes on `device` (reference
+    `decode_reflectance`, codecs.py:103-115)."""
+    if payload[0] == 0:
+        both = lossless.decode_plane(payload[1:])
+        return (torch.as_tensor(both[..., 0].astype(np.int32), device=device),
+                torch.as_tensor(both[..., 1].astype(np.int32), device=device))
+    rec = hevc.decode_planes(payload[1:], device=device)
+    return rec[0] << 6, rec[1] << 6
 
 
 def _host(a) -> np.ndarray:
