@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the twenty-three CUDA kernels from vpcc_tpu_torch/csrc (one nvcc
+2. builds the twenty-four CUDA kernels from vpcc_tpu_torch/csrc (one nvcc
    per source, all started together) and prints the build seconds;
 
 the decode path (kernels A-D, and Q's color conversion):
@@ -189,9 +189,38 @@ dilation and the harmonic fill); per configuration:
     port's decoder to decode the stream to the encoder's reconstruction,
     reflectances included (decode seconds per frame), and for "refl" each
     frame's reflectance PSNR within METRICS_PSNR_TOL_DB of JAX's;
-41. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
-    PLR, RDO, fill and scalar entries as rows of their own, launches from
-    steps 16, 24, 30, 35 and 39), then the result line.
+
+the segmentation options (normalOrientation 0 / 2 / 4: kernel X;
+highGradientSeparation: kernel F's high-gradient entry; ROI partitioning)
+and tetris packing (reference data person_vox10_seg_options_reference.json
+and person_vox10_seg_options_partitions.npz, made by
+tests/torch_make_seg_options_reference.py), on the first two bench frames:
+41. segments both frames with the port's own segmentation under
+    normalOrientation 0, 2, 4 and with highGradientSeparation, and requires
+    each voxel partition to agree with the JAX package's at PARTITION_FLOOR
+    (printed, with mode 4's flood sweeps and, given JAX's partition, the
+    agreement of the high-gradient aux);
+per configuration ("orient0", "orient2", "orient4" with the port's own
+segmentation; "hgs" driven by the JAX partitions and the JAX voxel aux,
+"roi" by each chunk's JAX partitions through a subclass that swaps them in
+with `Encoder.with_partition`, "tetris" by the JAX partitions):
+42. a warm-up encode keeping the largest call of the configuration's new
+    entry;
+43. with all launch counters at 0, encodes again: cold and warm seconds per
+    frame, the stage split, launches (the new entry and kernels E-H nonzero;
+    roi's chunk point counts equal to JAX's);
+44. requires hgs, roi and tetris to be byte-identical to the JAX encoder's
+    stream (patches and reconstructions too), orient4's stream bytes within
+    RD_BYTES_TOL and its mean D1/D2/Y within RD_PSNR_TOL_DB of JAX's (orient0
+    and orient2 printed), and the port's decoder to decode every stream to
+    the encoder's reconstruction;
+45. holds `orient_viewpoint`, the flood (`orient`, its sweep count too) and
+    `high_gradient_aux` against their plain versions on their largest
+    calls, exactly, timing both in turns;
+46. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
+    PLR, RDO, fill, scalar, orientation and high-gradient entries as rows
+    of their own, launches from steps 16, 24, 30, 35, 39 and 43), then the
+    result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -222,6 +251,8 @@ VOX11_PARTITIONS = DATA / "person_vox11_partitions.npz"
 LOSSLESS_REFERENCE = DATA / "person_vox10_lossless_reference.json"
 TOOLS_REFERENCE = DATA / "person_vox10_tools_reference.json"
 ATTR_OPTIONS_REFERENCE = DATA / "person_vox10_attr_options_reference.json"
+SEG_OPTIONS_REFERENCE = DATA / "person_vox10_seg_options_reference.json"
+SEG_OPTIONS_PARTITIONS = DATA / "person_vox10_seg_options_partitions.npz"
 # the floor tests/test_torch_segmentation.py pins for the partition
 # agreement with the JAX package, and the normals' tolerance (the kernel's
 # acosf/cosf against PyTorch's on the card)
@@ -296,6 +327,10 @@ KERNEL_INFO = {
     "push_levels": ("vpcc_tpu_torch/csrc/push_pull.cu", "vpcc_tpu/ops/padding.py:123"),
     "attr_paint_scalar": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:252"),
     "attr_gather_scalar": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:270"),
+    # the segmentation options (normalOrientation 2 / 4, highGradientSeparation)
+    "orient_viewpoint": ("vpcc_tpu_torch/csrc/orient.cu", "vpcc_tpu/ops/normals.py:146"),
+    "orient": ("vpcc_tpu_torch/csrc/orient.cu", "vpcc_tpu/ops/normals.py:158"),
+    "high_gradient_aux": ("vpcc_tpu_torch/csrc/segment.cu", "vpcc_tpu/ops/segmentation.py:128"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
@@ -314,6 +349,10 @@ TOOLS_KERNELS = {"cs": ("color_smooth",), "pbf": ("pbf",),
 ATTR_OPTIONS_KERNELS = {"refl": ("attr_paint_scalar", "attr_gather_scalar"),
                         "refl_lossless": ("attr_paint_scalar", "attr_gather_scalar"),
                         "bgfill0": ("bg_dilate",), "bgfill2": ("bg_relax", "push_levels")}
+# the segmentation-options phase's configurations -> its new entries (launch
+# counters)
+SEG_OPTIONS_KERNELS = {"orient0": (), "orient2": ("orient_viewpoint",), "orient4": ("orient",),
+                       "hgs": ("high_gradient_aux",), "roi": (), "tetris": ()}
 # every kernel the whole encoder runs (kernel A decodes only)
 ENCODER_PATH = ("half_pel_mc", "generate_points", "grid_smooth") + FRONT_KERNELS \
     + GEOMETRY_KERNELS + ENCODE_KERNELS
@@ -542,6 +581,26 @@ def bounds(name, args, out):
     elif name in ("attr_paint_scalar", "attr_gather_scalar"):
         byt = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(out)
         ops = 0.0
+    elif name == "orient_viewpoint":
+        # normals and positions read once, the oriented normals written once;
+        # per row 3 differences, the fma-chain dot, the sign, 3 products
+        nrm, pos = args[:2]
+        byt = nbytes(nrm, pos, out)
+        ops = 10.0 * nrm.shape[0]
+    elif name == "orient":
+        # the flood: positions, normals, neighbour table, valid rows read once,
+        # the oriented normals written once; per vote (an unsigned valid row in
+        # a sweep, counted on this run's data by `flood_votes`) K dot products
+        # of 3 multiply-adds, a sign product and an add (~8 operations each)
+        pos, nrm, idx, valid = args[0], args[1], args[2], args[4]
+        byt = nbytes(pos, nrm, idx, args[3], valid, out)
+        ops = 8.0 * idx.shape[1] * flood_votes(*args)
+    elif name == "high_gradient_aux":
+        # normals, partitions, orientations read once, alt and weak written
+        # once; per row and orientation a 3-term dot and a compare (~6)
+        nrm, part, orients = args[:3]
+        byt = nbytes(nrm, part, orients, *out)
+        ops = 6.0 * nrm.shape[0] * orients.shape[0]
     elif name == "grid_smooth":
         pos, pid, bnd = args[:3]
         byt = nbytes(pos, pid, bnd, out)
@@ -643,6 +702,31 @@ def bounds(name, args, out):
     t_bytes = byt / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flood_votes(pos, nrm, idx, valid_k, valid, pad_rows=False) -> int:
+    """Votes the spanning-tree flood computes on these inputs: the unsigned
+    valid rows summed over its sweeps (the data-dependent part of kernel X's
+    flood bound), from the plain version's steps."""
+    from vpcc_tpu_torch.ops import normals
+
+    seed, s = normals.flood_seed(pos, nrm, valid, pad_rows)
+    sign = torch.zeros(pos.shape[0], dtype=torch.float32, device=pos.device)
+    if seed >= 0:
+        sign[seed] = s
+    votes = 0
+    for _ in range(normals.FLOOD_MAX_SWEEPS):
+        unsigned = (sign == 0) & valid
+        n = int(unsigned.sum())
+        if n == 0:
+            break
+        votes += n
+        vote = normals.flood_votes_plain(nrm, idx, valid_k, sign)
+        newly = unsigned & (vote.abs() > normals.FLOOD_VOTE_MIN)
+        if not bool(newly.any()):
+            break
+        sign = torch.where(newly, torch.where(vote < 0, -1.0, 1.0), sign)
+    return votes
 
 
 def knn_work(grid, q, win):
@@ -2548,6 +2632,218 @@ def attr_options_phase(dev, frames):
     return rows, launches
 
 
+def seg_options_phase(dev, frames):
+    """Steps 41-45: the segmentation options (normalOrientation 0 / 2 / 4,
+    highGradientSeparation, ROI partitioning) and tetris packing on the
+    first two bench frames.  Returns (rows, launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from vpcc_tpu_torch import encoder as enc_mod
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import metrics, normals, segmentation, voxelize
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+
+    ref = json.loads(SEG_OPTIONS_REFERENCE.read_text())
+    so = np.load(SEG_OPTIONS_PARTITIONS)
+    fp = np.load(FRONT_PARTITIONS)
+    d = torch.device("cuda")
+    t32 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32), device=d)
+    fr = frames[:len(ref["configs"]["orient0"]["seeds"])]
+    n = len(fr)
+    bad = [i for i, f in enumerate(fr)
+           if f.point_count != ref["configs"]["orient0"]["frames"][i]["source_points"]]
+    if bad:
+        raise AssertionError(f"segmentation options: frames {bad} differ from the JAX package's")
+
+    def config(name):
+        cfg = VPCCConfig()
+        for k, v in ref["configs"][name]["overrides"].items():
+            setattr(cfg, k, v)
+        return cfg
+
+    class RoiDriven(Encoder):
+        """The encoder with each ROI chunk's voxel partition replaced, in the
+        order the chunks are segmented, by the JAX encoder's (the chunks'
+        point counts are kept to check them)."""
+
+        def __init__(self, cfg, parts):
+            super().__init__(cfg, device="cuda")
+            self.parts, self.chunk_points = list(parts), []
+
+        def segment_dispatch(self, pc_host):
+            self.chunk_points.append(pc_host.point_count)
+            seg = super().segment_dispatch(pc_host)
+            return Encoder.with_partition(seg, t32(self.parts.pop(0)))
+
+    def make_encoder(name):
+        """(encoder, segs) of one configuration: orient0/2/4 segment the
+        frames themselves; hgs and tetris are driven by the committed JAX
+        partitions (hgs also by JAX's voxel alt/weak), roi chunk by chunk."""
+        cfg = config(name)
+        rc = ref["configs"][name]
+        if name.startswith("orient"):
+            return Encoder(cfg, device="cuda"), None
+        if name == "roi":
+            return RoiDriven(cfg, [so[f"roi_{f}_{c}"] for f in range(n)
+                                   for c in range(len(rc["chunk_points"][f]))]), None
+        enc = Encoder(cfg, device="cuda")
+        segs = []
+        for i, f in enumerate(fr):
+            seg = Encoder.with_partition(enc.segment_dispatch(f), t32(fp[f"refined_{i}"]))
+            if name == "hgs":
+                alt_v = t32(so[f"hgs_alt_{i}"])
+                weak_v = torch.as_tensor(so[f"hgs_weak_{i}"], device=d)
+                seg = dataclasses.replace(seg, hg=(
+                    voxelize.gather_point_values(alt_v, seg.point_vox),
+                    voxelize.gather_point_values(weak_v, seg.point_vox)))
+            segs.append(seg)
+        return enc, segs
+
+    # 41. the port's own segmentation under modes 0, 2, 4 and with the
+    # high-gradient aux: partition agreement with the JAX package's
+    for name in ("orient0", "orient2", "orient4", "hgs"):
+        for i, f in enumerate(fr):
+            seg = Encoder(config(name), device="cuda").segment_dispatch(f)
+            want = fp[f"refined_{i}"] if name == "hgs" else so[f"{name}_{i}"]
+            a = float(np.mean(seg.part.cpu().numpy() == want))
+            extra = ""
+            if name == "orient4":
+                extra = f", {normals.last_flood_sweeps} flood sweeps signed voxels"
+            if name == "hgs":
+                alt, weak = segmentation.high_gradient_aux(seg.normals, t32(want), seg.orients)
+                extra = (f"; given JAX's partition, alt agreement "
+                         f"{float(np.mean(alt.cpu().numpy() == so[f'hgs_alt_{i}'])):.6f}, weak "
+                         f"{float(np.mean(weak.cpu().numpy() == so[f'hgs_weak_{i}'])):.6f}")
+            print(f"segmentation options {name} frame {i}: own partition agreement {a:.6f} "
+                  f"of {len(want)} voxels{extra}")
+            if a < PARTITION_FLOOR:
+                raise AssertionError(f"{name} frame {i}: partition agreement {a} below "
+                                     f"{PARTITION_FLOOR}")
+
+    wrappers = {"orient_viewpoint": (normals, "orient_normals_viewpoint"),
+                "orient": (normals, "orient_normals_spanning_tree"),
+                "high_gradient_aux": (enc_mod, "high_gradient_aux")}
+    calls, launches = {}, {}
+    src = [(torch.as_tensor(np.asarray(f.positions, np.int32), device=d),
+            torch.as_tensor(f.colors, device=d)) for f in fr]
+    src_normals = [metrics.estimate_normals(p, 10, device=d) for p, _ in src]
+    for name, rc in ref["configs"].items():
+        wanted = SEG_OPTIONS_KERNELS[name]
+        # 42. warm-up, keeping the new entries' largest calls
+        t0 = time.perf_counter()
+        with Capture({k: wrappers[k] for k in wanted}) as cap:
+            enc, segs = make_encoder(name)
+            enc.encode_gof(fr, segs=segs)
+            torch.cuda.synchronize()
+        t_cold = (time.perf_counter() - t0) / n
+        missing = sorted(set(wanted) - set(cap.calls))
+        if missing:
+            raise AssertionError(f"segmentation options {name}: never called: {missing}")
+        calls.update(cap.calls)
+        # 43. the main path, counted and timed
+        dev.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, segs = make_encoder(name)
+        stream, recon = enc.encode_gof(fr, segs=segs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counted = {k: v for k, v in dev.LAUNCHES.items() if v}
+        split = {f: sum(getattr(st, f) for st in enc.stats) / n
+                 for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s",
+                           "video_s", "reconstruct_s", "recolor_s")}
+        driven = "own segmentation" if name.startswith("orient") else "JAX partitions"
+        print(f"segmentation options {name} encode: cold {t_cold:.4f}, warm {dt / n:.4f} "
+              f"s/frame ({driven}; JAX on a CPU {rc['jax_cpu_encode_s'] / n:.4f}); per frame "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        print(f"segmentation options {name} launches on the encode path: {counted}")
+        idle = [k for k in (*wanted, *FRONT_KERNELS) if counted.get(k, 0) == 0]
+        if idle:
+            raise AssertionError(f"segmentation options {name}: not launched on the encode "
+                                 f"path: {idle}")
+        launches.update({k: counted[k] for k in wanted})
+        if name == "roi":
+            want_pts = [c for f in rc["chunk_points"] for c in f]
+            if enc.chunk_points != want_pts:
+                raise AssertionError(f"roi chunks {enc.chunk_points} vs JAX's {want_pts}")
+        # 44. the stream against JAX's: identical where driven by its
+        # partitions, within the RD gate for orient4's own segmentation
+        same = hashlib.md5(stream).hexdigest() == rc["stream_md5"]
+        got = [dict(patches=len(e.patches), recon_points=r.point_count,
+                    recon_md5=frame_digest(r.positions, r.colors))
+               for e, r in zip(enc.last_encoded, recon)]
+        print(f"segmentation options {name} stream {len(stream)} vs {rc['stream_bytes']} bytes, "
+              f"byte-identical to the JAX encoder's: {same}; patches "
+              f"{[g['patches'] for g in got]} vs {[r['patches'] for r in rc['frames']]}")
+        if not name.startswith("orient"):
+            diff = [f"frame {i} {k} {v} (JAX {r[k]})" for i, (g, r) in
+                    enumerate(zip(got, rc["frames"])) for k, v in g.items() if v != r[k]]
+            if not same or enc.last_stream_stats != rc["stream_stats"] or diff:
+                raise AssertionError(f"segmentation options {name}: differs from the JAX "
+                                     f"encoder: {diff or enc.last_stream_stats}")
+        else:
+            mean = psnr_means([metrics.compute_metrics(
+                p, c, r.positions, r.colors, resolution=1023, src_normals=nrm, grid_bits=10,
+                device=d) for (p, c), nrm, r in zip(src, src_normals, recon)])
+            d_bytes = len(stream) / rc["stream_bytes"] - 1.0
+            deltas = {k: mean[k] - rc["mean"][k] for k in mean}
+            held = name == "orient4"
+            print(f"segmentation options {name} RD against JAX's ({'held' if held else 'not held'}"
+                  f"): bytes {100 * d_bytes:+.4f} %, mean PSNR "
+                  + ", ".join(f"{k} {mean[k]:.4f} ({v:+.4f})" for k, v in deltas.items()))
+            if held and (abs(d_bytes) > RD_BYTES_TOL
+                         or max(abs(v) for v in deltas.values()) > RD_PSNR_TOL_DB):
+                raise AssertionError(f"orient4 RD gate: bytes {100 * d_bytes:+.3f} % (limit "
+                                     f"{100 * RD_BYTES_TOL} %), PSNR deltas {deltas} (limit "
+                                     f"{RD_PSNR_TOL_DB} dB)")
+        _, t_dec, _ = decode_checked(dev, stream, recon, f"segmentation options {name}")
+        print(f"segmentation options {name} decode: {t_dec:.4f} s/frame, equal to the "
+              "encoder's reconstruction")
+
+    # 45. X's entries and F's new entry == their plain versions on the
+    # largest call of the main path, timed in turns
+    rows = {}
+    _, args, kw = calls["orient_viewpoint"]
+    entries = {
+        "orient_viewpoint": (lambda: normals.orient_normals_viewpoint(*args, **kw),
+                             lambda: normals.orient_normals_viewpoint_plain(*args, **kw),
+                             args, 20, 3),
+    }
+    _, f_args, f_kw = calls["orient"]
+    entries["orient"] = (
+        lambda: (normals.orient_normals_spanning_tree(*f_args, **f_kw),
+                 normals.last_flood_sweeps),
+        lambda: normals.orient_normals_spanning_tree_plain(*f_args, **f_kw),
+        (*f_args, f_kw.get("pad_rows", False)), 5, 1)
+    _, h_args, h_kw = calls["high_gradient_aux"]
+    entries["high_gradient_aux"] = (lambda: segmentation.high_gradient_aux(*h_args),
+                                    lambda: segmentation.high_gradient_aux_plain(*h_args),
+                                    h_args, 20, 3)
+    for kname, (k_fn, p_fn, b_args, reps_k, reps_p) in entries.items():
+        got, want = k_fn(), p_fn()
+        torch.cuda.synchronize()
+        extra = f", {b_args[0].shape[0]} rows"
+        if kname == "orient":
+            if got[1] != want[1]:
+                raise AssertionError(f"orient: {got[1]} flood sweeps, plain {want[1]}")
+            extra += f", {got[1]} sweeps signed voxels, pad_rows {b_args[-1]}"
+            got, want = got[0], want[0]
+        err = max_abs_err(tuple(got), tuple(want)) if isinstance(got, tuple) \
+            else max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{kname}: kernel differs from its plain version "
+                                 f"(max abs err {err})")
+        (k1, k2), (p1, p2) = time_turns(k_fn, p_fn, reps_k=reps_k, reps_p=reps_p)
+        b_ms, b_by = bounds(kname, b_args, got)
+        print(f"{kname}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}){extra}")
+        rows[kname] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                           bound_by=b_by, max_abs_err=err, library_ms=None)
+    return rows, launches
+
+
 def scalar_library_ms(paint_args, gather_args):
     """(index_put_ ms, advanced indexing ms): one PyTorch call each for what
     kernel P's scalar paint and gather compute (timed here, used nowhere in
@@ -2620,6 +2916,7 @@ def main() -> int:
     ll_rows, ll_launches = lossless_phase(dev, frames)
     tools_rows, tools_launches = tools_phase(dev, frames)
     ao_rows, ao_launches = attr_options_phase(dev, frames)
+    so_rows, so_launches = seg_options_phase(dev, frames)
     rows.update(front_rows)
     rows.update(geo_rows)
     rows.update(enc_rows)
@@ -2628,6 +2925,7 @@ def main() -> int:
     rows.update(ll_rows)
     rows.update(tools_rows)
     rows.update(ao_rows)
+    rows.update(so_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
@@ -2635,7 +2933,7 @@ def main() -> int:
                 **{k: met_launches[k] for k in METRICS_KERNELS},
                 **{k: vox_launches[c] for k, c in VOX11_ROWS.items()},
                 **{k: ll_launches[k] for k in LOSSLESS_KERNELS},
-                **tools_launches, **ao_launches}
+                **tools_launches, **ao_launches, **so_launches}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

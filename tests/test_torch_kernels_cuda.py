@@ -749,3 +749,82 @@ def test_attr_scalar_kernel(cuda):
     img0, img1 = got[0].contiguous(), got[1].contiguous()
     _same(pipeline.gather_decoded_scalar(pix, layer, img0, img1),
           pipeline.gather_decoded_scalar_plain(pix, layer, img0, img1))
+
+
+def test_orient_viewpoint_kernel(cuda):
+    """Kernel X's viewpoint pass on a sphere's normals at two viewpoints, and
+    on rows whose dot is exactly 0 or one ulp either side."""
+    p, idx, valid = _voxel_graph(cuda)
+    n = normals.pca_normals_plain(p, idx, valid)
+    for vp in ((0.0, 0.0, 0.0), (512.25, -40.0, 900.5)):
+        before = dev.LAUNCHES["orient_viewpoint"]
+        got = normals.orient_normals_viewpoint(n, p, vp)
+        assert dev.LAUNCHES["orient_viewpoint"] == before + 1
+        _same(got, normals.orient_normals_viewpoint_plain(n, p, vp))
+    one = np.float32(1.0)
+    n1 = [one, np.nextafter(one, np.float32(2)), np.nextafter(one, np.float32(0))]
+    nc = torch.as_tensor(np.array([[1.0, v, 0.5] for v in n1], np.float32), device=cuda)
+    pc = torch.tensor([[7, 10, 4]] * 3, dtype=torch.int32, device=cuda)
+    got = normals.orient_normals_viewpoint(nc, pc, (10.0, 7.0, 4.0))
+    _same(got, normals.orient_normals_viewpoint_plain(nc, pc, (10.0, 7.0, 4.0)))
+    assert got[:, 0].sign().tolist() == [1.0, -1.0, 1.0]
+
+
+def _chain(cuda, n):
+    """A chain of n rows, row i's one neighbour row i - 1, row 0 the seed:
+    the flood needs n - 1 sweeps."""
+    pos = torch.zeros((n, 3), dtype=torch.int32, device=cuda)
+    pos[:, 0] = torch.arange(n - 1, -1, -1, device=cuda)
+    nrm = torch.tensor([[0.0, 0.6, 0.8]], device=cuda).repeat(n, 1)
+    nrm[1::2] *= -1
+    idx = (torch.arange(n, device=cuda) - 1).clamp(min=0).to(torch.int32)[:, None].repeat(1, 4)
+    val = torch.zeros((n, 4), dtype=torch.bool, device=cuda)
+    val[1:, 0] = True
+    return pos, nrm, idx.contiguous(), val
+
+
+@pytest.mark.parametrize("case", ["sphere", "wrapped", "chain", "capped"])
+def test_orient_flood_kernel(cuda, case):
+    """Kernel X's flood against its plain version: the sphere (keys of
+    z >= 512 wrap, so the seed is the highest point below), the sphere
+    lifted so that every key wraps (the padded rows win: all radial), a
+    chain the flood walks in 199 sweeps, and one of 400 rows that the
+    256-sweep cap cuts (the rest radial)."""
+    if case in ("sphere", "wrapped"):
+        p, idx, valid = _voxel_graph(cuda)
+        if case == "wrapped":   # z in 512..812: every key wraps negative
+            p = p.clone()
+            p[:, 2] = 512 + (p[:, 2] - p[:, 2].min()) // 2
+        n = normals.pca_normals_plain(p, idx, valid)
+        pad = True
+    else:
+        p, n, idx, valid = _chain(cuda, 200 if case == "chain" else 400)
+        pad = False
+    rows = torch.ones(p.shape[0], dtype=torch.bool, device=cuda)
+    want = normals.orient_normals_spanning_tree_plain(p, n, idx, valid, rows, pad)
+    before = dev.LAUNCHES["orient"]
+    got = normals.orient_normals_spanning_tree(p, n, idx, valid, rows, pad)
+    assert dev.LAUNCHES["orient"] > before + 3
+    _same(got, want[0])
+    assert normals.last_flood_sweeps == want[1]
+    expect = {"wrapped": 0, "chain": 199, "capped": 256}
+    if case in expect:
+        assert want[1] == expect[case]
+
+
+@pytest.mark.parametrize("mode", [0, 1, 4])
+def test_high_gradient_aux_kernel(cuda, mode):
+    """Kernel F's high-gradient entry: random normals and partitions at J =
+    6, 10 and 18, with rows on the bisector of two orientations."""
+    rng = np.random.default_rng(mode)
+    o = segmentation.get_orientations(mode)
+    n = rng.normal(size=(50000, 3)).astype(np.float32)
+    n[::4] = (o[rng.integers(0, len(o), 12500)] + o[rng.integers(0, len(o), 12500)])
+    part = rng.integers(0, len(o), 50000).astype(np.int32)
+    t = [torch.as_tensor(a, device=cuda) for a in (n, part, o)]
+    before = dev.LAUNCHES["high_gradient_aux"]
+    got = segmentation.high_gradient_aux(*t)
+    assert dev.LAUNCHES["high_gradient_aux"] == before + 1
+    want = segmentation.high_gradient_aux_plain(*t)
+    _same(got[0], want[0])
+    _same(got[1], want[1])

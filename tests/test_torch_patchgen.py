@@ -306,23 +306,24 @@ def test_encoder_device_policy_and_unsupported_options():
         with pytest.raises(RuntimeError, match="CUDA"):
             Encoder()
     assert Encoder(device="cpu").device == torch.device("cpu")
-    for k, v in (("highGradientSeparation", 1), ("enablePointCloudPartitioning", 1),
-                 ("globalPatchAllocation", 1), ("normalOrientation", 2),
-                 ("numMaxTilePerFrame", 2)):
+    for k, v in (("globalPatchAllocation", 1), ("numMaxTilePerFrame", 2)):
         cfg = VPCCConfig()
         setattr(cfg, k, v)
         with pytest.raises(NotImplementedError):
             Encoder(cfg, device="cpu")
-    # the lossless conditions' tools and the decoder-signalled
-    # reconstruction tools are ported
-    for k in ("enhancedOccupancyMapCode", "rawPointsPatch", "useRawPointsSeparateVideo",
-              "pointLocalReconstruction", "pbfEnableFlag", "flagColorSmoothing"):
+    # the lossless conditions' tools, the decoder-signalled reconstruction
+    # tools and the segmentation options are ported
+    for k, v in (("enhancedOccupancyMapCode", 1), ("rawPointsPatch", 1),
+                 ("useRawPointsSeparateVideo", 1), ("pointLocalReconstruction", 1),
+                 ("pbfEnableFlag", 1), ("flagColorSmoothing", 1),
+                 ("highGradientSeparation", 1), ("enablePointCloudPartitioning", 1),
+                 ("normalOrientation", 0), ("normalOrientation", 2),
+                 ("normalOrientation", 3), ("normalOrientation", 4)):
         cfg = VPCCConfig()
-        setattr(cfg, k, 1)
-        assert getattr(Encoder(cfg, device="cpu").cfg, k) == 1
+        setattr(cfg, k, v)
+        assert getattr(Encoder(cfg, device="cpu").cfg, k) == v
     from vpcc_tpu_torch.core import packing
 
     cfg = VPCCConfig()
-    cfg.packingStrategy = 2
-    with pytest.raises(NotImplementedError):
-        packing.pack_flexible([], cfg)
+    cfg.packingStrategy = 2   # tetris packing: an empty patch list packs to the minimum
+    assert packing.pack_flexible([], cfg) == (cfg.minimumImageWidth, cfg.minimumImageHeight)

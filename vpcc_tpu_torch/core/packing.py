@@ -1,6 +1,6 @@
 """Patch packing onto the atlas canvas (host numpy/scipy).
 
-A copy of `match_patches` and `pack_flexible` from
+A copy of `match_patches`, `pack_flexible` and `pack_tetris` from
 `vpcc_tpu/core/packing.py`.  Behavioral reference:
 `PCCEncoder::packFlexible` (source/lib/PccLibEncoder/source/PCCEncoder.cpp:
 2306-2450) and the match step of spatialConsistencyPackFlexible (:1183):
@@ -9,6 +9,8 @@ preference-ordered list of orientations, growing the canvas when nothing
 fits.  Each patch's valid placements come from one 2D correlation of the
 canvas block occupancy with the patch rectangle (the same scipy
 `fftconvolve` call as the reference, so the same float rounding).
+packingStrategy=2 is the skyline ("tetris") packing of
+`PCCEncoder::packTetris` (:3258).
 """
 
 from __future__ import annotations
@@ -118,9 +120,7 @@ def pack_flexible(
     Returns the (width, height) in pixels (height a multiple of 256).
     Mutates the patches in place, in sorted packing order."""
     if cfg.packingStrategy == 2:
-        raise NotImplementedError(
-            "packingStrategy=2 (tetris packing) is not ported yet (ROADMAP "
-            "queue 1)")
+        return pack_tetris(patches, cfg, preset_height)
     res = cfg.occupancyResolution
     strategy = cfg.packingStrategy
     if strategy == 0:
@@ -197,6 +197,70 @@ def pack_flexible(
         fw, fh = p.canvas_footprint()
         used_rows = max(used_rows, p.v0 + fh)
     height_blk = max(used_rows, (cfg.minimumImageHeight if preset_height == 0 else preset_height) // res)
+    width = width_blk * res
+    height = ((height_blk * res + 255) // 256) * 256
+    return width, height
+
+
+def pack_tetris(patches: List[Patch], cfg: VPCCConfig, preset_height: int = 0) -> Tuple[int, int]:
+    """Skyline ("tetris") packing (reference `pack_tetris`,
+    vpcc_tpu/core/packing.py:229-304; PCCEncoder::packTetris,
+    PCCEncoder.cpp:3258): patches drop onto a per-column horizon; each
+    placement picks the (orientation, column) minimizing the new skyline
+    peak, then the trapped waste underneath, then the orientation's rank
+    and the column.  A matched patch keeps its reference-frame position
+    when its rectangle sits on or above the skyline there
+    (spatialConsistencyPackTetris, :1414).  Placements always sit on top
+    of the skyline, so a later patch's rectangle never covers an earlier
+    patch's occupied blocks."""
+    res = cfg.occupancyResolution
+    patches.sort(
+        key=lambda p: (-max(p.size_u0, p.size_v0), -min(p.size_u0, p.size_v0), p.index)
+    )
+    # matched patches first: their preferred spots stay reachable
+    patches.sort(key=lambda p: (p.pref_u0 < 0,))
+    width_blk = max(cfg.minimumImageWidth, 64) // res
+    for p in patches:
+        width_blk = max(width_blk, p.size_u0 + 1)
+    horizon = np.zeros(width_blk, np.int64)
+
+    for p in patches:
+        bo = p.block_occupancy()
+        if p.pref_u0 >= 0:
+            fp = _orient_footprint(bo, p.pref_orientation)
+            fh, fw = fp.shape
+            x = p.pref_u0
+            if x + fw <= width_blk and int(horizon[x : x + fw].max()) <= p.pref_v0:
+                p.u0, p.v0, p.orientation = x, p.pref_v0, p.pref_orientation
+                horizon[x : x + fw] = p.pref_v0 + fh
+                continue
+        pref = ORIENT_HORIZONTAL if p.size_u0 > p.size_v0 else ORIENT_VERTICAL
+        orients = pref[: (8 if cfg.useEightOrientations else 2)]
+        best = None  # (peak, waste, rank, x, o, fp)
+        for rank, o in enumerate(orients):
+            fp = _orient_footprint(bo, o)
+            fh, fw = fp.shape
+            if fw > width_blk:
+                continue
+            cols = np.arange(width_blk - fw + 1)
+            # peak(x) = max(horizon[x:x+fw]) and the waste under it
+            sw = np.lib.stride_tricks.sliding_window_view(horizon, fw)
+            peak = sw.max(axis=1)
+            waste = (peak[:, None] - sw).sum(axis=1)
+            x = int(np.lexsort((cols, waste, peak))[0])
+            cand = (int(peak[x]) + fh, int(waste[x]), rank, x, o, fp)
+            if best is None or cand[:3] < best[:3]:
+                best = cand
+        _, _, _, x, o, fp = best
+        fh, fw = fp.shape
+        y = int(horizon[x : x + fw].max())
+        p.u0, p.v0, p.orientation = x, y, o
+        horizon[x : x + fw] = y + fh
+
+    used_rows = int(horizon.max())
+    height_blk = max(
+        used_rows, (cfg.minimumImageHeight if preset_height == 0 else preset_height) // res
+    )
     width = width_blk * res
     height = ((height_blk * res + 255) // 256) * 256
     return width, height

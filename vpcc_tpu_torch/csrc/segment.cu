@@ -3,14 +3,18 @@
 // Replaces the XLA programs vpcc_tpu/ops/normals.py `pca_normals` (:72-91)
 // with `_smallest_eigenvector_sym3` (:27-68), `orient_normals` (:95-119),
 // and vpcc_tpu/ops/segmentation.py `initial_segmentation` (:113-124) and
-// `refine_segmentation` (:146-169).  Five entry points, one thread per
-// voxel each:
+// `refine_segmentation` (:146-169), and `high_gradient_aux` (:128-143).  Six
+// entry points, one thread per voxel each:
 //   pca_normals     gather the k neighbours, mean, 3x3 covariance, closed-form
 //                   smallest eigenvector (one launch);
 //   orient_init     radial sign from the centroid (one launch);
 //   orient_step     one sign-consensus sweep (launched 8 times, ping-pong);
 //   initial_segmentation  argmax over the J orientations (one launch);
-//   refine_step     one smoothness sweep (launched 10 times, ping-pong).
+//   refine_step     one smoothness sweep (launched 10 times, ping-pong);
+//   high_gradient_aux  per voxel the first argmax of the J scores with the
+//                   assigned orientation's lowered by 1e9 (alt), and whether
+//                   the assigned score is <= 0.577 (weak); one launch, for
+//                   highGradientSeparation.
 //
 // Float32 in the reference's operation order, with a fused multiply-add
 // exactly where XLA's CPU backend contracts one (found by comparing with
@@ -216,6 +220,33 @@ __global__ void refine_step_kernel(const float* __restrict__ normals,
   part_out[i] = arg;
 }
 
+__global__ void high_gradient_aux_kernel(const float* __restrict__ normals,
+                                         const float* __restrict__ orients,
+                                         const int32_t* __restrict__ part, int V, int J,
+                                         int32_t* __restrict__ alt,
+                                         uint8_t* __restrict__ weak) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= V) return;
+  const float* nrm = normals + 3 * static_cast<long long>(i);
+  const int p = part[i];
+  float best = 0.f, org = 0.f;
+  int arg = 0;
+  for (int j = 0; j < J; ++j) {
+    const float sc = dot3(nrm, orients + 3 * j);
+    float m = sc;
+    if (j == p) {   // score - 1e9 * onehot: only the assigned column moves
+      org = sc;
+      m = sub(sc, 1e9f);
+    }
+    if (j == 0 || m > best) {
+      best = m;
+      arg = j;
+    }
+  }
+  alt[i] = arg;
+  weak[i] = org <= 0.577f ? 1 : 0;   // the float32 constant 0.577
+}
+
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
 
 }  // namespace
@@ -273,5 +304,18 @@ extern "C" int refine_step(const float* normals, const int32_t* nn_idx,
   if (J < 1 || J > kMaxJ) return static_cast<int>(cudaErrorInvalidValue);
   refine_step_kernel<<<blocks_for(V, 128), 128, 0, static_cast<cudaStream_t>(stream)>>>(
       normals, nn_idx, nn_valid, V, K, orients, J, lambda, part_in, part_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// normals (V, 3), orients (J, 3) float32, part (V,) int32 -> alt (V,) int32,
+// weak (V,) bool.  One launch.
+extern "C" int high_gradient_aux(const float* normals, const float* orients,
+                                 const int32_t* part, int V, int J, int32_t* alt,
+                                 uint8_t* weak, void* stream) {
+  if (V == 0) return 0;
+  if (J < 1 || J > kMaxJ) return static_cast<int>(cudaErrorInvalidValue);
+  high_gradient_aux_kernel<<<blocks_for(V, 256), 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      normals, orients, part, V, J, alt, weak);
   return static_cast<int>(cudaGetLastError());
 }

@@ -75,16 +75,18 @@ KERNELS: Dict[str, list] = {
     "pbf": ["--fmad=false"],
     "plr": [],
     "bg_fill": ["--fmad=false"],
+    "orient": ["--fmad=false"],
 }
 
 # entries of a kernel's library counted apart from it: the unpacked-table
 # k-NN of kernel E (grids above 10 bits), kernel C with EOM layers and with
 # PLR layers, kernel R's float32 D1 sum, kernel V's RDO, kernel L's push over
-# a stack, kernel W's dilation and its pull/relaxation, and kernel P's scalar
-# paint and gather
+# a stack, kernel W's dilation and its pull/relaxation, kernel P's scalar
+# paint and gather, kernel X's viewpoint orientation (its flood counts as
+# "orient") and kernel F's high-gradient aux
 ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "metrics_d2_f32",
            "plr_rdo", "push_levels", "bg_dilate", "bg_relax", "attr_paint_scalar",
-           "attr_gather_scalar")
+           "attr_gather_scalar", "orient_viewpoint", "high_gradient_aux")
 LAUNCHES: Dict[str, int] = {k: 0 for k in (*KERNELS, *ENTRIES)}
 # ptxas resource lines of each build (registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}

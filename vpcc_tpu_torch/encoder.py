@@ -67,12 +67,14 @@ from vpcc_tpu_torch.core import atlas as atlas_mod
 from vpcc_tpu_torch.core import packing
 from vpcc_tpu_torch.core.patch import Patch, build_patch_from_component
 from vpcc_tpu_torch.ops import cc as cc_mod
-from vpcc_tpu_torch.ops import coverage, neighbors, padding, pbf, plr, recolor, voxelize
+from vpcc_tpu_torch.ops import coverage, neighbors, padding, pbf, plr, recolor, separation
+from vpcc_tpu_torch.ops import voxelize
 from vpcc_tpu_torch.ops import smoothing as smoothing_mod
 from vpcc_tpu_torch.ops import normals as normals_mod
 from vpcc_tpu_torch.ops.reconstruct import Points
 from vpcc_tpu_torch.ops.segmentation import (
     get_orientations,
+    high_gradient_aux,
     initial_segmentation,
     partition_to_view,
     refine_segmentation,
@@ -111,6 +113,14 @@ class Segmentation:
     nn_valid: torch.Tensor           # (V, K) bool
     point_vox: Optional[torch.Tensor]  # (N,) int32, None without voxels
     positions: torch.Tensor          # (N, 3) int32 source points
+    # highGradientSeparation: the voxel normals and orientations (to redo
+    # the aux for a replaced partition) and, per point, the best other
+    # orientation (int32) and the weak-normal flag (bool); `hg_host` holds
+    # the two on the host once `segment_fetch` has fetched them
+    normals: Optional[torch.Tensor] = None
+    orients: Optional[torch.Tensor] = None
+    hg: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    hg_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
 
 @dataclasses.dataclass
@@ -191,25 +201,21 @@ class Encoder:
         self.device = dev.resolve_device(device)
         self._height_hint = 0  # GOF height ratchet (largest height so far)
         cfg = self.cfg
-        for flag, what in (
-            ("highGradientSeparation", "highGradientSeparation"),
-            ("enablePointCloudPartitioning", "enablePointCloudPartitioning"),
-            ("globalPatchAllocation", "globalPatchAllocation"),
-        ):
-            if getattr(cfg, flag):
-                raise _unsupported(what)
+        if cfg.globalPatchAllocation:
+            raise _unsupported("globalPatchAllocation")
         if int(getattr(cfg, "numMaxTilePerFrame", 1)) > 1:
             raise _unsupported("numMaxTilePerFrame > 1 (multi-tile atlases)")
-        if int(cfg.normalOrientation) != 1:
-            raise _unsupported(f"normalOrientation={cfg.normalOrientation}")
 
     # ------------------------------------------------------------------
     def segment_dispatch(self, pc_host: PointCloudData) -> Segmentation:
-        """Voxelize, k-NN, normals, initial + refined segmentation, all on
-        the device (reference `segment_dispatch`, encoder.py:81-145).  With
-        gridBasedSegmentation (reference convertPointsToVoxels,
-        PCCPatchSegmenter.cpp:152) they run on the voxel cloud and the
-        partitions are gathered back to points."""
+        """Voxelize, k-NN, normals (oriented by normalOrientation, toward
+        the cfg's viewPointX/Y/Z where it has them), initial + refined
+        segmentation and, with highGradientSeparation, the separation's
+        per-voxel aux, all on the device (reference `segment_dispatch`,
+        encoder.py:81-145).  With gridBasedSegmentation (reference
+        convertPointsToVoxels, PCCPatchSegmenter.cpp:152) they run on the
+        voxel cloud and the per-voxel results are gathered back to
+        points."""
         cfg = self.cfg
         d = self.device
         pos = torch.as_tensor(np.asarray(pc_host.positions, np.int32), device=d)
@@ -227,7 +233,9 @@ class Encoder:
         nn_idx, nn_d2 = neighbors.knn(grid, positions, k=k, bucket=6)
         nn_valid = nn_d2 < neighbors.MAX_DIST2
         valid_rows = torch.ones(positions.shape[0], dtype=torch.bool, device=d)
-        nrm = normals_mod.compute_normals(positions, nn_idx, nn_valid, valid_rows)
+        nrm = normals_mod.compute_normals(
+            positions, nn_idx, nn_valid, valid_rows, mode=int(cfg.normalOrientation),
+            viewpoint=tuple(float(getattr(cfg, f"viewPoint{a}", 0.0)) for a in "XYZ"))
         orients = torch.as_tensor(get_orientations(cfg.additionalProjectionPlaneMode), device=d)
         nw = np.ones(orients.shape[0], np.float32)
         nw[0] = nw[3] = cfg.weightNormalX
@@ -239,13 +247,32 @@ class Encoder:
             cfg.lambdaRefineSegmentation, cfg.iterationCountRefineSegmentation,
         )
         part_pt = voxelize.gather_point_values(part, point_vox) if shift else part
-        return Segmentation(part_pt, part, nn_idx, nn_valid, point_vox, pos)
+        seg = Segmentation(part_pt, part, nn_idx, nn_valid, point_vox, pos)
+        if cfg.highGradientSeparation:
+            seg = dataclasses.replace(seg, normals=nrm, orients=orients)
+            seg = dataclasses.replace(seg, hg=self._hg_aux(seg))
+        return seg
+
+    @staticmethod
+    def _hg_aux(seg: Segmentation) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per point (alt, weak) of `high_gradient_aux` on the voxel normals
+        and partition (reference encoder.py:146-152)."""
+        alt, weak = high_gradient_aux(seg.normals, seg.part, seg.orients)
+        if seg.point_vox is None:
+            return alt, weak
+        return (voxelize.gather_point_values(alt, seg.point_vox),
+                voxelize.gather_point_values(weak, seg.point_vox))
 
     @staticmethod
     def segment_fetch(seg: Segmentation):
         """(partition per point as numpy, the device graph, N): only the
-        (N,) partitions leave the device."""
-        part = seg.part_pt.cpu().numpy()
+        (N,) partitions (and, with highGradientSeparation, the (N,) aux)
+        leave the device.  The partition is a writable copy: the separation
+        rewrites it on the host, never the device partition."""
+        part = np.array(seg.part_pt.cpu().numpy())
+        if seg.hg is not None:
+            seg = dataclasses.replace(seg, hg_host=(seg.hg[0].cpu().numpy(),
+                                                    seg.hg[1].cpu().numpy()))
         return part, seg, part.shape[0]
 
     def segment(self, pc_host: PointCloudData):
@@ -255,11 +282,15 @@ class Encoder:
     @staticmethod
     def with_partition(seg: Segmentation, part_vox: torch.Tensor) -> Segmentation:
         """`seg` with its voxel partition replaced (e.g. by the reference's,
-        to drive patch generation with given partitions)."""
+        to drive patch generation with given partitions); the
+        high-gradient aux, where `seg` has it, is computed anew for it."""
         part = part_vox.to(device=seg.part.device, dtype=torch.int32)
         part_pt = (part if seg.point_vox is None
                    else voxelize.gather_point_values(part, seg.point_vox))
-        return dataclasses.replace(seg, part=part, part_pt=part_pt)
+        seg = dataclasses.replace(seg, part=part, part_pt=part_pt, hg_host=None)
+        if seg.hg is not None:
+            seg = dataclasses.replace(seg, hg=Encoder._hg_aux(seg))
+        return seg
 
     # ------------------------------------------------------------------
     def generate_patches(self, pc_host: PointCloudData, partition: np.ndarray,
@@ -285,6 +316,16 @@ class Encoder:
             if p is not None:
                 new_patches.append(p)
         return new_patches
+
+    def _separate(self, comps, positions, partition, g: Segmentation):
+        """With highGradientSeparation, the round's components after the
+        high-gradient separation (reference encoder.py:270-275); `partition`
+        takes the moved points' new orientation."""
+        if not self.cfg.highGradientSeparation or g.hg_host is None:
+            return comps
+        comps, _ = separation.separate_high_gradient(
+            comps, positions, partition, g.hg_host[0], g.hg_host[1], self.cfg)
+        return comps
 
     def _generate_patches_volume(self, pc_host, partition, dev_graph: Segmentation):
         """Up to four rounds: connected components of the not-yet-covered
@@ -334,6 +375,7 @@ class Encoder:
                 labels_pt, seeds, cfg.minPointCountPerCCPatchSegmentation, sentinel=vcap)
             if not comps:
                 break
+            comps = self._separate(comps, positions, partition, g)
             new_patches = self._build_components(positions, colors, partition, comps, patches)
             if not new_patches:
                 break
@@ -386,6 +428,7 @@ class Encoder:
                 sentinel=vcap)
             if not comps:
                 break
+            comps = self._separate(comps, positions, partition, g)
             new_patches = self._build_components(positions, colors, partition, comps, patches)
             if not new_patches:
                 break
@@ -407,6 +450,74 @@ class Encoder:
         return patches, dist2
 
     # ------------------------------------------------------------------
+    def _roi_boxes(self, pc_host: PointCloudData):
+        """ROI bounding boxes (reference `_roi_boxes`, encoder.py:370-407):
+        the explicit cfg lists when given, else auto-cuts along the sorted
+        longest axes (reference enablePointCloudPartitioning /
+        numCutsAlong*Axis, PCCPatchSegmenter.cpp:615-780)."""
+        cfg = self.cfg
+        if cfg.roiBoundingBoxMinX:
+            return [
+                (np.array([x0, y0, z0]), np.array([x1, y1, z1]))
+                for x0, x1, y0, y1, z0, z1 in zip(
+                    cfg.roiBoundingBoxMinX, cfg.roiBoundingBoxMaxX,
+                    cfg.roiBoundingBoxMinY, cfg.roiBoundingBoxMaxY,
+                    cfg.roiBoundingBoxMinZ, cfg.roiBoundingBoxMaxZ,
+                )
+            ]
+        pos = pc_host.positions.astype(np.int64)
+        lo, hi = pos.min(0), pos.max(0)
+        axes = np.argsort(-(hi - lo))  # longest first
+        cuts = [max(int(cfg.numCutsAlong1stLongestAxis), 0),
+                max(int(cfg.numCutsAlong2ndLongestAxis), 0),
+                max(int(cfg.numCutsAlong3rdLongestAxis), 0)]
+        boxes = [(lo.copy(), hi.copy())]
+        for axis_rank, ncut in enumerate(cuts):
+            if ncut == 0:
+                continue
+            ax = int(axes[axis_rank])
+            nseg = ncut + 1
+            edges = np.linspace(lo[ax], hi[ax] + 1, nseg + 1).astype(np.int64)
+            nxt = []
+            for b0, b1 in boxes:
+                for k in range(nseg):
+                    c0, c1 = b0.copy(), b1.copy()
+                    c0[ax] = edges[k]
+                    c1[ax] = edges[k + 1] - 1
+                    nxt.append((c0, c1))
+            boxes = nxt
+        return boxes
+
+    def _partitioned_pregen(self, pc_host: PointCloudData):
+        """ROI partitioning (reference `_partitioned_pregen`,
+        encoder.py:409-440): segmentation and patch generation run per ROI
+        chunk on its sub-cloud (`self.segment`, `self.generate_patches`),
+        patch indices are renumbered over the frame and the chunks' coverage
+        distances merged into the frame's; a chunk below
+        minPointCountPerCCPatchSegmentation is skipped, its points left at
+        inf (the raw-points patch takes them).  Overlapping boxes duplicate
+        patches, as in the reference (ROADMAP F3).  Returns (patches,
+        cover_dist2)."""
+        cfg = self.cfg
+        pos = pc_host.positions.astype(np.int64)
+        dist2 = np.full(pc_host.point_count, np.inf)
+        patches: List[Patch] = []
+        for b0, b1 in self._roi_boxes(pc_host):
+            sel = np.nonzero(np.all((pos >= b0) & (pos <= b1), axis=1))[0]
+            if len(sel) < cfg.minPointCountPerCCPatchSegmentation:
+                continue
+            sub = PointCloudData(
+                pc_host.positions[sel],
+                None if pc_host.colors is None else pc_host.colors[sel],
+            )
+            partition, dev_graph, _ = self.segment(sub)
+            sub_patches, sub_d2 = self.generate_patches(sub, partition, dev_graph)
+            for p in sub_patches:
+                p.index = len(patches)
+                patches.append(p)
+            dist2[sel] = sub_d2
+        return patches, dist2
+
     def encode_frame_front(self, pc_host: PointCloudData,
                            prev_patches: Optional[List[Patch]] = None,
                            seg: Optional[Segmentation] = None) -> FrontEndFrame:
@@ -417,18 +528,27 @@ class Encoder:
         under the GOF's height ratchet, rasterization, the occupancy video
         and the block-to-patch map from the decoded occupancy.  The
         occupancy codec is lossless, so the decoded occupancy is the
-        upsampled occupancy video; `encode_frame_geometry` calls it."""
+        upsampled occupancy video; `encode_frame_geometry` calls it.  With
+        enablePointCloudPartitioning the ROI chunks are segmented and their
+        patches generated one by one (`_partitioned_pregen`; `seg` must be
+        None), and the stage split counts both stages as segmentation."""
         cfg = self.cfg
         st = EncoderStats(point_count=pc_host.point_count)
         t0 = time.perf_counter()
-        if seg is None:
-            seg = self.segment_dispatch(pc_host)
-        partition, dev_graph, _ = self.segment_fetch(seg)
-        st.segmentation_s = time.perf_counter() - t0
-
-        t = time.perf_counter()
-        patches, cover_dist2 = self.generate_patches(pc_host, partition, dev_graph)
-        st.patchgen_s = time.perf_counter() - t
+        if cfg.enablePointCloudPartitioning:
+            if seg is not None:
+                raise ValueError("enablePointCloudPartitioning segments each ROI chunk "
+                                 "itself: pass no segmentation")
+            patches, cover_dist2 = self._partitioned_pregen(pc_host)
+            st.segmentation_s = time.perf_counter() - t0
+        else:
+            if seg is None:
+                seg = self.segment_dispatch(pc_host)
+            partition, dev_graph, _ = self.segment_fetch(seg)
+            st.segmentation_s = time.perf_counter() - t0
+            t = time.perf_counter()
+            patches, cover_dist2 = self.generate_patches(pc_host, partition, dev_graph)
+            st.patchgen_s = time.perf_counter() - t
 
         t = time.perf_counter()
         if prev_patches and cfg.constrainedPack:
@@ -655,8 +775,10 @@ class Encoder:
         if qp_offset_geo is None:
             qp_offset_geo = qp_offset
         t0 = time.perf_counter()
-        if seg is None:
+        if seg is None and not cfg.enablePointCloudPartitioning:
             seg = self.segment_dispatch(pc_host)
+        src_pos = seg.positions if seg is not None else torch.as_tensor(
+            np.asarray(pc_host.positions, np.int32), device=self.device)
         t_seg = time.perf_counter() - t0
         g = self.encode_frame_geometry(pc_host, streams, prev_patches=prev_patches, seg=seg,
                                        temporal_refs=temporal_refs, qp_offset_geo=qp_offset_geo)
@@ -672,7 +794,7 @@ class Encoder:
                     raw_colors = pc_host.colors[raw_sel]
 
         t = time.perf_counter()
-        col = self.recolor(seg.positions, pc_host.colors, g.recon)
+        col = self.recolor(src_pos, pc_host.colors, g.recon)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         st.recolor_s = time.perf_counter() - t
@@ -706,7 +828,7 @@ class Encoder:
         if pc_host.reflectances is not None:
             src_refl = torch.as_tensor(np.asarray(pc_host.reflectances).astype(np.int32),
                                        device=self.device)
-            refl = recolor.transfer_reflectance(seg.positions, src_refl, g.recon.pos,
+            refl = recolor.transfer_reflectance(src_pos, src_refl, g.recon.pos,
                                                 grid_bits=cfg.geometryBitDepth3D)
             layers = pipeline.paint_scalar(g.recon.pix, g.recon.layer, refl, fr.height,
                                            fr.width)

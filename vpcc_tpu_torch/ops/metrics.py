@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from vpcc_tpu_torch import device as dev
+from vpcc_tpu_torch.core.pointcloud import shape_bucket
 from vpcc_tpu_torch.ops import neighbors, normals as normals_mod
 
 
@@ -100,17 +101,6 @@ def metrics_reduce_plain(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a: 
 
 
 _BLOCKS_MAX = 1024
-
-
-def shape_bucket(n: int, minimum: int = 8192) -> int:
-    """The reference's padded length of an n-row cloud (a copy of
-    `shape_bucket` in vpcc_tpu/core/pointcloud.py): the next capacity >= n
-    on the {2^k, 3 * 2^(k-1)} ladder, at least `minimum`."""
-    n = max(n, minimum)
-    p = 1 << (n - 1).bit_length()
-    if n <= (p // 4) * 3:
-        return (p // 4) * 3
-    return p
 
 
 def xla_windows(m: int) -> list:

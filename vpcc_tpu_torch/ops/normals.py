@@ -1,10 +1,12 @@
-"""Normal estimation: PCA over k-NN neighbourhoods (K10, kernel F).
+"""Normal estimation: PCA over k-NN neighbourhoods (K10, kernels F and X).
 
 Behavioral reference: `vpcc_tpu/ops/normals.py` (the reference's
 `PCCNormalsGenerator3`, PCCNormalsGenerator.cpp:61-185): per-voxel
-covariance of the k nearest neighbours, closed-form smallest eigenvector,
-then orientation by a radially-outward start and 8 neighbour
-sign-consensus sweeps (`normalOrientation=1`).
+covariance of the k nearest neighbours, closed-form smallest eigenvector
+(kernel F), then the orientation of `normalOrientation`: 0 none; 1 and 3 a
+radially-outward start and 8 neighbour sign-consensus sweeps (kernel F);
+2 toward a viewpoint (kernel X); 4 the spanning-tree flood from the highest
+point (kernel X).
 
 Float32 in the reference's operation order, with `device.fma_f32` where
 XLA's CPU backend contracts a multiply into an add (see csrc/segment.cu).
@@ -23,10 +25,14 @@ import numpy as np
 import torch
 
 from vpcc_tpu_torch import device as dev
+from vpcc_tpu_torch.core.pointcloud import shape_bucket
 from vpcc_tpu_torch.device import fma_f32, recip_f32
 
 _TWO_PI_3 = float(np.float32(2.0 * math.pi / 3.0))
 ORIENT_ITERATIONS = 8  # consensus sweeps (the reference's default)
+FLOOD_MAX_SWEEPS = 256  # the spanning-tree flood's cap (the reference's max_iters)
+FLOOD_VOTE_MIN = float(np.float32(1e-6))  # |vote| that signs an unsigned row
+FLOOD_CHECK_EVERY = 8  # flood sweeps launched between two reads of the device flags
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -183,9 +189,216 @@ def orient_normals(positions, normals, nn_idx, nn_valid, valid):
     return normals * sign[:, None]
 
 
-def compute_normals(positions, nn_idx, nn_valid, valid):
-    """PCA normals + orientation: the reference's `compute_normals` for
-    normalOrientation=1 (the consensus iteration), the one mode the port
-    has; `Encoder` rejects the others."""
+# ---------------------------------------------------------------------------
+# normalOrientation 2: toward a viewpoint (kernel X, `orient_viewpoint`)
+
+def orient_normals_viewpoint_plain(normals, positions, viewpoint):
+    """Plain PyTorch version of `orient_normals_viewpoint`."""
+    vp = torch.tensor([float(np.float32(v)) for v in viewpoint], dtype=torch.float32,
+                      device=normals.device)
+    to_vp = vp - positions.float()
+    sign = torch.where(dot3(normals, to_vp) < 0.0, -1.0, 1.0)
+    return normals * sign[:, None]
+
+
+_VP_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float] * 3 \
+    + [ctypes.c_void_p] * 2
+
+
+def orient_normals_viewpoint(normals, positions, viewpoint):
+    """View-point orientation (reference `orient_normals_viewpoint`,
+    vpcc_tpu/ops/normals.py:146; PCCNormalsGenerator.cpp:289-300): every
+    normal flips toward `viewpoint` (three floats, taken as float32): the
+    sign of dot(n, viewpoint - position), +1 at 0.  Kernel X on CUDA (one
+    launch); the plain version for a CPU tensor."""
+    if normals.device.type == "cpu":
+        return orient_normals_viewpoint_plain(normals, positions, viewpoint)
+    d = normals.device
+    V = normals.shape[0]
+    dev.check_tensor(normals, "normals", torch.float32, d, 2)
+    dev.check_tensor(positions, "positions", torch.int32, d, 2)
+    out = torch.empty_like(normals)
+    fn = dev.load_kernel("orient").orient_viewpoint
+    fn.argtypes, fn.restype = _VP_ARGS, ctypes.c_int
+    vx, vy, vz = (float(np.float32(v)) for v in viewpoint)
+    rc = fn(dev.ptr(normals), dev.ptr(positions), V, vx, vy, vz, dev.ptr(out),
+            dev.stream_handle())
+    dev.count_launch("orient_viewpoint", 1 if V else 0)
+    dev.check_launch("orient_viewpoint", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# normalOrientation 4: the spanning-tree flood (kernel X, `flood_*`)
+#
+# The reference runs without 64-bit integers (jax_enable_x64 is off), so its
+# seed key z * 2^22 + y * 2^11 + x is an int32 that wraps for z >= 512, and
+# its key for invalid and padded rows, int64(-1) << 60, is 0.  The port
+# reproduces both (ROADMAP F3): where every valid key is negative, the seed
+# is the first padded row, which signs nothing, and every row takes the
+# radial sign.
+
+def seed_keys(positions, valid):
+    """(V,) int64 holding the reference's int32 seed keys (wrapped); 0 for
+    invalid rows."""
+    p = positions.to(torch.int64)
+    key = (p[:, 2] << 22) + (p[:, 1] << 11) + p[:, 0]
+    key = ((key + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    return torch.where(valid, key, torch.zeros_like(key))
+
+
+def flood_seed(positions, normals, valid, pad_rows: bool):
+    """(seed row or -1, its sign): the first row of the largest key; -1 where
+    the reference's padded rows (key 0) win, which happens only when every
+    key is negative."""
+    if positions.shape[0] == 0:
+        return -1, 1.0
+    key = seed_keys(positions, valid)
+    seed = int(torch.argmax(key))   # the first maximum, as jnp.argmax
+    if pad_rows and int(key[seed]) < 0:
+        return -1, 1.0
+    return seed, (-1.0 if float(normals[seed, 2]) < 0.0 else 1.0)
+
+
+def flood_votes_plain(normals, nn_idx, nn_valid, sign):
+    """(V,) float32 votes of one sweep: sum over k of
+    dot(n[nn[k]], n) * sign[nn[k]] * mask[k], the dot as XLA's fma chain,
+    summed over k in order from 0."""
+    idx = nn_idx.long()
+    dot = dot3(normals[idx], normals[:, None, :])                   # (V, K)
+    terms = dot * sign[idx] * nn_valid.float()
+    vote = torch.zeros_like(sign)
+    for k in range(idx.shape[1]):
+        vote = vote + terms[:, k]
+    return vote
+
+
+def radial_signs(positions, normals, valid):
+    """(V,) float32 radial sign about `orientation_centroid`, +1 at 0."""
+    c = torch.tensor(orientation_centroid(positions, valid), device=normals.device)
+    return torch.where(dot3(normals, positions.float() - c) < 0.0, -1.0, 1.0)
+
+
+def orient_normals_spanning_tree_plain(positions, normals, nn_idx, nn_valid, valid,
+                                       pad_rows: bool = False):
+    """Plain PyTorch version of `orient_normals_spanning_tree`: (oriented
+    normals, sweeps that signed a row)."""
+    V = positions.shape[0]
+    seed, seed_sign = flood_seed(positions, normals, valid, pad_rows)
+    sign = torch.zeros(V, dtype=torch.float32, device=normals.device)
+    if seed >= 0:
+        sign[seed] = seed_sign
+    sweeps = 0
+    for _ in range(FLOOD_MAX_SWEEPS):
+        if not bool(((sign == 0.0) & valid).any()):
+            break
+        vote = flood_votes_plain(normals, nn_idx, nn_valid, sign)
+        newly = (sign == 0.0) & valid & (vote.abs() > FLOOD_VOTE_MIN)
+        if not bool(newly.any()):
+            break   # nothing changes in any later sweep
+        sign = torch.where(newly, torch.where(vote < 0.0, -1.0, 1.0), sign)
+        sweeps += 1
+    sign = torch.where(sign == 0.0, radial_signs(positions, normals, valid), sign)
+    return normals * sign[:, None], sweeps
+
+
+_SEED_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_FLOOD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 \
+    + [ctypes.c_int] + [ctypes.c_void_p] * 2
+_FINISH_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float] * 3 \
+    + [ctypes.c_void_p] * 3
+
+last_flood_sweeps = 0   # sweeps that signed a row in the last flood
+
+
+def orient_normals_spanning_tree(positions, normals, nn_idx, nn_valid, valid,
+                                 pad_rows: bool = False):
+    """Spanning-tree orientation as a flood (reference
+    `orient_normals_spanning_tree`, vpcc_tpu/ops/normals.py:158;
+    PCCNormalsGenerator.cpp:186-252): the seed is the row of the largest
+    (z, y, x) key (see `seed_keys`), its normal forced upward; each
+    synchronous sweep gives every unsigned row whose vote
+    sum_k dot(n_k, n) * sign_k exceeds 1e-6 in magnitude the vote's sign;
+    at most 256 sweeps; rows never reached take the radial sign.  Only
+    valid rows are signed by a vote (the reference's invalid rows are its
+    padded rows, which have no valid neighbour and so no vote).
+    `pad_rows`: the reference's arrays hold padded rows after these (their
+    key 0 joins the seed's argmax).  Sets `last_flood_sweeps`.  Kernel X on
+    CUDA (the seed, one launch per sweep, the device flags read every
+    FLOOD_CHECK_EVERY sweeps, the finish); the plain version for a CPU
+    tensor."""
+    global last_flood_sweeps
+    if positions.device.type == "cpu":
+        out, last_flood_sweeps = orient_normals_spanning_tree_plain(
+            positions, normals, nn_idx, nn_valid, valid, pad_rows)
+        return out
+    d = positions.device
+    V, K = nn_idx.shape
+    dev.check_tensor(positions, "positions", torch.int32, d, 2)
+    dev.check_tensor(normals, "normals", torch.float32, d, 2)
+    dev.check_tensor(nn_idx, "nn_idx", torch.int32, d, 2)
+    dev.check_tensor(nn_valid, "nn_valid", torch.bool, d, 2)
+    dev.check_tensor(valid, "valid", torch.bool, d, 1)
+    out = torch.empty_like(normals)
+    last_flood_sweeps = 0
+    if V == 0:
+        return out
+    lib = dev.load_kernel("orient")
+    seed_fn, step, finish = lib.flood_seed, lib.flood_step, lib.flood_finish
+    seed_fn.argtypes, seed_fn.restype = _SEED_ARGS, ctypes.c_int
+    step.argtypes, step.restype = _FLOOD_ARGS, ctypes.c_int
+    finish.argtypes, finish.restype = _FINISH_ARGS, ctypes.c_int
+    sign = torch.empty(V, dtype=torch.float32, device=d)
+    other = torch.empty_like(sign)
+    best = torch.zeros(1, dtype=torch.int64, device=d)
+    flags = torch.zeros(FLOOD_MAX_SWEEPS, dtype=torch.int32, device=d)
+    rc = seed_fn(dev.ptr(positions), dev.ptr(normals), dev.ptr(valid), V, int(pad_rows),
+                 dev.ptr(best), dev.ptr(sign), dev.stream_handle())
+    dev.count_launch("orient", 2)
+    dev.check_launch("orient", rc)
+    done = 0
+    while done < FLOOD_MAX_SWEEPS:
+        end = min(done + FLOOD_CHECK_EVERY, FLOOD_MAX_SWEEPS)
+        for it in range(done, end):
+            rc = step(dev.ptr(normals), dev.ptr(nn_idx), dev.ptr(nn_valid), V, K,
+                      dev.ptr(valid), dev.ptr(sign), dev.ptr(other), it, dev.ptr(flags),
+                      dev.stream_handle())
+            dev.count_launch("orient")
+            dev.check_launch("orient", rc)
+            sign, other = other, sign
+        done = end
+        if int(flags[end - 1]) == 0:
+            break
+    cx, cy, cz = orientation_centroid(positions, valid)
+    rc = finish(dev.ptr(positions), dev.ptr(normals), V, cx, cy, cz, dev.ptr(sign),
+                dev.ptr(out), dev.stream_handle())
+    dev.count_launch("orient")
+    dev.check_launch("orient", rc)
+    last_flood_sweeps = int(flags[:done].sum())
+    return out
+
+
+def orient_by_mode(positions, normals, nn_idx, nn_valid, valid, mode: int = 1,
+                   viewpoint=(0.0, 0.0, 0.0)):
+    """The orientation of normalOrientation `mode` applied to PCA normals,
+    the reference's `compute_normals` dispatch (vpcc_tpu/ops/normals.py:
+    122-142): 0 none, 2 toward `viewpoint`, 4 the spanning-tree flood, 1
+    and 3 the consensus iteration.  The flood's seed sees the padded rows
+    the reference's shape bucket would add to `positions`
+    (`shape_bucket`)."""
+    if mode == 0:
+        return normals
+    if mode == 2:
+        return orient_normals_viewpoint(normals, positions, viewpoint)
+    if mode == 4:
+        V = positions.shape[0]
+        return orient_normals_spanning_tree(positions, normals, nn_idx, nn_valid, valid,
+                                            pad_rows=shape_bucket(V) > V)
+    return orient_normals(positions, normals, nn_idx, nn_valid, valid)
+
+
+def compute_normals(positions, nn_idx, nn_valid, valid, mode: int = 1,
+                    viewpoint=(0.0, 0.0, 0.0)):
+    """PCA normals + the orientation of `mode` (`orient_by_mode`)."""
     n = pca_normals(positions, nn_idx, nn_valid)
-    return orient_normals(positions, n, nn_idx, nn_valid, valid)
+    return orient_by_mode(positions, n, nn_idx, nn_valid, valid, mode, viewpoint)

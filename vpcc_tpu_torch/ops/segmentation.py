@@ -6,7 +6,9 @@ Behavioral reference: `vpcc_tpu/ops/segmentation.py` (the reference's
 `refineSegmentation`, :1322): per voxel, argmax over the projection
 orientations of normal . orientation (x axis weight), then `iterations`
 synchronous sweeps maximizing normal . orientation + (lambda / k) * (number
-of valid neighbours in that orientation), first maximum on ties.
+of valid neighbours in that orientation), first maximum on ties; for
+highGradientSeparation, each voxel's best other orientation and whether its
+assigned orientation's score is at most 0.577 (`high_gradient_aux`).
 
 The tables (orientation sets, `VIEW_AXES`, `partition_to_view`) are copies
 of the reference's.  The score arithmetic follows XLA's CPU backend: the
@@ -137,6 +139,50 @@ def refine_segmentation_plain(normals, partition, nn_idx, nn_valid, orientations
         # torch.argmax returns the first maximum, as jnp.argmax does
         part = torch.argmax(score, dim=1).to(torch.int32)
     return part
+
+
+WEAK_SCORE = float(np.float32(0.577))  # the reference's normalThreshold, as float32
+_ASSIGNED_PENALTY = 1e9                 # subtracted from the assigned orientation's score
+
+
+def high_gradient_aux_plain(normals, partition, orientations):
+    """Plain PyTorch version of `high_gradient_aux`."""
+    score = _scores(normals, orientations)
+    part = partition.long()[:, None]
+    weak = score.gather(1, part)[:, 0] <= WEAK_SCORE
+    onehot = torch.zeros_like(score, dtype=torch.bool).scatter_(1, part, True)
+    masked = torch.where(onehot, score - _ASSIGNED_PENALTY, score)
+    return torch.argmax(masked, dim=1).to(torch.int32), weak
+
+
+_AUX_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+
+
+def high_gradient_aux(normals, partition, orientations):
+    """Per-voxel aids of the high-gradient separation (reference
+    `high_gradient_aux`, vpcc_tpu/ops/segmentation.py:128; the reference
+    uses the normal scores inside calculateGradient,
+    PCCPatchSegmenter.cpp:1874-1940): (alt, weak), `alt` (V,) int32 the
+    first argmax of the scores with the assigned orientation's lowered by
+    1e9 (in float32), `weak` (V,) bool the assigned orientation's score <=
+    0.577.  Kernel F on CUDA (one launch); the plain version for a CPU
+    tensor."""
+    if normals.device.type == "cpu":
+        return high_gradient_aux_plain(normals, partition, orientations)
+    d = normals.device
+    V = normals.shape[0]
+    dev.check_tensor(normals, "normals", torch.float32, d, 2)
+    dev.check_tensor(partition, "partition", torch.int32, d, 1)
+    _check_orients(orientations, d)
+    alt = torch.empty(V, dtype=torch.int32, device=d)
+    weak = torch.empty(V, dtype=torch.bool, device=d)
+    fn = dev.load_kernel("segment").high_gradient_aux
+    fn.argtypes, fn.restype = _AUX_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(normals), dev.ptr(orientations), dev.ptr(partition), V,
+            orientations.shape[0], dev.ptr(alt), dev.ptr(weak), dev.stream_handle())
+    dev.count_launch("high_gradient_aux", 1 if V else 0)
+    dev.check_launch("high_gradient_aux", rc)
+    return alt, weak
 
 
 def _check_orients(orientations, d):
