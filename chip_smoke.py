@@ -42,7 +42,11 @@ kernel K's apply):
     the JAX package's) once (warm-up), keeping each kernel's largest call
     (for the wavefront encode, a motion-searched P-frame plane);
 11. holds each kernel against its plain version there (syntax, MVs, SAO
-    parameters and planes identical) and times both in turns;
+    parameters and planes identical) and times both in turns, and kernel L
+    on crafted planes whose push sums pass 2^24 (256x256 and 512x512 in
+    XLA's probed orders, a 3-plane stack with an occupancy per plane, a
+    1216x1280 plane whose order is not established: the same count of such
+    blocks);
 12. with all launch counters at 0, runs the GOF again, prints warm seconds
     per frame, the stage split and the device idle share of one warm
     P-frame (`torch.profiler`), and requires: all 16 geometry payloads to
@@ -70,8 +74,9 @@ path above also runs kernels O, P and Q):
     equal the JAX encoder's (person_vox10_attr_digests.json) on all frames;
 15. with all launch counters at 0, segments the frames, drives their
     partitions and runs `encode_gof` again: warm seconds per frame, the
-    stage split, launches (every kernel the encoder runs, B-Q, nonzero),
-    the device idle share of one warm P-frame; then requires the port's
+    stage split, launches (every kernel the encoder runs, B-Q, nonzero), no
+    push-pull block of unknown order reaching 2^24, the device idle share of
+    one warm P-frame; then requires the port's
     decoder to decode the stream exactly to the encoder's reconstruction
     (point counts and md5, all frames), the stream bytes within
     RD_BYTES_TOL of the fixture's and every attribute plane's occupied-pixel
@@ -210,17 +215,36 @@ with `Encoder.with_partition`, "tetris" by the JAX partitions):
     frame, the stage split, launches (the new entry and kernels E-H nonzero;
     roi's chunk point counts equal to JAX's);
 44. requires hgs, roi and tetris to be byte-identical to the JAX encoder's
-    stream (patches and reconstructions too), orient4's stream bytes within
-    RD_BYTES_TOL and its mean D1/D2/Y within RD_PSNR_TOL_DB of JAX's (orient0
-    and orient2 printed), and the port's decoder to decode every stream to
-    the encoder's reconstruction;
+    stream (patches and reconstructions too), the stream bytes of orient0,
+    orient2 and orient4 within RD_BYTES_TOL and their mean D1/D2/Y within
+    RD_PSNR_TOL_DB of JAX's, and the port's decoder to decode every stream
+    to the encoder's reconstruction;
 45. holds `orient_viewpoint`, the flood (`orient`, its sweep count too) and
     `high_gradient_aux` against their plain versions on their largest
     calls, exactly, timing both in turns;
-46. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
-    PLR, RDO, fill, scalar, orientation and high-gradient entries as rows
-    of their own, launches from steps 16, 24, 30, 35, 39 and 43), then the
-    result line.
+
+the level-batched GOF path (`encode_gof(parallel=True)`: every video
+dispatch and the recolor batch the frames of one hierarchy level; kernel
+E's and M's frame-batched entries), on the 8 bench frames at r3 driven by
+the JAX partitions:
+47. a cold encode, keeping the largest call of each batched entry, and the
+    level groups (level, shape, inter or intra, frames);
+48. with all launch counters at 0, warm encodes in turns (sequential,
+    level-batched, level-batched, sequential): seconds per frame of each,
+    the stage split, launches per level group (every kernel of the path
+    nonzero), no push-pull block of unknown order reaching 2^24; requires
+    the stream to be byte-identical to the sequential r3 stream and to the
+    JAX encoder's fixture, and the port's decoder to decode it to the
+    encoder's reconstruction;
+49. the device idle share of the largest warm level group (its profiler
+    range);
+50. holds `grid_knn_batch`, `recolor_exact_batch` and `recolor_blend_batch`
+    against their plain versions and against B launches of the single-frame
+    entries, exactly, timing the three in turns;
+51. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
+    PLR, RDO, fill, scalar, orientation, high-gradient and frame-batched
+    entries as rows of their own, launches from steps 16, 24, 30, 35, 39,
+    43 and 48), then the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -230,6 +254,7 @@ of JAX and nothing of the vpcc_tpu package.
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -331,6 +356,9 @@ KERNEL_INFO = {
     "orient_viewpoint": ("vpcc_tpu_torch/csrc/orient.cu", "vpcc_tpu/ops/normals.py:146"),
     "orient": ("vpcc_tpu_torch/csrc/orient.cu", "vpcc_tpu/ops/normals.py:158"),
     "high_gradient_aux": ("vpcc_tpu_torch/csrc/segment.cu", "vpcc_tpu/ops/segmentation.py:128"),
+    "grid_knn_batch": ("vpcc_tpu_torch/csrc/grid_knn.cu", "vpcc_tpu/parallel/gof.py:124"),
+    "recolor_exact_batch": ("vpcc_tpu_torch/csrc/recolor.cu", "vpcc_tpu/parallel/gof.py:116"),
+    "recolor_blend_batch": ("vpcc_tpu_torch/csrc/recolor.cu", "vpcc_tpu/parallel/gof.py:140"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
@@ -356,6 +384,10 @@ SEG_OPTIONS_KERNELS = {"orient0": (), "orient2": ("orient_viewpoint",), "orient4
 # every kernel the whole encoder runs (kernel A decodes only)
 ENCODER_PATH = ("half_pel_mc", "generate_points", "grid_smooth") + FRONT_KERNELS \
     + GEOMETRY_KERNELS + ENCODE_KERNELS
+# the level-batched GOF path: the encoder's kernels with kernel M's
+# single-frame entries replaced by the frame-batched ones of E and M
+LEVEL_KERNELS = ("grid_knn_batch", "recolor_exact_batch", "recolor_blend_batch")
+LEVEL_PATH = tuple(k for k in ENCODER_PATH if k != "recolor") + LEVEL_KERNELS
 
 
 def frame_digest(positions, colors) -> str:
@@ -662,6 +694,18 @@ def bounds(name, args, out):
     elif name == "push_pull":
         img, occ = args
         byt = nbytes(img, occ, out)
+        ops = 0.0
+    elif name == "grid_knn_batch":
+        # kernel E's bound summed over the frames of the batch
+        grids, q, _k, bucket = args
+        byt, ops = nbytes(grids.table, grids.order, q, *out), 0.0
+        for b in range(q.shape[0]):
+            probes, cands = knn_work(grids.frame(b), q[b], 3 * bucket)
+            byt += probes * 4
+            ops += 12.0 * cands
+    elif name in ("recolor_exact_batch", "recolor_blend_batch"):
+        byt = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(
+            *(out if isinstance(out, tuple) else (out,)))
         ops = 0.0
     elif name in ("recolor", "attr_image", "recolor_blend"):
         # each entry's inputs read once and outputs written once (`args` holds
@@ -1095,6 +1139,44 @@ def front_phase(dev):
     return rows, launches, (cfg, frames, segs)
 
 
+def f8_plane(h: int, w: int, planes: int = 0, seed: int = 8):
+    """A crafted (h, w) int32 plane (planes > 0: a (planes, h, w) stack)
+    and its occupancy (per plane for a stack): values below 2^24 on 5 % of
+    the pixels, the top-left (h/4, w/4) block empty, so that block sums pass
+    2^24 from level 3 and the empty block reads a deep level."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (planes, h, w) if planes else (h, w)
+    img = rng.integers(0, 1 << 24, shape).astype(np.int32)
+    occ = (rng.random(shape) < 0.05).astype(np.uint8)
+    occ[..., : h // 4, : w // 4] = 0
+    return torch.as_tensor(img, device="cuda"), torch.as_tensor(occ, device="cuda")
+
+
+def f8_check(padding) -> None:
+    """Kernel L against its plain version on crafted planes whose block sums
+    pass 2^24: 256x256 and 512x512 (XLA's orders, the pairwise levels), a
+    (3, 512, 512) stack with an occupancy per plane, and 1216x1280 (an
+    atlas shape whose order is not established: both count the blocks past
+    2^24 alike)."""
+    for h, w, planes in ((256, 256, 0), (512, 512, 0), (512, 512, 3), (1216, 1280, 0)):
+        img, occ = f8_plane(h, w, planes)
+        padding.reset_inexact()
+        out_k = padding.push_pull_round(img, occ)
+        n_k = padding.inexact_blocks()
+        padding.reset_inexact()
+        out_p = padding.push_pull_round_plain(img, occ)
+        n_p = padding.inexact_blocks()
+        err = max_abs_err(out_k, out_p)
+        print(f"push_pull on the crafted {tuple(img.shape)} plane (orders "
+              f"{padding.push_order(h, w)}): max abs err {err}, blocks of unknown order past "
+              f"2^24 {n_k} (plain {n_p})")
+        if err != 0 or n_k != n_p:
+            raise AssertionError("push_pull differs from its plain version on a crafted plane")
+    padding.reset_inexact()
+
+
 def occupied_psnr(src, rec, occ, peak: float = 255.0) -> float:
     import numpy as np
 
@@ -1186,6 +1268,7 @@ def geometry_phase(dev, cfg, frames, segs):
               f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}); inputs {shapes}")
         rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    f8_check(padding)
 
     # 12. the main path, counted and timed
     enc = Encoder(cfg, device="cuda")
@@ -1340,7 +1423,7 @@ def encode_phase(dev, cfg, frames, segs):
     from vpcc_tpu_torch.apps import profile_encode as prof, profiling
     from vpcc_tpu_torch.decoder import Decoder
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import neighbors, recolor, smoothing
+    from vpcc_tpu_torch.ops import neighbors, padding, recolor, smoothing
     from vpcc_tpu_torch.utils.checksum import array_md5
     from vpcc_tpu_torch.video import codecs, hevc
 
@@ -1477,6 +1560,7 @@ def encode_phase(dev, cfg, frames, segs):
     # 15. the main path, counted and timed
     ref_parts = np.load(FRONT_PARTITIONS)
     enc = Encoder(cfg, device="cuda")
+    padding.reset_inexact()
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1486,6 +1570,10 @@ def encode_phase(dev, cfg, frames, segs):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
+    inexact = padding.inexact_blocks()
+    print(f"push-pull blocks reaching 2^24 where XLA's order is not established: {inexact}")
+    if inexact:
+        raise AssertionError(f"{inexact} push-pull blocks of unknown order reach 2^24")
     split = {f: sum(getattr(s, f) for s in enc.stats) / n
              for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s", "video_s",
                        "reconstruct_s", "recolor_s")}
@@ -2789,13 +2877,12 @@ def seg_options_phase(dev, frames):
                 device=d) for (p, c), nrm, r in zip(src, src_normals, recon)])
             d_bytes = len(stream) / rc["stream_bytes"] - 1.0
             deltas = {k: mean[k] - rc["mean"][k] for k in mean}
-            held = name == "orient4"
-            print(f"segmentation options {name} RD against JAX's ({'held' if held else 'not held'}"
-                  f"): bytes {100 * d_bytes:+.4f} %, mean PSNR "
+            print(f"segmentation options {name} RD against JAX's (held): bytes "
+                  f"{100 * d_bytes:+.4f} %, mean PSNR "
                   + ", ".join(f"{k} {mean[k]:.4f} ({v:+.4f})" for k, v in deltas.items()))
-            if held and (abs(d_bytes) > RD_BYTES_TOL
-                         or max(abs(v) for v in deltas.values()) > RD_PSNR_TOL_DB):
-                raise AssertionError(f"orient4 RD gate: bytes {100 * d_bytes:+.3f} % (limit "
+            if (abs(d_bytes) > RD_BYTES_TOL
+                    or max(abs(v) for v in deltas.values()) > RD_PSNR_TOL_DB):
+                raise AssertionError(f"{name} RD gate: bytes {100 * d_bytes:+.3f} % (limit "
                                      f"{100 * RD_BYTES_TOL} %), PSNR deltas {deltas} (limit "
                                      f"{RD_PSNR_TOL_DB} dB)")
         _, t_dec, _ = decode_checked(dev, stream, recon, f"segmentation options {name}")
@@ -2843,6 +2930,187 @@ def seg_options_phase(dev, frames):
                            bound_by=b_by, max_abs_err=err, library_ms=None)
     return rows, launches
 
+
+def level_entry_fns(neighbors, recolor, cap) -> dict:
+    """name -> (kernel, plain version, B launches of the single-frame
+    entries) of the level path's batched entries of kernels E and M on
+    their kept calls."""
+    grids, q, k, bucket = cap["grid_knn_batch"]
+    order, sk, tgt, bits = cap["recolor_exact_batch"]
+    b_args = cap["recolor_blend_batch"]
+    col, idx, d2, tidx, td2, eidx, has, gf, cd2, doff, gb = b_args
+    every_s = torch.arange(col.shape[1], dtype=torch.int32, device=col.device)
+    every_t = torch.arange(idx.shape[1], dtype=torch.int32, device=col.device)
+
+    def knn_frames():
+        outs = [neighbors.knn(grids.frame(b), q[b], k, bucket) for b in range(q.shape[0])]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+    def exact_frames():
+        outs = [recolor.exact_match(order[b], sk[b], tgt[b], bits)[:3]
+                for b in range(tgt.shape[0])]
+        return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+    def blend_frames():
+        return torch.stack([
+            recolor.splat_merge(col[b], every_s, tidx[b], td2[b], eidx[b], has[b], every_t,
+                                recolor.fwd_blend(col[b], idx[b], d2[b], gf, cd2, doff), gb)
+            for b in range(col.shape[0])])
+
+    return {
+        "grid_knn_batch": (lambda: neighbors.knn_batch(grids, q, k, bucket),
+                           lambda: neighbors.knn_batch_plain(grids, q, k, bucket), knn_frames),
+        "recolor_exact_batch": (lambda: recolor.exact_match_batch(order, sk, tgt, bits),
+                                lambda: recolor.exact_match_batch_plain(order, sk, tgt, bits),
+                                exact_frames),
+        "recolor_blend_batch": (lambda: recolor.blend_batch(*b_args),
+                                lambda: recolor.blend_batch_plain(*b_args), blend_frames),
+    }
+
+
+def level_phase(dev, cfg, frames, segs, r3_stream):
+    """Steps 47-50: the level-batched GOF path (`encode_gof(parallel=True)`,
+    the frame-batched entries of kernels E and M).  Returns (rows,
+    launches)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import neighbors, padding, recolor
+    from vpcc_tpu_torch.parallel import gof
+
+    n = len(frames)
+    ref_parts = np.load(FRONT_PARTITIONS)
+
+    def driven_segs(enc):
+        return [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
+            ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
+
+    # 47. cold level-batched encode, keeping each batched entry's largest
+    # call
+    kept = {}
+    real = {"grid_knn_batch": (neighbors, "knn_batch"),
+            "recolor_exact_batch": (recolor, "exact_match_batch"),
+            "recolor_blend_batch": (recolor, "blend_batch")}
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in real.items()}
+
+    def keep(name, fn):
+        sig = inspect.signature(fn)
+
+        def spy(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            a = tuple(bound.arguments.values())
+            size = sum(t.numel() for t in a if torch.is_tensor(t))
+            if name == "grid_knn_batch":
+                size += a[0].order.numel()
+            if name not in kept or size > kept[name][0]:
+                kept[name] = (size, a)
+            return fn(*a)
+        return spy
+
+    for name, (mod, attr) in real.items():
+        setattr(mod, attr, keep(name, saved[name]))
+    try:
+        t0 = time.perf_counter()
+        enc0 = Encoder(cfg, device="cuda")
+        stream0, _ = enc0.encode_gof(frames, parallel=True, segs=segs)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    finally:
+        for name, (mod, attr) in real.items():
+            setattr(mod, attr, saved[name])
+    parent, _ = enc0.gof_structure(n)
+    groups = gof.level_groups(gof.level_schedule(parent), parent,
+                              [(e.height, e.width) for e in enc0.last_encoded])
+    print(f"level-batched GOF: cold encode {cold:.2f}s = {cold / n:.4f} s/frame; groups: "
+          + "; ".join(f"level {lv} {h}x{w} {'inter' if ok else 'intra'} frames {fr}"
+                      for lv, (h, w, ok), fr in groups))
+
+    # 48. the path counted and timed, in turns with the sequential encode
+    def run(parallel):
+        enc = Encoder(cfg, device="cuda")
+        padding.reset_inexact()
+        dev.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = enc.encode_gof(frames, parallel=parallel, segs=driven_segs(enc))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, out, dict(dev.LAUNCHES), padding.inexact_blocks(),
+                enc)
+
+    t_s1, (s_seq, _), _, in_seq, _ = run(False)
+    t_p1, (stream, recon), launches, inexact, enc = run(True)
+    t_p2 = run(True)[0]
+    t_s2 = run(False)[0]
+    split = {f: sum(getattr(s, f) for s in enc.stats) / n
+             for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s", "video_s",
+                       "reconstruct_s", "recolor_s")}
+    print(f"level-batched GOF warm encode: {t_p1 / n:.4f}/{t_p2 / n:.4f} s/frame, sequential "
+          f"{t_s1 / n:.4f}/{t_s2 / n:.4f} s/frame (in turns: seq, par, par, seq); per frame "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"launches on the level-batched path ({len(groups)} level groups): {launches}")
+    print("launches per level group: " + ", ".join(
+        f"{k} {v / len(groups):.2f}" for k, v in launches.items() if v))
+    idle = [k for k in LEVEL_PATH if launches.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the level-batched path: {idle}")
+    fixture = FIXTURE.read_bytes()
+    same = (stream == r3_stream, stream == s_seq, stream == fixture, stream == stream0)
+    print(f"level-batched GOF stream {len(stream)} bytes: byte-identical to the sequential r3 "
+          f"stream: {same[0]} (this phase's: {same[1]}), to the JAX encoder's fixture: "
+          f"{same[2]}, to the cold run's: {same[3]}; push-pull blocks reaching 2^24 where "
+          f"XLA's order is not established: {inexact} (sequential: {in_seq})")
+    if not all(same) or inexact or in_seq:
+        raise AssertionError("level-batched GOF: the stream differs from the sequential / JAX "
+                             "encoder's, or push-pull blocks of unknown order reach 2^24")
+    _, t_dec, _ = decode_checked(dev, stream, recon, "level-batched GOF")
+    print(f"level-batched GOF decode: {t_dec:.4f} s/frame, equal to the encoder's "
+          "reconstruction")
+
+    # 49. the device-idle share of the largest warm level group (its
+    # record_function range in gof.py)
+    enc = Encoder(cfg, device="cuda")
+    segs2 = driven_segs(enc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        enc.encode_gof(frames, parallel=True, segs=segs2)
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_card = lambda e: "CUDA" in str(getattr(e, "device_type", ""))
+    ranges = [e for e in events if e.name.startswith("gof level ") and not on_card(e)]
+    big = max(ranges, key=lambda e: (int(e.name.rsplit("B=", 1)[1]), -e.time_range.start))
+    w0, w1 = big.time_range.start, big.time_range.end
+    # kernels, copies and sets inside the range (not the range's own
+    # annotation on the card's timeline)
+    busy = sum(max(min(e.time_range.end, w1) - max(e.time_range.start, w0), 0.0)
+               for e in events if on_card(e) and not e.name.startswith("gof level "))
+    wall = (w1 - w0) / 1e6
+    print(f"device trace of one warm level group ({big.name}): wall {wall:.4f}s, device busy "
+          f"{busy / 1e6:.4f}s = {100 * busy / 1e6 / wall:.2f}% (idle "
+          f"{100 * (1 - busy / 1e6 / wall):.2f}%)")
+
+    # 50. the batched entries == their plain versions and B launches of the
+    # single-frame entries on the kept calls, timed in turns
+    cap = {k: v[1] for k, v in kept.items()}
+    rows = {}
+    for name, (kern, plain, frames_fn) in level_entry_fns(neighbors, recolor, cap).items():
+        out_k, out_p, out_f = kern(), plain(), frames_fn()
+        torch.cuda.synchronize()
+        err, err_f = max_abs_err(out_k, out_p), max_abs_err(out_k, out_f)
+        if err != 0 or err_f != 0:
+            raise AssertionError(f"{name}: differs from its plain version ({err}) or from "
+                                 f"per-frame launches ({err_f})")
+        (k1, k2), (p1, p2) = time_turns(kern, plain, reps_k=20, reps_p=2)
+        f1 = time_ms(frames_fn, 20)
+        b_ms, b_by = bounds(name, cap[name], out_k)
+        print(f"{name}: exact (max abs err {err}; the single-frame entry frame by frame "
+              f"equal too); kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, per-frame "
+              f"launches {f1:.4f} ms, bound {b_ms:.4f} ms ({b_by}); inputs "
+              f"{[tuple(t.shape) for t in cap[name] if torch.is_tensor(t)]}")
+        rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                          bound_by=b_by, max_abs_err=err, library_ms=None)
+    return rows, {k: launches[k] for k in LEVEL_KERNELS}
 
 def scalar_library_ms(paint_args, gather_args):
     """(index_put_ ms, advanced indexing ms): one PyTorch call each for what
@@ -2917,6 +3185,7 @@ def main() -> int:
     tools_rows, tools_launches = tools_phase(dev, frames)
     ao_rows, ao_launches = attr_options_phase(dev, frames)
     so_rows, so_launches = seg_options_phase(dev, frames)
+    lv_rows, lv_launches = level_phase(dev, cfg, frames, segs, r3[0])
     rows.update(front_rows)
     rows.update(geo_rows)
     rows.update(enc_rows)
@@ -2926,6 +3195,7 @@ def main() -> int:
     rows.update(tools_rows)
     rows.update(ao_rows)
     rows.update(so_rows)
+    rows.update(lv_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
@@ -2933,7 +3203,7 @@ def main() -> int:
                 **{k: met_launches[k] for k in METRICS_KERNELS},
                 **{k: vox_launches[c] for k, c in VOX11_ROWS.items()},
                 **{k: ll_launches[k] for k in LOSSLESS_KERNELS},
-                **tools_launches, **ao_launches, **so_launches}
+                **tools_launches, **ao_launches, **so_launches, **lv_launches}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

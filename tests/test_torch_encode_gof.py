@@ -147,8 +147,11 @@ def test_encode_gof_out_of_slice_options_raise():
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError, match=what):
             Encoder(cfg, device="cpu").encode_gof(frames)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        Encoder(_cfg(VPCCConfig), device="cpu").encode_gof(frames, parallel=True)
+    cfg = _cfg(VPCCConfig)
+    cfg.enhancedOccupancyMapCode = 1
+    with pytest.raises(NotImplementedError, match="level-batched GOF path with "
+                                                  "enhancedOccupancyMapCode"):
+        Encoder(cfg, device="cpu").encode_gof(frames, parallel=True)
 
 
 def test_p_frame_seeded_from_reference_state(gof, segs):

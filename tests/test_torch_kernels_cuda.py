@@ -321,6 +321,36 @@ def test_push_pull_kernel(cuda):
         _same(padding.push_pull_round(img, occ), padding.push_pull_round_plain(img, occ))
 
 
+def _f8_plane(h, w, planes=0, seed=8):
+    """Values below 2^24 on 5 % of the pixels, the top-left (h/4, w/4) block
+    empty: push sums pass 2^24 from level 3 (tests/test_torch_level_kernels.py
+    holds the plain version against JAX on the same planes)."""
+    rng = np.random.default_rng(seed)
+    shape = (planes, h, w) if planes else (h, w)
+    img = rng.integers(0, 1 << 24, shape).astype(np.int32)
+    occ = (rng.random(shape) < 0.05).astype(np.uint8)
+    occ[..., : h // 4, : w // 4] = 0
+    return img, occ
+
+
+@pytest.mark.parametrize("h,w,planes", [(256, 256, 0), (512, 512, 0), (512, 512, 3),
+                                        (1216, 1280, 0)])
+def test_push_pull_order_kernel(cuda, h, w, planes):
+    """Kernel L in XLA's push order (pairwise levels at 256x256 and
+    512x512), over a stack with an occupancy per plane, and counting the
+    blocks past 2^24 where the order is not established (the 1x1 tops,
+    every level of 1216x1280) as its plain version counts them."""
+    img, occ = (torch.as_tensor(a, device=cuda) for a in _f8_plane(h, w, planes))
+    padding.reset_inexact()
+    got = padding.push_pull_round(img, occ)
+    n_k = padding.inexact_blocks()
+    padding.reset_inexact()
+    want = padding.push_pull_round_plain(img, occ)
+    assert padding.inexact_blocks() == n_k > 0   # each shape has levels of unknown order
+    _same(got, want)
+    padding.reset_inexact()
+
+
 @pytest.mark.parametrize("bs", [32, 16])
 def test_motion_search_kernel(cuda, bs):
     rng = np.random.default_rng(bs)
@@ -441,6 +471,64 @@ def test_recolor_kernel(cuda, k_bwd):
     kw = dict(grid_bits=7, k=8, k_bwd=k_bwd)
     card, _ = recolor.transfer_colors_compact(sp, sc, tp, **kw)
     host, _ = recolor.transfer_colors_compact(sp.cpu(), sc.cpu(), tp.cpu(), **kw)
+    _same(card, host)
+
+
+def _level_clouds(rng, cuda, B=3):
+    """B padded frames of `_recolor_inputs` clouds of different counts (the
+    level path's layout: rows out of the grid at -2^20)."""
+    clouds = [_recolor_inputs(rng, cuda) for _ in range(B)]
+    cuts = [(30000 - 997 * b, 21000 - 1301 * b) for b in range(B)]
+    ns, nt = max(c[0] for c in cuts) + 50, max(c[1] for c in cuts) + 70
+    pad = -(1 << 20)
+    sp = torch.full((B, ns, 3), pad, dtype=torch.int32, device=cuda)
+    sc = torch.zeros((B, ns, 3), dtype=torch.uint8, device=cuda)
+    tp = torch.full((B, nt, 3), pad, dtype=torch.int32, device=cuda)
+    for b, ((p, c, t), (a, m)) in enumerate(zip(clouds, cuts)):
+        sp[b, :a], sc[b, :a], tp[b, :m] = p[:a], c[:a], t[:m]
+    cnt = torch.tensor([a for a, _ in cuts], device=cuda)
+    return sp, sc, cnt, tp
+
+
+@pytest.mark.parametrize("k,bucket", [(1, 6), (8, 6), (16, 16)])
+def test_grid_knn_batch_kernel(cuda, k, bucket):
+    """Kernel E's frame-batched entry against its plain version and against
+    each frame's own grid and query, padded rows included."""
+    sp, _, _, tp = _level_clouds(np.random.default_rng(90 + k), cuda)
+    grids = neighbors.build_grid_batch(sp, 7)
+    n0 = dev.LAUNCHES["grid_knn_batch"]
+    got = neighbors.knn_batch(grids, tp, k, bucket)
+    assert dev.LAUNCHES["grid_knn_batch"] == n0 + 1
+    want = neighbors.knn_batch_plain(grids, tp, k, bucket)
+    for a, b in zip(got, want):
+        _same(a, b)
+    for b in range(sp.shape[0]):
+        one = neighbors.knn(neighbors.build_grid(sp[b], 7), tp[b].contiguous(), k=k,
+                            bucket=bucket)
+        _same(got[0][b], one[0])
+        _same(got[1][b], one[1])
+
+
+def test_recolor_batch_kernel(cuda):
+    """Kernel M's frame-batched exact match and blend against their plain
+    versions, and the level recolor on the card against the CPU's."""
+    from vpcc_tpu_torch.parallel import gof
+
+    sp, sc, cnt, tp = _level_clouds(np.random.default_rng(95), cuda)
+    order, sk = recolor.sorted_source_keys_batch(sp, cnt, 7)
+    got = recolor.exact_match_batch(order, sk, tp, 7)
+    for a, b in zip(got, recolor.exact_match_batch_plain(order, sk, tp, 7)):
+        _same(a, b)
+    eidx, has, matched = got
+    idx, d2 = neighbors.knn_batch(neighbors.build_grid_batch(sp, 7), tp, 8, 6)
+    tidx, td2 = neighbors.knn_batch(neighbors.build_grid_batch(tp, 7), sp, 1, 6)
+    td2 = torch.where(matched, torch.full_like(td2[..., 0], neighbors.MAX_DIST2), td2[..., 0])
+    args = (sc, idx, d2, tidx[..., 0].contiguous(), td2.contiguous(), eidx, has, 30.0, 2000.0,
+            4.0, 3.0)
+    _same(recolor.blend_batch(*args), recolor.blend_batch_plain(*args))
+    gates = (30.0, 3.0, 2000.0, 4.0)
+    card = gof.recolor_level(sp, sc, cnt, tp, None, 7, gates=gates)
+    host = gof.recolor_level(sp.cpu(), sc.cpu(), cnt.cpu(), tp.cpu(), None, 7, gates=gates)
     _same(card, host)
 
 

@@ -15,6 +15,14 @@
 //   to 11 (2047^2 * 3 < 2^31, so the int32 squared distance cannot
 //   overflow; the dense starts table is (2^(grid_bits - cell_bits))^3 + 1).
 //
+// `grid_knn_batch` queries B packed grids in one launch (the level-batched
+// GOF path, reference vpcc_tpu/parallel/gof.py `_knn_fwd_batch` and
+// `_nearest_bwd_batch`: a grid build and a k-NN vmapped over the level's
+// frames): grid row blockIdx.y is the frame, whose starts, table, order and
+// queries sit at frame * (their per-frame size) in (B, ...) arrays, so each
+// query reads only its own frame's grid.  Rows padded out of the grid
+// (-2^20) sort to the end of their frame, outside every cell window.
+//
 // One thread per query.  It walks the candidates in exactly the reference's
 // order: the 9 xy windows of _OFFSETS9 (dx-major), each a run of up to 3
 // contiguous z-cells, and inside a window the first min(e - s, win) slots
@@ -48,9 +56,18 @@ __global__ void grid_knn_kernel(const int32_t* __restrict__ starts,
                                 const int32_t* __restrict__ queries, int M,
                                 int grid_bits, int cell_bits, int win, int k,
                                 int32_t* __restrict__ out_idx,
-                                int32_t* __restrict__ out_d2) {
+                                int32_t* __restrict__ out_d2, long long n_rows,
+                                long long n_starts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
+  // frame f = blockIdx.y of a batch (0 for the single-grid entries)
+  const long long f = blockIdx.y;
+  starts += f * n_starts;
+  table += f * n_rows * (PACKED ? 1 : 3);
+  order += f * n_rows;
+  queries += f * 3LL * M;
+  out_idx += f * static_cast<long long>(M) * k;
+  out_d2 += f * static_cast<long long>(M) * k;
   const int g = 1 << (grid_bits - cell_bits);
   const int b = grid_bits;
   const int mask = (1 << b) - 1;
@@ -107,20 +124,26 @@ __global__ void grid_knn_kernel(const int32_t* __restrict__ starts,
   }
 }
 
+// B frames of M queries each over grids of n_rows points and n_starts
+// start offsets (unused when B == 1).
 template <bool PACKED>
 int launch(const int32_t* starts, const int32_t* table, const int32_t* order,
            const int32_t* queries, int M, int grid_bits, int cell_bits, int win,
-           int k, int32_t* out_idx, int32_t* out_d2, void* stream) {
-  if (M == 0) return 0;
+           int k, int32_t* out_idx, int32_t* out_d2, void* stream, int B = 1,
+           long long n_rows = 0, long long n_starts = 0) {
+  if (M == 0 || B == 0) return 0;
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 128;
-  const int blocks = (M + threads - 1) / threads;
+  const dim3 blocks((M + threads - 1) / threads, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k <= 16) {
     grid_knn_kernel<16, PACKED><<<blocks, threads, 0, st>>>(
-        starts, table, order, queries, M, grid_bits, cell_bits, win, k, out_idx, out_d2);
+        starts, table, order, queries, M, grid_bits, cell_bits, win, k, out_idx, out_d2,
+        n_rows, n_starts);
   } else {
     grid_knn_kernel<64, PACKED><<<blocks, threads, 0, st>>>(
-        starts, table, order, queries, M, grid_bits, cell_bits, win, k, out_idx, out_d2);
+        starts, table, order, queries, M, grid_bits, cell_bits, win, k, out_idx, out_d2,
+        n_rows, n_starts);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -148,4 +171,16 @@ extern "C" int grid_knn_xyz(const int32_t* starts, const int32_t* table,
   if (k < 1 || k > 64 || grid_bits > 11) return static_cast<int>(cudaErrorInvalidValue);
   return launch<false>(starts, table, order, queries, M, grid_bits, cell_bits, win, k,
                        out_idx, out_d2, stream);
+}
+
+// B packed grids in one launch: starts (B, S), table and order (B, N),
+// queries (B, M, 3), out idx, d2 (B, M, k); frame b's order holds indices
+// within the frame.  1 <= k <= 64, grid_bits <= 10.
+extern "C" int grid_knn_batch(const int32_t* starts, const int32_t* table,
+                              const int32_t* order, const int32_t* queries, int B, int M,
+                              int N, int S, int grid_bits, int cell_bits, int win, int k,
+                              int32_t* out_idx, int32_t* out_d2, void* stream) {
+  if (k < 1 || k > 64 || grid_bits > 10) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(starts, table, order, queries, M, grid_bits, cell_bits, win, k,
+                      out_idx, out_d2, stream, B, N, S);
 }

@@ -51,6 +51,23 @@
 // the gate drops it as `_blend`'s `~matched_src` does.  The tests hold the
 // result against `transfer_colors` of the JAX package bit for bit.
 //
+// The level-batched GOF path (reference vpcc_tpu/parallel/gof.py
+// `_exact_batch` and `_blend_batch`: `exact_matches_device` and `_blend`
+// vmapped over the B frames of a hierarchy level, on clouds padded to common
+// sizes) has two entries more, each one launch per step for all B frames:
+// * recolor_exact_batch: the exact match over (B, Ns) sorted keys, where the
+//   caller gave the padded sources (rows at or past a frame's source count)
+//   the key 0x7FFFFFFF, as `exact_matches_device` does, so that they sort
+//   last and match no target (a target key is at most 2^30 - 1);
+// * recolor_blend_batch: the forward blend over every (frame, target), then
+//   the splat of every (frame, source) whose distance the caller set to
+//   MAX_DIST2 where the source is matched or padded (`_blend`'s
+//   `~matched_src` and `arange < src_count`), the forward colors, and the
+//   merge per (frame, target): `_blend`'s order, as the single-frame entries
+//   reproduce it (above).
+// A thread's frame is its flat index / the per-frame count; its sources'
+// colors sit at frame * Ns, its targets' accumulators at frame * Nt.
+//
 // Bound: bytes.  The exact match reads each target once and ~log2(Ns)
 // sorted keys per target (cached); the blend reads k index/distance pairs
 // and k colors per inexact target; the merge reads and writes (Nt, 3).
@@ -68,6 +85,15 @@ __global__ void exact_kernel(const int32_t* order, const int32_t* sk,
                              int32_t* counts) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= nt) return;
+  // frame f = blockIdx.y of a batch: its sorted keys, order and matched
+  // flags at f * ns, its targets and outputs at f * nt
+  const long long f = blockIdx.y;
+  order += f * ns;
+  sk += f * ns;
+  matched += f * ns;
+  tgt += f * 3LL * nt;
+  eidx += f * nt;
+  has += f * nt;
   const int x = tgt[3 * t], y = tgt[3 * t + 1], z = tgt[3 * t + 2];
   const int lim = 1 << bits;
   const bool in_grid = x >= 0 && x < lim && y >= 0 && y < lim && z >= 0 && z < lim;
@@ -85,17 +111,21 @@ __global__ void exact_kernel(const int32_t* order, const int32_t* sk,
   has[t] = hit;
   if (hit) {
     // the first flag of a source makes one more matched source
-    if (atomicExch(&matched[e], 1) == 0) atomicSub(&counts[1], 1);
-  } else {
+    if (atomicExch(&matched[e], 1) == 0 && counts != nullptr) atomicSub(&counts[1], 1);
+  } else if (counts != nullptr) {
     atomicAdd(&counts[0], 1);
   }
 }
 
+// m rows in all; rows_per_frame rows read the colors of one frame (col +
+// frame * 3 * ns); one frame when rows_per_frame == m
 __global__ void fwd_blend_kernel(const uint8_t* col, const int32_t* idx,
                                  const int32_t* d2, int m, int k, float gd2,
-                                 float cd2, float doff, float* out) {
+                                 float cd2, float doff, float* out, int rows_per_frame,
+                                 int ns) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= m) return;
+  col += static_cast<long long>(q / rows_per_frame) * 3 * ns;
   const int32_t* qi = idx + static_cast<int64_t>(q) * k;
   const int32_t* qd = d2 + static_cast<int64_t>(q) * k;
   const float c0r = col[3 * qi[0]], c0g = col[3 * qi[0] + 1], c0b = col[3 * qi[0] + 2];
@@ -126,15 +156,19 @@ __global__ void fwd_blend_kernel(const uint8_t* col, const int32_t* idx,
   out[3 * q + 2] = __fdiv_rn(nb, ws);
 }
 
+// uidx null: source i itself (the batch: i = frame * ns + row); a source's
+// frame's colors at frame * 3 * ns, its targets' accumulators at frame * nt
 __global__ void splat_kernel(const uint8_t* col, const int32_t* uidx,
                              const int32_t* tidx, const int32_t* td2, int mu,
-                             float gd2, int32_t* acc) {
+                             float gd2, int32_t* acc, int ns, int nt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= mu) return;
   const int32_t d = td2[i];
   if (!(d < kMaxDist2 && static_cast<float>(d) <= gd2)) return;
-  const int s = uidx[i];
-  int32_t* a = acc + 4 * static_cast<int64_t>(tidx[i]);
+  const long long f = uidx == nullptr ? i / ns : 0;
+  const int s = uidx == nullptr ? static_cast<int>(i - f * ns) : uidx[i];
+  col += f * 3 * ns;
+  int32_t* a = acc + 4 * (f * nt + static_cast<int64_t>(tidx[i]));
   atomicAdd(a, static_cast<int32_t>(col[3 * s]));
   atomicAdd(a + 1, static_cast<int32_t>(col[3 * s + 1]));
   atomicAdd(a + 2, static_cast<int32_t>(col[3 * s + 2]));
@@ -151,11 +185,13 @@ __global__ void scatter_fwd_kernel(const int32_t* iidx, const float* fwd, int mi
   f[2] = fwd[3 * i + 2];
 }
 
+// nt (frame, target) rows in all, tpf of them a frame (col + frame * 3 * ns)
 __global__ void merge_kernel(const uint8_t* col, const int32_t* eidx,
                              const bool* has, const float* fwd_full,
-                             const int32_t* acc, int nt, int32_t* out) {
+                             const int32_t* acc, int nt, int32_t* out, int tpf, int ns) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= nt) return;
+  col += static_cast<long long>(t / tpf) * 3 * ns;
   const bool ex = has[t];
   const int32_t* a = acc + 4 * static_cast<int64_t>(t);
   const int32_t cnt = a[3];
@@ -189,6 +225,20 @@ extern "C" int recolor_exact(const int32_t* order, const int32_t* sk,
   return static_cast<int>(cudaGetLastError());
 }
 
+// B frames: order, sk, matched (B, Ns) (matched zeroed by the caller, the
+// padded sources' keys 0x7FFFFFFF); tgt (B, Nt, 3); eidx, has (B, Nt).
+extern "C" int recolor_exact_batch(const int32_t* order, const int32_t* sk,
+                                   const int32_t* tgt, int B, int ns, int nt, int bits,
+                                   int32_t* eidx, bool* has, int32_t* matched, void* stream) {
+  if (nt == 0 || B == 0) return 0;
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  exact_kernel<<<dim3(blocks_for(nt, threads), B), threads, 0, st>>>(
+      order, sk, tgt, ns, nt, bits, eidx, has, matched, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int recolor_fwd_blend(const uint8_t* col, const int32_t* idx,
                                  const int32_t* d2, int m, int k, float gd2,
                                  float cd2, float doff, float* out, void* stream) {
@@ -197,7 +247,7 @@ extern "C" int recolor_fwd_blend(const uint8_t* col, const int32_t* idx,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 128;
   fwd_blend_kernel<<<blocks_for(m, threads), threads, 0, st>>>(col, idx, d2, m, k, gd2,
-                                                              cd2, doff, out);
+                                                              cd2, doff, out, m, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -214,7 +264,7 @@ extern "C" int recolor_splat_merge(const uint8_t* col, const int32_t* uidx,
   *launched = 0;
   if (mu > 0) {
     splat_kernel<<<blocks_for(mu, threads), threads, 0, st>>>(col, uidx, tidx, td2, mu,
-                                                               gd2, acc);
+                                                               gd2, acc, 0, 0);
     ++*launched;
   }
   if (mi > 0) {
@@ -224,8 +274,37 @@ extern "C" int recolor_splat_merge(const uint8_t* col, const int32_t* uidx,
   }
   if (nt > 0) {
     merge_kernel<<<blocks_for(nt, threads), threads, 0, st>>>(col, eidx, has, fwd_full,
-                                                               acc, nt, out);
+                                                               acc, nt, out, nt, 0);
     ++*launched;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B frames, uncompacted: col (B, Ns, 3); idx, d2 (B, Nt, k) the forward
+// k-NN; tidx, td2 (B, Ns) each source's nearest target, td2 MAX_DIST2 where
+// the source is matched or padded; eidx, has (B, Nt).  acc (B, Nt, 4) int32
+// zeroed by the caller; fwd (B, Nt, 3) float32 scratch; out (B, Nt, 3).
+extern "C" int recolor_blend_batch(const uint8_t* col, const int32_t* idx, const int32_t* d2,
+                                   const int32_t* tidx, const int32_t* td2,
+                                   const int32_t* eidx, const bool* has, int B, int ns,
+                                   int nt, int k, float gd2_fwd, float cd2, float doff,
+                                   float gd2_bwd, int32_t* acc, float* fwd, int32_t* out,
+                                   void* stream, int* launched) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  if (B == 0 || nt == 0) return 0;
+  if (k < 1 || k > 64) return static_cast<int>(cudaErrorInvalidValue);
+  const int mt = B * nt, ms = B * ns;
+  fwd_blend_kernel<<<blocks_for(mt, 128), 128, 0, st>>>(col, idx, d2, mt, k, gd2_fwd, cd2,
+                                                        doff, fwd, nt, ns);
+  ++*launched;
+  if (ms > 0) {
+    splat_kernel<<<blocks_for(ms, 256), 256, 0, st>>>(col, nullptr, tidx, td2, ms, gd2_bwd,
+                                                      acc, ns, nt);
+    ++*launched;
+  }
+  merge_kernel<<<blocks_for(mt, 256), 256, 0, st>>>(col, eidx, has, fwd, acc, mt, out, nt,
+                                                    ns);
+  ++*launched;
   return static_cast<int>(cudaGetLastError());
 }

@@ -83,10 +83,12 @@ KERNELS: Dict[str, list] = {
 # PLR layers, kernel R's float32 D1 sum, kernel V's RDO, kernel L's push over
 # a stack, kernel W's dilation and its pull/relaxation, kernel P's scalar
 # paint and gather, kernel X's viewpoint orientation (its flood counts as
-# "orient") and kernel F's high-gradient aux
+# "orient"), kernel F's high-gradient aux, and the frame-batched entries of
+# kernels E and M (the level-batched GOF path)
 ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "metrics_d2_f32",
            "plr_rdo", "push_levels", "bg_dilate", "bg_relax", "attr_paint_scalar",
-           "attr_gather_scalar", "orient_viewpoint", "high_gradient_aux")
+           "attr_gather_scalar", "orient_viewpoint", "high_gradient_aux", "grid_knn_batch",
+           "recolor_exact_batch", "recolor_blend_batch")
 LAUNCHES: Dict[str, int] = {k: 0 for k in (*KERNELS, *ENTRIES)}
 # ptxas resource lines of each build (registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}

@@ -725,9 +725,17 @@ class Encoder:
             col = recolor.transfer_colors(
                 src_pos, sc, recon.pos, torch.as_tensor(ei, device=src_pos.device),
                 torch.as_tensor(he, device=src_pos.device), **kw)
+        return self.presmooth(recon, col)
+
+    def presmooth(self, recon: Points, col: torch.Tensor) -> torch.Tensor:
+        """Under flagColorPreSmoothing on a lossy attribute path without raw
+        points, the transferred colors with the boundary points pre-smoothed
+        (kernel N; reference encoder.py:700-711); else `col` as it is."""
+        cfg = self.cfg
         if cfg.flagColorPreSmoothing and cfg.attributeQP > 4 and not cfg.rawPointsPatch:
             col = smoothing_mod.presmooth_colors(
-                recon.pos, col, recon.bnd, bits, k=int(cfg.neighborCountColorPreSmoothing),
+                recon.pos, col, recon.bnd, cfg.geometryBitDepth3D,
+                k=int(cfg.neighborCountColorPreSmoothing),
                 radius2=float(cfg.radius2ColorPreSmoothing),
                 thr_dist=float(cfg.thresholdColorPreSmoothing),
                 thr_entropy=float(cfg.thresholdColorPreSmoothingLocalEntropy))
@@ -900,9 +908,28 @@ class Encoder:
         `encode_gof`, encoder.py:890-1002): (stream bytes, the encoder-side
         reconstruction of every frame).  `segs` optionally gives each
         frame's segmentation (e.g. with the reference's partitions,
-        `with_partition`)."""
-        if mesh is not None or parallel:
-            raise _unsupported("mesh / parallel (the level-batched GOF path)")
+        `with_partition`).
+
+        parallel=True, or `mesh` a sequence of one torch.device (the
+        encoder's), runs the level-batched path (`parallel/gof.py`
+        `encode_gof_mesh`): every video dispatch and recolor sweep batches
+        the frames of one hierarchy level, and the stream is byte-identical
+        to the sequential one.  Options outside the reference's envelope for
+        it raise NotImplementedError, as does a mesh of several cards."""
+        if mesh is not None:
+            devices = [torch.device(m) for m in mesh]
+            if len(devices) > 1:
+                raise NotImplementedError(
+                    "a mesh of several cards: sharding the levels across cards is not "
+                    "ported (ROADMAP queue 1); pass one device or parallel=True")
+            same = lambda a, b: a.type == b.type and (a.index or 0) == (b.index or 0)
+            if devices and not same(devices[0], self.device):
+                raise ValueError(f"mesh device {devices[0]} is not the encoder's device "
+                                 f"{self.device}")
+            parallel = True
+        if parallel:
+            from vpcc_tpu_torch.parallel.gof import encode_gof_mesh
+            return encode_gof_mesh(self, frames, segs=segs)
         encoded, parent = self._gof_loop(frames, segs, attributes=True)
         self.stats = [e.stats for e in encoded]
         return self._mux_gof(encoded, frames, parent)

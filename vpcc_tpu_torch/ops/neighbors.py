@@ -14,6 +14,14 @@ reference's `_build` does.  The grid build is plain PyTorch on every device,
 as the reference leaves it to a library sort: `torch.sort(stable=True)`
 gives `jnp.argsort`'s order.  The query is kernel E (csrc/grid_knn.cu, one
 entry per table layout) on CUDA and `knn_plain` on the CPU.
+
+The level-batched GOF path (`parallel/gof.py`, reference
+`parallel/gof.py` `_knn_fwd_batch` / `_nearest_bwd_batch`) queries B
+frames at once: `build_grid_batch` builds the B packed grids of (B, N, 3)
+point sets in one stable sort (rows padded out of the grid, at -2^20, fall
+to the end of their frame and are never candidates), and `knn_batch` runs
+kernel E's `grid_knn_batch` entry, one launch for every frame, each query
+reading its own frame's grid.
 """
 
 from __future__ import annotations
@@ -96,6 +104,49 @@ def build_grid(positions: torch.Tensor, grid_bits: int, cell_bits: int | None = 
     return NeighborGrid(order=order.to(torch.int32), starts=starts.to(torch.int32),
                         table=table.contiguous(), grid_bits=grid_bits,
                         cell_bits=cell_bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborGridBatch:
+    """B packed grids of equal sizes, frame b in row b: order (B, N) int32
+    (indices within the frame), starts (B, G^3 + 1) int32, table (B, N)
+    int32."""
+
+    order: torch.Tensor
+    starts: torch.Tensor
+    table: torch.Tensor
+    grid_bits: int
+    cell_bits: int
+
+    def frame(self, b: int) -> NeighborGrid:
+        return NeighborGrid(self.order[b], self.starts[b], self.table[b], self.grid_bits,
+                            self.cell_bits)
+
+
+def build_grid_batch(positions: torch.Tensor, grid_bits: int) -> NeighborGridBatch:
+    """positions (B, N, 3) int32 -> B packed grids, each equal to
+    `build_grid(positions[b])` (grid_bits <= 10): one stable sort of the
+    frame-offset cell ids, one count."""
+    if grid_bits > 10:
+        raise ValueError("build_grid_batch: packed tables need grid_bits <= 10")
+    B, N, _ = positions.shape
+    cell_bits = default_cell_bits(grid_bits)
+    g = 1 << (grid_bits - cell_bits)
+    n_cells = g * g * g + 1
+    d = positions.device
+    cid = _cell_ids(positions.reshape(-1, 3), grid_bits, cell_bits).view(B, N)
+    key = cid + torch.arange(B, device=d)[:, None] * n_cells
+    order = torch.sort(key.flatten(), stable=True).indices.view(B, N)
+    counts = torch.bincount(key.flatten(), minlength=B * n_cells).view(B, n_cells)
+    starts = torch.cumsum(counts, 1) - counts
+    order = order - torch.arange(B, device=d)[:, None] * N
+    b = grid_bits
+    p = positions.to(torch.int32)
+    packed = (p[..., 0] << (2 * b)) | (p[..., 1] << b) | p[..., 2]
+    table = torch.gather(packed, 1, order)
+    return NeighborGridBatch(order.to(torch.int32).contiguous(),
+                             starts.to(torch.int32).contiguous(), table.contiguous(),
+                             grid_bits, cell_bits)
 
 
 def _knn_chunk_plain(grid: NeighborGrid, q: torch.Tensor, k: int, win: int):
@@ -198,3 +249,46 @@ def nearest(grid: NeighborGrid, queries: torch.Tensor,
     int32."""
     idx, d2 = knn(grid, queries, k=1, bucket=bucket)
     return idx[:, 0].contiguous(), d2[:, 0].contiguous()
+
+
+def knn_batch_plain(grids: NeighborGridBatch, queries: torch.Tensor, k: int,
+                    bucket: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel E's batched entry: `knn_plain` frame by
+    frame.  queries (B, M, 3) -> (idx, d2) (B, M, k) int32."""
+    outs = [knn_plain(grids.frame(b), queries[b], k, bucket) for b in range(queries.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+_BATCH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+
+
+def knn_batch(grids: NeighborGridBatch, queries: torch.Tensor, k: int,
+              bucket: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours of each frame's queries among that frame's
+    points: (idx, d2) (B, M, k) int32, per frame as `knn`.  Kernel E's
+    `grid_knn_batch` entry (one launch for all frames) on CUDA; the plain
+    version for a CPU tensor."""
+    if not 1 <= k <= 64:
+        raise ValueError(f"knn_batch: k={k} outside 1..64")
+    if queries.device.type == "cpu":
+        return knn_batch_plain(grids, queries, k, bucket)
+    d = queries.device
+    dev.check_tensor(queries, "queries", torch.int32, d, 3)
+    dev.check_tensor(grids.order, "order", torch.int32, d, 2)
+    dev.check_tensor(grids.starts, "starts", torch.int32, d, 2)
+    dev.check_tensor(grids.table, "table", torch.int32, d, 2)
+    B, M, _ = queries.shape
+    N, S = grids.order.shape[1], grids.starts.shape[1]
+    if grids.order.shape[0] != B or grids.table.shape != grids.order.shape or queries.shape[2] != 3:
+        raise ValueError(f"knn_batch: grids of {tuple(grids.order.shape)}, queries "
+                         f"{tuple(queries.shape)}")
+    idx = torch.empty((B, M, k), dtype=torch.int32, device=d)
+    d2 = torch.empty((B, M, k), dtype=torch.int32, device=d)
+    fn = dev.load_kernel("grid_knn").grid_knn_batch
+    fn.argtypes, fn.restype = _BATCH_ARGS, ctypes.c_int
+    rc = fn(dev.ptr(grids.starts), dev.ptr(grids.table), dev.ptr(grids.order),
+            dev.ptr(queries), B, M, N, S, grids.grid_bits, grids.cell_bits, 3 * bucket, k,
+            dev.ptr(idx), dev.ptr(d2), dev.stream_handle())
+    dev.count_launch("grid_knn_batch", 1 if B * M else 0)
+    dev.check_launch("grid_knn_batch", rc)
+    return idx, d2

@@ -28,18 +28,34 @@ twin (the plain PyTorch version, used for tensors on the CPU):
 Every stencil wraps around the plane, as the reference's `jnp.roll`: the
 "up" neighbour of the top row is the bottom row.  The float order is the
 reference's XLA CPU program's (probed with crafted inputs,
-tests/test_torch_bg_fill.py): the 2x2 sums run ((a + b) + c) + d over
-(0,0), (0,1), (1,0), (1,1); the four stencil terms add as
+tests/test_torch_bg_fill.py): the four stencil terms add as
 ((up + down) + left) + right, each step of the relaxation scaled by 0.25;
-the averages are true divisions.  The 2x2 order holds at the 1280-wide
-atlases (and widths of 80 or 320); at power-of-two widths XLA's
-`push_pull_fill` program adds some levels pairwise, (a + b) + (c + d),
-which differs only where a level sum leaves float32's exact integers
-(ROADMAP §3).
+the averages are true divisions.  XLA sums a 2x2 push block of
+`push_pull_fill` in one of two orders, S = ((a + b) + c) + d over (0,0),
+(0,1), (1,0), (1,1), or P = (a + b) + (c + d), chosen per plane shape and
+level by its fusion decisions (no closed form found: level 1 is P only on
+square power-of-two planes, a middle level P where its input width is a
+power of two), and the 1x1 top of a square power-of-two plane is one
+reduction over the whole plane, which no 2x2 order describes.  The order
+only shows where a block sum of non-negative integers reaches 2^24, i.e.
+from level 9 of an 8-bit plane and level 8 of a 10-bit one, so both sides
+are multiples of 256 there.  `data/push_order_xla.json`
+(tests/torch_make_push_order.py) holds the probed order of every level
+for every H and W that are multiples of 256 up to 2048 ("?" for a 1x1
+top); the push-pull follows it.  At a "?" level, and at every level of a
+shape not in the table, the push sums S and counts the blocks whose sum
+reaches 2^24 (`inexact_blocks`): their order is not established, and a
+caller that needs exactness requires the count to stay 0.  The same holds
+for `push_levels` (the harmonic fill's push, another XLA program whose
+order was not probed), which always sums S and counts.  The attribute call
+site (`fill_rgb`, channels vmapped last) sums level 1 of square
+power-of-two planes S where `push_pull_fill` sums P; 8-bit sums there stay
+below 2^11, exact in either order.
 
-Kernel L (csrc/push_pull.cu) has two entries: the whole push-pull of one
-plane rounded to int32 (`push_pull_round`) and the push alone over a stack
-of planes sharing one occupancy (`push_levels`).  Kernel W
+Kernel L (csrc/push_pull.cu) has two entries: the whole push-pull of a
+stack of planes, each under its own occupancy or all under one, rounded to
+int32 (`push_pull_round`), and the push alone over a stack of planes
+sharing one occupancy (`push_levels`).  Kernel W
 (csrc/bg_fill.cu) runs the dilation passes, the pull and relaxation
 levels, and the final selection and rounding.
 """
@@ -47,7 +63,9 @@ levels, and the final selection and rounding.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+import functools
+import json
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -70,11 +88,63 @@ def _levels(h: int, w: int, min_side: int = 1) -> List[Tuple[int, int]]:
     return out
 
 
-def _sum2x2(x: torch.Tensor) -> torch.Tensor:
+EXACT_LIMIT = float(1 << 24)  # float32 holds every integer up to here
+
+
+@functools.lru_cache(maxsize=None)
+def _order_table() -> Dict[str, str]:
+    path = dev.PKG_DIR / "data" / "push_order_xla.json"
+    return json.loads(path.read_text())["orders"]
+
+
+def push_order(h: int, w: int) -> str:
+    """XLA's order of each push level l = 1.. of `push_pull_fill` on an
+    (h, w) plane, one letter a level: "S", "P", or "?" where it is not
+    established (every level of a shape that was not probed)."""
+    n = len(_levels(h, w)) - 1
+    return _order_table().get(f"{h}x{w}", "?" * n)
+
+
+def push_masks(h: int, w: int) -> Tuple[int, int]:
+    """(pair mask, count mask): bit l-1 set where level l sums P, and where
+    its order is not established (its sums reaching 2^24 are counted)."""
+    order = push_order(h, w)
+    bits = lambda ch: sum(1 << i for i, c in enumerate(order) if c == ch)
+    return bits("P"), bits("?")
+
+
+_INEXACT: Dict[str, torch.Tensor] = {}
+
+
+def _inexact_counter(device: torch.device) -> torch.Tensor:
+    key = str(device)
+    if key not in _INEXACT:
+        _INEXACT[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _INEXACT[key]
+
+
+def inexact_blocks() -> int:
+    """Push blocks since the last `reset_inexact` whose sum reached 2^24
+    where XLA's order is not established (reads every device's count)."""
+    return sum(int(c.item()) for c in _INEXACT.values())
+
+
+def reset_inexact() -> None:
+    for c in _INEXACT.values():
+        c.zero_()
+
+
+def _sum2x2(x: torch.Tensor, pair: bool = False,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """2x2 block sums in the order S or, with `pair`, P; with `count`, the
+    blocks whose sum reaches 2^24 are added to it."""
     *lead, h, w = x.shape
     v = x.reshape(*lead, h // 2, 2, w // 2, 2)
-    return (((v[..., :, 0, :, 0] + v[..., :, 0, :, 1]) + v[..., :, 1, :, 0])
-            + v[..., :, 1, :, 1])
+    a, b, c, d = v[..., :, 0, :, 0], v[..., :, 0, :, 1], v[..., :, 1, :, 0], v[..., :, 1, :, 1]
+    out = (a + b) + (c + d) if pair else ((a + b) + c) + d
+    if count is not None:
+        count += (out >= EXACT_LIMIT).sum().to(torch.int32)
+    return out
 
 
 def _stencil_sum(x: torch.Tensor) -> torch.Tensor:
@@ -88,17 +158,23 @@ def _up2(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# plain versions (any leading axes share the (H, W) occupancy)
+# plain versions (any leading axes share the (H, W) occupancy; the
+# push-pull also takes one per plane)
 
 def push_pull_fill_plain(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tensor:
-    """(..., H, W) image (integer or float) and (H, W) occupancy -> float32:
-    occupied pixels keep their value, the others get the pull fill."""
+    """(..., H, W) image (integer or float) and an (H, W) occupancy, or one
+    per plane, -> float32: occupied pixels keep their value, the others get
+    the pull fill.  The push follows `push_order`; where it is unknown,
+    blocks reaching 2^24 are counted (`inexact_blocks`)."""
     img = image.to(torch.float32)
     occ = occupancy.to(torch.float32)
+    pair, unknown = push_masks(*img.shape[-2:])
+    count = _inexact_counter(img.device)
     vals, wts = [img * occ], [occ]
-    for _ in _levels(*img.shape[-2:])[1:]:
-        vals.append(_sum2x2(vals[-1]))
-        wts.append(_sum2x2(wts[-1]))
+    for lvl in range(1, len(_levels(*img.shape[-2:]))):
+        p, c = bool(pair >> (lvl - 1) & 1), bool(unknown >> (lvl - 1) & 1)
+        vals.append(_sum2x2(vals[-1], p, count if c else None))
+        wts.append(_sum2x2(wts[-1], p))
     fill = vals[-1] / wts[-1].clamp(min=1.0)
     for lvl in range(len(vals) - 2, -1, -1):
         fill = torch.where(wts[lvl] > 0, vals[lvl] / wts[lvl].clamp(min=1.0), _up2(fill))
@@ -112,12 +188,14 @@ def push_pull_round_plain(image: torch.Tensor, occupancy: torch.Tensor) -> torch
 
 def push_levels_plain(image: torch.Tensor, occupancy: torch.Tensor, min_side: int):
     """The push alone: ([value sums of levels 1..L] (..., h, w) float32,
-    [weight sums of levels 1..L] (h, w) float32)."""
+    [weight sums of levels 1..L] (h, w) float32), summed S, the blocks
+    reaching 2^24 counted (`inexact_blocks`)."""
     v = image.to(torch.float32) * occupancy.to(torch.float32)
     w = occupancy.to(torch.float32)
+    count = _inexact_counter(v.device)
     vals, wts = [], []
     for _ in _levels(*image.shape[-2:], min_side)[1:]:
-        v, w = _sum2x2(v), _sum2x2(w)
+        v, w = _sum2x2(v, False, count), _sum2x2(w)
         vals.append(v)
         wts.append(w)
     return vals, wts
@@ -188,10 +266,11 @@ def round_clip_plain(filled: torch.Tensor, lo: int = 0, hi: int = 255) -> torch.
 # ---------------------------------------------------------------------------
 # kernel L
 
-_PP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+_NULL = ctypes.c_void_p(0)
+_PP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 _PUSH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 
 
 def scratch_floats(h: int, w: int) -> int:
@@ -210,26 +289,34 @@ def _check_planes(planes: torch.Tensor, occupancy: torch.Tensor, what: str):
 
 
 def push_pull_round(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tensor:
-    """Kernel L: push-pull fill of an (H, W) int32 image under an (H, W)
-    uint8 occupancy, rounded to int32; `push_pull_round_plain` on the CPU."""
+    """Kernel L: push-pull fill of an (H, W) or (P, H, W) int32 image under
+    an (H, W) uint8 occupancy or one per plane (P, H, W), rounded to int32;
+    `push_pull_round_plain` on the CPU.  One launch per level covers every
+    plane."""
     if image.device.type == "cpu":
         return push_pull_round_plain(image, occupancy)
     d = image.device
-    dev.check_tensor(image, "image", torch.int32, d, 2)
-    dev.check_tensor(occupancy, "occupancy", torch.uint8, d, 2)
-    if occupancy.shape != image.shape:
+    dev.check_tensor(image, "image", torch.int32, d)
+    dev.check_tensor(occupancy, "occupancy", torch.uint8, d)
+    planes = image if image.ndim == 3 else image[None]
+    if planes.ndim != 3 or occupancy.ndim not in (2, 3) or (
+            tuple(occupancy.shape[-2:]) != tuple(planes.shape[1:])
+            or (occupancy.ndim == 3 and occupancy.shape[0] != planes.shape[0])):
         raise ValueError(f"push_pull: shapes {tuple(image.shape)} / {tuple(occupancy.shape)}")
-    H, W = image.shape
-    scratch = torch.empty(scratch_floats(H, W), dtype=torch.float32, device=d)
-    out = torch.empty_like(image)
+    P, H, W = planes.shape
+    pair, unknown = push_masks(H, W)
+    scratch = torch.empty(P * scratch_floats(H, W), dtype=torch.float32, device=d)
+    out = torch.empty_like(planes)
     fn = dev.load_kernel("push_pull").push_pull
     fn.argtypes, fn.restype = _PP_ARGS, ctypes.c_int
     launched = ctypes.c_int(0)
-    rc = fn(dev.ptr(image), dev.ptr(occupancy), dev.ptr(scratch), dev.ptr(out),
-            H, W, dev.stream_handle(), ctypes.byref(launched))
+    rc = fn(dev.ptr(planes), dev.ptr(occupancy), dev.ptr(scratch), dev.ptr(out),
+            P, int(occupancy.ndim == 3), H, W, pair, unknown,
+            dev.ptr(_inexact_counter(d)) if unknown else _NULL, dev.stream_handle(),
+            ctypes.byref(launched))
     dev.count_launch("push_pull", launched.value)
     dev.check_launch("push_pull", rc)
-    return out
+    return out.reshape(image.shape)
 
 
 def push_levels(planes: torch.Tensor, occupancy: torch.Tensor, min_side: int):
@@ -248,7 +335,8 @@ def push_levels(planes: torch.Tensor, occupancy: torch.Tensor, min_side: int):
     fn.argtypes, fn.restype = _PUSH_ARGS, ctypes.c_int
     launched = ctypes.c_int(0)
     rc = fn(dev.ptr(planes), dev.ptr(occupancy), dev.ptr(vals), dev.ptr(wts), C, H, W,
-            min_side, dev.stream_handle(), ctypes.byref(launched))
+            min_side, dev.ptr(_inexact_counter(planes.device)), dev.stream_handle(),
+            ctypes.byref(launched))
     dev.count_launch("push_levels", launched.value)
     dev.check_launch("push_levels", rc)
     out_v, out_w, off = [], [], 0
@@ -268,8 +356,6 @@ _PULL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _RELAX_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 _FINISH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-_NULL = ctypes.c_void_p(0)
 
 
 def _w(name: str, args):
@@ -409,10 +495,10 @@ def fill_rgb(planes: torch.Tensor, occupancy: torch.Tensor, mode: int = 1) -> to
     padding.py:176, through `fill_plane`'s dispatch, :165): every (H, W)
     int32 channel plane of `planes` (..., H, W) is filled under the (H, W)
     uint8 occupancy by attributeBGFill `mode` (0 dilation, 1 push-pull,
-    2 harmonic), rounded half to even and clipped to 0..255.  Mode 1 runs
-    kernel L plane by plane (its clip changes nothing: the fill averages
-    integer channels of 0..255); modes 0 and 2 fill the whole stack at once
-    (kernel W, with L's push for mode 2)."""
+    2 harmonic), rounded half to even and clipped to 0..255.  Every mode
+    fills the whole stack at once: kernel L for mode 1 (its clip changes
+    nothing: the fill averages integer channels of 0..255), kernel W (with
+    L's push for mode 2) for modes 0 and 2."""
     h, w = planes.shape[-2:]
     flat = planes.reshape(-1, h, w)
     if mode == 0:
@@ -421,5 +507,5 @@ def fill_rgb(planes: torch.Tensor, occupancy: torch.Tensor, mode: int = 1) -> to
     elif mode == 2:
         out = round_clip(harmonic_fill(flat, occupancy), flat, occupancy, "bg_relax")
     else:
-        out = torch.stack([push_pull_round(p, occupancy) for p in flat])
+        out = push_pull_round(flat.contiguous(), occupancy)
     return out.reshape(planes.shape)

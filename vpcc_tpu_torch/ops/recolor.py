@@ -43,6 +43,15 @@ kernel E's k=1 sweep (bucket 6), no kernel of its own.
 Kernel M (csrc/recolor.cu) has three entry points (exact match, forward
 blend, splat and merge); the `*_plain` functions are their plain versions,
 used for CPU tensors.
+
+The level-batched GOF path (`parallel/gof.py` `recolor_level`, reference
+`parallel/gof.py` `_exact_batch` / `_blend_batch`) runs the uncompacted
+route over the B frames of a hierarchy level at once, on clouds padded to
+common sizes: `sorted_source_keys_batch` gives the padded sources the key
+0x7FFFFFFF (reference recolor.py:50-53), `exact_match_batch` (kernel M's
+`recolor_exact_batch`) matches every frame's targets, and `blend_batch`
+(`recolor_blend_batch`) runs the forward blend, the splat and the merge of
+every frame; their plain versions loop over the frames.
 """
 
 from __future__ import annotations
@@ -352,3 +361,112 @@ def transfer_reflectance(src_pos: torch.Tensor, src_refl: torch.Tensor,
     nidx, _ = neighbors.nearest(grid_s, tgt_pos.contiguous(), bucket=6)
     idx = torch.where(has_exact, exact_idx, nidx)
     return src_refl[idx.long()].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# B frames at once (the level-batched GOF path)
+
+PAD_KEY = 0x7FFFFFFF
+
+
+def sorted_source_keys_batch(src_pos: torch.Tensor, src_cnt: torch.Tensor, bits: int):
+    """(order, sorted keys) (B, Ns) int32 of B padded source clouds (B, Ns,
+    3): rows at or past a frame's count `src_cnt` (B,) take the key
+    0x7FFFFFFF and sort last (stable sort per frame)."""
+    B, ns, _ = src_pos.shape
+    ks = _packed_keys(src_pos.reshape(-1, 3), bits).view(B, ns)
+    valid = torch.arange(ns, device=src_pos.device)[None, :] < src_cnt.to(src_pos.device)[:, None]
+    ks = torch.where(valid, ks, torch.full_like(ks, PAD_KEY))
+    srt = torch.sort(ks, dim=1, stable=True)
+    return srt.indices.to(torch.int32).contiguous(), srt.values.contiguous()
+
+
+def exact_match_batch_plain(order, sk, tgt_pos, bits: int):
+    """Frame by frame `exact_match_plain`: (exact_idx (B, Nt) int32,
+    has_exact (B, Nt) bool, matched_src (B, Ns) bool)."""
+    outs = [exact_match_plain(order[b], sk[b], tgt_pos[b], bits)[:3]
+            for b in range(tgt_pos.shape[0])]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+
+def blend_batch_plain(src_col, idx, d2, tidx, td2, exact_idx, has_exact, gd2_fwd: float,
+                      cd2: float, doff: float, gd2_bwd: float):
+    """Frame by frame, the uncompacted forward blend over every target and
+    the splat (every source; td2 = MAX_DIST2 drops one) and merge:
+    (B, Nt, 3) int32."""
+    B, ns, _ = src_col.shape
+    nt = exact_idx.shape[1]
+    d = src_col.device
+    every_src = torch.arange(ns, dtype=torch.int32, device=d)
+    every_tgt = torch.arange(nt, dtype=torch.int32, device=d)
+    return torch.stack([
+        splat_merge_plain(src_col[b], every_src, tidx[b], td2[b], exact_idx[b], has_exact[b],
+                          every_tgt, fwd_blend_plain(src_col[b], idx[b], d2[b], gd2_fwd, cd2,
+                                                     doff), gd2_bwd)
+        for b in range(B)])
+
+
+_EXACT_BATCH_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+_BLEND_BATCH_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+                     + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)])
+
+
+def exact_match_batch(order, sk, tgt_pos, bits: int):
+    """Kernel M's `recolor_exact_batch`: `exact_match_batch_plain` of B
+    frames in one launch."""
+    if tgt_pos.device.type == "cpu":
+        return exact_match_batch_plain(order, sk, tgt_pos, bits)
+    d = tgt_pos.device
+    dev.check_tensor(order, "order", torch.int32, d, 2)
+    dev.check_tensor(sk, "sorted keys", torch.int32, d, 2)
+    dev.check_tensor(tgt_pos, "tgt_pos", torch.int32, d, 3)
+    if bits > 10:
+        raise ValueError("recolor exact match: packed keys need bits <= 10")
+    B, nt, _ = tgt_pos.shape
+    ns = sk.shape[1]
+    if order.shape != sk.shape or sk.shape[0] != B or tgt_pos.shape[2] != 3:
+        raise ValueError(f"recolor exact match batch: order {tuple(order.shape)}, keys "
+                         f"{tuple(sk.shape)}, targets {tuple(tgt_pos.shape)}")
+    eidx = torch.empty((B, nt), dtype=torch.int32, device=d)
+    has = torch.empty((B, nt), dtype=torch.bool, device=d)
+    matched = torch.zeros((B, ns), dtype=torch.int32, device=d)
+    rc = _fn("recolor_exact_batch", _EXACT_BATCH_ARGS)(
+        dev.ptr(order), dev.ptr(sk), dev.ptr(tgt_pos), B, ns, nt, bits,
+        dev.ptr(eidx), dev.ptr(has), dev.ptr(matched), dev.stream_handle())
+    dev.count_launch("recolor_exact_batch", 1 if B * nt else 0)
+    dev.check_launch("recolor_exact_batch", rc)
+    return eidx, has, matched != 0
+
+
+def blend_batch(src_col, idx, d2, tidx, td2, exact_idx, has_exact, gd2_fwd: float,
+                cd2: float, doff: float, gd2_bwd: float):
+    """Kernel M's `recolor_blend_batch`: `blend_batch_plain` of B frames,
+    one launch per step (blend, splat, merge) for all of them.  src_col
+    (B, Ns, 3) uint8; idx, d2 (B, Nt, k); tidx, td2 (B, Ns); exact_idx,
+    has_exact (B, Nt)."""
+    if idx.device.type == "cpu":
+        return blend_batch_plain(src_col, idx, d2, tidx, td2, exact_idx, has_exact, gd2_fwd,
+                                 cd2, doff, gd2_bwd)
+    d = idx.device
+    dev.check_tensor(src_col, "src_col", torch.uint8, d, 3)
+    for name, t, nd in (("idx", idx, 3), ("d2", d2, 3), ("tidx", tidx, 2), ("td2", td2, 2),
+                        ("exact_idx", exact_idx, 2)):
+        dev.check_tensor(t, name, torch.int32, d, nd)
+    dev.check_tensor(has_exact, "has_exact", torch.bool, d, 2)
+    B, nt, k = idx.shape
+    ns = src_col.shape[1]
+    if (k > 64 or d2.shape != idx.shape or src_col.shape != (B, ns, 3)
+            or tidx.shape != (B, ns) or td2.shape != (B, ns)
+            or exact_idx.shape != (B, nt) or has_exact.shape != (B, nt)):
+        raise ValueError("recolor blend batch: inconsistent shapes")
+    acc = torch.zeros((B, nt, 4), dtype=torch.int32, device=d)
+    fwd = torch.empty((B, nt, 3), dtype=torch.float32, device=d)
+    out = torch.empty((B, nt, 3), dtype=torch.int32, device=d)
+    launched = ctypes.c_int(0)
+    rc = _fn("recolor_blend_batch", _BLEND_BATCH_ARGS)(
+        dev.ptr(src_col), dev.ptr(idx), dev.ptr(d2), dev.ptr(tidx), dev.ptr(td2),
+        dev.ptr(exact_idx), dev.ptr(has_exact), B, ns, nt, k, gd2_fwd, cd2, doff, gd2_bwd,
+        dev.ptr(acc), dev.ptr(fwd), dev.ptr(out), dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("recolor_blend_batch", launched.value)
+    dev.check_launch("recolor_blend_batch", rc)
+    return out

@@ -18,7 +18,8 @@ Stages of `decode_planes`:
 
 Stages of `encode_planes`:
 1. device, kernel L `push_pull` (ops/padding.py): background fill of the
-   unoccupied pixels, rounded to int32; edge-pad and tile;
+   unoccupied pixels (one occupancy, or one per plane), rounded to int32;
+   edge-pad and tile;
 2. device, kernel J `motion_search` (motion planes): per-CU half-pel MVs,
    then kernel B builds the motion-compensated reference;
 3. device, kernel I `wavefront_encode32`: the RD quadtree decisions, the
@@ -27,6 +28,10 @@ Stages of `encode_planes`:
    `sao_search` + `sao_apply`: per-region SAO parameters and the final
    reconstruction;
 5. host: `assemble_payload32`, the entropy coder.
+Stages 1-4 are `encode_planes_dispatch`, which leaves a `Coded32` on the
+device; its `payload` runs stage 5 for any run of its planes, so one
+dispatch can code the planes of several frames (the level-batched GOF
+path, `parallel/gof.py`).
 
 `encode_rgb` / `decode_rgb` code an RGB attribute image as a luma plane and
 a 4:2:0 chroma pair (chroma QP + 3) on top of these; the color conversion
@@ -40,9 +45,10 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import struct
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1437,12 +1443,13 @@ def wavefront_encode32(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam, pen,
 # ---------------------------------------------------------------------------
 # plane API, encode side
 
-def _round_int_plane(plane, occ):
-    """Occupancy-aware background fill (kernel L) + rounding to int32; plain
-    int32 conversion without an occupancy.  plane/occ (H, W) tensors."""
+def _round_int_planes(planes, occ):
+    """Occupancy-aware background fill (kernel L, every plane in one pass)
+    + rounding to int32; plain int32 conversion without an occupancy.
+    planes (P, H, W), occ (H, W) or one per plane (P, H, W)."""
     if occ is None:
-        return plane.to(torch.int32)
-    return padding.push_pull_round(plane.to(torch.int32).contiguous(),
+        return planes.to(torch.int32)
+    return padding.push_pull_round(planes.to(torch.int32).contiguous(),
                                    occ.to(torch.uint8).contiguous())
 
 
@@ -1488,21 +1495,63 @@ def assemble_payload32(H, W, P, qps, maxvals, has_ref, deblock, motion, ty, tx,
     return bytes(out)
 
 
-def encode_planes(planes, qps, maxvals, refs=None, occ=None, deblock: bool = True,
-                  weight=None, motion: bool = False) -> Tuple[bytes, torch.Tensor]:
-    """Encode a (P, H, W) stack of integer planes sharing one shape with the
-    three-level (32/16/8) wavefront codec, as `vpcc_tpu.video.hevc.
-    encode_planes` does.  Returns (payload bytes, (P, H, W) int32
-    reconstruction on the device), the reconstruction being exactly what
-    `decode_planes` makes of the payload.
+@dataclasses.dataclass
+class Coded32:
+    """What one `encode_planes_dispatch` call leaves on the device: the
+    syntax arrays of its P * ty * tx tiles (split flags, modes,
+    coefficients, MVs, SAO), the (P, H, W) int32 reconstruction and the
+    call's parameters.  `payload` assembles the bytes of a run of its
+    planes on the host."""
 
-    qps/maxvals: per-plane ints.  refs: optional (P, H, W) reference planes
-    (enables the inter lane); motion=True searches half-pel MVs against
-    them (kernel J).  occ: optional (H, W) occupancy for the push-pull
-    background fill (kernel L).  weight: optional (H, W) 0/1 RD relevance
-    mask.  The reference's `defer` has no counterpart: the payload is
-    assembled before returning.  The encode runs on the planes' device when
-    they are a tensor, else on CUDA."""
+    s32: torch.Tensor
+    m32: torch.Tensor
+    c32: torch.Tensor
+    s16: torch.Tensor
+    modes: torch.Tensor
+    c16: torch.Tensor
+    mv: torch.Tensor
+    sao_cls: torch.Tensor
+    sao_off: torch.Tensor
+    rec: torch.Tensor
+    qps: list
+    maxvals: list
+    has_ref: bool
+    deblock: bool
+    motion: bool
+    ty: int
+    tx: int
+    _host: Optional[tuple] = None
+
+    def host(self) -> tuple:
+        """The syntax arrays on the host (downloaded once)."""
+        if self._host is None:
+            self._host = tuple(a.cpu().numpy() for a in (
+                self.s32, self.m32, self.c32, self.s16, self.modes, self.c16,
+                self.mv, self.sao_cls, self.sao_off))
+        return self._host
+
+    def payload(self, first: int = 0, count: Optional[int] = None) -> bytes:
+        """The payload of planes first .. first + count - 1 (default: all),
+        byte for byte what `encode_planes` writes for them alone."""
+        P, H, W = self.rec.shape
+        count = P - first if count is None else count
+        T = self.ty * self.tx
+        sl = slice(first * T, (first + count) * T)
+        return assemble_payload32(
+            H, W, count, self.qps[first:first + count], self.maxvals[first:first + count],
+            self.has_ref, self.deblock, self.motion, self.ty, self.tx,
+            *(a[sl] for a in self.host()))
+
+
+def encode_planes_dispatch(planes, qps, maxvals, refs=None, occ=None, deblock: bool = True,
+                           weight=None, motion: bool = False) -> Coded32:
+    """The device half of `encode_planes` over a (P, H, W) stack sharing
+    one shape: kernels L, J, B, I, O, K in one pass each over every plane.
+    qps/maxvals: per-plane ints.  refs: optional (P, H, W) reference
+    planes.  occ: optional (H, W) occupancy, or one per plane (P, H, W),
+    for the push-pull background fill.  weight: optional (H, W) or (P, H,
+    W) 0/1 RD relevance mask.  Runs on the planes' device when they are a
+    tensor, else on CUDA."""
     d = planes.device if torch.is_tensor(planes) else dev.resolve_device()
     as_t = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))).to(d)
     planes = as_t(planes)
@@ -1517,11 +1566,7 @@ def encode_planes(planes, qps, maxvals, refs=None, occ=None, deblock: bool = Tru
             "two-level _build_encode")
     has_ref = refs is not None
     motion = bool(motion and has_ref)
-    if occ is not None:
-        occ_t = as_t(occ)
-        planes = torch.stack([_round_int_plane(p, occ_t) for p in planes])
-    else:
-        planes = planes.to(torch.int32)
+    planes = _round_int_planes(planes, None if occ is None else as_t(occ))
     ref = (as_t(refs).to(torch.int32) if has_ref
            else torch.zeros((P, H, W), dtype=torch.int32, device=d))
     if weight is not None:
@@ -1564,12 +1609,28 @@ def encode_planes(planes, qps, maxvals, refs=None, occ=None, deblock: bool = Tru
     sao_cls, sao_off = sao_search(src, rec, lam, wgt)
     rec = sao_apply(rec, sao_cls, sao_off, maxv)
     rec = _untile(rec, P, ty, tx)[:, :H, :W].contiguous()
-    host = lambda a: a.cpu().numpy()
-    payload = assemble_payload32(
-        H, W, P, qps, maxvals, has_ref, deblock, motion, ty, tx,
-        host(s32), host(m32), host(c32), host(s16), host(modes), host(c16),
-        host(mv.to(torch.int8)), host(sao_cls), host(sao_off))
-    return payload, rec
+    return Coded32(s32, m32, c32, s16, modes, c16, mv.to(torch.int8), sao_cls, sao_off, rec,
+                   [int(q) for q in qps], [int(m) for m in maxvals], has_ref, bool(deblock),
+                   motion, ty, tx)
+
+
+def encode_planes(planes, qps, maxvals, refs=None, occ=None, deblock: bool = True,
+                  weight=None, motion: bool = False) -> Tuple[bytes, torch.Tensor]:
+    """Encode a (P, H, W) stack of integer planes sharing one shape with the
+    three-level (32/16/8) wavefront codec, as `vpcc_tpu.video.hevc.
+    encode_planes` does.  Returns (payload bytes, (P, H, W) int32
+    reconstruction on the device), the reconstruction being exactly what
+    `decode_planes` makes of the payload.
+
+    `encode_planes_dispatch` (arguments as here) then `Coded32.payload`.
+    refs: optional (P, H, W) reference planes (enables the inter lane);
+    motion=True searches half-pel MVs against them (kernel J).  occ:
+    optional (H, W) occupancy for the push-pull background fill (kernel L).
+    weight: optional (H, W) 0/1 RD relevance mask.  The reference's `defer`
+    has no counterpart: the payload is assembled before returning."""
+    coded = encode_planes_dispatch(planes, qps, maxvals, refs=refs, occ=occ, deblock=deblock,
+                                   weight=weight, motion=motion)
+    return coded.payload(), coded.rec
 
 
 def encode_rgb(attr, qp: int, refs=None, deblock: bool = True, weight=None,
