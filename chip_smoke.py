@@ -241,10 +241,36 @@ the JAX partitions:
 50. holds `grid_knn_batch`, `recolor_exact_batch` and `recolor_blend_batch`
     against their plain versions and against B launches of the single-frame
     entries, exactly, timing the three in turns;
-51. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
-    PLR, RDO, fill, scalar, orientation, high-gradient and frame-batched
-    entries as rows of their own, launches from steps 16, 24, 30, 35, 39,
-    43 and 48), then the result line.
+the two-level (16/8) codec of planes above 10 bits (kernel I's and kernel
+A's two-level entries; J and B at 16-px CUs, K at 16-px regions, L on 11-bit
+planes; reference data person_vox11_geo11_reference.json, made by
+tests/torch_make_geo11_reference.py), on the vox11 frames of step 21 at
+geometryNominal2dBitdepth=11 and r3, driven by the JAX partitions:
+52. with all launch counters at 0, runs `encode_gof` once, keeping the
+    largest call of kernel I's two-level entry and of the plane dispatch:
+    seconds per frame, the stage split, launches (I's two-level entry, K and
+    L nonzero), the geometry samples above 1023 per plane beside JAX's, no
+    push-pull block of unknown order reaching 2^24, and every geometry
+    payload's flags (FLAG_SAO16, not FLAG_CU32) equal to JAX's;
+53. requires the stream to be byte-identical to the JAX encoder's and every
+    frame's reconstruction to equal JAX's digest (or else its bytes and mean
+    D1/D2/Y within RD_BYTES_TOL / RD_PSNR_TOL_DB of JAX's, with each
+    geometry payload's identity printed), and, counters at 0, the port's
+    decoder to decode it to the encoder's reconstruction (kernel A's
+    two-level entry launched), keeping that entry's largest call;
+54. holds both two-level entries against their plain versions, exactly, on
+    the GOF's largest calls, on a motion-searched P-plane of that content
+    (its decoded plane shifted by (3, -2) as the reference) and on a crafted
+    1280x1280 random-walk plane spanning 0..2047 (each payload decoding to
+    the encoder's planes), timing the kernels (2 x 5 launches) and the plain
+    versions (one run) on the GOF's calls;
+55. runs `apps/video_codec.py` encode and decode on three 256x256 11-bit
+    depth frames and requires the decode to equal the geometry coder's
+    reconstruction;
+56. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
+    PLR, RDO, fill, scalar, orientation, high-gradient, frame-batched and
+    two-level entries as rows of their own, launches from steps 16, 24, 30,
+    35, 39, 43, 48, 52 and 53), then the result line.
 
 Any mismatch raises; the script exits non-zero and prints no result line
 when CUDA is missing or the package is not beside it.  It imports nothing
@@ -278,6 +304,7 @@ TOOLS_REFERENCE = DATA / "person_vox10_tools_reference.json"
 ATTR_OPTIONS_REFERENCE = DATA / "person_vox10_attr_options_reference.json"
 SEG_OPTIONS_REFERENCE = DATA / "person_vox10_seg_options_reference.json"
 SEG_OPTIONS_PARTITIONS = DATA / "person_vox10_seg_options_partitions.npz"
+GEO11_REFERENCE = DATA / "person_vox11_geo11_reference.json"
 # the floor tests/test_torch_segmentation.py pins for the partition
 # agreement with the JAX package, and the normals' tolerance (the kernel's
 # acosf/cosf against PyTorch's on the card)
@@ -359,6 +386,11 @@ KERNEL_INFO = {
     "grid_knn_batch": ("vpcc_tpu_torch/csrc/grid_knn.cu", "vpcc_tpu/parallel/gof.py:124"),
     "recolor_exact_batch": ("vpcc_tpu_torch/csrc/recolor.cu", "vpcc_tpu/parallel/gof.py:116"),
     "recolor_blend_batch": ("vpcc_tpu_torch/csrc/recolor.cu", "vpcc_tpu/parallel/gof.py:140"),
+    # the two-level (16/8) codec of planes above 10 bits
+    "wavefront_encode16": ("vpcc_tpu_torch/csrc/wavefront_encode32.cu",
+                           "vpcc_tpu/video/hevc.py:792"),
+    "wavefront_decode16": ("vpcc_tpu_torch/csrc/wavefront_decode32.cu",
+                           "vpcc_tpu/video/hevc.py:1263"),
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
@@ -449,9 +481,14 @@ def capture_key(name, args):
     if name == "wavefront_decode32":
         n_inter = inter_pixels(*args[1:3], *args[4:6])
         return (size, min(n_inter, args[1].numel() * 1024 - n_inter), n_inter)
+    if name == "wavefront_decode16":
+        n_inter = inter_pixels16(args[1], args[2])
+        return (size, min(n_inter, args[1].numel() * 256 - n_inter), n_inter)
     if name == "wavefront_encode32":
         # among the largest, a motion-searched plane (CUs with an MV rate)
         return (size, int((args[5] > 0).sum()))
+    if name == "wavefront_encode16":
+        return (size, int((args[4] > 0).sum()))
     return (size,)
 
 
@@ -503,6 +540,15 @@ def bounds(name, args, out):
         per_cu = np.where(s32h, np.where(s16h, 256 * 2 * 8, 256 * 2 * 16).sum(-1),
                           1024 * 2 * 32)
         ops = 2.0 * float(per_cu.sum())
+    elif name == "wavefront_decode16":
+        ref, split, modes, coeffs, dq, maxv, nby, nbx = args
+        # a CU reads 512 bytes of levels whichever tree it codes, and `ref`
+        # only at its inter-coded samples; two transform stages, 2n
+        # multiply-adds per sample of an n-block
+        byt = (nbytes(split, modes, dq, maxv, out) + split.numel() * 512
+               + inter_pixels16(split, modes) * ref.element_size())
+        sh = split.cpu().numpy() != 0
+        ops = 2.0 * float(np.where(sh, 256 * 2 * 8, 256 * 2 * 16).sum())
     elif name == "half_pel_mc":
         ref, mv, maxv, bs = args[:4]
         byt = nbytes(ref, mv, maxv, out)
@@ -679,6 +725,14 @@ def bounds(name, args, out):
         # their sixteen 8x8 blocks
         per_cu = 36 * 2 * (1024 * 32 + 4 * 256 * 16 + 16 * 64 * 8)
         ops = 2.0 * per_cu * src.shape[0] * nby * nbx
+    elif name == "wavefront_encode16":
+        src, ref, w16, w8, mvc = args[:5]
+        nby, nbx = args[-2:]
+        byt = nbytes(src, ref, w16, w8, mvc, *out)
+        # the two forward-DCT stages for the 36 modes of the 16x16 block and
+        # its four 8x8 blocks
+        per_cu = 36 * 2 * (256 * 16 + 4 * 64 * 8)
+        ops = 2.0 * per_cu * src.shape[0] * nby * nbx
     elif name == "motion_search":
         src, ref, lam, maxv, bs = args
         byt = nbytes(src, ref, lam, maxv, *out)
@@ -792,6 +846,13 @@ def knn_work(grid, q, win):
     cands = int((cnt * ok).sum())
     probes = int(torch.unique(torch.cat([clo[ok], chi1[ok]])).numel())
     return probes, cands
+
+
+def timed(fn):
+    """(fn(), its milliseconds by CUDA events) for one call."""
+    out = []
+    ms = time_ms(lambda: out.append(fn()), 1)
+    return out[0], ms
 
 
 def time_turns(kern, plain, reps_k=20, reps_p=3):
@@ -1805,7 +1866,7 @@ def blend_entries(recolor, inputs, kw, plain: bool):
 def vox11_phase(dev):
     """Steps 21-26: the vox11 path (kernel E's unpacked table, the
     full-graph CC round on kernel G, kernel M's uncompacted blend) on two
-    full-size 11-bit frames.  Returns (rows, launches)."""
+    full-size 11-bit frames.  Returns (rows, launches, the frames)."""
     import dataclasses
 
     import numpy as np
@@ -2048,7 +2109,218 @@ def vox11_phase(dev):
     if worst > METRICS_PSNR_TOL_DB:
         raise AssertionError(f"vox11 metrics differ from JAX's by {worst} dB "
                              f"(limit {METRICS_PSNR_TOL_DB})")
-    return rows, launches
+    return rows, launches, frames
+
+
+def inter_pixels16(split, modes) -> int:
+    """Samples of kernel A's two-level planes whose decoded mode is inter
+    (the only samples for which it reads `ref`)."""
+    from vpcc_tpu_torch.video.hevc_tables import MODE_INTER
+
+    whole = ((split == 0) & (modes[..., 0] == MODE_INTER)).sum() * 256
+    sub8 = ((split != 0)[..., None] & (modes == MODE_INTER)).sum() * 64
+    return int(whole + sub8)
+
+
+def geo11_phase(dev, frames):
+    """Steps 52-57: the two-level (16/8) codec (kernel I's and kernel A's
+    two-level entries; J and B at 16-px CUs, K at 16-px regions, L on
+    11-bit planes) on the two vox11 frames at geometryNominal2dBitdepth=11,
+    and the video_codec app.  Returns (rows, launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from vpcc_tpu_torch.apps import video_codec
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import metrics, padding
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+    from vpcc_tpu_torch.video import codecs, hevc
+
+    ref = json.loads(GEO11_REFERENCE.read_text())
+    ref_parts = np.load(VOX11_PARTITIONS)
+    cfg = VPCCConfig()
+    for k, v in ref["overrides"].items():
+        setattr(cfg, k, v)
+    if [f.point_count for f in frames] != ref["source_points"]:
+        raise AssertionError("geo11: the vox11 frames differ from the reference's")
+    n = len(frames)
+    d = torch.device("cuda")
+
+    # 52. the main path, counted: encode_gof driven by the JAX partitions,
+    # keeping the largest call of kernel I's two-level entry and of the
+    # plane dispatch, and counting the geometry samples above 1023
+    above = []
+    real_geo = codecs.GeometrySubstreamEncoder.encode
+
+    def geo_spy(self, geo, occ=None, **kw):
+        g = np.asarray(geo)
+        above.append((int((g > 1023).sum()), int(((g > 1023) & (np.asarray(occ) != 0)).sum())))
+        return real_geo(self, geo, occ=occ, **kw)
+
+    wrappers = {"wavefront_encode16": (hevc, "wavefront_encode16"),
+                "dispatch": (hevc, "encode_planes_dispatch")}
+    codecs.GeometrySubstreamEncoder.encode = geo_spy
+    try:
+        with Capture(wrappers) as cap:
+            padding.reset_inexact()
+            dev.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = Encoder(cfg, device="cuda")
+            segs = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
+                ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
+            stream, recon = enc.encode_gof(frames, segs=segs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(dev.LAUNCHES)
+            inexact = padding.inexact_blocks()
+    finally:
+        codecs.GeometrySubstreamEncoder.encode = real_geo
+    split = {f: sum(getattr(st, f) for st in enc.stats) / n
+             for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s", "video_s",
+                       "reconstruct_s", "recolor_s")}
+    print(f"geo11 encode (the run's first two-level GOF): {dt / n:.4f} s/frame (JAX "
+          "partitions); per frame " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"geo11 launches on the encode path: { {k: v for k, v in launches.items() if v} }")
+    # (J and B run where a P-frame keeps its parent's atlas shape; step 54's
+    # P-plane runs them in any case)
+    idle = [k for k in ("wavefront_encode16", "sao", "push_pull") if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"geo11: not launched on the encode path: {idle}")
+    print(f"geo11 geometry samples above 1023 per plane (all, occupied): {above} "
+          f"(JAX: {[list(zip(f['above_1023'], f['above_1023_occupied'])) for f in ref['frames']]})")
+    print(f"geo11 push-pull blocks reaching 2^24 where XLA's order is not established: {inexact}")
+    if inexact:
+        raise AssertionError("geo11: push-pull blocks of unknown order reached 2^24")
+    flags = [[p[1 + 5] for p in e.geometry_payloads] for e in enc.last_encoded]
+    if flags != [f["geo_flags"] for f in ref["frames"]] or any(
+            not fl & hevc.FLAG_SAO16 or fl & hevc.FLAG_CU32 for fr in flags for fl in fr):
+        raise AssertionError(f"geo11: geometry payload flags {flags}, JAX "
+                             f"{[f['geo_flags'] for f in ref['frames']]}")
+
+    # 53. the stream against the JAX encoder's, its decode
+    same = hashlib.md5(stream).hexdigest() == ref["stream_md5"]
+    geo_same = [[hashlib.md5(p).hexdigest() == m for p, m in zip(e.geometry_payloads, f["geo_md5"])]
+                for e, f in zip(enc.last_encoded, ref["frames"])]
+    d_bytes = len(stream) / ref["stream_bytes"] - 1.0
+    print(f"geo11 stream {len(stream)} vs {ref['stream_bytes']} bytes ({100 * d_bytes:+.4f} %), "
+          f"byte-identical to the JAX encoder's: {same}; geometry payloads identical per frame "
+          f"(D0, D1): {geo_same}; bytes per substream (port/JAX): " + ", ".join(
+              f"{k} {enc.last_stream_stats.get(k)}/{v}" for k, v in ref["stream_stats"].items()))
+    for i, (rc, r) in enumerate(zip(recon, ref["frames"])):
+        if not np.all(np.isfinite(rc.positions)) or rc.colors.shape != rc.positions.shape:
+            raise AssertionError(f"geo11 frame {i}: malformed reconstruction")
+        if same and (rc.point_count, frame_digest(rc.positions, rc.colors)) != \
+                (r["recon_points"], r["recon_md5"]):
+            raise AssertionError(f"geo11 frame {i}: the reconstruction differs from JAX's")
+    if not same:
+        # the RD gate: bytes and mean D1/D2/Y against the JAX encoder's
+        got = []
+        for f, rc in zip(frames, recon):
+            p = torch.as_tensor(np.asarray(f.positions, np.int32), device=d)
+            nrm = metrics.estimate_normals(p, 11, device=d)
+            got.append(metrics.compute_metrics(p, torch.as_tensor(f.colors, device=d),
+                                               rc.positions, rc.colors, resolution=2047,
+                                               src_normals=nrm, grid_bits=11, device=d))
+        mean = {"d1": float(np.mean([m.c2c_psnr for m in got])),
+                "d2": float(np.mean([m.c2p_psnr for m in got])),
+                "y": float(np.mean([m.color_psnr[0] for m in got]))}
+        worst = max(abs(mean[k] - ref["mean"][k]) for k in mean)
+        print(f"geo11 RD against the JAX encoder's: bytes {100 * d_bytes:+.4f} %, mean "
+              f"D1/D2/Y {mean} vs {ref['mean']} (worst {worst:.4f} dB)")
+        if abs(d_bytes) > RD_BYTES_TOL or worst > RD_PSNR_TOL_DB:
+            raise AssertionError("geo11: the stream fails the RD gate against JAX's")
+    wrap16 = {"wavefront_decode16": (hevc, "wavefront_decode16")}
+    with Capture(wrap16) as dcap:
+        _, t_dec, dec_launches = decode_checked(dev, stream, recon, "geo11")
+    print(f"geo11 decode: {t_dec:.4f} s/frame; the port's stream decodes exactly to the "
+          f"encoder's reconstruction (points {[b.point_count for b in recon]})")
+    if not dec_launches.get("wavefront_decode16"):
+        raise AssertionError("geo11: kernel A's two-level entry not launched on the decode")
+
+    # 54. kernel I's and kernel A's two-level entries against their plain
+    # versions: the GOF's largest call, a motion-searched P-plane of that
+    # content (the decoded plane shifted by (3, -2) as its reference) and a
+    # crafted 1280x1280 random-walk plane spanning 0..2047
+    enc_calls = {"gof": cap.calls["wavefront_encode16"][1]}
+    dec_calls = {"gof": dcap.calls["wavefront_decode16"][1]}
+    planes, qps, maxvals = cap.calls["dispatch"][1][:3]
+    kw = cap.calls["dispatch"][2]
+    rng = np.random.default_rng(2047)
+    walk = np.clip(np.cumsum(rng.integers(-40, 41, (1, 1280, 1280)), axis=2) + 1024, 0, 2047)
+    base = hevc.encode_planes_dispatch(planes, qps, maxvals, occ=kw.get("occ"),
+                                       weight=kw.get("weight"), deblock=False)
+    p_ref = torch.roll(base.rec, (3, -2), (1, 2)).contiguous()
+    extra = {
+        "P-plane": (lambda: hevc.encode_planes_dispatch(
+            planes, qps, maxvals, refs=p_ref, occ=kw.get("occ"), weight=kw.get("weight"),
+            deblock=False, motion=True), p_ref),
+        "random walk": (lambda: hevc.encode_planes_dispatch(
+            torch.as_tensor(walk.astype(np.int32), device=d), [24], [2047], deblock=False),
+            None),
+    }
+    for name, (run, refs) in extra.items():
+        with Capture({"wavefront_encode16": (hevc, "wavefront_encode16")}) as c1:
+            coded = run()
+        with Capture(wrap16) as c2:
+            got = hevc.decode_planes(coded.payload(), refs=refs, device=d)
+        torch.cuda.synchronize()
+        if not torch.equal(got, coded.rec):
+            raise AssertionError(f"geo11 {name}: the decode differs from the encoder's planes")
+        enc_calls[name] = c1.calls["wavefront_encode16"][1]
+        dec_calls[name] = c2.calls["wavefront_decode16"][1]
+    print(f"geo11 P-plane: {int((enc_calls['P-plane'][4] > 0).sum())} of "
+          f"{enc_calls['P-plane'][4].numel()} CUs with an MV rate")
+    rows = {}
+    for name, fn, plain, calls in (
+            ("wavefront_encode16", hevc.wavefront_encode16, hevc.wavefront_encode16_plain,
+             enc_calls),
+            ("wavefront_decode16", hevc.wavefront_decode16, hevc.wavefront_decode16_plain,
+             dec_calls)):
+        for which, args in calls.items():
+            out_k = fn(*args)
+            out_p, p_ms = timed(lambda: plain(*args))
+            torch.cuda.synchronize()
+            err = max_abs_err(tuple(out_k), tuple(out_p)) if isinstance(out_k, tuple) \
+                else max_abs_err(out_k, out_p)
+            if err != 0:
+                raise AssertionError(f"{name} ({which}): kernel differs from its plain version "
+                                     f"(max abs err {err})")
+            if which == "gof":
+                k1, k2 = time_ms(lambda: fn(*args), 5), time_ms(lambda: fn(*args), 5)
+                b_ms, b_by = bounds(name, args, out_k)
+                rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by, max_abs_err=err, library_ms=None)
+                timing = (f"kernel {k1:.4f}/{k2:.4f} ms, plain {p_ms:.3f} ms (one run), bound "
+                          f"{b_ms:.4f} ms ({b_by}); ")
+            else:
+                timing = ""
+            print(f"{name} ({which}): exact (max abs err {err}); {timing}inputs "
+                  f"{[tuple(t.shape) for t in args if torch.is_tensor(t)][:2]}")
+
+    # 55. the video_codec app on the card: three 11-bit depth frames
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        f0 = np.clip(np.cumsum(rng.integers(-40, 41, (256, 256)), axis=1) + 1024, 0, 2047)
+        vids = np.stack([np.roll(f0, (2 * i, i), (0, 1)) for i in range(3)]).astype(np.uint16)
+        np.save(tmp / "in.npy", vids)
+        opts = ["--qp=24", "--geometryNominal2dBitdepth=11", "--device=cuda"]
+        if video_codec.main(["encode", str(tmp / "in.npy"), str(tmp / "v.bin")] + opts) or \
+                video_codec.main(["decode", str(tmp / "v.bin"), str(tmp / "rec.npy")] + opts):
+            raise AssertionError("video_codec app failed")
+        got = np.load(tmp / "rec.npy")
+        nbytes_app = (tmp / "v.bin").stat().st_size
+    gcfg = VPCCConfig()
+    gcfg.geometryNominal2dBitdepth, gcfg.geometryQP = 11, 24
+    genc = codecs.GeometrySubstreamEncoder(gcfg, d)
+    want = np.stack([genc.encode(f)[1].cpu().numpy() for f in vids])
+    if not np.array_equal(got, want):
+        raise AssertionError("video_codec app: the decode differs from the encoder's planes")
+    print(f"video_codec app: 3 frames of 256x256 at 11 bits ({int((vids > 1023).sum())} samples "
+          f"above 1023), {nbytes_app} bytes; the decode equals the encoder's reconstruction")
+    return rows, {"wavefront_encode16": launches["wavefront_encode16"],
+                  "wavefront_decode16": dec_launches["wavefront_decode16"]}
 
 
 def unit_bytes(stream: bytes) -> dict:
@@ -3180,12 +3452,14 @@ def main() -> int:
     geo_rows, geo_launches = geometry_phase(dev, cfg, frames, segs)
     enc_rows, enc_launches, r3 = encode_phase(dev, cfg, frames, segs)
     met_rows, met_launches = metrics_phase(dev, cfg, frames, segs, decoded, r3)
-    vox_rows, vox_launches = vox11_phase(dev)
+    vox_rows, vox_launches, vox_frames = vox11_phase(dev)
     ll_rows, ll_launches = lossless_phase(dev, frames)
     tools_rows, tools_launches = tools_phase(dev, frames)
     ao_rows, ao_launches = attr_options_phase(dev, frames)
     so_rows, so_launches = seg_options_phase(dev, frames)
     lv_rows, lv_launches = level_phase(dev, cfg, frames, segs, r3[0])
+    g11_rows, g11_launches = geo11_phase(dev, vox_frames)
+    del vox_frames
     rows.update(front_rows)
     rows.update(geo_rows)
     rows.update(enc_rows)
@@ -3196,6 +3470,7 @@ def main() -> int:
     rows.update(ao_rows)
     rows.update(so_rows)
     rows.update(lv_rows)
+    rows.update(g11_rows)
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
@@ -3203,7 +3478,8 @@ def main() -> int:
                 **{k: met_launches[k] for k in METRICS_KERNELS},
                 **{k: vox_launches[c] for k, c in VOX11_ROWS.items()},
                 **{k: ll_launches[k] for k in LOSSLESS_KERNELS},
-                **tools_launches, **ao_launches, **so_launches, **lv_launches}
+                **tools_launches, **ao_launches, **so_launches, **lv_launches,
+                **g11_launches}
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

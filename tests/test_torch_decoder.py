@@ -99,7 +99,8 @@ def test_port_imports_no_jax():
         "vpcc_tpu_torch.encoder, vpcc_tpu_torch.core.packing, "
         "vpcc_tpu_torch.utils.synthetic, vpcc_tpu_torch.ops.metrics, "
         "vpcc_tpu_torch.apps.encode, vpcc_tpu_torch.apps.metrics, "
-        "vpcc_tpu_torch.apps.normal_generator, vpcc_tpu_torch.apps.bench\n"
+        "vpcc_tpu_torch.apps.normal_generator, vpcc_tpu_torch.apps.bench, "
+        "vpcc_tpu_torch.apps.video_codec, vpcc_tpu_torch.parallel.gof\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'vpcc_tpu' or m.startswith('vpcc_tpu.')]\n"
         "assert not bad, bad\n"

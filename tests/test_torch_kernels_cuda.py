@@ -386,6 +386,26 @@ def test_sao_kernel(cuda):
     _same(hevc.sao_apply(t(rec), cls, off, maxv), hevc.sao_apply_plain(t(rec), cls, off, maxv))
 
 
+def test_sao_region16_kernel(cuda):
+    """Kernel K at the two-level codec's 16-px regions on 11-bit planes."""
+    rng = np.random.default_rng(15)
+    P, H, W = 2, 96, 160
+    src = _smooth_planes(rng, P, H, W, 2047)
+    rec = np.clip(src + rng.integers(-12, 13, src.shape), 0, 2047).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    w = t((rng.random((P, H, W)) < 0.8).astype(np.int32))
+    lam = t(tab.LAMBDA[[4, 30]])
+    maxv = torch.full((P,), 2047, dtype=torch.int32, device=cuda)
+    cls, off = hevc.sao_search(t(src), t(rec), lam, w, 16)
+    cls_p, off_p = hevc.sao_search_plain(t(src), t(rec), lam, w, 16)
+    assert tuple(cls.shape) == (P, H // 16, W // 16)
+    _same(cls, cls_p)
+    _same(off, off_p)
+    assert int((cls > 0).sum()) > 0
+    _same(hevc.sao_apply(t(rec), cls, off, maxv, 16),
+          hevc.sao_apply_plain(t(rec), cls, off, maxv, 16))
+
+
 @pytest.mark.parametrize("has_ref", [False, True])
 def test_wavefront_encode32_kernel(cuda, has_ref):
     rng = np.random.default_rng(11 + has_ref)
@@ -429,6 +449,86 @@ def test_encode_planes_on_the_card(cuda, motion):
     pay_c, rec_c = hevc.encode_planes(torch.as_tensor(src), refs=torch.as_tensor(ref), **kw)
     pay_g, rec_g = hevc.encode_planes(torch.as_tensor(src, device=cuda),
                                       refs=torch.as_tensor(ref, device=cuda), **kw)
+    assert pay_g == pay_c
+    _same(rec_g, rec_c)
+    _same(hevc.decode_planes(pay_g, refs=torch.as_tensor(ref, device=cuda)), rec_g)
+
+
+@pytest.mark.parametrize("maxval,qp,big,nbx", [(2047, 30, False, 4), (2047, 4, True, 5),
+                                               (255, 20, False, 1)])
+def test_wavefront_decode16_kernel(cuda, maxval, qp, big, nbx):
+    """Kernel A's two-level entry on random 16/8 syntax (every mode, mixed
+    splits; `big` draws levels up to the int16 limit).  One launch per
+    non-empty diagonal of 16x16 CUs."""
+    rng = np.random.default_rng(100 + qp)
+    PT, nby = 3, 3
+    nb = nby * nbx
+    diagonals = {2 * by + bx for by in range(nby) for bx in range(nbx)}
+    lim = 32767 if big else 40
+    args = [
+        rng.integers(0, maxval + 1, (PT, nby * 16, nbx * 16)).astype(np.int32),
+        rng.integers(0, 2, (PT, nb)).astype(np.int8),
+        rng.integers(0, 36, (PT, nb, 4)).astype(np.int8),
+        (rng.integers(-lim, lim + 1, (PT, nb, 256))
+         * (rng.random((PT, nb, 256)) < 0.1)).astype(np.int16),
+        np.full(PT, tab.DQ64[qp], np.int32),
+        np.full(PT, maxval, np.int32),
+    ]
+    t = [torch.as_tensor(a, device=cuda) for a in args]
+    before = dev.LAUNCHES["wavefront_decode16"]
+    got = hevc.wavefront_decode16(*t, nby, nbx)
+    assert dev.LAUNCHES["wavefront_decode16"] == before + len(diagonals)
+    _same(got, hevc.wavefront_decode16_plain(*t, nby, nbx))
+
+
+@pytest.mark.parametrize("has_ref", [False, True])
+def test_wavefront_encode16_kernel(cuda, has_ref):
+    """Kernel I's two-level entry against its plain version on 11-bit
+    planes (a good reference on the left, an unrelated one on the right)."""
+    rng = np.random.default_rng(31 + has_ref)
+    PT, nby, nbx = 2, 3, 4
+    nb = nby * nbx
+    H, W = nby * 16, nbx * 16
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    src = _smooth_planes(rng, PT, H, W, 2047)
+    ref = np.zeros_like(src)
+    if has_ref:
+        ref = np.clip(src + rng.integers(-6, 7, src.shape), 0, 2047).astype(np.int32)
+        ref[:, :, W // 2:] = _smooth_planes(rng, PT, H, W - W // 2, 2047)
+    wgt = (rng.random((PT, nby * 2, nbx * 2)) < 0.6).repeat(8, 1).repeat(8, 2)
+    w16, w8 = hevc.block_weights16(t(wgt.astype(np.int32)), nby, nbx)
+    qp = np.array([30, 40])
+    dq = tab.DQ64[qp].astype(np.int32)
+    qstep = dq.astype(np.float32) / np.float32(64)
+    args = [t(src), t(ref), w16, w8, t((rng.random((PT, nb)) * 20).astype(np.float32)),
+            t(qstep), t(np.float32(1) / qstep), t(tab.LAMBDA[qp]),
+            torch.full((PT,), 0.0 if has_ref else 1e30, device=cuda), t(dq),
+            torch.full((PT,), 2047, dtype=torch.int32, device=cuda)]
+    before = dev.LAUNCHES["wavefront_encode16"]
+    got = hevc.wavefront_encode16(*args, nby, nbx)
+    assert dev.LAUNCHES["wavefront_encode16"] == before + 2 * (nby - 1) + nbx
+    want = hevc.wavefront_encode16_plain(*args, nby, nbx)
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert 0 < int(got[0].long().sum()) < got[0].numel()   # split and whole CUs
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_encode_planes_two_level_on_the_card(cuda, motion):
+    """The two-level plane encoder (maxval 2047: kernels L, J and B at 16-px
+    CUs, I's two-level entry, K at 16-px regions) on the card equals it on
+    the CPU, payload and reconstruction, and the card's decoder (A's
+    two-level entry) reads it back exactly."""
+    rng = np.random.default_rng(41 + motion)
+    H, W = 160, 288
+    planes = _smooth_planes(rng, 2, H, W, 2047)
+    src, ref = planes[:1], planes[1:]
+    occ = (rng.random((H // 8, W // 8)) < 0.7).repeat(8, 0).repeat(8, 1).astype(np.uint8)
+    kw = dict(qps=[24], maxvals=[2047], occ=occ, weight=occ, deblock=motion, motion=motion)
+    pay_c, rec_c = hevc.encode_planes(torch.as_tensor(src), refs=torch.as_tensor(ref), **kw)
+    pay_g, rec_g = hevc.encode_planes(torch.as_tensor(src, device=cuda),
+                                      refs=torch.as_tensor(ref, device=cuda), **kw)
+    assert pay_g[5] & hevc.FLAG_SAO16 and not pay_g[5] & hevc.FLAG_CU32
     assert pay_g == pay_c
     _same(rec_g, rec_c)
     _same(hevc.decode_planes(pay_g, refs=torch.as_tensor(ref, device=cuda)), rec_g)

@@ -110,6 +110,7 @@ def test_level_batched_stream_decodes_with_the_reference(level_batched):
     ("useRawPointsSeparateVideo", 1, "useRawPointsSeparateVideo"),
     ("numNeighborsColorTransferBwd", 0, "numNeighborsColorTransferBwd"),
     ("geometry3dCoordinatesBitdepth", 11, "above 10 bits"),
+    ("geometryNominal2dBitdepth", 11, "2D geometry above 10 bits"),
     ("geometryQP", 4, "lossless video"),
     ("numMaxTilePerFrame", 2, "numMaxTilePerFrame"),
     ("globalPatchAllocation", 1, "globalPatchAllocation"),

@@ -221,8 +221,10 @@ def test_encode_planes_cross_decodes_and_matches_reference_rd(planes, kind):
 
 
 def test_encode_planes_unsupported():
-    with pytest.raises(NotImplementedError, match="two-level"):
-        th.encode_planes(torch.zeros((1, 64, 64), dtype=torch.int32), [24], [2047])
+    # maxval 1024..2047 takes the two-level codec; above 2047 the reference
+    # asserts (the prediction is integer-exact up to 11 bits): refused
+    with pytest.raises(ValueError, match="above 2047"):
+        th.encode_planes(torch.zeros((1, 64, 64), dtype=torch.int32), [24], [4095])
     # geometryQP <= 4 is no longer refused: the plane is coded losslessly
     cfg = VPCCConfig()
     cfg.geometryQP = 4

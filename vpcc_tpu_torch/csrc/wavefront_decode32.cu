@@ -1,9 +1,13 @@
-// Kernel A: wavefront decode of the three-level (32/16/8) CU syntax.
+// Kernel A: wavefront decode of the three-level (32/16/8) CU syntax, and
+// (entry `wavefront_decode16`) of the two-level (16/8) one.
 //
 // Replaces the XLA program vpcc_tpu/video/hevc.py `_build_decode32.run`
 // (hevc.py:1167-1251, with `_decode_cu16` 1117, `_predict_all` 94 and
 // `_int_recon` 113): reconstruct int32 sample planes from split flags,
-// intra/inter modes and zigzag coefficient levels, bit-exactly.
+// intra/inter modes and zigzag coefficient levels, bit-exactly.  The
+// two-level entry replaces `_build_decode.run` (hevc.py:1263-1346, planes
+// whose maxval is above 1023): the same blocks on a wavefront of 16x16
+// CUs (the device functions take the CU size as a template argument).
 //
 // Design.  CUs on one wavefront diagonal d = 2*by + bx are independent
 // (their up, up-left, up-right and left neighbours lie on diagonals d-1..d-3),
@@ -51,11 +55,14 @@ struct CuCtx {
   int Wt, nbx, nby, d, by, bx, y0, x0, init, maxv, dq;
 };
 
-// sample at (yy, xx) relative to the CU origin, as the reference sees it
+// sample at (yy, xx) relative to the origin of a CUS x CUS CU, as the
+// reference sees it (diagonals count CUs of that size)
+template <int CUS>
 __device__ __forceinline__ int fetch(const CuCtx& c, const int* cur, int yy, int xx) {
-  if (yy >= 0 && yy < 32 && xx >= 0 && xx < 32) return cur[yy * 32 + xx];
-  const int cy = c.by + (yy >> 5);
-  const int cx = c.bx + (xx >> 5);
+  constexpr int SH = CUS == 32 ? 5 : 4;
+  if (yy >= 0 && yy < CUS && xx >= 0 && xx < CUS) return cur[yy * CUS + xx];
+  const int cy = c.by + (yy >> SH);
+  const int cx = c.bx + (xx >> SH);
   if (cy < 0 || cx < 0 || cx >= c.nbx || cy >= c.nby || 2 * cy + cx >= c.d)
     return c.init;
   return c.rec[(c.y0 + yy) * c.Wt + (c.x0 + xx)];
@@ -80,6 +87,7 @@ __device__ __forceinline__ int predict(const CuCtx& c, const int* refv,
 }
 
 // Decode one n x n block at (oy, ox) of the CU into `cur` (all threads call).
+template <int CUS>
 __device__ void decode_block(const CuCtx& c, int* cur, int* refv, int* coef,
                              int* tmp, const int32_t* tables, int n, int log2n,
                              int oy, int ox, bool bl_init, int mode,
@@ -93,9 +101,9 @@ __device__ void decode_block(const CuCtx& c, int* cur, int* refv, int* coef,
   // reference vector: corner, 2n top (incl. top-right), n left, n bottom-left
   if (t < 4 * n + 1) {
     int v;
-    if (t == 0) v = fetch(c, cur, oy - 1, ox - 1);
-    else if (t <= 2 * n) v = fetch(c, cur, oy - 1, ox + t - 1);
-    else if (t <= 3 * n || !bl_init) v = fetch(c, cur, oy + t - 2 * n - 1, ox - 1);
+    if (t == 0) v = fetch<CUS>(c, cur, oy - 1, ox - 1);
+    else if (t <= 2 * n) v = fetch<CUS>(c, cur, oy - 1, ox + t - 1);
+    else if (t <= 3 * n || !bl_init) v = fetch<CUS>(c, cur, oy + t - 2 * n - 1, ox - 1);
     else v = c.init;
     refv[t] = v;
   }
@@ -125,7 +133,7 @@ __device__ void decode_block(const CuCtx& c, int* cur, int* refv, int* coef,
     acc += 1u << (s2 - 1);
     const int r = static_cast<int32_t>(acc) >> s2;
     const int p = predict(c, refv, taps, n, log2n, mode, i, k, oy, ox);
-    cur[(oy + i) * 32 + ox + k] = min(max(p + r, 0), c.maxv);
+    cur[(oy + i) * CUS + ox + k] = min(max(p + r, 0), c.maxv);
   }
   __syncthreads();
 }
@@ -166,18 +174,18 @@ wavefront_decode32_kernel(int32_t* rec, const int32_t* ref, const int8_t* s32,
   cur[t] = c.init;
   __syncthreads();
   if (s32[cu] == 0) {
-    decode_block(c, cur, refv, coef, tmp, tables, 32, 5, 0, 0, true, m32[cu],
+    decode_block<32>(c, cur, refv, coef, tmp, tables, 32, 5, 0, 0, true, m32[cu],
                  c32 + cu * 1024);
   } else {
     for (int q = 0; q < 4; ++q) {
       const int qy = (q >> 1) * 16, qx = (q & 1) * 16;
       const size_t cq = cu * 4 + q;
       if (s16[cq] == 0) {
-        decode_block(c, cur, refv, coef, tmp, tables, 16, 4, qy, qx, true,
+        decode_block<32>(c, cur, refv, coef, tmp, tables, 16, 4, qy, qx, true,
                      modes[cq * 4], c16 + cq * 256);
       } else {
         for (int s = 0; s < 4; ++s) {
-          decode_block(c, cur, refv, coef, tmp, tables, 8, 3,
+          decode_block<32>(c, cur, refv, coef, tmp, tables, 8, 3,
                        qy + (s >> 1) * 8, qx + (s & 1) * 8, s >= 2,
                        modes[cq * 4 + s], c16 + cq * 256 + s * 64);
         }
@@ -185,6 +193,54 @@ wavefront_decode32_kernel(int32_t* rec, const int32_t* ref, const int8_t* s32,
     }
   }
   rec[plane + (c.y0 + t / 32) * Wt + c.x0 + t % 32] = cur[t];
+}
+
+// The two-level (16/8) decoder: one block per (tile plane, 16x16 CU) of the
+// diagonal, 256 threads; the whole 16x16 block or four 8x8 blocks in
+// z-order (reference `_build_decode.run`, hevc.py:1281-1345).
+__global__ void __launch_bounds__(256)
+wavefront_decode16_kernel(int32_t* rec, const int32_t* ref, const int8_t* split,
+                          const int8_t* modes, const int16_t* coeffs, const int32_t* dq,
+                          const int32_t* maxv, const int32_t* tables, int nby, int nbx,
+                          int d, int by_min) {
+  __shared__ int cur[256];
+  __shared__ int refv[4 * 16 + 1];
+  __shared__ int coef[256];
+  __shared__ int tmp[256];
+  const int p = blockIdx.y;
+  const int by = by_min + blockIdx.x;
+  const int bx = d - 2 * by;
+  if (by >= nby || bx < 0 || bx >= nbx) return;  // uniform per block
+  const int Ht = nby * 16, Wt = nbx * 16;
+  const size_t plane = static_cast<size_t>(p) * Ht * Wt;
+  CuCtx c;
+  c.rec = rec + plane;
+  c.ref = ref + plane;
+  c.Wt = Wt;
+  c.nbx = nbx;
+  c.nby = nby;
+  c.d = d;
+  c.by = by;
+  c.bx = bx;
+  c.y0 = by * 16;
+  c.x0 = bx * 16;
+  c.maxv = maxv[p];
+  c.init = (c.maxv + 1) / 2;
+  c.dq = dq[p];
+  const int t = threadIdx.x;
+  const size_t cu = static_cast<size_t>(p) * nby * nbx + by * nbx + bx;
+  cur[t] = c.init;
+  __syncthreads();
+  if (split[cu] == 0) {
+    decode_block<16>(c, cur, refv, coef, tmp, tables, 16, 4, 0, 0, true, modes[cu * 4],
+                     coeffs + cu * 256);
+  } else {
+    for (int s = 0; s < 4; ++s) {
+      decode_block<16>(c, cur, refv, coef, tmp, tables, 8, 3, (s >> 1) * 8, (s & 1) * 8,
+                       s >= 2, modes[cu * 4 + s], coeffs + cu * 256 + s * 64);
+    }
+  }
+  rec[plane + (c.y0 + t / 16) * Wt + c.x0 + t % 16] = cur[t];
 }
 
 }  // namespace
@@ -213,6 +269,33 @@ extern "C" int wavefront_decode32(int32_t* rec, const int32_t* ref,
     wavefront_decode32_kernel<<<grid, 1024, 0, st>>>(
         rec, ref, s32, m32, c32, s16, modes, c16, dq, maxv, tables, nby, nbx,
         d, by_min);
+    ++*launched;
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two-level (16/8) entry: one launch per wavefront diagonal of 16x16
+// CUs, all on `stream`.  rec/ref: (PT, nby*16, nbx*16) int32; split (PT,
+// nb) int8; modes (PT, nb, 4) int8 ([m16, 0, 0, 0] for a whole block);
+// coeffs (PT, nb, 256) int16 zigzag (four 64-level 8x8 blocks when split);
+// dq/maxv (PT,) int32.  *launched receives the number of grids launched.
+extern "C" int wavefront_decode16(int32_t* rec, const int32_t* ref, const int8_t* split,
+                                  const int8_t* modes, const int16_t* coeffs,
+                                  const int32_t* dq, const int32_t* maxv,
+                                  const int32_t* tables, int PT, int nby, int nbx,
+                                  void* stream, int* launched) {
+  const int nd = 2 * (nby - 1) + nbx;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  for (int d = 0; d < nd; ++d) {
+    const int by_min = d - (nbx - 1) > 0 ? (d - (nbx - 1) + 1) / 2 : 0;
+    const int by_max = min(nby - 1, d / 2);
+    if (by_max < by_min) continue;
+    dim3 grid(by_max - by_min + 1, PT);
+    wavefront_decode16_kernel<<<grid, 256, 0, st>>>(rec, ref, split, modes, coeffs, dq, maxv,
+                                                    tables, nby, nbx, d, by_min);
     ++*launched;
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,12 +1,18 @@
 // Kernel I: wavefront rate-distortion encode of the three-level (32/16/8)
-// CU quadtree.
+// CU quadtree, and (entry `wavefront_encode16`) of the two-level (16/8) one.
 //
 // Replaces the XLA program vpcc_tpu/video/hevc.py `_build_encode32.run`
 // (hevc.py:933-1114, with `_code_cu16` 745, `_rd_choose` 125,
 // `_predict_all` 94, `_int_recon` 113): for every 32x32 CU choose, by
 // transform-domain RD cost over the 36 prediction modes (35 intra + inter),
 // between the whole 32x32 block and four 16x16 quadrants, each whole or as
-// four 8x8 blocks; emit the syntax and the int32 reconstruction.
+// four 8x8 blocks; emit the syntax and the int32 reconstruction.  The
+// two-level entry replaces `_build_encode.run` (hevc.py:792-929, the codec
+// of planes whose maxval is above 1023): the same 16x16-or-four-8x8 step on
+// a wavefront of 16x16 CUs, whose diagonals count 16x16 CUs (the device
+// functions below take the CU size as a template argument).  The reference
+// compiles `_code_cu16` into that program anew; see video/hevc.py's
+// section comment for the float order found there.
 //
 // Design.  As kernel A (wavefront_decode32.cu): CUs on a wavefront diagonal
 // d = 2*by + bx are independent, so the host launches one grid per
@@ -49,8 +55,9 @@
 //
 // Bound: operations.  Per CU and mode level the two DCT stages cost 2n
 // multiply-adds per sample for each of the 36 modes, at 32, 16 and 8: about
-// 36 * 2 * 1024 * (32 + 16 + 8) multiply-adds per CU.  The wavefront's
-// sequential diagonals (22 at 8 x 8 CUs per tile) leave most SMs idle.
+// 36 * 2 * 1024 * (32 + 16 + 8) multiply-adds per CU (two-level: 36 * 2 *
+// 256 * (16 + 8) per 16x16 CU).  The wavefront's sequential diagonals (22
+// at 8 x 8 CUs per tile; two-level: 46 at 16 x 16) leave most SMs idle.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -108,10 +115,16 @@ struct Smem {
   float best_cost;
 };
 
+// sample at (yy, xx) relative to the origin of a CU of CUS x CUS samples,
+// as the reference sees it: inside the CU the samples coded so far (init
+// elsewhere); outside, the plane where that CU lies on an earlier wavefront
+// diagonal of CUS-sized CUs, else the init value
+template <int CUS>
 __device__ __forceinline__ int fetch(const Ctx& c, const int* cur, int yy, int xx) {
-  if (yy >= 0 && yy < 32 && xx >= 0 && xx < 32) return cur[yy * 32 + xx];
-  const int cy = c.by + (yy >> 5);
-  const int cx = c.bx + (xx >> 5);
+  constexpr int SH = CUS == 32 ? 5 : 4;
+  if (yy >= 0 && yy < CUS && xx >= 0 && xx < CUS) return cur[yy * CUS + xx];
+  const int cy = c.by + (yy >> SH);
+  const int cx = c.bx + (xx >> SH);
   if (cy < 0 || cx < 0 || cx >= c.nbx || cy >= c.nby || 2 * cy + cx >= c.d)
     return c.init;
   return c.rec[(c.y0 + yy) * c.Wt + (c.x0 + xx)];
@@ -144,13 +157,14 @@ __device__ __forceinline__ const float* cf_of(const Smem& s, int n) {
 }
 
 // reference vector of the n x n block at (oy, ox) (all threads call)
+template <int CUS>
 __device__ void load_refs(const Ctx& c, Smem& s, int n, int oy, int ox, bool bl_init) {
   const int t = threadIdx.x;
   if (t < 4 * n + 1) {
     int v;
-    if (t == 0) v = fetch(c, s.cur, oy - 1, ox - 1);
-    else if (t <= 2 * n) v = fetch(c, s.cur, oy - 1, ox + t - 1);
-    else if (t <= 3 * n || !bl_init) v = fetch(c, s.cur, oy + t - 2 * n - 1, ox - 1);
+    if (t == 0) v = fetch<CUS>(c, s.cur, oy - 1, ox - 1);
+    else if (t <= 2 * n) v = fetch<CUS>(c, s.cur, oy - 1, ox + t - 1);
+    else if (t <= 3 * n || !bl_init) v = fetch<CUS>(c, s.cur, oy + t - 2 * n - 1, ox - 1);
     else v = c.init;
     s.refv[t] = v;
   }
@@ -205,6 +219,7 @@ __device__ __forceinline__ float quant(const Ctx& c, float ca) {
 
 // RD search over the 36 modes of the n x n block at (oy, ox); refs loaded.
 // Leaves the first minimum in s.best_mode / s.best_cost.  All threads call.
+template <int CUS>
 __device__ void eval_modes(const Ctx& c, Smem& s, int n, int log2n, int oy, int ox,
                            float w, float pen) {
   const int nn = n * n;
@@ -224,7 +239,7 @@ __device__ void eval_modes(const Ctx& c, Smem& s, int n, int log2n, int oy, int 
     if (active) {
       const int y = p / n, x = p % n;
       const int pr = predict(c, s.refv, taps, n, log2n, m, y, x, oy, ox);
-      s.R[t] = static_cast<float>(s.src[(oy + y) * 32 + ox + x] - pr);
+      s.R[t] = static_cast<float>(s.src[(oy + y) * CUS + ox + x] - pr);
     }
     __syncthreads();
     const float cv = dct_coef(s, n, g, p, active);
@@ -333,6 +348,7 @@ __device__ void eval_modes(const Ctx& c, Smem& s, int n, int log2n, int oy, int 
 
 // raster levels and prediction of `mode` for the n x n block at (oy, ox)
 // into s.lev / s.pred; refs loaded.  All threads call.
+template <int CUS>
 __device__ void mode_levels(const Ctx& c, Smem& s, int n, int log2n, int oy, int ox,
                             int mode) {
   const int nn = n * n;
@@ -342,7 +358,7 @@ __device__ void mode_levels(const Ctx& c, Smem& s, int n, int log2n, int oy, int
     const int y = t / n, x = t % n;
     const int pr = predict(c, s.refv, taps_of(c, n), n, log2n, mode, y, x, oy, ox);
     s.pred[t] = pr;
-    s.R[t] = static_cast<float>(s.src[(oy + y) * 32 + ox + x] - pr);
+    s.R[t] = static_cast<float>(s.src[(oy + y) * CUS + ox + x] - pr);
   }
   __syncthreads();
   const float cv = dct_coef(s, n, 0, t, active);
@@ -357,6 +373,7 @@ __device__ void mode_levels(const Ctx& c, Smem& s, int n, int log2n, int oy, int
 // integer reconstruction of s.lev / s.pred into the CU buffer at (oy, ox):
 // dequantise, inverse transform in wrapping 32-bit arithmetic, add the
 // prediction, clip.  All threads call.
+template <int CUS>
 __device__ void reconstruct(const Ctx& c, Smem& s, int n, int log2n, int oy, int ox) {
   const int nn = n * n;
   const int t = threadIdx.x;
@@ -384,7 +401,7 @@ __device__ void reconstruct(const Ctx& c, Smem& s, int n, int log2n, int oy, int
       acc += static_cast<uint32_t>(tmp[i * n + j]) * static_cast<uint32_t>(T[j * n + k]);
     acc += 1u << (s2 - 1);
     const int r = static_cast<int32_t>(acc) >> s2;
-    s.cur[(oy + i) * 32 + ox + k] = min(max(s.pred[t] + r, 0), c.maxv);
+    s.cur[(oy + i) * CUS + ox + k] = min(max(s.pred[t] + r, 0), c.maxv);
   }
   __syncthreads();
 }
@@ -438,8 +455,8 @@ wavefront_encode32_kernel(const int32_t* src, const int32_t* ref, const float* w
   const int32_t* fz8 = itab + OFF_FZ8;
 
   // ---- whole-32 candidate
-  load_refs(c, s, 32, 0, 0, true);
-  eval_modes(c, s, 32, 5, 0, 0, w32[cu], pen32);
+  load_refs<32>(c, s, 32, 0, 0, true);
+  eval_modes<32>(c, s, 32, 5, 0, 0, w32[cu], pen32);
   const int m32 = s.best_mode;
   const float cost32 = s.best_cost;
   float cs32 = c.lam;
@@ -448,21 +465,21 @@ wavefront_encode32_kernel(const int32_t* src, const int32_t* ref, const float* w
   for (int q = 0; q < 4; ++q) {
     const int qy = (q >> 1) * 16, qx = (q & 1) * 16;
     const size_t cq = cu * 4 + q;
-    load_refs(c, s, 16, qy, qx, true);
-    eval_modes(c, s, 16, 4, qy, qx, w16[cq], pen16);
+    load_refs<32>(c, s, 16, qy, qx, true);
+    eval_modes<32>(c, s, 16, 4, qy, qx, w16[cq], pen16);
     const int m16 = s.best_mode;
     const float cost16 = s.best_cost;
     float cs16 = c.lam;
     for (int sb = 0; sb < 4; ++sb) {
       const int oy = qy + (sb >> 1) * 8, ox = qx + (sb & 1) * 8;
-      load_refs(c, s, 8, oy, ox, sb >= 2);
-      eval_modes(c, s, 8, 3, oy, ox, w8[cq * 4 + sb], pen8);
+      load_refs<32>(c, s, 8, oy, ox, sb >= 2);
+      eval_modes<32>(c, s, 8, 3, oy, ox, w8[cq * 4 + sb], pen8);
       const int m8 = s.best_mode;
       cs16 = __fadd_rn(cs16, s.best_cost);
-      mode_levels(c, s, 8, 3, oy, ox, m8);
+      mode_levels<32>(c, s, 8, 3, oy, ox, m8);
       if (t < 64) s.c8[sb * 64 + t] = s.lev[fz8[t]];
       if (t == 0) s.m8[sb] = m8;
-      reconstruct(c, s, 8, 3, oy, ox);
+      reconstruct<32>(c, s, 8, 3, oy, ox);
     }
     const bool split16 = cs16 < cost16;
     cs32 = __fadd_rn(__fadd_rn(cs32, fminf(cost16, cs16)), c.lam);
@@ -470,26 +487,107 @@ wavefront_encode32_kernel(const int32_t* src, const int32_t* ref, const float* w
       if (t < 256) c16_o[cq * 256 + t] = static_cast<int16_t>(s.c8[t]);
       if (t < 4) modes_o[cq * 4 + t] = static_cast<int8_t>(s.m8[t]);
     } else {
-      load_refs(c, s, 16, qy, qx, true);
-      mode_levels(c, s, 16, 4, qy, qx, m16);
+      load_refs<32>(c, s, 16, qy, qx, true);
+      mode_levels<32>(c, s, 16, 4, qy, qx, m16);
       if (t < 256) c16_o[cq * 256 + t] = static_cast<int16_t>(s.lev[fz16[t]]);
       if (t < 4) modes_o[cq * 4 + t] = static_cast<int8_t>(t == 0 ? m16 : 0);
-      reconstruct(c, s, 16, 4, qy, qx);
+      reconstruct<32>(c, s, 16, 4, qy, qx);
     }
     if (t == 0) s16_o[cq] = split16 ? 1 : 0;
   }
 
   // ---- the whole-32 syntax, and its reconstruction when it wins
   const bool split32 = cs32 < cost32;
-  load_refs(c, s, 32, 0, 0, true);
-  mode_levels(c, s, 32, 5, 0, 0, m32);
+  load_refs<32>(c, s, 32, 0, 0, true);
+  mode_levels<32>(c, s, 32, 5, 0, 0, m32);
   c32_o[cu * 1024 + t] = static_cast<int16_t>(s.lev[itab[OFF_FZ32 + t]]);
   if (t == 0) {
     s32_o[cu] = split32 ? 1 : 0;
     m32_o[cu] = static_cast<int8_t>(m32);
   }
-  if (!split32) reconstruct(c, s, 32, 5, 0, 0);
+  if (!split32) reconstruct<32>(c, s, 32, 5, 0, 0);
   rec[plane + (c.y0 + t / 32) * Wt + c.x0 + t % 32] = s.cur[t];
+}
+
+// The two-level (16/8) encoder of the planes above 10 bits: one block per
+// (tile plane, 16x16 CU) of the wavefront diagonal d = 2*by + bx over
+// 16x16 CUs; the whole 16x16 block against four 8x8 blocks in z-order,
+// exactly the quadrant step of the kernel above with the CU's own MV rate
+// (reference `_build_encode.run`, hevc.py:811-930).
+__global__ void __launch_bounds__(1024)
+wavefront_encode16_kernel(const int32_t* src, const int32_t* ref, const float* w16,
+                          const float* w8, const float* mvc, const float* qstep,
+                          const float* inv_q, const float* lam, const float* pen,
+                          const int32_t* dq, const int32_t* maxv, const int32_t* itab,
+                          const float* ftab, int8_t* split_o, int8_t* modes_o,
+                          int16_t* coeff_o, int32_t* rec, int nby, int nbx, int d,
+                          int by_min) {
+  __shared__ Smem s;
+  const int p = blockIdx.y;
+  const int by = by_min + blockIdx.x;
+  const int bx = d - 2 * by;
+  if (by >= nby || bx < 0 || bx >= nbx) return;  // uniform per block
+  const int Ht = nby * 16, Wt = nbx * 16;
+  const size_t plane = static_cast<size_t>(p) * Ht * Wt;
+  Ctx c;
+  c.rec = rec + plane;
+  c.ref = ref + plane;
+  c.itab = itab;
+  c.ftab = ftab;
+  c.Wt = Wt;
+  c.nbx = nbx;
+  c.nby = nby;
+  c.d = d;
+  c.by = by;
+  c.bx = bx;
+  c.y0 = by * 16;
+  c.x0 = bx * 16;
+  c.maxv = maxv[p];
+  c.init = (c.maxv + 1) / 2;
+  c.dq = dq[p];
+  c.qstep = qstep[p];
+  c.inv_q = inv_q[p];
+  c.lam = lam[p];
+  const int t = threadIdx.x;
+  const size_t cu = static_cast<size_t>(p) * nby * nbx + by * nbx + bx;
+  if (t < 256) {
+    s.cur[t] = c.init;
+    s.src[t] = src[plane + (c.y0 + t / 16) * Wt + c.x0 + t % 16];
+  }
+  for (int i = t; i < 1344; i += 1024) s.cf[i] = ftab[FOFF_CF32 + i];
+  __syncthreads();
+  const float pen16 = __fadd_rn(pen[p], mvc[cu]);
+  const float pen8 = __fadd_rn(pen[p], __fmul_rn(0.25f, mvc[cu]));
+
+  load_refs<16>(c, s, 16, 0, 0, true);
+  eval_modes<16>(c, s, 16, 4, 0, 0, w16[cu], pen16);
+  const int m16 = s.best_mode;
+  const float cost16 = s.best_cost;
+  float cs = c.lam;
+  for (int sb = 0; sb < 4; ++sb) {
+    const int oy = (sb >> 1) * 8, ox = (sb & 1) * 8;
+    load_refs<16>(c, s, 8, oy, ox, sb >= 2);
+    eval_modes<16>(c, s, 8, 3, oy, ox, w8[cu * 4 + sb], pen8);
+    const int m8 = s.best_mode;
+    cs = __fadd_rn(cs, s.best_cost);
+    mode_levels<16>(c, s, 8, 3, oy, ox, m8);
+    if (t < 64) s.c8[sb * 64 + t] = s.lev[itab[OFF_FZ8 + t]];
+    if (t == 0) s.m8[sb] = m8;
+    reconstruct<16>(c, s, 8, 3, oy, ox);
+  }
+  const bool split = cs < cost16;
+  if (split) {
+    if (t < 256) coeff_o[cu * 256 + t] = static_cast<int16_t>(s.c8[t]);
+    if (t < 4) modes_o[cu * 4 + t] = static_cast<int8_t>(s.m8[t]);
+  } else {
+    load_refs<16>(c, s, 16, 0, 0, true);
+    mode_levels<16>(c, s, 16, 4, 0, 0, m16);
+    if (t < 256) coeff_o[cu * 256 + t] = static_cast<int16_t>(s.lev[itab[OFF_FZ16 + t]]);
+    if (t < 4) modes_o[cu * 4 + t] = static_cast<int8_t>(t == 0 ? m16 : 0);
+    reconstruct<16>(c, s, 16, 4, 0, 0);
+  }
+  if (t == 0) split_o[cu] = split ? 1 : 0;
+  if (t < 256) rec[plane + (c.y0 + t / 16) * Wt + c.x0 + t % 16] = s.cur[t];
 }
 
 }  // namespace
@@ -519,6 +617,37 @@ extern "C" int wavefront_encode32(
     wavefront_encode32_kernel<<<grid, 1024, 0, st>>>(
         src, ref, w32, w16, w8, mvc, qstep, inv_q, lam, pen, dq, maxv, itab, ftab,
         s32, m32, c32, s16, modes, c16, rec, nby, nbx, d, by_min);
+    ++*launched;
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two-level (16/8) entry: one launch per wavefront diagonal of 16x16
+// CUs, all on `stream`.  src/ref/rec: (PT, nby*16, nbx*16) int32; w16 (PT,
+// nb), w8 (PT, nb, 4), mvc (PT, nb) float32; qstep, inv_q, lam, pen, dq,
+// maxv as above.  Outputs: split (PT, nb) int8, modes (PT, nb, 4) int8
+// ([m16, 0, 0, 0] for a whole block), coeffs (PT, nb, 256) int16 zigzag
+// (four 64-level 8x8 blocks when split).  *launched receives the number of
+// grids launched.
+extern "C" int wavefront_encode16(
+    const int32_t* src, const int32_t* ref, const float* w16, const float* w8,
+    const float* mvc, const float* qstep, const float* inv_q, const float* lam,
+    const float* pen, const int32_t* dq, const int32_t* maxv, const int32_t* itab,
+    const float* ftab, int8_t* split, int8_t* modes, int16_t* coeffs, int32_t* rec,
+    int PT, int nby, int nbx, void* stream, int* launched) {
+  const int nd = 2 * (nby - 1) + nbx;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  for (int d = 0; d < nd; ++d) {
+    const int by_min = d - (nbx - 1) > 0 ? (d - (nbx - 1) + 1) / 2 : 0;
+    const int by_max = min(nby - 1, d / 2);
+    if (by_max < by_min) continue;
+    dim3 grid(by_max - by_min + 1, PT);
+    wavefront_encode16_kernel<<<grid, 1024, 0, st>>>(
+        src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq, maxv, itab, ftab, split,
+        modes, coeffs, rec, nby, nbx, d, by_min);
     ++*launched;
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -83,12 +83,14 @@ KERNELS: Dict[str, list] = {
 # PLR layers, kernel R's float32 D1 sum, kernel V's RDO, kernel L's push over
 # a stack, kernel W's dilation and its pull/relaxation, kernel P's scalar
 # paint and gather, kernel X's viewpoint orientation (its flood counts as
-# "orient"), kernel F's high-gradient aux, and the frame-batched entries of
-# kernels E and M (the level-batched GOF path)
+# "orient"), kernel F's high-gradient aux, the frame-batched entries of
+# kernels E and M (the level-batched GOF path), and the two-level (16/8)
+# wavefront encode and decode of kernels I and A (planes above 10 bits)
 ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "metrics_d2_f32",
            "plr_rdo", "push_levels", "bg_dilate", "bg_relax", "attr_paint_scalar",
            "attr_gather_scalar", "orient_viewpoint", "high_gradient_aux", "grid_knn_batch",
-           "recolor_exact_batch", "recolor_blend_batch")
+           "recolor_exact_batch", "recolor_blend_batch", "wavefront_encode16",
+           "wavefront_decode16")
 LAUNCHES: Dict[str, int] = {k: 0 for k in (*KERNELS, *ENTRIES)}
 # ptxas resource lines of each build (registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}

@@ -10,7 +10,7 @@ sequential `Encoder.encode_gof` does, and batches, per level:
   chroma planes of the level's frames, each in one
   `hevc.encode_planes_dispatch` over a plane stack with per-plane QPs,
   references, occupancies and RD weights (kernels L, J, B, I, O, K), each
-  frame's payload cut out by `Coded32.payload` (the sequential path's
+  frame's payload cut out by `Coded.payload` (the sequential path's
   `assemble_payload32`): the reference's `_encode_level_planes` and
   `_slice_payload`;
 * the recolor: kernel M's exact match over every frame, kernel E's forward
@@ -81,16 +81,18 @@ def level_groups(levels: List[List[int]], parent: List[int], shapes: Sequence[Tu
 
 def encode_level_geo(geo_b, occ_b, weight_b, refs_b, qps, maxval: int,
                      motion: Optional[bool] = None):
-    """One level's geometry maps through the 32/16/8 encoder (reference
-    gof.py:58): (B, H, W) maps, occupancies and RD weights, the parents'
-    decoded maps (None: intra), per-plane QPs.  Returns the syntax arrays
-    (s32, m32, c32, s16, modes, c16, mvs, sao_cls, sao_off) with the
+    """One level's geometry maps through the encoder production uses
+    (reference gof.py:58): the 32/16/8 one, or the 16/8 one where maxval is
+    above 1023 (or `hevc.ENABLE_CU32` is off).  (B, H, W) maps,
+    occupancies and RD weights, the parents' decoded maps (None: intra),
+    per-plane QPs.  Returns the syntax arrays ((s32, m32, c32, s16, modes,
+    c16) or (split, modes, coeffs), then mvs, sao_cls, sao_off) with the
     (B, H, W) reconstruction last."""
     has_ref = refs_b is not None
     c = hevc.encode_planes_dispatch(geo_b, list(qps), [maxval] * geo_b.shape[0], refs=refs_b,
                                     occ=occ_b, deblock=False, weight=weight_b,
                                     motion=has_ref if motion is None else motion)
-    return (c.s32, c.m32, c.c32, c.s16, c.modes, c.c16, c.mv, c.sao_cls, c.sao_off, c.rec)
+    return (*c.syntax.values(), c.rec)
 
 
 def _recon_batch(occ_b, g0_b, g1_b, btp_b, patch_tables, res: int):
@@ -161,6 +163,8 @@ def check_envelope(cfg) -> None:
         (cfg.numNeighborsColorTransferBwd <= 0, "numNeighborsColorTransferBwd == 0"),
         (cfg.geometryBitDepth3D > 10, "geometry above 10 bits (the batched exact match "
          "packs int32 keys; vpcc_tpu/ops/recolor.py:48)"),
+        (cfg.geometryBitDepth2D > 10, "2D geometry above 10 bits (geometryNominal2dBitdepth; "
+         "the level path's planes take the 32/16/8 codec only, vpcc_tpu/parallel/gof.py:432)"),
         (cfg.geometryQP <= 4 or cfg.attributeQP <= 4,
          "lossless video (geometryQP or attributeQP <= 4: the level path codes every "
          "plane lossy, the sequential path losslessly)"),

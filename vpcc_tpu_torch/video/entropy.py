@@ -1,8 +1,8 @@
 """ctypes binding to the host arithmetic coder (native/entropy.cpp).
 
-A copy of `vpcc_tpu/video/entropy.py`'s three-level (32/16/8) CU syntax,
-coefficient, motion-vector and binary-plane coders, writer and reader
-halves.  The C++ coder is host code shared by both packages; the port
+A copy of `vpcc_tpu/video/entropy.py`'s two-level (16/8) and three-level
+(32/16/8) CU syntax, coefficient, motion-vector and binary-plane coders,
+writer and reader halves.  The C++ coder is host code shared by both packages; the port
 compiles its own copy with g++ into `vpcc_tpu_torch/_build/` at first use
 and never writes into `native/`.
 """
@@ -35,6 +35,8 @@ def _load():
         i64 = ctypes.c_int64
         lib.vpcc_encode_coeffs.restype = i64
         lib.vpcc_encode_coeffs.argtypes = [p32, i64, u8p, i64]
+        lib.vpcc_hevc_encode.restype = i64
+        lib.vpcc_hevc_encode.argtypes = [p32] * 5 + [i64, i64, u8p, i64]
         lib.vpcc_hevc32_encode.restype = i64
         lib.vpcc_hevc32_encode.argtypes = [p32] * 8 + [i64, i64, u8p, i64]
         lib.vpcc_mv_encode.restype = i64
@@ -43,6 +45,8 @@ def _load():
         lib.vpcc_encode_binary_plane.argtypes = [u8p, i64, i64, u8p, i64]
         lib.vpcc_decode_coeffs.restype = i64
         lib.vpcc_decode_coeffs.argtypes = [u8p, i64, p32, i64]
+        lib.vpcc_hevc_decode.restype = i64
+        lib.vpcc_hevc_decode.argtypes = [u8p, i64] + [p32] * 5 + [i64, i64]
         lib.vpcc_hevc32_decode.restype = i64
         lib.vpcc_hevc32_decode.argtypes = [u8p, i64] + [p32] * 8 + [i64, i64]
         lib.vpcc_mv_decode.restype = i64
@@ -103,25 +107,34 @@ def encode_binary_plane(plane: np.ndarray) -> bytes:
     return out[:n].tobytes()
 
 
+def _encode_grow(fn, arrs, nby, nbx, per_cu) -> bytes:
+    """Run a CU syntax writer with a buffer guess, growing it and retrying
+    when a high-entropy plane outgrows it (the C side returns -1 cleanly)."""
+    arrs = [np.ascontiguousarray(a, np.int32) for a in arrs]
+    cap = max(nby * nbx * per_cu, 1 << 16)
+    for _ in range(6):
+        out = np.empty(cap, np.uint8)
+        n = fn(*[_i32p(a) for a in arrs], nby, nbx, _u8p(out), cap)
+        if n >= 0:
+            return out[:n].tobytes()
+        cap *= 2
+    raise RuntimeError("entropy buffer overflow")
+
+
+def encode_hevc_plane(nby, nbx, split, m16, c16, m8, c8) -> bytes:
+    """Two-level (16/8) CU syntax over an (nby, nbx) 16-CU grid: split
+    (nb,), m16 (nb,), c16 (nb, 256) zigzag, m8 (nb, 4), c8 (nb, 4, 64)
+    zigzag."""
+    return _encode_grow(_load().vpcc_hevc_encode, (split, m16, c16, m8, c8), nby, nbx, 640)
+
+
 def encode_hevc32_plane(nby, nbx, split32, m32, c32, split16, m16, c16,
                         m8, c8) -> bytes:
     """Three-level (32/16/8) CU syntax over an (nby, nbx) 32-CU grid:
     split32 (nb,), m32 (nb,), c32 (nb, 1024) zigzag, split16 (nb, 4),
     m16 (nb, 4), c16 (nb, 4, 256), m8 (nb, 4, 4), c8 (nb, 4, 4, 64)."""
-    lib = _load()
-    arrs = [np.ascontiguousarray(a, np.int32)
-            for a in (split32, m32, c32, split16, m16, c16, m8, c8)]
-    cap = max(nby * nbx * 2560, 1 << 16)
-    # a high-entropy plane can outgrow the first guess: the C side returns
-    # -1 cleanly, so grow and retry
-    for _ in range(6):
-        out = np.empty(cap, np.uint8)
-        n = lib.vpcc_hevc32_encode(*[_i32p(a) for a in arrs], nby, nbx,
-                                   _u8p(out), cap)
-        if n >= 0:
-            return out[:n].tobytes()
-        cap *= 2
-    raise RuntimeError("entropy buffer overflow")
+    return _encode_grow(_load().vpcc_hevc32_encode,
+                        (split32, m32, c32, split16, m16, c16, m8, c8), nby, nbx, 2560)
 
 
 def decode_coeffs(data: bytes, nblocks: int) -> np.ndarray:
@@ -150,6 +163,22 @@ def decode_binary_plane(data: bytes, h: int, w: int) -> np.ndarray:
     out = np.zeros((h, w), np.uint8)
     lib.vpcc_decode_binary_plane(_u8p(buf), len(buf), _u8p(out), h, w)
     return out
+
+
+def decode_hevc_plane(data: bytes, nby: int, nbx: int):
+    """Two-level (16/8) CU syntax over an (nby, nbx) 16-CU grid -> (split,
+    m16, c16, m8, c8), shapes as in `encode_hevc_plane`."""
+    lib = _load()
+    buf = np.frombuffer(data, np.uint8)
+    nb = nby * nbx
+    split = np.zeros(nb, np.int32)
+    m16 = np.zeros(nb, np.int32)
+    c16 = np.zeros((nb, 256), np.int32)
+    m8 = np.zeros((nb, 4), np.int32)
+    c8 = np.zeros((nb, 4, 64), np.int32)
+    lib.vpcc_hevc_decode(_u8p(buf), len(buf), _i32p(split), _i32p(m16), _i32p(c16),
+                         _i32p(m8), _i32p(c8), nby, nbx)
+    return split, m16, c16, m8, c8
 
 
 def decode_hevc32_plane(data: bytes, nby: int, nbx: int):

@@ -1,20 +1,27 @@
-"""HEVC-class wavefront video codec (vpcc_tpu/video/hevc.py), three-level
-(32/16/8) CU syntax: decoder and encoder.
+"""HEVC-class wavefront video codec (vpcc_tpu/video/hevc.py): decoder and
+encoder of the three-level (32/16/8) CU syntax, and of the two-level (16/8)
+syntax that codes planes with samples above 10 bits (maxval 1024..2047,
+e.g. geometry at geometryNominal2dBitdepth=11).
 
 Payloads of the port's `encode_planes` and of `vpcc_tpu.video.hevc.
 encode_planes` are the same bytes given the same decisions; both decoders
-turn either into the same int32 planes.
+turn either into the same int32 planes.  `ENABLE_CU32` is the reference's
+switch: with it off, every plane takes the two-level codec.
 
 Stages of `decode_planes`:
 1. host: entropy-decode the per-plane syntax (split flags, modes, zigzag
-   coefficients, MVs, SAO parameters) — `_decode_planes32`;
+   coefficients, MVs, SAO parameters) — `parse_planes32`, which hands a
+   two-level payload (FLAG_CU32 clear) to `parse_planes16`;
 2. device: edge-pad the reference planes and cut them into codec tiles;
 3. device, kernel B `half_pel_mc` (motion payloads only): 8-tap half-pel
-   interpolation fused with the per-CU motion-compensated gather;
-4. device, kernel A `wavefront_decode32`: the intra/inter reconstruction,
-   one launch per wavefront diagonal of 32x32 CUs;
+   interpolation fused with the per-CU motion-compensated gather, per 32x32
+   CU (two-level: per 16x16 CU);
+4. device, kernel A `wavefront_decode32` (two-level: its entry
+   `wavefront_decode16`): the intra/inter reconstruction, one launch per
+   wavefront diagonal of 32x32 (16x16) CUs;
 5. device: deblocking (kernel O `deblock`, when the payload says so) and
-   SAO (kernel K `sao_apply`), per tile; untile and crop.
+   SAO (kernel K `sao_apply`; 16-px regions in a two-level payload that
+   carries FLAG_SAO16), per tile; untile and crop.
 
 Stages of `encode_planes`:
 1. device, kernel L `push_pull` (ops/padding.py): background fill of the
@@ -22,13 +29,15 @@ Stages of `encode_planes`:
    edge-pad and tile;
 2. device, kernel J `motion_search` (motion planes): per-CU half-pel MVs,
    then kernel B builds the motion-compensated reference;
-3. device, kernel I `wavefront_encode32`: the RD quadtree decisions, the
-   syntax and the reconstruction, one launch per wavefront diagonal;
+3. device, kernel I `wavefront_encode32` (two-level: `wavefront_encode16`):
+   the RD quadtree decisions, the syntax and the reconstruction, one launch
+   per wavefront diagonal;
 4. device, kernel O `deblock` (attribute planes), then kernel K
-   `sao_search` + `sao_apply`: per-region SAO parameters and the final
-   reconstruction;
-5. host: `assemble_payload32`, the entropy coder.
-Stages 1-4 are `encode_planes_dispatch`, which leaves a `Coded32` on the
+   `sao_search` + `sao_apply`: per-region SAO parameters (32-px regions;
+   two-level: 16-px) and the final reconstruction;
+5. host: `assemble_payload32` (two-level: `assemble_payload16`), the
+   entropy coder.
+Stages 1-4 are `encode_planes_dispatch`, which leaves a `Coded` on the
 device; its `payload` runs stage 5 for any run of its planes, so one
 dispatch can code the planes of several frames (the level-batched GOF
 path, `parallel/gof.py`).
@@ -66,12 +75,15 @@ CU32 = 32
 CC = CU * CU
 CC32 = CU32 * CU32
 MV_RANGE = 8                 # integer-pel motion search window (+-R)
-SAO_REGION = 32
+SAO_REGION = 32              # SAO region of the three-level codec (two-level: CU)
+ENABLE_CU32 = True           # three-level (32/16/8) quadtree where maxval <= 1023
+MAXVAL_LIMIT = 2047          # the prediction is integer-exact up to 11-bit samples
 
 FLAG_INTER = 1
 FLAG_DEBLOCK = 2
 FLAG_MC = 4  # motion-compensated inter (per-CU MVs follow each plane blob)
 FLAG_CU32 = 8  # three-level (32/16/8) quadtree syntax
+FLAG_SAO16 = 16  # two-level payload carries 16px-region SAO params
 
 # 8-tap HEVC half-pel interpolation filter (HM luma 1/2-position taps)
 _HP_TAPS = (-1, 4, -11, 40, 40, -11, 4, -1)
@@ -101,6 +113,30 @@ def _untile(x, P, ty, tx):
         x.reshape(P, ty, tx, ht, wt).permute(0, 1, 3, 2, 4)
         .reshape(P, ty * ht, tx * wt)
     )
+
+
+def _blocks(x, nby: int, nbx: int, n: int):
+    """(P, nby*n, nbx*n) -> (P, nby*nbx, n*n): one raster row per n x n CU."""
+    P = x.shape[0]
+    return (x.reshape(P, nby, n, nbx, n).permute(0, 1, 3, 2, 4)
+            .reshape(P, nby * nbx, n * n))
+
+
+def _unblocks(b, nby: int, nbx: int, n: int):
+    """Inverse of `_blocks`."""
+    P = b.shape[0]
+    return (b.reshape(P, nby, nbx, n, n).permute(0, 1, 3, 2, 4)
+            .reshape(P, nby * n, nbx * n))
+
+
+def _pad_rows(x, fill):
+    """Append the init row (nb) and the write-dump row (nb + 1) to (P, nb,
+    ...) CU rows; `fill` is a scalar or a tensor that expands to them (the
+    per-plane init value (P, 1, 1))."""
+    P = x.shape[0]
+    extra = (fill.expand((P, 2) + x.shape[2:]) if torch.is_tensor(fill)
+             else torch.full((P, 2) + x.shape[2:], fill, dtype=x.dtype, device=x.device))
+    return torch.cat([x, extra], 1)
 
 
 def _edge_pad(x, top: int, bottom: int, left: int, right: int):
@@ -190,14 +226,14 @@ def _sao_categories(rec, dy, dx):
     return torch.sign(rec - a) + torch.sign(rec - b) + 2
 
 
-def sao_apply_plain(rec, sao_cls, sao_off, maxvals):
+def sao_apply_plain(rec, sao_cls, sao_off, maxvals, region: int = SAO_REGION):
     """Plain version of kernel K's apply (vpcc_tpu hevc.py `_sao_apply`):
     category derivation + per-region offset add.  rec (P, H, W) int32,
     sao_cls (P, Ry, Rx), sao_off (P, Ry, Rx, 4) (any integer type),
-    maxvals (P,) int32."""
+    maxvals (P,) int32; regions of region x region samples."""
     cats = torch.stack([_sao_categories(rec, dy, dx) for dy, dx in _SAO_DIRS])
-    rep = lambda a: (a.to(torch.int32).repeat_interleave(SAO_REGION, 1)
-                     .repeat_interleave(SAO_REGION, 2))
+    rep = lambda a: (a.to(torch.int32).repeat_interleave(region, 1)
+                     .repeat_interleave(region, 2))
     cls_px = rep(sao_cls)
     cat_sel = torch.gather(cats, 0, (cls_px - 1).clamp(min=0).long()[None])[0]
     off_px = rep(sao_off)
@@ -484,6 +520,14 @@ def _decode_cu16(ref16, up, upleft, upright, left, initc, spl, mode16, lev16,
     return torch.where(spl[:, :, None] != 0, cur.reshape(P, B, CC), rec16)
 
 
+def _wavefront_diagonals(nby: int, nbx: int, device):
+    """The wavefront schedule as device tensors: per diagonal the CU rows
+    it codes and their (up, up-left, up-right, left) neighbour rows."""
+    bidx_tab, nbr_tab = _neighbor_schedule(nby, nbx)
+    for bidx_np, nbr_np in zip(bidx_tab, nbr_tab):
+        yield torch.as_tensor(bidx_np, device=device), torch.as_tensor(nbr_np, device=device)
+
+
 def wavefront_decode32_plain(ref, s32, m32, c32, s16, modes, c16, dq,
                              maxvals, nby: int, nbx: int):
     """Plain PyTorch version of kernel A, structured as the JAX scan
@@ -500,31 +544,18 @@ def wavefront_decode32_plain(ref, s32, m32, c32, s16, modes, c16, dq,
     dqv = i64(dq)
     initc = ((maxv + 1) // 2)[:, None, None]                # (PT, 1, 1)
 
-    def blocks(x):
-        return (x.reshape(PT, nby, CU32, nbx, CU32).permute(0, 1, 3, 2, 4)
-                .reshape(PT, nb, CC32))
-
-    def pad_rows(x, fill):
-        extra = fill.expand((PT, 2) + x.shape[2:]) if torch.is_tensor(fill) \
-            else torch.full((PT, 2) + x.shape[2:], fill, dtype=x.dtype,
-                            device=device)
-        return torch.cat([x, extra], 1)
-
-    ref_blk = pad_rows(blocks(i64(ref)), initc)
+    ref_blk = _pad_rows(_blocks(i64(ref), nby, nbx, CU32), initc)
     blk = initc.expand(PT, nb + 2, CC32).clone()
-    s32_p = pad_rows(i64(s32), 0)
-    m32_p = pad_rows(i64(m32), 0)
-    c32_p = pad_rows(i64(c32)[:, :, tabs["izz32"]], 0)
-    s16_p = pad_rows(i64(s16), 0)
-    m_p = pad_rows(i64(modes), 0)
-    c16_p = pad_rows(i64(c16)[:, :, :, tabs["izz16"]], 0)
-    c8_p = pad_rows(
+    s32_p = _pad_rows(i64(s32), 0)
+    m32_p = _pad_rows(i64(m32), 0)
+    c32_p = _pad_rows(i64(c32)[:, :, tabs["izz32"]], 0)
+    s16_p = _pad_rows(i64(s16), 0)
+    m_p = _pad_rows(i64(modes), 0)
+    c16_p = _pad_rows(i64(c16)[:, :, :, tabs["izz16"]], 0)
+    c8_p = _pad_rows(
         i64(c16).reshape(PT, nb, 4, 4, SUB * SUB)[..., tabs["izz8"]], 0
     )
-    bidx_tab, nbr_tab = _neighbor_schedule(nby, nbx)
-    for bidx_np, nbr_np in zip(bidx_tab, nbr_tab):
-        bidx = torch.as_tensor(bidx_np, device=device)
-        nbr = torch.as_tensor(nbr_np, device=device)
+    for bidx, nbr in _wavefront_diagonals(nby, nbx, device):
         B = bidx.shape[0]
         tile4 = lambda ids: blk[:, ids].reshape(PT, B, CU32, CU32)
         up, upleft, upright, left = (tile4(nbr[:, k]) for k in range(4))
@@ -550,9 +581,7 @@ def wavefront_decode32_plain(ref, s32, m32, c32, s16, modes, c16, dq,
         tile = torch.where(s32_p[:, bidx, None] != 0,
                            cur32.reshape(PT, B, CC32), rec32)
         blk[:, bidx] = tile
-    rec = (blk[:, :nb].reshape(PT, nby, nbx, CU32, CU32).permute(0, 1, 3, 2, 4)
-           .reshape(PT, nby * CU32, nbx * CU32))
-    return rec.to(torch.int32)
+    return _unblocks(blk[:, :nb], nby, nbx, CU32).to(torch.int32)
 
 
 _WF_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
@@ -604,8 +633,84 @@ def wavefront_decode32(ref, s32, m32, c32, s16, modes, c16, dq, maxvals,
     return rec
 
 
+def wavefront_decode16_plain(ref, split, modes, coeffs, dq, maxvals, nby: int, nbx: int):
+    """Plain PyTorch version of kernel A's two-level entry, structured as
+    the JAX scan (vpcc_tpu hevc.py `_build_decode.run`): one batched step per
+    wavefront diagonal of 16x16 CUs over (PT, nb+2, 256) CU rows, each CU
+    decoded by `_decode_cu16`.  Arguments as `wavefront_decode16`."""
+    PT = ref.shape[0]
+    d = ref.device
+    nb = nby * nbx
+    tabs = _tables(d)
+    i64 = lambda a: a.to(torch.int64)
+    maxv, dqv = i64(maxvals), i64(dq)
+    initc = ((maxv + 1) // 2)[:, None, None]
+    ref_blk = _pad_rows(_blocks(i64(ref), nby, nbx, CU), initc)
+    blk = initc.expand(PT, nb + 2, CC).clone()
+    split_p = _pad_rows(i64(split), 0)
+    m_p = _pad_rows(i64(modes), 0)
+    c16_p = _pad_rows(i64(coeffs)[:, :, tabs["izz16"]], 0)
+    c8_p = _pad_rows(i64(coeffs).reshape(PT, nb, 4, SUB * SUB)[..., tabs["izz8"]], 0)
+    for bidx, nbr in _wavefront_diagonals(nby, nbx, d):
+        B = bidx.shape[0]
+        up, upleft, upright, left = (blk[:, nbr[:, k]].reshape(PT, B, CU, CU)
+                                     for k in range(4))
+        blk[:, bidx] = _decode_cu16(ref_blk[:, bidx], up, upleft, upright, left, initc,
+                                    split_p[:, bidx], m_p[:, bidx, 0], c16_p[:, bidx],
+                                    m_p[:, bidx], c8_p[:, bidx], dqv, maxv, tabs)
+    return _unblocks(blk[:, :nb], nby, nbx, CU).to(torch.int32)
+
+
+_WF16_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+              + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+
+
+def wavefront_decode16(ref, split, modes, coeffs, dq, maxvals, nby: int, nbx: int):
+    """Kernel A's two-level entry (csrc/wavefront_decode32.cu
+    `wavefront_decode16`): reconstruct (PT, nby*16, nbx*16) int32 tile
+    planes from the 16/8 syntax, one launch per wavefront diagonal of 16x16
+    CUs.  ref (PT, Ht, Wt) int32 inter prediction planes; split (PT, nb)
+    int8; modes (PT, nb, 4) int8 ([m16, 0, 0, 0] for a whole block); coeffs
+    (PT, nb, 256) int16 zigzag (four 64-level 8x8 blocks when split);
+    dq/maxvals (PT,) int32.  The plain version runs on the CPU."""
+    if ref.device.type == "cpu":
+        return wavefront_decode16_plain(ref, split, modes, coeffs, dq, maxvals, nby, nbx)
+    d = ref.device
+    PT = ref.shape[0]
+    nb = nby * nbx
+    for name, t, dtype, shape in (
+        ("ref", ref, torch.int32, (PT, nby * CU, nbx * CU)),
+        ("split", split, torch.int8, (PT, nb)),
+        ("modes", modes, torch.int8, (PT, nb, 4)),
+        ("coeffs", coeffs, torch.int16, (PT, nb, CC)),
+        ("dq", dq, torch.int32, (PT,)),
+        ("maxvals", maxvals, torch.int32, (PT,)),
+    ):
+        dev.check_tensor(t, name, dtype, d)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    rec = torch.empty_like(ref)
+    fn = dev.load_kernel("wavefront_decode32").wavefront_decode16
+    fn.argtypes, fn.restype = _WF16_ARGS, ctypes.c_int
+    launched = ctypes.c_int(0)
+    rc = fn(dev.ptr(rec), dev.ptr(ref), dev.ptr(split), dev.ptr(modes), dev.ptr(coeffs),
+            dev.ptr(dq), dev.ptr(maxvals), dev.ptr(_tables(d)["blob"]), PT, nby, nbx,
+            dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("wavefront_decode16", launched.value)
+    dev.check_launch("wavefront_decode16", rc)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # plane API
+
+def _inter_flags(split, modes):
+    """(nb,) int32: 1 where the 16x16 CU's chosen coding uses the inter
+    mode anywhere (its 16x16 mode, or any 8x8 mode when split): the CUs that
+    carry an MV.  split (nb,), modes (nb, 4)."""
+    any8 = (modes == tab.MODE_INTER).any(axis=1)
+    return np.where(split != 0, any8, modes[:, 0] == tab.MODE_INTER).astype(np.int32)
+
 
 def _inter_flags32(s32, m32, s16, modes):
     """(nb32,) int32: 1 where any chosen mode in the 32-CU's coded tree
@@ -626,7 +731,111 @@ def decode_planes(payload: bytes, refs=None, device=None) -> torch.Tensor:
         raise ValueError("inter-coded payload requires refs")
     syn = parse_planes32(payload)
     d = refs.device if refs is not None else dev.resolve_device(device)
-    return _decode_planes32(syn, refs, d)
+    if syn["flags"] & FLAG_CU32:
+        return _decode_planes32(syn, refs, d)
+    return _decode_planes16(syn, refs, d)
+
+
+def _read_sao(payload: bytes, pos: int, T: int, ry: int, rx: int):
+    """The SAO blob of a plane at `pos`: (sao_cls (T, ry, rx), sao_off
+    (T, ry, rx, 4)) int8 and the position after it."""
+    (sln,) = struct.unpack("<I", payload[pos: pos + 4])
+    pos += 4
+    n_sao = T * ry * rx * 5
+    sao_flat = entropy.decode_coeffs(
+        payload[pos: pos + sln], (n_sao + 63) // 64
+    ).reshape(-1)[:n_sao].reshape(T, ry, rx, 5)
+    return sao_flat[..., 0].astype(np.int8), sao_flat[..., 1:].astype(np.int8), pos + sln
+
+
+def parse_planes16(payload: bytes) -> dict:
+    """Entropy-decode a two-level (16/8) payload (reference `decode_planes`,
+    hevc.py:1617-1667) into its host syntax arrays: header fields (H, W, P,
+    flags, ty, tx, nby, nbx), per-plane qps and maxvals, and per tile plane
+    split (PT, nb), modes (PT, nb, 4) ([m16, 0, 0, 0] for a whole block),
+    coeffs (PT, nb, 256) zigzag (the four 8x8 blocks when split), mv
+    (PT, nb, 2), sao_cls (PT, Ry, Rx), sao_off (PT, Ry, Rx, 4) over 16-px
+    regions (zero without FLAG_SAO16); int8/int16 as the encoder emits
+    them."""
+    H, W, P, flags, ty, tx = struct.unpack("<HHBBBB", payload[:8])
+    motion = bool(flags & FLAG_MC)
+    pos = 8
+    Hp, Wp = _padded_dims(H, W, ty, tx, CU)
+    nby, nbx = Hp // ty // CU, Wp // tx // CU
+    nb = nby * nbx
+    T = ty * tx
+    qps = np.zeros(P, np.int32)
+    maxvals = np.zeros(P, np.int32)
+    split = np.zeros((P * T, nb), np.int8)
+    modes = np.zeros((P * T, nb, 4), np.int8)
+    coeffs = np.zeros((P * T, nb, CC), np.int16)
+    mv = np.zeros((P * T, nb, 2), np.int8)
+    sao_cls = np.zeros((P * T, nby, nbx), np.int8)   # one 16-px region a CU
+    sao_off = np.zeros((P * T, nby, nbx, 4), np.int8)
+    for p in range(P):
+        qps[p], maxvals[p] = struct.unpack("<BH", payload[pos: pos + 3])
+        pos += 3
+        (ln,) = struct.unpack("<I", payload[pos: pos + 4])
+        pos += 4
+        s_, m16_, c16_, m8_, c8_ = entropy.decode_hevc_plane(payload[pos: pos + ln], T * nby, nbx)
+        pos += ln
+        spl = s_ != 0
+        m4 = np.where(spl[:, None], m8_,
+                      np.concatenate([m16_[:, None], np.zeros((T * nb, 3), np.int32)], 1))
+        sl = slice(p * T, (p + 1) * T)
+        split[sl] = s_.astype(np.int8).reshape(T, nb)
+        modes[sl] = m4.astype(np.int8).reshape(T, nb, 4)
+        coeffs[sl] = np.where(spl[:, None], c8_.reshape(T * nb, CC), c16_
+                              ).astype(np.int16).reshape(T, nb, CC)
+        if motion:
+            (mvln,) = struct.unpack("<I", payload[pos: pos + 4])
+            pos += 4
+            mv[sl] = entropy.decode_mvs(payload[pos: pos + mvln], _inter_flags(s_, m4)
+                                        ).astype(np.int8).reshape(T, nb, 2)
+            pos += mvln
+        if flags & FLAG_SAO16:
+            sao_cls[sl], sao_off[sl], pos = _read_sao(payload, pos, T, nby, nbx)
+    return dict(H=H, W=W, P=P, flags=flags, ty=ty, tx=tx, nby=nby, nbx=nbx,
+                qps=qps, maxvals=maxvals, split=split, modes=modes, coeffs=coeffs, mv=mv,
+                sao_cls=sao_cls, sao_off=sao_off)
+
+
+def _decode_planes16(syn: dict, refs, d):
+    """Reconstruct the planes of parsed two-level syntax (`parse_planes16`)
+    on d: kernel B at 16-px CUs, kernel A's two-level entry, kernel O,
+    kernel K's apply over 16-px regions (FLAG_SAO16)."""
+    H, W, P, flags, ty, tx, nby, nbx = (
+        syn[k] for k in ("H", "W", "P", "flags", "ty", "tx", "nby", "nbx"))
+    qps, maxvals = syn["qps"], syn["maxvals"]
+    T = ty * tx
+    tt = lambda a: torch.as_tensor(a, device=d)
+    ref = _tile_refs(refs if flags & FLAG_INTER else None, P, H, W, ty, tx, CU, d)
+    maxv_t = tt(np.repeat(maxvals, T))
+    if flags & FLAG_MC:
+        ref = half_pel_mc(ref, tt(syn["mv"].astype(np.int32)), maxv_t, CU)
+    dq_t = tt(tab.DQ64[np.clip(np.repeat(qps, T), 0, 51)].astype(np.int32))
+    rec = wavefront_decode16(ref, tt(syn["split"]), tt(syn["modes"]), tt(syn["coeffs"]), dq_t,
+                             maxv_t, nby, nbx)
+    if flags & FLAG_DEBLOCK:
+        rec = deblock_planes(rec, tt(np.repeat(qps, T)), maxv_t)
+    if flags & FLAG_SAO16:
+        rec = sao_apply(rec.contiguous(), tt(syn["sao_cls"]), tt(syn["sao_off"]), maxv_t,
+                        region=CU)
+    return _untile(rec, P, ty, tx)[:, :H, :W].contiguous()
+
+
+def _tile_refs(refs, P: int, H: int, W: int, ty: int, tx: int, cu: int, d):
+    """The decoder's reference planes (zeros without refs), edge-padded to
+    the codec tiles of `cu`-sized CUs and cut into them: (P*ty*tx, Ht, Wt)
+    int32."""
+    if refs is not None:
+        ref = refs.to(device=d, dtype=torch.int32)
+    else:
+        ref = torch.zeros((P, H, W), dtype=torch.int32, device=d)
+    Hp, Wp = _padded_dims(H, W, ty, tx, cu)
+    if (Hp, Wp) != (H, W):
+        ref = _edge_pad(ref, 0, Hp - H, 0, Wp - W)
+    return _tiles_of(ref, ty, tx).contiguous()
 
 
 def parse_planes32(payload: bytes) -> dict:
@@ -636,13 +845,11 @@ def parse_planes32(payload: bytes) -> dict:
     zigzag, s16 (PT, nb, 4), modes (PT, nb, 4, 4) ([m16, 0, 0, 0] for an
     unsplit quadrant), c16 (PT, nb, 4, 256), mv (PT, nb, 2), sao_cls
     (PT, Ry, Rx), sao_off (PT, Ry, Rx, 4); int8/int16 as the encoder
-    emits them."""
+    emits them.  A two-level payload (FLAG_CU32 clear) is parsed by
+    `parse_planes16`, whose arrays it returns."""
     H, W, P, flags, ty, tx = struct.unpack("<HHBBBB", payload[:8])
     if not flags & FLAG_CU32:
-        raise NotImplementedError(
-            "two-level (16/8) CU payloads (samples above 10 bits): ROADMAP "
-            "queue 2, two-level _build_decode"
-        )
+        return parse_planes16(payload)
     motion = bool(flags & FLAG_MC)
     pos = 8
     Hp, Wp = _padded_dims(H, W, ty, tx, CU32)
@@ -692,15 +899,7 @@ def parse_planes32(payload: bytes) -> dict:
                 payload[pos: pos + mvln], inter
             ).astype(np.int8).reshape(T, nb, 2)
             pos += mvln
-        (sln,) = struct.unpack("<I", payload[pos: pos + 4])
-        pos += 4
-        n_sao = T * ry * rx * 5
-        sao_flat = entropy.decode_coeffs(
-            payload[pos: pos + sln], (n_sao + 63) // 64
-        ).reshape(-1)[:n_sao].reshape(T, ry, rx, 5)
-        pos += sln
-        sao_cls[sl] = sao_flat[..., 0].astype(np.int8)
-        sao_off[sl] = sao_flat[..., 1:].astype(np.int8)
+        sao_cls[sl], sao_off[sl], pos = _read_sao(payload, pos, T, ry, rx)
     return dict(H=H, W=W, P=P, flags=flags, ty=ty, tx=tx, nby=nby, nbx=nbx,
                 qps=qps, maxvals=maxvals, s32=s32, m32=m32, c32=c32, s16=s16,
                 modes=modes, c16=c16, mv=mv, sao_cls=sao_cls, sao_off=sao_off)
@@ -714,16 +913,9 @@ def _decode_planes32(syn: dict, refs, d):
     s32, m32, c32, s16, modes, c16, mv, sao_cls, sao_off = (
         syn[k] for k in ("s32", "m32", "c32", "s16", "modes", "c16", "mv",
                          "sao_cls", "sao_off"))
-    Hp, Wp = _padded_dims(H, W, ty, tx, CU32)
     T = ty * tx
     tt = lambda a: torch.as_tensor(a, device=d)
-    if flags & FLAG_INTER:
-        ref = refs.to(device=d, dtype=torch.int32)
-    else:
-        ref = torch.zeros((P, H, W), dtype=torch.int32, device=d)
-    if (Hp, Wp) != (H, W):
-        ref = _edge_pad(ref, 0, Hp - H, 0, Wp - W)
-    ref = _tiles_of(ref, ty, tx).contiguous()
+    ref = _tile_refs(refs if flags & FLAG_INTER else None, P, H, W, ty, tx, CU32, d)
     qps_t = tt(np.repeat(qps, T))
     maxv_t = tt(np.repeat(maxvals, T))
     if flags & FLAG_MC:
@@ -872,6 +1064,12 @@ def decode_rgb(payload: bytes, refs=None, device=None):
 # for bit on random inputs; on the bench GOF every CU's decision, hence
 # every payload, equals the reference's (tests/test_torch_video_encode.py
 # holds a crop with a tie that any other order resolves differently).
+# The two-level encoder (`_build_encode`, planes above 10 bits) compiles
+# `_code_cu16` into another program; its 16x16 and 8x8 reduces and dots
+# have `_build_encode32`'s shapes but for the batch extent, and on real
+# 11-bit content (the vox11 GOF at geometryNominal2dBitdepth=11) the same
+# order is the only one of four that gives its decisions
+# (tests/torch_make_rdo_tie_crop16.py; the crop data/rdo_tie_crop16.npz).
 
 RD_LAST_WEIGHT = np.float32(0.12)
 RD_ROUND = np.float32(0.33)
@@ -1038,16 +1236,18 @@ def motion_search(src, ref, lam, maxvals, bs: int):
 
 
 # ---------------------------------------------------------------------------
-# kernel K: SAO (edge offset per 32x32 region): search and apply
+# kernel K: SAO (edge offset per 32x32 region, 16x16 in the two-level
+# codec): search and apply
 
 SAO_OFF_MAX = 7
 SAO_RATE_BITS = np.float32(19.0)   # ~3 type bits + 4x4-bit offsets
 
 
-def sao_search_plain(src, rec, lam, weights):
+def sao_search_plain(src, rec, lam, weights, region: int = SAO_REGION):
     """Plain version of kernel K's search (vpcc_tpu hevc.py
     `_sao_search_apply`, the choice of parameters).  src/rec/weights
-    (P, H, W) int32 (weights 0/1), lam (P,) float32.  Per region and EO
+    (P, H, W) int32 (weights 0/1), lam (P,) float32, regions of region x
+    region samples (32; the two-level codec's 16).  Per region and EO
     class: count n and weighted error sum s of each non-flat category
     (integers), offset o = clip(round(s / max(n, 1)), -7, 7), gain =
     sum n*o*o - 2*o*s, cost = fma(lam, 19, gain); the first class whose
@@ -1055,7 +1255,6 @@ def sao_search_plain(src, rec, lam, weights):
     (sao_cls (P, Ry, Rx) int8, sao_off (P, Ry, Rx, 4) int8; offsets 0 where
     the class is off)."""
     P, H, W = rec.shape
-    region = SAO_REGION
     ry, rx = H // region, W // region
     wl = (weights != 0).long()
     diff = (src.long() - rec.long()) * wl
@@ -1091,21 +1290,21 @@ _SAO_SEARCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p
 _SAO_APPLY_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def _check_sao(rec):
+def _check_sao(rec, region: int):
     P, H, W = rec.shape
-    if H % SAO_REGION or W % SAO_REGION:
-        raise ValueError(f"sao: plane {tuple(rec.shape)} is not a multiple of {SAO_REGION}")
+    if region not in (CU, CU32) or H % region or W % region:
+        raise ValueError(f"sao: plane {tuple(rec.shape)} is not a multiple of {region}, "
+                         f"or the region is neither {CU} nor {CU32}")
     return P, H, W
 
 
-def sao_search(src, rec, lam, weights):
+def sao_search(src, rec, lam, weights, region: int = SAO_REGION):
     """Kernel K, search entry (csrc/sao.cu `sao_search`): one block per
     region; `sao_search_plain` on the CPU."""
     if rec.device.type == "cpu":
-        return sao_search_plain(src, rec, lam, weights)
+        return sao_search_plain(src, rec, lam, weights, region)
     d = rec.device
-    region = SAO_REGION
-    P, H, W = _check_sao(rec)
+    P, H, W = _check_sao(rec, region)
     for name, t in (("src", src), ("rec", rec), ("weights", weights)):
         dev.check_tensor(t, name, torch.int32, d, 3)
         if t.shape != rec.shape:
@@ -1123,14 +1322,13 @@ def sao_search(src, rec, lam, weights):
     return cls, off
 
 
-def sao_apply(rec, sao_cls, sao_off, maxvals):
+def sao_apply(rec, sao_cls, sao_off, maxvals, region: int = SAO_REGION):
     """Kernel K, apply entry (csrc/sao.cu `sao_apply`): one thread per
     pixel; `sao_apply_plain` on the CPU.  sao_cls/sao_off int8."""
     if rec.device.type == "cpu":
-        return sao_apply_plain(rec, sao_cls, sao_off, maxvals)
+        return sao_apply_plain(rec, sao_cls, sao_off, maxvals, region)
     d = rec.device
-    region = SAO_REGION
-    P, H, W = _check_sao(rec)
+    P, H, W = _check_sao(rec, region)
     dev.check_tensor(rec, "rec", torch.int32, d, 3)
     dev.check_tensor(sao_cls, "sao_cls", torch.int8, d, 3)
     dev.check_tensor(sao_off, "sao_off", torch.int8, d, 4)
@@ -1271,19 +1469,13 @@ def _code_cu16(src16, ref16, up, upleft, upright, left, initc, w16, w8, pen,
             torch.cat(c8s, -1), torch.minimum(cost16, cost_split))
 
 
-def _blocks32(x, nby, nbx):
-    P = x.shape[0]
-    return (x.reshape(P, nby, CU32, nbx, CU32).permute(0, 1, 3, 2, 4)
-            .reshape(P, nby * nbx, CC32))
-
-
 def block_weights32(weights, nby: int, nbx: int):
     """Per-32-CU, per-16-quadrant and per-8-sub RD distortion weights: the
     share of point-generating pixels, floored at 0.04 (exact: sums of 0/1
     over powers of two).  weights (P, H, W) int32 0/1 -> (w32 (P, nb),
     w16 (P, nb, 4), w8 (P, nb, 4, 4)) float32, quadrants and subs in
     z-order."""
-    wb = _blocks32((weights != 0).to(torch.float32), nby, nbx)
+    wb = _blocks((weights != 0).to(torch.float32), nby, nbx, CU32)
     P, nb, _ = wb.shape
     w32 = (wb.sum(-1) / 1024.0).clamp(min=0.04)
     t = wb.reshape(P, nb, 2, CU, 2, CU)
@@ -1315,15 +1507,10 @@ def wavefront_encode32_plain(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam,
     dqv = dq.long()
     initc = ((maxv + 1) // 2)[:, None, None]
 
-    def pad_rows(x, fill):
-        extra = (fill.expand((PT, 2) + x.shape[2:]) if torch.is_tensor(fill)
-                 else torch.full((PT, 2) + x.shape[2:], fill, dtype=x.dtype, device=d))
-        return torch.cat([x, extra], 1)
-
-    src_blk = pad_rows(_blocks32(src.long(), nby, nbx), initc)
-    ref_blk = pad_rows(_blocks32(ref.long(), nby, nbx), initc)
-    w32_p, w16_p, w8_p = (pad_rows(a, 1.0) for a in (w32, w16, w8))
-    mvc_p = pad_rows(mvc, 0.0)
+    src_blk = _pad_rows(_blocks(src.long(), nby, nbx, CU32), initc)
+    ref_blk = _pad_rows(_blocks(ref.long(), nby, nbx, CU32), initc)
+    w32_p, w16_p, w8_p = (_pad_rows(a, 1.0) for a in (w32, w16, w8))
+    mvc_p = _pad_rows(mvc, 0.0)
     blk = initc.expand(PT, nb + 2, CC32).clone()
     s32_o = torch.zeros((PT, nb + 2), dtype=torch.int64, device=d)
     m32_o = torch.zeros_like(s32_o)
@@ -1331,10 +1518,7 @@ def wavefront_encode32_plain(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam,
     s16_o = torch.zeros((PT, nb + 2, 4), dtype=torch.int64, device=d)
     m_o = torch.zeros((PT, nb + 2, 4, 4), dtype=torch.int64, device=d)
     c16_o = torch.zeros((PT, nb + 2, 4, CC), dtype=torch.int64, device=d)
-    bidx_tab, nbr_tab = _neighbor_schedule(nby, nbx)
-    for bidx_np, nbr_np in zip(bidx_tab, nbr_tab):
-        bidx = torch.as_tensor(bidx_np, device=d)
-        nbr = torch.as_tensor(nbr_np, device=d)
+    for bidx, nbr in _wavefront_diagonals(nby, nbx, d):
         B = bidx.shape[0]
         tile4 = lambda ids: blk[:, ids].reshape(PT, B, CU32, CU32)
         up, upleft, upright, left = (tile4(nbr[:, k]) for k in range(4))
@@ -1378,8 +1562,7 @@ def wavefront_encode32_plain(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam,
         s16_o[:, bidx] = s16v.long()
         m_o[:, bidx] = torch.where(s16v[:, :, :, None], torch.stack(m8s, -2), m16v)
         c16_o[:, bidx] = torch.stack(cqs, -2)
-    rec = (blk[:, :nb].reshape(PT, nby, nbx, CU32, CU32).permute(0, 1, 3, 2, 4)
-           .reshape(PT, nby * CU32, nbx * CU32))
+    rec = _unblocks(blk[:, :nb], nby, nbx, CU32)
     return (s32_o[:, :nb].to(torch.int8), m32_o[:, :nb].to(torch.int8),
             c32_o[:, :nb].to(torch.int16), s16_o[:, :nb].to(torch.int8),
             m_o[:, :nb].to(torch.int8), c16_o[:, :nb].to(torch.int16),
@@ -1441,6 +1624,116 @@ def wavefront_encode32(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam, pen,
 
 
 # ---------------------------------------------------------------------------
+# kernel I's two-level entry: wavefront RDO encode of the 16/8 CU quadtree
+
+def block_weights16(weights, nby: int, nbx: int):
+    """Per-16-CU and per-8-sub RD distortion weights of the two-level codec
+    (reference `_block_weights`, hevc.py:672): the share of point-generating
+    pixels, floored at 0.04.  weights (P, H, W) int32 0/1 -> (w16 (P, nb),
+    w8 (P, nb, 4)) float32, subs in z-order."""
+    wb = _blocks((weights != 0).to(torch.float32), nby, nbx, CU)
+    P, nb, _ = wb.shape
+    w16 = (wb.sum(-1) / 256.0).clamp(min=0.04)
+    w8 = (wb.reshape(P, nb, 2, SUB, 2, SUB).sum((3, 5)) / 64.0).reshape(P, nb, 4)
+    return w16, w8.clamp(min=0.04)
+
+
+def wavefront_encode16_plain(src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq, maxvals,
+                             nby: int, nbx: int):
+    """Plain version of kernel I's two-level entry (vpcc_tpu hevc.py
+    `_build_encode.run`, the scan): one batched step per wavefront diagonal
+    of 16x16 CUs over (PT, nb+2, 256) CU rows, each CU coded by `_code_cu16`
+    (the inter lane pays pen + mvc at 16x16, pen + mvc / 4 at 8x8).
+
+    src/ref (PT, Ht, Wt) int32 source and inter prediction tile planes;
+    w16 (PT, nb), w8 (PT, nb, 4), mvc (PT, nb) float32; qstep, inv_q, lam,
+    pen (PT,) float32; dq, maxvals (PT,) int32.  Returns the syntax (split
+    (PT, nb) int8, modes (PT, nb, 4) int8 ([m16, 0, 0, 0] for a whole
+    block), coeffs (PT, nb, 256) int16 zigzag (four 64-level 8x8 blocks
+    when split)) and the reconstruction (PT, Ht, Wt) int32."""
+    PT = src.shape[0]
+    d = src.device
+    nb = nby * nbx
+    tabs = _tables(d)
+    maxv, dqv = maxvals.long(), dq.long()
+    initc = ((maxv + 1) // 2)[:, None, None]
+    src_blk = _pad_rows(_blocks(src.long(), nby, nbx, CU), initc)
+    ref_blk = _pad_rows(_blocks(ref.long(), nby, nbx, CU), initc)
+    w16_p, w8_p = _pad_rows(w16, 1.0), _pad_rows(w8, 1.0)
+    mvc_p = _pad_rows(mvc, 0.0)
+    blk = initc.expand(PT, nb + 2, CC).clone()
+    split_o = torch.zeros((PT, nb + 2), dtype=torch.int64, device=d)
+    modes_o = torch.zeros((PT, nb + 2, 4), dtype=torch.int64, device=d)
+    coeff_o = torch.zeros((PT, nb + 2, CC), dtype=torch.int64, device=d)
+    for bidx, nbr in _wavefront_diagonals(nby, nbx, d):
+        B = bidx.shape[0]
+        up, upleft, upright, left = (blk[:, nbr[:, k]].reshape(PT, B, CU, CU)
+                                     for k in range(4))
+        mvc16 = mvc_p[:, bidx]
+        tile, split, m16, m8, lev16zz, c8cat, _ = _code_cu16(
+            src_blk[:, bidx], ref_blk[:, bidx], up, upleft, upright, left, initc,
+            w16_p[:, bidx], w8_p[:, bidx], (pen[:, None] + mvc16, pen[:, None] + 0.25 * mvc16),
+            qstep, inv_q, lam, dqv, maxv, tabs)
+        blk[:, bidx] = tile
+        m16v = torch.cat([m16[..., None], torch.zeros_like(m8[..., 1:])], -1)
+        split_o[:, bidx] = split.long()
+        modes_o[:, bidx] = torch.where(split[..., None], m8, m16v)
+        coeff_o[:, bidx] = torch.where(split[..., None], c8cat, lev16zz)
+    return (split_o[:, :nb].to(torch.int8), modes_o[:, :nb].to(torch.int8),
+            coeff_o[:, :nb].to(torch.int16), _unblocks(blk[:, :nb], nby, nbx, CU).to(torch.int32))
+
+
+_WE16_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3
+              + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+
+
+def wavefront_encode16(src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq, maxvals,
+                       nby: int, nbx: int):
+    """Kernel I's two-level entry (csrc/wavefront_encode32.cu
+    `wavefront_encode16`): one launch per wavefront diagonal of 16x16 CUs,
+    one block per (tile plane, CU) on it.  Arguments and result as
+    `wavefront_encode16_plain`, which runs on the CPU."""
+    if src.device.type == "cpu":
+        return wavefront_encode16_plain(src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq,
+                                        maxvals, nby, nbx)
+    d = src.device
+    PT = src.shape[0]
+    nb = nby * nbx
+    for name, t, dtype, shape in (
+        ("src", src, torch.int32, (PT, nby * CU, nbx * CU)),
+        ("ref", ref, torch.int32, (PT, nby * CU, nbx * CU)),
+        ("w16", w16, torch.float32, (PT, nb)),
+        ("w8", w8, torch.float32, (PT, nb, 4)),
+        ("mvc", mvc, torch.float32, (PT, nb)),
+        ("qstep", qstep, torch.float32, (PT,)),
+        ("inv_q", inv_q, torch.float32, (PT,)),
+        ("lam", lam, torch.float32, (PT,)),
+        ("pen", pen, torch.float32, (PT,)),
+        ("dq", dq, torch.int32, (PT,)),
+        ("maxvals", maxvals, torch.int32, (PT,)),
+    ):
+        dev.check_tensor(t, name, dtype, d)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    split = torch.empty((PT, nb), dtype=torch.int8, device=d)
+    modes = torch.empty((PT, nb, 4), dtype=torch.int8, device=d)
+    coeffs = torch.empty((PT, nb, CC), dtype=torch.int16, device=d)
+    rec = torch.empty_like(src)
+    tabs = _tables(d)
+    fn = dev.load_kernel("wavefront_encode32").wavefront_encode16
+    fn.argtypes, fn.restype = _WE16_ARGS, ctypes.c_int
+    launched = ctypes.c_int(0)
+    rc = fn(dev.ptr(src), dev.ptr(ref), dev.ptr(w16), dev.ptr(w8), dev.ptr(mvc),
+            dev.ptr(qstep), dev.ptr(inv_q), dev.ptr(lam), dev.ptr(pen), dev.ptr(dq),
+            dev.ptr(maxvals), dev.ptr(tabs["blob"]), dev.ptr(tabs["fblob"]), dev.ptr(split),
+            dev.ptr(modes), dev.ptr(coeffs), dev.ptr(rec), PT, nby, nbx, dev.stream_handle(),
+            ctypes.byref(launched))
+    dev.count_launch("wavefront_encode16", launched.value)
+    dev.check_launch("wavefront_encode16", rc)
+    return split, modes, coeffs, rec
+
+
+# ---------------------------------------------------------------------------
 # plane API, encode side
 
 def _round_int_planes(planes, occ):
@@ -1451,6 +1744,22 @@ def _round_int_planes(planes, occ):
         return planes.to(torch.int32)
     return padding.push_pull_round(planes.to(torch.int32).contiguous(),
                                    occ.to(torch.uint8).contiguous())
+
+
+def _sao_blob(sao_cls_h, sao_off_h) -> bytes:
+    """The SAO parameters of a plane's tiles (class + 4 offsets per region)
+    as `encode_coeffs` 64-blocks, flattened (T, Ry, Rx, 5) and zero-padded."""
+    flat = np.concatenate([np.asarray(sao_cls_h).astype(np.int32)[..., None],
+                           np.asarray(sao_off_h).astype(np.int32)], axis=-1).reshape(-1)
+    sao_pad = np.zeros(((flat.size + 63) // 64, 64), np.int32)
+    sao_pad.reshape(-1)[: flat.size] = flat
+    sb = entropy.encode_coeffs(sao_pad)
+    return struct.pack("<I", len(sb)) + sb
+
+
+def _flags(has_ref, deblock, motion, level_flag) -> int:
+    return ((FLAG_INTER if has_ref else 0) | (FLAG_DEBLOCK if deblock else 0)
+            | (FLAG_MC if motion else 0) | level_flag)
 
 
 def assemble_payload32(H, W, P, qps, maxvals, has_ref, deblock, motion, ty, tx,
@@ -1464,13 +1773,10 @@ def assemble_payload32(H, W, P, qps, maxvals, has_ref, deblock, motion, ty, tx,
     s32_h, m32_h, c32_h, s16_h, modes_h, c16_h, mv_h = (
         np.asarray(a).astype(np.int32)
         for a in (s32_h, m32_h, c32_h, s16_h, modes_h, c16_h, mv_h))
-    sao_h = np.concatenate([np.asarray(sao_cls_h).astype(np.int32)[..., None],
-                            np.asarray(sao_off_h).astype(np.int32)], axis=-1)
     nby, nbx = Hp // ty // CU32, Wp // tx // CU32
-    flags = ((FLAG_INTER if has_ref else 0) | (FLAG_DEBLOCK if deblock else 0)
-             | (FLAG_MC if motion else 0) | FLAG_CU32)
     T = ty * tx
-    out = bytearray(struct.pack("<HHBBBB", H, W, P, flags, ty, tx))
+    out = bytearray(struct.pack("<HHBBBB", H, W, P,
+                                _flags(has_ref, deblock, motion, FLAG_CU32), ty, tx))
     for p in range(P):
         out += struct.pack("<BH", int(qps[p]), int(maxvals[p]))
         sl = slice(p * T, (p + 1) * T)
@@ -1487,31 +1793,51 @@ def assemble_payload32(H, W, P, qps, maxvals, has_ref, deblock, motion, ty, tx,
                                s16_h[sl].reshape(-1, 4), modes_h[sl].reshape(-1, 4, 4)),
                 mv_h[sl].reshape(-1, 2))
             out += struct.pack("<I", len(mvblob)) + mvblob
-        flat = sao_h[sl].reshape(-1)
-        sao_pad = np.zeros(((flat.size + 63) // 64, 64), np.int32)
-        sao_pad.reshape(-1)[: flat.size] = flat
-        sb = entropy.encode_coeffs(sao_pad)
-        out += struct.pack("<I", len(sb)) + sb
+        out += _sao_blob(sao_cls_h[sl], sao_off_h[sl])
+    return bytes(out)
+
+
+def assemble_payload16(H, W, P, qps, maxvals, has_ref, deblock, motion, ty, tx,
+                       split_h, modes_h, coeff_h, mv_h, sao_cls_h, sao_off_h) -> bytes:
+    """Two-level (16/8) payload from host (numpy) syntax arrays, byte for
+    byte as the reference's two-level `finalize` (hevc.py:1550-1602):
+    header (FLAG_SAO16), then per plane its qp/maxval, one CU syntax blob
+    over its tiles stacked into a (T*nby, nbx) grid of 16x16 CUs, the MV
+    blob (motion payloads) and the 16-px SAO blob."""
+    Hp, Wp = _padded_dims(H, W, ty, tx, CU)
+    split_h, modes_h, coeff_h, mv_h = (np.asarray(a).astype(np.int32)
+                                       for a in (split_h, modes_h, coeff_h, mv_h))
+    nby, nbx = Hp // ty // CU, Wp // tx // CU
+    T = ty * tx
+    out = bytearray(struct.pack("<HHBBBB", H, W, P,
+                                _flags(has_ref, deblock, motion, FLAG_SAO16), ty, tx))
+    for p in range(P):
+        out += struct.pack("<BH", int(qps[p]), int(maxvals[p]))
+        sl = slice(p * T, (p + 1) * T)
+        split_cat = split_h[sl].reshape(-1)
+        modes_cat = modes_h[sl].reshape(-1, 4)
+        coeff_cat = coeff_h[sl].reshape(-1, CC)
+        blob = entropy.encode_hevc_plane(T * nby, nbx, split_cat, modes_cat[:, 0], coeff_cat,
+                                         modes_cat, coeff_cat.reshape(-1, 4, SUB * SUB))
+        out += struct.pack("<I", len(blob)) + blob
+        if motion:
+            mvblob = entropy.encode_mvs(_inter_flags(split_cat, modes_cat),
+                                        mv_h[sl].reshape(-1, 2))
+            out += struct.pack("<I", len(mvblob)) + mvblob
+        out += _sao_blob(sao_cls_h[sl], sao_off_h[sl])
     return bytes(out)
 
 
 @dataclasses.dataclass
-class Coded32:
+class Coded:
     """What one `encode_planes_dispatch` call leaves on the device: the
-    syntax arrays of its P * ty * tx tiles (split flags, modes,
-    coefficients, MVs, SAO), the (P, H, W) int32 reconstruction and the
-    call's parameters.  `payload` assembles the bytes of a run of its
-    planes on the host."""
+    syntax arrays of its P * ty * tx tiles, in the order the payload writer
+    takes them (three-level: s32, m32, c32, s16, modes, c16, mv, sao_cls,
+    sao_off; two-level: split, modes, coeffs, mv, sao_cls, sao_off), the
+    (P, H, W) int32 reconstruction and the call's parameters.  `payload`
+    assembles the bytes of a run of its planes on the host."""
 
-    s32: torch.Tensor
-    m32: torch.Tensor
-    c32: torch.Tensor
-    s16: torch.Tensor
-    modes: torch.Tensor
-    c16: torch.Tensor
-    mv: torch.Tensor
-    sao_cls: torch.Tensor
-    sao_off: torch.Tensor
+    syntax: Dict[str, torch.Tensor]
     rec: torch.Tensor
     qps: list
     maxvals: list
@@ -1522,12 +1848,14 @@ class Coded32:
     tx: int
     _host: Optional[tuple] = None
 
+    @property
+    def two_level(self) -> bool:
+        return "split" in self.syntax
+
     def host(self) -> tuple:
         """The syntax arrays on the host (downloaded once)."""
         if self._host is None:
-            self._host = tuple(a.cpu().numpy() for a in (
-                self.s32, self.m32, self.c32, self.s16, self.modes, self.c16,
-                self.mv, self.sao_cls, self.sao_off))
+            self._host = tuple(a.cpu().numpy() for a in self.syntax.values())
         return self._host
 
     def payload(self, first: int = 0, count: Optional[int] = None) -> bytes:
@@ -1537,21 +1865,26 @@ class Coded32:
         count = P - first if count is None else count
         T = self.ty * self.tx
         sl = slice(first * T, (first + count) * T)
-        return assemble_payload32(
+        assemble = assemble_payload16 if self.two_level else assemble_payload32
+        return assemble(
             H, W, count, self.qps[first:first + count], self.maxvals[first:first + count],
             self.has_ref, self.deblock, self.motion, self.ty, self.tx,
             *(a[sl] for a in self.host()))
 
 
 def encode_planes_dispatch(planes, qps, maxvals, refs=None, occ=None, deblock: bool = True,
-                           weight=None, motion: bool = False) -> Coded32:
+                           weight=None, motion: bool = False) -> Coded:
     """The device half of `encode_planes` over a (P, H, W) stack sharing
     one shape: kernels L, J, B, I, O, K in one pass each over every plane.
-    qps/maxvals: per-plane ints.  refs: optional (P, H, W) reference
-    planes.  occ: optional (H, W) occupancy, or one per plane (P, H, W),
-    for the push-pull background fill.  weight: optional (H, W) or (P, H,
-    W) 0/1 RD relevance mask.  Runs on the planes' device when they are a
-    tensor, else on CUDA."""
+    qps/maxvals: per-plane ints; maxvals up to 1023 take the three-level
+    codec (32x32 CUs, 32-px SAO regions), up to 2047 the two-level one
+    (16x16 CUs and MV blocks, 16-px SAO regions; every plane when
+    `ENABLE_CU32` is off), above 2047 raise ValueError (the reference
+    asserts them away).  refs: optional (P, H, W) reference planes.  occ:
+    optional (H, W) occupancy, or one per plane (P, H, W), for the
+    push-pull background fill.  weight: optional (H, W) or (P, H, W) 0/1
+    RD relevance mask.  Runs on the planes' device when they are a tensor,
+    else on CUDA."""
     d = planes.device if torch.is_tensor(planes) else dev.resolve_device()
     as_t = lambda a: (a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))).to(d)
     planes = as_t(planes)
@@ -1560,31 +1893,35 @@ def encode_planes_dispatch(planes, qps, maxvals, refs=None, occ=None, deblock: b
     P, H, W = planes.shape
     if H % SUB or W % SUB:
         raise ValueError(f"encode_planes: plane {H}x{W} is not a multiple of {SUB}")
-    if max(int(m) for m in maxvals) > 1023:
-        raise NotImplementedError(
-            "two-level (16/8) CU encode (samples above 10 bits): ROADMAP queue 2, "
-            "two-level _build_encode")
+    top = max(int(m) for m in maxvals)
+    if top > MAXVAL_LIMIT:
+        raise ValueError(f"encode_planes: maxval {top} is above {MAXVAL_LIMIT}: samples above "
+                         "11 bits void the integer-exact prediction (reference hevc.py:1496)")
+    two_level = not (ENABLE_CU32 and top <= 1023)
+    cu = CU if two_level else CU32
     has_ref = refs is not None
     motion = bool(motion and has_ref)
     planes = _round_int_planes(planes, None if occ is None else as_t(occ))
     ref = (as_t(refs).to(torch.int32) if has_ref
            else torch.zeros((P, H, W), dtype=torch.int32, device=d))
+    ty, tx = _tile_grid(H, W, cu=cu)
+    Hp, Wp = _padded_dims(H, W, ty, tx, cu)
+    # a weight mask is padded with zeros, the default all-ones one covers
+    # the padding too (as the reference builds them)
     if weight is not None:
-        wgt = (as_t(weight) != 0).to(torch.int32).expand(P, H, W)
+        wgt = torch.nn.functional.pad((as_t(weight) != 0).to(torch.int32).expand(P, H, W),
+                                      (0, Wp - W, 0, Hp - H))
     else:
-        wgt = torch.ones((P, H, W), dtype=torch.int32, device=d)
-    ty, tx = _tile_grid(H, W, cu=CU32)
-    Hp, Wp = _padded_dims(H, W, ty, tx, CU32)
+        wgt = torch.ones((P, Hp, Wp), dtype=torch.int32, device=d)
     if (Hp, Wp) != (H, W):
         planes = _edge_pad(planes, 0, Hp - H, 0, Wp - W)
         ref = _edge_pad(ref, 0, Hp - H, 0, Wp - W)
-        wgt = torch.nn.functional.pad(wgt, (0, Wp - W, 0, Hp - H))
     src = _tiles_of(planes, ty, tx).contiguous()
     ref = _tiles_of(ref, ty, tx).contiguous()
     wgt = _tiles_of(wgt, ty, tx).contiguous()
     T = ty * tx
     PT = P * T
-    nby, nbx = Hp // ty // CU32, Wp // tx // CU32
+    nby, nbx = Hp // ty // cu, Wp // tx // cu
     qp_c = np.clip(np.repeat(np.asarray(qps, np.int64), T), 0, 51)
     dq_h = tab.DQ64[qp_c].astype(np.int32)
     qstep_h = dq_h.astype(np.float32) / np.float32(64.0)
@@ -1595,34 +1932,41 @@ def encode_planes_dispatch(planes, qps, maxvals, refs=None, occ=None, deblock: b
     inv_q = tt(np.float32(1.0) / qstep_h)
     pen = torch.full((PT,), 0.0 if has_ref else 1e30, dtype=torch.float32, device=d)
     if motion:
-        mv, mvcost = motion_search(src, ref, lam, maxv, CU32)
-        ref = half_pel_mc(ref, mv, maxv, CU32)
+        mv, mvcost = motion_search(src, ref, lam, maxv, cu)
+        ref = half_pel_mc(ref, mv, maxv, cu)
     else:
         mv = torch.zeros((PT, nby * nbx, 2), dtype=torch.int32, device=d)
         mvcost = torch.zeros((PT, nby * nbx), dtype=torch.float32, device=d)
-    w32, w16, w8 = block_weights32(wgt, nby, nbx)
-    s32, m32, c32, s16, modes, c16, rec = wavefront_encode32(
-        src, ref, w32, w16, w8, mvcost, qstep, inv_q,
-        lam, pen, tt(dq_h), maxv, nby, nbx)
+    if two_level:
+        split, modes, coeffs, rec = wavefront_encode16(
+            src, ref, *block_weights16(wgt, nby, nbx), mvcost, qstep, inv_q, lam, pen,
+            tt(dq_h), maxv, nby, nbx)
+        syntax = dict(split=split, modes=modes, coeffs=coeffs)
+    else:
+        s32, m32, c32, s16, modes, c16, rec = wavefront_encode32(
+            src, ref, *block_weights32(wgt, nby, nbx), mvcost, qstep, inv_q,
+            lam, pen, tt(dq_h), maxv, nby, nbx)
+        syntax = dict(s32=s32, m32=m32, c32=c32, s16=s16, modes=modes, c16=c16)
     if deblock:
         rec = deblock_planes(rec, tt(qp_c.astype(np.int32)), maxv)
-    sao_cls, sao_off = sao_search(src, rec, lam, wgt)
-    rec = sao_apply(rec, sao_cls, sao_off, maxv)
+    region = CU if two_level else SAO_REGION
+    sao_cls, sao_off = sao_search(src, rec, lam, wgt, region=region)
+    rec = sao_apply(rec, sao_cls, sao_off, maxv, region=region)
     rec = _untile(rec, P, ty, tx)[:, :H, :W].contiguous()
-    return Coded32(s32, m32, c32, s16, modes, c16, mv.to(torch.int8), sao_cls, sao_off, rec,
-                   [int(q) for q in qps], [int(m) for m in maxvals], has_ref, bool(deblock),
-                   motion, ty, tx)
+    syntax.update(mv=mv.to(torch.int8), sao_cls=sao_cls, sao_off=sao_off)
+    return Coded(syntax, rec, [int(q) for q in qps], [int(m) for m in maxvals], has_ref,
+                 bool(deblock), motion, ty, tx)
 
 
 def encode_planes(planes, qps, maxvals, refs=None, occ=None, deblock: bool = True,
                   weight=None, motion: bool = False) -> Tuple[bytes, torch.Tensor]:
     """Encode a (P, H, W) stack of integer planes sharing one shape with the
-    three-level (32/16/8) wavefront codec, as `vpcc_tpu.video.hevc.
-    encode_planes` does.  Returns (payload bytes, (P, H, W) int32
+    three-level (32/16/8) wavefront codec, or the two-level (16/8) one where
+    a maxval is above 1023, as `vpcc_tpu.video.hevc.encode_planes` does.  Returns (payload bytes, (P, H, W) int32
     reconstruction on the device), the reconstruction being exactly what
     `decode_planes` makes of the payload.
 
-    `encode_planes_dispatch` (arguments as here) then `Coded32.payload`.
+    `encode_planes_dispatch` (arguments as here) then `Coded.payload`.
     refs: optional (P, H, W) reference planes (enables the inter lane);
     motion=True searches half-pel MVs against them (kernel J).  occ:
     optional (H, W) occupancy for the push-pull background fill (kernel L).
