@@ -354,7 +354,10 @@ KERNEL_INFO = {
     "presmooth": ("vpcc_tpu_torch/csrc/presmooth.cu",
                   "vpcc_tpu/ops/smoothing.py:193"),
     "deblock": ("vpcc_tpu_torch/csrc/deblock.cu", "vpcc_tpu/video/hevc.py:161"),
-    "attr_image": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:209"),
+    # kernel P, one row an entry (the scalar ones below)
+    "attr_paint": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:209"),
+    "attr_group_dilate": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/ops/padding.py:149"),
+    "attr_gather": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:227"),
     "color_convert": ("vpcc_tpu_torch/csrc/color_convert.cu", "vpcc_tpu/video/hevc.py:1766"),
     "metrics": ("vpcc_tpu_torch/csrc/metrics.cu", "vpcc_tpu/ops/metrics.py:57"),
     "metrics_d2_f32": ("vpcc_tpu_torch/csrc/metrics.cu", "vpcc_tpu/ops/metrics.py:87"),
@@ -395,7 +398,8 @@ KERNEL_INFO = {
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
 GEOMETRY_KERNELS = ("wavefront_encode32", "motion_search", "sao", "push_pull")
-ENCODE_KERNELS = ("recolor", "presmooth", "deblock", "attr_image", "color_convert")
+ATTR_ENTRIES = ("attr_paint", "attr_group_dilate", "attr_gather")
+ENCODE_KERNELS = ("recolor", "presmooth", "deblock", *ATTR_ENTRIES, "color_convert")
 METRICS_KERNELS = ("metrics", "metrics_d2_f32")
 # rows of the vox11 phase -> the launch counter each reads on that path
 VOX11_ROWS = {"grid_knn_xyz": "grid_knn_xyz", "cc_round_voxel": "cc_labels",
@@ -656,8 +660,12 @@ def bounds(name, args, out):
         probes, cands = knn_work(grid, tgt_pos, 18)
         byt = nbytes(src_pos, src_refl, tgt_pos, out) + probes * 4
         ops = 12.0 * cands + 2.0 * tgt_pos.shape[0] * max(src_pos.shape[0], 2).bit_length()
-    elif name in ("attr_paint_scalar", "attr_gather_scalar"):
-        byt = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(out)
+    elif name in ("attr_paint_scalar", "attr_gather_scalar", "attr_paint", "attr_group_dilate",
+                  "attr_gather"):
+        # kernel P: each entry's inputs read once and outputs written once
+        # (the winner planes of the paints are scratch, not counted)
+        byt = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(
+            *(out if isinstance(out, tuple) else (out,)))
         ops = 0.0
     elif name == "orient_viewpoint":
         # normals and positions read once, the oriented normals written once;
@@ -761,7 +769,7 @@ def bounds(name, args, out):
         byt = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(
             *(out if isinstance(out, tuple) else (out,)))
         ops = 0.0
-    elif name in ("recolor", "attr_image", "recolor_blend"):
+    elif name in ("recolor", "recolor_blend"):
         # each entry's inputs read once and outputs written once (`args` holds
         # them all; the few flops per row are far below the byte time)
         byt = nbytes(*args) + nbytes(*out)
@@ -846,6 +854,21 @@ def knn_work(grid, q, win):
     cands = int((cnt * ok).sum())
     probes = int(torch.unique(torch.cat([clo[ok], chi1[ok]])).numel())
     return probes, cands
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device milliseconds of one call of fn: captured once into a CUDA
+    graph and replayed between CUDA events, without the caller's Python and
+    launch overhead (for wrappers whose calls are host-bound)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return time_ms(g.replay, reps)
 
 
 def timed(fn):
@@ -991,7 +1014,7 @@ def decode_phase(dev):
           f"s/frame; all {n_frames} frames match the JAX digests "
           f"(points {[pc.point_count for pc in frames]})")
     print(f"launches on the decode path: {launches}")
-    idle = [k for k in DECODE_KERNELS + ("sao", "deblock", "attr_image", "color_convert")
+    idle = [k for k in DECODE_KERNELS + ("sao", "deblock", "attr_gather", "color_convert")
             if launches.get(k, 0) == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the decode path: {idle}")
@@ -1465,14 +1488,9 @@ def recolor_entries(recolor, inputs, cfg, plain: bool):
     return (*ex, fwd, out)
 
 
-def attr_entries(pipeline, paint_args, dilate_args, gather_args, plain: bool):
-    """Kernel P's three entries (or their plain versions) on their captured
-    main-path inputs.  Returns their outputs."""
-    sfx = "_plain" if plain else ""
-    planes = getattr(pipeline, "paint_attribute" + sfx)(*paint_args)
-    img0, img1 = getattr(pipeline, "group_dilate" + sfx)(*dilate_args)
-    col = getattr(pipeline, "gather_decoded_colors" + sfx)(*gather_args)
-    return planes, img0, img1, col
+# kernel P's color entries -> the pipeline function each wraps
+ATTR_FUNCS = {"attr_paint": "paint_attribute", "attr_group_dilate": "group_dilate",
+              "attr_gather": "gather_decoded_colors"}
 
 
 def encode_phase(dev, cfg, frames, segs):
@@ -1542,10 +1560,13 @@ def encode_phase(dev, cfg, frames, segs):
                       lambda: smoothing.presmooth_vote_plain(*ps_args), ps_args),
         "deblock": (lambda: hevc.deblock_planes(*db_args),
                     lambda: hevc.deblock_planes_plain(*db_args), db_args),
-        "attr_image": (lambda: attr_entries(pipeline, p_args, g_args, c_args, False),
-                       lambda: attr_entries(pipeline, p_args, g_args, c_args, True),
-                       None),
     }
+    for kname, args in zip(ATTR_ENTRIES, (p_args, g_args, c_args)):
+        fn = ATTR_FUNCS[kname]
+        checks[kname] = (lambda f=getattr(pipeline, fn), a=args: f(*a),
+                         lambda f=getattr(pipeline, fn + "_plain"), a=args: f(*a), args)
+    libs = dict(zip(("attr_paint", "attr_gather"), p_library_ms(
+        "attr", p_args, c_args, pipeline.gather_decoded_colors_plain, clamp=True)))
     rows = {}
     for name, (kern, plain, args) in checks.items():
         out_k, out_p = kern(), plain()
@@ -1555,14 +1576,15 @@ def encode_phase(dev, cfg, frames, segs):
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version "
                                  f"(max abs err {err})")
-        (k1, k2), (p1, p2) = time_turns(kern, plain)
+        # kernel P's calls are short: more of them, and their device time apart
+        (k1, k2), (p1, p2) = time_turns(kern, plain, reps_k=100 if name in ATTR_ENTRIES else 20)
         lib = None
         if name == "recolor":
             shapes = [tuple(a.shape) for a in rc_args[:3]]
-        elif name == "attr_image":
-            args = tuple(a for a in (*p_args, *g_args, *c_args) if torch.is_tensor(a))
-            shapes = [tuple(a.shape) for a in args]
-            lib = attr_library_ms(p_args, c_args)
+        elif name in ATTR_ENTRIES:
+            shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+            lib = libs.get(name)
+            print(f"{name}: device {graph_ms(kern):.4f} ms a call (CUDA graph replay)")
         else:
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         b_ms, b_by = bounds(name, args, out_k)
@@ -1572,6 +1594,10 @@ def encode_phase(dev, cfg, frames, segs):
               f"inputs {shapes}")
         rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=err, library_ms=lib)
+    rest = sum(rows[k]["ms"] for k in ATTR_ENTRIES)
+    rest_b = sum(rows[k]["bound_ms"] for k in ATTR_ENTRIES)
+    print(f"kernel P's paint + group dilation + gather: kernel {rest:.4f} ms, bound "
+          f"{rest_b:.4f} ms ({100 * rest_b / rest:.1f} % of it)")
     rows["color_convert"] = color_check(hevc, cap, "encode")
 
     # 14. the attribute path on JAX's reconstruction rows
@@ -2451,8 +2477,9 @@ def lossless_phase(dev, frames):
               + "/".join(f"{p:.3f}" for p in ps) + f" ms, bound {b_ms:.4f} ms ({b_by}); rows "
               f"out {got[0].shape[0]}, EOM rows {ex_args[0].eq(2).sum().item()}, aux "
               f"{tuple(in_args[2].shape)}")
+        lib = eom_library_ms(ex_args, in_args) if name == "eom_colors" else None
         rows[name] = dict(ms=sum(ks) / len(ks), plain_ms=sum(ps) / len(ps), bound_ms=b_ms,
-                          bound_by=b_by, max_abs_err=err, library_ms=None)
+                          bound_by=b_by, max_abs_err=err, library_ms=lib)
 
     # 30. the main path, counted and timed; the spies keep each frame's EOM
     # rows, plane and raw points for the checks afterwards
@@ -2769,6 +2796,9 @@ def attr_options_phase(dev, frames):
                 lambda: pipeline.gather_decoded_scalar_plain(*args))
 
     def check(kname, k_fn, p_fn, b_args, extra="", reps_k=20, reps_p=3):
+        if kname in ("attr_paint_scalar", "attr_gather_scalar"):   # short calls
+            reps_k = 100
+            extra += f", device {graph_ms(k_fn):.4f} ms a call (CUDA graph replay)"
         got, want = k_fn(), p_fn()
         torch.cuda.synchronize()
         if kname == "bg_dilate":
@@ -2857,8 +2887,9 @@ def attr_options_phase(dev, frames):
                 extra = f", rows {args[2].shape[0]}, max sample {int(args[2].max())}"
             rows[kname] = check(kname, k_fn, p_fn, args, extra)
         if name == "refl":
-            t_put, t_get = scalar_library_ms(cap.calls["attr_paint_scalar"][1],
-                                             cap.calls["attr_gather_scalar"][1])
+            t_put, t_get = p_library_ms("scalar", cap.calls["attr_paint_scalar"][1],
+                                        cap.calls["attr_gather_scalar"][1],
+                                        pipeline.gather_decoded_scalar_plain, clamp=False)
             rows["attr_paint_scalar"]["library_ms"] = t_put
             rows["attr_gather_scalar"]["library_ms"] = t_get
         if name == "bgfill2":
@@ -3384,43 +3415,73 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
                           bound_by=b_by, max_abs_err=err, library_ms=None)
     return rows, {k: launches[k] for k in LEVEL_KERNELS}
 
-def scalar_library_ms(paint_args, gather_args):
-    """(index_put_ ms, advanced indexing ms): one PyTorch call each for what
-    kernel P's scalar paint and gather compute (timed here, used nowhere in
-    the port)."""
-    pix, layer, val, h, w = paint_args
-    keep = (layer == 0) | (layer == 1)
-    flat = (layer[keep].long() * h + pix[keep, 1].long()) * w + pix[keep, 0].long()
-    vals = val[keep]
-    img = torch.zeros(2 * h * w, dtype=torch.int32, device=val.device)
-    gpix, glayer, a0, a1 = gather_args
-    stacked = torch.stack([a0, a1])
-    gl = (glayer == 1).long()
-    gy, gx = gpix[:, 1].long(), gpix[:, 0].long()
-    t_put = time_ms(lambda: img.index_put_((flat,), vals), 20)
-    t_get = time_ms(lambda: stacked[gl, gy, gx], 20)
-    print(f"scalar library: index_put_ {t_put:.4f} ms, advanced indexing {t_get:.4f} ms")
+def _library_paint(pix, layer, vals, h: int, w: int):
+    """Kernel P's paint as PyTorch calls: the index preparation (tags 0 and
+    1 inside the image keep their flat (layer, pixel) index, the others
+    point at one spare row, so nothing waits on the host), then one
+    `index_put_` into zeroed stacked layer images.  A lower yardstick, not
+    the same function: `index_put_` leaves duplicate pixels to whichever
+    write lands last (kernel P keeps the highest row) and does no layer-1
+    fallback."""
+    x, y = pix[:, 0].long(), pix[:, 1].long()
+    keep = ((layer == 0) | (layer == 1)) & (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    flat = torch.where(keep, (layer.long() * h + y) * w + x, 2 * h * w)
+    img = torch.zeros((2 * h * w + 1, *vals.shape[1:]), dtype=torch.int32, device=vals.device)
+    return img.index_put_((flat,), vals)[:-1]
+
+
+def _library_gather(pix, layer, a0, a1):
+    """Kernel P's gather as PyTorch calls: the pixels clamped into the
+    image, both images read by advanced indexing, the point's layer picked
+    by `torch.where` (uint8 colors out: no widening to int32)."""
+    h, w = a0.shape[:2]
+    x = pix[:, 0].long().clamp(0, w - 1)
+    y = pix[:, 1].long().clamp(0, h - 1)
+    pick = (layer == 1).view(-1, *([1] * (a0.dim() - 2)))
+    return torch.where(pick, a1[y, x], a0[y, x])
+
+
+def p_library_ms(what: str, paint_args, gather_args, gather_plain, clamp: bool):
+    """(paint ms, gather ms) of the PyTorch calls that compute what kernel
+    P's paint (index preparation, for colors the 0..255 clamp, `index_put_`)
+    and gather (clamps, advanced indexing, `torch.where`) do, over 100 calls
+    each; timed here, used nowhere in the port.  The gather's result is held
+    against the plain version first: it is the same function.  Group
+    dilation has no single-call counterpart."""
+    pix, layer, vals, h, w = paint_args
+    got = _library_gather(*gather_args).to(torch.int32)
+    if not torch.equal(got, gather_plain(*gather_args)):
+        raise AssertionError(f"{what} library gather differs from the plain version")
+    clamped = (lambda: vals.clamp(0, 255)) if clamp else (lambda: vals)
+    put = lambda: _library_paint(pix, layer, clamped(), h, w)
+    get = lambda: _library_gather(*gather_args)
+    t_put, t_get = time_ms(put, 100), time_ms(get, 100)
+    try:   # none of these calls waits on the host, so they can be captured
+        dev_txt = f"device {graph_ms(put):.4f} / {graph_ms(get):.4f} ms (CUDA graph replay)"
+    except RuntimeError as e:
+        dev_txt = f"device not measured ({type(e).__name__}: {str(e)[:120]})"
+    print(f"{what} library (index preparation included): paint by index_put_ {t_put:.4f} ms, "
+          f"gather by advanced indexing {t_get:.4f} ms; {dev_txt}")
     return t_put, t_get
 
 
-def attr_library_ms(paint_args, gather_args) -> float:
-    """One PyTorch call each for what kernel P's paint and gather compute:
-    `index_put_` of the colors into the stacked layer images, and advanced
-    indexing of the images at the points' pixels (timed here, used nowhere
-    in the port)."""
-    pix, layer, col, h, w = paint_args
-    keep = (layer == 0) | (layer == 1)
-    flat = (layer[keep].long() * h + pix[keep, 1].long()) * w + pix[keep, 0].long()
-    vals = col[keep].clamp(0, 255).to(torch.int32)
-    img = torch.zeros((2 * h * w, 3), dtype=torch.int32, device=col.device)
-    gpix, glayer, a0, a1 = gather_args
-    stacked = torch.stack([a0, a1])
-    gl = (glayer == 1).long()
-    gy, gx = gpix[:, 1].long(), gpix[:, 0].long()
-    t_put = time_ms(lambda: img.index_put_((flat,), vals), 20)
-    t_get = time_ms(lambda: stacked[gl, gy, gx], 20)
-    print(f"attr_image library: index_put_ {t_put:.4f} ms, advanced indexing {t_get:.4f} ms")
-    return t_put + t_get
+def eom_library_ms(ex_args, in_args) -> float:
+    """Library ms of kernel S: boolean-mask indexing for the extract and
+    masked assignment for the inject, the masks included (timed here, used
+    nowhere in the port).  The inject's equality holds while the aux rows
+    cover the EOM rows, as on the main path."""
+    layer, col = ex_args
+    layer2, col2, aux = in_args
+
+    def both():
+        out = col2.clone()
+        m = layer2 == 2
+        out[m] = aux[:int(m.sum())].to(col2.dtype)
+        return col[layer == 2], out
+
+    t = time_ms(both, 20)
+    print(f"eom_colors library: mask indexing + masked assignment {t:.4f} ms")
+    return t
 
 
 def main() -> int:
@@ -3444,8 +3505,11 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()))
     for name, log in dev.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    smem = dev.load_kernel("wavefront_encode32").wavefront_encode_smem
+    print(f"kernel I dynamic shared memory a block: {smem(0)} bytes (32/16/8), "
+          f"{smem(1)} bytes (two-level)")
 
     rows, launches, decoded = decode_phase(dev)
     front_rows, front_launches, (cfg, frames, segs) = front_phase(dev)

@@ -428,12 +428,105 @@ def test_wavefront_encode32_kernel(cuda, has_ref):
             t(np.float32(1) / qstep), t(tab.LAMBDA[qp]),
             torch.full((PT,), 0.0 if has_ref else 1e30, device=cuda), t(dq),
             torch.full((PT,), 255, dtype=torch.int32, device=cuda)]
+    before = dev.LAUNCHES["wavefront_encode32"]
     got = hevc.wavefront_encode32(*args, nby, nbx)
+    assert dev.LAUNCHES["wavefront_encode32"] == before + 1   # one launch a call
     want = hevc.wavefront_encode32_plain(*args, nby, nbx)
     for a, b in zip(got, want):
         _same(a, b)
     flags = torch.cat([got[0].flatten(), got[3].flatten()]).long()
     assert 0 < int(flags.sum()) < flags.numel()   # split and unsplit blocks
+
+
+def _encode_args(rng, cuda, PT, nby, nbx, cu, maxval, mixed=True):
+    """Kernel I's arguments on (PT, nby*cu, nbx*cu) planes: smooth sources;
+    the inter reference a good one on the left of each tile and an
+    unrelated one on the right (so that inter and intra CUs mix), the
+    first plane without a reference (pen 1e30)."""
+    H, W = nby * cu, nbx * cu
+    nb = nby * nbx
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    src = _smooth_planes(rng, PT, H, W, maxval)
+    ref = np.clip(src + rng.integers(-3, 4, src.shape), 0, maxval).astype(np.int32)
+    if mixed:
+        ref[:, :, W // 2:] = _smooth_planes(rng, PT, H, W - W // 2, maxval)
+    sub = cu // 8
+    wgt = t((rng.random((PT, nby * sub, nbx * sub)) < 0.6).repeat(8, 1).repeat(8, 2)
+            .astype(np.int32))
+    weights = (hevc.block_weights32(wgt, nby, nbx) if cu == 32
+               else hevc.block_weights16(wgt, nby, nbx))
+    qp = rng.integers(22, 45, PT)
+    dq = tab.DQ64[qp].astype(np.int32)
+    qstep = dq.astype(np.float32) / np.float32(64)
+    pen = np.zeros(PT, np.float32)
+    pen[0] = 1e30
+    return [t(src), t(ref), *weights, t((rng.random((PT, nb)) * 20).astype(np.float32)),
+            t(qstep), t(np.float32(1) / qstep), t(tab.LAMBDA[qp].astype(np.float32)), t(pen),
+            t(dq), torch.full((PT,), maxval, dtype=torch.int32, device=cuda)]
+
+
+@pytest.mark.parametrize("two_level,PT,nby,nbx", [
+    (False, 48, 3, 5),   # 144 CUs on diagonal 4, more than the card's 132 SMs
+    (True, 40, 4, 8),    # 160 16x16 CUs on diagonals 6-9
+    (False, 2, 3, 1), (False, 2, 8, 3),   # ragged tiles: one CU wide; 8 x 3 CUs
+    (True, 2, 3, 1), (True, 2, 8, 3),
+])
+def test_wavefront_encode_schedule_kernel(cuda, two_level, PT, nby, nbx):
+    """Kernel I's single-launch wavefront (per-CU ready flags, CUs taken in
+    diagonal order) against the plain version, bit for bit: stacks whose
+    diagonals hold more CUs than there are SMs, ragged tiles, planes that
+    mix inter and intra CUs."""
+    rng = np.random.default_rng(200 + PT + nby + 7 * two_level)
+    cu, name = (16, "wavefront_encode16") if two_level else (32, "wavefront_encode32")
+    args = _encode_args(rng, cuda, PT, nby, nbx, cu, 2047 if two_level else 1023)
+    kern = getattr(hevc, name)
+    plain = getattr(hevc, name + "_plain")
+    before = dev.LAUNCHES[name]
+    got = kern(*args, nby, nbx)
+    assert dev.LAUNCHES[name] == before + 1
+    want = plain(*args, nby, nbx)
+    for a, b in zip(got, want):
+        _same(a, b)
+    # the decoded mode of every 8x8 area of the planes with a reference
+    if two_level:
+        split, modes = got[0].long()[..., None], got[1].long()
+        eff = torch.where(split != 0, modes, modes[..., :1].expand_as(modes))
+    else:
+        s32, m32, s16, modes = (got[k].long() for k in (0, 1, 3, 4))
+        per16 = torch.where(s16[..., None] != 0, modes, modes[..., :1].expand_as(modes))
+        eff = torch.where(s32[..., None, None] != 0, per16, m32[..., None, None].expand_as(per16))
+    inter = eff[1:] == tab.MODE_INTER
+    if nbx >= 3:   # a good reference on the left of the tile, an unrelated one on the right
+        assert 0 < int(inter.sum()) < inter.numel()
+
+
+def test_rdo_tie_crops_kernel(cuda):
+    """The committed RD tie crops through kernel I on the card: the 32x32
+    crop (vpcc_tpu_torch/data/rdo_tie_crop.npy, the tie of
+    tests/test_torch_video_encode.py) must choose mode 33 at CU (1, 6), and
+    the 16/8 crop (rdo_tie_crop16.npz); both payloads and reconstructions
+    equal the plain path's, which the CPU tests hold to the JAX encoder's."""
+    from pathlib import Path
+
+    data = Path(hevc.__file__).resolve().parents[1] / "data"
+    crop = np.load(data / "rdo_tie_crop.npy")
+    z = np.load(data / "rdo_tie_crop16.npz")
+    cases = [(crop[:1].astype(np.int32), crop[1].astype(np.int32), 24, 255,
+              "wavefront_encode32"),
+             (z["plane"].astype(np.int32)[None], z["weight"].astype(np.int32), int(z["qp"]),
+              2047, "wavefront_encode16")]
+    for plane, weight, qp, maxval, name in cases:
+        kw = dict(deblock=False)
+        want, rec_p = hevc.encode_planes(torch.as_tensor(plane), [qp], [maxval],
+                                         weight=torch.as_tensor(weight), **kw)
+        before = dev.LAUNCHES[name]
+        got, rec_k = hevc.encode_planes(torch.as_tensor(plane, device=cuda), [qp], [maxval],
+                                        weight=torch.as_tensor(weight, device=cuda), **kw)
+        assert dev.LAUNCHES[name] > before
+        assert got == want
+        _same(rec_k, rec_p)
+        if name == "wavefront_encode32":
+            assert hevc.parse_planes32(got)["m32"][0, 1 * 8 + 6] == 33
 
 
 @pytest.mark.parametrize("motion", [False, True])
@@ -506,7 +599,7 @@ def test_wavefront_encode16_kernel(cuda, has_ref):
             torch.full((PT,), 2047, dtype=torch.int32, device=cuda)]
     before = dev.LAUNCHES["wavefront_encode16"]
     got = hevc.wavefront_encode16(*args, nby, nbx)
-    assert dev.LAUNCHES["wavefront_encode16"] == before + 2 * (nby - 1) + nbx
+    assert dev.LAUNCHES["wavefront_encode16"] == before + 1   # one launch a call
     want = hevc.wavefront_encode16_plain(*args, nby, nbx)
     for a, b in zip(got, want):
         _same(a, b)
@@ -662,13 +755,15 @@ def test_deblock_kernel(cuda, P):
 
 def test_attr_image_kernel(cuda):
     """Paint (with duplicate (pixel, layer) rows: the highest row wins on
-    both), fill, group dilation and gather."""
+    both), fill, group dilation and gather; each entry counts its own
+    launches."""
     rng = np.random.default_rng(70)
     H, W, n = 96, 128, 9000
     flat = rng.integers(0, H * W, n)
     pix = torch.as_tensor(np.stack([flat % W, flat // W], 1).astype(np.int32), device=cuda)
     layer = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32), device=cuda)
     col = torch.as_tensor(rng.integers(-10, 266, (n, 3)).astype(np.int32), device=cuda)
+    before = {k: dev.LAUNCHES[k] for k in ("attr_paint", "attr_group_dilate", "attr_gather")}
     got = pipeline.paint_attribute(pix, layer, col, H, W)
     _same(got, pipeline.paint_attribute_plain(pix, layer, col, H, W))
     occ = torch.as_tensor((rng.random((H, W)) < 0.5).astype(np.uint8), device=cuda)
@@ -680,6 +775,62 @@ def test_attr_image_kernel(cuda):
     a0, a1 = d_k[0].to(torch.uint8), d_k[1].to(torch.uint8)
     _same(pipeline.gather_decoded_colors(pix, layer, a0, a1),
           pipeline.gather_decoded_colors_plain(pix, layer, a0, a1))
+    assert {k: dev.LAUNCHES[k] - v for k, v in before.items()} == {
+        "attr_paint": 2, "attr_group_dilate": 1, "attr_gather": 1}
+
+
+@pytest.mark.parametrize("H,W", [(96, 128), (36, 51)])   # rows on and off 16 bytes
+def test_attr_entries_duplicates_kernel(cuda, H, W):
+    """Kernel P's five entries on duplicate-heavy pixels (~8 rows a pixel),
+    tags outside 0..2 (-1, 3: never paint; gather reads image 0), pixels
+    outside the image (dropped by paint, clamped by gather) and colors
+    outside 0..255, against the plain versions."""
+    rng = np.random.default_rng(72 + H)
+    n = H * W
+    flat = rng.integers(0, H * W // 8, n)
+    x = flat % W + rng.integers(-2, 3, n) * W * (rng.random(n) < 0.1)
+    y = flat // W - H * (rng.random(n) < 0.05)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    pix = t(np.stack([x, y], 1).astype(np.int32))
+    layer = t(rng.integers(-1, 4, n).astype(np.int32))
+    col = t(rng.integers(-10, 266, (n, 3)).astype(np.int32))
+    val = t(rng.integers(0, 65536, n).astype(np.int32))
+    planes = pipeline.paint_attribute(pix, layer, col, H, W)
+    _same(planes, pipeline.paint_attribute_plain(pix, layer, col, H, W))
+    occ = t((rng.random((H, W)) < 0.5).astype(np.uint8))
+    filled = t(rng.integers(0, 256, (2, 3, H, W)).astype(np.int32))
+    for a, b in zip(pipeline.group_dilate(filled, occ), pipeline.group_dilate_plain(filled, occ)):
+        _same(a, b)
+    a0, a1 = (t(rng.integers(0, 256, (H, W, 3)).astype(np.uint8)) for _ in range(2))
+    _same(pipeline.gather_decoded_colors(pix, layer, a0, a1),
+          pipeline.gather_decoded_colors_plain(pix, layer, a0, a1))
+    sc = pipeline.paint_scalar(pix, layer, val, H, W)
+    _same(sc, pipeline.paint_scalar_plain(pix, layer, val, H, W))
+    i0, i1 = sc[0].contiguous(), sc[1].contiguous()
+    _same(pipeline.gather_decoded_scalar(pix, layer, i0, i1),
+          pipeline.gather_decoded_scalar_plain(pix, layer, i0, i1))
+
+
+def test_attr_entries_refuse_ragged_planes_kernel(cuda):
+    """Kernel P's pixel passes take whole 16-byte words: a plane whose pixel
+    count is not a multiple of 4, or a plane stack off 16 bytes, is refused
+    by the wrapper before any launch."""
+    n = 64
+    pix = torch.zeros((n, 2), dtype=torch.int32, device=cuda)
+    layer = torch.zeros(n, dtype=torch.int32, device=cuda)
+    col = torch.zeros((n, 3), dtype=torch.int32, device=cuda)
+    before = dict(dev.LAUNCHES)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pipeline.paint_attribute(pix, layer, col, 37, 51)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pipeline.paint_scalar(pix, layer, col[:, 0].contiguous(), 37, 51)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pipeline.group_dilate(torch.zeros((2, 3, 37, 51), dtype=torch.int32, device=cuda),
+                              torch.zeros((37, 51), dtype=torch.uint8, device=cuda))
+    off = torch.zeros(2 * 3 * 8 * 8 + 1, dtype=torch.int32, device=cuda)[1:].view(2, 3, 8, 8)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pipeline.group_dilate(off, torch.zeros((8, 8), dtype=torch.uint8, device=cuda))
+    assert dict(dev.LAUNCHES) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])

@@ -81,16 +81,17 @@ KERNELS: Dict[str, list] = {
 # entries of a kernel's library counted apart from it: the unpacked-table
 # k-NN of kernel E (grids above 10 bits), kernel C with EOM layers and with
 # PLR layers, kernel R's float32 D1 sum, kernel V's RDO, kernel L's push over
-# a stack, kernel W's dilation and its pull/relaxation, kernel P's scalar
-# paint and gather, kernel X's viewpoint orientation (its flood counts as
-# "orient"), kernel F's high-gradient aux, the frame-batched entries of
+# a stack, kernel W's dilation and its pull/relaxation, kernel P's five
+# entries (paint, group dilation, gather, scalar paint and gather; nothing
+# counts as "attr_image"), kernel X's viewpoint orientation (its flood
+# counts as "orient"), kernel F's high-gradient aux, the frame-batched entries of
 # kernels E and M (the level-batched GOF path), and the two-level (16/8)
 # wavefront encode and decode of kernels I and A (planes above 10 bits)
 ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "metrics_d2_f32",
-           "plr_rdo", "push_levels", "bg_dilate", "bg_relax", "attr_paint_scalar",
-           "attr_gather_scalar", "orient_viewpoint", "high_gradient_aux", "grid_knn_batch",
-           "recolor_exact_batch", "recolor_blend_batch", "wavefront_encode16",
-           "wavefront_decode16")
+           "plr_rdo", "push_levels", "bg_dilate", "bg_relax", "attr_paint", "attr_group_dilate",
+           "attr_gather", "attr_paint_scalar", "attr_gather_scalar", "orient_viewpoint",
+           "high_gradient_aux", "grid_knn_batch", "recolor_exact_batch", "recolor_blend_batch",
+           "wavefront_encode16", "wavefront_decode16")
 LAUNCHES: Dict[str, int] = {k: 0 for k in (*KERNELS, *ENTRIES)}
 # ptxas resource lines of each build (registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}
@@ -123,7 +124,11 @@ def count_launch(name: str, n: int = 1) -> None:
 
 
 def stream_handle() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    """The current CUDA stream of the current device, as
+    torch.cuda.current_stream() names it, read by PyTorch's raw getter: the
+    wrappers call this once a launch, and current_stream() builds a Stream
+    object each call, which costs more host time than a short kernel."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

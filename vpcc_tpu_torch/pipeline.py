@@ -21,6 +21,7 @@ counterpart: the tensors hold exactly the valid rows, in the same order.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -203,22 +204,39 @@ def gather_decoded_colors_plain(pix, layer, attr0, attr1):
     return torch.where((layer == 1)[:, None], c1, c0)
 
 
-def _attr_fn(name: str, args):
+@functools.lru_cache(maxsize=None)
+def _attr_fn(name: str, args: tuple):
     fn = getattr(dev.load_kernel("attr_image"), name)
-    fn.argtypes, fn.restype = args, ctypes.c_int
+    fn.argtypes, fn.restype = list(args), ctypes.c_int
     return fn
 
 
-_PAINT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
-    ctypes.POINTER(ctypes.c_int)]
-_DILATE_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-_GATHER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+def _check_pix(pix: torch.Tensor) -> None:
+    """The kernels load a point's pixel pair as one 8-byte word."""
+    if pix.data_ptr() % 8:
+        raise ValueError("pix: expected an 8-byte aligned (N, 2) int32 tensor")
+
+
+def _check_quads(name: str, h: int, w: int, *planes: torch.Tensor) -> None:
+    """The pixel passes move four pixels a thread in 16-byte words: H * W a
+    multiple of 4 (the atlas is whole occupancy blocks, so it is whenever
+    occupancyResolution >= 2) and each given plane stack on 16 bytes."""
+    if (h * w) % 4 or any(t.data_ptr() % 16 for t in planes):
+        raise ValueError(f"{name}: expected H * W a multiple of 4 and planes on 16 bytes, "
+                         f"got {h}x{w}")
+
+
+_PAINT_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 3 + (
+    ctypes.POINTER(ctypes.c_int),)
+_DILATE_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 3
+_GATHER_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2
 
 
 def paint_attribute(pix, layer, col, h: int, w: int) -> torch.Tensor:
     """Kernel P, paint: `paint_attribute_plain` on the card.  The winning
     row of each (pixel, layer) is the highest, by an atomicMax of the row
-    index; a second pass gathers the colors and the layer-1 fallback."""
+    index into winners the entry sets to -1; a second pass, four pixels a
+    thread, gathers the colors and the layer-1 fallback."""
     if col.device.type == "cpu":
         return paint_attribute_plain(pix, layer, col, h, w)
     d = col.device
@@ -229,20 +247,22 @@ def paint_attribute(pix, layer, col, h: int, w: int) -> torch.Tensor:
     if pix.shape != (n, 2) or layer.shape != (n,) or col.shape != (n, 3):
         raise ValueError(f"paint_attribute: pix {tuple(pix.shape)}, layer "
                          f"{tuple(layer.shape)}, col {tuple(col.shape)}")
-    win = torch.full((2, h, w), -1, dtype=torch.int32, device=d)
-    out = torch.empty((2, 3, h, w), dtype=torch.int32, device=d)
+    _check_pix(pix)
+    _check_quads("paint_attribute", h, w)
+    buf = torch.empty((8, h, w), dtype=torch.int32, device=d)   # winners, then the planes
+    win, out = buf[:2], buf[2:].view(2, 3, h, w)
     launched = ctypes.c_int(0)
     rc = _attr_fn("attr_paint", _PAINT_ARGS)(
         dev.ptr(pix), dev.ptr(layer), dev.ptr(col), n, h, w, dev.ptr(win), dev.ptr(out),
         dev.stream_handle(), ctypes.byref(launched))
-    dev.count_launch("attr_image", launched.value)
-    dev.check_launch("attr_image", rc)
+    dev.count_launch("attr_paint", launched.value)
+    dev.check_launch("attr_paint", rc)
     return out
 
 
 def group_dilate(planes: torch.Tensor, occ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel P, group dilation: `group_dilate_plain` on the card, one
-    thread per pixel writing both interleaved images."""
+    """Kernel P, group dilation: `group_dilate_plain` on the card, four
+    pixels a thread writing both interleaved images."""
     if planes.device.type == "cpu":
         return group_dilate_plain(planes, occ)
     d = planes.device
@@ -251,12 +271,15 @@ def group_dilate(planes: torch.Tensor, occ: torch.Tensor) -> Tuple[torch.Tensor,
     _, _, h, w = planes.shape
     if planes.shape[:2] != (2, 3) or occ.shape != (h, w):
         raise ValueError(f"group_dilate: planes {tuple(planes.shape)}, occ {tuple(occ.shape)}")
+    _check_quads("group_dilate", h, w, planes)
+    if occ.data_ptr() % 4:
+        raise ValueError("group_dilate: expected occ on 4 bytes")
     img0 = torch.empty((h, w, 3), dtype=torch.int32, device=d)
     img1 = torch.empty_like(img0)
     rc = _attr_fn("attr_group_dilate", _DILATE_ARGS)(
         dev.ptr(planes), dev.ptr(occ), h, w, dev.ptr(img0), dev.ptr(img1), dev.stream_handle())
-    dev.count_launch("attr_image", 1 if h * w else 0)
-    dev.check_launch("attr_image", rc)
+    dev.count_launch("attr_group_dilate", 1 if h * w else 0)
+    dev.check_launch("attr_group_dilate", rc)
     return img0, img1
 
 
@@ -276,12 +299,13 @@ def gather_decoded_colors(pix, layer, attr0, attr1):
             or attr0.shape[2] != 3:
         raise ValueError(f"gather_decoded_colors: pix {tuple(pix.shape)}, layer "
                          f"{tuple(layer.shape)}, images {tuple(attr0.shape)} / {tuple(attr1.shape)}")
+    _check_pix(pix)
     out = torch.empty((n, 3), dtype=torch.int32, device=d)
     rc = _attr_fn("attr_gather", _GATHER_ARGS)(
         dev.ptr(pix), dev.ptr(layer), dev.ptr(attr0), dev.ptr(attr1), n, h, w,
         dev.ptr(out), dev.stream_handle())
-    dev.count_launch("attr_image", 1 if n else 0)
-    dev.check_launch("attr_image", rc)
+    dev.count_launch("attr_gather", 1 if n else 0)
+    dev.check_launch("attr_gather", rc)
     return out
 
 
@@ -322,10 +346,6 @@ def gather_decoded_scalar_plain(pix, layer, img0, img1) -> torch.Tensor:
     return torch.where(layer == 1, img1[y, x], img0[y, x]).to(torch.int32)
 
 
-_PAINT_SCALAR_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
-    ctypes.POINTER(ctypes.c_int)]
-
-
 def paint_scalar(pix, layer, val, h: int, w: int) -> torch.Tensor:
     """Kernel P, scalar paint: `paint_scalar_plain` on the card (paint's
     winner pass, then a pixel pass that copies the winners' samples
@@ -340,10 +360,12 @@ def paint_scalar(pix, layer, val, h: int, w: int) -> torch.Tensor:
     if pix.shape != (n, 2) or layer.shape != (n,):
         raise ValueError(f"paint_scalar: pix {tuple(pix.shape)}, layer {tuple(layer.shape)}, "
                          f"val {tuple(val.shape)}")
-    win = torch.full((2, h, w), -1, dtype=torch.int32, device=d)
-    out = torch.empty((2, h, w), dtype=torch.int32, device=d)
+    _check_pix(pix)
+    _check_quads("paint_scalar", h, w)
+    buf = torch.empty((4, h, w), dtype=torch.int32, device=d)   # winners, then the planes
+    win, out = buf[:2], buf[2:]
     launched = ctypes.c_int(0)
-    rc = _attr_fn("attr_paint_scalar", _PAINT_SCALAR_ARGS)(
+    rc = _attr_fn("attr_paint_scalar", _PAINT_ARGS)(
         dev.ptr(pix), dev.ptr(layer), dev.ptr(val), n, h, w, dev.ptr(win), dev.ptr(out),
         dev.stream_handle(), ctypes.byref(launched))
     dev.count_launch("attr_paint_scalar", launched.value)
@@ -366,6 +388,7 @@ def gather_decoded_scalar(pix, layer, img0, img1) -> torch.Tensor:
     if pix.shape != (n, 2) or layer.shape != (n,) or img1.shape != img0.shape:
         raise ValueError(f"gather_decoded_scalar: pix {tuple(pix.shape)}, layer "
                          f"{tuple(layer.shape)}, images {tuple(img0.shape)} / {tuple(img1.shape)}")
+    _check_pix(pix)
     out = torch.empty(n, dtype=torch.int32, device=d)
     rc = _attr_fn("attr_gather_scalar", _GATHER_ARGS)(
         dev.ptr(pix), dev.ptr(layer), dev.ptr(img0), dev.ptr(img1), n, h, w, dev.ptr(out),

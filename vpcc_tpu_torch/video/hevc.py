@@ -31,7 +31,7 @@ Stages of `encode_planes`:
    then kernel B builds the motion-compensated reference;
 3. device, kernel I `wavefront_encode32` (two-level: `wavefront_encode16`):
    the RD quadtree decisions, the syntax and the reconstruction, one launch
-   per wavefront diagonal;
+   a call (CUs in wavefront order behind per-CU ready flags);
 4. device, kernel O `deblock` (attribute planes), then kernel K
    `sao_search` + `sao_apply`: per-region SAO parameters (32-px regions;
    two-level: 16-px) and the final reconstruction;
@@ -1569,15 +1569,17 @@ def wavefront_encode32_plain(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam,
             rec.to(torch.int32))
 
 
-_WE_ARGS = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 3
+_WE_ARGS = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 3
             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def wavefront_encode32(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam, pen,
                        dq, maxvals, nby: int, nbx: int):
-    """Kernel I (csrc/wavefront_encode32.cu): one launch per wavefront
-    diagonal, one block per (tile plane, 32x32 CU) on it.  Arguments and
-    result as `wavefront_encode32_plain`, which runs on the CPU."""
+    """Kernel I (csrc/wavefront_encode32.cu): one launch a call, a block per
+    (tile plane, 32x32 CU), CUs taken in wavefront order, each waiting on
+    its neighbours' ready flags (zeroed here with the ticket counter).
+    Arguments and result as `wavefront_encode32_plain`, which runs on the
+    CPU."""
     if src.device.type == "cpu":
         return wavefront_encode32_plain(src, ref, w32, w16, w8, mvc, qstep, inv_q,
                                         lam, pen, dq, maxvals, nby, nbx)
@@ -1608,6 +1610,7 @@ def wavefront_encode32(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam, pen,
     modes = torch.empty((PT, nb, 4, 4), dtype=torch.int8, device=d)
     c16 = torch.empty((PT, nb, 4, CC), dtype=torch.int16, device=d)
     rec = torch.empty_like(src)
+    flags = torch.zeros(PT * nb + 1, dtype=torch.int32, device=d)
     tabs = _tables(d)
     fn = dev.load_kernel("wavefront_encode32").wavefront_encode32
     fn.argtypes, fn.restype = _WE_ARGS, ctypes.c_int
@@ -1616,7 +1619,7 @@ def wavefront_encode32(src, ref, w32, w16, w8, mvc, qstep, inv_q, lam, pen,
             dev.ptr(mvc), dev.ptr(qstep), dev.ptr(inv_q), dev.ptr(lam), dev.ptr(pen),
             dev.ptr(dq), dev.ptr(maxvals), dev.ptr(tabs["blob"]), dev.ptr(tabs["fblob"]),
             dev.ptr(s32), dev.ptr(m32), dev.ptr(c32), dev.ptr(s16), dev.ptr(modes),
-            dev.ptr(c16), dev.ptr(rec), PT, nby, nbx, dev.stream_handle(),
+            dev.ptr(c16), dev.ptr(rec), dev.ptr(flags), PT, nby, nbx, dev.stream_handle(),
             ctypes.byref(launched))
     dev.count_launch("wavefront_encode32", launched.value)
     dev.check_launch("wavefront_encode32", rc)
@@ -1683,16 +1686,17 @@ def wavefront_encode16_plain(src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq,
             coeff_o[:, :nb].to(torch.int16), _unblocks(blk[:, :nb], nby, nbx, CU).to(torch.int32))
 
 
-_WE16_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 3
+_WE16_ARGS = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
               + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def wavefront_encode16(src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq, maxvals,
                        nby: int, nbx: int):
     """Kernel I's two-level entry (csrc/wavefront_encode32.cu
-    `wavefront_encode16`): one launch per wavefront diagonal of 16x16 CUs,
-    one block per (tile plane, CU) on it.  Arguments and result as
-    `wavefront_encode16_plain`, which runs on the CPU."""
+    `wavefront_encode16`): one launch a call, a block per (tile plane, 16x16
+    CU), CUs taken in wavefront order behind their neighbours' ready flags.
+    Arguments and result as `wavefront_encode16_plain`, which runs on the
+    CPU."""
     if src.device.type == "cpu":
         return wavefront_encode16_plain(src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq,
                                         maxvals, nby, nbx)
@@ -1719,6 +1723,7 @@ def wavefront_encode16(src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq, maxva
     modes = torch.empty((PT, nb, 4), dtype=torch.int8, device=d)
     coeffs = torch.empty((PT, nb, CC), dtype=torch.int16, device=d)
     rec = torch.empty_like(src)
+    flags = torch.zeros(PT * nb + 1, dtype=torch.int32, device=d)
     tabs = _tables(d)
     fn = dev.load_kernel("wavefront_encode32").wavefront_encode16
     fn.argtypes, fn.restype = _WE16_ARGS, ctypes.c_int
@@ -1726,7 +1731,8 @@ def wavefront_encode16(src, ref, w16, w8, mvc, qstep, inv_q, lam, pen, dq, maxva
     rc = fn(dev.ptr(src), dev.ptr(ref), dev.ptr(w16), dev.ptr(w8), dev.ptr(mvc),
             dev.ptr(qstep), dev.ptr(inv_q), dev.ptr(lam), dev.ptr(pen), dev.ptr(dq),
             dev.ptr(maxvals), dev.ptr(tabs["blob"]), dev.ptr(tabs["fblob"]), dev.ptr(split),
-            dev.ptr(modes), dev.ptr(coeffs), dev.ptr(rec), PT, nby, nbx, dev.stream_handle(),
+            dev.ptr(modes), dev.ptr(coeffs), dev.ptr(rec), dev.ptr(flags), PT, nby, nbx,
+            dev.stream_handle(),
             ctypes.byref(launched))
     dev.count_launch("wavefront_encode16", launched.value)
     dev.check_launch("wavefront_encode16", rc)
