@@ -279,6 +279,7 @@ of JAX and nothing of the vpcc_tpu package.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import inspect
 import json
@@ -337,6 +338,11 @@ KERNEL_INFO = {
                     "vpcc_tpu/ops/smoothing.py:51"),
     "grid_knn": ("vpcc_tpu_torch/csrc/grid_knn.cu",
                  "vpcc_tpu/ops/neighbors.py:162"),
+    # kernel E's other main-path calls (the row above: segmentation, k=16)
+    "grid_knn.recolor_k8": ("vpcc_tpu_torch/csrc/grid_knn.cu", "vpcc_tpu/ops/neighbors.py:162"),
+    "grid_knn.nearest_k1": ("vpcc_tpu_torch/csrc/grid_knn.cu", "vpcc_tpu/ops/neighbors.py:215"),
+    "grid_knn.presmooth_k64": ("vpcc_tpu_torch/csrc/grid_knn.cu",
+                               "vpcc_tpu/ops/neighbors.py:162"),
     "segment": ("vpcc_tpu_torch/csrc/segment.cu",
                 "vpcc_tpu/ops/normals.py:72"),
     "cc_labels": ("vpcc_tpu_torch/csrc/cc_labels.cu",
@@ -400,6 +406,13 @@ FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
 GEOMETRY_KERNELS = ("wavefront_encode32", "motion_search", "sao", "push_pull")
 ATTR_ENTRIES = ("attr_paint", "attr_group_dilate", "attr_gather")
 ENCODE_KERNELS = ("recolor", "presmooth", "deblock", *ATTR_ENTRIES, "color_convert")
+# kernel E's calls on the encode path by k -> their rows (k=16: the front
+# end's segmentation, the "grid_knn" row of the front-end phase; the
+# JAX-partition-driven warm-up encode skips it, the main path's
+# `segment_dispatch` runs it)
+E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
+           64: "grid_knn.presmooth_k64"}
+E_ENCODE_ROWS = tuple(v for k, v in E_CALLS.items() if k != 16)
 METRICS_KERNELS = ("metrics", "metrics_d2_f32")
 # rows of the vox11 phase -> the launch counter each reads on that path
 VOX11_ROWS = {"grid_knn_xyz": "grid_knn_xyz", "cc_round_voxel": "cc_labels",
@@ -498,11 +511,16 @@ def capture_key(name, args):
 
 class Capture:
     """Keeps one call of each kernel wrapper during one decode (see
-    `capture_key`)."""
+    `capture_key`), and counts the calls whose first tensor is not empty.
+    `rename` maps a name to a function of (args, kw) that names the call
+    (one kept call per name: kernel E per k); `keep=False` only counts."""
 
-    def __init__(self, modules):
+    def __init__(self, modules, rename=None, keep=True):
         self.modules = modules   # name -> (module, attr)
+        self.rename = rename or {}
+        self.keep = keep
         self.calls = {}
+        self.counts = collections.Counter()
         self.saved = {}
 
     def __enter__(self):
@@ -511,11 +529,16 @@ class Capture:
             self.saved[name] = fn
 
             def spy(*args, _name=name, _fn=fn, **kw):
-                key = capture_key(_name, args)
-                if _name not in self.calls or key > self.calls[_name][0]:
-                    self.calls[_name] = (key, [
-                        a.clone() if torch.is_tensor(a) else a for a in args
-                    ], dict(kw))
+                name = self.rename[_name](args, kw) if _name in self.rename else _name
+                first = next((a for a in args if torch.is_tensor(a)), None)
+                if first is None or first.numel():
+                    self.counts[name] += 1
+                if self.keep:
+                    key = capture_key(name, args)
+                    if name not in self.calls or key > self.calls[name][0]:
+                        self.calls[name] = (key, [
+                            a.clone() if torch.is_tensor(a) else a for a in args
+                        ], dict(kw))
                 return _fn(*args, **kw)
 
             setattr(mod, attr, spy)
@@ -957,6 +980,7 @@ def decode_phase(dev):
         Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     print(f"cold decode: {time.perf_counter() - t0:.2f}s for {n_frames} frames")
+    print_calls(cap.counts, "the decode path", n_frames)
     missing = sorted((set(wrappers) | set(color_wrappers(hevc))) - set(cap.calls))
     if missing:
         raise AssertionError(f"kernels never called on the decode path: {missing}")
@@ -995,10 +1019,12 @@ def decode_phase(dev):
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frames = Decoder(device="cuda").decode(stream)
-    torch.cuda.synchronize()
+    with Capture({"wavefront_decode32": wrappers["wavefront_decode32"]}, keep=False) as calls:
+        frames = Decoder(device="cuda").decode(stream)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
+    one_a_call("wavefront_decode32", launches, calls.counts, "the decode path")
     if len(frames) != n_frames:
         raise AssertionError(f"decoded {len(frames)} frames, expected {n_frames}")
     for i, (pc, ref) in enumerate(zip(frames, digests["frames"])):
@@ -1019,6 +1045,22 @@ def decode_phase(dev):
     if idle:
         raise AssertionError(f"kernels not launched on the decode path: {idle}")
     return rows, launches, frames
+
+
+def print_calls(counts, where: str, n: int) -> None:
+    """Calls a frame of each captured wrapper on a path (the unit whose time
+    a row gives; launches a frame are printed apart)."""
+    print(f"calls a frame on {where}: "
+          + ", ".join(f"{k} {v / n:g}" for k, v in sorted(counts.items())))
+
+
+def one_a_call(name, launches, counts, where: str) -> None:
+    """Kernel A's entries launch once a call: the launches counted on a
+    path equal the calls of the wrapper on non-empty stacks."""
+    print(f"{name} on {where}: {launches.get(name, 0)} launches for {counts[name]} calls")
+    if launches.get(name, 0) != counts[name]:
+        raise AssertionError(f"{name}: {launches.get(name, 0)} launches for {counts[name]} "
+                             f"calls on {where}, expected one a call")
 
 
 def front_digests(fr):
@@ -1093,6 +1135,7 @@ def front_phase(dev):
         Encoder(cfg, device="cuda").encode_gof_front(frames)
         torch.cuda.synchronize()
     print(f"cold front end: {time.perf_counter() - t0:.2f}s for {n} frames")
+    print_calls(cap.counts, "the front-end path", n)
     missing = sorted(set(wrappers) - set(cap.calls))
     if missing:
         raise AssertionError(f"kernels never called on the front end: {missing}")
@@ -1147,6 +1190,8 @@ def front_phase(dev):
                                      f"(max abs err {err})")
             detail = f"exact (max abs err {err})"
             b_out = out_k
+            if name == "grid_knn":
+                detail += f", device {graph_ms(kern):.4f} ms a call (CUDA graph replay), k={k}"
         (k1, k2), (p1, p2) = time_turns(kern, plain)
         b_ms, b_by = bounds(name, args, b_out)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
@@ -1307,6 +1352,7 @@ def geometry_phase(dev, cfg, frames, segs):
         Encoder(cfg, device="cuda").encode_gof_geometry(frames, segs=segs)
         torch.cuda.synchronize()
     print(f"cold geometry encode: {time.perf_counter() - t0:.2f}s for {n} frames")
+    print_calls(cap.counts, "the geometry path", n)
     missing = sorted(set(wrappers) - set(cap.calls))
     if missing:
         raise AssertionError(f"kernels never called on the geometry path: {missing}")
@@ -1521,6 +1567,8 @@ def encode_phase(dev, cfg, frames, segs):
         "gather": (pipeline, "gather_decoded_colors"),
         **color_wrappers(hevc),
     }
+    e_wrap = {"grid_knn": (neighbors, "knn")}
+    e_name = {"grid_knn": lambda a, kw: E_CALLS.get(kw.get("k"), f"grid_knn.k{kw.get('k')}")}
     planes = []
     real_attr = codecs.AttributeSubstreamEncoder.encode
 
@@ -1534,7 +1582,7 @@ def encode_phase(dev, cfg, frames, segs):
     codecs.AttributeSubstreamEncoder.encode = attr_spy
     t0 = time.perf_counter()
     try:
-        with Capture(wrappers) as cap:
+        with Capture(wrappers) as cap, Capture(e_wrap, rename=e_name) as e_cap:
             enc0 = Encoder(cfg, device="cuda")
             stream0, recon0 = enc0.encode_gof(frames, segs=segs)
             torch.cuda.synchronize()
@@ -1543,7 +1591,8 @@ def encode_phase(dev, cfg, frames, segs):
     cold = time.perf_counter() - t0
     print(f"cold encode: {cold:.2f}s for {n} frames = {cold / n:.4f} s/frame; stream "
           f"{len(stream0)} bytes")
-    missing = sorted(set(wrappers) - set(cap.calls))
+    print_calls(cap.counts + e_cap.counts, "the encode path", n)
+    missing = sorted((set(wrappers) | set(E_ENCODE_ROWS)) - set(cap.calls) - set(e_cap.calls))
     if missing:
         raise AssertionError(f"kernels never called on the encode path: {missing}")
 
@@ -1565,6 +1614,12 @@ def encode_phase(dev, cfg, frames, segs):
         fn = ATTR_FUNCS[kname]
         checks[kname] = (lambda f=getattr(pipeline, fn), a=args: f(*a),
                          lambda f=getattr(pipeline, fn + "_plain"), a=args: f(*a), args)
+    # kernel E's recolor (k=8, k=1) and pre-smoothing (k=64) calls
+    for ename in E_ENCODE_ROWS:
+        _, (grid, q), kw = e_cap.calls[ename]
+        checks[ename] = (lambda g=grid, q=q, kw=kw: neighbors.knn(g, q, **kw),
+                         lambda g=grid, q=q, kw=kw: neighbors.knn_plain(g, q, **kw),
+                         (grid, q, 3 * kw["bucket"]))
     libs = dict(zip(("attr_paint", "attr_gather"), p_library_ms(
         "attr", p_args, c_args, pipeline.gather_decoded_colors_plain, clamp=True)))
     rows = {}
@@ -1581,13 +1636,16 @@ def encode_phase(dev, cfg, frames, segs):
         lib = None
         if name == "recolor":
             shapes = [tuple(a.shape) for a in rc_args[:3]]
+        elif name in E_ENCODE_ROWS:
+            shapes = [tuple(args[1].shape), f"k={out_k[0].shape[1]}", f"win={args[2]}"]
+            print(f"{name}: device {graph_ms(kern):.4f} ms a call (CUDA graph replay)")
         elif name in ATTR_ENTRIES:
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
             lib = libs.get(name)
             print(f"{name}: device {graph_ms(kern):.4f} ms a call (CUDA graph replay)")
         else:
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-        b_ms, b_by = bounds(name, args, out_k)
+        b_ms, b_by = bounds("grid_knn" if name in E_ENCODE_ROWS else name, args, out_k)
         lib_txt = "" if lib is None else f", library {lib:.4f} ms"
         print(f"{name}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
               f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}){lib_txt}; "
@@ -1651,12 +1709,18 @@ def encode_phase(dev, cfg, frames, segs):
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    segs1 = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
-        ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
-    stream, recon = enc.encode_gof(frames, segs=segs1)
-    torch.cuda.synchronize()
+    with Capture(e_wrap, rename=e_name, keep=False) as e_calls:
+        segs1 = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
+            ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
+        stream, recon = enc.encode_gof(frames, segs=segs1)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
+    print(f"kernel E's calls on the encode path by k: {dict(e_calls.counts)}")
+    if sum(e_calls.counts.values()) != launches["grid_knn"]:
+        raise AssertionError(f"grid_knn: {launches['grid_knn']} launches for "
+                             f"{sum(e_calls.counts.values())} calls")
+    launches.update({name: e_calls.counts[name] for name in E_ENCODE_ROWS})
     inexact = padding.inexact_blocks()
     print(f"push-pull blocks reaching 2^24 where XLA's order is not established: {inexact}")
     if inexact:
@@ -1672,9 +1736,13 @@ def encode_phase(dev, cfg, frames, segs):
         raise AssertionError(f"kernels not launched on the encode path: {idle}")
     if stream != stream0:
         raise AssertionError("the warm encode's stream differs from the cold one's")
-    profiling.print_trace(*prof.trace_p_frame(enc, frames, enc.last_encoded, segs1),
-                          "one warm P-frame of the whole encoder (frame 1, JAX partitions)",
-                          top=16)
+    trace = prof.trace_p_frame(enc, frames, enc.last_encoded, segs1)
+    profiling.print_trace(*trace, "one warm P-frame of the whole encoder (frame 1, JAX "
+                          "partitions)", top=16)
+    e_items = [v for k, v in trace[2].items()
+               if "grid_knn_kernel" in k or "grid_nearest_kernel" in k]
+    print(f"kernel E in the P-frame trace: {sum(us for us, _ in e_items) / 1e3:.3f} ms in "
+          f"{sum(c for _, c in e_items)} launches")
 
     # the stream decodes to the encoder's reconstruction; RD against JAX
     dec = Decoder(device="cuda").decode(stream)
@@ -1936,6 +2004,7 @@ def vox11_phase(dev):
         enc.encode_gof(frames, segs=driven_segs(enc))
         torch.cuda.synchronize()
     print(f"vox11 cold encode: {(time.perf_counter() - t0) / n:.3f} s/frame")
+    print_calls(cap.counts, "the vox11 path", n)
     missing = sorted(set(wrappers) - set(cap.calls))
     if missing:
         raise AssertionError(f"vox11: entries never called: {missing}")
@@ -2370,17 +2439,24 @@ def unit_bytes(stream: bytes) -> dict:
 def decode_checked(dev, stream, recon, what):
     """Decodes `stream` with the port's decoder, counters at 0 before, and
     requires every frame to equal `recon`.  Returns (frames, seconds per
-    frame, the decode path's launches)."""
+    frame, the decode path's launches).  Kernel A's entries must launch
+    once a call."""
     from vpcc_tpu_torch.decoder import Decoder
+    from vpcc_tpu_torch.video import hevc
 
+    entries = ("wavefront_decode32", "wavefront_decode16")
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dec = Decoder(device="cuda").decode(stream)
-    torch.cuda.synchronize()
+    with Capture({k: (hevc, k) for k in entries}, keep=False) as calls:
+        dec = Decoder(device="cuda").decode(stream)
+        torch.cuda.synchronize()
     t_dec = (time.perf_counter() - t0) / len(recon)
     launches = {k: v for k, v in dev.LAUNCHES.items() if v}
     print(f"{what} launches on the decode path: {launches}")
+    for name in entries:
+        if calls.counts[name] or launches.get(name):
+            one_a_call(name, launches, calls.counts, f"the {what} decode")
     for i, (a, b) in enumerate(zip(dec, recon)):
         if a.point_count != b.point_count or frame_digest(a.positions, a.colors) != \
                 frame_digest(b.positions, b.colors):
@@ -3538,7 +3614,7 @@ def main() -> int:
     launches = {**{k: launches[k] for k in DECODE_KERNELS},
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
-                **{k: enc_launches[k] for k in ENCODE_KERNELS},
+                **{k: enc_launches[k] for k in ENCODE_KERNELS + E_ENCODE_ROWS},
                 **{k: met_launches[k] for k in METRICS_KERNELS},
                 **{k: vox_launches[c] for k, c in VOX11_ROWS.items()},
                 **{k: ll_launches[k] for k in LOSSLESS_KERNELS},

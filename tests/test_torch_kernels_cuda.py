@@ -40,11 +40,11 @@ def _same(a, b):
 def test_wavefront_decode32_kernel(cuda, maxval, qp, big, nbx):
     """Random syntax (every mode, mixed splits); `big` draws levels up to
     the int16 limit so the inverse transform's int32 arithmetic wraps.  A
-    one-CU-wide plane leaves every other diagonal empty: no launch there."""
+    one-CU-wide plane leaves every other diagonal empty.  One launch a
+    call."""
     rng = np.random.default_rng(qp)
     PT, nby = 3, 3
     nb = nby * nbx
-    diagonals = {2 * by + bx for by in range(nby) for bx in range(nbx)}
     lim = 32767 if big else 40
     sparse = lambda shape: (rng.integers(-lim, lim + 1, shape)
                             * (rng.random(shape) < 0.1)).astype(np.int16)
@@ -62,8 +62,60 @@ def test_wavefront_decode32_kernel(cuda, maxval, qp, big, nbx):
     t = [torch.as_tensor(a, device=cuda) for a in args]
     before = dev.LAUNCHES["wavefront_decode32"]
     got = hevc.wavefront_decode32(*t, nby, nbx)
-    assert dev.LAUNCHES["wavefront_decode32"] == before + len(diagonals)
+    assert dev.LAUNCHES["wavefront_decode32"] == before + 1
     _same(got, hevc.wavefront_decode32_plain(*t, nby, nbx))
+
+
+def _decode_args(rng, cuda, PT, nby, nbx, two_level, maxval, qp, zero_cus=0.0,
+                 inter_only=False):
+    """Kernel A's arguments on (PT, nby*cu, nbx*cu) planes: random syntax
+    (mixed splits, every mode, or only the inter mode), levels up to 200 in
+    a tenth of the positions, and a share `zero_cus` of the CUs with no
+    level at all."""
+    nb = nby * nbx
+    cu = 16 if two_level else 32
+    mode = lambda shape: (np.full(shape, tab.MODE_INTER, np.int8) if inter_only
+                          else rng.integers(0, 36, shape).astype(np.int8))
+    zero = rng.random((PT, nb)) < zero_cus
+
+    def levels(shape):
+        lv = rng.integers(-200, 201, shape) * (rng.random(shape) < 0.1)
+        lv[zero] = 0
+        return lv.astype(np.int16)
+
+    ref = rng.integers(0, maxval + 1, (PT, nby * cu, nbx * cu)).astype(np.int32)
+    head = [ref, rng.integers(0, 2, (PT, nb)).astype(np.int8)]
+    if two_level:
+        body = [mode((PT, nb, 4)), levels((PT, nb, 256))]
+    else:
+        body = [mode((PT, nb)), levels((PT, nb, 1024)),
+                rng.integers(0, 2, (PT, nb, 4)).astype(np.int8), mode((PT, nb, 4, 4)),
+                levels((PT, nb, 4, 256))]
+    tail = [np.full(PT, tab.DQ64[qp], np.int32), np.full(PT, maxval, np.int32)]
+    return [torch.as_tensor(a, device=cuda) for a in head + body + tail]
+
+
+@pytest.mark.parametrize("two_level,PT,nby,nbx,zero_cus,inter_only", [
+    (False, 48, 3, 5, 0.0, False),   # 144 CUs on diagonal 4, more than the card's 132 SMs
+    (True, 40, 4, 8, 0.0, False),    # 160 16x16 CUs on diagonals 6-9
+    (False, 6, 4, 4, 0.5, False),    # all-zero-level CUs mixed with coded ones
+    (True, 6, 4, 6, 0.5, False),
+    (False, 4, 3, 4, 0.7, True),     # inter-only planes, mostly without levels
+    (True, 4, 3, 5, 0.7, True),
+])
+def test_wavefront_decode_schedule_kernel(cuda, two_level, PT, nby, nbx, zero_cus, inter_only):
+    """Kernel A's single-launch wavefront (per-CU ready flags, CUs taken in
+    diagonal order) against the plain version, bit for bit: stacks whose
+    diagonals hold more CUs than there are SMs, CUs whose transform is
+    skipped beside coded ones, inter-only planes."""
+    rng = np.random.default_rng(300 + PT + nby + 7 * two_level)
+    name = "wavefront_decode16" if two_level else "wavefront_decode32"
+    args = _decode_args(rng, cuda, PT, nby, nbx, two_level, 2047 if two_level else 1023, 26,
+                        zero_cus, inter_only)
+    before = dev.LAUNCHES[name]
+    got = getattr(hevc, name)(*args, nby, nbx)
+    assert dev.LAUNCHES[name] == before + 1
+    _same(got, getattr(hevc, name + "_plain")(*args, nby, nbx))
 
 
 @pytest.mark.parametrize("bs", [32, 16])
@@ -188,6 +240,65 @@ def test_grid_knn_xyz_kernel(cuda, k, bucket):
         want = neighbors.knn_plain(g, qq, k=k, bucket=bucket)
         for a, b in zip(got, want):
             _same(a, b)
+
+
+def _knn_pair(got, want, k):
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert got[0].shape[1] == k
+
+
+def test_grid_knn_padding_kernel(cuda):
+    """k=64 where the 27-cell windows hold fewer than 64 points: the missing
+    neighbours come out as idx 0, d2 MAX_DIST2, as the plain version pads."""
+    rng = np.random.default_rng(64)
+    pts = np.unique(rng.integers(0, 1024, (3000, 3)), axis=0).astype(np.int32)
+    p = torch.as_tensor(pts, device=cuda)
+    q = torch.as_tensor(np.concatenate([pts[:500], rng.integers(0, 1024, (500, 3))])
+                        .astype(np.int32), device=cuda)
+    g = neighbors.build_grid(p, 10)
+    got = neighbors.knn(g, q, k=64, bucket=6)
+    _knn_pair(got, neighbors.knn_plain(g, q, k=64, bucket=6), 64)
+    missing = got[1] == neighbors.MAX_DIST2
+    assert bool(missing.any()) and bool((got[0][missing] == 0).all())
+
+
+@pytest.mark.parametrize("k,bucket,bits,cell_bits", [
+    (16, 12, 10, None),   # the metrics' source normals
+    (1, 12, 10, None),
+    (33, 12, 10, None),
+    (8, 20, 10, None),    # windows wider than 48 slots
+    (16, 16, 11, 10),     # cells so coarse that the keys need 64 bits
+])
+def test_grid_knn_wide_kernel(cuda, k, bucket, bits, cell_bits):
+    """Kernel E's wider windows and larger k against the plain version."""
+    rng = np.random.default_rng(400 + k + bucket)
+    for pts in _knn_clouds():
+        if bits == 11:
+            pts = pts + 1000
+        q = np.concatenate([pts, rng.integers(-8, (1 << bits) + 8, (1000, 3)).astype(np.int32)])
+        p, qq = torch.as_tensor(pts, device=cuda), torch.as_tensor(q, device=cuda)
+        g = neighbors.build_grid(p, bits, cell_bits)
+        got = neighbors.knn(g, qq, k=k, bucket=bucket)
+        _knn_pair(got, neighbors.knn_plain(g, qq, k=k, bucket=bucket), k)
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 64])
+def test_grid_knn_shuffled_queries_kernel(cuda, k):
+    """Queries in an order unrelated to the grid's (neighbouring query
+    groups of a warp in far-apart cells), against the plain version and
+    against the same queries in cell order, row for row."""
+    rng = np.random.default_rng(500 + k)
+    pts = _knn_clouds()[0]
+    p = torch.as_tensor(pts, device=cuda)
+    g = neighbors.build_grid(p, 10)
+    ordered = p[g.order.long()].contiguous()
+    perm = torch.as_tensor(rng.permutation(len(pts)), device=cuda)
+    got = neighbors.knn(g, ordered[perm].contiguous(), k=k, bucket=6)
+    _knn_pair(got, neighbors.knn_plain(g, ordered[perm].contiguous(), k=k, bucket=6), k)
+    base = neighbors.knn(g, ordered, k=k, bucket=6)
+    _same(got[0], base[0][perm])
+    _same(got[1], base[1][perm])
 
 
 def test_cc_round_voxel_kernel(cuda):
@@ -551,12 +662,11 @@ def test_encode_planes_on_the_card(cuda, motion):
                                                (255, 20, False, 1)])
 def test_wavefront_decode16_kernel(cuda, maxval, qp, big, nbx):
     """Kernel A's two-level entry on random 16/8 syntax (every mode, mixed
-    splits; `big` draws levels up to the int16 limit).  One launch per
-    non-empty diagonal of 16x16 CUs."""
+    splits; `big` draws levels up to the int16 limit).  One launch a
+    call."""
     rng = np.random.default_rng(100 + qp)
     PT, nby = 3, 3
     nb = nby * nbx
-    diagonals = {2 * by + bx for by in range(nby) for bx in range(nbx)}
     lim = 32767 if big else 40
     args = [
         rng.integers(0, maxval + 1, (PT, nby * 16, nbx * 16)).astype(np.int32),
@@ -570,7 +680,7 @@ def test_wavefront_decode16_kernel(cuda, maxval, qp, big, nbx):
     t = [torch.as_tensor(a, device=cuda) for a in args]
     before = dev.LAUNCHES["wavefront_decode16"]
     got = hevc.wavefront_decode16(*t, nby, nbx)
-    assert dev.LAUNCHES["wavefront_decode16"] == before + len(diagonals)
+    assert dev.LAUNCHES["wavefront_decode16"] == before + 1
     _same(got, hevc.wavefront_decode16_plain(*t, nby, nbx))
 
 
@@ -683,7 +793,7 @@ def _level_clouds(rng, cuda, B=3):
     return sp, sc, cnt, tp
 
 
-@pytest.mark.parametrize("k,bucket", [(1, 6), (8, 6), (16, 16)])
+@pytest.mark.parametrize("k,bucket", [(1, 6), (8, 6), (16, 16), (64, 6)])
 def test_grid_knn_batch_kernel(cuda, k, bucket):
     """Kernel E's frame-batched entry against its plain version and against
     each frame's own grid and query, padded rows included."""
@@ -698,6 +808,27 @@ def test_grid_knn_batch_kernel(cuda, k, bucket):
     for b in range(sp.shape[0]):
         one = neighbors.knn(neighbors.build_grid(sp[b], 7), tp[b].contiguous(), k=k,
                             bucket=bucket)
+        _same(got[0][b], one[0])
+        _same(got[1][b], one[1])
+
+
+def test_grid_knn_batch_fill_kernel(cuda):
+    """B = 3 frames of very different fill (a full frame, a sparse one, one
+    of 40 points), each against its own grid and the plain version."""
+    rng = np.random.default_rng(95)
+    sp, _, _, tp = _level_clouds(rng, cuda)
+    pad = -(1 << 20)
+    sp[1, 3000:] = pad    # a sparse frame
+    sp[2, 40:] = pad      # nearly empty
+    grids = neighbors.build_grid_batch(sp, 7)
+    n0 = dev.LAUNCHES["grid_knn_batch"]
+    got = neighbors.knn_batch(grids, tp, 8, 6)
+    assert dev.LAUNCHES["grid_knn_batch"] == n0 + 1
+    want = neighbors.knn_batch_plain(grids, tp, 8, 6)
+    for a, b in zip(got, want):
+        _same(a, b)
+    for b in range(3):
+        one = neighbors.knn(neighbors.build_grid(sp[b], 7), tp[b].contiguous(), k=8, bucket=6)
         _same(got[0][b], one[0])
         _same(got[1][b], one[1])
 

@@ -17,8 +17,8 @@ Stages of `decode_planes`:
    interpolation fused with the per-CU motion-compensated gather, per 32x32
    CU (two-level: per 16x16 CU);
 4. device, kernel A `wavefront_decode32` (two-level: its entry
-   `wavefront_decode16`): the intra/inter reconstruction, one launch per
-   wavefront diagonal of 32x32 (16x16) CUs;
+   `wavefront_decode16`): the intra/inter reconstruction of 32x32 (16x16)
+   CUs in wavefront order, one launch a call;
 5. device: deblocking (kernel O `deblock`, when the payload says so) and
    SAO (kernel K `sao_apply`; 16-px regions in a two-level payload that
    carries FLAG_SAO16), per tile; untile and crop.
@@ -584,7 +584,7 @@ def wavefront_decode32_plain(ref, s32, m32, c32, s16, modes, c16, dq,
     return _unblocks(blk[:, :nb], nby, nbx, CU32).to(torch.int32)
 
 
-_WF_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+_WF_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
@@ -597,7 +597,8 @@ def wavefront_decode32(ref, s32, m32, c32, s16, modes, c16, dq, maxvals,
     c32 (PT, nb, 1024) int16 zigzag; s16 (PT, nb, 4) int8; modes
     (PT, nb, 4, 4) int8 ([m16, 0, 0, 0] for an unsplit quadrant); c16
     (PT, nb, 4, 256) int16 zigzag (four 64-coefficient 8x8 blocks when the
-    quadrant is split); dq/maxvals (PT,) int32.  The plain version runs on
+    quadrant is split); dq/maxvals (PT,) int32.  One launch a call (CUs in
+    wavefront order behind per-CU ready flags).  The plain version runs on
     the CPU."""
     if ref.device.type == "cpu":
         return wavefront_decode32_plain(ref, s32, m32, c32, s16, modes, c16,
@@ -620,13 +621,13 @@ def wavefront_decode32(ref, s32, m32, c32, s16, modes, c16, dq, maxvals,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
     rec = torch.empty_like(ref)
-    lib = dev.load_kernel("wavefront_decode32")
-    fn = lib.wavefront_decode32
+    flags = torch.zeros(PT * nb + 1, dtype=torch.int32, device=d)
+    fn = dev.load_kernel("wavefront_decode32").wavefront_decode32
     fn.argtypes, fn.restype = _WF_ARGS, ctypes.c_int
     launched = ctypes.c_int(0)
     rc = fn(dev.ptr(rec), dev.ptr(ref), dev.ptr(s32), dev.ptr(m32),
             dev.ptr(c32), dev.ptr(s16), dev.ptr(modes), dev.ptr(c16),
-            dev.ptr(dq), dev.ptr(maxvals), dev.ptr(_tables(d)["blob"]),
+            dev.ptr(dq), dev.ptr(maxvals), dev.ptr(_tables(d)["blob"]), dev.ptr(flags),
             PT, nby, nbx, dev.stream_handle(), ctypes.byref(launched))
     dev.count_launch("wavefront_decode32", launched.value)
     dev.check_launch("wavefront_decode32", rc)
@@ -661,18 +662,19 @@ def wavefront_decode16_plain(ref, split, modes, coeffs, dq, maxvals, nby: int, n
     return _unblocks(blk[:, :nb], nby, nbx, CU).to(torch.int32)
 
 
-_WF16_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+_WF16_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
               + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def wavefront_decode16(ref, split, modes, coeffs, dq, maxvals, nby: int, nbx: int):
     """Kernel A's two-level entry (csrc/wavefront_decode32.cu
     `wavefront_decode16`): reconstruct (PT, nby*16, nbx*16) int32 tile
-    planes from the 16/8 syntax, one launch per wavefront diagonal of 16x16
-    CUs.  ref (PT, Ht, Wt) int32 inter prediction planes; split (PT, nb)
-    int8; modes (PT, nb, 4) int8 ([m16, 0, 0, 0] for a whole block); coeffs
-    (PT, nb, 256) int16 zigzag (four 64-level 8x8 blocks when split);
-    dq/maxvals (PT,) int32.  The plain version runs on the CPU."""
+    planes from the 16/8 syntax, one launch a call (16x16 CUs in wavefront
+    order behind per-CU ready flags).  ref (PT, Ht, Wt) int32 inter
+    prediction planes; split (PT, nb) int8; modes (PT, nb, 4) int8 ([m16, 0,
+    0, 0] for a whole block); coeffs (PT, nb, 256) int16 zigzag (four
+    64-level 8x8 blocks when split); dq/maxvals (PT,) int32.  The plain
+    version runs on the CPU."""
     if ref.device.type == "cpu":
         return wavefront_decode16_plain(ref, split, modes, coeffs, dq, maxvals, nby, nbx)
     d = ref.device
@@ -690,12 +692,13 @@ def wavefront_decode16(ref, split, modes, coeffs, dq, maxvals, nby: int, nbx: in
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
     rec = torch.empty_like(ref)
+    flags = torch.zeros(PT * nb + 1, dtype=torch.int32, device=d)
     fn = dev.load_kernel("wavefront_decode32").wavefront_decode16
     fn.argtypes, fn.restype = _WF16_ARGS, ctypes.c_int
     launched = ctypes.c_int(0)
     rc = fn(dev.ptr(rec), dev.ptr(ref), dev.ptr(split), dev.ptr(modes), dev.ptr(coeffs),
-            dev.ptr(dq), dev.ptr(maxvals), dev.ptr(_tables(d)["blob"]), PT, nby, nbx,
-            dev.stream_handle(), ctypes.byref(launched))
+            dev.ptr(dq), dev.ptr(maxvals), dev.ptr(_tables(d)["blob"]), dev.ptr(flags), PT,
+            nby, nbx, dev.stream_handle(), ctypes.byref(launched))
     dev.count_launch("wavefront_decode16", launched.value)
     dev.check_launch("wavefront_decode16", rc)
     return rec
