@@ -6,11 +6,12 @@
 2. builds the twenty-four CUDA kernels from vpcc_tpu_torch/csrc (one nvcc
    per source, all started together) and prints the build seconds;
 
-the decode path (kernels A-D, and Q's color conversion):
+the decode path (kernels A-D, K's apply entry and Q's color conversion):
 3. decodes the committed 8-frame vox10 fixture once (warm-up), keeping each
    kernel's largest call as its main-path input (for the wavefront decode,
    the largest with the most inter-coded samples: a P-frame plane; for
-   kernel Q, a 1280x1280 T0 image each way);
+   kernel Q, a 1280x1280 T0 image each way; for `sao_apply`, the largest
+   stack of decoded planes);
 4. runs each kernel and its plain PyTorch version on those inputs on the
    card, requires identical results, and times both in turns
    (plain, kernel, kernel, plain; CUDA events);
@@ -18,19 +19,23 @@ the decode path (kernels A-D, and Q's color conversion):
    `vpcc_tpu_torch.Decoder(device="cuda")`, checks every frame's point count
    and md5 against the digests the JAX decoder recorded, prints warm seconds
    per frame, and requires every kernel to have launched on that path
-   (Q included);
+   (Q included), kernels A and K once a call;
 
 the encoder front end (kernels E-H):
 6. makes the 8 bench frames from their seeds and runs
    `vpcc_tpu_torch.encoder.Encoder(cfg, device="cuda").encode_gof_front`
-   once (warm-up), keeping each kernel's largest call;
+   once (warm-up), keeping each kernel's largest call and every call of
+   kernel G (`cc_labels_device`, one a patch round);
 7. holds each kernel against its plain version there (k-NN, CC labels and
    coverage exactly; the segment kernel's partitions exactly given the same
-   normals, its normals to NORMAL_ATOL) and times both in turns;
+   normals, its normals to NORMAL_ATOL) and times both in turns; holds
+   every captured kernel G call exactly and times round 0 and the sparsest
+   round (call and device times);
 8. with all launch counters at 0, runs the front end over the GOF again,
    prints warm seconds per frame and the stage split, requires the k-NN
    digests to equal the JAX package's and the partition agreement to reach
-   PARTITION_FLOOR, and requires every kernel E-H to have launched;
+   PARTITION_FLOOR, and requires every kernel E-H to have launched, G three
+   times a call;
 9. runs the patch-generation half driven by the committed JAX partitions
    and requires all 8 frames' patches, atlas, occupancy video and
    block-to-patch to equal the JAX digests;
@@ -42,7 +47,9 @@ kernel K's apply):
     the JAX package's) once (warm-up), keeping each kernel's largest call
     (for the wavefront encode, a motion-searched P-frame plane);
 11. holds each kernel against its plain version there (syntax, MVs, SAO
-    parameters and planes identical) and times both in turns, and kernel L
+    parameters and planes identical; kernel K's `sao_search_apply`, the
+    encoder's one launch, against the plain search then apply and against
+    its own `sao_search` then `sao_apply`) and times both in turns, and kernel L
     on crafted planes whose push sums pass 2^24 (256x256 and 512x512 in
     XLA's probed orders, a 3-plane stack with an occupancy per plane, a
     1216x1280 plane whose order is not established: the same count of such
@@ -56,8 +63,8 @@ kernel K's apply):
     plane's occupied-pixel PSNR within RD_PSNR_TOL_DB of the JAX encoder's
     geometry substreams in the committed fixture (JAX's planes are the
     port decoder's output on them, which step 5 holds exact); and kernels
-    I-L to have launched.  It prints the share of 32x32 CUs whose syntax equals
-    JAX's, per plane;
+    I-L to have launched, K once a call.  It prints the share of 32x32 CUs
+    whose syntax equals JAX's, per plane;
 
 the attribute path and the whole encoder (kernels M-P and Q; the decode
 path above also runs kernels O, P and Q):
@@ -74,9 +81,10 @@ path above also runs kernels O, P and Q):
     equal the JAX encoder's (person_vox10_attr_digests.json) on all frames;
 15. with all launch counters at 0, segments the frames, drives their
     partitions and runs `encode_gof` again: warm seconds per frame, the
-    stage split, launches (every kernel the encoder runs, B-Q, nonzero), no
-    push-pull block of unknown order reaching 2^24, the device idle share of
-    one warm P-frame; then requires the port's
+    stage split, launches (every kernel the encoder runs, B-Q, nonzero; K
+    once a call), no push-pull block of unknown order reaching 2^24, the
+    device idle share of one warm P-frame and kernels E, G and K's share of
+    its trace; then requires the port's
     decoder to decode the stream exactly to the encoder's reconstruction
     (point counts and md5, all frames), the stream bytes within
     RD_BYTES_TOL of the fixture's and every attribute plane's occupied-pixel
@@ -232,7 +240,8 @@ the JAX partitions:
 48. with all launch counters at 0, warm encodes in turns (sequential,
     level-batched, level-batched, sequential): seconds per frame of each,
     the stage split, launches per level group (every kernel of the path
-    nonzero), no push-pull block of unknown order reaching 2^24; requires
+    nonzero, K once a call), no push-pull block of unknown order reaching
+    2^24; requires
     the stream to be byte-identical to the sequential r3 stream and to the
     JAX encoder's fixture, and the port's decoder to decode it to the
     encoder's reconstruction;
@@ -249,7 +258,9 @@ geometryNominal2dBitdepth=11 and r3, driven by the JAX partitions:
 52. with all launch counters at 0, runs `encode_gof` once, keeping the
     largest call of kernel I's two-level entry and of the plane dispatch:
     seconds per frame, the stage split, launches (I's two-level entry, K and
-    L nonzero), the geometry samples above 1023 per plane beside JAX's, no
+    L nonzero, K once a call, its largest 16-px call held against the plain
+    search then apply and against its two entries), the geometry samples
+    above 1023 per plane beside JAX's, no
     push-pull block of unknown order reaching 2^24, and every geometry
     payload's flags (FLAG_SAO16, not FLAG_CU32) equal to JAX's;
 53. requires the stream to be byte-identical to the JAX encoder's and every
@@ -257,7 +268,8 @@ geometryNominal2dBitdepth=11 and r3, driven by the JAX partitions:
     D1/D2/Y within RD_BYTES_TOL / RD_PSNR_TOL_DB of JAX's, with each
     geometry payload's identity printed), and, counters at 0, the port's
     decoder to decode it to the encoder's reconstruction (kernel A's
-    two-level entry launched), keeping that entry's largest call;
+    two-level entry launched), keeping that entry's largest call, and holds
+    the decode's largest 16-px `sao_apply` call against its plain version;
 54. holds both two-level entries against their plain versions, exactly, on
     the GOF's largest calls, on a motion-searched P-plane of that content
     (its decoded plane shifted by (3, -2) as the reference) and on a crafted
@@ -354,6 +366,8 @@ KERNEL_INFO = {
     "motion_search": ("vpcc_tpu_torch/csrc/motion_search.cu",
                       "vpcc_tpu/video/hevc.py:471"),
     "sao": ("vpcc_tpu_torch/csrc/sao.cu", "vpcc_tpu/video/hevc.py:216"),
+    # kernel K's apply entry on the decode path
+    "sao_apply": ("vpcc_tpu_torch/csrc/sao.cu", "vpcc_tpu/video/hevc.py:275"),
     "push_pull": ("vpcc_tpu_torch/csrc/push_pull.cu",
                   "vpcc_tpu/ops/padding.py:23"),
     "recolor": ("vpcc_tpu_torch/csrc/recolor.cu", "vpcc_tpu/ops/recolor.py:43"),
@@ -403,6 +417,8 @@ KERNEL_INFO = {
 }
 DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_smooth")
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
+# kernel G's launches a call (init, hook, finalize)
+CC_LAUNCHES = 3
 GEOMETRY_KERNELS = ("wavefront_encode32", "motion_search", "sao", "push_pull")
 ATTR_ENTRIES = ("attr_paint", "attr_group_dilate", "attr_gather")
 ENCODE_KERNELS = ("recolor", "presmooth", "deblock", *ATTR_ENTRIES, "color_convert")
@@ -736,7 +752,14 @@ def bounds(name, args, out):
                + n_refine * (2 * J * K + 7 * J + 1))
         ops = float(per) * V
     elif name == "cc_labels":
-        byt = nbytes(*args[:4], out)
+        # `active` read and the labels written for every row; the edge table
+        # and the partition only for the active rows (an inactive row's
+        # group reads nothing else)
+        idx, valid, part, active = args[:4]
+        n_act = int(active.sum())
+        byt = nbytes(active, out) + n_act * (idx.shape[1] * (idx.element_size()
+                                                            + valid.element_size())
+                                             + part.element_size())
         ops = 0.0
     elif name == "cc_round_voxel":
         # the voxel graph, partitions, point-to-voxel map and point mask read
@@ -776,6 +799,12 @@ def bounds(name, args, out):
         # per sample: 4 classes x (2 differences, 2 signs, sum, compare,
         # 2 accumulations), then the apply's category and offset add
         ops = 40.0 * rec.numel()
+    elif name == "sao_apply":
+        rec, cls, off, maxv = args[:4]
+        byt = nbytes(rec, cls, off, maxv, out)
+        # per sample: the class's category (2 differences, 2 signs, a sum),
+        # the offset's select, the add and the clip
+        ops = 8.0 * rec.numel()
     elif name == "push_pull":
         img, occ = args
         byt = nbytes(img, occ, out)
@@ -968,12 +997,14 @@ def decode_phase(dev):
         "half_pel_mc": (hevc, "half_pel_mc"),
         "generate_points": (reconstruct, "generate_points"),
         "grid_smooth": (smoothing, "grid_smooth"),
+        "sao_apply": (hevc, "sao_apply"),
     }
     plains = {
         "wavefront_decode32": hevc.wavefront_decode32_plain,
         "half_pel_mc": hevc.half_pel_mc_plain,
         "generate_points": reconstruct.generate_points_plain,
         "grid_smooth": smoothing.smooth_point_cloud_grid_plain,
+        "sao_apply": hevc.sao_apply_plain,
     }
     t0 = time.perf_counter()
     with Capture({**wrappers, **color_wrappers(hevc)}) as cap:
@@ -1008,6 +1039,9 @@ def decode_phase(dev):
                                         lambda: plain(*args, **kw))
         b_ms, b_by = bounds(name, args, out_k)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        if name == "sao_apply":   # a short call: its device time apart
+            shapes.append(f"device {graph_ms(lambda: kern(*args, **kw)):.4f} ms a call "
+                          "(CUDA graph replay)")
         print(f"{name}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
               f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"inputs {shapes}")
@@ -1019,12 +1053,14 @@ def decode_phase(dev):
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with Capture({"wavefront_decode32": wrappers["wavefront_decode32"]}, keep=False) as calls:
+    with Capture({k: wrappers[k] for k in ("wavefront_decode32", "sao_apply")},
+                 keep=False) as calls:
         frames = Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
     one_a_call("wavefront_decode32", launches, calls.counts, "the decode path")
+    one_a_call("sao", launches, {"sao": calls.counts["sao_apply"]}, "the decode path")
     if len(frames) != n_frames:
         raise AssertionError(f"decoded {len(frames)} frames, expected {n_frames}")
     for i, (pc, ref) in enumerate(zip(frames, digests["frames"])):
@@ -1055,8 +1091,8 @@ def print_calls(counts, where: str, n: int) -> None:
 
 
 def one_a_call(name, launches, counts, where: str) -> None:
-    """Kernel A's entries launch once a call: the launches counted on a
-    path equal the calls of the wrapper on non-empty stacks."""
+    """Kernels A and K launch once a call: the launches counted on a path
+    equal the calls of the wrapper on non-empty stacks."""
     print(f"{name} on {where}: {launches.get(name, 0)} launches for {counts[name]} calls")
     if launches.get(name, 0) != counts[name]:
         raise AssertionError(f"{name}: {launches.get(name, 0)} launches for {counts[name]} "
@@ -1098,6 +1134,29 @@ def segment_chain(normals, segmentation, pos, idx, valid, plain: bool):
     return pca, nrm, p0, segmentation.refine_segmentation(nrm, p0, idx, valid, o, 3.0, 10)
 
 
+def cc_all_check(cc, calls) -> None:
+    """Kernel G against its plain version on every captured call, exactly;
+    times round 0 and the sparsest round (call and CUDA-graph device
+    times)."""
+    act = [int(c[3].sum()) for c in calls]
+    for i, c in enumerate(calls):
+        err = max_abs_err(cc.cc_labels_device(*c), cc.cc_labels_plain(*c))
+        if err != 0:
+            raise AssertionError(f"cc_labels call {i} ({act[i]} active of {c[0].shape[0]}): "
+                                 f"kernel differs from its plain version (max abs err {err})")
+    print(f"cc_labels: all {len(calls)} captured calls of the warm-up exact; active rows "
+          f"per call {act}")
+    for what, i in (("round 0 of frame 0", 0), ("the sparsest round", act.index(min(act)))):
+        c = calls[i]
+        out = cc.cc_labels_device(*c)
+        kern = lambda c=c: cc.cc_labels_device(*c)
+        k1, k2 = time_ms(kern, 20), time_ms(kern, 20)
+        b_ms, b_by = bounds("cc_labels", c, out)
+        print(f"cc_labels, {what} ({act[i]} active of {c[0].shape[0]}): kernel "
+              f"{k1:.4f}/{k2:.4f} ms, device {graph_ms(kern):.4f} ms a call (CUDA graph "
+              f"replay), bound {b_ms:.4f} ms ({b_by})")
+
+
 def front_phase(dev):
     """Steps 6-9: kernels E-H on the encoder front end.  Returns (rows,
     launches)."""
@@ -1131,7 +1190,15 @@ def front_phase(dev):
         "coverage": (coverage, "covered_radius_slab"),
     }
     t0 = time.perf_counter()
+    cc_calls = []   # every kernel G call of the warm-up, in order
     with Capture(wrappers) as cap:
+        cap_spy = cc.cc_labels_device
+
+        def cc_spy(*a):
+            cc_calls.append([t.clone() for t in a])
+            return cap_spy(*a)
+
+        cc.cc_labels_device = cc_spy   # the Capture restores the wrapper
         Encoder(cfg, device="cuda").encode_gof_front(frames)
         torch.cuda.synchronize()
     print(f"cold front end: {time.perf_counter() - t0:.2f}s for {n} frames")
@@ -1159,10 +1226,14 @@ def front_phase(dev):
     _, cov_args, _ = cap.calls["coverage"]
     checks["coverage"] = (lambda: coverage.covered_radius_slab(*cov_args),
                           lambda: coverage.covered_radius_slab_plain(*cov_args), cov_args)
+    cc_all_check(cc, cc_calls)
     for name in FRONT_KERNELS:
         kern, plain, args = checks[name]
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
+        if name == "cc_labels":
+            detail = (f"exact (max abs err {max_abs_err(out_k, out_p)}), round 0 of the "
+                      f"largest frame, device {graph_ms(kern):.4f} ms a call (CUDA graph replay)")
         if name == "segment":
             # normals to a tolerance; the later stages fed the plain
             # version's normals, so their results must be identical
@@ -1188,7 +1259,8 @@ def front_phase(dev):
             if err != 0:
                 raise AssertionError(f"{name}: kernel differs from its plain version "
                                      f"(max abs err {err})")
-            detail = f"exact (max abs err {err})"
+            if name != "cc_labels":
+                detail = f"exact (max abs err {err})"
             b_out = out_k
             if name == "grid_knn":
                 detail += f", device {graph_ms(kern):.4f} ms a call (CUDA graph replay), k={k}"
@@ -1216,13 +1288,18 @@ def front_phase(dev):
         dev.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = Encoder(cfg, device="cuda").encode_gof_front(frames)
-        torch.cuda.synchronize()
+        with Capture({"cc_labels": wrappers["cc_labels"]}, keep=False) as g_calls:
+            out = Encoder(cfg, device="cuda").encode_gof_front(frames)
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = dict(dev.LAUNCHES)
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+    print(f"cc_labels on the front-end path: {launches['cc_labels']} launches for "
+          f"{g_calls.counts['cc_labels']} calls")
+    if launches["cc_labels"] != CC_LAUNCHES * g_calls.counts["cc_labels"]:
+        raise AssertionError(f"cc_labels: expected {CC_LAUNCHES} launches a call")
     split = {f: sum(getattr(o.stats, f) for o in out) / n
              for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s")}
     print(f"warm front end: {dt:.3f}s for {n} frames = {dt / n:.4f} s/frame; per frame "
@@ -1326,6 +1403,34 @@ def cu_agreement(a: dict, b: dict) -> float:
     return float(same.mean())
 
 
+def sao_pair(search, apply, args, kw):
+    """Kernel K's search then apply (entries or plain versions) on the
+    fused entry's arguments: (rec_sao, cls, off)."""
+    src, rec, lam, w, maxv = args
+    cls, off = search(src, rec, lam, w, **kw)
+    return apply(rec, cls, off, maxv, **kw), cls, off
+
+
+def sao_check(hevc, args, kw, where: str) -> None:
+    """Kernel K's fused entry on a captured encoder call against the plain
+    search then apply and against its own two entries, bit for bit; prints
+    the device times of the fused launch and of the two entries."""
+    fused = lambda: hevc.sao_search_apply(*args, **kw)
+    pair = lambda: sao_pair(hevc.sao_search, hevc.sao_apply, args, kw)
+    out = fused()
+    err_p = max_abs_err(tuple(out), tuple(sao_pair(hevc.sao_search_plain,
+                                                   hevc.sao_apply_plain, args, kw)))
+    err_e = max_abs_err(tuple(out), tuple(pair()))
+    torch.cuda.synchronize()
+    if err_p or err_e:
+        raise AssertionError(f"sao_search_apply ({where}): differs from the plain search + "
+                             f"apply (max abs err {err_p}) or from the two entries ({err_e})")
+    print(f"sao_search_apply ({where}, region {kw.get('region', 32)}, planes "
+          f"{tuple(args[1].shape)}): exact against the plain search + apply and against "
+          f"sao_search + sao_apply; device {graph_ms(fused):.4f} ms a call, the two entries "
+          f"{graph_ms(pair):.4f} ms (CUDA graph replay)")
+
+
 def geometry_phase(dev, cfg, frames, segs):
     """Steps 10-12: kernels I-L on the geometry video encoder.  Returns
     (rows, launches)."""
@@ -1343,8 +1448,7 @@ def geometry_phase(dev, cfg, frames, segs):
     wrappers = {
         "wavefront_encode32": (hevc, "wavefront_encode32"),
         "motion_search": (hevc, "motion_search"),
-        "sao_search": (hevc, "sao_search"),
-        "sao_apply": (hevc, "sao_apply"),
+        "sao": (hevc, "sao_search_apply"),
         "push_pull": (padding, "push_pull_round"),
     }
     t0 = time.perf_counter()
@@ -1360,22 +1464,18 @@ def geometry_phase(dev, cfg, frames, segs):
     # 11. kernel == plain version on the card, and times in turns
     _, enc_args, _ = cap.calls["wavefront_encode32"]
     _, ms_args, _ = cap.calls["motion_search"]
-    _, (s_src, s_rec, s_lam, s_w), _ = cap.calls["sao_search"]
-    s_maxv = cap.calls["sao_apply"][1][3]
-    sao_args = (s_src, s_rec, s_lam, s_w, s_maxv)
+    _, sao_args, sao_kw = cap.calls["sao"]
     _, pp_args, _ = cap.calls["push_pull"]
-
-    def sao_both(search, apply):
-        cls, off = search(s_src, s_rec, s_lam, s_w)
-        return cls, off, apply(s_rec, cls, off, s_maxv)
+    sao_check(hevc, sao_args, sao_kw, "the geometry path")
 
     checks = {
         "wavefront_encode32": (lambda: hevc.wavefront_encode32(*enc_args),
                                lambda: hevc.wavefront_encode32_plain(*enc_args), enc_args, 5, 1),
         "motion_search": (lambda: hevc.motion_search(*ms_args),
                           lambda: hevc.motion_search_plain(*ms_args), ms_args, 20, 3),
-        "sao": (lambda: sao_both(hevc.sao_search, hevc.sao_apply),
-                lambda: sao_both(hevc.sao_search_plain, hevc.sao_apply_plain), sao_args, 20, 3),
+        "sao": (lambda: hevc.sao_search_apply(*sao_args, **sao_kw),
+                lambda: sao_pair(hevc.sao_search_plain, hevc.sao_apply_plain, sao_args, sao_kw),
+                sao_args, 20, 3),
         "push_pull": (lambda: padding.push_pull_round(*pp_args),
                       lambda: padding.push_pull_round_plain(*pp_args), pp_args, 20, 3),
     }
@@ -1405,10 +1505,12 @@ def geometry_phase(dev, cfg, frames, segs):
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = enc.encode_gof_geometry(frames, segs=segs)
-    torch.cuda.synchronize()
+    with Capture({"sao": wrappers["sao"]}, keep=False) as k_calls:
+        out = enc.encode_gof_geometry(frames, segs=segs)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
+    one_a_call("sao", launches, k_calls.counts, "the geometry path")
     split = {f: sum(getattr(o.stats, f) for o in out) / n
              for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s",
                        "video_s", "reconstruct_s")}
@@ -1709,13 +1811,15 @@ def encode_phase(dev, cfg, frames, segs):
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with Capture(e_wrap, rename=e_name, keep=False) as e_calls:
+    with Capture(e_wrap, rename=e_name, keep=False) as e_calls, \
+            Capture({"sao": (hevc, "sao_search_apply")}, keep=False) as k_calls:
         segs1 = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
             ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
         stream, recon = enc.encode_gof(frames, segs=segs1)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
+    one_a_call("sao", launches, k_calls.counts, "the encode path")
     print(f"kernel E's calls on the encode path by k: {dict(e_calls.counts)}")
     if sum(e_calls.counts.values()) != launches["grid_knn"]:
         raise AssertionError(f"grid_knn: {launches['grid_knn']} launches for "
@@ -1743,6 +1847,11 @@ def encode_phase(dev, cfg, frames, segs):
                if "grid_knn_kernel" in k or "grid_nearest_kernel" in k]
     print(f"kernel E in the P-frame trace: {sum(us for us, _ in e_items) / 1e3:.3f} ms in "
           f"{sum(c for _, c in e_items)} launches")
+    for what, keys in (("kernel G", ("cc_init_kernel", "cc_hook_kernel", "cc_finalize_kernel")),
+                       ("kernel G's hook", ("cc_hook_kernel",)), ("kernel K", ("sao_kernel",))):
+        items = [v for k, v in trace[2].items() if any(x in k for x in keys)]
+        print(f"{what} in the P-frame trace: {sum(us for us, _ in items) / 1e3:.3f} ms in "
+              f"{sum(c for _, c in items)} launches")
 
     # the stream decodes to the encoder's reconstruction; RD against JAX
     dec = Decoder(device="cuda").decode(stream)
@@ -2254,10 +2363,12 @@ def geo11_phase(dev, frames):
         return real_geo(self, geo, occ=occ, **kw)
 
     wrappers = {"wavefront_encode16": (hevc, "wavefront_encode16"),
-                "dispatch": (hevc, "encode_planes_dispatch")}
+                "dispatch": (hevc, "encode_planes_dispatch"),
+                "sao": (hevc, "sao_search_apply")}
+    by_region = lambda a, kw: f"sao{kw.get('region', 32)}"
     codecs.GeometrySubstreamEncoder.encode = geo_spy
     try:
-        with Capture(wrappers) as cap:
+        with Capture(wrappers, rename={"sao": by_region}) as cap:
             padding.reset_inexact()
             dev.reset_launch_counts()
             torch.cuda.synchronize()
@@ -2283,6 +2394,9 @@ def geo11_phase(dev, frames):
     idle = [k for k in ("wavefront_encode16", "sao", "push_pull") if launches[k] == 0]
     if idle:
         raise AssertionError(f"geo11: not launched on the encode path: {idle}")
+    one_a_call("sao", launches, {"sao": cap.counts["sao16"] + cap.counts["sao32"]},
+               "the geo11 encode")
+    sao_check(hevc, *cap.calls["sao16"][1:], "the geo11 encode")
     print(f"geo11 geometry samples above 1023 per plane (all, occupied): {above} "
           f"(JAX: {[list(zip(f['above_1023'], f['above_1023_occupied'])) for f in ref['frames']]})")
     print(f"geo11 push-pull blocks reaching 2^24 where XLA's order is not established: {inexact}")
@@ -2327,8 +2441,17 @@ def geo11_phase(dev, frames):
         if abs(d_bytes) > RD_BYTES_TOL or worst > RD_PSNR_TOL_DB:
             raise AssertionError("geo11: the stream fails the RD gate against JAX's")
     wrap16 = {"wavefront_decode16": (hevc, "wavefront_decode16")}
-    with Capture(wrap16) as dcap:
+    with Capture({**wrap16, "sao_apply": (hevc, "sao_apply")},
+                 rename={"sao_apply": lambda a, kw: f"sao_apply{kw.get('region', 32)}"}) as dcap:
         _, t_dec, dec_launches = decode_checked(dev, stream, recon, "geo11")
+    _, a16, kw16 = dcap.calls["sao_apply16"]
+    err = max_abs_err(hevc.sao_apply(*a16, **kw16), hevc.sao_apply_plain(*a16, **kw16))
+    if err:
+        raise AssertionError(f"geo11: sao_apply at 16-px regions differs from its plain "
+                             f"version (max abs err {err})")
+    print(f"geo11 decode's sao_apply at 16-px regions (planes {tuple(a16[0].shape)}): exact; "
+          f"device {graph_ms(lambda: hevc.sao_apply(*a16, **kw16)):.4f} ms a call (CUDA graph "
+          "replay)")
     print(f"geo11 decode: {t_dec:.4f} s/frame; the port's stream decodes exactly to the "
           f"encoder's reconstruction (points {[b.point_count for b in recon]})")
     if not dec_launches.get("wavefront_decode16"):
@@ -3357,6 +3480,7 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.ops import neighbors, padding, recolor
     from vpcc_tpu_torch.parallel import gof
+    from vpcc_tpu_torch.video import hevc
 
     n = len(frames)
     ref_parts = np.load(FRONT_PARTITIONS)
@@ -3419,7 +3543,9 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
                 enc)
 
     t_s1, (s_seq, _), _, in_seq, _ = run(False)
-    t_p1, (stream, recon), launches, inexact, enc = run(True)
+    with Capture({"sao": (hevc, "sao_search_apply")}, keep=False) as k_calls:
+        t_p1, (stream, recon), launches, inexact, enc = run(True)
+    one_a_call("sao", launches, k_calls.counts, "the level-batched path")
     t_p2 = run(True)[0]
     t_s2 = run(False)[0]
     split = {f: sum(getattr(s, f) for s in enc.stats) / n
@@ -3611,7 +3737,7 @@ def main() -> int:
     rows.update(so_rows)
     rows.update(lv_rows)
     rows.update(g11_rows)
-    launches = {**{k: launches[k] for k in DECODE_KERNELS},
+    launches = {**{k: launches[k] for k in DECODE_KERNELS}, "sao_apply": launches["sao"],
                 **{k: front_launches[k] for k in FRONT_KERNELS},
                 **{k: geo_launches[k] for k in GEOMETRY_KERNELS},
                 **{k: enc_launches[k] for k in ENCODE_KERNELS + E_ENCODE_ROWS},

@@ -360,27 +360,63 @@ def test_segment_kernel(cuda):
           segmentation.refine_segmentation_plain(want, p0, idx, valid, o, 3.0, 10))
 
 
-@pytest.mark.parametrize("chains", [False, True])
-def test_cc_labels_kernel(cuda, chains):
-    rng = np.random.default_rng(int(chains))
-    V, K = 200_000, 16
-    if chains:
+def _cc_case(case):
+    """A (V, 16) k-NN graph for kernel G: idx, valid, partition, active."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    V, K = 200_000, {"k8": 8, "k20": 20}.get(case, 16)   # rows narrower or wider than a group
+    idx = rng.integers(0, V, (V, K)).astype(np.int32)
+    valid = rng.random((V, K)) < 0.08
+    part = rng.integers(0, 3, V).astype(np.int32)
+    active = rng.random(V) < 0.9
+    i = np.arange(V)
+    if case == "chains":   # random-order chains of 50,000
         perm = rng.permutation(V)
-        idx = np.zeros((V, K), np.int32)
+        idx[:] = 0
         idx[perm[:-1], 0] = perm[1:]
-        valid = np.zeros((V, K), bool)
+        valid[:] = False
         valid[perm[:-1], 0] = True
         valid[perm[::50_000], 0] = False
-        part = np.zeros(V, np.int32)
-        active = np.ones(V, bool)
-    else:
-        idx = rng.integers(0, V, (V, K)).astype(np.int32)
-        valid = rng.random((V, K)) < 0.08
-        part = rng.integers(0, 3, V).astype(np.int32)
-        active = rng.random(V) < 0.9
-    t = [torch.as_tensor(a, device=cuda) for a in (idx, valid, part, active)]
+        part[:], active[:] = 0, True
+    elif case == "sparse":   # ~2 % active, as the later patch rounds
+        idx = np.clip(i[:, None] + rng.integers(-30, 31, (V, K)), 0, V - 1).astype(np.int32)
+        valid = rng.random((V, K)) < 0.7
+        active = ((i // 100) % 50 == 0) | (rng.random(V) < 0.002)
+    elif case == "star":   # every vertex points at one hub
+        valid[:] = False
+        idx[:, 0], valid[:, 0] = V // 2, True
+        part[:], active[:] = 0, True
+    elif case == "duplicates":   # repeated slots and self edges
+        idx[:, 8:] = idx[:, :8]
+        idx[:, 3] = i
+        valid[:, 3] = True
+        valid[:, 8:] = valid[:, :8]
+    elif case == "partition_boundary":   # mutual pairs across partitions never join
+        idx[:, 0], idx[:, 1] = i ^ 1, np.maximum(i - 2, 0)
+        valid[:] = False
+        valid[:, 0] = valid[:, 1] = True
+        part = (i % 2).astype(np.int32)
+        active[:] = True
+    elif case == "downward_chain":   # i -> i - 1: every link climbs a chain
+        V = 100_000
+        idx, valid = np.zeros((V, K), np.int32), np.zeros((V, K), bool)
+        idx[1:, 0], valid[1:, 0] = np.arange(V - 1), True
+        part, active = np.zeros(V, np.int32), np.ones(V, bool)
+    return idx, valid, part, active
+
+
+@pytest.mark.parametrize("case", ["random", "chains", "sparse", "star", "duplicates",
+                                  "partition_boundary", "downward_chain", "k8", "k20"])
+def test_cc_labels_kernel(cuda, case):
+    """Kernel G against its plain version on crafted graphs, three launches
+    a call."""
+    t = [torch.as_tensor(a, device=cuda) for a in _cc_case(case)]
+    before = dev.LAUNCHES["cc_labels"]
     got = cc.cc_labels_device(*t)
-    _same(got, cc.cc_labels_plain(*t))
+    assert dev.LAUNCHES["cc_labels"] == before + 3
+    want = cc.cc_labels_plain(*t)
+    _same(got, want)
+    if case == "partition_boundary":   # pairs i, i ^ 1 stay apart
+        assert bool((want[0::2] != want[1::2]).all())
     sub, lab = cc.cc_round_voxel_compact(*t)
     torch.cuda.synchronize()
     assert torch.equal(lab.cpu(), got.cpu()[sub.cpu().long()])
@@ -480,41 +516,77 @@ def test_motion_search_kernel(cuda, bs):
     assert bool(((mv & 1) != 0).any())   # some half-pel vectors win
 
 
-def test_sao_kernel(cuda):
-    rng = np.random.default_rng(5)
-    P, H, W = 2, 96, 160
-    src = _smooth_planes(rng, P, H, W, 1023)
-    rec = np.clip(src + rng.integers(-6, 7, src.shape), 0, 1023).astype(np.int32)
-    t = lambda a: torch.as_tensor(a, device=cuda)
-    w = t((rng.random((P, H, W)) < 0.8).astype(np.int32))
-    lam = t(tab.LAMBDA[[20, 34]])
-    maxv = torch.full((P,), 1023, dtype=torch.int32, device=cuda)
-    cls, off = hevc.sao_search(t(src), t(rec), lam, w)
-    cls_p, off_p = hevc.sao_search_plain(t(src), t(rec), lam, w)
+def _sao_case(case, region, maxval):
+    """Kernel K's inputs (src, rec, weights, lam, maxvals) on crafted planes."""
+    rng = np.random.default_rng(sum(map(ord, case)) + region)
+    shape = {"one_region": (2, region, region), "one_row": (2, region, 4 * region),
+             "one_column": (2, 3 * region, region)}.get(case, (2, 96, 160))
+    P, H, W = shape
+    lam = tab.LAMBDA[[20, 34]]
+    if case == "clip_ties":
+        # rows alternating low/high (a plane at 0..2, a plane at maxval-2..
+        # maxval): the three vertical-axis classes tie, the lowest must win;
+        # the source far from rec clips every offset at -7 / +7 and the
+        # applied samples at 0 and maxval
+        low = np.array([0, maxval - 2])[:, None, None]
+        rows = (np.arange(H) % 2 * 2)[None, :, None]
+        rec = np.broadcast_to(low + rows, (P, H, W)).astype(np.int32)
+        src = (rec + np.where(rows == 0, -20, 20)).astype(np.int32)
+        w = np.ones((P, H, W), np.int32)
+        lam = tab.LAMBDA[[4, 4]]
+    else:
+        src = _smooth_planes(rng, P, H, W, maxval)
+        noise = 12 if maxval > 1023 else 6
+        rec = np.clip(src + rng.integers(-noise, noise + 1, src.shape), 0,
+                      maxval).astype(np.int32)
+        w = (rng.random((P, H, W)) < 0.8).astype(np.int32)
+        if case == "zero_weights":   # every other region row carries no weight
+            w.reshape(P, H // region, region, W)[:, ::2] = 0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+    return (t(src), t(rec), t(w), torch.as_tensor(lam, device="cuda"),
+            torch.full((P,), maxval, dtype=torch.int32, device="cuda"))
+
+
+def _sao_check(case, region, maxval):
+    """The three entries of kernel K against the plain search then apply,
+    bit for bit; one launch a fused call."""
+    src, rec, w, lam, maxv = _sao_case(case, region, maxval)
+    cls_p, off_p = hevc.sao_search_plain(src, rec, lam, w, region)
+    out_p = hevc.sao_apply_plain(rec, cls_p, off_p, maxv, region)
+    before = dev.LAUNCHES["sao"]
+    out, cls, off = hevc.sao_search_apply(src, rec, lam, w, maxv, region)
+    assert dev.LAUNCHES["sao"] == before + 1
     _same(cls, cls_p)
     _same(off, off_p)
-    assert int((cls > 0).sum()) > 0
-    _same(hevc.sao_apply(t(rec), cls, off, maxv), hevc.sao_apply_plain(t(rec), cls, off, maxv))
+    _same(out, out_p)
+    c2, o2 = hevc.sao_search(src, rec, lam, w, region)
+    _same(c2, cls_p)
+    _same(o2, off_p)
+    _same(hevc.sao_apply(rec, cls_p, off_p, maxv, region), out_p)
+    if case == "zero_weights":
+        assert int((cls_p[:, ::2] != 0).sum()) == 0
+    elif case == "clip_ties":
+        assert bool((cls_p == 2).all())
+        assert {-7, 7} <= set(off_p.flatten().tolist()) <= {-7, 0, 7}
+        assert int((out_p == 0).sum()) > 0 and int((out_p == maxval).sum()) > 0
+    if case in ("smooth", "zero_weights"):
+        assert int((cls_p > 0).sum()) > 0
 
 
-def test_sao_region16_kernel(cuda):
+@pytest.mark.parametrize("case,maxval", [("smooth", 255), ("smooth", 1023),
+                                         ("zero_weights", 1023), ("one_region", 255),
+                                         ("one_row", 1023), ("one_column", 255),
+                                         ("clip_ties", 255), ("clip_ties", 1023)])
+def test_sao_kernel(cuda, case, maxval):
+    """Kernel K at 32-px regions."""
+    _sao_check(case, 32, maxval)
+
+
+@pytest.mark.parametrize("case", ["smooth", "zero_weights", "one_region", "one_row",
+                                  "one_column", "clip_ties"])
+def test_sao_region16_kernel(cuda, case):
     """Kernel K at the two-level codec's 16-px regions on 11-bit planes."""
-    rng = np.random.default_rng(15)
-    P, H, W = 2, 96, 160
-    src = _smooth_planes(rng, P, H, W, 2047)
-    rec = np.clip(src + rng.integers(-12, 13, src.shape), 0, 2047).astype(np.int32)
-    t = lambda a: torch.as_tensor(a, device=cuda)
-    w = t((rng.random((P, H, W)) < 0.8).astype(np.int32))
-    lam = t(tab.LAMBDA[[4, 30]])
-    maxv = torch.full((P,), 2047, dtype=torch.int32, device=cuda)
-    cls, off = hevc.sao_search(t(src), t(rec), lam, w, 16)
-    cls_p, off_p = hevc.sao_search_plain(t(src), t(rec), lam, w, 16)
-    assert tuple(cls.shape) == (P, H // 16, W // 16)
-    _same(cls, cls_p)
-    _same(off, off_p)
-    assert int((cls > 0).sum()) > 0
-    _same(hevc.sao_apply(t(rec), cls, off, maxv, 16),
-          hevc.sao_apply_plain(t(rec), cls, off, maxv, 16))
+    _sao_check(case, 16, 2047)
 
 
 @pytest.mark.parametrize("has_ref", [False, True])

@@ -127,6 +127,10 @@ def test_sao_matches_reference(seed, maxval):
     np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_j))
     np.testing.assert_array_equal(
         r_t.numpy(), np.asarray(jh._sao_apply(jnp.asarray(rec), c_j, o_j, jnp.asarray(maxv))))
+    # the fused wrapper's plain path (the encoder's call) against all three outputs
+    fused = th.sao_search_apply(_t(src), _t(rec), _t(lam), _t(w), _t(maxv))
+    for got, want in zip(fused, (r_j, c_j, o_j)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------

@@ -44,8 +44,7 @@ def stage_patches():
         (hevc, "half_pel_mc", "device: kernel B half_pel_mc (MC plane)"),
         (hevc, "block_weights32", "device: RD block weights (torch)"),
         (hevc, "wavefront_encode32", "device: kernel I wavefront_encode32"),
-        (hevc, "sao_search", "device: kernel K sao_search"),
-        (hevc, "sao_apply", "device: kernel K sao_apply"),
+        (hevc, "sao_search_apply", "device: kernel K sao_search_apply"),
         (hevc, "assemble_payload32", "host: entropy coding + payload assembly"),
         (pipeline, "reconstruct_frame", "device: reconstruction + smoothing (C, D)"),
     ]

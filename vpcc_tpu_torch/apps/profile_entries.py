@@ -3,7 +3,7 @@ encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
     python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A]
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K] [--trace]
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
 
 --capture encodes one bench frame (`make_person_cloud(bits=10,
@@ -24,16 +24,32 @@ largest call of
   8-frame fixture (among the largest calls, the one that mixes inter and
   intra samples most evenly), and `hevc.wavefront_decode16` from the decode
   of that frame and the next bench frame encoded at
-  geometryNominal2dBitdepth=11 (the two-level codec).
+  geometryNominal2dBitdepth=11 (the two-level codec);
+* kernel G: every `cc.cc_labels_device` call of the bench frame's encode
+  (`cc_labels.r0` .. one a patch round: round 0 labels every voxel, the
+  later rounds the still uncovered ones), and the round-0
+  `cc.cc_round_voxel` call of a vox11 frame's front end
+  (`make_person_cloud(bits=11, n_samples=12_000_000, seed=7)` with the
+  configuration of the committed vox11 reference data);
+* kernel K: the encoder's SAO step (`hevc.sao_search_apply`, the largest
+  call) at 32-px regions from the bench frame's encode (`sao.encode32`)
+  and at 16-px regions from the geometryNominal2dBitdepth=11 encode
+  (`sao.encode16`), and the decoder's largest `hevc.sao_apply` call from the
+  fixture decode (`sao_apply.decode32`) and from the two-level decode
+  (`sao_apply.decode16`).
 --inputs times the entries of the kernels named by --kernels, in the package
 found under --root (default: this checkout), on those inputs, so that two
 commits can be compared on one card, one process each, in turns (the grids
-are built by each package from the saved points).  For each run and entry:
+are built by each package from the saved points; a package without
+`hevc.sao_search_apply` runs `sao_search` then `sao_apply` for the SAO
+step, whose three outputs are hashed either way).  For each run and entry:
 the call time (CUDA events over back-to-back calls, the wrapper's host work
-included: 100 calls for P, 20 for E and A) and the device time (one call
-captured in a CUDA graph and replayed as often).  Prints the card's name and
-power limit, then one JSON line: per entry, the runs' call and device
-milliseconds and the md5 of its output.  --summarize reads the JSON lines
+included: 100 calls for P, 20 for the others) and the device time (one call
+captured in a CUDA graph and replayed as often).  --trace adds, once per
+entry, each device kernel's time and launches a call (`torch.profiler` over
+as many calls).  Prints the card's name and power limit, then one JSON line:
+per entry, the runs' call and device milliseconds and the md5 of its output
+(and the trace).  --summarize reads the JSON lines
 of such runs (the logs of several processes) and prints, per checkout and
 entry, the median and quartiles of the call and device milliseconds over
 all runs, and whether the md5s of all runs agree.
@@ -47,6 +63,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -54,7 +71,7 @@ ROOT = Path(__file__).resolve().parents[2]
 P_ENTRIES = ("paint_attribute", "group_dilate", "gather_decoded_colors")
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
-REPS = {"P": 100, "E": 20, "A": 20}
+REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -107,14 +124,38 @@ def _mix(inter: int, total: int) -> int:
     return min(inter, total - inter)
 
 
+def keep_largest(kept: dict, name: str, region: Optional[int] = None):
+    """A `_spy` hook that keeps in kept[name] the call with the most
+    elements in its first argument, as (args, kw); given `region`, only
+    kernel K's calls at that region size."""
+    def before(args, kw):
+        if region is not None and kw.get("region", 32) != region:
+            return
+        if name not in kept or args[0].numel() > kept[name][0][0].numel():
+            kept[name] = (_clone(args), dict(kw))
+    return before
+
+
+def sao_step(hevc, src, rec, lam, w, maxv, region):
+    """The encoder's SAO step with one checkout's kernel K: (rec_sao, cls,
+    off)."""
+    if hasattr(hevc, "sao_search_apply"):
+        return hevc.sao_search_apply(src, rec, lam, w, maxv, region=region)
+    cls, off = hevc.sao_search(src, rec, lam, w, region=region)
+    return hevc.sao_apply(rec, cls, off, maxv, region=region), cls, off
+
+
 def capture_encode(frame, cfg, device) -> tuple:
-    """Encode one frame, keeping P's largest calls and E's largest call for
-    each k with its grid's points.  Returns (P inputs, E inputs)."""
+    """Encode one frame, keeping P's largest calls, E's largest call for
+    each k with its grid's points, every call of G and K's largest.
+    Returns (P inputs, E inputs, G inputs, K inputs)."""
     from vpcc_tpu_torch import pipeline
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import neighbors
+    from vpcc_tpu_torch.ops import cc, neighbors
+    from vpcc_tpu_torch.video import hevc
 
-    p_kept, e_kept, grids = {}, {}, {}
+    p_kept, e_kept, grids, k_kept = {}, {}, {}, {}
+    g_calls = []
 
     def keep_p(name):
         def before(args, kw):
@@ -135,7 +176,9 @@ def capture_encode(frame, cfg, device) -> tuple:
 
     undo = [_spy(pipeline, name, before=keep_p(name)) for name in P_ENTRIES]
     undo += [_spy(neighbors, "build_grid", after=grid_built),
-             _spy(neighbors, "knn", before=keep_e)]
+             _spy(neighbors, "knn", before=keep_e),
+             _spy(cc, "cc_labels_device", before=lambda a, kw: g_calls.append(_clone(a))),
+             _spy(hevc, "sao_search_apply", before=keep_largest(k_kept, "sao.encode32", 32))]
     try:
         Encoder(cfg, device=device).encode_gof([frame])
     finally:
@@ -156,12 +199,15 @@ def capture_encode(frame, cfg, device) -> tuple:
     e_in["grid_knn_batch"] = dict(pos=pad, bits=fwd["bits"], cell_bits=None,
                                   q=fwd["q"][None].expand(3, -1, -1).contiguous(), k=8,
                                   bucket=fwd["bucket"])
-    return {name: args for name, (_, args) in p_kept.items()}, e_in
+    g_in = {f"cc_labels.r{i}": args for i, args in enumerate(g_calls)}
+    return {name: args for name, (_, args) in p_kept.items()}, e_in, g_in, k_kept
 
 
-def capture_decode(stream: bytes, name: str, device) -> list:
+def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
+                   sao_name: str = "", region: int = 32) -> list:
     """Decode `stream`, keeping kernel A's (`name`) largest call that mixes
-    inter and intra samples most evenly."""
+    inter and intra samples most evenly (and, given `sao`, kernel K's
+    largest `sao_apply` call at `region` in sao[sao_name])."""
     from vpcc_tpu_torch.decoder import Decoder
     from vpcc_tpu_torch.video import hevc
     from vpcc_tpu_torch.video.hevc_tables import MODE_INTER
@@ -189,23 +235,50 @@ def capture_decode(stream: bytes, name: str, device) -> list:
         if not kept or k > kept[0]:
             kept[:] = [k, _clone(args)]
 
-    undo = _spy(hevc, name, before=before)
+    undo = [_spy(hevc, name, before=before)]
+    if sao is not None:
+        undo.append(_spy(hevc, "sao_apply", before=keep_largest(sao, sao_name, region)))
     try:
         Decoder(device=device).decode(stream)
     finally:
-        undo()
+        for u in undo:
+            u()
     if not kept:
         raise RuntimeError(f"{name} was not called")
     return kept[1]
 
 
+def capture_vox11(device) -> list:
+    """The round-0 `cc_round_voxel` call of a vox11 frame's front end."""
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import cc
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+    from vpcc_tpu_torch.utils.synthetic import make_person_cloud
+
+    ref = json.loads((ROOT / "vpcc_tpu_torch" / "data" / "person_vox11_reference.json")
+                     .read_text())
+    cfg = VPCCConfig()
+    for k, v in ref["overrides"].items():
+        setattr(cfg, k, v)
+    frame = make_person_cloud(bits=cfg.geometryBitDepth3D, n_samples=ref["n_samples"],
+                              seed=ref["seeds"][0])
+    calls = []
+    undo = _spy(cc, "cc_round_voxel", before=lambda a, kw: calls.append(_clone(a)))
+    try:
+        Encoder(cfg, device=device).encode_gof_front([frame])
+    finally:
+        undo()
+    return calls[0]
+
+
 def capture(path: Path, device="cuda") -> None:
     """Encode and decode bench frames on `device` and save the inputs of
-    kernels P, E and A."""
+    kernels P, E, A, G and K."""
     from vpcc_tpu_torch import device as dev
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.utils.config import VPCCConfig
     from vpcc_tpu_torch.utils.synthetic import make_person_cloud
+    from vpcc_tpu_torch.video import hevc
 
     data = ROOT / "vpcc_tpu_torch" / "data"
     ref = json.loads((data / "person_vox10_front_digests.json").read_text())
@@ -214,26 +287,44 @@ def capture(path: Path, device="cuda") -> None:
         setattr(cfg, k, v)
     dev.build_kernels()
     frames = [make_person_cloud(bits=10, n_samples=3_000_000, seed=s) for s in ref["seeds"][:2]]
-    p_in, e_in = capture_encode(frames[0], cfg, device)
+    p_in, e_in, g_in, k_in = capture_encode(frames[0], cfg, device)
+    sao_calls = {}
     a_in = {"wavefront_decode32": capture_decode(
-        (data / "person_vox10_r3_gof8.vpcc").read_bytes(), "wavefront_decode32", device)}
+        (data / "person_vox10_r3_gof8.vpcc").read_bytes(), "wavefront_decode32", device,
+        sao_calls, "sao_apply.decode32")}
     cfg.geometryNominal2dBitdepth = 11
-    stream, _ = Encoder(cfg, device=device).encode_gof(frames)
-    a_in["wavefront_decode16"] = capture_decode(stream, "wavefront_decode16", device)
+    sao16 = {}
+    undo = _spy(hevc, "sao_search_apply", before=keep_largest(sao16, "sao.encode16", 16))
+    try:
+        stream, _ = Encoder(cfg, device=device).encode_gof(frames)
+    finally:
+        undo()
+    a_in["wavefront_decode16"] = capture_decode(stream, "wavefront_decode16", device,
+                                                sao_calls, "sao_apply.decode16", 16)
+    g_in["cc_round_voxel.vox11"] = capture_vox11(device)
+    # K: (args, kw) per entry, the region as an argument
+    k_in = {**k_in, **sao16, **sao_calls}
+    k_in = {n: [*args, kw.get("region", 32)] for n, (args, kw) in k_in.items()}
     cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
     torch.save({"P": {n: [cpu(a) for a in args] for n, args in p_in.items()},
                 "E": {n: {k: cpu(v) for k, v in c.items()} for n, c in e_in.items()},
-                "A": {n: [cpu(a) for a in args] for n, args in a_in.items()}}, path)
+                "A": {n: [cpu(a) for a in args] for n, args in a_in.items()},
+                "G": {n: [cpu(a) for a in args] for n, args in g_in.items()},
+                "K": {n: [cpu(a) for a in args] for n, args in k_in.items()}}, path)
     print(f"captured P {sorted(p_in)}: rows {p_in['paint_attribute'][0].shape[0]}; E "
           + ", ".join(f"{n} {tuple(c['q'].shape)} k={c['k']} bucket={c['bucket']}"
                       for n, c in e_in.items())
-          + "; A " + ", ".join(f"{n} {tuple(a[0].shape)}" for n, a in a_in.items()))
+          + "; A " + ", ".join(f"{n} {tuple(a[0].shape)}" for n, a in a_in.items())
+          + "; G " + ", ".join(f"{n} {tuple(a[0].shape)} active {int(a[-1].sum())}"
+                              for n, a in g_in.items())
+          + "; K " + ", ".join(f"{n} {tuple(a[1 if n.startswith('sao.') else 0].shape)} "
+                              f"region {a[-1]}" for n, a in k_in.items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     """name -> (kernel letter, a call of that entry on the captured inputs)
     for the entries of `kernels`, with the modules of one checkout."""
-    pipeline, neighbors, hevc = pkg["pipeline"], pkg["neighbors"], pkg["hevc"]
+    pipeline, neighbors, hevc, cc = pkg["pipeline"], pkg["neighbors"], pkg["hevc"], pkg["cc"]
     on = lambda args: [a.to(device) if torch.is_tensor(a) else a for a in args]
     calls = {}
     if "P" in kernels:
@@ -265,9 +356,20 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     if "A" in kernels:
         for name, args in inputs["A"].items():
             calls[name] = lambda f=getattr(hevc, name), a=on(args): f(*a)
+    if "G" in kernels:
+        for name, args in inputs["G"].items():
+            fn = cc.cc_round_voxel if name.startswith("cc_round_voxel") else cc.cc_labels_device
+            calls[name] = lambda f=fn, a=on(args): f(*a)
+    if "K" in kernels:
+        for name, args in inputs["K"].items():
+            *a, region = on(args)
+            if name.startswith("sao_apply"):
+                calls[name] = lambda a=a, r=region: hevc.sao_apply(*a, region=r)
+            else:
+                calls[name] = lambda a=a, r=region: sao_step(hevc, *a, r)
     letter = {n: "P" for n in calls}
-    letter.update({n: "E" for n in inputs["E"] if n in calls})
-    letter.update({n: "A" for n in inputs["A"] if n in calls})
+    for k in "EAGK":
+        letter.update({n: k for n in inputs.get(k, {}) if n in calls})
     return {n: (letter[n], fn) for n, fn in calls.items()}
 
 
@@ -278,15 +380,39 @@ def md5(out) -> str:
     return h.hexdigest()
 
 
-def profile(inputs_path: Path, root: Path, runs: int, kernels: str) -> dict:
+def kernel_trace(fn, reps: int) -> dict:
+    """Device kernels of `reps` calls of fn under torch.profiler: kernel
+    name -> [device us a call, launches a call]."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            out[e.key[:80]] = [round(t / reps, 3), e.count / reps]
+    return out
+
+
+def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
+            trace: bool = False) -> dict:
     sys.path.insert(0, str(root))
     from vpcc_tpu_torch import pipeline
-    from vpcc_tpu_torch.ops import neighbors
+    from vpcc_tpu_torch.ops import cc, neighbors
     from vpcc_tpu_torch.video import hevc
 
     if Path(pipeline.__file__).resolve().parents[1] != root.resolve():
         raise RuntimeError(f"imported {pipeline.__file__}, not the package under {root}")
-    calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc},
+    calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc, "cc": cc},
                         torch.load(inputs_path), kernels)
     res = {name: {"md5": md5(fn()), "call_ms": [], "device_ms": []}
            for name, (_, fn) in calls.items()}
@@ -294,6 +420,9 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str) -> dict:
         for name, (letter, fn) in calls.items():
             res[name]["call_ms"].append(time_ms(fn, REPS[letter]))
             res[name]["device_ms"].append(graph_ms(fn, REPS[letter]))
+    if trace:
+        for name, (letter, fn) in calls.items():
+            res[name]["kernels"] = kernel_trace(fn, REPS[letter])
     return res
 
 
@@ -329,7 +458,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A", help="kernels whose entries are timed")
+    ap.add_argument("--kernels", default="P,E,A,G,K", help="kernels whose entries are timed")
+    ap.add_argument("--trace", action="store_true",
+                    help="also each device kernel's time and launches a call")
     ap.add_argument("--summarize", nargs="+", type=Path, help="logs of --inputs runs")
     a = ap.parse_args(argv)
     if a.summarize:
@@ -352,7 +483,7 @@ def main(argv=None) -> int:
         return 0
     if not a.inputs:
         ap.error("give --capture or --inputs")
-    res = profile(a.inputs, a.root, a.runs, a.kernels)
+    res = profile(a.inputs, a.root, a.runs, a.kernels, a.trace)
     print(json.dumps({"root": str(a.root), "card": smi, "entries": res}))
     return 0
 

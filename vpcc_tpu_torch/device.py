@@ -98,6 +98,7 @@ BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -270,6 +271,18 @@ def load_kernel(name: str) -> ctypes.CDLL:
                 build_kernels([name])
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+def kernel_fn(name: str, entry: str, argtypes: list):
+    """The C entry `entry` of kernel `name`'s library with its argument and
+    result types set once (ctypes rebuilds its converters each time they
+    are set, a visible share of a short call)."""
+    fn = _fns.get((name, entry))
+    if fn is None:
+        fn = getattr(load_kernel(name), entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _fns[(name, entry)] = fn
+    return fn
 
 
 def build_host_library(src: Path, stem: str) -> Path:

@@ -67,10 +67,9 @@ def cc_labels_device(nn_idx, nn_valid, partition, active):
     dev.check_tensor(active, "active", torch.bool, d, 1)
     parent = torch.empty(V, dtype=torch.int32, device=d)
     labels = torch.empty(V, dtype=torch.int32, device=d)
-    fn = dev.load_kernel("cc_labels").cc_labels
-    fn.argtypes, fn.restype = _ARGS, ctypes.c_int
-    rc = fn(dev.ptr(nn_idx), dev.ptr(nn_valid), dev.ptr(partition), dev.ptr(active),
-            V, K, V, dev.ptr(parent), dev.ptr(labels), dev.stream_handle())
+    fn = dev.kernel_fn("cc_labels", "cc_labels", _ARGS)
+    rc = fn(nn_idx.data_ptr(), nn_valid.data_ptr(), partition.data_ptr(), active.data_ptr(),
+            V, K, V, parent.data_ptr(), labels.data_ptr(), dev.stream_handle())
     dev.count_launch("cc_labels", (3 if K else 2) if V else 0)
     dev.check_launch("cc_labels", rc)
     return labels

@@ -33,8 +33,8 @@ Stages of `encode_planes`:
    the RD quadtree decisions, the syntax and the reconstruction, one launch
    a call (CUs in wavefront order behind per-CU ready flags);
 4. device, kernel O `deblock` (attribute planes), then kernel K
-   `sao_search` + `sao_apply`: per-region SAO parameters (32-px regions;
-   two-level: 16-px) and the final reconstruction;
+   `sao_search_apply` (one launch): per-region SAO parameters (32-px
+   regions; two-level: 16-px) and the final reconstruction;
 5. host: `assemble_payload32` (two-level: `assemble_payload16`), the
    entropy coder.
 Stages 1-4 are `encode_planes_dispatch`, which leaves a `Coded` on the
@@ -1291,14 +1291,41 @@ def sao_search_plain(src, rec, lam, weights, region: int = SAO_REGION):
 
 _SAO_SEARCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _SAO_APPLY_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SAO_BOTH_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def _check_sao(rec, region: int):
+def _check_sao(what: str, rec, region: int, *others):
+    """Kernel K's int32 planes (rec and the named `others`): one shape, a
+    multiple of the region, contiguous and 16-byte aligned (the kernel reads
+    and writes runs of four samples).  Returns (P, H, W)."""
     P, H, W = rec.shape
     if region not in (CU, CU32) or H % region or W % region:
-        raise ValueError(f"sao: plane {tuple(rec.shape)} is not a multiple of {region}, "
+        raise ValueError(f"{what}: plane {tuple(rec.shape)} is not a multiple of {region}, "
                          f"or the region is neither {CU} nor {CU32}")
+    for name, t in (("rec", rec), *others):
+        dev.check_tensor(t, name, torch.int32, rec.device, 3)
+        if t.shape != rec.shape:
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
     return P, H, W
+
+
+def _check_per_plane(what: str, rec, *vectors):
+    """Kernel K's per-plane vectors (name, tensor, dtype): one value a plane."""
+    for name, t, dtype in vectors:
+        dev.check_tensor(t, name, dtype, rec.device, 1)
+        if t.shape[0] != rec.shape[0]:
+            raise ValueError(f"{what}: {name} has {t.shape[0]} values for {rec.shape[0]} planes")
+
+
+def _check_sao_params(what: str, rec, sao_cls, sao_off, region: int):
+    P, H, W = rec.shape
+    dev.check_tensor(sao_cls, "sao_cls", torch.int8, rec.device, 3)
+    dev.check_tensor(sao_off, "sao_off", torch.int8, rec.device, 4)
+    if sao_cls.shape != (P, H // region, W // region) or \
+            sao_off.shape != (P, H // region, W // region, 4):
+        raise ValueError(f"{what}: params {tuple(sao_cls.shape)} / {tuple(sao_off.shape)}")
 
 
 def sao_search(src, rec, lam, weights, region: int = SAO_REGION):
@@ -1307,46 +1334,60 @@ def sao_search(src, rec, lam, weights, region: int = SAO_REGION):
     if rec.device.type == "cpu":
         return sao_search_plain(src, rec, lam, weights, region)
     d = rec.device
-    P, H, W = _check_sao(rec, region)
-    for name, t in (("src", src), ("rec", rec), ("weights", weights)):
-        dev.check_tensor(t, name, torch.int32, d, 3)
-        if t.shape != rec.shape:
-            raise ValueError(f"sao_search: {name} shape {tuple(t.shape)}")
-    dev.check_tensor(lam, "lam", torch.float32, d, 1)
+    P, H, W = _check_sao("sao_search", rec, region, ("src", src), ("weights", weights))
+    _check_per_plane("sao_search", rec, ("lam", lam, torch.float32))
     ry, rx = H // region, W // region
     cls = torch.empty((P, ry, rx), dtype=torch.int8, device=d)
     off = torch.empty((P, ry, rx, 4), dtype=torch.int8, device=d)
-    fn = dev.load_kernel("sao").sao_search
-    fn.argtypes, fn.restype = _SAO_SEARCH_ARGS, ctypes.c_int
-    rc = fn(dev.ptr(src), dev.ptr(rec), dev.ptr(weights), dev.ptr(lam),
-            dev.ptr(cls), dev.ptr(off), P, H, W, region, dev.stream_handle())
-    dev.count_launch("sao")
+    fn = dev.kernel_fn("sao", "sao_search", _SAO_SEARCH_ARGS)
+    rc = fn(src.data_ptr(), rec.data_ptr(), weights.data_ptr(), lam.data_ptr(),
+            cls.data_ptr(), off.data_ptr(), P, H, W, region, dev.stream_handle())
+    dev.count_launch("sao", 1 if rec.numel() else 0)
     dev.check_launch("sao", rc)
     return cls, off
 
 
 def sao_apply(rec, sao_cls, sao_off, maxvals, region: int = SAO_REGION):
-    """Kernel K, apply entry (csrc/sao.cu `sao_apply`): one thread per
-    pixel; `sao_apply_plain` on the CPU.  sao_cls/sao_off int8."""
+    """Kernel K, apply entry (csrc/sao.cu `sao_apply`): one block per
+    region; `sao_apply_plain` on the CPU.  sao_cls/sao_off int8."""
     if rec.device.type == "cpu":
         return sao_apply_plain(rec, sao_cls, sao_off, maxvals, region)
-    d = rec.device
-    P, H, W = _check_sao(rec, region)
-    dev.check_tensor(rec, "rec", torch.int32, d, 3)
-    dev.check_tensor(sao_cls, "sao_cls", torch.int8, d, 3)
-    dev.check_tensor(sao_off, "sao_off", torch.int8, d, 4)
-    dev.check_tensor(maxvals, "maxvals", torch.int32, d, 1)
-    if sao_cls.shape != (P, H // region, W // region) or \
-            sao_off.shape != (P, H // region, W // region, 4):
-        raise ValueError(f"sao_apply: params {tuple(sao_cls.shape)} / {tuple(sao_off.shape)}")
+    P, H, W = _check_sao("sao_apply", rec, region)
+    _check_sao_params("sao_apply", rec, sao_cls, sao_off, region)
+    _check_per_plane("sao_apply", rec, ("maxvals", maxvals, torch.int32))
     out = torch.empty_like(rec)
-    fn = dev.load_kernel("sao").sao_apply
-    fn.argtypes, fn.restype = _SAO_APPLY_ARGS, ctypes.c_int
-    rc = fn(dev.ptr(rec), dev.ptr(sao_cls), dev.ptr(sao_off), dev.ptr(maxvals),
-            dev.ptr(out), P, H, W, region, dev.stream_handle())
-    dev.count_launch("sao")
+    fn = dev.kernel_fn("sao", "sao_apply", _SAO_APPLY_ARGS)
+    rc = fn(rec.data_ptr(), sao_cls.data_ptr(), sao_off.data_ptr(), maxvals.data_ptr(),
+            out.data_ptr(), P, H, W, region, dev.stream_handle())
+    dev.count_launch("sao", 1 if rec.numel() else 0)
     dev.check_launch("sao", rc)
     return out
+
+
+def sao_search_apply(src, rec, lam, weights, maxvals, region: int = SAO_REGION):
+    """Kernel K's search and apply in one launch (csrc/sao.cu
+    `sao_search_apply`), as the reference's `_sao_search_apply` computes
+    them: returns (rec_sao (P, H, W) int32, sao_cls (P, Ry, Rx) int8,
+    sao_off (P, Ry, Rx, 4) int8).  On the CPU, `sao_search_plain` then
+    `sao_apply_plain`."""
+    if rec.device.type == "cpu":
+        cls, off = sao_search_plain(src, rec, lam, weights, region)
+        return sao_apply_plain(rec, cls, off, maxvals, region), cls, off
+    d = rec.device
+    P, H, W = _check_sao("sao_search_apply", rec, region, ("src", src), ("weights", weights))
+    _check_per_plane("sao_search_apply", rec, ("lam", lam, torch.float32),
+                     ("maxvals", maxvals, torch.int32))
+    ry, rx = H // region, W // region
+    cls = torch.empty((P, ry, rx), dtype=torch.int8, device=d)
+    off = torch.empty((P, ry, rx, 4), dtype=torch.int8, device=d)
+    out = torch.empty_like(rec)
+    fn = dev.kernel_fn("sao", "sao_search_apply", _SAO_BOTH_ARGS)
+    rc = fn(src.data_ptr(), rec.data_ptr(), weights.data_ptr(), lam.data_ptr(),
+            maxvals.data_ptr(), out.data_ptr(), cls.data_ptr(), off.data_ptr(), P, H, W, region,
+            dev.stream_handle())
+    dev.count_launch("sao", 1 if rec.numel() else 0)
+    dev.check_launch("sao", rc)
+    return out, cls, off
 
 
 # ---------------------------------------------------------------------------
@@ -1959,8 +2000,7 @@ def encode_planes_dispatch(planes, qps, maxvals, refs=None, occ=None, deblock: b
     if deblock:
         rec = deblock_planes(rec, tt(qp_c.astype(np.int32)), maxv)
     region = CU if two_level else SAO_REGION
-    sao_cls, sao_off = sao_search(src, rec, lam, wgt, region=region)
-    rec = sao_apply(rec, sao_cls, sao_off, maxv, region=region)
+    rec, sao_cls, sao_off = sao_search_apply(src, rec, lam, wgt, maxv, region=region)
     rec = _untile(rec, P, ty, tx)[:, :H, :W].contiguous()
     syntax.update(mv=mv.to(torch.int8), sao_cls=sao_cls, sao_off=sao_off)
     return Coded(syntax, rec, [int(q) for q in qps], [int(m) for m in maxvals], has_ref,
