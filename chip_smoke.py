@@ -28,14 +28,17 @@ the encoder front end (kernels E-H):
    kernel G (`cc_labels_device`, one a patch round);
 7. holds each kernel against its plain version there (k-NN, CC labels and
    coverage exactly; the segment kernel's partitions exactly given the same
-   normals, its normals to NORMAL_ATOL) and times both in turns; holds
-   every captured kernel G call exactly and times round 0 and the sparsest
-   round (call and device times);
+   normals, its normals to NORMAL_ATOL, its device centroid equal to the
+   tensor twin, and its chain run again under
+   torch.cuda.set_sync_debug_mode("error") in CHAIN_LAUNCHES launches)
+   and times both in turns (the bound counts the sweeps the chain ran);
+   holds every captured kernel G call exactly and times round 0 and the
+   sparsest round (call and device times);
 8. with all launch counters at 0, runs the front end over the GOF again,
    prints warm seconds per frame and the stage split, requires the k-NN
    digests to equal the JAX package's and the partition agreement to reach
    PARTITION_FLOOR, and requires every kernel E-H to have launched, G three
-   times a call;
+   times a call, F CHAIN_LAUNCHES times a chain;
 9. runs the patch-generation half driven by the committed JAX partitions
    and requires all 8 frames' patches, atlas, occupancy video and
    block-to-patch to equal the JAX digests;
@@ -46,7 +49,9 @@ kernel K's apply):
     frames driven by the committed JAX partitions (their atlas frames are
     the JAX package's) once (warm-up), keeping each kernel's largest call
     (for the wavefront encode, a motion-searched P-frame plane);
-11. holds each kernel against its plain version there (syntax, MVs, SAO
+11. holds kernel J against its plain version on every captured call of the
+    warm-up (vectors and rates bit for bit), and each kernel against its
+    plain version on its largest call (syntax, MVs, SAO
     parameters and planes identical; kernel K's `sao_search_apply`, the
     encoder's one launch, against the plain search then apply and against
     its own `sao_search` then `sao_apply`) and times both in turns, and kernel L
@@ -236,7 +241,8 @@ dispatch and the recolor batch the frames of one hierarchy level; kernel
 E's and M's frame-batched entries), on the 8 bench frames at r3 driven by
 the JAX partitions:
 47. a cold encode, keeping the largest call of each batched entry, and the
-    level groups (level, shape, inter or intra, frames);
+    level groups (level, shape, inter or intra, frames); holds kernel J
+    against its plain version on every call (the level's plane stacks);
 48. with all launch counters at 0, warm encodes in turns (sequential,
     level-batched, level-batched, sequential): seconds per frame of each,
     the stage split, launches per level group (every kernel of the path
@@ -275,7 +281,9 @@ geometryNominal2dBitdepth=11 and r3, driven by the JAX partitions:
     (its decoded plane shifted by (3, -2) as the reference) and on a crafted
     1280x1280 random-walk plane spanning 0..2047 (each payload decoding to
     the encoder's planes), timing the kernels (2 x 5 launches) and the plain
-    versions (one run) on the GOF's calls;
+    versions (one run) on the GOF's calls; holds kernel J at 16-px CUs
+    against its plain version on every call of the GOF and the P-plane and
+    times the largest;
 55. runs `apps/video_codec.py` encode and decode on three 256x256 11-bit
     depth frames and requires the decode to equal the geometry coder's
     reconstruction;
@@ -419,6 +427,9 @@ DECODE_KERNELS = ("wavefront_decode32", "half_pel_mc", "generate_points", "grid_
 FRONT_KERNELS = ("grid_knn", "segment", "cc_labels", "coverage")
 # kernel G's launches a call (init, hook, finalize)
 CC_LAUNCHES = 3
+# kernel F's launches a segmentation chain (PCA, orientation, initial +
+# refined partition)
+CHAIN_LAUNCHES = 3
 GEOMETRY_KERNELS = ("wavefront_encode32", "motion_search", "sao", "push_pull")
 ATTR_ENTRIES = ("attr_paint", "attr_group_dilate", "attr_gather")
 ENCODE_KERNELS = ("recolor", "presmooth", "deblock", *ATTR_ENTRIES, "color_convert")
@@ -565,10 +576,11 @@ class Capture:
             setattr(mod, attr, self.saved[name])
 
 
-def bounds(name, args, out):
+def bounds(name, args, out, sweeps=None):
     """(bound_ms, bound_by) for one call: bytes of inputs read once and
     outputs written once over HBM bandwidth, against the integer/float
-    operations these inputs need over the CUDA-core peak."""
+    operations these inputs need over the CUDA-core peak.  `sweeps`: kernel
+    F's (orientation, refinement) sweeps this input needs."""
     import numpy as np
 
     if name == "wavefront_decode32":
@@ -742,11 +754,13 @@ def bounds(name, args, out):
     elif name == "segment":
         pos, idx, valid = args[:3]
         V, K = idx.shape
-        J, n_orient, n_refine = 6, 8, 10
+        # the sweeps the chain ran (they end once one changes nothing)
+        J = 6
+        n_orient, n_refine = sweeps
         byt = nbytes(pos, idx, valid, *out)
         # per voxel: mean + deviations + 6 covariance FMAs over K, the
-        # eigen solver (~120), the radial sign, 8 sweeps of K signed dot
-        # products, the initial argmax, 10 sweeps of K votes over J plus J
+        # eigen solver (~120), the radial sign, the sweeps of K signed dot
+        # products, the initial argmax, the sweeps of K votes over J plus J
         # scores
         per = (25 * K + 120 + 8 + n_orient * (9 * K + 3) + 6 * J
                + n_refine * (2 * J * K + 7 * J + 1))
@@ -1116,13 +1130,19 @@ def front_digests(fr):
     )
 
 
-def segment_chain(normals, segmentation, pos, idx, valid, plain: bool):
-    """Kernel F's four stages on one voxel graph, as the encoder runs them;
-    with `plain`, their plain versions.  Returns (pca, oriented, initial,
-    refined)."""
-    rows = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
-    o = torch.as_tensor(segmentation.ORIENTATIONS6, device=pos.device)
-    w = torch.ones(6, dtype=torch.float32, device=pos.device)
+def chain_consts(segmentation, pos):
+    """The encoder's constant inputs of kernel F's chain on the device:
+    (valid rows, orientations, weights)."""
+    return (torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device),
+            torch.as_tensor(segmentation.ORIENTATIONS6, device=pos.device),
+            torch.ones(6, dtype=torch.float32, device=pos.device))
+
+
+def segment_chain(normals, segmentation, pos, idx, valid, consts, plain: bool):
+    """Kernel F's stages on one voxel graph, as the encoder runs them (PCA,
+    orientation, initial + refined partition in one launch); with `plain`,
+    their plain versions.  Returns (pca, oriented, initial, refined)."""
+    rows, o, w = consts
     if plain:
         pca = normals.pca_normals_plain(pos, idx, valid)
         nrm = normals.orient_normals_plain(pos, pca, idx, valid, rows)
@@ -1130,8 +1150,56 @@ def segment_chain(normals, segmentation, pos, idx, valid, plain: bool):
         return pca, nrm, p0, segmentation.refine_segmentation_plain(nrm, p0, idx, valid, o, 3.0, 10)
     pca = normals.pca_normals(pos, idx, valid)
     nrm = normals.orient_normals(pos, pca, idx, valid, rows)
-    p0 = segmentation.initial_segmentation(nrm, o, w)
-    return pca, nrm, p0, segmentation.refine_segmentation(nrm, p0, idx, valid, o, 3.0, 10)
+    return (pca, nrm, *segmentation.segment_partitions(nrm, o, w, idx, valid, 3.0, 10))
+
+
+def segment_check(dev, normals, segmentation, args, out_k, out_p):
+    """Kernel F's chain against its plain version: normals to NORMAL_ATOL;
+    given the plain version's normals, the orientation and the partitions
+    of both partition entries (`segment_partitions`,
+    `refine_segmentation`) identical; the device centroid equal to its
+    tensor twin; the chain run again under
+    torch.cuda.set_sync_debug_mode("error"), so that a host wait fails, in
+    CHAIN_LAUNCHES launches.  Returns (the detail line, the (orientation,
+    refinement) sweeps the kernel chain ran)."""
+    pos, idx, valid = args
+    consts = chain_consts(segmentation, pos)
+    rows, o, w = consts
+    err = float((out_k[0] - out_p[0]).abs().max())
+    got_o, cen, _ = normals.orient_launch(pos, out_p[0], idx, valid, rows)
+    same = torch.equal(got_o, out_p[1])
+    cen_ok = torch.equal(cen, normals.orientation_centroid_device(pos, rows))
+    p0, p1 = segmentation.segment_partitions(out_p[1], o, w, idx, valid, 3.0, 10)
+    same = same and torch.equal(p0, out_p[2]) and torch.equal(p1, out_p[3])
+    same = same and torch.equal(
+        segmentation.refine_segmentation(out_p[1], out_p[2], idx, valid, o, 3.0, 10), out_p[3])
+    torch.cuda.synchronize()
+    before = dev.LAUNCHES["segment"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = segment_chain(normals, segmentation, pos, idx, valid, consts, plain=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    chain_launches = dev.LAUNCHES["segment"] - before
+    same = same and all(torch.equal(a, b) for a, b in zip(again, out_k))
+    # the sweeps of the kernel chain's own stages (they end once one
+    # changes nothing), for its bound
+    got_o, _, o_flags = normals.orient_launch(pos, out_k[0], idx, valid, rows)
+    *got_p, p_flags = segmentation.partition_launch(out_k[1], o, w, idx, valid, 3.0, 10, None)
+    same = same and torch.equal(got_o, out_k[1]) and all(
+        torch.equal(a, b) for a, b in zip(got_p, out_k[2:]))
+    sweeps = (normals.sweeps_run(o_flags), normals.sweeps_run(p_flags))
+    agree = float((out_k[3] == out_p[3]).float().mean())
+    if err > NORMAL_ATOL or not same or not cen_ok or chain_launches != CHAIN_LAUNCHES:
+        raise AssertionError(f"segment: kernel differs from its plain version (normals max "
+                             f"abs err {err}, stages identical {same}, centroid {cen_ok}, "
+                             f"{chain_launches} launches a chain)")
+    return (f"normals max abs err {err:.3g} (tolerance {NORMAL_ATOL}); orientation, "
+            f"initial and refined partitions identical given the same normals; device "
+            f"centroid equal to its tensor twin; {chain_launches} launches a chain, no host "
+            f"synchronisation (sync debug mode \"error\"); sweeps run: orientation "
+            f"{sweeps[0]} of {normals.ORIENT_ITERATIONS}, refinement {sweeps[1]} of 10; "
+            f"chain-to-chain refined agreement {agree:.6f}"), sweeps
 
 
 def cc_all_check(cc, calls) -> None:
@@ -1217,9 +1285,10 @@ def front_phase(dev):
                      (grid, q, 3 * bucket)),
     }
     _, seg_args, _ = cap.calls["segment"]
-    checks["segment"] = (lambda: segment_chain(normals, segmentation, *seg_args, plain=False),
-                         lambda: segment_chain(normals, segmentation, *seg_args, plain=True),
-                         seg_args)
+    consts = chain_consts(segmentation, seg_args[0])
+    checks["segment"] = (
+        lambda: segment_chain(normals, segmentation, *seg_args, consts, plain=False),
+        lambda: segment_chain(normals, segmentation, *seg_args, consts, plain=True), seg_args)
     _, cc_args, _ = cap.calls["cc_labels"]
     checks["cc_labels"] = (lambda: cc.cc_labels_device(*cc_args),
                            lambda: cc.cc_labels_plain(*cc_args), cc_args)
@@ -1238,21 +1307,7 @@ def front_phase(dev):
             # normals to a tolerance; the later stages fed the plain
             # version's normals, so their results must be identical
             err = float((out_k[0] - out_p[0]).abs().max())
-            pos, idx, valid = args
-            rws = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
-            same = torch.equal(normals.orient_normals(pos, out_p[0], idx, valid, rws), out_p[1])
-            o = torch.as_tensor(segmentation.ORIENTATIONS6, device=pos.device)
-            w = torch.ones(6, dtype=torch.float32, device=pos.device)
-            p0 = segmentation.initial_segmentation(out_p[1], o, w)
-            same = same and torch.equal(p0, out_p[2]) and torch.equal(
-                segmentation.refine_segmentation(out_p[1], p0, idx, valid, o, 3.0, 10), out_p[3])
-            agree = float((out_k[3] == out_p[3]).float().mean())
-            if err > NORMAL_ATOL or not same:
-                raise AssertionError(f"segment: kernel differs from its plain version "
-                                     f"(normals max abs err {err}, stages identical {same})")
-            detail = (f"normals max abs err {err:.3g} (tolerance {NORMAL_ATOL}); orientation, "
-                      f"initial and refined partitions identical given the same normals; "
-                      f"chain-to-chain refined agreement {agree:.6f}")
+            detail, sweeps = segment_check(dev, normals, segmentation, args, out_k, out_p)
             b_out = (out_k[0], out_k[3])
         else:
             err = max_abs_err(out_k, out_p)
@@ -1265,7 +1320,8 @@ def front_phase(dev):
             if name == "grid_knn":
                 detail += f", device {graph_ms(kern):.4f} ms a call (CUDA graph replay), k={k}"
         (k1, k2), (p1, p2) = time_turns(kern, plain)
-        b_ms, b_by = bounds(name, args, b_out)
+        b_ms, b_by = bounds(name, args, b_out,
+                            sweeps=sweeps if name == "segment" else None)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         print(f"{name}: {detail}; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}); inputs {shapes}")
@@ -1274,9 +1330,8 @@ def front_phase(dev):
 
     # 8. the main path, counted and timed; the spies keep references to
     # each frame's k-NN result and partitions for the checks afterwards
-    seen = {"knn": [], "initial": [], "refined": []}
-    spied = [(neighbors, "knn", "knn"), (enc_mod, "initial_segmentation", "initial"),
-             (enc_mod, "refine_segmentation", "refined")]
+    seen = {"knn": [], "partitions": []}
+    spied = [(neighbors, "knn", "knn"), (enc_mod, "segment_partitions", "partitions")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in spied]
     for (mod, attr, key), (_, _, fn) in zip(spied, saved):
         def spy(*a, _fn=fn, _key=key, **kw):
@@ -1288,7 +1343,8 @@ def front_phase(dev):
         dev.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with Capture({"cc_labels": wrappers["cc_labels"]}, keep=False) as g_calls:
+        with Capture({"cc_labels": wrappers["cc_labels"],
+                      "segment": wrappers["segment"]}, keep=False) as g_calls:
             out = Encoder(cfg, device="cuda").encode_gof_front(frames)
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -1300,6 +1356,10 @@ def front_phase(dev):
           f"{g_calls.counts['cc_labels']} calls")
     if launches["cc_labels"] != CC_LAUNCHES * g_calls.counts["cc_labels"]:
         raise AssertionError(f"cc_labels: expected {CC_LAUNCHES} launches a call")
+    print(f"segment on the front-end path: {launches['segment']} launches for "
+          f"{g_calls.counts['segment']} chains")
+    if launches["segment"] != CHAIN_LAUNCHES * g_calls.counts["segment"]:
+        raise AssertionError(f"segment: expected {CHAIN_LAUNCHES} launches a chain")
     split = {f: sum(getattr(o.stats, f) for o in out) / n
              for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s")}
     print(f"warm front end: {dt:.3f}s for {n} frames = {dt / n:.4f} s/frame; per frame "
@@ -1314,9 +1374,8 @@ def front_phase(dev):
         if (array_md5(idx.cpu().numpy(), "<i4"), array_md5(d2.cpu().numpy(), "<i4")) != \
                 (r["knn_idx_md5"], r["knn_d2_md5"]):
             raise AssertionError(f"frame {i}: k-NN digests differ from the JAX package's")
-        for key in agree:
-            agree[key].append(float(np.mean(
-                seen[key][i].cpu().numpy() == ref_parts[f"{key}_{i}"])))
+        for key, part in zip(agree, seen["partitions"][i]):
+            agree[key].append(float(np.mean(part.cpu().numpy() == ref_parts[f"{key}_{i}"])))
     own = [front_digests(fr) == {k: r[k] for k in front_digests(fr)}
            for fr, r in zip(out, ref["frames"])]
     print(f"k-NN digests: all {n} frames equal the JAX package's")
@@ -1403,6 +1462,44 @@ def cu_agreement(a: dict, b: dict) -> float:
     return float(same.mean())
 
 
+class CallLog:
+    """Keeps a copy of the arguments of every call of mod.attr (whose first
+    tensor is not empty) while it is entered."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr, self.calls = mod, attr, []
+
+    def __enter__(self):
+        self.real = real = getattr(self.mod, self.attr)
+
+        def spy(*args, **kw):
+            if next(a for a in args if torch.is_tensor(a)).numel():
+                self.calls.append([a.clone() if torch.is_tensor(a) else a for a in args])
+            return real(*args, **kw)
+
+        setattr(self.mod, self.attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.real)
+
+
+def motion_all_check(hevc, calls, where: str) -> None:
+    """Kernel J against its plain version on every call in `calls`, the
+    vectors and the rates bit for bit."""
+    if not calls:
+        raise AssertionError(f"motion_search: no call captured on {where}")
+    for i, a in enumerate(calls):
+        mv, cost = hevc.motion_search(*a)
+        mv_p, cost_p = hevc.motion_search_plain(*a)
+        if not (torch.equal(mv, mv_p) and torch.equal(cost, cost_p)):
+            raise AssertionError(f"motion_search call {i} on {where} ({tuple(a[0].shape)}, bs "
+                                 f"{a[4]}): kernel differs from its plain version")
+    shapes = collections.Counter((tuple(a[0].shape), a[4]) for a in calls)
+    print(f"motion_search: all {len(calls)} captured calls of {where} exact (mv and cost); "
+          "(planes, bs) x calls: " + ", ".join(f"{k} x {v}" for k, v in shapes.items()))
+
+
 def sao_pair(search, apply, args, kw):
     """Kernel K's search then apply (entries or plain versions) on the
     fused entry's arguments: (rec_sao, cls, off)."""
@@ -1452,7 +1549,7 @@ def geometry_phase(dev, cfg, frames, segs):
         "push_pull": (padding, "push_pull_round"),
     }
     t0 = time.perf_counter()
-    with Capture(wrappers) as cap:
+    with Capture(wrappers) as cap, CallLog(hevc, "motion_search") as j_calls:
         Encoder(cfg, device="cuda").encode_gof_geometry(frames, segs=segs)
         torch.cuda.synchronize()
     print(f"cold geometry encode: {time.perf_counter() - t0:.2f}s for {n} frames")
@@ -1467,6 +1564,8 @@ def geometry_phase(dev, cfg, frames, segs):
     _, sao_args, sao_kw = cap.calls["sao"]
     _, pp_args, _ = cap.calls["push_pull"]
     sao_check(hevc, sao_args, sao_kw, "the geometry path")
+    motion_all_check(hevc, j_calls.calls, "the geometry path's warm-up")
+    del j_calls
 
     checks = {
         "wavefront_encode32": (lambda: hevc.wavefront_encode32(*enc_args),
@@ -2368,7 +2467,8 @@ def geo11_phase(dev, frames):
     by_region = lambda a, kw: f"sao{kw.get('region', 32)}"
     codecs.GeometrySubstreamEncoder.encode = geo_spy
     try:
-        with Capture(wrappers, rename={"sao": by_region}) as cap:
+        with Capture(wrappers, rename={"sao": by_region}) as cap, \
+                CallLog(hevc, "motion_search") as j_calls:
             padding.reset_inexact()
             dev.reset_launch_counts()
             torch.cuda.synchronize()
@@ -2479,8 +2579,10 @@ def geo11_phase(dev, frames):
             None),
     }
     for name, (run, refs) in extra.items():
-        with Capture({"wavefront_encode16": (hevc, "wavefront_encode16")}) as c1:
+        with Capture({"wavefront_encode16": (hevc, "wavefront_encode16")}) as c1, \
+                CallLog(hevc, "motion_search") as j1:
             coded = run()
+        j_calls.calls += j1.calls
         with Capture(wrap16) as c2:
             got = hevc.decode_planes(coded.payload(), refs=refs, device=d)
         torch.cuda.synchronize()
@@ -2490,6 +2592,16 @@ def geo11_phase(dev, frames):
         dec_calls[name] = c2.calls["wavefront_decode16"][1]
     print(f"geo11 P-plane: {int((enc_calls['P-plane'][4] > 0).sum())} of "
           f"{enc_calls['P-plane'][4].numel()} CUs with an MV rate")
+    # kernel J at 16-px CUs: every call of the GOF and of the P-plane, and
+    # the largest one timed
+    motion_all_check(hevc, j_calls.calls, "the geo11 encode and its P-plane")
+    ms16 = max(j_calls.calls, key=lambda a: a[0].numel())
+    (k1, k2), (p1, p2) = time_turns(lambda: hevc.motion_search(*ms16),
+                                    lambda: hevc.motion_search_plain(*ms16))
+    b_ms, b_by = bounds("motion_search", ms16, hevc.motion_search(*ms16))
+    print(f"motion_search at 16-px CUs ({tuple(ms16[0].shape)}): kernel {k1:.4f}/{k2:.4f} ms, "
+          f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del j_calls
     rows = {}
     for name, fn, plain, calls in (
             ("wavefront_encode16", hevc.wavefront_encode16, hevc.wavefront_encode16_plain,
@@ -3517,12 +3629,15 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
     try:
         t0 = time.perf_counter()
         enc0 = Encoder(cfg, device="cuda")
-        stream0, _ = enc0.encode_gof(frames, parallel=True, segs=segs)
+        with CallLog(hevc, "motion_search") as j_calls:
+            stream0, _ = enc0.encode_gof(frames, parallel=True, segs=segs)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
     finally:
         for name, (mod, attr) in real.items():
             setattr(mod, attr, saved[name])
+    motion_all_check(hevc, j_calls.calls, "the level path's plane stacks")
+    del j_calls
     parent, _ = enc0.gof_structure(n)
     groups = gof.level_groups(gof.level_schedule(parent), parent,
                               [(e.height, e.width) for e in enc0.last_encoded])

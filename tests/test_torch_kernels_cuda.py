@@ -341,23 +341,141 @@ def _voxel_graph(cuda):
     return p, idx, d2 < neighbors.MAX_DIST2
 
 
-def test_segment_kernel(cuda):
-    """Normals to 1e-5 (the kernel's acosf/cosf against PyTorch's), the
-    later stages exactly given the same normals."""
-    p, idx, valid = _voxel_graph(cuda)
-    got = normals.pca_normals(p, idx, valid)
-    want = normals.pca_normals_plain(p, idx, valid)
+def _grid_graph(rng, n, K, z_sign):
+    """An n x n plane (z = 5) whose rows are each other's grid neighbours
+    (K slots, the ones off the plane invalid), normals (0, 0, z_sign)."""
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    pos = np.stack([xx.ravel(), yy.ravel(), np.full(n * n, 5)], 1).astype(np.int32)
+    off = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if dy or dx][:K]
+    idx = np.zeros((n * n, K), np.int32)
+    nnv = np.zeros((n * n, K), bool)
+    for k, (dy, dx) in enumerate(off):
+        y, x = yy.ravel() + dy, xx.ravel() + dx
+        ok = (y >= 0) & (y < n) & (x >= 0) & (x < n)
+        idx[:, k] = np.where(ok, y * n + x, 0)
+        nnv[:, k] = ok
+    nrm = np.zeros((n * n, 3), np.float32)
+    nrm[:, 2] = z_sign
+    return pos, nrm, idx, nnv, np.ones(n * n, bool)
+
+
+def _segment_case(case):
+    """(positions, normals, nn_idx, nn_valid, valid, orientations, weights,
+    (sweeps that change the orientation, sweeps that change the partition
+    at 10 iterations, as the plain versions run them)) for kernel F's
+    orientation and partition launches."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    o6, w6 = segmentation.ORIENTATIONS6, np.array([1.0, 0.5, 2.0, 1.0, 0.5, 2.0], np.float32)
+    if case in ("cloud", "cloud18"):
+        pts = _knn_clouds()[0]
+        p = torch.as_tensor(pts)
+        idx, d2 = neighbors.knn(neighbors.build_grid(p, 10), p, k=16, bucket=6)
+        nnv = (d2 < neighbors.MAX_DIST2).numpy()
+        nrm = normals.pca_normals_plain(p, idx, torch.as_tensor(nnv)).numpy()
+        pos, idx = pts.astype(np.int32), idx.numpy()
+        valid = rng.random(len(pos)) < 0.9   # rows left out of the centroid
+        if case == "cloud18":
+            o6 = segmentation.get_orientations(4)
+            w6 = rng.uniform(0.5, 2.0, len(o6)).astype(np.float32)
+        changes = (0, 10)   # a consistent radial start; the refinement moves to the end
+    elif case == "stable":   # nothing moves: the first sweep ends both loops
+        pos, nrm, idx, nnv, valid = _grid_graph(rng, 45, 8, 1.0)
+        changes = (0, 0)
+    elif case == "one_sweep":
+        # isolated rows tilted toward x: the radial start turns those left of
+        # the centroid over, sweeps 0 and 1 turn them back; they start in
+        # partition 0 and sweep 0 moves them to their neighbours' 2
+        pos, nrm, idx, nnv, valid = _grid_graph(rng, 45, 8, 1.0)
+        tilt = rng.choice(len(pos), 60, replace=False)
+        nrm[tilt] = [0.95, 0.0, 0.31]
+        changes = (2, 1)
+    elif case == "oscillate":   # pairs that swap in every sweep
+        V = 2 * 700
+        pos = rng.integers(0, 1024, (V, 3)).astype(np.int32)
+        mate = np.arange(V) ^ 1
+        idx = np.stack([mate, np.zeros(V, int)], 1).astype(np.int32)
+        nnv = np.stack([np.ones(V, bool), np.zeros(V, bool)], 1)
+        a, b = np.float32(0.71), np.float32(0.70)
+        nrm = np.where((np.arange(V) % 2 == 0)[:, None], [a, b, 0.0], [b, a, 0.0])
+        nrm = nrm.astype(np.float32)
+        nrm[1::2] *= -1   # each pair opposite: both flip each orientation sweep
+        valid = np.ones(V, bool)
+        w6 = np.ones(6, np.float32)
+        changes = (normals.ORIENT_ITERATIONS, 10)
+    elif case == "big_coords":   # V off the block size, sums rounding in float32
+        V = 1037
+        pos = rng.integers(0, 1 << 20, (V, 3)).astype(np.int32)
+        idx = rng.integers(0, V, (V, 16)).astype(np.int32)
+        nnv = rng.random((V, 16)) < 0.7
+        nrm = rng.normal(size=(V, 3)).astype(np.float32)
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        valid = rng.random(V) < 0.7
+        changes = (8, 6)
+    else:   # "empty"
+        pos, nrm = np.zeros((0, 3), np.int32), np.zeros((0, 3), np.float32)
+        idx, nnv, valid = np.zeros((0, 16), np.int32), np.zeros((0, 16), bool), np.zeros(0, bool)
+        changes = (0, 0)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+    return (t(pos), t(nrm), t(idx), t(nnv), t(valid), t(np.asarray(o6, np.float32)),
+            t(np.asarray(w6, np.float32)), changes)
+
+
+@pytest.mark.parametrize("case", ["cloud", "cloud18", "stable", "one_sweep", "oscillate",
+                                  "big_coords", "empty"])
+def test_segment_kernel(cuda, case):
+    """Normals to 1e-5 (the kernel's acosf/cosf against PyTorch's); the
+    orientation, the initial partition (alone and before the refinement)
+    and the refined partition at 0, 1 and 10 iterations exactly given the
+    same normals; one launch a call, no host synchronisation; the device
+    centroid equals its tensor twin; the sweeps that ran end just after the
+    last sweep that changed something."""
+    pos, nrm, idx, nnv, valid, o, w, (n_orient, n_refine) = _segment_case(case)
+    V = pos.shape[0]
+    if case == "cloud":
+        got = normals.pca_normals(pos, idx, nnv)
+        want = normals.pca_normals_plain(pos, idx, nnv)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-5
+    want_o = normals.orient_normals_plain(pos, nrm, idx, nnv, valid)
+    want_p = {it: segmentation.refine_segmentation_plain(
+        want_o, segmentation.initial_segmentation_plain(want_o, o, w), idx, nnv, o, 3.0, it)
+        for it in (0, 1, 10)}
+    want_i = segmentation.initial_segmentation_plain(want_o, o, w)
+    centroid = normals.orientation_centroid_device(pos, valid)
     torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= 1e-5
-    rows = torch.ones(p.shape[0], dtype=torch.bool, device=cuda)
-    _same(normals.orient_normals(p, want, idx, valid, rows),
-          normals.orient_normals_plain(p, want, idx, valid, rows))
-    o = torch.as_tensor(segmentation.ORIENTATIONS6, device=cuda)
-    w = torch.tensor([1.0, 0.5, 2.0, 1.0, 0.5, 2.0], device=cuda)
-    p0 = segmentation.initial_segmentation(want, o, w)
-    _same(p0, segmentation.initial_segmentation_plain(want, o, w))
-    _same(segmentation.refine_segmentation(want, p0, idx, valid, o, 3.0, 10),
-          segmentation.refine_segmentation_plain(want, p0, idx, valid, o, 3.0, 10))
+    one = 1 if V else 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        before = dev.LAUNCHES["segment"]
+        got_o = normals.orient_normals(pos, nrm, idx, nnv, valid)
+        got_o2, got_c, flags_o = normals.orient_launch(pos, nrm, idx, nnv, valid)
+        got_i = segmentation.initial_segmentation(want_o, o, w)
+        assert dev.LAUNCHES["segment"] == before + 3 * one
+        got_p = {}
+        for it in (0, 1, 10):
+            before = dev.LAUNCHES["segment"]
+            got_p[it] = segmentation.segment_partitions(want_o, o, w, idx, nnv, 3.0, it)
+            got_r = segmentation.refine_segmentation(want_o, want_i, idx, nnv, o, 3.0, it)
+            assert dev.LAUNCHES["segment"] == before + 2 * one
+            got_p[it] = (*got_p[it], got_r)
+        _, got_r10, flags_r = segmentation.partition_launch(want_o, o, None, idx, nnv, 3.0, 10,
+                                                            want_i)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(got_o, want_o)
+    _same(got_o2, want_o)
+    _same(got_i, want_i)
+    for it, (init, refined, refined_given) in got_p.items():
+        _same(init, want_i)
+        _same(refined, want_p[it])
+        _same(refined_given, want_p[it])
+    _same(got_r10, want_p[10])
+    if not V:
+        assert got_c is None and flags_o is None and flags_r is None
+        return
+    _same(got_c, centroid)
+    assert normals.sweeps_run(flags_o) == min(n_orient + 1, normals.ORIENT_ITERATIONS)
+    assert normals.sweeps_run(flags_r) == min(n_refine + 1, 10)
 
 
 def _cc_case(case):
@@ -498,22 +616,52 @@ def test_push_pull_order_kernel(cuda, h, w, planes):
     padding.reset_inexact()
 
 
-@pytest.mark.parametrize("bs", [32, 16])
-def test_motion_search_kernel(cuda, bs):
-    rng = np.random.default_rng(bs)
-    P, H, W = 3, 128, 96
-    base = _smooth_planes(rng, P, H + 16, W + 16, 255)
-    src = torch.as_tensor(np.ascontiguousarray(base[:, 5:5 + H, 3:3 + W]), device=cuda)
-    # the reference half a sample off the source grid: half-pel vectors win
-    half = (base[:, 8:8 + H, 8:8 + W] + base[:, 8:8 + H, 9:9 + W] + 1) // 2
-    ref = torch.as_tensor(half.astype(np.int32), device=cuda)
-    lam = torch.as_tensor(tab.LAMBDA[[24, 30, 40]], device=cuda)
-    maxv = torch.full((P,), 255, dtype=torch.int32, device=cuda)
+@pytest.mark.parametrize("case,bs,maxval,P", [
+    ("half_shift", 32, 255, 3), ("half_shift", 16, 255, 3),
+    ("random", 32, 1023, 1), ("random", 16, 2047, 1), ("random", 32, 2047, 25),
+    ("random", 16, 1023, 25), ("random", 32, 255, 2), ("flat", 32, 255, 2),
+    ("flat", 16, 2047, 2), ("corners", 32, 255, 4), ("corners", 16, 2047, 4)])
+def test_motion_search_kernel(cuda, case, bs, maxval, P):
+    """Kernel J against its plain version, mv and cost bit for bit, one
+    launch a call: a reference half a sample off the source (half-pel
+    vectors win); smooth planes with a shifted, noisy reference at 8, 10
+    and 11 bits, one and 25 tile planes; flat planes with lambda 0, where
+    every candidate ties and the lowest linear index (-8, -8) must win; and
+    planes of one CU row and column, every CU at a tile corner with the
+    reference shifted outward, where both half-pel clamps act."""
+    rng = np.random.default_rng(sum(map(ord, case)) + bs + P)
+    H, W = {"corners": (2 * bs, 2 * bs), "random": (96, 128) if P > 2 else (128, 96)}.get(
+        case, (128, 96))
+    lam = torch.as_tensor(tab.LAMBDA[rng.integers(20, 41, P)], device=cuda)
+    if case == "half_shift":
+        base = _smooth_planes(rng, P, H + 16, W + 16, maxval)
+        src = base[:, 5:5 + H, 3:3 + W]
+        ref = (base[:, 8:8 + H, 8:8 + W] + base[:, 8:8 + H, 9:9 + W] + 1) // 2
+    elif case == "flat":
+        src = np.broadcast_to(rng.integers(0, maxval + 1, (P, 1, 1)), (P, H, W))
+        ref = src.copy()
+        lam = torch.zeros(P, dtype=torch.float32, device=cuda)
+    else:
+        dy, dx = (7, -6) if case == "corners" else (3, -2)
+        base = _smooth_planes(rng, P, H + 20, W + 20, maxval)
+        src = base[:, 10:10 + H, 10:10 + W]
+        ref = np.clip(base[:, 10 + dy:10 + dy + H, 10 + dx:10 + dx + W]
+                      + rng.integers(-3, 4, (P, H, W)), 0, maxval)
+    src = torch.as_tensor(np.ascontiguousarray(src, np.int32), device=cuda)
+    ref = torch.as_tensor(np.ascontiguousarray(ref, np.int32), device=cuda)
+    maxv = torch.full((P,), maxval, dtype=torch.int32, device=cuda)
+    before = dev.LAUNCHES["motion_search"]
     mv, cost = hevc.motion_search(src, ref, lam, maxv, bs)
+    assert dev.LAUNCHES["motion_search"] == before + 1
     mv_p, cost_p = hevc.motion_search_plain(src, ref, lam, maxv, bs)
     _same(mv, mv_p)
     _same(cost, cost_p)
-    assert bool(((mv & 1) != 0).any())   # some half-pel vectors win
+    if case == "half_shift":
+        assert bool(((mv & 1) != 0).any())   # some half-pel vectors win
+    elif case == "flat":
+        assert bool((mv == -2 * hevc.MV_RANGE).all())
+    elif case == "corners":   # vectors reach past the tile, where the clamps act
+        assert int(mv[..., 0].abs().max()) >= 12 or int(mv[..., 1].abs().max()) >= 12
 
 
 def _sao_case(case, region, maxval):

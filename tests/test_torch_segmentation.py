@@ -30,6 +30,18 @@ AGREEMENT_FLOOR = 0.998
 BITS = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """With several intra-op threads, the plain PCA normals of the fixture
+    differ from run to run in some rows (up to 0.07; the eigenvector of a
+    nearly degenerate covariance follows a last-bit difference); on one
+    thread they are the same in every run (restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ref():
     """The reference's segmentation stages on an 8-bit person cloud."""
@@ -120,3 +132,23 @@ def test_weighted_orientations():
     want = np.asarray(js.initial_segmentation(jnp.asarray(n), jnp.asarray(o), jnp.asarray(w)))
     got = ts.initial_segmentation(_t(n), _t(o), _t(w))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_orientation_centroid_device_twin():
+    """The device-form centroid (`orientation_centroid_device`, what kernel
+    F's orientation launch computes) equals the host one on a cloud whose
+    int64 sums exceed 2^24, with a `valid` mask that leaves rows out; on
+    coordinates that are multiples of 64 (every float32 partial sum exact)
+    both equal the reference's float32 centroid (vpcc_tpu/ops/normals.py:
+    108-110)."""
+    rng = np.random.default_rng(16)
+    valid = rng.random(600) < 0.8
+    for pos in (rng.integers(0, 1 << 20, (600, 3)), 64 * rng.integers(0, 1 << 14, (600, 3))):
+        pos = pos.astype(np.int32)
+        assert (pos.astype(np.int64)[valid].sum(0) > 1 << 24).all()
+        host = np.asarray(tno.orientation_centroid(_t(pos), _t(valid)), np.float32)
+        twin = tno.orientation_centroid_device(_t(pos), _t(valid)).numpy()
+        np.testing.assert_array_equal(twin, host)
+    w = jnp.asarray(valid, jnp.float32)
+    want = jnp.sum(jnp.asarray(pos, jnp.float32) * w[:, None], 0) / jnp.maximum(jnp.sum(w), 1.0)
+    np.testing.assert_array_equal(twin, np.asarray(want))

@@ -38,9 +38,8 @@ def _stage_patches():
         (neighbors, "build_grid", "device: k-NN grid build (torch)"),
         (neighbors, "knn", "device: kernel E grid_knn"),
         (normals, "pca_normals", "device: kernel F pca_normals"),
-        (normals, "orient_normals", "device: kernel F orientation (+ centroid)"),
-        (encoder, "initial_segmentation", "device: kernel F initial segmentation"),
-        (encoder, "refine_segmentation", "device: kernel F refine (10 sweeps)"),
+        (normals, "orient_normals", "device: kernel F orientation (centroid + sweeps)"),
+        (encoder, "segment_partitions", "device: kernel F initial + refined partition"),
         (cc, "cc_labels_device", "device: kernel G cc_labels"),
         (cc, "round_stats", "device: round bookkeeping (torch)"),
         (coverage, "covered_radius_slab", "device: kernel H coverage"),

@@ -3,7 +3,7 @@ encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
     python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K] [--trace]
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F] [--trace] [--split]
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
 
 --capture encodes one bench frame (`make_person_cloud(bits=10,
@@ -44,10 +44,19 @@ are built by each package from the saved points; a package without
 `hevc.sao_search_apply` runs `sao_search` then `sao_apply` for the SAO
 step, whose three outputs are hashed either way).  For each run and entry:
 the call time (CUDA events over back-to-back calls, the wrapper's host work
-included: 100 calls for P, 20 for the others) and the device time (one call
-captured in a CUDA graph and replayed as often).  --trace adds, once per
-entry, each device kernel's time and launches a call (`torch.profiler` over
-as many calls).  Prints the card's name and power limit, then one JSON line:
+included: 100 calls for P, 20 for the others) and, but for J and F, the
+device time (one call captured in a CUDA graph and replayed as often; J's
+and F's device times are their kernels' in --trace: an older checkout's J
+and F wrappers copy from or wait on the host, which a graph cannot hold).
+--trace adds, once per entry, each device kernel's time and launches a
+call (`torch.profiler` over as many calls) and the host's waits a call
+(`cudaStreamSynchronize` and `cudaMemcpy*` runtime calls: CPU
+microseconds and calls).  --split times, for J, builds of the checkout's
+`csrc/motion_search.cu` cut after its 1st, 2nd and 3rd `__syncthreads()`
+(a `return` the compiler cannot drop), so that the differences split
+J's kernel (one block a CU, a barrier after each stage) into its stages
+(staging, integer SAD, argmin, half-pel refinement).  Prints the card's
+name and power limit, then one JSON line:
 per entry, the runs' call and device milliseconds and the md5 of its output
 (and the trace).  --summarize reads the JSON lines
 of such runs (the logs of several processes) and prints, per checkout and
@@ -71,7 +80,8 @@ ROOT = Path(__file__).resolve().parents[2]
 P_ENTRIES = ("paint_attribute", "group_dilate", "gather_decoded_colors")
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
-REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20}
+REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20}
+F_STAGES = ("segment.pca", "segment.orient", "segment.partition")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -151,11 +161,11 @@ def capture_encode(frame, cfg, device) -> tuple:
     Returns (P inputs, E inputs, G inputs, K inputs)."""
     from vpcc_tpu_torch import pipeline
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import cc, neighbors
+    from vpcc_tpu_torch.ops import cc, neighbors, normals, segmentation
     from vpcc_tpu_torch.video import hevc
 
     p_kept, e_kept, grids, k_kept = {}, {}, {}, {}
-    g_calls = []
+    g_calls, f_calls = [], []
 
     def keep_p(name):
         def before(args, kw):
@@ -178,7 +188,8 @@ def capture_encode(frame, cfg, device) -> tuple:
     undo += [_spy(neighbors, "build_grid", after=grid_built),
              _spy(neighbors, "knn", before=keep_e),
              _spy(cc, "cc_labels_device", before=lambda a, kw: g_calls.append(_clone(a))),
-             _spy(hevc, "sao_search_apply", before=keep_largest(k_kept, "sao.encode32", 32))]
+             _spy(hevc, "sao_search_apply", before=keep_largest(k_kept, "sao.encode32", 32)),
+             _spy(normals, "pca_normals", before=lambda a, kw: f_calls.append(_clone(a)))]
     try:
         Encoder(cfg, device=device).encode_gof([frame])
     finally:
@@ -200,7 +211,13 @@ def capture_encode(frame, cfg, device) -> tuple:
                                   q=fwd["q"][None].expand(3, -1, -1).contiguous(), k=8,
                                   bucket=fwd["bucket"])
     g_in = {f"cc_labels.r{i}": args for i, args in enumerate(g_calls)}
-    return {name: args for name, (_, args) in p_kept.items()}, e_in, g_in, k_kept
+    weights = torch.ones(len(segmentation.get_orientations(cfg.additionalProjectionPlaneMode)))
+    weights[[0, 3]], weights[[1, 4]], weights[[2, 5]] = (
+        cfg.weightNormalX, cfg.weightNormalY, cfg.weightNormalZ)
+    f_in = {"segment.chain": [*f_calls[0], torch.as_tensor(segmentation.get_orientations(
+        cfg.additionalProjectionPlaneMode)), weights, float(cfg.lambdaRefineSegmentation),
+        int(cfg.iterationCountRefineSegmentation)]}
+    return {name: args for name, (_, args) in p_kept.items()}, e_in, g_in, k_kept, f_in
 
 
 def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
@@ -287,26 +304,39 @@ def capture(path: Path, device="cuda") -> None:
         setattr(cfg, k, v)
     dev.build_kernels()
     frames = [make_person_cloud(bits=10, n_samples=3_000_000, seed=s) for s in ref["seeds"][:2]]
-    p_in, e_in, g_in, k_in = capture_encode(frames[0], cfg, device)
+    p_in, e_in, g_in, k_in, f_in = capture_encode(frames[0], cfg, device)
+    j_in = {}
+    undo = _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu32"))
+    try:
+        Encoder(cfg, device=device).encode_gof(frames)
+    finally:
+        undo()
     sao_calls = {}
     a_in = {"wavefront_decode32": capture_decode(
         (data / "person_vox10_r3_gof8.vpcc").read_bytes(), "wavefront_decode32", device,
         sao_calls, "sao_apply.decode32")}
     cfg.geometryNominal2dBitdepth = 11
     sao16 = {}
-    undo = _spy(hevc, "sao_search_apply", before=keep_largest(sao16, "sao.encode16", 16))
+    undo = [_spy(hevc, "sao_search_apply", before=keep_largest(sao16, "sao.encode16", 16)),
+            _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu16"))]
     try:
         stream, _ = Encoder(cfg, device=device).encode_gof(frames)
     finally:
-        undo()
+        for u in undo:
+            u()
+    if "motion_search.cu16" not in j_in:   # the GOF searched no motion at 16 px
+        j_in["motion_search.cu16"] = ([*j_in["motion_search.cu32"][0][:4], 16], {})
     a_in["wavefront_decode16"] = capture_decode(stream, "wavefront_decode16", device,
                                                 sao_calls, "sao_apply.decode16", 16)
     g_in["cc_round_voxel.vox11"] = capture_vox11(device)
     # K: (args, kw) per entry, the region as an argument
     k_in = {**k_in, **sao16, **sao_calls}
     k_in = {n: [*args, kw.get("region", 32)] for n, (args, kw) in k_in.items()}
+    j_in = {n: args for n, (args, _) in j_in.items()}
     cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
-    torch.save({"P": {n: [cpu(a) for a in args] for n, args in p_in.items()},
+    torch.save({"J": {n: [cpu(a) for a in args] for n, args in j_in.items()},
+                "F": {n: [cpu(a) for a in args] for n, args in f_in.items()},
+                "P": {n: [cpu(a) for a in args] for n, args in p_in.items()},
                 "E": {n: {k: cpu(v) for k, v in c.items()} for n, c in e_in.items()},
                 "A": {n: [cpu(a) for a in args] for n, args in a_in.items()},
                 "G": {n: [cpu(a) for a in args] for n, args in g_in.items()},
@@ -318,13 +348,16 @@ def capture(path: Path, device="cuda") -> None:
           + "; G " + ", ".join(f"{n} {tuple(a[0].shape)} active {int(a[-1].sum())}"
                               for n, a in g_in.items())
           + "; K " + ", ".join(f"{n} {tuple(a[1 if n.startswith('sao.') else 0].shape)} "
-                              f"region {a[-1]}" for n, a in k_in.items()))
+                              f"region {a[-1]}" for n, a in k_in.items())
+          + "; J " + ", ".join(f"{n} {tuple(a[0].shape)} bs {a[4]}" for n, a in j_in.items())
+          + "; F " + ", ".join(f"{n} {tuple(a[1].shape)}" for n, a in f_in.items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     """name -> (kernel letter, a call of that entry on the captured inputs)
     for the entries of `kernels`, with the modules of one checkout."""
     pipeline, neighbors, hevc, cc = pkg["pipeline"], pkg["neighbors"], pkg["hevc"], pkg["cc"]
+    normals, segmentation = pkg["normals"], pkg["segmentation"]
     on = lambda args: [a.to(device) if torch.is_tensor(a) else a for a in args]
     calls = {}
     if "P" in kernels:
@@ -367,10 +400,44 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
                 calls[name] = lambda a=a, r=region: hevc.sao_apply(*a, region=r)
             else:
                 calls[name] = lambda a=a, r=region: sao_step(hevc, *a, r)
+    if "J" in kernels:
+        for name, args in inputs.get("J", {}).items():
+            calls[name] = lambda a=on(args): hevc.motion_search(*a)
+    if "F" in kernels:
+        for name, args in inputs.get("F", {}).items():
+            pos, idx, valid, orients, weights, lam, iters = on(args)
+            stages = segment_stages(normals, segmentation, pos, idx, valid, orients, weights,
+                                    lam, iters)
+            calls[name] = lambda st=stages: st["segment.partition"](st["segment.orient"](
+                st["segment.pca"]()))
+            calls.update(stages)
     letter = {n: "P" for n in calls}
-    for k in "EAGK":
+    for k in "EAGKJ":
         letter.update({n: k for n in inputs.get(k, {}) if n in calls})
+    letter.update({n: "F" for n in calls if n.startswith("segment.")})
     return {n: (letter[n], fn) for n, fn in calls.items()}
+
+
+def segment_stages(normals, segmentation, pos, idx, valid, orients, weights, lam, iters) -> dict:
+    """Kernel F's three stages of the encoder's chain as calls of one
+    checkout: PCA (returns the normals), orientation (of given normals;
+    the PCA's normals when called without), and the initial + refined
+    partition (of given oriented normals)."""
+    rows = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    pca = normals.pca_normals(pos, idx, valid)
+    oriented = normals.orient_normals(pos, pca, idx, valid, rows)
+
+    def partition(nrm=oriented):
+        if hasattr(segmentation, "segment_partitions"):
+            return segmentation.segment_partitions(nrm, orients, weights, idx, valid, lam,
+                                                   iters)
+        p0 = segmentation.initial_segmentation(nrm, orients, weights)
+        return p0, segmentation.refine_segmentation(nrm, p0, idx, valid, orients, lam, iters)
+
+    return {"segment.pca": lambda: normals.pca_normals(pos, idx, valid),
+            "segment.orient": lambda nrm=pca: normals.orient_normals(pos, nrm, idx, valid,
+                                                                      rows),
+            "segment.partition": partition}
 
 
 def md5(out) -> str:
@@ -382,17 +449,22 @@ def md5(out) -> str:
 
 def kernel_trace(fn, reps: int) -> dict:
     """Device kernels of `reps` calls of fn under torch.profiler: kernel
-    name -> [device us a call, launches a call]."""
+    name -> [device us a call, launches a call]; and the host's waits,
+    "host:" + runtime call (stream synchronisations, copies) -> [CPU us a
+    call, calls a call]."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
+        if e.key.startswith("cuda") and ("Synchronize" in e.key or "Memcpy" in e.key):
+            out["host:" + e.key] = [round(e.self_cpu_time_total / reps, 3), e.count / reps]
+            continue
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
         t = getattr(e, "self_device_time_total", None)
@@ -404,25 +476,77 @@ def kernel_trace(fn, reps: int) -> dict:
 
 
 def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
-            trace: bool = False) -> dict:
+            trace: bool = False, split: bool = False) -> dict:
     sys.path.insert(0, str(root))
     from vpcc_tpu_torch import pipeline
-    from vpcc_tpu_torch.ops import cc, neighbors
+    from vpcc_tpu_torch.ops import cc, neighbors, normals, segmentation
     from vpcc_tpu_torch.video import hevc
 
     if Path(pipeline.__file__).resolve().parents[1] != root.resolve():
         raise RuntimeError(f"imported {pipeline.__file__}, not the package under {root}")
-    calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc, "cc": cc},
-                        torch.load(inputs_path), kernels)
+    inputs = torch.load(inputs_path)
+    calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc, "cc": cc,
+                         "normals": normals, "segmentation": segmentation}, inputs, kernels)
     res = {name: {"md5": md5(fn()), "call_ms": [], "device_ms": []}
            for name, (_, fn) in calls.items()}
     for _ in range(runs):
         for name, (letter, fn) in calls.items():
             res[name]["call_ms"].append(time_ms(fn, REPS[letter]))
-            res[name]["device_ms"].append(graph_ms(fn, REPS[letter]))
+            if letter not in "JF":   # the parents' J and F wrappers copy or wait: no graph
+                res[name]["device_ms"].append(graph_ms(fn, REPS[letter]))
     if trace:
         for name, (letter, fn) in calls.items():
             res[name]["kernels"] = kernel_trace(fn, REPS[letter])
+    if split and "J" in kernels:
+        for name, args in inputs.get("J", {}).items():
+            res[name]["split_ms"] = motion_split(root, [a.cuda() if torch.is_tensor(a) else a
+                                                        for a in args], runs)
+    return res
+
+
+def motion_split(root: Path, args, runs: int) -> dict:
+    """Kernel J's stages on `args`: the checkout's motion_search.cu built
+    whole and cut after its 1st, 2nd and 3rd __syncthreads() (the cut is
+    `if (W > 0) return;`, which the compiler cannot prove taken, so no
+    stage before it is dropped); per build the median of `runs` timings of
+    20 launches (CUDA events), in ms."""
+    import ctypes
+    import re
+    import statistics
+    import tempfile
+
+    from vpcc_tpu_torch import device as dev
+    from vpcc_tpu_torch.video import hevc
+
+    src = (root / "vpcc_tpu_torch" / "csrc" / "motion_search.cu").read_text()
+    body = src.index("__global__")
+    syncs = [m.end() for m in re.finditer(r"__syncthreads\(\);", src) if m.start() > body]
+    out_dir = Path(tempfile.mkdtemp(prefix="motion_split_"))
+    src_p, ref_p, lam, maxv, bs = args
+    P, H, W = src_p.shape
+    nb = (H // bs) * (W // bs)
+    mv = torch.empty((P, nb, 2), dtype=torch.int32, device=src_p.device)
+    cost = torch.empty((P, nb), dtype=torch.float32, device=src_p.device)
+    bits = torch.as_tensor(hevc._mv_bits(hevc.MV_RANGE), device=src_p.device)
+    res = {}
+    for label, cut in (("after_staging", 0), ("after_sad", 1), ("after_argmin", 2),
+                       ("whole", None)):
+        text = src if cut is None else (src[:syncs[cut]] + " if (W > 0) return;"
+                                        + src[syncs[cut]:])
+        cu = out_dir / f"{label}.cu"
+        cu.write_text(text)
+        lib = out_dir / f"lib{label}.so"
+        subprocess.run([dev.nvcc_path(), *dev.NVCC_FLAGS, *dev.KERNELS["motion_search"], "-o",
+                str(lib), str(cu)], check=True, capture_output=True)
+        fn = ctypes.CDLL(str(lib)).motion_search
+        fn.argtypes, fn.restype = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p], ctypes.c_int
+        call = lambda fn=fn: fn(dev.ptr(src_p), dev.ptr(ref_p), dev.ptr(lam), dev.ptr(maxv),
+                                dev.ptr(bits), dev.ptr(mv), dev.ptr(cost), P, H, W, bs,
+                                dev.stream_handle())
+        if call() != 0:
+            raise RuntimeError(f"motion_split {label}: launch failed")
+        res[label] = round(statistics.median(time_ms(call, 20) for _ in range(runs)), 4)
     return res
 
 
@@ -443,7 +567,7 @@ def summarize(paths) -> dict:
                     acc["device_ms"] += e["device_ms"]
                     acc["md5"].add(e["md5"])
     q = lambda v: tuple(round(x, 4) for x in statistics.quantiles(v, n=4)) if len(v) > 1 \
-        else (v[0],) * 3
+        else (v[0],) * 3 if v else None
     return {root: {name: {"call_ms": q(e["call_ms"]), "device_ms": q(e["device_ms"]),
                           "runs": len(e["call_ms"]), "md5_agree": len(e["md5"]) == 1,
                           "md5": sorted(e["md5"])[0]}
@@ -458,9 +582,12 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A,G,K", help="kernels whose entries are timed")
+    ap.add_argument("--kernels", default="P,E,A,G,K,J,F",
+                    help="kernels whose entries are timed")
     ap.add_argument("--trace", action="store_true",
                     help="also each device kernel's time and launches a call")
+    ap.add_argument("--split", action="store_true",
+                    help="also kernel J's stages (builds cut after each barrier)")
     ap.add_argument("--summarize", nargs="+", type=Path, help="logs of --inputs runs")
     a = ap.parse_args(argv)
     if a.summarize:
@@ -483,7 +610,7 @@ def main(argv=None) -> int:
         return 0
     if not a.inputs:
         ap.error("give --capture or --inputs")
-    res = profile(a.inputs, a.root, a.runs, a.kernels, a.trace)
+    res = profile(a.inputs, a.root, a.runs, a.kernels, a.trace, a.split)
     print(json.dumps({"root": str(a.root), "card": smi, "entries": res}))
     return 0
 

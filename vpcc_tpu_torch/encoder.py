@@ -75,9 +75,8 @@ from vpcc_tpu_torch.ops.reconstruct import Points
 from vpcc_tpu_torch.ops.segmentation import (
     get_orientations,
     high_gradient_aux,
-    initial_segmentation,
     partition_to_view,
-    refine_segmentation,
+    segment_partitions,
 )
 from vpcc_tpu_torch.utils.config import VPCCConfig
 from vpcc_tpu_torch.utils.ply import PointCloudData
@@ -241,9 +240,8 @@ class Encoder:
         nw[0] = nw[3] = cfg.weightNormalX
         nw[1] = nw[4] = cfg.weightNormalY
         nw[2] = nw[5] = cfg.weightNormalZ
-        part = initial_segmentation(nrm, orients, torch.as_tensor(nw, device=d))
-        part = refine_segmentation(
-            nrm, part, nn_idx, nn_valid, orients,
+        _, part = segment_partitions(
+            nrm, orients, torch.as_tensor(nw, device=d), nn_idx, nn_valid,
             cfg.lambdaRefineSegmentation, cfg.iterationCountRefineSegmentation,
         )
         part_pt = voxelize.gather_point_values(part, point_vox) if shift else part

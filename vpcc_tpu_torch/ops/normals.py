@@ -12,8 +12,10 @@ Float32 in the reference's operation order, with `device.fma_f32` where
 XLA's CPU backend contracts a multiply into an add (see csrc/segment.cu).
 The eigen solver's arccos and cos are PyTorch's (plain version) or CUDA's
 (kernel), not XLA's, so normals agree with the reference to a tolerance.
-The orientation centroid is plain PyTorch: an exact int64 sum of the
-positions, rounded once to float32, divided by the count.
+The orientation centroid is an exact int64 sum of the valid rows'
+positions, rounded once to float32, divided by the float32 count: on the
+host for the plain version (`orientation_centroid`), on the device in kernel
+F's orientation launch (`orientation_centroid_device` is its tensor twin).
 """
 
 from __future__ import annotations
@@ -117,8 +119,7 @@ def pca_normals(positions, nn_idx, nn_valid):
     dev.check_tensor(nn_idx, "nn_idx", torch.int32, d, 2)
     dev.check_tensor(nn_valid, "nn_valid", torch.bool, d, 2)
     out = torch.empty((V, 3), dtype=torch.float32, device=d)
-    fn = dev.load_kernel("segment").pca_normals
-    fn.argtypes, fn.restype = _PCA_ARGS, ctypes.c_int
+    fn = dev.kernel_fn("segment", "pca_normals", _PCA_ARGS)
     rc = fn(dev.ptr(positions), dev.ptr(nn_idx), dev.ptr(nn_valid), V, K,
             dev.ptr(out), dev.stream_handle())
     dev.count_launch("segment", 1 if V else 0)
@@ -135,9 +136,18 @@ def orientation_centroid(positions, valid) -> tuple:
     return tuple(float(np.float32(t) / cnt) for t in total)
 
 
+def orientation_centroid_device(positions, valid) -> torch.Tensor:
+    """`orientation_centroid` as a (3,) float32 tensor on the positions'
+    device, with the same arithmetic and no host wait: what kernel F's
+    orientation launch computes."""
+    w = valid.to(torch.int64)
+    total = (positions.to(torch.int64) * w[:, None]).sum(0)
+    return total.to(torch.float32) / w.sum().clamp(min=1).to(torch.float32)
+
+
 def orient_normals_plain(positions, normals, nn_idx, nn_valid, valid):
-    """Plain PyTorch version of the orientation (entry points 2 and 3 of
-    kernel F)."""
+    """Plain PyTorch version of the orientation (kernel F's
+    `orient_normals` entry)."""
     c = torch.tensor(orientation_centroid(positions, valid), device=normals.device)
     outward = positions.float() - c
     sign = torch.where(dot3(normals, outward) < 0.0, -1.0, 1.0)
@@ -152,41 +162,56 @@ def orient_normals_plain(positions, normals, nn_idx, nn_valid, valid):
     return normals * sign[:, None]
 
 
-_INIT_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float] * 3 \
-    + [ctypes.c_void_p] * 2
-_STEP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+def sweeps_run(changed: torch.Tensor) -> int:
+    """Sweeps a launch of kernel F ran, from its per-sweep "changed" flags:
+    through the first sweep that changed nothing, else all of them."""
+    flags = changed.cpu().tolist()
+    return flags.index(0) + 1 if 0 in flags else len(flags)
+
+
+_ORIENT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 \
+    + [ctypes.c_int] + [ctypes.c_void_p] * 4
+_MAX_BLOCKS = 512   # kernel F's orientation: cooperative blocks at most (its per-block scratch)
 
 
 def orient_normals(positions, normals, nn_idx, nn_valid, valid):
-    """Sign-consistent orientation: radial start + ORIENT_ITERATIONS
-    neighbour consensus sweeps (synchronous).  Kernel F on CUDA (one init
-    launch, one launch per sweep); the plain version for a CPU tensor."""
+    """Sign-consistent orientation: radial start about the centroid of the
+    `valid` rows, then ORIENT_ITERATIONS neighbour consensus sweeps
+    (synchronous).  Kernel F on CUDA (one cooperative launch: the centroid,
+    the radial sign and the sweeps, ending early once a sweep flips no
+    sign; no host wait); the plain version for a CPU tensor."""
     if positions.device.type == "cpu":
         return orient_normals_plain(positions, normals, nn_idx, nn_valid, valid)
+    return orient_launch(positions, normals, nn_idx, nn_valid, valid)[0]
+
+
+def orient_launch(positions, normals, nn_idx, nn_valid, valid):
+    """Kernel F's `orient_normals` entry on CUDA tensors: (oriented (V, 3),
+    centroid (3,) float32, changed (ORIENT_ITERATIONS,) int32 flags, one a
+    sweep); centroid and changed are None for V = 0 (no launch)."""
     d = positions.device
     V, K = nn_idx.shape
     dev.check_tensor(positions, "positions", torch.int32, d, 2)
     dev.check_tensor(normals, "normals", torch.float32, d, 2)
     dev.check_tensor(nn_idx, "nn_idx", torch.int32, d, 2)
     dev.check_tensor(nn_valid, "nn_valid", torch.bool, d, 2)
-    cx, cy, cz = orientation_centroid(positions, valid)
-    sign = torch.empty(V, dtype=torch.float32, device=d)
-    other = torch.empty_like(sign)
-    lib = dev.load_kernel("segment")
-    init, step = lib.orient_init, lib.orient_step
-    init.argtypes, init.restype = _INIT_ARGS, ctypes.c_int
-    step.argtypes, step.restype = _STEP_ARGS, ctypes.c_int
-    rc = init(dev.ptr(positions), dev.ptr(normals), V, cx, cy, cz, dev.ptr(sign),
-              dev.stream_handle())
-    dev.count_launch("segment", 1 if V else 0)
+    dev.check_tensor(valid, "valid", torch.bool, d, 1)
+    out = torch.empty((V, 3), dtype=torch.float32, device=d)
+    if V == 0:
+        return out, None, None
+    signs = torch.empty(2 * V, dtype=torch.uint8, device=d)
+    dots = torch.empty(V * K, dtype=torch.float32, device=d)
+    partials = torch.empty(4 * _MAX_BLOCKS, dtype=torch.int64, device=d)   # a block's centroid sums
+    changed = torch.empty(ORIENT_ITERATIONS, dtype=torch.int32, device=d)
+    centroid = torch.empty(3, dtype=torch.float32, device=d)
+    fn = dev.kernel_fn("segment", "orient_normals", _ORIENT_ARGS)
+    rc = fn(dev.ptr(positions), dev.ptr(normals), dev.ptr(nn_idx), dev.ptr(nn_valid),
+            dev.ptr(valid), V, K, ORIENT_ITERATIONS, dev.ptr(signs), dev.ptr(dots),
+            dev.ptr(partials), _MAX_BLOCKS, dev.ptr(changed), dev.ptr(centroid), dev.ptr(out),
+            dev.stream_handle())
+    dev.count_launch("segment")
     dev.check_launch("segment", rc)
-    for _ in range(ORIENT_ITERATIONS):
-        rc = step(dev.ptr(normals), dev.ptr(nn_idx), dev.ptr(nn_valid), V, K,
-                  dev.ptr(sign), dev.ptr(other), dev.stream_handle())
-        dev.count_launch("segment", 1 if V else 0)
-        dev.check_launch("segment", rc)
-        sign, other = other, sign
-    return normals * sign[:, None]
+    return out, centroid, changed
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ assigned orientation's score is at most 0.577 (`high_gradient_aux`).
 The tables (orientation sets, `VIEW_AXES`, `partition_to_view`) are copies
 of the reference's.  The score arithmetic follows XLA's CPU backend: the
 dot products as fma chains (exact for the 6 axis orientations) and the
-refine score as fma(lambda / k, votes, base).
+refine score as fma(lambda / k, votes, base).  On CUDA the encoder's
+initial + refined partition is one cooperative launch of kernel F
+(`segment_partitions`), whose sweeps end early, with the same result, once
+a sweep moves no partition.
 """
 
 from __future__ import annotations
@@ -176,8 +179,7 @@ def high_gradient_aux(normals, partition, orientations):
     _check_orients(orientations, d)
     alt = torch.empty(V, dtype=torch.int32, device=d)
     weak = torch.empty(V, dtype=torch.bool, device=d)
-    fn = dev.load_kernel("segment").high_gradient_aux
-    fn.argtypes, fn.restype = _AUX_ARGS, ctypes.c_int
+    fn = dev.kernel_fn("segment", "high_gradient_aux", _AUX_ARGS)
     rc = fn(dev.ptr(normals), dev.ptr(orientations), dev.ptr(partition), V,
             orientations.shape[0], dev.ptr(alt), dev.ptr(weak), dev.stream_handle())
     dev.count_launch("high_gradient_aux", 1 if V else 0)
@@ -192,56 +194,86 @@ def _check_orients(orientations, d):
     dev.check_tensor(orientations, "orientations", torch.float32, d, 2)
 
 
-_INIT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-_REFINE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
-                                                              ctypes.c_float] \
-    + [ctypes.c_void_p] * 3
+_PART_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int] \
+    + [ctypes.c_void_p] * 6
 
 
 def initial_segmentation(normals, orientations, weights):
     """(V,) int32 partition: argmax over orientations of the weighted score.
-    Kernel F on CUDA; the plain version for a CPU tensor."""
+    Kernel F on CUDA (its partition launch with no sweeps); the plain
+    version for a CPU tensor."""
     if normals.device.type == "cpu":
         return initial_segmentation_plain(normals, orientations, weights)
+    return partition_launch(normals, orientations, weights, None, None, 0.0, 0, None)[0]
+
+
+def partition_launch(normals, orientations, weights, nn_idx, nn_valid, lambda_: float,
+                     iterations: int, part_in):
+    """Kernel F's `segment_partition` entry on CUDA tensors: the initial
+    partition (part_in None) or `part_in`, then `iterations` refinement
+    sweeps.  Returns (initial or None, refined, changed): changed is the
+    (iterations,) int32 flags, one a sweep, None for V = 0 (no launch).
+    With no sweeps, nn_idx and nn_valid may be None."""
     d = normals.device
     V, J = normals.shape[0], orientations.shape[0]
     dev.check_tensor(normals, "normals", torch.float32, d, 2)
     _check_orients(orientations, d)
-    dev.check_tensor(weights, "weights", torch.float32, d, 1)
-    part = torch.empty(V, dtype=torch.int32, device=d)
-    fn = dev.load_kernel("segment").initial_segmentation
-    fn.argtypes, fn.restype = _INIT_ARGS, ctypes.c_int
-    rc = fn(dev.ptr(normals), dev.ptr(orientations), dev.ptr(weights), V, J,
-            dev.ptr(part), dev.stream_handle())
-    dev.count_launch("segment", 1 if V else 0)
+    if iterations < 0:
+        raise ValueError(f"{iterations} refinement iterations")
+    null = ctypes.c_void_p(None)
+    if nn_idx is None:
+        if iterations:
+            raise ValueError("refinement sweeps need the neighbour table")
+        K, idx_p, valid_p = 0, null, null
+    else:
+        dev.check_tensor(nn_idx, "nn_idx", torch.int32, d, 2)
+        dev.check_tensor(nn_valid, "nn_valid", torch.bool, d, 2)
+        K, idx_p, valid_p = nn_idx.shape[1], dev.ptr(nn_idx), dev.ptr(nn_valid)
+    initial = None
+    if part_in is None:
+        dev.check_tensor(weights, "weights", torch.float32, d, 1)
+        initial = torch.empty(V, dtype=torch.int32, device=d)
+    else:
+        dev.check_tensor(part_in, "partition", torch.int32, d, 1)
+    refined = torch.empty(V, dtype=torch.int32, device=d)
+    if V == 0:
+        return initial, refined, None
+    scratch = torch.empty(2 * V, dtype=torch.uint8, device=d)
+    changed = torch.empty(max(iterations, 1), dtype=torch.int32, device=d)
+    fn = dev.kernel_fn("segment", "segment_partition", _PART_ARGS)
+    rc = fn(dev.ptr(normals), dev.ptr(orientations),
+            dev.ptr(weights) if part_in is None else null, idx_p, valid_p,
+            V, K, J, float(lambda_), iterations,
+            null if part_in is None else dev.ptr(part_in),
+            dev.ptr(initial) if part_in is None else null, dev.ptr(scratch),
+            dev.ptr(changed), dev.ptr(refined), dev.stream_handle())
+    dev.count_launch("segment")
     dev.check_launch("segment", rc)
-    return part
+    return initial, refined, changed[:iterations]
 
 
 def refine_segmentation(normals, partition, nn_idx, nn_valid, orientations,
                         lambda_: float, iterations: int):
     """Smoothness-regularized re-assignment, `iterations` synchronous
-    sweeps.  Kernel F on CUDA (one launch per sweep); the plain version for
+    sweeps from `partition`.  Kernel F on CUDA (one cooperative launch, the
+    sweeps ending early once one moves no partition); the plain version for
     a CPU tensor."""
     if normals.device.type == "cpu":
         return refine_segmentation_plain(normals, partition, nn_idx, nn_valid,
                                          orientations, lambda_, iterations)
-    d = normals.device
-    V, K = nn_idx.shape
-    dev.check_tensor(normals, "normals", torch.float32, d, 2)
-    dev.check_tensor(partition, "partition", torch.int32, d, 1)
-    dev.check_tensor(nn_idx, "nn_idx", torch.int32, d, 2)
-    dev.check_tensor(nn_valid, "nn_valid", torch.bool, d, 2)
-    _check_orients(orientations, d)
-    fn = dev.load_kernel("segment").refine_step
-    fn.argtypes, fn.restype = _REFINE_ARGS, ctypes.c_int
-    part = partition.clone()
-    other = torch.empty_like(part)
-    for _ in range(iterations):
-        rc = fn(dev.ptr(normals), dev.ptr(nn_idx), dev.ptr(nn_valid), V, K,
-                dev.ptr(orientations), orientations.shape[0], float(lambda_),
-                dev.ptr(part), dev.ptr(other), dev.stream_handle())
-        dev.count_launch("segment", 1 if V else 0)
-        dev.check_launch("segment", rc)
-        part, other = other, part
-    return part
+    return partition_launch(normals, orientations, None, nn_idx, nn_valid, lambda_,
+                            iterations, partition)[1]
+
+
+def segment_partitions(normals, orientations, weights, nn_idx, nn_valid, lambda_: float,
+                       iterations: int):
+    """(initial, refined) (V,) int32 partitions: `initial_segmentation`,
+    then `refine_segmentation` from it.  Kernel F on CUDA (both in one
+    cooperative launch, no host wait); the two plain versions in turn for a
+    CPU tensor."""
+    if normals.device.type == "cpu":
+        initial = initial_segmentation_plain(normals, orientations, weights)
+        return initial, refine_segmentation_plain(normals, initial, nn_idx, nn_valid,
+                                                  orientations, lambda_, iterations)
+    return partition_launch(normals, orientations, weights, nn_idx, nn_valid, lambda_,
+                            iterations, None)[:2]

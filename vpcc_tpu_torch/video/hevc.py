@@ -1207,12 +1207,13 @@ def motion_search_plain(src, ref, lam, maxvals, bs: int):
 
 
 _MS_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_MV_BITS: dict = {}   # device -> the (2R+1,) float32 MV bins, uploaded once
 
 
 def motion_search(src, ref, lam, maxvals, bs: int):
-    """Kernel J (csrc/motion_search.cu): one block per (tile plane, CU);
-    `motion_search_plain` on the CPU.  Arguments and result as the plain
-    version."""
+    """Kernel J (csrc/motion_search.cu): one block per (tile plane, CU),
+    samples in [0, 2^16); `motion_search_plain` on the CPU.  Arguments and
+    result as the plain version."""
     if src.device.type == "cpu":
         return motion_search_plain(src, ref, lam, maxvals, bs)
     d = src.device
@@ -1227,13 +1228,14 @@ def motion_search(src, ref, lam, maxvals, bs: int):
     nb = (H // bs) * (W // bs)
     mv = torch.empty((P, nb, 2), dtype=torch.int32, device=d)
     cost = torch.empty((P, nb), dtype=torch.float32, device=d)
-    bits = torch.as_tensor(_mv_bits(MV_RANGE), device=d)
-    fn = dev.load_kernel("motion_search").motion_search
-    fn.argtypes, fn.restype = _MS_ARGS, ctypes.c_int
+    bits = _MV_BITS.get(d)
+    if bits is None:
+        bits = _MV_BITS[d] = torch.as_tensor(_mv_bits(MV_RANGE), device=d)
+    fn = dev.kernel_fn("motion_search", "motion_search", _MS_ARGS)
     rc = fn(dev.ptr(src), dev.ptr(ref), dev.ptr(lam), dev.ptr(maxvals),
             dev.ptr(bits), dev.ptr(mv), dev.ptr(cost), P, H, W, bs,
             dev.stream_handle())
-    dev.count_launch("motion_search")
+    dev.count_launch("motion_search", 1 if P * nb else 0)
     dev.check_launch("motion_search", rc)
     return mv, cost
 
