@@ -14,12 +14,17 @@ the decode path (kernels A-D, K's apply entry and Q's color conversion):
    stack of decoded planes);
 4. runs each kernel and its plain PyTorch version on those inputs on the
    card, requires identical results, and times both in turns
-   (plain, kernel, kernel, plain; CUDA events);
+   (plain, kernel, kernel, plain; CUDA events); holds kernel O against its
+   plain version on every deblock call of the warm-up decode, and kernel
+   Q's entries (the chroma tensor against the plain cb and cr, stacked);
+   runs O's largest call and each Q entry once under
+   torch.cuda.set_sync_debug_mode("error") in one launch, with call and
+   device times;
 5. with all launch counters at 0, decodes the fixture again with
    `vpcc_tpu_torch.Decoder(device="cuda")`, checks every frame's point count
    and md5 against the digests the JAX decoder recorded, prints warm seconds
    per frame, and requires every kernel to have launched on that path
-   (Q included), kernels A and K once a call;
+   (Q included), kernels A, K, O and each entry of Q once a call;
 
 the encoder front end (kernels E-H):
 6. makes the 8 bench frames from their seeds and runs
@@ -79,6 +84,9 @@ path above also runs kernels O, P and Q):
     forward blend, splat and merge on one frame's recolor), N, O, P
     (paint, group dilation, gather) and Q (both directions, a 1280x1280
     T0 image) against their plain versions, exactly, timing both in turns;
+    kernel O on every deblock call of the warm-up, O and Q once under sync
+    debug mode "error" in one launch a call (the spy that measures each
+    attribute plane converts with the unwrapped entry: no encoder call);
 14. decodes the fixture's geometry with the port (JAX's reconstruction
     rows) and runs the port's recolor -> pre-smoothing -> paint -> fill ->
     group dilation on it with the regenerated source frames; the md5 of the
@@ -86,10 +94,11 @@ path above also runs kernels O, P and Q):
     equal the JAX encoder's (person_vox10_attr_digests.json) on all frames;
 15. with all launch counters at 0, segments the frames, drives their
     partitions and runs `encode_gof` again: warm seconds per frame, the
-    stage split, launches (every kernel the encoder runs, B-Q, nonzero; K
-    once a call), no push-pull block of unknown order reaching 2^24, the
+    stage split, launches (every kernel the encoder runs, B-Q, nonzero; K,
+    O and each Q entry once a call, with O's and Q's calls a frame), no
+    push-pull block of unknown order reaching 2^24, the
     device idle share of one warm P-frame and kernels E, G and K's share of
-    its trace; then requires the port's
+    its trace (and O's and Q's); then requires the port's
     decoder to decode the stream exactly to the encoder's reconstruction
     (point counts and md5, all frames), the stream bytes within
     RD_BYTES_TOL of the fixture's and every attribute plane's occupied-pixel
@@ -194,7 +203,9 @@ conditions with reflectance), "bgfill0" and "bgfill2" (r3 with the sparse
 dilation and the harmonic fill); per configuration:
 37. a warm-up encode keeping the largest call of the configuration's new
     entries (for reflectance also kernels I and A on the reflectance
-    planes);
+    planes), and kernel O against its plain version on every deblock call
+    of the warm-up encode and decode (for "refl" the 10-bit reflectance
+    planes, maxval 1023, among them);
 38. holds them against their plain versions, exactly, timing both in turns
     (for "bgfill2" also the smoothed push-pull `smooth_fill`, which nothing
     calls, and for "refl" `transfer_reflectance` over kernels M and E);
@@ -241,12 +252,15 @@ dispatch and the recolor batch the frames of one hierarchy level; kernel
 E's and M's frame-batched entries), on the 8 bench frames at r3 driven by
 the JAX partitions:
 47. a cold encode, keeping the largest call of each batched entry, and the
-    level groups (level, shape, inter or intra, frames); holds kernel J
-    against its plain version on every call (the level's plane stacks);
+    level groups (level, shape, inter or intra, frames); holds kernels J and
+    O against their plain versions on every call (the level's plane stacks)
+    and kernel Q's `rgb_to_planes` on every call (a level's images, one
+    batch a call);
 48. with all launch counters at 0, warm encodes in turns (sequential,
     level-batched, level-batched, sequential): seconds per frame of each,
     the stage split, launches per level group (every kernel of the path
-    nonzero, K once a call), no push-pull block of unknown order reaching
+    nonzero, K, O and each Q entry once a call), no push-pull block of
+    unknown order reaching
     2^24; requires
     the stream to be byte-identical to the sequential r3 stream and to the
     JAX encoder's fixture, and the port's decoder to decode it to the
@@ -847,11 +861,14 @@ def bounds(name, args, out, sweeps=None):
         # entropy term, centroid adds (~12 operations)
         ops = 12.0 * nidx.numel()
     elif name == "color_convert":
-        # both entries: attr -> (y, cb, cr) and (y, cb, cr) -> rgb; per
-        # pixel ~15 float operations each way (products, FMAs, rounding)
+        # both entries: attr (an image, a batch, or a list of images) ->
+        # (y, chroma) and (y, cb, cr) -> rgb; per pixel ~15 float
+        # operations each way (products, FMAs, rounding)
         planes_args, rgb_args = args
-        byt = nbytes(*planes_args, *out[:3]) + nbytes(*rgb_args, out[3])
-        ops = 30.0 * out[0].numel()
+        attr = planes_args[0]
+        byt = nbytes(*(attr if isinstance(attr, (list, tuple)) else (attr,)), *out[:2]) \
+            + nbytes(*rgb_args, out[2])
+        ops = 15.0 * (out[0].numel() + rgb_args[0].numel())
     elif name == "metrics":
         # both directions: every input read once (positions, colors,
         # normals, nearest index and d2), the sums written; per A row ~50
@@ -868,8 +885,8 @@ def bounds(name, args, out, sweeps=None):
     else:  # deblock
         rec, qps, maxv = args
         byt = nbytes(rec, qps, maxv, out)
-        # per sample next to an edge (a quarter of them, two passes): the
-        # delta, its gate and the clamped update (~12 operations)
+        # per sample next to an edge (a quarter of them, both directions):
+        # the delta, its gate and the clamped update (~12 operations)
         ops = 12.0 * rec.numel() / 2
     t_bytes = byt / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -956,22 +973,40 @@ def time_turns(kern, plain, reps_k=20, reps_p=3):
 
 def color_wrappers(hevc) -> dict:
     """Capture names of kernel Q's two entries."""
-    return {"color_to_planes": (hevc, "_rgb_to_int_planes"),
+    return {"color_to_planes": (hevc, "rgb_to_planes"),
             "color_to_rgb": (hevc, "_int_planes_to_rgb")}
 
 
 def color_entries(hevc, planes_args, rgb_args, plain: bool):
     """Kernel Q's two entries (or their plain versions) on their captured
-    inputs: (y, cb, cr, rgb)."""
+    inputs: (y, chroma, rgb)."""
     if plain:
-        return (*hevc.rgb_to_int_planes_plain(*planes_args),
+        return (*hevc.rgb_to_planes_plain(*planes_args),
                 hevc.int_planes_to_rgb_plain(*rgb_args))
-    return (*hevc._rgb_to_int_planes(*planes_args), hevc._int_planes_to_rgb(*rgb_args))
+    return (*hevc.rgb_to_planes(*planes_args), hevc._int_planes_to_rgb(*rgb_args))
 
 
-def color_check(hevc, cap, where: str) -> dict:
+def no_sync_launches(dev, name: str, fn) -> int:
+    """Runs fn() once under torch.cuda.set_sync_debug_mode("error"), so that
+    a host wait raises, and returns the launches it added to
+    dev.LAUNCHES[name]."""
+    torch.cuda.synchronize()
+    before = dev.LAUNCHES[name]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return dev.LAUNCHES[name] - before
+
+
+def color_check(dev, hevc, cap, where: str) -> dict:
     """Kernel Q == its plain version, exactly, on the largest call of each
-    entry that `cap` kept; times both in turns.  Returns the kernel row."""
+    entry that `cap` kept (the chroma tensor == the plain cb and cr,
+    stacked); each entry once under sync debug mode "error" in one launch;
+    call and device times of each entry and of the pair; times the pair and
+    its plain version in turns.  Returns the kernel row."""
     p_args = cap.calls["color_to_planes"][1]
     r_args = cap.calls["color_to_rgb"][1]
     kern = lambda: color_entries(hevc, p_args, r_args, plain=False)
@@ -982,14 +1017,67 @@ def color_check(hevc, cap, where: str) -> dict:
     if err != 0:
         raise AssertionError(f"color_convert ({where}): kernel differs from its plain version "
                              f"(max abs err {err})")
+    to_planes = lambda: hevc.rgb_to_planes(*p_args)
+    to_rgb = lambda: hevc._int_planes_to_rgb(*r_args)
+    launches = [no_sync_launches(dev, "color_convert", f) for f in (to_planes, to_rgb)]
+    if launches != [1, 1]:
+        raise AssertionError(f"color_convert ({where}): {launches} launches a call, expected 1")
     (k1, k2), (p1, p2) = time_turns(kern, plain)
     b_ms, b_by = bounds("color_convert", (p_args, r_args), out_k)
+    times = ", ".join(f"{what} call {time_ms(f, 20):.4f} device {graph_ms(f):.4f} ms"
+                      for what, f in (("to planes", to_planes), ("to RGB", to_rgb),
+                                      ("pair", kern)))
     shapes = [(tuple(p_args[0].shape), str(p_args[0].dtype)), tuple(r_args[0].shape)]
-    print(f"color_convert ({where}): exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
-          f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}); both entries, inputs "
-          f"{shapes}")
+    print(f"color_convert ({where}): exact (max abs err {err}; chroma tensor = plain cb, cr "
+          f"stacked); kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); {times} (CUDA graph replay); one launch an entry call, no "
+          f"host synchronisation (sync debug mode \"error\"); both entries, inputs {shapes}")
     return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
+
+
+def color_batch_check(hevc, calls, where: str) -> None:
+    """Kernel Q's `rgb_to_planes` against its plain version on every call in
+    `calls` (batches of images included), bit for bit."""
+    if not calls:
+        raise AssertionError(f"rgb_to_planes: no call captured on {where}")
+    batches = collections.Counter()
+    for i, a in enumerate(calls):
+        got, want = hevc.rgb_to_planes(*a), hevc.rgb_to_planes_plain(*a)
+        if max_abs_err(tuple(got), tuple(want)) != 0:
+            raise AssertionError(f"rgb_to_planes call {i} on {where}: kernel differs from its "
+                                 "plain version")
+        src = a[0][0] if isinstance(a[0], (list, tuple)) else a[0]
+        batches[(tuple(got[0].shape), str(src.dtype))] += 1
+    print(f"rgb_to_planes: all {len(calls)} captured calls of {where} exact (y and the chroma "
+          "tensor); (y shape, RGB type) x calls: "
+          + ", ".join(f"{k} x {v}" for k, v in batches.items()))
+
+
+def deblock_all_check(dev, hevc, calls, where: str, maxval=None) -> None:
+    """Kernel O against its plain version on every call in `calls`, bit for
+    bit; the largest once under sync debug mode "error" in one launch, with
+    its call and device times.  `maxval`: a value some call must carry."""
+    if not calls:
+        raise AssertionError(f"deblock: no call captured on {where}")
+    for i, a in enumerate(calls):
+        if not torch.equal(hevc.deblock_planes(*a), hevc.deblock_planes_plain(*a)):
+            raise AssertionError(f"deblock call {i} on {where} ({tuple(a[0].shape)}): kernel "
+                                 "differs from its plain version")
+    maxvals = sorted({int(v) for a in calls for v in a[2].tolist()})
+    if maxval is not None and maxval not in maxvals:
+        raise AssertionError(f"deblock on {where}: no call on maxval {maxval} planes "
+                             f"({maxvals})")
+    big = max(calls, key=lambda a: a[0].numel())
+    fn = lambda: hevc.deblock_planes(*big)
+    n = no_sync_launches(dev, "deblock", fn)
+    if n != 1:
+        raise AssertionError(f"deblock on {where}: {n} launches a call, expected 1")
+    shapes = collections.Counter(tuple(a[0].shape) for a in calls)
+    print(f"deblock: all {len(calls)} captured calls of {where} exact; maxvals {maxvals}; "
+          f"planes x calls: " + ", ".join(f"{k} x {v}" for k, v in shapes.items())
+          + f"; the largest: one launch, no host synchronisation (sync debug mode \"error\"), "
+          f"call {time_ms(fn, 20):.4f} ms, device {graph_ms(fn):.4f} ms (CUDA graph replay)")
 
 
 def decode_phase(dev):
@@ -1021,7 +1109,8 @@ def decode_phase(dev):
         "sao_apply": hevc.sao_apply_plain,
     }
     t0 = time.perf_counter()
-    with Capture({**wrappers, **color_wrappers(hevc)}) as cap:
+    with Capture({**wrappers, **color_wrappers(hevc)}) as cap, \
+            CallLog(hevc, "deblock_planes") as db_log:
         Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     print(f"cold decode: {time.perf_counter() - t0:.2f}s for {n_frames} frames")
@@ -1061,20 +1150,23 @@ def decode_phase(dev):
               f"inputs {shapes}")
         rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    color_check(hevc, cap, "decode")
+    color_check(dev, hevc, cap, "decode")
+    deblock_all_check(dev, hevc, db_log.calls, "the decode path")
+    del db_log
 
     # 5. the main path, counted and timed
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with Capture({k: wrappers[k] for k in ("wavefront_decode32", "sao_apply")},
-                 keep=False) as calls:
+    with Capture({**{k: wrappers[k] for k in ("wavefront_decode32", "sao_apply")},
+                  **oq_wrappers(hevc)}, keep=False) as calls:
         frames = Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
     one_a_call("wavefront_decode32", launches, calls.counts, "the decode path")
     one_a_call("sao", launches, {"sao": calls.counts["sao_apply"]}, "the decode path")
+    oq_one_a_call(launches, calls.counts, "the decode path")
     if len(frames) != n_frames:
         raise AssertionError(f"decoded {len(frames)} frames, expected {n_frames}")
     for i, (pc, ref) in enumerate(zip(frames, digests["frames"])):
@@ -1111,6 +1203,19 @@ def one_a_call(name, launches, counts, where: str) -> None:
     if launches.get(name, 0) != counts[name]:
         raise AssertionError(f"{name}: {launches.get(name, 0)} launches for {counts[name]} "
                              f"calls on {where}, expected one a call")
+
+
+def oq_wrappers(hevc) -> dict:
+    """Capture names of kernel O's wrapper and kernel Q's two entries (for
+    counting their calls on a path)."""
+    return {"deblock": (hevc, "deblock_planes"), **color_wrappers(hevc)}
+
+
+def oq_one_a_call(launches, counts, where: str) -> None:
+    """Kernel O and each entry of kernel Q launch once a call."""
+    one_a_call("deblock", launches, counts, where)
+    one_a_call("color_convert", launches, {"color_convert": counts["color_to_planes"]
+                                           + counts["color_to_rgb"]}, where)
 
 
 def front_digests(fr):
@@ -1462,9 +1567,19 @@ def cu_agreement(a: dict, b: dict) -> float:
     return float(same.mean())
 
 
+def copy_arg(a):
+    """A copy of one captured argument: a tensor, or a list of tensors (a
+    batch of images), cloned; anything else as it is."""
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, (list, tuple)) and a and all(torch.is_tensor(t) for t in a):
+        return [t.clone() for t in a]
+    return a
+
+
 class CallLog:
     """Keeps a copy of the arguments of every call of mod.attr (whose first
-    tensor is not empty) while it is entered."""
+    tensor, or first list of tensors, is not empty) while it is entered."""
 
     def __init__(self, mod, attr):
         self.mod, self.attr, self.calls = mod, attr, []
@@ -1473,8 +1588,10 @@ class CallLog:
         self.real = real = getattr(self.mod, self.attr)
 
         def spy(*args, **kw):
-            if next(a for a in args if torch.is_tensor(a)).numel():
-                self.calls.append([a.clone() if torch.is_tensor(a) else a for a in args])
+            first = next(a if torch.is_tensor(a) else a[0] for a in args
+                         if torch.is_tensor(a) or isinstance(a, (list, tuple)))
+            if first.numel():
+                self.calls.append([copy_arg(a) for a in args])
             return real(*args, **kw)
 
         setattr(self.mod, self.attr, spy)
@@ -1772,10 +1889,13 @@ def encode_phase(dev, cfg, frames, segs):
     e_name = {"grid_knn": lambda a, kw: E_CALLS.get(kw.get("k"), f"grid_knn.k{kw.get('k')}")}
     planes = []
     real_attr = codecs.AttributeSubstreamEncoder.encode
+    # the spy's own conversion, bound before Capture wraps the entry: it is
+    # no call of the encoder's and is not counted
+    to_planes = hevc.rgb_to_planes
 
     def attr_spy(self, attr, *a, weight=None, **kw):
         out = real_attr(self, attr, *a, weight=weight, **kw)
-        y = hevc._rgb_to_int_planes(torch.as_tensor(attr, device=d))[0]
+        y = to_planes(torch.as_tensor(attr, device=d))[0][0]
         planes.append((len(out[0]), luma_psnr(y.cpu().numpy(), self.refs[0][0].cpu().numpy(),
                                               weight)))
         return out
@@ -1783,7 +1903,8 @@ def encode_phase(dev, cfg, frames, segs):
     codecs.AttributeSubstreamEncoder.encode = attr_spy
     t0 = time.perf_counter()
     try:
-        with Capture(wrappers) as cap, Capture(e_wrap, rename=e_name) as e_cap:
+        with Capture(wrappers) as cap, Capture(e_wrap, rename=e_name) as e_cap, \
+                CallLog(hevc, "deblock_planes") as db_log:
             enc0 = Encoder(cfg, device="cuda")
             stream0, recon0 = enc0.encode_gof(frames, segs=segs)
             torch.cuda.synchronize()
@@ -1857,7 +1978,9 @@ def encode_phase(dev, cfg, frames, segs):
     rest_b = sum(rows[k]["bound_ms"] for k in ATTR_ENTRIES)
     print(f"kernel P's paint + group dilation + gather: kernel {rest:.4f} ms, bound "
           f"{rest_b:.4f} ms ({100 * rest_b / rest:.1f} % of it)")
-    rows["color_convert"] = color_check(hevc, cap, "encode")
+    rows["color_convert"] = color_check(dev, hevc, cap, "encode")
+    deblock_all_check(dev, hevc, db_log.calls, "the encode path")
+    del db_log
 
     # 14. the attribute path on JAX's reconstruction rows
     recons = []
@@ -1911,7 +2034,8 @@ def encode_phase(dev, cfg, frames, segs):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with Capture(e_wrap, rename=e_name, keep=False) as e_calls, \
-            Capture({"sao": (hevc, "sao_search_apply")}, keep=False) as k_calls:
+            Capture({"sao": (hevc, "sao_search_apply")}, keep=False) as k_calls, \
+            Capture(oq_wrappers(hevc), keep=False) as oq_calls:
         segs1 = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
             ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
         stream, recon = enc.encode_gof(frames, segs=segs1)
@@ -1919,6 +2043,9 @@ def encode_phase(dev, cfg, frames, segs):
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
     one_a_call("sao", launches, k_calls.counts, "the encode path")
+    oq_one_a_call(launches, oq_calls.counts, "the encode path")
+    print_calls(oq_calls.counts, "the encode path (the encoder's own calls of kernels O and Q)",
+                n)
     print(f"kernel E's calls on the encode path by k: {dict(e_calls.counts)}")
     if sum(e_calls.counts.values()) != launches["grid_knn"]:
         raise AssertionError(f"grid_knn: {launches['grid_knn']} launches for "
@@ -1947,7 +2074,8 @@ def encode_phase(dev, cfg, frames, segs):
     print(f"kernel E in the P-frame trace: {sum(us for us, _ in e_items) / 1e3:.3f} ms in "
           f"{sum(c for _, c in e_items)} launches")
     for what, keys in (("kernel G", ("cc_init_kernel", "cc_hook_kernel", "cc_finalize_kernel")),
-                       ("kernel G's hook", ("cc_hook_kernel",)), ("kernel K", ("sao_kernel",))):
+                       ("kernel G's hook", ("cc_hook_kernel",)), ("kernel K", ("sao_kernel",)),
+                       ("kernel O", ("deblock_kernel",)), ("kernel Q", ("to_planes_", "to_rgb_"))):
         items = [v for k, v in trace[2].items() if any(x in k for x in keys)]
         print(f"{what} in the P-frame trace: {sum(us for us, _ in items) / 1e3:.3f} ms in "
               f"{sum(c for _, c in items)} launches")
@@ -3174,15 +3302,20 @@ def attr_options_phase(dev, frames):
         codecs.encode_reflectance, codecs.decode_reflectance = enc_spy, dec_spy
         t0 = time.perf_counter()
         try:
-            with Capture(wrappers) as cap:
-                _, stream0, recon0 = encode_driven(cfg, fr)
-                torch.cuda.synchronize()
-            t_cold = (time.perf_counter() - t0) / n
-            if with_refl:
-                decode_checked(dev, stream0, recon0, f"attribute options {name} (warm-up)")
+            with CallLog(hevc, "deblock_planes") as db_log:
+                with Capture(wrappers) as cap:
+                    _, stream0, recon0 = encode_driven(cfg, fr)
+                    torch.cuda.synchronize()
+                t_cold = (time.perf_counter() - t0) / n
+                if with_refl:
+                    decode_checked(dev, stream0, recon0, f"attribute options {name} (warm-up)")
         finally:
             codecs.encode_reflectance, codecs.decode_reflectance = real_enc, real_dec
         print(f"attribute options {name} cold encode: {t_cold:.4f} s/frame")
+        if db_log.calls:   # kernel O on every deblocked plane (the lossless video has none)
+            deblock_all_check(dev, hevc, db_log.calls, f"the {name} encode and decode",
+                              maxval=1023 if name == "refl" else None)
+        del db_log
         missing = sorted(set(wrappers) - set(cap.calls))
         if missing:
             raise AssertionError(f"attribute options {name}: never called: {missing}")
@@ -3629,7 +3762,9 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
     try:
         t0 = time.perf_counter()
         enc0 = Encoder(cfg, device="cuda")
-        with CallLog(hevc, "motion_search") as j_calls:
+        with CallLog(hevc, "motion_search") as j_calls, \
+                CallLog(hevc, "deblock_planes") as db_log, \
+                CallLog(hevc, "rgb_to_planes") as q_log:
             stream0, _ = enc0.encode_gof(frames, parallel=True, segs=segs)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
@@ -3637,7 +3772,11 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
         for name, (mod, attr) in real.items():
             setattr(mod, attr, saved[name])
     motion_all_check(hevc, j_calls.calls, "the level path's plane stacks")
-    del j_calls
+    deblock_all_check(dev, hevc, db_log.calls, "the level path's plane stacks")
+    color_batch_check(hevc, q_log.calls, "the level path (batches of a level's images)")
+    if max(len(a[0]) if isinstance(a[0], list) else 1 for a in q_log.calls) < 2:
+        raise AssertionError("rgb_to_planes: no batch of several images on the level path")
+    del j_calls, db_log, q_log
     parent, _ = enc0.gof_structure(n)
     groups = gof.level_groups(gof.level_schedule(parent), parent,
                               [(e.height, e.width) for e in enc0.last_encoded])
@@ -3658,9 +3797,12 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
                 enc)
 
     t_s1, (s_seq, _), _, in_seq, _ = run(False)
-    with Capture({"sao": (hevc, "sao_search_apply")}, keep=False) as k_calls:
+    with Capture({"sao": (hevc, "sao_search_apply"), **oq_wrappers(hevc)},
+                 keep=False) as k_calls:
         t_p1, (stream, recon), launches, inexact, enc = run(True)
     one_a_call("sao", launches, k_calls.counts, "the level-batched path")
+    oq_one_a_call(launches, k_calls.counts, "the level-batched path")
+    print_calls(k_calls.counts, "the level-batched path", n)
     t_p2 = run(True)[0]
     t_s2 = run(False)[0]
     split = {f: sum(getattr(s, f) for s in enc.stats) / n

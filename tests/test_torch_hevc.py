@@ -7,6 +7,8 @@ seed with numpy and handed to both packages.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -115,6 +117,36 @@ def test_rgb_planes_both_ways_exact():
     rgb = rng.integers(0, 256, (64, 96, 3)).astype(np.uint8)
     for a, b in zip(th.rgb_refs(torch.as_tensor(rgb)), jh.rgb_refs(jnp.asarray(rgb))):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_rgb_to_planes_batch_matches_reference(dtype):
+    """Kernel Q's batched entry (its plain version on the CPU) equals the
+    reference's `_rgb_to_int_planes` of each image, stacked: y (B, H, W)
+    and one chroma tensor (B, 2, H/2, W/2), from a (B, H, W, 3) tensor and
+    from a list of (H, W, 3) images alike."""
+    rng = np.random.default_rng(17)
+    rgb = rng.integers(0, 256, (2, 18, 26, 3)).astype(dtype)
+    rgb[0, :2, :2] = [[0, 0, 255], [255, 255, 255]]
+    want = [[np.asarray(p) for p in jh._rgb_to_int_planes(jnp.asarray(im), None)]
+            for im in rgb]
+    want_y = np.stack([w[0] for w in want])
+    want_c = np.stack([np.stack(w[1:]) for w in want])
+    for attr in (torch.as_tensor(rgb), [torch.as_tensor(im) for im in rgb]):
+        y, chroma = th.rgb_to_planes(attr)
+        np.testing.assert_array_equal(y.numpy(), want_y)
+        np.testing.assert_array_equal(chroma.numpy(), want_c)
+
+
+def test_deblock_kernel_tc_table_text():
+    """Kernel O keeps the tc table as a __constant__ array in its source
+    (no upload a call): its text equals the reference's TC_TAB."""
+    from vpcc_tpu.video import hevc_tables as jtab
+
+    src = (Path(th.__file__).resolve().parents[1] / "csrc" / "deblock.cu").read_text()
+    body = re.search(r"kTcTab\[54\]\s*=\s*\{([^}]*)\}", src).group(1)
+    got = [int(v) for v in body.split(",") if v.strip()]
+    assert got == np.asarray(jtab.TC_TAB).tolist()
 
 
 @pytest.mark.parametrize("bs,maxval", [(32, 1023), (32, 255), (16, 255)])

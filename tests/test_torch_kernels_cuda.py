@@ -1093,15 +1093,76 @@ def test_presmooth_kernel(cuda):
     assert (got != c[bidx]).any(1).any() and (got == c[bidx]).all(1).any()
 
 
-@pytest.mark.parametrize("P", [1, 3])
-def test_deblock_kernel(cuda, P):
-    rng = np.random.default_rng(60 + P)
-    rec = rng.integers(0, 256, (P, 64, 96)).astype(np.int32)
-    rec[:, :, 40:] //= 5
-    qps = torch.as_tensor(np.array([22, 37, 51][:P], np.int32), device=cuda)
-    maxv = torch.full((P,), 255, dtype=torch.int32, device=cuda)
-    r = torch.as_tensor(rec, device=cuda)
-    _same(hevc.deblock_planes(r, qps, maxv), hevc.deblock_planes_plain(r, qps, maxv))
+def _one_launch_no_sync(name, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error") (a host wait
+    raises), and the launches it added to dev.LAUNCHES[name]."""
+    torch.cuda.synchronize()
+    before = dev.LAUNCHES[name]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, dev.LAUNCHES[name] - before
+
+
+# (case, P, H, W, maxval): stacks of 1, 3 and 43 planes; H = 8 (no
+# horizontal edge) and W = 8 (no vertical edge); W = 264 (a narrow last
+# strip); samples at 0 and at maxval under a large tc (both clamps);
+# qps whose tc is 0 and qps at and past the table's end; steps whose delta
+# is one below 10 tc (filtered) and at it (not filtered)
+DEBLOCK_CASES = [("random", 1, 64, 96, 255), ("random", 3, 64, 96, 255),
+                 ("random", 43, 64, 64, 255), ("random", 3, 8, 96, 255),
+                 ("random", 3, 96, 8, 255), ("random", 2, 48, 264, 255),
+                 ("clamp", 3, 64, 136, 1023), ("clamp", 3, 64, 136, 2047),
+                 ("tc", 4, 64, 96, 255), ("threshold", 2, 64, 96, 255)]
+
+
+@pytest.mark.parametrize("case,P,H,W,maxval", DEBLOCK_CASES)
+def test_deblock_kernel(cuda, case, P, H, W, maxval):
+    rng = np.random.default_rng(60 + P + H + W + maxval)
+    qps = rng.integers(10, 52, P)
+    if case == "random":
+        rec = rng.integers(0, maxval + 1, (P, H, W))
+        rec[:, :, W // 2:] //= 5
+    elif case == "clamp":
+        rec = rng.choice([0, maxval, maxval // 2], (P, H, W), p=[0.4, 0.4, 0.2])
+        rec = np.where(rng.random((P, H, W)) < 0.3, rng.integers(0, maxval + 1, (P, H, W)), rec)
+        qps[:] = 51
+    elif case == "tc":
+        rec = rng.integers(0, maxval + 1, (P, H, W))
+        qps = np.array([-4, 15, 51, 60])   # tc 0, tc 0, TC_TAB[53], clamped to 53
+    else:
+        # 8x8 blocks of a and a + D in a checkerboard, qp 37 (tc 5): the
+        # step D = 130 gives |delta| = 49 < 10 tc up and down, D = 133
+        # gives 50 (floor((9 - 3) D + 8) / 16) and its negative)
+        yy, xx = np.mgrid[0:H, 0:W]
+        check = ((yy // 8 + xx // 8) % 2)[None]
+        rec = 60 + check * np.array([130, 133])[:, None, None]
+        qps[:] = 37
+        assert int(tab.TC_TAB[39]) == 5
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=cuda)
+    r, q, mv = t(rec), t(qps), t(np.full(P, maxval))
+    got, launches = _one_launch_no_sync("deblock", lambda: hevc.deblock_planes(r, q, mv))
+    want = hevc.deblock_planes_plain(r, q, mv)
+    _same(got, want)
+    assert launches == 1
+    if case == "threshold":   # the D = 130 plane filtered, the D = 133 plane not
+        assert not torch.equal(want[0], r[0]) and torch.equal(want[1], r[1])
+    else:
+        assert not torch.equal(want, r)
+
+
+def test_deblock_refuses_unaligned_kernel(cuda):
+    """Kernel O moves 16-byte words: planes off 16 bytes are refused before
+    any launch."""
+    buf = torch.zeros(2 * 16 * 16 + 1, dtype=torch.int32, device=cuda)
+    off = buf[1:].view(2, 16, 16)
+    q = torch.full((2,), 30, dtype=torch.int32, device=cuda)
+    before = dev.LAUNCHES["deblock"]
+    with pytest.raises(ValueError, match="16 bytes"):
+        hevc.deblock_planes(off, q, q)
+    assert dev.LAUNCHES["deblock"] == before
 
 
 def test_attr_image_kernel(cuda):
@@ -1184,22 +1245,61 @@ def test_attr_entries_refuse_ragged_planes_kernel(cuda):
     assert dict(dev.LAUNCHES) == before
 
 
+# (H, W, B, form): the smallest image; W = 130 (not a multiple of 4: the
+# quad form); a batch of 3 as one tensor and as a list of images; a list
+# whose images lie off their word alignment (the quad form); the bench's
+# 1280 x 1280 atlas
+COLOR_CASES = [(2, 2, 1, "tensor"), (96, 130, 1, "tensor"), (96, 128, 3, "tensor"),
+               (96, 128, 3, "list"), (64, 96, 2, "unaligned"), (1280, 1280, 1, "tensor")]
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
-def test_color_convert_kernel(cuda, dtype):
+@pytest.mark.parametrize("H,W,B,form", COLOR_CASES)
+def test_color_convert_kernel(cuda, H, W, B, form, dtype):
     """Both entries of kernel Q, on uint8 (decoded) and int32 (encoder)
-    RGB, including the saturated corners of the RGB cube."""
-    rng = np.random.default_rng(80)
-    rgb = rng.integers(0, 256, (96, 130, 3))
-    rgb[:4, :4] = [[0, 0, 255], [255, 0, 0], [0, 255, 0], [255, 255, 255]]
+    RGB with the saturated corners of the RGB cube: `rgb_to_planes` equals
+    the plain conversion of each image, its chroma tensor the stack of the
+    plain cb and cr; `_int_planes_to_rgb` equals its plain version given
+    cb and cr as the two planes of one chroma tensor.  One launch a call,
+    no host synchronisation."""
+    rng = np.random.default_rng(80 + H + W + B)
+    rgb = rng.integers(0, 256, (B, H, W, 3))
+    corners = np.array([[0, 0, 255], [255, 0, 0], [0, 255, 0], [255, 255, 255],
+                        [0, 0, 0], [255, 255, 0], [0, 255, 255], [255, 0, 255]])
+    rgb[0].reshape(-1, 3)[:min(H * W, 8)] = corners[:H * W]
     attr = torch.as_tensor(rgb, device=cuda).to(dtype)
-    got = hevc._rgb_to_int_planes(attr)
-    want = hevc.rgb_to_int_planes_plain(attr)
-    for a, b in zip(got, want):
-        _same(a, b)
-    y = torch.as_tensor(rng.integers(0, 256, (96, 130)).astype(np.int32), device=cuda)
-    cb, cr = (torch.as_tensor(rng.integers(0, 256, (48, 65)).astype(np.int32), device=cuda)
-              for _ in range(2))
-    _same(hevc._int_planes_to_rgb(y, cb, cr), hevc.int_planes_to_rgb_plain(y, cb, cr))
+    if form == "list":
+        attr = list(attr)
+    elif form == "unaligned":
+        n = H * W * 3
+        buf = torch.zeros(B * n + B, dtype=dtype, device=cuda)
+        attr = [buf[b * n + b + 1:(b + 1) * n + b + 1].view(H, W, 3) for b in range(B)]
+        for b, im in enumerate(attr):
+            im.copy_(torch.as_tensor(rgb[b], device=cuda).to(dtype))
+    elif B == 1:
+        attr = attr[0]
+    (y, chroma), launches = _one_launch_no_sync("color_convert",
+                                                lambda: hevc.rgb_to_planes(attr))
+    assert launches == 1 and y.shape == (B, H, W) and chroma.shape == (B, 2, H // 2, W // 2)
+    imgs = attr if isinstance(attr, list) else (attr[None] if attr.ndim == 3 else attr)
+    for b, im in enumerate(imgs):
+        wy, wcb, wcr = hevc.rgb_to_int_planes_plain(im)
+        _same(y[b], wy)
+        _same(chroma[b], torch.stack([wcb, wcr]))
+    py, pc = hevc.rgb_to_planes_plain(attr)
+    _same(y, py)
+    _same(chroma, pc)
+    if not isinstance(attr, list) and attr.ndim == 3:   # the single-image view of the entry
+        for a, b in zip(hevc._rgb_to_int_planes(attr), hevc.rgb_to_int_planes_plain(attr)):
+            _same(a, b)
+    ry = torch.as_tensor(rng.integers(0, 256, (H, W)).astype(np.int32), device=cuda)
+    rc = torch.as_tensor(rng.integers(0, 256, (2, H // 2, W // 2)).astype(np.int32),
+                         device=cuda)
+    for yy, cc_ in ((ry, rc), (y[0], chroma[0])):
+        got, launches = _one_launch_no_sync(
+            "color_convert", lambda: hevc._int_planes_to_rgb(yy, cc_[0], cc_[1]))
+        _same(got, hevc.int_planes_to_rgb_plain(yy, cc_[0], cc_[1]))
+        assert launches == 1
 
 
 @pytest.mark.parametrize("with_normals,with_colors", [(True, True), (False, False)])

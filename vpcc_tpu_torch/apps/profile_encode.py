@@ -54,7 +54,7 @@ def stage_patches():
         (pipeline, "group_dilate", "device: kernel P group dilation"),
         (pipeline, "gather_decoded_colors", "device: kernel P gather"),
         (hevc, "deblock_planes", "device: kernel O deblock"),
-        (hevc, "_rgb_to_int_planes", "device: kernel Q RGB->YCbCr"),
+        (hevc, "rgb_to_planes", "device: kernel Q RGB->YCbCr"),
         (hevc, "_int_planes_to_rgb", "device: kernel Q YCbCr->RGB"),
         (pipeline, "download_recon", "device->host: download, incl. duplicate removal"),
         (encoder.Encoder, "_mux_gof", "host: V3C mux"),

@@ -1,15 +1,16 @@
 """Kernel entries timed one by one on the card, on inputs captured from the
 encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
-    python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt
+    python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt [--kernels=...]
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F] [--trace] [--split]
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q] [--trace] [--split]
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
 
 --capture encodes one bench frame (`make_person_cloud(bits=10,
 n_samples=3_000_000, seed=7)` with the configuration of the committed
 front-end reference data, segmented by the encoder itself) and saves the
-largest call of
+largest call of (the encodes that only J, A, K or G need are skipped where
+--kernels names none of them)
 * kernel P: `pipeline.paint_attribute`, `group_dilate` and
   `gather_decoded_colors` (the scalar entries take the color inputs' first
   channel: the colors as samples, channel 0 of the two images widened to
@@ -36,7 +37,18 @@ largest call of
   and at 16-px regions from the geometryNominal2dBitdepth=11 encode
   (`sao.encode16`), and the decoder's largest `hevc.sao_apply` call from the
   fixture decode (`sao_apply.decode32`) and from the two-level decode
-  (`sao_apply.decode16`).
+  (`sao_apply.decode16`);
+* kernel O: `hevc.deblock_planes`, the largest call of the bench frame's
+  luma dispatches (`deblock.luma`) and of its chroma dispatches
+  (`deblock.chroma`), and of the fixture decode (`deblock.decode`);
+* kernel Q: the image of the bench frame's largest `hevc.encode_rgb` call
+  (int32 RGB; `color.enc_to_planes`) and its largest `_int_planes_to_rgb`
+  call (`color.enc_to_rgb`), and the fixture decode's largest
+  `hevc.rgb_refs` (uint8 RGB; `color.dec_to_planes`) and
+  `_int_planes_to_rgb` calls (`color.dec_to_rgb`).  Each side is timed per
+  entry and as the pair (`color.enc_pair`, `color.dec_pair`); a checkout
+  without `hevc.rgb_to_planes` converts with `_rgb_to_int_planes` and
+  stacks cb and cr, as its callers did.
 --inputs times the entries of the kernels named by --kernels, in the package
 found under --root (default: this checkout), on those inputs, so that two
 commits can be compared on one card, one process each, in turns (the grids
@@ -44,10 +56,11 @@ are built by each package from the saved points; a package without
 `hevc.sao_search_apply` runs `sao_search` then `sao_apply` for the SAO
 step, whose three outputs are hashed either way).  For each run and entry:
 the call time (CUDA events over back-to-back calls, the wrapper's host work
-included: 100 calls for P, 20 for the others) and, but for J and F, the
-device time (one call captured in a CUDA graph and replayed as often; J's
-and F's device times are their kernels' in --trace: an older checkout's J
-and F wrappers copy from or wait on the host, which a graph cannot hold).
+included: 100 calls for P, 20 for the others) and, but for J, F and O,
+the device time (one call captured in a CUDA graph and replayed as often;
+J's, F's and O's device times are their kernels' in --trace: an older
+checkout's J, F and O wrappers copy from or wait on the host, which a graph
+cannot hold).
 --trace adds, once per entry, each device kernel's time and launches a
 call (`torch.profiler` over as many calls) and the host's waits a call
 (`cudaStreamSynchronize` and `cudaMemcpy*` runtime calls: CPU
@@ -55,7 +68,13 @@ microseconds and calls).  --split times, for J, builds of the checkout's
 `csrc/motion_search.cu` cut after its 1st, 2nd and 3rd `__syncthreads()`
 (a `return` the compiler cannot drop), so that the differences split
 J's kernel (one block a CU, a barrier after each stage) into its stages
-(staging, integer SAD, argmin, half-pel refinement).  Prints the card's
+(staging, integer SAD, argmin, half-pel refinement); for O and Q, the
+host microseconds a call of back-to-back calls without a synchronisation
+(a wrapper that waits on the card includes its wait) and whether a call
+raises under torch.cuda.set_sync_debug_mode("error"), and once the host
+microseconds of the steps a wrapper may take (the tc table's upload,
+setting ctypes argument types, an output allocation, reading the stream;
+top-level key "host_parts_us").  Prints the card's
 name and power limit, then one JSON line:
 per entry, the runs' call and device milliseconds and the md5 of its output
 (and the trace).  --summarize reads the JSON lines
@@ -80,7 +99,7 @@ ROOT = Path(__file__).resolve().parents[2]
 P_ENTRIES = ("paint_attribute", "group_dilate", "gather_decoded_colors")
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
-REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20}
+REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20, "O": 20, "Q": 20}
 F_STAGES = ("segment.pca", "segment.orient", "segment.partition")
 
 
@@ -157,15 +176,17 @@ def sao_step(hevc, src, rec, lam, w, maxv, region):
 
 def capture_encode(frame, cfg, device) -> tuple:
     """Encode one frame, keeping P's largest calls, E's largest call for
-    each k with its grid's points, every call of G and K's largest.
-    Returns (P inputs, E inputs, G inputs, K inputs)."""
+    each k with its grid's points, every call of G, K's largest, F's first
+    chain, and O's and Q's largest.  Returns (P inputs, E inputs, G inputs,
+    K inputs, F inputs, O and Q inputs)."""
     from vpcc_tpu_torch import pipeline
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.ops import cc, neighbors, normals, segmentation
     from vpcc_tpu_torch.video import hevc
 
-    p_kept, e_kept, grids, k_kept = {}, {}, {}, {}
+    p_kept, e_kept, grids, k_kept, oq_kept = {}, {}, {}, {}, {}
     g_calls, f_calls = [], []
+    plane_kind = []   # "luma" or "chroma": the plane dispatch running now
 
     def keep_p(name):
         def before(args, kw):
@@ -189,7 +210,13 @@ def capture_encode(frame, cfg, device) -> tuple:
              _spy(neighbors, "knn", before=keep_e),
              _spy(cc, "cc_labels_device", before=lambda a, kw: g_calls.append(_clone(a))),
              _spy(hevc, "sao_search_apply", before=keep_largest(k_kept, "sao.encode32", 32)),
-             _spy(normals, "pca_normals", before=lambda a, kw: f_calls.append(_clone(a)))]
+             _spy(normals, "pca_normals", before=lambda a, kw: f_calls.append(_clone(a))),
+             _spy(hevc, "encode_planes_dispatch", before=lambda a, kw: plane_kind.insert(
+                 0, "luma" if a[0].shape[0] == 1 else "chroma")),
+             _spy(hevc, "deblock_planes", before=lambda a, kw: keep_largest(
+                 oq_kept, f"deblock.{plane_kind[0]}")(a, kw)),
+             _spy(hevc, "encode_rgb", before=keep_largest(oq_kept, "color.enc_to_planes")),
+             _spy(hevc, "_int_planes_to_rgb", before=keep_largest(oq_kept, "color.enc_to_rgb"))]
     try:
         Encoder(cfg, device=device).encode_gof([frame])
     finally:
@@ -217,14 +244,19 @@ def capture_encode(frame, cfg, device) -> tuple:
     f_in = {"segment.chain": [*f_calls[0], torch.as_tensor(segmentation.get_orientations(
         cfg.additionalProjectionPlaneMode)), weights, float(cfg.lambdaRefineSegmentation),
         int(cfg.iterationCountRefineSegmentation)]}
-    return {name: args for name, (_, args) in p_kept.items()}, e_in, g_in, k_kept, f_in
+    oq_in = {n: args[:1] if n == "color.enc_to_planes" else args
+             for n, (args, _) in oq_kept.items()}
+    return ({name: args for name, (_, args) in p_kept.items()}, e_in, g_in, k_kept, f_in,
+            oq_in)
 
 
 def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
-                   sao_name: str = "", region: int = 32) -> list:
+                   sao_name: str = "", region: int = 32, oq: Optional[dict] = None) -> list:
     """Decode `stream`, keeping kernel A's (`name`) largest call that mixes
     inter and intra samples most evenly (and, given `sao`, kernel K's
-    largest `sao_apply` call at `region` in sao[sao_name])."""
+    largest `sao_apply` call at `region` in sao[sao_name]; given `oq`,
+    kernel Q's largest `rgb_refs` and `_int_planes_to_rgb` calls and kernel
+    O's largest call)."""
     from vpcc_tpu_torch.decoder import Decoder
     from vpcc_tpu_torch.video import hevc
     from vpcc_tpu_torch.video.hevc_tables import MODE_INTER
@@ -255,6 +287,10 @@ def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
     undo = [_spy(hevc, name, before=before)]
     if sao is not None:
         undo.append(_spy(hevc, "sao_apply", before=keep_largest(sao, sao_name, region)))
+    if oq is not None:
+        undo += [_spy(hevc, "rgb_refs", before=keep_largest(oq, "color.dec_to_planes")),
+                 _spy(hevc, "_int_planes_to_rgb", before=keep_largest(oq, "color.dec_to_rgb")),
+                 _spy(hevc, "deblock_planes", before=keep_largest(oq, "deblock.decode"))]
     try:
         Decoder(device=device).decode(stream)
     finally:
@@ -288,9 +324,11 @@ def capture_vox11(device) -> list:
     return calls[0]
 
 
-def capture(path: Path, device="cuda") -> None:
+def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q") -> None:
     """Encode and decode bench frames on `device` and save the inputs of
-    kernels P, E, A, G and K."""
+    kernels P, E, A, G, K, J, F, O and Q (the two-frame, two-level and
+    vox11 encodes only where `kernels` names a kernel they feed: J; J, A,
+    K; G)."""
     from vpcc_tpu_torch import device as dev
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.utils.config import VPCCConfig
@@ -304,31 +342,37 @@ def capture(path: Path, device="cuda") -> None:
         setattr(cfg, k, v)
     dev.build_kernels()
     frames = [make_person_cloud(bits=10, n_samples=3_000_000, seed=s) for s in ref["seeds"][:2]]
-    p_in, e_in, g_in, k_in, f_in = capture_encode(frames[0], cfg, device)
+    p_in, e_in, g_in, k_in, f_in, oq_in = capture_encode(frames[0], cfg, device)
     j_in = {}
-    undo = _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu32"))
-    try:
-        Encoder(cfg, device=device).encode_gof(frames)
-    finally:
-        undo()
-    sao_calls = {}
+    if "J" in kernels:
+        undo = _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu32"))
+        try:
+            Encoder(cfg, device=device).encode_gof(frames)
+        finally:
+            undo()
+    sao_calls, oq_dec = {}, {}
     a_in = {"wavefront_decode32": capture_decode(
         (data / "person_vox10_r3_gof8.vpcc").read_bytes(), "wavefront_decode32", device,
-        sao_calls, "sao_apply.decode32")}
-    cfg.geometryNominal2dBitdepth = 11
+        sao_calls, "sao_apply.decode32", oq=oq_dec)}
+    oq_in.update({n: args for n, (args, _) in oq_dec.items()})
+    o_in = {n: a for n, a in oq_in.items() if n.startswith("deblock.")}
+    q_in = {n: a for n, a in oq_in.items() if n.startswith("color.")}
     sao16 = {}
-    undo = [_spy(hevc, "sao_search_apply", before=keep_largest(sao16, "sao.encode16", 16)),
-            _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu16"))]
-    try:
-        stream, _ = Encoder(cfg, device=device).encode_gof(frames)
-    finally:
-        for u in undo:
-            u()
-    if "motion_search.cu16" not in j_in:   # the GOF searched no motion at 16 px
-        j_in["motion_search.cu16"] = ([*j_in["motion_search.cu32"][0][:4], 16], {})
-    a_in["wavefront_decode16"] = capture_decode(stream, "wavefront_decode16", device,
-                                                sao_calls, "sao_apply.decode16", 16)
-    g_in["cc_round_voxel.vox11"] = capture_vox11(device)
+    if any(k in kernels for k in "JAK"):
+        cfg.geometryNominal2dBitdepth = 11
+        undo = [_spy(hevc, "sao_search_apply", before=keep_largest(sao16, "sao.encode16", 16)),
+                _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu16"))]
+        try:
+            stream, _ = Encoder(cfg, device=device).encode_gof(frames)
+        finally:
+            for u in undo:
+                u()
+        if "motion_search.cu16" not in j_in and j_in:   # no motion searched at 16 px
+            j_in["motion_search.cu16"] = ([*j_in["motion_search.cu32"][0][:4], 16], {})
+        a_in["wavefront_decode16"] = capture_decode(stream, "wavefront_decode16", device,
+                                                    sao_calls, "sao_apply.decode16", 16)
+    if "G" in kernels:
+        g_in["cc_round_voxel.vox11"] = capture_vox11(device)
     # K: (args, kw) per entry, the region as an argument
     k_in = {**k_in, **sao16, **sao_calls}
     k_in = {n: [*args, kw.get("region", 32)] for n, (args, kw) in k_in.items()}
@@ -340,7 +384,9 @@ def capture(path: Path, device="cuda") -> None:
                 "E": {n: {k: cpu(v) for k, v in c.items()} for n, c in e_in.items()},
                 "A": {n: [cpu(a) for a in args] for n, args in a_in.items()},
                 "G": {n: [cpu(a) for a in args] for n, args in g_in.items()},
-                "K": {n: [cpu(a) for a in args] for n, args in k_in.items()}}, path)
+                "K": {n: [cpu(a) for a in args] for n, args in k_in.items()},
+                "O": {n: [cpu(a) for a in args] for n, args in o_in.items()},
+                "Q": {n: [cpu(a) for a in args] for n, args in q_in.items()}}, path)
     print(f"captured P {sorted(p_in)}: rows {p_in['paint_attribute'][0].shape[0]}; E "
           + ", ".join(f"{n} {tuple(c['q'].shape)} k={c['k']} bucket={c['bucket']}"
                       for n, c in e_in.items())
@@ -350,7 +396,10 @@ def capture(path: Path, device="cuda") -> None:
           + "; K " + ", ".join(f"{n} {tuple(a[1 if n.startswith('sao.') else 0].shape)} "
                               f"region {a[-1]}" for n, a in k_in.items())
           + "; J " + ", ".join(f"{n} {tuple(a[0].shape)} bs {a[4]}" for n, a in j_in.items())
-          + "; F " + ", ".join(f"{n} {tuple(a[1].shape)}" for n, a in f_in.items()))
+          + "; F " + ", ".join(f"{n} {tuple(a[1].shape)}" for n, a in f_in.items())
+          + "; O " + ", ".join(f"{n} {tuple(a[0].shape)} maxvals {sorted(set(a[2].tolist()))}"
+                              for n, a in o_in.items())
+          + "; Q " + ", ".join(f"{n} {tuple(a[0].shape)} {a[0].dtype}" for n, a in q_in.items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
@@ -411,11 +460,38 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
             calls[name] = lambda st=stages: st["segment.partition"](st["segment.orient"](
                 st["segment.pca"]()))
             calls.update(stages)
+    if "O" in kernels:
+        for name, args in inputs.get("O", {}).items():
+            calls[name] = lambda a=on(args): hevc.deblock_planes(*a)
+    if "Q" in kernels:
+        q = {n: on(a) for n, a in inputs.get("Q", {}).items()}
+        for side in ("enc", "dec"):
+            if f"color.{side}_to_planes" not in q:
+                continue
+            attr, rgb_args = q[f"color.{side}_to_planes"][0], q[f"color.{side}_to_rgb"]
+            calls.update({
+                f"color.{side}_to_planes": lambda a=attr: color_to_planes(hevc, a),
+                f"color.{side}_to_rgb": lambda a=rgb_args: hevc._int_planes_to_rgb(*a),
+                f"color.{side}_pair": lambda a=attr, r=rgb_args: (
+                    *color_to_planes(hevc, a), hevc._int_planes_to_rgb(*r)),
+            })
     letter = {n: "P" for n in calls}
-    for k in "EAGKJ":
+    for k in "EAGKJOQ":
         letter.update({n: k for n in inputs.get(k, {}) if n in calls})
     letter.update({n: "F" for n in calls if n.startswith("segment.")})
+    letter.update({n: "Q" for n in calls if n.startswith("color.")})
     return {n: (letter[n], fn) for n, fn in calls.items()}
+
+
+def color_to_planes(hevc, attr):
+    """Kernel Q's RGB -> (y (1, H, W), chroma (1, 2, H/2, W/2)) with one
+    checkout's wrappers, as the codec's callers use it: `rgb_to_planes`, or
+    where a checkout has none, `_rgb_to_int_planes` and the stack of cb and
+    cr its callers made."""
+    if hasattr(hevc, "rgb_to_planes"):
+        return hevc.rgb_to_planes(attr)
+    y, cb, cr = hevc._rgb_to_int_planes(attr)
+    return y[None], torch.stack([cb, cr])[None]
 
 
 def segment_stages(normals, segmentation, pos, idx, valid, orients, weights, lam, iters) -> dict:
@@ -492,7 +568,7 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
     for _ in range(runs):
         for name, (letter, fn) in calls.items():
             res[name]["call_ms"].append(time_ms(fn, REPS[letter]))
-            if letter not in "JF":   # the parents' J and F wrappers copy or wait: no graph
+            if letter not in "JFO":   # the parents' J, F, O wrappers copy or wait: no graph
                 res[name]["device_ms"].append(graph_ms(fn, REPS[letter]))
     if trace:
         for name, (letter, fn) in calls.items():
@@ -501,7 +577,72 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
         for name, args in inputs.get("J", {}).items():
             res[name]["split_ms"] = motion_split(root, [a.cuda() if torch.is_tensor(a) else a
                                                         for a in args], runs)
+    if split:
+        for name, (letter, fn) in calls.items():
+            if letter in "OQ":
+                res[name]["host"] = host_split(fn, REPS[letter])
     return res
+
+
+def host_split(fn, reps: int) -> dict:
+    """The host's side of a wrapper call: microseconds of host time a call
+    over `reps` back-to-back calls without a synchronisation (a wrapper that
+    waits on the card includes the wait), and whether a call synchronises
+    (one call under torch.cuda.set_sync_debug_mode("error"))."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        sync = "no host synchronisation"
+    except RuntimeError as e:
+        sync = "raises: " + str(e).splitlines()[0][:160]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"host_us": round(host_us, 3), "sync_debug_error": sync}
+
+
+def host_parts(rec, reps: int = 200) -> dict:
+    """Host microseconds of the steps a kernel wrapper may take, each alone:
+    uploading the 54-entry tc table from a numpy array (a pageable copy and
+    its stream synchronisation), setting a ctypes entry's nine argument
+    types, allocating an output like `rec`, reading the current stream."""
+    import ctypes
+    import time
+
+    import numpy as np
+
+    from vpcc_tpu_torch import device as dev
+    from vpcc_tpu_torch.video import hevc_tables as tab
+
+    fn = getattr(ctypes.CDLL(str(dev._kernel_lib_path("deblock"))), "deblock")
+    types = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def argtypes():
+        fn.argtypes, fn.restype = types, ctypes.c_int
+
+    steps = {"tc_table_upload": lambda: torch.as_tensor(np.asarray(tab.TC_TAB, np.int32),
+                                                        device=rec.device),
+             "set_argtypes": argtypes, "empty_like": lambda: torch.empty_like(rec),
+             "stream_handle": dev.stream_handle}
+    out = {}
+    for name, step in steps.items():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        out[name] = round((time.perf_counter() - t0) / reps * 1e6, 3)
+        torch.cuda.synchronize()
+    return out
 
 
 def motion_split(root: Path, args, runs: int) -> dict:
@@ -582,12 +723,13 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A,G,K,J,F",
+    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q",
                     help="kernels whose entries are timed")
     ap.add_argument("--trace", action="store_true",
                     help="also each device kernel's time and launches a call")
     ap.add_argument("--split", action="store_true",
-                    help="also kernel J's stages (builds cut after each barrier)")
+                    help="also kernel J's stages (builds cut after each barrier), and O's "
+                         "and Q's host time a call and host waits")
     ap.add_argument("--summarize", nargs="+", type=Path, help="logs of --inputs runs")
     a = ap.parse_args(argv)
     if a.summarize:
@@ -606,12 +748,15 @@ def main(argv=None) -> int:
     print(smi)
     if a.capture:
         sys.path.insert(0, str(ROOT))
-        capture(a.capture)
+        capture(a.capture, kernels=a.kernels)
         return 0
     if not a.inputs:
         ap.error("give --capture or --inputs")
     res = profile(a.inputs, a.root, a.runs, a.kernels, a.trace, a.split)
-    print(json.dumps({"root": str(a.root), "card": smi, "entries": res}))
+    out = {"root": str(a.root), "card": smi, "entries": res}
+    if a.split and "O" in a.kernels:
+        out["host_parts_us"] = host_parts(torch.load(a.inputs)["O"]["deblock.luma"][0].cuda())
+    print(json.dumps(out))
     return 0
 
 

@@ -264,16 +264,15 @@ def _encode_group(enc, per, parent, qp_off, geo_bank, attr_bank, H: int, W: int,
     qc = [min(q + 3, 51) for q in qy for _ in range(2)]
     w_c = w_b.reshape(B, H // 2, 2, W // 2, 2).amax((2, 4)).repeat_interleave(2, 0)
     for layer in (0, 1):
-        planes = [hevc._rgb_to_int_planes(im[layer]) for im in imgs]
-        y_b = torch.stack([p[0] for p in planes])
-        c_b = torch.stack([c for p in planes for c in p[1:]])
+        y_b, c_b = hevc.rgb_to_planes([im[layer] for im in imgs])
+        c_b = c_b.view(2 * B, H // 2, W // 2)
         if layer == 0:
             y_refs = torch.cat([attr_bank[parent[f]][0] for f in idx]) if ref_ok else None
             c_refs = torch.cat([attr_bank[parent[f]][1] for f in idx]) if ref_ok else None
         else:
-            rr = [hevc.rgb_refs(per[f]["attr_dec"][0]) for f in idx]
-            y_refs = torch.cat([r_[0] for r_ in rr])
-            c_refs = torch.cat([r_[1] for r_ in rr])
+            # rgb_refs of each frame's decoded T0, in one launch
+            y_refs, c_refs = hevc.rgb_to_planes([per[f]["attr_dec"][0] for f in idx])
+            c_refs = c_refs.view(2 * B, H // 2, W // 2)
         cy = hevc.encode_planes_dispatch(y_b, qy, [255] * B, refs=y_refs, deblock=True,
                                          weight=w_b, motion=layer == 0)
         cc = hevc.encode_planes_dispatch(c_b, qc, [255] * (2 * B), refs=c_refs,

@@ -8,7 +8,7 @@ on XLA's CPU backend, which fuses multiply-adds and multiplies by the
 float32 reciprocal of a constant divisor; the formulas below are written in
 that fused form (`device.fma_f32`, `device.recip_f32`), each remaining op
 being one float32 rounding.  They are the plain versions of kernel Q
-(csrc/color_convert.cu, `hevc._rgb_to_int_planes` / `_int_planes_to_rgb`),
+(csrc/color_convert.cu, `hevc.rgb_to_planes` / `_int_planes_to_rgb`),
 which the video path runs on the card.
 """
 

@@ -189,13 +189,15 @@ def deblock_planes_plain(rec, qps, maxvals):
     return rec.contiguous()
 
 
-_DEBLOCK_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_DEBLOCK_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def deblock_planes(rec, qps, maxvals):
-    """Kernel O (csrc/deblock.cu): `deblock_planes_plain` on the card, two
-    launches (vertical edges into a new tensor, then the horizontal edges
-    in place)."""
+    """Kernel O (csrc/deblock.cu): `deblock_planes_plain` on the card, one
+    launch a call (a block a (plane, band of 8 rows, column strip), both
+    edge directions in shared memory) into a new tensor; the tc table is
+    the kernel's own, so the call uploads nothing and never waits on the
+    card.  rec: (P, H, W) int32 on 16 bytes."""
     if rec.device.type == "cpu":
         return deblock_planes_plain(rec, qps, maxvals)
     d = rec.device
@@ -205,13 +207,13 @@ def deblock_planes(rec, qps, maxvals):
     P, H, W = rec.shape
     if H % SUB or W % SUB or qps.shape[0] != P or maxvals.shape[0] != P:
         raise ValueError(f"deblock: planes {tuple(rec.shape)}, qps {tuple(qps.shape)}")
+    if rec.data_ptr() % 16:
+        raise ValueError("deblock: expected planes on 16 bytes")
     out = torch.empty_like(rec)
-    fn = dev.load_kernel("deblock").deblock
-    fn.argtypes, fn.restype = _DEBLOCK_ARGS, ctypes.c_int
-    tc_tab = torch.as_tensor(np.asarray(tab.TC_TAB, np.int32), device=d)
-    rc = fn(dev.ptr(rec), dev.ptr(qps), dev.ptr(maxvals), dev.ptr(tc_tab),
-            dev.ptr(out), P, H, W, dev.stream_handle())
-    dev.count_launch("deblock", 2 if rec.numel() else 0)
+    rc = dev.kernel_fn("deblock", "deblock", _DEBLOCK_ARGS)(
+        rec.data_ptr(), qps.data_ptr(), maxvals.data_ptr(), out.data_ptr(), P, H, W,
+        dev.stream_handle())
+    dev.count_launch("deblock", 1 if rec.numel() else 0)
     dev.check_launch("deblock", rc)
     return out
 
@@ -961,57 +963,101 @@ def int_planes_to_rgb_plain(y, cb, cr):
     return color.ycbcr_to_rgb(ycc)
 
 
-def _rgb_to_int_planes(attr):
-    """Kernel Q (csrc/color_convert.cu) `rgb_to_int_planes`: the reference's
-    `_rgb_to_int_planes(attr, None)` (hevc.py:1766), one thread per 2x2
-    quad, on uint8 (decoded) or int32 (the encoder's 0..255 images) RGB;
-    `rgb_to_int_planes_plain` for a CPU tensor."""
-    if attr.device.type == "cpu":
-        return rgb_to_int_planes_plain(attr)
-    d = attr.device
-    attr = attr.contiguous()
-    if attr.dtype not in (torch.uint8, torch.int32):
-        raise TypeError(f"rgb_to_int_planes: expected uint8 or int32 RGB, got {attr.dtype}")
-    dev.check_tensor(attr, "attr", attr.dtype, d, 3)
-    H, W, C = attr.shape
+def rgb_to_planes_plain(attr):
+    """`rgb_to_planes` in plain PyTorch: `rgb_to_int_planes_plain` of each
+    image, stacked."""
+    imgs = attr if isinstance(attr, (list, tuple)) or attr.ndim == 4 else attr[None]
+    outs = [rgb_to_int_planes_plain(im) for im in imgs]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([torch.stack(o[1:]) for o in outs]))
+
+
+_TO_PLANES_ARGS = [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4 \
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
+_TO_RGB_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] \
+    + [ctypes.c_void_p] * 2
+# images of one `rgb_to_planes` launch, at most (csrc/color_convert.cu kMaxBatch)
+TO_PLANES_MAX_BATCH = 64
+
+
+def rgb_to_planes(attr):
+    """Kernel Q (csrc/color_convert.cu) `rgb_to_planes`: the reference's
+    `_rgb_to_int_planes(attr, None)` (hevc.py:1766) of a batch of images in
+    one launch.  attr: an (H, W, 3) or (B, H, W, 3) uint8 (decoded) or
+    int32 (the encoder's 0..255 images) RGB tensor, or a sequence of B such
+    (H, W, 3) tensors of one shape and type.  Returns (y (B, H, W), chroma
+    (B, 2, H/2, W/2)) int32, cb and cr of each image side by side (B = 1
+    for a single image), views of one allocation; `rgb_to_planes_plain` for
+    CPU tensors."""
+    seq = isinstance(attr, (list, tuple))
+    first = attr[0] if seq else attr
+    if first.device.type == "cpu":
+        return rgb_to_planes_plain(attr)
+    d, dt = first.device, first.dtype
+    if dt not in (torch.uint8, torch.int32):
+        raise TypeError(f"rgb_to_planes: expected uint8 or int32 RGB, got {dt}")
+    shape = first.shape[-3:]
+    if seq:
+        for im in attr:
+            dev.check_tensor(im, "attr", dt, d, 3)
+            if im.shape != shape:
+                raise ValueError(f"rgb_to_planes: images of shapes {tuple(shape)} and "
+                                 f"{tuple(im.shape)}")
+        ptrs = [im.data_ptr() for im in attr]
+    else:
+        attr = attr.contiguous()
+        if attr.ndim not in (3, 4):
+            raise ValueError(f"rgb_to_planes: expected (H, W, 3) or (B, H, W, 3), got "
+                             f"{tuple(attr.shape)}")
+        step = shape.numel() * attr.element_size()
+        ptrs = [attr.data_ptr() + b * step for b in range(attr.numel() // shape.numel())]
+    H, W, C = shape
+    B = len(ptrs)
     if C != 3 or H % 2 or W % 2:
-        raise ValueError(f"rgb_to_int_planes: expected (even H, even W, 3), got {tuple(attr.shape)}")
-    y = torch.empty((H, W), dtype=torch.int32, device=d)
-    cb = torch.empty((H // 2, W // 2), dtype=torch.int32, device=d)
-    cr = torch.empty_like(cb)
-    fn = dev.load_kernel("color_convert").rgb_to_int_planes
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
-    rc = fn(dev.ptr(attr), attr.element_size(), H, W, color.INV_CB, color.INV_CR, dev.ptr(y),
-            dev.ptr(cb), dev.ptr(cr), dev.stream_handle())
-    dev.count_launch("color_convert", 1 if H * W else 0)
+        raise ValueError(f"rgb_to_planes: expected (even H, even W, 3) images, got "
+                         f"{tuple(shape)}")
+    if B > TO_PLANES_MAX_BATCH:
+        raise ValueError(f"rgb_to_planes: {B} images, at most {TO_PLANES_MAX_BATCH} a call")
+    n = B * H * W
+    # one allocation; slicing it costs the host less than `split`
+    buf = torch.empty(n + n // 2, dtype=torch.int32, device=d)
+    y, chroma = buf[:n].view(B, H, W), buf[n:].view(B, 2, H // 2, W // 2)
+    rc = dev.kernel_fn("color_convert", "rgb_to_planes", _TO_PLANES_ARGS)(
+        (ctypes.c_void_p * B)(*ptrs), B, first.element_size(), H, W, color.INV_CB,
+        color.INV_CR, y.data_ptr(), chroma.data_ptr(), dev.stream_handle())
+    dev.count_launch("color_convert", 1 if n else 0)
     dev.check_launch("color_convert", rc)
-    return y, cb, cr
+    return y, chroma
+
+
+def _rgb_to_int_planes(attr):
+    """The reference's `_rgb_to_int_planes(attr, None)` (hevc.py:1766) of
+    one (H, W, 3) image as (y (H, W), cb, cr (H/2, W/2)): views of
+    `rgb_to_planes`'s outputs."""
+    y, c = rgb_to_planes(attr)
+    return y[0], c[0, 0], c[0, 1]
 
 
 def _int_planes_to_rgb(y, cb, cr):
     """Kernel Q (csrc/color_convert.cu) `int_planes_to_rgb`: the reference's
-    `_int_planes_to_rgb` (hevc.py:1783), one thread per chroma sample;
+    `_int_planes_to_rgb` (hevc.py:1783) in one launch, a thread per 2x4
+    luma block (the quad form where W is not a multiple of 4); cb and cr
+    may be the two planes of one (2, H/2, W/2) chroma tensor;
     `int_planes_to_rgb_plain` for CPU tensors."""
     if y.device.type == "cpu":
         return int_planes_to_rgb_plain(y, cb, cr)
     d = y.device
-    y, cb, cr = y.contiguous(), cb.contiguous(), cr.contiguous()
+    dev.check_tensor(y, "y", torch.int32, d, 2)
+    dev.check_tensor(cb, "cb", torch.int32, d, 2)
+    dev.check_tensor(cr, "cr", torch.int32, d, 2)
     H, W = y.shape
-    for name, t, shape in (("y", y, (H, W)), ("cb", cb, (H // 2, W // 2)),
-                           ("cr", cr, (H // 2, W // 2))):
-        dev.check_tensor(t, name, torch.int32, d, 2)
-        if tuple(t.shape) != shape or H % 2 or W % 2:
-            raise ValueError(f"int_planes_to_rgb: {name} has shape {tuple(t.shape)}, "
-                             f"expected {shape} (even luma dims)")
+    if H % 2 or W % 2 or cb.shape != (H // 2, W // 2) or cr.shape != cb.shape:
+        raise ValueError(f"int_planes_to_rgb: planes {tuple(y.shape)}, {tuple(cb.shape)}, "
+                         f"{tuple(cr.shape)}: expected even luma dims and half-size chroma")
     rgb = torch.empty((H, W, 3), dtype=torch.uint8, device=d)
-    fn = dev.load_kernel("color_convert").int_planes_to_rgb
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(dev.ptr(y), dev.ptr(cb), dev.ptr(cr), H, W, color.INV_G, dev.ptr(rgb),
-            dev.stream_handle())
+    rc = dev.kernel_fn("color_convert", "int_planes_to_rgb", _TO_RGB_ARGS)(
+        y.data_ptr(), cb.data_ptr(), cr.data_ptr(), H, W, color.INV_G, rgb.data_ptr(),
+        dev.stream_handle())
     dev.count_launch("color_convert", 1 if H * W else 0)
     dev.check_launch("color_convert", rc)
     return rgb
@@ -1020,8 +1066,8 @@ def _int_planes_to_rgb(y, cb, cr):
 def rgb_refs(rgb) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decoded RGB -> ((1,H,W) luma, (2,H/2,W/2) chroma) int32 planes: the
     inter-layer prediction references, derived identically on both sides."""
-    y, cb, cr = _rgb_to_int_planes(rgb)
-    return y[None], torch.stack([cb, cr])
+    y, chroma = rgb_to_planes(rgb)
+    return y, chroma[0]
 
 
 def peek_rgb_dims(payload: bytes) -> Tuple[int, int]:
@@ -2037,10 +2083,10 @@ def encode_rgb(attr, qp: int, refs=None, deblock: bool = True, weight=None,
     `refs` (the decoded planes of a reference frame, or `rgb_refs` of the
     decoded layer 0) enable the inter lane, `motion` its MV search;
     `weight` (H, W) the RD relevance mask (chroma: its 2x2 maximum)."""
-    y, cb, cr = _rgb_to_int_planes(attr)
+    y, chroma = rgb_to_planes(attr)
     cqp = min(qp + 3, 51)
     ry = rc = None
-    if refs is not None and tuple(refs[0].shape[1:]) == tuple(y.shape):
+    if refs is not None and tuple(refs[0].shape) == tuple(y.shape):
         ry, rc = refs
     wy = wc = None
     if weight is not None:
@@ -2048,9 +2094,9 @@ def encode_rgb(attr, qp: int, refs=None, deblock: bool = True, weight=None,
             device=y.device, dtype=torch.int32)
         h, w = wy.shape
         wc = wy.reshape(h // 2, 2, w // 2, 2).amax((1, 3))
-    py, recy = encode_planes(y[None], [qp], [255], refs=ry, deblock=deblock,
+    py, recy = encode_planes(y, [qp], [255], refs=ry, deblock=deblock,
                              weight=wy, motion=motion)
-    pc, recc = encode_planes(torch.stack([cb, cr]), [cqp, cqp], [255, 255], refs=rc,
+    pc, recc = encode_planes(chroma[0], [cqp, cqp], [255, 255], refs=rc,
                              deblock=deblock, weight=wc, motion=motion)
     rgb = _int_planes_to_rgb(recy[0], recc[0], recc[1])
     return struct.pack("<II", len(py), len(pc)) + py + pc, rgb, (recy, recc)
