@@ -19,12 +19,15 @@ the decode path (kernels A-D, K's apply entry and Q's color conversion):
    Q's entries (the chroma tensor against the plain cb and cr, stacked);
    runs O's largest call and each Q entry once under
    torch.cuda.set_sync_debug_mode("error") in one launch, with call and
-   device times;
+   device times; holds kernel C against its plain version on every call of
+   the warm-up decode (all five fields, two launches a call, the largest
+   with one host synchronisation under sync debug mode "warn", its call
+   and device times);
 5. with all launch counters at 0, decodes the fixture again with
    `vpcc_tpu_torch.Decoder(device="cuda")`, checks every frame's point count
    and md5 against the digests the JAX decoder recorded, prints warm seconds
    per frame, and requires every kernel to have launched on that path
-   (Q included), kernels A, K, O and each entry of Q once a call;
+   (Q included), kernels A, K, O and each entry of Q once a call, C twice;
 
 the encoder front end (kernels E-H):
 6. makes the 8 bench frames from their seeds and runs
@@ -38,12 +41,15 @@ the encoder front end (kernels E-H):
    torch.cuda.set_sync_debug_mode("error") in CHAIN_LAUNCHES launches)
    and times both in turns (the bound counts the sweeps the chain ran);
    holds every captured kernel G call exactly and times round 0 and the
-   sparsest round (call and device times);
+   sparsest round (call and device times); holds every kernel H call of the
+   warm-up bit for bit, one launch a call, runs the largest frame's round 0
+   under sync debug mode "error" and times each of its rounds (call and
+   device times);
 8. with all launch counters at 0, runs the front end over the GOF again,
    prints warm seconds per frame and the stage split, requires the k-NN
    digests to equal the JAX package's and the partition agreement to reach
    PARTITION_FLOOR, and requires every kernel E-H to have launched, G three
-   times a call, F CHAIN_LAUNCHES times a chain;
+   times a call, F CHAIN_LAUNCHES times a chain, H once a call;
 9. runs the patch-generation half driven by the committed JAX partitions
    and requires all 8 frames' patches, atlas, occupancy video and
    block-to-patch to equal the JAX digests;
@@ -86,7 +92,8 @@ path above also runs kernels O, P and Q):
     T0 image) against their plain versions, exactly, timing both in turns;
     kernel O on every deblock call of the warm-up, O and Q once under sync
     debug mode "error" in one launch a call (the spy that measures each
-    attribute plane converts with the unwrapped entry: no encoder call);
+    attribute plane converts with the unwrapped entry: no encoder call),
+    and kernel C on every call of the warm-up as in step 4;
 14. decodes the fixture's geometry with the port (JAX's reconstruction
     rows) and runs the port's recolor -> pre-smoothing -> paint -> fill ->
     group dilation on it with the regenerated source frames; the md5 of the
@@ -159,7 +166,8 @@ tests/torch_make_lossless_reference.py):
     (warm-up), keeping the largest call of kernel C's EOM entry and of
     kernel S's extract and inject;
 29. holds both against their plain versions, exactly, timing both in turns
-    (three rounds, to show the spread within one run);
+    (three rounds, to show the spread within one run), and kernel C's EOM
+    entry on every call of the warm-up as in step 4;
 30. with all launch counters at 0, encodes again: warm seconds per frame,
     the stage split, launches (C's EOM entry and S nonzero);
 31. requires the patch, raw-point, EOM-code and EOM-row counts, the EOM
@@ -180,7 +188,8 @@ made by tests/torch_make_tools_reference.py), on the first two bench
 frames, driven by the JAX partitions, under three configurations: "cs"
 (r3 + color smoothing), "pbf" (r1 QPs, occupancyPrecision 4, PBF) and
 "plr" (r3 + PLR); per configuration:
-33. a warm-up encode keeping the largest call of the tool's kernels;
+33. a warm-up encode keeping the largest call of the tool's kernels (for
+    "plr", kernel C's PLR use held on every call as in step 4);
 34. holds them against their plain versions, exactly (kernel U's border
     count too), timing both in turns;
 35. with all launch counters at 0, encodes again: warm seconds per frame,
@@ -253,9 +262,9 @@ E's and M's frame-batched entries), on the 8 bench frames at r3 driven by
 the JAX partitions:
 47. a cold encode, keeping the largest call of each batched entry, and the
     level groups (level, shape, inter or intra, frames); holds kernels J and
-    O against their plain versions on every call (the level's plane stacks)
-    and kernel Q's `rgb_to_planes` on every call (a level's images, one
-    batch a call);
+    O against their plain versions on every call (the level's plane stacks),
+    kernel Q's `rgb_to_planes` on every call (a level's images, one batch a
+    call) and kernel C on every call as in step 4;
 48. with all launch counters at 0, warm encodes in turns (sequential,
     level-batched, level-batched, sequential): seconds per frame of each,
     the stage split, launches per level group (every kernel of the path
@@ -1080,6 +1089,124 @@ def deblock_all_check(dev, hevc, calls, where: str, maxval=None) -> None:
           f"call {time_ms(fn, 20):.4f} ms, device {graph_ms(fn):.4f} ms (CUDA graph replay)")
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one call of fn: the time of its CUDA kernels
+    under torch.profiler over `reps` calls (for wrappers that a CUDA graph
+    cannot hold: kernel H's cooperative launch, kernel C's read of its row
+    count; copies are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if not e.key.startswith(("Memcpy", "Memset")):
+            us += t
+    return us / reps / 1e3
+
+
+def host_syncs(fn) -> int:
+    """The host synchronisations torch reports for one call of fn (sync
+    debug mode "warn")."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message) for w in seen)
+
+
+def coverage_all_check(dev, coverage, calls) -> None:
+    """Kernel H against its plain version on every captured call (both
+    flags bit for bit), one launch a call; the largest frame's first call
+    once under sync debug mode "error"; per round of that frame its call
+    time, device time (`device_ms`) and bound.  `calls`: (a key of the
+    query tensor, the arguments) in call order, a frame's rounds on one
+    query tensor."""
+    for i, (_, a) in enumerate(calls):
+        torch.cuda.synchronize()
+        before = dev.LAUNCHES["coverage"]
+        got = coverage.covered_radius_slab(*a)
+        launches = dev.LAUNCHES["coverage"] - before
+        want = coverage.covered_radius_slab_plain(*a)
+        if launches != 1 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"coverage call {i} (R {a[0].shape[0]}, N {a[1].shape[0]}): "
+                                 f"{launches} launches, kernel differs from its plain version: "
+                                 f"{not all(torch.equal(g, w) for g, w in zip(got, want))}")
+    frames = []
+    for key, a in calls:
+        if not frames or frames[-1][0] != key:
+            frames.append((key, []))
+        frames[-1][1].append(a)
+    rounds = max((f for _, f in frames), key=lambda f: f[0][1].shape[0] + f[0][0].shape[0])
+    fn = lambda: coverage.covered_radius_slab(*rounds[0])
+    if no_sync_launches(dev, "coverage", fn) != 1:
+        raise AssertionError("coverage: expected one launch a call")
+    print(f"coverage: all {len(calls)} captured calls of the warm-up exact (both flags), one "
+          f"launch a call, rounds a frame {[len(f) for _, f in frames]}; the largest frame's "
+          "round 0: no host synchronisation (sync debug mode \"error\")")
+    for r, a in enumerate(rounds):
+        fn = lambda a=a: coverage.covered_radius_slab(*a)
+        b_ms, b_by = bounds("coverage", a, fn())
+        print(f"coverage, round {r} of the largest frame (R {a[0].shape[0]}, N "
+              f"{a[1].shape[0]}, slab ({a[2]}, {a[6]})): call {time_ms(fn, 20):.4f} ms, device "
+              f"{device_ms(fn):.4f} ms (torch.profiler), bound {b_ms:.4f} ms ({b_by})")
+
+
+def gp_counter(kw) -> str:
+    """The launch counter of a kernel C call: the two-layer entry's, or its
+    EOM or PLR entry's."""
+    return "generate_points" if kw.get("eom") is None else kw.get("entry", "generate_points_eom")
+
+
+def gp_all_check(dev, reconstruct, log, where: str) -> None:
+    """Kernel C against its plain version on every call `log` (a CallLog)
+    kept, all five fields bit for bit, two launches a call (one where no
+    pixel has a point); the largest call with exactly one host
+    synchronisation (sync debug mode "warn"), its call and device times."""
+    calls = list(zip(log.calls, log.kws))
+    if not calls:
+        raise AssertionError(f"generate_points: no call captured on {where}")
+    shapes = collections.Counter()
+    for i, (a, kw) in enumerate(calls):
+        counter = gp_counter(kw)
+        torch.cuda.synchronize()
+        before = dev.LAUNCHES[counter]
+        got = reconstruct.generate_points(*a, **kw)
+        launches = dev.LAUNCHES[counter] - before
+        want = reconstruct.generate_points_plain(
+            *a, **{k: v for k, v in kw.items() if k != "entry"})
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        if not same or launches != (2 if got.pos.shape[0] else 1):
+            raise AssertionError(f"generate_points call {i} on {where} ({tuple(a[0].shape)}, "
+                                 f"{counter}): exact {same}, {launches} launches")
+        shapes[(tuple(a[0].shape), counter)] += 1
+    a, kw = max(calls, key=lambda c: c[0][0].numel())
+    fn = lambda: reconstruct.generate_points(*a, **kw)
+    syncs = host_syncs(fn)
+    if syncs != 1:
+        raise AssertionError(f"generate_points on {where}: {syncs} host synchronisations a "
+                             "call, expected 1")
+    print(f"generate_points: all {len(calls)} captured calls of {where} exact (pos, pix, "
+          "layer, pid, bnd), two launches a call; (shape, entry) x calls: "
+          + ", ".join(f"{k} x {v}" for k, v in shapes.items())
+          + f"; the largest: one host synchronisation (the row count), call "
+          f"{time_ms(fn, 20):.4f} ms, device {device_ms(fn):.4f} ms (torch.profiler)")
+
+
 def decode_phase(dev):
     """Steps 3-5: kernels A-D and Q on the decode path.  Returns (rows,
     launches, the decoded frames)."""
@@ -1110,7 +1237,8 @@ def decode_phase(dev):
     }
     t0 = time.perf_counter()
     with Capture({**wrappers, **color_wrappers(hevc)}) as cap, \
-            CallLog(hevc, "deblock_planes") as db_log:
+            CallLog(hevc, "deblock_planes") as db_log, \
+            CallLog(reconstruct, "generate_points") as gp_log:
         Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     print(f"cold decode: {time.perf_counter() - t0:.2f}s for {n_frames} frames")
@@ -1145,6 +1273,9 @@ def decode_phase(dev):
         if name == "sao_apply":   # a short call: its device time apart
             shapes.append(f"device {graph_ms(lambda: kern(*args, **kw)):.4f} ms a call "
                           "(CUDA graph replay)")
+        if name == "generate_points":
+            shapes.append(f"device {device_ms(lambda: kern(*args, **kw)):.4f} ms a call "
+                          "(torch.profiler)")
         print(f"{name}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
               f"plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"inputs {shapes}")
@@ -1152,19 +1283,25 @@ def decode_phase(dev):
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     color_check(dev, hevc, cap, "decode")
     deblock_all_check(dev, hevc, db_log.calls, "the decode path")
-    del db_log
+    gp_all_check(dev, reconstruct, gp_log, "the fixture decode")
+    del db_log, gp_log
 
     # 5. the main path, counted and timed
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with Capture({**{k: wrappers[k] for k in ("wavefront_decode32", "sao_apply")},
+    with Capture({**{k: wrappers[k] for k in ("wavefront_decode32", "sao_apply",
+                                               "generate_points")},
                   **oq_wrappers(hevc)}, keep=False) as calls:
         frames = Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
     one_a_call("wavefront_decode32", launches, calls.counts, "the decode path")
+    print(f"generate_points on the decode path: {launches['generate_points']} launches for "
+          f"{calls.counts['generate_points']} calls")
+    if launches["generate_points"] != 2 * calls.counts["generate_points"]:
+        raise AssertionError("generate_points: expected two launches a call on the decode path")
     one_a_call("sao", launches, {"sao": calls.counts["sao_apply"]}, "the decode path")
     oq_one_a_call(launches, calls.counts, "the decode path")
     if len(frames) != n_frames:
@@ -1363,15 +1500,24 @@ def front_phase(dev):
         "coverage": (coverage, "covered_radius_slab"),
     }
     t0 = time.perf_counter()
-    cc_calls = []   # every kernel G call of the warm-up, in order
+    cc_calls = []    # every kernel G call of the warm-up, in order
+    cov_calls = []   # every kernel H call, with its query tensor's key
     with Capture(wrappers) as cap:
-        cap_spy = cc.cc_labels_device
+        cap_spy, cap_cov = cc.cc_labels_device, coverage.covered_radius_slab
 
         def cc_spy(*a):
             cc_calls.append([t.clone() for t in a])
             return cap_spy(*a)
 
-        cc.cc_labels_device = cc_spy   # the Capture restores the wrapper
+        def cov_spy(*a):
+            # a frame's rounds share the query tensor; its address alone
+            # may recur in the next frame, its first row too
+            key = (a[1].data_ptr(), a[1].shape[0], tuple(a[1][0].tolist()))
+            cov_calls.append((key, [copy_arg(t) for t in a]))
+            return cap_cov(*a)
+
+        # the Capture restores the wrappers
+        cc.cc_labels_device, coverage.covered_radius_slab = cc_spy, cov_spy
         Encoder(cfg, device="cuda").encode_gof_front(frames)
         torch.cuda.synchronize()
     print(f"cold front end: {time.perf_counter() - t0:.2f}s for {n} frames")
@@ -1401,6 +1547,8 @@ def front_phase(dev):
     checks["coverage"] = (lambda: coverage.covered_radius_slab(*cov_args),
                           lambda: coverage.covered_radius_slab_plain(*cov_args), cov_args)
     cc_all_check(cc, cc_calls)
+    coverage_all_check(dev, coverage, cov_calls)
+    del cov_calls
     for name in FRONT_KERNELS:
         kern, plain, args = checks[name]
         out_k, out_p = kern(), plain()
@@ -1448,8 +1596,8 @@ def front_phase(dev):
         dev.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with Capture({"cc_labels": wrappers["cc_labels"],
-                      "segment": wrappers["segment"]}, keep=False) as g_calls:
+        with Capture({k: wrappers[k] for k in ("cc_labels", "segment", "coverage")},
+                     keep=False) as g_calls:
             out = Encoder(cfg, device="cuda").encode_gof_front(frames)
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -1465,6 +1613,7 @@ def front_phase(dev):
           f"{g_calls.counts['segment']} chains")
     if launches["segment"] != CHAIN_LAUNCHES * g_calls.counts["segment"]:
         raise AssertionError(f"segment: expected {CHAIN_LAUNCHES} launches a chain")
+    one_a_call("coverage", launches, g_calls.counts, "the front-end path")
     split = {f: sum(getattr(o.stats, f) for o in out) / n
              for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s")}
     print(f"warm front end: {dt:.3f}s for {n} frames = {dt / n:.4f} s/frame; per frame "
@@ -1579,10 +1728,11 @@ def copy_arg(a):
 
 class CallLog:
     """Keeps a copy of the arguments of every call of mod.attr (whose first
-    tensor, or first list of tensors, is not empty) while it is entered."""
+    tensor, or first list of tensors, is not empty) while it is entered: the
+    positional ones in `calls`, the keyword ones in `kws`."""
 
     def __init__(self, mod, attr):
-        self.mod, self.attr, self.calls = mod, attr, []
+        self.mod, self.attr, self.calls, self.kws = mod, attr, [], []
 
     def __enter__(self):
         self.real = real = getattr(self.mod, self.attr)
@@ -1592,6 +1742,7 @@ class CallLog:
                          if torch.is_tensor(a) or isinstance(a, (list, tuple)))
             if first.numel():
                 self.calls.append([copy_arg(a) for a in args])
+                self.kws.append({k: copy_arg(v) for k, v in kw.items()})
             return real(*args, **kw)
 
         setattr(self.mod, self.attr, spy)
@@ -1866,7 +2017,7 @@ def encode_phase(dev, cfg, frames, segs):
     from vpcc_tpu_torch.apps import profile_encode as prof, profiling
     from vpcc_tpu_torch.decoder import Decoder
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import neighbors, padding, recolor, smoothing
+    from vpcc_tpu_torch.ops import neighbors, padding, reconstruct, recolor, smoothing
     from vpcc_tpu_torch.utils.checksum import array_md5
     from vpcc_tpu_torch.video import codecs, hevc
 
@@ -1904,7 +2055,8 @@ def encode_phase(dev, cfg, frames, segs):
     t0 = time.perf_counter()
     try:
         with Capture(wrappers) as cap, Capture(e_wrap, rename=e_name) as e_cap, \
-                CallLog(hevc, "deblock_planes") as db_log:
+                CallLog(hevc, "deblock_planes") as db_log, \
+                CallLog(reconstruct, "generate_points") as gp_log:
             enc0 = Encoder(cfg, device="cuda")
             stream0, recon0 = enc0.encode_gof(frames, segs=segs)
             torch.cuda.synchronize()
@@ -1980,7 +2132,8 @@ def encode_phase(dev, cfg, frames, segs):
           f"{rest_b:.4f} ms ({100 * rest_b / rest:.1f} % of it)")
     rows["color_convert"] = color_check(dev, hevc, cap, "encode")
     deblock_all_check(dev, hevc, db_log.calls, "the encode path")
-    del db_log
+    gp_all_check(dev, reconstruct, gp_log, "the encode path")
+    del db_log, gp_log
 
     # 14. the attribute path on JAX's reconstruction rows
     recons = []
@@ -2878,10 +3031,12 @@ def lossless_phase(dev, frames):
                 "eom_extract": (pipeline, "extract_eom_colors"),
                 "eom_inject": (pipeline, "inject_eom_colors")}
     t0 = time.perf_counter()
-    with Capture(wrappers) as cap:
+    with Capture(wrappers) as cap, CallLog(reconstruct, "generate_points") as gp_log:
         encode(cfg, fr)
         torch.cuda.synchronize()
     print(f"lossless cold encode: {(time.perf_counter() - t0) / n:.4f} s/frame")
+    gp_all_check(dev, reconstruct, gp_log, "the lossless encode (EOM)")
+    del gp_log
     missing = sorted(set(wrappers) - set(cap.calls))
     if missing:
         raise AssertionError(f"lossless: never called: {missing}")
@@ -2911,11 +3066,13 @@ def lossless_phase(dev, frames):
         ks = [k for kk, _ in turns for k in kk]
         ps = [p for _, pp in turns for p in pp]
         b_ms, b_by = bounds(name, args, got)
+        dev_t = f", device {device_ms(k_fn):.4f} ms a call (torch.profiler)" \
+            if name == "generate_points_eom" else ""
         print(f"{name}: exact (max abs err {err}); kernel "
               + "/".join(f"{k:.4f}" for k in ks) + " ms, plain "
               + "/".join(f"{p:.3f}" for p in ps) + f" ms, bound {b_ms:.4f} ms ({b_by}); rows "
               f"out {got[0].shape[0]}, EOM rows {ex_args[0].eq(2).sum().item()}, aux "
-              f"{tuple(in_args[2].shape)}")
+              f"{tuple(in_args[2].shape)}{dev_t}")
         lib = eom_library_ms(ex_args, in_args) if name == "eom_colors" else None
         rows[name] = dict(ms=sum(ks) / len(ks), plain_ms=sum(ps) / len(ps), bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=err, library_ms=lib)
@@ -3083,13 +3240,17 @@ def tools_phase(dev, frames):
         pipeline.apply_pbf_occupancy, pipeline.apply_color_smoothing_device = pbf_spy, cs_spy
         t0 = time.perf_counter()
         try:
-            with Capture(wrappers[name]) as cap:
+            with Capture(wrappers[name]) as cap, \
+                    CallLog(reconstruct, "generate_points") as gp_log:
                 encode_driven(cfg, fr)
                 torch.cuda.synchronize()
         finally:
             pipeline.apply_pbf_occupancy, pipeline.apply_color_smoothing_device = \
                 real_pbf, real_cs
         print(f"tools {name} cold encode: {(time.perf_counter() - t0) / n:.4f} s/frame")
+        if name == "plr":
+            gp_all_check(dev, reconstruct, gp_log, "the PLR encode")
+        del gp_log
         missing = sorted(set(wrappers[name]) - set(cap.calls))
         if missing:
             raise AssertionError(f"tools {name}: never called: {missing}")
@@ -3114,7 +3275,8 @@ def tools_phase(dev, frames):
             elif kname == "plr_rdo":
                 extra = f", {args[4].numel()} blocks, {args[5].shape[0]} modes"
             elif kname == "generate_points_plr":
-                extra = f", rows {got[0].shape[0]}, PLR rows {int((got[2] == 2).sum())}"
+                extra = (f", rows {got[0].shape[0]}, PLR rows {int((got[2] == 2).sum())}, device "
+                         f"{device_ms(k_fn):.4f} ms a call (torch.profiler)")
             elif kname == "color_smooth":
                 extra = f", rows {args[0].shape[0]}, smoothed {int((got != args[1]).any(1).sum())}"
             (k1, k2), (p1, p2) = time_turns(k_fn, p_fn)
@@ -3723,7 +3885,7 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
     from torch.profiler import ProfilerActivity, profile
 
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import neighbors, padding, recolor
+    from vpcc_tpu_torch.ops import neighbors, padding, reconstruct, recolor
     from vpcc_tpu_torch.parallel import gof
     from vpcc_tpu_torch.video import hevc
 
@@ -3764,7 +3926,8 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
         enc0 = Encoder(cfg, device="cuda")
         with CallLog(hevc, "motion_search") as j_calls, \
                 CallLog(hevc, "deblock_planes") as db_log, \
-                CallLog(hevc, "rgb_to_planes") as q_log:
+                CallLog(hevc, "rgb_to_planes") as q_log, \
+                CallLog(reconstruct, "generate_points") as gp_log:
             stream0, _ = enc0.encode_gof(frames, parallel=True, segs=segs)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
@@ -3776,7 +3939,8 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
     color_batch_check(hevc, q_log.calls, "the level path (batches of a level's images)")
     if max(len(a[0]) if isinstance(a[0], list) else 1 for a in q_log.calls) < 2:
         raise AssertionError("rgb_to_planes: no batch of several images on the level path")
-    del j_calls, db_log, q_log
+    gp_all_check(dev, reconstruct, gp_log, "the level path")
+    del j_calls, db_log, q_log, gp_log
     parent, _ = enc0.gof_structure(n)
     groups = gof.level_groups(gof.level_schedule(parent), parent,
                               [(e.height, e.width) for e in enc0.last_encoded])

@@ -129,45 +129,109 @@ def test_half_pel_mc_kernel(cuda, bs):
     _same(hevc.half_pel_mc(ref, mv, maxv, bs), hevc.half_pel_mc_plain(ref, mv, maxv, bs))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_generate_points_kernel(cuda, seed):
+# (case, H, W, res, eom_bits, entry): W = res (one block column); H * W
+# not a multiple of the 2048-pixel tile, and a single pixel row; no
+# occupied pixel (no row: one launch) and every pixel occupied; occupied
+# pixels on all four image edges (the boundary test wraps); sparse tiles
+# (their rows staged at once) and dense EOM planes at 0, 3 and 30 bits
+# (tiles staged in several chunks); the PLR entry; planes off their 16-byte alignment
+# (scalar loads); a row too wide for the neighbour window; geo11's atlas
+GP_CASES = [("random", 80, 96, 4, 0, None), ("one_block_column", 640, 16, 16, 3, None),
+            ("random", 36, 100, 4, 3, None), ("random", 1, 3000, 1, 3, None),
+            ("empty", 64, 64, 16, 3, None), ("full", 64, 128, 16, 0, None),
+            ("edges", 48, 64, 8, 3, None), ("sparse", 128, 256, 16, 0, None),
+            ("dense", 64, 128, 16, 0, None), ("dense", 64, 128, 16, 3, None),
+            ("dense", 64, 128, 16, 30, None), ("random", 80, 96, 4, 3, "generate_points_plr"),
+            ("unaligned", 36, 100, 4, 3, None), ("random", 16, 8192, 16, 0, None),
+            ("random", 5632, 1280, 16, 0, None)]
+
+
+def _gp_case(case, H, W, res, eom_bits, seed=0):
+    """Inputs of kernel C: occupancy, D0, D1, block-to-patch, patch table
+    and the EOM plane (None at eom_bits 0), numpy."""
     rng = np.random.default_rng(seed)
-    res, hb, wb, P = 4, 20, 24, 30
-    H, W = hb * res, wb * res
+    hb, wb, P = H // res, W // res, 30
     g0 = rng.integers(0, 200, (H, W)).astype(np.int32)
-    g1 = np.where(rng.random((H, W)) < 0.5, g0, g0 + 3).astype(np.int32)
+    p_d1 = {"sparse": 0.2, "dense": 0.9, "full": 1.0}.get(case, 0.5)
+    g1 = np.where(rng.random((H, W)) < p_d1, g0 + 3, g0).astype(np.int32)
     axes = np.array([[0, 2, 1], [1, 2, 0], [2, 0, 1]])[rng.integers(0, 3, P)]
     ptable = np.stack([
-        rng.integers(0, wb // 2, P), rng.integers(0, hb // 2, P),
+        rng.integers(0, max(wb // 2, 1), P), rng.integers(0, max(hb // 2, 1), P),
         rng.integers(2, 8, P), rng.integers(2, 8, P),
         rng.integers(0, 300, P), rng.integers(0, 300, P), rng.integers(0, 512, P),
         axes[:, 0], axes[:, 1], axes[:, 2], rng.integers(0, 2, P),
         np.arange(P) % 8, np.arange(P) % 4, np.full(P, 10),
         rng.integers(1, 3, P), rng.integers(1, 3, P),
     ], 1).astype(np.int32)
-    args = [
-        (rng.random((H, W)) < 0.8).astype(np.uint8), g0, g1,
-        rng.integers(0, P + 1, (hb, wb)).astype(np.int32), ptable,
-    ]
-    t = [torch.as_tensor(a, device=cuda) for a in args]
-    got = reconstruct.generate_points(*t, res)
-    want = reconstruct.generate_points_plain(*t, res)
-    assert got.pos.shape[0] > 0
+    p_occ = {"sparse": 0.3, "empty": 0.0, "full": 1.0, "dense": 0.95}.get(case, 0.8)
+    occ = (rng.random((H, W)) < p_occ).astype(np.uint8)
+    btp = rng.integers(0, P + 1, (hb, wb)).astype(np.int32)
+    if case in ("full", "dense"):
+        btp = rng.integers(1, P + 1, (hb, wb)).astype(np.int32)
+    if case == "edges":
+        occ[:] = 0
+        occ[[0, -1], :] = 1
+        occ[:, [0, -1]] = 1
+        btp[:] = 1
+        btp[0, 0] = 2
+    eom = None
+    if eom_bits:
+        p_eom = 0.95 if case == "dense" else 0.4
+        eom = np.where(rng.random((H, W)) < p_eom,
+                       rng.integers(0, 1 << min(eom_bits + 1, 31), (H, W)), 0).astype(np.int32)
+    return occ, g0, g1, btp, ptable, eom
+
+
+def _tile_rows(pts, W):
+    """Rows of each 2048-pixel raster tile in kernel C's result."""
+    pix = pts.pix.cpu().long()
+    return torch.bincount((pix[:, 1] * W + pix[:, 0]) // 2048)
+
+
+@pytest.mark.parametrize("case,H,W,res,eom_bits,entry", GP_CASES)
+def test_generate_points_kernel(cuda, case, H, W, res, eom_bits, entry):
+    import warnings
+
+    occ, g0, g1, btp, ptable, eom = _gp_case(case, H, W, res, eom_bits)
+    t = [torch.as_tensor(a, device=cuda) for a in (occ, g0, g1, btp, ptable)]
+    if case == "unaligned":   # every plane one element past a 16-byte boundary
+        t[:3] = [torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(H, W) for a in t[:3]]
+    kw = {}
+    if eom is not None:
+        kw = dict(eom=torch.as_tensor(eom, device=cuda), eom_bits=eom_bits)
+        if case == "unaligned":
+            e = kw["eom"]
+            kw["eom"] = torch.cat([e.new_zeros(1), e.reshape(-1)])[1:].view(H, W)
+    counter = "generate_points" if eom is None else entry or "generate_points_eom"
+    if entry:
+        kw["entry"] = entry
+    torch.cuda.synchronize()
+    before = dev.LAUNCHES[counter]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = reconstruct.generate_points(*t, res, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "called a synchronizing" in str(w.message)]
+    want = reconstruct.generate_points_plain(*t, res, **{k: v for k, v in kw.items()
+                                                         if k != "entry"})
     for a, b in zip(got, want):
         _same(a, b)
-    # the EOM entry: eom_bits = 3 layers (bits above them ignored); the
-    # two-layer call above stays what it was
-    eom = torch.as_tensor(np.where(rng.random((H, W)) < 0.4, rng.integers(0, 16, (H, W)), 0)
-                          .astype(np.int32), device=cuda)
-    before = dev.LAUNCHES["generate_points_eom"]
-    got_e = reconstruct.generate_points(*t, res, eom=eom, eom_bits=3)
-    want_e = reconstruct.generate_points_plain(*t, res, eom=eom, eom_bits=3)
-    assert dev.LAUNCHES["generate_points_eom"] == before + 2
-    assert (got_e.layer == 2).sum() > 100
-    for a, b in zip(got_e, want_e):
-        _same(a, b)
-    for a, b in zip(reconstruct.generate_points(*t, res), want):
-        _same(a, b)
+    n = got.pos.shape[0]
+    assert dev.LAUNCHES[counter] - before == (2 if n else 1)
+    assert len(syncs) == 1, [f"{w.filename}:{w.lineno} {w.message}" for w in syncs]
+    assert (n == 0) == (case == "empty")
+    if n:
+        assert got.bnd.any() and (case in ("sparse", "edges") or not got.bnd.all())
+    rows = _tile_rows(got, W) if n else torch.zeros(1)
+    if case == "sparse":      # every tile's rows staged at once
+        assert rows.max() <= 2048
+    if case == "dense":       # tiles staged in several chunks
+        assert rows.max() > 2048
+    if eom_bits and n:
+        assert (got.layer == 2).sum() > 0
 
 
 @pytest.mark.parametrize("thr", [1.0, 2.0, 64.0])
@@ -540,22 +604,80 @@ def test_cc_labels_kernel(cuda, case):
     assert torch.equal(lab.cpu(), got.cpu()[sub.cpu().long()])
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_coverage_kernel(cuda, seed):
+# (case, bits, r2_sel, r2_det): 8-, 9- and 10-bit grids (8, 16, 32 words
+# a column); resampled points at y and z = 0 and G - 1 (the box meets the
+# grid's edge); a slab at x0 = G - sx; points whose x the slab clips;
+# all-padding points (R > 0, none valid), R = 0 and N = 0; r2_sel = r2_det,
+# r2_sel = 0, r2_sel > r2_det and the largest ball the kernel takes
+COVERAGE_CASES = [("random", 10, 1, 9), ("random", 9, 1, 9), ("random", 8, 1, 9),
+                  ("edges", 10, 1, 9), ("edges", 8, 4, 4), ("top_slab", 10, 1, 9),
+                  ("clipped", 10, 1, 9), ("padding", 10, 1, 9), ("no_points", 10, 1, 9),
+                  ("no_queries", 10, 1, 9), ("random", 10, 9, 9), ("random", 10, 0, 9),
+                  ("random", 10, 9, 1), ("random", 9, 16, 4), ("random", 10, 1, 63)]
+
+
+def _coverage_case(case, bits, seed=0, n_res=20_000, n_q=30_000, spread=None):
+    """(res_packed, queries, x0, sx) of kernel H, numpy."""
     rng = np.random.default_rng(seed)
-    res = rng.integers(0, 1024, (30_000, 3))
-    res[:, 0] = rng.integers(300, 500, len(res))
-    x0, sx = coverage.slab_params(res, 10)
-    q = np.clip(np.concatenate([res + rng.integers(-4, 5, res.shape),
-                                rng.integers(0, 1024, (50_000, 3))]), 0, 1023).astype(np.int32)
+    G = 1 << bits
+    res = rng.integers(0, G, (n_res, 3))
+    spread = spread or G // 3
+    res[:, 0] = rng.integers(G // 4, G // 4 + spread, n_res)
+    if case == "edges":
+        res[:, 1] = rng.choice([0, 1, G - 2, G - 1], n_res)
+        res[:, 2] = rng.choice([0, 1, 30, 33, G - 2, G - 1], n_res)
+    if case == "top_slab":
+        res[:, 0] = rng.integers(G - G // 8, G, n_res)
+    x0, sx = coverage.slab_params(res, bits)
+    if case == "clipped":   # a slab narrower than the points: their x clips
+        sx = 128
+        x0 = int(res[:, 0].min()) + 40
+    q = np.concatenate([res + rng.integers(-4, 5, res.shape), rng.integers(-3, G + 3, (n_q, 3))])
+    q = q.astype(np.int32)
     q[::101] = 0x3FFFFFFF
-    rp = torch.as_tensor(coverage.pack_coords10(res, len(res) + 7), device=cuda)
-    qq = torch.as_tensor(q, device=cuda)
-    got = coverage.covered_radius_slab(rp, qq, x0, 10, 1, 9, sx)
-    want = coverage.covered_radius_slab_plain(rp, qq, x0, 10, 1, 9, sx)
+    packed = coverage.pack_coords10(res, n_res + 7)
+    if case == "padding":
+        packed[:] = -1
+    if case == "no_points":
+        packed = packed[:0]
+    if case == "no_queries":
+        q = q[:0]
+    return packed, q, x0, sx
+
+
+def _coverage_check(cuda, packed, q, x0, sx, bits, r2_sel, r2_det):
+    rp, qq = torch.as_tensor(packed, device=cuda), torch.as_tensor(q, device=cuda)
+    got, launches = _one_launch_no_sync(
+        "coverage", lambda: coverage.covered_radius_slab(rp, qq, x0, bits, r2_sel, r2_det, sx))
+    want = coverage.covered_radius_slab_plain(rp, qq, x0, bits, r2_sel, r2_det, sx)
     for a, b in zip(got, want):
         _same(a, b)
-    assert got[1].sum() > got[0].sum() > 0
+    assert launches == (1 if len(q) else 0)
+    return got
+
+
+@pytest.mark.parametrize("case,bits,r2_sel,r2_det", COVERAGE_CASES)
+def test_coverage_kernel(cuda, case, bits, r2_sel, r2_det):
+    packed, q, x0, sx = _coverage_case(case, bits)
+    if case == "top_slab":
+        assert x0 == (1 << bits) - sx
+    sel, det = _coverage_check(cuda, packed, q, x0, sx, bits, r2_sel, r2_det)
+    if case in ("padding", "no_points"):
+        assert not det.any() and not sel.any()
+    elif case != "no_queries":
+        assert det.sum() > 0 and sel.sum() > 0
+        assert (sel.sum() < det.sum()) == (r2_sel < r2_det)
+
+
+def test_coverage_stale_scratch_kernel(cuda):
+    """A call at the bench frame's round-0 shapes (530k resampled points,
+    607k queries, a 384-wide slab) after a call whose points fill the whole
+    grid: a word the second call's box did not zero would show."""
+    big = _coverage_case("random", 10, seed=1, n_res=200_000, n_q=10_000, spread=700)
+    _coverage_check(cuda, *big, 10, 1, 9)
+    bench = _coverage_case("random", 10, seed=2, n_res=530_000, n_q=77_000, spread=360)
+    sel, det = _coverage_check(cuda, *bench, 10, 1, 9)
+    assert bench[3] == 384 and len(bench[1]) == 607_000 and det.sum() > sel.sum() > 0
 
 
 # ---------------------------------------------------------------------------

@@ -257,6 +257,26 @@ def test_covered_radius_slab_matches_reference_and_brute_force(seed):
 # the committed full-size reference data
 
 
+def test_coverage_column_table_matches_ball_columns():
+    """Kernel H's host-built column table: for r2 in 0..16 (alone and beside
+    a smaller and a larger second ball) each ball's columns equal
+    `_ball_columns` of the port and of the JAX package, ordered by
+    dx^2 + dy^2, each ball a prefix of the table."""
+    for r2 in range(17):
+        want = sorted(jcov._ball_columns(r2))
+        assert sorted(tcov._ball_columns(r2)) == want
+        for other in (0, r2, 16):
+            for r2_sel, r2_det in ((other, r2), (r2, other)):
+                tbl = tcov.column_table(r2_sel, r2_det)
+                d2 = [dx * dx + dy * dy for dx, dy, _, _ in tbl]
+                assert d2 == sorted(d2)
+                for r2x, col in ((r2_sel, 3), (r2_det, 2)):
+                    inside = [(dx, dy, c[col]) for c in tbl for dx, dy in [c[:2]] if c[col] >= 0]
+                    assert sorted(inside) == sorted(jcov._ball_columns(r2x))
+                    assert [c[col] >= 0 for c in tbl] == sorted(
+                        (c[col] >= 0 for c in tbl), reverse=True)
+
+
 def test_committed_front_digests_frame0_match_reference():
     """Frame 0 of the committed digests (the bench frame, seed 7): the
     reference's k-NN digests and patch count."""

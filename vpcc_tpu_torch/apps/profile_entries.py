@@ -3,7 +3,7 @@ encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
     python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt [--kernels=...]
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q] [--trace] [--split]
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C] [--trace] [--split]
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
 
 --capture encodes one bench frame (`make_person_cloud(bits=10,
@@ -48,7 +48,17 @@ largest call of (the encodes that only J, A, K or G need are skipped where
   `_int_planes_to_rgb` calls (`color.dec_to_rgb`).  Each side is timed per
   entry and as the pair (`color.enc_pair`, `color.dec_pair`); a checkout
   without `hevc.rgb_to_planes` converts with `_rgb_to_int_planes` and
-  stacks cb and cr, as its callers did.
+  stacks cb and cr, as its callers did;
+* kernel H: every `coverage.covered_radius_slab` call of the bench frame's
+  encode (`coverage.r0` .. one a patch round), with the packed resampled
+  points also as a host array (the encoder's upload);
+* kernel C: the largest `reconstruct.generate_points` call of the bench
+  frame's encode (`generate_points.encode`), of the fixture decode
+  (`generate_points.decode`), of one bench frame encoded under the
+  lossless conditions of the committed lossless reference data (EOM
+  layers, `generate_points.eom`) and under its tools reference data's
+  "plr" configuration (PLR layers, `generate_points.plr`); those two
+  encodes only where --kernels names C.
 --inputs times the entries of the kernels named by --kernels, in the package
 found under --root (default: this checkout), on those inputs, so that two
 commits can be compared on one card, one process each, in turns (the grids
@@ -56,11 +66,12 @@ are built by each package from the saved points; a package without
 `hevc.sao_search_apply` runs `sao_search` then `sao_apply` for the SAO
 step, whose three outputs are hashed either way).  For each run and entry:
 the call time (CUDA events over back-to-back calls, the wrapper's host work
-included: 100 calls for P, 20 for the others) and, but for J, F and O,
-the device time (one call captured in a CUDA graph and replayed as often;
-J's, F's and O's device times are their kernels' in --trace: an older
-checkout's J, F and O wrappers copy from or wait on the host, which a graph
-cannot hold).
+included: 100 calls for P, 20 for the others) and, but for J, F, O, H and
+C, the device time (one call captured in a CUDA graph and replayed as
+often; the device times of J, F, O, H and C are their kernels' in --trace:
+an older checkout's J, F and O wrappers copy from or wait on the host,
+which a graph cannot hold, C's wrapper reads its row count, and H's
+cooperative launch is kept out of graphs).
 --trace adds, once per entry, each device kernel's time and launches a
 call (`torch.profiler` over as many calls) and the host's waits a call
 (`cudaStreamSynchronize` and `cudaMemcpy*` runtime calls: CPU
@@ -68,13 +79,17 @@ microseconds and calls).  --split times, for J, builds of the checkout's
 `csrc/motion_search.cu` cut after its 1st, 2nd and 3rd `__syncthreads()`
 (a `return` the compiler cannot drop), so that the differences split
 J's kernel (one block a CU, a barrier after each stage) into its stages
-(staging, integer SAD, argmin, half-pel refinement); for O and Q, the
+(staging, integer SAD, argmin, half-pel refinement); for O, Q, H and C, the
 host microseconds a call of back-to-back calls without a synchronisation
 (a wrapper that waits on the card includes its wait) and whether a call
 raises under torch.cuda.set_sync_debug_mode("error"), and once the host
 microseconds of the steps a wrapper may take (the tc table's upload,
 setting ctypes argument types, an output allocation, reading the stream;
-top-level key "host_parts_us").  Prints the card's
+top-level key "host_parts_us"; with H or C, also H's upload of the packed
+resampled points from a host array as the encoder makes it, each round,
+and a zeroed volume of each round's slab, C's five output allocations
+against one allocation cut into the five fields, and a read of one device
+int32; top-level key "hc_host_parts_us").  Prints the card's
 name and power limit, then one JSON line:
 per entry, the runs' call and device milliseconds and the md5 of its output
 (and the trace).  --summarize reads the JSON lines
@@ -99,7 +114,10 @@ ROOT = Path(__file__).resolve().parents[2]
 P_ENTRIES = ("paint_attribute", "group_dilate", "gather_decoded_colors")
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
-REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20, "O": 20, "Q": 20}
+REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20, "O": 20, "Q": 20,
+        "H": 20, "C": 20}
+# kernels whose device time is read from --trace rather than a CUDA graph
+NO_GRAPH = "JFOHC"
 F_STAGES = ("segment.pca", "segment.orient", "segment.partition")
 
 
@@ -176,16 +194,16 @@ def sao_step(hevc, src, rec, lam, w, maxv, region):
 
 def capture_encode(frame, cfg, device) -> tuple:
     """Encode one frame, keeping P's largest calls, E's largest call for
-    each k with its grid's points, every call of G, K's largest, F's first
-    chain, and O's and Q's largest.  Returns (P inputs, E inputs, G inputs,
-    K inputs, F inputs, O and Q inputs)."""
+    each k with its grid's points, every call of G and H, K's largest, F's
+    first chain, and O's, Q's and C's largest.  Returns (P inputs, E inputs,
+    G inputs, K inputs, F inputs, O and Q inputs, H and C inputs)."""
     from vpcc_tpu_torch import pipeline
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import cc, neighbors, normals, segmentation
+    from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, reconstruct, segmentation
     from vpcc_tpu_torch.video import hevc
 
-    p_kept, e_kept, grids, k_kept, oq_kept = {}, {}, {}, {}, {}
-    g_calls, f_calls = [], []
+    p_kept, e_kept, grids, k_kept, oq_kept, c_kept = {}, {}, {}, {}, {}, {}
+    g_calls, f_calls, h_calls = [], [], []
     plane_kind = []   # "luma" or "chroma": the plane dispatch running now
 
     def keep_p(name):
@@ -216,7 +234,11 @@ def capture_encode(frame, cfg, device) -> tuple:
              _spy(hevc, "deblock_planes", before=lambda a, kw: keep_largest(
                  oq_kept, f"deblock.{plane_kind[0]}")(a, kw)),
              _spy(hevc, "encode_rgb", before=keep_largest(oq_kept, "color.enc_to_planes")),
-             _spy(hevc, "_int_planes_to_rgb", before=keep_largest(oq_kept, "color.enc_to_rgb"))]
+             _spy(hevc, "_int_planes_to_rgb", before=keep_largest(oq_kept, "color.enc_to_rgb")),
+             _spy(coverage, "covered_radius_slab",
+                  before=lambda a, kw: h_calls.append(_clone(a))),
+             _spy(reconstruct, "generate_points",
+                  before=keep_largest(c_kept, "generate_points.encode"))]
     try:
         Encoder(cfg, device=device).encode_gof([frame])
     finally:
@@ -246,8 +268,32 @@ def capture_encode(frame, cfg, device) -> tuple:
         int(cfg.iterationCountRefineSegmentation)]}
     oq_in = {n: args[:1] if n == "color.enc_to_planes" else args
              for n, (args, _) in oq_kept.items()}
+    hc_in = {f"coverage.r{i}": args for i, args in enumerate(h_calls)}
+    hc_in.update({n: [*args, kw] for n, (args, kw) in c_kept.items()})
     return ({name: args for name, (_, args) in p_kept.items()}, e_in, g_in, k_kept, f_in,
-            oq_in)
+            oq_in, hc_in)
+
+
+def capture_recon(frame, overrides: dict, name: str, device) -> list:
+    """Encode one frame under `overrides` and return the largest
+    `reconstruct.generate_points` call as [*args, kw]."""
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import reconstruct
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+
+    cfg = VPCCConfig()
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    kept = {}
+    undo = _spy(reconstruct, "generate_points", before=keep_largest(kept, name))
+    try:
+        Encoder(cfg, device=device).encode_gof([frame])
+    finally:
+        undo()
+    args, kw = kept[name]
+    if kw.get("eom") is None:
+        raise RuntimeError(f"{name}: kernel C ran without an EOM or PLR plane")
+    return [*args, kw]
 
 
 def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
@@ -255,9 +301,10 @@ def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
     """Decode `stream`, keeping kernel A's (`name`) largest call that mixes
     inter and intra samples most evenly (and, given `sao`, kernel K's
     largest `sao_apply` call at `region` in sao[sao_name]; given `oq`,
-    kernel Q's largest `rgb_refs` and `_int_planes_to_rgb` calls and kernel
-    O's largest call)."""
+    kernel Q's largest `rgb_refs` and `_int_planes_to_rgb` calls and kernels
+    O's and C's largest calls)."""
     from vpcc_tpu_torch.decoder import Decoder
+    from vpcc_tpu_torch.ops import reconstruct
     from vpcc_tpu_torch.video import hevc
     from vpcc_tpu_torch.video.hevc_tables import MODE_INTER
 
@@ -290,7 +337,9 @@ def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
     if oq is not None:
         undo += [_spy(hevc, "rgb_refs", before=keep_largest(oq, "color.dec_to_planes")),
                  _spy(hevc, "_int_planes_to_rgb", before=keep_largest(oq, "color.dec_to_rgb")),
-                 _spy(hevc, "deblock_planes", before=keep_largest(oq, "deblock.decode"))]
+                 _spy(hevc, "deblock_planes", before=keep_largest(oq, "deblock.decode")),
+                 _spy(reconstruct, "generate_points",
+                      before=keep_largest(oq, "generate_points.decode"))]
     try:
         Decoder(device=device).decode(stream)
     finally:
@@ -324,11 +373,11 @@ def capture_vox11(device) -> list:
     return calls[0]
 
 
-def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q") -> None:
+def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C") -> None:
     """Encode and decode bench frames on `device` and save the inputs of
-    kernels P, E, A, G, K, J, F, O and Q (the two-frame, two-level and
-    vox11 encodes only where `kernels` names a kernel they feed: J; J, A,
-    K; G)."""
+    kernels P, E, A, G, K, J, F, O, Q, H and C (the two-frame, two-level,
+    vox11, lossless and PLR encodes only where `kernels` names a kernel
+    they feed: J; J, A, K; G; C; C)."""
     from vpcc_tpu_torch import device as dev
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.utils.config import VPCCConfig
@@ -342,7 +391,7 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q") -> No
         setattr(cfg, k, v)
     dev.build_kernels()
     frames = [make_person_cloud(bits=10, n_samples=3_000_000, seed=s) for s in ref["seeds"][:2]]
-    p_in, e_in, g_in, k_in, f_in, oq_in = capture_encode(frames[0], cfg, device)
+    p_in, e_in, g_in, k_in, f_in, oq_in, hc_in = capture_encode(frames[0], cfg, device)
     j_in = {}
     if "J" in kernels:
         undo = _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu32"))
@@ -354,9 +403,20 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q") -> No
     a_in = {"wavefront_decode32": capture_decode(
         (data / "person_vox10_r3_gof8.vpcc").read_bytes(), "wavefront_decode32", device,
         sao_calls, "sao_apply.decode32", oq=oq_dec)}
-    oq_in.update({n: args for n, (args, _) in oq_dec.items()})
+    oq_in.update({n: args for n, (args, _) in oq_dec.items()
+                  if not n.startswith("generate_points.")})
     o_in = {n: a for n, a in oq_in.items() if n.startswith("deblock.")}
     q_in = {n: a for n, a in oq_in.items() if n.startswith("color.")}
+    hc_in.update({n: [*args, kw] for n, (args, kw) in oq_dec.items()
+                  if n.startswith("generate_points.")})
+    if "C" in kernels:
+        for what, ref_file, conf in (("eom", "person_vox10_lossless_reference.json", "lossless"),
+                                     ("plr", "person_vox10_tools_reference.json", "plr")):
+            overrides = json.loads((data / ref_file).read_text())["configs"][conf]["overrides"]
+            hc_in[f"generate_points.{what}"] = capture_recon(
+                frames[0], overrides, f"generate_points.{what}", device)
+    h_in = {n: a for n, a in hc_in.items() if n.startswith("coverage.")}
+    c_in = {n: a for n, a in hc_in.items() if n.startswith("generate_points.")}
     sao16 = {}
     if any(k in kernels for k in "JAK"):
         cfg.geometryNominal2dBitdepth = 11
@@ -377,7 +437,8 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q") -> No
     k_in = {**k_in, **sao16, **sao_calls}
     k_in = {n: [*args, kw.get("region", 32)] for n, (args, kw) in k_in.items()}
     j_in = {n: args for n, (args, _) in j_in.items()}
-    cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
+    cpu = lambda v: (v.cpu() if torch.is_tensor(v)
+                     else {k: cpu(x) for k, x in v.items()} if isinstance(v, dict) else v)
     torch.save({"J": {n: [cpu(a) for a in args] for n, args in j_in.items()},
                 "F": {n: [cpu(a) for a in args] for n, args in f_in.items()},
                 "P": {n: [cpu(a) for a in args] for n, args in p_in.items()},
@@ -386,7 +447,9 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q") -> No
                 "G": {n: [cpu(a) for a in args] for n, args in g_in.items()},
                 "K": {n: [cpu(a) for a in args] for n, args in k_in.items()},
                 "O": {n: [cpu(a) for a in args] for n, args in o_in.items()},
-                "Q": {n: [cpu(a) for a in args] for n, args in q_in.items()}}, path)
+                "Q": {n: [cpu(a) for a in args] for n, args in q_in.items()},
+                "H": {n: [cpu(a) for a in args] for n, args in h_in.items()},
+                "C": {n: [cpu(a) for a in args] for n, args in c_in.items()}}, path)
     print(f"captured P {sorted(p_in)}: rows {p_in['paint_attribute'][0].shape[0]}; E "
           + ", ".join(f"{n} {tuple(c['q'].shape)} k={c['k']} bucket={c['bucket']}"
                       for n, c in e_in.items())
@@ -399,7 +462,11 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q") -> No
           + "; F " + ", ".join(f"{n} {tuple(a[1].shape)}" for n, a in f_in.items())
           + "; O " + ", ".join(f"{n} {tuple(a[0].shape)} maxvals {sorted(set(a[2].tolist()))}"
                               for n, a in o_in.items())
-          + "; Q " + ", ".join(f"{n} {tuple(a[0].shape)} {a[0].dtype}" for n, a in q_in.items()))
+          + "; Q " + ", ".join(f"{n} {tuple(a[0].shape)} {a[0].dtype}" for n, a in q_in.items())
+          + "; H " + ", ".join(f"{n} R {a[0].shape[0]} N {a[1].shape[0]} x0, sx {a[2]}, {a[6]}"
+                              for n, a in h_in.items())
+          + "; C " + ", ".join(f"{n} {tuple(a[0].shape)} eom_bits {a[-1].get('eom_bits', 0)}"
+                              for n, a in c_in.items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
@@ -407,6 +474,7 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     for the entries of `kernels`, with the modules of one checkout."""
     pipeline, neighbors, hevc, cc = pkg["pipeline"], pkg["neighbors"], pkg["hevc"], pkg["cc"]
     normals, segmentation = pkg["normals"], pkg["segmentation"]
+    coverage, reconstruct = pkg["coverage"], pkg["reconstruct"]
     on = lambda args: [a.to(device) if torch.is_tensor(a) else a for a in args]
     calls = {}
     if "P" in kernels:
@@ -475,8 +543,15 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
                 f"color.{side}_pair": lambda a=attr, r=rgb_args: (
                     *color_to_planes(hevc, a), hevc._int_planes_to_rgb(*r)),
             })
+    if "H" in kernels:
+        for name, args in inputs.get("H", {}).items():
+            calls[name] = lambda a=on(args): coverage.covered_radius_slab(*a)
+    if "C" in kernels:
+        for name, (*args, kw) in inputs.get("C", {}).items():
+            kw = {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()}
+            calls[name] = lambda a=on(args), kw=kw: reconstruct.generate_points(*a, **kw)
     letter = {n: "P" for n in calls}
-    for k in "EAGKJOQ":
+    for k in "EAGKJOQHC":
         letter.update({n: k for n in inputs.get(k, {}) if n in calls})
     letter.update({n: "F" for n in calls if n.startswith("segment.")})
     letter.update({n: "Q" for n in calls if n.startswith("color.")})
@@ -555,20 +630,21 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
             trace: bool = False, split: bool = False) -> dict:
     sys.path.insert(0, str(root))
     from vpcc_tpu_torch import pipeline
-    from vpcc_tpu_torch.ops import cc, neighbors, normals, segmentation
+    from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, reconstruct, segmentation
     from vpcc_tpu_torch.video import hevc
 
     if Path(pipeline.__file__).resolve().parents[1] != root.resolve():
         raise RuntimeError(f"imported {pipeline.__file__}, not the package under {root}")
     inputs = torch.load(inputs_path)
     calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc, "cc": cc,
-                         "normals": normals, "segmentation": segmentation}, inputs, kernels)
+                         "normals": normals, "segmentation": segmentation,
+                         "coverage": coverage, "reconstruct": reconstruct}, inputs, kernels)
     res = {name: {"md5": md5(fn()), "call_ms": [], "device_ms": []}
            for name, (_, fn) in calls.items()}
     for _ in range(runs):
         for name, (letter, fn) in calls.items():
             res[name]["call_ms"].append(time_ms(fn, REPS[letter]))
-            if letter not in "JFO":   # the parents' J, F, O wrappers copy or wait: no graph
+            if letter not in NO_GRAPH:
                 res[name]["device_ms"].append(graph_ms(fn, REPS[letter]))
     if trace:
         for name, (letter, fn) in calls.items():
@@ -579,8 +655,12 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
                                                         for a in args], runs)
     if split:
         for name, (letter, fn) in calls.items():
-            if letter in "OQ":
+            if letter in "OQHC":
                 res[name]["host"] = host_split(fn, REPS[letter])
+    if split and hasattr(coverage, "column_table") and ("H" in kernels or "C" in kernels):
+        hc = variant_split(root, {n: c for n, c in calls.items() if c[0] in "HC"}, runs)
+        for name, v in hc.items():
+            res[name]["variants"] = v
     return res
 
 
@@ -643,6 +723,158 @@ def host_parts(rec, reps: int = 200) -> dict:
         out[name] = round((time.perf_counter() - t0) / reps * 1e6, 3)
         torch.cuda.synchronize()
     return out
+
+
+def _host_us(step, reps: int = 200) -> float:
+    """Host microseconds of one step (a wait it takes included)."""
+    import time
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return round(us, 3)
+
+
+def hc_host_parts(inputs: dict) -> dict:
+    """Host microseconds of the steps around kernels H and C, each alone:
+    per coverage round the upload of the packed resampled points from a host
+    array (`torch.as_tensor(..., device="cuda")`, the encoder's) and the
+    zero fill of a (sx * G * G / 32) int32 volume; for C's largest call,
+    five output allocations, one allocation cut into the five fields, and
+    reading one device int32 (`int(t)`)."""
+    import numpy as np
+
+    out = {}
+    for name, args in inputs.get("H", {}).items():
+        packed = np.ascontiguousarray(args[0].numpy())
+        G = 1 << args[3]
+        words = args[6] * G * max(G // 32, 1)
+        out[f"{name}.upload"] = _host_us(lambda: torch.as_tensor(packed, device="cuda"))
+        out[f"{name}.zero_volume"] = _host_us(
+            lambda: torch.zeros(words, dtype=torch.int32, device="cuda"))
+    calls = inputs.get("C", {})
+    if calls:
+        n = int(calls["generate_points.decode"][0].ne(0).sum())
+        d = torch.device("cuda")
+
+        def five():
+            return (torch.empty((n, 3), dtype=torch.int32, device=d),
+                    torch.empty((n, 2), dtype=torch.int32, device=d),
+                    torch.empty(n, dtype=torch.int32, device=d),
+                    torch.empty(n, dtype=torch.int32, device=d),
+                    torch.empty(n, dtype=torch.bool, device=d))
+
+        def one():
+            buf = torch.empty(29 * n, dtype=torch.uint8, device=d)
+            i32 = buf[:28 * n].view(torch.int32)
+            return (i32[:3 * n].view(n, 3), i32[3 * n:5 * n].view(n, 2), i32[5 * n:6 * n],
+                    i32[6 * n:], buf[28 * n:].view(torch.bool))
+
+        scalar = torch.zeros(1, dtype=torch.int32, device=d)
+        out.update({"generate_points.five_empty": _host_us(five),
+                    "generate_points.one_empty_cut": _host_us(one),
+                    "generate_points.read_int": _host_us(lambda: int(scalar))})
+    return out
+
+
+def _after(marker: str, k: int, text: str):
+    """A source edit: `text` inserted after the k-th `marker`."""
+    import re
+
+    def edit(src):
+        return (lambda at: src[:at] + text + src[at:])(
+            [m.end() for m in re.finditer(re.escape(marker), src)][k])
+    return edit
+
+
+def _swap(old: str, new: str):
+    """A source edit: `old` (which must be there) replaced by `new`."""
+    def edit(src):
+        if old not in src:
+            raise RuntimeError(f"variant: {old!r} not in the source")
+        return src.replace(old, new)
+    return edit
+
+
+# --split builds of kernels H and C: csrc/<kernel>.cu as it is ("whole"),
+# cut after a stage (a `return` the compiler cannot drop), or edited
+HC_VARIANTS = {
+    "coverage": {
+        "whole": None,
+        "after_box": _after("grid.sync();", 0, " if (a.N > 0) return;"),
+        "after_zero": _after("grid.sync();", 1, " if (a.N > 0) return;"),
+        "after_scatter": _after("grid.sync();", 2, " if (a.N > 0) return;"),
+        "after_dilate": _after("grid.sync();", 3, " if (a.N > 0) return;"),
+        "bounds3": _swap("__launch_bounds__(kThreads, RMAX <= 3 ? 2 : 1)",
+                         "__launch_bounds__(kThreads, RMAX <= 3 ? 3 : 1)"),
+        "step1": _swap("return r <= 3 ? 2 : 1;", "return 1;"),
+    },
+    "generate_points": {
+        "whole": None,
+        "count_only": _after("  if (rows == 0) return;", 0, " if (n > 0) return;"),
+        "emit_after_scan": _after("int r = block_scan(c, sh, &total);", 0, " if (n > 0) return;"),
+        "emit_after_flags": _after("their space takes the pixel table", 0, "\n  if (n > 0) return;"),
+        "emit_bounds3": _swap("__launch_bounds__(kThreads, 2) emit_kernel",
+                              "__launch_bounds__(kThreads, 3) emit_kernel"),
+        "pix8": _swap("constexpr int kThreads = 512;\nconstexpr int kPix = 4;",
+                      "constexpr int kThreads = 256;\nconstexpr int kPix = 8;"),
+    },
+}
+HC_ENTRIES = {"coverage": ("coverage",),
+              "generate_points": ("generate_points_count", "generate_points_emit")}
+
+
+def variant_split(root: Path, calls: dict, runs: int) -> dict:
+    """Kernels H and C built as HC_VARIANTS says (one nvcc each, all
+    started together) and swapped into the checkout's wrappers
+    (`device.kernel_fn`'s table), each run on the captured calls of its
+    kernel: per call and variant, the device kernels' us a call
+    (`kernel_trace`), the md5 of the output (a cut build's is garbage) and
+    the build's ptxas lines."""
+    import ctypes
+    import tempfile
+
+    from vpcc_tpu_torch import device as dev
+
+    out_dir = Path(tempfile.mkdtemp(prefix="hc_split_"))
+    procs = {}
+    for kern, variants in HC_VARIANTS.items():
+        src = (root / "vpcc_tpu_torch" / "csrc" / f"{kern}.cu").read_text()
+        for label, edit in variants.items():
+            cu = out_dir / f"{kern}_{label}.cu"
+            text = src
+            for e in (edit if isinstance(edit, tuple) else (edit,)):
+                text = text if e is None else e(text)
+            cu.write_text(text)
+            lib = out_dir / f"lib{kern}_{label}.so"
+            procs[(kern, label)] = (lib, subprocess.Popen(
+                [dev.nvcc_path(), *dev.NVCC_FLAGS, *dev.KERNELS[kern], "-o", str(lib), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    res = {}
+    for (kern, label), (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {kern} {label}: nvcc failed\n{log}")
+        saved = {e: dev.kernel_fn(kern, e, []) for e in HC_ENTRIES[kern]}
+        cdll = ctypes.CDLL(str(lib))
+        for e, fn in saved.items():
+            v = getattr(cdll, e)
+            v.argtypes, v.restype = fn.argtypes, ctypes.c_int
+            dev._fns[(kern, e)] = v
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        try:
+            for name, (letter, fn) in calls.items():
+                if (letter == "H") == (kern == "coverage"):
+                    res.setdefault(name, {})[label] = {
+                        "kernels": kernel_trace(fn, REPS[letter]), "md5": md5(fn()),
+                        "ptxas": ptxas}
+        finally:
+            dev._fns.update({(kern, e): fn for e, fn in saved.items()})
+    return res
 
 
 def motion_split(root: Path, args, runs: int) -> dict:
@@ -723,13 +955,13 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q",
+    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C",
                     help="kernels whose entries are timed")
     ap.add_argument("--trace", action="store_true",
                     help="also each device kernel's time and launches a call")
     ap.add_argument("--split", action="store_true",
-                    help="also kernel J's stages (builds cut after each barrier), and O's "
-                         "and Q's host time a call and host waits")
+                    help="also kernel J's stages (builds cut after each barrier), and the "
+                         "host time a call and host waits of O, Q, H and C")
     ap.add_argument("--summarize", nargs="+", type=Path, help="logs of --inputs runs")
     a = ap.parse_args(argv)
     if a.summarize:
@@ -756,6 +988,8 @@ def main(argv=None) -> int:
     out = {"root": str(a.root), "card": smi, "entries": res}
     if a.split and "O" in a.kernels:
         out["host_parts_us"] = host_parts(torch.load(a.inputs)["O"]["deblock.luma"][0].cuda())
+    if a.split and ("H" in a.kernels or "C" in a.kernels):
+        out["hc_host_parts_us"] = hc_host_parts(torch.load(a.inputs))
     print(json.dumps(out))
     return 0
 

@@ -5,12 +5,15 @@ loop only thresholds the distance from every source point to the resampled
 patch cloud (reference `while rawPoints` loop, PCCPatchSegmenter.cpp:
 804-1320: maxAllowedDist2RawPointsSelection = 1, ...Detection = 9), which
 is membership in the dilation of the resampled cloud by a Euclidean ball.
-The resampled points go into a bit-packed voxel slab (x in [x0, x0+sx)),
-and each query tests the ball as xy columns of z bit-ranges.
+The resampled points go into a bit-packed voxel slab (x in [x0, x0+sx)).
+The plain version tests each query's ball as xy columns of z bit-ranges;
+kernel H dilates the points' box by both balls, column by column, and reads
+one bit a query.
 
 `pack_coords10` and `slab_params` are host helpers copied from the
 reference.  `covered_radius_slab` is kernel H on CUDA and
-`covered_radius_slab_plain` on the CPU.
+`covered_radius_slab_plain` on the CPU; `column_table` is the kernel's
+ball, built on the host once per (r2_sel, r2_det).
 """
 
 from __future__ import annotations
@@ -111,16 +114,61 @@ def covered_radius_slab_plain(res_packed, queries, x0: int, bits: int, r2_sel: i
     return (det if r2_sel == r2_det else test(r2_sel)), det
 
 
-_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 \
-    + [ctypes.c_void_p] * 4
+# the largest ball kernel H takes: r = 7 (the kernel keeps a word a z
+# half-extent in registers; csrc/coverage.cu kMaxR)
+MAX_R2 = 63
+
+
+@functools.lru_cache(maxsize=None)
+def column_table(r2_sel: int, r2_det: int) -> tuple:
+    """Kernel H's column table: the columns of the larger ball, ordered by
+    dx^2 + dy^2 (then dx, dy), as (dx, dy, wz_det, wz_sel) with wz the
+    column's z half-extent in that ball (`_ball_columns`) and -1 where the
+    column lies outside it.  So each ball is a prefix of the table."""
+    wz = {r2: {(dx, dy): w for dx, dy, w in _ball_columns(r2)} for r2 in (r2_sel, r2_det)}
+    cols = sorted(_ball_columns(max(r2_sel, r2_det)),
+                  key=lambda c: (c[0] * c[0] + c[1] * c[1], c[0], c[1]))
+    return tuple((dx, dy, wz[r2_det].get((dx, dy), -1), wz[r2_sel].get((dx, dy), -1))
+                 for dx, dy, _ in cols)
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_table(r2_sel: int, r2_det: int):
+    """`column_table` as the kernel reads it: one little-endian int32 of
+    four signed bytes a column, in host memory (copied into the launch's
+    parameters), its address and its length."""
+    if max(r2_sel, r2_det) > MAX_R2 or min(r2_sel, r2_det) < 0:
+        raise ValueError(f"covered_radius_slab: r2 {r2_sel}, {r2_det}; kernel H takes "
+                         f"0..{MAX_R2}")
+    tbl = column_table(r2_sel, r2_det)
+    packed = np.asarray(tbl, np.int8).view(np.int32).ravel()
+    return packed, ctypes.c_void_p(packed.ctypes.data), len(tbl)
+
+
+_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+# ints of the scratch before the volume: a block's partial box, 8 ints, for
+# at most 1024 blocks
+_PART_INTS = 8192
+_scratch = {}   # device -> kernel H's scratch (partial boxes, volume, dilations)
+
+
+def _scratch_for(d: torch.device, words: int) -> torch.Tensor:
+    """The device's scratch, grown to `words` int32 and never shrunk.  The
+    kernel zeroes the words it uses; calls run in stream order."""
+    buf = _scratch.get(d)
+    if buf is None or buf.numel() < words:
+        buf = _scratch[d] = torch.empty(words, dtype=torch.int32, device=d)
+    return buf
 
 
 def covered_radius_slab(res_packed, queries, x0: int, bits: int, r2_sel: int,
                         r2_det: int, sx: int):
     """res_packed (R,) int32 packed 10-bit coordinates (-1 = padding);
     queries (N, 3) int32; x0, sx the slab.  Returns (covered_sel (N,),
-    covered_det (N,)) bool.  Kernel H on CUDA; the plain version for a CPU
-    tensor."""
+    covered_det (N,)) bool, two rows of one allocation.  Kernel H on CUDA
+    (one cooperative launch, no host wait; r2 up to MAX_R2); the plain
+    version for a CPU tensor."""
     if queries.device.type == "cpu":
         return covered_radius_slab_plain(res_packed, queries, x0, bits, r2_sel, r2_det, sx)
     d = queries.device
@@ -129,16 +177,16 @@ def covered_radius_slab(res_packed, queries, x0: int, bits: int, r2_sel: int,
     if bits > 10:
         raise ValueError("covered_radius_slab: 10-bit packed coordinates only")
     G = 1 << bits
-    W = G // 32 if G >= 32 else 1
-    R, N = res_packed.shape[0], queries.shape[0]
-    vol = torch.zeros(sx * G * W, dtype=torch.int32, device=d)
-    sel = torch.empty(N, dtype=torch.bool, device=d)
-    det = torch.empty(N, dtype=torch.bool, device=d)
-    fn = dev.load_kernel("coverage").coverage
-    fn.argtypes, fn.restype = _ARGS, ctypes.c_int
-    rc = fn(dev.ptr(res_packed), R, dev.ptr(queries), N, int(x0), int(sx), bits,
-            int(r2_sel), int(r2_det), dev.ptr(vol), dev.ptr(sel), dev.ptr(det),
-            dev.stream_handle())
-    dev.count_launch("coverage", int(R > 0) + int(N > 0))
+    N = queries.shape[0]
+    _, cols, ncols = _packed_table(int(r2_sel), int(r2_det))
+    out = torch.empty((2, N), dtype=torch.bool, device=d)
+    # the volume and its two dilations, each at most the slab
+    scratch = _scratch_for(d, _PART_INTS + 3 * int(sx) * G * max(G // 32, 1))
+    rc = dev.kernel_fn("coverage", "coverage", _ARGS)(
+        dev.ptr(res_packed), res_packed.shape[0], dev.ptr(queries), N, int(x0), int(sx), bits,
+        int(np.floor(np.sqrt(max(r2_sel, r2_det)))), cols, ncols,
+        dev.ptr(scratch), dev.ptr(out), ctypes.c_void_p(out.data_ptr() + N),
+        dev.stream_handle())
+    dev.count_launch("coverage", int(N > 0))
     dev.check_launch("coverage", rc)
-    return sel, det
+    return out[0], out[1]

@@ -161,8 +161,32 @@ def generate_points_plain(occupancy, geometry0, geometry1, block_to_patch,
     )
 
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 \
-    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_PLANE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+_COUNT_ARGS = _PLANE_ARGS + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_EMIT_ARGS = _PLANE_ARGS + [ctypes.c_void_p] * 8
+_TILE = 2048    # raster pixels a tile (csrc/generate_points.cu kTile)
+
+
+class _Scratch:
+    """A device's tile scratch: the totals of even and odd calls, then the
+    tile counts.  Grown to the tiles a call needs and never shrunk; zeroed
+    once when made (a call zeroes the total the next call adds to).  Calls
+    run in stream order."""
+
+    def __init__(self, d: torch.device, tiles: int, odd: int = 0):
+        self.buf = torch.zeros(2 + tiles, dtype=torch.int32, device=d)
+        self.totals = (self.buf[0], self.buf[1])
+        self.odd = odd
+
+
+_scratch = {}   # device -> _Scratch
+
+
+def _scratch_for(d: torch.device, tiles: int) -> _Scratch:
+    sc = _scratch.get(d)
+    if sc is None or sc.buf.numel() < 2 + tiles:
+        sc = _scratch[d] = _Scratch(d, tiles)
+    return sc
 
 
 def generate_points(occupancy, geometry0, geometry1, block_to_patch,
@@ -171,12 +195,14 @@ def generate_points(occupancy, geometry0, geometry1, block_to_patch,
     """Kernel C (csrc/generate_points.cu).  occupancy (H, W) uint8;
     geometry0/1 (H, W) int32 relative depths; block_to_patch (H/res, W/res)
     int32 (0 = none, else patch index + 1); patch_tbl (P, 16) int32; eom
-    (H, W) int32 EOM codes with eom_bits layers, or None.  Two launches:
-    per-pixel point counts, then (after a cumsum of the counts) the points
-    written at their compacted rows.  With an EOM plane the launches count
-    as `entry`'s: the EOM entry's (`generate_points_eom`), or PLR's
-    (`generate_points_plr`), whose three layers at D0 + j are the same
-    code plane (ops/plr.py).  The plain version runs on the CPU."""
+    (H, W) int32 EOM codes with eom_bits layers, or None.  Two launches and
+    one host read: each tile's point count and their total, the total read
+    back to size the outputs, then each tile's rows written from its first
+    row on (no second launch when there is no point).  With an EOM plane
+    the launches count as `entry`'s: the EOM entry's
+    (`generate_points_eom`), or PLR's (`generate_points_plr`), whose three
+    layers at D0 + j are the same code plane (ops/plr.py).  The plain
+    version runs on the CPU."""
     if occupancy.device.type == "cpu":
         return generate_points_plain(occupancy, geometry0, geometry1,
                                      block_to_patch, patch_tbl, res, eom, eom_bits)
@@ -189,31 +215,32 @@ def generate_points(occupancy, geometry0, geometry1, block_to_patch,
     dev.check_tensor(patch_tbl, "patch_tbl", torch.int32, d, 2)
     if eom is not None:
         dev.check_tensor(eom, "eom", torch.int32, d, 2)
+    else:
+        eom_bits = 0
     if (geometry0.shape != (H, W) or geometry1.shape != (H, W)
             or block_to_patch.shape != (H // res, W // res)
             or H % res or W % res or patch_tbl.shape[1] != 16
             or (eom is not None and (eom.shape != (H, W) or not 0 <= eom_bits <= 30))):
         raise ValueError("generate_points: inconsistent shapes")
-    fn = dev.load_kernel("generate_points").generate_points
-    fn.argtypes, fn.restype = _ARGS, ctypes.c_int
-    counts = torch.empty(H * W, dtype=torch.int32, device=d)
-    null = ctypes.c_void_p(0)
+    if 3 * H * W * (2 + eom_bits) >= 1 << 31:
+        raise ValueError(f"generate_points: a ({H}, {W}) atlas with {eom_bits} EOM layers "
+                         "may pass 2^31 position words")
     counter = "generate_points" if eom is None else entry
-
-    def launch(incl, outs, n_out):
-        rc = fn(dev.ptr(occupancy), dev.ptr(geometry0), dev.ptr(geometry1),
-                dev.ptr(block_to_patch), dev.ptr(patch_tbl),
-                dev.ptr(counts) if incl is None else dev.ptr(incl),
-                H, W, res, patch_tbl.shape[0],
-                *[dev.ptr(o) if o is not None else null for o in outs],
-                n_out, null if eom is None else dev.ptr(eom), eom_bits,
-                dev.stream_handle())
+    planes = (dev.ptr(occupancy), dev.ptr(geometry0), dev.ptr(geometry1),
+              dev.ptr(block_to_patch), ctypes.c_void_p(None if eom is None else eom.data_ptr()),
+              eom_bits, H, W, res)
+    tiles = -(-H * W // _TILE)
+    sc = _scratch_for(d, tiles)
+    stream = dev.stream_handle()
+    n = 0
+    if tiles:
+        odd = sc.odd
+        rc = dev.kernel_fn("generate_points", "generate_points_count", _COUNT_ARGS)(
+            *planes, dev.ptr(sc.buf), odd, stream)
         dev.count_launch(counter)
         dev.check_launch("generate_points", rc)
-
-    launch(None, [None] * 5, 0)
-    incl = torch.cumsum(counts, 0, dtype=torch.int32)
-    n = int(incl[-1]) if H * W else 0
+        sc.odd = 1 - odd
+        n = int(sc.totals[odd])   # the call's one host wait
     out = Points(
         pos=torch.empty((n, 3), dtype=torch.int32, device=d),
         pix=torch.empty((n, 2), dtype=torch.int32, device=d),
@@ -221,5 +248,9 @@ def generate_points(occupancy, geometry0, geometry1, block_to_patch,
         pid=torch.empty(n, dtype=torch.int32, device=d),
         bnd=torch.empty(n, dtype=torch.bool, device=d),
     )
-    launch(incl, list(out), n)
+    if n:
+        rc = dev.kernel_fn("generate_points", "generate_points_emit", _EMIT_ARGS)(
+            *planes, dev.ptr(patch_tbl), dev.ptr(sc.buf), *map(dev.ptr, out), stream)
+        dev.count_launch(counter)
+        dev.check_launch("generate_points", rc)
     return out
