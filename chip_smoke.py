@@ -22,12 +22,16 @@ the decode path (kernels A-D, K's apply entry and Q's color conversion):
    device times; holds kernel C against its plain version on every call of
    the warm-up decode (all five fields, two launches a call, the largest
    with one host synchronisation under sync debug mode "warn", its call
-   and device times);
+   and device times); holds kernel D against its plain version on every
+   call of the warm-up decode (one launch a call, the largest under sync
+   debug mode "error", its call and device times and the bytes of cell
+   records it sets);
 5. with all launch counters at 0, decodes the fixture again with
    `vpcc_tpu_torch.Decoder(device="cuda")`, checks every frame's point count
    and md5 against the digests the JAX decoder recorded, prints warm seconds
    per frame, and requires every kernel to have launched on that path
-   (Q included), kernels A, K, O and each entry of Q once a call, C twice;
+   (Q included), kernels A, K, O, D and each entry of Q once a call, C
+   twice;
 
 the encoder front end (kernels E-H):
 6. makes the 8 bench frames from their seeds and runs
@@ -86,14 +90,16 @@ the attribute path and the whole encoder (kernels M-P and Q; the decode
 path above also runs kernels O, P and Q):
 13. runs `Encoder(cfg, device="cuda").encode_gof` over the 8 bench frames
     driven by the committed JAX partitions once (warm-up, cold seconds),
-    keeping each kernel's largest call, and holds kernels M (exact match,
-    forward blend, splat and merge on one frame's recolor), N, O, P
+    keeping each kernel's largest call, and holds kernels M (its two
+    entries: the exact match with the compaction, and the forward blend,
+    splat and merge, on every recolor call of the warm-up, two launches a
+    call, the largest transfer with one host synchronisation), N, O, P
     (paint, group dilation, gather) and Q (both directions, a 1280x1280
     T0 image) against their plain versions, exactly, timing both in turns;
     kernel O on every deblock call of the warm-up, O and Q once under sync
     debug mode "error" in one launch a call (the spy that measures each
     attribute plane converts with the unwrapped entry: no encoder call),
-    and kernel C on every call of the warm-up as in step 4;
+    and kernels C and D on every call of the warm-up as in step 4;
 14. decodes the fixture's geometry with the port (JAX's reconstruction
     rows) and runs the port's recolor -> pre-smoothing -> paint -> fill ->
     group dilation on it with the regenerated source frames; the md5 of the
@@ -102,7 +108,8 @@ path above also runs kernels O, P and Q):
 15. with all launch counters at 0, segments the frames, drives their
     partitions and runs `encode_gof` again: warm seconds per frame, the
     stage split, launches (every kernel the encoder runs, B-Q, nonzero; K,
-    O and each Q entry once a call, with O's and Q's calls a frame), no
+    O, D and each Q entry once a call, M twice, with O's and Q's calls a
+    frame), no
     push-pull block of unknown order reaching 2^24, the
     device idle share of one warm P-frame and kernels E, G and K's share of
     its trace (and O's and Q's); then requires the port's
@@ -141,12 +148,14 @@ full-graph CC round on kernel G, kernel M's uncompacted blend):
     keeping each entry's largest call;
 23. holds `grid_knn_xyz` (kernel E on the (N, 3) table), `cc_round_voxel`
     (kernel G on the full voxel graph) and `recolor_blend` (kernel M's
-    forward blend over every target, splat and merge over every source)
-    against their plain versions, exactly, timing both in turns, and
-    kernel D on its 11-bit call (256^3 cells);
+    blend entry over every target and every source) against their plain
+    versions, exactly, timing both in turns; kernel M's blend entry on
+    every `transfer_colors` call of the warm-up (one launch a call, the
+    largest transfer under sync debug mode "error") and kernel D on every
+    call (256^3 cells) as in step 4;
 24. with all launch counters at 0, segments the frames, drives their
     partitions and runs `encode_gof` again: warm seconds per frame, the
-    stage split, and each entry launched;
+    stage split, and each entry launched (M and D once a call);
 25. requires the voxel k-NN, each patch round's CC labels, the patch list,
     the coverage distances, the transferred and pre-smoothed colors and the
     reconstruction to equal the JAX digests, the stream to be
@@ -264,11 +273,13 @@ the JAX partitions:
     level groups (level, shape, inter or intra, frames); holds kernels J and
     O against their plain versions on every call (the level's plane stacks),
     kernel Q's `rgb_to_planes` on every call (a level's images, one batch a
-    call) and kernel C on every call as in step 4;
+    call), kernel M's batched entries on every call (one launch each, no
+    host synchronisation) and kernels C and D on every call as in step 4;
 48. with all launch counters at 0, warm encodes in turns (sequential,
     level-batched, level-batched, sequential): seconds per frame of each,
     the stage split, launches per level group (every kernel of the path
-    nonzero, K, O and each Q entry once a call), no push-pull block of
+    nonzero, K, O, D, each Q entry and each batched M entry once a call),
+    no push-pull block of
     unknown order reaching
     2^24; requires
     the stream to be byte-identical to the sequential r3 stream and to the
@@ -858,10 +869,24 @@ def bounds(name, args, out, sweeps=None):
         byt = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(
             *(out if isinstance(out, tuple) else (out,)))
         ops = 0.0
-    elif name in ("recolor", "recolor_blend"):
-        # each entry's inputs read once and outputs written once (`args` holds
-        # them all; the few flops per row are far below the byte time)
-        byt = nbytes(*args) + nbytes(*out)
+    elif name == "recolor":
+        # the work of the three entries kernel M had before its two: their
+        # inputs read once (the sources' colors, the targets, the sorted
+        # keys, the k-NN rows, the two lists) and outputs written once (the
+        # exact matches, the matched flags, the counts, the forward colors,
+        # the merged colors), and the compaction's positions; the few flops
+        # per row are far below the byte time
+        src_pos, src_col, tgt, order, sk, idx, d2, tidx, td2 = args
+        eidx, has, iidx, tq, uidx, sq, col = out
+        byt = (nbytes(src_col, tgt, order, sk, idx, d2, tidx, td2, iidx, uidx, eidx, has, col,
+                      tq, sq) + src_pos.shape[0] + 8 + 12 * iidx.shape[0])
+        ops = 0.0
+    elif name == "recolor_blend":
+        # as before the blend entry took every row: the inputs, the lists of
+        # every source and every target, the forward colors and the merged
+        # colors, each once
+        src_col, idx, d2, tidx, td2, eidx, has = args
+        byt = nbytes(*args, out) + 4 * (src_col.shape[0] + eidx.shape[0]) + 12 * eidx.shape[0]
         ops = 0.0
     elif name == "presmooth":
         colors, nidx, nd2, q_col = args[:4]
@@ -1092,8 +1117,8 @@ def deblock_all_check(dev, hevc, calls, where: str, maxval=None) -> None:
 def device_ms(fn, reps: int = 20) -> float:
     """Device milliseconds of one call of fn: the time of its CUDA kernels
     under torch.profiler over `reps` calls (for wrappers that a CUDA graph
-    cannot hold: kernel H's cooperative launch, kernel C's read of its row
-    count; copies are not counted)."""
+    cannot hold: the cooperative launches of kernels H, M and D, the reads
+    of C and M; copies are not counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1107,9 +1132,12 @@ def device_ms(fn, reps: int = 20) -> float:
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
-        if not e.key.startswith(("Memcpy", "Memset")):
-            us += t
-    return us / reps / 1e3
+        if t > 0 and e.count and not e.key.startswith(("Memcpy", "Memset")):
+            # a kernel's mean over the launches the trace kept, times its
+            # launches a call (the trace can miss some of a cooperative
+            # kernel's records)
+            us += t / e.count * max(1, round(e.count / reps))
+    return us / 1e3
 
 
 def host_syncs(fn) -> int:
@@ -1238,7 +1266,8 @@ def decode_phase(dev):
     t0 = time.perf_counter()
     with Capture({**wrappers, **color_wrappers(hevc)}) as cap, \
             CallLog(hevc, "deblock_planes") as db_log, \
-            CallLog(reconstruct, "generate_points") as gp_log:
+            CallLog(reconstruct, "generate_points") as gp_log, \
+            CallLog(smoothing, "grid_smooth") as gs_log:
         Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     print(f"cold decode: {time.perf_counter() - t0:.2f}s for {n_frames} frames")
@@ -1273,7 +1302,7 @@ def decode_phase(dev):
         if name == "sao_apply":   # a short call: its device time apart
             shapes.append(f"device {graph_ms(lambda: kern(*args, **kw)):.4f} ms a call "
                           "(CUDA graph replay)")
-        if name == "generate_points":
+        if name in ("generate_points", "grid_smooth"):
             shapes.append(f"device {device_ms(lambda: kern(*args, **kw)):.4f} ms a call "
                           "(torch.profiler)")
         print(f"{name}: exact (max abs err {err}); kernel {k1:.4f}/{k2:.4f} ms, "
@@ -1284,19 +1313,21 @@ def decode_phase(dev):
     color_check(dev, hevc, cap, "decode")
     deblock_all_check(dev, hevc, db_log.calls, "the decode path")
     gp_all_check(dev, reconstruct, gp_log, "the fixture decode")
-    del db_log, gp_log
+    gs_all_check(dev, smoothing, gs_log, "the fixture decode")
+    del db_log, gp_log, gs_log
 
     # 5. the main path, counted and timed
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with Capture({**{k: wrappers[k] for k in ("wavefront_decode32", "sao_apply",
-                                               "generate_points")},
+                                               "generate_points", "grid_smooth")},
                   **oq_wrappers(hevc)}, keep=False) as calls:
         frames = Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
+    m_d_calls(launches, calls.counts, "the decode path", n_frames)
     one_a_call("wavefront_decode32", launches, calls.counts, "the decode path")
     print(f"generate_points on the decode path: {launches['generate_points']} launches for "
           f"{calls.counts['generate_points']} calls")
@@ -1972,35 +2003,109 @@ def luma_psnr(coded, decoded, occ) -> float:
 
 
 def recolor_inputs(recolor, neighbors, args, cfg):
-    """The inputs of kernel M's three entries on one recolor call
+    """The inputs of kernel M's two entries on one recolor call
     (`transfer_colors_compact`'s source positions and colors, targets),
-    with its k-NN sweeps (kernel E) run once: (src_col, tgt, order, sorted
-    keys, inexact targets, their k-NN, unmatched sources, their nearest
-    targets)."""
+    with its k-NN sweeps (kernel E) run once on the compacted lists:
+    (src_pos, src_col, tgt, order, sorted keys, the inexact targets' k-NN,
+    the unmatched sources' nearest targets)."""
     src_pos, src_col, tgt = args[:3]
     bits = cfg.geometryBitDepth3D
     order, sk = recolor.sorted_source_keys(src_pos, bits)
-    _, has, matched, _ = recolor.exact_match(order, sk, tgt, bits)
-    iidx = torch.nonzero(~has).flatten().to(torch.int32)
-    idx, d2 = neighbors.knn(neighbors.build_grid(src_pos, bits), tgt[iidx.long()].contiguous(),
+    _, _, _, tq, _, sq = recolor.exact_compact(order, sk, src_pos, tgt, bits)
+    idx, d2 = neighbors.knn(neighbors.build_grid(src_pos, bits), tq,
                             k=cfg.numNeighborsColorTransferFwd, bucket=6)
-    uidx = torch.nonzero(~matched).flatten().to(torch.int32)
-    tidx, td2 = neighbors.nearest(neighbors.build_grid(tgt, bits),
-                                  src_pos[uidx.long()].contiguous(), bucket=6)
-    return src_col, tgt, order, sk, iidx, idx, d2, uidx, tidx, td2
+    tidx, td2 = neighbors.nearest(neighbors.build_grid(tgt, bits), sq, bucket=6)
+    return src_pos, src_col.to(torch.uint8).contiguous(), tgt, order, sk, idx, d2, tidx, td2
 
 
 def recolor_entries(recolor, inputs, cfg, plain: bool):
-    """Kernel M's three entries (or their plain versions) on `inputs`
-    (`recolor_inputs`).  Returns their outputs."""
-    src_col, tgt, order, sk, iidx, idx, d2, uidx, tidx, td2 = inputs
+    """Kernel M's two entries (or their plain versions) on `inputs`
+    (`recolor_inputs`): (exact_idx, has_exact, inexact targets, their
+    positions, unmatched sources, their positions, colors)."""
+    src_pos, src_col, tgt, order, sk, idx, d2, tidx, td2 = inputs
     sfx = "_plain" if plain else ""
-    ex = getattr(recolor, "exact_match" + sfx)(order, sk, tgt, cfg.geometryBitDepth3D)
-    fwd = getattr(recolor, "fwd_blend" + sfx)(src_col, idx, d2, float(cfg.maxGeometryDist2Fwd),
-                                              float(cfg.maxColorDist2Fwd), float(cfg.distOffsetFwd))
-    out = getattr(recolor, "splat_merge" + sfx)(src_col, uidx, tidx, td2, ex[0], ex[1], iidx, fwd,
-                                                float(cfg.maxGeometryDist2Bwd))
-    return (*ex, fwd, out)
+    ex = getattr(recolor, "exact_compact" + sfx)(order, sk, src_pos, tgt, cfg.geometryBitDepth3D)
+    eidx, has, iidx, _, uidx, _ = ex
+    out = getattr(recolor, "blend_merge" + sfx)(
+        src_col, eidx, has, iidx, idx, d2, uidx, tidx, td2, float(cfg.maxGeometryDist2Fwd),
+        float(cfg.maxColorDist2Fwd), float(cfg.distOffsetFwd), float(cfg.maxGeometryDist2Bwd))
+    return (*ex, out)
+
+
+def recolor_all_check(dev, recolor, neighbors, calls, cfg, where: str) -> None:
+    """Kernel M's two entries against their plain versions on every
+    `transfer_colors_compact` call in `calls` (a CallLog), every output bit
+    for bit, two launches a call; the largest call with one host
+    synchronisation (sync debug mode "warn"), its call and device times."""
+    if not calls.calls:
+        raise AssertionError(f"recolor: no call captured on {where}")
+    for i, a in enumerate(calls.calls):
+        m_in = recolor_inputs(recolor, neighbors, a, cfg)
+        torch.cuda.synchronize()
+        before = dev.LAUNCHES["recolor"]
+        got = recolor_entries(recolor, m_in, cfg, plain=False)
+        launches = dev.LAUNCHES["recolor"] - before
+        want = recolor_entries(recolor, m_in, cfg, plain=True)
+        if launches != 2 or max_abs_err(got, want) != 0:
+            raise AssertionError(f"recolor call {i} on {where}: {launches} launches, kernel "
+                                 "differs from its plain version")
+    a, kw = max(zip(calls.calls, calls.kws), key=lambda c: c[0][2].shape[0])
+    fn = lambda: recolor.transfer_colors_compact(*a, **kw)
+    syncs = host_syncs(fn)
+    if syncs != 1:
+        raise AssertionError(f"transfer_colors_compact on {where}: {syncs} host "
+                             "synchronisations a call, expected 1")
+    print(f"recolor: all {len(calls.calls)} captured calls of {where} exact (exact matches, "
+          f"both lists with their positions, colors), two launches a call; the largest "
+          f"transfer_colors_compact: one host synchronisation (the counts), call "
+          f"{time_ms(fn, 20):.4f} ms, device {device_ms(fn):.4f} ms (torch.profiler, kernel "
+          "E's sweeps and the grid builds included)")
+
+
+def gs_all_check(dev, smoothing, log, where: str) -> None:
+    """Kernel D against its plain version on every call `log` (a CallLog)
+    kept, bit for bit, one launch a call; the largest once under sync debug
+    mode "error", its call and device times and the bytes of cell records
+    it sets (the points' box) against the four whole-grid tables the
+    parent filled."""
+    calls = list(zip(log.calls, log.kws))
+    if not calls:
+        raise AssertionError(f"grid_smooth: no call captured on {where}")
+    for i, (a, kw) in enumerate(calls):
+        torch.cuda.synchronize()
+        before = dev.LAUNCHES["grid_smooth"]
+        got = smoothing.grid_smooth(*a, **kw)
+        launches = dev.LAUNCHES["grid_smooth"] - before
+        if launches != 1 or not torch.equal(got, smoothing.smooth_point_cloud_grid_plain(*a, **kw)):
+            raise AssertionError(f"grid_smooth call {i} on {where} ({tuple(a[0].shape)}): "
+                                 f"{launches} launches, kernel differs from its plain version")
+    a, kw = max(calls, key=lambda c: c[0][0].shape[0])
+    fn = lambda: smoothing.grid_smooth(*a, **kw)
+    if no_sync_launches(dev, "grid_smooth", fn) != 1:
+        raise AssertionError(f"grid_smooth on {where}: expected one launch a call")
+    gs, bits = kw.get("grid_size", 8), kw.get("grid_bits", 10)
+    gw = (1 << bits) // gs
+    cell = torch.div(a[0], gs, rounding_mode="floor").clamp(0, gw - 1)
+    box = (cell.amax(0) - cell.amin(0) + 1).tolist()
+    print(f"grid_smooth: all {len(calls)} captured calls of {where} exact, one launch a call; "
+          f"the largest ({tuple(a[0].shape)} points, {gw}^3 cells): no host synchronisation "
+          f"(sync debug mode \"error\"), call {time_ms(fn, 20):.4f} ms, device "
+          f"{device_ms(fn):.4f} ms (torch.profiler); cell records set: box {box} = "
+          f"{24 * box[0] * box[1] * box[2]} bytes (the four whole-grid tables: "
+          f"{24 * (gw ** 3 + 1)} bytes)")
+
+
+def m_d_calls(launches, counts, where: str, n: int, m_calls=()) -> None:
+    """Kernels M's and D's launches on a path (`launches`) against their
+    wrappers' calls (`counts`): D once a call; `m_calls` (counter, calls,
+    launches a call) for M; printed a call and a frame."""
+    for name, calls, per in (("grid_smooth", counts.get("grid_smooth", 0), 1), *m_calls):
+        got = launches.get(name, 0)
+        print(f"{name} on {where}: {got} launches for {calls} calls ({got / max(calls, 1):g} a "
+              f"call, {got / n:g} a frame)")
+        if got != per * calls:
+            raise AssertionError(f"{name} on {where}: {got} launches for {calls} calls, "
+                                 f"expected {per} a call")
 
 
 # kernel P's color entries -> the pipeline function each wraps
@@ -2056,7 +2161,9 @@ def encode_phase(dev, cfg, frames, segs):
     try:
         with Capture(wrappers) as cap, Capture(e_wrap, rename=e_name) as e_cap, \
                 CallLog(hevc, "deblock_planes") as db_log, \
-                CallLog(reconstruct, "generate_points") as gp_log:
+                CallLog(reconstruct, "generate_points") as gp_log, \
+                CallLog(recolor, "transfer_colors_compact") as rc_log, \
+                CallLog(smoothing, "grid_smooth") as gs_log:
             enc0 = Encoder(cfg, device="cuda")
             stream0, recon0 = enc0.encode_gof(frames, segs=segs)
             torch.cuda.synchronize()
@@ -2109,7 +2216,10 @@ def encode_phase(dev, cfg, frames, segs):
         (k1, k2), (p1, p2) = time_turns(kern, plain, reps_k=100 if name in ATTR_ENTRIES else 20)
         lib = None
         if name == "recolor":
-            shapes = [tuple(a.shape) for a in rc_args[:3]]
+            shapes = [tuple(a.shape) for a in rc_args[:3]] + [
+                f"lists {tuple(out_k[2].shape)} {tuple(out_k[4].shape)}"]
+            print(f"recolor: the two entries' device time {device_ms(kern):.4f} ms a call "
+                  "(torch.profiler)")
         elif name in E_ENCODE_ROWS:
             shapes = [tuple(args[1].shape), f"k={out_k[0].shape[1]}", f"win={args[2]}"]
             print(f"{name}: device {graph_ms(kern):.4f} ms a call (CUDA graph replay)")
@@ -2133,7 +2243,9 @@ def encode_phase(dev, cfg, frames, segs):
     rows["color_convert"] = color_check(dev, hevc, cap, "encode")
     deblock_all_check(dev, hevc, db_log.calls, "the encode path")
     gp_all_check(dev, reconstruct, gp_log, "the encode path")
-    del db_log, gp_log
+    recolor_all_check(dev, recolor, neighbors, rc_log, cfg, "the encode path")
+    gs_all_check(dev, smoothing, gs_log, "the encode path")
+    del db_log, gp_log, rc_log, gs_log
 
     # 14. the attribute path on JAX's reconstruction rows
     recons = []
@@ -2188,13 +2300,17 @@ def encode_phase(dev, cfg, frames, segs):
     t0 = time.perf_counter()
     with Capture(e_wrap, rename=e_name, keep=False) as e_calls, \
             Capture({"sao": (hevc, "sao_search_apply")}, keep=False) as k_calls, \
-            Capture(oq_wrappers(hevc), keep=False) as oq_calls:
+            Capture(oq_wrappers(hevc), keep=False) as oq_calls, \
+            Capture({"recolor": (recolor, "transfer_colors_compact"),
+                     "grid_smooth": (smoothing, "grid_smooth")}, keep=False) as md_calls:
         segs1 = [Encoder.with_partition(enc.segment_dispatch(f), torch.as_tensor(
             ref_parts[f"refined_{i}"].astype(np.int32))) for i, f in enumerate(frames)]
         stream, recon = enc.encode_gof(frames, segs=segs1)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
+    m_d_calls(launches, md_calls.counts, "the encode path", n,
+              [("recolor", md_calls.counts["recolor"], 2)])
     one_a_call("sao", launches, k_calls.counts, "the encode path")
     oq_one_a_call(launches, oq_calls.counts, "the encode path")
     print_calls(oq_calls.counts, "the encode path (the encoder's own calls of kernels O and Q)",
@@ -2415,35 +2531,54 @@ def metrics_phase(dev, cfg, frames, segs, decoded, r3):
 
 
 def blend_inputs(recolor, neighbors, args, kw):
-    """The inputs of kernel M's two entries on one vox11 transfer
+    """The inputs of kernel M's blend entry on one vox11 transfer
     (`transfer_colors`' source positions and colors, targets, host exact
     matches), with its two sweeps (kernel E, unpacked table) run once, as
     `transfer_colors` runs them: (src_col, idx, d2 of every target, tidx
-    and td2 of every source with matched sources gated out, exact_idx,
-    has_exact, every source, every target)."""
+    and td2 of every source, exact_idx, has_exact)."""
     src_pos, src_col, tgt, exact_idx, has_exact = args[:5]
     bits = kw["grid_bits"]
     idx, d2 = neighbors.knn(neighbors.build_grid(src_pos, bits), tgt, k=kw["k"], bucket=6)
     tidx, td2 = neighbors.nearest(neighbors.build_grid(tgt, bits), src_pos, bucket=6)
-    matched = torch.zeros(src_pos.shape[0], dtype=torch.bool, device=src_pos.device)
-    matched[exact_idx.long()[has_exact]] = True
-    td2 = torch.where(matched, torch.full_like(td2, neighbors.MAX_DIST2), td2)
-    every = lambda n: torch.arange(n, dtype=torch.int32, device=src_pos.device)
-    return (src_col.to(torch.uint8).contiguous(), idx, d2, tidx, td2, exact_idx, has_exact,
-            every(src_pos.shape[0]), every(tgt.shape[0]))
+    return src_col.to(torch.uint8).contiguous(), idx, d2, tidx, td2, exact_idx, has_exact
 
 
 def blend_entries(recolor, inputs, kw, plain: bool):
-    """Kernel M's forward blend over every target and splat and merge over
-    every source (or their plain versions) on `blend_inputs`."""
-    src_col, idx, d2, tidx, td2, eidx, has, uidx, iidx = inputs
+    """Kernel M's blend entry (or its plain version) over every target and
+    every source, the sources of exact targets dropped, on `blend_inputs`."""
+    src_col, idx, d2, tidx, td2, eidx, has = inputs
     sfx = "_plain" if plain else ""
-    fwd = getattr(recolor, "fwd_blend" + sfx)(src_col, idx, d2, float(kw["max_geom_d2_fwd"]),
-                                              float(kw["max_color_d2_fwd"]),
-                                              float(kw["dist_offset_fwd"]))
-    out = getattr(recolor, "splat_merge" + sfx)(src_col, uidx, tidx, td2, eidx, has, iidx, fwd,
-                                                float(kw["max_geom_d2_bwd"]))
-    return fwd, out
+    return getattr(recolor, "blend_merge" + sfx)(
+        src_col, eidx, has, None, idx, d2, None, tidx, td2, float(kw["max_geom_d2_fwd"]),
+        float(kw["max_color_d2_fwd"]), float(kw["dist_offset_fwd"]), float(kw["max_geom_d2_bwd"]))
+
+
+def blend_all_check(dev, recolor, neighbors, log, where: str) -> None:
+    """Kernel M's blend entry against its plain version on every
+    `transfer_colors` call `log` (a CallLog) kept, bit for bit, one launch
+    a call; the largest once under sync debug mode "error" (the whole
+    transfer), its call and device times."""
+    calls = list(zip(log.calls, log.kws))
+    if not calls:
+        raise AssertionError(f"transfer_colors: no call captured on {where}")
+    for i, (a, kw) in enumerate(calls):
+        m_in = blend_inputs(recolor, neighbors, a, kw)
+        torch.cuda.synchronize()
+        before = dev.LAUNCHES["recolor"]
+        got = blend_entries(recolor, m_in, kw, plain=False)
+        launches = dev.LAUNCHES["recolor"] - before
+        if launches != 1 or not torch.equal(got, blend_entries(recolor, m_in, kw, plain=True)):
+            raise AssertionError(f"recolor_blend call {i} on {where}: {launches} launches, "
+                                 "kernel differs from its plain version")
+    a, kw = max(calls, key=lambda c: c[0][2].shape[0])
+    m_in = blend_inputs(recolor, neighbors, a, kw)
+    fn = lambda: blend_entries(recolor, m_in, kw, plain=False)
+    if no_sync_launches(dev, "recolor", lambda: recolor.transfer_colors(*a, **kw)) != 1:
+        raise AssertionError(f"transfer_colors on {where}: expected one launch of kernel M")
+    print(f"recolor_blend: all {len(calls)} captured transfer_colors calls of {where} exact, "
+          "one launch a call; the largest transfer: no host synchronisation (sync debug mode "
+          f"\"error\"); the entry: call {time_ms(fn, 5):.4f} ms, device {device_ms(fn):.4f} "
+          "ms (torch.profiler)")
 
 
 def vox11_phase(dev):
@@ -2488,7 +2623,8 @@ def vox11_phase(dev):
                 "recolor_blend": (recolor, "transfer_colors"),
                 "grid_smooth": (smoothing, "grid_smooth")}
     t0 = time.perf_counter()
-    with Capture(wrappers) as cap:
+    with Capture(wrappers) as cap, CallLog(recolor, "transfer_colors") as tc_log, \
+            CallLog(smoothing, "grid_smooth") as gs_log:
         enc = Encoder(cfg, device="cuda")
         enc.encode_gof(frames, segs=driven_segs(enc))
         torch.cuda.synchronize()
@@ -2505,7 +2641,6 @@ def vox11_phase(dev):
     _, cc_args, _ = cap.calls["cc_round_voxel"]
     _, rc_args, rc_kw = cap.calls["recolor_blend"]
     m_in = blend_inputs(recolor, neighbors, rc_args, rc_kw)
-    _, gs_args, _ = cap.calls["grid_smooth"]
     checks = {
         "grid_knn_xyz": (lambda: neighbors.knn(kg, kq, **kkw),
                          lambda: neighbors.knn_plain(kg, kq, **kkw),
@@ -2533,13 +2668,9 @@ def vox11_phase(dev):
               + (f", k={kkw['k']} bucket={kkw['bucket']}" if name == "grid_knn_xyz" else ""))
         rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=err, library_ms=None)
-    gs_k = smoothing.grid_smooth(*gs_args)
-    gs_p = smoothing.smooth_point_cloud_grid_plain(*gs_args)
-    torch.cuda.synchronize()
-    tup = lambda x: tuple(x) if isinstance(x, tuple) else x
-    if max_abs_err(tup(gs_k), tup(gs_p)) != 0:
-        raise AssertionError("grid_smooth (vox11): kernel differs from its plain version")
-    print(f"grid_smooth (vox11, 256^3 cells): exact on {tuple(gs_args[0].shape)} points")
+    blend_all_check(dev, recolor, neighbors, tc_log, "the vox11 path")
+    gs_all_check(dev, smoothing, gs_log, "the vox11 path")
+    del tc_log, gs_log
 
     # 24. the main path, counted and timed; the spies keep each stage's
     # digest for the checks afterwards
@@ -2602,14 +2733,18 @@ def vox11_phase(dev):
         dev.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        enc = Encoder(cfg, device="cuda")
-        stream, recon = enc.encode_gof(frames, segs=driven_segs(enc))
-        torch.cuda.synchronize()
+        with Capture({"grid_smooth": (smoothing, "grid_smooth"),
+                      "tc": (recolor, "transfer_colors")}, keep=False) as md_calls:
+            enc = Encoder(cfg, device="cuda")
+            stream, recon = enc.encode_gof(frames, segs=driven_segs(enc))
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = dict(dev.LAUNCHES)
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
+    m_d_calls(launches, md_calls.counts, "the vox11 path", n,
+              [("recolor", md_calls.counts["tc"], 1)])
     split = {f: sum(getattr(st, f) for st in enc.stats) / n
              for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s", "video_s",
                        "reconstruct_s", "recolor_s")}
@@ -3848,8 +3983,6 @@ def level_entry_fns(neighbors, recolor, cap) -> dict:
     order, sk, tgt, bits = cap["recolor_exact_batch"]
     b_args = cap["recolor_blend_batch"]
     col, idx, d2, tidx, td2, eidx, has, gf, cd2, doff, gb = b_args
-    every_s = torch.arange(col.shape[1], dtype=torch.int32, device=col.device)
-    every_t = torch.arange(idx.shape[1], dtype=torch.int32, device=col.device)
 
     def knn_frames():
         outs = [neighbors.knn(grids.frame(b), q[b], k, bucket) for b in range(q.shape[0])]
@@ -3862,8 +3995,8 @@ def level_entry_fns(neighbors, recolor, cap) -> dict:
 
     def blend_frames():
         return torch.stack([
-            recolor.splat_merge(col[b], every_s, tidx[b], td2[b], eidx[b], has[b], every_t,
-                                recolor.fwd_blend(col[b], idx[b], d2[b], gf, cd2, doff), gb)
+            recolor.blend_merge(col[b], eidx[b], has[b], None, idx[b], d2[b], None, tidx[b],
+                                td2[b], gf, cd2, doff, gb)
             for b in range(col.shape[0])])
 
     return {
@@ -3877,6 +4010,28 @@ def level_entry_fns(neighbors, recolor, cap) -> dict:
     }
 
 
+def level_m_all_check(dev, recolor, ex_log, bl_log) -> None:
+    """Kernel M's frame-batched entries against their plain versions on
+    every call the CallLogs kept, bit for bit, one launch a call and no host
+    synchronisation (sync debug mode "error")."""
+    for log, name, kern, plain in (
+            (ex_log, "recolor_exact_batch", recolor.exact_match_batch,
+             recolor.exact_match_batch_plain),
+            (bl_log, "recolor_blend_batch", recolor.blend_batch, recolor.blend_batch_plain)):
+        if not log.calls:
+            raise AssertionError(f"{name}: no call captured on the level path")
+        for i, a in enumerate(log.calls):
+            got = []
+            if no_sync_launches(dev, name, lambda: got.append(kern(*a))) != 1:
+                raise AssertionError(f"{name} call {i}: expected one launch a call")
+            if max_abs_err(got[0], plain(*a)) != 0:
+                raise AssertionError(f"{name} call {i}: kernel differs from its plain version")
+        print(f"{name}: all {len(log.calls)} captured calls of the level path exact, one launch "
+              "a call, no host synchronisation (sync debug mode \"error\"); frames x calls: "
+              + ", ".join(f"{k} x {v}" for k, v in collections.Counter(
+                  a[0].shape[0] for a in log.calls).items()))
+
+
 def level_phase(dev, cfg, frames, segs, r3_stream):
     """Steps 47-50: the level-batched GOF path (`encode_gof(parallel=True)`,
     the frame-batched entries of kernels E and M).  Returns (rows,
@@ -3885,7 +4040,7 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
     from torch.profiler import ProfilerActivity, profile
 
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import neighbors, padding, reconstruct, recolor
+    from vpcc_tpu_torch.ops import neighbors, padding, reconstruct, recolor, smoothing
     from vpcc_tpu_torch.parallel import gof
     from vpcc_tpu_torch.video import hevc
 
@@ -3927,7 +4082,10 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
         with CallLog(hevc, "motion_search") as j_calls, \
                 CallLog(hevc, "deblock_planes") as db_log, \
                 CallLog(hevc, "rgb_to_planes") as q_log, \
-                CallLog(reconstruct, "generate_points") as gp_log:
+                CallLog(reconstruct, "generate_points") as gp_log, \
+                CallLog(recolor, "exact_match_batch") as ex_log, \
+                CallLog(recolor, "blend_batch") as bl_log, \
+                CallLog(smoothing, "grid_smooth") as gs_log:
             stream0, _ = enc0.encode_gof(frames, parallel=True, segs=segs)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
@@ -3940,7 +4098,9 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
     if max(len(a[0]) if isinstance(a[0], list) else 1 for a in q_log.calls) < 2:
         raise AssertionError("rgb_to_planes: no batch of several images on the level path")
     gp_all_check(dev, reconstruct, gp_log, "the level path")
-    del j_calls, db_log, q_log, gp_log
+    level_m_all_check(dev, recolor, ex_log, bl_log)
+    gs_all_check(dev, smoothing, gs_log, "the level path")
+    del j_calls, db_log, q_log, gp_log, ex_log, bl_log, gs_log
     parent, _ = enc0.gof_structure(n)
     groups = gof.level_groups(gof.level_schedule(parent), parent,
                               [(e.height, e.width) for e in enc0.last_encoded])
@@ -3961,9 +4121,14 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
                 enc)
 
     t_s1, (s_seq, _), _, in_seq, _ = run(False)
-    with Capture({"sao": (hevc, "sao_search_apply"), **oq_wrappers(hevc)},
-                 keep=False) as k_calls:
+    with Capture({"sao": (hevc, "sao_search_apply"), **oq_wrappers(hevc),
+                  "grid_smooth": (smoothing, "grid_smooth"),
+                  "m_exact": (recolor, "exact_match_batch"),
+                  "m_blend": (recolor, "blend_batch")}, keep=False) as k_calls:
         t_p1, (stream, recon), launches, inexact, enc = run(True)
+    m_d_calls(launches, k_calls.counts, "the level-batched path", n,
+              [("recolor_exact_batch", k_calls.counts["m_exact"], 1),
+               ("recolor_blend_batch", k_calls.counts["m_blend"], 1)])
     one_a_call("sao", launches, k_calls.counts, "the level-batched path")
     oq_one_a_call(launches, k_calls.counts, "the level-batched path")
     print_calls(k_calls.counts, "the level-batched path", n)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_md_cases import SMOOTH_CASES, recolor_case, smooth_case
 from vpcc_tpu_torch import device as dev, pipeline
 from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, padding, pbf, plr, recolor
 from vpcc_tpu_torch.ops import reconstruct
@@ -32,6 +33,33 @@ def cuda():
 def _same(a, b):
     torch.cuda.synchronize()
     assert torch.equal(a.cpu(), b.cpu())
+
+
+def _syncs(fn):
+    """(fn(), the host synchronisations torch reports for the call under
+    sync debug mode "warn")."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("called a synchronizing" in str(w.message) for w in seen)
+
+
+def _no_sync(fn):
+    """fn() under sync debug mode "error": a host wait raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.parametrize("maxval,qp,big,nbx", [(255, 30, False, 4),
@@ -234,19 +262,39 @@ def test_generate_points_kernel(cuda, case, H, W, res, eom_bits, entry):
         assert (got.layer == 2).sum() > 0
 
 
-@pytest.mark.parametrize("thr", [1.0, 2.0, 64.0])
-def test_grid_smooth_kernel(cuda, thr):
-    """A jittered vox10 sphere with banded patch ids."""
-    rng = np.random.default_rng(int(thr))
-    v = rng.normal(size=(300_000, 3))
-    v /= np.linalg.norm(v, axis=1, keepdims=True)
-    pts = np.unique(np.round(512 + 400 * v).astype(np.int32), axis=0)
-    pts = np.clip(pts + rng.integers(-2, 3, pts.shape), 0, 1023).astype(np.int32)
-    pid = ((pts[:, 0] // 37 + pts[:, 2] // 53) % 7).astype(np.int32)
-    bnd = rng.random(len(pts)) < 0.9
+@pytest.mark.parametrize("case,thr", [("sphere", 1.0), ("sphere", 2.0), ("sphere", 64.0),
+                                      *((c, None) for c in SMOOTH_CASES), ("bits11", None),
+                                      ("after_larger", None)])
+def test_grid_smooth_kernel(cuda, case, thr):
+    """A jittered vox10 sphere with banded patch ids, and the crafted clouds
+    of `torch_md_cases.smooth_case` at 10 bits (points at the grid's corners,
+    so that the box is the grid; one cell; one patch; no boundary point; the
+    faces' distance test; gridSize 4 and 16), its corners cloud at 11 bits,
+    and a call after a larger one (the scratch's records of another box).
+    One launch a call and no host synchronisation."""
+    bits, gs = 10, 8
+    if case == "sphere":
+        rng = np.random.default_rng(int(thr))
+        v = rng.normal(size=(300_000, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        pts = np.unique(np.round(512 + 400 * v).astype(np.int32), axis=0)
+        pts = np.clip(pts + rng.integers(-2, 3, pts.shape), 0, 1023).astype(np.int32)
+        pid = ((pts[:, 0] // 37 + pts[:, 2] // 53) % 7).astype(np.int32)
+        bnd = rng.random(len(pts)) < 0.9
+    elif case == "bits11":
+        bits = 11
+        pts, pid, bnd, thr, gs = smooth_case("corners", bits=11)
+    else:
+        if case == "after_larger":
+            big = [torch.as_tensor(a, device=cuda) for a in smooth_case("corners", bits=11)[:3]]
+            smoothing.grid_smooth(*big, 2.0, 8, 11)
+        pts, pid, bnd, thr, gs = smooth_case("one_cell" if case == "after_larger" else case,
+                                             bits=10)
     p, i, b = (torch.as_tensor(a, device=cuda) for a in (pts, pid, bnd))
-    got = smoothing.grid_smooth(p, i, b, thr, 8, 10)
-    _same(got, smoothing.smooth_point_cloud_grid_plain(p, i, b, thr, 8, 10))
+    n0 = dev.LAUNCHES["grid_smooth"]
+    got = _no_sync(lambda: smoothing.grid_smooth(p, i, b, thr, gs, bits))
+    assert dev.LAUNCHES["grid_smooth"] == n0 + 1
+    _same(got, smoothing.smooth_point_cloud_grid_plain(p, i, b, thr, gs, bits))
 
 
 def test_decoder_defaults_to_cuda(cuda):
@@ -379,23 +427,28 @@ def test_cc_round_voxel_kernel(cuda):
     _same(got, want)
 
 
-@pytest.mark.parametrize("k_bwd", [1, 0])
-def test_recolor_blend_kernel(cuda, k_bwd):
+@pytest.mark.parametrize("case,k_bwd", [("mixed", 1), ("mixed", 0), ("all_exact", 1),
+                                         ("duplicates", 1), ("no_exact", 1)])
+def test_recolor_blend_kernel(cuda, case, k_bwd):
     """The uncompacted transfer of grids above 10 bits (host exact matching,
-    kernel M's forward blend over every target and splat over every source)
-    on the card against the CPU's plain versions."""
-    rng = np.random.default_rng(70 + k_bwd)
-    sp, sc, tp = _recolor_inputs(rng, cuda)
+    kernel M's blend entry over every target and every source, the sources
+    of exact targets dropped in the launch) on the card against the CPU's
+    plain versions: one launch, no host synchronisation; and the entry
+    alone against its plain version."""
+    sp, sc, tp = (torch.as_tensor(a, device=cuda) for a in recolor_case(case, seed=70 + k_bwd))
     sp, tp = sp + 1500, tp + 1500
     ei, he = recolor.exact_matches(sp.cpu().numpy(), tp.cpu().numpy(), sp.shape[0], 11)
+    ei, he = torch.as_tensor(ei, device=cuda), torch.as_tensor(he, device=cuda)
     kw = dict(grid_bits=11, k=8, k_bwd=k_bwd)
     n0 = dev.LAUNCHES["recolor"]
-    card = recolor.transfer_colors(sp, sc, tp, torch.as_tensor(ei, device=cuda),
-                                   torch.as_tensor(he, device=cuda), **kw)
-    assert dev.LAUNCHES["recolor"] == n0 + (4 if k_bwd else 3)
-    host = recolor.transfer_colors(sp.cpu(), sc.cpu(), tp.cpu(), torch.as_tensor(ei),
-                                   torch.as_tensor(he), **kw)
+    card = _no_sync(lambda: recolor.transfer_colors(sp, sc, tp, ei, he, **kw))
+    assert dev.LAUNCHES["recolor"] == n0 + 1
+    host = recolor.transfer_colors(sp.cpu(), sc.cpu(), tp.cpu(), ei.cpu(), he.cpu(), **kw)
     _same(card, host)
+    idx, d2 = neighbors.knn(neighbors.build_grid(sp, 11), tp, k=8, bucket=6)
+    tidx, td2 = neighbors.nearest(neighbors.build_grid(tp, 11), sp, bucket=6)
+    args = (sc, ei, he, None, idx, d2, None, tidx, td2, 30.0, 2000.0, 4.0, 3.0)
+    _same(recolor.blend_merge(*args), recolor.blend_merge_plain(*args))
 
 
 def _voxel_graph(cuda):
@@ -1093,37 +1146,61 @@ def _recolor_inputs(rng, cuda):
             torch.as_tensor(tp, device=cuda))
 
 
-@pytest.mark.parametrize("k_bwd", [1, 0])
-def test_recolor_kernel(cuda, k_bwd):
-    """Kernel M's three entries against their plain versions on the same
-    k-NN results, and the whole transfer on the card against the CPU's."""
-    rng = np.random.default_rng(40 + k_bwd)
-    sp, sc, tp = _recolor_inputs(rng, cuda)
+@pytest.mark.parametrize("case,k,k_bwd", [("mixed", 8, 1), ("mixed", 8, 0), ("mixed", 1, 0),
+                                           ("no_exact", 8, 1), ("all_exact", 8, 1),
+                                           ("all_matched", 8, 1), ("duplicates", 8, 1),
+                                           ("out_of_grid", 1, 1), ("after_larger", 8, 1)])
+def test_recolor_kernel(cuda, case, k, k_bwd):
+    """Kernel M's two entries against their plain versions on the same
+    k-NN results (`torch_md_cases.recolor_case`: no exact hit, every target
+    exact, every source matched, duplicated source positions, targets
+    outside the grid; k = 1 and 8, k_bwd 0 and 1; a call after a larger one,
+    whose scratch holds another cloud's), the single-frame exact match, and
+    the whole transfer on the card against the CPU's: two launches and one
+    host synchronisation (the counts) a transfer."""
+    if case == "after_larger":
+        big = [torch.as_tensor(a, device=cuda) for a in recolor_case("mixed", bits=8, n=200_000,
+                                                                     seed=41)]
+        recolor.transfer_colors_compact(*big, grid_bits=8)
+    sp, sc, tp = (torch.as_tensor(a, device=cuda)
+                  for a in recolor_case("mixed" if case == "after_larger" else case, seed=40))
     order, sk = recolor.sorted_source_keys(sp, 7)
-    got = recolor.exact_match(order, sk, tp, 7)
-    want = recolor.exact_match_plain(order, sk, tp, 7)
-    for a, b in zip(got, want):
+    got = recolor.exact_compact(order, sk, sp, tp, 7)
+    for a, b in zip(got, recolor.exact_compact_plain(order, sk, sp, tp, 7)):
         _same(a, b)
-    _, has, matched, counts = got
-    iidx = torch.nonzero(~has).flatten().to(torch.int32)
-    idx, d2 = neighbors.knn(neighbors.build_grid(sp, 7), tp[iidx.long()].contiguous(), k=8, bucket=6)
-    fwd = recolor.fwd_blend(sc, idx, d2, 30.0, 2000.0, 4.0)
-    _same(fwd, recolor.fwd_blend_plain(sc, idx, d2, 30.0, 2000.0, 4.0))
-    uidx = torch.nonzero(~matched).flatten().to(torch.int32)
-    tidx, td2 = neighbors.nearest(neighbors.build_grid(tp, 7), sp[uidx.long()].contiguous(), bucket=6)
-    args = (sc, uidx, tidx, td2, got[0], has, iidx, fwd, 3.0)
-    _same(recolor.splat_merge(*args), recolor.splat_merge_plain(*args))
-    kw = dict(grid_bits=7, k=8, k_bwd=k_bwd)
-    card, _ = recolor.transfer_colors_compact(sp, sc, tp, **kw)
+    for a, b in zip(recolor.exact_match(order, sk, tp, 7), recolor.exact_match_plain(order, sk,
+                                                                                    tp, 7)):
+        _same(a, b)
+    eidx, has, iidx, tq, uidx, sq = got
+    assert (iidx.numel() == 0) == (case in ("all_exact", "all_matched"))
+    assert (uidx.numel() == 0) == (case == "all_matched")
+    idx = d2 = torch.zeros((0, k), dtype=torch.int32, device=cuda)
+    if iidx.numel():
+        idx, d2 = neighbors.knn(neighbors.build_grid(sp, 7), tq, k=k, bucket=6)
+    tidx = td2 = torch.zeros(0, dtype=torch.int32, device=cuda)
+    if k_bwd and uidx.numel():
+        tidx, td2 = neighbors.nearest(neighbors.build_grid(tp, 7), sq, bucket=6)
+    else:
+        uidx = tidx
+    args = (sc, eidx, has, iidx, idx, d2, uidx, tidx, td2, 30.0, 2000.0, 4.0, 3.0)
+    _same(recolor.blend_merge(*args), recolor.blend_merge_plain(*args))
+    kw = dict(grid_bits=7, k=k, k_bwd=k_bwd)
+    n0 = dev.LAUNCHES["recolor"]
+    (card, _), syncs = _syncs(lambda: recolor.transfer_colors_compact(sp, sc, tp, **kw))
+    assert dev.LAUNCHES["recolor"] == n0 + 2 and syncs == 1
     host, _ = recolor.transfer_colors_compact(sp.cpu(), sc.cpu(), tp.cpu(), **kw)
     _same(card, host)
 
 
-def _level_clouds(rng, cuda, B=3):
-    """B padded frames of `_recolor_inputs` clouds of different counts (the
-    level path's layout: rows out of the grid at -2^20)."""
-    clouds = [_recolor_inputs(rng, cuda) for _ in range(B)]
-    cuts = [(30000 - 997 * b, 21000 - 1301 * b) for b in range(B)]
+def _level_clouds(rng, cuda, B=3, case=None):
+    """B padded frames of `_recolor_inputs` clouds (or, given `case`,
+    `torch_md_cases.recolor_case` clouds) of different counts (the level
+    path's layout: rows out of the grid at -2^20)."""
+    clouds = [_recolor_inputs(rng, cuda) if case is None else
+              [torch.as_tensor(a, device=cuda) for a in recolor_case(case, seed=b)]
+              for b in range(B)]
+    cuts = [(min(30000, c[0].shape[0]) - 997 * b, min(21000, c[2].shape[0]) - 1301 * b)
+            for b, c in enumerate(clouds)]
     ns, nt = max(c[0] for c in cuts) + 50, max(c[1] for c in cuts) + 70
     pad = -(1 << 20)
     sp = torch.full((B, ns, 3), pad, dtype=torch.int32, device=cuda)
@@ -1175,14 +1252,18 @@ def test_grid_knn_batch_fill_kernel(cuda):
         _same(got[1][b], one[1])
 
 
-def test_recolor_batch_kernel(cuda):
+@pytest.mark.parametrize("case", [None, "duplicates", "out_of_grid", "all_exact"])
+def test_recolor_batch_kernel(cuda, case):
     """Kernel M's frame-batched exact match and blend against their plain
-    versions, and the level recolor on the card against the CPU's."""
+    versions (one launch each, no host synchronisation), and the level
+    recolor on the card against the CPU's."""
     from vpcc_tpu_torch.parallel import gof
 
-    sp, sc, cnt, tp = _level_clouds(np.random.default_rng(95), cuda)
+    sp, sc, cnt, tp = _level_clouds(np.random.default_rng(95), cuda, case=case)
     order, sk = recolor.sorted_source_keys_batch(sp, cnt, 7)
-    got = recolor.exact_match_batch(order, sk, tp, 7)
+    n0 = dev.LAUNCHES["recolor_exact_batch"]
+    got = _no_sync(lambda: recolor.exact_match_batch(order, sk, tp, 7))
+    assert dev.LAUNCHES["recolor_exact_batch"] == n0 + 1
     for a, b in zip(got, recolor.exact_match_batch_plain(order, sk, tp, 7)):
         _same(a, b)
     eidx, has, matched = got
@@ -1191,7 +1272,10 @@ def test_recolor_batch_kernel(cuda):
     td2 = torch.where(matched, torch.full_like(td2[..., 0], neighbors.MAX_DIST2), td2[..., 0])
     args = (sc, idx, d2, tidx[..., 0].contiguous(), td2.contiguous(), eidx, has, 30.0, 2000.0,
             4.0, 3.0)
-    _same(recolor.blend_batch(*args), recolor.blend_batch_plain(*args))
+    n0 = dev.LAUNCHES["recolor_blend_batch"]
+    out = _no_sync(lambda: recolor.blend_batch(*args))
+    assert dev.LAUNCHES["recolor_blend_batch"] == n0 + 1
+    _same(out, recolor.blend_batch_plain(*args))
     gates = (30.0, 3.0, 2000.0, 4.0)
     card = gof.recolor_level(sp, sc, cnt, tp, None, 7, gates=gates)
     host = gof.recolor_level(sp.cpu(), sc.cpu(), cnt.cpu(), tp.cpu(), None, 7, gates=gates)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_md_cases import recolor_case
 from vpcc_tpu.ops import recolor as jrecolor, smoothing as jsmoothing
 from vpcc_tpu.utils.synthetic import make_person_cloud
 from vpcc_tpu_torch.ops import recolor, smoothing
@@ -85,6 +86,39 @@ def test_transfer_colors_gates_and_far_targets(clouds):
     got, _ = recolor.transfer_colors_compact(
         torch.as_tensor(sp), torch.as_tensor(sc), torch.as_tensor(tp), **kw)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("case", ["duplicates", "out_of_grid", "all_matched"])
+def test_exact_compact_matches_reference(case):
+    """`exact_compact_plain` (kernel M's exact entry with the compaction)
+    against the reference's `_exact_and_counts` and `_compact_gather`:
+    exact matches, the counts, and the first n rows of each compacted list
+    (index and position).  Duplicated source positions resolve to the first
+    of equal keys; targets outside the grid are inexact."""
+    sp, _, tp = recolor_case(case, bits=BITS, n=8000, seed=4)
+    ns, nt = sp.shape[0], tp.shape[0]
+    ex_idx, ex_has, inexact, unmatched, n_in, n_un = jrecolor._exact_and_counts(
+        jnp.asarray(sp), jnp.ones(ns, bool), jnp.asarray(tp), nt, BITS)
+    n_in, n_un = int(n_in), int(n_un)
+    j_iidx, j_tq = (np.asarray(a) for a in jrecolor._compact_gather(jnp.asarray(tp), inexact,
+                                                                      nt))
+    j_uidx, j_sq = (np.asarray(a) for a in jrecolor._compact_gather(jnp.asarray(sp), unmatched,
+                                                                      ns))
+    order, sk = recolor.sorted_source_keys(torch.as_tensor(sp), BITS)
+    eidx, has, iidx, tq, uidx, sq = recolor.exact_compact_plain(
+        order, sk, torch.as_tensor(sp), torch.as_tensor(tp), BITS)
+    has_ref = np.asarray(ex_has)
+    np.testing.assert_array_equal(has.numpy(), has_ref)
+    np.testing.assert_array_equal(eidx.numpy()[has_ref], np.asarray(ex_idx)[has_ref])
+    assert (iidx.shape[0], uidx.shape[0]) == (n_in, n_un)
+    np.testing.assert_array_equal(iidx.numpy(), j_iidx[:n_in])
+    np.testing.assert_array_equal(tq.numpy(), j_tq[:n_in])
+    np.testing.assert_array_equal(uidx.numpy(), j_uidx[:n_un])
+    np.testing.assert_array_equal(sq.numpy(), j_sq[:n_un])
+    if case == "all_matched":
+        assert n_in == 0 and n_un == 0
+    else:
+        assert n_in > 0 and n_un > 0 and has_ref.any()
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from torch_md_cases import SMOOTH_CASES, smooth_case
 
 from vpcc_tpu import pipeline as jpipe
 from vpcc_tpu.encoder import Encoder
@@ -172,6 +173,34 @@ def test_grid_smoothing_vox10_borderline(thr):
     want, got = _smooth_both(pts, pid, bnd, thr, 8, 10)
     np.testing.assert_array_equal(got, want)
     assert (want != pts).any(axis=1).sum() > 100
+
+
+@pytest.mark.parametrize("case", SMOOTH_CASES)
+def test_grid_smoothing_edge_cases(case):
+    """The crafted 7-bit clouds the card's kernel-D tests also run: points at
+    the grid's corners (the points' cell box is the grid), one cell, one
+    patch, no boundary point, the faces' distance test, gridSize 4 and 16."""
+    pts, pid, bnd, thr, gs = smooth_case(case, bits=7)
+    with torch_threads(1):
+        want, got = _smooth_both(pts, pid, bnd, thr, gs, 7)
+    np.testing.assert_array_equal(got, want)
+    moved = int((want != pts).any(axis=1).sum())
+    assert (moved == 0) == (case in ("one_patch", "no_boundary"))
+
+
+class torch_threads:
+    """torch's intra-op threads set to n inside the block (restored
+    afterwards)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        self.saved = torch.get_num_threads()
+        torch.set_num_threads(self.n)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.saved)
 
 
 def test_fma_f32_single_rounding():

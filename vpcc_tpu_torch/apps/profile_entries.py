@@ -3,7 +3,8 @@ encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
     python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt [--kernels=...]
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C] [--trace] [--split]
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D] [--trace] \
+        [--split]
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
 
 --capture encodes one bench frame (`make_person_cloud(bits=10,
@@ -58,7 +59,30 @@ largest call of (the encodes that only J, A, K or G need are skipped where
   lossless conditions of the committed lossless reference data (EOM
   layers, `generate_points.eom`) and under its tools reference data's
   "plr" configuration (PLR layers, `generate_points.plr`); those two
-  encodes only where --kernels names C.
+  encodes only where --kernels names C;
+* kernel M: the bench frame's `recolor.transfer_colors_compact` call, as a
+  whole (`recolor.call`, kernel E's sweeps included) and as its kernel-M
+  unit (`recolor.unit`) on inputs fixed at capture: the sorted source keys,
+  the positions before compaction and the k-NN results of the inexact
+  targets and unmatched sources (kernel E's, computed once); a checkout
+  with `recolor.exact_compact` runs its two entries (also timed apart,
+  `recolor.exact` and `recolor.blend`), an older one its exact match, the
+  two `nonzero` calls and gathers, its forward blend and splat/merge, as
+  its `transfer_colors_compact` did; one vox11 frame's
+  `recolor.transfer_colors` call (`make_person_cloud(bits=11,
+  n_samples=12_000_000, seed=7)` encoded with the configuration of the
+  committed vox11 reference data) as its kernel-M unit after the sweeps
+  (`recolor.vox11`); and the level path's largest `recolor.exact_match_batch`
+  and `recolor.blend_batch` calls (`recolor.level_exact`,
+  `recolor.level_blend`) of the 8 bench frames encoded with
+  `encode_gof(parallel=True)`;
+* kernel D: the largest `smoothing.grid_smooth` call of the bench frame's
+  encode (`grid_smooth.encode`), of the fixture decode
+  (`grid_smooth.decode`) and of the vox11 frame's encode
+  (`grid_smooth.vox11`), each reported with the bytes its cell tables zero:
+  the whole grid's four tables, or the records of the points' cell box
+  (key "zeroed_bytes");
+the vox11 and level encodes only where --kernels names M or D.
 --inputs times the entries of the kernels named by --kernels, in the package
 found under --root (default: this checkout), on those inputs, so that two
 commits can be compared on one card, one process each, in turns (the grids
@@ -66,12 +90,12 @@ are built by each package from the saved points; a package without
 `hevc.sao_search_apply` runs `sao_search` then `sao_apply` for the SAO
 step, whose three outputs are hashed either way).  For each run and entry:
 the call time (CUDA events over back-to-back calls, the wrapper's host work
-included: 100 calls for P, 20 for the others) and, but for J, F, O, H and
-C, the device time (one call captured in a CUDA graph and replayed as
-often; the device times of J, F, O, H and C are their kernels' in --trace:
-an older checkout's J, F and O wrappers copy from or wait on the host,
-which a graph cannot hold, C's wrapper reads its row count, and H's
-cooperative launch is kept out of graphs).
+included: 100 calls for P, 20 for the others) and, but for J, F, O, H, C,
+M and D, the device time (one call captured in a CUDA graph and replayed as
+often; the device times of J, F, O, H, C, M and D are their kernels' in
+--trace: an older checkout's J, F and O wrappers copy from or wait on the
+host, which a graph cannot hold, C's and M's wrappers read their counts, and
+the cooperative launches of H, M and D are kept out of graphs).
 --trace adds, once per entry, each device kernel's time and launches a
 call (`torch.profiler` over as many calls) and the host's waits a call
 (`cudaStreamSynchronize` and `cudaMemcpy*` runtime calls: CPU
@@ -79,20 +103,22 @@ microseconds and calls).  --split times, for J, builds of the checkout's
 `csrc/motion_search.cu` cut after its 1st, 2nd and 3rd `__syncthreads()`
 (a `return` the compiler cannot drop), so that the differences split
 J's kernel (one block a CU, a barrier after each stage) into its stages
-(staging, integer SAD, argmin, half-pel refinement); for O, Q, H and C, the
-host microseconds a call of back-to-back calls without a synchronisation
-(a wrapper that waits on the card includes its wait) and whether a call
-raises under torch.cuda.set_sync_debug_mode("error"), and once the host
+(staging, integer SAD, argmin, half-pel refinement); for O, Q, H, C, M and
+D, the host microseconds a call of back-to-back calls without a
+synchronisation (a wrapper that waits on the card includes its wait),
+whether a call raises under torch.cuda.set_sync_debug_mode("error") and the
+synchronisations a call reports under mode "warn", and once the host
 microseconds of the steps a wrapper may take (the tc table's upload,
 setting ctypes argument types, an output allocation, reading the stream;
 top-level key "host_parts_us"; with H or C, also H's upload of the packed
 resampled points from a host array as the encoder makes it, each round,
 and a zeroed volume of each round's slab, C's five output allocations
 against one allocation cut into the five fields, and a read of one device
-int32; top-level key "hc_host_parts_us").  Prints the card's
-name and power limit, then one JSON line:
-per entry, the runs' call and device milliseconds and the md5 of its output
-(and the trace).  --summarize reads the JSON lines
+int32; top-level key "hc_host_parts_us").  With M or D, the ptxas
+lines of the checkout's recolor and grid_smooth builds (top-level key
+"ptxas", from a build made in the process).  Prints the card's name and
+power limit, then one JSON line: per entry, the runs' call and device
+milliseconds and the md5 of its output (and the trace).  --summarize reads the JSON lines
 of such runs (the logs of several processes) and prints, per checkout and
 entry, the median and quartiles of the call and device milliseconds over
 all runs, and whether the md5s of all runs agree.
@@ -115,9 +141,9 @@ P_ENTRIES = ("paint_attribute", "group_dilate", "gather_decoded_colors")
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
 REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20, "O": 20, "Q": 20,
-        "H": 20, "C": 20}
+        "H": 20, "C": 20, "M": 20, "D": 20}
 # kernels whose device time is read from --trace rather than a CUDA graph
-NO_GRAPH = "JFOHC"
+NO_GRAPH = "JFOHCMD"
 F_STAGES = ("segment.pca", "segment.orient", "segment.partition")
 
 
@@ -195,14 +221,17 @@ def sao_step(hevc, src, rec, lam, w, maxv, region):
 def capture_encode(frame, cfg, device) -> tuple:
     """Encode one frame, keeping P's largest calls, E's largest call for
     each k with its grid's points, every call of G and H, K's largest, F's
-    first chain, and O's, Q's and C's largest.  Returns (P inputs, E inputs,
-    G inputs, K inputs, F inputs, O and Q inputs, H and C inputs)."""
+    first chain, and O's, Q's, C's, M's and D's largest.  Returns (P inputs,
+    E inputs, G inputs, K inputs, F inputs, O and Q inputs, H and C inputs,
+    M and D calls as (args, kw))."""
     from vpcc_tpu_torch import pipeline
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, reconstruct, segmentation
+    from vpcc_tpu_torch.ops import (cc, coverage, neighbors, normals, reconstruct, recolor,
+                                    segmentation, smoothing)
     from vpcc_tpu_torch.video import hevc
 
     p_kept, e_kept, grids, k_kept, oq_kept, c_kept = {}, {}, {}, {}, {}, {}
+    md_kept = {}
     g_calls, f_calls, h_calls = [], [], []
     plane_kind = []   # "luma" or "chroma": the plane dispatch running now
 
@@ -238,7 +267,10 @@ def capture_encode(frame, cfg, device) -> tuple:
              _spy(coverage, "covered_radius_slab",
                   before=lambda a, kw: h_calls.append(_clone(a))),
              _spy(reconstruct, "generate_points",
-                  before=keep_largest(c_kept, "generate_points.encode"))]
+                  before=keep_largest(c_kept, "generate_points.encode")),
+             _spy(recolor, "transfer_colors_compact",
+                  before=keep_largest(md_kept, "recolor.call")),
+             _spy(smoothing, "grid_smooth", before=keep_largest(md_kept, "grid_smooth.encode"))]
     try:
         Encoder(cfg, device=device).encode_gof([frame])
     finally:
@@ -271,7 +303,7 @@ def capture_encode(frame, cfg, device) -> tuple:
     hc_in = {f"coverage.r{i}": args for i, args in enumerate(h_calls)}
     hc_in.update({n: [*args, kw] for n, (args, kw) in c_kept.items()})
     return ({name: args for name, (_, args) in p_kept.items()}, e_in, g_in, k_kept, f_in,
-            oq_in, hc_in)
+            oq_in, hc_in, md_kept)
 
 
 def capture_recon(frame, overrides: dict, name: str, device) -> list:
@@ -302,9 +334,9 @@ def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
     inter and intra samples most evenly (and, given `sao`, kernel K's
     largest `sao_apply` call at `region` in sao[sao_name]; given `oq`,
     kernel Q's largest `rgb_refs` and `_int_planes_to_rgb` calls and kernels
-    O's and C's largest calls)."""
+    O's, C's and D's largest calls)."""
     from vpcc_tpu_torch.decoder import Decoder
-    from vpcc_tpu_torch.ops import reconstruct
+    from vpcc_tpu_torch.ops import reconstruct, smoothing
     from vpcc_tpu_torch.video import hevc
     from vpcc_tpu_torch.video.hevc_tables import MODE_INTER
 
@@ -339,7 +371,8 @@ def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
                  _spy(hevc, "_int_planes_to_rgb", before=keep_largest(oq, "color.dec_to_rgb")),
                  _spy(hevc, "deblock_planes", before=keep_largest(oq, "deblock.decode")),
                  _spy(reconstruct, "generate_points",
-                      before=keep_largest(oq, "generate_points.decode"))]
+                      before=keep_largest(oq, "generate_points.decode")),
+                 _spy(smoothing, "grid_smooth", before=keep_largest(oq, "grid_smooth.decode"))]
     try:
         Decoder(device=device).decode(stream)
     finally:
@@ -354,16 +387,8 @@ def capture_vox11(device) -> list:
     """The round-0 `cc_round_voxel` call of a vox11 frame's front end."""
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.ops import cc
-    from vpcc_tpu_torch.utils.config import VPCCConfig
-    from vpcc_tpu_torch.utils.synthetic import make_person_cloud
 
-    ref = json.loads((ROOT / "vpcc_tpu_torch" / "data" / "person_vox11_reference.json")
-                     .read_text())
-    cfg = VPCCConfig()
-    for k, v in ref["overrides"].items():
-        setattr(cfg, k, v)
-    frame = make_person_cloud(bits=cfg.geometryBitDepth3D, n_samples=ref["n_samples"],
-                              seed=ref["seeds"][0])
+    cfg, frame = vox11_setup()
     calls = []
     undo = _spy(cc, "cc_round_voxel", before=lambda a, kw: calls.append(_clone(a)))
     try:
@@ -373,11 +398,166 @@ def capture_vox11(device) -> list:
     return calls[0]
 
 
-def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C") -> None:
+def vox11_setup():
+    """(config, first frame) of the committed vox11 reference data."""
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+    from vpcc_tpu_torch.utils.synthetic import make_person_cloud
+
+    ref = json.loads((ROOT / "vpcc_tpu_torch" / "data" / "person_vox11_reference.json")
+                     .read_text())
+    cfg = VPCCConfig()
+    for k, v in ref["overrides"].items():
+        setattr(cfg, k, v)
+    return cfg, make_person_cloud(bits=cfg.geometryBitDepth3D, n_samples=ref["n_samples"],
+                                  seed=ref["seeds"][0])
+
+
+def capture_vox11_md(device) -> dict:
+    """The vox11 frame's `recolor.transfer_colors` and largest
+    `smoothing.grid_smooth` calls of a whole encode, as (args, kw)."""
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import recolor, smoothing
+
+    cfg, frame = vox11_setup()
+    kept = {}
+    undo = [_spy(recolor, "transfer_colors", before=keep_largest(kept, "recolor.vox11")),
+            _spy(smoothing, "grid_smooth", before=keep_largest(kept, "grid_smooth.vox11"))]
+    try:
+        Encoder(cfg, device=device).encode_gof([frame])
+    finally:
+        for u in undo:
+            u()
+    return kept
+
+
+def capture_level(frames, cfg, device) -> dict:
+    """The largest `recolor.exact_match_batch` and `recolor.blend_batch`
+    calls of the level-batched encode of `frames`, as (args, kw)."""
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import recolor
+
+    kept = {}
+    undo = [_spy(recolor, "exact_match_batch", before=keep_largest(kept, "recolor.level_exact")),
+            _spy(recolor, "blend_batch", before=keep_largest(kept, "recolor.level_blend"))]
+    try:
+        Encoder(cfg, device=device).encode_gof(frames, parallel=True)
+    finally:
+        for u in undo:
+            u()
+    return kept
+
+
+def m_inputs(md: dict) -> dict:
+    """Kernel M's captured calls with the work of kernel E around them done
+    once: for the bench frame's call the positions before compaction and
+    the k-NN results of its inexact targets and unmatched sources (index
+    order, as both routes compact); for the vox11 call the sweeps over every
+    target and every source."""
+    from vpcc_tpu_torch.ops import neighbors, recolor
+
+    out = {}
+    if "recolor.call" in md:
+        (src_pos, src_col, tgt, *_), kw = md["recolor.call"]
+        bits = kw.get("grid_bits", 10)
+        order, sk = recolor.sorted_source_keys(src_pos, bits)
+        _, has, matched, _ = recolor.exact_match_plain(order, sk, tgt, bits)
+        iidx = torch.nonzero(~has).flatten()
+        uidx = torch.nonzero(~matched).flatten()
+        idx, d2 = neighbors.knn(neighbors.build_grid(src_pos, bits), tgt[iidx].contiguous(),
+                                k=kw.get("k", 8), bucket=6)
+        tidx, td2 = neighbors.nearest(neighbors.build_grid(tgt, bits),
+                                      src_pos[uidx].contiguous(), bucket=6)
+        out["recolor.call"] = dict(src_pos=src_pos, src_col=src_col, tgt=tgt, kw=kw)
+        out["recolor.unit"] = dict(src_pos=src_pos, src_col=src_col.to(torch.uint8), tgt=tgt,
+                                   bits=bits, idx=idx, d2=d2, tidx=tidx, td2=td2,
+                                   gates=_gates(kw))
+    if "recolor.vox11" in md:
+        (src_pos, src_col, tgt, eidx, has), kw = md["recolor.vox11"]
+        bits = kw["grid_bits"]
+        idx, d2 = neighbors.knn(neighbors.build_grid(src_pos, bits), tgt, k=kw.get("k", 8),
+                                bucket=6)
+        tidx, td2 = neighbors.nearest(neighbors.build_grid(tgt, bits), src_pos, bucket=6)
+        out["recolor.vox11"] = dict(src_col=src_col.to(torch.uint8).contiguous(), eidx=eidx,
+                                    has=has, idx=idx, d2=d2, tidx=tidx, td2=td2,
+                                    gates=_gates(kw))
+    for name in ("recolor.level_exact", "recolor.level_blend"):
+        if name in md:
+            out[name] = dict(args=md[name][0])
+    return out
+
+
+def _gates(kw) -> tuple:
+    """(maxGeometryDist2Fwd, maxColorDist2Fwd, distOffsetFwd,
+    maxGeometryDist2Bwd) of a transfer call's keywords (their defaults)."""
+    return (float(kw.get("max_geom_d2_fwd", 1000.0)), float(kw.get("max_color_d2_fwd", 1000.0)),
+            float(kw.get("dist_offset_fwd", 4.0)), float(kw.get("max_geom_d2_bwd", 1000.0)))
+
+
+def shapes(c: dict) -> list:
+    """The shapes of the tensors of one captured kernel-M call."""
+    return [tuple(t.shape) for t in c.get("args", c.values()) if torch.is_tensor(t)]
+
+
+def m_unit(recolor, c):
+    """Kernel M's work in one bench-frame transfer, between and around
+    kernel E's sweeps, with one checkout's entries: (exact_idx, has_exact,
+    inexact targets and their positions, unmatched sources and their
+    positions, colors)."""
+    order, sk = c["order"], c["sk"]
+    src_pos, tgt, col, bits = c["src_pos"], c["tgt"], c["src_col"], c["bits"]
+    gf, cd2, doff, gb = c["gates"]
+    if hasattr(recolor, "exact_compact"):
+        eidx, has, iidx, tq, uidx, sq = recolor.exact_compact(order, sk, src_pos, tgt, bits)
+        out = recolor.blend_merge(col, eidx, has, iidx, c["idx"], c["d2"], uidx, c["tidx"],
+                                  c["td2"], gf, cd2, doff, gb)
+        return eidx, has, iidx, tq, uidx, sq, out
+    eidx, has, matched, counts = recolor.exact_match(order, sk, tgt, bits)
+    counts.tolist()
+    iidx = torch.nonzero(~has).flatten().to(torch.int32)
+    tq = tgt[iidx.long()].contiguous()
+    uidx = torch.nonzero(~matched).flatten().to(torch.int32)
+    sq = src_pos[uidx.long()].contiguous()
+    fwd = recolor.fwd_blend(col, c["idx"], c["d2"], gf, cd2, doff)
+    out = recolor.splat_merge(col, uidx, c["tidx"], c["td2"], eidx, has, iidx, fwd, gb)
+    return eidx, has, iidx, tq, uidx, sq, out
+
+
+def m_vox11_unit(recolor, c):
+    """Kernel M's work in one vox11 `transfer_colors` call after kernel E's
+    sweeps (every target, every source), with one checkout's entries."""
+    col, eidx, has, idx, d2, tidx, td2 = (c[k] for k in ("src_col", "eidx", "has", "idx",
+                                                          "d2", "tidx", "td2"))
+    gf, cd2, doff, gb = c["gates"]
+    if hasattr(recolor, "blend_merge"):
+        return recolor.blend_merge(col, eidx, has, None, idx, d2, None, tidx, td2, gf, cd2,
+                                   doff, gb)
+    ns, nt, d = col.shape[0], eidx.shape[0], col.device
+    fwd = recolor.fwd_blend(col, idx, d2, gf, cd2, doff)
+    matched = torch.zeros(ns, dtype=torch.bool, device=d)
+    matched[eidx.long()[has]] = True
+    td2 = torch.where(matched, torch.full_like(td2, recolor.MAX_DIST2), td2)
+    return recolor.splat_merge(col, torch.arange(ns, dtype=torch.int32, device=d), tidx, td2,
+                               eidx, has, torch.arange(nt, dtype=torch.int32, device=d), fwd,
+                               gb)
+
+
+def zeroed_bytes(points, grid_size: int, grid_bits: int) -> dict:
+    """Bytes of cell records a kernel D call zeroes: the four tables of the
+    whole grid (count, three position sums, min and max patch id; gw^3 + 1
+    cells of 24 bytes), or the records of the points' cell box only."""
+    gw = (1 << grid_bits) // grid_size
+    cell = torch.div(points, grid_size, rounding_mode="floor").clamp(0, gw - 1)
+    box = (cell.amax(0) - cell.amin(0) + 1).tolist() if points.shape[0] else [0, 0, 0]
+    return {"tables": 24 * (gw ** 3 + 1), "box": 24 * box[0] * box[1] * box[2],
+            "box_cells": box}
+
+
+def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D") -> None:
     """Encode and decode bench frames on `device` and save the inputs of
-    kernels P, E, A, G, K, J, F, O, Q, H and C (the two-frame, two-level,
-    vox11, lossless and PLR encodes only where `kernels` names a kernel
-    they feed: J; J, A, K; G; C; C)."""
+    kernels P, E, A, G, K, J, F, O, Q, H, C, M and D (the two-frame,
+    two-level, vox11 front-end, lossless and PLR, vox11 and level-batched
+    encodes only where `kernels` names a kernel they feed: J; J, A, K; G;
+    C; C; M, D; M)."""
     from vpcc_tpu_torch import device as dev
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.utils.config import VPCCConfig
@@ -391,7 +571,7 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C") -
         setattr(cfg, k, v)
     dev.build_kernels()
     frames = [make_person_cloud(bits=10, n_samples=3_000_000, seed=s) for s in ref["seeds"][:2]]
-    p_in, e_in, g_in, k_in, f_in, oq_in, hc_in = capture_encode(frames[0], cfg, device)
+    p_in, e_in, g_in, k_in, f_in, oq_in, hc_in, md = capture_encode(frames[0], cfg, device)
     j_in = {}
     if "J" in kernels:
         undo = _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu32"))
@@ -404,7 +584,17 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C") -
         (data / "person_vox10_r3_gof8.vpcc").read_bytes(), "wavefront_decode32", device,
         sao_calls, "sao_apply.decode32", oq=oq_dec)}
     oq_in.update({n: args for n, (args, _) in oq_dec.items()
-                  if not n.startswith("generate_points.")})
+                  if not n.startswith(("generate_points.", "grid_smooth."))})
+    md["grid_smooth.decode"] = oq_dec["grid_smooth.decode"]
+    if "M" in kernels or "D" in kernels:
+        md.update(capture_vox11_md(device))
+    if "M" in kernels:
+        frames8 = frames + [make_person_cloud(bits=10, n_samples=3_000_000, seed=s)
+                            for s in ref["seeds"][2:]]
+        md.update(capture_level(frames8, cfg, device))
+        del frames8
+    m_in = m_inputs(md)
+    d_in = {n: [*args, kw] for n, (args, kw) in md.items() if n.startswith("grid_smooth.")}
     o_in = {n: a for n, a in oq_in.items() if n.startswith("deblock.")}
     q_in = {n: a for n, a in oq_in.items() if n.startswith("color.")}
     hc_in.update({n: [*args, kw] for n, (args, kw) in oq_dec.items()
@@ -449,7 +639,10 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C") -
                 "O": {n: [cpu(a) for a in args] for n, args in o_in.items()},
                 "Q": {n: [cpu(a) for a in args] for n, args in q_in.items()},
                 "H": {n: [cpu(a) for a in args] for n, args in h_in.items()},
-                "C": {n: [cpu(a) for a in args] for n, args in c_in.items()}}, path)
+                "C": {n: [cpu(a) for a in args] for n, args in c_in.items()},
+                "M": {n: {k: [cpu(a) for a in v] if k == "args" else cpu(v)
+                          for k, v in c.items()} for n, c in m_in.items()},
+                "D": {n: [cpu(a) for a in args] for n, args in d_in.items()}}, path)
     print(f"captured P {sorted(p_in)}: rows {p_in['paint_attribute'][0].shape[0]}; E "
           + ", ".join(f"{n} {tuple(c['q'].shape)} k={c['k']} bucket={c['bucket']}"
                       for n, c in e_in.items())
@@ -466,7 +659,9 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C") -
           + "; H " + ", ".join(f"{n} R {a[0].shape[0]} N {a[1].shape[0]} x0, sx {a[2]}, {a[6]}"
                               for n, a in h_in.items())
           + "; C " + ", ".join(f"{n} {tuple(a[0].shape)} eom_bits {a[-1].get('eom_bits', 0)}"
-                              for n, a in c_in.items()))
+                              for n, a in c_in.items())
+          + "; M " + ", ".join(f"{n} {shapes(c)}" for n, c in m_in.items())
+          + "; D " + ", ".join(f"{n} {tuple(a[0].shape)} grid {a[-1]}" for n, a in d_in.items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
@@ -475,6 +670,7 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     pipeline, neighbors, hevc, cc = pkg["pipeline"], pkg["neighbors"], pkg["hevc"], pkg["cc"]
     normals, segmentation = pkg["normals"], pkg["segmentation"]
     coverage, reconstruct = pkg["coverage"], pkg["reconstruct"]
+    recolor, smoothing = pkg["recolor"], pkg["smoothing"]
     on = lambda args: [a.to(device) if torch.is_tensor(a) else a for a in args]
     calls = {}
     if "P" in kernels:
@@ -550,9 +746,37 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
         for name, (*args, kw) in inputs.get("C", {}).items():
             kw = {k: v.to(device) if torch.is_tensor(v) else v for k, v in kw.items()}
             calls[name] = lambda a=on(args), kw=kw: reconstruct.generate_points(*a, **kw)
+    if "M" in kernels:
+        for name, c in inputs.get("M", {}).items():
+            c = {k: on(v) if k == "args" else v.to(device) if torch.is_tensor(v) else v
+                 for k, v in c.items()}
+            if name == "recolor.unit":
+                c["order"], c["sk"] = recolor.sorted_source_keys(c["src_pos"], c["bits"])
+                calls[name] = lambda c=c: m_unit(recolor, c)
+                if hasattr(recolor, "exact_compact"):
+                    # the unit's two entries apart
+                    ex = recolor.exact_compact(c["order"], c["sk"], c["src_pos"], c["tgt"],
+                                               c["bits"])
+                    calls["recolor.exact"] = lambda c=c: recolor.exact_compact(
+                        c["order"], c["sk"], c["src_pos"], c["tgt"], c["bits"])
+                    calls["recolor.blend"] = lambda c=c, ex=ex: recolor.blend_merge(
+                        c["src_col"], ex[0], ex[1], ex[2], c["idx"], c["d2"], ex[4], c["tidx"],
+                        c["td2"], *c["gates"])
+            elif name == "recolor.call":
+                calls[name] = lambda c=c: recolor.transfer_colors_compact(
+                    c["src_pos"], c["src_col"], c["tgt"], **c["kw"])
+            elif name == "recolor.vox11":
+                calls[name] = lambda c=c: m_vox11_unit(recolor, c)
+            else:
+                fn = recolor.exact_match_batch if name.endswith("exact") else recolor.blend_batch
+                calls[name] = lambda f=fn, a=c["args"]: f(*a)
+    if "D" in kernels:
+        for name, (*args, kw) in inputs.get("D", {}).items():
+            calls[name] = lambda a=on(args), kw=kw: smoothing.grid_smooth(*a, **kw)
     letter = {n: "P" for n in calls}
-    for k in "EAGKJOQHC":
+    for k in "EAGKJOQHCMD":
         letter.update({n: k for n in inputs.get(k, {}) if n in calls})
+    letter.update({n: "M" for n in calls if n.startswith("recolor.")})
     letter.update({n: "F" for n in calls if n.startswith("segment.")})
     letter.update({n: "Q" for n in calls if n.startswith("color.")})
     return {n: (letter[n], fn) for n, fn in calls.items()}
@@ -593,8 +817,14 @@ def segment_stages(normals, segmentation, pos, idx, valid, orients, weights, lam
 
 def md5(out) -> str:
     h = hashlib.md5()
-    for t in (out if isinstance(out, tuple) else (out,)):
-        h.update(t.contiguous().cpu().numpy().tobytes())
+
+    def add(t):
+        if isinstance(t, tuple):
+            for x in t:
+                add(x)
+        else:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+    add(out)
     return h.hexdigest()
 
 
@@ -622,7 +852,10 @@ def kernel_trace(fn, reps: int) -> dict:
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
         if t > 0:
-            out[e.key[:80]] = [round(t / reps, 3), e.count / reps]
+            # the mean over the launches the trace kept, times the launches a
+            # call (the trace can miss some of a cooperative kernel's records)
+            n = max(1, round(e.count / reps))
+            out[e.key[:80]] = [round(t / e.count * n, 3), e.count / reps]
     return out
 
 
@@ -630,7 +863,8 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
             trace: bool = False, split: bool = False) -> dict:
     sys.path.insert(0, str(root))
     from vpcc_tpu_torch import pipeline
-    from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, reconstruct, segmentation
+    from vpcc_tpu_torch.ops import (cc, coverage, neighbors, normals, reconstruct, recolor,
+                                    segmentation, smoothing)
     from vpcc_tpu_torch.video import hevc
 
     if Path(pipeline.__file__).resolve().parents[1] != root.resolve():
@@ -638,9 +872,14 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
     inputs = torch.load(inputs_path)
     calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc, "cc": cc,
                          "normals": normals, "segmentation": segmentation,
-                         "coverage": coverage, "reconstruct": reconstruct}, inputs, kernels)
+                         "coverage": coverage, "reconstruct": reconstruct, "recolor": recolor,
+                         "smoothing": smoothing}, inputs, kernels)
     res = {name: {"md5": md5(fn()), "call_ms": [], "device_ms": []}
            for name, (_, fn) in calls.items()}
+    for name, (*args, kw) in inputs.get("D", {}).items():
+        if name in res:
+            res[name]["zeroed_bytes"] = zeroed_bytes(args[0], kw.get("grid_size", 8),
+                                                     kw.get("grid_bits", 10))
     for _ in range(runs):
         for name, (letter, fn) in calls.items():
             res[name]["call_ms"].append(time_ms(fn, REPS[letter]))
@@ -655,10 +894,16 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
                                                         for a in args], runs)
     if split:
         for name, (letter, fn) in calls.items():
-            if letter in "OQHC":
+            if letter in "OQHCMD":
                 res[name]["host"] = host_split(fn, REPS[letter])
+    if split and hasattr(recolor, "exact_compact") and ("M" in kernels or "D" in kernels):
+        md = variant_split(root, {n: c for n, c in calls.items() if c[0] in "MD"}, runs,
+                           ("recolor", "grid_smooth"))
+        for name, v in md.items():
+            res[name]["variants"] = v
     if split and hasattr(coverage, "column_table") and ("H" in kernels or "C" in kernels):
-        hc = variant_split(root, {n: c for n, c in calls.items() if c[0] in "HC"}, runs)
+        hc = variant_split(root, {n: c for n, c in calls.items() if c[0] in "HC"}, runs,
+                           ("coverage", "generate_points"))
         for name, v in hc.items():
             res[name]["variants"] = v
     return res
@@ -667,9 +912,11 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
 def host_split(fn, reps: int) -> dict:
     """The host's side of a wrapper call: microseconds of host time a call
     over `reps` back-to-back calls without a synchronisation (a wrapper that
-    waits on the card includes the wait), and whether a call synchronises
-    (one call under torch.cuda.set_sync_debug_mode("error"))."""
+    waits on the card includes the wait), whether a call synchronises (one
+    call under torch.cuda.set_sync_debug_mode("error")) and how often (the
+    synchronisations one call reports under mode "warn")."""
     import time
+    import warnings
 
     fn()
     torch.cuda.synchronize()
@@ -687,7 +934,16 @@ def host_split(fn, reps: int) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return {"host_us": round(host_us, 3), "sync_debug_error": sync}
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum("called a synchronizing" in str(w.message) for w in seen)
+    return {"host_us": round(host_us, 3), "sync_debug_error": sync, "syncs_warn": syncs}
 
 
 def host_parts(rec, reps: int = 200) -> dict:
@@ -824,13 +1080,56 @@ HC_VARIANTS = {
                       "constexpr int kThreads = 256;\nconstexpr int kPix = 8;"),
     },
 }
-HC_ENTRIES = {"coverage": ("coverage",),
+# --split builds of kernels M and D (a checkout with `recolor.exact_compact`):
+# cut after a phase's grid barrier, the launch only ("empty": the call's host
+# and launch cost), or edited
+_CUT = " if (a.B > 0) return;"
+HC_VARIANTS["recolor"] = {
+    "whole": None,
+    "empty": (_after("cg::this_grid();", 0, _CUT), _after("cg::this_grid();", 1, _CUT)),
+    "exact_after_zero": _after("grid.sync();", 0, _CUT),
+    "exact_after_search": _swap("if (!a.compact) return;", "if (a.B > 0) return;"),
+    "exact_after_count": _after("grid.sync();", 2, _CUT),
+    "blend_after_zero": _after("grid.sync();", 4, _CUT),
+    "blend_after_splat": _after("grid.sync();", 5, _CUT),
+    "samples1": _swap("constexpr int kSamples = 4096;", "constexpr int kSamples = 1;"),
+    "blend_scalar": _swap("a.vec = k % 4 == 0", "a.vec = false && k % 4 == 0"),
+    "blend_bounds2": _swap("__launch_bounds__(kThreads, 3)\n    blend_kernel",
+                           "__launch_bounds__(kThreads, 2)\n    blend_kernel"),
+    "blend_bounds4": _swap("__launch_bounds__(kThreads, 3)\n    blend_kernel",
+                           "__launch_bounds__(kThreads, 4)\n    blend_kernel"),
+}
+HC_VARIANTS["grid_smooth"] = {
+    "whole": None,
+    "empty": _after("cg::this_grid();", 0, " if (a.M > 0) return;"),
+    "after_box": _after("grid.sync();", 0, " if (a.M > 0) return;"),
+    "after_zero": _after("grid.sync();", 1, " if (a.M > 0) return;"),
+    "after_bin": _after("grid.sync();", 2, " if (a.M > 0) return;"),
+    "no_match": _swap("__match_any_sync(0xFFFFFFFFu, cid)", "(1u << (threadIdx.x & 31))"),
+    "bounds2": _swap("__launch_bounds__(kThreads, 3)\n    grid_smooth_kernel",
+                     "__launch_bounds__(kThreads, 2)\n    grid_smooth_kernel"),
+}
+HC_ENTRIES = {"recolor": ("recolor_exact_compact", "recolor_blend_merge"),
+              "grid_smooth": ("grid_smooth",),
+              "coverage": ("coverage",),
               "generate_points": ("generate_points_count", "generate_points_emit")}
 
 
-def variant_split(root: Path, calls: dict, runs: int) -> dict:
-    """Kernels H and C built as HC_VARIANTS says (one nvcc each, all
-    started together) and swapped into the checkout's wrappers
+def _or_error(fn):
+    """fn(), or the first line of what it raised (a cut build leaves its
+    outputs undefined, and a wrapper may refuse what follows from them)."""
+    try:
+        return fn()
+    except (RuntimeError, ValueError) as e:
+        return "raised: " + str(e).splitlines()[0][:120]
+
+
+KERNEL_LETTER = {"coverage": "H", "generate_points": "C", "recolor": "M", "grid_smooth": "D"}
+
+
+def variant_split(root: Path, calls: dict, runs: int, kernels: tuple) -> dict:
+    """Kernels `kernels` (of H, C, M and D) built as HC_VARIANTS says (one
+    nvcc each, all started together) and swapped into the checkout's wrappers
     (`device.kernel_fn`'s table), each run on the captured calls of its
     kernel: per call and variant, the device kernels' us a call
     (`kernel_trace`), the md5 of the output (a cut build's is garbage) and
@@ -842,7 +1141,8 @@ def variant_split(root: Path, calls: dict, runs: int) -> dict:
 
     out_dir = Path(tempfile.mkdtemp(prefix="hc_split_"))
     procs = {}
-    for kern, variants in HC_VARIANTS.items():
+    for kern in kernels:
+        variants = HC_VARIANTS[kern]
         src = (root / "vpcc_tpu_torch" / "csrc" / f"{kern}.cu").read_text()
         for label, edit in variants.items():
             cu = out_dir / f"{kern}_{label}.cu"
@@ -868,10 +1168,13 @@ def variant_split(root: Path, calls: dict, runs: int) -> dict:
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         try:
             for name, (letter, fn) in calls.items():
-                if (letter == "H") == (kern == "coverage"):
+                if letter == KERNEL_LETTER[kern]:
+                    safe = lambda fn=fn: _or_error(fn)
+                    out = safe()
                     res.setdefault(name, {})[label] = {
-                        "kernels": kernel_trace(fn, REPS[letter]), "md5": md5(fn()),
-                        "ptxas": ptxas}
+                        "kernels": kernel_trace(safe, REPS[letter]),
+                        "call_ms": round(time_ms(safe, REPS[letter]), 4),
+                        "md5": out if isinstance(out, str) else md5(out), "ptxas": ptxas}
         finally:
             dev._fns.update({(kern, e): fn for e, fn in saved.items()})
     return res
@@ -955,13 +1258,13 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C",
+    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D",
                     help="kernels whose entries are timed")
     ap.add_argument("--trace", action="store_true",
                     help="also each device kernel's time and launches a call")
     ap.add_argument("--split", action="store_true",
                     help="also kernel J's stages (builds cut after each barrier), and the "
-                         "host time a call and host waits of O, Q, H and C")
+                         "host time a call and host waits of O, Q, H, C, M and D")
     ap.add_argument("--summarize", nargs="+", type=Path, help="logs of --inputs runs")
     a = ap.parse_args(argv)
     if a.summarize:
@@ -990,6 +1293,12 @@ def main(argv=None) -> int:
         out["host_parts_us"] = host_parts(torch.load(a.inputs)["O"]["deblock.luma"][0].cuda())
     if a.split and ("H" in a.kernels or "C" in a.kernels):
         out["hc_host_parts_us"] = hc_host_parts(torch.load(a.inputs))
+    if "M" in a.kernels or "D" in a.kernels:
+        from vpcc_tpu_torch import device as dev
+
+        out["ptxas"] = {k: [ln.strip() for ln in dev.BUILD_LOG.get(k, "").splitlines()
+                            if "registers" in ln or "spill" in ln or "Compiling" in ln]
+                        for k in ("recolor", "grid_smooth")}
     print(json.dumps(out))
     return 0
 

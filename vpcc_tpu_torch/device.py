@@ -149,6 +149,19 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
 
 
+_scratch: Dict[tuple, torch.Tensor] = {}
+
+
+def scratch(key: str, device: torch.device, ints: int) -> torch.Tensor:
+    """Kernel `key`'s int32 scratch on `device`, grown to `ints` and never
+    shrunk.  The kernels set what they read of it; calls run in stream
+    order."""
+    buf = _scratch.get((key, device))
+    if buf is None or buf.numel() < ints:
+        buf = _scratch[(key, device)] = torch.empty(ints, dtype=torch.int32, device=device)
+    return buf
+
+
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

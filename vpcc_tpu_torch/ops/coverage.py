@@ -150,16 +150,6 @@ _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 \
 # ints of the scratch before the volume: a block's partial box, 8 ints, for
 # at most 1024 blocks
 _PART_INTS = 8192
-_scratch = {}   # device -> kernel H's scratch (partial boxes, volume, dilations)
-
-
-def _scratch_for(d: torch.device, words: int) -> torch.Tensor:
-    """The device's scratch, grown to `words` int32 and never shrunk.  The
-    kernel zeroes the words it uses; calls run in stream order."""
-    buf = _scratch.get(d)
-    if buf is None or buf.numel() < words:
-        buf = _scratch[d] = torch.empty(words, dtype=torch.int32, device=d)
-    return buf
 
 
 def covered_radius_slab(res_packed, queries, x0: int, bits: int, r2_sel: int,
@@ -181,7 +171,7 @@ def covered_radius_slab(res_packed, queries, x0: int, bits: int, r2_sel: int,
     _, cols, ncols = _packed_table(int(r2_sel), int(r2_det))
     out = torch.empty((2, N), dtype=torch.bool, device=d)
     # the volume and its two dilations, each at most the slab
-    scratch = _scratch_for(d, _PART_INTS + 3 * int(sx) * G * max(G // 32, 1))
+    scratch = dev.scratch("coverage", d, _PART_INTS + 3 * int(sx) * G * max(G // 32, 1))
     rc = dev.kernel_fn("coverage", "coverage", _ARGS)(
         dev.ptr(res_packed), res_packed.shape[0], dev.ptr(queries), N, int(x0), int(sx), bits,
         int(np.floor(np.sqrt(max(r2_sel, r2_det)))), cols, ncols,

@@ -92,7 +92,9 @@ def build_grid(positions: torch.Tensor, grid_bits: int, cell_bits: int | None = 
     n_cells = g * g * g + 1
     cid = _cell_ids(positions, grid_bits, cell_bits)
     order = torch.sort(cid, stable=True).indices
-    counts = torch.bincount(cid, minlength=n_cells)
+    # index_add_, not bincount: bincount reads the ids' extent on the host
+    counts = torch.zeros(n_cells, dtype=torch.int64, device=positions.device).index_add_(
+        0, cid, torch.ones_like(cid))
     starts = torch.zeros(n_cells, dtype=torch.int64, device=positions.device)
     starts[1:] = torch.cumsum(counts, 0)[:-1]
     b = grid_bits
@@ -137,7 +139,8 @@ def build_grid_batch(positions: torch.Tensor, grid_bits: int) -> NeighborGridBat
     cid = _cell_ids(positions.reshape(-1, 3), grid_bits, cell_bits).view(B, N)
     key = cid + torch.arange(B, device=d)[:, None] * n_cells
     order = torch.sort(key.flatten(), stable=True).indices.view(B, N)
-    counts = torch.bincount(key.flatten(), minlength=B * n_cells).view(B, n_cells)
+    counts = torch.zeros(B * n_cells, dtype=torch.int64, device=d).index_add_(
+        0, key.flatten(), torch.ones_like(key.flatten())).view(B, n_cells)
     starts = torch.cumsum(counts, 1) - counts
     order = order - torch.arange(B, device=d)[:, None] * N
     b = grid_bits

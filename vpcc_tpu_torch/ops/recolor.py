@@ -14,8 +14,8 @@ program `_blend` (:291), which sweeps every target and every source
 1. exact match: each target looks its packed position key up in the
    stably sorted source keys (left insertion point, as `jnp.searchsorted`);
    a hit keeps that source's color verbatim, and marks the source matched;
-2. compaction: the inexact targets and the unmatched sources (torch
-   `nonzero`, index order);
+2. compaction: the inexact targets and the unmatched sources in index
+   order, with their positions (the queries of step 3's and 4's sweeps);
 3. forward blend: each inexact target averages its k=8 nearest sources
    (kernel E), weighted 1 / (d2 + offset), gated by distance and by color
    distance to the nearest one (which always votes);
@@ -32,26 +32,30 @@ chain of fused multiply-adds in slot order from 0 (`device.fma_f32`,
 any order, so the kernel adds them as integers with atomics.
 
 `_blend` computes the forward half and the merge in the same float order
-(its optimized HLO, recolor.cu's header), so `transfer_colors` drives the
-same two entries uncompacted.  The port holds only valid rows (no padding),
+(its optimized HLO, recolor.cu's header), so `transfer_colors` runs the
+same blend entry uncompacted.  The port holds only valid rows (no padding),
 so the reference's validity masks of padded rows have no counterpart.
 
 `transfer_reflectance` (recolor.py:267) gives each target its exact twin's
 16-bit reflectance, else its nearest source's: kernel M's exact match and
 kernel E's k=1 sweep (bucket 6), no kernel of its own.
 
-Kernel M (csrc/recolor.cu) has three entry points (exact match, forward
-blend, splat and merge); the `*_plain` functions are their plain versions,
-used for CPU tensors.
+Kernel M (csrc/recolor.cu) has two entry points, each one cooperative
+launch: the exact match with the compaction (`exact_compact`; steps 1-2,
+after which the wrapper reads the two counts, the transfer's one host
+wait) and the blend (`blend_merge`; steps 3-5).  `exact_match_plain`,
+`fwd_blend_plain` and `splat_merge_plain` are the specification; the
+entries' plain versions, used for CPU tensors, are built from them
+(`exact_compact_plain`, `blend_merge_plain`).
 
 The level-batched GOF path (`parallel/gof.py` `recolor_level`, reference
 `parallel/gof.py` `_exact_batch` / `_blend_batch`) runs the uncompacted
 route over the B frames of a hierarchy level at once, on clouds padded to
 common sizes: `sorted_source_keys_batch` gives the padded sources the key
-0x7FFFFFFF (reference recolor.py:50-53), `exact_match_batch` (kernel M's
-`recolor_exact_batch`) matches every frame's targets, and `blend_batch`
-(`recolor_blend_batch`) runs the forward blend, the splat and the merge of
-every frame; their plain versions loop over the frames.
+0x7FFFFFFF (reference recolor.py:50-53), `exact_match_batch` (the exact
+entry without compaction) matches every frame's targets, and `blend_batch`
+(the blend entry, uncompacted) runs the forward blend, the splat and the
+merge of every frame; their plain versions loop over the frames.
 """
 
 from __future__ import annotations
@@ -159,101 +163,185 @@ def splat_merge_plain(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
     return torch.round(out).clamp(0, 255).to(torch.int32)
 
 
+def exact_compact_plain(order, sk, src_pos, tgt_pos, bits: int):
+    """The exact match and the compaction: (exact_idx (Nt,) int32, has_exact
+    (Nt,) bool, the inexact targets (Mi,) int32 and their positions (Mi, 3),
+    the unmatched sources (Mu,) int32 and their positions (Mu, 3)), the lists
+    in index order (`exact_match_plain`, `torch.nonzero`, the gathers)."""
+    eidx, has, matched, _ = exact_match_plain(order, sk, tgt_pos, bits)
+    iidx = torch.nonzero(~has).flatten().to(torch.int32)
+    uidx = torch.nonzero(~matched).flatten().to(torch.int32)
+    return eidx, has, iidx, tgt_pos[iidx.long()], uidx, src_pos[uidx.long()]
+
+
+def blend_merge_plain(src_col, exact_idx, has_exact, iidx, idx, d2, uidx, tidx, td2,
+                      gd2_fwd: float, cd2: float, doff: float, gd2_bwd: float):
+    """(Nt, 3) int32 merged colors: `fwd_blend_plain` of the k-NN rows idx,
+    d2 of the inexact targets iidx (every one), then `splat_merge_plain` of
+    the unmatched sources uidx with their nearest targets tidx, td2.  iidx
+    None: a row a target (every target); uidx None: every source, those of
+    exact targets dropped (td2 set to MAX_DIST2), as the reference's
+    `_blend` drops `matched_src`."""
+    ns, nt = src_col.shape[0], exact_idx.shape[0]
+    d = src_col.device
+    if iidx is None:
+        iidx = torch.arange(nt, dtype=torch.int32, device=d)
+    if uidx is None:
+        matched = torch.zeros(ns, dtype=torch.bool, device=d)
+        matched[exact_idx.long()[has_exact]] = True
+        td2 = torch.where(matched, torch.full_like(td2, MAX_DIST2), td2)
+        uidx = torch.arange(ns, dtype=torch.int32, device=d)
+    fwd = fwd_blend_plain(src_col, idx, d2, gd2_fwd, cd2, doff)
+    return splat_merge_plain(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd, gd2_bwd)
+
+
 # ---------------------------------------------------------------------------
 # kernel M
 
-_EXACT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [
-    ctypes.c_void_p] * 2
-_MERGE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float]
-               + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)])
+_EXACT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+               + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+_BLEND_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+               + [ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+               + [ctypes.c_float] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+# int32 of the exact entry's scratch: per-block counts, then 4096 sorted-key
+# samples a frame
+_PARTS = 4096
+_SAMPLES = 4096
 
 
-def _fn(name: str, args):
-    fn = getattr(dev.load_kernel("recolor"), name)
-    fn.argtypes, fn.restype = args, ctypes.c_int
-    return fn
+def _exact_launch(order, sk, tgt_pos, src_pos, B: int, ns: int, nt: int, bits: int,
+                  compact: bool, counter: str):
+    """Kernel M's exact entry on B frames (order, sk (B, Ns); tgt_pos
+    (B, Nt, 3)), unchecked.  Returns (ints, flags): int32 eidx (B * Nt)
+    and, with `compact` (B = 1), the lists iidx (Nt), tq (3 Nt), uidx (Ns),
+    sq (3 Ns) (positions given src_pos) and the two counts, in this order;
+    bool matched (B * Ns), then has (B * Nt)."""
+    d = tgt_pos.device
+    flags = torch.empty(B * (ns + nt), dtype=torch.bool, device=d)
+    ints = torch.empty(5 * nt + 4 * ns + 2 if compact else B * nt, dtype=torch.int32, device=d)
+    base, fb = ints.data_ptr(), flags.data_ptr()
+    lists = [None] * 5
+    if compact:
+        lists = [base + 4 * nt, base + 8 * nt, base + 20 * nt, base + 20 * nt + 4 * ns,
+                 base + 20 * nt + 16 * ns]
+        if src_pos is None:
+            lists[1] = lists[3] = None
+    scratch = dev.scratch("recolor_exact", d, _PARTS + B * _SAMPLES)
+    rc = dev.kernel_fn("recolor", "recolor_exact_compact", _EXACT_ARGS)(
+        order.data_ptr(), sk.data_ptr(), tgt_pos.data_ptr(),
+        None if src_pos is None else src_pos.data_ptr(), B, ns, nt, bits, base, fb + B * ns, fb,
+        int(compact), *lists, scratch.data_ptr(), dev.stream_handle())
+    dev.count_launch(counter, int(B > 0 and (nt > 0 or compact)))
+    dev.check_launch(counter, rc)
+    return ints, flags
+
+
+def _exact_read(ints, flags, ns: int, nt: int):
+    """The outputs of a compacting exact launch (`_exact_launch`), its lists
+    cut to the counts read from the card (the one host wait)."""
+    n_in, n_un = ints[5 * nt + 4 * ns:].tolist()
+    return (ints[:nt], flags[ns:], ints[nt:nt + n_in], ints[2 * nt:2 * nt + 3 * n_in].view(-1, 3),
+            ints[5 * nt:5 * nt + n_un], ints[5 * nt + ns:5 * nt + ns + 3 * n_un].view(-1, 3))
+
+
+def _check_exact(order, sk, tgt_pos, bits: int, ndim: int, src_pos=None) -> None:
+    d = tgt_pos.device
+    dev.check_tensor(order, "order", torch.int32, d, ndim)
+    dev.check_tensor(sk, "sorted keys", torch.int32, d, ndim)
+    dev.check_tensor(tgt_pos, "tgt_pos", torch.int32, d, ndim + 1)
+    if src_pos is not None:
+        dev.check_tensor(src_pos, "src_pos", torch.int32, d, 2)
+    if bits > 10:
+        raise ValueError("recolor exact match: packed keys need bits <= 10")
+    if (order.shape != sk.shape or tgt_pos.shape[-1] != 3 or tgt_pos.shape[:-2] != sk.shape[:-1]
+            or (src_pos is not None and src_pos.shape != (sk.shape[-1], 3))):
+        raise ValueError(f"recolor exact match: order {tuple(order.shape)}, keys "
+                         f"{tuple(sk.shape)}, targets {tuple(tgt_pos.shape)}")
 
 
 def exact_match(order, sk, tgt_pos, bits: int):
-    """Kernel M, entry 1: `exact_match_plain` on the card."""
+    """`exact_match_plain` on the card: kernel M's exact entry (one
+    cooperative launch, no host wait)."""
     if tgt_pos.device.type == "cpu":
         return exact_match_plain(order, sk, tgt_pos, bits)
-    d = tgt_pos.device
-    dev.check_tensor(order, "order", torch.int32, d, 1)
-    dev.check_tensor(sk, "sorted keys", torch.int32, d, 1)
-    dev.check_tensor(tgt_pos, "tgt_pos", torch.int32, d, 2)
-    if bits > 10:
-        raise ValueError("recolor exact match: packed keys need bits <= 10")
+    _check_exact(order, sk, tgt_pos, bits, 1)
     ns, nt = sk.shape[0], tgt_pos.shape[0]
-    if order.shape != sk.shape or tgt_pos.shape[1] != 3:
-        raise ValueError(f"recolor exact match: order {tuple(order.shape)}, keys "
-                         f"{tuple(sk.shape)}, targets {tuple(tgt_pos.shape)}")
-    eidx = torch.empty(nt, dtype=torch.int32, device=d)
-    has = torch.empty(nt, dtype=torch.bool, device=d)
-    matched = torch.zeros(ns, dtype=torch.int32, device=d)
-    counts = torch.tensor([0, ns], dtype=torch.int32, device=d)
-    rc = _fn("recolor_exact", _EXACT_ARGS)(
-        dev.ptr(order), dev.ptr(sk), dev.ptr(tgt_pos), ns, nt, bits,
-        dev.ptr(eidx), dev.ptr(has), dev.ptr(matched), dev.ptr(counts), dev.stream_handle())
-    dev.count_launch("recolor", 1 if nt else 0)
-    dev.check_launch("recolor", rc)
-    return eidx, has, matched != 0, counts
+    ints, flags = _exact_launch(order, sk, tgt_pos, None, 1, ns, nt, bits, True, "recolor")
+    return ints[:nt], flags[ns:], flags[:ns], ints[5 * nt + 4 * ns:]
 
 
-def fwd_blend(src_col, idx, d2, gd2: float, cd2: float, doff: float):
-    """Kernel M, entry 2: `fwd_blend_plain` on the card (one thread per
-    inexact target)."""
+def exact_compact(order, sk, src_pos, tgt_pos, bits: int):
+    """`exact_compact_plain` on the card: kernel M's exact entry matches
+    every target and lists the inexact targets and unmatched sources in
+    index order beside their positions, in one cooperative launch; the
+    wrapper reads the two counts (one host wait) and returns the lists cut
+    to them."""
+    if tgt_pos.device.type == "cpu":
+        return exact_compact_plain(order, sk, src_pos, tgt_pos, bits)
+    _check_exact(order, sk, tgt_pos, bits, 1, src_pos)
+    ns, nt = sk.shape[0], tgt_pos.shape[0]
+    return _exact_read(*_exact_launch(order, sk, tgt_pos, src_pos, 1, ns, nt, bits, True,
+                                      "recolor"), ns, nt)
+
+
+def _blend_launch(src_col, exact_idx, has_exact, iidx, idx, d2, uidx, tidx, td2, B: int,
+                  ns: int, nt: int, gd2_fwd: float, cd2: float, doff: float, gd2_bwd: float,
+                  mark: bool, counter: str):
+    """Kernel M's blend entry on B frames (src_col (B, Ns, 3); exact_idx,
+    has_exact (B, Nt)), unchecked; iidx / uidx None: every target / source.
+    Returns (B * Nt, 3) int32."""
+    d = idx.device
+    out = torch.empty((B * nt, 3), dtype=torch.int32, device=d)
+    scratch = dev.scratch("recolor_blend", d, 4 * B * nt + (B * ns + 3) // 4)
+    rc = dev.kernel_fn("recolor", "recolor_blend_merge", _BLEND_ARGS)(
+        src_col.data_ptr(), exact_idx.data_ptr(), has_exact.data_ptr(),
+        None if iidx is None else iidx.data_ptr(), -1 if iidx is None else iidx.shape[0],
+        idx.data_ptr(), d2.data_ptr(), idx.shape[-1], None if uidx is None else uidx.data_ptr(),
+        -1 if uidx is None else uidx.shape[0], tidx.data_ptr(), td2.data_ptr(), B, ns, nt,
+        gd2_fwd, cd2, doff, gd2_bwd, int(mark), scratch.data_ptr(), out.data_ptr(),
+        dev.stream_handle())
+    dev.count_launch(counter, int(B * nt > 0))
+    dev.check_launch(counter, rc)
+    return out
+
+
+def _blend_merge(src_col, exact_idx, has_exact, iidx, idx, d2, uidx, tidx, td2,
+                 gd2_fwd: float, cd2: float, doff: float, gd2_bwd: float):
+    """`blend_merge` on the card, unchecked: one launch."""
+    return _blend_launch(src_col, exact_idx, has_exact, iidx, idx, d2, uidx, tidx, td2, 1,
+                         src_col.shape[0], exact_idx.shape[0], float(gd2_fwd), float(cd2),
+                         float(doff), float(gd2_bwd), uidx is None, "recolor")
+
+
+def blend_merge(src_col, exact_idx, has_exact, iidx, idx, d2, uidx, tidx, td2,
+                gd2_fwd: float, cd2: float, doff: float, gd2_bwd: float):
+    """`blend_merge_plain` on the card: kernel M's blend entry, the splat of
+    the sources, then a thread a target: the exact color, or the forward
+    blend of its k-NN row merged with the splat, in one cooperative
+    launch."""
     if idx.device.type == "cpu":
-        return fwd_blend_plain(src_col, idx, d2, gd2, cd2, doff)
+        return blend_merge_plain(src_col, exact_idx, has_exact, iidx, idx, d2, uidx, tidx, td2,
+                                 gd2_fwd, cd2, doff, gd2_bwd)
     d = idx.device
     dev.check_tensor(src_col, "src_col", torch.uint8, d, 2)
+    for name, t in (("exact_idx", exact_idx), ("tidx", tidx), ("td2", td2), ("iidx", iidx),
+                    ("uidx", uidx)):
+        if t is not None:
+            dev.check_tensor(t, name, torch.int32, d, 1)
+    dev.check_tensor(has_exact, "has_exact", torch.bool, d, 1)
     dev.check_tensor(idx, "idx", torch.int32, d, 2)
     dev.check_tensor(d2, "d2", torch.int32, d, 2)
-    m, k = idx.shape
-    if k > 64 or d2.shape != idx.shape or src_col.shape[1] != 3:
-        raise ValueError(f"recolor forward blend: idx {tuple(idx.shape)}, d2 "
-                         f"{tuple(d2.shape)}, colors {tuple(src_col.shape)} (k <= 64)")
-    out = torch.empty((m, 3), dtype=torch.float32, device=d)
-    rc = _fn("recolor_fwd_blend", _FWD_ARGS)(
-        dev.ptr(src_col), dev.ptr(idx), dev.ptr(d2), m, k, gd2, cd2, doff,
-        dev.ptr(out), dev.stream_handle())
-    dev.count_launch("recolor", 1 if m else 0)
-    dev.check_launch("recolor", rc)
-    return out
-
-
-def splat_merge(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
-                gd2_bwd: float):
-    """Kernel M, entry 3: `splat_merge_plain` on the card: the integer
-    atomic splat of the unmatched sources, the forward colors scattered to
-    their targets, then the merge per target."""
-    if exact_idx.device.type == "cpu":
-        return splat_merge_plain(src_col, uidx, tidx, td2, exact_idx, has_exact,
-                                 iidx, fwd, gd2_bwd)
-    d = exact_idx.device
-    dev.check_tensor(src_col, "src_col", torch.uint8, d, 2)
-    for name, t in (("uidx", uidx), ("tidx", tidx), ("td2", td2),
-                    ("exact_idx", exact_idx), ("iidx", iidx)):
-        dev.check_tensor(t, name, torch.int32, d, 1)
-    dev.check_tensor(has_exact, "has_exact", torch.bool, d, 1)
-    dev.check_tensor(fwd, "fwd", torch.float32, d, 2)
-    nt, mu, mi = exact_idx.shape[0], uidx.shape[0], iidx.shape[0]
-    if (tidx.shape != uidx.shape or td2.shape != uidx.shape or has_exact.shape != exact_idx.shape
-            or fwd.shape != (mi, 3) or src_col.shape[1] != 3):
-        raise ValueError("recolor splat/merge: inconsistent shapes")
-    acc = torch.zeros((nt, 4), dtype=torch.int32, device=d)   # r, g, b, count
-    fwd_full = torch.zeros((nt, 3), dtype=torch.float32, device=d)
-    out = torch.empty((nt, 3), dtype=torch.int32, device=d)
-    launched = ctypes.c_int(0)
-    rc = _fn("recolor_splat_merge", _MERGE_ARGS)(
-        dev.ptr(src_col), dev.ptr(uidx), dev.ptr(tidx), dev.ptr(td2), dev.ptr(exact_idx),
-        dev.ptr(has_exact), dev.ptr(iidx), dev.ptr(fwd), nt, mu, mi, gd2_bwd,
-        dev.ptr(acc), dev.ptr(fwd_full), dev.ptr(out), dev.stream_handle(),
-        ctypes.byref(launched))
-    dev.count_launch("recolor", launched.value)
-    dev.check_launch("recolor", rc)
-    return out
+    ns, nt, k = src_col.shape[0], exact_idx.shape[0], idx.shape[1]
+    rows = nt if iidx is None else iidx.shape[0]
+    srcs = ns if uidx is None else uidx.shape[0]
+    if (k > 64 or k < 1 or idx.shape[0] != rows or d2.shape != idx.shape or src_col.shape[1] != 3
+            or has_exact.shape != exact_idx.shape or tidx.shape != (srcs,)
+            or td2.shape != (srcs,)):
+        raise ValueError(f"recolor blend/merge: k-NN rows {tuple(idx.shape)} (of {rows}), "
+                         f"d2 {tuple(d2.shape)}, colors {tuple(src_col.shape)}, sources "
+                         f"{tuple(tidx.shape)}, {tuple(td2.shape)} (of {srcs}); k <= 64")
+    return _blend_merge(src_col, exact_idx, has_exact, iidx, idx, d2, uidx, tidx, td2, gd2_fwd,
+                        cd2, doff, gd2_bwd)
 
 
 # ---------------------------------------------------------------------------
@@ -272,31 +360,48 @@ def transfer_colors_compact(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """(Nt, 3) int32 colors of the targets, and (exact_idx, has_exact), as
     the reference's `transfer_colors_compact`: the k-NN sweeps run only on
-    the inexact targets and (k_bwd > 0) the unmatched sources."""
+    the inexact targets and (k_bwd > 0) the unmatched sources.  On the card
+    kernel M's two launches around kernel E's sweeps, one host wait (the
+    two counts)."""
     if grid_bits > 10:
         raise ValueError("transfer_colors_compact: packed int32 keys need grid_bits <= 10 "
                          "(above, use exact_matches + transfer_colors)")
+    d = tgt_pos.device
     src_col = src_col.to(torch.uint8).contiguous()
     order, sk = sorted_source_keys(src_pos, grid_bits)
-    exact_idx, has_exact, matched, counts = exact_match(order, sk, tgt_pos, grid_bits)
-    n_in, n_un = (int(v) for v in counts.tolist())   # one sync sizes both sweeps
-    iidx = torch.nonzero(~has_exact).flatten().to(torch.int32)
-    fwd = torch.zeros((n_in, 3), dtype=torch.float32, device=tgt_pos.device)
-    if n_in:
-        grid_s = neighbors.build_grid(src_pos, grid_bits)
-        idx, d2 = neighbors.knn(grid_s, tgt_pos[iidx.long()].contiguous(), k=k, bucket=6)
-        fwd = fwd_blend(src_col, idx, d2, float(max_geom_d2_fwd),
-                        float(max_color_d2_fwd), float(dist_offset_fwd))
-    empty = torch.zeros(0, dtype=torch.int32, device=tgt_pos.device)
-    uidx, tidx, td2 = empty, empty, empty
-    if k_bwd > 0 and n_un:
+    grids = lambda: (neighbors.build_grid(src_pos, grid_bits),
+                     neighbors.build_grid(tgt_pos, grid_bits) if k_bwd > 0 else None)
+    if d.type == "cpu":
+        lists = exact_compact_plain(order, sk, src_pos, tgt_pos, grid_bits)
+        grid_s, grid_t = grids()
+        blend = blend_merge_plain
+    else:
+        # the inputs checked once; the entries' unchecked launches
+        dev.check_tensor(src_pos, "src_pos", torch.int32, d, 2)
+        dev.check_tensor(tgt_pos, "tgt_pos", torch.int32, d, 2)
+        if src_pos.shape[1] != 3 or tgt_pos.shape[1] != 3 or src_col.shape != src_pos.shape:
+            raise ValueError(f"transfer_colors_compact: sources {tuple(src_pos.shape)}, colors "
+                             f"{tuple(src_col.shape)}, targets {tuple(tgt_pos.shape)}")
+        ns, nt = src_pos.shape[0], tgt_pos.shape[0]
+        pending = _exact_launch(order, sk, tgt_pos, src_pos, 1, ns, nt, grid_bits, True,
+                                "recolor")
+        # the grids' host work queued behind the exact launch, before the read waits on it
+        grid_s, grid_t = grids()
+        lists, blend = _exact_read(*pending, ns, nt), _blend_merge
+    exact_idx, has_exact, iidx, tq, uidx, sq = lists
+    if iidx.shape[0]:
+        idx, d2 = neighbors.knn(grid_s, tq, k=k, bucket=6)
+    else:
+        idx = d2 = torch.empty((0, k), dtype=torch.int32, device=d)
+    if k_bwd > 0 and uidx.shape[0]:
         # a matched source's nearest target is its exact twin, which keeps
         # the exact color and never reads the splat: sweep only the rest
-        uidx = torch.nonzero(~matched).flatten().to(torch.int32)
-        grid_t = neighbors.build_grid(tgt_pos, grid_bits)
-        tidx, td2 = neighbors.nearest(grid_t, src_pos[uidx.long()].contiguous(), bucket=6)
-    out = splat_merge(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
-                      float(max_geom_d2_bwd))
+        tidx, td2 = neighbors.nearest(grid_t, sq, bucket=6)
+    else:
+        uidx = tidx = td2 = torch.empty(0, dtype=torch.int32, device=d)
+    out = blend(src_col, exact_idx, has_exact, iidx, idx, d2, uidx, tidx, td2,
+                float(max_geom_d2_fwd), float(max_color_d2_fwd), float(dist_offset_fwd),
+                float(max_geom_d2_bwd))
     return out, (exact_idx, has_exact)
 
 
@@ -318,27 +423,19 @@ def transfer_colors(
     `transfer_colors` + `_blend` (recolor.py:70-110, 291-339), the path it
     takes above 10 bits: the k-NN forward sweep over every target and, with
     k_bwd > 0, the nearest-target sweep over every source (kernel E,
-    bucket 6), then kernel M's forward blend over every target and its
-    splat and merge over every source, a matched source gated out.
+    bucket 6), then kernel M's blend entry over every target and every
+    source, a matched source gated out (one launch).
     `exact_idx`/`has_exact` come from the host `exact_matches`."""
     d = tgt_pos.device
     src_col = src_col.to(torch.uint8).contiguous()
-    ns, nt = src_pos.shape[0], tgt_pos.shape[0]
-    grid_s = neighbors.build_grid(src_pos, grid_bits)
-    idx, d2 = neighbors.knn(grid_s, tgt_pos, k=k, bucket=6)
-    fwd = fwd_blend(src_col, idx, d2, float(max_geom_d2_fwd), float(max_color_d2_fwd),
-                    float(dist_offset_fwd))
+    idx, d2 = neighbors.knn(neighbors.build_grid(src_pos, grid_bits), tgt_pos, k=k, bucket=6)
     if k_bwd > 0:
-        grid_t = neighbors.build_grid(tgt_pos, grid_bits)
-        tidx, td2 = neighbors.nearest(grid_t, src_pos, bucket=6)
-        matched = torch.zeros(ns, dtype=torch.bool, device=d)
-        matched[exact_idx.long()[has_exact]] = True
-        td2 = torch.where(matched, torch.full_like(td2, MAX_DIST2), td2)
-        uidx = torch.arange(ns, dtype=torch.int32, device=d)
+        tidx, td2 = neighbors.nearest(neighbors.build_grid(tgt_pos, grid_bits), src_pos, bucket=6)
+        uidx = None
     else:
-        uidx = tidx = td2 = torch.zeros(0, dtype=torch.int32, device=d)
-    iidx = torch.arange(nt, dtype=torch.int32, device=d)
-    return splat_merge(src_col, uidx, tidx, td2, exact_idx, has_exact, iidx, fwd,
+        uidx = tidx = td2 = torch.empty(0, dtype=torch.int32, device=d)
+    return blend_merge(src_col, exact_idx, has_exact, None, idx, d2, uidx, tidx, td2,
+                       float(max_geom_d2_fwd), float(max_color_d2_fwd), float(dist_offset_fwd),
                        float(max_geom_d2_bwd))
 
 
@@ -406,44 +503,26 @@ def blend_batch_plain(src_col, idx, d2, tidx, td2, exact_idx, has_exact, gd2_fwd
         for b in range(B)])
 
 
-_EXACT_BATCH_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-_BLEND_BATCH_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-                     + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)])
-
-
 def exact_match_batch(order, sk, tgt_pos, bits: int):
-    """Kernel M's `recolor_exact_batch`: `exact_match_batch_plain` of B
-    frames in one launch."""
+    """`exact_match_batch_plain` of B frames on the card: kernel M's exact
+    entry without compaction, a frame's blocks its own (one cooperative
+    launch)."""
     if tgt_pos.device.type == "cpu":
         return exact_match_batch_plain(order, sk, tgt_pos, bits)
-    d = tgt_pos.device
-    dev.check_tensor(order, "order", torch.int32, d, 2)
-    dev.check_tensor(sk, "sorted keys", torch.int32, d, 2)
-    dev.check_tensor(tgt_pos, "tgt_pos", torch.int32, d, 3)
-    if bits > 10:
-        raise ValueError("recolor exact match: packed keys need bits <= 10")
-    B, nt, _ = tgt_pos.shape
-    ns = sk.shape[1]
-    if order.shape != sk.shape or sk.shape[0] != B or tgt_pos.shape[2] != 3:
-        raise ValueError(f"recolor exact match batch: order {tuple(order.shape)}, keys "
-                         f"{tuple(sk.shape)}, targets {tuple(tgt_pos.shape)}")
-    eidx = torch.empty((B, nt), dtype=torch.int32, device=d)
-    has = torch.empty((B, nt), dtype=torch.bool, device=d)
-    matched = torch.zeros((B, ns), dtype=torch.int32, device=d)
-    rc = _fn("recolor_exact_batch", _EXACT_BATCH_ARGS)(
-        dev.ptr(order), dev.ptr(sk), dev.ptr(tgt_pos), B, ns, nt, bits,
-        dev.ptr(eidx), dev.ptr(has), dev.ptr(matched), dev.stream_handle())
-    dev.count_launch("recolor_exact_batch", 1 if B * nt else 0)
-    dev.check_launch("recolor_exact_batch", rc)
-    return eidx, has, matched != 0
+    _check_exact(order, sk, tgt_pos, bits, 2)
+    B, nt, ns = tgt_pos.shape[0], tgt_pos.shape[1], sk.shape[1]
+    ints, flags = _exact_launch(order, sk, tgt_pos, None, B, ns, nt, bits, False,
+                                "recolor_exact_batch")
+    return ints.view(B, nt), flags[B * ns:].view(B, nt), flags[:B * ns].view(B, ns)
 
 
 def blend_batch(src_col, idx, d2, tidx, td2, exact_idx, has_exact, gd2_fwd: float,
                 cd2: float, doff: float, gd2_bwd: float):
-    """Kernel M's `recolor_blend_batch`: `blend_batch_plain` of B frames,
-    one launch per step (blend, splat, merge) for all of them.  src_col
-    (B, Ns, 3) uint8; idx, d2 (B, Nt, k); tidx, td2 (B, Ns); exact_idx,
-    has_exact (B, Nt)."""
+    """`blend_batch_plain` of B frames on the card: kernel M's blend entry
+    uncompacted (every (frame, target) row, every (frame, source); the
+    caller set td2 to MAX_DIST2 where a source is matched or padded), one
+    cooperative launch.  src_col (B, Ns, 3) uint8; idx, d2 (B, Nt, k);
+    tidx, td2 (B, Ns); exact_idx, has_exact (B, Nt)."""
     if idx.device.type == "cpu":
         return blend_batch_plain(src_col, idx, d2, tidx, td2, exact_idx, has_exact, gd2_fwd,
                                  cd2, doff, gd2_bwd)
@@ -455,18 +534,10 @@ def blend_batch(src_col, idx, d2, tidx, td2, exact_idx, has_exact, gd2_fwd: floa
     dev.check_tensor(has_exact, "has_exact", torch.bool, d, 2)
     B, nt, k = idx.shape
     ns = src_col.shape[1]
-    if (k > 64 or d2.shape != idx.shape or src_col.shape != (B, ns, 3)
+    if (k > 64 or k < 1 or d2.shape != idx.shape or src_col.shape != (B, ns, 3)
             or tidx.shape != (B, ns) or td2.shape != (B, ns)
             or exact_idx.shape != (B, nt) or has_exact.shape != (B, nt)):
         raise ValueError("recolor blend batch: inconsistent shapes")
-    acc = torch.zeros((B, nt, 4), dtype=torch.int32, device=d)
-    fwd = torch.empty((B, nt, 3), dtype=torch.float32, device=d)
-    out = torch.empty((B, nt, 3), dtype=torch.int32, device=d)
-    launched = ctypes.c_int(0)
-    rc = _fn("recolor_blend_batch", _BLEND_BATCH_ARGS)(
-        dev.ptr(src_col), dev.ptr(idx), dev.ptr(d2), dev.ptr(tidx), dev.ptr(td2),
-        dev.ptr(exact_idx), dev.ptr(has_exact), B, ns, nt, k, gd2_fwd, cd2, doff, gd2_bwd,
-        dev.ptr(acc), dev.ptr(fwd), dev.ptr(out), dev.stream_handle(), ctypes.byref(launched))
-    dev.count_launch("recolor_blend_batch", launched.value)
-    dev.check_launch("recolor_blend_batch", rc)
-    return out
+    return _blend_launch(src_col, exact_idx, has_exact, None, idx, d2, None, tidx, td2, B, ns,
+                         nt, float(gd2_fwd), float(cd2), float(doff), float(gd2_bwd), False,
+                         "recolor_blend_batch").view(B, nt, 3)

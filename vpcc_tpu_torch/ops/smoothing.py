@@ -114,16 +114,19 @@ def smooth_point_cloud_grid_plain(points, patch_idx, boundary, threshold: float,
     return torch.where(move[:, None], target, p)
 
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float,
-                                  ctypes.c_int, ctypes.c_int] \
-    + [ctypes.c_void_p] * 6
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 3
+# int32 of the scratch before the cell records: a block's partial box, 8
+# ints, for at most 1024 blocks
+_PART_INTS = 8192
 
 
 def grid_smooth(points, patch_idx, boundary, threshold: float,
                 grid_size: int = 8, grid_bits: int = 10):
-    """Kernel D (csrc/grid_smooth.cu): pass 1 scatters per-cell count,
-    position sum and min/max patch id with integer atomics; pass 2 moves
-    each point.  The plain version runs on the CPU."""
+    """Kernel D (csrc/grid_smooth.cu): one cooperative launch, no host wait:
+    the points' cell box, its cell records emptied, the points binned with
+    integer atomics (count, position sum, min/max patch id), then each
+    boundary point moved.  The plain version runs on the CPU."""
     if points.device.type == "cpu":
         return smooth_point_cloud_grid_plain(points, patch_idx, boundary,
                                              threshold, grid_size, grid_bits)
@@ -135,18 +138,13 @@ def grid_smooth(points, patch_idx, boundary, threshold: float,
     if points.shape[1] != 3 or patch_idx.shape[0] != M or boundary.shape[0] != M:
         raise ValueError("grid_smooth: inconsistent shapes")
     gw = (1 << grid_bits) // grid_size
-    n_cells = gw * gw * gw + 1
-    count = torch.zeros(n_cells, dtype=torch.int32, device=d)
-    csum = torch.zeros((n_cells, 3), dtype=torch.int32, device=d)
-    pmin = torch.full((n_cells,), 1 << 30, dtype=torch.int32, device=d)
-    pmax = torch.full((n_cells,), -1, dtype=torch.int32, device=d)
+    # records for the whole grid: the box is found on the card
+    scratch = dev.scratch("grid_smooth", d, _PART_INTS + 6 * gw ** 3)
     out = torch.empty_like(points)
-    fn = dev.load_kernel("grid_smooth").grid_smooth
-    fn.argtypes, fn.restype = _ARGS, ctypes.c_int
-    rc = fn(dev.ptr(points), dev.ptr(patch_idx), dev.ptr(boundary), M,
-            float(threshold), grid_size, gw, dev.ptr(count), dev.ptr(csum),
-            dev.ptr(pmin), dev.ptr(pmax), dev.ptr(out), dev.stream_handle())
-    dev.count_launch("grid_smooth", 2)
+    rc = dev.kernel_fn("grid_smooth", "grid_smooth", _ARGS)(
+        dev.ptr(points), dev.ptr(patch_idx), dev.ptr(boundary), M, float(threshold),
+        grid_size, gw, dev.ptr(scratch), dev.ptr(out), dev.stream_handle())
+    dev.count_launch("grid_smooth", int(M > 0))
     dev.check_launch("grid_smooth", rc)
     return out
 
