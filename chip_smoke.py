@@ -25,12 +25,14 @@ the decode path (kernels A-D, K's apply entry and Q's color conversion):
    and device times); holds kernel D against its plain version on every
    call of the warm-up decode (one launch a call, the largest under sync
    debug mode "error", its call and device times and the bytes of cell
-   records it sets);
+   records it sets), and kernel B on every call of the warm-up decode (one
+   launch a call, the largest under sync debug mode "error", its call and
+   device times);
 5. with all launch counters at 0, decodes the fixture again with
    `vpcc_tpu_torch.Decoder(device="cuda")`, checks every frame's point count
    and md5 against the digests the JAX decoder recorded, prints warm seconds
    per frame, and requires every kernel to have launched on that path
-   (Q included), kernels A, K, O, D and each entry of Q once a call, C
+   (Q included), kernels A, B, K, O, D and each entry of Q once a call, C
    twice;
 
 the encoder front end (kernels E-H):
@@ -73,11 +75,14 @@ kernel K's apply):
     on crafted planes whose push sums pass 2^24 (256x256 and 512x512 in
     XLA's probed orders, a 3-plane stack with an occupancy per plane, a
     1216x1280 plane whose order is not established: the same count of such
-    blocks);
+    blocks), and kernels L and B on every call of the warm-up (L in the
+    launches its tile plan makes, at most three; B once a call; the largest
+    of each under sync debug mode "error");
 12. with all launch counters at 0, runs the GOF again, prints warm seconds
     per frame, the stage split and the device idle share of one warm
     P-frame (`torch.profiler`), and requires: all 16 geometry payloads to
-    decode exactly to the encoder's planes with the port's decoder; the
+    decode exactly to the encoder's planes with the port's decoder; L's
+    launches as its tile plan says and B's one a call; the
     encoder's reconstruction to equal `pipeline.reconstruct_frame` on
     those planes; GOF geometry bytes within RD_BYTES_TOL and every
     plane's occupied-pixel PSNR within RD_PSNR_TOL_DB of the JAX encoder's
@@ -99,7 +104,9 @@ path above also runs kernels O, P and Q):
     kernel O on every deblock call of the warm-up, O and Q once under sync
     debug mode "error" in one launch a call (the spy that measures each
     attribute plane converts with the unwrapped entry: no encoder call),
-    and kernels C and D on every call of the warm-up as in step 4;
+    kernels C and D on every call of the warm-up as in step 4, and kernels
+    L (the geometry planes and `fill_rgb`'s six attribute planes under one
+    occupancy) and B on every call of the warm-up as in step 11;
 14. decodes the fixture's geometry with the port (JAX's reconstruction
     rows) and runs the port's recolor -> pre-smoothing -> paint -> fill ->
     group dilation on it with the regenerated source frames; the md5 of the
@@ -107,9 +114,9 @@ path above also runs kernels O, P and Q):
     equal the JAX encoder's (person_vox10_attr_digests.json) on all frames;
 15. with all launch counters at 0, segments the frames, drives their
     partitions and runs `encode_gof` again: warm seconds per frame, the
-    stage split, launches (every kernel the encoder runs, B-Q, nonzero; K,
-    O, D and each Q entry once a call, M twice, with O's and Q's calls a
-    frame), no
+    stage split, launches (every kernel the encoder runs, B-Q, nonzero; B,
+    K, O, D and each Q entry once a call, M twice, L as its tile plan says,
+    with O's and Q's calls a frame), no
     push-pull block of unknown order reaching 2^24, the
     device idle share of one warm P-frame and kernels E, G and K's share of
     its trace (and O's and Q's); then requires the port's
@@ -274,11 +281,14 @@ the JAX partitions:
     O against their plain versions on every call (the level's plane stacks),
     kernel Q's `rgb_to_planes` on every call (a level's images, one batch a
     call), kernel M's batched entries on every call (one launch each, no
-    host synchronisation) and kernels C and D on every call as in step 4;
+    host synchronisation), kernels C and D on every call as in step 4, and
+    kernels L (the stacks with an occupancy per plane) and B on every call
+    as in step 11;
 48. with all launch counters at 0, warm encodes in turns (sequential,
     level-batched, level-batched, sequential): seconds per frame of each,
     the stage split, launches per level group (every kernel of the path
-    nonzero, K, O, D, each Q entry and each batched M entry once a call),
+    nonzero, B, K, O, D, each Q entry and each batched M entry once a call,
+    L as its tile plan says),
     no push-pull block of
     unknown order reaching
     2^24; requires
@@ -298,8 +308,9 @@ geometryNominal2dBitdepth=11 and r3, driven by the JAX partitions:
 52. with all launch counters at 0, runs `encode_gof` once, keeping the
     largest call of kernel I's two-level entry and of the plane dispatch:
     seconds per frame, the stage split, launches (I's two-level entry, K and
-    L nonzero, K once a call, its largest 16-px call held against the plain
-    search then apply and against its two entries), the geometry samples
+    L nonzero, K and B once a call, L as its tile plan says, K's largest
+    16-px call held against the plain search then apply and against its two
+    entries, L on every call as in step 11), the geometry samples
     above 1023 per plane beside JAX's, no
     push-pull block of unknown order reaching 2^24, and every geometry
     payload's flags (FLAG_SAO16, not FLAG_CU32) equal to JAX's;
@@ -317,7 +328,8 @@ geometryNominal2dBitdepth=11 and r3, driven by the JAX partitions:
     the encoder's planes), timing the kernels (2 x 5 launches) and the plain
     versions (one run) on the GOF's calls; holds kernel J at 16-px CUs
     against its plain version on every call of the GOF and the P-plane and
-    times the largest;
+    times the largest, and kernel B at 16-px CUs on every call of the GOF
+    and of the P-plane's encode and decode as in step 11;
 55. runs `apps/video_codec.py` encode and decode on three 256x256 11-bit
     depth frames and requires the decode to equal the geometry coder's
     reconstruction;
@@ -644,7 +656,9 @@ def bounds(name, args, out, sweeps=None):
         P, H, W = ref.shape
         m = mv.cpu().numpy()
         fy, fx = (m[..., 0] & 1) != 0, (m[..., 1] & 1) != 0
-        taps = np.where(fy & fx, 72, np.where(fy | fx, 8, 0))   # MACs / pixel
+        # MACs a pixel: 8 for one direction; HV, the horizontal pass over
+        # the window's bs + 7 rows, then 8 down the clipped samples
+        taps = np.where(fy & fx, 8 + 8 * (bs + 7) / bs, np.where(fy | fx, 8, 0))
         ops = 2.0 * float(taps.sum()) * bs * bs
     elif name == "generate_points":
         occ, g0, g1, btp, ptab = args[:5]
@@ -1267,7 +1281,8 @@ def decode_phase(dev):
     with Capture({**wrappers, **color_wrappers(hevc)}) as cap, \
             CallLog(hevc, "deblock_planes") as db_log, \
             CallLog(reconstruct, "generate_points") as gp_log, \
-            CallLog(smoothing, "grid_smooth") as gs_log:
+            CallLog(smoothing, "grid_smooth") as gs_log, \
+            CallLog(hevc, "half_pel_mc") as b_log:
         Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
     print(f"cold decode: {time.perf_counter() - t0:.2f}s for {n_frames} frames")
@@ -1314,14 +1329,16 @@ def decode_phase(dev):
     deblock_all_check(dev, hevc, db_log.calls, "the decode path")
     gp_all_check(dev, reconstruct, gp_log, "the fixture decode")
     gs_all_check(dev, smoothing, gs_log, "the fixture decode")
-    del db_log, gp_log, gs_log
+    b_all_check(dev, hevc, b_log.calls, "the fixture decode", bs=32)
+    del db_log, gp_log, gs_log, b_log
 
     # 5. the main path, counted and timed
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with Capture({**{k: wrappers[k] for k in ("wavefront_decode32", "sao_apply",
-                                               "generate_points", "grid_smooth")},
+                                               "generate_points", "grid_smooth",
+                                               "half_pel_mc")},
                   **oq_wrappers(hevc)}, keep=False) as calls:
         frames = Decoder(device="cuda").decode(stream)
         torch.cuda.synchronize()
@@ -1329,6 +1346,7 @@ def decode_phase(dev):
     launches = dict(dev.LAUNCHES)
     m_d_calls(launches, calls.counts, "the decode path", n_frames)
     one_a_call("wavefront_decode32", launches, calls.counts, "the decode path")
+    one_a_call("half_pel_mc", launches, calls.counts, "the decode path")
     print(f"generate_points on the decode path: {launches['generate_points']} launches for "
           f"{calls.counts['generate_points']} calls")
     if launches["generate_points"] != 2 * calls.counts["generate_points"]:
@@ -1727,6 +1745,108 @@ def f8_check(padding) -> None:
     padding.reset_inexact()
 
 
+def pp_launches(padding, img, occ) -> int:
+    """Kernel L's launches for one `push_pull_round` call, as its tile plan
+    makes them (1 where the pyramid has at most 5 levels or a side is odd,
+    else 3)."""
+    P, H, W = (1, *img.shape) if img.ndim == 2 else img.shape
+    return padding.push_pull_plan(P, H, W, occ.ndim == 3, padding.PUSH_TOP_SMEM)[0]
+
+
+def lb_wrappers(padding, hevc) -> tuple:
+    """Capture names of kernel L's and B's wrappers and the rename that
+    files each L call under the launches its tile plan makes
+    ("push_pull.3")."""
+    return ({"push_pull": (padding, "push_pull_round"), "half_pel_mc": (hevc, "half_pel_mc")},
+            {"push_pull": lambda a, kw: f"push_pull.{pp_launches(padding, *a[:2])}"})
+
+
+def lb_launch_check(launches, counts, where: str) -> None:
+    """Kernel L launches as its tile plan says (at most three a call) and
+    kernel B once a call, on a path whose calls `counts` holds (see
+    `lb_wrappers`)."""
+    pp = {int(k.split(".")[1]): v for k, v in counts.items() if k.startswith("push_pull.")}
+    want = sum(k * v for k, v in pp.items())
+    print(f"push_pull on {where}: {launches['push_pull']} launches for {sum(pp.values())} "
+          f"calls (launches a call x calls: {pp})")
+    if launches["push_pull"] != want or any(k > 3 for k in pp):
+        raise AssertionError(f"push_pull: {launches['push_pull']} launches on {where}, its tile "
+                             f"plan makes {want}")
+    one_a_call("half_pel_mc", launches, counts, where)
+
+
+def pp_all_check(dev, padding, calls, where: str, need_stack: str = "") -> None:
+    """Kernel L against its plain version on every call in `calls`, bit for
+    bit with the same count of blocks of unknown order past 2^24, in the
+    launches its tile plan makes; the largest once under sync debug mode
+    "error", with its call and device times.  `need_stack`: "shared" or
+    "planar", a stack some call must be (six planes under one occupancy:
+    `fill_rgb`'s attribute call; an occupancy per plane: the level path)."""
+    if not calls:
+        raise AssertionError(f"push_pull: no call captured on {where}")
+    shapes = collections.Counter()
+    for i, (img, occ) in enumerate(calls):
+        padding.reset_inexact()
+        before = dev.LAUNCHES["push_pull"]
+        got = padding.push_pull_round(img, occ)
+        n_k, n = padding.inexact_blocks(), dev.LAUNCHES["push_pull"] - before
+        padding.reset_inexact()
+        want = padding.push_pull_round_plain(img, occ)
+        if not torch.equal(got, want) or padding.inexact_blocks() != n_k:
+            raise AssertionError(f"push_pull call {i} on {where} ({tuple(img.shape)}): kernel "
+                                 "differs from its plain version")
+        if n != pp_launches(padding, img, occ) or n > 3:
+            raise AssertionError(f"push_pull call {i} on {where}: {n} launches")
+        shapes[(tuple(img.shape), tuple(occ.shape), n)] += 1
+    padding.reset_inexact()
+    stack = {"shared": lambda img, occ: img.ndim == 3 and img.shape[0] == 6 and occ.ndim == 2,
+             "planar": lambda img, occ: occ.ndim == 3}.get(need_stack)
+    if stack and not any(stack(*a) for a in calls):
+        raise AssertionError(f"push_pull on {where}: no {need_stack}-occupancy stack")
+    big = max(calls, key=lambda a: a[0].numel())
+    fn = lambda: padding.push_pull_round(*big)
+    n = no_sync_launches(dev, "push_pull", fn)
+    print(f"push_pull: all {len(calls)} captured calls of {where} exact (and the count of "
+          "blocks of unknown order past 2^24); (planes, occupancy, launches) x calls: "
+          + ", ".join(f"{k} x {v}" for k, v in shapes.items())
+          + f"; the largest: {n} launches, no host synchronisation (sync debug mode \"error\"), "
+          f"call {time_ms(fn, 20):.4f} ms, device {graph_ms(fn):.4f} ms (CUDA graph replay)")
+
+
+def b_all_check(dev, hevc, calls, where: str, bs=None) -> None:
+    """Kernel B against its plain version on every call in `calls`, bit for
+    bit, one launch a call; the largest once under sync debug mode "error",
+    with its call and device times.  `bs`: a CU size some call must have."""
+    if not calls:
+        raise AssertionError(f"half_pel_mc: no call captured on {where}")
+    shapes = collections.Counter()
+    phases = collections.Counter()
+    for i, a in enumerate(calls):
+        before = dev.LAUNCHES["half_pel_mc"]
+        got = hevc.half_pel_mc(*a)
+        if dev.LAUNCHES["half_pel_mc"] - before != 1:
+            raise AssertionError(f"half_pel_mc call {i} on {where}: not one launch")
+        if not torch.equal(got, hevc.half_pel_mc_plain(*a)):
+            raise AssertionError(f"half_pel_mc call {i} on {where} ({tuple(a[0].shape)}, bs "
+                                 f"{a[3]}): kernel differs from its plain version")
+        shapes[(tuple(a[0].shape), a[3])] += 1
+        mv = a[1].reshape(-1, 2)
+        phases.update(((mv[:, 0] & 1) * 2 + (mv[:, 1] & 1)).tolist())
+    if bs is not None and not any(a[3] == bs for a in calls):
+        raise AssertionError(f"half_pel_mc on {where}: no call at {bs}-px CUs")
+    big = max(calls, key=lambda a: a[0].numel())
+    fn = lambda: hevc.half_pel_mc(*big)
+    n = no_sync_launches(dev, "half_pel_mc", fn)
+    if n != 1:
+        raise AssertionError(f"half_pel_mc on {where}: {n} launches a call, expected 1")
+    print(f"half_pel_mc: all {len(calls)} captured calls of {where} exact, one launch a call; "
+          "(planes, bs) x calls: " + ", ".join(f"{k} x {v}" for k, v in shapes.items())
+          + "; CUs by phase (fy, fx): " + ", ".join(f"{k >> 1}{k & 1} {v}"
+                                                     for k, v in sorted(phases.items()))
+          + f"; the largest: one launch, no host synchronisation (sync debug mode \"error\"), "
+          f"call {time_ms(fn, 20):.4f} ms, device {graph_ms(fn):.4f} ms (CUDA graph replay)")
+
+
 def occupied_psnr(src, rec, occ, peak: float = 255.0) -> float:
     import numpy as np
 
@@ -1848,7 +1968,9 @@ def geometry_phase(dev, cfg, frames, segs):
         "push_pull": (padding, "push_pull_round"),
     }
     t0 = time.perf_counter()
-    with Capture(wrappers) as cap, CallLog(hevc, "motion_search") as j_calls:
+    with Capture(wrappers) as cap, CallLog(hevc, "motion_search") as j_calls, \
+            CallLog(padding, "push_pull_round") as l_calls, \
+            CallLog(hevc, "half_pel_mc") as b_calls:
         Encoder(cfg, device="cuda").encode_gof_geometry(frames, segs=segs)
         torch.cuda.synchronize()
     print(f"cold geometry encode: {time.perf_counter() - t0:.2f}s for {n} frames")
@@ -1864,7 +1986,9 @@ def geometry_phase(dev, cfg, frames, segs):
     _, pp_args, _ = cap.calls["push_pull"]
     sao_check(hevc, sao_args, sao_kw, "the geometry path")
     motion_all_check(hevc, j_calls.calls, "the geometry path's warm-up")
-    del j_calls
+    pp_all_check(dev, padding, l_calls.calls, "the geometry path's warm-up")
+    b_all_check(dev, hevc, b_calls.calls, "the geometry path's warm-up", bs=32)
+    del j_calls, l_calls, b_calls
 
     checks = {
         "wavefront_encode32": (lambda: hevc.wavefront_encode32(*enc_args),
@@ -1902,13 +2026,15 @@ def geometry_phase(dev, cfg, frames, segs):
     enc = Encoder(cfg, device="cuda")
     dev.reset_launch_counts()
     torch.cuda.synchronize()
+    lb_wrap, lb_name = lb_wrappers(padding, hevc)
     t0 = time.perf_counter()
-    with Capture({"sao": wrappers["sao"]}, keep=False) as k_calls:
+    with Capture({"sao": wrappers["sao"], **lb_wrap}, rename=lb_name, keep=False) as k_calls:
         out = enc.encode_gof_geometry(frames, segs=segs)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(dev.LAUNCHES)
     one_a_call("sao", launches, k_calls.counts, "the geometry path")
+    lb_launch_check(launches, k_calls.counts, "the geometry path")
     split = {f: sum(getattr(o.stats, f) for o in out) / n
              for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s",
                        "video_s", "reconstruct_s")}
@@ -2163,7 +2289,9 @@ def encode_phase(dev, cfg, frames, segs):
                 CallLog(hevc, "deblock_planes") as db_log, \
                 CallLog(reconstruct, "generate_points") as gp_log, \
                 CallLog(recolor, "transfer_colors_compact") as rc_log, \
-                CallLog(smoothing, "grid_smooth") as gs_log:
+                CallLog(smoothing, "grid_smooth") as gs_log, \
+                CallLog(padding, "push_pull_round") as l_log, \
+                CallLog(hevc, "half_pel_mc") as b_log:
             enc0 = Encoder(cfg, device="cuda")
             stream0, recon0 = enc0.encode_gof(frames, segs=segs)
             torch.cuda.synchronize()
@@ -2245,7 +2373,10 @@ def encode_phase(dev, cfg, frames, segs):
     gp_all_check(dev, reconstruct, gp_log, "the encode path")
     recolor_all_check(dev, recolor, neighbors, rc_log, cfg, "the encode path")
     gs_all_check(dev, smoothing, gs_log, "the encode path")
-    del db_log, gp_log, rc_log, gs_log
+    pp_all_check(dev, padding, l_log.calls, "the encode path (geometry and attribute planes)",
+                 need_stack="shared")
+    b_all_check(dev, hevc, b_log.calls, "the encode path", bs=32)
+    del db_log, gp_log, rc_log, gs_log, l_log, b_log
 
     # 14. the attribute path on JAX's reconstruction rows
     recons = []
@@ -2298,8 +2429,10 @@ def encode_phase(dev, cfg, frames, segs):
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    lb_wrap, lb_name = lb_wrappers(padding, hevc)
     with Capture(e_wrap, rename=e_name, keep=False) as e_calls, \
             Capture({"sao": (hevc, "sao_search_apply")}, keep=False) as k_calls, \
+            Capture(lb_wrap, rename=lb_name, keep=False) as lb_calls, \
             Capture(oq_wrappers(hevc), keep=False) as oq_calls, \
             Capture({"recolor": (recolor, "transfer_colors_compact"),
                      "grid_smooth": (smoothing, "grid_smooth")}, keep=False) as md_calls:
@@ -2312,6 +2445,7 @@ def encode_phase(dev, cfg, frames, segs):
     m_d_calls(launches, md_calls.counts, "the encode path", n,
               [("recolor", md_calls.counts["recolor"], 2)])
     one_a_call("sao", launches, k_calls.counts, "the encode path")
+    lb_launch_check(launches, lb_calls.counts, "the encode path")
     oq_one_a_call(launches, oq_calls.counts, "the encode path")
     print_calls(oq_calls.counts, "the encode path (the encoder's own calls of kernels O and Q)",
                 n)
@@ -2877,14 +3011,17 @@ def geo11_phase(dev, frames):
         above.append((int((g > 1023).sum()), int(((g > 1023) & (np.asarray(occ) != 0)).sum())))
         return real_geo(self, geo, occ=occ, **kw)
 
+    lb_wrap, lb_name = lb_wrappers(padding, hevc)
     wrappers = {"wavefront_encode16": (hevc, "wavefront_encode16"),
                 "dispatch": (hevc, "encode_planes_dispatch"),
-                "sao": (hevc, "sao_search_apply")}
+                "sao": (hevc, "sao_search_apply"), **lb_wrap}
     by_region = lambda a, kw: f"sao{kw.get('region', 32)}"
     codecs.GeometrySubstreamEncoder.encode = geo_spy
     try:
-        with Capture(wrappers, rename={"sao": by_region}) as cap, \
-                CallLog(hevc, "motion_search") as j_calls:
+        with Capture(wrappers, rename={"sao": by_region, **lb_name}) as cap, \
+                CallLog(hevc, "motion_search") as j_calls, \
+                CallLog(padding, "push_pull_round") as l_log, \
+                CallLog(hevc, "half_pel_mc") as b_log:
             padding.reset_inexact()
             dev.reset_launch_counts()
             torch.cuda.synchronize()
@@ -2912,6 +3049,10 @@ def geo11_phase(dev, frames):
         raise AssertionError(f"geo11: not launched on the encode path: {idle}")
     one_a_call("sao", launches, {"sao": cap.counts["sao16"] + cap.counts["sao32"]},
                "the geo11 encode")
+    lb_launch_check(launches, cap.counts, "the geo11 encode")
+    pp_all_check(dev, padding, l_log.calls, "the geo11 encode (11-bit planes)")
+    b_calls = b_log.calls
+    del l_log, b_log
     sao_check(hevc, *cap.calls["sao16"][1:], "the geo11 encode")
     print(f"geo11 geometry samples above 1023 per plane (all, occupied): {above} "
           f"(JAX: {[list(zip(f['above_1023'], f['above_1023_occupied'])) for f in ref['frames']]})")
@@ -2996,11 +3137,13 @@ def geo11_phase(dev, frames):
     }
     for name, (run, refs) in extra.items():
         with Capture({"wavefront_encode16": (hevc, "wavefront_encode16")}) as c1, \
-                CallLog(hevc, "motion_search") as j1:
+                CallLog(hevc, "motion_search") as j1, CallLog(hevc, "half_pel_mc") as b1:
             coded = run()
         j_calls.calls += j1.calls
-        with Capture(wrap16) as c2:
+        b_calls += b1.calls
+        with Capture(wrap16) as c2, CallLog(hevc, "half_pel_mc") as b2:
             got = hevc.decode_planes(coded.payload(), refs=refs, device=d)
+        b_calls += b2.calls
         torch.cuda.synchronize()
         if not torch.equal(got, coded.rec):
             raise AssertionError(f"geo11 {name}: the decode differs from the encoder's planes")
@@ -3011,6 +3154,9 @@ def geo11_phase(dev, frames):
     # kernel J at 16-px CUs: every call of the GOF and of the P-plane, and
     # the largest one timed
     motion_all_check(hevc, j_calls.calls, "the geo11 encode and its P-plane")
+    b_all_check(dev, hevc, b_calls, "the geo11 encode and its P-plane (encode and decode)",
+                bs=16)
+    del b_calls
     ms16 = max(j_calls.calls, key=lambda a: a[0].numel())
     (k1, k2), (p1, p2) = time_turns(lambda: hevc.motion_search(*ms16),
                                     lambda: hevc.motion_search_plain(*ms16))
@@ -4085,7 +4231,9 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
                 CallLog(reconstruct, "generate_points") as gp_log, \
                 CallLog(recolor, "exact_match_batch") as ex_log, \
                 CallLog(recolor, "blend_batch") as bl_log, \
-                CallLog(smoothing, "grid_smooth") as gs_log:
+                CallLog(smoothing, "grid_smooth") as gs_log, \
+                CallLog(padding, "push_pull_round") as l_log, \
+                CallLog(hevc, "half_pel_mc") as b_log:
             stream0, _ = enc0.encode_gof(frames, parallel=True, segs=segs)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
@@ -4100,7 +4248,9 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
     gp_all_check(dev, reconstruct, gp_log, "the level path")
     level_m_all_check(dev, recolor, ex_log, bl_log)
     gs_all_check(dev, smoothing, gs_log, "the level path")
-    del j_calls, db_log, q_log, gp_log, ex_log, bl_log, gs_log
+    pp_all_check(dev, padding, l_log.calls, "the level path", need_stack="planar")
+    b_all_check(dev, hevc, b_log.calls, "the level path", bs=32)
+    del j_calls, db_log, q_log, gp_log, ex_log, bl_log, gs_log, l_log, b_log
     parent, _ = enc0.gof_structure(n)
     groups = gof.level_groups(gof.level_schedule(parent), parent,
                               [(e.height, e.width) for e in enc0.last_encoded])
@@ -4121,15 +4271,18 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
                 enc)
 
     t_s1, (s_seq, _), _, in_seq, _ = run(False)
+    lb_wrap, lb_name = lb_wrappers(padding, hevc)
     with Capture({"sao": (hevc, "sao_search_apply"), **oq_wrappers(hevc),
                   "grid_smooth": (smoothing, "grid_smooth"),
                   "m_exact": (recolor, "exact_match_batch"),
-                  "m_blend": (recolor, "blend_batch")}, keep=False) as k_calls:
+                  "m_blend": (recolor, "blend_batch"), **lb_wrap}, rename=lb_name,
+                 keep=False) as k_calls:
         t_p1, (stream, recon), launches, inexact, enc = run(True)
     m_d_calls(launches, k_calls.counts, "the level-batched path", n,
               [("recolor_exact_batch", k_calls.counts["m_exact"], 1),
                ("recolor_blend_batch", k_calls.counts["m_blend"], 1)])
     one_a_call("sao", launches, k_calls.counts, "the level-batched path")
+    lb_launch_check(launches, k_calls.counts, "the level-batched path")
     oq_one_a_call(launches, k_calls.counts, "the level-batched path")
     print_calls(k_calls.counts, "the level-batched path", n)
     t_p2 = run(True)[0]

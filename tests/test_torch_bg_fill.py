@@ -1,6 +1,7 @@
 """PyTorch port vs JAX reference: the background fills of attribute images
 (vpcc_tpu/ops/padding.py `dilate_fill`, `harmonic_fill`, `smooth_fill` and
-`fill_rgb`'s attributeBGFill dispatch).
+`fill_rgb`'s attributeBGFill dispatch), and `push_pull_fill` at the shapes
+of kernel L's tile plan.
 
 The port's plain versions (kernel W's and kernel L's twins) run on the CPU
 on the same inputs, made from numpy seeds, as the JAX functions: random
@@ -17,6 +18,7 @@ atlases: at power-of-two widths XLA's program for `push_pull_fill` (and so
 changes nothing for integer planes whose level sums stay below 2^24.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,3 +142,32 @@ def test_fill_rgb_matches_reference(mode):
     for ly in range(2):
         want = jpad.fill_rgb(jnp.asarray(imgs[ly]), jnp.asarray(occ), mode)
         np.testing.assert_array_equal(got[ly].permute(1, 2, 0).numpy(), np.asarray(want))
+
+
+# kernel L's tile plan (csrc/push_pull.cu): one level (6x10 has L = 1),
+# L < 5 and a ragged region (12x20), L > 5 with 1024-wide planes (64x1024,
+# L = 6: tile push, top, tile pull), a single occupied pixel (every fill
+# from the coarse levels), and a stack with an occupancy per plane (the
+# level path's vmapped `_round_int_plane`)
+PP_CASES = ["6x10", "12x20", "64x1024", "single_pixel", "stack3"]
+
+
+@pytest.mark.parametrize("case", PP_CASES)
+def test_push_pull_tile_plan_matches_reference(case):
+    """`push_pull_fill_plain` and `push_pull_round_plain` against the
+    reference's `push_pull_fill` (and its rounding) at the shapes of kernel
+    L's tile plan, bit for bit."""
+    rng = np.random.default_rng(len(case))
+    h, w = {"6x10": (6, 10), "12x20": (12, 20)}.get(case, (64, 1024))
+    shape = (3, h, w) if case == "stack3" else (h, w)
+    img = rng.integers(0, 1024, shape).astype(np.int32)
+    occ = (rng.random(shape) < 0.2).astype(np.uint8)
+    if case == "single_pixel":
+        occ[:] = 0
+        occ[41, 877] = 1
+    fill = jax.vmap(jpad.push_pull_fill) if case == "stack3" else jpad.push_pull_fill
+    want = np.asarray(fill(jnp.asarray(img), jnp.asarray(occ)))
+    got = tpad.push_pull_fill_plain(torch.as_tensor(img), torch.as_tensor(occ))
+    _eq(got, want)
+    _eq(tpad.push_pull_round_plain(torch.as_tensor(img), torch.as_tensor(occ)),
+        np.round(want).astype(np.int32))

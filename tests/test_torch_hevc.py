@@ -166,6 +166,27 @@ def test_half_pel_mc_matches_reference(bs, maxval):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("bs,maxval", [(16, 2047), (32, 255)])
+def test_half_pel_mc_far_vectors_match_reference(bs, maxval):
+    """Kernel B's plain version vs `_half_planes` + `_apply_motion_half`
+    with MVs up to +-300 half-pel (150 samples, beyond the search range:
+    windows wholly outside the tile collapse to edge values), with small
+    MVs across every tile edge, all four phases present."""
+    rng = np.random.default_rng(bs * maxval)
+    P, H, W = 2, 64, 96
+    nby, nbx = H // bs, W // bs
+    ref = rng.integers(0, maxval + 1, (P, H, W)).astype(np.int32)
+    mv = rng.integers(-300, 301, (P, nby * nbx, 2)).astype(np.int32)
+    mv[:, ::3] = rng.integers(-8, 9, mv[:, ::3].shape)
+    mv[0, :4] = [[1, 0], [0, 1], [1, 1], [0, 0]]
+    maxv = np.full(P, maxval, np.int32)
+    want = jh._apply_motion_half(jnp.asarray(ref), jnp.asarray(mv), jh.MV_RANGE,
+                                 nby, nbx, bs, jnp.asarray(maxv))
+    got = th.half_pel_mc_plain(torch.as_tensor(ref), torch.as_tensor(mv),
+                               torch.as_tensor(maxv), bs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("qp,maxval", [(30, 255), (45, 1023)])
 def test_deblock_and_sao_apply(qp, maxval):
     rng = np.random.default_rng(qp)

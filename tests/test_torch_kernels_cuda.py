@@ -148,13 +148,28 @@ def test_wavefront_decode_schedule_kernel(cuda, two_level, PT, nby, nbx, zero_cu
 
 @pytest.mark.parametrize("bs", [32, 16])
 def test_half_pel_mc_kernel(cuda, bs):
+    """Kernel B against its plain version at maxval 255, 1023 and 2047, on
+    4 and 25 tile planes: MVs within +-16 half-pel (windows across every
+    tile edge), the four phases side by side in one plane, MVs up to +-300
+    (windows wholly outside the tile, as a decoder may be sent), and the
+    phase CUs at the tile's corners.  One launch a call, no host wait."""
     rng = np.random.default_rng(bs)
-    P, H, W = 4, 96, 160
-    ref = torch.as_tensor(rng.integers(0, 1024, (P, H, W)).astype(np.int32), device=cuda)
-    mv = torch.as_tensor(rng.integers(-16, 17, (P, (H // bs) * (W // bs), 2))
-                         .astype(np.int32), device=cuda)
-    maxv = torch.full((P,), 1023, dtype=torch.int32, device=cuda)
-    _same(hevc.half_pel_mc(ref, mv, maxv, bs), hevc.half_pel_mc_plain(ref, mv, maxv, bs))
+    for maxval, P, H, W, reach in ((1023, 4, 96, 160, 16), (255, 25, 64, 64, 16),
+                                   (2047, 4, 96, 160, 300), (255, 3, 256, 256, 300),
+                                   (1023, 25, 2 * bs, 3 * bs, 8)):
+        nby, nbx = H // bs, W // bs
+        ref = torch.as_tensor(rng.integers(0, maxval + 1, (P, H, W)).astype(np.int32),
+                              device=cuda)
+        mv_np = rng.integers(-reach, reach + 1, (P, nby * nbx, 2)).astype(np.int32)
+        mv_np[0, :, 0] = (mv_np[0, :, 0] & ~1) | (np.arange(nby * nbx) >> 1 & 1)
+        mv_np[0, :, 1] = (mv_np[0, :, 1] & ~1) | (np.arange(nby * nbx) & 1)
+        mv_np[1, [0, nbx - 1, -nbx, -1]] = [[-7, -7], [-7, 7], [7, -7], [7, 7]]
+        mv = torch.as_tensor(mv_np, device=cuda)
+        maxv = torch.full((P,), maxval, dtype=torch.int32, device=cuda)
+        before = dev.LAUNCHES["half_pel_mc"]
+        got = _no_sync(lambda: hevc.half_pel_mc(ref, mv, maxv, bs))
+        assert dev.LAUNCHES["half_pel_mc"] == before + 1
+        _same(got, hevc.half_pel_mc_plain(ref, mv, maxv, bs))
 
 
 # (case, H, W, res, eom_bits, entry): W = res (one block column); H * W
@@ -751,14 +766,56 @@ def _smooth_planes(rng, P, H, W, maxval, k=9):
     return np.clip(out, 0, maxval).astype(np.int32)
 
 
-def test_push_pull_kernel(cuda):
-    from vpcc_tpu_torch.ops import padding
+def _pp_check(img, occ):
+    """Kernel L against its plain version on one call, with the launches its
+    tile plan makes (one where the pyramid has at most 5 levels, which a
+    2^5-pixel region holds, or a side is odd, else three) and no host
+    wait."""
+    P, H, W = (1, *img.shape) if img.ndim == 2 else img.shape
+    want_launches = 1 if len(padding._levels(H, W)) - 1 <= 5 else 3
+    before = dev.LAUNCHES["push_pull"]
+    got = _no_sync(lambda: padding.push_pull_round(img, occ))
+    assert dev.LAUNCHES["push_pull"] - before == want_launches <= 3
+    _same(got, padding.push_pull_round_plain(img, occ))
 
+
+def test_push_pull_kernel(cuda):
+    """Every branch of kernel L's tile plan: one level (6x10), a ragged
+    region (12x20, L = 2; 256x96, L = 5), a 1 x W plane and an odd side
+    (L = 0), 64x1024 and 1216x1280 (L = 6), 1280x1280 (L = 8), 512x1024 (L
+    = 9) and 2048x2048 (L = 11: a level t of 64x64, more pixels than the
+    top's threads): tile push, top, tile pull; the top's levels in global
+    scratch; six planes under one occupancy and three with one each; an
+    all-empty plane and a single occupied pixel."""
     rng = np.random.default_rng(3)
-    for H, W, share in ((1280, 1280, 0.6), (256, 96, 0.02), (6, 10, 0.0)):
+    shapes = ((1280, 1280, 0.6), (256, 96, 0.02), (6, 10, 0.0), (6, 10, 0.3), (12, 20, 0.2),
+              (1, 64, 0.5), (7, 12, 0.5), (64, 1024, 0.05), (1216, 1280, 0.3),
+              (512, 1024, 0.002), (2048, 2048, 0.01))
+    for H, W, share in shapes:
         img = torch.as_tensor(rng.integers(0, 1024, (H, W)).astype(np.int32), device=cuda)
         occ = torch.as_tensor((rng.random((H, W)) < share).astype(np.uint8), device=cuda)
-        _same(padding.push_pull_round(img, occ), padding.push_pull_round_plain(img, occ))
+        _pp_check(img, occ)
+    stack = torch.as_tensor(rng.integers(0, 256, (6, 1280, 1280)).astype(np.int32), device=cuda)
+    occ = torch.as_tensor((rng.random((1280, 1280)) < 0.4).astype(np.uint8), device=cuda)
+    _pp_check(stack, occ)
+    occ3 = torch.as_tensor((rng.random((3, 1280, 1280)) < 0.4).astype(np.uint8), device=cuda)
+    _pp_check(stack[:3].contiguous(), occ3)
+    _pp_check(stack[:2, :12, :20].contiguous(), occ3[:2, :12, :20].contiguous())
+    empty = torch.zeros((1280, 1280), dtype=torch.uint8, device=cuda)
+    _pp_check(stack[0], empty)
+    single = empty.clone()
+    single[637, 1011] = 1
+    _pp_check(stack[0], single)
+    big = torch.as_tensor(rng.integers(0, 1024, (2048, 2048)).astype(np.int32), device=cuda)
+    big_occ = torch.as_tensor((rng.random((2048, 2048)) < 0.02).astype(np.uint8), device=cuda)
+    smem = padding.PUSH_TOP_SMEM
+    try:
+        padding.PUSH_TOP_SMEM = 0   # the top's levels in global scratch
+        _pp_check(big, big_occ)
+        _pp_check(stack, occ)
+        _pp_check(stack[:3].contiguous(), occ3)
+    finally:
+        padding.PUSH_TOP_SMEM = smem
 
 
 def _f8_plane(h, w, planes=0, seed=8):
@@ -774,12 +831,15 @@ def _f8_plane(h, w, planes=0, seed=8):
 
 
 @pytest.mark.parametrize("h,w,planes", [(256, 256, 0), (512, 512, 0), (512, 512, 3),
-                                        (1216, 1280, 0)])
+                                        (1216, 1280, 0), (2048, 2048, 0), (64, 1024, 0),
+                                        (384, 640, 0)])
 def test_push_pull_order_kernel(cuda, h, w, planes):
-    """Kernel L in XLA's push order (pairwise levels at 256x256 and
-    512x512), over a stack with an occupancy per plane, and counting the
-    blocks past 2^24 where the order is not established (the 1x1 tops,
-    every level of 1216x1280) as its plain version counts them."""
+    """Kernel L in XLA's push order (pairwise levels at 256x256, 512x512
+    and 2048x2048), over a stack with an occupancy per plane, and counting
+    the blocks past 2^24 where the order is not established (the 1x1 tops,
+    every level of 1216x1280, 64x1024 and 384x640) as its plain version
+    counts them: once, though the tile pull rebuilds the levels the tile
+    push counted."""
     img, occ = (torch.as_tensor(a, device=cuda) for a in _f8_plane(h, w, planes))
     padding.reset_inexact()
     got = padding.push_pull_round(img, occ)

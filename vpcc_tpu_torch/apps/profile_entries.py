@@ -3,15 +3,16 @@ encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
     python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt [--kernels=...]
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D] [--trace] \
-        [--split]
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B] \
+        [--trace] [--split]
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
 
 --capture encodes one bench frame (`make_person_cloud(bits=10,
 n_samples=3_000_000, seed=7)` with the configuration of the committed
-front-end reference data, segmented by the encoder itself) and saves the
-largest call of (the encodes that only J, A, K or G need are skipped where
---kernels names none of them)
+front-end reference data, segmented by the encoder itself), with the
+package under --root (default: this checkout), and saves the largest call
+of (the encodes that only J, A, K, G or B need are skipped where --kernels
+names none of them)
 * kernel P: `pipeline.paint_attribute`, `group_dilate` and
   `gather_decoded_colors` (the scalar entries take the color inputs' first
   channel: the colors as samples, channel 0 of the two images widened to
@@ -82,7 +83,18 @@ largest call of (the encodes that only J, A, K or G need are skipped where
   (`grid_smooth.vox11`), each reported with the bytes its cell tables zero:
   the whole grid's four tables, or the records of the points' cell box
   (key "zeroed_bytes");
-the vox11 and level encodes only where --kernels names M or D.
+* kernel L: the largest `padding.push_pull_round` call of the bench frame's
+  geometry encode (`push_pull.geometry`, one plane), its `fill_rgb` call
+  (`push_pull.attribute`, six planes under one occupancy) and the level
+  path's largest call with an occupancy per plane (`push_pull.level`, from
+  the level-batched encode of the 8 bench frames);
+* kernel B: the largest `hevc.half_pel_mc` call of the two-frame encode
+  (`half_pel_mc.encode`), of the fixture decode (`half_pel_mc.decode`) and
+  a 16-px call of the geometryNominal2dBitdepth=11 encode
+  (`half_pel_mc.encode16`; where that encode searched no motion, the
+  32-px encode call with each MV copied to its four 16-px CUs);
+the vox11 encode only where --kernels names M or D, the level encode only
+where it names M or L.
 --inputs times the entries of the kernels named by --kernels, in the package
 found under --root (default: this checkout), on those inputs, so that two
 commits can be compared on one card, one process each, in turns (the grids
@@ -103,8 +115,8 @@ microseconds and calls).  --split times, for J, builds of the checkout's
 `csrc/motion_search.cu` cut after its 1st, 2nd and 3rd `__syncthreads()`
 (a `return` the compiler cannot drop), so that the differences split
 J's kernel (one block a CU, a barrier after each stage) into its stages
-(staging, integer SAD, argmin, half-pel refinement); for O, Q, H, C, M and
-D, the host microseconds a call of back-to-back calls without a
+(staging, integer SAD, argmin, half-pel refinement); for O, Q, H, C, M,
+D, L and B, the host microseconds a call of back-to-back calls without a
 synchronisation (a wrapper that waits on the card includes its wait),
 whether a call raises under torch.cuda.set_sync_debug_mode("error") and the
 synchronisations a call reports under mode "warn", and once the host
@@ -114,8 +126,16 @@ top-level key "host_parts_us"; with H or C, also H's upload of the packed
 resampled points from a host array as the encoder makes it, each round,
 and a zeroed volume of each round's slab, C's five output allocations
 against one allocation cut into the five fields, and a read of one device
-int32; top-level key "hc_host_parts_us").  With M or D, the ptxas
-lines of the checkout's recolor and grid_smooth builds (top-level key
+int32; top-level key "hc_host_parts_us"; with L and B on this checkout,
+their wrappers' steps, `lb_host_parts`, key "lb_host_parts_us"); for B, the
+device time of each
+call with every MV's phase forced to (0, 0), (0, 1), (1, 0) and (1, 1)
+(CUDA graph replay) beside the call's own mix of phases; for L and B on a
+checkout with `padding.push_pull_plan`, push_pull.cu built whole and with
+the pull phase's rebuild of levels 2..t-1 cut (key "variants": what reading
+the levels back could save at most), half_pel_mc.cu whole and with its
+window-staging loop not unrolled.  With M, D, L or B, the
+ptxas lines of the checkout's builds of those kernels (top-level key
 "ptxas", from a build made in the process).  Prints the card's name and
 power limit, then one JSON line: per entry, the runs' call and device
 milliseconds and the md5 of its output (and the trace).  --summarize reads the JSON lines
@@ -141,7 +161,7 @@ P_ENTRIES = ("paint_attribute", "group_dilate", "gather_decoded_colors")
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
 REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20, "O": 20, "Q": 20,
-        "H": 20, "C": 20, "M": 20, "D": 20}
+        "H": 20, "C": 20, "M": 20, "D": 20, "L": 20, "B": 20}
 # kernels whose device time is read from --trace rather than a CUDA graph
 NO_GRAPH = "JFOHCMD"
 F_STAGES = ("segment.pca", "segment.orient", "segment.partition")
@@ -221,17 +241,19 @@ def sao_step(hevc, src, rec, lam, w, maxv, region):
 def capture_encode(frame, cfg, device) -> tuple:
     """Encode one frame, keeping P's largest calls, E's largest call for
     each k with its grid's points, every call of G and H, K's largest, F's
-    first chain, and O's, Q's, C's, M's and D's largest.  Returns (P inputs,
-    E inputs, G inputs, K inputs, F inputs, O and Q inputs, H and C inputs,
-    M and D calls as (args, kw))."""
+    first chain, and O's, Q's, C's, M's, D's and L's largest (L: the
+    geometry planes' and `fill_rgb`'s).  Returns (P inputs, E inputs, G
+    inputs, K inputs, F inputs, O and Q inputs, H and C inputs, M and D
+    calls as (args, kw), L calls as (args, kw))."""
     from vpcc_tpu_torch import pipeline
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import (cc, coverage, neighbors, normals, reconstruct, recolor,
-                                    segmentation, smoothing)
+    from vpcc_tpu_torch.ops import (cc, coverage, neighbors, normals, padding, reconstruct,
+                                    recolor, segmentation, smoothing)
     from vpcc_tpu_torch.video import hevc
 
     p_kept, e_kept, grids, k_kept, oq_kept, c_kept = {}, {}, {}, {}, {}, {}
-    md_kept = {}
+    md_kept, l_kept = {}, {}
+    in_fill = []   # set while `fill_rgb` runs: its push-pull is the attribute call
     g_calls, f_calls, h_calls = [], [], []
     plane_kind = []   # "luma" or "chroma": the plane dispatch running now
 
@@ -270,7 +292,11 @@ def capture_encode(frame, cfg, device) -> tuple:
                   before=keep_largest(c_kept, "generate_points.encode")),
              _spy(recolor, "transfer_colors_compact",
                   before=keep_largest(md_kept, "recolor.call")),
-             _spy(smoothing, "grid_smooth", before=keep_largest(md_kept, "grid_smooth.encode"))]
+             _spy(smoothing, "grid_smooth", before=keep_largest(md_kept, "grid_smooth.encode")),
+             _spy(padding, "fill_rgb", before=lambda a, kw: in_fill.append(1),
+                  after=lambda a, kw, out: in_fill.pop()),
+             _spy(padding, "push_pull_round", before=lambda a, kw: keep_largest(
+                 l_kept, "push_pull.attribute" if in_fill else "push_pull.geometry")(a, kw))]
     try:
         Encoder(cfg, device=device).encode_gof([frame])
     finally:
@@ -303,7 +329,7 @@ def capture_encode(frame, cfg, device) -> tuple:
     hc_in = {f"coverage.r{i}": args for i, args in enumerate(h_calls)}
     hc_in.update({n: [*args, kw] for n, (args, kw) in c_kept.items()})
     return ({name: args for name, (_, args) in p_kept.items()}, e_in, g_in, k_kept, f_in,
-            oq_in, hc_in, md_kept)
+            oq_in, hc_in, md_kept, l_kept)
 
 
 def capture_recon(frame, overrides: dict, name: str, device) -> list:
@@ -334,7 +360,7 @@ def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
     inter and intra samples most evenly (and, given `sao`, kernel K's
     largest `sao_apply` call at `region` in sao[sao_name]; given `oq`,
     kernel Q's largest `rgb_refs` and `_int_planes_to_rgb` calls and kernels
-    O's, C's and D's largest calls)."""
+    O's, C's, D's and B's largest calls)."""
     from vpcc_tpu_torch.decoder import Decoder
     from vpcc_tpu_torch.ops import reconstruct, smoothing
     from vpcc_tpu_torch.video import hevc
@@ -372,7 +398,8 @@ def capture_decode(stream: bytes, name: str, device, sao: Optional[dict] = None,
                  _spy(hevc, "deblock_planes", before=keep_largest(oq, "deblock.decode")),
                  _spy(reconstruct, "generate_points",
                       before=keep_largest(oq, "generate_points.decode")),
-                 _spy(smoothing, "grid_smooth", before=keep_largest(oq, "grid_smooth.decode"))]
+                 _spy(smoothing, "grid_smooth", before=keep_largest(oq, "grid_smooth.decode")),
+                 _spy(hevc, "half_pel_mc", before=keep_largest(oq, "half_pel_mc.decode"))]
     try:
         Decoder(device=device).decode(stream)
     finally:
@@ -432,13 +459,21 @@ def capture_vox11_md(device) -> dict:
 
 def capture_level(frames, cfg, device) -> dict:
     """The largest `recolor.exact_match_batch` and `recolor.blend_batch`
-    calls of the level-batched encode of `frames`, as (args, kw)."""
+    calls of the level-batched encode of `frames`, and its largest
+    `padding.push_pull_round` call with an occupancy per plane, as (args,
+    kw)."""
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import recolor
+    from vpcc_tpu_torch.ops import padding, recolor
 
     kept = {}
+
+    def keep_planar(args, kw):
+        if args[1].ndim == 3:
+            keep_largest(kept, "push_pull.level")(args, kw)
+
     undo = [_spy(recolor, "exact_match_batch", before=keep_largest(kept, "recolor.level_exact")),
-            _spy(recolor, "blend_batch", before=keep_largest(kept, "recolor.level_blend"))]
+            _spy(recolor, "blend_batch", before=keep_largest(kept, "recolor.level_blend")),
+            _spy(padding, "push_pull_round", before=keep_planar)]
     try:
         Encoder(cfg, device=device).encode_gof(frames, parallel=True)
     finally:
@@ -552,12 +587,13 @@ def zeroed_bytes(points, grid_size: int, grid_bits: int) -> dict:
             "box_cells": box}
 
 
-def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D") -> None:
+def capture(path: Path, device="cuda",
+            kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B") -> None:
     """Encode and decode bench frames on `device` and save the inputs of
-    kernels P, E, A, G, K, J, F, O, Q, H, C, M and D (the two-frame,
+    kernels P, E, A, G, K, J, F, O, Q, H, C, M, D, L and B (the two-frame,
     two-level, vox11 front-end, lossless and PLR, vox11 and level-batched
-    encodes only where `kernels` names a kernel they feed: J; J, A, K; G;
-    C; C; M, D; M)."""
+    encodes only where `kernels` names a kernel they feed: J, B; J, A, K,
+    B; G; C; C; M, D; M, L)."""
     from vpcc_tpu_torch import device as dev
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.utils.config import VPCCConfig
@@ -571,27 +607,33 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D
         setattr(cfg, k, v)
     dev.build_kernels()
     frames = [make_person_cloud(bits=10, n_samples=3_000_000, seed=s) for s in ref["seeds"][:2]]
-    p_in, e_in, g_in, k_in, f_in, oq_in, hc_in, md = capture_encode(frames[0], cfg, device)
-    j_in = {}
-    if "J" in kernels:
-        undo = _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu32"))
+    p_in, e_in, g_in, k_in, f_in, oq_in, hc_in, md, l_in = capture_encode(frames[0], cfg,
+                                                                          device)
+    j_in, b_in = {}, {}
+    if "J" in kernels or "B" in kernels:
+        undo = [_spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu32")),
+                _spy(hevc, "half_pel_mc", before=keep_largest(b_in, "half_pel_mc.encode"))]
         try:
             Encoder(cfg, device=device).encode_gof(frames)
         finally:
-            undo()
+            for u in undo:
+                u()
     sao_calls, oq_dec = {}, {}
     a_in = {"wavefront_decode32": capture_decode(
         (data / "person_vox10_r3_gof8.vpcc").read_bytes(), "wavefront_decode32", device,
         sao_calls, "sao_apply.decode32", oq=oq_dec)}
     oq_in.update({n: args for n, (args, _) in oq_dec.items()
-                  if not n.startswith(("generate_points.", "grid_smooth."))})
+                  if not n.startswith(("generate_points.", "grid_smooth.", "half_pel_mc."))})
     md["grid_smooth.decode"] = oq_dec["grid_smooth.decode"]
+    b_in["half_pel_mc.decode"] = oq_dec["half_pel_mc.decode"]
     if "M" in kernels or "D" in kernels:
         md.update(capture_vox11_md(device))
-    if "M" in kernels:
+    if "M" in kernels or "L" in kernels:
         frames8 = frames + [make_person_cloud(bits=10, n_samples=3_000_000, seed=s)
                             for s in ref["seeds"][2:]]
-        md.update(capture_level(frames8, cfg, device))
+        level = capture_level(frames8, cfg, device)
+        l_in["push_pull.level"] = level.pop("push_pull.level")
+        md.update(level)
         del frames8
     m_in = m_inputs(md)
     d_in = {n: [*args, kw] for n, (args, kw) in md.items() if n.startswith("grid_smooth.")}
@@ -608,10 +650,16 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D
     h_in = {n: a for n, a in hc_in.items() if n.startswith("coverage.")}
     c_in = {n: a for n, a in hc_in.items() if n.startswith("generate_points.")}
     sao16 = {}
-    if any(k in kernels for k in "JAK"):
+    if any(k in kernels for k in "JAKB"):
         cfg.geometryNominal2dBitdepth = 11
+
+        def keep_b16(args, kw):
+            if args[3] == 16:
+                keep_largest(b_in, "half_pel_mc.encode16")(args, kw)
+
         undo = [_spy(hevc, "sao_search_apply", before=keep_largest(sao16, "sao.encode16", 16)),
-                _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu16"))]
+                _spy(hevc, "motion_search", before=keep_largest(j_in, "motion_search.cu16")),
+                _spy(hevc, "half_pel_mc", before=keep_b16)]
         try:
             stream, _ = Encoder(cfg, device=device).encode_gof(frames)
         finally:
@@ -619,6 +667,12 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D
                 u()
         if "motion_search.cu16" not in j_in and j_in:   # no motion searched at 16 px
             j_in["motion_search.cu16"] = ([*j_in["motion_search.cu32"][0][:4], 16], {})
+        if "half_pel_mc.encode16" not in b_in and "half_pel_mc.encode" in b_in:
+            (ref32, mv32, maxv32, _), _ = b_in["half_pel_mc.encode"]
+            P32, H32, W32 = ref32.shape
+            mv16 = mv32.view(P32, H32 // 32, 1, W32 // 32, 1, 2).expand(
+                -1, -1, 2, -1, 2, -1).reshape(P32, -1, 2).contiguous()
+            b_in["half_pel_mc.encode16"] = ([ref32, mv16, maxv32, 16], {})
         a_in["wavefront_decode16"] = capture_decode(stream, "wavefront_decode16", device,
                                                     sao_calls, "sao_apply.decode16", 16)
     if "G" in kernels:
@@ -642,7 +696,9 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D
                 "C": {n: [cpu(a) for a in args] for n, args in c_in.items()},
                 "M": {n: {k: [cpu(a) for a in v] if k == "args" else cpu(v)
                           for k, v in c.items()} for n, c in m_in.items()},
-                "D": {n: [cpu(a) for a in args] for n, args in d_in.items()}}, path)
+                "D": {n: [cpu(a) for a in args] for n, args in d_in.items()},
+                "L": {n: [cpu(a) for a in args] for n, (args, _) in l_in.items()},
+                "B": {n: [cpu(a) for a in args] for n, (args, _) in b_in.items()}}, path)
     print(f"captured P {sorted(p_in)}: rows {p_in['paint_attribute'][0].shape[0]}; E "
           + ", ".join(f"{n} {tuple(c['q'].shape)} k={c['k']} bucket={c['bucket']}"
                       for n, c in e_in.items())
@@ -661,7 +717,10 @@ def capture(path: Path, device="cuda", kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D
           + "; C " + ", ".join(f"{n} {tuple(a[0].shape)} eom_bits {a[-1].get('eom_bits', 0)}"
                               for n, a in c_in.items())
           + "; M " + ", ".join(f"{n} {shapes(c)}" for n, c in m_in.items())
-          + "; D " + ", ".join(f"{n} {tuple(a[0].shape)} grid {a[-1]}" for n, a in d_in.items()))
+          + "; D " + ", ".join(f"{n} {tuple(a[0].shape)} grid {a[-1]}" for n, a in d_in.items())
+          + "; L " + ", ".join(f"{n} {tuple(a[0].shape)} occupancy {tuple(a[1].shape)}"
+                              for n, (a, _) in l_in.items())
+          + "; B " + ", ".join(f"{n} {tuple(a[0].shape)} bs {a[3]}" for n, (a, _) in b_in.items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
@@ -670,7 +729,7 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     pipeline, neighbors, hevc, cc = pkg["pipeline"], pkg["neighbors"], pkg["hevc"], pkg["cc"]
     normals, segmentation = pkg["normals"], pkg["segmentation"]
     coverage, reconstruct = pkg["coverage"], pkg["reconstruct"]
-    recolor, smoothing = pkg["recolor"], pkg["smoothing"]
+    recolor, smoothing, padding = pkg["recolor"], pkg["smoothing"], pkg["padding"]
     on = lambda args: [a.to(device) if torch.is_tensor(a) else a for a in args]
     calls = {}
     if "P" in kernels:
@@ -773,8 +832,14 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     if "D" in kernels:
         for name, (*args, kw) in inputs.get("D", {}).items():
             calls[name] = lambda a=on(args), kw=kw: smoothing.grid_smooth(*a, **kw)
+    if "L" in kernels:
+        for name, args in inputs.get("L", {}).items():
+            calls[name] = lambda a=on(args): padding.push_pull_round(*a)
+    if "B" in kernels:
+        for name, args in inputs.get("B", {}).items():
+            calls[name] = lambda a=on(args): hevc.half_pel_mc(*a)
     letter = {n: "P" for n in calls}
-    for k in "EAGKJOQHCMD":
+    for k in "EAGKJOQHCMDLB":
         letter.update({n: k for n in inputs.get(k, {}) if n in calls})
     letter.update({n: "M" for n in calls if n.startswith("recolor.")})
     letter.update({n: "F" for n in calls if n.startswith("segment.")})
@@ -863,8 +928,8 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
             trace: bool = False, split: bool = False) -> dict:
     sys.path.insert(0, str(root))
     from vpcc_tpu_torch import pipeline
-    from vpcc_tpu_torch.ops import (cc, coverage, neighbors, normals, reconstruct, recolor,
-                                    segmentation, smoothing)
+    from vpcc_tpu_torch.ops import (cc, coverage, neighbors, normals, padding, reconstruct,
+                                    recolor, segmentation, smoothing)
     from vpcc_tpu_torch.video import hevc
 
     if Path(pipeline.__file__).resolve().parents[1] != root.resolve():
@@ -873,7 +938,7 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
     calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc, "cc": cc,
                          "normals": normals, "segmentation": segmentation,
                          "coverage": coverage, "reconstruct": reconstruct, "recolor": recolor,
-                         "smoothing": smoothing}, inputs, kernels)
+                         "smoothing": smoothing, "padding": padding}, inputs, kernels)
     res = {name: {"md5": md5(fn()), "call_ms": [], "device_ms": []}
            for name, (_, fn) in calls.items()}
     for name, (*args, kw) in inputs.get("D", {}).items():
@@ -894,8 +959,18 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
                                                         for a in args], runs)
     if split:
         for name, (letter, fn) in calls.items():
-            if letter in "OQHCMD":
+            if letter in "OQHCMDLB":
                 res[name]["host"] = host_split(fn, REPS[letter])
+    if split and "B" in kernels:
+        for name, args in inputs.get("B", {}).items():
+            res[name]["phases"] = b_phase_split(hevc, [a.cuda() if torch.is_tensor(a) else a
+                                                       for a in args])
+    if split and hasattr(padding, "push_pull_plan") and ("L" in kernels or "B" in kernels):
+        lv = variant_split(root, {n: c for n, c in calls.items() if c[0] in "LB"}, runs,
+                           tuple(k for k, letter in (("push_pull", "L"), ("half_pel_mc", "B"))
+                                 if letter in kernels))
+        for name, v in lv.items():
+            res[name]["variants"] = v
     if split and hasattr(recolor, "exact_compact") and ("M" in kernels or "D" in kernels):
         md = variant_split(root, {n: c for n, c in calls.items() if c[0] in "MD"}, runs,
                            ("recolor", "grid_smooth"))
@@ -907,6 +982,21 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
         for name, v in hc.items():
             res[name]["variants"] = v
     return res
+
+
+def b_phase_split(hevc, args, reps: int = 20) -> dict:
+    """Kernel B on one call's inputs with every MV's phase (mvy & 1, mvx &
+    1) forced to each of the four: the device ms of each (CUDA graph
+    replay), beside the share of the call's CUs at each phase."""
+    ref, mv, maxv, bs = args
+    ph = ((mv[..., 0] & 1) * 2 + (mv[..., 1] & 1)).flatten()
+    out = {"mix": {f"{k >> 1}{k & 1}": round(float((ph == k).float().mean()), 4)
+                   for k in range(4)}}
+    for fy, fx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        forced = (mv & ~1) | torch.tensor([fy, fx], dtype=torch.int32, device=mv.device)
+        out[f"device_ms_{fy}{fx}"] = round(
+            graph_ms(lambda m=forced: hevc.half_pel_mc(ref, m, maxv, bs), reps), 4)
+    return out
 
 
 def host_split(fn, reps: int) -> dict:
@@ -1037,6 +1127,61 @@ def hc_host_parts(inputs: dict) -> dict:
     return out
 
 
+def lb_host_parts(inputs: dict) -> dict:
+    """Host microseconds of kernel L's and B's wrappers and of their steps,
+    each alone (a checkout with `padding.push_pull_plan`): the wrapper on
+    the geometry and decode calls; its C entry called with arguments made
+    beforehand (the launches and ctypes' conversions); the same entry with
+    its argument types set again before each call; the output allocation;
+    the checks of the arguments (and L's plan, masks and scratch
+    lookups)."""
+    import ctypes
+
+    from vpcc_tpu_torch import device as dev
+    from vpcc_tpu_torch.ops import padding
+    from vpcc_tpu_torch.video import hevc
+
+    out = {}
+    on = lambda args: [a.cuda() if torch.is_tensor(a) else a for a in args]
+    ref, mv, maxv, bs = on(inputs["B"]["half_pel_mc.decode"])
+    P, H, W = ref.shape
+    res = torch.empty_like(ref)
+    fn = dev.kernel_fn("half_pel_mc", "half_pel_mc", hevc._MC_ARGS)
+    args = [dev.ptr(ref), dev.ptr(mv), dev.ptr(maxv), dev.ptr(res), P, H, W, bs, W // bs,
+            dev.stream_handle()]
+
+    def set_and_call(f, types, a):
+        f.argtypes, f.restype = types, ctypes.c_int
+        return f(*a)
+
+    out["B.wrapper"] = _host_us(lambda: hevc.half_pel_mc(ref, mv, maxv, bs))
+    out["B.entry"] = _host_us(lambda: fn(*args))
+    out["B.entry_setting_argtypes"] = _host_us(lambda: set_and_call(fn, hevc._MC_ARGS, args))
+    out["B.empty_like"] = _host_us(lambda: torch.empty_like(ref))
+    out["B.checks"] = _host_us(lambda: [dev.check_tensor(t, "t", torch.int32, ref.device)
+                                        for t in (ref, mv, maxv)])
+    img, occ = on(inputs["L"]["push_pull.geometry"])
+    planes = img if img.ndim == 3 else img[None]
+    Pl, Hl, Wl = planes.shape
+    _, floats = padding.push_pull_plan(Pl, Hl, Wl, occ.ndim == 3, padding.PUSH_TOP_SMEM)
+    scratch = dev.scratch("push_pull", img.device, floats)
+    lres = torch.empty_like(planes)
+    pair, unknown = padding.push_masks(Hl, Wl)
+    lfn = dev.kernel_fn("push_pull", "push_pull", padding._PP_ARGS)
+    largs = [dev.ptr(planes), dev.ptr(occ), dev.ptr(scratch), dev.ptr(lres), Pl,
+             int(occ.ndim == 3), Hl, Wl, pair, unknown, padding.PUSH_TOP_SMEM,
+             dev.ptr(padding._inexact_counter(img.device)) if unknown else padding._NULL,
+             dev.stream_handle()]
+    out["L.wrapper"] = _host_us(lambda: padding.push_pull_round(img, occ))
+    out["L.entry"] = _host_us(lambda: lfn(*largs))
+    out["L.entry_setting_argtypes"] = _host_us(lambda: set_and_call(lfn, padding._PP_ARGS, largs))
+    out["L.empty_like"] = _host_us(lambda: torch.empty_like(planes))
+    out["L.plan_masks_scratch"] = _host_us(lambda: (
+        padding.push_pull_plan(Pl, Hl, Wl, occ.ndim == 3, padding.PUSH_TOP_SMEM),
+        padding.push_masks(Hl, Wl), dev.scratch("push_pull", img.device, floats)))
+    return out
+
+
 def _after(marker: str, k: int, text: str):
     """A source edit: `text` inserted after the k-th `marker`."""
     import re
@@ -1109,7 +1254,23 @@ HC_VARIANTS["grid_smooth"] = {
     "bounds2": _swap("__launch_bounds__(kThreads, 3)\n    grid_smooth_kernel",
                      "__launch_bounds__(kThreads, 2)\n    grid_smooth_kernel"),
 }
+# --split builds of kernel L (a checkout with `padding.push_pull_plan`): whole, and
+# the pull phase without rebuilding levels 2..t-1 (its output is garbage):
+# the most that reading those levels back from phase 1 could save
+HC_VARIANTS["push_pull"] = {
+    "whole": None,
+    "pull_no_rebuild": _swap("const int rebuilt = pull ? t - 1 : t;",
+                             "const int rebuilt = pull ? 1 : t;"),
+}
+# and of kernel B: whole, and its window staged by a loop the compiler does
+# not unroll (a load at a time)
+HC_VARIANTS["half_pel_mc"] = {
+    "whole": None,
+    "staging_rolled": _swap("#pragma unroll  // every load of the thread in flight at once",
+                            "#pragma unroll 1"),
+}
 HC_ENTRIES = {"recolor": ("recolor_exact_compact", "recolor_blend_merge"),
+              "push_pull": ("push_pull",), "half_pel_mc": ("half_pel_mc",),
               "grid_smooth": ("grid_smooth",),
               "coverage": ("coverage",),
               "generate_points": ("generate_points_count", "generate_points_emit")}
@@ -1124,11 +1285,12 @@ def _or_error(fn):
         return "raised: " + str(e).splitlines()[0][:120]
 
 
-KERNEL_LETTER = {"coverage": "H", "generate_points": "C", "recolor": "M", "grid_smooth": "D"}
+KERNEL_LETTER = {"coverage": "H", "generate_points": "C", "recolor": "M", "grid_smooth": "D",
+                 "push_pull": "L", "half_pel_mc": "B"}
 
 
 def variant_split(root: Path, calls: dict, runs: int, kernels: tuple) -> dict:
-    """Kernels `kernels` (of H, C, M and D) built as HC_VARIANTS says (one
+    """Kernels `kernels` (of H, C, M, D, L and B) built as HC_VARIANTS says (one
     nvcc each, all started together) and swapped into the checkout's wrappers
     (`device.kernel_fn`'s table), each run on the captured calls of its
     kernel: per call and variant, the device kernels' us a call
@@ -1258,13 +1420,13 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D",
+    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B",
                     help="kernels whose entries are timed")
     ap.add_argument("--trace", action="store_true",
                     help="also each device kernel's time and launches a call")
     ap.add_argument("--split", action="store_true",
                     help="also kernel J's stages (builds cut after each barrier), and the "
-                         "host time a call and host waits of O, Q, H, C, M and D")
+                         "host time a call and host waits of O, Q, H, C, M, D, L and B")
     ap.add_argument("--summarize", nargs="+", type=Path, help="logs of --inputs runs")
     a = ap.parse_args(argv)
     if a.summarize:
@@ -1282,7 +1444,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     if a.capture:
-        sys.path.insert(0, str(ROOT))
+        sys.path.insert(0, str(a.root))
         capture(a.capture, kernels=a.kernels)
         return 0
     if not a.inputs:
@@ -1293,12 +1455,16 @@ def main(argv=None) -> int:
         out["host_parts_us"] = host_parts(torch.load(a.inputs)["O"]["deblock.luma"][0].cuda())
     if a.split and ("H" in a.kernels or "C" in a.kernels):
         out["hc_host_parts_us"] = hc_host_parts(torch.load(a.inputs))
-    if "M" in a.kernels or "D" in a.kernels:
+    if a.split and "L" in a.kernels and "B" in a.kernels and a.root.resolve() == ROOT:
+        out["lb_host_parts_us"] = lb_host_parts(torch.load(a.inputs))
+    built = [k for letter, k in (("M", "recolor"), ("D", "grid_smooth"), ("L", "push_pull"),
+                                 ("B", "half_pel_mc")) if letter in a.kernels]
+    if built:
         from vpcc_tpu_torch import device as dev
 
         out["ptxas"] = {k: [ln.strip() for ln in dev.BUILD_LOG.get(k, "").splitlines()
                             if "registers" in ln or "spill" in ln or "Compiling" in ln]
-                        for k in ("recolor", "grid_smooth")}
+                        for k in built}
     print(json.dumps(out))
     return 0
 

@@ -105,6 +105,7 @@ def push_order(h: int, w: int) -> str:
     return _order_table().get(f"{h}x{w}", "?" * n)
 
 
+@functools.lru_cache(maxsize=None)
 def push_masks(h: int, w: int) -> Tuple[int, int]:
     """(pair mask, count mask): bit l-1 set where level l sums P, and where
     its order is not established (its sums reaching 2^24 are counted)."""
@@ -267,16 +268,23 @@ def round_clip_plain(filled: torch.Tensor, lo: int = 0, hi: int = 255) -> torch.
 # kernel L
 
 _NULL = ctypes.c_void_p(0)
-_PP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+_PP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
 _PUSH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+# the shared memory kernel L's top phase may take, in bytes (the H100's
+# 227 KB a block; above it the top's levels go to scratch)
+PUSH_TOP_SMEM = 232448
 
 
-def scratch_floats(h: int, w: int) -> int:
-    """float32 scratch kernel L's `push_pull` needs: value, weight and fill
-    planes of every level."""
-    return sum(3 * a * b for a, b in _levels(h, w))
+@functools.lru_cache(maxsize=None)
+def push_pull_plan(P: int, H: int, W: int, planar: bool, top_smem: int) -> Tuple[int, int]:
+    """(launches, scratch floats) of kernel L's `push_pull` on P planes of
+    H x W, as csrc/push_pull.cu plans them: one launch where the pyramid has
+    at most 5 levels (or a side is odd), else three (tile push, top, tile
+    pull)."""
+    args = (P, H, W, int(planar), top_smem)
+    return tuple(dev.kernel_fn("push_pull", entry, [ctypes.c_int] * 5)(*args)
+                 for entry in ("push_pull_launches", "push_pull_scratch_floats"))
 
 
 def _check_planes(planes: torch.Tensor, occupancy: torch.Tensor, what: str):
@@ -291,8 +299,8 @@ def _check_planes(planes: torch.Tensor, occupancy: torch.Tensor, what: str):
 def push_pull_round(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tensor:
     """Kernel L: push-pull fill of an (H, W) or (P, H, W) int32 image under
     an (H, W) uint8 occupancy or one per plane (P, H, W), rounded to int32;
-    `push_pull_round_plain` on the CPU.  One launch per level covers every
-    plane."""
+    `push_pull_round_plain` on the CPU.  At most three launches cover every
+    plane (`push_pull_plan`), with no host wait."""
     if image.device.type == "cpu":
         return push_pull_round_plain(image, occupancy)
     d = image.device
@@ -304,17 +312,16 @@ def push_pull_round(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tenso
             or (occupancy.ndim == 3 and occupancy.shape[0] != planes.shape[0])):
         raise ValueError(f"push_pull: shapes {tuple(image.shape)} / {tuple(occupancy.shape)}")
     P, H, W = planes.shape
+    planar = occupancy.ndim == 3
     pair, unknown = push_masks(H, W)
-    scratch = torch.empty(P * scratch_floats(H, W), dtype=torch.float32, device=d)
+    launches, floats = push_pull_plan(P, H, W, planar, PUSH_TOP_SMEM)
+    scratch = dev.scratch("push_pull", d, floats)
     out = torch.empty_like(planes)
-    fn = dev.load_kernel("push_pull").push_pull
-    fn.argtypes, fn.restype = _PP_ARGS, ctypes.c_int
-    launched = ctypes.c_int(0)
-    rc = fn(dev.ptr(planes), dev.ptr(occupancy), dev.ptr(scratch), dev.ptr(out),
-            P, int(occupancy.ndim == 3), H, W, pair, unknown,
-            dev.ptr(_inexact_counter(d)) if unknown else _NULL, dev.stream_handle(),
-            ctypes.byref(launched))
-    dev.count_launch("push_pull", launched.value)
+    rc = dev.kernel_fn("push_pull", "push_pull", _PP_ARGS)(
+        dev.ptr(planes), dev.ptr(occupancy), dev.ptr(scratch), dev.ptr(out), P, int(planar),
+        H, W, pair, unknown, PUSH_TOP_SMEM,
+        dev.ptr(_inexact_counter(d)) if unknown else _NULL, dev.stream_handle())
+    dev.count_launch("push_pull", launches if P * H * W else 0)
     dev.check_launch("push_pull", rc)
     return out.reshape(image.shape)
 
@@ -331,12 +338,10 @@ def push_levels(planes: torch.Tensor, occupancy: torch.Tensor, min_side: int):
     n = [a * b for a, b in shapes]
     vals = torch.empty(C * sum(n), dtype=torch.float32, device=planes.device)
     wts = torch.empty(sum(n), dtype=torch.float32, device=planes.device)
-    fn = dev.load_kernel("push_pull").push_levels
-    fn.argtypes, fn.restype = _PUSH_ARGS, ctypes.c_int
     launched = ctypes.c_int(0)
-    rc = fn(dev.ptr(planes), dev.ptr(occupancy), dev.ptr(vals), dev.ptr(wts), C, H, W,
-            min_side, dev.ptr(_inexact_counter(planes.device)), dev.stream_handle(),
-            ctypes.byref(launched))
+    rc = dev.kernel_fn("push_pull", "push_levels", _PUSH_ARGS)(
+        dev.ptr(planes), dev.ptr(occupancy), dev.ptr(vals), dev.ptr(wts), C, H, W, min_side,
+        dev.ptr(_inexact_counter(planes.device)), dev.stream_handle(), ctypes.byref(launched))
     dev.count_launch("push_levels", launched.value)
     dev.check_launch("push_levels", rc)
     out_v, out_w, off = [], [], 0

@@ -291,9 +291,10 @@ _MC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def half_pel_mc(ref, mv, maxvals, bs: int):
-    """Kernel B (csrc/half_pel_mc.cu); `half_pel_mc_plain` on the CPU.  The
-    kernel clamps each sample position to the tile, which equals the
-    reference's gather from the edge-padded planes."""
+    """Kernel B (csrc/half_pel_mc.cu): one launch, a block a CU with its
+    source window staged once; `half_pel_mc_plain` on the CPU.  The kernel
+    clamps each sample position to the tile, which equals the reference's
+    gather from the edge-padded planes.  bs is 16 or 32."""
     if ref.device.type == "cpu":
         return half_pel_mc_plain(ref, mv, maxvals, bs)
     P, H, W = ref.shape
@@ -302,15 +303,14 @@ def half_pel_mc(ref, mv, maxvals, bs: int):
     dev.check_tensor(mv, "mv", torch.int32, d, 3)
     dev.check_tensor(maxvals, "maxvals", torch.int32, d, 1)
     nbx = W // bs
-    if H % bs or W % bs or mv.shape != (P, (H // bs) * nbx, 2):
-        raise ValueError(f"half_pel_mc: shapes {tuple(ref.shape)} / {tuple(mv.shape)}")
+    if bs not in (16, 32) or H % bs or W % bs or mv.shape != (P, (H // bs) * nbx, 2):
+        raise ValueError(f"half_pel_mc: shapes {tuple(ref.shape)} / {tuple(mv.shape)}, "
+                         f"bs {bs}")
     out = torch.empty_like(ref)
-    lib = dev.load_kernel("half_pel_mc")
-    fn = lib.half_pel_mc
-    fn.argtypes, fn.restype = _MC_ARGS, ctypes.c_int
-    rc = fn(dev.ptr(ref), dev.ptr(mv), dev.ptr(maxvals), dev.ptr(out),
-            P, H, W, bs, nbx, dev.stream_handle())
-    dev.count_launch("half_pel_mc")
+    rc = dev.kernel_fn("half_pel_mc", "half_pel_mc", _MC_ARGS)(
+        dev.ptr(ref), dev.ptr(mv), dev.ptr(maxvals), dev.ptr(out), P, H, W, bs, nbx,
+        dev.stream_handle())
+    dev.count_launch("half_pel_mc", 1 if out.numel() else 0)
     dev.check_launch("half_pel_mc", rc)
     return out
 
