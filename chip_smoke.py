@@ -98,9 +98,13 @@ path above also runs kernels O, P and Q):
     keeping each kernel's largest call, and holds kernels M (its two
     entries: the exact match with the compaction, and the forward blend,
     splat and merge, on every recolor call of the warm-up, two launches a
-    call, the largest transfer with one host synchronisation), N, O, P
+    call, the largest transfer with one host synchronisation), N (its
+    vote writing into a copy of the colors at the boundary rows), O, P
     (paint, group dilation, gather) and Q (both directions, a 1280x1280
     T0 image) against their plain versions, exactly, timing both in turns;
+    kernel N's whole call (the warm-up's largest `presmooth_colors`: the
+    boundary rows, kernel E's k=64 sweep, the vote) against the same call
+    with the plain vote (md5 equal), timing both in turns;
     kernel O on every deblock call of the warm-up, O and Q once under sync
     debug mode "error" in one launch a call (the spy that measures each
     attribute plane converts with the unwrapped entry: no encoder call),
@@ -130,15 +134,16 @@ the quality metrics and the RD curve (kernel R, over kernels E and F):
 16. with all launch counters at 0, measures the port's decode of the
     fixture (step 5, equal to JAX's) against the regenerated source frames
     with `ops.metrics.compute_metrics` and the sources' `estimate_normals`,
-    as bench.py does; requires kernel R to have launched, every frame's D1
-    MSE and Hausdorff term to equal the JAX package's
+    as bench.py does; requires kernel R to have launched once a call,
+    every frame's D1 MSE and Hausdorff term to equal the JAX package's
     (person_vox10_rd_reference.json, made by
     tests/torch_make_rd_reference.py) and its D1/D2/Y/U/V PSNRs to lie
-    within METRICS_PSNR_TOL_DB of them; keeps the largest call of kernel
-    R's float32 D1 sum (`metrics_d2_f32`);
-17. holds kernel R against its plain version on frame 0's two directions
-    (the maximum d2 exact, float64 sums to R_FLOAT_RTOL) and its D1 sum on
-    the kept call (bit for bit), and times both in turns;
+    within METRICS_PSNR_TOL_DB of them; prints frame 0's host
+    synchronisations (sync debug mode "warn") beside its grid misses;
+17. holds kernel R's one launch over frame 0's two directions against its
+    plain version (the maximum d2 and the float32 D1 sum bit for bit,
+    float64 sums to R_FLOAT_RTOL, repeated launches bit for bit equal) and
+    times both in turns, and the unit with its host read;
 18. encodes the 8 frames at r1 and r5 (CTC QPs, JAX partitions) and, with
     step 15's r3 stream, requires each rate's stream bytes within
     RD_BYTES_TOL and mean D1/D2/Y within RD_PSNR_TOL_DB of the JAX
@@ -433,8 +438,8 @@ KERNEL_INFO = {
     "attr_group_dilate": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/ops/padding.py:149"),
     "attr_gather": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:227"),
     "color_convert": ("vpcc_tpu_torch/csrc/color_convert.cu", "vpcc_tpu/video/hevc.py:1766"),
+    # both directions, their D1 sums (vpcc_tpu/ops/metrics.py:87) included
     "metrics": ("vpcc_tpu_torch/csrc/metrics.cu", "vpcc_tpu/ops/metrics.py:57"),
-    "metrics_d2_f32": ("vpcc_tpu_torch/csrc/metrics.cu", "vpcc_tpu/ops/metrics.py:87"),
     # the vox11 path's entries (11-bit geometry)
     "grid_knn_xyz": ("vpcc_tpu_torch/csrc/grid_knn.cu", "vpcc_tpu/ops/neighbors.py:104"),
     "cc_round_voxel": ("vpcc_tpu_torch/csrc/cc_labels.cu", "vpcc_tpu/ops/cc.py:225"),
@@ -486,7 +491,7 @@ ENCODE_KERNELS = ("recolor", "presmooth", "deblock", *ATTR_ENTRIES, "color_conve
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
 E_ENCODE_ROWS = tuple(v for k, v in E_CALLS.items() if k != 16)
-METRICS_KERNELS = ("metrics", "metrics_d2_f32")
+METRICS_KERNELS = ("metrics",)
 # rows of the vox11 phase -> the launch counter each reads on that path
 VOX11_ROWS = {"grid_knn_xyz": "grid_knn_xyz", "cc_round_voxel": "cc_labels",
               "recolor_blend": "recolor"}
@@ -903,8 +908,14 @@ def bounds(name, args, out, sweeps=None):
         byt = nbytes(*args, out) + 4 * (src_col.shape[0] + eidx.shape[0]) + 12 * eidx.shape[0]
         ops = 0.0
     elif name == "presmooth":
-        colors, nidx, nd2, q_col = args[:4]
-        byt = nbytes(colors, nidx, nd2, q_col, out) + 65 * 65 * 4
+        # the neighbour rows and the query rows read; of the colors only the
+        # distinct rows that the valid slots name and the queries' own rows
+        # (the kernel gathers no other); the queries' new colors written
+        colors, nidx, nd2, bidx, _out, radius2 = args[:6]
+        valid = (nd2 < 0x7FFFFFF0) & (nd2.to(torch.float32) <= radius2)
+        rows = torch.unique(torch.cat([nidx[valid].long(), bidx])).numel()
+        byt = (rows * colors.stride(0) * colors.element_size() + nbytes(nidx, nd2, bidx)
+               + 12 * bidx.numel() + 65 * 65 * 4)
         # per slot: gate, luma (2 FMAs + 1 mul), histogram add and read,
         # entropy term, centroid adds (~12 operations)
         ops = 12.0 * nidx.numel()
@@ -918,18 +929,15 @@ def bounds(name, args, out, sweeps=None):
             + nbytes(*rgb_args, out[2])
         ops = 15.0 * (out[0].numel() + rgb_args[0].numel())
     elif name == "metrics":
-        # both directions: every input read once (positions, colors,
-        # normals, nearest index and d2), the sums written; per A row ~50
-        # float operations (error, projection, two BT.709 conversions,
-        # squares, float64 sums)
-        byt = sum(nbytes(*(t for t in a[:7] if t is not None)) for a in args) \
-            + sum(nbytes(*o) for o in out)
-        ops = 50.0 * sum(a[7] for a in args)
-    elif name == "metrics_d2_f32":
-        # the n d2 rows read once, the float32 sum written; one add a row
-        d2, n = args[:2]
-        byt = 4 * n + nbytes(out)
-        ops = float(n)
+        # the fused unit, both directions: every input read once (each
+        # cloud's positions, colors and normals are the A side of one
+        # direction and the B side of the other; nearest index and d2 of
+        # each), the result written; per A row ~50 float operations (error,
+        # projection, two BT.709 conversions, squares, float64 sums) and
+        # the D1 sum's add
+        seen = {t.data_ptr(): t for a in args for t in a[:7] if t is not None}
+        byt = nbytes(*seen.values()) + nbytes(out)
+        ops = 51.0 * sum(a[7] for a in args)
     else:  # deblock
         rec, qps, maxv = args
         byt = nbytes(rec, qps, maxv, out)
@@ -2239,6 +2247,33 @@ ATTR_FUNCS = {"attr_paint": "paint_attribute", "attr_group_dilate": "group_dilat
               "attr_gather": "gather_decoded_colors"}
 
 
+def presmooth_whole_check(smoothing, call) -> None:
+    """Kernel N's whole call (`presmooth_colors`: the boundary rows, kernel
+    E's k=64 sweep, the vote into a copy of the colors) against the same
+    call with the plain vote: md5 equal, both timed in turns."""
+    from vpcc_tpu_torch.utils.checksum import array_md5
+
+    _, args, kw = call
+    whole = lambda: smoothing.presmooth_colors(*args, **kw)
+
+    def whole_plain():
+        real = smoothing.presmooth_vote
+        smoothing.presmooth_vote = smoothing.presmooth_vote_plain
+        try:
+            return smoothing.presmooth_colors(*args, **kw)
+        finally:
+            smoothing.presmooth_vote = real
+
+    md5_k, md5_p = (array_md5(f().cpu().numpy(), "<i4") for f in (whole, whole_plain))
+    if md5_k != md5_p:
+        raise AssertionError(f"presmooth_colors: md5 {md5_k} with kernel N, {md5_p} with its "
+                             "plain version")
+    (k1, k2), (p1, p2) = time_turns(whole, whole_plain)
+    print(f"presmooth_colors (kernel N's whole call, {int(args[2].sum())} boundary rows of "
+          f"{args[0].shape[0]}): md5 equal ({md5_k}); call {k1:.4f}/{k2:.4f} ms, with the plain "
+          f"vote {p1:.4f}/{p2:.4f} ms")
+
+
 def encode_phase(dev, cfg, frames, segs):
     """Steps 13-15: kernels M-Q and the whole encoder.  Returns (rows,
     launches, (the warm encode's stream, its reconstruction))."""
@@ -2286,6 +2321,7 @@ def encode_phase(dev, cfg, frames, segs):
     t0 = time.perf_counter()
     try:
         with Capture(wrappers) as cap, Capture(e_wrap, rename=e_name) as e_cap, \
+                Capture({"presmooth_colors": (smoothing, "presmooth_colors")}) as ps_cap, \
                 CallLog(hevc, "deblock_planes") as db_log, \
                 CallLog(reconstruct, "generate_points") as gp_log, \
                 CallLog(recolor, "transfer_colors_compact") as rc_log, \
@@ -2308,14 +2344,18 @@ def encode_phase(dev, cfg, frames, segs):
     # kernels M-P == their plain versions, timed in turns
     _, rc_args, _ = cap.calls["recolor"]
     _, ps_args, _ = cap.calls["presmooth"]
+    ps_c, ps_nidx, ps_nd2, ps_bidx, ps_out, *ps_gates = ps_args
+    ps_k, ps_p = ps_out.clone(), ps_out.clone()
     _, db_args, _ = cap.calls["deblock"]
     p_args, g_args, c_args = (cap.calls[k][1] for k in ("paint", "dilate", "gather"))
     m_in = recolor_inputs(recolor, neighbors, rc_args, cfg)
     checks = {
         "recolor": (lambda: recolor_entries(recolor, m_in, cfg, plain=False),
                     lambda: recolor_entries(recolor, m_in, cfg, plain=True), m_in),
-        "presmooth": (lambda: smoothing.presmooth_vote(*ps_args),
-                      lambda: smoothing.presmooth_vote_plain(*ps_args), ps_args),
+        "presmooth": (lambda: smoothing.presmooth_vote(ps_c, ps_nidx, ps_nd2, ps_bidx, ps_k,
+                                                       *ps_gates),
+                      lambda: smoothing.presmooth_vote_plain(ps_c, ps_nidx, ps_nd2, ps_bidx,
+                                                             ps_p, *ps_gates), ps_args),
         "deblock": (lambda: hevc.deblock_planes(*db_args),
                     lambda: hevc.deblock_planes_plain(*db_args), db_args),
     }
@@ -2364,6 +2404,7 @@ def encode_phase(dev, cfg, frames, segs):
               f"inputs {shapes}")
         rows[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=err, library_ms=lib)
+    presmooth_whole_check(smoothing, ps_cap.calls["presmooth_colors"])
     rest = sum(rows[k]["ms"] for k in ATTR_ENTRIES)
     rest_b = sum(rows[k]["bound_ms"] for k in ATTR_ENTRIES)
     print(f"kernel P's paint + group dilation + gather: kernel {rest:.4f} ms, bound "
@@ -2532,7 +2573,7 @@ def metrics_phase(dev, cfg, frames, segs, decoded, r3):
     import numpy as np
 
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import metrics
+    from vpcc_tpu_torch.ops import metrics, neighbors
 
     ref = json.loads(RD_REFERENCE.read_text())
     d = torch.device("cuda")
@@ -2545,24 +2586,22 @@ def metrics_phase(dev, cfg, frames, segs, decoded, r3):
                                         src_normals=nrm, grid_bits=10, device=d)
                 for (p, c), nrm, r in zip(src, normals, recons)]
 
-    # 16. the metrics path on the fixture's decode, counted and timed,
-    # keeping the largest call of kernel R's D1 sum
+    # 16. the metrics path on the fixture's decode, counted and timed
     dev.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     normals = [metrics.estimate_normals(p, 10, device=d) for p, _ in src]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with Capture({"metrics_d2_f32": (metrics, "d2_sum_f32")}) as cap:
-        got = measure(decoded, normals)
-        torch.cuda.synchronize()
+    got = measure(decoded, normals)
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(dev.LAUNCHES)
     print(f"metrics: source normals {(t1 - t0) / n:.4f} s/frame, compute_metrics "
           f"{(t2 - t1) / n:.4f} s/frame; launches {launches}")
-    idle = [k for k in METRICS_KERNELS if launches[k] == 0]
-    if idle:
-        raise AssertionError(f"kernel R entries not launched on the metrics path: {idle}")
+    if launches["metrics"] != n:
+        raise AssertionError(f"kernel R: {launches['metrics']} launches for {n} "
+                             "compute_metrics calls (one a call)")
     worst = 0.0
     for i, (m, r) in enumerate(zip(got, ref["fixture"]["frames"])):
         if (m.c2c_mse, m.c2c_hausdorff, m.c2c_psnr) != \
@@ -2579,51 +2618,45 @@ def metrics_phase(dev, cfg, frames, segs, decoded, r3):
     if worst > METRICS_PSNR_TOL_DB:
         raise AssertionError(f"fixture metrics differ from JAX's by {worst} dB")
 
-    # 17. kernel R == its plain version on frame 0's two directions
+    # 17. kernel R's one launch == its plain version on frame 0's two directions
     p0, c0 = src[0]
     pb = torch.as_tensor(np.asarray(decoded[0].positions, np.int32), device=d)
     cb = torch.as_tensor(decoded[0].colors, device=d)
     nb = metrics.transfer_normals(p0, normals[0], pb, 10, device=d)
-    dirs = []
-    for pa_, ca_, pb_, cb_, nb_ in ((p0, c0, pb, cb, nb), (pb, cb, p0, c0, normals[0])):
-        idx, d2 = metrics._nearest_exact(pa_, pb_, 10)
-        dirs.append((pa_, ca_, pb_, cb_, nb_, idx, d2, pa_.shape[0]))
-    kern = lambda: [metrics.metrics_reduce(*a) for a in dirs]
-    plain = lambda: [metrics.metrics_reduce_plain(*a) for a in dirs]
+    misses = [int((neighbors.nearest(neighbors.build_grid(b, 10), a)[1]
+                   >= neighbors.MAX_DIST2).sum()) for a, b in ((p0, pb), (pb, p0))]
+    syncs = host_syncs(lambda: measure(decoded[:1], normals[:1]))
+    print(f"metrics: frame 0's compute_metrics waits on the card {syncs} times (sync debug "
+          f"mode \"warn\"); grid misses of its two directions {misses} (two reads when none)")
+    (ia, da), (ib, db) = metrics._nearest_exact([(p0, pb), (pb, p0)], 10)
+    dirs = [(p0, c0, pb, cb, nb, ia, da, p0.shape[0]),
+            (pb, cb, p0, c0, normals[0], ib, db, pb.shape[0])]
+    kern = lambda: metrics.metrics_reduce(dirs)
+    plain = lambda: metrics.metrics_reduce_plain(dirs)
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
-    err, rel = 0.0, 0.0
-    for (ik, fk), (ip, fp) in zip(out_k, out_p):
-        if not torch.equal(ik, ip):
-            raise AssertionError(f"metrics: maximum d2 {int(ik)} vs plain {int(ip)}")
-        err = max(err, float((fk - fp).abs().max()))
-        rel = max(rel, float(((fk - fp).abs() / fp.abs().clamp(min=1e-300)).max()))
+    if not torch.equal(out_k[:, :2], out_p[:, :2]):
+        raise AssertionError(f"metrics: maximum d2 and D1 sum {out_k[:, :2].tolist()} vs plain "
+                             f"{out_p[:, :2].tolist()}")
+    fk, fp = out_k[:, 2:], out_p[:, 2:]
+    err = float((fk - fp).abs().max())
+    rel = float(((fk - fp).abs() / fp.abs().clamp(min=1e-300)).max())
     if rel > R_FLOAT_RTOL:
         raise AssertionError(f"metrics: float sums differ from the plain version by {rel:.3g} "
                              f"(relative; limit {R_FLOAT_RTOL})")
+    if not all(torch.equal(kern(), out_k) for _ in range(5)):
+        raise AssertionError("metrics: repeated launches differ")
     (k1, k2), (q1, q2) = time_turns(kern, plain)
+    unit = time_ms(lambda: kern().cpu(), 20)
     b_ms, b_by = bounds("metrics", dirs, out_k)
-    print(f"metrics: maximum d2 exact, float64 sums max abs err {err:.3g} (relative "
-          f"{rel:.3g}); kernel {k1:.4f}/{k2:.4f} ms, plain {q1:.3f}/{q2:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}); both directions of frame 0, rows "
-          f"{[a[7] for a in dirs]}")
+    print(f"metrics: one launch for both directions; maximum d2 and D1 sum bit for bit "
+          f"({out_k[:, :2].tolist()}), float64 sums max abs err {err:.3g} (relative {rel:.3g}), "
+          f"5 repeats bit for bit; kernel {k1:.4f}/{k2:.4f} ms (device {graph_ms(kern):.4f} ms, "
+          f"CUDA graph replay), with its host read {unit:.4f} ms, plain {q1:.3f}/{q2:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}); rows {[a[7] for a in dirs]}, D1 windows "
+          f"{[metrics.xla_windows(metrics.shape_bucket(a[7])) for a in dirs]}")
     rows = {"metrics": dict(ms=(k1 + k2) / 2, plain_ms=(q1 + q2) / 2, bound_ms=b_ms,
                             bound_by=b_by, max_abs_err=err)}
-    # kernel R's D1 sum == its plain version, bit for bit, on step 16's largest call
-    _, s_args, _ = cap.calls["metrics_d2_f32"]
-    kern = lambda: metrics.d2_sum_f32(*s_args)
-    plain = lambda: metrics.d2_sum_f32_plain(*s_args)
-    got_s, want_s = kern(), plain()
-    torch.cuda.synchronize()
-    if not torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)):
-        raise AssertionError(f"metrics_d2_f32: {float(got_s)!r} vs plain {float(want_s)!r}")
-    (k1, k2), (q1, q2) = time_turns(kern, plain)
-    b_ms, b_by = bounds("metrics_d2_f32", s_args, got_s)
-    print(f"metrics_d2_f32: bit for bit ({float(got_s)!r}); kernel {k1:.4f}/{k2:.4f} ms, "
-          f"plain {q1:.3f}/{q2:.3f} ms, bound {b_ms:.4f} ms ({b_by}); rows {s_args[1]}, "
-          f"bucket {s_args[2]}, levels {metrics.xla_windows(s_args[2])}")
-    rows["metrics_d2_f32"] = dict(ms=(k1 + k2) / 2, plain_ms=(q1 + q2) / 2, bound_ms=b_ms,
-                                  bound_by=b_by, max_abs_err=0.0, library_ms=None)
 
     # 18. the RD curve at r1 / r3 / r5 against the JAX encoder's
     npts = sum(f.point_count for f in frames)

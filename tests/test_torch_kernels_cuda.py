@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_md_cases import SMOOTH_CASES, recolor_case, smooth_case
+from torch_md_cases import (PRESMOOTH_CASES, SMOOTH_CASES, presmooth_case, recolor_case,
+                            smooth_case)
 from vpcc_tpu_torch import device as dev, pipeline
 from vpcc_tpu_torch.ops import cc, coverage, neighbors, normals, padding, pbf, plr, recolor
 from vpcc_tpu_torch.ops import reconstruct
@@ -1353,10 +1354,34 @@ def test_presmooth_kernel(cuda):
     p, c = torch.as_tensor(pos, device=cuda), torch.as_tensor(col, device=cuda)
     bidx = torch.nonzero(bnd).flatten()
     nidx, nd2 = neighbors.knn(neighbors.build_grid(p, 6), p[bidx].contiguous(), k=64, bucket=6)
-    args = (c, nidx, nd2, c[bidx].contiguous(), 64.0, 10.0, 3.0)
-    got = smoothing.presmooth_vote(*args)
-    _same(got, smoothing.presmooth_vote_plain(*args))
-    assert (got != c[bidx]).any(1).any() and (got == c[bidx]).all(1).any()
+    args = (c, nidx, nd2, bidx)
+    got = smoothing.presmooth_vote(*args, c.clone(), 64.0, 10.0, 3.0)
+    _same(got, smoothing.presmooth_vote_plain(*args, c.clone(), 64.0, 10.0, 3.0))
+    assert (got[bidx] != c[bidx]).any(1).any() and (got[bidx] == c[bidx]).all(1).any()
+    _same(got[~bnd], c[~bnd])
+    whole = smoothing.presmooth_colors(p, c, bnd, 6, 64, 64.0, 10.0, 3.0)
+    _same(whole, smoothing.presmooth_colors(p.cpu(), c.cpu(), bnd.cpu(), 6, 64, 64.0, 10.0, 3.0))
+
+
+@pytest.mark.parametrize("case", PRESMOOTH_CASES)
+def test_presmooth_kernel_cases(cuda, case):
+    """Kernel N against its plain version on crafted neighbour rows: queries
+    without a valid neighbour, with one (n = 1), entropies exactly at
+    thr_entropy and one float32 step below it (the kernel's exact runs),
+    the cloud's first and last rows; one launch, no host wait, the rows not
+    voted untouched."""
+    colors, nidx, nd2, bidx, r2, td, te = presmooth_case(case)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    c, ni, nd, b = t(colors), t(nidx), t(nd2), t(bidx)
+    out = torch.full_like(c, -1)
+    got, launches = _one_launch_no_sync(
+        "presmooth", lambda: smoothing.presmooth_vote(c, ni, nd, b, out, r2, td, te))
+    assert got is out and launches == 1
+    want = smoothing.presmooth_vote_plain(c.cpu(), ni.cpu(), nd.cpu(), b.cpu(),
+                                          torch.full_like(c.cpu(), -1), r2, td, te)
+    _same(got, want)
+    changed = (got[b] != c[b]).any(1)
+    assert changed.any() and (case == "end_rows" or not changed.all())
 
 
 def _one_launch_no_sync(name, fn):
@@ -1568,10 +1593,20 @@ def test_color_convert_kernel(cuda, H, W, B, form, dtype):
         assert launches == 1
 
 
+def _r_same(got, want):
+    """Kernel R's result against its plain version's: the maximum d2 and
+    the D1 sum bit for bit, the float64 sums to 1e-9 (R_FLOAT_RTOL in
+    chip_smoke.py: another summation order)."""
+    torch.cuda.synchronize()
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(got[:, :2], want[:, :2]), (got, want)
+    torch.testing.assert_close(got[:, 2:], want[:, 2:], rtol=1e-9, atol=0.0)
+
+
 @pytest.mark.parametrize("with_normals,with_colors", [(True, True), (False, False)])
 def test_metrics_kernel(cuda, with_normals, with_colors):
-    """Kernel R on one direction of a jittered cloud: the maximum d2
-    exact, the float64 sums to 1e-9 (another summation order)."""
+    """Kernel R on both directions of a jittered cloud: the maximum d2 and
+    the D1 sum exact, the float64 sums to 1e-9 (another summation order)."""
     from vpcc_tpu_torch.ops import metrics
 
     rng = np.random.default_rng(90)
@@ -1585,12 +1620,96 @@ def test_metrics_kernel(cuda, with_normals, with_colors):
     nb = t(nrm / np.linalg.norm(nrm, axis=1, keepdims=True)) if with_normals else None
     pa_t, pb_t = t(pa), t(pb)
     idx, d2 = neighbors.nearest(neighbors.build_grid(pb_t, 8), pa_t)
-    args = (pa_t, ca, pb_t, cb, nb, idx, d2, n - 7)
-    ik, fk = metrics.metrics_reduce(*args)
-    ip, fp = metrics.metrics_reduce_plain(*args)
-    _same(ik, ip)
-    torch.testing.assert_close(fk, fp, rtol=1e-9, atol=0.0)
-    assert (fk[0] > 0) == with_normals and (fk[1] > 0) == with_colors
+    ib, db = neighbors.nearest(neighbors.build_grid(pa_t, 8), pb_t)
+    dirs = [(pa_t, ca, pb_t, cb, nb, idx, d2, n - 7), (pb_t, cb, pa_t, ca, nb, ib, db, n)]
+    got = metrics.metrics_reduce(dirs)
+    _r_same(got, metrics.metrics_reduce_plain(dirs))
+    assert ((got[:, 2] > 0) == with_normals).all() and ((got[:, 3] > 0) == with_colors).all()
+
+
+def _r_dirs(rng, na: int, nb: int, cuda, colors=True, normals=True, shift=0, cnt_a=None):
+    """Both directions of kernel R between a random 10-bit cloud of na
+    points and a jittered copy of nb (shifted by `shift` on x), with the
+    port's nearest searches (the misses searched on the host)."""
+    from vpcc_tpu_torch.ops import metrics
+
+    keys = rng.choice(1 << 30, max(na, nb), replace=False)
+    pos = np.stack([keys >> 20, (keys >> 10) & 1023, keys & 1023], 1).astype(np.int32)
+    pa = pos[:na]
+    pb = np.clip(pos[:nb] + rng.integers(-2, 3, (nb, 3)) + [shift, 0, 0], 0, 1023)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    pa_t, pb_t = t(pa), t(pb.astype(np.int32))
+    ca = t(rng.integers(0, 256, (na, 3)).astype(np.uint8)) if colors else None
+    cb = t(rng.integers(0, 256, (nb, 3)).astype(np.uint8)) if colors else None
+    unit = lambda m: t((lambda v: v / np.linalg.norm(v, axis=1, keepdims=True))(
+        rng.standard_normal((m, 3))).astype(np.float32))
+    nrm_a, nrm_b = (unit(na), unit(nb)) if normals else (None, None)
+    (ia, da), (ib, db) = metrics._nearest_exact([(pa_t, pb_t), (pb_t, pa_t)], 10)
+    return [(pa_t, ca, pb_t, cb, nrm_b, ia, da, na if cnt_a is None else cnt_a),
+            (pb_t, cb, pa_t, ca, nrm_a, ib, db, nb)]
+
+
+@pytest.mark.parametrize("na,nb,colors,normals", [
+    (607_162, 573_865, True, True),      # the bench frame's rows: bucket 3 * 2^18
+    (1_000_003, 900_000, True, True),    # bucket 2^20
+    (9_435, 5_000, False, True),         # buckets 12,288 ([32, 32, 12]) and 8,192
+    (3_048_337, 2_432_872, True, False),  # the vox11 frame's: bucket 3 * 2^20
+])
+def test_metrics_fused_kernel(cuda, na, nb, colors, normals):
+    """Kernel R's one launch over both directions against its plain
+    version: the maximum d2 and the D1 sum bit for bit, the float64 sums to
+    1e-9; repeated launches give the same bits."""
+    from vpcc_tpu_torch.ops import metrics
+
+    dirs = _r_dirs(np.random.default_rng(na), na, nb, cuda, colors, normals)
+    got, launches = _one_launch_no_sync("metrics", lambda: metrics.metrics_reduce(dirs))
+    assert launches == 1
+    _r_same(got, metrics.metrics_reduce_plain(dirs))
+    for _ in range(3):
+        assert torch.equal(metrics.metrics_reduce(dirs), got)
+    assert ((got[:, 3:] > 0).all() if colors else not got[:, 3:].any())
+    assert ((got[:, 2] > 0).all() if normals else not got[:, 2].any())
+
+
+@pytest.mark.parametrize("case", ["misses", "cnt_a_0", "one_direction"])
+def test_metrics_fused_kernel_edges(cuda, case):
+    """Kernel R on a reconstruction shifted past the grid's cell window (most
+    queries of both directions taken by the host search), with a direction
+    that counts none of its rows, and refusing one direction alone."""
+    from vpcc_tpu_torch.ops import metrics
+
+    rng = np.random.default_rng(7)
+    dirs = _r_dirs(rng, 50_000, 40_000, cuda, shift=40 if case == "misses" else 0,
+                   cnt_a=0 if case == "cnt_a_0" else None)
+    if case == "one_direction":
+        with pytest.raises(ValueError, match="directions"):
+            metrics.metrics_reduce(dirs[1:])
+    got = metrics.metrics_reduce(dirs)
+    _r_same(got, metrics.metrics_reduce_plain(dirs))
+    if case == "cnt_a_0":
+        assert not got[0].any() and got[1].all()
+    if case == "misses":
+        assert got[:, 0].min() > 1000
+
+
+def test_compute_metrics_host_reads(cuda):
+    """`compute_metrics` on the card with both clouds' normals given and no
+    query missing the grid: two host reads (the miss counts, the result),
+    one launch of kernel R."""
+    from vpcc_tpu_torch.ops import metrics
+
+    rng = np.random.default_rng(3)
+    pa_t, ca, pb_t, cb, nb, *_ = _r_dirs(rng, 50_000, 50_000, cuda)[0]
+    na = torch.nn.functional.normalize(torch.randn(pa_t.shape, device=cuda), dim=1)
+    n0 = dev.LAUNCHES["metrics"]
+    m, syncs = _syncs(lambda: metrics.compute_metrics(pa_t, ca, pb_t, cb, 1023, src_normals=na,
+                                                      rec_normals=nb, device=cuda))
+    assert syncs == 2 and dev.LAUNCHES["metrics"] == n0 + 1
+    host = metrics.compute_metrics(pa_t.cpu(), ca.cpu(), pb_t.cpu(), cb.cpu(), 1023,
+                                   src_normals=na.cpu(), rec_normals=nb.cpu(), device="cpu")
+    assert (m.c2c_mse, m.c2c_hausdorff) == (host.c2c_mse, host.c2c_hausdorff)
+    assert abs(m.c2p_psnr - host.c2p_psnr) < 1e-6
+    assert abs(m.color_psnr[0] - host.color_psnr[0]) < 1e-6
 
 
 @pytest.mark.parametrize("n,frac,n_aux", [(0, 0.0, 1), (3000, 0.0, 1), (700_000, 0.007, 5000),
@@ -1611,17 +1730,22 @@ def test_eom_colors_kernel(cuda, n, frac, n_aux):
 
 @pytest.mark.parametrize("n", [5000, 1_435_657, 2_432_872])
 def test_metrics_d2_f32_kernel(cuda, n):
-    """Kernel R's D1 sum in XLA's CPU order == its plain version, bit for
-    bit, at bucket lengths with a 32-wide and a 24-wide level."""
+    """Kernel R's D1 sum in XLA's CPU order (inside its one launch) ==
+    `d2_sum_f32_plain`, bit for bit, at bucket lengths with a 32-wide and a
+    24-wide level."""
     from vpcc_tpu_torch.ops import metrics
 
     rng = np.random.default_rng(n)
     d2 = torch.as_tensor(rng.integers(0, 41, n).astype(np.int32), device=cuda)
+    pos = torch.zeros((n, 3), dtype=torch.int32, device=cuda)
+    idx = torch.zeros(n, dtype=torch.int32, device=cuda)
     cap = metrics.shape_bucket(n)
-    n0 = dev.LAUNCHES["metrics_d2_f32"]
-    got = metrics.d2_sum_f32(d2, n, cap)
-    assert dev.LAUNCHES["metrics_d2_f32"] == n0 + len(metrics.xla_windows(cap))
-    _same(got, metrics.d2_sum_f32_plain(d2, n, cap))
+    n0 = dev.LAUNCHES["metrics"]
+    got = metrics.metrics_reduce([(pos, None, pos, None, None, idx, d2, n)] * 2)
+    assert dev.LAUNCHES["metrics"] == n0 + 1
+    want = metrics.d2_sum_f32_plain(d2, n, cap)
+    torch.cuda.synchronize()
+    assert float(got[0, 1]) == float(want) == float(got[1, 1])
 
 
 @pytest.mark.parametrize("case", ["empty", "one_cell", "cloud"])

@@ -13,8 +13,13 @@ change nothing.  Tolerances:
   sum in XLA's CPU order, one float32 division), the other MSEs to
   MSE_RTOL (float64 sums here, float32 sums in XLA's order there), every
   PSNR to PSNR_ATOL_DB;
-* `d2_sum_f32`: bit for bit equal to XLA's float32 `jnp.sum` at bucket
-  lengths where the sum passes 2^24.
+* `d2_sum_f32_plain` (kernel R's D1 sum): bit for bit equal to XLA's
+  float32 `jnp.sum` at bucket lengths where the sum passes 2^24, also
+  through `metrics_reduce_plain` at a bucket whose windows are not all 32,
+  and through the block tiling that `metrics_plan` lays out for the kernel;
+* `metrics_reduce_plain` (both directions in one call) against the JAX
+  package's `_directional` on each direction: the D1 MSE and Hausdorff term
+  equal, the other MSEs to MSE_RTOL.
 """
 
 import dataclasses
@@ -181,11 +186,162 @@ def test_d2_sum_f32_matches_xla(n):
     x = np.zeros(cap, np.float32)
     x[:n] = d2
     want = np.asarray(jnp.sum(jnp.asarray(x)))
-    got = tm.d2_sum_f32(torch.as_tensor(d2), n, cap).numpy()
+    got = tm.d2_sum_f32_plain(torch.as_tensor(d2), n, cap).numpy()
     exact = float(d2.astype(np.int64).sum())
     print(f"n={n} cap={cap}: XLA {want!r}, port {got!r}, exact {exact}")
     assert exact > 2 ** 24 and got.dtype == np.float32
     assert got.tobytes() == want.tobytes()
+
+
+def _jax_directional(pa, ca, n_a, pb, cb, nb, bits):
+    """The JAX package's `_directional` on A's first n_a rows, with A and B
+    padded to their shape buckets as its `compute_metrics` pads them."""
+    from vpcc_tpu.core.pointcloud import PAD_COORD, shape_bucket
+
+    def pad(x, fill, dtype):
+        if x is None:
+            return None
+        out = np.full((shape_bucket(x.shape[0]), 3), fill, dtype)
+        out[:x.shape[0]] = x
+        return jnp.asarray(out)
+
+    return jm._directional(pad(pa, PAD_COORD, np.int32), pad(ca, 0, np.int32), n_a,
+                           pad(pb, PAD_COORD, np.int32), pad(cb, 0, np.int32),
+                           pad(nb, 0, np.float32), bits)
+
+
+@pytest.fixture(scope="module")
+def cloud_12288():
+    """A 7-bit person cloud of 9,435 points (bucket 12,288: D1 windows
+    [32, 32, 12]) and a jittered, recolored copy of 9,235."""
+    rng = np.random.default_rng(8)
+    pc = make_person_cloud(bits=7, n_samples=60000, seed=3)
+    src = pc.positions.astype(np.int32)
+    rec = np.clip(src + rng.integers(-1, 2, src.shape), 0, 127).astype(np.int32)[:-200]
+    rcol = np.clip(pc.colors[:-200].astype(int) + rng.integers(-6, 7, (len(rec), 3)),
+                   0, 255).astype(np.uint8)
+    nrm = rng.standard_normal(src.shape).astype(np.float32)
+    return dict(src=src, col=pc.colors, rec=rec, rcol=rcol,
+                nrm=nrm / np.linalg.norm(nrm, axis=1, keepdims=True))
+
+
+@pytest.mark.parametrize("case", ["bucket_12288", "no_normals", "no_colors", "cnt_a_0"])
+def test_metrics_reduce_plain_matches_directional(cloud_12288, case):
+    """Kernel R's plain version, both directions in one call, on the port's
+    nearest searches, against the JAX package's `_directional` on each
+    direction: the D1 MSE and Hausdorff term equal, the other MSEs to
+    MSE_RTOL.  cnt_a_0: the first direction counts none of its A rows."""
+    c = cloud_12288
+    src, col, rec, rcol, nrm = c["src"], c["col"], c["rec"], c["rcol"], c["nrm"]
+    assert tm.xla_windows(tm.shape_bucket(len(src))) == [32, 32, 12]
+    if case == "no_colors":
+        col = rcol = None
+    nb = None if case == "no_normals" else tm.transfer_normals(src, nrm, rec, 7, device="cpu")
+    na = None if case == "no_normals" else torch.as_tensor(nrm)
+    pa, pb = torch.as_tensor(src), torch.as_tensor(rec)
+    ca = None if col is None else torch.as_tensor(col)
+    cb = None if rcol is None else torch.as_tensor(rcol)
+    n_a = 0 if case == "cnt_a_0" else len(src)
+    (ia, da), (ib, db) = tm._nearest_exact([(pa, pb), (pb, pa)], 7)
+    res = tm.metrics_reduce_plain([(pa, ca, pb, cb, nb, ia, da, n_a),
+                                   (pb, cb, pa, ca, na, ib, db, len(rec))]).numpy()
+    assert res.shape == (2, len(tm.RESULT_FIELDS))
+    for row, n, args in ((res[0], n_a, (src, col, n_a, rec, rcol, nb)),
+                         (res[1], len(rec), (rec, rcol, len(rec), src, col, na))):
+        a, ac, cnt, b, bc, bn = args
+        want = _jax_directional(a, ac, cnt, b, bc, None if bn is None else np.asarray(bn), 7)
+        got = tm._mses(row, n, bn is not None, ac is not None)
+        assert got[0] == float(want[0]) and got[3] == float(want[3]), (got, want)
+        assert math.isclose(got[1], float(want[1]), rel_tol=MSE_RTOL)
+        np.testing.assert_allclose(got[2], np.asarray(want[2]), rtol=MSE_RTOL)
+    if case == "cnt_a_0":
+        assert not res[0].any() and res[1].all()
+    else:
+        assert (res[:, 2] > 0).all() == (case != "no_normals")
+        assert (res[:, 3:] > 0).all() == (case != "no_colors")
+
+
+@pytest.mark.parametrize("n", [9_000, 12_288])
+def test_d1_sum_uneven_windows(n):
+    """The D1 sum through `metrics_reduce_plain` at the 12,288-row bucket
+    (windows [32, 32, 12]), with d2 rows large enough that every level
+    rounds, bit for bit equal to XLA's float32 `jnp.sum` of the padded
+    rows."""
+    rng = np.random.default_rng(n)
+    cap = tm.shape_bucket(n)
+    assert tm.xla_windows(cap) == [32, 32, 12]
+    d2 = rng.integers(0, 1 << 22, n).astype(np.int32)
+    x = np.zeros(cap, np.float32)
+    x[:n] = d2
+    want = np.asarray(jnp.sum(jnp.asarray(x)))
+    pos = torch.zeros((n, 3), dtype=torch.int32)
+    row = tm.metrics_reduce_plain([(pos, None, pos, None, None, torch.zeros(n, dtype=torch.int32),
+                                    torch.as_tensor(d2), n)])[0]
+    assert float(row[0]) == d2.max()
+    assert np.float32(row[1].item()).tobytes() == want.tobytes()
+    assert float(d2.astype(np.int64).sum()) != float(want)
+
+
+def _tiled_d1_sum(d2: np.ndarray, n: int) -> np.float32:
+    """The D1 sum as kernel R's blocks and last block take it from
+    `metrics_plan` (numpy float32, each window sequentially from 0)."""
+    plan, blocks, *_ = tm.metrics_plan([n])
+    _, nb, _, levels, fold, written = plan[:6]
+    ws = plan[8:8 + levels]
+    w0, tile = ws[0], tm.R_TILE_WINDOWS * ws[0]
+
+    def windows(v, w):
+        out = np.zeros(len(v) // w, np.float32)
+        for j in range(w):
+            out = out + v[j::w]
+        return out.astype(np.float32)
+    parts = []
+    for b in range(nb):
+        rows = np.zeros(tile, np.float32)
+        r = d2[b * tile:min((b + 1) * tile, n)]
+        rows[:len(r)] = r
+        v = windows(rows, w0)
+        for k in range(1, fold):
+            v = windows(v, ws[k])
+        parts.append(v)
+    v = np.concatenate(parts)
+    assert len(v) == written
+    sizes = plan[24:24 + levels + 1]
+    full = np.zeros(max(sizes[fold], written), np.float32)
+    full[:written] = v
+    v = full[:sizes[fold]]
+    for k in range(fold, levels):
+        v = windows(v, ws[k])
+    assert len(v) == 1
+    return v[0]
+
+
+@pytest.mark.parametrize("n", [0, 1, 5_000, 9_435, 12_288, 607_162, 1_435_657])
+def test_metrics_plan_tiles_d1_sum(n):
+    """`metrics_plan`'s tiling (levels in the blocks, the rest in the last
+    block, zeros past the last block's partials) sums the D1 rows in XLA's
+    order: bit for bit equal to `d2_sum_f32_plain`."""
+    rng = np.random.default_rng(n + 1)
+    d2 = rng.integers(0, 1 << 20, n).astype(np.int32)
+    cap = tm.shape_bucket(n)
+    want = tm.d2_sum_f32_plain(torch.as_tensor(d2), n, cap).numpy()
+    got = _tiled_d1_sum(d2.astype(np.float32), n)
+    assert got.tobytes() == want.tobytes(), (n, got, want)
+
+
+def test_metrics_reduce_takes_two_directions():
+    """Kernel R's wrapper takes exactly the two directions of a
+    `compute_metrics` call, on the CPU as on the card; its plain version
+    takes any number."""
+    pos = torch.zeros((4, 3), dtype=torch.int32)
+    one = (pos, None, pos, None, None, torch.zeros(4, dtype=torch.int32),
+           torch.arange(4, dtype=torch.int32), 4)
+    for dirs in ([one], [one] * 3):
+        with pytest.raises(ValueError, match="directions"):
+            tm.metrics_reduce(dirs)
+    got = tm.metrics_reduce([one, one])
+    assert torch.equal(got, tm.metrics_reduce_plain([one] * 2))
+    assert torch.equal(got[0], tm.metrics_reduce_plain([one])[0]) and got[0, 0] == 3
 
 
 def test_metrics_need_a_device_or_cuda():

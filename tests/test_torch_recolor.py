@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_md_cases import recolor_case
+from torch_md_cases import PRESMOOTH_CASES, presmooth_case, recolor_case
 from vpcc_tpu.ops import recolor as jrecolor, smoothing as jsmoothing
 from vpcc_tpu.utils.synthetic import make_person_cloud
 from vpcc_tpu_torch.ops import recolor, smoothing
@@ -149,6 +149,58 @@ def test_presmooth_colors_matches_reference(smooth_input):
     # both branches: boundary points replaced by their centroid, and kept
     assert changed.sum() > 0 and (bnd & ~changed).sum() > 0
     assert not changed[~bnd].any()
+
+
+@pytest.mark.parametrize("bits,n_samples,bnd_share", [(7, 30000, 0.3), (6, 40000, 1.0),
+                                                     (6, 40000, 0.0)])
+def test_presmooth_colors_cases(bits, n_samples, bnd_share):
+    """`presmooth_colors` (kernel N's plain version writing into a copy of
+    the colors at the boundary rows) against the reference on a 7-bit cloud
+    and on a 6-bit one whose every or no point is a boundary point."""
+    rng = np.random.default_rng(bits)
+    pc = make_person_cloud(bits=bits, n_samples=n_samples, seed=12)
+    pos = pc.positions.astype(np.int32)
+    base = (((pos // 8) * np.array([37, 91, 53])) % 256).astype(np.int32)
+    noisy = rng.random(len(pos)) < 0.15
+    colors = np.where(noisy[:, None], rng.integers(0, 256, (len(pos), 3)), base).astype(np.int32)
+    bnd = rng.random(len(pos)) < bnd_share
+    kw = dict(k=64, radius2=64.0, thr_dist=10.0, thr_entropy=2.0)
+    ref = np.asarray(jsmoothing.presmooth_colors(
+        jnp.asarray(pos), jnp.asarray(colors), pos.shape[0], jnp.asarray(bnd), bits, **kw))
+    got = smoothing.presmooth_colors(torch.as_tensor(pos), torch.as_tensor(colors),
+                                     torch.as_tensor(bnd), bits, **kw).numpy()
+    np.testing.assert_array_equal(got, ref)
+    changed = (got != colors).any(1)
+    assert changed.any() == (bnd_share > 0) and not changed[~bnd].any()
+
+
+@pytest.mark.parametrize("case", PRESMOOTH_CASES)
+def test_presmooth_vote_plain_matches_reference(case):
+    """`presmooth_vote_plain` against the reference's `_presmooth_vote` on
+    crafted neighbour rows (queries without a valid neighbour, with one,
+    entropies exactly at thr_entropy and one float32 step below it, the
+    cloud's first and last rows): the
+    voted rows written into the copy at bidx, its other rows untouched."""
+    colors, nidx, nd2, bidx, r2, td, te = presmooth_case(case)
+    want, replace = jsmoothing._presmooth_vote(
+        jnp.asarray(colors), jnp.asarray(nidx), jnp.asarray(nd2), jnp.asarray(colors[bidx]),
+        jnp.float32(r2), jnp.float32(td), jnp.float32(te))
+    out = torch.full(colors.shape, -1, dtype=torch.int32)
+    got = smoothing.presmooth_vote_plain(torch.as_tensor(colors), torch.as_tensor(nidx),
+                                         torch.as_tensor(nd2), torch.as_tensor(bidx), out,
+                                         r2, td, te)
+    assert got is out
+    np.testing.assert_array_equal(out.numpy()[bidx], np.asarray(want))
+    rest = np.ones(len(colors), bool)
+    rest[bidx] = False
+    assert (out.numpy()[rest] == -1).all()
+    replace = np.asarray(replace)
+    if case == "entropy_tie":
+        assert replace[::2].any() and not replace[1::2].any()
+    elif case == "entropy_ulp":
+        assert replace[::2].any() and replace[1::2].any()
+    elif case in ("all_invalid", "one_valid"):
+        assert replace.any() and not (case == "all_invalid" and replace[::2].any())
 
 
 def test_entropy_table_equals_xla_expression():

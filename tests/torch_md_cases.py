@@ -1,11 +1,71 @@
-"""Crafted inputs of kernels M (color transfer) and D (grid geometry
-smoothing), shared by the CPU tests against the JAX package and the card's
-tests against the plain versions.  numpy only, made from seeds."""
+"""Crafted inputs of kernels M (color transfer), D (grid geometry
+smoothing) and N (color pre-smoothing vote), shared by the CPU tests
+against the JAX package and the card's tests against the plain versions.
+numpy only, made from seeds."""
 
 import numpy as np
 
 RECOLOR_CASES = ("mixed", "no_exact", "all_exact", "all_matched", "duplicates", "out_of_grid")
 SMOOTH_CASES = ("corners", "one_cell", "one_patch", "no_boundary", "border", "gs4", "gs16")
+PRESMOOTH_CASES = ("mixed", "all_invalid", "one_valid", "entropy_tie", "entropy_ulp",
+                   "end_rows")
+MAX_DIST2 = 0x7FFFFFF0
+
+
+def presmooth_case(name: str, n: int = 4000, m: int = 700, seed: int = 0):
+    """(colors (N, 3) int32, nidx (M, 64) int32, nd2 (M, 64) int32, bidx
+    (M,) int64, radius2, thr_dist, thr_entropy) for kernel N: N points in
+    patches of 100 of one color, 15 % recolored at random; M queries (rows
+    bidx, the first and the last row among them), each with 64 neighbours
+    drawn mostly from its own patch at squared distances 0..100 (radius2
+    64) or MAX_DIST2 (a tenth):
+    * mixed: as said;
+    * all_invalid: every other query has no neighbour within radius2;
+    * one_valid: every other query has one (n = 1);
+    * entropy_tie: every query has two, of different lumas at odd queries
+      (entropy exactly 1) and of one luma at even ones; thr_entropy 1.0;
+    * entropy_ulp: as entropy_tie, thr_entropy the next float32 above 1.0;
+    * end_rows: the queries are the first and the last row, each other's
+      neighbours."""
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(0, 256, (n // 100 + 1, 3))
+    colors = palette[np.arange(n) // 100]
+    noisy = rng.random(n) < 0.15
+    colors[noisy] = rng.integers(0, 256, (int(noisy.sum()), 3))
+    colors = colors.astype(np.int32)
+    if name == "end_rows":
+        m = 2
+    bidx = np.sort(rng.choice(n, m, replace=False))
+    bidx[0], bidx[-1] = 0, n - 1
+    own = (bidx // 100)[:, None] * 100 + rng.integers(0, 100, (m, 64))
+    nidx = np.where(rng.random((m, 64)) < 0.8, np.minimum(own, n - 1),
+                    rng.integers(0, n, (m, 64))).astype(np.int32)
+    nd2 = rng.integers(0, 101, (m, 64)).astype(np.int32)
+    nd2[rng.random((m, 64)) < 0.1] = MAX_DIST2
+    thr_entropy = 2.0
+    if name == "all_invalid":
+        nd2[::2] = np.where(rng.random((len(nd2[::2]), 64)) < 0.5, MAX_DIST2, 65)
+    elif name == "one_valid":
+        nd2[::2] = MAX_DIST2
+        nd2[::2, rng.integers(0, 64)] = 3
+    elif name in ("entropy_tie", "entropy_ulp"):
+        luma = (0.2126 * colors[:, 0] + 0.7152 * colors[:, 1] + 0.0722 * colors[:, 2])
+        nd2[:] = MAX_DIST2
+        for q in range(m):
+            a = int(nidx[q, 0])
+            if q % 2:
+                far = np.flatnonzero(np.abs(luma - luma[a]) > 8)
+                b = int(far[rng.integers(0, len(far))])
+            else:
+                b = int(np.flatnonzero(np.all(colors == colors[a], axis=1))[0])
+            slots = rng.choice(64, 2, replace=False)
+            nidx[q, slots] = (a, b)
+            nd2[q, slots] = (1, 4)
+        thr_entropy = 1.0 if name == "entropy_tie" else float(
+            np.nextafter(np.float32(1.0), np.float32(2.0)))
+    elif name == "end_rows":
+        nidx[:] = rng.choice([0, n - 1], (m, 64)).astype(np.int32)
+    return colors, nidx, nd2, bidx.astype(np.int64), 64.0, 10.0, thr_entropy
 
 
 def recolor_case(name: str, bits: int = 7, n: int = 30000, seed: int = 0):

@@ -3,7 +3,7 @@ encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
     python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt [--kernels=...]
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B] \
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N] \
         [--trace] [--split]
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
 
@@ -93,8 +93,25 @@ names none of them)
   a 16-px call of the geometryNominal2dBitdepth=11 encode
   (`half_pel_mc.encode16`; where that encode searched no motion, the
   32-px encode call with each MV copied to its four 16-px CUs);
+* kernel N: the bench frame's `smoothing.presmooth_colors` call, timed whole
+  (`presmooth.call`: the boundary rows, kernel E's k=64 sweep and the vote)
+  and as the vote alone (`presmooth.vote`) on kernel E's results computed
+  once: a checkout whose `presmooth_vote` takes `bidx` writes into one copy
+  of the colors made beforehand, an older one gathers the queries' colors
+  once beforehand and returns the voted rows (the md5 of both sides is
+  taken over the voted rows);
+* kernel R: both directions of bench.py's `compute_metrics` of the bench
+  frame against its r3 reconstruction (which the r3 stream decodes to),
+  with the source's PCA normals and the reconstruction's transferred ones,
+  on `metrics._nearest_exact`'s results computed once (`metrics.unit`:
+  both directions, both sums, results on the host: a checkout whose
+  `metrics_reduce` takes a list of directions makes its one launch and one
+  host read, an older one runs `metrics_reduce` and `d2_sum_f32` a
+  direction and reads the maximum, the D1 sum and the float64 sums, as
+  its `_directional` did; the md5 is taken over the maximum d2 and the D1
+  sum, the float64 sums are kept as "values");
 the vox11 encode only where --kernels names M or D, the level encode only
-where it names M or L.
+where it names M or L, the R and N encode only where it names R or N.
 --inputs times the entries of the kernels named by --kernels, in the package
 found under --root (default: this checkout), on those inputs, so that two
 commits can be compared on one card, one process each, in turns (the grids
@@ -103,11 +120,12 @@ are built by each package from the saved points; a package without
 step, whose three outputs are hashed either way).  For each run and entry:
 the call time (CUDA events over back-to-back calls, the wrapper's host work
 included: 100 calls for P, 20 for the others) and, but for J, F, O, H, C,
-M and D, the device time (one call captured in a CUDA graph and replayed as
+M, D, R and N's whole call, the device time (one call captured in a CUDA graph and replayed as
 often; the device times of J, F, O, H, C, M and D are their kernels' in
 --trace: an older checkout's J, F and O wrappers copy from or wait on the
 host, which a graph cannot hold, C's and M's wrappers read their counts, and
-the cooperative launches of H, M and D are kept out of graphs).
+the cooperative launches of H, M and D are kept out of graphs; R's unit and
+N's whole call read from the card).
 --trace adds, once per entry, each device kernel's time and launches a
 call (`torch.profiler` over as many calls) and the host's waits a call
 (`cudaStreamSynchronize` and `cudaMemcpy*` runtime calls: CPU
@@ -117,7 +135,8 @@ microseconds and calls).  --split times, for J, builds of the checkout's
 J's kernel (one block a CU, a barrier after each stage) into its stages
 (staging, integer SAD, argmin, half-pel refinement); for O, Q, H, C, M,
 D, L and B, the host microseconds a call of back-to-back calls without a
-synchronisation (a wrapper that waits on the card includes its wait),
+synchronisation (a wrapper that waits on the card includes its wait; for R
+and N too),
 whether a call raises under torch.cuda.set_sync_debug_mode("error") and the
 synchronisations a call reports under mode "warn", and once the host
 microseconds of the steps a wrapper may take (the tc table's upload,
@@ -127,14 +146,17 @@ resampled points from a host array as the encoder makes it, each round,
 and a zeroed volume of each round's slab, C's five output allocations
 against one allocation cut into the five fields, and a read of one device
 int32; top-level key "hc_host_parts_us"; with L and B on this checkout,
-their wrappers' steps, `lb_host_parts`, key "lb_host_parts_us"); for B, the
-device time of each
-call with every MV's phase forced to (0, 0), (0, 1), (1, 0) and (1, 1)
-(CUDA graph replay) beside the call's own mix of phases; for L and B on a
+their wrappers' steps, `lb_host_parts`, key "lb_host_parts_us"; with R
+and N on this checkout, theirs, `rn_host_parts`, key "rn_host_parts_us");
+for B, the device time of each call with every MV's phase forced to (0, 0),
+(0, 1), (1, 0) and (1, 1) (CUDA graph replay) beside the call's own mix of phases; for L and B on a
 checkout with `padding.push_pull_plan`, push_pull.cu built whole and with
 the pull phase's rebuild of levels 2..t-1 cut (key "variants": what reading
 the levels back could save at most), half_pel_mc.cu whole and with its
-window-staging loop not unrolled.  With M, D, L or B, the
+window-staging loop not unrolled; for R and N on a checkout whose wrappers
+take a list of directions and `bidx`, metrics.cu and presmooth.cu whole,
+at lower register caps and (N) cut (no luma counts, no entropy runs) or
+with four warps a block.  With M, D, L, B, R or N, the
 ptxas lines of the checkout's builds of those kernels (top-level key
 "ptxas", from a build made in the process).  Prints the card's name and
 power limit, then one JSON line: per entry, the runs' call and device
@@ -148,6 +170,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -161,9 +184,11 @@ P_ENTRIES = ("paint_attribute", "group_dilate", "gather_decoded_colors")
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
 REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20, "O": 20, "Q": 20,
-        "H": 20, "C": 20, "M": 20, "D": 20, "L": 20, "B": 20}
-# kernels whose device time is read from --trace rather than a CUDA graph
-NO_GRAPH = "JFOHCMD"
+        "H": 20, "C": 20, "M": 20, "D": 20, "L": 20, "B": 20, "R": 20, "N": 20}
+# kernels, and entries, whose device time is read from --trace rather than a
+# CUDA graph (R's unit and N's whole call read from the card)
+NO_GRAPH = "JFOHCMDR"
+NO_GRAPH_ENTRIES = ("presmooth.call",)
 F_STAGES = ("segment.pca", "segment.orient", "segment.partition")
 
 
@@ -482,6 +507,81 @@ def capture_level(frames, cfg, device) -> dict:
     return kept
 
 
+def capture_rn(frame, cfg, device) -> dict:
+    """Kernel N's call (the largest `smoothing.presmooth_colors` call of
+    the frame's encode, as [*args, kw]) and kernel R's inputs: both
+    directions of bench.py's `compute_metrics` of the frame against the
+    encode's reconstruction (source -> reconstruction, then back), with
+    the source's PCA normals and the reconstruction's transferred ones and
+    the nearest searches done once by the checkout's `_nearest_exact`, as
+    [pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a] each."""
+    import numpy as np
+
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import metrics, smoothing
+
+    kept = {}
+    undo = _spy(smoothing, "presmooth_colors", before=keep_largest(kept, "presmooth.call"))
+    try:
+        _, recons = Encoder(cfg, device=device).encode_gof([frame])
+    finally:
+        undo()
+    d = torch.device(device)
+    pa = torch.as_tensor(frame.positions.astype(np.int32), device=d)
+    ca = torch.as_tensor(frame.colors, device=d)
+    pb = torch.as_tensor(recons[0].positions.astype(np.int32), device=d)
+    cb = torch.as_tensor(recons[0].colors, device=d)
+    bits = cfg.geometryBitDepth3D
+    na = metrics.estimate_normals(pa, bits, device=d)
+    nb = metrics.transfer_normals(pa, na, pb, bits, device=d)
+    pairs = [(pa, ca, pb, cb, nb), (pb, cb, pa, ca, na)]
+    if "pairs" in inspect.signature(metrics._nearest_exact).parameters:
+        found = metrics._nearest_exact([(a, b) for a, _, b, _, _ in pairs], bits)
+    else:
+        found = [metrics._nearest_exact(a, b, bits) for a, _, b, _, _ in pairs]
+    args, kw = kept["presmooth.call"]
+    return {"N": {"presmooth.call": [*args, kw]},
+            "R": {"metrics.unit": [[a, ac, b, bc, bn, idx, d2, a.shape[0]]
+                                   for (a, ac, b, bc, bn), (idx, d2) in zip(pairs, found)]}}
+
+
+def r_unit(metrics, dirs):
+    """Kernel R's work in one `compute_metrics` call after the nearest
+    searches, with one checkout's entries, as a call: per direction
+    [maximum d2, D1 float32 sum, point-to-plane, Y, U, V sums] as a (2, 6)
+    float64 tensor on the host."""
+    if "dirs" in inspect.signature(metrics.metrics_reduce).parameters:
+        return lambda: metrics.metrics_reduce(dirs).cpu()
+
+    def older():
+        rows = []
+        for pa, ca, pb, cb, nb, idx, d2, n in dirs:
+            dmax, fsums = metrics.metrics_reduce(pa, ca, pb, cb, nb, idx, d2, n)
+            mx = int(dmax)
+            s = metrics.d2_sum_f32(d2, n, metrics.shape_bucket(n)).cpu()
+            rows.append([float(mx), float(s), *fsums.cpu().tolist()])
+        return torch.tensor(rows, dtype=torch.float64)
+    return older
+
+
+def n_vote(smoothing, neighbors, args, kw):
+    """Kernel N alone on one `presmooth_colors` call, with kernel E's k=64
+    sweep over its boundary rows done once: (the vote with one checkout's
+    wrapper, the boundary rows).  A wrapper that takes `bidx` writes into
+    a copy of the colors made here; an older one takes the queries'
+    colors, gathered here."""
+    pos, colors, bnd, grid_bits = args[:4]
+    bidx = torch.nonzero(bnd).flatten()
+    grid = neighbors.build_grid(pos, grid_bits)
+    nidx, nd2 = neighbors.knn(grid, pos[bidx].contiguous(), k=kw["k"], bucket=6)
+    gates = (kw["radius2"], kw["thr_dist"], kw["thr_entropy"])
+    if "bidx" in inspect.signature(smoothing.presmooth_vote).parameters:
+        out = colors.clone()
+        return (lambda: smoothing.presmooth_vote(colors, nidx, nd2, bidx, out, *gates)), bidx
+    q_col = colors[bidx].contiguous()
+    return (lambda: smoothing.presmooth_vote(colors, nidx, nd2, q_col, *gates)), bidx
+
+
 def m_inputs(md: dict) -> dict:
     """Kernel M's captured calls with the work of kernel E around them done
     once: for the bench frame's call the positions before compaction and
@@ -588,12 +688,12 @@ def zeroed_bytes(points, grid_size: int, grid_bits: int) -> dict:
 
 
 def capture(path: Path, device="cuda",
-            kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B") -> None:
+            kernels: str = "P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N") -> None:
     """Encode and decode bench frames on `device` and save the inputs of
-    kernels P, E, A, G, K, J, F, O, Q, H, C, M, D, L and B (the two-frame,
-    two-level, vox11 front-end, lossless and PLR, vox11 and level-batched
-    encodes only where `kernels` names a kernel they feed: J, B; J, A, K,
-    B; G; C; C; M, D; M, L)."""
+    kernels P, E, A, G, K, J, F, O, Q, H, C, M, D, L, B, R and N (the
+    two-frame, two-level, vox11 front-end, lossless and PLR, vox11,
+    level-batched and R and N encodes only where `kernels` names a kernel
+    they feed: J, B; J, A, K, B; G; C; C; M, D; M, L; R, N)."""
     from vpcc_tpu_torch import device as dev
     from vpcc_tpu_torch.encoder import Encoder
     from vpcc_tpu_torch.utils.config import VPCCConfig
@@ -649,6 +749,7 @@ def capture(path: Path, device="cuda",
                 frames[0], overrides, f"generate_points.{what}", device)
     h_in = {n: a for n, a in hc_in.items() if n.startswith("coverage.")}
     c_in = {n: a for n, a in hc_in.items() if n.startswith("generate_points.")}
+    rn = capture_rn(frames[0], cfg, device) if "R" in kernels or "N" in kernels else {}
     sao16 = {}
     if any(k in kernels for k in "JAKB"):
         cfg.geometryNominal2dBitdepth = 11
@@ -698,7 +799,10 @@ def capture(path: Path, device="cuda",
                           for k, v in c.items()} for n, c in m_in.items()},
                 "D": {n: [cpu(a) for a in args] for n, args in d_in.items()},
                 "L": {n: [cpu(a) for a in args] for n, (args, _) in l_in.items()},
-                "B": {n: [cpu(a) for a in args] for n, (args, _) in b_in.items()}}, path)
+                "B": {n: [cpu(a) for a in args] for n, (args, _) in b_in.items()},
+                "R": {n: [[cpu(a) for a in d] for d in dirs]
+                      for n, dirs in rn.get("R", {}).items()},
+                "N": {n: [cpu(a) for a in args] for n, args in rn.get("N", {}).items()}}, path)
     print(f"captured P {sorted(p_in)}: rows {p_in['paint_attribute'][0].shape[0]}; E "
           + ", ".join(f"{n} {tuple(c['q'].shape)} k={c['k']} bucket={c['bucket']}"
                       for n, c in e_in.items())
@@ -720,7 +824,11 @@ def capture(path: Path, device="cuda",
           + "; D " + ", ".join(f"{n} {tuple(a[0].shape)} grid {a[-1]}" for n, a in d_in.items())
           + "; L " + ", ".join(f"{n} {tuple(a[0].shape)} occupancy {tuple(a[1].shape)}"
                               for n, (a, _) in l_in.items())
-          + "; B " + ", ".join(f"{n} {tuple(a[0].shape)} bs {a[3]}" for n, (a, _) in b_in.items()))
+          + "; B " + ", ".join(f"{n} {tuple(a[0].shape)} bs {a[3]}" for n, (a, _) in b_in.items())
+          + "; R " + ", ".join(f"{n} rows {[d[7] for d in dirs]}"
+                              for n, dirs in rn.get("R", {}).items())
+          + "; N " + ", ".join(f"{n} {tuple(a[0].shape)} boundary {int(a[2].sum())} {a[-1]}"
+                              for n, a in rn.get("N", {}).items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
@@ -730,6 +838,7 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     normals, segmentation = pkg["normals"], pkg["segmentation"]
     coverage, reconstruct = pkg["coverage"], pkg["reconstruct"]
     recolor, smoothing, padding = pkg["recolor"], pkg["smoothing"], pkg["padding"]
+    metrics = pkg["metrics"]
     on = lambda args: [a.to(device) if torch.is_tensor(a) else a for a in args]
     calls = {}
     if "P" in kernels:
@@ -838,13 +947,34 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
     if "B" in kernels:
         for name, args in inputs.get("B", {}).items():
             calls[name] = lambda a=on(args): hevc.half_pel_mc(*a)
+    if "R" in kernels:
+        for name, dirs in inputs.get("R", {}).items():
+            calls[name] = r_unit(metrics, [on(d) for d in dirs])
+    if "N" in kernels:
+        for name, (*args, kw) in inputs.get("N", {}).items():
+            a = on(args)
+            calls[name] = lambda a=a, kw=kw: smoothing.presmooth_colors(*a, **kw)
+            calls["presmooth.vote"] = n_vote(smoothing, neighbors, a, kw)[0]
     letter = {n: "P" for n in calls}
-    for k in "EAGKJOQHCMDLB":
+    for k in "EAGKJOQHCMDLBRN":
         letter.update({n: k for n in inputs.get(k, {}) if n in calls})
     letter.update({n: "M" for n in calls if n.startswith("recolor.")})
     letter.update({n: "F" for n in calls if n.startswith("segment.")})
     letter.update({n: "Q" for n in calls if n.startswith("color.")})
+    letter.update({n: "N" for n in calls if n.startswith("presmooth.")})
     return {n: (letter[n], fn) for n, fn in calls.items()}
+
+
+def md5_views(inputs: dict, device="cuda") -> dict:
+    """entry -> the part of its output whose md5 both sides share: R's
+    exact fields (the maximum d2, the D1 sum); N's voted rows (a vote that
+    writes into a copy of the colors returns the whole copy)."""
+    views = {"metrics.unit": lambda r: r[:, :2]}
+    call = inputs.get("N", {}).get("presmooth.call")
+    if call is not None:
+        bidx = torch.nonzero(call[2]).flatten().to(device)
+        views["presmooth.vote"] = lambda o: o[bidx] if o.shape[0] == call[1].shape[0] else o
+    return views
 
 
 def color_to_planes(hevc, attr):
@@ -895,9 +1025,10 @@ def md5(out) -> str:
 
 def kernel_trace(fn, reps: int) -> dict:
     """Device kernels of `reps` calls of fn under torch.profiler: kernel
-    name -> [device us a call, launches a call]; and the host's waits,
-    "host:" + runtime call (stream synchronisations, copies) -> [CPU us a
-    call, calls a call]."""
+    name (its first 80 characters; names that share them are summed) ->
+    [device us a call, launches a call], and "device:total" -> [the sum,
+    launches]; and the host's waits, "host:" + runtime call (stream
+    synchronisations, copies) -> [CPU us a call, calls a call]."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
@@ -920,7 +1051,11 @@ def kernel_trace(fn, reps: int) -> dict:
             # the mean over the launches the trace kept, times the launches a
             # call (the trace can miss some of a cooperative kernel's records)
             n = max(1, round(e.count / reps))
-            out[e.key[:80]] = [round(t / e.count * n, 3), e.count / reps]
+            us, calls = out.get(e.key[:80], (0.0, 0.0))
+            out[e.key[:80]] = [round(us + t / e.count * n, 3), calls + e.count / reps]
+    dev_items = [v for k, v in out.items() if not k.startswith("host:")]
+    out["device:total"] = [round(sum(v[0] for v in dev_items), 3),
+                           sum(v[1] for v in dev_items)]
     return out
 
 
@@ -928,8 +1063,8 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
             trace: bool = False, split: bool = False) -> dict:
     sys.path.insert(0, str(root))
     from vpcc_tpu_torch import pipeline
-    from vpcc_tpu_torch.ops import (cc, coverage, neighbors, normals, padding, reconstruct,
-                                    recolor, segmentation, smoothing)
+    from vpcc_tpu_torch.ops import (cc, coverage, metrics, neighbors, normals, padding,
+                                    reconstruct, recolor, segmentation, smoothing)
     from vpcc_tpu_torch.video import hevc
 
     if Path(pipeline.__file__).resolve().parents[1] != root.resolve():
@@ -938,9 +1073,15 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
     calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc, "cc": cc,
                          "normals": normals, "segmentation": segmentation,
                          "coverage": coverage, "reconstruct": reconstruct, "recolor": recolor,
-                         "smoothing": smoothing, "padding": padding}, inputs, kernels)
-    res = {name: {"md5": md5(fn()), "call_ms": [], "device_ms": []}
+                         "smoothing": smoothing, "padding": padding, "metrics": metrics},
+                        inputs, kernels)
+    views = md5_views(inputs)
+    res = {name: {"md5": md5(views.get(name, lambda o: o)(fn())), "call_ms": [],
+                  "device_ms": []}
            for name, (_, fn) in calls.items()}
+    for name, (letter, fn) in calls.items():
+        if letter == "R":
+            res[name]["values"] = fn().tolist()
     for name, (*args, kw) in inputs.get("D", {}).items():
         if name in res:
             res[name]["zeroed_bytes"] = zeroed_bytes(args[0], kw.get("grid_size", 8),
@@ -948,7 +1089,7 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
     for _ in range(runs):
         for name, (letter, fn) in calls.items():
             res[name]["call_ms"].append(time_ms(fn, REPS[letter]))
-            if letter not in NO_GRAPH:
+            if letter not in NO_GRAPH and name not in NO_GRAPH_ENTRIES:
                 res[name]["device_ms"].append(graph_ms(fn, REPS[letter]))
     if trace:
         for name, (letter, fn) in calls.items():
@@ -959,7 +1100,7 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
                                                         for a in args], runs)
     if split:
         for name, (letter, fn) in calls.items():
-            if letter in "OQHCMDLB":
+            if letter in "OQHCMDLBRN":
                 res[name]["host"] = host_split(fn, REPS[letter])
     if split and "B" in kernels:
         for name, args in inputs.get("B", {}).items():
@@ -975,6 +1116,13 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
         md = variant_split(root, {n: c for n, c in calls.items() if c[0] in "MD"}, runs,
                            ("recolor", "grid_smooth"))
         for name, v in md.items():
+            res[name]["variants"] = v
+    if split and "dirs" in inspect.signature(metrics.metrics_reduce).parameters and (
+            "R" in kernels or "N" in kernels):
+        rn = variant_split(root, {n: c for n, c in calls.items() if c[0] in "RN"}, runs,
+                           tuple(k for k, letter in (("metrics", "R"), ("presmooth", "N"))
+                                 if letter in kernels))
+        for name, v in rn.items():
             res[name]["variants"] = v
     if split and hasattr(coverage, "column_table") and ("H" in kernels or "C" in kernels):
         hc = variant_split(root, {n: c for n, c in calls.items() if c[0] in "HC"}, runs,
@@ -1182,6 +1330,60 @@ def lb_host_parts(inputs: dict) -> dict:
     return out
 
 
+def rn_host_parts(inputs: dict) -> dict:
+    """Host microseconds of kernel R's and N's wrappers and of their steps,
+    each alone (a checkout whose wrappers take a list of directions and
+    `bidx`): R's unit (the wrapper and its host read), the wrapper alone,
+    its tensor checks, its launch plan, its C entry called with arguments
+    made beforehand, the host read of a result made beforehand; N's
+    wrapper, its checks and its C entry."""
+    import ctypes
+
+    from vpcc_tpu_torch import device as dev
+    from vpcc_tpu_torch.ops import metrics, neighbors, smoothing
+
+    out = {}
+    on = lambda args: [a.cuda() if torch.is_tensor(a) else a for a in args]
+    dirs = [on(d) for d in inputs["R"]["metrics.unit"]]
+    tensors = [(t, dt) for d in dirs for t, dt in zip(d[:7], (
+        torch.int32, torch.uint8, torch.int32, torch.uint8, torch.float32, torch.int32,
+        torch.int32)) if t is not None]
+    res = metrics.metrics_reduce(dirs)
+    counts = [d[7] for d in dirs]
+    plan, blocks, part_off, lvl_off, nbytes = metrics.metrics_plan(counts)
+    scratch = dev.scratch("metrics", res.device, -(-nbytes // 4))
+    ptrs = (ctypes.c_void_p * 14)(*[None if t is None else t.data_ptr() for d in dirs
+                                    for t in d[:7]])
+    fn = dev.kernel_fn("metrics", "metrics_reduce", metrics._R_ARGS)
+    args = [ptrs, (ctypes.c_int * len(plan))(*plan), blocks, dev.ptr(scratch), part_off,
+            lvl_off, dev.ptr(res), dev.stream_handle()]
+    out["R.unit"] = _host_us(lambda: metrics.metrics_reduce(dirs).cpu())
+    out["R.wrapper"] = _host_us(lambda: metrics.metrics_reduce(dirs))
+    out["R.checks"] = _host_us(lambda: [dev.check_tensor(t, "t", dt, res.device)
+                                        for t, dt in tensors])
+    out["R.plan"] = _host_us(lambda: metrics.metrics_plan(counts))
+    out["R.entry"] = _host_us(lambda: fn(*args))
+    out["R.read"] = _host_us(lambda: res.cpu())
+    pos, colors, bnd, grid_bits, kw = on(inputs["N"]["presmooth.call"])
+    bidx = torch.nonzero(bnd).flatten()
+    nidx, nd2 = neighbors.knn(neighbors.build_grid(pos, grid_bits), pos[bidx].contiguous(),
+                              k=kw["k"], bucket=6)
+    gates = (kw["radius2"], kw["thr_dist"], kw["thr_entropy"])
+    copy = colors.clone()
+    nfn = dev.kernel_fn("presmooth", "presmooth_vote", smoothing._VOTE_ARGS)
+    nargs = [dev.ptr(colors), dev.ptr(nidx), dev.ptr(nd2), dev.ptr(bidx),
+             dev.ptr(smoothing.entropy_table(colors.device)), bidx.numel(), kw["k"],
+             *gates, dev.ptr(copy), dev.stream_handle()]
+    out["N.wrapper"] = _host_us(lambda: smoothing.presmooth_vote(colors, nidx, nd2, bidx, copy,
+                                                                 *gates))
+    out["N.checks"] = _host_us(lambda: [
+        dev.check_tensor(t, "t", dt, colors.device)
+        for t, dt in ((colors, torch.int32), (nidx, torch.int32), (nd2, torch.int32),
+                      (bidx, torch.int64), (copy, torch.int32))])
+    out["N.entry"] = _host_us(lambda: nfn(*nargs))
+    return out
+
+
 def _after(marker: str, k: int, text: str):
     """A source edit: `text` inserted after the k-th `marker`."""
     import re
@@ -1269,11 +1471,41 @@ HC_VARIANTS["half_pel_mc"] = {
     "staging_rolled": _swap("#pragma unroll  // every load of the thread in flight at once",
                             "#pragma unroll 1"),
 }
+# --split builds of kernels R and N (a checkout whose wrappers take a list of
+# directions and `bidx`): whole, at a lower register cap (more blocks an SM);
+# R with its row loop unrolled 8 times, cut after its rows (no levels, no
+# last block), gathering B's row 0 for every row, or multiplying where it
+# divides; N with no luma counts (each slot counts 1), with no entropy
+# (every candidate replaced), four warps a block (the cuts' outputs are
+# garbage)
+HC_VARIANTS["metrics"] = {
+    "whole": None,
+    "minblocks6": _swap("__launch_bounds__(kThreads) metrics_kernel",
+                        "__launch_bounds__(kThreads, 6) metrics_kernel"),
+    "unroll8": _swap("#pragma unroll 4\n  for (int i = threadIdx.x; i < rows;",
+                     "#pragma unroll 8\n  for (int i = threadIdx.x; i < rows;"),
+    "no_division": _swap("__fdiv_rn(", "__fmul_rn("),
+    "rows_only": _swap("tile_rows<false, false>(D, r0, rows, tile, s);\n  }\n  __syncthreads();",
+                       "tile_rows<false, false>(D, r0, rows, tile, s);\n  }\n  __syncthreads();"
+                       " if (D.n >= 0) return;"),
+    "gather_row0": _swap("const long long j = D.idx[rc];", "const long long j = 0;"),
+}
+HC_VARIANTS["presmooth"] = {
+    "whole": None,
+    "minblocks6": _swap("__launch_bounds__(32 * kWarps)", "__launch_bounds__(32 * kWarps, 6)"),
+    "minblocks8": _swap("__launch_bounds__(32 * kWarps)", "__launch_bounds__(32 * kWarps, 8)"),
+    "no_counts": _swap("const int cnt = __popc(same[s][0] & v0) + __popc(same[s][1] & v1);",
+                       "const int cnt = 1;"),
+    "no_entropy": _swap("replace = entropy_below(t, n, thr_entropy, lane);",
+                        "replace = t[0] >= 0.0f;"),
+    "warps4": _swap("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
+}
 HC_ENTRIES = {"recolor": ("recolor_exact_compact", "recolor_blend_merge"),
               "push_pull": ("push_pull",), "half_pel_mc": ("half_pel_mc",),
               "grid_smooth": ("grid_smooth",),
               "coverage": ("coverage",),
-              "generate_points": ("generate_points_count", "generate_points_emit")}
+              "generate_points": ("generate_points_count", "generate_points_emit"),
+              "metrics": ("metrics_reduce",), "presmooth": ("presmooth_vote",)}
 
 
 def _or_error(fn):
@@ -1286,7 +1518,7 @@ def _or_error(fn):
 
 
 KERNEL_LETTER = {"coverage": "H", "generate_points": "C", "recolor": "M", "grid_smooth": "D",
-                 "push_pull": "L", "half_pel_mc": "B"}
+                 "push_pull": "L", "half_pel_mc": "B", "metrics": "R", "presmooth": "N"}
 
 
 def variant_split(root: Path, calls: dict, runs: int, kernels: tuple) -> dict:
@@ -1420,13 +1652,14 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B",
+    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N",
                     help="kernels whose entries are timed")
     ap.add_argument("--trace", action="store_true",
                     help="also each device kernel's time and launches a call")
     ap.add_argument("--split", action="store_true",
                     help="also kernel J's stages (builds cut after each barrier), and the "
-                         "host time a call and host waits of O, Q, H, C, M, D, L and B")
+                         "host time a call and host waits of O, Q, H, C, M, D, L, B, R "
+                         "and N")
     ap.add_argument("--summarize", nargs="+", type=Path, help="logs of --inputs runs")
     a = ap.parse_args(argv)
     if a.summarize:
@@ -1457,8 +1690,11 @@ def main(argv=None) -> int:
         out["hc_host_parts_us"] = hc_host_parts(torch.load(a.inputs))
     if a.split and "L" in a.kernels and "B" in a.kernels and a.root.resolve() == ROOT:
         out["lb_host_parts_us"] = lb_host_parts(torch.load(a.inputs))
+    if a.split and "R" in a.kernels and "N" in a.kernels and a.root.resolve() == ROOT:
+        out["rn_host_parts_us"] = rn_host_parts(torch.load(a.inputs))
     built = [k for letter, k in (("M", "recolor"), ("D", "grid_smooth"), ("L", "push_pull"),
-                                 ("B", "half_pel_mc")) if letter in a.kernels]
+                                 ("B", "half_pel_mc"), ("R", "metrics"), ("N", "presmooth"))
+             if letter in a.kernels]
     if built:
         from vpcc_tpu_torch import device as dev
 

@@ -80,15 +80,15 @@ KERNELS: Dict[str, list] = {
 
 # entries of a kernel's library counted apart from it: the unpacked-table
 # k-NN of kernel E (grids above 10 bits), kernel C with EOM layers and with
-# PLR layers, kernel R's float32 D1 sum, kernel V's RDO, kernel L's push over
-# a stack, kernel W's dilation and its pull/relaxation, kernel P's five
-# entries (paint, group dilation, gather, scalar paint and gather; nothing
-# counts as "attr_image"), kernel X's viewpoint orientation (its flood
-# counts as "orient"), kernel F's high-gradient aux, the frame-batched entries of
+# PLR layers, kernel V's RDO, kernel L's push over a stack, kernel W's
+# dilation and its pull/relaxation, kernel P's five entries (paint, group
+# dilation, gather, scalar paint and gather; nothing counts as
+# "attr_image"), kernel X's viewpoint orientation (its flood counts as
+# "orient"), kernel F's high-gradient aux, the frame-batched entries of
 # kernels E and M (the level-batched GOF path), and the two-level (16/8)
 # wavefront encode and decode of kernels I and A (planes above 10 bits)
-ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "metrics_d2_f32",
-           "plr_rdo", "push_levels", "bg_dilate", "bg_relax", "attr_paint", "attr_group_dilate",
+ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "plr_rdo",
+           "push_levels", "bg_dilate", "bg_relax", "attr_paint", "attr_group_dilate",
            "attr_gather", "attr_paint_scalar", "attr_gather_scalar", "orient_viewpoint",
            "high_gradient_aux", "grid_knn_batch", "recolor_exact_batch", "recolor_blend_batch",
            "wavefront_encode16", "wavefront_decode16")
@@ -154,11 +154,12 @@ _scratch: Dict[tuple, torch.Tensor] = {}
 
 def scratch(key: str, device: torch.device, ints: int) -> torch.Tensor:
     """Kernel `key`'s int32 scratch on `device`, grown to `ints` and never
-    shrunk.  The kernels set what they read of it; calls run in stream
-    order."""
+    shrunk, zero when it grows (kernel R's ticket starts at 0 and its last
+    block sets it back; the other kernels set what they read of it); calls
+    run in stream order."""
     buf = _scratch.get((key, device))
     if buf is None or buf.numel() < ints:
-        buf = _scratch[(key, device)] = torch.empty(ints, dtype=torch.int32, device=device)
+        buf = _scratch[(key, device)] = torch.zeros(ints, dtype=torch.int32, device=device)
     return buf
 
 

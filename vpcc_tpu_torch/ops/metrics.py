@@ -8,7 +8,7 @@ its nearest B point with the grid k-NN (kernel E, `neighbors.nearest`); a
 query with no grid neighbour (d2 >= MAX_DIST2) is searched exactly on the
 host with scipy's cKDTree, as the reference does.  Kernel R
 (csrc/metrics.cu, `metrics_reduce`) then gathers B at the nearest index and
-reduces the per-point errors to sums.
+reduces the per-point errors of both directions to sums, in one launch.
 
 The JAX reference evaluates `_directional` op by op (it is not jitted), so
 every float32 operation rounds on its own: no fused multiply-adds and true
@@ -17,12 +17,14 @@ same order; the point-to-plane and color sums run in float64 (the
 reference sums them in float32, which a tolerance covers), the d2 maximum
 in int64.  The D1 MSE divides the reference's float32 sum of the
 d2 rows, taken in XLA's CPU order over its shape-bucket length
-(`d2_sum_f32`), by the point count: past 2^24 that sum rounds.
+(`d2_sum_f32_plain`), by the point count: past 2^24 that sum rounds.
 
 Unlike the reference, nothing is padded to a shape bucket: the reference's
 pad rows carry weight 0 and lie outside every grid cell, so they change no
-result; only the D1 sum's order depends on the bucket length.  Everything stays on the device but the miss check, the rows that
-missed and the final sums.
+result; only the D1 sum's order depends on the bucket length.  Everything
+stays on the device but the miss counts of both directions (one host
+read), the rows that missed, and the sums of both directions (one host
+read).
 """
 
 from __future__ import annotations
@@ -76,31 +78,10 @@ class FrameMetrics:
 
 
 # ---------------------------------------------------------------------------
-# kernel R: the per-point errors of one direction, reduced
+# kernel R: the per-point errors of both directions, reduced
 
-def metrics_reduce_plain(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a: int):
-    """Plain version of kernel R.  For A rows below `cnt_a`, with B gathered
-    at `idx`: returns (dmax 0-d int64, the maximum d2; fsums float64 [sum of
-    ((a - b) . n_b)^2, sums of the squared Y, U, V errors]).  The D1 sum is
-    `d2_sum_f32`'s.  Normals or
-    colors that are None give zero sums."""
-    d = pos_a.device
-    i = idx[:cnt_a].long()
-    dd = d2[:cnt_a].long()
-    zero = torch.zeros((), dtype=torch.int64, device=d)
-    dmax = dd.max() if cnt_a else zero
-    fsums = torch.zeros(4, dtype=torch.float64, device=d)
-    if normals_b is not None:
-        prod = (pos_a[:cnt_a] - pos_b[i]).float() * normals_b[i]
-        proj = (prod[:, 0] + prod[:, 1]) + prod[:, 2]
-        fsums[0] = (proj * proj).double().sum()
-    if col_a is not None and col_b is not None:
-        ce = rgb_to_yuv_bt709(col_a[:cnt_a]) - rgb_to_yuv_bt709(col_b[i])
-        fsums[1:] = (ce * ce).double().sum(0)
-    return dmax, fsums
-
-
-_BLOCKS_MAX = 1024
+# the columns of kernel R's result, a row a direction
+RESULT_FIELDS = ("dmax", "s_d2", "c2p", "y", "u", "v")
 
 
 def xla_windows(m: int) -> list:
@@ -119,7 +100,7 @@ def xla_windows(m: int) -> list:
 
 
 def d2_sum_f32_plain(d2: torch.Tensor, n: int, cap: int) -> torch.Tensor:
-    """Plain version of kernel R's D1 sum: the float32 sum of d2[:n]
+    """The D1 sum of kernel R's plain version: the float32 sum of d2[:n]
     padded with zeros to `cap` rows, as the reference's eager `jnp.sum`
     takes it on XLA's CPU backend (vpcc_tpu/ops/metrics.py:87): windows of
     `xla_windows(cap)` consecutive elements, each summed sequentially from
@@ -135,72 +116,125 @@ def d2_sum_f32_plain(d2: torch.Tensor, n: int, cap: int) -> torch.Tensor:
     return x[0]
 
 
-def d2_sum_f32(d2: torch.Tensor, n: int, cap: int) -> torch.Tensor:
-    """Kernel R, `metrics_d2_f32`: `d2_sum_f32_plain` on the card, one
-    launch per level, one thread per window; the plain version for CPU
-    tensors."""
-    if d2.device.type == "cpu":
-        return d2_sum_f32_plain(d2, n, cap)
-    d = d2.device
-    dev.check_tensor(d2, "d2", torch.int32, d, 1)
-    widths = xla_windows(cap)
-    if not 0 <= n <= d2.shape[0]:
-        raise ValueError(f"d2_sum_f32: n={n} outside the {d2.shape[0]} rows")
-    scratch, m = 0, cap
-    for w in widths[:-1]:
-        m //= w
-        scratch += m
-    buf = torch.empty(max(scratch, 1), dtype=torch.float32, device=d)
-    out = torch.empty((), dtype=torch.float32, device=d)
-    fn = dev.load_kernel("metrics").metrics_d2_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    launched = ctypes.c_int(0)
-    rc = fn(dev.ptr(d2), n, cap, dev.ptr(buf), dev.ptr(out), ctypes.byref(launched),
-            dev.stream_handle())
-    dev.count_launch("metrics_d2_f32", launched.value)
-    dev.check_launch("metrics_d2_f32", rc)
-    return out
+def metrics_reduce_plain(dirs) -> torch.Tensor:
+    """Plain version of kernel R.  `dirs`: directions (any number), each
+    (pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a).  For the A rows
+    below cnt_a, with B gathered at `idx`, a row of RESULT_FIELDS: the
+    maximum d2, the D1 sum (`d2_sum_f32_plain` over the shape bucket of
+    cnt_a), and the float64 sums of ((a - b) . n_b)^2 and of the squared Y,
+    U, V errors.  Normals or colors that are None give zero sums.  Returns
+    (len(dirs), 6) float64."""
+    rows = []
+    for pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a in dirs:
+        i = idx[:cnt_a].long()
+        row = torch.zeros(len(RESULT_FIELDS), dtype=torch.float64, device=pos_a.device)
+        if cnt_a:
+            row[0] = d2[:cnt_a].max().double()
+        row[1] = d2_sum_f32_plain(d2, cnt_a, shape_bucket(cnt_a)).double()
+        if normals_b is not None:
+            prod = (pos_a[:cnt_a] - pos_b[i]).float() * normals_b[i]
+            proj = (prod[:, 0] + prod[:, 1]) + prod[:, 2]
+            row[2] = (proj * proj).double().sum()
+        if col_a is not None and col_b is not None:
+            ce = rgb_to_yuv_bt709(col_a[:cnt_a]) - rgb_to_yuv_bt709(col_b[i])
+            row[3:] = (ce * ce).double().sum(0)
+        rows.append(row)
+    return torch.stack(rows)
 
 
-def metrics_reduce(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a: int):
-    """Kernel R (csrc/metrics.cu): `metrics_reduce_plain` on the card, one
-    thread per A row in a fixed grid-stride order and a two-pass block
-    reduction (deterministic: no float atomics); the plain version for CPU
-    tensors."""
-    if pos_a.device.type == "cpu":
-        return metrics_reduce_plain(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a)
-    d = pos_a.device
-    dev.check_tensor(pos_a, "pos_a", torch.int32, d, 2)
-    dev.check_tensor(pos_b, "pos_b", torch.int32, d, 2)
-    dev.check_tensor(idx, "idx", torch.int32, d, 1)
-    dev.check_tensor(d2, "d2", torch.int32, d, 1)
-    with_col = col_a is not None and col_b is not None
-    if with_col:
-        dev.check_tensor(col_a, "col_a", torch.uint8, d, 2)
-        dev.check_tensor(col_b, "col_b", torch.uint8, d, 2)
-    if normals_b is not None:
-        dev.check_tensor(normals_b, "normals_b", torch.float32, d, 2)
-    if not 0 <= cnt_a <= min(pos_a.shape[0], idx.shape[0], d2.shape[0]):
-        raise ValueError(f"metrics_reduce: cnt_a={cnt_a} outside the A rows")
-    blocks = max(1, min(_BLOCKS_MAX, -(-cnt_a // 256)))
-    part_i = torch.empty(blocks, dtype=torch.int64, device=d)
-    part_f = torch.empty((blocks, 4), dtype=torch.float64, device=d)
-    dmax = torch.empty((), dtype=torch.int64, device=d)
-    fsums = torch.empty(4, dtype=torch.float64, device=d)
-    null = ctypes.c_void_p(0)
-    fn = dev.load_kernel("metrics").metrics_reduce
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
-    fn.restype = ctypes.c_int
-    rc = fn(dev.ptr(pos_a), dev.ptr(col_a) if with_col else null, dev.ptr(pos_b),
-            dev.ptr(col_b) if with_col else null,
-            null if normals_b is None else dev.ptr(normals_b), dev.ptr(idx), dev.ptr(d2),
-            cnt_a, blocks, dev.ptr(part_i), dev.ptr(part_f), dev.ptr(dmax), dev.ptr(fsums),
-            dev.stream_handle())
-    dev.count_launch("metrics", 2)
+# kernel R's tile: level-0 windows a block (csrc/metrics.cu kTile; 64 ran
+# fastest of 32, 64 and 128 on the bench frame, PERF.md §6)
+R_TILE_WINDOWS = 64
+R_MAX_LEVELS = 16
+
+
+def metrics_plan(counts) -> tuple:
+    """Kernel R's launch for directions of `counts` A rows: (plan ints, a
+    row of 8 + 16 + 2 * 17 a direction as csrc/metrics.cu reads it; blocks
+    in all; byte offsets of the blocks' partials and of the level regions
+    in the scratch; scratch bytes).  A direction of n rows over the bucket
+    cap = shape_bucket(n) takes max(1, ceil(n / tile)) blocks of a tile of
+    R_TILE_WINDOWS level-0 windows; a block also sums each further level
+    whose windows lie inside its tile; the last block sums the rest, from the blocks' partials (its
+    first level reads zeros past them), a scratch region a level.  Every
+    shape bucket is a multiple of 8,192: its first window is 32 rows and
+    its 32-row windows fill whole tiles."""
+    plan, first, floats = [], 0, 0
+    for n in counts:
+        cap = shape_bucket(n)
+        ws = xla_windows(cap)
+        if len(ws) > R_MAX_LEVELS or ws[0] != 32 or cap // 32 % R_TILE_WINDOWS:
+            raise ValueError(f"metrics: the D1 sum over {cap} rows has windows {ws}")
+        sizes = [cap]
+        for w in ws:
+            sizes.append(sizes[-1] // w)
+        blocks = max(1, -(-n // (R_TILE_WINDOWS * ws[0])))
+        fold, per = 1, R_TILE_WINDOWS
+        while fold < len(ws) and per % ws[fold] == 0:
+            per //= ws[fold]
+            fold += 1
+        offs = [0] * (R_MAX_LEVELS + 1)
+        for k in range(fold, len(ws) + 1):
+            offs[k] = floats
+            floats += sizes[k]
+        plan += [n, blocks, first, len(ws), fold, blocks * per, 0, 0,
+                 *ws, *[0] * (R_MAX_LEVELS - len(ws)),
+                 *sizes, *[0] * (R_MAX_LEVELS + 1 - len(sizes)), *offs]
+        first += blocks
+    part_off = 16                     # after the ticket
+    lvl_off = part_off + 40 * first   # after the int64 maxima and float64 sums
+    return plan, first, part_off, lvl_off, lvl_off + 4 * floats
+
+
+_R_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def metrics_reduce(dirs) -> torch.Tensor:
+    """Kernel R (csrc/metrics.cu): `metrics_reduce_plain` on the card, both
+    directions of `dirs` in one launch (a thread a row in a fixed order,
+    fixed block trees, the last block finishing: no float atomics, repeated
+    runs give the same bits); the plain version for CPU tensors.  Returns
+    (2, 6) float64 on the tensors' device."""
+    if len(dirs) != 2:
+        raise ValueError(f"metrics_reduce: {len(dirs)} directions (two)")
+    if dirs[0][0].device.type == "cpu":
+        return metrics_reduce_plain(dirs)
+    d = dirs[0][0].device
+    ptrs, checked = [], set()
+
+    def check(t, name, dtype, ndim):
+        if id(t) not in checked:   # each cloud's tensors serve both directions
+            dev.check_tensor(t, name, dtype, d, ndim)
+            checked.add(id(t))
+
+    for pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a in dirs:
+        check(pos_a, "pos_a", torch.int32, 2)
+        check(pos_b, "pos_b", torch.int32, 2)
+        check(idx, "idx", torch.int32, 1)
+        check(d2, "d2", torch.int32, 1)
+        with_col = col_a is not None and col_b is not None
+        if with_col:
+            check(col_a, "col_a", torch.uint8, 2)
+            check(col_b, "col_b", torch.uint8, 2)
+        if normals_b is not None:
+            check(normals_b, "normals_b", torch.float32, 2)
+        if not 0 <= cnt_a <= min(pos_a.shape[0], idx.shape[0], d2.shape[0]):
+            raise ValueError(f"metrics_reduce: cnt_a={cnt_a} outside the A rows")
+        ptrs += [pos_a.data_ptr(), col_a.data_ptr() if with_col else None, pos_b.data_ptr(),
+                 col_b.data_ptr() if with_col else None,
+                 None if normals_b is None else normals_b.data_ptr(), idx.data_ptr(),
+                 d2.data_ptr()]
+    plan, blocks, part_off, lvl_off, nbytes = metrics_plan([int(a[7]) for a in dirs])
+    # the ticket at its start must be 0: `dev.scratch` zeroes what it grows
+    scratch = dev.scratch("metrics", d, -(-nbytes // 4))
+    out = torch.empty((2, len(RESULT_FIELDS)), dtype=torch.float64, device=d)
+    rc = dev.kernel_fn("metrics", "metrics_reduce", _R_ARGS)(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(plan))(*plan), blocks,
+        dev.ptr(scratch), part_off, lvl_off, dev.ptr(out), dev.stream_handle())
+    dev.count_launch("metrics", 1)
     dev.check_launch("metrics", rc)
-    return dmax, fsums
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -218,42 +252,40 @@ def _positions(x, d):
     return _tensor(x, torch.int32, np.int32, d)
 
 
-def _nearest_exact(pos_a, pos_b, grid_bits: int):
-    """Nearest B point of every A row: kernel E's grid search, and for the
-    rows it misses (d2 >= MAX_DIST2) the reference's exact host KD search
-    (metrics.py:73-84).  Returns (idx, d2) int32 on the device."""
-    idx, d2 = neighbors.nearest(neighbors.build_grid(pos_b, grid_bits), pos_a)
-    missed = d2 >= neighbors.MAX_DIST2
-    n_missed = int(missed.sum())
-    if n_missed:
-        from scipy.spatial import cKDTree
+def _nearest_exact(pairs, grid_bits: int) -> list:
+    """Nearest B point of every A row, for each (pos_a, pos_b) of `pairs`:
+    kernel E's grid search, one host read of every pair's count of rows it
+    missed (d2 >= MAX_DIST2), and for those rows the reference's exact host
+    KD search (metrics.py:73-84).  Returns [(idx, d2) int32 on the device]
+    a pair."""
+    found = [neighbors.nearest(neighbors.build_grid(pb, grid_bits), pa) for pa, pb in pairs]
+    missed = [d2 >= neighbors.MAX_DIST2 for _, d2 in found]
+    counts = torch.stack([m.sum() for m in missed]).tolist()
+    out = []
+    for (pa, pb), (idx, d2), miss, n_missed in zip(pairs, found, missed, counts):
+        if n_missed:
+            from scipy.spatial import cKDTree
 
-        rows = torch.nonzero(missed).flatten()
-        pb = pos_b.cpu().numpy()
-        dd, ii = cKDTree(pb).query(pos_a[rows].cpu().numpy().astype(np.float64))
-        idx = idx.clone()
-        d2 = d2.clone()
-        idx[rows] = torch.as_tensor(ii.astype(np.int32), device=idx.device)
-        d2[rows] = torch.as_tensor(np.round(dd * dd).astype(np.int32), device=d2.device)
-        print(f"metrics: {n_missed} of {pos_a.shape[0]} queries had no grid neighbour; "
-              "searched on the host (cKDTree)", file=sys.stderr)
-    return idx, d2
+            rows = torch.nonzero(miss).flatten()
+            dd, ii = cKDTree(pb.cpu().numpy()).query(pa[rows].cpu().numpy().astype(np.float64))
+            idx = idx.clone()
+            d2 = d2.clone()
+            idx[rows] = torch.as_tensor(ii.astype(np.int32), device=idx.device)
+            d2[rows] = torch.as_tensor(np.round(dd * dd).astype(np.int32), device=d2.device)
+            print(f"metrics: {n_missed} of {pa.shape[0]} queries had no grid neighbour; "
+                  "searched on the host (cKDTree)", file=sys.stderr)
+        out.append((idx, d2))
+    return out
 
 
-def _directional(pos_a, col_a, cnt_a, pos_b, col_b, normals_b, grid_bits):
-    """A -> B: for each A point, the nearest B point.  Returns (mse_c2c,
-    mse_c2p, mse_color (3,) float64 numpy, hausdorff) on the host."""
-    idx, d2 = _nearest_exact(pos_a[:cnt_a], pos_b, grid_bits)
-    dmax, fsums = metrics_reduce(pos_a, col_a, pos_b, col_b, normals_b, idx, d2, cnt_a)
-    max_d2 = int(dmax)
-    s_d2 = d2_sum_f32(d2, cnt_a, shape_bucket(cnt_a)).cpu().numpy()
-    fs = fsums.cpu().numpy()
+def _mses(row, cnt_a: int, with_normals: bool, with_col: bool) -> tuple:
+    """One direction's (mse_c2c, mse_c2p, mse_color (3,) float64 numpy,
+    hausdorff) from its row of kernel R's result (host numpy)."""
     num = max(cnt_a, 1)
-    mse_c2c = float(np.float32(s_d2) / np.float32(num))
-    haus = float(np.float32(max_d2))
-    mse_c2p = mse_c2c if normals_b is None else float(fs[0] / num)
-    with_col = col_a is not None and col_b is not None
-    mse_col = fs[1:] / num if with_col else np.zeros(3)
+    mse_c2c = float(np.float32(row[1]) / np.float32(num))
+    haus = float(np.float32(row[0]))
+    mse_c2p = float(row[2] / num) if with_normals else mse_c2c
+    mse_col = row[3:] / num if with_col else np.zeros(3)
     return mse_c2c, mse_c2p, mse_col, haus
 
 
@@ -319,8 +351,13 @@ def compute_metrics(
     if na is not None and nb is None:
         nb = transfer_normals(pa, na, pb, grid_bits, device=d)
 
-    ab = _directional(pa, ca, pa.shape[0], pb, cb, nb, grid_bits)
-    ba = _directional(pb, cb, pb.shape[0], pa, ca, na, grid_bits)
+    if ca is None or cb is None:
+        ca = cb = None
+    (idx_ab, d2_ab), (idx_ba, d2_ba) = _nearest_exact([(pa, pb), (pb, pa)], grid_bits)
+    res = metrics_reduce([(pa, ca, pb, cb, nb, idx_ab, d2_ab, pa.shape[0]),
+                          (pb, cb, pa, ca, na, idx_ba, d2_ba, pb.shape[0])]).cpu().numpy()
+    ab = _mses(res[0], pa.shape[0], nb is not None, ca is not None)
+    ba = _mses(res[1], pb.shape[0], na is not None, ca is not None)
     c2c = max(ab[0], ba[0])
     c2p = max(ab[1], ba[1])
     col = np.maximum(ab[2], ba[2])

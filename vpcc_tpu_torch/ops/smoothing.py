@@ -315,16 +315,19 @@ def entropy_table(device) -> torch.Tensor:
     return _entropy_tabs[key]
 
 
-def presmooth_vote_plain(colors, nidx, nd2, q_col, radius2: float, thr_dist: float,
+def presmooth_vote_plain(colors, nidx, nd2, bidx, out, radius2: float, thr_dist: float,
                          thr_entropy: float):
-    """(M, 3) int32 new colors of M boundary queries.  colors (N, 3) int32
-    of the reconstructed points; nidx, nd2 (M, 64) int32 from kernel E;
-    q_col (M, 3) int32 the queries' own colors."""
+    """Plain version of kernel N.  colors (N, 3) int32 of the reconstructed
+    points; nidx, nd2 (M, 64) int32 from kernel E for the M boundary
+    queries at rows bidx (M,) int64; writes each query's new color into
+    row bidx of out (N, 3) int32 (another tensor than colors; its other
+    rows stay as they are) and returns out."""
     m, k = nidx.shape
     if k != PRESMOOTH_K:
         raise NotImplementedError(
             f"color pre-smoothing with k={k}: only k={PRESMOOTH_K} (the reference "
             "configuration) has its entropy reduction order ported")
+    q_col = colors[bidx]
     valid = (nd2 < 0x7FFFFFF0) & (nd2.to(torch.float32) <= radius2)
     nv = valid.sum(1)
     n = nv.clamp(min=1)
@@ -346,40 +349,43 @@ def presmooth_vote_plain(colors, nidx, nd2, q_col, radius2: float, thr_dist: flo
     H = (s0 + s1) / n.to(torch.float32)
     l1 = (centroid - q_col).abs().sum(1)
     replace = (nv > 0) & (l1.to(torch.float32) >= thr_dist) & (H < thr_entropy)
-    return torch.where(replace[:, None], centroid, q_col).to(torch.int32)
+    out[bidx] = torch.where(replace[:, None], centroid, q_col).to(torch.int32)
+    return out
 
 
 _VOTE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [
     ctypes.c_void_p] * 2
 
 
-def presmooth_vote(colors, nidx, nd2, q_col, radius2: float, thr_dist: float,
+def presmooth_vote(colors, nidx, nd2, bidx, out, radius2: float, thr_dist: float,
                    thr_entropy: float):
     """Kernel N (csrc/presmooth.cu): `presmooth_vote_plain` on the card, one
-    warp per boundary query, the luma counts from a per-warp histogram in
-    shared memory."""
+    warp per boundary query, the luma counts from ballots of the luma bits,
+    the query's color read at bidx and its result written to out there;
+    the plain version for CPU tensors."""
     if nidx.device.type == "cpu":
-        return presmooth_vote_plain(colors, nidx, nd2, q_col, radius2, thr_dist,
+        return presmooth_vote_plain(colors, nidx, nd2, bidx, out, radius2, thr_dist,
                                     thr_entropy)
     d = nidx.device
     dev.check_tensor(colors, "colors", torch.int32, d, 2)
     dev.check_tensor(nidx, "nidx", torch.int32, d, 2)
     dev.check_tensor(nd2, "nd2", torch.int32, d, 2)
-    dev.check_tensor(q_col, "q_col", torch.int32, d, 2)
+    dev.check_tensor(bidx, "bidx", torch.int64, d, 1)
+    dev.check_tensor(out, "out", torch.int32, d, 2)
     m, k = nidx.shape
     if k != PRESMOOTH_K:
         raise NotImplementedError(
             f"color pre-smoothing with k={k}: only k={PRESMOOTH_K} has its "
             "entropy reduction order ported")
-    if nd2.shape != nidx.shape or q_col.shape != (m, 3) or colors.shape[1] != 3:
+    if nd2.shape != nidx.shape or bidx.shape != (m,) or colors.shape[1] != 3 \
+            or out.shape != colors.shape or out.data_ptr() == colors.data_ptr():
         raise ValueError(f"presmooth_vote: nidx {tuple(nidx.shape)}, nd2 {tuple(nd2.shape)}, "
-                         f"q_col {tuple(q_col.shape)}, colors {tuple(colors.shape)}")
-    out = torch.empty((m, 3), dtype=torch.int32, device=d)
-    fn = dev.load_kernel("presmooth").presmooth_vote
-    fn.argtypes, fn.restype = _VOTE_ARGS, ctypes.c_int
-    rc = fn(dev.ptr(colors), dev.ptr(nidx), dev.ptr(nd2), dev.ptr(q_col),
-            dev.ptr(entropy_table(d)), m, k, float(radius2), float(thr_dist),
-            float(thr_entropy), dev.ptr(out), dev.stream_handle())
+                         f"bidx {tuple(bidx.shape)}, colors {tuple(colors.shape)}, out "
+                         f"{tuple(out.shape)} (out must be another tensor than colors)")
+    rc = dev.kernel_fn("presmooth", "presmooth_vote", _VOTE_ARGS)(
+        dev.ptr(colors), dev.ptr(nidx), dev.ptr(nd2), dev.ptr(bidx),
+        dev.ptr(entropy_table(d)), m, k, float(radius2), float(thr_dist), float(thr_entropy),
+        dev.ptr(out), dev.stream_handle())
     dev.count_launch("presmooth", 1 if m else 0)
     dev.check_launch("presmooth", rc)
     return out
@@ -389,7 +395,8 @@ def presmooth_colors(pos, colors, bnd, grid_bits: int, k: int, radius2: float,
                      thr_dist: float, thr_entropy: float):
     """Color pre-smoothing of the reconstructed cloud, boundary points only
     (reference `presmooth_colors`).  pos (N, 3) int32, colors (N, 3) int32,
-    bnd (N,) bool.  Returns the smoothed (N, 3) int32 colors."""
+    bnd (N,) bool.  Returns the smoothed (N, 3) int32 colors: a copy of
+    `colors` with the boundary rows voted (kernel N writes them into it)."""
     from vpcc_tpu_torch.ops import neighbors
 
     bidx = torch.nonzero(bnd).flatten()
@@ -397,8 +404,6 @@ def presmooth_colors(pos, colors, bnd, grid_bits: int, k: int, radius2: float,
         return colors
     grid = neighbors.build_grid(pos, grid_bits)
     nidx, nd2 = neighbors.knn(grid, pos[bidx].contiguous(), k=k, bucket=6)
-    sm = presmooth_vote(colors.contiguous(), nidx, nd2, colors[bidx].contiguous(),
-                        radius2, thr_dist, thr_entropy)
-    out = colors.clone()
-    out[bidx] = sm
-    return out
+    colors = colors.contiguous()
+    return presmooth_vote(colors, nidx, nd2, bidx, colors.clone(), radius2, thr_dist,
+                          thr_entropy)
