@@ -338,7 +338,34 @@ geometryNominal2dBitdepth=11 and r3, driven by the JAX partitions:
 55. runs `apps/video_codec.py` encode and decode on three 256x256 11-bit
     depth frames and requires the decode to equal the geometry coder's
     reconstruction;
-56. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
+the packing options, on the 8 bench frames at r3 driven by the JAX
+partitions (reference data person_vox10_gpa_tiles_reference.json, made by
+tests/torch_make_gpa_tiles_reference.py); they add no kernel, and run the
+main path's (OPTION_PATH printed, each nonzero):
+56. globalPatchAllocation: a warm-up encode (cold seconds per frame) whose
+    `pack_global` placements (every patch's position, orientation and
+    chain, and the size) must equal the JAX package's digest, whichever
+    branch the data-adaptive choice then takes; with all launch counters at
+    0, a warm encode: seconds per frame, the stage split, the launches;
+57. requires the branch taken, the stream's md5 and bytes and every frame's
+    patches, atlas size and reconstruction to equal the JAX encoder's, the
+    port's decoder to decode it to the reconstruction, and prints the AD
+    substream's bytes beside the r3 fixture's (no GPA);
+58. numMaxTilePerFrame=2: the same cold and warm encodes and checks as in
+    steps 56-57 (no `pack_global`);
+59. requires the tile rows, the tiles' height ratchets and each frame's
+    patches per tile to equal the JAX encoder's, and each tile to parse alone
+    (`read_atlas_substream(tile_filter=...)`) with every hash SEI good;
+the three apps of the slice:
+60. `apps/parser.py` on the fixture and on the GPA stream (each behind its
+    8-byte GOF length): 8 ATLs, hash SEI OK; `apps/encode.py` and
+    `apps/decode.py` on the first two bench frames on the card (own
+    segmentation, metrics inline), then `apps/conformance.py` on their logs:
+    "CONFORMANCE MATCH: 2 frames";
+61. `apps/color_converter.py` rgb2ycc (4:4:4; 4:2:0 with filters 0 and 1)
+    and ycc2rgb (nearest; filter 1) on the card over the encode's first T0
+    image, each output equal to the same run with --device=cpu;
+62. prints one JSON line describing the kernels (the vox11, D1-sum, EOM,
     PLR, RDO, fill, scalar, orientation, high-gradient, frame-batched and
     two-level entries as rows of their own, launches from steps 16, 24, 30,
     35, 39, 43, 48, 52 and 53), then the result line.
@@ -377,6 +404,7 @@ ATTR_OPTIONS_REFERENCE = DATA / "person_vox10_attr_options_reference.json"
 SEG_OPTIONS_REFERENCE = DATA / "person_vox10_seg_options_reference.json"
 SEG_OPTIONS_PARTITIONS = DATA / "person_vox10_seg_options_partitions.npz"
 GEO11_REFERENCE = DATA / "person_vox11_geo11_reference.json"
+GPA_TILES_REFERENCE = DATA / "person_vox10_gpa_tiles_reference.json"
 # the floor tests/test_torch_segmentation.py pins for the partition
 # agreement with the JAX package, and the normals' tolerance (the kernel's
 # acosf/cosf against PyTorch's on the card)
@@ -515,6 +543,9 @@ ENCODER_PATH = ("half_pel_mc", "generate_points", "grid_smooth") + FRONT_KERNELS
 # single-frame entries replaced by the frame-batched ones of E and M
 LEVEL_KERNELS = ("grid_knn_batch", "recolor_exact_batch", "recolor_blend_batch")
 LEVEL_PATH = tuple(k for k in ENCODER_PATH if k != "recolor") + LEVEL_KERNELS
+# the main-path kernels whose launches the GPA, tiles and apps phases print
+# (E, F, G, H, I, M), each required nonzero
+OPTION_PATH = ("grid_knn", "segment", "cc_labels", "coverage", "wavefront_encode32", "recolor")
 
 
 def frame_digest(positions, colors) -> str:
@@ -4389,6 +4420,233 @@ def level_phase(dev, cfg, frames, segs, r3_stream):
                           bound_by=b_by, max_abs_err=err, library_ms=None)
     return rows, {k: launches[k] for k in LEVEL_KERNELS}
 
+def option_encode(dev, name: str, cfg, frames, rc):
+    """A warm-up and, counters at 0, a warm `encode_gof` of one packing
+    option, driven by the JAX partitions: prints cold and warm seconds per
+    frame, the stage split and the launches of OPTION_PATH (each nonzero),
+    requires the stream's md5 and bytes and every frame's reconstruction to
+    equal the JAX encoder's and the port's decoder to decode the stream to
+    the reconstruction.  Returns (encoder, stream, the warm-up's
+    `pack_global` digests, launches)."""
+    from vpcc_tpu_torch.core import packing
+
+    n = len(frames)
+    real = packing.pack_global
+    digests = []
+
+    def spy(frame_patches, *a, **kw):
+        out = real(frame_patches, *a, **kw)
+        digests.append((packing.placement_digest(frame_patches, out), list(out)))
+        return out
+
+    packing.pack_global = spy
+    try:
+        t0 = time.perf_counter()
+        encode_driven(cfg, frames)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t0) / n
+    finally:
+        packing.pack_global = real
+    dev.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc, stream, recon = encode_driven(cfg, frames)
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) / n
+    counted = {k: v for k, v in dev.LAUNCHES.items() if v}
+    split = {f: sum(getattr(st, f) for st in enc.stats) / n
+             for f in ("segmentation_s", "patchgen_s", "packing_s", "occupancy_s",
+                       "video_s", "reconstruct_s", "recolor_s")}
+    print(f"{name} encode: cold {cold:.4f}, warm {warm:.4f} s/frame (JAX partitions; JAX on a "
+          f"CPU {rc['jax_cpu_encode_s'] / n:.4f}); per frame "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"{name} launches on the encode path: "
+          + ", ".join(f"{k} {counted.get(k, 0)}" for k in OPTION_PATH) + f" (all: {counted})")
+    idle = [k for k in OPTION_PATH if counted.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"{name}: kernels not launched on the encode path: {idle}")
+    same = hashlib.md5(stream).hexdigest() == rc["stream_md5"] and \
+        len(stream) == rc["stream_bytes"]
+    print(f"{name} stream {len(stream)} vs {rc['stream_bytes']} bytes, byte-identical to the "
+          f"JAX encoder's: {same}")
+    if not same:
+        raise AssertionError(f"{name}: the stream differs from the JAX encoder's")
+    bad = []
+    for i, (e, r) in enumerate(zip(enc.last_encoded, rc["frames"])):
+        got = dict(patches=len(e.patches), width=e.width, height=e.height,
+                   recon_points=recon[i].point_count,
+                   recon_md5=frame_digest(recon[i].positions, recon[i].colors))
+        bad += [f"frame {i} {k} {v} (JAX {r[k]})" for k, v in got.items() if v != r[k]]
+    if bad:
+        raise AssertionError(f"{name}: differs from the JAX package: {bad}")
+    print(f"{name} against the JAX package: patches, atlas sizes, reconstructions of all {n} "
+          "frames equal")
+    _, t_dec, _ = decode_checked(dev, stream, recon, name)
+    print(f"{name} decode: {t_dec:.4f} s/frame (JAX on a CPU {rc['jax_cpu_decode_s'] / n:.4f}); "
+          "equal to the encoder's reconstruction")
+    return enc, stream, digests, {k: counted[k] for k in OPTION_PATH}
+
+
+def options_cfg(rc):
+    from vpcc_tpu_torch.utils.config import VPCCConfig
+
+    cfg = VPCCConfig()
+    for k, v in rc["overrides"].items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def gpa_phase(dev, frames):
+    """Steps 56-57: global patch allocation on the 8 bench frames at r3.
+    Returns (the GPA stream, launches)."""
+    ref = json.loads(GPA_TILES_REFERENCE.read_text())["configs"]["gpa"]
+    if [f.point_count for f in frames] != [r["source_points"] for r in ref["frames"]]:
+        raise AssertionError("gpa: the frames differ from the JAX package's")
+    enc, stream, digests, launches = option_encode(dev, "gpa", options_cfg(ref), frames, ref)
+    g = ref["pack_global"]
+    print(f"gpa data-adaptive choice: {enc.last_gpa_choice} (JAX: {g['choice']}); pack_global "
+          f"{g['size'][0]}x{g['size'][1]} over {g['chains']} chains of {g['patches']} patches, "
+          f"per-frame maximum {g['per_frame_size'][0]}x{g['per_frame_size'][1]}")
+    if enc.last_gpa_choice != g["choice"]:
+        raise AssertionError("gpa: the data-adaptive choice differs from the JAX encoder's")
+    if not digests or any(dg != (g["digest"], g["size"]) for dg in digests):
+        raise AssertionError(f"gpa: pack_global's placements {digests} differ from the JAX "
+                             f"package's {g['digest']} {g['size']}")
+    print(f"gpa pack_global on the phase-A patches: digest {digests[0][0]} equal to the JAX "
+          "package's")
+    ad, ad_r3 = unit_bytes(stream)["AD"], unit_bytes(FIXTURE.read_bytes())["AD"]
+    print(f"gpa AD substream: {ad} bytes against {ad_r3} for the r3 stream without GPA; "
+          f"stream {len(stream)} against {len(FIXTURE.read_bytes())} bytes")
+    return stream, launches
+
+
+def tiles_phase(dev, frames):
+    """Steps 58-59: two tiles a frame on the 8 bench frames at r3.  Returns
+    launches."""
+    from vpcc_tpu_torch.bitstream import v3c
+
+    ref = json.loads(GPA_TILES_REFERENCE.read_text())["configs"]["tiles"]
+    if [f.point_count for f in frames] != [r["source_points"] for r in ref["frames"]]:
+        raise AssertionError("tiles: the frames differ from the JAX package's")
+    enc, stream, _, launches = option_encode(dev, "tiles", options_cfg(ref), frames, ref)
+    if (enc._tile_rows, enc._tile_hints) != (ref["tile_rows"], ref["tile_hints"]):
+        raise AssertionError(f"tiles: rows {enc._tile_rows}, ratchets {enc._tile_hints} "
+                             f"(JAX {ref['tile_rows']}, {ref['tile_hints']})")
+    per_tile = [[sum(1 for p in e.patches if p.tile_assigned == t) for e in enc.last_encoded]
+                for t in range(2)]
+    if [list(x) for x in zip(*per_tile)] != [r["tile_patches"] for r in ref["frames"]]:
+        raise AssertionError("tiles: patches per tile differ from the JAX encoder's")
+    payload = next(p for t, p in v3c.read_sample_stream(stream) if t == v3c.V3C_AD)
+    _, afps, full, ok, _ = v3c.read_atlas_substream(payload)
+    if afps.num_tiles_minus1 != 1 or len(ok) != 2 * len(frames) or not all(ok):
+        raise AssertionError("tiles: the atlas substream lacks a tile or a good hash SEI")
+    for t in range(2):
+        _, _, alone, ok_t, _ = v3c.read_atlas_substream(payload, tile_filter={t})
+        if len(ok_t) != len(frames) or not all(ok_t) or \
+                [len(x.patches) for x in alone] != per_tile[t]:
+            raise AssertionError(f"tiles: tile {t} does not parse alone")
+    print(f"tiles: rows {enc._tile_rows}, ratchets {enc._tile_hints}, patches per tile "
+          f"{per_tile} (= JAX's); each tile parses alone, {len(ok)} hash SEIs good")
+    return launches
+
+
+def apps_phase(dev, frames, gpa_stream):
+    """Steps 60-61: the parser on the fixture and the GPA stream;
+    apps/encode.py and apps/decode.py on two bench frames, the conformance
+    app on their logs; the color converter on the card against the CPU."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from vpcc_tpu_torch.apps import color_converter, conformance as conf_app, decode, encode
+    from vpcc_tpu_torch.apps import parser
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.utils.ply import write_ply
+
+    def run(main, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, stream in (("fixture", FIXTURE.read_bytes()), ("gpa", gpa_stream)):
+            path = tmp / f"{name}.vpcc"
+            path.write_bytes(len(stream).to_bytes(8, "big") + stream)
+            rc, out, _ = run(parser.main, [f"--compressedStreamPath={path}"])
+            ad = next((ln for ln in out.splitlines() if "V3C_AD" in ln), "")
+            print(f"parser on the {name} stream: rc {rc}; {ad.strip()}")
+            if rc != 0 or "hash SEI OK" not in ad or "8 ATLs" not in ad:
+                raise AssertionError(f"parser: the {name} stream does not parse:\n{out}")
+
+        for i, f in enumerate(frames[:2]):
+            write_ply(tmp / f"src_{i:04d}.ply", f)
+        out_path = tmp / "apps.vpcc"
+        r3 = ["--geometry3dCoordinatesBitdepth=10", "--resolution=1023", "--geometryQP=24",
+              "--attributeQP=32", "--gridBasedSegmentation=1", "--occupancyPrecision=2",
+              "--iterationCountRefineSegmentation=10"]
+        images = []
+        real = Encoder.attribute_images
+
+        def keep_t0(self, *a, **kw):
+            out = real(self, *a, **kw)
+            if not images:
+                images.append(out[0].clamp(0, 255).to(torch.uint8).cpu().numpy())
+            return out
+
+        Encoder.attribute_images = keep_t0
+        dev.reset_launch_counts()
+        try:
+            rc_e, out_e, t_e = run(encode.main, [
+                "--device=cuda", f"--uncompressedDataPath={tmp}/src_%04d.ply",
+                f"--compressedStreamPath={out_path}", "--frameCount=2", *r3])
+        finally:
+            Encoder.attribute_images = real
+        counted = {k: v for k, v in dev.LAUNCHES.items() if v}
+        rc_d, out_d, t_d = run(decode.main, ["--device=cuda",
+                                             f"--compressedStreamPath={out_path}"])
+        print(f"apps/encode.py: rc {rc_e}, {t_e:.2f} s for 2 frames (own segmentation, metrics "
+              f"inline; launches {', '.join(f'{k} {counted.get(k, 0)}' for k in OPTION_PATH)}); "
+              f"apps/decode.py: rc {rc_d}, {t_d:.2f} s; {out_d.strip()}")
+        if rc_e or rc_d or any(counted.get(k, 0) == 0 for k in OPTION_PATH):
+            raise AssertionError(f"apps: encode/decode failed:\n{out_e}\n{out_d}")
+        rc_c, out_c, _ = run(conf_app.main, [
+            f"--encLog={out_path}_enc_pcframe_log.txt",
+            f"--decLog={out_path}_dec_pcframe_log.txt"])
+        print(f"apps/conformance.py on their logs: rc {rc_c}: {out_c.strip()}")
+        if rc_c != 0 or "CONFORMANCE MATCH: 2 frames" not in out_c:
+            raise AssertionError("apps: the conformance logs differ")
+
+        rgb = images[0]
+        np.save(tmp / "rgb.npy", rgb)
+        runs = [("rgb2ycc", "rgb.npy", ".npy", []), ("rgb2ycc", "rgb.npy", ".npz", ["--f420=1"]),
+                ("rgb2ycc", "rgb.npy", ".npz", ["--f420=1", "--downsampleFilter=1"]),
+                ("ycc2rgb", "cpu_rgb2ycc_1.npz", ".npy", []),
+                ("ycc2rgb", "cpu_rgb2ycc_2.npz", ".npy", ["--upsampleFilter=1"])]
+        for k, (mode, inp, ext, extra) in enumerate(runs):
+            outs, secs = [], []
+            for d in ("cpu", "cuda"):
+                o = tmp / f"{d}_{mode}_{k}{ext}"
+                rc, _, t = run(color_converter.main,
+                               [mode, str(tmp / inp), str(o), f"--device={d}", *extra])
+                if rc:
+                    raise AssertionError(f"color_converter {mode} {extra} on {d}: rc {rc}")
+                z = np.load(o)
+                outs.append({key: z[key] for key in z.files} if ext == ".npz" else {"": z})
+                secs.append(t)
+            same = all(np.array_equal(outs[0][key], outs[1][key]) and
+                       outs[0][key].dtype == outs[1][key].dtype for key in outs[0])
+            print(f"color_converter {mode} {' '.join(extra) or '4:4:4'} on a {rgb.shape} "
+                  f"attribute image: the card's output equal to the CPU's: {same} (cpu "
+                  f"{secs[0]:.3f} s, cuda {secs[1]:.3f} s a call)")
+            if not same:
+                raise AssertionError(f"color_converter {mode} {extra}: cuda differs from cpu")
+
+
 def _library_paint(pix, layer, vals, h: int, w: int):
     """Kernel P's paint as PyTorch calls: the index preparation (tags 0 and
     1 inside the image keep their flat (layer, pixel) index, the others
@@ -4498,6 +4756,9 @@ def main() -> int:
     lv_rows, lv_launches = level_phase(dev, cfg, frames, segs, r3[0])
     g11_rows, g11_launches = geo11_phase(dev, vox_frames)
     del vox_frames
+    gpa_stream, _ = gpa_phase(dev, frames)
+    tiles_phase(dev, frames)
+    apps_phase(dev, frames, gpa_stream)
     rows.update(front_rows)
     rows.update(geo_rows)
     rows.update(enc_rows)

@@ -142,11 +142,6 @@ def test_encode_gof_stream_decodes_to_encoder_reconstruction(port_gof, which):
 
 def test_encode_gof_out_of_slice_options_raise():
     frames = [make_person_cloud(bits=BITS, n_samples=4000, seed=7)]
-    for field, value, what in (("globalPatchAllocation", 1, "globalPatchAllocation"),):
-        cfg = _cfg(VPCCConfig)
-        setattr(cfg, field, value)
-        with pytest.raises(NotImplementedError, match=what):
-            Encoder(cfg, device="cpu").encode_gof(frames)
     cfg = _cfg(VPCCConfig)
     cfg.enhancedOccupancyMapCode = 1
     with pytest.raises(NotImplementedError, match="level-batched GOF path with "

@@ -326,14 +326,10 @@ def test_encoder_device_policy_and_unsupported_options():
         with pytest.raises(RuntimeError, match="CUDA"):
             Encoder()
     assert Encoder(device="cpu").device == torch.device("cpu")
-    for k, v in (("globalPatchAllocation", 1), ("numMaxTilePerFrame", 2)):
-        cfg = VPCCConfig()
-        setattr(cfg, k, v)
-        with pytest.raises(NotImplementedError):
-            Encoder(cfg, device="cpu")
     # the lossless conditions' tools, the decoder-signalled reconstruction
-    # tools and the segmentation options are ported
-    for k, v in (("enhancedOccupancyMapCode", 1), ("rawPointsPatch", 1),
+    # tools, the segmentation options, GPA and multi-tile atlases are ported
+    for k, v in (("globalPatchAllocation", 1), ("numMaxTilePerFrame", 2),
+                 ("enhancedOccupancyMapCode", 1), ("rawPointsPatch", 1),
                  ("useRawPointsSeparateVideo", 1), ("pointLocalReconstruction", 1),
                  ("pbfEnableFlag", 1), ("flagColorSmoothing", 1),
                  ("highGradientSeparation", 1), ("enablePointCloudPartitioning", 1),

@@ -10,9 +10,10 @@ and its reference planes:
 
 What the encoder carries is each tree parent's patch list (a P-frame
 matches its patches against it and reuses their placements), the GOF's
-height ratchet, and on the geometry side each substream encoder's last
-decoded plane (`GeometrySubstreamEncoder.ref`) and the bank of tree
-parents' decoded D0 planes (`geo_bank`, frame index -> (H, W) int32); on
+height ratchet (with several tiles, one a tile, and the tiles' rows),
+and on the geometry side each substream encoder's last decoded plane
+(`GeometrySubstreamEncoder.ref`) and the bank of tree parents' decoded D0
+planes (`geo_bank`, frame index -> (H, W) int32); on
 the attribute side each substream encoder's last decoded planes
 (`AttributeSubstreamEncoder.refs`, (y (1, H, W), cbcr (2, H/2, W/2))
 int32) and the bank of tree parents' decoded T0 planes (`attr_bank`, frame
@@ -80,6 +81,15 @@ def seed_height_hint(encoder, height: int) -> None:
     """Set the encoder's GOF height ratchet (the largest atlas height of the
     GOF so far), e.g. to the JAX encoder's `_height_hint`."""
     encoder._height_hint = int(height)
+
+
+def seed_tile_state(encoder, hints, rows) -> None:
+    """Set the encoder's multi-tile state: each tile's height ratchet
+    (`_tile_hints`) and the tiles' first block rows of the last packed frame
+    (`_tile_rows`), e.g. to the JAX encoder's.  A seeded P-frame's tree
+    parent patches must carry their `tile_assigned`."""
+    encoder._tile_hints = [int(h) for h in hints]
+    encoder._tile_rows = [int(r) for r in rows]
 
 
 def seed_geometry_streams(streams: dict, planes: dict, device=None) -> dict:

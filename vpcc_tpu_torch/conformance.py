@@ -114,6 +114,76 @@ def write_log(path: str | Path, frames: List[Dict[str, str]]) -> None:
             f.write("\n")
 
 
+def read_log(path: str | Path) -> List[Dict[str, str]]:
+    """A log `write_log` wrote (either package's): one dict a frame."""
+    frames: List[Dict[str, str]] = []
+    cur: Dict[str, str] = {}
+    for line in Path(path).read_text().splitlines():
+        line = line.strip()
+        if not line:
+            if cur:
+                frames.append(cur)
+                cur = {}
+            continue
+        if "=" in line:
+            k, v = line.split("=", 1)
+            cur[k.strip()] = v.strip()
+    if cur:
+        frames.append(cur)
+    return frames
+
+
+def compare_logs(
+    enc_log: List[Dict[str, str]], dec_log: List[Dict[str, str]]
+) -> Tuple[bool, List[str]]:
+    """Key-by-key MATCH/DIFF comparison (reference: compareLogFiles,
+    PCCConformance.cpp:158-209): (whether they match, the differences)."""
+    diffs: List[str] = []
+    if len(enc_log) != len(dec_log):
+        diffs.append(f"frame count differs: {len(enc_log)} vs {len(dec_log)}")
+    for i, (a, b) in enumerate(zip(enc_log, dec_log)):
+        for k in sorted(set(a) | set(b)):
+            va, vb = a.get(k), b.get(k)
+            if va != vb:
+                diffs.append(f"frame {i}: {k}: {va} != {vb}")
+    return (not diffs), diffs
+
+
+def check_level_limits_dynamic(
+    level: int,
+    per_frame: List[Dict[str, int]],
+    frame_rate: float = 30.0,
+) -> List[str]:
+    """Sliding-window per-second limit checks (reference: the dataWindow
+    aggregation in checkLevelLimits, PCCConformance.cpp:210-307, against
+    the *PerSec columns of Tables A-5/A-6).  `per_frame` entries may carry
+    proj_pts / raw_pts / eom_pts / proj_patches / raw_patches /
+    eom_patches counts; missing keys count as 0.  One error at most a key:
+    the first window over its limit."""
+    lv = level if level in V3C_LEVEL_TABLE else V3C_LEVELS[-1]
+    caps = {
+        "proj_pts": V3C_LEVEL_TABLE[lv]["proj_pts_per_sec"],
+        "eom_pts": V3C_LEVEL_TABLE[lv]["eom_pts_per_sec"],
+        "raw_pts": V3C_LEVEL_TABLE[lv]["raw_pts_per_sec"],
+        "proj_patches": ASPS_LEVEL_TABLE[lv]["proj_patches_per_sec"],
+        "raw_patches": ASPS_LEVEL_TABLE[lv]["raw_patches_per_sec"],
+        "eom_patches": ASPS_LEVEL_TABLE[lv]["eom_patches_per_sec"],
+    }
+    win = max(int(frame_rate), 1)
+    errs: List[str] = []
+    for key, cap in caps.items():
+        vals = [int(f.get(key, 0)) for f in per_frame]
+        total = sum(vals[:win])
+        for i in range(len(vals)):
+            if i >= win:
+                total += vals[i] - vals[i - win]
+            if i >= win - 1 and total > cap:
+                errs.append(f"{key} per-second aggregate {total} at frame {i} "
+                            f"exceeds level {lv} limit {cap}")
+                break
+    return errs
+
+
 def check_level_limits(
     level: int, point_count: int, patch_count: int, atlas_w: int, atlas_h: int
 ) -> List[str]:

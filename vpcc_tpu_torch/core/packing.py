@@ -1,7 +1,7 @@
 """Patch packing onto the atlas canvas (host numpy/scipy).
 
-A copy of `match_patches`, `pack_flexible` and `pack_tetris` from
-`vpcc_tpu/core/packing.py`.  Behavioral reference:
+A copy of `match_patches`, `pack_flexible`, `pack_tetris` and
+`pack_global` from `vpcc_tpu/core/packing.py`.  Behavioral reference:
 `PCCEncoder::packFlexible` (source/lib/PccLibEncoder/source/PCCEncoder.cpp:
 2306-2450) and the match step of spatialConsistencyPackFlexible (:1183):
 sort patches by size, first-fit raster scan over the block grid trying a
@@ -10,11 +10,14 @@ fits.  Each patch's valid placements come from one 2D correlation of the
 canvas block occupancy with the patch rectangle (the same scipy
 `fftconvolve` call as the reference, so the same float rounding).
 packingStrategy=2 is the skyline ("tetris") packing of
-`PCCEncoder::packTetris` (:3258).
+`PCCEncoder::packTetris` (:3258); `pack_global` is the global patch
+allocation of a GOF (performDataAdaptiveGPAMethod, :6821).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 from typing import List, Tuple
 
 import numpy as np
@@ -264,3 +267,84 @@ def pack_tetris(patches: List[Patch], cfg: VPCCConfig, preset_height: int = 0) -
     width = width_blk * res
     height = ((height_blk * res + 255) // 256) * 256
     return width, height
+
+
+def pack_global(frame_patches: List[List[Patch]], cfg: VPCCConfig,
+                parents: "List[int] | None" = None,
+                preset_height: int = 0) -> Tuple[int, int]:
+    """Global patch allocation over a GOF (reference `pack_global`,
+    vpcc_tpu/core/packing.py:305-409; PCCEncoder.cpp:6821-7651
+    performDataAdaptiveGPAMethod): the patches linked through
+    `ref_patch_idx` to their tree parent's (`parents[fi]`, else frame
+    fi - 1) form chains; each chain gets one (u0, v0, orientation), placed
+    first fit against its union rectangle, largest union first (ties by
+    chain id), claiming only the union of its members' block occupancies;
+    the canvas doubles in height when nothing fits.  Mutates every patch
+    (u0, v0, orientation, gpa_chain); returns the GOF's (width, height),
+    the height a multiple of 256 and at least `preset_height`."""
+    res = cfg.occupancyResolution
+    # chains through the ref links over the coding tree
+    chains: List[List[Patch]] = []
+    chain_of_frame: List[dict] = []
+    for fi, patches in enumerate(frame_patches):
+        ref_frame = parents[fi] if parents is not None else fi - 1
+        chain_of: dict = {}
+        for pi, p in enumerate(patches):
+            ref = p.ref_patch_idx
+            if fi > 0 and ref >= 0 and 0 <= ref_frame < fi and ref in chain_of_frame[ref_frame]:
+                ci = chain_of_frame[ref_frame][ref]
+                chains[ci].append(p)
+            else:
+                ci = len(chains)
+                chains.append([p])
+            chain_of[pi] = ci
+        chain_of_frame.append(chain_of)
+
+    # the union footprint of each chain in the orientation of its first member
+    entries = []
+    for ci, members in enumerate(chains):
+        m0 = members[0]
+        pref = ORIENT_HORIZONTAL if m0.size_u0 > m0.size_v0 else ORIENT_VERTICAL
+        o = pref[0] if cfg.packingStrategy else ORIENT_DEFAULT
+        fps = [_orient_footprint(p.block_occupancy(), o) for p in members]
+        fh = max(fp.shape[0] for fp in fps)
+        fw = max(fp.shape[1] for fp in fps)
+        union = np.zeros((fh, fw), bool)
+        for fp in fps:
+            union[: fp.shape[0], : fp.shape[1]] |= fp
+        entries.append((fh * fw, ci, o, fw, fh, union))
+    entries.sort(key=lambda e: (-e[0], e[1]))
+
+    min_h = (cfg.minimumImageHeight if preset_height == 0 else preset_height) // res
+    width_blk = max(cfg.minimumImageWidth, 64) // res
+    for e in entries:
+        width_blk = max(width_blk, e[3] + 1)
+    height_blk = max(max((e[4] for e in entries), default=1), min_h)
+    canvas = np.zeros((height_blk, width_blk), bool)
+    for _, ci, o, fw, fh, union in entries:
+        while True:
+            vmap = _valid_positions(canvas, np.ones((fh, fw), bool))
+            if vmap.size and vmap.any():
+                vv, uu = divmod(int(np.argmax(vmap)), vmap.shape[1])
+                canvas[vv : vv + fh, uu : uu + fw] |= union
+                for p in chains[ci]:
+                    p.u0, p.v0, p.orientation = uu, vv, o
+                    p.gpa_chain = ci
+                break
+            canvas = np.concatenate([canvas, np.zeros_like(canvas)], axis=0)
+
+    used_rows = 0
+    for patches in frame_patches:
+        for p in patches:
+            used_rows = max(used_rows, p.v0 + p.canvas_footprint()[1])
+    height_blk = max(used_rows, min_h)
+    return width_blk * res, ((height_blk * res + 255) // 256) * 256
+
+
+def placement_digest(frame_patches, size) -> str:
+    """md5 of every patch's (u0, v0, orientation, gpa_chain), frame by frame
+    in list order, and the GOF's (width, height): a fingerprint of a
+    `pack_global` result that either package's patches give alike."""
+    rows = [[[int(p.u0), int(p.v0), int(p.orientation), int(getattr(p, "gpa_chain", -1))]
+             for p in ps] for ps in frame_patches]
+    return hashlib.md5(json.dumps([rows, [int(size[0]), int(size[1])]]).encode()).hexdigest()

@@ -47,8 +47,17 @@ and the PLR layers come from kernel V's code plane through kernel C's EOM
 entry; with flagColorSmoothing the decoded colors are grid-smoothed
 (kernel T).  The mux writes their SEIs and ASPS fields.
 
-Tools that are off by default and not ported raise NotImplementedError;
-the port never computes something else in their place.
+Two packing options change where the patches go, not how a frame is coded:
+with globalPatchAllocation (a GOF of more than one frame) every frame's
+patches are generated first and the chains of matched patches get one
+position for the whole GOF (`packing.pack_global`), unless that costs more
+canvas than packing frame by frame; with numMaxTilePerFrame > 1 the
+patches split into tiles, each packed into its own row band and written as
+its own atlas tile layer, which a player can parse alone.
+
+What the port refuses raises NotImplementedError (reflectance above 10-bit
+geometry, a mesh of several cards); it never computes something else in
+its place.
 """
 
 from __future__ import annotations
@@ -182,11 +191,6 @@ class EncodedFrame:
         return self.geometry.stats
 
 
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1: off-main-path tools)")
-
-
 class Encoder:
     """`Encoder(cfg, device=None)`: `encode_gof(frames)` -> (V3C sample
     stream, reconstructed frames); its stages are public too
@@ -199,11 +203,13 @@ class Encoder:
         self.cfg = cfg or VPCCConfig()
         self.device = dev.resolve_device(device)
         self._height_hint = 0  # GOF height ratchet (largest height so far)
-        cfg = self.cfg
-        if cfg.globalPatchAllocation:
-            raise _unsupported("globalPatchAllocation")
-        if int(getattr(cfg, "numMaxTilePerFrame", 1)) > 1:
-            raise _unsupported("numMaxTilePerFrame > 1 (multi-tile atlases)")
+        # multi-tile atlases: each tile's height ratchet and the tiles' first
+        # block rows of the last packed frame (None until a frame sets them);
+        # both persist across frames and GOFs, as the reference's do
+        self._tile_hints: Optional[List[int]] = None
+        self._tile_rows: Optional[List[int]] = None
+        # which allocation the last GPA GOF kept: "gpa", "per-frame" or None
+        self.last_gpa_choice: Optional[str] = None
 
     # ------------------------------------------------------------------
     def segment_dispatch(self, pc_host: PointCloudData) -> Segmentation:
@@ -518,22 +524,32 @@ class Encoder:
 
     def encode_frame_front(self, pc_host: PointCloudData,
                            prev_patches: Optional[List[Patch]] = None,
-                           seg: Optional[Segmentation] = None) -> FrontEndFrame:
+                           seg: Optional[Segmentation] = None,
+                           pregen: Optional[tuple] = None,
+                           preset_size: Optional[Tuple[int, int]] = None) -> FrontEndFrame:
         """The front half of the reference's `encode_frame`
-        (encoder.py:464-588), through `derive_block_to_patch`, for one tile
-        without GPA: segmentation (or the given `seg`), patch generation,
-        temporal matching against the tree parent's `prev_patches`, packing
-        under the GOF's height ratchet, rasterization, the occupancy video
-        and the block-to-patch map from the decoded occupancy.  The
-        occupancy codec is lossless, so the decoded occupancy is the
-        upsampled occupancy video; `encode_frame_geometry` calls it.  With
-        enablePointCloudPartitioning the ROI chunks are segmented and their
-        patches generated one by one (`_partitioned_pregen`; `seg` must be
-        None), and the stage split counts both stages as segmentation."""
+        (encoder.py:441-588), through `derive_block_to_patch`: segmentation
+        (or the given `seg`), patch generation, temporal matching against
+        the tree parent's `prev_patches`, packing under the GOF's height
+        ratchet, rasterization, the occupancy video and the block-to-patch
+        map from the decoded occupancy.  The occupancy codec is lossless, so
+        the decoded occupancy is the upsampled occupancy video;
+        `encode_frame_geometry` calls it.  With enablePointCloudPartitioning
+        the ROI chunks are segmented and their patches generated one by one
+        (`_partitioned_pregen`; `seg` must be None), and the stage split
+        counts both stages as segmentation.
+
+        `pregen` = (patches, cover_dist2, segmentation or None) skips
+        segmentation and patch generation; `preset_size` = (width, height)
+        skips matching and packing (GPA's two phases, `_gof_loop`).  With
+        numMaxTilePerFrame > 1 each tile packs into its own row band
+        (`_pack_tiles`)."""
         cfg = self.cfg
         st = EncoderStats(point_count=pc_host.point_count)
         t0 = time.perf_counter()
-        if cfg.enablePointCloudPartitioning:
+        if pregen is not None:
+            patches, cover_dist2 = pregen[0], pregen[1]
+        elif cfg.enablePointCloudPartitioning:
             if seg is not None:
                 raise ValueError("enablePointCloudPartitioning segments each ROI chunk "
                                  "itself: pass no segmentation")
@@ -549,9 +565,18 @@ class Encoder:
             st.patchgen_s = time.perf_counter() - t
 
         t = time.perf_counter()
-        if prev_patches and cfg.constrainedPack:
-            packing.match_patches(patches, prev_patches)
-        width, height = packing.pack_flexible(patches, cfg, preset_height=self._height_hint)
+        if preset_size is not None:
+            # GPA already matched and allocated every patch
+            width, height = preset_size
+        elif max(int(getattr(cfg, "numMaxTilePerFrame", 1)), 1) > 1:
+            width, height = self._pack_tiles(patches, prev_patches)
+        else:
+            for p in patches:
+                p.tile_assigned = 0
+            self._tile_rows = [0]
+            if prev_patches and cfg.constrainedPack:
+                packing.match_patches(patches, prev_patches)
+            width, height = packing.pack_flexible(patches, cfg, preset_height=self._height_hint)
         self._height_hint = max(self._height_hint, height)
         frame = atlas_mod.rasterize_frame(patches, width, height, cfg)
         st.packing_s = time.perf_counter() - t
@@ -569,6 +594,52 @@ class Encoder:
         st.patch_count = len(patches)
         return FrontEndFrame(patches, width, height, frame, occ_video, occ_rec, btp,
                              cover_dist2, st)
+
+    def _pack_tiles(self, patches: List[Patch],
+                    prev_patches: Optional[List[Patch]]) -> Tuple[int, int]:
+        """Multi-tile atlas packing (reference encoder.py:504-553; tile
+        placement, PCCEncoder.cpp:4837-5355): a patch matched to the tree
+        parent's keeps its tile (`tile_assigned`), a new patch goes to the
+        least-loaded tile (by block area); each tile packs on its own
+        (`pack_flexible` under that tile's height ratchet) into a row band
+        below the previous tile's.  Reorders `patches` tile-major (the coded
+        order, so the encoder's rasterization overwrites as the decoder's
+        merged tiles do) and sets `_tile_hints` and `_tile_rows`.  Returns
+        the atlas (width, height)."""
+        cfg = self.cfg
+        ntiles = max(int(cfg.numMaxTilePerFrame), 1)
+        if prev_patches and cfg.constrainedPack:
+            packing.match_patches(patches, prev_patches)
+        loads = [0] * ntiles
+        for p in patches:
+            tid = -1
+            if prev_patches and p.ref_patch_idx >= 0:
+                tid = getattr(prev_patches[p.ref_patch_idx], "tile_assigned", -1)
+            if tid < 0:
+                tid = loads.index(min(loads))
+            p.tile_assigned = tid
+            loads[tid] += p.size_u0 * p.size_v0
+        res = cfg.occupancyResolution
+        hints = self._tile_hints if self._tile_hints is not None else [0] * ntiles
+        rows, subs = [], []
+        width = row_blk = 0
+        for ti in range(ntiles):
+            sub = [p for p in patches if p.tile_assigned == ti]
+            rows.append(row_blk)
+            if sub:
+                w, h = packing.pack_flexible(sub, cfg, preset_height=hints[ti])
+            else:
+                w, h = cfg.minimumImageWidth, 256
+            hints[ti] = max(hints[ti], h)
+            for p in sub:
+                p.v0 += row_blk
+            width = max(width, w)
+            row_blk += h // res
+            subs.append(sub)
+        patches[:] = [p for sub in subs for p in sub]
+        self._tile_hints = hints
+        self._tile_rows = rows
+        return width, row_blk * res
 
     def gof_structure(self, n: int) -> Tuple[List[int], List[int]]:
         """(parent, qp_offset) per frame for this GOF's coding structure
@@ -624,7 +695,9 @@ class Encoder:
                               prev_patches: Optional[List[Patch]] = None,
                               seg: Optional[Segmentation] = None,
                               temporal_refs: Optional[dict] = None,
-                              qp_offset_geo: int = 0) -> GeometryFrame:
+                              qp_offset_geo: int = 0,
+                              pregen: Optional[tuple] = None,
+                              preset_size: Optional[Tuple[int, int]] = None) -> GeometryFrame:
         """The geometry stages of the reference's `encode_frame`
         (encoder.py:567-648): the front end, the occupancy payload and, with
         enhancedOccupancyMapCode, the EOM plane's payload, D0 and D1 through
@@ -633,9 +706,11 @@ class Encoder:
         PLR), the PLR RDO (kernel V) on the decoded D0 and the true D0/D1,
         PBF on the decoded occupancy (kernel U), then the reconstruction
         seam with grid smoothing on the decoded planes, the decoded EOM
-        plane or the PLR modes."""
+        plane or the PLR modes.  `pregen` and `preset_size` go to
+        `encode_frame_front`."""
         cfg = self.cfg
-        fr = self.encode_frame_front(pc_host, prev_patches=prev_patches, seg=seg)
+        fr = self.encode_frame_front(pc_host, prev_patches=prev_patches, seg=seg,
+                                     pregen=pregen, preset_size=preset_size)
         st = fr.stats
         t = time.perf_counter()
         occ_payload = codecs.encode_occupancy(fr.occ_video, cfg)
@@ -762,7 +837,9 @@ class Encoder:
                      seg: Optional[Segmentation] = None,
                      temporal_refs: Optional[dict] = None,
                      qp_offset: int = 0,
-                     qp_offset_geo: Optional[int] = None) -> EncodedFrame:
+                     qp_offset_geo: Optional[int] = None,
+                     pregen: Optional[tuple] = None,
+                     preset_size: Optional[Tuple[int, int]] = None) -> EncodedFrame:
         """The reference's `encode_frame` (encoder.py:442-846): the geometry
         stages (`encode_frame_geometry`), the raw-points patch (the source
         points whose coverage distance exceeds
@@ -775,19 +852,24 @@ class Encoder:
         T), with a reflectance attribute its transfer, layers, payload and
         decoded values (reference :779-803), and the duplicate-free
         encoder-side reconstruction, raw points appended before the
-        duplicate removal (their reflectance 0)."""
+        duplicate removal (their reflectance 0).  `pregen` and `preset_size`
+        go to `encode_frame_front`; the recolor's source positions are then
+        those of pregen's segmentation, when it has one."""
         cfg = self.cfg
         self._check_attribute_path(pc_host)
         if qp_offset_geo is None:
             qp_offset_geo = qp_offset
         t0 = time.perf_counter()
-        if seg is None and not cfg.enablePointCloudPartitioning:
+        if pregen is not None:
+            seg = pregen[2]
+        elif seg is None and not cfg.enablePointCloudPartitioning:
             seg = self.segment_dispatch(pc_host)
         src_pos = seg.positions if seg is not None else torch.as_tensor(
             np.asarray(pc_host.positions, np.int32), device=self.device)
         t_seg = time.perf_counter() - t0
         g = self.encode_frame_geometry(pc_host, streams, prev_patches=prev_patches, seg=seg,
-                                       temporal_refs=temporal_refs, qp_offset_geo=qp_offset_geo)
+                                       temporal_refs=temporal_refs, qp_offset_geo=qp_offset_geo,
+                                       pregen=pregen, preset_size=preset_size)
         st = g.stats
         st.segmentation_s += t_seg
         fr = g.front
@@ -856,11 +938,14 @@ class Encoder:
                             refl_payload)
 
     def _gof_loop(self, frames, segs, attributes: bool):
-        """The reference's `encode_gof` frame loop (encoder.py:959-1001):
+        """The reference's `encode_gof` frame loop (encoder.py:913-1001):
         each P-frame packs against its tree parent's patches and predicts
         D0 (and T0) from the parent's decoded planes, kept in banks that are
         pruned as the tree consumes them; the geometry QP cascade is capped
-        at geometryQpCascadeCap, the attribute cascade is not."""
+        at geometryQpCascadeCap, the attribute cascade is not.  Under
+        globalPatchAllocation with more than one frame, `_gpa_phases`
+        first generates and allocates every frame's patches.  Returns
+        (per-frame results, tree parents, whether GPA's phases ran)."""
         cfg = self.cfg
         streams = self._new_streams()
         geo_bank: dict = {}
@@ -868,6 +953,9 @@ class Encoder:
         parent, qp_off = self.gof_structure(len(frames))
         cap = int(getattr(cfg, "geometryQpCascadeCap", 1))
         needed = [set(parent[i + 1:]) for i in range(len(frames))]
+        gpa = bool(cfg.globalPatchAllocation) and len(frames) > 1
+        pregen, gpa_size, phase_s = (self._gpa_phases(frames, segs, parent) if gpa
+                                     else (None, None, None))
         out = []
         for i, f in enumerate(frames):
             if i == 0:
@@ -875,14 +963,19 @@ class Encoder:
             else:
                 trefs = {"geo": geo_bank.get(parent[i]), "attr": attr_bank.get(parent[i])}
                 prev = out[parent[i]].patches if attributes else out[parent[i]].front.patches
-            seg = None if segs is None else segs[i]
+            kw = dict(prev_patches=prev, seg=None if segs is None else segs[i],
+                      temporal_refs=trefs, qp_offset_geo=min(qp_off[i], cap),
+                      pregen=None if pregen is None else pregen[i], preset_size=gpa_size)
             if attributes:
-                e = self.encode_frame(f, streams, prev_patches=prev, seg=seg, temporal_refs=trefs,
-                                      qp_offset=qp_off[i], qp_offset_geo=min(qp_off[i], cap))
+                e = self.encode_frame(f, streams, qp_offset=qp_off[i], **kw)
             else:
-                e = self.encode_frame_geometry(f, streams, prev_patches=prev, seg=seg,
-                                               temporal_refs=trefs,
-                                               qp_offset_geo=min(qp_off[i], cap))
+                e = self.encode_frame_geometry(f, streams, **kw)
+            if phase_s is not None:
+                # phase A's segmentation and patch generation of this frame
+                st = e.stats
+                st.segmentation_s += phase_s[i][0]
+                st.patchgen_s += phase_s[i][1]
+                st.total_s += sum(phase_s[i])
             out.append(e)
             if i in needed[i]:
                 geo_bank[i] = streams["geo0"].ref
@@ -890,7 +983,49 @@ class Encoder:
             for bank in (geo_bank, attr_bank):
                 for k in [k for k in bank if k not in needed[i]]:
                     del bank[k]
-        return out, parent
+        return out, parent, gpa
+
+    def _gpa_phases(self, frames, segs, parent):
+        """GPA's two phases (reference `encode_gof`, encoder.py:913-958;
+        performDataAdaptiveGPAMethod, PCCEncoder.cpp:6821-7651).  Phase A
+        segments every frame (or takes `segs[i]`; ROI partitioning is not
+        applied here, as in the reference), generates its patches, matches
+        them against the tree parent's and packs them frame by frame under
+        the running height: the per-frame allocation.  Phase B allocates
+        the tree-linked chains globally (`packing.pack_global`).  The
+        data-adaptive choice keeps GPA's positions unless its canvas area
+        exceeds the per-frame maximum's, else restores the per-frame
+        allocation and size (`last_gpa_choice` says which).  Returns (per
+        frame (patches, cover_dist2, segmentation), the GOF's (width,
+        height), per frame phase A's (segmentation, patch generation)
+        seconds)."""
+        cfg = self.cfg
+        hint = self._height_hint
+        pregen, all_patches, phase_s = [], [], []
+        pf_w = pf_h = 0
+        for i, f in enumerate(frames):
+            t0 = time.perf_counter()
+            seg = self.segment_dispatch(f) if segs is None else segs[i]
+            partition, dev_graph, _ = self.segment_fetch(seg)
+            t1 = time.perf_counter()
+            patches, dist2 = self.generate_patches(f, partition, dev_graph)
+            if i > 0 and cfg.constrainedPack:
+                packing.match_patches(patches, all_patches[parent[i]])
+            w, h = packing.pack_flexible(patches, cfg, preset_height=max(hint, pf_h))
+            pf_w, pf_h = max(pf_w, w), max(pf_h, h)
+            pregen.append((patches, dist2, seg))
+            all_patches.append(patches)
+            phase_s.append((t1 - t0, time.perf_counter() - t1))
+        pf_assign = [[(p.u0, p.v0, p.orientation) for p in ps] for ps in all_patches]
+        size = packing.pack_global(all_patches, cfg, parents=parent, preset_height=hint)
+        self.last_gpa_choice = "gpa"
+        if size[0] * size[1] > pf_w * pf_h:
+            for ps, assign in zip(all_patches, pf_assign):
+                for p, (u0, v0, o) in zip(ps, assign):
+                    p.u0, p.v0, p.orientation = u0, v0, o
+            size = (pf_w, pf_h)
+            self.last_gpa_choice = "per-frame"
+        return pregen, size, phase_s
 
     def encode_gof_geometry(self, frames: List[PointCloudData],
                             segs: Optional[List[Segmentation]] = None) -> List[GeometryFrame]:
@@ -913,7 +1048,8 @@ class Encoder:
         `encode_gof_mesh`): every video dispatch and recolor sweep batches
         the frames of one hierarchy level, and the stream is byte-identical
         to the sequential one.  Options outside the reference's envelope for
-        it raise NotImplementedError, as does a mesh of several cards."""
+        it (GPA and multi-tile atlases among them) raise
+        NotImplementedError, as does a mesh of several cards."""
         if mesh is not None:
             devices = [torch.device(m) for m in mesh]
             if len(devices) > 1:
@@ -928,17 +1064,21 @@ class Encoder:
         if parallel:
             from vpcc_tpu_torch.parallel.gof import encode_gof_mesh
             return encode_gof_mesh(self, frames, segs=segs)
-        encoded, parent = self._gof_loop(frames, segs, attributes=True)
+        encoded, parent, gpa = self._gof_loop(frames, segs, attributes=True)
         self.stats = [e.stats for e in encoded]
-        return self._mux_gof(encoded, frames, parent)
+        return self._mux_gof(encoded, frames, parent, gpa=gpa)
 
-    def _mux_gof(self, encoded: List[EncodedFrame], frames, parent):
+    def _mux_gof(self, encoded: List[EncodedFrame], frames, parent, gpa: bool = False):
         """Assemble the V3C sample stream (reference `_mux_gof`,
-        encoder.py:1004-1261, one tile; one map with PLR):
-        VPS, the atlas substream (ASPS with its PLR fields, AFPS, the prefix
-        SEIs (geometry and attribute smoothing, occupancy synthesis), one atlas tile
-        layer per frame with P-tiles predicting from the tree parent's
-        patches, the raw points in the tile unless useRawPointsSeparateVideo),
+        encoder.py:1004-1261; one map with PLR):
+        VPS, the atlas substream (ASPS with its PLR fields, AFPS with the
+        tile count, the prefix SEIs (geometry and attribute smoothing,
+        occupancy synthesis), one atlas tile layer per frame and tile, each
+        with its hash SEI: a tile's patches are those with its
+        `tile_assigned`, its P-tiles predict from the same tile of the tree
+        parent, its `tile_row_start` is the encoder's `_tile_rows` after the
+        last frame (the reference's, for every frame); the raw points in
+        tile 0 unless useRawPointsSeparateVideo; one tile under `gpa`),
         then the occupancy (map 1: the EOM planes), geometry and attribute
         video substreams, the reflectance attribute's substream (map index
         REFL_MAP_INDEX) when the frames carry one and, with
@@ -974,28 +1114,40 @@ class Encoder:
         vps.write(bw)
         units = [(v3c.V3C_VPS, bw.getvalue())]
 
-        tiles, pdus_list = [], []
+        ntiles = 1 if gpa else max(int(getattr(cfg, "numMaxTilePerFrame", 1)), 1)
+        tile_rows = self._tile_rows if self._tile_rows is not None else [0] * ntiles
+        in_tile = not cfg.useRawPointsSeparateVideo
+        tiles = []
+        groups_list, pdus_list = [], []  # per frame, per tile: patches, PDUs
         for fi, e in enumerate(encoded):
-            pdus = [_patch_to_pdu(p, cfg) for p in e.patches]
-            if fi > 0:
-                # ref indices address the tree parent's patch list
-                parent_full = encoded[parent[fi]].patches
-                idx_of = {id(q): k for k, q in enumerate(parent_full)}
-                for p, pdu in zip(e.patches, pdus):
-                    pdu.ref_index = -1
-                    if 0 <= p.ref_patch_idx < len(parent_full):
-                        pdu.ref_index = idx_of.get(id(parent_full[p.ref_patch_idx]), -1)
-            in_tile = not cfg.useRawPointsSeparateVideo
-            tiles.append(v3c.AtlasTileLayer(
-                frame_index=fi, tile_id=0, tile_row_start=0, patches=pdus,
-                raw_positions=e.raw_positions if in_tile else None,
-                raw_colors=e.raw_colors if in_tile else None,
-                geometry_bits=cfg.geometryBitDepth3D,
-                tile_type=v3c.TILE_I if fi == 0 else v3c.TILE_P,
-                ref_patches=None if fi == 0 else pdus_list[parent[fi]],
-                ref_frame_delta=max(fi - parent[fi], 1),
-            ))
-            pdus_list.append(pdus)
+            groups = [[] for _ in range(ntiles)]
+            for p in e.patches:
+                groups[getattr(p, "tile_assigned", 0)].append(p)
+            frame_pdus = []
+            for ti in range(ntiles):
+                pdus = [_patch_to_pdu(p, cfg) for p in groups[ti]]
+                if fi > 0:
+                    # ref indices address the same tile of the tree parent
+                    idx_in_tile = {id(q): k for k, q in enumerate(groups_list[parent[fi]][ti])}
+                    parent_full = encoded[parent[fi]].patches
+                    for p, pdu in zip(groups[ti], pdus):
+                        pdu.ref_index = -1
+                        if 0 <= p.ref_patch_idx < len(parent_full):
+                            pdu.ref_index = idx_in_tile.get(id(parent_full[p.ref_patch_idx]), -1)
+                raw = in_tile and ti == 0
+                tiles.append(v3c.AtlasTileLayer(
+                    frame_index=fi, tile_id=ti,
+                    tile_row_start=tile_rows[ti] if ti < len(tile_rows) else 0, patches=pdus,
+                    raw_positions=e.raw_positions if raw else None,
+                    raw_colors=e.raw_colors if raw else None,
+                    geometry_bits=cfg.geometryBitDepth3D,
+                    tile_type=v3c.TILE_I if fi == 0 else v3c.TILE_P,
+                    ref_patches=None if fi == 0 else pdus_list[parent[fi]][ti],
+                    ref_frame_delta=max(fi - parent[fi], 1),
+                ))
+                frame_pdus.append(pdus)
+            groups_list.append(groups)
+            pdus_list.append(frame_pdus)
         asps = v3c.AtlasSequenceParameterSet(
             frame_width=width, frame_height=height,
             log2_patch_packing_block_size=cfg.occupancyResolution.bit_length() - 1,
@@ -1005,7 +1157,7 @@ class Encoder:
             plr_num_modes=len(pipeline.plr_table(cfg)), plr_block_threshold=int(cfg.patchSize),
             plr_mode_table=pipeline.plr_table(cfg),
         )
-        afps = v3c.AtlasFrameParameterSet(num_tiles_minus1=0)
+        afps = v3c.AtlasFrameParameterSet(num_tiles_minus1=ntiles - 1)
         prefix_seis = []
         if cfg.flagGeometrySmoothing and cfg.gridSmoothing:
             prefix_seis.append(v3c.SEIGeometrySmoothing(

@@ -154,10 +154,13 @@ def _refuse(what: str) -> NotImplementedError:
 def check_envelope(cfg) -> None:
     """The reference's envelope asserts (gof.py:509-514) as refusals, and
     what its level path would not code as its sequential path does (lossless
-    video).  GPA and multi-tile atlases the Encoder refuses itself."""
+    video)."""
     checks = (
         (cfg.enhancedOccupancyMapCode, "enhancedOccupancyMapCode (EOM)"),
         (cfg.pointLocalReconstruction, "pointLocalReconstruction (PLR)"),
+        (int(getattr(cfg, "numMaxTilePerFrame", 1)) > 1,
+         "numMaxTilePerFrame > 1 (multi-tile atlases)"),
+        (cfg.globalPatchAllocation, "globalPatchAllocation (GPA)"),
         (cfg.enablePointCloudPartitioning, "enablePointCloudPartitioning"),
         (cfg.useRawPointsSeparateVideo, "useRawPointsSeparateVideo"),
         (cfg.numNeighborsColorTransferBwd <= 0, "numNeighborsColorTransferBwd == 0"),

@@ -82,7 +82,7 @@ def reconstruct_frame(
     if plr_modes is not None:
         if eom_d is not None:
             raise NotImplementedError(
-                "a stream with both EOM and PLR is not ported (ROADMAP queue 1 item 2); "
+                "a stream with both EOM and PLR is not ported (ROADMAP queue 1 item 3); "
                 "no encoder of the repository writes one")
         tbl = plr_table(cfg) if plr_mode_table is None else plr_mode_table
         eom_d = plr.code_plane(g0, _as_int32(plr_modes, device),
