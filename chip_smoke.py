@@ -237,7 +237,9 @@ dilation and the harmonic fill); per configuration:
     of the warm-up encode and decode (for "refl" the 10-bit reflectance
     planes, maxval 1023, among them);
 38. holds them against their plain versions, exactly, timing both in turns
-    (for "bgfill2" also the smoothed push-pull `smooth_fill`, which nothing
+    (the dilation as the main path calls it, rounded, its float planes and
+    pass count too, at most 3 launches and 1 host read a call; for
+    "bgfill2" also the smoothed push-pull `smooth_fill`, which nothing
     calls, and for "refl" `transfer_reflectance` over kernels M and E);
 39. with all launch counters at 0, encodes again: warm seconds per frame,
     the stage split, launches (the new entries nonzero), the dilation passes
@@ -248,6 +250,9 @@ dilation and the harmonic fill); per configuration:
     port's decoder to decode the stream to the encoder's reconstruction,
     reflectances included (decode seconds per frame), and for "refl" each
     frame's reflectance PSNR within METRICS_PSNR_TOL_DB of JAX's;
+then the dilation on the crafted cases of tests/torch_frontier.py (torus
+wrap, sides of 1 and 2, the cap, empty and full occupancy), exactly, with
+3 launches and 1 host read a call;
 
 the segmentation options (normalOrientation 0 / 2 / 4: kernel X;
 highGradientSeparation: kernel F's high-gradient entry; ROI partitioning)
@@ -273,9 +278,13 @@ with `Encoder.with_partition`, "tetris" by the JAX partitions):
     orient2 and orient4 within RD_BYTES_TOL and their mean D1/D2/Y within
     RD_PSNR_TOL_DB of JAX's, and the port's decoder to decode every stream
     to the encoder's reconstruction;
-45. holds `orient_viewpoint`, the flood (`orient`, its sweep count too) and
-    `high_gradient_aux` against their plain versions on their largest
-    calls, exactly, timing both in turns;
+45. holds `orient_viewpoint`, the flood (`orient`, its sweep count too, at
+    most 3 launches and 1 host read a call) and `high_gradient_aux` against
+    their plain versions on their largest calls, exactly, timing both in
+    turns; then the flood on the crafted cases of tests/torch_frontier.py (a
+    vote that cancels and is signed later, a disconnected component,
+    pad_rows, V = 0, a random graph), exactly, with 3 launches and 1 host
+    read a call;
 
 the level-batched GOF path (`encode_gof(parallel=True)`: every video
 dispatch and the recolor batch the frames of one hierarchy level; kernel
@@ -981,27 +990,32 @@ def bounds(name, args, out, sweeps=None):
 
 
 def flood_votes(pos, nrm, idx, valid_k, valid, pad_rows=False) -> int:
-    """Votes the spanning-tree flood computes on these inputs: the unsigned
-    valid rows summed over its sweeps (the data-dependent part of kernel X's
-    flood bound), from the plain version's steps."""
+    """Votes the spanning-tree flood needs on these inputs (the
+    data-dependent part of kernel X's flood bound), from the plain version's
+    steps: in each sweep, the unsigned valid rows with a valid neighbour
+    signed in the sweep before (the seed before sweep 1), the only rows
+    whose vote can differ from the sweep before."""
     from vpcc_tpu_torch.ops import normals
 
     seed, s = normals.flood_seed(pos, nrm, valid, pad_rows)
     sign = torch.zeros(pos.shape[0], dtype=torch.float32, device=pos.device)
+    new = torch.zeros(pos.shape[0], dtype=torch.bool, device=pos.device)
     if seed >= 0:
         sign[seed] = s
+        new[seed] = True
     votes = 0
     for _ in range(normals.FLOOD_MAX_SWEEPS):
         unsigned = (sign == 0) & valid
-        n = int(unsigned.sum())
+        cand = unsigned & (new[idx.long()] & valid_k).any(1)
+        n = int(cand.sum())
         if n == 0:
             break
         votes += n
         vote = normals.flood_votes_plain(nrm, idx, valid_k, sign)
-        newly = unsigned & (vote.abs() > normals.FLOOD_VOTE_MIN)
-        if not bool(newly.any()):
+        new = cand & (vote.abs() > normals.FLOOD_VOTE_MIN)
+        if not bool(new.any()):
             break
-        sign = torch.where(newly, torch.where(vote < 0, -1.0, 1.0), sign)
+        sign = torch.where(new, torch.where(vote < 0, -1.0, 1.0), sign)
     return votes
 
 
@@ -1046,6 +1060,81 @@ def timed(fn):
     out = []
     ms = time_ms(lambda: out.append(fn()), 1)
     return out[0], ms
+
+
+def launches_and_syncs(dev, fn, counter: str):
+    """(launches of `counter` one call of fn adds, the host synchronisations
+    torch reports for it under sync debug mode "warn")."""
+    import warnings
+
+    torch.cuda.synchronize()
+    before = dev.LAUNCHES[counter]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (dev.LAUNCHES[counter] - before,
+            sum("called a synchronizing" in str(w.message) for w in seen))
+
+
+# a call's most launches and host reads of kernel W's dilation (seed, level
+# walk, finish; the pass count) and kernel X's flood (prep, sweep walk,
+# finish; the sweep count)
+WALK_LIMITS = {"bg_dilate": (3, 1), "orient": (3, 1)}
+
+
+def frontier_cases(dev, which: str) -> None:
+    """Kernel W's dilation ("W") or kernel X's flood ("X") on the crafted
+    cases of tests/torch_frontier.py (the torus wrap, sides of 1 and 2, the
+    cap, empty and full occupancy; a vote that cancels and is signed later,
+    a disconnected component, pad_rows, V = 0, a random graph), each against
+    its plain version, with the launches and host reads of every call."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_frontier import DILATE_CASES, FLOOD_CASES, dilate_case, flood_case
+    from vpcc_tpu_torch.ops import normals, padding
+
+    d = torch.device("cuda")
+    seen = []
+    if which == "W":
+        for case in DILATE_CASES:
+            planes, occ, max_iters = dilate_case(case)
+            tp, to = torch.as_tensor(planes, device=d), torch.as_tensor(occ, device=d)
+            x_p, n_p = padding.dilate_fill_plain(tp, to, max_iters)
+            x_k, n_k = padding.dilate_fill(tp, to, max_iters)
+            r_k, n_r = padding.dilate_fill(tp, to, max_iters, rounded=True)
+            err = max(max_abs_err(x_k, x_p), max_abs_err(r_k, padding.round_clip_plain(x_p)))
+            calls = launches_and_syncs(dev, lambda: padding.dilate_fill(
+                tp, to, max_iters, rounded=True), "bg_dilate")
+            if err != 0 or n_k != n_p or n_r != n_p or calls != WALK_LIMITS["bg_dilate"]:
+                raise AssertionError(f"bg_dilate {case}: max abs err {err}, passes {n_k} / "
+                                     f"{n_r} vs plain {n_p}, launches and host reads {calls}")
+            seen.append(f"{case} {n_k}")
+        print(f"bg_dilate crafted cases: exact, passes as the plain version's, 3 launches and "
+              f"1 host read a call: " + ", ".join(seen))
+        return
+    for case in FLOOD_CASES:
+        pos, nrm, idx, val, valid, pad = flood_case(case)
+        t = [torch.as_tensor(np.ascontiguousarray(a), device=d)
+             for a in (pos, nrm, idx, val, valid)]
+        want, sweeps = normals.orient_normals_spanning_tree_plain(*t, pad_rows=pad)
+        got = normals.orient_normals_spanning_tree(*t, pad_rows=pad)
+        err = max_abs_err(got, want)
+        calls = launches_and_syncs(
+            dev, lambda: normals.orient_normals_spanning_tree(*t, pad_rows=pad), "orient")
+        limit = WALK_LIMITS["orient"] if len(pos) else (0, 0)
+        if err != 0 or normals.last_flood_sweeps != sweeps or calls != limit:
+            raise AssertionError(f"orient {case}: max abs err {err}, sweeps "
+                                 f"{normals.last_flood_sweeps} vs plain {sweeps}, launches "
+                                 f"and host reads {calls}")
+        seen.append(f"{case} {sweeps}")
+    print(f"orient crafted cases: exact, sweeps as the plain version's, 3 launches and 1 "
+          f"host read a call (none for V = 0): " + ", ".join(seen))
 
 
 def time_turns(kern, plain, reps_k=20, reps_p=3):
@@ -3726,10 +3815,12 @@ def attr_options_phase(dev, frames):
         return src_refl[torch.where(has, eidx, nidx[:, 0]).long()].to(torch.int32)
 
     def entries(kname, args):
-        """(kernel call, plain call) of one kept call."""
+        """(kernel call, plain call) of one kept call (the dilation as the
+        main path calls it: rounded and clipped)."""
         if kname == "bg_dilate":
-            return (lambda: padding.dilate_fill(*args),
-                    lambda: padding.dilate_fill_plain(*args))
+            return (lambda: padding.dilate_fill(*args, rounded=True),
+                    lambda: (lambda r: (padding.round_clip_plain(r[0]), r[1]))(
+                        padding.dilate_fill_plain(*args)))
         if kname == "bg_relax":
             return (lambda: padding.harmonic_fill(*args),
                     lambda: padding.harmonic_fill_plain(*args))
@@ -3750,7 +3841,16 @@ def attr_options_phase(dev, frames):
         if kname == "bg_dilate":
             if got[1] != want[1]:
                 raise AssertionError(f"bg_dilate: {got[1]} passes, plain {want[1]}")
-            extra += f", {got[1]} passes"
+            x_k, x_p = padding.dilate_fill(*b_args)[0], padding.dilate_fill_plain(*b_args)[0]
+            if max_abs_err(x_k, x_p) != 0:
+                raise AssertionError("bg_dilate: the float planes differ from the plain "
+                                     f"version's (max abs err {max_abs_err(x_k, x_p)})")
+            calls = launches_and_syncs(dev, k_fn, "bg_dilate")
+            if calls[0] > WALK_LIMITS["bg_dilate"][0] or calls[1] > WALK_LIMITS["bg_dilate"][1]:
+                raise AssertionError(f"bg_dilate: {calls[0]} launches and {calls[1]} host reads "
+                                     f"a call, limits {WALK_LIMITS['bg_dilate']}")
+            extra += (f", {got[1]} passes, the float planes exact too, {calls[0]} launches and "
+                      f"{calls[1]} host read a call")
             got, want = got[0], want[0]
         err = max_abs_err(got, want)
         if err != 0:
@@ -3971,6 +4071,7 @@ def attr_options_phase(dev, frames):
         ub = unit_bytes(stream)
         print(f"attribute options {name} bytes per substream (port/JAX): "
               + ", ".join(f"{k} {ub.get(k)}/{v}" for k, v in rc["unit_bytes"].items()))
+    frontier_cases(dev, "W")   # the dilation's crafted cases
     return rows, launches
 
 
@@ -4169,7 +4270,12 @@ def seg_options_phase(dev, frames):
         if kname == "orient":
             if got[1] != want[1]:
                 raise AssertionError(f"orient: {got[1]} flood sweeps, plain {want[1]}")
-            extra += f", {got[1]} sweeps signed voxels, pad_rows {b_args[-1]}"
+            calls = launches_and_syncs(dev, k_fn, "orient")
+            if calls[0] > WALK_LIMITS["orient"][0] or calls[1] > WALK_LIMITS["orient"][1]:
+                raise AssertionError(f"orient: {calls[0]} launches and {calls[1]} host reads "
+                                     f"a call, limits {WALK_LIMITS['orient']}")
+            extra += (f", {got[1]} sweeps signed voxels, pad_rows {b_args[-1]}, {calls[0]} "
+                      f"launches and {calls[1]} host read a call")
             got, want = got[0], want[0]
         err = max_abs_err(tuple(got), tuple(want)) if isinstance(got, tuple) \
             else max_abs_err(got, want)
@@ -4182,6 +4288,7 @@ def seg_options_phase(dev, frames):
               f"{p1:.3f}/{p2:.3f} ms, bound {b_ms:.4f} ms ({b_by}){extra}")
         rows[kname] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                            bound_by=b_by, max_abs_err=err, library_ms=None)
+    frontier_cases(dev, "X")   # the flood's crafted cases
     return rows, launches
 
 

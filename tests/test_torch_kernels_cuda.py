@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_frontier import DILATE_CASES, FLOOD_CASES, dilate_case, flood_case
 from torch_md_cases import (PRESMOOTH_CASES, SMOOTH_CASES, presmooth_case, recolor_case,
                             smooth_case)
 from vpcc_tpu_torch import device as dev, pipeline
@@ -1885,7 +1886,7 @@ def test_bg_fill_kernel(cuda, case):
     before = dev.LAUNCHES["bg_dilate"]
     x_k, n_k = padding.dilate_fill(planes, occ)
     x_p, n_p = padding.dilate_fill_plain(planes, occ)
-    assert dev.LAUNCHES["bg_dilate"] > before
+    assert dev.LAUNCHES["bg_dilate"] == before + 3
     _same(x_k, x_p)
     assert n_k == n_p
     for min_side in (1, 2):
@@ -1905,8 +1906,8 @@ def test_bg_fill_kernel(cuda, case):
 
 @pytest.mark.parametrize("limit", [7, 40])
 def test_bg_dilate_pass_limit_kernel(cuda, limit):
-    """A limit below the passes the plane needs, inside and across the
-    kernel's batches of passes: the same pixels stay empty."""
+    """A limit below the passes the plane needs (the level walk stops
+    claiming at the limit): the same pixels stay empty."""
     planes, occ = _fill_case("edge_top", cuda)
     x_k, n_k = padding.dilate_fill(planes, occ, limit)
     x_p, n_p = padding.dilate_fill_plain(planes, occ, limit)
@@ -1984,12 +1985,80 @@ def test_orient_flood_kernel(cuda, case):
     want = normals.orient_normals_spanning_tree_plain(p, n, idx, valid, rows, pad)
     before = dev.LAUNCHES["orient"]
     got = normals.orient_normals_spanning_tree(p, n, idx, valid, rows, pad)
-    assert dev.LAUNCHES["orient"] > before + 3
+    assert dev.LAUNCHES["orient"] == before + 3
     _same(got, want[0])
     assert normals.last_flood_sweeps == want[1]
     expect = {"wrapped": 0, "chain": 199, "capped": 256}
     if case in expect:
         assert want[1] == expect[case]
+
+
+@pytest.mark.parametrize("case", DILATE_CASES)
+def test_bg_dilate_frontier_kernel(cuda, case):
+    """Kernel W's dilation on the crafted cases of the frontier schedule
+    (torus wrap, sides of 1 and 2, the cap, empty and full occupancy):
+    the float planes, the pass count and fill_rgb(mode=0)'s rounded planes
+    against the plain versions; three launches and one host
+    synchronisation a call; a second call on the same scratch (the
+    kernel's counters left at 0) gives the same."""
+    planes, occ, max_iters = dilate_case(case)
+    tp, to = torch.as_tensor(planes, device=cuda), torch.as_tensor(occ, device=cuda)
+    x_p, n_p = padding.dilate_fill_plain(tp, to, max_iters)
+    for _ in range(2):
+        before = dev.LAUNCHES["bg_dilate"]
+        (x_k, n_k), syncs = _syncs(lambda: padding.dilate_fill(tp, to, max_iters))
+        assert dev.LAUNCHES["bg_dilate"] == before + 3 and syncs == 1
+        _same(x_k, x_p)
+        assert n_k == n_p
+        r_k, n_r = padding.dilate_fill(tp, to, max_iters, rounded=True)
+        _same(r_k, padding.round_clip_plain(x_p))
+        assert n_r == n_p
+    if max_iters == padding.DILATE_MAX_PASSES:
+        stack = tp[None].expand(2, -1, -1, -1).contiguous()
+        before = dev.LAUNCHES["bg_dilate"]
+        got = padding.fill_rgb(stack, to, 0)
+        assert dev.LAUNCHES["bg_dilate"] == before + 3
+        _same(got, padding.round_clip_plain(padding.dilate_fill_plain(stack.reshape(
+            -1, *occ.shape), to)[0]).reshape(stack.shape))
+
+
+def test_bg_dilate_after_larger_kernel(cuda):
+    """A small plane after a 1280 x 1280 one (the scratch grown, then
+    reused from its start), and a plane whose walk runs 1024 levels."""
+    big, big_occ = _fill_case("atlas", cuda)
+    small, small_occ, _ = dilate_case("random")
+    ts, tso = torch.as_tensor(small, device=cuda), torch.as_tensor(small_occ, device=cuda)
+    for planes, occ in ((big, big_occ), (ts, tso)):
+        x_k, n_k = padding.dilate_fill(planes, occ)
+        x_p, n_p = padding.dilate_fill_plain(planes, occ)
+        _same(x_k, x_p)
+        assert n_k == n_p
+    line = torch.zeros((1, 1, 2100), dtype=torch.int32, device=cuda)
+    line[0, 0, 0] = 200
+    line_occ = (line[0] > 0).to(torch.uint8)
+    x_k, n_k = padding.dilate_fill(line, line_occ)
+    x_p, n_p = padding.dilate_fill_plain(line, line_occ)
+    _same(x_k, x_p)
+    assert n_k == n_p == padding.DILATE_MAX_PASSES
+
+
+@pytest.mark.parametrize("case", FLOOD_CASES)
+def test_orient_flood_frontier_kernel(cuda, case):
+    """Kernel X's flood on the crafted cases of the frontier schedule (a
+    vote that cancels and is signed two sweeps later, a disconnected
+    component, pad_rows, V = 0, a random graph): against the plain
+    version with its sweep count; three launches and one host
+    synchronisation a call (none for V = 0)."""
+    pos, nrm, idx, val, valid, pad = flood_case(case)
+    t = [torch.as_tensor(a, device=cuda) for a in (pos, nrm, idx, val, valid)]
+    want, sweeps = normals.orient_normals_spanning_tree_plain(*t, pad_rows=pad)
+    for _ in range(2):
+        before = dev.LAUNCHES["orient"]
+        got, syncs = _syncs(lambda: normals.orient_normals_spanning_tree(*t, pad_rows=pad))
+        n = 3 if len(pos) else 0
+        assert dev.LAUNCHES["orient"] == before + n and syncs == min(n, 1)
+        _same(got, want)
+        assert normals.last_flood_sweeps == sweeps
 
 
 @pytest.mark.parametrize("mode", [0, 1, 4])

@@ -3,8 +3,9 @@ encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
     python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt [--kernels=...]
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N] \
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N,W,X] \
         [--trace] [--split]
+    python vpcc_tpu_torch/apps/profile_entries.py --barriers
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
 
 --capture encodes one bench frame (`make_person_cloud(bits=10,
@@ -110,8 +111,19 @@ names none of them)
   direction and reads the maximum, the D1 sum and the float64 sums, as
   its `_directional` did; the md5 is taken over the maximum d2 and the D1
   sum, the float64 sums are kept as "values");
+* kernel W: the largest `padding.fill_rgb` call with attributeBGFill=0 of
+  the bench frame encoded at r3 + attributeBGFill=0 (the painted T0/T1
+  stack, (2, 3, 1280, 1280) int32, and its occupancy), timed as
+  `fill_rgb(..., 0)` (`bg_dilate.fill_rgb`: the dilation, rounding and
+  clip of the main path) and as `dilate_fill` of its (6, H, W) planes
+  (`bg_dilate.dilate`: the float planes and the pass count);
+* kernel X: the `normals.orient_normals_spanning_tree` call of the bench
+  frame encoded at r3 + normalOrientation=4 (positions, PCA normals,
+  `nn_idx`, `nn_valid`, valid rows, `pad_rows`; `orient.flood`: the
+  oriented normals and `last_flood_sweeps`);
 the vox11 encode only where --kernels names M or D, the level encode only
-where it names M or L, the R and N encode only where it names R or N.
+where it names M or L, the R and N encode only where it names R or N, the
+two option encodes only where it names W or X.
 --inputs times the entries of the kernels named by --kernels, in the package
 found under --root (default: this checkout), on those inputs, so that two
 commits can be compared on one card, one process each, in turns (the grids
@@ -125,7 +137,10 @@ often; the device times of J, F, O, H, C, M and D are their kernels' in
 --trace: an older checkout's J, F and O wrappers copy from or wait on the
 host, which a graph cannot hold, C's and M's wrappers read their counts, and
 the cooperative launches of H, M and D are kept out of graphs; R's unit and
-N's whole call read from the card).
+N's whole call read from the card; W's and X's parent wrappers read device
+flags between launches, so theirs come from --trace too).  Each entry
+also reports the launch counters (`device.LAUNCHES`) one call adds (key
+"launches").
 --trace adds, once per entry, each device kernel's time and launches a
 call (`torch.profiler` over as many calls) and the host's waits a call
 (`cudaStreamSynchronize` and `cudaMemcpy*` runtime calls: CPU
@@ -147,7 +162,8 @@ and a zeroed volume of each round's slab, C's five output allocations
 against one allocation cut into the five fields, and a read of one device
 int32; top-level key "hc_host_parts_us"; with L and B on this checkout,
 their wrappers' steps, `lb_host_parts`, key "lb_host_parts_us"; with R
-and N on this checkout, theirs, `rn_host_parts`, key "rn_host_parts_us");
+and N on this checkout, theirs, `rn_host_parts`, key "rn_host_parts_us";
+with W or X, the lists their walks take, `frontier_stats`, key "frontier");
 for B, the device time of each call with every MV's phase forced to (0, 0),
 (0, 1), (1, 0) and (1, 1) (CUDA graph replay) beside the call's own mix of phases; for L and B on a
 checkout with `padding.push_pull_plan`, push_pull.cu built whole and with
@@ -164,6 +180,11 @@ milliseconds and the md5 of its output (and the trace).  --summarize reads the J
 of such runs (the logs of several processes) and prints, per checkout and
 entry, the median and quartiles of the call and device milliseconds over
 all runs, and whether the md5s of all runs agree.
+--barriers builds `apps/barrier_probe.cu` and prints one JSON line of the
+card's empty barriers in microseconds: grid.sync() of cooperative
+launches of several grid sizes, barrier.cluster of one cluster of 8 and 16
+CTAs, and __syncthreads() of one block (each the median of 5 timings of
+a launch passing 2000 barriers, less a launch passing none, over 2000).
 """
 
 from __future__ import annotations
@@ -184,10 +205,11 @@ P_ENTRIES = ("paint_attribute", "group_dilate", "gather_decoded_colors")
 E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.nearest_k1",
            64: "grid_knn.presmooth_k64"}
 REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20, "O": 20, "Q": 20,
-        "H": 20, "C": 20, "M": 20, "D": 20, "L": 20, "B": 20, "R": 20, "N": 20}
+        "H": 20, "C": 20, "M": 20, "D": 20, "L": 20, "B": 20, "R": 20, "N": 20, "W": 10,
+        "X": 10}
 # kernels, and entries, whose device time is read from --trace rather than a
 # CUDA graph (R's unit and N's whole call read from the card)
-NO_GRAPH = "JFOHCMDR"
+NO_GRAPH = "JFOHCMDRWX"
 NO_GRAPH_ENTRIES = ("presmooth.call",)
 F_STAGES = ("segment.pca", "segment.orient", "segment.partition")
 
@@ -545,6 +567,48 @@ def capture_rn(frame, cfg, device) -> dict:
                                    for (a, ac, b, bc, bn), (idx, d2) in zip(pairs, found)]}}
 
 
+def capture_wx(frame, cfg, device, kernels: str) -> dict:
+    """Kernel W's call (the largest `padding.fill_rgb` call of the frame's
+    encode at attributeBGFill=0, as [planes, occupancy]) and kernel X's
+    (the `normals.orient_normals_spanning_tree` call of its encode at
+    normalOrientation=4, as [positions, normals, nn_idx, nn_valid, valid,
+    pad_rows]), for the letters of `kernels`."""
+    import copy
+
+    from vpcc_tpu_torch.encoder import Encoder
+    from vpcc_tpu_torch.ops import normals, padding
+
+    out = {}
+    if "W" in kernels:
+        kept = {}
+
+        def keep_w(args, kw):
+            if (args[2] if len(args) > 2 else kw.get("mode", 1)) == 0:
+                keep_largest(kept, "bg_dilate.fill_rgb")(args[:2], {})
+
+        c = copy.copy(cfg)
+        c.attributeBGFill = 0
+        undo = _spy(padding, "fill_rgb", before=keep_w)
+        try:
+            Encoder(c, device=device).encode_gof([frame])
+        finally:
+            undo()
+        out["W"] = {n: args for n, (args, _) in kept.items()}
+    if "X" in kernels:
+        kept = {}
+        c = copy.copy(cfg)
+        c.normalOrientation = 4
+        undo = _spy(normals, "orient_normals_spanning_tree",
+                    before=lambda a, kw: kept.setdefault("orient.flood", [
+                        *_clone(a[:5]), bool(a[5] if len(a) > 5 else kw.get("pad_rows", False))]))
+        try:
+            Encoder(c, device=device).encode_gof([frame])
+        finally:
+            undo()
+        out["X"] = kept
+    return out
+
+
 def r_unit(metrics, dirs):
     """Kernel R's work in one `compute_metrics` call after the nearest
     searches, with one checkout's entries, as a call: per direction
@@ -750,6 +814,8 @@ def capture(path: Path, device="cuda",
     h_in = {n: a for n, a in hc_in.items() if n.startswith("coverage.")}
     c_in = {n: a for n, a in hc_in.items() if n.startswith("generate_points.")}
     rn = capture_rn(frames[0], cfg, device) if "R" in kernels or "N" in kernels else {}
+    wx = capture_wx(frames[0], cfg, device, kernels) if "W" in kernels or "X" in kernels \
+        else {}
     sao16 = {}
     if any(k in kernels for k in "JAKB"):
         cfg.geometryNominal2dBitdepth = 11
@@ -802,7 +868,9 @@ def capture(path: Path, device="cuda",
                 "B": {n: [cpu(a) for a in args] for n, (args, _) in b_in.items()},
                 "R": {n: [[cpu(a) for a in d] for d in dirs]
                       for n, dirs in rn.get("R", {}).items()},
-                "N": {n: [cpu(a) for a in args] for n, args in rn.get("N", {}).items()}}, path)
+                "N": {n: [cpu(a) for a in args] for n, args in rn.get("N", {}).items()},
+                "W": {n: [cpu(a) for a in args] for n, args in wx.get("W", {}).items()},
+                "X": {n: [cpu(a) for a in args] for n, args in wx.get("X", {}).items()}}, path)
     print(f"captured P {sorted(p_in)}: rows {p_in['paint_attribute'][0].shape[0]}; E "
           + ", ".join(f"{n} {tuple(c['q'].shape)} k={c['k']} bucket={c['bucket']}"
                       for n, c in e_in.items())
@@ -828,7 +896,11 @@ def capture(path: Path, device="cuda",
           + "; R " + ", ".join(f"{n} rows {[d[7] for d in dirs]}"
                               for n, dirs in rn.get("R", {}).items())
           + "; N " + ", ".join(f"{n} {tuple(a[0].shape)} boundary {int(a[2].sum())} {a[-1]}"
-                              for n, a in rn.get("N", {}).items()))
+                              for n, a in rn.get("N", {}).items())
+          + "; W " + ", ".join(f"{n} {tuple(a[0].shape)} occupied {int(a[1].sum())}"
+                              for n, a in wx.get("W", {}).items())
+          + "; X " + ", ".join(f"{n} {tuple(a[2].shape)} valid {int(a[4].sum())} pad_rows {a[5]}"
+                              for n, a in wx.get("X", {}).items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
@@ -955,13 +1027,26 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
             a = on(args)
             calls[name] = lambda a=a, kw=kw: smoothing.presmooth_colors(*a, **kw)
             calls["presmooth.vote"] = n_vote(smoothing, neighbors, a, kw)[0]
+    if "W" in kernels:
+        for name, args in inputs.get("W", {}).items():
+            planes, occ = on(args)
+            flat = planes.reshape(-1, *planes.shape[-2:])
+            calls[name] = lambda p=planes, o=occ: padding.fill_rgb(p, o, 0)
+            calls["bg_dilate.dilate"] = lambda p=flat, o=occ: (
+                lambda r: (r[0], torch.tensor([r[1]])))(padding.dilate_fill(p, o))
+    if "X" in kernels:
+        for name, (*args, pad) in inputs.get("X", {}).items():
+            calls[name] = lambda a=on(args), pad=pad: (
+                normals.orient_normals_spanning_tree(*a, pad_rows=pad),
+                torch.tensor([normals.last_flood_sweeps]))
     letter = {n: "P" for n in calls}
-    for k in "EAGKJOQHCMDLBRN":
+    for k in "EAGKJOQHCMDLBRNWX":
         letter.update({n: k for n in inputs.get(k, {}) if n in calls})
     letter.update({n: "M" for n in calls if n.startswith("recolor.")})
     letter.update({n: "F" for n in calls if n.startswith("segment.")})
     letter.update({n: "Q" for n in calls if n.startswith("color.")})
     letter.update({n: "N" for n in calls if n.startswith("presmooth.")})
+    letter.update({n: "W" for n in calls if n.startswith("bg_dilate.")})
     return {n: (letter[n], fn) for n, fn in calls.items()}
 
 
@@ -1079,9 +1164,16 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
     res = {name: {"md5": md5(views.get(name, lambda o: o)(fn())), "call_ms": [],
                   "device_ms": []}
            for name, (_, fn) in calls.items()}
+    from vpcc_tpu_torch import device as dev
+
     for name, (letter, fn) in calls.items():
         if letter == "R":
             res[name]["values"] = fn().tolist()
+        torch.cuda.synchronize()
+        before = dict(dev.LAUNCHES)
+        fn()
+        res[name]["launches"] = {k: v - before.get(k, 0) for k, v in dev.LAUNCHES.items()
+                                 if v != before.get(k, 0)}
     for name, (*args, kw) in inputs.get("D", {}).items():
         if name in res:
             res[name]["zeroed_bytes"] = zeroed_bytes(args[0], kw.get("grid_size", 8),
@@ -1100,7 +1192,7 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
                                                         for a in args], runs)
     if split:
         for name, (letter, fn) in calls.items():
-            if letter in "OQHCMDLBRN":
+            if letter in "OQHCMDLBRNWX":
                 res[name]["host"] = host_split(fn, REPS[letter])
     if split and "B" in kernels:
         for name, args in inputs.get("B", {}).items():
@@ -1123,6 +1215,12 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
                            tuple(k for k, letter in (("metrics", "R"), ("presmooth", "N"))
                                  if letter in kernels))
         for name, v in rn.items():
+            res[name]["variants"] = v
+    if split and hasattr(normals, "flood_scratch_words") and ("W" in kernels or "X" in kernels):
+        wx = variant_split(root, {n: c for n, c in calls.items() if c[0] in "WX"}, runs,
+                           tuple(k for k, letter in (("bg_fill", "W"), ("orient", "X"))
+                                 if letter in kernels))
+        for name, v in wx.items():
             res[name]["variants"] = v
     if split and hasattr(coverage, "column_table") and ("H" in kernels or "C" in kernels):
         hc = variant_split(root, {n: c for n, c in calls.items() if c[0] in "HC"}, runs,
@@ -1500,7 +1598,72 @@ HC_VARIANTS["presmooth"] = {
                         "replace = t[0] >= 0.0f;"),
     "warps4": _swap("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
 }
+# --split builds of kernels W's dilation and X's flood: whole, the level
+# walk with CTAs of 512 or 1024 threads (X: 512, and 16 reverse-list entries
+# queued at once in place of 32), a cluster of 8 CTAs, and the walk cut (it
+# returns at once: the seed, prep and finish launches alone; the output is
+# garbage)
+_STRIDE = "const int stride = gridDim.x * kLevelThreads;"
+# "phases": the walk whole, the thread of item 0 summing %globaltimer
+# nanoseconds between points of its level (each point waits on what it
+# reads: the stall before it is the phase's) and printing the sums once
+_CLOCK = "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(now_));"
+_T0 = (" unsigned long long ph_[6] = {0, 0, 0, 0, 0, 0}, now_ = 0, was_ = 0; " + _CLOCK
+       + " was_ = now_;")
+
+
+def _stamp(i: int) -> str:
+    return f" if (vid == 0) {{ {_CLOCK} ph_[{i}] += now_ - was_; was_ = now_; }}"
+
+
+def _print(what: str) -> str:
+    return (f' if (vid == 0) printf("{what} phases ns: %llu %llu %llu %llu %llu %llu\\n", '
+            "ph_[0], ph_[1], ph_[2], ph_[3], ph_[4], ph_[5]);")
+HC_VARIANTS["bg_fill"] = {
+    "whole": None,
+    "threads512": _swap("kLevelThreads = 256;", "kLevelThreads = 512;"),
+    "threads1024": _swap("kLevelThreads = 256;", "kLevelThreads = 1024;"),
+    "cluster8": _swap("constexpr int kCluster = 16;", "constexpr int kCluster = 8;"),
+    "no_levels": _after(_STRIDE, 0, " if (a.C > 0) { if (vid == 0) a.cnt[0] = a.cnt[1] = "
+                                    "a.cnt[2] = 0; return; }"),
+    # count read; the pixel's list entry; claims (stamps); values; append;
+    # barrier
+    "phases": (_after("  int k = 1;", 0, _T0), _after("if (n == 0) break;", 0, _stamp(0)),
+               _swap("        neighbours(p, a.H, a.W, nb);\n        // one round trip",
+                     "        neighbours(p, a.H, a.W, nb);" + _stamp(1) + "\n        // one round trip"),
+               _swap("#include <cstdint>\n", "#include <cstdint>\n#include <cstdio>\n"),
+               _after("const float den = fmaxf(wsum, 1.0f);", 0, _stamp(2)),
+               _after("      warp_append(take, nb, a.cnt + (k + 1) % 3, nxt);", 0, _stamp(4)),
+               _swap("    cg::this_cluster().sync();\n  }\n  if (vid == 0) {   // every",
+                     "    cg::this_cluster().sync();" + _stamp(5) + "\n  }\n  if (vid == 0) {   // every"),
+               _swap("        if (claim) {\n#pragma unroll\n          for (int j = 0; j < 4; ++j)\n"
+                     "            if (pf[j] == kEmpty)",
+                     _stamp(3) + "\n        if (claim) {\n#pragma unroll\n          for (int j = 0; "
+                     "j < 4; ++j)\n            if (pf[j] == kEmpty)"),
+               _swap("  if (vid == 0) {   // every counter", _print("W") + "\n  if (vid == 0) {   "
+                     "// every counter")),
+}
+HC_VARIANTS["orient"] = {
+    "whole": None,
+    "threads512": _swap("kLevelThreads = 256;", "kLevelThreads = 512;"),
+    "chunk16": _swap("constexpr int kChunk = 32;", "constexpr int kChunk = 16;"),
+    "cluster8": _swap("constexpr int kCluster = 16;", "constexpr int kCluster = 8;"),
+    "no_levels": _after(_STRIDE, 0, " if (a.V > 0) return;"),
+    # count read; the row's stamp (and its lists); the vote's gathers;
+    # nothing; queueing and append; barrier
+    "phases": (_swap("#include <cstdint>\n", "#include <cstdint>\n#include <cstdio>\n"),
+               _after("  int sweeps = 0;", 0, _T0), _after("if (n == 0) break;", 0, _stamp(0)),
+               _after("        if (sr == kUnset) {", 0, _stamp(1)),
+               _swap("          if (fabsf(vote) > 1e-6f) {",
+                     _stamp(2) + "\n          if (fabsf(vote) > 1e-6f) {"),
+               _swap("    cluster.sync();\n    if (__ldcg(a.hdr + 3 + t % 3) == 0) break;",
+                     _stamp(4) + "\n    cluster.sync();" + _stamp(5)
+                     + "\n    if (__ldcg(a.hdr + 3 + t % 3) == 0) break;"),
+               _swap("  if (vid == 0) a.hdr[6] = sweeps;",
+                     _print("X") + "\n  if (vid == 0) a.hdr[6] = sweeps;")),
+}
 HC_ENTRIES = {"recolor": ("recolor_exact_compact", "recolor_blend_merge"),
+              "bg_fill": ("bg_dilate",), "orient": ("flood",),
               "push_pull": ("push_pull",), "half_pel_mc": ("half_pel_mc",),
               "grid_smooth": ("grid_smooth",),
               "coverage": ("coverage",),
@@ -1517,7 +1680,8 @@ def _or_error(fn):
         return "raised: " + str(e).splitlines()[0][:120]
 
 
-KERNEL_LETTER = {"coverage": "H", "generate_points": "C", "recolor": "M", "grid_smooth": "D",
+KERNEL_LETTER = {"bg_fill": "W", "orient": "X",
+                 "coverage": "H", "generate_points": "C", "recolor": "M", "grid_smooth": "D",
                  "push_pull": "L", "half_pel_mc": "B", "metrics": "R", "presmooth": "N"}
 
 
@@ -1620,6 +1784,110 @@ def motion_split(root: Path, args, runs: int) -> dict:
     return res
 
 
+def frontier_stats(inputs: dict, device="cuda") -> dict:
+    """The lists kernels W and X walk on the captured inputs, from the plain
+    rules (PyTorch on the card): W's ring of each level (the empty pixels at
+    4-connected torus distance k from the occupied ones, k = 1..passes), X's
+    candidates of each sweep (unsigned valid rows with a valid neighbour
+    signed in the sweep before) and the rows each signs.  Per walk: the
+    levels, the sum, maximum and median of the list, and the levels whose
+    list exceeds 4096, 8192 and 16384 items."""
+    import statistics
+
+    from vpcc_tpu_torch.ops import normals
+
+    def summary(sizes):
+        return {"levels": len(sizes), "sum": int(sum(sizes)), "max": int(max(sizes, default=0)),
+                "median": statistics.median(sizes) if sizes else 0,
+                **{f"over_{b}": sum(x > b for x in sizes) for b in (4096, 8192, 16384)}}
+
+    out = {}
+    for name, (planes, occ) in inputs.get("W", {}).items():
+        filled = occ.to(device).bool()
+        rings = []
+        while len(rings) < 1024:
+            near = (filled.roll(1, 0) | filled.roll(-1, 0) | filled.roll(1, 1)
+                    | filled.roll(-1, 1)) & ~filled
+            n = int(near.sum())
+            if n == 0:
+                break
+            rings.append(n)
+            filled |= near
+        out[name] = {"rings": summary(rings), "first_rings": rings[:8]}
+    for name, (pos, nrm, idx, valid_k, valid, pad) in inputs.get("X", {}).items():
+        pos, nrm, idx, valid_k, valid = (a.to(device) for a in (pos, nrm, idx, valid_k, valid))
+        seed, s0 = normals.flood_seed(pos, nrm, valid, pad)
+        sign = torch.zeros(pos.shape[0], dtype=torch.float32, device=device)
+        new = torch.zeros(pos.shape[0], dtype=torch.bool, device=device)
+        if seed >= 0:
+            sign[seed] = s0
+            new[seed] = True
+        cands, signed = [], []
+        for _ in range(normals.FLOOD_MAX_SWEEPS):
+            cand = (sign == 0) & valid & (new[idx.long()] & valid_k).any(1)
+            vote = normals.flood_votes_plain(nrm, idx, valid_k, sign)
+            new = (sign == 0) & valid & (vote.abs() > normals.FLOOD_VOTE_MIN)
+            if not bool(new.any()):
+                break
+            cands.append(int(cand.sum()))
+            signed.append(int(new.sum()))
+            sign = torch.where(new, torch.where(vote < 0, -1.0, 1.0), sign)
+        out[name] = {"candidates": summary(cands), "signed": summary(signed)}
+    return out
+
+
+def barriers(iters: int = 2000, runs: int = 5) -> dict:
+    """The card's empty barriers in microseconds (`apps/barrier_probe.cu`):
+    "grid.sync B x T" for cooperative grids of B blocks of T threads,
+    "cluster.sync C x T" for one cluster of C CTAs, "syncthreads T" for one
+    block, and "max_cluster T": the largest cluster of T-thread CTAs the
+    card places."""
+    import ctypes
+    import statistics
+    import tempfile
+
+    from vpcc_tpu_torch import device as dev
+
+    lib_path = Path(tempfile.mkdtemp(prefix="barrier_probe_")) / "libbarrier_probe.so"
+    subprocess.run([dev.nvcc_path(), *dev.NVCC_FLAGS, "-o", str(lib_path),
+                    str(Path(__file__).resolve().parent / "barrier_probe.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for name, n in (("probe_grid", 5), ("probe_cluster", 5), ("probe_block", 4)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * (n - 2) + [ctypes.c_void_p] * 2
+        getattr(lib, name).restype = ctypes.c_int
+    lib.probe_max_cluster.argtypes, lib.probe_max_cluster.restype = [ctypes.c_int], ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def per_barrier(launch) -> float:
+        def once(n):
+            rc = launch(n)
+            if rc != 0:
+                raise RuntimeError(f"barrier probe: cudaError {rc}")
+        once(iters)
+        times = [(time_ms(lambda: once(iters), 1) - time_ms(lambda: once(0), 1)) * 1e3 / iters
+                 for _ in range(runs)]
+        return round(statistics.median(times), 4)
+
+    st = dev.stream_handle
+    out = {"sms": sms}
+    for blocks in (16, sms // 2, sms, 2 * sms):
+        for threads in (256, 1024):
+            if blocks * threads <= 2048 * sms:
+                out[f"grid.sync {blocks} x {threads}"] = per_barrier(
+                    lambda n, b=blocks, t=threads: lib.probe_grid(b, t, n, dev.ptr(sink), st()))
+    for threads in (256, 1024):
+        out[f"max_cluster {threads}"] = lib.probe_max_cluster(threads)
+        for cluster in (8, 16):
+            out[f"cluster.sync {cluster} x {threads}"] = per_barrier(
+                lambda n, c=cluster, t=threads: lib.probe_cluster(c, t, n, dev.ptr(sink), st()))
+    for threads in (256, 1024):
+        out[f"syncthreads {threads}"] = per_barrier(
+            lambda n, t=threads: lib.probe_block(t, n, dev.ptr(sink), st()))
+    return out
+
+
 def summarize(paths) -> dict:
     """root -> entry -> {call and device: (q1, median, q3), runs, md5s
     agree} over the JSON lines in `paths`."""
@@ -1652,7 +1920,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N",
+    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N,W,X",
                     help="kernels whose entries are timed")
     ap.add_argument("--trace", action="store_true",
                     help="also each device kernel's time and launches a call")
@@ -1661,6 +1929,8 @@ def main(argv=None) -> int:
                          "host time a call and host waits of O, Q, H, C, M, D, L, B, R "
                          "and N")
     ap.add_argument("--summarize", nargs="+", type=Path, help="logs of --inputs runs")
+    ap.add_argument("--barriers", action="store_true",
+                    help="time the card's empty grid, cluster and block barriers")
     a = ap.parse_args(argv)
     if a.summarize:
         for root, entries in summarize(a.summarize).items():
@@ -1676,6 +1946,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
+    if a.barriers:
+        sys.path.insert(0, str(ROOT))
+        print(json.dumps({"card": smi, "barriers_us": barriers()}))
+        return 0
     if a.capture:
         sys.path.insert(0, str(a.root))
         capture(a.capture, kernels=a.kernels)
@@ -1686,6 +1960,8 @@ def main(argv=None) -> int:
     out = {"root": str(a.root), "card": smi, "entries": res}
     if a.split and "O" in a.kernels:
         out["host_parts_us"] = host_parts(torch.load(a.inputs)["O"]["deblock.luma"][0].cuda())
+    if a.split and ("W" in a.kernels or "X" in a.kernels):
+        out["frontier"] = frontier_stats(torch.load(a.inputs))
     if a.split and ("H" in a.kernels or "C" in a.kernels):
         out["hc_host_parts_us"] = hc_host_parts(torch.load(a.inputs))
     if a.split and "L" in a.kernels and "B" in a.kernels and a.root.resolve() == ROOT:
@@ -1693,7 +1969,8 @@ def main(argv=None) -> int:
     if a.split and "R" in a.kernels and "N" in a.kernels and a.root.resolve() == ROOT:
         out["rn_host_parts_us"] = rn_host_parts(torch.load(a.inputs))
     built = [k for letter, k in (("M", "recolor"), ("D", "grid_smooth"), ("L", "push_pull"),
-                                 ("B", "half_pel_mc"), ("R", "metrics"), ("N", "presmooth"))
+                                 ("B", "half_pel_mc"), ("R", "metrics"), ("N", "presmooth"),
+                                 ("W", "bg_fill"), ("X", "orient"))
              if letter in a.kernels]
     if built:
         from vpcc_tpu_torch import device as dev

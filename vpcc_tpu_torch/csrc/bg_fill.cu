@@ -6,15 +6,40 @@
 // `push_levels`) and `smooth_fill` (:58), as `fill_rgb` (:176) runs them on
 // the attribute images under attributeBGFill 0 and 2.  Every stencil wraps
 // around the plane, as the reference's jnp.roll.  Entry points:
-// * bg_dilate: `count` synchronous dilation passes.  pass_of (H, W) holds the
-//   pass that filled each pixel (0 occupied, INT_MAX empty); pass k reads only
-//   neighbours with pass_of < k, so it runs in place and still sees the state
-//   before the pass.  An empty pixel with a filled 4-neighbour takes
-//   rint(vsum / max(wsum, 1)), vsum = ((up + down) + left) + right over the
-//   filled neighbours' values, wsum their count; one thread per pixel handles
-//   every plane.  A pass that fills a pixel sets flags[k]; the host stops after
-//   a pass that filled nothing (later passes would change nothing).  With
-//   first == 0 an initial launch sets x = image * occupancy and pass_of.
+// * bg_dilate: the whole dilation in three launches, a frontier walked level
+//   by level.  The reference's pass k fills every empty pixel with a filled
+//   4-neighbour; that is exactly the ring of pixels at 4-connected distance
+//   k (on the torus) from the occupied set (on the bench frame a median of
+//   2,560 of the plane's 1.6 M pixels).  pass_of (H, W) is each pixel's
+//   level stamp: 0 occupied, k once claimed for level k, INT_MAX never
+//   reached.  A pixel's values live in 32-byte records (kGroup planes each)
+//   during the walk, so that a neighbour's planes are two 16-byte loads.
+//   1. dilate_seed, a thread a pixel: pass_of; each empty pixel with an
+//      occupied neighbour claimed for level 1 and listed (one atomic a warp);
+//      each occupied pixel with an empty neighbour (the seed frontier)
+//      writes its record, image * 1;
+//   2. dilate_levels, one cluster of kCluster CTAs on neighbouring SMs,
+//      persistent: level k takes its list (item i to CTA i % kCluster), a
+//      thread a pixel, and computes what the reference's pass k computes
+//      there, every plane in one thread: the neighbours up, down, left,
+//      right, f = pass_of < k, wsum summed from f[0], v = ((up + down) +
+//      left) + right over the filled ones' values, rint(v / max(wsum, 1)).
+//      A neighbour claimed meanwhile for level k + 1 reads k + 1, not below
+//      k: the level runs in place and still sees the state before it.  The
+//      stamps come back from the claims, atomicCAS of each neighbour's stamp
+//      from INT_MAX to k + 1 (a pixel listed once) while k + 1 <= max_iters,
+//      issued after the loads of every neighbour's record (used where
+//      filled), so that a level is three dependent round trips (the list,
+//      the records and claims, the next list's counter) and a cluster
+//      barrier.  The claimed pixels are listed (one atomic a warp).  An
+//      empty list ends the walk, read on the device.  Every listed pixel
+//      fills, so the levels run are the passes that filled a pixel;
+//   3. dilate_finish, a thread a pixel: occupied pixels the image, filled
+//      ones their record, unreached ones image * 0 (the reference's x); into
+//      x, or rounded half to even and clipped into an int32 output.
+//   The lists ping-pong in scratch; their counters rotate over three words,
+//   each zeroed a level before it counts, and all three left at 0 for the
+//   next call.
 // * bg_pull: one pyramid level of the pull: (top || weight > 0) ? value /
 //   max(weight, 1) : the parent's fill; level 0 reads the image and the
 //   occupancy (value = image * occupancy, weight = occupancy).
@@ -26,60 +51,229 @@
 // Float operations are single IEEE roundings (built with --fmad=false), in the
 // order of the reference's XLA CPU program.
 //
-// Bound: bytes.  A dilation pass reads pass_of and the filled neighbours'
-// values and writes the pixels it fills; a relaxation step reads and writes
-// each plane once.  At 1280 x 1280 each launch is a few microseconds of
-// latency: the dilation's ~hundreds of passes and the harmonic fill's 9
-// levels x 9 launches are launch-bound.
+// Bound: bytes.  The dilation reads the planes and the occupancy once and
+// writes the filled planes once; its floor is its chain of levels, each a
+// cluster barrier (0.48 us for 16 CTAs of 256 threads on an H100) behind
+// three dependent memory round trips.  The harmonic fill's 9 levels x 9
+// launches are launch-bound.
 
 #include <climits>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kEmpty = INT_MAX;
+constexpr int kSeedThreads = 256;
+constexpr int kCluster = 16;           // CTAs of the level walk (one GPC)
+constexpr int kLevelThreads = 256;     // threads a CTA of the level walk
+constexpr int kGroup = 8;              // planes a value record holds (32 bytes)
+// scratch words: three rotating list counters and the passes run (the
+// header, kHeader words, padded to 16), the value records (groups x hw x
+// kGroup floats), pass_of (hw) and the two lists (hw each)
+constexpr int kHeader = 4;
+constexpr int kRecords = 16;
 
-__global__ void dilate_init(const int32_t* img, const uint8_t* occ, float* x,
-                            int32_t* pass_of, int C, int64_t hw) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= hw) return;
-  const float o = occ[p] != 0 ? 1.0f : 0.0f;
-  pass_of[p] = occ[p] != 0 ? 0 : kEmpty;
-  for (int c = 0; c < C; ++c)
-    x[c * hw + p] = __fmul_rn(static_cast<float>(img[c * hw + p]), o);
+struct Dilate {
+  const int32_t* img;
+  float* x;
+  float* rec;         // a pixel's values, kGroup planes a record, groups x hw records
+  int32_t* cnt;       // kHeader words
+  int32_t* pass_of;
+  int32_t* list[2];   // level k's list is list[k & 1]
+  int C, H, W, max_iters, groups;
+};
+
+// a 16-byte load through L2, as volatile asm: the compiler keeps it where it
+// stands, ahead of the claims' atomics, so that both round trips overlap
+__device__ __forceinline__ float4 load_early(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
 }
 
-__global__ void dilate_pass(float* x, int32_t* pass_of, int C, int H, int W, int k,
-                            int32_t* flag) {
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= hw || pass_of[p] != kEmpty) return;
-  const int y = static_cast<int>(p / W), xx = static_cast<int>(p % W);
-  const int64_t nb[4] = {
-      static_cast<int64_t>(y == 0 ? H - 1 : y - 1) * W + xx,   // up (roll +1 on rows)
-      static_cast<int64_t>(y == H - 1 ? 0 : y + 1) * W + xx,   // down
-      static_cast<int64_t>(y) * W + (xx == 0 ? W - 1 : xx - 1),  // left
-      static_cast<int64_t>(y) * W + (xx == W - 1 ? 0 : xx + 1),  // right
-  };
-  bool f[4];
-  float wsum = 0.0f;
+// the two 16-byte halves of pixel p's record of group g
+__device__ __forceinline__ float4* record(const Dilate& a, int g, int p) {
+  return reinterpret_cast<float4*>(a.rec + (static_cast<int64_t>(g) * a.H * a.W + p) * kGroup);
+}
+
+__device__ __forceinline__ void neighbours(int p, int H, int W, int nb[4]) {
+  const int y = p / W, xx = p - y * W;
+  nb[0] = (y == 0 ? H - 1 : y - 1) * W + xx;   // up (roll +1 on rows)
+  nb[1] = (y == H - 1 ? 0 : y + 1) * W + xx;   // down
+  nb[2] = y * W + (xx == 0 ? W - 1 : xx - 1);  // left
+  nb[3] = y * W + (xx == W - 1 ? 0 : xx + 1);  // right
+}
+
+// Appends this lane's entries q[j] for the bits j of `take` to list at
+// *count (one atomic a warp); every lane of the warp calls it.
+__device__ __forceinline__ void warp_append(unsigned take, const int q[4], int32_t* count,
+                                            int32_t* list) {
+  const int lane = threadIdx.x & 31;
+  const int m = __popc(take);
+  int incl = m;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[j] = pass_of[nb[j]] < k;
-    wsum = j == 0 ? (f[0] ? 1.0f : 0.0f) : __fadd_rn(wsum, f[j] ? 1.0f : 0.0f);
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+    if (lane >= off) incl += t;
   }
-  if (!(wsum > 0.0f)) return;
-  const float den = fmaxf(wsum, 1.0f);
-  for (int c = 0; c < C; ++c) {
-    const float* xc = x + c * hw;
-    float v = f[0] ? xc[nb[0]] : 0.0f;
+  const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+  if (total == 0) return;
+  int base = 0;
+  if (lane == 31) base = atomicAdd(count, total);
+  base = __shfl_sync(0xFFFFFFFFu, base, 31) + incl - m;
 #pragma unroll
-    for (int j = 1; j < 4; ++j) v = __fadd_rn(v, f[j] ? xc[nb[j]] : 0.0f);
-    x[c * hw + p] = rintf(__fdiv_rn(v, den));
+  for (int j = 0; j < 4; ++j)
+    if ((take >> j) & 1u) list[base++] = q[j];
+}
+
+__global__ void __launch_bounds__(kSeedThreads) dilate_seed(const uint8_t* __restrict__ occ,
+                                                            Dilate a) {
+  const int hw = a.H * a.W;
+  const int p = blockIdx.x * kSeedThreads + threadIdx.x;
+  const int q[4] = {p, 0, 0, 0};
+  unsigned take = 0;
+  if (p < hw) {
+    int nb[4];
+    neighbours(p, a.H, a.W, nb);
+    const bool o = occ[p] != 0;
+    const int around = occ[nb[0]] + occ[nb[1]] + occ[nb[2]] + occ[nb[3]];
+    int lv = kEmpty;
+    if (o) {
+      lv = 0;
+      if (around < 4 && a.max_iters >= 1)   // the seed frontier: its record, image * 1
+        for (int g = 0; g < a.groups; ++g) {
+          float v[kGroup];
+#pragma unroll
+          for (int u = 0; u < kGroup; ++u) {
+            const int c = g * kGroup + u;
+            v[u] = c < a.C ? static_cast<float>(a.img[static_cast<int64_t>(c) * hw + p]) : 0.0f;
+          }
+          float4* r = record(a, g, p);
+          r[0] = make_float4(v[0], v[1], v[2], v[3]);
+          r[1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+    } else if (a.max_iters >= 1 && around != 0) {
+      lv = 1;
+    }
+    a.pass_of[p] = lv;
+    take = lv == 1;
   }
-  pass_of[p] = k;
-  flag[k] = 1;
+  warp_append(take, q, a.cnt + 1, a.list[1]);
+}
+
+__global__ void __launch_bounds__(kLevelThreads, 1) dilate_levels(const __grid_constant__ Dilate a) {
+  const int hw = a.H * a.W;
+  // item i of a list goes to CTA i % gridDim.x: a short list still spreads
+  // over every SM of the walk (their load pipes, not the latency, bound a
+  // level whose items sit on a few SMs)
+  const int vid = threadIdx.x * gridDim.x + blockIdx.x;
+  const int stride = gridDim.x * kLevelThreads;
+  const int cap = hw;   // a list's capacity
+  int k = 1;
+  for (;; ++k) {
+    // this thread's first item read with the count (whatever lies there
+    // when the list is shorter is not used)
+    const int first = vid < cap ? __ldcg(a.list[k & 1] + vid) : 0;
+    const int n = __ldcg(a.cnt + k % 3);
+    if (n == 0) break;
+    if (vid == 0) a.cnt[(k + 2) % 3] = 0;   // counts level k + 2; read last at level k - 1
+    const int32_t* cur = a.list[k & 1];
+    int32_t* nxt = a.list[(k + 1) & 1];
+    const bool claim = k + 1 <= a.max_iters;
+    for (int i0 = 0; i0 < n; i0 += stride) {   // the same trips for every lane
+      const int i = i0 + vid;
+      int nb[4] = {0, 0, 0, 0};
+      unsigned take = 0;   // the neighbours this pixel claims
+      if (i < n) {
+        const int p = i0 == 0 ? first : __ldcg(cur + i);
+        neighbours(p, a.H, a.W, nb);
+        // one round trip: every neighbour's record of group 0 (used where
+        // filled), then its stamp, which comes back from the claim
+        // (atomicCAS returns the stamp it found: INT_MAX where it claimed)
+        float4 t[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4* r = record(a, 0, nb[j]);
+          t[j][0] = load_early(r);
+          t[j][1] = load_early(r + 1);
+        }
+        int pf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pf[j] = claim ? atomicCAS(a.pass_of + nb[j], kEmpty, k + 1) : __ldcg(a.pass_of + nb[j]);
+        bool f[4];
+        float wsum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          f[j] = pf[j] < k;
+          wsum = j == 0 ? (f[0] ? 1.0f : 0.0f) : __fadd_rn(wsum, f[j] ? 1.0f : 0.0f);
+        }
+        const float den = fmaxf(wsum, 1.0f);
+        for (int g = 0; g < a.groups; ++g) {
+          if (g > 0) {   // planes beyond the first kGroup: another round trip
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4* r = record(a, g, nb[j]);
+              t[j][0] = __ldcg(r);
+              t[j][1] = __ldcg(r + 1);
+            }
+          }
+          float v[kGroup];
+#pragma unroll
+          for (int u = 0; u < kGroup; ++u) {
+            const float e[4] = {(&t[0][u >> 2].x)[u & 3], (&t[1][u >> 2].x)[u & 3],
+                                (&t[2][u >> 2].x)[u & 3], (&t[3][u >> 2].x)[u & 3]};
+            float s = f[0] ? e[0] : 0.0f;
+#pragma unroll
+            for (int j = 1; j < 4; ++j) s = __fadd_rn(s, f[j] ? e[j] : 0.0f);
+            v[u] = rintf(__fdiv_rn(s, den));
+          }
+          float4* r = record(a, g, p);
+          r[0] = make_float4(v[0], v[1], v[2], v[3]);
+          r[1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+        if (claim) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (pf[j] == kEmpty) take |= 1u << j;
+        }
+      }
+      warp_append(take, nb, a.cnt + (k + 1) % 3, nxt);
+    }
+    cg::this_cluster().sync();
+  }
+  if (vid == 0) {   // every counter read for the last time: leave them at 0
+    a.cnt[0] = a.cnt[1] = a.cnt[2] = 0;
+    a.cnt[3] = k - 1;
+  }
+}
+
+__global__ void dilate_finish(const uint8_t* __restrict__ occ, Dilate a,
+                              int32_t* __restrict__ out, int lo, int hi) {
+  const int hw = a.H * a.W;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= hw) return;
+  const int pf = a.pass_of[p];
+  for (int c = 0; c < a.C; ++c) {
+    const int64_t at = static_cast<int64_t>(c) * hw + p;
+    const float im = static_cast<float>(a.img[at]);
+    const float v = pf == 0         ? im
+                    : pf == kEmpty ? __fmul_rn(im, 0.0f)
+                                   : a.rec[(static_cast<int64_t>(c / kGroup) * hw + p) * kGroup +
+                                           c % kGroup];
+    if (out != nullptr) {
+      out[at] = static_cast<int32_t>(fminf(fmaxf(rintf(v), static_cast<float>(lo)),
+                                           static_cast<float>(hi)));
+    } else {
+      a.x[at] = v;
+    }
+  }
 }
 
 __global__ void pull_top_or_level(const float* v, const float* wt, const float* parent,
@@ -158,27 +352,71 @@ inline unsigned blocks_for(int64_t n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
 
+// The level walk `kernel` (one argument, *arg) as one cluster of kCluster
+// CTAs; an error where the card cannot place it.
+cudaError_t launch_walk(const void* kernel, void* arg, cudaStream_t st) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  void* args[] = {arg};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kLevelThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, kernel, args);
+}
+
 }  // namespace
 
-// img (C, H, W) int32; occ (H, W) uint8; x (C, H, W) float32 state; pass_of
-// (H, W) int32; flags int32 with at least first + count + 1 entries, zeroed
-// by the caller.  Runs passes first + 1 .. first + count.
-extern "C" int bg_dilate(const int32_t* img, const uint8_t* occ, float* x, int32_t* pass_of,
-                         int32_t* flags, int C, int H, int W, int first, int count,
+// The int32 words of scratch bg_dilate takes for C planes of hw pixels.
+extern "C" long long bg_dilate_scratch_words(int C, long long hw) {
+  return kRecords + (static_cast<long long>(C) + kGroup - 1) / kGroup * kGroup * hw + 3 * hw;
+}
+
+// img (C, H, W) int32; occ (H, W) uint8; x (C, H, W) float32; scratch:
+// bg_dilate_scratch_words(C, H * W) int32 words, 16-byte aligned, its first
+// three zero (each call leaves them so); out (C, H, W) int32 or null.  The dilation of up to
+// max_iters passes: with out, rint(fill) clipped to lo..hi into out; without,
+// the float fill in x.  The passes that filled a pixel land in scratch[3].
+// Three launches (`*launched`); H * W below 2^31.
+extern "C" int bg_dilate(const int32_t* img, const uint8_t* occ, float* x, int32_t* scratch,
+                         int32_t* out, int C, int H, int W, int max_iters, int lo, int hi,
                          void* stream, int* launched) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t hw = static_cast<int64_t>(H) * W;
   *launched = 0;
-  if (hw == 0) return 0;
-  const int T = 256;
-  if (first == 0) {
-    dilate_init<<<blocks_for(hw, T), T, 0, st>>>(img, occ, x, pass_of, C, hw);
-    ++*launched;
-  }
-  for (int k = first + 1; k <= first + count; ++k) {
-    dilate_pass<<<blocks_for(hw, T), T, 0, st>>>(x, pass_of, C, H, W, k, flags);
-    ++*launched;
-  }
+  const int64_t hw64 = static_cast<int64_t>(H) * W;
+  if (hw64 == 0 || C == 0) return 0;
+  if (hw64 >= INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int hw = static_cast<int>(hw64);
+  Dilate a;
+  a.img = img;
+  a.x = x;
+  a.groups = (C + kGroup - 1) / kGroup;
+  a.cnt = scratch;
+  a.rec = reinterpret_cast<float*>(scratch + kRecords);
+  a.pass_of = scratch + kRecords + static_cast<int64_t>(a.groups) * hw * kGroup;
+  a.list[0] = a.pass_of + hw;
+  a.list[1] = a.list[0] + hw;
+  a.C = C;
+  a.H = H;
+  a.W = W;
+  a.max_iters = max_iters;
+  dilate_seed<<<blocks_for(hw, kSeedThreads), kSeedThreads, 0, st>>>(occ, a);
+  ++*launched;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_walk(reinterpret_cast<const void*>(dilate_levels), &a, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launched;
+  dilate_finish<<<blocks_for(hw, 256), 256, 0, st>>>(occ, a, out, lo, hi);
+  ++*launched;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,12 +15,14 @@ The eigen solver's arccos and cos are PyTorch's (plain version) or CUDA's
 The orientation centroid is an exact int64 sum of the valid rows'
 positions, rounded once to float32, divided by the float32 count: on the
 host for the plain version (`orientation_centroid`), on the device in kernel
-F's orientation launch (`orientation_centroid_device` is its tensor twin).
+F's orientation launch and kernel X's flood (`orientation_centroid_device`
+is its tensor twin).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -34,7 +36,6 @@ _TWO_PI_3 = float(np.float32(2.0 * math.pi / 3.0))
 ORIENT_ITERATIONS = 8  # consensus sweeps (the reference's default)
 FLOOD_MAX_SWEEPS = 256  # the spanning-tree flood's cap (the reference's max_iters)
 FLOOD_VOTE_MIN = float(np.float32(1e-6))  # |vote| that signs an unsigned row
-FLOOD_CHECK_EVERY = 8  # flood sweeps launched between two reads of the device flags
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -243,8 +244,7 @@ def orient_normals_viewpoint(normals, positions, viewpoint):
     dev.check_tensor(normals, "normals", torch.float32, d, 2)
     dev.check_tensor(positions, "positions", torch.int32, d, 2)
     out = torch.empty_like(normals)
-    fn = dev.load_kernel("orient").orient_viewpoint
-    fn.argtypes, fn.restype = _VP_ARGS, ctypes.c_int
+    fn = dev.kernel_fn("orient", "orient_viewpoint", _VP_ARGS)
     vx, vy, vz = (float(np.float32(v)) for v in viewpoint)
     rc = fn(dev.ptr(normals), dev.ptr(positions), V, vx, vy, vz, dev.ptr(out),
             dev.stream_handle())
@@ -327,13 +327,20 @@ def orient_normals_spanning_tree_plain(positions, normals, nn_idx, nn_valid, val
     return normals * sign[:, None], sweeps
 
 
-_SEED_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-_FLOOD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 \
-    + [ctypes.c_int] + [ctypes.c_void_p] * 2
-_FINISH_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_float] * 3 \
-    + [ctypes.c_void_p] * 3
+_FLOOD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 \
+    + [ctypes.POINTER(ctypes.c_int)]
+_FLOOD_SWEEPS_WORD = 6   # csrc/orient.cu: the header word of the sweeps that signed
 
 last_flood_sweeps = 0   # sweeps that signed a row in the last flood
+
+
+@functools.lru_cache(maxsize=64)
+def flood_scratch_words(V: int, K: int) -> int:
+    """int32 words of scratch kernel X's flood takes for V rows of K
+    neighbours (csrc/orient.cu plans them)."""
+    fn = dev.kernel_fn("orient", "flood_scratch_words", [ctypes.c_int] * 2)
+    fn.restype = ctypes.c_longlong
+    return fn(V, K)
 
 
 def orient_normals_spanning_tree(positions, normals, nn_idx, nn_valid, valid,
@@ -349,9 +356,12 @@ def orient_normals_spanning_tree(positions, normals, nn_idx, nn_valid, valid,
     padded rows, which have no valid neighbour and so no vote).
     `pad_rows`: the reference's arrays hold padded rows after these (their
     key 0 joins the seed's argmax).  Sets `last_flood_sweeps`.  Kernel X on
-    CUDA (the seed, one launch per sweep, the device flags read every
-    FLOOD_CHECK_EVERY sweeps, the finish); the plain version for a CPU
-    tensor."""
+    CUDA: three launches and one host read (the sweep count): a cooperative
+    prep (the reverse adjacency by a counting sort, the seed, the centroid),
+    one cluster of CTAs walking the frontier sweep by sweep (only rows next
+    to a row signed in the sweep before vote; the stop decided on the card),
+    and the finish; where the card cannot place the prep's grid or the
+    cluster, the call raises.  The plain version for a CPU tensor."""
     global last_flood_sweeps
     if positions.device.type == "cpu":
         out, last_flood_sweeps = orient_normals_spanning_tree_plain(
@@ -364,42 +374,21 @@ def orient_normals_spanning_tree(positions, normals, nn_idx, nn_valid, valid,
     dev.check_tensor(nn_idx, "nn_idx", torch.int32, d, 2)
     dev.check_tensor(nn_valid, "nn_valid", torch.bool, d, 2)
     dev.check_tensor(valid, "valid", torch.bool, d, 1)
+    if V * max(K, 1) >= 1 << 31:
+        raise ValueError(f"orient_normals_spanning_tree: {V} x {K} neighbour slots")
     out = torch.empty_like(normals)
     last_flood_sweeps = 0
     if V == 0:
         return out
-    lib = dev.load_kernel("orient")
-    seed_fn, step, finish = lib.flood_seed, lib.flood_step, lib.flood_finish
-    seed_fn.argtypes, seed_fn.restype = _SEED_ARGS, ctypes.c_int
-    step.argtypes, step.restype = _FLOOD_ARGS, ctypes.c_int
-    finish.argtypes, finish.restype = _FINISH_ARGS, ctypes.c_int
-    sign = torch.empty(V, dtype=torch.float32, device=d)
-    other = torch.empty_like(sign)
-    best = torch.zeros(1, dtype=torch.int64, device=d)
-    flags = torch.zeros(FLOOD_MAX_SWEEPS, dtype=torch.int32, device=d)
-    rc = seed_fn(dev.ptr(positions), dev.ptr(normals), dev.ptr(valid), V, int(pad_rows),
-                 dev.ptr(best), dev.ptr(sign), dev.stream_handle())
-    dev.count_launch("orient", 2)
+    scratch = dev.scratch("orient", d, flood_scratch_words(V, K))
+    launched = ctypes.c_int(0)
+    rc = dev.kernel_fn("orient", "flood", _FLOOD_ARGS)(
+        dev.ptr(positions), dev.ptr(normals), dev.ptr(nn_idx), dev.ptr(nn_valid),
+        dev.ptr(valid), V, K, int(pad_rows), FLOOD_MAX_SWEEPS, dev.ptr(scratch), dev.ptr(out),
+        dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("orient", launched.value)
     dev.check_launch("orient", rc)
-    done = 0
-    while done < FLOOD_MAX_SWEEPS:
-        end = min(done + FLOOD_CHECK_EVERY, FLOOD_MAX_SWEEPS)
-        for it in range(done, end):
-            rc = step(dev.ptr(normals), dev.ptr(nn_idx), dev.ptr(nn_valid), V, K,
-                      dev.ptr(valid), dev.ptr(sign), dev.ptr(other), it, dev.ptr(flags),
-                      dev.stream_handle())
-            dev.count_launch("orient")
-            dev.check_launch("orient", rc)
-            sign, other = other, sign
-        done = end
-        if int(flags[end - 1]) == 0:
-            break
-    cx, cy, cz = orientation_centroid(positions, valid)
-    rc = finish(dev.ptr(positions), dev.ptr(normals), V, cx, cy, cz, dev.ptr(sign),
-                dev.ptr(out), dev.stream_handle())
-    dev.count_launch("orient")
-    dev.check_launch("orient", rc)
-    last_flood_sweeps = int(flags[:done].sum())
+    last_flood_sweeps = int(scratch[_FLOOD_SWEEPS_WORD])
     return out
 
 

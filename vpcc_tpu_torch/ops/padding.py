@@ -56,8 +56,9 @@ Kernel L (csrc/push_pull.cu) has two entries: the whole push-pull of a
 stack of planes, each under its own occupancy or all under one, rounded to
 int32 (`push_pull_round`), and the push alone over a stack of planes
 sharing one occupancy (`push_levels`).  Kernel W
-(csrc/bg_fill.cu) runs the dilation passes, the pull and relaxation
-levels, and the final selection and rounding.
+(csrc/bg_fill.cu) runs the dilation (a frontier walked level by level in
+one persistent launch between a seed and a finish launch), the pull and
+relaxation levels, and the final selection and rounding.
 """
 
 from __future__ import annotations
@@ -72,7 +73,6 @@ import torch
 from vpcc_tpu_torch import device as dev
 
 DILATE_MAX_PASSES = 1024   # the reference's `max_iters`
-DILATE_BATCH = 16          # passes launched between two reads of the pass flags
 HARMONIC_SMOOTH = 8        # Jacobi steps per level (the reference's `n_smooth`)
 SMOOTH_ITERATIONS = 4      # Jacobi steps after the push-pull (`iterations`)
 
@@ -355,61 +355,70 @@ def push_levels(planes: torch.Tensor, occupancy: torch.Tensor, min_side: int):
 # ---------------------------------------------------------------------------
 # kernel W
 
-_DILATE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+_DILATE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 _PULL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _RELAX_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 _FINISH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_DILATE_HEADER = 4   # csrc/bg_fill.cu kHeader: three list counters, the passes run
 
 
-def _w(name: str, args):
-    fn = getattr(dev.load_kernel("bg_fill"), name)
-    fn.argtypes, fn.restype = args, ctypes.c_int
-    return fn
-
-
-def _finish(fill, planes, occupancy, out, counter: str, lo: int = 0, hi: int = 255):
+def _finish(fill, planes, occupancy, out, lo: int = 0, hi: int = 255):
     """Kernel W: the occupied pixels take the image (float, in place), and
-    with `out` the planes are rounded half to even and clipped into it."""
+    with `out` the planes are rounded half to even and clipped into it
+    (counted with the harmonic fill's launches)."""
     C, H, W = fill.shape
-    rc = _w("bg_finish", _FINISH_ARGS)(
+    rc = dev.kernel_fn("bg_fill", "bg_finish", _FINISH_ARGS)(
         dev.ptr(fill), dev.ptr(planes), dev.ptr(occupancy),
         _NULL if out is None else dev.ptr(out), C, H * W, lo, hi, dev.stream_handle())
-    dev.count_launch(counter, 1 if C * H * W else 0)
-    dev.check_launch(counter, rc)
+    dev.count_launch("bg_relax", 1 if C * H * W else 0)
+    dev.check_launch("bg_relax", rc)
+
+
+@functools.lru_cache(maxsize=64)
+def dilate_scratch_words(C: int, hw: int) -> int:
+    """int32 words of scratch kernel W's dilation takes for C planes of hw
+    pixels (csrc/bg_fill.cu plans them)."""
+    fn = dev.kernel_fn("bg_fill", "bg_dilate_scratch_words", [ctypes.c_int, ctypes.c_longlong])
+    fn.restype = ctypes.c_longlong
+    return fn(C, hw)
 
 
 def dilate_fill(planes: torch.Tensor, occupancy: torch.Tensor,
-                max_iters: int = DILATE_MAX_PASSES) -> Tuple[torch.Tensor, int]:
+                max_iters: int = DILATE_MAX_PASSES,
+                rounded: bool = False) -> Tuple[torch.Tensor, int]:
     """Kernel W, dilation: `dilate_fill_plain` of a (C, H, W) int32 stack
-    on the card.  The pass at which each pixel was filled is kept per pixel
-    (shared by the stack), so a pass reads only the pixels filled before it
-    and runs in place; every pass sets its flag when it fills a pixel, and
-    the host reads the flags after each batch of DILATE_BATCH passes,
-    stopping after a pass that filled nothing."""
+    on the card, and with `rounded` its `round_clip_plain` (int32) in its
+    place.  Three launches and one host read (the pass count): a seed
+    launch stamps each pixel's level (0 occupied) and lists the empty
+    pixels next to an occupied one; one cluster of CTAs then walks the
+    frontier level by level, a pixel filled in place from the neighbours
+    stamped below its level, its unreached neighbours claimed for the next
+    level, a cluster barrier between levels and the stop (an empty list, or
+    max_iters) decided on the card; a finish launch selects (and rounds).
+    The level walk is one cluster launch or nothing: where the card cannot
+    place the cluster, the call raises."""
     if planes.device.type == "cpu":
-        return dilate_fill_plain(planes, occupancy, max_iters)
+        x, passes = dilate_fill_plain(planes, occupancy, max_iters)
+        return (round_clip_plain(x) if rounded else x), passes
     _check_planes(planes, occupancy, "dilate_fill")
     C, H, W = planes.shape
     d = planes.device
     x = torch.empty((C, H, W), dtype=torch.float32, device=d)
-    pass_of = torch.empty((H, W), dtype=torch.int32, device=d)
-    flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=d)
-    fn = _w("bg_dilate", _DILATE_ARGS)
-    first = 0
-    while True:
-        count = min(DILATE_BATCH, max_iters - first)
-        launched = ctypes.c_int(0)
-        rc = fn(dev.ptr(planes), dev.ptr(occupancy), dev.ptr(x), dev.ptr(pass_of),
-                dev.ptr(flags), C, H, W, first, count, dev.stream_handle(),
-                ctypes.byref(launched))
-        dev.count_launch("bg_dilate", launched.value)
-        dev.check_launch("bg_dilate", rc)
-        first += count
-        if first >= max_iters or not int(flags[first]):
-            break
-    return x, int(flags.sum())
+    out = torch.empty((C, H, W), dtype=torch.int32, device=d) if rounded else None
+    # zero when it grows; the kernel leaves its counters at 0
+    scratch = dev.scratch("bg_dilate", d, dilate_scratch_words(C, H * W))
+    launched = ctypes.c_int(0)
+    rc = dev.kernel_fn("bg_fill", "bg_dilate", _DILATE_ARGS)(
+        dev.ptr(planes), dev.ptr(occupancy), dev.ptr(x), dev.ptr(scratch),
+        _NULL if out is None else dev.ptr(out), C, H, W, max_iters, 0, 255,
+        dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("bg_dilate", launched.value)
+    if rc != 0:
+        scratch[:_DILATE_HEADER].zero_()   # a level walk that never ran leaves its counts
+    dev.check_launch("bg_dilate", rc)
+    return (x if out is None else out), int(scratch[_DILATE_HEADER - 1])
 
 
 def _relax(x: torch.Tensor, tmp: torch.Tensor, mask: torch.Tensor, n: int) -> None:
@@ -418,7 +427,7 @@ def _relax(x: torch.Tensor, tmp: torch.Tensor, mask: torch.Tensor, n: int) -> No
     weights) is above 0 held."""
     C, h, w = x.shape
     launched = ctypes.c_int(0)
-    rc = _w("bg_relax", _RELAX_ARGS)(dev.ptr(x), dev.ptr(tmp), dev.ptr(mask),
+    rc = dev.kernel_fn("bg_fill", "bg_relax", _RELAX_ARGS)(dev.ptr(x), dev.ptr(tmp), dev.ptr(mask),
                                      int(mask.dtype == torch.uint8), C, h, w, n,
                                      dev.stream_handle(), ctypes.byref(launched))
     dev.count_launch("bg_relax", launched.value)
@@ -434,7 +443,7 @@ def _pull_relax(planes, occupancy, vals, wts, n_smooth: int):
     d = planes.device
     shapes = [(H, W)] + [tuple(v.shape[-2:]) for v in vals]
     tmp = torch.empty(C * H * W, dtype=torch.float32, device=d)
-    pull = _w("bg_pull", _PULL_ARGS)
+    pull = dev.kernel_fn("bg_fill", "bg_pull", _PULL_ARGS)
     fill = parent = None
     for lvl in range(len(shapes) - 1, -1, -1):
         h, w = shapes[lvl]
@@ -464,7 +473,7 @@ def harmonic_fill(planes: torch.Tensor, occupancy: torch.Tensor,
     _check_planes(planes, occupancy, "harmonic_fill")
     vals, wts = push_levels(planes, occupancy, 2)
     fill = _pull_relax(planes, occupancy, vals, wts, n_smooth)
-    _finish(fill, planes, occupancy, None, "bg_relax")
+    _finish(fill, planes, occupancy, None)
     return fill
 
 
@@ -478,20 +487,20 @@ def smooth_fill(planes: torch.Tensor, occupancy: torch.Tensor,
     _check_planes(planes, occupancy, "smooth_fill")
     vals, wts = push_levels(planes, occupancy, 1)
     fill = _pull_relax(planes, occupancy, vals, wts, 0)
-    _finish(fill, planes, occupancy, None, "bg_relax")
+    _finish(fill, planes, occupancy, None)
     _relax(fill, torch.empty_like(fill), occupancy, iterations)
     return fill
 
 
-def round_clip(filled: torch.Tensor, planes: torch.Tensor, occupancy: torch.Tensor,
-               counter: str) -> torch.Tensor:
+def round_clip(filled: torch.Tensor, planes: torch.Tensor,
+               occupancy: torch.Tensor) -> torch.Tensor:
     """Kernel W's finish with an int32 output: `round_clip_plain` of the
     selected planes (the occupied pixels from `planes`)."""
     if filled.device.type == "cpu":
         return round_clip_plain(torch.where(occupancy.to(torch.bool), planes.to(torch.float32),
                                             filled))
     out = torch.empty(filled.shape, dtype=torch.int32, device=filled.device)
-    _finish(filled, planes, occupancy, out, counter)
+    _finish(filled, planes, occupancy, out)
     return out
 
 
@@ -507,10 +516,9 @@ def fill_rgb(planes: torch.Tensor, occupancy: torch.Tensor, mode: int = 1) -> to
     h, w = planes.shape[-2:]
     flat = planes.reshape(-1, h, w)
     if mode == 0:
-        filled, _ = dilate_fill(flat, occupancy)
-        out = round_clip(filled, flat, occupancy, "bg_dilate")
+        out, _ = dilate_fill(flat, occupancy, rounded=True)
     elif mode == 2:
-        out = round_clip(harmonic_fill(flat, occupancy), flat, occupancy, "bg_relax")
+        out = round_clip(harmonic_fill(flat, occupancy), flat, occupancy)
     else:
         out = push_pull_round(flat.contiguous(), occupancy)
     return out.reshape(planes.shape)
