@@ -224,7 +224,7 @@ frames, driven by the JAX partitions, under three configurations: "cs"
     seconds per frame, the decoder's launches);
 
 the attribute options (the reflectance attribute and attributeBGFill 0 /
-2: kernel W, kernel L's push over a stack, kernel P's scalar entries;
+2: kernel W's dilation and harmonic entry, kernel P's scalar entries;
 reference data person_vox10_attr_options_reference.json, made by
 tests/torch_make_attr_options_reference.py), on the first two bench frames,
 driven by the JAX partitions, under four configurations: "refl" (r3 with a
@@ -494,8 +494,7 @@ KERNEL_INFO = {
                             "vpcc_tpu/ops/reconstruct.py:144"),
     # the attribute options (attributeBGFill 0 / 2, the reflectance attribute)
     "bg_dilate": ("vpcc_tpu_torch/csrc/bg_fill.cu", "vpcc_tpu/ops/padding.py:78"),
-    "bg_relax": ("vpcc_tpu_torch/csrc/bg_fill.cu", "vpcc_tpu/ops/padding.py:109"),
-    "push_levels": ("vpcc_tpu_torch/csrc/push_pull.cu", "vpcc_tpu/ops/padding.py:123"),
+    "bg_harmonic": ("vpcc_tpu_torch/csrc/bg_fill.cu", "vpcc_tpu/ops/padding.py:109"),
     "attr_paint_scalar": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:252"),
     "attr_gather_scalar": ("vpcc_tpu_torch/csrc/attr_image.cu", "vpcc_tpu/pipeline.py:270"),
     # the segmentation options (normalOrientation 2 / 4, highGradientSeparation)
@@ -540,7 +539,7 @@ TOOLS_KERNELS = {"cs": ("color_smooth",), "pbf": ("pbf",),
 # counters)
 ATTR_OPTIONS_KERNELS = {"refl": ("attr_paint_scalar", "attr_gather_scalar"),
                         "refl_lossless": ("attr_paint_scalar", "attr_gather_scalar"),
-                        "bgfill0": ("bg_dilate",), "bgfill2": ("bg_relax", "push_levels")}
+                        "bgfill0": ("bg_dilate",), "bgfill2": ("bg_harmonic",)}
 # the segmentation-options phase's configurations -> its new entries (launch
 # counters)
 SEG_OPTIONS_KERNELS = {"orient0": (), "orient2": ("orient_viewpoint",), "orient4": ("orient",),
@@ -768,23 +767,15 @@ def bounds(name, args, out, sweeps=None):
         planes, occ = args[:2]
         byt = nbytes(planes, occ, out)
         ops = 10.0 * planes.shape[0] * int((occ == 0).sum())
-    elif name == "bg_relax":
-        # harmonic fill: the planes and occupancy read once, the filled
-        # planes written once; per level pixel and plane the pull (a division)
-        # and 8 Jacobi steps of 4 adds and a multiply (~45 operations), over
-        # the pyramid (4/3 of the finest level)
+    elif name == "bg_harmonic":
+        # harmonic fill as fill_rgb calls it: the planes and occupancy read
+        # once, the rounded planes written once; per level pixel and plane
+        # the push (3 adds), the pull (a division) and 8 Jacobi steps of 3
+        # adds and a multiply (~36 operations), over the pyramid (4/3 of the
+        # finest level)
         planes, occ = args[:2]
         byt = nbytes(planes, occ, out)
-        ops = 45.0 * planes.numel() * 4.0 / 3.0
-    elif name == "push_levels":
-        # the planes and occupancy read once, every level's value and weight
-        # sums written once; 3 adds per coarse value and weight (level 1's
-        # values also a multiply per child)
-        planes, occ = args[:2]
-        vals, wts = out
-        byt = nbytes(planes, occ, *vals, *wts)
-        ops = 3.0 * sum(v.numel() for v in vals) + 3.0 * sum(w.numel() for w in wts) \
-            + float(planes.numel())
+        ops = 36.0 * planes.numel() * 4.0 / 3.0
     elif name == "smooth_fill":
         # the planes and occupancy read once, the filled planes written once;
         # the push-pull's pull (a division per level pixel) and 4 Jacobi
@@ -1135,6 +1126,90 @@ def frontier_cases(dev, which: str) -> None:
         seen.append(f"{case} {sweeps}")
     print(f"orient crafted cases: exact, sweeps as the plain version's, 3 launches and 1 "
           f"host read a call (none for V = 0): " + ", ".join(seen))
+
+
+# a call's most launches and host reads of kernel W's harmonic entry on
+# 1280 x 1280 planes (push, coarse levels, four tile levels) and of kernel
+# V's RDO (blocks, patches; the packed result)
+HARMONIC_LIMITS = (6, 0)
+RDO_LIMITS = (2, 1)
+
+
+def harmonic_cases(dev) -> None:
+    """Kernel W's harmonic entry on the crafted cases of
+    tests/torch_fill_rdo_cases.py (sides off the tile grid, a corner pixel,
+    empty and full, values of 2^0..2^30, 1, 3 and 6 planes, 48 x 80, 6 x 10,
+    an odd side, 1024 x 1024, coarsest levels above 80 x 80 pixels): the
+    float and rounded planes and the smoothed push-pull against the plain
+    versions, also with more steps than a tile launch runs (11 a level, 10
+    after the push-pull), the push's sums past 2^24 counted as the plain
+    push counts them, the launches (as `harmonic_launches` plans them) and
+    host reads of every call."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_fill_rdo_cases import HARMONIC_CASES, harmonic_case, harmonic_launches
+    from vpcc_tpu_torch.ops import padding
+
+    d = torch.device("cuda")
+    seen = []
+    for case in HARMONIC_CASES:
+        planes, occ = (torch.as_tensor(a, device=d) for a in harmonic_case(case))
+        padding.reset_inexact()
+        x_p = padding.harmonic_fill_plain(planes, occ)
+        n_p = padding.inexact_blocks()
+        padding.reset_inexact()
+        x_k = padding.harmonic_fill(planes, occ)
+        n_k = padding.inexact_blocks()
+        err = max(max_abs_err(x_k, x_p),
+                  max_abs_err(padding.harmonic_fill(planes, occ, rounded=True),
+                              padding.round_clip_plain(x_p)),
+                  max_abs_err(padding.smooth_fill(planes, occ),
+                              padding.smooth_fill_plain(planes, occ)),
+                  max_abs_err(padding.harmonic_fill(planes, occ, 11),
+                              padding.harmonic_fill_plain(planes, occ, 11)),
+                  max_abs_err(padding.smooth_fill(planes, occ, 10),
+                              padding.smooth_fill_plain(planes, occ, 10)))
+        calls = launches_and_syncs(dev, lambda: padding.harmonic_fill(planes, occ, rounded=True),
+                                   "bg_harmonic")
+        more = launches_and_syncs(dev, lambda: padding.harmonic_fill(planes, occ, 11),
+                                  "bg_harmonic")
+        want = (harmonic_launches(*occ.shape), 0), (harmonic_launches(*occ.shape, 11, 11), 0)
+        if err != 0 or n_k != n_p or (calls, more) != want:
+            raise AssertionError(f"bg_harmonic {case}: max abs err {err}, sums past 2^24 {n_k} "
+                                 f"vs plain {n_p}, launches and host reads {calls}, with 11 "
+                                 f"steps {more}, planned {want}")
+        seen.append(f"{case} {tuple(planes.shape)} {calls[0]} ({more[0]})")
+    print("bg_harmonic crafted cases: exact (float, rounded, smoothed push-pull; 8 and 11 "
+          "steps), sums past 2^24 counted as the plain push's, no host read; case, planes, "
+          "launches (with 11 steps): " + ", ".join(seen))
+
+
+def rdo_cases(dev) -> None:
+    """Kernel V's RDO on the crafted cases of tests/torch_fill_rdo_cases.py
+    (a patch across many scan chunks, an index with no block, patch 0's
+    blocks, a patch of exactly block_threshold blocks, 1 and 16 modes,
+    sums reaching 2^24): the four results against the plain version's, the
+    launches and host reads of every call."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_fill_rdo_cases import RDO_CASES, rdo_case
+    from vpcc_tpu_torch.ops import plr
+
+    d = torch.device("cuda")
+    seen = []
+    for case in RDO_CASES:
+        *arrays, res, thr, p_max = rdo_case(case)
+        args = [torch.as_tensor(np.ascontiguousarray(a), device=d) for a in arrays]
+        got = plr.rdo(*args, res, thr, p_max)
+        want = plr.rdo_plain(*args, res, thr, p_max)
+        err = max_abs_err(tuple(got[:3]), tuple(want[:3]))
+        calls = launches_and_syncs(dev, lambda: plr.rdo(*args, res, thr, p_max), "plr_rdo")
+        if err != 0 or got.inexact != want.inexact or calls != RDO_LIMITS:
+            raise AssertionError(f"plr_rdo {case}: max abs err {err}, inexact {got.inexact} vs "
+                                 f"plain {want.inexact}, launches and host reads {calls}")
+        seen.append(f"{case} (M {arrays[5].shape[0]}, inexact {got.inexact})")
+    print("plr_rdo crafted cases: exact, inexact counts as the plain version's, 2 launches and "
+          "1 host read a call: " + ", ".join(seen))
 
 
 def time_turns(kern, plain, reps_k=20, reps_p=3):
@@ -3639,8 +3714,9 @@ def tools_phase(dev, frames):
         if kname == "plr":
             return (lambda: plr.code_plane(*args), lambda: plr.code_plane_plain(*args), args)
         if kname == "plr_rdo":
-            return (lambda: tuple(plr.rdo(*args)[:3]), lambda: tuple(plr.rdo_plain(*args)[:3]),
-                    args)
+            # the four results, on the host from both
+            fields = lambda r: (*r[:3], torch.tensor([r[3]]))
+            return (lambda: fields(plr.rdo(*args)), lambda: fields(plr.rdo_plain(*args)), args)
         plain_kw = {k: v for k, v in kw.items() if k != "entry"}
         return (lambda: tuple(reconstruct.generate_points(*args, **kw)),
                 lambda: tuple(reconstruct.generate_points_plain(*args, **plain_kw)), (args, kw))
@@ -3707,7 +3783,16 @@ def tools_phase(dev, frames):
                 extra = f", {nb} border pixels, kept {int(got.sum())} of " \
                         f"{int((args[0] != 0).sum())}"
             elif kname == "plr_rdo":
-                extra = f", {args[4].numel()} blocks, {args[5].shape[0]} modes"
+                calls = launches_and_syncs(dev, k_fn, "plr_rdo")
+                if calls != RDO_LIMITS or int(got[3]) != 0:
+                    raise AssertionError(f"plr_rdo: {calls[0]} launches and {calls[1]} host "
+                                         f"reads a call (limits {RDO_LIMITS}), {int(got[3])} "
+                                         "sums past 2^24")
+                extra = (f", {args[4].numel()} blocks, {int((args[4] > 0).sum())} in a patch, "
+                         f"{args[5].shape[0]} modes, p_max {args[8]}, {calls[0]} launches and "
+                         f"{calls[1]} host read a call, device {device_ms(k_fn):.4f} ms a call "
+                         "(torch.profiler)")
+                rdo_cases(dev)
             elif kname == "generate_points_plr":
                 extra = (f", rows {got[0].shape[0]}, PLR rows {int((got[2] == 2).sum())}, device "
                          f"{device_ms(k_fn):.4f} ms a call (torch.profiler)")
@@ -3821,11 +3906,9 @@ def attr_options_phase(dev, frames):
             return (lambda: padding.dilate_fill(*args, rounded=True),
                     lambda: (lambda r: (padding.round_clip_plain(r[0]), r[1]))(
                         padding.dilate_fill_plain(*args)))
-        if kname == "bg_relax":
-            return (lambda: padding.harmonic_fill(*args),
-                    lambda: padding.harmonic_fill_plain(*args))
-        if kname == "push_levels":
-            return (lambda: padding.push_levels(*args), lambda: padding.push_levels_plain(*args))
+        if kname == "bg_harmonic":
+            return (lambda: padding.harmonic_fill(*args[:2], rounded=True),
+                    lambda: padding.round_clip_plain(padding.harmonic_fill_plain(*args[:2])))
         if kname == "attr_paint_scalar":
             return (lambda: pipeline.paint_scalar(*args),
                     lambda: pipeline.paint_scalar_plain(*args))
@@ -3852,6 +3935,25 @@ def attr_options_phase(dev, frames):
             extra += (f", {got[1]} passes, the float planes exact too, {calls[0]} launches and "
                       f"{calls[1]} host read a call")
             got, want = got[0], want[0]
+        if kname == "bg_harmonic":
+            planes, occ = b_args[:2]
+            padding.reset_inexact()
+            x_p = padding.harmonic_fill_plain(planes, occ)
+            n_p = padding.inexact_blocks()
+            padding.reset_inexact()
+            x_k = padding.harmonic_fill(planes, occ)
+            n_k = padding.inexact_blocks()
+            if max_abs_err(x_k, x_p) != 0 or n_k != n_p or n_k != 0:
+                raise AssertionError(f"bg_harmonic: the float planes differ from the plain "
+                                     f"version's (max abs err {max_abs_err(x_k, x_p)}) or the "
+                                     f"push's sums past 2^24 ({n_k}, plain {n_p}) are not 0")
+            calls = launches_and_syncs(dev, k_fn, "bg_harmonic")
+            if calls[0] > HARMONIC_LIMITS[0] or calls[1] > HARMONIC_LIMITS[1]:
+                raise AssertionError(f"bg_harmonic: {calls[0]} launches and {calls[1]} host "
+                                     f"reads a call, limits {HARMONIC_LIMITS}")
+            extra += (f", the float planes exact too, push sums past 2^24: {n_k}, "
+                      f"{calls[0]} launches and {calls[1]} host reads a call, device "
+                      f"{device_ms(k_fn):.4f} ms a call (torch.profiler)")
         err = max_abs_err(got, want)
         if err != 0:
             raise AssertionError(f"{kname}: kernel differs from its plain version "
@@ -3885,8 +3987,7 @@ def attr_options_phase(dev, frames):
         # 37. warm-up, keeping the new entries' largest calls, and with
         # reflectance kernels I and A's calls on the reflectance planes
         wrappers = {"bg_dilate": (padding, "dilate_fill"),
-                    "bg_relax": (padding, "harmonic_fill"),
-                    "push_levels": (padding, "push_levels"),
+                    "bg_harmonic": (padding, "harmonic_fill"),
                     "attr_paint_scalar": (pipeline, "paint_scalar"),
                     "attr_gather_scalar": (pipeline, "gather_decoded_scalar")}
         wanted = ATTR_OPTIONS_KERNELS[name]
@@ -3932,7 +4033,7 @@ def attr_options_phase(dev, frames):
             _, args, _ = cap.calls[kname]
             k_fn, p_fn = entries(kname, args)
             extra = ""
-            if kname in ("bg_dilate", "bg_relax", "push_levels"):
+            if kname in ("bg_dilate", "bg_harmonic"):
                 extra = f", planes {tuple(args[0].shape)}"
             elif kname == "attr_paint_scalar":
                 extra = f", rows {args[2].shape[0]}, max sample {int(args[2].max())}"
@@ -3944,11 +4045,13 @@ def attr_options_phase(dev, frames):
             rows["attr_paint_scalar"]["library_ms"] = t_put
             rows["attr_gather_scalar"]["library_ms"] = t_get
         if name == "bgfill2":
-            # smooth_fill (no caller): L's push and W's pull and relaxation
-            planes, occ = cap.calls["bg_relax"][1][:2]
+            # smooth_fill (no caller): kernel W's harmonic entry
+            planes, occ = cap.calls["bg_harmonic"][1][:2]
             check("smooth_fill", lambda: padding.smooth_fill(planes, occ),
                   lambda: padding.smooth_fill_plain(planes, occ),
-                  (planes, occ), f", planes {tuple(planes.shape)} (no caller; kernels L, W)")
+                  (planes, occ), f", planes {tuple(planes.shape)} (no caller; kernel W's "
+                  "harmonic entry)")
+            harmonic_cases(dev)
         if name == "refl":
             for kname, plain in (("wavefront_encode32", hevc.wavefront_encode32_plain),
                                  ("wavefront_decode32", hevc.wavefront_decode32_plain)):

@@ -53,6 +53,16 @@ def _occupancy(case: str, rng) -> np.ndarray:
         return np.ones((32, 32), np.uint8)
     if case == "wide128x320":
         return (rng.random((128, 320)) < 0.2).astype(np.uint8)
+    if case == "ragged720x400":
+        return (rng.random((720, 400)) < 0.3).astype(np.uint8)
+    if case == "corner":
+        occ = np.zeros((256, 192), np.uint8)
+        occ[0, 0] = 1
+        return occ
+    if case == "tiny6x10":
+        return (rng.random((6, 10)) < 0.3).astype(np.uint8)
+    if case == "odd47x64":
+        return (rng.random((47, 64)) < 0.3).astype(np.uint8)
     occ = np.zeros((64, 64), np.uint8)   # "edge": one pixel on the top row
     occ[0, 5] = 1
     return occ
@@ -60,6 +70,12 @@ def _occupancy(case: str, rng) -> np.ndarray:
 
 CASES = ["random64", "odd48x80", "empty", "full", "edge"]
 PARAMS = [(c, False) for c in CASES] + [(c, True) for c in ("odd48x80", "wide128x320")]
+# the harmonic fill also on the shapes of kernel W's crafted cases
+# (tests/torch_fill_rdo_cases.py): sides off its 64-pixel tiles at two
+# tiled levels, one pixel in a corner (every halo wraps), a plane smaller
+# than a halo, an odd side (level 0 alone), and a stack of three planes
+HARMONIC_PARAMS = PARAMS + [("ragged720x400", True), ("corner", False), ("tiny6x10", False),
+                            ("odd47x64", False), ("stack3", False)]
 
 
 def _image(occ, rng, crafted: bool) -> np.ndarray:
@@ -98,13 +114,20 @@ def test_dilate_fill_pass_limit():
     assert passes == 7 and (np.asarray(want) == 0).sum() > 0
 
 
-@pytest.mark.parametrize("case,crafted", PARAMS)
+@pytest.mark.parametrize("case,crafted", HARMONIC_PARAMS)
 def test_harmonic_fill_matches_reference(case, crafted):
     rng = np.random.default_rng(13)
-    occ = _occupancy(case, rng)
-    img = _image(occ, rng, crafted)
+    if case == "stack3":   # three planes under one occupancy, as fill_rgb fills them
+        occ = _occupancy("random64", rng)
+        img = np.stack([_image(occ, rng, crafted) for _ in range(3)])
+    else:
+        occ = _occupancy(case, rng)
+        img = _image(occ, rng, crafted)
     got = tpad.harmonic_fill_plain(torch.as_tensor(img), torch.as_tensor(occ))
-    _eq(got, jpad.harmonic_fill(jnp.asarray(img), jnp.asarray(occ)))
+    planes = img.reshape(-1, *occ.shape)
+    want = np.stack([np.asarray(jpad.harmonic_fill(jnp.asarray(p), jnp.asarray(occ)))
+                     for p in planes])
+    _eq(got, want.reshape(img.shape))
 
 
 @pytest.mark.parametrize("case,crafted", PARAMS)

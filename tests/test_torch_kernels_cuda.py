@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_fill_rdo_cases import (HARMONIC_CASES, RDO_CASES, harmonic_case, harmonic_launches,
+                                  rdo_case)
 from torch_frontier import DILATE_CASES, FLOOD_CASES, dilate_case, flood_case
 from torch_md_cases import (PRESMOOTH_CASES, SMOOTH_CASES, presmooth_case, recolor_case,
                             smooth_case)
@@ -1838,8 +1840,9 @@ def test_plr_kernel(cuda, case):
     for a, b in zip(got[:3], want[:3]):
         _same(a, b)
     assert got.inexact == want.inexact == 0
-    code = plr.code_plane(args[0], got.block_modes, args[5], res)
-    _same(code, plr.code_plane_plain(args[0], got.block_modes, args[5], res))
+    modes = got.block_modes.to(cuda)
+    code = plr.code_plane(args[0], modes, args[5], res)
+    _same(code, plr.code_plane_plain(args[0], modes, args[5], res))
     ptable = np.zeros((9, 16), np.int32)
     ptable[:, 2:4] = [w // res, h // res]
     ptable[:, 7:10] = [2, 0, 1]
@@ -1881,7 +1884,8 @@ def _fill_case(case: str, cuda):
                                   "atlas"])
 def test_bg_fill_kernel(cuda, case):
     """Kernel W (dilation, harmonic and smoothed fills, the fill_rgb modes)
-    and kernel L's push over a stack against their plain versions."""
+    against their plain versions; the harmonic fill's push counts the sums
+    reaching 2^24 as the plain push does."""
     planes, occ = _fill_case(case, cuda)
     before = dev.LAUNCHES["bg_dilate"]
     x_k, n_k = padding.dilate_fill(planes, occ)
@@ -1889,19 +1893,75 @@ def test_bg_fill_kernel(cuda, case):
     assert dev.LAUNCHES["bg_dilate"] == before + 3
     _same(x_k, x_p)
     assert n_k == n_p
-    for min_side in (1, 2):
-        vk, wk = padding.push_levels(planes, occ, min_side)
-        vp, wp = padding.push_levels_plain(planes, occ, min_side)
-        assert len(vk) == len(vp)
-        for a, b in zip(vk + wk, vp + wp):
-            _same(a, b)
+    padding.reset_inexact()
     h_p = padding.harmonic_fill_plain(planes, occ)
+    n_p = padding.inexact_blocks()
+    padding.reset_inexact()
     _same(padding.harmonic_fill(planes, occ), h_p)
+    assert padding.inexact_blocks() == n_p
     _same(padding.smooth_fill(planes, occ), padding.smooth_fill_plain(planes, occ))
     want = {0: padding.round_clip_plain(x_p), 2: padding.round_clip_plain(h_p),
             1: torch.stack([padding.push_pull_round_plain(p, occ) for p in planes])}
     for mode, w in want.items():
         _same(padding.fill_rgb(planes, occ, mode), w)
+
+
+@pytest.mark.parametrize("case", HARMONIC_CASES)
+def test_harmonic_kernel(cuda, case):
+    """Kernel W's harmonic entry on the crafted cases of
+    tests/torch_fill_rdo_cases.py: the float planes, the rounded ones
+    (`harmonic_fill(rounded=True)`, `fill_rgb(mode=2)`) and the smoothed
+    push-pull bit for bit as the plain versions', also with more steps than
+    a tile launch runs (11 a level, 10 after the push-pull), the push's
+    count of sums reaching 2^24 as the plain push's; a call makes the
+    launches `harmonic_launches` plans (6 on 1280 x 1280 planes, 1 where a
+    side is odd) and no host read."""
+    planes, occ = (torch.as_tensor(a, device=cuda) for a in harmonic_case(case))
+    padding.reset_inexact()
+    h_p = padding.harmonic_fill_plain(planes, occ)
+    n_p = padding.inexact_blocks()
+    padding.reset_inexact()
+    before = dev.LAUNCHES["bg_harmonic"]
+    h_k, syncs = _syncs(lambda: padding.harmonic_fill(planes, occ))
+    launches = dev.LAUNCHES["bg_harmonic"] - before
+    _same(h_k, h_p)
+    assert padding.inexact_blocks() == n_p
+    assert (n_p > 0) == (case == "crafted")
+    assert syncs == 0
+    assert launches == harmonic_launches(*occ.shape)
+    assert launches == 6 or occ.shape != (1280, 1280)
+    rounded = padding.round_clip_plain(h_p)
+    _same(padding.harmonic_fill(planes, occ, rounded=True), rounded)
+    _same(padding.fill_rgb(planes, occ, 2), rounded)
+    _same(padding.smooth_fill(planes, occ), padding.smooth_fill_plain(planes, occ))
+    before = dev.LAUNCHES["bg_harmonic"]
+    _same(padding.harmonic_fill(planes, occ, 11), padding.harmonic_fill_plain(planes, occ, 11))
+    assert dev.LAUNCHES["bg_harmonic"] - before == harmonic_launches(*occ.shape, 11, 11)
+    _same(padding.smooth_fill(planes, occ, 10), padding.smooth_fill_plain(planes, occ, 10))
+
+
+@pytest.mark.parametrize("case", RDO_CASES)
+def test_rdo_crafted_kernel(cuda, case):
+    """Kernel V's RDO on the crafted cases of tests/torch_fill_rdo_cases.py
+    (a patch across many scan steps, an index with no block, blocks of
+    patch 0, a patch of exactly block_threshold blocks, 1 and 16 modes,
+    blocks and a small patch whose sums reach 2^24, 112,640 blocks with
+    patches of more than 1,024 blocks under the level flag): the block modes, patch
+    levels, patch modes and inexact count equal the plain version's; two
+    launches and one host read a call."""
+    *arrays, res, threshold, p_max = rdo_case(case)
+    args = [torch.as_tensor(np.ascontiguousarray(a), device=cuda) for a in arrays]
+    want = plr.rdo_plain(*args, res, threshold, p_max)
+    before = dev.LAUNCHES["plr_rdo"]
+    got, syncs = _syncs(lambda: plr.rdo(*args, res, threshold, p_max))
+    assert dev.LAUNCHES["plr_rdo"] - before == 2 and syncs == 1
+    assert all(t.device.type == "cpu" for t in (*got[:3], *want[:3]))   # both on the host
+    for a, b in zip(got[:3], want[:3]):
+        _same(a, b)
+    assert got.inexact == want.inexact
+    assert (got.inexact == 3) == (case == "big")
+    level = want.patch_level.numpy()
+    assert level[4] and not level[0] and level[6] and level[7]   # 5 == threshold; 7, 8 unused
 
 
 @pytest.mark.parametrize("limit", [7, 40])

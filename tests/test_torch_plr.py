@@ -24,6 +24,7 @@ import torch
 
 import jax.numpy as jnp
 
+from torch_fill_rdo_cases import rdo_case
 from vpcc_tpu import pipeline as jpipe
 from vpcc_tpu.ops import plr as jplr
 from vpcc_tpu_torch.ops import plr as tplr
@@ -55,8 +56,39 @@ def planes(seed, h=64, w=96, res=16, n_patch=5):
     return g0d, g0t, g1t, occ, btp, res
 
 
-@pytest.mark.parametrize("seed,n_modes", [(0, 6), (1, 10), (2, 1)])
+def _rdo_crafted(case: str, n_modes: int) -> None:
+    """The RDO on a crafted case of tests/torch_fill_rdo_cases.py against
+    the reference: in "big" the blocks and pools whose sums reach 2^24
+    (patches 1 and 4: XLA's float32 order decides them) are counted, not
+    compared."""
+    *arrays, res, thr, p_max = rdo_case(case)
+    g0d, g0t, g1t, occ, btp, tbl = arrays
+    assert tbl.shape[0] == n_modes
+    j, t = jnp.asarray, torch.as_tensor
+    bm, pl, pm = (np.asarray(a) for a in jplr.rdo(*(j(a) for a in arrays), res, thr, p_max))
+    got = tplr.rdo_plain(*(t(np.ascontiguousarray(a)) for a in arrays), res, thr, p_max)
+    keep, kept_patches = np.ones(btp.shape, bool), np.ones(p_max, bool)
+    if case == "big":
+        assert got.inexact == 3
+        keep, kept_patches[[0, 3]] = ~np.isin(btp, (1, 4)), False
+    else:
+        assert got.inexact == 0
+    np.testing.assert_array_equal(got.block_modes.numpy()[keep], bm[keep])
+    np.testing.assert_array_equal(got.patch_level.numpy(), pl)
+    np.testing.assert_array_equal(got.patch_modes.numpy()[kept_patches], pm[kept_patches])
+    assert pl[4] and not pl[0] and pl[6] and pl[7]   # patch 5 == threshold; 7, 8 unused
+
+
+@pytest.mark.parametrize("seed,n_modes", [(0, 6), (1, 10), (2, 1), ("chunks", 6),
+                                          ("one_mode", 1), ("modes16", 16), ("big", 6)])
 def test_rdo_and_mode_planes_match_reference(seed, n_modes):
+    """The RDO and the mode planes on random planes (an integer seed), and
+    the RDO on kernel V's crafted cases (a patch across many scan chunks,
+    an index with no block, blocks of patch 0, a patch of exactly
+    block_threshold blocks, 1 and 16 modes, sums reaching 2^24)."""
+    if isinstance(seed, str):
+        _rdo_crafted(seed, n_modes)
+        return
     g0d, g0t, g1t, occ, btp, res = planes(seed)
     tbl = jplr.MODE_TABLE[:n_modes]
     j, t = jnp.asarray, torch.as_tensor

@@ -3,7 +3,7 @@ encoder and decoder, for the `vpcc_tpu_torch` of this checkout or of another.
 
     python vpcc_tpu_torch/apps/profile_entries.py --capture=IN.pt [--kernels=...]
     python vpcc_tpu_torch/apps/profile_entries.py --inputs=IN.pt \\
-        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N,W,X] \
+        [--root=CHECKOUT] [--runs=5] [--kernels=P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N,W,X,V] \
         [--trace] [--split]
     python vpcc_tpu_torch/apps/profile_entries.py --barriers
     python vpcc_tpu_torch/apps/profile_entries.py --summarize LOG [LOG ...]
@@ -116,14 +116,22 @@ names none of them)
   stack, (2, 3, 1280, 1280) int32, and its occupancy), timed as
   `fill_rgb(..., 0)` (`bg_dilate.fill_rgb`: the dilation, rounding and
   clip of the main path) and as `dilate_fill` of its (6, H, W) planes
-  (`bg_dilate.dilate`: the float planes and the pass count);
+  (`bg_dilate.dilate`: the float planes and the pass count); and the
+  largest call with attributeBGFill=2 of the bench frame encoded at r3 +
+  attributeBGFill=2, timed as `fill_rgb(..., 2)` (`bg_harmonic.fill_rgb`)
+  and as `harmonic_fill` of its six planes (`bg_harmonic.harmonic`: the
+  float planes);
 * kernel X: the `normals.orient_normals_spanning_tree` call of the bench
   frame encoded at r3 + normalOrientation=4 (positions, PCA normals,
   `nn_idx`, `nn_valid`, valid rows, `pad_rows`; `orient.flood`: the
   oriented normals and `last_flood_sweeps`);
+* kernel V: the `plr.rdo` call of the bench frame encoded at r3 +
+  pointLocalReconstruction=1 (the committed tools reference data's "plr"
+  configuration; `plr.rdo`: the block modes, patch levels, patch modes and
+  the inexact count);
 the vox11 encode only where --kernels names M or D, the level encode only
 where it names M or L, the R and N encode only where it names R or N, the
-two option encodes only where it names W or X.
+option encodes only where it names W, X or V.
 --inputs times the entries of the kernels named by --kernels, in the package
 found under --root (default: this checkout), on those inputs, so that two
 commits can be compared on one card, one process each, in turns (the grids
@@ -131,20 +139,22 @@ are built by each package from the saved points; a package without
 `hevc.sao_search_apply` runs `sao_search` then `sao_apply` for the SAO
 step, whose three outputs are hashed either way).  For each run and entry:
 the call time (CUDA events over back-to-back calls, the wrapper's host work
-included: 100 calls for P, 20 for the others) and, but for J, F, O, H, C,
-M, D, R and N's whole call, the device time (one call captured in a CUDA graph and replayed as
+included: 100 calls for P, 10 for W and X, 20 for the others) and, but
+for J, F, O, H, C, M, D, R, W, X, V and N's whole call, the device time (one call captured in a CUDA graph and replayed as
 often; the device times of J, F, O, H, C, M and D are their kernels' in
 --trace: an older checkout's J, F and O wrappers copy from or wait on the
 host, which a graph cannot hold, C's and M's wrappers read their counts, and
 the cooperative launches of H, M and D are kept out of graphs; R's unit and
 N's whole call read from the card; W's and X's parent wrappers read device
-flags between launches, so theirs come from --trace too).  Each entry
+flags between launches, and V's wrappers read their results, so theirs
+come from --trace too).  Each entry
 also reports the launch counters (`device.LAUNCHES`) one call adds (key
 "launches").
 --trace adds, once per entry, each device kernel's time and launches a
 call (`torch.profiler` over as many calls) and the host's waits a call
 (`cudaStreamSynchronize` and `cudaMemcpy*` runtime calls: CPU
-microseconds and calls).  --split times, for J, builds of the checkout's
+microseconds and calls); for W and V also each launch of one call in
+launch order with its device microseconds (key "timeline").  --split times, for J, builds of the checkout's
 `csrc/motion_search.cu` cut after its 1st, 2nd and 3rd `__syncthreads()`
 (a `return` the compiler cannot drop), so that the differences split
 J's kernel (one block a CU, a barrier after each stage) into its stages
@@ -206,10 +216,10 @@ E_CALLS = {16: "grid_knn.segment_k16", 8: "grid_knn.recolor_k8", 1: "grid_knn.ne
            64: "grid_knn.presmooth_k64"}
 REPS = {"P": 100, "E": 20, "A": 20, "G": 20, "K": 20, "J": 20, "F": 20, "O": 20, "Q": 20,
         "H": 20, "C": 20, "M": 20, "D": 20, "L": 20, "B": 20, "R": 20, "N": 20, "W": 10,
-        "X": 10}
+        "X": 10, "V": 20}
 # kernels, and entries, whose device time is read from --trace rather than a
 # CUDA graph (R's unit and N's whole call read from the card)
-NO_GRAPH = "JFOHCMDRWX"
+NO_GRAPH = "JFOHCMDRWXV"
 NO_GRAPH_ENTRIES = ("presmooth.call",)
 F_STAGES = ("segment.pca", "segment.orient", "segment.partition")
 
@@ -568,32 +578,44 @@ def capture_rn(frame, cfg, device) -> dict:
 
 
 def capture_wx(frame, cfg, device, kernels: str) -> dict:
-    """Kernel W's call (the largest `padding.fill_rgb` call of the frame's
-    encode at attributeBGFill=0, as [planes, occupancy]) and kernel X's
+    """Kernel W's calls (the largest `padding.fill_rgb` call of the frame's
+    encodes at attributeBGFill=0 and 2, as [planes, occupancy]), kernel X's
     (the `normals.orient_normals_spanning_tree` call of its encode at
     normalOrientation=4, as [positions, normals, nn_idx, nn_valid, valid,
-    pad_rows]), for the letters of `kernels`."""
+    pad_rows]) and kernel V's (the `plr.rdo` call of its encode at
+    pointLocalReconstruction=1, as its arguments), for the letters of
+    `kernels`."""
     import copy
 
     from vpcc_tpu_torch.encoder import Encoder
-    from vpcc_tpu_torch.ops import normals, padding
+    from vpcc_tpu_torch.ops import normals, padding, plr
 
     out = {}
     if "W" in kernels:
         kept = {}
+        for mode, name in ((0, "bg_dilate.fill_rgb"), (2, "bg_harmonic.fill_rgb")):
+            def keep_w(args, kw, mode=mode, name=name):
+                if (args[2] if len(args) > 2 else kw.get("mode", 1)) == mode:
+                    keep_largest(kept, name)(args[:2], {})
 
-        def keep_w(args, kw):
-            if (args[2] if len(args) > 2 else kw.get("mode", 1)) == 0:
-                keep_largest(kept, "bg_dilate.fill_rgb")(args[:2], {})
-
+            c = copy.copy(cfg)
+            c.attributeBGFill = mode
+            undo = _spy(padding, "fill_rgb", before=keep_w)
+            try:
+                Encoder(c, device=device).encode_gof([frame])
+            finally:
+                undo()
+        out["W"] = {n: args for n, (args, _) in kept.items()}
+    if "V" in kernels:
+        kept = {}
         c = copy.copy(cfg)
-        c.attributeBGFill = 0
-        undo = _spy(padding, "fill_rgb", before=keep_w)
+        c.pointLocalReconstruction = 1
+        undo = _spy(plr, "rdo", before=lambda a, kw: kept.setdefault("plr.rdo", _clone(a)))
         try:
             Encoder(c, device=device).encode_gof([frame])
         finally:
             undo()
-        out["W"] = {n: args for n, (args, _) in kept.items()}
+        out["V"] = kept
     if "X" in kernels:
         kept = {}
         c = copy.copy(cfg)
@@ -814,7 +836,7 @@ def capture(path: Path, device="cuda",
     h_in = {n: a for n, a in hc_in.items() if n.startswith("coverage.")}
     c_in = {n: a for n, a in hc_in.items() if n.startswith("generate_points.")}
     rn = capture_rn(frames[0], cfg, device) if "R" in kernels or "N" in kernels else {}
-    wx = capture_wx(frames[0], cfg, device, kernels) if "W" in kernels or "X" in kernels \
+    wx = capture_wx(frames[0], cfg, device, kernels) if any(k in kernels for k in "WXV") \
         else {}
     sao16 = {}
     if any(k in kernels for k in "JAKB"):
@@ -870,7 +892,8 @@ def capture(path: Path, device="cuda",
                       for n, dirs in rn.get("R", {}).items()},
                 "N": {n: [cpu(a) for a in args] for n, args in rn.get("N", {}).items()},
                 "W": {n: [cpu(a) for a in args] for n, args in wx.get("W", {}).items()},
-                "X": {n: [cpu(a) for a in args] for n, args in wx.get("X", {}).items()}}, path)
+                "X": {n: [cpu(a) for a in args] for n, args in wx.get("X", {}).items()},
+                "V": {n: [cpu(a) for a in args] for n, args in wx.get("V", {}).items()}}, path)
     print(f"captured P {sorted(p_in)}: rows {p_in['paint_attribute'][0].shape[0]}; E "
           + ", ".join(f"{n} {tuple(c['q'].shape)} k={c['k']} bucket={c['bucket']}"
                       for n, c in e_in.items())
@@ -900,7 +923,10 @@ def capture(path: Path, device="cuda",
           + "; W " + ", ".join(f"{n} {tuple(a[0].shape)} occupied {int(a[1].sum())}"
                               for n, a in wx.get("W", {}).items())
           + "; X " + ", ".join(f"{n} {tuple(a[2].shape)} valid {int(a[4].sum())} pad_rows {a[5]}"
-                              for n, a in wx.get("X", {}).items()))
+                              for n, a in wx.get("X", {}).items())
+          + "; V " + ", ".join(f"{n} {tuple(a[0].shape)} modes {a[5].shape[0]} res {a[6]} "
+                              f"threshold {a[7]} p_max {a[8]} blocks with a patch "
+                              f"{int((a[4] > 0).sum())}" for n, a in wx.get("V", {}).items()))
 
 
 def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
@@ -1031,22 +1057,32 @@ def entry_calls(pkg: dict, inputs: dict, kernels: str, device="cuda") -> dict:
         for name, args in inputs.get("W", {}).items():
             planes, occ = on(args)
             flat = planes.reshape(-1, *planes.shape[-2:])
+            if name.startswith("bg_harmonic."):
+                calls[name] = lambda p=planes, o=occ: padding.fill_rgb(p, o, 2)
+                calls["bg_harmonic.harmonic"] = lambda p=flat, o=occ: padding.harmonic_fill(p, o)
+                continue
             calls[name] = lambda p=planes, o=occ: padding.fill_rgb(p, o, 0)
             calls["bg_dilate.dilate"] = lambda p=flat, o=occ: (
                 lambda r: (r[0], torch.tensor([r[1]])))(padding.dilate_fill(p, o))
+    if "V" in kernels:
+        for name, args in inputs.get("V", {}).items():
+            # the Rdo fields, its inexact count as a tensor (on the host
+            # or the card, as the checkout returns them)
+            calls[name] = lambda a=on(args): (lambda r: (*r[:3], torch.tensor([r[3]])))(
+                pkg["plr"].rdo(*a))
     if "X" in kernels:
         for name, (*args, pad) in inputs.get("X", {}).items():
             calls[name] = lambda a=on(args), pad=pad: (
                 normals.orient_normals_spanning_tree(*a, pad_rows=pad),
                 torch.tensor([normals.last_flood_sweeps]))
     letter = {n: "P" for n in calls}
-    for k in "EAGKJOQHCMDLBRNWX":
+    for k in "EAGKJOQHCMDLBRNWXV":
         letter.update({n: k for n in inputs.get(k, {}) if n in calls})
     letter.update({n: "M" for n in calls if n.startswith("recolor.")})
     letter.update({n: "F" for n in calls if n.startswith("segment.")})
     letter.update({n: "Q" for n in calls if n.startswith("color.")})
     letter.update({n: "N" for n in calls if n.startswith("presmooth.")})
-    letter.update({n: "W" for n in calls if n.startswith("bg_dilate.")})
+    letter.update({n: "W" for n in calls if n.startswith(("bg_dilate.", "bg_harmonic."))})
     return {n: (letter[n], fn) for n, fn in calls.items()}
 
 
@@ -1144,11 +1180,35 @@ def kernel_trace(fn, reps: int) -> dict:
     return out
 
 
+def kernel_timeline(fn, reps: int = 5) -> list:
+    """The device kernels of one call of fn in launch order, as [name (its
+    first 40 characters), device us (the median over `reps` calls)]."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if "CUDA" in str(getattr(e, "device_type", "")) and e.time_range.elapsed_us() > 0
+               and not e.name.startswith("Memcpy") and not e.name.startswith("Memset")]
+        evs.sort(key=lambda e: e.time_range.start)
+        per_call.append([(e.name[:40], e.time_range.elapsed_us()) for e in evs])
+    n = min(len(c) for c in per_call)
+    return [[per_call[0][i][0], round(statistics.median(c[i][1] for c in per_call), 3)]
+            for i in range(n)]
+
+
 def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
             trace: bool = False, split: bool = False) -> dict:
     sys.path.insert(0, str(root))
     from vpcc_tpu_torch import pipeline
-    from vpcc_tpu_torch.ops import (cc, coverage, metrics, neighbors, normals, padding,
+    from vpcc_tpu_torch.ops import (cc, coverage, metrics, neighbors, normals, padding, plr,
                                     reconstruct, recolor, segmentation, smoothing)
     from vpcc_tpu_torch.video import hevc
 
@@ -1158,7 +1218,8 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
     calls = entry_calls({"pipeline": pipeline, "neighbors": neighbors, "hevc": hevc, "cc": cc,
                          "normals": normals, "segmentation": segmentation,
                          "coverage": coverage, "reconstruct": reconstruct, "recolor": recolor,
-                         "smoothing": smoothing, "padding": padding, "metrics": metrics},
+                         "smoothing": smoothing, "padding": padding, "metrics": metrics,
+                         "plr": plr},
                         inputs, kernels)
     views = md5_views(inputs)
     res = {name: {"md5": md5(views.get(name, lambda o: o)(fn())), "call_ms": [],
@@ -1186,13 +1247,15 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
     if trace:
         for name, (letter, fn) in calls.items():
             res[name]["kernels"] = kernel_trace(fn, REPS[letter])
+            if letter in "WV":
+                res[name]["timeline"] = kernel_timeline(fn)
     if split and "J" in kernels:
         for name, args in inputs.get("J", {}).items():
             res[name]["split_ms"] = motion_split(root, [a.cuda() if torch.is_tensor(a) else a
                                                         for a in args], runs)
     if split:
         for name, (letter, fn) in calls.items():
-            if letter in "OQHCMDLBRNWX":
+            if letter in "OQHCMDLBRNWXV":
                 res[name]["host"] = host_split(fn, REPS[letter])
     if split and "B" in kernels:
         for name, args in inputs.get("B", {}).items():
@@ -1221,6 +1284,10 @@ def profile(inputs_path: Path, root: Path, runs: int, kernels: str,
                            tuple(k for k, letter in (("bg_fill", "W"), ("orient", "X"))
                                  if letter in kernels))
         for name, v in wx.items():
+            res[name]["variants"] = v
+    if split and hasattr(padding, "harmonic_scratch_floats") and "V" in kernels:
+        for name, v in variant_split(root, {n: c for n, c in calls.items() if c[0] == "V"},
+                                     runs, ("plr",)).items():
             res[name]["variants"] = v
     if split and hasattr(coverage, "column_table") and ("H" in kernels or "C" in kernels):
         hc = variant_split(root, {n: c for n, c in calls.items() if c[0] in "HC"}, runs,
@@ -1643,6 +1710,32 @@ HC_VARIANTS["bg_fill"] = {
                _swap("  if (vid == 0) {   // every counter", _print("W") + "\n  if (vid == 0) {   "
                      "// every counter")),
 }
+# and of kernel W's harmonic entry (a checkout with
+# `padding.harmonic_scratch_floats`): its tile levels with no step (the
+# pull and the write alone), its coarse launch with no step, the push of
+# level 1 alone, the tile levels at four blocks an SM (the cuts' outputs
+# are garbage)
+HC_VARIANTS["bg_fill"].update({
+    "tile_no_steps": _swap("for (int k = 0; k < ps.steps; ++k) {",
+                           "for (int k = 0; k < 0; ++k) {"),
+    "coarse_no_steps": _swap("for (int st = 0; st < a.steps; ++st) {",
+                             "for (int st = 0; st < 0; ++st) {"),
+    "push_level1": _swap("for (int l = 2; l <= a.t; ++l) {", "for (int l = 2; l <= 1; ++l) {"),
+    "tile_bounds4": _swap("__launch_bounds__(kTileThreads, 3)", "__launch_bounds__(kTileThreads, 4)"),
+})
+# --split builds of kernel V's RDO: the blocks' launch without its modes,
+# the patches' launch without its pools (the outputs are garbage)
+HC_VARIANTS["plr"] = {
+    "whole": None,
+    "blocks_no_modes": _swap("  for (int m = 0; m < M; ++m) {\n    const int dmag",
+                             "  for (int m = 0; m < 0; ++m) {\n    const int dmag"),
+    "patches_no_pools": _swap("    if (q > 0) {\n      for (int i0 = 0;",
+                              "    if (q < 0) {\n      for (int i0 = 0;"),
+    "blocks_bounds1": _swap("__launch_bounds__(1024, 2) rdo_blocks_kernel",
+                            "__launch_bounds__(1024) rdo_blocks_kernel"),
+    "patch_threads256": _swap("constexpr int kPatchThreads = 1024;",
+                              "constexpr int kPatchThreads = 256;"),
+}
 HC_VARIANTS["orient"] = {
     "whole": None,
     "threads512": _swap("kLevelThreads = 256;", "kLevelThreads = 512;"),
@@ -1663,7 +1756,7 @@ HC_VARIANTS["orient"] = {
                      _print("X") + "\n  if (vid == 0) a.hdr[6] = sweeps;")),
 }
 HC_ENTRIES = {"recolor": ("recolor_exact_compact", "recolor_blend_merge"),
-              "bg_fill": ("bg_dilate",), "orient": ("flood",),
+              "bg_fill": ("bg_dilate", "bg_harmonic"), "orient": ("flood",), "plr": ("plr_rdo",),
               "push_pull": ("push_pull",), "half_pel_mc": ("half_pel_mc",),
               "grid_smooth": ("grid_smooth",),
               "coverage": ("coverage",),
@@ -1680,7 +1773,7 @@ def _or_error(fn):
         return "raised: " + str(e).splitlines()[0][:120]
 
 
-KERNEL_LETTER = {"bg_fill": "W", "orient": "X",
+KERNEL_LETTER = {"bg_fill": "W", "orient": "X", "plr": "V",
                  "coverage": "H", "generate_points": "C", "recolor": "M", "grid_smooth": "D",
                  "push_pull": "L", "half_pel_mc": "B", "metrics": "R", "presmooth": "N"}
 
@@ -1705,19 +1798,24 @@ def variant_split(root: Path, calls: dict, runs: int, kernels: tuple) -> dict:
         for label, edit in variants.items():
             cu = out_dir / f"{kern}_{label}.cu"
             text = src
-            for e in (edit if isinstance(edit, tuple) else (edit,)):
-                text = text if e is None else e(text)
+            try:
+                for e in (edit if isinstance(edit, tuple) else (edit,)):
+                    text = text if e is None else e(text)
+            except RuntimeError:   # a variant of another checkout's source
+                continue
             cu.write_text(text)
             lib = out_dir / f"lib{kern}_{label}.so"
             procs[(kern, label)] = (lib, subprocess.Popen(
-                [dev.nvcc_path(), *dev.NVCC_FLAGS, *dev.KERNELS[kern], "-o", str(lib), str(cu)],
+                [dev.nvcc_path(), *dev.NVCC_FLAGS, *dev.KERNELS[kern],
+                 "-I", str(root / "vpcc_tpu_torch" / "csrc"), "-o", str(lib), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     res = {}
     for (kern, label), (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant {kern} {label}: nvcc failed\n{log}")
-        saved = {e: dev.kernel_fn(kern, e, []) for e in HC_ENTRIES[kern]}
+        saved = {e: dev.kernel_fn(kern, e, []) for e in HC_ENTRIES[kern]
+                 if hasattr(dev.load_kernel(kern), e)}
         cdll = ctypes.CDLL(str(lib))
         for e, fn in saved.items():
             v = getattr(cdll, e)
@@ -1920,7 +2018,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose vpcc_tpu_torch is timed")
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N,W,X",
+    ap.add_argument("--kernels", default="P,E,A,G,K,J,F,O,Q,H,C,M,D,L,B,R,N,W,X,V",
                     help="kernels whose entries are timed")
     ap.add_argument("--trace", action="store_true",
                     help="also each device kernel's time and launches a call")

@@ -1,15 +1,13 @@
 // Kernel L: push-pull background fill of a stack of video planes, rounded
-// to int32, and the push alone over a stack of planes.
+// to int32.
 //
 // Replaces the XLA program vpcc_tpu/ops/padding.py `push_pull_fill`
 // (padding.py:23) as vpcc_tpu/video/hevc.py `_round_int_plane` (hevc.py:1380)
 // runs it on every geometry plane (vmapped over the planes of one call, each
 // under its own occupancy in the level-batched GOF path): unoccupied pixels
 // take a mip-pyramid interpolation of the occupied ones, then the plane is
-// rounded half to even.  The second entry, `push_levels`, builds the value
-// and weight pyramids of `harmonic_fill` (padding.py:109, levels while both
-// sides exceed 2) and of `smooth_fill`'s push-pull (:58, sides above 1) for a
-// (C, H, W) stack under one occupancy; kernel W (bg_fill.cu) pulls them.
+// rounded half to even.  (The pyramids of `harmonic_fill` and `smooth_fill`
+// are kernel W's own push, bg_fill.cu.)
 //
 // The function.  Push (levels 1..L, while both sides of the level below are
 // even and above 1): a coarse pixel's value and weight sums of its 2x2
@@ -49,11 +47,6 @@
 // Where L <= T, one launch does it all (phase 1, "value / weight" at level
 // L, phase 3); where L = 0 (an odd side) one launch writes the image where
 // occupied, else 0.
-//
-// push_levels: one launch per level, a thread per (coarse pixel, plane),
-// summed ((a + b) + c) + d (the harmonic fill's order was not probed), value
-// sums reaching 2^24 counted; the plane-0 threads also write the weight
-// sums, which the stack shares.
 //
 // Bound: bytes.  The image and occupancy read once and the output written
 // once; the level-t planes and the second read of the image (phase 3) stay
@@ -362,47 +355,6 @@ __global__ void copy_kernel(const int32_t* img, const uint8_t* occ, int occ_plan
   }
 }
 
-__global__ void push_stack0(const int32_t* img, const uint8_t* occ, float* v1, float* w1,
-                            int H, int W, int* inexact) {
-  const int h = H / 2, w = W / 2;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h * w) return;
-  const int c = blockIdx.y;
-  const int32_t* im = img + static_cast<size_t>(c) * H * W;
-  const int y = 2 * (i / w), x = 2 * (i % w);
-  float a[4], b[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int p = (y + (k >> 1)) * W + x + (k & 1);
-    const float o = static_cast<float>(occ[p]);
-    a[k] = __fmul_rn(static_cast<float>(im[p]), o);
-    b[k] = o;
-  }
-  const float v = sum4(a[0], a[1], a[2], a[3], false);
-  v1[static_cast<size_t>(c) * h * w + i] = v;
-  count_inexact(v, inexact);
-  if (c == 0) w1[i] = sum4(b[0], b[1], b[2], b[3], false);
-}
-
-__global__ void push_stack(const float* v0, const float* w0, float* v1, float* w1, int H,
-                           int W, int* inexact) {
-  const int h = H / 2, w = W / 2;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h * w) return;
-  const int c = blockIdx.y;
-  const int y = 2 * (i / w), x = 2 * (i % w);
-  const int p = y * W + x;
-  const float* v = v0 + static_cast<size_t>(c) * H * W;
-  const float sv = sum4(v[p], v[p + 1], v[p + W], v[p + W + 1], false);
-  v1[static_cast<size_t>(c) * h * w + i] = sv;
-  count_inexact(sv, inexact);
-  if (c == 0) w1[i] = sum4(w0[p], w0[p + 1], w0[p + W], w0[p + W + 1], false);
-}
-
-inline unsigned blocks_for(long long n, int threads) {
-  return static_cast<unsigned>((n + threads - 1) / threads);
-}
-
 // the launch plan of one call: levels, t, and the scratch floats (level t's
 // values, weights and fill; the top's levels where they exceed top_smem
 // bytes of shared memory)
@@ -511,41 +463,5 @@ extern "C" int push_pull(const int32_t* img, const uint8_t* occ, float* scratch,
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   launch_tile<kTileLog, kPull>(a, vec, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// img: (C, H, W) int32; occ: (H, W) uint8.  Levels l = 1..L while both sides
-// of level l-1 are even and above min_side; vals receives (C, h_l, w_l) per
-// level and wts (h_l, w_l) per level, each level after the previous one
-// (vpcc_tpu_torch/ops/padding.py push_levels); inexact: device int32 counter
-// of value sums reaching 2^24.
-extern "C" int push_levels(const int32_t* img, const uint8_t* occ, float* vals, float* wts,
-                           int C, int H, int W, int min_side, int* inexact, void* stream,
-                           int* launched) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = 256;
-  *launched = 0;
-  int h = H, w = W;
-  const float* pv = nullptr;
-  const float* pw = nullptr;
-  int ph = H, pw_ = W;
-  while (h > min_side && w > min_side && h % 2 == 0 && w % 2 == 0) {
-    h /= 2;
-    w /= 2;
-    const long long n = static_cast<long long>(h) * w;
-    const dim3 grid(blocks_for(n, T), C);
-    if (pv == nullptr) {
-      push_stack0<<<grid, T, 0, st>>>(img, occ, vals, wts, ph, pw_, inexact);
-    } else {
-      push_stack<<<grid, T, 0, st>>>(pv, pw, vals, wts, ph, pw_, inexact);
-    }
-    ++*launched;
-    pv = vals;
-    pw = wts;
-    vals += static_cast<size_t>(C) * n;
-    wts += n;
-    ph = h;
-    pw_ = w;
-  }
   return static_cast<int>(cudaGetLastError());
 }

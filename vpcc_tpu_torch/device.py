@@ -80,15 +80,15 @@ KERNELS: Dict[str, list] = {
 
 # entries of a kernel's library counted apart from it: the unpacked-table
 # k-NN of kernel E (grids above 10 bits), kernel C with EOM layers and with
-# PLR layers, kernel V's RDO, kernel L's push over a stack, kernel W's
-# dilation and its pull/relaxation, kernel P's five entries (paint, group
+# PLR layers, kernel V's RDO, kernel W's dilation and its harmonic (and
+# smoothed push-pull) fill, kernel P's five entries (paint, group
 # dilation, gather, scalar paint and gather; nothing counts as
 # "attr_image"), kernel X's viewpoint orientation (its flood counts as
 # "orient"), kernel F's high-gradient aux, the frame-batched entries of
 # kernels E and M (the level-batched GOF path), and the two-level (16/8)
 # wavefront encode and decode of kernels I and A (planes above 10 bits)
 ENTRIES = ("grid_knn_xyz", "generate_points_eom", "generate_points_plr", "plr_rdo",
-           "push_levels", "bg_dilate", "bg_relax", "attr_paint", "attr_group_dilate",
+           "bg_dilate", "bg_harmonic", "attr_paint", "attr_group_dilate",
            "attr_gather", "attr_paint_scalar", "attr_gather_scalar", "orient_viewpoint",
            "high_gradient_aux", "grid_knn_batch", "recolor_exact_batch", "recolor_blend_batch",
            "wavefront_encode16", "wavefront_decode16")
@@ -226,7 +226,7 @@ def _digest(paths: Iterable[Path], flags: list) -> str:
 def _kernel_lib_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     flags = NVCC_FLAGS + KERNELS[name]
-    return BUILD_DIR / f"lib{name}-{_digest([src], flags)}.so"
+    return BUILD_DIR / f"lib{name}-{_digest([src, *sorted(CSRC_DIR.glob('*.cuh'))], flags)}.so"
 
 
 def nvcc_path() -> str:

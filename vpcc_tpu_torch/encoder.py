@@ -18,7 +18,7 @@ frame:
   the sweeps cover every point) and color pre-smoothing (kernel N);
 * the attribute video: paint the two layers (kernel P), the background
   fill of attributeBGFill (push-pull, kernel L; sparse dilation, kernel W;
-  harmonic fill, kernels L and W), group dilation (kernel P), T0/T1 through
+  harmonic fill, kernel W), group dilation (kernel P), T0/T1 through
   the attribute substream encoders (kernels J, B, I, O, K), then the
   encoder-side colors gathered from the decoded layers (kernel P);
 * with a reflectance attribute in the frame: the source reflectance
@@ -738,15 +738,16 @@ class Encoder:
         plr_modes, plr_inexact = None, 0
         if plr_on:
             # reference encoder.py:617-636; the patch outputs hold the
-            # patch count rounded up to 64, as the reference's
+            # patch count rounded up to 64, as the reference's.  The result
+            # is on the host: kernel V's one packed read
             as_t = lambda a: pipeline._as_int32(a, d).contiguous()
             r = plr.rdo(as_t(geo_dec[0]), as_t(fr.frame.geometry0), as_t(fr.frame.geometry1),
                         pipeline._as_uint8(fr.occ_rec, d), as_t(btp),
                         as_t(pipeline.plr_table(cfg)), cfg.occupancyResolution,
                         int(cfg.patchSize), ((len(fr.patches) + 63) // 64) * 64 or 64)
-            plr_modes, plr_inexact = r.block_modes.cpu().numpy(), r.inexact
-            plr.assign_patch_plr(fr.patches, plr_modes, btp, r.patch_level.cpu().numpy(),
-                                 r.patch_modes.cpu().numpy())
+            plr_modes, plr_inexact = r.block_modes.numpy(), r.inexact
+            plr.assign_patch_plr(fr.patches, plr_modes, btp, r.patch_level.numpy(),
+                                 r.patch_modes.numpy())
         occ_for_recon = fr.occ_rec
         if cfg.pbfEnableFlag:
             # PBF replaces the upsampled occupancy on both sides (reference

@@ -17,12 +17,11 @@ twin (the plain PyTorch version, used for tensors on the CPU):
   takes the rounded (half to even) average of its filled neighbours, until
   the plane is full, a pass fills nothing (a fixed point) or 1024 passes
   have run;
-* harmonic fill (`harmonic_fill`, :109; kernels L and W,
-  attributeBGFill=2): push-pull's pyramid stopping at sides of 2 (not 1),
+* harmonic fill (`harmonic_fill`, :109; kernel W, attributeBGFill=2): push-pull's pyramid stopping at sides of 2 (not 1),
   pulled coarse to fine with 8 Jacobi steps per level, the pixels with
   weight held at value / weight;
-* smoothed push-pull (`smooth_fill`, :58; kernels L and W; no caller in
-  either package): push-pull, then 4 Jacobi steps with the occupied pixels
+* smoothed push-pull (`smooth_fill`, :58; kernel W; no caller in either
+  package): push-pull, then 4 Jacobi steps with the occupied pixels
   held.
 
 Every stencil wraps around the plane, as the reference's `jnp.roll`: the
@@ -46,19 +45,22 @@ top); the push-pull follows it.  At a "?" level, and at every level of a
 shape not in the table, the push sums S and counts the blocks whose sum
 reaches 2^24 (`inexact_blocks`): their order is not established, and a
 caller that needs exactness requires the count to stay 0.  The same holds
-for `push_levels` (the harmonic fill's push, another XLA program whose
-order was not probed), which always sums S and counts.  The attribute call
+for the pyramid of the harmonic and smoothed fills (`push_levels_plain`;
+the harmonic fill's push is another XLA program whose order was not
+probed), which always sums S and counts.  The attribute call
 site (`fill_rgb`, channels vmapped last) sums level 1 of square
 power-of-two planes S where `push_pull_fill` sums P; 8-bit sums there stay
 below 2^11, exact in either order.
 
-Kernel L (csrc/push_pull.cu) has two entries: the whole push-pull of a
-stack of planes, each under its own occupancy or all under one, rounded to
-int32 (`push_pull_round`), and the push alone over a stack of planes
-sharing one occupancy (`push_levels`).  Kernel W
-(csrc/bg_fill.cu) runs the dilation (a frontier walked level by level in
-one persistent launch between a seed and a finish launch), the pull and
-relaxation levels, and the final selection and rounding.
+Kernel L (csrc/push_pull.cu) runs the whole push-pull of a stack of
+planes, each under its own occupancy or all under one, rounded to int32
+(`push_pull_round`).  Kernel W (csrc/bg_fill.cu) runs the dilation (a
+frontier walked level by level in one persistent launch between a seed and
+a finish launch) and the harmonic and smoothed fills (one entry: a push
+launch, a launch for the levels of at most 80 x 80 pixels, a block a
+plane, and one launch a larger level, 64 x 64 tiles with their halo
+relaxed in shared memory, the first of three or more inside the second's
+launch; the last selects, and rounds and clips where asked).
 """
 
 from __future__ import annotations
@@ -269,8 +271,6 @@ def round_clip_plain(filled: torch.Tensor, lo: int = 0, hi: int = 255) -> torch.
 
 _NULL = ctypes.c_void_p(0)
 _PP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
-_PUSH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 # the shared memory kernel L's top phase may take, in bytes (the H100's
 # 227 KB a block; above it the top's levels go to scratch)
 PUSH_TOP_SMEM = 232448
@@ -326,54 +326,14 @@ def push_pull_round(image: torch.Tensor, occupancy: torch.Tensor) -> torch.Tenso
     return out.reshape(image.shape)
 
 
-def push_levels(planes: torch.Tensor, occupancy: torch.Tensor, min_side: int):
-    """Kernel L's push entry: `push_levels_plain` of a (C, H, W) int32 stack
-    under one (H, W) uint8 occupancy (one launch per level; the weights
-    once for the stack)."""
-    if planes.device.type == "cpu":
-        return push_levels_plain(planes, occupancy, min_side)
-    _check_planes(planes, occupancy, "push_levels")
-    C, H, W = planes.shape
-    shapes = _levels(H, W, min_side)[1:]
-    n = [a * b for a, b in shapes]
-    vals = torch.empty(C * sum(n), dtype=torch.float32, device=planes.device)
-    wts = torch.empty(sum(n), dtype=torch.float32, device=planes.device)
-    launched = ctypes.c_int(0)
-    rc = dev.kernel_fn("push_pull", "push_levels", _PUSH_ARGS)(
-        dev.ptr(planes), dev.ptr(occupancy), dev.ptr(vals), dev.ptr(wts), C, H, W, min_side,
-        dev.ptr(_inexact_counter(planes.device)), dev.stream_handle(), ctypes.byref(launched))
-    dev.count_launch("push_levels", launched.value)
-    dev.check_launch("push_levels", rc)
-    out_v, out_w, off = [], [], 0
-    for (a, b), k in zip(shapes, n):
-        out_v.append(vals[C * off:C * (off + k)].view(C, a, b))
-        out_w.append(wts[off:off + k].view(a, b))
-        off += k
-    return out_v, out_w
-
-
 # ---------------------------------------------------------------------------
 # kernel W
 
 _DILATE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-_PULL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_RELAX_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-_FINISH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_HARMONIC_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 _DILATE_HEADER = 4   # csrc/bg_fill.cu kHeader: three list counters, the passes run
-
-
-def _finish(fill, planes, occupancy, out, lo: int = 0, hi: int = 255):
-    """Kernel W: the occupied pixels take the image (float, in place), and
-    with `out` the planes are rounded half to even and clipped into it
-    (counted with the harmonic fill's launches)."""
-    C, H, W = fill.shape
-    rc = dev.kernel_fn("bg_fill", "bg_finish", _FINISH_ARGS)(
-        dev.ptr(fill), dev.ptr(planes), dev.ptr(occupancy),
-        _NULL if out is None else dev.ptr(out), C, H * W, lo, hi, dev.stream_handle())
-    dev.count_launch("bg_relax", 1 if C * H * W else 0)
-    dev.check_launch("bg_relax", rc)
 
 
 @functools.lru_cache(maxsize=64)
@@ -421,87 +381,68 @@ def dilate_fill(planes: torch.Tensor, occupancy: torch.Tensor,
     return (x if out is None else out), int(scratch[_DILATE_HEADER - 1])
 
 
-def _relax(x: torch.Tensor, tmp: torch.Tensor, mask: torch.Tensor, n: int) -> None:
-    """Kernel W: n Jacobi steps of the (C, h, w) float32 planes `x` in
-    place, the pixels whose (h, w) mask (uint8 occupancy or float32
-    weights) is above 0 held."""
-    C, h, w = x.shape
-    launched = ctypes.c_int(0)
-    rc = dev.kernel_fn("bg_fill", "bg_relax", _RELAX_ARGS)(dev.ptr(x), dev.ptr(tmp), dev.ptr(mask),
-                                     int(mask.dtype == torch.uint8), C, h, w, n,
-                                     dev.stream_handle(), ctypes.byref(launched))
-    dev.count_launch("bg_relax", launched.value)
-    dev.check_launch("bg_relax", rc)
+@functools.lru_cache(maxsize=64)
+def harmonic_scratch_floats(C: int, H: int, W: int, min_side: int, steps: int,
+                            steps0: int) -> int:
+    """float32 scratch kernel W's harmonic entry takes for C planes of H x W
+    (csrc/bg_fill.cu plans it)."""
+    fn = dev.kernel_fn("bg_fill", "bg_harmonic_scratch_floats", [ctypes.c_int] * 6)
+    fn.restype = ctypes.c_longlong
+    return fn(C, H, W, min_side, steps, steps0)
 
 
-def _pull_relax(planes, occupancy, vals, wts, n_smooth: int):
-    """Kernel W: the pull from the coarsest level down with `n_smooth`
-    Jacobi steps per level (the pixels with weight held), level 0 reading
-    the image and occupancy.  Returns (C, H, W) float32 (not yet selected
-    at the occupied pixels)."""
+def _harmonic(planes, occupancy, min_side: int, steps: int, steps0: int, hold_img: bool,
+              floats: bool, rounded: bool, what: str):
+    """Kernel W's harmonic entry on a (C, H, W) int32 stack: (float32
+    planes or None, rounded int32 planes or None)."""
+    _check_planes(planes, occupancy, what)
     C, H, W = planes.shape
     d = planes.device
-    shapes = [(H, W)] + [tuple(v.shape[-2:]) for v in vals]
-    tmp = torch.empty(C * H * W, dtype=torch.float32, device=d)
-    pull = dev.kernel_fn("bg_fill", "bg_pull", _PULL_ARGS)
-    fill = parent = None
-    for lvl in range(len(shapes) - 1, -1, -1):
-        h, w = shapes[lvl]
-        fill = torch.empty((C, h, w), dtype=torch.float32, device=d)
-        top = int(parent is None)
-        if lvl == 0:
-            rc = pull(dev.ptr(planes), dev.ptr(occupancy), _NULL, _NULL,
-                      _NULL if top else dev.ptr(parent), dev.ptr(fill), C, h, w, top,
-                      dev.stream_handle())
-        else:
-            rc = pull(_NULL, _NULL, dev.ptr(vals[lvl - 1]), dev.ptr(wts[lvl - 1]),
-                      _NULL if top else dev.ptr(parent), dev.ptr(fill), C, h, w, top,
-                      dev.stream_handle())
-        dev.count_launch("bg_relax", 1)
-        dev.check_launch("bg_relax", rc)
-        _relax(fill, tmp, occupancy if lvl == 0 else wts[lvl - 1], n_smooth)
-        parent = fill
-    return fill
+    n = harmonic_scratch_floats(C, H, W, min_side, steps, steps0)
+    fill = torch.empty((C, H, W), dtype=torch.float32, device=d) if floats else None
+    out = torch.empty((C, H, W), dtype=torch.int32, device=d) if rounded else None
+    scratch = dev.scratch("bg_harmonic", d, max(n, 1))
+    launched = ctypes.c_int(0)
+    rc = dev.kernel_fn("bg_fill", "bg_harmonic", _HARMONIC_ARGS)(
+        dev.ptr(planes), dev.ptr(occupancy), dev.ptr(scratch),
+        _NULL if fill is None else dev.ptr(fill), _NULL if out is None else dev.ptr(out),
+        C, H, W, min_side, steps, steps0, int(hold_img), 0, 255,
+        dev.ptr(_inexact_counter(d)), dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("bg_harmonic", launched.value)
+    dev.check_launch("bg_harmonic", rc)
+    return fill, out
 
 
 def harmonic_fill(planes: torch.Tensor, occupancy: torch.Tensor,
-                  n_smooth: int = HARMONIC_SMOOTH) -> torch.Tensor:
-    """Kernels L (push) and W (pull, relaxation, selection):
-    `harmonic_fill_plain` of a (C, H, W) int32 stack on the card."""
+                  n_smooth: int = HARMONIC_SMOOTH, rounded: bool = False) -> torch.Tensor:
+    """Kernel W, harmonic fill: `harmonic_fill_plain` of a (C, H, W) int32
+    stack on the card, and with `rounded` its `round_clip_plain` (int32) in
+    its place.  One launch pushes levels 1..5 (32 x 32 regions in shared
+    memory, the weights once for the stack, the value sums reaching 2^24
+    counted in `inexact_blocks`), one pushes the rest and pulls and relaxes
+    every level of at most 80 x 80 pixels whole in shared memory (a block a
+    plane), then one launch a larger level (one for each 8 steps of a level
+    that runs more) pulls 64 x 64 tiles with a halo of 8 pixels and relaxes
+    them in shared memory; level 0 also selects (and rounds and clips).  6
+    launches on 1280 x 1280 planes, no host wait."""
     if planes.device.type == "cpu":
-        return harmonic_fill_plain(planes, occupancy, n_smooth)
-    _check_planes(planes, occupancy, "harmonic_fill")
-    vals, wts = push_levels(planes, occupancy, 2)
-    fill = _pull_relax(planes, occupancy, vals, wts, n_smooth)
-    _finish(fill, planes, occupancy, None)
-    return fill
+        x = harmonic_fill_plain(planes, occupancy, n_smooth)
+        return round_clip_plain(x) if rounded else x
+    fill, out = _harmonic(planes, occupancy, 2, n_smooth, n_smooth, False, not rounded,
+                          rounded, "harmonic_fill")
+    return out if rounded else fill
 
 
 def smooth_fill(planes: torch.Tensor, occupancy: torch.Tensor,
                 iterations: int = SMOOTH_ITERATIONS) -> torch.Tensor:
-    """Kernels L and W: `smooth_fill_plain` of a (C, H, W) int32 stack on
-    the card: the push-pull unrounded (L's push, W's pull without steps),
-    then W's relaxation with the occupied pixels held."""
+    """Kernel W: `smooth_fill_plain` of a (C, H, W) int32 stack on the card,
+    through the harmonic entry: the push-pull's pyramid (sides above 1,
+    summed ((a + b) + c) + d, the sums reaching 2^24 counted), the pull with
+    no steps above level 0, then `iterations` Jacobi steps at level 0 with
+    the occupied pixels held at the image."""
     if planes.device.type == "cpu":
         return smooth_fill_plain(planes, occupancy, iterations)
-    _check_planes(planes, occupancy, "smooth_fill")
-    vals, wts = push_levels(planes, occupancy, 1)
-    fill = _pull_relax(planes, occupancy, vals, wts, 0)
-    _finish(fill, planes, occupancy, None)
-    _relax(fill, torch.empty_like(fill), occupancy, iterations)
-    return fill
-
-
-def round_clip(filled: torch.Tensor, planes: torch.Tensor,
-               occupancy: torch.Tensor) -> torch.Tensor:
-    """Kernel W's finish with an int32 output: `round_clip_plain` of the
-    selected planes (the occupied pixels from `planes`)."""
-    if filled.device.type == "cpu":
-        return round_clip_plain(torch.where(occupancy.to(torch.bool), planes.to(torch.float32),
-                                            filled))
-    out = torch.empty(filled.shape, dtype=torch.int32, device=filled.device)
-    _finish(filled, planes, occupancy, out)
-    return out
+    return _harmonic(planes, occupancy, 1, 0, iterations, True, True, False, "smooth_fill")[0]
 
 
 def fill_rgb(planes: torch.Tensor, occupancy: torch.Tensor, mode: int = 1) -> torch.Tensor:
@@ -511,14 +452,14 @@ def fill_rgb(planes: torch.Tensor, occupancy: torch.Tensor, mode: int = 1) -> to
     uint8 occupancy by attributeBGFill `mode` (0 dilation, 1 push-pull,
     2 harmonic), rounded half to even and clipped to 0..255.  Every mode
     fills the whole stack at once: kernel L for mode 1 (its clip changes
-    nothing: the fill averages integer channels of 0..255), kernel W (with
-    L's push for mode 2) for modes 0 and 2."""
+    nothing: the fill averages integer channels of 0..255), kernel W for
+    modes 0 and 2, its selection, rounding and clip in its last launch."""
     h, w = planes.shape[-2:]
     flat = planes.reshape(-1, h, w)
     if mode == 0:
         out, _ = dilate_fill(flat, occupancy, rounded=True)
     elif mode == 2:
-        out = round_clip(harmonic_fill(flat, occupancy), flat, occupancy)
+        out = harmonic_fill(flat, occupancy, rounded=True)
     else:
         out = push_pull_round(flat.contiguous(), occupancy)
     return out.reshape(planes.shape)

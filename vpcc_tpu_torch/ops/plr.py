@@ -21,7 +21,8 @@ Kernel V (csrc/plr.cu) has two entries:
   the block's mode (the first minimum of max(fwd / src, bwd / gen)), then
   per patch the sums pooled over its blocks in raster order, the patch's
   mode, whether it is small (<= block_threshold blocks), and the final
-  block modes.
+  block modes; two launches, the four results read back in one packed
+  buffer.
 
 Float order: the reference sums integer errors in float32.  A float32 sum
 of non-negative integers is exact, whatever its order, while it stays below
@@ -58,6 +59,8 @@ MODE_TABLE = np.array(
 
 
 class Rdo(NamedTuple):
+    """The RDO's result, on the host (the kernel's one packed read; the plain
+    version's copied there), as its one caller, the encoder, reads it."""
     block_modes: torch.Tensor   # (nbH, nbW) int32
     patch_level: torch.Tensor   # (P,) bool: one patch-level mode
     patch_modes: torch.Tensor   # (P,) int32
@@ -126,7 +129,7 @@ def rdo_plain(geo0_dec, geo0_true, geo1_true, occ, btp, mode_tbl, res: int,
               block_threshold: int, p_max: int) -> Rdo:
     """Plain PyTorch version of kernel V's RDO (reference `rdo`).  geo
     planes (H, W) int32, occ (H, W) uint8 or bool decoded occupancy, btp
-    (H/res, W/res) int32, mode_tbl (M, 4) int32."""
+    (H/res, W/res) int32, mode_tbl (M, 4) int32.  The result on the host."""
     d = geo0_dec.device
     g0d, g0t, g1t = (t.to(torch.int64) for t in (geo0_dec, geo0_true, geo1_true))
     occ_b = occ != 0
@@ -196,21 +199,28 @@ def rdo_plain(geo0_dec, geo0_true, geo1_true, occ, btp, mode_tbl, res: int,
     lvl_b = (pid > 0) & patch_level[sel]
     modes = torch.where(lvl_b, patch_modes[sel], block_arg.reshape(-1))
     block_modes = torch.where(pid > 0, modes, torch.zeros_like(modes)).reshape(nbh, nbw)
-    return Rdo(block_modes.to(torch.int32), patch_level, patch_modes, inexact)
+    return Rdo(block_modes.to(torch.int32).cpu(), patch_level.cpu(), patch_modes.cpu(), inexact)
 
 
 # ---------------------------------------------------------------------------
 # kernel V
 
 _CODE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-_BLOCK_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
-_PATCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+_RDO_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3 + [
+    ctypes.POINTER(ctypes.c_int)]
 
 
-def _fn(name: str, args):
-    fn = getattr(dev.load_kernel("plr"), name)
-    fn.argtypes, fn.restype = args, ctypes.c_int
-    return fn
+_PINNED: list = []
+
+
+def _pinned(n: int):
+    """(n int32 of page-locked host memory for the RDO's packed result, a
+    numpy view of the whole buffer): one buffer, grown and never shrunk;
+    the caller copies out of it."""
+    if not _PINNED or _PINNED[0].numel() < n:
+        buf = torch.empty(max(n, 1 << 14), dtype=torch.int32, pin_memory=True)
+        _PINNED[:] = [buf, buf.numpy()]
+    return _PINNED[0][:n], _PINNED[1]
 
 
 def _check_table(mode_tbl, d):
@@ -234,7 +244,7 @@ def code_plane(geo, block_modes, mode_tbl, res: int):
         raise ValueError(f"plr code plane: geo {tuple(geo.shape)}, modes "
                          f"{tuple(block_modes.shape)}, res {res}")
     out = torch.empty_like(geo)
-    rc = _fn("plr_code", _CODE_ARGS)(
+    rc = dev.kernel_fn("plr", "plr_code", _CODE_ARGS)(
         dev.ptr(geo), dev.ptr(block_modes), dev.ptr(mode_tbl), mode_tbl.shape[0], h, w, res,
         dev.ptr(out), dev.stream_handle())
     dev.count_launch("plr", 1 if h * w else 0)
@@ -244,12 +254,15 @@ def code_plane(geo, block_modes, mode_tbl, res: int):
 
 def rdo(geo0_dec, geo0_true, geo1_true, occ, btp, mode_tbl, res: int,
         block_threshold: int, p_max: int) -> Rdo:
-    """Kernel V, RDO: `rdo_plain` on the card.  One launch gives each block
-    a thread block, which sums every mode's errors and counts exactly and
-    picks the block's mode; a second gives each patch index (0 = none) a
-    warp, which pools its blocks in raster order, picks the patch's mode
-    and writes its blocks' final modes.  occ (H, W) uint8.  The launches
-    count as the RDO entry's (`plr_rdo`)."""
+    """Kernel V, RDO: `rdo_plain` on the card, its result on the host.  One
+    launch gives each block a thread block, a thread a pixel, whose warps
+    sum every mode's errors and counts exactly and pick the block's mode;
+    a second gives each patch index (0 = none) a thread block, which lists
+    its blocks in raster order, pools them sequentially along the list,
+    picks the patch's mode and writes its blocks' final modes.  Block
+    modes, patch levels, patch modes and the inexact count come back in
+    one packed buffer, read once.  occ (H, W) uint8.  The launches count
+    as the RDO entry's (`plr_rdo`)."""
     if geo0_dec.device.type == "cpu":
         return rdo_plain(geo0_dec, geo0_true, geo1_true, occ, btp, mode_tbl, res,
                          block_threshold, p_max)
@@ -267,28 +280,23 @@ def rdo(geo0_dec, geo0_true, geo1_true, occ, btp, mode_tbl, res: int,
     m = mode_tbl.shape[0]
     nbh, nbw = h // res, w // res
     nb = nbh * nbw
-    f32 = dict(dtype=torch.float32, device=d)
-    bfwd, bbwd, bgen = (torch.empty((nb, m), **f32) for _ in range(3))
-    bsrc = torch.empty(nb, **f32)
-    block_arg = torch.empty(nb, dtype=torch.int32, device=d)
-    inexact = torch.zeros(1, dtype=torch.int32, device=d)
-    rc = _fn("plr_rdo_blocks", _BLOCK_ARGS)(
-        dev.ptr(geo0_dec), dev.ptr(geo0_true), dev.ptr(geo1_true), dev.ptr(occ),
-        dev.ptr(mode_tbl), m, h, w, res, dev.ptr(bfwd), dev.ptr(bbwd),
-        dev.ptr(bgen), dev.ptr(bsrc), dev.ptr(block_arg), dev.ptr(inexact),
-        dev.stream_handle())
-    dev.count_launch("plr_rdo", 1 if nb else 0)
+    n = 1 + nb + 2 * p_max
+    scratch = dev.scratch("plr_rdo", d, nb * (3 * m + 3) + n)
+    packed = scratch[nb * (3 * m + 3):]
+    launched = ctypes.c_int(0)
+    # pointers as ints (ctypes converts them for the c_void_p arguments)
+    rc = dev.kernel_fn("plr", "plr_rdo", _RDO_ARGS)(
+        geo0_dec.data_ptr(), geo0_true.data_ptr(), geo1_true.data_ptr(), occ.data_ptr(),
+        btp.data_ptr(), mode_tbl.data_ptr(), m, h, w, res, int(block_threshold), p_max,
+        scratch.data_ptr(), packed.data_ptr(), dev.stream_handle(), ctypes.byref(launched))
+    dev.count_launch("plr_rdo", launched.value)
     dev.check_launch("plr", rc)
-    block_modes = torch.empty((nbh, nbw), dtype=torch.int32, device=d)
-    patch_level = torch.empty(p_max, dtype=torch.bool, device=d)
-    patch_modes = torch.empty(p_max, dtype=torch.int32, device=d)
-    rc = _fn("plr_rdo_patches", _PATCH_ARGS)(
-        dev.ptr(btp), dev.ptr(bfwd), dev.ptr(bbwd), dev.ptr(bgen), dev.ptr(bsrc),
-        dev.ptr(block_arg), nb, m, p_max, int(block_threshold), dev.ptr(block_modes),
-        dev.ptr(patch_level), dev.ptr(patch_modes), dev.ptr(inexact), dev.stream_handle())
-    dev.count_launch("plr_rdo")
-    dev.check_launch("plr", rc)
-    return Rdo(block_modes, patch_level, patch_modes, int(inexact))
+    pinned, view = _pinned(n)
+    pinned.copy_(packed[:n])   # the one host read: waits for the two launches
+    host = view[:n].copy()
+    return Rdo(torch.from_numpy(host[1:1 + nb].reshape(nbh, nbw)),
+               torch.from_numpy(host[1 + nb:1 + nb + p_max] != 0),
+               torch.from_numpy(host[1 + nb + p_max:]), int(host[0]))
 
 
 # ---------------------------------------------------------------------------
